@@ -1,0 +1,135 @@
+"""The PyTorch port stands alone: no JAX, no pandas, nothing of the JAX
+package, and no silent CPU fallback.
+
+- A full CPU scoring run of the committed fixture in a fresh interpreter
+  leaves no ``jax*``, ``pandas*`` or ``transmogrifai_tpu[.*]`` module loaded.
+- A scan of the port's sources finds no such import; pandas appears only
+  inside the reader's DataFrame branch, and Triton only
+  in the kernel module that the launching wrappers import lazily.
+- With no CUDA device, the entry points raise unless ``device="cpu"`` is
+  given.
+"""
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+import transmogrifai_tpu_torch as P
+from transmogrifai_tpu_torch import fixtures as FX
+
+torch.set_num_threads(1)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(ROOT, "transmogrifai_tpu_torch")
+#: the only place pandas may be imported: inside this function
+PANDAS_OK = {("readers/base.py", "_frame_columns")}
+TRITON_MODULE = "ops/triton_vectorize.py"
+
+SCRIPT = r"""
+import sys
+import numpy as np
+import transmogrifai_tpu_torch as P
+from transmogrifai_tpu_torch import fixtures as FX
+m = P.load_model(FX.TITANIC_XGB, device="cpu")
+cols = FX.load_columns(FX.TITANIC_XGB + "/requests.npz")
+s = m.score(cols)
+out = P.BatchScoreFunction(m)(FX.records(cols)[:8])
+one = P.ScoreFunction(m)(FX.records(cols)[0])
+assert len(s) == len(cols["Age"]) and len(out) == 8 and one
+bad = sorted(k for k in sys.modules
+             if k.split(".")[0] in ("jax", "jaxlib", "pandas", "transmogrifai_tpu"))
+print("BAD=" + ",".join(bad))
+"""
+
+
+def test_cpu_scoring_run_loads_no_jax_pandas_or_jax_package():
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", SCRIPT], capture_output=True, text=True,
+                         env=env, cwd=ROOT, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    line = [ln for ln in out.stdout.splitlines() if ln.startswith("BAD=")][-1]
+    assert line == "BAD=", line
+
+
+def _imports(tree):
+    """(module name, enclosing function or None) for every import."""
+    found = []
+
+    def visit(node, func):
+        for child in ast.iter_child_nodes(node):
+            f = child.name if isinstance(child, (ast.FunctionDef, ast.AsyncFunctionDef)) \
+                else func
+            if isinstance(child, ast.Import):
+                found.extend((a.name, func) for a in child.names)
+            elif isinstance(child, ast.ImportFrom) and child.level == 0:
+                found.append((child.module or "", func))
+            visit(child, f)
+
+    visit(tree, None)
+    return found
+
+
+def _sources():
+    for dirpath, _, files in os.walk(PKG):
+        for fn in files:
+            if fn.endswith(".py"):
+                path = os.path.join(dirpath, fn)
+                yield os.path.relpath(path, PKG).replace(os.sep, "/"), path
+
+
+def test_sources_import_no_jax_pandas_or_jax_package():
+    problems = []
+    for rel, path in _sources():
+        with open(path) as fh:
+            tree = ast.parse(fh.read(), path)
+        for mod, func in _imports(tree):
+            top = mod.split(".")[0]
+            if top in ("jax", "jaxlib", "transmogrifai_tpu"):
+                problems.append(f"{rel}: imports {mod}")
+            if top == "pandas" and (rel, func) not in PANDAS_OK:
+                problems.append(f"{rel}: imports pandas in {func or 'module scope'}")
+            if top == "triton" and rel != TRITON_MODULE:
+                problems.append(f"{rel}: imports triton")
+            if mod.endswith("triton_vectorize") and func is None:
+                problems.append(f"{rel}: imports the Triton kernels at module scope")
+    assert not problems, problems
+    for rel, path in _sources():  # relative imports of the Triton module too
+        with open(path) as fh:
+            for node in ast.parse(fh.read()).body:
+                if isinstance(node, ast.ImportFrom) and any(
+                        a.name == "triton_vectorize" for a in node.names):
+                    problems.append(f"{rel}: imports the Triton kernels at module scope")
+    assert not problems, problems
+
+
+def test_entry_points_raise_without_a_card_unless_cpu_is_asked():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is available")
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        P.load_model(FX.TITANIC_XGB)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        P.resolve_device("cuda")
+    unplaced = P.load_model(FX.TITANIC_XGB, device="cpu")
+    unplaced.device = None
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        P.BatchScoreFunction(unplaced)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        P.ScoreFunction(unplaced)
+    assert P.load_model(FX.TITANIC_XGB, device="cpu").device == torch.device("cpu")
+
+
+def test_model_class_paths_map_to_the_port():
+    from transmogrifai_tpu_torch.workflow.serialization import _resolve_class, port_module
+
+    assert port_module("transmogrifai_tpu.impl.feature.vectorizers") == \
+        "transmogrifai_tpu_torch.impl.feature.vectorizers"
+    assert port_module("transmogrifai_tpu_torch.ops.trees") == "transmogrifai_tpu_torch.ops.trees"
+    assert port_module("transmogrifai_tpu") == "transmogrifai_tpu_torch"
+    assert port_module("mypkg.transmogrifai_tpu.x") == "mypkg.transmogrifai_tpu.x"
+    cls = _resolve_class("transmogrifai_tpu.impl.classification.trees:OpXGBoostClassifier")
+    assert cls.__module__ == "transmogrifai_tpu_torch.impl.classification.trees"
+    with pytest.raises(NotImplementedError, match="not ported"):
+        _resolve_class("transmogrifai_tpu.impl.feature.dates:DateListVectorizer")

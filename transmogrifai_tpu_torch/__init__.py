@@ -1,0 +1,21 @@
+"""transmogrifai_tpu_torch — the PyTorch/CUDA port of transmogrifai_tpu.
+
+It grows beside the JAX package, slice by slice, and imports neither JAX,
+pandas nor any module of ``transmogrifai_tpu``.  This slice serves: a
+workflow model that the JAX package trained and saved loads with
+``load_model(path, device=None)`` and scores through
+``OpWorkflowModel.score``, ``BatchScoreFunction`` and ``ScoreFunction``.
+Entry points run on the CUDA card unless the caller asks for the CPU
+(``device="cpu"``); there is no silent fallback.  The device programs of the
+path are hand-written kernels (``ops/trees.py``, ``ops/vectorize.py``).
+"""
+from . import types
+from .columns import Column, Dataset, NumericColumn, ObjectColumn, PredictionColumn, VectorColumn
+from .features.builder import FeatureBuilder
+from .features.feature import Feature
+from .local.scoring import (BatchScoreFunction, ScoreFunction, batch_score_function,
+                            load_model_local, score_function)
+from .utils.device import resolve_device
+from .workflow.model import OpWorkflowModel, load_model
+
+__all__ = [n for n in dir() if not n.startswith("_")]

@@ -1,0 +1,252 @@
+"""Numeric and categorical vectorizers + vector assembly, transform only.
+
+The port's copy of ``RealVectorizerModel``, ``OneHotVectorizerModel`` and
+``VectorsCombiner`` from ``transmogrifai_tpu/impl/feature/vectorizers.py``
+(reference: numeric vectorizers, OpOneHotVectorizer.scala:140,
+VectorsCombiner.scala:51).  Each runs on its device through the fused-layer
+protocol (``impl/feature/_util.py``):
+
+- ``RealVectorizerModel``: host prep stacks the value and mask columns,
+  the device program is K-C ``fill_indicator`` (``ops/vectorize.py``).
+- ``OneHotVectorizerModel``: host prep maps labels to fitted category codes
+  without pandas, the device program is K-D ``one_hot_codes``.  Columns
+  holding collections pivot through the per-row host path, as in the JAX
+  package.
+- ``VectorsCombiner``: ``torch.cat`` of device matrices.
+"""
+from __future__ import annotations
+
+import decimal
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ... import types as T
+from ...columns import Column, NumericColumn, ObjectColumn, VectorColumn
+from ...features.metadata import (NULL_INDICATOR, OTHER_INDICATOR, VectorColumnMetadata,
+                                  VectorMetadata)
+from ...ops.vectorize import fill_indicator, one_hot_codes
+from ...readers.base import null_mask
+from ...stages.base import Model, SequenceTransformer
+from ._util import finalize_vector, run_on_device
+
+
+def _vector_meta(stage, cols_meta: List[VectorColumnMetadata]) -> VectorMetadata:
+    name = stage.get_outputs()[0].name
+    cols = [VectorColumnMetadata(c.parent_feature_name, c.parent_feature_type, c.grouping,
+                                 c.indicator_value, c.descriptor_value, i)
+            for i, c in enumerate(cols_meta)]
+    return VectorMetadata(name, tuple(cols))
+
+
+# ---------------------------------------------------------------------------
+# Numeric vectorizer
+# ---------------------------------------------------------------------------
+class RealVectorizerModel(Model):
+    def __init__(self, fills: np.ndarray, track_nulls: bool, operation_name: str = "vecReal",
+                 output_type=T.OPVector, uid: Optional[str] = None, **kw):
+        super().__init__(operation_name, output_type, uid=uid, **kw)
+        self.fills = np.asarray(fills, dtype=np.float64)
+        self.track_nulls = track_nulls
+
+    def transform_columns(self, cols: Sequence[Column]) -> VectorColumn:
+        return run_on_device(self, cols)
+
+    # ---- fused-layer protocol ---------------------------------------------
+    def torch_host_prep(self, cols) -> List[np.ndarray]:
+        """values f32[k, n], mask bool[k, n] and fills f32[k]: one upload each."""
+        for f, col in zip(self.inputs, cols):
+            assert isinstance(col, NumericColumn), f"RealVectorizer input {f.name} not numeric"
+        return [np.stack([np.asarray(c.values, np.float32) for c in cols]),
+                np.stack([c.mask for c in cols]),
+                np.asarray(self.fills, np.float32)]
+
+    def torch_transform(self, values, mask, fills):
+        return fill_indicator(values, mask, fills, bool(self.track_nulls))
+
+    def torch_out_metadata(self, cols):
+        meta = []
+        for f in self.inputs:
+            meta.append(VectorColumnMetadata((f.name,), (f.ftype.__name__,)))
+            if self.track_nulls:
+                meta.append(VectorColumnMetadata((f.name,), (f.ftype.__name__,),
+                                                 indicator_value=NULL_INDICATOR))
+        vm = _vector_meta(self, meta)
+        self.metadata["vector_metadata"] = vm
+        return vm
+
+
+# ---------------------------------------------------------------------------
+# Categorical pivot (one-hot)
+# ---------------------------------------------------------------------------
+_SCALAR_SETS = ({str}, {bool}, {int}, {float}, {int, float}, {decimal.Decimal})
+
+
+def _kind_of_type(t: type) -> type:
+    for kind, types in ((str, (str, np.str_)), (bool, (bool, np.bool_)),
+                        (int, (int, np.integer)), (float, (float, np.floating)),
+                        (decimal.Decimal, (decimal.Decimal,))):
+        if issubclass(t, types):
+            return kind
+    return object
+
+
+def is_scalar_kind(values: np.ndarray) -> bool:
+    """Whether non-null values all infer to one scalar categorical kind:
+    the numpy counterpart of the JAX package's check
+    ``pd.api.types.infer_dtype(values) in SCALAR_DTYPE_KINDS`` (string,
+    boolean, integer, floating, mixed-integer-float, decimal or empty).  Any
+    other mix, and every collection, pivots through the per-row path."""
+    kinds = {_kind_of_type(t) for t in set(map(type, values))}
+    return not kinds or any(kinds == s for s in _SCALAR_SETS)
+
+
+def _present(values: np.ndarray) -> np.ndarray:
+    """``~pd.isnull``: None, float NaN and NaT are null."""
+    return ~null_mask(values)
+
+
+def scalar_codes(col: Column) -> Optional[Tuple[List[str], np.ndarray, np.ndarray]]:
+    """Vectorized (labels, codes, present) for SCALAR categorical columns, or
+    None for collection-typed columns (sets/lists pivot per row)."""
+    if isinstance(col, NumericColumn):
+        uniq, inv = np.unique(col.values, return_inverse=True)
+        return [str(u) for u in uniq], inv, col.mask.copy()
+    assert isinstance(col, ObjectColumn)
+    vals = col.values
+    present = _present(vals)
+    if not is_scalar_kind(vals[present]):
+        return None
+    filled = np.where(present, vals, "")
+    uniq, inv = np.unique(filled.astype(str), return_inverse=True)
+    return list(uniq), inv, present
+
+
+def _values_of(col: Column, i: int) -> List[str]:
+    if isinstance(col, ObjectColumn):
+        v = col.values[i]
+        if v is None:
+            return []
+        if isinstance(v, (set, frozenset, list, tuple)):
+            return [str(x) for x in v]
+        return [str(v)]
+    assert isinstance(col, NumericColumn)
+    return [str(col.values[i])] if col.mask[i] else []
+
+
+class OneHotVectorizerModel(Model):
+    def __init__(self, categories: List[List[str]], track_nulls: bool,
+                 unseen_name: str = OTHER_INDICATOR, operation_name: str = "pivot",
+                 output_type=T.OPVector, uid: Optional[str] = None, **kw):
+        super().__init__(operation_name, output_type, uid=uid, **kw)
+        self.categories = categories
+        self.track_nulls = track_nulls
+        self.unseen_name = unseen_name
+
+    def _widths(self) -> List[int]:
+        return [len(c) + (2 if self.track_nulls else 1) for c in self.categories]
+
+    def transform_columns(self, cols: Sequence[Column]) -> VectorColumn:
+        if self.torch_host_ready(cols):
+            return run_on_device(self, cols)
+        # a column of collections: the JAX package's host path, column by column
+        n = len(cols[0])
+        blocks = []
+        for col, cats, width in zip(cols, self.categories, self._widths()):
+            index = {c: j for j, c in enumerate(cats)}
+            k = len(cats)
+            coded = scalar_codes(col)
+            if coded is not None:
+                block = one_hot_codes(torch.from_numpy(self._targets(coded, cats))[None],
+                                      [width]).numpy()
+            else:
+                block = np.zeros((n, width), dtype=np.float32)
+                for i in range(n):
+                    vals = _values_of(col, i)
+                    if not vals:
+                        if self.track_nulls:
+                            block[i, k + 1] = 1.0
+                        continue
+                    for v in vals:
+                        j = index.get(v)
+                        block[i, k if j is None else j] = 1.0  # k = OTHER
+            blocks.append(block)
+        vm = self.torch_out_metadata(cols)
+        return finalize_vector(self, blocks, vm.columns, n)
+
+    def _targets(self, coded, cats: List[str]) -> np.ndarray:
+        """i32[n]: [0,k) category, k OTHER, k+1 null, -1 no output (null
+        with track_nulls off)."""
+        index = {c: j for j, c in enumerate(cats)}
+        k = len(cats)
+        labels, inv, present = coded
+        lab_target = np.array([index.get(lab, k) for lab in labels] or [0], dtype=np.int32)
+        return np.where(present, lab_target[inv],
+                        k + 1 if self.track_nulls else -1).astype(np.int32)
+
+    # ---- fused-layer protocol: the label -> code lookup stays on the host,
+    # the one-hot expansion + null/OTHER columns run on the device ----------
+    def torch_host_ready(self, cols) -> bool:
+        for col in cols:
+            if isinstance(col, NumericColumn):
+                continue
+            if not isinstance(col, ObjectColumn):
+                return False
+            if not is_scalar_kind(col.values[_present(col.values)]):
+                return False  # collection values pivot through the host path
+        return True
+
+    def torch_host_prep(self, cols) -> List[np.ndarray]:
+        """Category codes i32[inputs, n] (see ``_targets``): one upload."""
+        n = len(cols[0])
+        outs = [self._targets(scalar_codes(col), cats)
+                for col, cats in zip(cols, self.categories)]
+        return [np.stack(outs) if outs else np.zeros((0, n), np.int32)]
+
+    def torch_transform(self, codes):
+        return one_hot_codes(codes, self._widths())
+
+    def torch_out_metadata(self, cols):
+        meta = []
+        for f, cats in zip(self.inputs, self.categories):
+            ind = list(cats) + [self.unseen_name] \
+                + ([NULL_INDICATOR] if self.track_nulls else [])
+            for v in ind:
+                meta.append(VectorColumnMetadata((f.name,), (f.ftype.__name__,),
+                                                 grouping=None, indicator_value=v))
+        vm = _vector_meta(self, meta)
+        self.metadata["vector_metadata"] = vm
+        return vm
+
+
+# ---------------------------------------------------------------------------
+# Vector assembly
+# ---------------------------------------------------------------------------
+class VectorsCombiner(SequenceTransformer):
+    """Concatenate OPVectors, merging metadata (VectorsCombiner.scala:51)."""
+
+    def __init__(self, uid: Optional[str] = None):
+        super().__init__(operation_name="combineVector", output_type=T.OPVector, uid=uid)
+
+    def transform_columns(self, cols: Sequence[Column]) -> VectorColumn:
+        for f, col in zip(self.inputs, cols):
+            assert isinstance(col, VectorColumn), f"VectorsCombiner input {f.name} not a vector"
+        return run_on_device(self, cols)
+
+    # ---- fused-layer protocol ---------------------------------------------
+    def torch_transform(self, *args):
+        return torch.cat([a.to(torch.float32) for a in args], dim=1)
+
+    def torch_out_metadata(self, cols):
+        metas = []
+        for f, col in zip(self.inputs, cols):
+            if col.metadata is not None:
+                metas.append(col.metadata)
+            else:
+                metas.append(VectorMetadata(f.name, tuple(
+                    VectorColumnMetadata((f.name,), (f.ftype.__name__,), index=i)
+                    for i in range(col.width))))
+        vm = VectorMetadata.flatten(self.get_outputs()[0].name, metas)
+        self.metadata["vector_metadata"] = vm
+        return vm
