@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from transmogrifai_tpu_torch.ops import stats as K
 from transmogrifai_tpu_torch.ops import trees as Tr
 from transmogrifai_tpu_torch.ops import vectorize as V
 
@@ -88,3 +89,136 @@ def test_one_hot_codes_matches_plain(dev):
     c = torch.from_numpy(codes).to(dev)
     got = _counted(V.one_hot_codes, lambda: V.one_hot_codes(c, widths))
     assert torch.equal(got, V.one_hot_codes_plain(c, widths))
+
+
+# ---------------------------------------------------------------------------
+# the boosting fit's kernels (K-E ... K-H)
+# ---------------------------------------------------------------------------
+def _level_inputs(rng, n, d, B, T, m, integer):
+    Xb = rng.integers(0, B, size=(n, d)).astype(np.int8)
+    if integer:  # every float32 sum exact: any summation order agrees
+        ghw = rng.integers(-3, 4, size=(T, n, 2)).astype(np.float32)
+    else:
+        ghw = rng.normal(size=(T, n, 2)).astype(np.float32)
+    ids = rng.integers(-1, m, size=(T, n)).astype(np.int32)
+    return Xb, ghw, ids
+
+
+@pytest.mark.parametrize("integer", [True, False])
+@pytest.mark.parametrize("light", [False, True])
+def test_level_hist_matches_plain(dev, integer, light):
+    rng = np.random.default_rng(3)
+    n, d, B, T, m = 20011, 10, 32, 3, 16  # three row chunks
+    Xb, ghw, ids = _level_inputs(rng, n, d, B, T, m // 2 if light else m, integer)
+    args = [torch.from_numpy(a).to(dev) for a in (Xb, ghw, ids)]
+    extra = []
+    if light:
+        parent = torch.from_numpy(rng.integers(-50, 50, size=(T, 12, 2, d, B))
+                                  .astype(np.float32)).to(dev)
+        pp = torch.from_numpy(rng.integers(-1, 12, size=(T, m // 2)).astype(np.int32)).to(dev)
+        pl = torch.from_numpy(rng.integers(0, 2, size=(T, m // 2)).astype(np.int32)).to(dev)
+        extra = [parent, pp, pl]
+    got = _counted(Tr.level_hist, lambda: Tr.level_hist(*args, m, B, *extra))
+    want = Tr.level_hist_plain(*args, m, B, *extra)
+    # both sum in 64-bit fixed point, where the order of the sums is immaterial
+    assert torch.equal(got, want)
+    assert torch.equal(got, Tr.level_hist(*args, m, B, *extra))
+
+
+@pytest.mark.parametrize("cap_mode", [Tr.CAP_NONE, Tr.CAP_CLAMP, Tr.CAP_BEAM])
+def test_split_scan_and_route_match_plain(dev, cap_mode):
+    rng = np.random.default_rng(4 + cap_mode)
+    n, d, B, T, m = 3001, 10, 32, 4, 64
+    Xb, ghw, ids = _level_inputs(rng, n, d, B, T, m, integer=False)
+    Xb_t, ghw_t, ids_t = (torch.from_numpy(a).to(dev) for a in (Xb, ghw, ids))
+    hist = Tr.level_hist_plain(Xb_t, ghw_t.abs(), ids_t, m, B)  # one histogram for both
+    fm = torch.ones((T, d), device=dev)
+    fm[1, 3] = 0.0
+    params = torch.tensor([[1.0, 0.0, 1.0, 0.0], [1.0, 0.5, 10.0, 0.0],
+                           [1e-6, 0.0, 1.0, 0.001], [2.0, 0.8, 5.0, 0.0]], device=dev)
+    next_cap = 2 * m if cap_mode == Tr.CAP_NONE else m
+    P = 4 * m
+    outs = []
+    n_act = torch.tensor([m, m - 5, 7, 0], dtype=torch.int32, device=dev)
+    for fn in (Tr.split_scan, Tr.split_scan_plain):
+        nodes = torch.full((T, P, 4), 9, dtype=torch.int32, device=dev)
+        leaf = torch.full((T, P), 9.0, device=dev)
+        res = fn(hist, fm, params, n_act, nodes, leaf, m - 1, 2 * m - 1, next_cap,
+                 cap_mode, True)
+        outs.append((nodes, leaf) + tuple(res))
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+    split, pl = outs[0][2], outs[0][4]
+    rs = torch.from_numpy(rng.integers(-1, m, size=(T, n)).astype(np.int32)).to(dev)
+    rn = torch.from_numpy(rng.integers(0, m, size=(T, n)).astype(np.int32)).to(dev)
+    got = _counted(Tr.route_rows, lambda: Tr.route_rows(Xb_t, rs, rn, split, pl, 2 * m - 1))
+    want = Tr.route_rows_plain(Xb_t, rs, rn, split, pl, 2 * m - 1)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def test_boost_step_matches_plain(dev):
+    rng = np.random.default_rng(5)
+    T, n, P = 3, 10007, 63
+    F = torch.from_numpy(rng.normal(size=(T, n)).astype(np.float32) * 3).to(dev)
+    y = torch.from_numpy((rng.random(n) < 0.4).astype(np.float32)).to(dev)
+    w = torch.from_numpy(rng.integers(0, 3, size=(T, n)).astype(np.float32)).to(dev)
+    eta = torch.tensor([0.3, 0.02, 1.0], device=dev)
+    leaf = torch.from_numpy(rng.normal(size=(T, P)).astype(np.float32)).to(dev)
+    node = torch.from_numpy(rng.integers(0, P, size=(T, n)).astype(np.int32)).to(dev)
+    F1, F2 = F.clone(), F.clone()
+    g1, g2 = torch.empty((T, n, 2), device=dev), torch.empty((T, n, 2), device=dev)
+    _counted(Tr.boost_step, lambda: Tr.boost_step(F1, y, w, eta, leaf, node, g1))
+    Tr.boost_step_plain(F2, y, w, eta, leaf, node, g2)
+    assert torch.equal(F1, F2)  # the update is two correctly rounded operations
+    # expf of libdevice and of the host may differ by an ulp
+    torch.testing.assert_close(g1, g2, rtol=1e-6, atol=2e-7)
+
+
+def test_grow_trees_matches_plain_on_exact_sums(dev):
+    rng = np.random.default_rng(6)
+    n, d, B, T, depth = 5000, 10, 32, 2, 6
+    Xb = torch.from_numpy(rng.integers(0, B, size=(n, d)).astype(np.int8))
+    g = rng.integers(-2, 3, size=(T, n)).astype(np.float32)
+    h = rng.integers(1, 3, size=(T, n)).astype(np.float32)
+    ghw = torch.from_numpy(np.stack([g, h], axis=2))
+    fm = torch.ones((T, d))
+    params = torch.tensor([[1.0, 0.0, 1.0, 0.0], [1.0, 0.8, 10.0, 0.0]])
+    for exact in (True, False):
+        want = Tr.grow_trees(Xb, ghw, fm, params, depth, B, 16, exact)
+        got = Tr.grow_trees(Xb.to(dev), ghw.to(dev), fm.to(dev), params.to(dev), depth, B,
+                            16, exact)
+        for a, b in zip(got, want):
+            assert torch.equal(a.cpu(), b)
+
+
+def test_level_hist_raises_beyond_its_fixed_point_range(dev):
+    Xb = torch.zeros((2, 1), dtype=torch.int8, device=dev)
+    ids = torch.zeros((1, 2), dtype=torch.int32, device=dev)
+    edge = torch.full((1, 2, 2), 2.0 ** 30 - 64, device=dev)
+    got = Tr.level_hist(Xb, edge, ids, 1, 2)
+    assert torch.equal(got, Tr.level_hist_plain(Xb, edge, ids, 1, 2))
+    assert got[0, 0, 0, 0, 0].item() == 2.0 ** 31 - 128
+    with pytest.raises(ValueError, match="fixed-point range"):
+        Tr.level_hist(Xb, torch.full((1, 2, 2), 2.0 ** 30, device=dev), ids, 1, 2)
+
+
+@pytest.mark.parametrize("n,d", [(1, 3), (257, 16), (100000, 41)])
+def test_corr_gram_matches_plain(dev, n, d):
+    rng = np.random.default_rng(n + d)
+    Z = torch.from_numpy(rng.normal(size=(n, d)).astype(np.float32)).to(dev)
+    got = _counted(K.corr_gram, lambda: K.corr_gram(Z))
+    want = K.corr_gram_plain(Z)
+    # float32 sums in another order: a few ulps of sqrt(n) x |z|^2 / n
+    torch.testing.assert_close(got, want, rtol=0, atol=2e-6)
+    assert torch.equal(got, K.corr_gram(Z))  # runs repeat bit for bit
+
+
+@pytest.mark.parametrize("c", [1, 2, 17])
+def test_contingency_counts_matches_plain(dev, c):
+    rng = np.random.default_rng(c)
+    n, d = 100000, 23
+    X = torch.from_numpy((rng.random((n, d)) < 0.3).astype(np.float32)).to(dev)
+    cls = torch.from_numpy(rng.integers(-1, c + 1, n).astype(np.int32)).to(dev)
+    got = _counted(K.contingency_counts, lambda: K.contingency_counts(X, cls, c))
+    assert torch.equal(got, K.contingency_counts_plain(X, cls, c))  # integer counts

@@ -1,11 +1,12 @@
 """The PyTorch port stands alone: no JAX, no pandas, nothing of the JAX
 package, and no silent CPU fallback.
 
-- A full CPU scoring run of the committed fixture in a fresh interpreter
-  leaves no ``jax*``, ``pandas*`` or ``transmogrifai_tpu[.*]`` module loaded.
+- A full CPU scoring run of the committed fixture, and a CPU training run of
+  the Titanic flow with a save and a reload, in a fresh interpreter leave no
+  ``jax*``, ``pandas*`` or ``transmogrifai_tpu[.*]`` module loaded.
 - A scan of the port's sources finds no such import; pandas appears only
   inside the reader's DataFrame branch, and Triton only
-  in the kernel module that the launching wrappers import lazily.
+  in the kernel modules that the launching wrappers import lazily.
 - With no CUDA device, the entry points raise unless ``device="cpu"`` is
   given.
 """
@@ -26,7 +27,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "transmogrifai_tpu_torch")
 #: the only place pandas may be imported: inside this function
 PANDAS_OK = {("readers/base.py", "_frame_columns")}
-TRITON_MODULE = "ops/triton_vectorize.py"
+TRITON_MODULES = {"ops/triton_vectorize.py": "triton_vectorize",
+                  "ops/triton_boost.py": "triton_boost"}
 
 SCRIPT = r"""
 import sys
@@ -39,6 +41,17 @@ s = m.score(cols)
 out = P.BatchScoreFunction(m)(FX.records(cols)[:8])
 one = P.ScoreFunction(m)(FX.records(cols)[0])
 assert len(s) == len(cols["Age"]) and len(out) == 8 and one
+import tempfile
+from transmogrifai_tpu_torch.apps import titanic
+from transmogrifai_tpu_torch.impl.classification.trees import OpXGBoostClassifier
+grid = [{"num_round": 2, "max_depth": 2, "min_child_weight": 1.0}]
+trained, _ = titanic.train_titanic(
+    titanic.titanic_data(120, 1), device="cpu", model_types=None,
+    models_and_parameters=[(OpXGBoostClassifier(), grid)])
+with tempfile.TemporaryDirectory() as tmp:
+    trained.save(tmp)
+    again = P.load_model(tmp, device="cpu").score(titanic.titanic_data(50, 2))
+assert len(again) == 50
 bad = sorted(k for k in sys.modules
              if k.split(".")[0] in ("jax", "jaxlib", "pandas", "transmogrifai_tpu"))
 print("BAD=" + ",".join(bad))
@@ -91,16 +104,16 @@ def test_sources_import_no_jax_pandas_or_jax_package():
                 problems.append(f"{rel}: imports {mod}")
             if top == "pandas" and (rel, func) not in PANDAS_OK:
                 problems.append(f"{rel}: imports pandas in {func or 'module scope'}")
-            if top == "triton" and rel != TRITON_MODULE:
+            if top == "triton" and rel not in TRITON_MODULES:
                 problems.append(f"{rel}: imports triton")
-            if mod.endswith("triton_vectorize") and func is None:
+            if mod.split(".")[-1] in TRITON_MODULES.values() and func is None:
                 problems.append(f"{rel}: imports the Triton kernels at module scope")
     assert not problems, problems
-    for rel, path in _sources():  # relative imports of the Triton module too
+    for rel, path in _sources():  # relative imports of the Triton modules too
         with open(path) as fh:
             for node in ast.parse(fh.read()).body:
                 if isinstance(node, ast.ImportFrom) and any(
-                        a.name == "triton_vectorize" for a in node.names):
+                        a.name in TRITON_MODULES.values() for a in node.names):
                     problems.append(f"{rel}: imports the Triton kernels at module scope")
     assert not problems, problems
 
@@ -119,6 +132,12 @@ def test_entry_points_raise_without_a_card_unless_cpu_is_asked():
     with pytest.raises(RuntimeError, match='device="cpu"'):
         P.ScoreFunction(unplaced)
     assert P.load_model(FX.TITANIC_XGB, device="cpu").device == torch.device("cpu")
+    from transmogrifai_tpu_torch.apps import titanic
+
+    wf, _ = titanic.build_workflow()
+    wf.set_input_dataset(titanic.titanic_data(60, 3), key="PassengerId")
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        wf.train()
 
 
 def test_model_class_paths_map_to_the_port():

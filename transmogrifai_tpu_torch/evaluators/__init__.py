@@ -1,0 +1,34 @@
+"""Evaluators (reference core/src/main/scala/com/salesforce/op/evaluators/).
+
+The port's copy of ``transmogrifai_tpu/evaluators``: the binary
+classification evaluator and the ``Evaluators`` factory's AuPR metric
+(``Evaluators.BinaryClassification.auPR()``, Evaluators.scala:40), the
+binary selector's default.  The factory's other metrics, custom metrics and
+the multiclass and regression evaluators are not ported.
+"""
+from .base import OpBinaryClassificationEvaluatorBase, OpEvaluatorBase
+from .classification import OpBinaryClassificationEvaluator, binary_counts, pr_auc, roc_auc
+
+
+class _SingleMetric(OpEvaluatorBase):
+    """Wrap a full evaluator, exposing one metric as the default."""
+
+    def __init__(self, inner: OpEvaluatorBase, metric: str, larger_better: bool):
+        super().__init__(inner.label_col, inner.prediction_col)
+        self.inner = inner
+        self.name = f"{inner.name}.{metric}"
+        self.default_metric = metric
+        self.is_larger_better = larger_better
+
+    def evaluate_all(self, ds, label_col=None, prediction_col=None):
+        return self.inner.evaluate_all(ds, label_col, prediction_col)
+
+    def evaluate_arrays(self, y, prediction, probability=None):
+        return self.inner.evaluate_arrays(y, prediction, probability)
+
+
+class Evaluators:
+    class BinaryClassification:
+        @staticmethod
+        def auPR() -> OpEvaluatorBase:
+            return _SingleMetric(OpBinaryClassificationEvaluator(), "AuPR", True)

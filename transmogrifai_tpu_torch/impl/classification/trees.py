@@ -1,26 +1,44 @@
-"""Tree-ensemble classifiers on the scoring path.
+"""Tree-ensemble classifiers: RandomForest / GBT / DecisionTree / XGBoost.
 
-The prediction halves of ``transmogrifai_tpu/impl/classification/trees.py``
+The port's counterpart of ``transmogrifai_tpu/impl/classification/trees.py``
 (reference: OpRandomForestClassifier, OpGBTClassifier,
-OpDecisionTreeClassifier, OpXGBoostClassifier): bin the feature matrix with
-the fitted edges (K-A ``bin_rows``), walk the ensemble (K-B
-``ensemble_walk``), then turn the leaf means or margins into predictions on
-the host in float64, exactly as the JAX package does.  Fitting is not ported.
+OpDecisionTreeClassifier, OpXGBoostClassifier).  Prediction: bin the
+feature matrix with the fitted edges (K-A ``bin_rows``), walk the ensemble
+(K-B ``ensemble_walk``), then turn the leaf means or margins into
+predictions on the host in float64, exactly as the JAX package does.
+Fitting: the boosted models (GBT, XGBoost) with the logistic loss, through
+``ops/trees.fit_gbt`` (``fit_arrays``) and the fold x grid sweep
+``boosted_grid_folds`` (``fit_grid_folds``).  The forest fits and the
+softmax loss are not ported.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ...ops import trees as Tr
-from ..selector.predictor import PredictorEstimator
-from ..trees_common import tree_from_params
+from ..feature._util import stage_device
+from ..selector.predictor import PredictorEstimator, as_matrix
+from ..trees_common import (DEFAULT_MAX_FRONTIER, DEFAULT_MAX_FRONTIER_BOOSTED,
+                            boosted_grid_folds, effective_trees_per_round,
+                            gbt_boost_params, tree_from_params, tree_params,
+                            xgb_boost_params)
 
 
 class _TreeClassifierBase(PredictorEstimator):
     is_classifier = True
+    #: boosted subclasses override, so the refit grows the beam the sweep measured
+    _max_frontier_default = DEFAULT_MAX_FRONTIER
+
+    def _n_classes(self, y: np.ndarray) -> int:
+        return max(int(np.max(y)) + 1 if len(y) else 2, 2)
+
+    def _frontier(self, n: int, depth: int, mcw: float, h_max: float) -> int:
+        return Tr.frontier_cap(
+            n, depth, mcw, h_max=h_max,
+            max_frontier=int(self.get_param("max_frontier", self._max_frontier_default)))
 
     @classmethod
     def device_params(cls, params: Dict[str, Any], device: torch.device) -> Dict[str, Any]:
@@ -30,7 +48,8 @@ class _TreeClassifierBase(PredictorEstimator):
 
 
 class OpRandomForestClassifier(_TreeClassifierBase):
-    """Histogram forest with class-distribution leaves."""
+    """Histogram forest with class-distribution leaves (prediction only: the
+    forest fit comes with the fused sweep)."""
 
     @staticmethod
     def _dist_to_preds(dist: np.ndarray, num_trees: int
@@ -53,7 +72,46 @@ class OpDecisionTreeClassifier(OpRandomForestClassifier):
 
 
 class _BoostedClassifierBase(_TreeClassifierBase):
-    """Boosted trees: binary logistic or multiclass softmax margins."""
+    """Boosted trees: binary logistic (fit and predict) or multiclass
+    softmax (predict) margins."""
+
+    _max_frontier_default = DEFAULT_MAX_FRONTIER_BOOSTED
+
+    def _boost_params(self) -> Dict[str, Any]:
+        raise NotImplementedError
+
+    def fit_arrays(self, X, y: np.ndarray, w: Optional[np.ndarray] = None) -> Dict[str, Any]:
+        bp = self._boost_params()
+        X = as_matrix(X, stage_device(self))
+        dev = X.device
+        n, d = X.shape
+        k = self._n_classes(y)
+        Xb, edges = Tr.quantize(X, bp["n_bins"])
+        sw = np.ones(n, np.float32) if w is None else np.asarray(w, np.float32)
+        ks, kf = Tr.rng_keys(int(self.get_param("seed", 42)))
+        rw = Tr.subsample_weights(ks, n, bp["n_rounds"], bp["subsample"], dev)
+        fms = Tr.feature_masks(kf, d, bp["n_rounds"], bp["colsample"], dev)
+        loss = "logistic" if k == 2 else "softmax"
+        frontier = self._frontier(n, bp["max_depth"], bp["min_child_weight"], 0.25)
+        k_eff = effective_trees_per_round(bp.get("trees_per_round", 1), bp["n_rounds"])
+        trees, _ = Tr.fit_gbt(
+            Xb, torch.from_numpy(np.asarray(y, np.float32)).to(dev),
+            torch.from_numpy(sw).to(dev), rw, fms, loss=loss, n_rounds=bp["n_rounds"],
+            max_depth=bp["max_depth"], n_bins=bp["n_bins"], frontier=frontier,
+            eta=bp["eta"], reg_lambda=bp["reg_lambda"], gamma=bp["gamma"],
+            min_child_weight=bp["min_child_weight"], n_classes=k,
+            min_info_gain=bp.get("min_info_gain", 0.0), trees_per_round=k_eff)
+        return tree_params(trees, edges=edges, max_depth=bp["max_depth"],
+                           eta=bp["eta"] / k_eff, num_classes=k, loss=loss)
+
+    def fit_grid_folds(self, X, y, train_w, grids):
+        """The fold x grid sweep: grids sharing static shape params grow as
+        one tree batch (``trees_common.boosted_grid_folds``)."""
+        k = self._n_classes(y)
+        loss = "logistic" if k == 2 else "softmax"
+        return boosted_grid_folds(self, as_matrix(X, stage_device(self)), y, train_w, grids,
+                                  loss=loss, n_classes=k,
+                                  convert=lambda F: self._margins_to_preds(loss, F))
 
     @staticmethod
     def _margins_to_preds(loss: str, F: np.ndarray
@@ -84,8 +142,35 @@ class _BoostedClassifierBase(_TreeClassifierBase):
 
 
 class OpGBTClassifier(_BoostedClassifierBase):
-    """Spark GBTClassifier analog."""
+    """Spark GBTClassifier analog (maxIter=20, stepSize=0.1)."""
+
+    def __init__(self, max_iter: int = 20, max_depth: int = 5, max_bins: int = 32,
+                 step_size: float = 0.1, subsampling_rate: float = 1.0,
+                 min_instances_per_node: int = 1, min_info_gain: float = 0.0,
+                 seed: int = 42, uid: Optional[str] = None, **extra):
+        super().__init__(operation_name="OpGBTClassifier", uid=uid, max_iter=max_iter,
+                         max_depth=max_depth, max_bins=max_bins, step_size=step_size,
+                         subsampling_rate=subsampling_rate,
+                         min_instances_per_node=min_instances_per_node,
+                         min_info_gain=min_info_gain, seed=seed, **extra)
+
+    def _boost_params(self):
+        return gbt_boost_params(self)
 
 
 class OpXGBoostClassifier(_BoostedClassifierBase):
-    """XGBoost-parameterized boosting."""
+    """XGBoost-parameterized boosting (eta/numRound/lambda/gamma/subsample)."""
+
+    def __init__(self, num_round: int = 100, eta: float = 0.3, max_depth: int = 6,
+                 max_bins: int = 32, reg_lambda: float = 1.0, gamma: float = 0.0,
+                 min_child_weight: float = 1.0, subsample: float = 1.0,
+                 colsample_bytree: float = 1.0, seed: int = 42,
+                 uid: Optional[str] = None, **extra):
+        super().__init__(operation_name="OpXGBoostClassifier", uid=uid,
+                         num_round=num_round, eta=eta, max_depth=max_depth,
+                         max_bins=max_bins, reg_lambda=reg_lambda, gamma=gamma,
+                         min_child_weight=min_child_weight, subsample=subsample,
+                         colsample_bytree=colsample_bytree, seed=seed, **extra)
+
+    def _boost_params(self):
+        return xgb_boost_params(self)

@@ -1,23 +1,24 @@
-"""Numeric bucketizers on the scoring path.
+"""Numeric bucketizers: fixed-split and label-aware (decision-tree) binning.
 
-The port's copy of ``DecisionTreeNumericBucketizerModel`` and
-``NumericBucketizer`` from ``transmogrifai_tpu/impl/feature/bucketizers.py``
-(reference: NumericBucketizer.scala:54, DecisionTreeNumericBucketizer.scala:60).
-The one-hot bucket membership runs on the stage's device with plain torch
-ops; the right-side ``np.searchsorted`` becomes ``torch.searchsorted`` in
-float64.  The tree fit that learns the splits is not ported.
+The port's copy of ``NumericBucketizer``, ``DecisionTreeNumericBucketizer``
+(with ``find_tree_splits``) and its model from
+``transmogrifai_tpu/impl/feature/bucketizers.py`` (reference:
+NumericBucketizer.scala:54, DecisionTreeNumericBucketizer.scala:60).  The
+split search is the JAX package's host numpy histogram sweep.  The one-hot
+bucket membership runs on the stage's device with plain torch ops; the
+right-side ``np.searchsorted`` becomes ``torch.searchsorted`` in float64.
 """
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ... import types as T
-from ...columns import Column, NumericColumn, VectorColumn
+from ...columns import Column, Dataset, NumericColumn, VectorColumn
 from ...features.metadata import NULL_INDICATOR, VectorColumnMetadata, VectorMetadata
-from ...stages.base import Model, UnaryTransformer
+from ...stages.base import AllowLabelAsInput, BinaryEstimator, Model, UnaryTransformer
 from ._util import finalize_vector, stage_device
 
 
@@ -78,6 +79,110 @@ class NumericBucketizer(UnaryTransformer):
         f = self.inputs[0]
         meta = _bucket_meta(f.name, f.ftype.__name__, splits, track_nulls, track_invalid)
         return finalize_vector(self, [block], meta, len(col))
+
+
+def find_tree_splits(values: np.ndarray, labels: np.ndarray, max_depth: int = 2,
+                     min_info_gain: float = 0.01, max_bins: int = 32,
+                     min_instances_per_node: int = 1) -> List[float]:
+    """Decision-tree split thresholds via vectorized histogram impurity sweep.
+
+    Gini impurity over integer class labels; candidate thresholds are
+    ``max_bins`` quantile edges (Spark DecisionTree's binning strategy).
+    Recursion depth ``max_depth`` yields at most 2^depth buckets.
+    """
+    if values.size == 0:
+        return []
+    classes = np.unique(labels)
+    if classes.size < 2:
+        return []
+    y = np.searchsorted(classes, labels)
+    k = classes.size
+    edges = np.unique(np.quantile(values, np.linspace(0, 1, max_bins + 1)[1:-1]))
+    if edges.size == 0:
+        return []
+
+    def gini(counts: np.ndarray) -> float:
+        tot = counts.sum()
+        if tot == 0:
+            return 0.0
+        p = counts / tot
+        return float(1.0 - np.sum(p * p))
+
+    def best_split(vals: np.ndarray, ys: np.ndarray) -> Optional[Tuple[float, float]]:
+        if vals.size < 2 * min_instances_per_node:
+            return None
+        # class histogram per candidate bin
+        bin_idx = np.searchsorted(edges, vals, side="right")  # 0..len(edges)
+        hist = np.zeros((edges.size + 1, k), dtype=np.float64)
+        np.add.at(hist, (bin_idx, ys), 1.0)
+        left = np.cumsum(hist, axis=0)[:-1]          # counts <= edge_j
+        total = hist.sum(axis=0)
+        right = total - left
+        nl, nr = left.sum(axis=1), right.sum(axis=1)
+        n = vals.size
+        parent = gini(total)
+        valid = (nl >= min_instances_per_node) & (nr >= min_instances_per_node)
+        if not valid.any():
+            return None
+        with np.errstate(divide="ignore", invalid="ignore"):
+            gl = 1.0 - np.sum((left / np.maximum(nl, 1)[:, None]) ** 2, axis=1)
+            gr = 1.0 - np.sum((right / np.maximum(nr, 1)[:, None]) ** 2, axis=1)
+        gain = parent - (nl / n) * gl - (nr / n) * gr
+        gain = np.where(valid, gain, -np.inf)
+        j = int(np.argmax(gain))
+        if gain[j] < min_info_gain:
+            return None
+        return float(edges[j]), float(gain[j])
+
+    splits: List[float] = []
+
+    def recurse(vals: np.ndarray, ys: np.ndarray, depth: int) -> None:
+        if depth >= max_depth:
+            return
+        found = best_split(vals, ys)
+        if found is None:
+            return
+        thr, _ = found
+        splits.append(thr)
+        lm = vals <= thr
+        recurse(vals[lm], ys[lm], depth + 1)
+        recurse(vals[~lm], ys[~lm], depth + 1)
+
+    recurse(values, y, 0)
+    return sorted(set(splits))
+
+
+class DecisionTreeNumericBucketizer(AllowLabelAsInput, BinaryEstimator):
+    """(label RealNN, Real) -> OPVector of tree-learned buckets
+    (DecisionTreeNumericBucketizer.scala:60).
+
+    If the tree finds no informative split (info gain below
+    ``min_info_gain``), the output is an empty vector block — the feature
+    contributes nothing, exactly the reference's degenerate-tree behavior.
+    """
+
+    def __init__(self, max_depth: int = 2, min_info_gain: float = 0.01,
+                 max_bins: int = 32, track_nulls: bool = True,
+                 track_invalid: bool = True, uid: Optional[str] = None):
+        super().__init__(operation_name="dtNumBucket", output_type=T.OPVector, uid=uid,
+                         max_depth=max_depth, min_info_gain=min_info_gain,
+                         max_bins=max_bins, track_nulls=track_nulls,
+                         track_invalid=track_invalid)
+
+    def fit_columns(self, cols: Sequence[Column],
+                    dataset: Dataset) -> "DecisionTreeNumericBucketizerModel":
+        label, col = cols
+        assert isinstance(label, NumericColumn) and isinstance(col, NumericColumn)
+        m = col.mask & label.mask
+        inner = find_tree_splits(col.values[m], label.values[m],
+                                 max_depth=int(self.get_param("max_depth")),
+                                 min_info_gain=float(self.get_param("min_info_gain")),
+                                 max_bins=int(self.get_param("max_bins")))
+        splits = [-np.inf] + inner + [np.inf] if inner else []
+        return DecisionTreeNumericBucketizerModel(
+            splits=splits, track_nulls=bool(self.get_param("track_nulls")),
+            track_invalid=bool(self.get_param("track_invalid")),
+            operation_name=self.operation_name, output_type=self.output_type)
 
 
 class DecisionTreeNumericBucketizerModel(Model):

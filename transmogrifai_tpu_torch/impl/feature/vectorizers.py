@@ -1,10 +1,12 @@
-"""Numeric and categorical vectorizers + vector assembly, transform only.
+"""Numeric and categorical vectorizers + vector assembly.
 
-The port's copy of ``RealVectorizerModel``, ``OneHotVectorizerModel`` and
-``VectorsCombiner`` from ``transmogrifai_tpu/impl/feature/vectorizers.py``
-(reference: numeric vectorizers, OpOneHotVectorizer.scala:140,
-VectorsCombiner.scala:51).  Each runs on its device through the fused-layer
-protocol (``impl/feature/_util.py``):
+The port's copy of ``RealVectorizer`` / ``IntegralVectorizer`` (fits: mean
+or mode fills), ``OneHotVectorizer`` (fit: top-K / min-support categories),
+their models, and ``VectorsCombiner`` from
+``transmogrifai_tpu/impl/feature/vectorizers.py`` (reference: numeric
+vectorizers, OpOneHotVectorizer.scala:61,140, VectorsCombiner.scala:51).
+The fits are host numpy, as in the JAX package.  The transforms run on
+their device through the fused-layer protocol (``impl/feature/_util.py``):
 
 - ``RealVectorizerModel``: host prep stacks the value and mask columns,
   the device program is K-C ``fill_indicator`` (``ops/vectorize.py``).
@@ -17,18 +19,19 @@ protocol (``impl/feature/_util.py``):
 from __future__ import annotations
 
 import decimal
+from collections import Counter
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ... import types as T
-from ...columns import Column, NumericColumn, ObjectColumn, VectorColumn
+from ...columns import Column, Dataset, NumericColumn, ObjectColumn, VectorColumn
 from ...features.metadata import (NULL_INDICATOR, OTHER_INDICATOR, VectorColumnMetadata,
                                   VectorMetadata)
 from ...ops.vectorize import fill_indicator, one_hot_codes
 from ...readers.base import null_mask
-from ...stages.base import Model, SequenceTransformer
+from ...stages.base import Model, SequenceEstimator, SequenceTransformer
 from ._util import finalize_vector, run_on_device
 
 
@@ -41,8 +44,57 @@ def _vector_meta(stage, cols_meta: List[VectorColumnMetadata]) -> VectorMetadata
 
 
 # ---------------------------------------------------------------------------
-# Numeric vectorizer
+# Numeric vectorizers
 # ---------------------------------------------------------------------------
+class RealVectorizer(SequenceEstimator):
+    """Real features -> OPVector with mean/constant fill + null tracking."""
+
+    def __init__(self, fill_with_mean: bool = True, fill_value: float = 0.0,
+                 track_nulls: bool = True, uid: Optional[str] = None):
+        super().__init__(operation_name="vecReal", output_type=T.OPVector, uid=uid,
+                         fill_with_mean=fill_with_mean, fill_value=fill_value,
+                         track_nulls=track_nulls)
+
+    def fit_columns(self, cols: Sequence[Column], dataset: Dataset) -> "RealVectorizerModel":
+        fills = []
+        for col in cols:
+            assert isinstance(col, NumericColumn)
+            if self.get_param("fill_with_mean"):
+                n = col.mask.sum()
+                fills.append(float(col.values[col.mask].mean()) if n else 0.0)
+            else:
+                fills.append(float(self.get_param("fill_value")))
+        return RealVectorizerModel(fills=np.asarray(fills, dtype=np.float64),
+                                   track_nulls=bool(self.get_param("track_nulls")),
+                                   operation_name=self.operation_name,
+                                   output_type=self.output_type)
+
+
+class IntegralVectorizer(RealVectorizer):
+    """Integral features -> OPVector with mode/constant fill + null tracking."""
+
+    def __init__(self, fill_with_mode: bool = True, fill_value: float = 0.0,
+                 track_nulls: bool = True, uid: Optional[str] = None):
+        SequenceEstimator.__init__(self, operation_name="vecIntegral",
+                                   output_type=T.OPVector, uid=uid,
+                                   fill_with_mode=fill_with_mode, fill_value=fill_value,
+                                   track_nulls=track_nulls)
+
+    def fit_columns(self, cols: Sequence[Column], dataset: Dataset) -> "RealVectorizerModel":
+        fills = []
+        for col in cols:
+            assert isinstance(col, NumericColumn)
+            if self.get_param("fill_with_mode") and col.mask.any():
+                vals, counts = np.unique(col.values[col.mask], return_counts=True)
+                fills.append(float(vals[np.argmax(counts)]))
+            else:
+                fills.append(float(self.get_param("fill_value")))
+        return RealVectorizerModel(fills=np.asarray(fills),
+                                   track_nulls=bool(self.get_param("track_nulls")),
+                                   operation_name=self.operation_name,
+                                   output_type=self.output_type)
+
+
 class RealVectorizerModel(Model):
     def __init__(self, fills: np.ndarray, track_nulls: bool, operation_name: str = "vecReal",
                  output_type=T.OPVector, uid: Optional[str] = None, **kw):
@@ -133,6 +185,47 @@ def _values_of(col: Column, i: int) -> List[str]:
         return [str(v)]
     assert isinstance(col, NumericColumn)
     return [str(col.values[i])] if col.mask[i] else []
+
+
+class OneHotVectorizer(SequenceEstimator):
+    """TopK/minSupport pivot with OTHER + null columns
+    (OpOneHotVectorizer.scala:61); features whose cardinality exceeds
+    ``max_pct_cardinality`` of the rows are not pivoted (all mass to OTHER)."""
+
+    def __init__(self, top_k: int = 20, min_support: int = 10, track_nulls: bool = True,
+                 unseen_name: str = OTHER_INDICATOR, max_pct_cardinality: float = 1.0,
+                 uid: Optional[str] = None):
+        super().__init__(operation_name="pivot", output_type=T.OPVector, uid=uid,
+                         top_k=top_k, min_support=min_support, track_nulls=track_nulls,
+                         unseen_name=unseen_name, max_pct_cardinality=max_pct_cardinality)
+
+    def fit_columns(self, cols: Sequence[Column], dataset: Dataset) -> "OneHotVectorizerModel":
+        top_k = int(self.get_param("top_k"))
+        min_support = int(self.get_param("min_support"))
+        max_pct = float(self.get_param("max_pct_cardinality"))
+        categories: List[List[str]] = []
+        for col in cols:
+            n = len(col)
+            coded = scalar_codes(col)
+            if coded is not None:
+                labels, inv, present = coded
+                cnt = np.bincount(inv[present], minlength=len(labels))
+                counts = Counter({lab: int(c) for lab, c in zip(labels, cnt) if c})
+            else:
+                counts = Counter()
+                for i in range(n):
+                    counts.update(_values_of(col, i))
+            if n > 0 and len(counts) > max_pct * n:
+                categories.append([])
+                continue
+            keep = [(c, k) for c, k in counts.items() if k >= min_support]
+            keep.sort(key=lambda t: (-t[1], t[0]))
+            categories.append([c for c, _ in keep[:top_k]])
+        return OneHotVectorizerModel(categories=categories,
+                                     track_nulls=bool(self.get_param("track_nulls")),
+                                     unseen_name=str(self.get_param("unseen_name")),
+                                     operation_name=self.operation_name,
+                                     output_type=self.output_type)
 
 
 class OneHotVectorizerModel(Model):

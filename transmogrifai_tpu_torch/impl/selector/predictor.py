@@ -1,37 +1,66 @@
-"""Predictor stage abstraction on the scoring path.
+"""Predictor stage abstraction: (RealNN label, OPVector features) -> Prediction.
 
 The port's counterpart of ``transmogrifai_tpu/impl/selector/predictor.py``
-(reference: OpPredictorWrapperModel, OpPredictorWrapper.scala:121).  A
-predictor class implements the prediction half of the array-level contract:
+(reference: OpPredictorWrapper / OpPredictorWrapperModel,
+OpPredictorWrapper.scala:71,121).  A predictor implements the array-level
+contract on a device:
 
-- ``device_params(params, device)`` moves the saved numpy parameters onto
-  the device once, when the model is placed;
-- ``predict_tensors(dparams, X) -> (prediction, raw, probability)`` scores a
-  float32 feature matrix on that device and returns host numpy arrays.
-
-Together they are the JAX package's ``predict_arrays(params, X)``, split
-so that the parameters cross to the device once.  Fitting is not ported.
+- ``fit_arrays(X, y, w) -> params`` trains on a float32 feature matrix
+  (a tensor on the training device) and returns numpy parameters, saved
+  in the JAX package's layout;
+- ``fit_grid_folds(X, y, train_w, grids)`` trains the whole fold x grid
+  block and returns each candidate's predictions on every row;
+- ``device_params(params, device)`` moves the parameters onto a device
+  once, and ``predict_tensors(dparams, X) -> (prediction, raw,
+  probability)`` scores there and returns host numpy arrays.  Together
+  they are ``predict_arrays(params, X)``.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Sequence, Tuple, Type
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Type
 
 import numpy as np
 import torch
 
 from ... import types as T
-from ...columns import Column, PredictionColumn, VectorColumn
-from ...stages.base import Model
+from ...columns import Column, Dataset, NumericColumn, PredictionColumn, VectorColumn
+from ...stages.base import AllowLabelAsInput, BinaryEstimator, Model
 from ..feature._util import stage_device
 
 Preds = Tuple[np.ndarray, Optional[np.ndarray], Optional[np.ndarray]]
 
 
-class PredictorEstimator:
-    """Base of the selector-grid predictors: their prediction contract."""
+def as_matrix(X: Any, device: torch.device) -> torch.Tensor:
+    """X as a contiguous float32 tensor on ``device``."""
+    if not isinstance(X, torch.Tensor):
+        X = torch.from_numpy(np.ascontiguousarray(X, dtype=np.float32))
+    return X.to(device=device, dtype=torch.float32).contiguous()
+
+
+class PredictorEstimator(BinaryEstimator, AllowLabelAsInput):
+    """Base estimator of the selector-grid models."""
 
     #: classification predictors emit probability/raw columns
     is_classifier: bool = True
+
+    def __init__(self, operation_name: str, uid: Optional[str] = None, **params):
+        super().__init__(operation_name=operation_name, output_type=T.Prediction,
+                         uid=uid, **params)
+
+    def check_input_types(self, features) -> None:
+        super().check_input_types(features)
+        label, vec = features
+        if not issubclass(vec.ftype, T.OPVector):
+            raise ValueError(f"{type(self).__name__} second input must be OPVector, "
+                             f"got {vec.ftype.__name__}")
+        if not label.is_response:
+            raise ValueError("First input (label) must be a response feature "
+                             "(CheckIsResponseValues analog)")
+
+    # ---- array-level contract ---------------------------------------------
+    def fit_arrays(self, X: Any, y: np.ndarray,
+                   w: Optional[np.ndarray] = None) -> Dict[str, Any]:
+        raise NotImplementedError(f"{type(self).__name__}: fitting is not ported yet")
 
     @classmethod
     def device_params(cls, params: Dict[str, Any], device: torch.device) -> Dict[str, Any]:
@@ -41,6 +70,38 @@ class PredictorEstimator:
     def predict_tensors(cls, dparams: Dict[str, Any], X: torch.Tensor) -> Preds:
         """Returns (prediction[n], raw[n,k]|None, probability[n,k]|None)."""
         raise NotImplementedError
+
+    @classmethod
+    def predict_arrays(cls, params: Dict[str, Any], X: torch.Tensor) -> Preds:
+        """Score X f32[n, d] (a tensor, on its device) with fitted params."""
+        return cls.predict_tensors(cls.device_params(params, X.device), X)
+
+    # ---- grid support ------------------------------------------------------
+    def copy_with_params(self, overrides: Dict[str, Any]) -> "PredictorEstimator":
+        merged = {**self._params, **overrides}
+        est = type(self)(**merged)
+        est.device = self.device
+        return est
+
+    def fit_grid_folds(self, X: Any, y: np.ndarray, train_w: np.ndarray,
+                       grids: List[Dict[str, Any]]) -> List[List[Preds]]:
+        """Train the fold x grid block; predictions on every row of X,
+        indexed ``[fold][grid]``.  Raises NotImplementedError where there is
+        no batched fit (the validator then fits candidate by candidate)."""
+        raise NotImplementedError
+
+    # ---- Dataset-level fit -------------------------------------------------
+    def fit_columns(self, cols: Sequence[Column], dataset: Dataset) -> "PredictorModel":
+        label_col, vec_col = cols
+        assert isinstance(label_col, NumericColumn) and isinstance(vec_col, VectorColumn)
+        X = vec_col.tensor(stage_device(self))
+        y = label_col.values.astype(np.float32)
+        if not label_col.mask.all():  # unlabeled rows never train
+            keep = np.flatnonzero(label_col.mask)
+            X, y = X[torch.from_numpy(keep).to(X.device)], y[keep]
+        params = self.fit_arrays(X, y)
+        return PredictorModel(predictor_class=type(self), model_params=params,
+                              operation_name=self.operation_name)
 
 
 class PredictorModel(Model):

@@ -1,29 +1,49 @@
-"""Tree-ensemble scoring on the device: binning (K-A) and the walk (K-B).
+"""Tree ensembles on the device: binning (K-A), the walk (K-B) and the
+histogram boosting fit (K-E … K-H).
 
-The port's counterpart of the scoring half of ``transmogrifai_tpu/ops/trees.py``:
+The port's counterpart of ``transmogrifai_tpu/ops/trees.py``.  Scoring:
 ``Tree``, ``_bin_dtype``, ``bin_with_edges``, ``predict_tree``,
-``predict_forest`` and ``predict_gbt``.  Training (``sketch_edges``,
-``quantize``, the growers and boosting) is not ported.
+``predict_forest``, ``predict_gbt``.  Fitting: ``sketch_edges``,
+``quantize``, ``frontier_cap``, ``_pool_size``, ``frontier_is_exact``, the
+subsample draws at fraction 1, the level-wise tree grower and boosting
+(``fit_gbt``, ``fit_gbt_batch``) with the logistic loss.  The forest growers
+and the softmax and squared losses are not ported.
 
-Two hand-written CUDA kernels carry the path (sources in ``csrc/``):
+Hand-written kernels carry the path (CUDA sources in ``csrc/``, the Triton
+one in ``ops/triton_boost.py``):
 
-- ``bin_rows`` replaces ``_bin_chunk``: per-feature left searchsorted of a
-  float32 matrix into the fitted quantile edges.
-- ``ensemble_walk`` replaces ``predict_tree`` under ``predict_gbt`` /
+- ``bin_rows`` (K-A) replaces ``_bin_chunk``: per-feature left searchsorted
+  of a float32 matrix into the fitted quantile edges.
+- ``ensemble_walk`` (K-B) replaces ``predict_tree`` under ``predict_gbt`` /
   ``predict_forest``: a ``max_depth``-step pointer walk per (row, tree) and
   the sum (``base + eta * sum``) or mean over trees.
+- ``level_hist`` (K-E) replaces ``_level_histograms`` and the light-child
+  pass of ``_grow_level``: per (tree, slot, feature, bin) sums of the
+  weighted gradient and hessian, or only the lighter child of each sibling
+  pair with the heavy one taken as parent minus light.
+- ``split_scan`` (K-F) replaces the split scan, compaction and records of
+  ``_grow_level``: prefix sums over bins, the XGBoost gain, the first argmax,
+  the beam cap, the node and leaf records, the sibling pairs of the next
+  level.
+- ``route_rows`` (K-G) replaces the row routing of ``_grow_level``: each
+  row's child slot, its pool node, and its pair id for the next level.
+- ``boost_step`` (K-H) replaces the margin update and ``_grad_hess``
+  (logistic): ``F += eta * leaf[row_node]`` and the weighted gradient and
+  hessian of the new margins.
 
 Each kernel has a plain PyTorch version of the same signature beside it.  A
 wrapper takes the plain version only for tensors on the CPU; for CUDA
 tensors it launches the kernel or raises.  ``<wrapper>.launches`` counts the
-kernel's launches.
+wrapper's launches.  Every tree batch carries a leading tree axis T: the
+folds x candidates of a sweep grow together.
 """
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import NamedTuple, Optional, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..utils.device import on_cuda as _on_cuda
@@ -241,3 +261,687 @@ def predict_gbt(Xb: torch.Tensor, trees: Tree, max_depth: int, eta: float,
 def leaf_indices(Xb: torch.Tensor, trees: Tree, max_depth: int) -> torch.Tensor:
     """i32[n, T]: the pool index of the leaf each row reaches in each tree."""
     return ensemble_walk(Xb, trees, max_depth, "sum", return_leaves=True)[1]
+
+
+# ---------------------------------------------------------------------------
+# Quantization (host numpy, as in the JAX package) and frontier sizing
+# ---------------------------------------------------------------------------
+_SKETCH_ROWS = 1 << 18  # 262144 rows are plenty for <= 256 quantile edges
+
+
+def sketch_edges(X: np.ndarray, n_bins: int, seed: int = 0) -> np.ndarray:
+    """Quantile split candidates f32[d, n_bins-1] from a row subsample."""
+    X = np.asarray(X, np.float32)
+    n = X.shape[0]
+    if n > _SKETCH_ROWS:
+        idx = np.random.default_rng(seed).choice(n, _SKETCH_ROWS, replace=False)
+        X = X[idx]
+    qs = np.linspace(0.0, 1.0, n_bins + 1)[1:-1]
+    return np.quantile(X, qs, axis=0).T.astype(np.float32)  # [d, n_bins-1]
+
+
+def quantize(X: torch.Tensor, n_bins: int = 32, seed: int = 0
+             ) -> Tuple[torch.Tensor, np.ndarray]:
+    """Equi-depth binning of X f32[n, d] on its device: (Xb int8/i32[n, d]
+    through K-A, edges f32[d, n_bins-1] sketched on the host)."""
+    edges = sketch_edges(X.detach().cpu().numpy(), n_bins, seed=seed)
+    ed = torch.from_numpy(edges).to(X.device)
+    return bin_rows(X.to(torch.float32).contiguous(), ed), edges
+
+
+def _next_pow2(x: int) -> int:
+    return 1 << max(int(x) - 1, 1).bit_length()
+
+
+def frontier_cap(n: int, max_depth: int, min_child_weight: float = 1.0,
+                 h_max: float = 1.0, max_frontier: int = 512,
+                 total_weight: float = None) -> int:
+    """Frontier slots M of the level grower (a power of two): at most
+    ``H_total / (2 * mcw)`` nodes can split per level, so ``H_total / mcw``
+    slots lose nothing; beyond ``max_frontier`` growth is a gain-ranked beam.
+    ``total_weight`` is the largest row-weight sum of the tree batch
+    (1.25 n when None)."""
+    if max_depth <= 1:
+        return 2
+    tw = 1.25 * n if total_weight is None else float(total_weight)
+    exact = int(np.ceil(h_max * tw / max(min_child_weight, 1e-3)))
+    m = min(1 << max_depth, max(exact, 2), max_frontier, _next_pow2(n))
+    return max(_next_pow2(m) if m & (m - 1) else m, 2)
+
+
+def _pool_size(max_depth: int, frontier: int) -> int:
+    """Node-pool capacity: the exact heap of the unrolled levels plus M slots
+    per deeper level.  Level t < log2(M) occupies [2^t - 1, 2^(t+1) - 1);
+    level t >= L = log2(M) occupies [M - 1 + (t - L) M, ... + M)."""
+    if max_depth <= 0:
+        return 1
+    L = frontier.bit_length() - 1
+    u = min(max_depth, L)
+    return (1 << (u + 1)) - 1 + max(max_depth - L, 0) * frontier
+
+
+def frontier_is_exact(n: int, max_depth: int, min_child_weight: float,
+                      h_max: float, frontier: int,
+                      total_weight: float = None) -> bool:
+    """True when ``frontier`` provably cannot overflow, so the beam's gain
+    ranking is replaced by a count clamp."""
+    tw = 1.25 * n if total_weight is None else float(total_weight)
+    exact = int(np.ceil(h_max * tw / max(min_child_weight, 1e-3)))
+    return frontier >= min(1 << max_depth, exact)
+
+
+# ---------------------------------------------------------------------------
+# Subsample draws: fraction 1 only (the threefry draws below 1 are K8, not
+# ported yet)
+# ---------------------------------------------------------------------------
+def rng_keys(seed: int) -> Tuple[int, int]:
+    """(row key, feature key).  The draws at fraction 1 use neither."""
+    return int(seed), int(seed)
+
+
+def _no_draws(what: str, frac: float) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} at fraction {frac} < 1 needs the threefry draws of K8 "
+        "(transmogrifai_tpu/ops/trees.py:1400-1420), which are not ported yet")
+
+
+def subsample_weights(key, n: int, n_rounds: int, frac: float,
+                      device=None) -> torch.Tensor:
+    """Per-round row-subsample masks f32[R, n]: all ones at fraction >= 1."""
+    if frac < 1.0:
+        raise _no_draws("subsample", frac)
+    return torch.ones((n_rounds, n), dtype=torch.float32, device=device)
+
+
+def feature_masks(key, d: int, n_trees: int, frac: float,
+                  device=None) -> torch.Tensor:
+    """Per-tree feature masks f32[T, d]: all ones at fraction >= 1."""
+    if frac < 1.0:
+        raise _no_draws("colsample", frac)
+    return torch.ones((n_trees, d), dtype=torch.float32, device=device)
+
+
+# ---------------------------------------------------------------------------
+# K-E level_hist
+# ---------------------------------------------------------------------------
+def _check_level_hist(Xb, ghw, ids, m, n_bins, parent, pair_parent, pair_light):
+    _require(Xb.ndim == 2 and Xb.dtype in (torch.int8, torch.int32),
+             "Xb must be int8 or int32 [n, d]")
+    n, d = Xb.shape
+    _require(ghw.dtype == torch.float32 and ghw.ndim == 3 and ghw.shape[1:] == (n, 2),
+             f"ghw must be float32[T, {n}, 2]")
+    T = ghw.shape[0]
+    _require(ids.dtype == torch.int32 and tuple(ids.shape) == (T, n),
+             f"ids must be int32[{T}, {n}]")
+    _require(n_bins >= 2 and m >= 1, "need n_bins >= 2 and m >= 1")
+    if parent is not None:
+        _require(m % 2 == 0, "a light-only build needs an even slot count")
+        _require(parent.dtype == torch.float32 and parent.ndim == 5
+                 and parent.shape[0] == T and parent.shape[2:] == (2, d, n_bins),
+                 f"parent must be float32[{T}, m_prev, 2, {d}, {n_bins}]")
+        for name, a in (("pair_parent", pair_parent), ("pair_light", pair_light)):
+            _require(a is not None and a.dtype == torch.int32
+                     and tuple(a.shape) == (T, m // 2), f"{name} must be int32[{T}, {m // 2}]")
+    big = float(ghw.abs().amax()) if ghw.numel() else 0.0
+    _require(big * n < HIST_RANGE,
+             f"level_hist sums out of its fixed-point range: {n} rows x largest |w*g|, "
+             f"|w*h| {big} must stay below {HIST_RANGE}")
+
+
+#: the fixed point of K-E's sums: each w*g and w*h times 2^32, rounded to
+#: the nearest int64; integer sums give the same total in any order.  The
+#: kernel takes the scale from the wrapper
+HIST_SCALE_BITS = 32
+#: the bound on a level's row count x largest |w*g|, |w*h|: every sum then
+#: stays below 2^63 in fixed point (no saturated value, no wrapped sum)
+HIST_RANGE = 2.0 ** (63 - HIST_SCALE_BITS)
+
+
+def level_hist_plain(Xb: torch.Tensor, ghw: torch.Tensor, ids: torch.Tensor, m: int,
+                     n_bins: int, parent: Optional[torch.Tensor] = None,
+                     pair_parent: Optional[torch.Tensor] = None,
+                     pair_light: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain PyTorch version of K-E: the same fixed-point sums, as one
+    int64 ``index_add_`` over rows, then the parent - light assembly."""
+    T, n, _ = ghw.shape
+    d, B = Xb.shape[1], n_bins
+    mp = m // 2 if parent is not None else m
+    seg_n = mp * B + 1
+    idl = ids.long()
+    dead = idl < 0
+    base = torch.where(dead, torch.full_like(idl, mp * B), idl * B)      # [T, n]
+    seg = base[:, None, :] + torch.where(dead[:, None, :], 0, Xb.long().T[None])  # [T, d, n]
+    offs = (torch.arange(T * d, device=Xb.device) * seg_n).view(T, d, 1)
+    fixed = torch.round(ghw * float(2 ** HIST_SCALE_BITS)).to(torch.int64)
+    acc = torch.zeros((T * d * seg_n, 2), dtype=torch.int64, device=Xb.device)
+    acc.index_add_(0, (seg + offs).reshape(-1), fixed[:, None].expand(T, d, n, 2).reshape(-1, 2))
+    light = acc.view(T, d, seg_n, 2)[:, :, :mp * B].reshape(T, d, mp, B, 2) \
+        .permute(0, 2, 4, 1, 3).to(torch.float32) * float(2.0 ** -HIST_SCALE_BITS)
+    light = light.contiguous()                                            # [T, mp, 2, d, B]
+    if parent is None:
+        return light
+    pp = pair_parent.long()
+    par = parent[torch.arange(T, device=Xb.device)[:, None], pp.clamp(min=0)]
+    par = torch.where((pp >= 0)[:, :, None, None, None], par, torch.zeros_like(par))
+    heavy = par - light
+    lp = (pair_light != 0)[:, :, None, None, None]
+    return torch.stack([torch.where(lp, light, heavy), torch.where(lp, heavy, light)],
+                       dim=2).reshape(T, m, 2, d, B)
+
+
+_HIST_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_float] * 2 \
+    + [ctypes.c_void_p]
+
+
+def level_hist(Xb: torch.Tensor, ghw: torch.Tensor, ids: torch.Tensor, m: int,
+               n_bins: int, parent: Optional[torch.Tensor] = None,
+               pair_parent: Optional[torch.Tensor] = None,
+               pair_light: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Level histograms f32[T, m, 2, d, B] (channel 0: sum of w*g, 1: w*h),
+    summed in 64-bit fixed point (``HIST_SCALE_BITS``): the same on every
+    run, exact where the inputs are multiples of 2^-32.  Raises unless the
+    row count times the largest |w*g|, |w*h| is below ``HIST_RANGE``.
+
+    Direct build (``parent`` None): rows with ``ids == s`` go to slot s (-1
+    rests).  Light-only build: ``ids`` are pair ids in [0, m/2) of the
+    lighter child of each sibling pair; the heavy child is
+    ``parent[pair_parent[j]] - light`` (zero when ``pair_parent`` is -1) and
+    ``pair_light[j]`` says the light child is the left (even) slot.
+    """
+    _check_level_hist(Xb, ghw, ids, m, n_bins, parent, pair_parent, pair_light)
+    tensors = [Xb, ghw, ids] + ([parent, pair_parent, pair_light] if parent is not None else [])
+    if not _on_cuda(*tensors):
+        return level_hist_plain(Xb, ghw, ids, m, n_bins, parent, pair_parent, pair_light)
+    return level_hist_launch(Xb, ghw, ids, m, n_bins, parent, pair_parent, pair_light)
+
+
+def level_hist_launch(Xb: torch.Tensor, ghw: torch.Tensor, ids: torch.Tensor, m: int,
+                      n_bins: int, parent: Optional[torch.Tensor] = None,
+                      pair_parent: Optional[torch.Tensor] = None,
+                      pair_light: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K-E's launch on CUDA tensors, without ``level_hist``'s checks (whose
+    range check waits for the card); counts in ``level_hist.launches``."""
+    _require(_on_cuda(Xb, ghw, ids), "level_hist_launch takes CUDA tensors")
+    Xb, ghw, ids = Xb.contiguous(), ghw.contiguous(), ids.contiguous()
+    T, n, _ = ghw.shape
+    d = Xb.shape[1]
+    mp = m // 2 if parent is not None else m
+    acc = torch.empty((T, mp, 2, d, n_bins), dtype=torch.int64, device=Xb.device)
+    out = torch.empty((T, m, 2, d, n_bins), dtype=torch.float32, device=Xb.device)
+    lib = cuda_build.load("level_hist", {"level_hist_i8": (_HIST_ARGS, ctypes.c_int),
+                                         "level_hist_i32": (_HIST_ARGS, ctypes.c_int)})
+    fn = lib.level_hist_i8 if Xb.dtype == torch.int8 else lib.level_hist_i32
+    light = parent is not None
+    # bound to names while the kernels are queued (later reuse of their
+    # memory is ordered after them on the stream)
+    par, pp, pl = ((parent.contiguous(), pair_parent.contiguous(), pair_light.contiguous())
+                   if light else (None, None, None))
+    m_prev = parent.shape[1] if light else 0
+    with torch.cuda.device(Xb.device):
+        rc = fn(Xb.data_ptr(), ghw.data_ptr(), ids.data_ptr(),
+                par.data_ptr() if light else None, pp.data_ptr() if light else None,
+                pl.data_ptr() if light else None, acc.data_ptr(), out.data_ptr(), n, d,
+                n_bins, T, mp, m_prev, float(2.0 ** HIST_SCALE_BITS),
+                float(2.0 ** -HIST_SCALE_BITS), _stream(Xb))
+    if rc != 0:
+        raise RuntimeError(f"level_hist kernel launch failed: CUDA error {rc}")
+    level_hist.launches += 1
+    return out
+
+
+level_hist.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K-F split_scan
+# ---------------------------------------------------------------------------
+#: cap modes of a level: no cap (next_cap = 2m), the count clamp of a
+#: provably exact frontier, or the gain-ranked beam
+CAP_NONE, CAP_CLAMP, CAP_BEAM = 0, 1, 2
+
+
+def _check_split_scan(hist, feat_mask, params, n_active, nodes, leaf, slot_base,
+                      next_free, next_cap):
+    _require(hist.dtype == torch.float32 and hist.ndim == 5 and hist.shape[2] == 2,
+             "hist must be float32[T, m, 2, d, B]")
+    T, m, _, d, B = hist.shape
+    _require(m <= 1024, f"at most 1024 frontier slots, got {m}")
+    _require(feat_mask.dtype == torch.float32 and tuple(feat_mask.shape) == (T, d),
+             f"feat_mask must be float32[{T}, {d}]")
+    _require(params.dtype == torch.float32 and tuple(params.shape) == (T, 4),
+             f"params must be float32[{T}, 4] (lambda, gamma, mcw, min_info_gain)")
+    _require(n_active.dtype == torch.int32 and tuple(n_active.shape) == (T,),
+             f"n_active must be int32[{T}]")
+    _require(nodes.dtype == torch.int32 and nodes.ndim == 3 and nodes.shape[0] == T
+             and nodes.shape[2] == 4, f"nodes must be int32[{T}, P, 4]")
+    P = nodes.shape[1]
+    _require(leaf.dtype == torch.float32 and tuple(leaf.shape) == (T, P),
+             f"leaf must be float32[{T}, {P}]")
+    _require(slot_base + m <= P and next_free + next_cap <= P and next_cap % 2 == 0,
+             "level blocks must fit the node pool")
+
+
+def split_scan_plain(hist: torch.Tensor, feat_mask: torch.Tensor, params: torch.Tensor,
+                     n_active: torch.Tensor, nodes: torch.Tensor, leaf: torch.Tensor,
+                     slot_base: int, next_free: int, next_cap: int, cap_mode: int,
+                     root: bool
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of K-F (the reference's association: prefix
+    sums bin by bin, ``(sL + sR) - sP``, node totals from feature 0)."""
+    T, m, _, d, B = hist.shape
+    dev = hist.device
+    lam, gam, mcw, mig = (params[:, i] for i in range(4))
+    G, H = hist[:, :, 0], hist[:, :, 1]                     # [T, m, d, B]
+    GL, HL = torch.empty_like(G), torch.empty_like(H)
+    ag, ah = G[..., 0].clone(), H[..., 0].clone()
+    GL[..., 0], HL[..., 0] = ag, ah
+    for b in range(1, B):
+        ag, ah = ag + G[..., b], ah + H[..., b]
+        GL[..., b], HL[..., b] = ag, ah
+    GT, HT = GL[:, :, 0, B - 1], HL[:, :, 0, B - 1]          # [T, m]
+    GR = GT[..., None, None] - GL
+    HR = HT[..., None, None] - HL
+    l4 = lam[:, None, None, None]
+    parent = (GT * GT / (HT + lam[:, None]))[..., None, None]
+    gain = (GL * GL / (HL + l4) + GR * GR / (HR + l4)) - parent
+    m4 = mcw[:, None, None, None]
+    valid = (HL >= m4) & (HR >= m4) & (feat_mask[:, None, :, None] > 0) \
+        & (torch.arange(B, device=dev) < B - 1)
+    flat = torch.where(valid, gain, torch.full_like(gain, -math.inf)).reshape(T, m, d * B)
+    best = torch.argmax(flat, dim=2)                         # first max
+    best_gain = flat.gather(2, best[..., None])[..., 0]
+    bf, bb = best // B, best % B
+    in_use = torch.arange(m, device=dev)[None] < n_active[:, None]
+    do = (best_gain > gam[:, None]) & (best_gain >= mig[:, None] * HT) & in_use
+    half = next_cap // 2
+    if cap_mode == CAP_BEAM:
+        key = torch.where(do, -best_gain, torch.full_like(best_gain, math.inf))
+        rank = torch.argsort(torch.argsort(key, dim=1, stable=True), dim=1, stable=True)
+        do &= rank < half
+        k = torch.cumsum(do.int(), dim=1)
+    else:
+        k = torch.cumsum(do.int(), dim=1)
+        if cap_mode == CAP_CLAMP:
+            do &= k <= half
+            k = k.clamp(max=half)
+    n_split = k[:, -1]
+    child = (k - 1) * 2
+    lp = next_free + child
+    rec = torch.stack([torch.where(do, bf, -1), torch.where(do, bb, 0),
+                       torch.where(do, lp, 0), torch.where(do, lp + 1, 0)], dim=-1)
+    nodes[:, slot_base:slot_base + m] = rec.to(torch.int32)
+    nodes[:, next_free:next_free + next_cap] = torch.tensor([-1, 0, 0, 0], dtype=torch.int32,
+                                                            device=dev)
+    GLb = GL.reshape(T, m, d * B).gather(2, best[..., None])[..., 0]
+    HLb = HL.reshape(T, m, d * B).gather(2, best[..., None])[..., 0]
+    GRb, HRb = GT - GLb, HT - HLb
+    zero = torch.zeros_like(GLb)
+    lval = torch.where(do, -GLb / (HLb + lam[:, None]), zero)
+    rval = torch.where(do, -GRb / (HRb + lam[:, None]), zero)
+    vals = torch.zeros((T, next_cap), dtype=torch.float32, device=dev)
+    tt, ss = torch.nonzero(do, as_tuple=True)
+    vals[tt, child[tt, ss]] = lval[tt, ss]
+    vals[tt, child[tt, ss] + 1] = rval[tt, ss]
+    leaf[:, next_free:next_free + next_cap] = vals
+    if root:
+        leaf[:, 0] = -GT[:, 0] / (HT[:, 0] + lam)
+    split = torch.stack([torch.where(do, bf, -1), bb, child, torch.zeros_like(bb)],
+                        dim=-1).to(torch.int32)
+    pair_parent = torch.full((T, half), -1, dtype=torch.int32, device=dev)
+    pair_light = torch.zeros((T, half), dtype=torch.int32, device=dev)
+    pair_parent[tt, child[tt, ss] // 2] = ss.to(torch.int32)
+    pair_light[tt, child[tt, ss] // 2] = (HLb <= HRb)[tt, ss].to(torch.int32)
+    return split, pair_parent, pair_light, (2 * n_split).to(torch.int32)
+
+
+_SCAN_ARGS = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+
+
+def split_scan(hist: torch.Tensor, feat_mask: torch.Tensor, params: torch.Tensor,
+               n_active: torch.Tensor, nodes: torch.Tensor, leaf: torch.Tensor,
+               slot_base: int, next_free: int, next_cap: int, cap_mode: int,
+               root: bool) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One level's split choice, compaction and records, per tree.
+
+    Reads the level histogram ``hist`` f32[T, m, 2, d, B], the feature masks,
+    ``params`` f32[T, 4] (lambda, gamma, min_child_weight, min_info_gain) and
+    the live width ``n_active`` i32[T].  Writes the slot records into
+    ``nodes`` i32[T, P, 4] at ``slot_base``, a leaf record for every slot of
+    the child block at ``next_free``, the child leaf values into ``leaf``
+    f32[T, P] (and the root's at level 0).  Returns ``split`` i32[T, m, 4]
+    (feature or -1, bin, left child's slot, 0); for the next level's
+    ``next_cap / 2`` sibling pairs, the parent slot (-1 none) and the
+    light-left flag; and the next level's live width (2 x splits).
+    """
+    _check_split_scan(hist, feat_mask, params, n_active, nodes, leaf, slot_base,
+                      next_free, next_cap)
+    _require(cap_mode in (CAP_NONE, CAP_CLAMP, CAP_BEAM), f"bad cap mode {cap_mode}")
+    if not _on_cuda(hist, feat_mask, params, n_active, nodes, leaf):
+        return split_scan_plain(hist, feat_mask, params, n_active, nodes, leaf,
+                                slot_base, next_free, next_cap, cap_mode, root)
+    for name, a in (("nodes", nodes), ("leaf", leaf)):
+        _require(a.is_contiguous(), f"{name} must be contiguous (written in place)")
+    hist, feat_mask, params = hist.contiguous(), feat_mask.contiguous(), params.contiguous()
+    n_active = n_active.contiguous()
+    T, m, _, d, B = hist.shape
+    half = next_cap // 2
+    dev = hist.device
+    split = torch.empty((T, m, 4), dtype=torch.int32, device=dev)
+    pair_parent = torch.empty((T, half), dtype=torch.int32, device=dev)
+    pair_light = torch.empty((T, half), dtype=torch.int32, device=dev)
+    n_next = torch.empty((T,), dtype=torch.int32, device=dev)
+    scratch = torch.empty((6, T, m), dtype=torch.float32, device=dev)
+    lib = cuda_build.load("split_scan", {"split_scan": (_SCAN_ARGS, ctypes.c_int)})
+    with torch.cuda.device(dev):
+        rc = lib.split_scan(hist.data_ptr(), feat_mask.data_ptr(), params.data_ptr(),
+                            n_active.data_ptr(), n_next.data_ptr(), nodes.data_ptr(),
+                            leaf.data_ptr(),
+                            split.data_ptr(), pair_parent.data_ptr(), pair_light.data_ptr(),
+                            scratch.data_ptr(), T, m, d, B, nodes.shape[1], slot_base,
+                            next_free, next_cap,
+                            cap_mode | (4 if root else 0), _stream(hist))
+    if rc != 0:
+        raise RuntimeError(f"split_scan kernel launch failed: CUDA error {rc}")
+    split_scan.launches += 1
+    return split, pair_parent, pair_light, n_next
+
+
+split_scan.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K-G route_rows
+# ---------------------------------------------------------------------------
+def route_rows_plain(Xb: torch.Tensor, row_slot: torch.Tensor, row_node: torch.Tensor,
+                     split: torch.Tensor, pair_light: torch.Tensor,
+                     next_free: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of K-G."""
+    T = row_slot.shape[0]
+    s = row_slot.long()
+    tt = torch.arange(T, device=Xb.device)[:, None]
+    sp = split.long()[tt, s.clamp(min=0)]                    # [T, n, 4]
+    feat, bins, child = sp[..., 0], sp[..., 1], sp[..., 2]
+    here = (s >= 0) & (feat >= 0)
+    rows = torch.arange(Xb.shape[0], device=Xb.device)[None]
+    right = (Xb.long()[rows, feat.clamp(min=0)] > bins).long()
+    new = torch.where(here, child + right, torch.full_like(s, -1))
+    node = torch.where(here, next_free + child + right, row_node.long()).int()
+    lp = pair_light.long()[tt, (new.clamp(min=0) >> 1)] != 0
+    light = torch.where((new & 1) == 0, lp, ~lp) & (new >= 0)
+    return new.int(), node, torch.where(light, new >> 1, torch.full_like(new, -1)).int()
+
+
+_ROUTE_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+
+
+def route_rows(Xb: torch.Tensor, row_slot: torch.Tensor, row_node: torch.Tensor,
+               split: torch.Tensor, pair_light: torch.Tensor, next_free: int
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Send each (tree, row) to its child: ``Xb[r, feat] > bin`` goes right.
+
+    From the rows' slots and pool nodes i32[T, n] and the level's ``split``
+    records, returns the new slots (-1: the row rests at a leaf), the new
+    pool nodes, and the rows' pair ids for the next level's light-only
+    histogram (-1 unless the row's new slot is the light child of its
+    pair)."""
+    _require(Xb.ndim == 2 and Xb.dtype in (torch.int8, torch.int32),
+             "Xb must be int8 or int32 [n, d]")
+    T, n = row_slot.shape
+    _require(n == Xb.shape[0] and row_slot.dtype == torch.int32
+             and row_node.dtype == torch.int32 and tuple(row_node.shape) == (T, n),
+             f"row_slot / row_node must be int32[T, {Xb.shape[0]}]")
+    _require(split.dtype == torch.int32 and split.ndim == 3 and split.shape[0] == T
+             and split.shape[2] == 4, f"split must be int32[{T}, m, 4]")
+    _require(pair_light.dtype == torch.int32 and pair_light.ndim == 2
+             and pair_light.shape[0] == T, f"pair_light must be int32[{T}, pairs]")
+    if not _on_cuda(Xb, row_slot, row_node, split, pair_light):
+        return route_rows_plain(Xb, row_slot, row_node, split, pair_light, next_free)
+    Xb, split, pair_light = Xb.contiguous(), split.contiguous(), pair_light.contiguous()
+    row_slot, row_node = row_slot.contiguous(), row_node.contiguous()
+    new_slot, new_node, ids = (torch.empty((T, n), dtype=torch.int32, device=Xb.device)
+                               for _ in range(3))
+    if n == 0:
+        return new_slot, new_node, ids
+    lib = cuda_build.load("route_rows", {"route_rows_i8": (_ROUTE_ARGS, ctypes.c_int),
+                                         "route_rows_i32": (_ROUTE_ARGS, ctypes.c_int)})
+    fn = lib.route_rows_i8 if Xb.dtype == torch.int8 else lib.route_rows_i32
+    with torch.cuda.device(Xb.device):
+        rc = fn(Xb.data_ptr(), row_slot.data_ptr(), row_node.data_ptr(), split.data_ptr(),
+                pair_light.data_ptr(), new_slot.data_ptr(), new_node.data_ptr(),
+                ids.data_ptr(), n, Xb.shape[1], T, split.shape[1],
+                pair_light.shape[1], next_free, _stream(Xb))
+    if rc != 0:
+        raise RuntimeError(f"route_rows kernel launch failed: CUDA error {rc}")
+    route_rows.launches += 1
+    return new_slot, new_node, ids
+
+
+route_rows.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K-H boost_step
+# ---------------------------------------------------------------------------
+def _sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """1 / (1 + exp(-x)) in float32, the expansion XLA uses for
+    ``jax.nn.sigmoid``."""
+    return 1.0 / (1.0 + torch.exp(-x))
+
+
+def boost_step_plain(F: torch.Tensor, y: torch.Tensor, w: torch.Tensor, eta: torch.Tensor,
+                     leaf: Optional[torch.Tensor], row_node: Optional[torch.Tensor],
+                     ghw: Optional[torch.Tensor]) -> None:
+    """Plain PyTorch version of K-H."""
+    if leaf is not None:
+        F.copy_(F + eta[:, None] * leaf.gather(1, row_node.long()))
+    if ghw is not None:
+        p = _sigmoid(F)
+        ghw[..., 0] = (p - y[None]) * w
+        ghw[..., 1] = torch.maximum(p * (1 - p), torch.tensor(1e-6, dtype=torch.float32,
+                                                             device=F.device)) * w
+
+
+def boost_step(F: torch.Tensor, y: torch.Tensor, w: torch.Tensor, eta: torch.Tensor,
+               leaf: Optional[torch.Tensor] = None, row_node: Optional[torch.Tensor] = None,
+               ghw: Optional[torch.Tensor] = None) -> None:
+    """One boosting step over [T, n], in place.
+
+    With ``leaf`` f32[T, P] and ``row_node`` i32[T, n]: the margin update
+    ``F += eta[t] * leaf[t, row_node[t, r]]`` (two roundings, no FMA).  With
+    ``ghw`` f32[T, n, 2]: the logistic gradient and hessian of the (updated)
+    margins, times the row weights ``w`` f32[T, n]: ``(p - y) w`` and
+    ``max(p (1 - p), 1e-6) w`` with ``p = 1 / (1 + exp(-F))``.
+    """
+    _require(F.dtype == torch.float32 and F.ndim == 2, "F must be float32[T, n]")
+    T, n = F.shape
+    _require(y.dtype == torch.float32 and tuple(y.shape) == (n,), f"y must be float32[{n}]")
+    _require(w.dtype == torch.float32 and tuple(w.shape) == (T, n), f"w must be float32[{T}, {n}]")
+    _require(eta.dtype == torch.float32 and tuple(eta.shape) == (T,), f"eta must be float32[{T}]")
+    _require((leaf is None) == (row_node is None), "leaf and row_node go together")
+    if leaf is not None:
+        _require(leaf.dtype == torch.float32 and leaf.ndim == 2 and leaf.shape[0] == T
+                 and row_node.dtype == torch.int32 and tuple(row_node.shape) == (T, n),
+                 f"leaf must be float32[{T}, P] and row_node int32[{T}, {n}]")
+    if ghw is not None:
+        _require(ghw.dtype == torch.float32 and tuple(ghw.shape) == (T, n, 2),
+                 f"ghw must be float32[{T}, {n}, 2]")
+    others = [t for t in (leaf, row_node, ghw) if t is not None]
+    if not _on_cuda(F, y, w, eta, *others):
+        return boost_step_plain(F, y, w, eta, leaf, row_node, ghw)
+    for name, a in (("F", F), ("ghw", ghw)):
+        _require(a is None or a.is_contiguous(), f"{name} must be contiguous (written in place)")
+    if n == 0 or (leaf is None and ghw is None):
+        return None
+    from . import triton_boost as tb
+
+    y, w, eta = y.contiguous(), w.contiguous(), eta.contiguous()
+    upd = leaf is not None
+    leaf_t = leaf.contiguous() if upd else F
+    node_t = row_node.contiguous() if upd else F
+    block = 1024
+    grid = (-(-n // block), T)
+    with torch.cuda.device(F.device):
+        tb.boost_step_kernel[grid](F, y, w, eta, leaf_t, node_t,
+                                   ghw if ghw is not None else F, n,
+                                   leaf_t.shape[1] if upd else 0, UPDATE=upd,
+                                   GRAD=ghw is not None, BLOCK=block, num_warps=4)
+    boost_step.launches += 1
+    return None
+
+
+boost_step.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Tree growth and boosting (the reference's grow_tree / _grow_level loops,
+# _gbt_impl, fit_gbt, fit_gbt_batch on the segment-sum backends)
+# ---------------------------------------------------------------------------
+def level_schedule(max_depth: int, frontier: int, exact_cap: bool
+                   ) -> List[Tuple[int, int, int, int, int]]:
+    """Static (m, slot_base, next_free, next_cap, cap_mode) per level: exact
+    unrolled widths 1, 2, 4, ... up to M / 2, then M slots per level."""
+    M = frontier
+    L = M.bit_length() - 1
+    out = [(1 << t, (1 << t) - 1, (1 << (t + 1)) - 1, 1 << (t + 1), CAP_NONE)
+           for t in range(min(max_depth, L))]
+    for t in range(L, max_depth):
+        sb = M - 1 + (t - L) * M
+        out.append((M, sb, sb + M, M, CAP_CLAMP if exact_cap else CAP_BEAM))
+    return out
+
+
+def grow_trees(Xb: torch.Tensor, ghw: torch.Tensor, feat_mask: torch.Tensor,
+               params: torch.Tensor, max_depth: int, n_bins: int, frontier: int,
+               exact_cap: bool = False, nodes: Optional[torch.Tensor] = None,
+               leaf: Optional[torch.Tensor] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Grow T second-order histogram trees together, level by level.
+
+    ``ghw`` f32[T, n, 2] holds the weighted gradients and hessians,
+    ``params`` f32[T, 4] each tree's (lambda, gamma, min_child_weight,
+    min_info_gain).  Returns (nodes i32[T, P, 4], leaf f32[T, P], row_node
+    i32[T, n]): the node pool (feature, bin, left, right; feature -1 is a
+    leaf), the leaf values, and the node each row rests at.  Every level
+    runs K-E, K-F and K-G; from level 1 on, only the lighter child of each
+    sibling pair is summed (histogram subtraction).
+    """
+    T, n, _ = ghw.shape
+    dev = ghw.device
+    P = _pool_size(max_depth, frontier)
+    nodes = torch.empty((T, P, 4), dtype=torch.int32, device=dev) if nodes is None else nodes
+    leaf = torch.empty((T, P), dtype=torch.float32, device=dev) if leaf is None else leaf
+    row_node = torch.zeros((T, n), dtype=torch.int32, device=dev)
+    if max_depth <= 0:  # a single leaf
+        nodes[:] = torch.tensor([-1, 0, 0, 0], dtype=torch.int32, device=dev)
+        leaf[:, 0] = -ghw[..., 0].sum(1) / (ghw[..., 1].sum(1) + params[:, 0])
+        return nodes, leaf, row_node
+    row_slot = torch.zeros((T, n), dtype=torch.int32, device=dev)
+    n_active = torch.ones((T,), dtype=torch.int32, device=dev)
+    ids, hist, pair_parent, pair_light = row_slot.clone(), None, None, None
+    for t, (m, sb, nf, nc, cap) in enumerate(level_schedule(max_depth, frontier, exact_cap)):
+        if t == 0:
+            hist = level_hist(Xb, ghw, ids, m, n_bins)
+        else:
+            hist = level_hist(Xb, ghw, ids, m, n_bins, hist, pair_parent, pair_light)
+        split, pair_parent, pair_light, n_active = split_scan(
+            hist, feat_mask, params, n_active, nodes, leaf, sb, nf, nc, cap, root=t == 0)
+        row_slot, row_node, ids = route_rows(Xb, row_slot, row_node, split, pair_light, nf)
+    return nodes, leaf, row_node
+
+
+def as_tree(nodes: torch.Tensor, leaf: torch.Tensor) -> Tree:
+    """The ``Tree`` of node pools i32[..., P, 4] and leaf values f32[..., P]."""
+    return Tree(nodes[..., 0].contiguous(), nodes[..., 1].contiguous(),
+                nodes[..., 2].contiguous(), nodes[..., 3].contiguous(),
+                leaf.unsqueeze(-1).contiguous())
+
+
+def _f32(v, T: int, dev) -> torch.Tensor:
+    return torch.as_tensor(np.broadcast_to(np.asarray(v, np.float32), (T,)).copy(),
+                           device=dev)
+
+
+def _boost(Xb, y, w, row_w_rounds, feat_mask_rounds, n_rounds, max_depth, n_bins,
+           frontier, eta, params, base, exact_cap, keep_trees):
+    """Boosting over the tree batch: per round one K-H step (margin update +
+    gradients) and one tree grown per batch element, then a last update."""
+    T, n = w.shape
+    dev = Xb.device
+    P = _pool_size(max_depth, frontier)
+    F = base[:, None].expand(T, n).contiguous()
+    ghw = torch.empty((T, n, 2), dtype=torch.float32, device=dev)
+    if keep_trees:
+        nodes_all = torch.empty((n_rounds, T, P, 4), dtype=torch.int32, device=dev)
+        leaf_all = torch.empty((n_rounds, T, P), dtype=torch.float32, device=dev)
+    nodes = torch.empty((T, P, 4), dtype=torch.int32, device=dev)
+    leaf = torch.empty((T, P), dtype=torch.float32, device=dev)
+    prev = (None, None)
+    for r in range(n_rounds):
+        w_r = w * row_w_rounds[r][None]
+        fm = feat_mask_rounds[r][None].expand(T, -1).contiguous()
+        boost_step(F, y, w_r, eta, prev[0], prev[1], ghw)
+        nd, lf = (nodes_all[r], leaf_all[r]) if keep_trees else (nodes, leaf)
+        _, _, row_node = grow_trees(Xb, ghw, fm, params, max_depth, n_bins, frontier,
+                                    exact_cap, nd, lf)
+        prev = (lf, row_node)
+    if n_rounds:
+        boost_step(F, y, w, eta, prev[0], prev[1])
+    trees = (nodes_all, leaf_all) if keep_trees else None
+    return F, trees
+
+
+def _boost_args(loss: str, n_classes: int, trees_per_round: int) -> None:
+    if loss != "logistic":
+        raise NotImplementedError(
+            f"loss {loss!r}: only the logistic loss is ported (softmax and squared "
+            "losses are queued)")
+    if int(trees_per_round) != 1:
+        raise NotImplementedError("trees_per_round > 1 (round collapse) is not ported yet")
+
+
+def fit_gbt(Xb: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
+            row_w_rounds: torch.Tensor, feat_mask_rounds: torch.Tensor, loss: str,
+            n_rounds: int, max_depth: int, n_bins: int, frontier: int, eta: float = 0.3,
+            reg_lambda: float = 1.0, gamma: float = 0.0, min_child_weight: float = 1.0,
+            base_score: float = 0.0, n_classes: int = 1, min_info_gain: float = 0.0,
+            exact_cap: bool = False, trees_per_round: int = 1) -> Tuple[Tree, torch.Tensor]:
+    """XGBoost-style boosting, one histogram tree per round, on Xb's device.
+
+    ``row_w_rounds`` f32[R, n] and ``feat_mask_rounds`` f32[R, d] are the
+    per-round subsample and colsample masks.  Returns (the stacked ``Tree``
+    [R, P], final margins F f32[n, 1])."""
+    _boost_args(loss, n_classes, trees_per_round)
+    dev = Xb.device
+    params = torch.tensor([[reg_lambda, gamma, min_child_weight, min_info_gain]],
+                          dtype=torch.float32, device=dev)
+    F, (nodes, leaf) = _boost(
+        Xb, y.to(dev, torch.float32), w.to(dev, torch.float32)[None], row_w_rounds,
+        feat_mask_rounds, n_rounds, max_depth, n_bins, frontier, _f32(eta, 1, dev), params,
+        _f32(base_score, 1, dev), exact_cap, keep_trees=True)
+    return as_tree(nodes[:, 0], leaf[:, 0]), F[0][:, None]
+
+
+def fit_gbt_batch(Xb: torch.Tensor, y: torch.Tensor, w_batch: torch.Tensor,
+                  row_w_rounds: torch.Tensor, feat_mask_rounds: torch.Tensor, loss: str,
+                  n_rounds: int, max_depth: int, n_bins: int, frontier: int, eta_b,
+                  reg_lambda_b, gamma_b, min_child_weight_b, base_score_b=None,
+                  n_classes: int = 1, min_info_gain_b=None, exact_cap: bool = False,
+                  trees_per_round: int = 1) -> torch.Tensor:
+    """The fold x grid boosting sweep: ``w_batch`` f32[B, n] carries each
+    batch element's fold-mask x sample weights, the ``*_b`` arrays its
+    hyperparameters.  All B trees of a round grow together.  Returns the
+    final margins F f32[B, n, 1] on every row."""
+    _boost_args(loss, n_classes, trees_per_round)
+    dev = Xb.device
+    B = w_batch.shape[0]
+    zeros = np.zeros(B, np.float32)
+    params = torch.stack([_f32(reg_lambda_b, B, dev), _f32(gamma_b, B, dev),
+                          _f32(min_child_weight_b, B, dev),
+                          _f32(zeros if min_info_gain_b is None else min_info_gain_b, B, dev)],
+                         dim=1)
+    F, _ = _boost(Xb, y.to(dev, torch.float32), w_batch.to(dev, torch.float32).contiguous(),
+                  row_w_rounds, feat_mask_rounds, n_rounds, max_depth, n_bins, frontier,
+                  _f32(eta_b, B, dev), params,
+                  _f32(zeros if base_score_b is None else base_score_b, B, dev),
+                  exact_cap, keep_trees=False)
+    return F[:, :, None]

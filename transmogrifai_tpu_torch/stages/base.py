@@ -8,8 +8,8 @@ and the arity traits (``OpPipelineStage1..4``, ``N``, ``2N`` — :218-523), plus
 The port's copy of ``transmogrifai_tpu.stages.base``: a stage is a pure
 function pair —
 
-- ``fit(dataset) -> Model`` (not ported: the port scores models that the
-  JAX package fitted),
+- ``fit(dataset) -> Model``: the estimator's fit on a columnar dataset;
+  the model is placed on the estimator's device,
 - ``Model.transform_columns(columns) -> Column`` is a pure per-batch function;
   a DAG layer's stages run back to back on the device (the analog of
   FitStagesUtil.applyOpTransformations's fused rdd.map, FitStagesUtil.scala:96).
@@ -202,6 +202,8 @@ class Estimator(PipelineStage):
         model._outputs = self._outputs
         if not model.metadata:
             model.metadata = self.metadata
+        if self.device is not None:
+            model.to(self.device)
         return model
 
 

@@ -1,8 +1,12 @@
-"""The scoring DAG: layer-by-layer transform on the device.
+"""DAG computation, layered fitting and the layer-by-layer transform.
 
-The port's counterpart of the scoring half of
-``transmogrifai_tpu/workflow/dag.py`` (reference FitStagesUtil.scala:51):
-``apply_transformations_dag`` applies the saved antichain layers in order.  A layer's stages
+The port's counterpart of ``transmogrifai_tpu/workflow/dag.py`` (reference
+FitStagesUtil.scala:51): ``compute_dag`` groups stages into antichain
+layers by their distance from the result features, ``fit_and_transform_dag``
+fits a layer's estimators then transforms the training data with the
+layer, ``cut_dag`` splits the DAG around the ModelSelector for the
+workflow-level CV, and ``apply_transformations_dag`` applies fitted layers
+in order.  A layer's stages
 that implement the fused-layer protocol (``torch_transform``, see
 ``impl/feature/_util.py``) run back to back on the device, sharing one upload
 of each distinct input column; the rest apply per stage.  As in the JAX
@@ -15,13 +19,73 @@ whole at any row count; the streaming executor of the JAX package
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Sequence
+from dataclasses import dataclass
+from typing import Any, Dict, List, Optional, Sequence, Set
 
 from ..columns import Dataset, NumericColumn, VectorColumn
+from ..features.feature import Feature
+from ..features.generator import FeatureGeneratorStage
 from ..impl.feature._util import run_on_device
-from ..stages.base import PipelineStage, Transformer
+from ..stages.base import Estimator, PipelineStage, Transformer
 
 Layer = List[PipelineStage]
+
+
+def compute_dag(result_features: Sequence[Feature]) -> List[Layer]:
+    """Stages layered by max distance from the results, farthest first;
+    raw-feature generator stages are left out (their work is the reader's)."""
+    dist: Dict[str, int] = {}
+    stages: Dict[str, PipelineStage] = {}
+    for rf in result_features:
+        for stage, d in rf.parent_stages().items():
+            if isinstance(stage, FeatureGeneratorStage):
+                continue
+            if stage.uid not in dist or dist[stage.uid] < d:
+                dist[stage.uid] = d
+                stages[stage.uid] = stage
+    by_layer: Dict[int, Layer] = {}
+    for uid, d in dist.items():
+        by_layer.setdefault(d, []).append(stages[uid])
+    return [sorted(by_layer[d], key=lambda s: s.uid) for d in sorted(by_layer, reverse=True)]
+
+
+@dataclass
+class FittedDAG:
+    """Result of fit_and_transform_dag (FitStagesUtil.FittedDAG)."""
+
+    train: Dataset
+    fitted_stages: List[PipelineStage]
+
+
+def fit_and_transform_dag(dag: List[Layer], train: Dataset,
+                          fitted_so_far: Optional[Dict[str, PipelineStage]] = None,
+                          listener=None) -> FittedDAG:
+    """Fit each layer's estimators on ``train``, then transform ``train``
+    with the layer (FitStagesUtil.fitAndTransformDAG:212).  ``fitted_so_far``
+    maps stage uids to models applied instead of refitted.  ``listener``,
+    when given, is called as ``listener(layer_index, layer, seconds)``."""
+    import time
+
+    fitted_so_far = fitted_so_far or {}
+    fitted: List[PipelineStage] = []
+    for li, layer in enumerate(dag):
+        t0 = time.perf_counter()
+        transformers: List[Transformer] = []
+        for stage in layer:
+            if stage.uid in fitted_so_far:
+                model = fitted_so_far[stage.uid]
+            elif isinstance(stage, Estimator):
+                model = stage.fit(train)
+            elif isinstance(stage, Transformer):
+                model = stage
+            else:
+                raise TypeError(f"Stage {stage} is neither Estimator nor Transformer")
+            transformers.append(model)
+            fitted.append(model)
+        train = _apply_layer_transforms(train, transformers)
+        if listener is not None:
+            listener(li, layer, time.perf_counter() - t0)
+    return FittedDAG(train=train, fitted_stages=fitted)
 
 
 def _fusable(t, ds: Dataset) -> bool:
@@ -71,3 +135,42 @@ def apply_transformations_dag(ds: Dataset, dag: List[Layer]) -> Dataset:
     for layer in dag:
         ds = _apply_layer_transforms(ds, layer)
     return ds
+
+
+@dataclass
+class CutDAG:
+    """DAG split around the ModelSelector (FitStagesUtil.CutDAG)."""
+
+    model_selector: Optional[PipelineStage]
+    before: List[Layer]
+    during: List[Layer]
+    after: List[Layer]
+
+
+def cut_dag(dag: List[Layer]) -> CutDAG:
+    """Split for workflow-level CV (FitStagesUtil.cutDAG:302): 'during'
+    (refit per fold) is the suffix of the selector's ancestor sub-DAG from
+    the first layer holding a label-using stage (inputs mixing the response
+    and predictors); label-free feature engineering fits once in 'before';
+    layers past the selector are 'after'.  At most one ModelSelector."""
+    selectors = [(i, s) for i, layer in enumerate(dag) for s in layer
+                 if getattr(s, "is_model_selector", False)]
+    if not selectors:
+        return CutDAG(None, before=dag, during=[], after=[])
+    if len(selectors) > 1:
+        raise ValueError(
+            f"Only one ModelSelector is supported per workflow, found {len(selectors)}")
+    idx, selector = selectors[0]
+    anc = compute_dag(list(selector.inputs))
+    ci = next((i for i, layer in enumerate(anc) for s in layer
+               if any(f.is_response for f in s.inputs)
+               and any(not f.is_response for f in s.inputs)), None)
+    during_feats: List[Layer] = [list(l) for l in anc[ci:]] if ci is not None else []
+    during_uids: Set[str] = {s.uid for layer in during_feats for s in layer}
+    before: List[Layer] = []
+    for layer in dag[:idx + 1]:
+        keep = [s for s in layer if s is not selector and s.uid not in during_uids]
+        if keep:
+            before.append(keep)
+    after: List[Layer] = [list(l) for l in dag[idx + 1:]]
+    return CutDAG(selector, before=before, during=during_feats + [[selector]], after=after)

@@ -1,10 +1,10 @@
 """OpWorkflowModel — the fitted workflow, scoring on a device.
 
 The port's counterpart of ``transmogrifai_tpu/workflow/model.py`` (reference
-OpWorkflowModel.scala:60): ``score`` (:261) and ``score_fn`` (:333).  A model
-is placed on one device when it is loaded (``load_model(path, device)``);
-every stage computes there.  Training, evaluation, insights and saving are
-not ported.
+OpWorkflowModel.scala:60): ``score`` (:261), ``score_fn`` (:333) and
+``save`` (:224).  A model is placed on one device when it is trained or
+loaded (``load_model(path, device)``); every stage computes there.
+Evaluation and insights are not ported.
 """
 from __future__ import annotations
 
@@ -32,6 +32,9 @@ class OpWorkflowModel:
         self.dag: List[dag_util.Layer] = []
         self.parameters: OpParams = OpParams()
         self.device: Optional[torch.device] = None
+        #: the training reader and transformed training data (``train`` only)
+        self.reader = None
+        self.train_data: Optional[Dataset] = None
 
     def to(self, device=None) -> "OpWorkflowModel":
         """Place every stage on ``device`` (``None``: the CUDA card)."""
@@ -79,6 +82,13 @@ class OpWorkflowModel:
         from ..readers.base import CustomReader
 
         return CustomReader(data).generate_dataset(self.raw_features, params)
+
+    def save(self, path: str, overwrite: bool = True) -> None:
+        """Save in the JAX package's format (``op_model.json`` +
+        ``op_model_arrays.npz``): both packages load the result."""
+        from .serialization import save_model
+
+        save_model(self, path, overwrite=overwrite)
 
     @staticmethod
     def load(path: str, device=None) -> "OpWorkflowModel":

@@ -1,19 +1,22 @@
-"""Loading workflow models saved by the JAX package.
+"""Workflow model (de)serialization in the JAX package's format.
 
-The port's counterpart of ``load_model`` in
-``transmogrifai_tpu/workflow/serialization.py`` (reference:
-OpWorkflowModelReader.scala): the JSON manifest names every stage by its
-importable class path, and the fitted arrays come from the ``.npz``
-bundle.  A class path of the JAX package (``transmogrifai_tpu.<module>``)
-maps to the port's module of the same name
-(``transmogrifai_tpu_torch.<module>``), so a model the JAX package saved
-loads here and scores on the device.  Saving is not ported.
+The port's counterpart of ``transmogrifai_tpu/workflow/serialization.py``
+(reference: OpWorkflowModelWriter.scala:56, OpWorkflowModelReader.scala):
+the JSON manifest names every stage by its importable class path, and the
+fitted arrays go to the ``.npz`` bundle.  A class path of the JAX package
+(``transmogrifai_tpu.<module>``) maps to the port's module of the same name
+(``transmogrifai_tpu_torch.<module>``) at load, and back at save, so a model
+either package saved loads in both.  The port's device placement (a stage's
+``device``, a predictor's device copy of its parameters) is not saved.
 """
 from __future__ import annotations
 
 import importlib
+import inspect
 import json
 import os
+import tempfile
+import textwrap
 from typing import Any, Dict
 
 import numpy as np
@@ -35,6 +38,12 @@ _JAX_PACKAGE = "transmogrifai_tpu"
 _PORT_PACKAGE = "transmogrifai_tpu_torch"
 
 
+_SKIP_ATTRS = {"operation_name", "output_type", "uid", "_params", "inputs", "_outputs",
+               "metadata", "parent_uid", "input_type", "n_outputs",
+               # the port's placement on a device, rebuilt at load
+               "device", "_dparams"}
+
+
 def port_module(mod_name: str) -> str:
     """The port's module for a saved module path: the JAX package's prefix
     maps to the port's; any other path (already the port's, or a user
@@ -42,6 +51,114 @@ def port_module(mod_name: str) -> str:
     if mod_name == _JAX_PACKAGE or mod_name.startswith(_JAX_PACKAGE + "."):
         return _PORT_PACKAGE + mod_name[len(_JAX_PACKAGE):]
     return mod_name
+
+
+def jax_module(mod_name: str) -> str:
+    """The saved module path of a port module: the inverse of
+    ``port_module``, so the manifest names the JAX package's classes."""
+    if mod_name == _PORT_PACKAGE or mod_name.startswith(_PORT_PACKAGE + "."):
+        return _JAX_PACKAGE + mod_name[len(_PORT_PACKAGE):]
+    return mod_name
+
+
+def _class_path(cls: type) -> str:
+    return f"{jax_module(cls.__module__)}:{cls.__qualname__}"
+
+
+def _jsonable(obj: Any) -> Any:
+    if isinstance(obj, dict):
+        return {str(k): _jsonable(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return [_jsonable(v) for v in obj]
+    if isinstance(obj, np.ndarray):
+        return obj.tolist()
+    if isinstance(obj, (np.floating, np.integer, np.bool_)):
+        return obj.item()
+    if hasattr(obj, "to_json"):
+        return obj.to_json()
+    return obj
+
+
+def _encode(value: Any, arrays: Dict[str, np.ndarray], prefix: str) -> Any:
+    if isinstance(value, np.ndarray):
+        key = f"{prefix}#{len(arrays)}"
+        arrays[key] = value
+        return {"__array__": key}
+    if isinstance(value, (np.floating, np.integer, np.bool_)):
+        return value.item()
+    if isinstance(value, VectorMetadata):
+        return {"__vector_metadata__": value.to_json()}
+    if isinstance(value, PipelineStage):
+        return {"__stage__": _encode_stage(value, arrays)}
+    if isinstance(value, type) and issubclass(value, T.FeatureType):
+        return {"__ftype__": value.__name__}
+    if isinstance(value, type):
+        return {"__class_ref__": _class_path(value)}
+    if isinstance(value, dict):
+        return {"__dict__": {str(k): _encode(v, arrays, prefix) for k, v in value.items()}}
+    if isinstance(value, tuple):
+        return {"__tuple__": [_encode(v, arrays, prefix) for v in value]}
+    if isinstance(value, list):
+        return [_encode(v, arrays, prefix) for v in value]
+    if isinstance(value, set):
+        return {"__set__": [_encode(v, arrays, prefix) for v in sorted(value, key=repr)]}
+    if value is None or isinstance(value, (bool, int, float, str)):
+        return value
+    if hasattr(value, "to_json") and hasattr(type(value), "from_json"):
+        return {"__jsonable__": {"class": _class_path(type(value)), "data": value.to_json()}}
+    raise TypeError(f"Cannot serialize value of type {type(value).__name__}: {value!r}")
+
+
+def _encode_stage(stage: PipelineStage, arrays: Dict[str, np.ndarray]) -> Dict[str, Any]:
+    state = {}
+    for k, v in vars(stage).items():
+        if k in _SKIP_ATTRS or k.startswith("__"):
+            continue
+        if callable(v) and not isinstance(v, (PipelineStage, Extractor, type)):
+            continue
+        if isinstance(v, Extractor):
+            state[k] = {"__extractor__": _encode_extractor(v)}
+            continue
+        if isinstance(v, MonoidAggregator):
+            state[k] = {"__aggregator__": _encode_aggregator(v)}
+            continue
+        state[k] = _encode(v, arrays, stage.uid)
+    return {
+        "class": _class_path(type(stage)),
+        "uid": stage.uid,
+        "operationName": stage.operation_name,
+        "outputType": stage.output_type.__name__,
+        "nOutputs": stage.n_outputs,
+        "params": _encode(stage._params, arrays, stage.uid + "/params"),
+        "parentUid": getattr(stage, "parent_uid", None),
+        "inputUids": [f.uid for f in stage.inputs],
+        "outputNames": [f.name for f in (stage._outputs or [])],
+        "outputUids": [f.uid for f in (stage._outputs or [])],
+        "metadata": _jsonable(stage.metadata),
+        "state": state,
+    }
+
+
+def _encode_extractor(ex: Extractor) -> Dict[str, Any]:
+    if isinstance(ex, FieldExtractor):
+        return ex.spec
+    if isinstance(ex, FnExtractor):
+        try:
+            src = textwrap.dedent(inspect.getsource(ex.fn)).strip()
+        except (OSError, TypeError):
+            src = None
+        return {"kind": "fn_source", "type": ex.ftype.__name__, "source": src}
+    raise TypeError(f"Unknown extractor {ex!r}")
+
+
+def _encode_aggregator(agg: MonoidAggregator) -> Dict[str, Any]:
+    if isinstance(agg, TimeBasedAggregator):
+        return {"class": "TimeBasedAggregator", "last": agg.last}
+    if isinstance(agg, ConcatText):
+        return {"class": "ConcatText", "separator": agg.separator}
+    if isinstance(agg, CustomMonoidAggregator):
+        return {"class": "Custom"}
+    return {"class": type(agg).__name__}
 
 
 def _resolve_class(path: str) -> type:
@@ -242,3 +359,66 @@ def load_model(path: str, device=None):
 
     model.parameters = OpParams.from_json(manifest.get("parameters", {}))
     return model.to(dev)
+
+
+def save_model(model, path: str, overwrite: bool = True) -> None:
+    """Save a fitted workflow model: arrays first, then the manifest, each
+    through a temporary file and an atomic rename (a manifest implies a
+    complete model)."""
+    os.makedirs(path, exist_ok=True)
+    manifest_path = os.path.join(path, MODEL_MANIFEST)
+    if os.path.exists(manifest_path) and not overwrite:
+        raise FileExistsError(f"Model already exists at {path}")
+    arrays: Dict[str, np.ndarray] = {}
+    all_features: Dict[str, Feature] = {}
+    for rf in model.result_features:
+        for f in rf.all_features():
+            all_features[f.uid] = f
+    for f in model.raw_features + model.blocklisted_features:
+        all_features.setdefault(f.uid, f)
+    gen_stages = {}
+    for f in all_features.values():
+        st = f.origin_stage
+        if isinstance(st, FeatureGeneratorStage) and st.uid not in gen_stages:
+            gen_stages[st.uid] = {
+                "uid": st.uid, "outputName": st._output_name,
+                "type": st.output_type.__name__, "isResponse": st.is_response,
+                "extractor": _encode_extractor(st.extract_fn),
+                "aggregator": _encode_aggregator(st.aggregator),
+                "windowMs": st.aggregate_window_ms,
+            }
+    manifest = {
+        "version": 1,
+        "resultFeatureUids": [f.uid for f in model.result_features],
+        "rawFeatureUids": [f.uid for f in model.raw_features],
+        "blocklistedFeatureUids": [f.uid for f in model.blocklisted_features],
+        "blocklistedMapKeys": model.blocklisted_map_keys,
+        "features": [
+            {"name": f.name, "uid": f.uid, "type": f.ftype.__name__,
+             "isResponse": f.is_response, "originStageUid": f.origin_stage.uid,
+             "parentUids": [p.uid for p in f.parents]}
+            for f in all_features.values()
+        ],
+        "generatorStages": list(gen_stages.values()),
+        "stages": [_encode_stage(s, arrays) for s in model.stages],
+        "dagLayers": [[s.uid for s in layer] for layer in model.dag],
+        "parameters": model.parameters.to_json(),
+        "rffResults": None,
+    }
+    arrays_path = os.path.join(path, MODEL_ARRAYS)
+    fd, tmp = tempfile.mkstemp(dir=path, suffix=".tmp")
+    try:
+        with os.fdopen(fd, "wb") as fh:
+            np.savez_compressed(fh, **arrays)
+        os.replace(tmp, arrays_path)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    fd, tmp = tempfile.mkstemp(dir=path, suffix=".tmp")
+    try:
+        with os.fdopen(fd, "w") as fh:
+            json.dump(manifest, fh, indent=1, default=str)
+        os.replace(tmp, manifest_path)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
