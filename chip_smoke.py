@@ -32,29 +32,46 @@ Phases, each printing its findings on a line of its own:
 6. train reference -- the full-width Titanic XGBoost train (the stock grid:
                200 rounds, depth 10, min_child_weight 1 and 10, 3-fold CV)
                on the 891-row synthetic frame, through
-               ``OpWorkflow.train``: the winner must be the committed
+               ``OpWorkflow.train`` with ``model_types=["OpXGBoostClassifier"]``
+               (the fused sweep): the winner must be the committed
                fixture's and every fold's AuPR within ``TRAIN_AUPR_TOL`` of
                the fixture's; the share of refit trees equal to the
                fixture's and the saved model's gaps on the fixture's
                requests are printed;
-7. train    -- the main path of training: the same flow on a Titanic-schema
+7. sweep reference -- the full-width stock train (LR + RF + XGBoost, 28
+               candidates) on the 891-row frame, held to the committed
+               fixture ``titanic_stock``: the same winner (LR reg_param
+               0.001, elastic_net_param 0.1), the forests' draws equal to
+               the fixture's, each family's fold AuPR within its tolerance
+               (``FX.LR_AUPR_TOL``, ``FX.RF_AUPR_TOL``, ``TRAIN_AUPR_TOL``),
+               and the saved model's probabilities on the fixture's requests
+               within ``FX.PROB_ATOL``; every metric of each sweep call is
+               printed beside the fixture's;
+8. train    -- the main path of training: the stock flow on a Titanic-schema
                frame of ``--train-rows`` rows from ``--seed``; every
                kernel's launch count is reset just before and read just
-               after (K-A, K-E ... K-H, K-I and K-J must be above 0),
-               with the wall time and the host-clock breakdown; a second
-               run is profiled for the device's busy time and idle share;
-8. train kernels -- K-E ... K-H against their plain versions on the inputs
+               after (K-A, K-E ... K-M must be above 0), with the wall time
+               and the host-clock breakdown (the sweep split into fista,
+               forest, gbt and metrics); a second run is profiled for the
+               device's busy time and idle share;
+9. train kernels -- K-E ... K-H against their plain versions on the inputs
                of the deepest level of the second boosting round of one
                sweep fold of the ``--train-rows`` data (the first round's
                gradients are dyadic; the second's are checked not to be):
                K-E, K-F and K-G bit-equal (K-E on integer-valued and on
                real gradients, K-F and K-G fed one histogram), K-H's
                gradients within the stated gap; timed as in phase 2;
-9. stats kernels -- K-I and K-J (the sanity checker's correlation matrix
+10. stats kernels -- K-I and K-J (the sanity checker's correlation matrix
                and contingency counts) against their plain versions on the
                sanity checker's 100k-row sample of the ``--train-rows``
                data: K-J bit-equal, K-I within ``STATS_GRAM_ATOL``; timed
-               as in phase 2.
+               as in phase 2;
+11. sweep kernels -- K-K, K-L and K-M against their plain versions on the
+               first sweep call of the ``--train-rows`` train (its feature
+               matrix, folds and candidates): K-K's gradients at the fitted
+               coefficients within ``FISTA_GRAD_RTOL``, K-L on the sweep's
+               28 score rows and K-M on its deepest forest group bit-equal;
+               timed as in phase 2 (K-L's sort timed apart).
 
 The line before the last holds the kernels' JSON record, then the card's
 name and power limit; the last line is ``{"ok": true, "device": ...}``.  Any
@@ -83,6 +100,10 @@ TRAIN_AUPR_TOL = 2e-4
 #: largest gap of K-I's correlation matrix to its plain version (cuBLAS):
 #: float32 sums of 100k products in another order
 STATS_GRAM_ATOL = 2e-6
+#: largest gap of K-K's gradients to its plain version (cuBLAS products),
+#: relative to the largest gradient entry: float32 sums of 2^18 rows in
+#: another order
+FISTA_GRAD_RTOL = 1e-5
 
 
 def check(cond, msg="check failed"):
@@ -364,7 +385,7 @@ def train_reference_phase(torch, titanic, FX, dev="cuda"):
     import transmogrifai_tpu_torch as P
 
     t = time.perf_counter()
-    model, wf = titanic.train_titanic(device=dev)
+    model, wf = titanic.train_titanic(device=dev, model_types=["OpXGBoostClassifier"])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
     with open(FX.TITANIC_XGB + "/op_model.json") as fh:
@@ -407,22 +428,90 @@ def train_reference_phase(torch, titanic, FX, dev="cuda"):
           f"fold AuPR {max(gaps)} from the fixture's, above {TRAIN_AUPR_TOL}")
 
 
+class SweepCalls:
+    """Records each fused sweep call's plan, folds and metrics while on
+    (``SweepPlan.run`` wrapped, restored on exit)."""
+
+    def __init__(self):
+        from transmogrifai_tpu_torch.impl import sweep_fragments as SF
+
+        self.SF, self.calls = SF, []
+
+    def __enter__(self):
+        run = self.run = self.SF.SweepPlan.run
+
+        def recording_run(plan, train_w, val_mask, timings=None):
+            out = run(plan, train_w, val_mask, timings)
+            self.calls.append((plan, train_w, val_mask, out))
+            return out
+
+        self.SF.SweepPlan.run = recording_run
+        return self
+
+    def __exit__(self, *exc):
+        self.SF.SweepPlan.run = self.run
+
+
+def sweep_reference_phase(torch, titanic, FX, dev="cuda"):
+    """The full-width stock train on the 891-row frame, held to the
+    committed stock fixture; raises on a failed check."""
+    import tempfile
+
+    import transmogrifai_tpu_torch as P
+    from transmogrifai_tpu_torch.ops import trees as Tr
+
+    with SweepCalls() as rec:
+        t = time.perf_counter()
+        model, wf = titanic.train_titanic(device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    summ = model.stages[-1].summary
+    gaps = FX.check_stock_train(model, xgb_tol=TRAIN_AUPR_TOL)
+    ref = FX.load_sweep()
+    kb, kf = Tr.rng_keys(42)
+    boot = Tr.bootstrap_weights(kb, 891, 50, device=dev).cpu().numpy()
+    masks = Tr.feature_masks(kf, 10, 50, np.sqrt(10) / 10, dev).cpu().numpy()
+    check(np.array_equal(boot, ref["bootstrap"]), "bootstrap draws differ from the fixture's")
+    check(np.array_equal(masks, ref["feature_masks"]), "feature masks differ from the fixture's")
+    mine = np.stack([out for *_, out in rec.calls])
+    check(mine.shape == ref["metrics"].shape, f"sweep metrics {mine.shape}")
+    fams = {"lr": slice(0, 8), "rf": slice(8, 26), "xgb": slice(26, 28)}
+    metric_gaps = {f: dict(zip(("AuROC", "AuPR", "Error", "Precision", "Recall", "F1"),
+                               np.abs(mine[:, :, sl] - ref["metrics"][:, :, sl])
+                               .max(axis=(0, 1, 2)).tolist())) for f, sl in fams.items()}
+    with tempfile.TemporaryDirectory() as tmp:
+        model.save(tmp)
+        loaded = P.load_model(tmp, device=dev)
+        req = FX.load_columns(FX.TITANIC_STOCK + "/requests.npz")
+        name = loaded.result_features[0].name
+        pred, prob, raw = FX.prediction_arrays(P.BatchScoreFunction(loaded)(FX.records(req)),
+                                               name)
+    answers = FX.compare(FX.load_expected(FX.TITANIC_STOCK + "/expected.npz"), pred, prob, raw)
+    log("sweep_reference", rows=891, wall_s=wall, best=summ.best_model_name,
+        best_grid=summ.best_grid, fold_aupr_max_gap_by_family=gaps,
+        tolerances={"lr": FX.LR_AUPR_TOL, "rf": FX.RF_AUPR_TOL, "xgb": TRAIN_AUPR_TOL},
+        sweep_calls=len(rec.calls), metric_max_gap_by_family=metric_gaps,
+        draws_equal=True, requests_vs_expected=answers, timings_s=wf.train_timings)
+
+
 def train_phase(torch, titanic, rows, seed, kernels, dev="cuda"):
     """The main path of training at ``rows`` rows: launch counts reset just
     before and read just after; then a profiled second run.  Returns (each
-    kernel's launches, the trained model)."""
+    kernel's launches, the trained model, the first sweep call)."""
     from torch.profiler import ProfilerActivity, profile
 
     cols = titanic.titanic_data(rows, seed)
     for fn in kernels:
         fn.launches = 0
-    t = time.perf_counter()
-    model, wf = titanic.train_titanic(cols, device=dev)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t
+    with SweepCalls() as rec:
+        t = time.perf_counter()
+        model, wf = titanic.train_titanic(cols, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
     launches = {fn.__name__: fn.launches for fn in kernels}
     summ = model.stages[-1].summary
     folds = [m for r in summ.validation_results for m in r["foldMetrics"]]
+    check(len(summ.validation_results) == 28, "the stock space has 28 candidates")
     check(all(np.isfinite(folds)) and min(folds) > 0.5, f"bad fold metrics {folds}")
     check(summ.holdout_evaluation["AuPR"] > 0.5, "bad holdout AuPR")
     timings = dict(wf.train_timings)
@@ -436,14 +525,19 @@ def train_phase(torch, titanic, rows, seed, kernels, dev="cuda"):
     by_kernel = sorted(((e.key, getattr(e, "self_device_time_total", 0) / 1e6, e.count)
                         for e in prof.key_averages()
                         if getattr(e, "self_device_time_total", 0) > 0),
-                       key=lambda r: -r[1])[:8]
+                       key=lambda r: -r[1])[:12]
+    plan = rec.calls[0][0]
     log("train", rows=rows, wall_s=wall, launches=launches, host_clock_s=timings,
-        best_grid=summ.best_grid, fold_aupr=folds,
-        holdout_aupr=summ.holdout_evaluation["AuPR"], profiled_train_s=prof_wall,
-        device_busy_s=busy_s,
+        best=summ.best_model_name, best_grid=summ.best_grid,
+        fold_aupr_by_family={f: [r["foldMetrics"] for r in summ.validation_results
+                                 if r["modelName"] == f]
+                             for f in ("OpLogisticRegression", "OpXGBoostClassifier")},
+        holdout_aupr=summ.holdout_evaluation["AuPR"], sweep_spec=repr(plan.spec),
+        sweep_rows=int(plan.X.shape[0]), sweep_features=int(plan.X.shape[1]),
+        profiled_train_s=prof_wall, device_busy_s=busy_s,
         device_idle_share=None if busy_s is None else 1 - busy_s / prof_wall,
         device_s_by_kernel=by_kernel)
-    return launches, model
+    return launches, model, rec.calls[0][:3]
 
 
 def train_kernel_phase(torch, model, timer, dev="cuda"):
@@ -658,6 +752,99 @@ def stats_kernel_phase(torch, model, timer, dev="cuda"):
     return records
 
 
+def sweep_kernel_phase(torch, call, timer):
+    """K-K, K-L and K-M against their plain versions on the first sweep call
+    of the ``--train-rows`` train: its feature matrix, folds and spec."""
+    from transmogrifai_tpu_torch.ops import linear as L
+    from transmogrifai_tpu_torch.ops import metrics as M
+    from transmogrifai_tpu_torch.ops import sweep as SW
+    from transmogrifai_tpu_torch.ops import trees as Tr
+
+    plan, train_w, val_mask = call
+    X, y, xbs, blob = plan.X, plan.y, plan.xbs, plan.blob
+    dev = X.device
+    tw = torch.as_tensor(np.asarray(train_w, np.float32), device=dev).contiguous()
+    vm = torch.as_tensor(np.asarray(val_mask, np.float32), device=dev)
+    n, d = X.shape
+    F = tw.shape[0]
+    frags = {f[0]: f for f in plan.spec[1]}
+    records = []
+
+    # K-K fista_grad: the gradients at the sweep's fitted coefficients
+    _, cis, max_iter, fit_icpt, off_l1, off_l2 = frags["fista"]
+    G = len(cis)
+    l1, l2 = blob[off_l1:off_l1 + G], blob[off_l2:off_l2 + G]
+    fit = L.fit_logistic_grid_folds_fista(X, y, tw, l1, l2, max_iter=max_iter,
+                                          fit_intercept=fit_icpt)
+    C = F * G
+    z = torch.cat([fit.coef, fit.intercept], -1).reshape(C, d + 1).contiguous()
+    X1 = torch.cat([X, torch.ones((n, 1), device=dev)], 1).contiguous()
+    p = d + 1
+    fold = torch.arange(F, dtype=torch.int32, device=dev).repeat_interleave(G)
+    l2v = torch.as_tensor(np.tile(l2, F), device=dev)[:, None].repeat(1, p).contiguous()
+    l2v[:, -1] = 0.0
+    wsum = torch.clamp_min(tw.sum(1), 1e-12)[fold.long()].contiguous()
+    args = (X1, y, tw, fold, z, l2v, wsum)
+    got, want = L.fista_grad(*args), L.fista_grad_plain(*args)
+    check(torch.equal(got, L.fista_grad(*args)), "fista_grad does not repeat bit for bit")
+    scale = float(want.abs().max())
+    err_k = float((got - want).abs().max())
+    check(err_k <= FISTA_GRAD_RTOL * scale,
+          f"fista_grad {err_k} from plain, above {FISTA_GRAD_RTOL} x {scale}")
+    wc = tw[fold.long()]
+    # X1, each fold's weights and y read once, z / l2v / wsum read and the
+    # gradients written; per (fit, row) the margin and the accumulation
+    # (4 p operations) and the sigmoid and residual (about 20)
+    b, by = bound_ms((n * p + F * n + n) * 4 + C * (3 * p + 1) * 4, C * n * (4 * p + 20))
+    records.append(dict(
+        name="fista_grad", route="cuda", source="transmogrifai_tpu_torch/csrc/fista.cu",
+        replaces="transmogrifai_tpu/ops/linear.py:105", max_abs_err=err_k,
+        ms=timer(lambda: L.fista_grad(*args)), plain_ms=timer(lambda: L.fista_grad_plain(*args)),
+        bound_ms=b, bound_by=by,
+        library_ms=timer(lambda: torch.matmul(wc * (torch.sigmoid(torch.matmul(X1, z.T)).T - y),
+                                              X1) / wsum[:, None] + l2v * z)))
+
+    # K-L binary_metrics: the sweep's 28 score rows, sorted once
+    scores = SW._all_scores(plan.spec, X, xbs, y, tw, np.asarray(blob, np.float32))
+    R = scores.shape[0] * scores.shape[1]
+    ss, order = M.sort_scores(scores, vm)
+    strict = torch.as_tensor(plan.spec[2], dtype=torch.int32, device=dev)
+    margs = (ss, order, y, vm, strict, scores.shape[1])
+    got, want = M.binary_metrics(*margs), M.binary_metrics_plain(*margs)
+    check(torch.equal(got, want), "binary_metrics differs from plain")
+    # the sorted scores and permutation, y and the masks read once, six
+    # floats a row written; about 12 operations an element in two passes
+    b, by = bound_ms(R * n * (4 + 8) + n * 4 + F * n * 4 + R * 6 * 4, R * n * 12)
+    sort_ms = timer(lambda: M.sort_scores(scores, vm))
+    records.append(dict(
+        name="binary_metrics", route="cuda",
+        source="transmogrifai_tpu_torch/csrc/binary_metrics.cu",
+        replaces="transmogrifai_tpu/ops/metrics.py:57", max_abs_err=0.0,
+        ms=timer(lambda: M.binary_metrics(*margs)),
+        plain_ms=timer(lambda: M.binary_metrics_plain(*margs)),
+        bound_ms=b, bound_by=by, library_ms=None))
+
+    # K-M forest_leaf_mean: the deepest forest group's leaves
+    group = max(frags["forest"][2], key=lambda g: g[1])
+    leaf, row_node = SW.grow_forest_group(group, xbs, y, tw, np.asarray(blob, np.float32))
+    Gg, T, P_ = leaf.shape
+    got, want = Tr.forest_leaf_mean(leaf, row_node), Tr.forest_leaf_mean_plain(leaf, row_node)
+    check(torch.equal(got, want), "forest_leaf_mean differs from plain")
+    rn_long = row_node.long()
+    # the rows' leaves read once, the pools read once, the means written
+    b, by = bound_ms(Gg * T * n * 4 + Gg * T * P_ * 4 + Gg * n * 4, Gg * T * n)
+    records.append(dict(
+        name="forest_leaf_mean", route="triton", source="transmogrifai_tpu_torch/ops/triton_forest.py",
+        replaces="transmogrifai_tpu/ops/sweep.py:253", max_abs_err=0.0,
+        ms=timer(lambda: Tr.forest_leaf_mean(leaf, row_node)),
+        plain_ms=timer(lambda: Tr.forest_leaf_mean_plain(leaf, row_node)),
+        bound_ms=b, bound_by=by, library_ms=timer(lambda: leaf.gather(2, rn_long).mean(1))))
+    log("sweep_kernels", rows=n, shapes={"X1": [n, p], "fits": C, "score_rows": R,
+                                         "forest_group": [Gg, T, P_], "depth": group[1]},
+        fista_grad_scale=scale, sort_ms=sort_ms, records=records)
+    return records
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -675,6 +862,8 @@ def main(argv=None):
     import transmogrifai_tpu_torch as P
     from transmogrifai_tpu_torch import fixtures as FX
     from transmogrifai_tpu_torch.ops import cuda_build
+    from transmogrifai_tpu_torch.ops import linear as L
+    from transmogrifai_tpu_torch.ops import metrics as M
     from transmogrifai_tpu_torch.ops import stats as K
     from transmogrifai_tpu_torch.ops import trees as Tr
     from transmogrifai_tpu_torch.ops import vectorize as V
@@ -683,7 +872,8 @@ def main(argv=None):
 
     kernels = (Tr.bin_rows, Tr.ensemble_walk, V.fill_indicator, V.one_hot_codes)
     train_kernels = (Tr.bin_rows, Tr.level_hist, Tr.split_scan, Tr.route_rows,
-                     Tr.boost_step, K.corr_gram, K.contingency_counts)
+                     Tr.boost_step, K.corr_gram, K.contingency_counts, L.fista_grad,
+                     M.binary_metrics, Tr.forest_leaf_mean)
     smi = nvidia_smi()
     kind = torch.cuda.get_device_name(0)
 
@@ -695,6 +885,7 @@ def main(argv=None):
     V.fill_indicator(one, one > 0, torch.ones(2, device=dev), True)
     V.one_hot_codes(torch.zeros((1, 8), dtype=torch.int32, device=dev), [3])
     Tr.boost_step(one, one[0], one, one[:, 0], ghw=torch.empty((2, 8, 2), device=dev))
+    Tr.forest_leaf_mean(one[None], torch.zeros((1, 2, 8), dtype=torch.int32, device=dev))
     torch.cuda.synchronize()
     log("device", nvidia_smi=smi, name=kind, torch=torch.__version__,
         cuda=torch.version.cuda, build_s=time.perf_counter() - t0, nvcc_s=nvcc_s,
@@ -721,14 +912,16 @@ def main(argv=None):
     breakdown_phase(torch, model, cols)
     del cols
 
-    # 6-8. training: the fixture's train, the main path at scale, kernels
+    # 6-11. training: the fixtures' trains, the main path at scale, kernels
     train_reference_phase(torch, titanic, FX)
-    train_launches, trained = train_phase(torch, titanic, args.train_rows, args.seed,
-                                          train_kernels)
+    sweep_reference_phase(torch, titanic, FX)
+    train_launches, trained, call = train_phase(torch, titanic, args.train_rows, args.seed,
+                                                train_kernels)
     missing = [k for k, v in train_launches.items() if v <= 0]
     check(not missing, f"kernels not launched on the train path: {missing}")
     train_records = train_kernel_phase(torch, trained, timer)
     train_records += stats_kernel_phase(torch, trained, timer)
+    train_records += sweep_kernel_phase(torch, call, timer)
 
     for r in records:
         r["launches"] = launches[r["name"]]

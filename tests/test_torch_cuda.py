@@ -222,3 +222,55 @@ def test_contingency_counts_matches_plain(dev, c):
     cls = torch.from_numpy(rng.integers(-1, c + 1, n).astype(np.int32)).to(dev)
     got = _counted(K.contingency_counts, lambda: K.contingency_counts(X, cls, c))
     assert torch.equal(got, K.contingency_counts_plain(X, cls, c))  # integer counts
+
+
+# ---------------------------------------------------------------------------
+# the sweep's kernels: K-K fista_grad, K-L binary_metrics, K-M forest_leaf_mean
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("n,p,C,F", [(1, 3, 1, 1), (5000, 11, 8, 1), (70000, 11, 9, 3),
+                                     (3000, 40, 5, 2)])
+def test_fista_grad_matches_plain(dev, n, p, C, F):
+    from transmogrifai_tpu_torch.ops import linear as L
+
+    rng = np.random.default_rng(n + p)
+    X1 = rng.normal(size=(n, p)).astype(np.float32)
+    X1[:, -1] = 1.0
+    args = [X1, (rng.random(n) < 0.4).astype(np.float32),
+            rng.integers(0, 3, (F, n)).astype(np.float32),
+            rng.integers(0, F, C).astype(np.int32), rng.normal(size=(C, p)).astype(np.float32),
+            np.full((C, p), 0.01, np.float32)]
+    args.append(np.maximum(args[2].sum(1), 1.0)[args[3]].astype(np.float32))
+    ts = [torch.from_numpy(a).to(dev) for a in args]
+    got = _counted(L.fista_grad, lambda: L.fista_grad(*ts))
+    want = L.fista_grad_plain(*ts)
+    assert torch.equal(got, L.fista_grad(*ts))  # no atomics: repeats bit for bit
+    scale = float(want.abs().max()) + 1e-30
+    assert float((got - want).abs().max()) <= 1e-5 * scale
+
+
+@pytest.mark.parametrize("n,F,C,ties", [(1, 1, 1, False), (257, 3, 5, True),
+                                        (5000, 2, 7, True), (300000, 1, 3, False)])
+def test_binary_metrics_matches_plain(dev, n, F, C, ties):
+    from transmogrifai_tpu_torch.ops import metrics as M
+
+    rng = np.random.default_rng(n)
+    y = torch.from_numpy(rng.integers(0, 2, n).astype(np.float32)).to(dev)
+    s = rng.random((F, C, n)).astype(np.float32)
+    if ties:
+        s = np.round(s, 2).astype(np.float32)
+        s[..., ::5] = 0.5
+    vm = torch.from_numpy((rng.random((F, n)) < 0.4).astype(np.float32)).to(dev)
+    strict = torch.from_numpy((np.arange(C) % 2).astype(np.int32)).to(dev)
+    ss, order = M.sort_scores(torch.from_numpy(s).to(dev), vm)
+    got = _counted(M.binary_metrics, lambda: M.binary_metrics(ss, order, y, vm, strict, C))
+    assert torch.equal(got, M.binary_metrics_plain(ss, order, y, vm, strict, C))
+
+
+@pytest.mark.parametrize("G,T,n", [(1, 1, 7), (6, 50, 20000), (2, 300, 5000), (3, 17, 1000)])
+def test_forest_leaf_mean_matches_plain(dev, G, T, n):
+    rng = np.random.default_rng(T)
+    P = 63
+    leaf = torch.from_numpy(rng.random((G, T, P)).astype(np.float32)).to(dev)
+    node = torch.from_numpy(rng.integers(0, P, (G, T, n)).astype(np.int32)).to(dev)
+    got = _counted(Tr.forest_leaf_mean, lambda: Tr.forest_leaf_mean(leaf, node))
+    assert torch.equal(got, Tr.forest_leaf_mean_plain(leaf, node))

@@ -1,9 +1,10 @@
 """The PyTorch port stands alone: no JAX, no pandas, nothing of the JAX
 package, and no silent CPU fallback.
 
-- A full CPU scoring run of the committed fixture, and a CPU training run of
-  the Titanic flow with a save and a reload, in a fresh interpreter leave no
-  ``jax*``, ``pandas*`` or ``transmogrifai_tpu[.*]`` module loaded.
+- A full CPU scoring run of the committed fixture, and CPU training runs of
+  the Titanic flow (XGBoost with a save and a reload; logistic regression
+  and random forest through the fused sweep) in a fresh interpreter leave
+  no ``jax*``, ``pandas*`` or ``transmogrifai_tpu[.*]`` module loaded.
 - A scan of the port's sources finds no such import; pandas appears only
   inside the reader's DataFrame branch, and Triton only
   in the kernel modules that the launching wrappers import lazily.
@@ -28,7 +29,8 @@ PKG = os.path.join(ROOT, "transmogrifai_tpu_torch")
 #: the only place pandas may be imported: inside this function
 PANDAS_OK = {("readers/base.py", "_frame_columns")}
 TRITON_MODULES = {"ops/triton_vectorize.py": "triton_vectorize",
-                  "ops/triton_boost.py": "triton_boost"}
+                  "ops/triton_boost.py": "triton_boost",
+                  "ops/triton_forest.py": "triton_forest"}
 
 SCRIPT = r"""
 import sys
@@ -52,6 +54,13 @@ with tempfile.TemporaryDirectory() as tmp:
     trained.save(tmp)
     again = P.load_model(tmp, device="cpu").score(titanic.titanic_data(50, 2))
 assert len(again) == 50
+from transmogrifai_tpu_torch.impl.classification.logistic import OpLogisticRegression
+from transmogrifai_tpu_torch.impl.classification.trees import OpRandomForestClassifier
+stock, _ = titanic.train_titanic(
+    titanic.titanic_data(120, 1), device="cpu", models_and_parameters=[
+        (OpLogisticRegression(), [{"reg_param": 0.01, "elastic_net_param": 0.5}]),
+        (OpRandomForestClassifier(), [{"num_trees": 3, "max_depth": 3}])])
+assert len(stock.stages[-1].summary.validation_results) == 2
 bad = sorted(k for k in sys.modules
              if k.split(".")[0] in ("jax", "jaxlib", "pandas", "transmogrifai_tpu"))
 print("BAD=" + ",".join(bad))

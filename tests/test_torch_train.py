@@ -18,7 +18,7 @@ and through the plain PyTorch versions of the port's kernels
 - ``fit_gbt`` / ``fit_gbt_batch``, 8 rounds at depth 4, both
   min_child_weight values: tree structure equal, leaves and margins within
   1e-5;
-- quantization, frontier sizing and the fraction-1 draws;
+- quantization, frontier sizing and the draws at and below fraction 1;
 - the sanity checker's statistics (``utils/stats.py``, the plain versions
   of K-I ``corr_gram`` and K-J ``contingency_counts``): contingency counts
   bit-equal; moments and label correlations within 1e-12 (float64, in
@@ -341,13 +341,17 @@ def test_frontier_sizing_matches_jax(n, depth, mcw, h_max, mf, tw):
 
 
 def test_draws_at_fraction_one_only():
+    """The draws: all ones at fraction 1, and below 1 the JAX package's
+    threefry draws bit for bit (``tests/test_torch_random.py`` covers more
+    shapes)."""
     ks, kf = PT.rng_keys(42)
     assert torch.equal(PT.subsample_weights(ks, 7, 3, 1.0), torch.ones((3, 7)))
     assert torch.equal(PT.feature_masks(kf, 4, 3, 1.0), torch.ones((3, 4)))
-    with pytest.raises(NotImplementedError, match="K8"):
-        PT.subsample_weights(ks, 7, 3, 0.5)
-    with pytest.raises(NotImplementedError, match="K8"):
-        PT.feature_masks(kf, 4, 3, 0.5)
+    jks, jkf = JT.rng_keys(42)
+    np.testing.assert_array_equal(PT.subsample_weights(ks, 7, 3, 0.5).numpy(),
+                                  np.asarray(JT.subsample_weights(jks, 7, 3, 0.5)))
+    np.testing.assert_array_equal(PT.feature_masks(kf, 4, 3, 0.5).numpy(),
+                                  np.asarray(JT.feature_masks(jkf, 4, 3, 0.5)))
 
 
 # ---------------------------------------------------------------------------

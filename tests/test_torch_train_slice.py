@@ -3,19 +3,22 @@
 The Titanic flow (``transmogrifai_tpu_torch/apps/titanic.py``, the port's
 copy of ``helloworld/titanic.py``) on the 891-row synthetic frame, with the
 stock XGBoost grid cut to 8 rounds at depth 4 (both min_child_weight
-values), is trained by the JAX package on its per-family sweep
-(``TMOG_FUSED_SWEEP=0``, set with ``monkeypatch``) and by the port with
-``device="cpu"``.  They must agree on the fold masks and the holdout, the
-kept sanity-check columns and the statistics behind them (float64 moments
-and correlations within 1e-9, contingency counts equal), every fold's AuPR (within 1e-6), the winner,
-the refit trees, and the holdout metrics (AuPR and AuROC within 5e-3,
-equal confusion counts: the refit's leaf values differ in the last bits,
-because the port sums the histograms in fixed point and XLA in float32,
-and the 8-round model's scores have many ties, which such bits can split
-or join; measured: AuPR equal, AuROC 1.6e-3 apart); the model the port
-saves loads in both packages,
-which score it with the fixture's tolerances, and re-saves to byte-equal
-JSON.
+values), is trained by the JAX package and by the port with
+``device="cpu"``, each on its default route, the fused sweep (metrics on
+the device: float32 in the JAX package, exact counts in the port).  They
+must agree on the fold masks and the holdout, the kept sanity-check columns
+and the statistics behind them (float64 moments and correlations within
+1e-9, contingency counts equal), every fold's AuPR (within 1e-6), the
+winner, the refit trees, and the holdout metrics (AuPR and AuROC within
+5e-3, equal confusion counts: the refit's leaf values differ in the last
+bits, because the port sums the histograms in fixed point and XLA in
+float32, and the 8-round model's scores have many ties, which such bits can
+split or join; measured: AuPR equal, AuROC 1.6e-3 apart); the model the
+port saves loads in both packages, which score it with the fixture's
+tolerances, and re-saves to byte-equal JSON.  The per-family sweep (the
+route for candidates the fused sweep does not take) is held to the JAX
+package's per-family sweep directly.  The binary selector's default
+candidates are the JAX package's 28.
 """
 import json
 import os
@@ -76,13 +79,8 @@ def trained(tmp_path_factory):
     from test_torch_fixture import build_titanic
     from titanic import titanic_data
 
-    mp = pytest.MonkeyPatch()
-    mp.setenv("TMOG_FUSED_SWEEP", "0")
-    try:
-        jm = build_titanic(models_and_parameters=[(JXGB(), GRID)]) \
-            .set_input_dataset(titanic_data(), key="PassengerId").train()
-    finally:
-        mp.undo()
+    jm = build_titanic(models_and_parameters=[(JXGB(), GRID)]) \
+        .set_input_dataset(titanic_data(), key="PassengerId").train()
     pm, _ = PTitanic.train_titanic(device="cpu", model_types=None,
                                    models_and_parameters=[(OpXGBoostClassifier(), GRID)])
     tmp = tmp_path_factory.mktemp("titanic")
@@ -217,8 +215,66 @@ def test_port_saved_model_resaves_byte_equal(trained, tmp_path):
 
 
 def test_stock_space_needs_the_unported_families():
-    with pytest.raises(NotImplementedError, match="not ported"):
-        BinaryClassificationModelSelector.with_cross_validation()
-    with pytest.raises(NotImplementedError, match="OpRandomForestClassifier"):
-        BinaryClassificationModelSelector.with_cross_validation(
-            model_types=["OpXGBoostClassifier", "OpRandomForestClassifier"])
+    """The binary selector's default candidates: the JAX package's 28 (LR,
+    RF and XGBoost with their grids and constructor params), and
+    ``model_types`` keeps the named families."""
+    from transmogrifai_tpu.impl.selector.factories import BinaryClassificationModelSelector as JB
+
+    jc, pc = JB._default_models(), BinaryClassificationModelSelector._default_models()
+    assert [type(e).__name__ for e, _ in pc] == [type(e).__name__ for e, _ in jc] == \
+        ["OpLogisticRegression", "OpRandomForestClassifier", "OpXGBoostClassifier"]
+    for (pe, pg), (je, jg) in zip(pc, jc):
+        assert pg == jg
+        assert pe._params == je._params
+    assert sum(len(g) for _, g in pc) == 28
+    sel = BinaryClassificationModelSelector.with_cross_validation(
+        model_types=["OpXGBoostClassifier", "OpRandomForestClassifier"])
+    assert [type(e).__name__ for e, _ in sel.models] == \
+        ["OpRandomForestClassifier", "OpXGBoostClassifier"]
+    with pytest.raises(ValueError, match="No candidate models"):
+        BinaryClassificationModelSelector.with_cross_validation(model_types=["OpNaiveBayes"])
+
+
+@pytest.mark.parametrize("family", ["xgb", "rf", "lr"])
+def test_per_family_sweep_matches_jax(family, monkeypatch):
+    """The port's per-family sweep (``_family_sweep``) against the JAX
+    package's (``_sweep`` with ``TMOG_FUSED_SWEEP=0``) on the same matrix
+    and folds: equal fold AuPR within 1e-6 (XGBoost: within 1e-4, its
+    histograms summed in fixed point against XLA's float32)."""
+    from transmogrifai_tpu.evaluators import Evaluators as JE
+    from transmogrifai_tpu.impl.classification.logistic import OpLogisticRegression as JLR
+    from transmogrifai_tpu.impl.classification.trees import OpRandomForestClassifier as JRF
+    from transmogrifai_tpu.impl.tuning.validators import OpCrossValidation as JCV
+    from transmogrifai_tpu_torch.evaluators import Evaluators as PE
+    from transmogrifai_tpu_torch.impl.classification.logistic import OpLogisticRegression
+    from transmogrifai_tpu_torch.impl.classification.trees import OpRandomForestClassifier
+    from transmogrifai_tpu_torch.impl.tuning.validators import OpCrossValidation
+
+    rng = np.random.default_rng(3)
+    n, d = 500, 7
+    X = rng.normal(size=(n, d)).astype(np.float32)
+    X[:, 2] = rng.integers(0, 3, n)
+    y = ((X[:, 0] - X[:, 2] + rng.normal(size=n)) > 0).astype(np.float32)
+    grids = {"xgb": (JXGB, OpXGBoostClassifier, [dict(g, num_round=3, max_depth=3) for g in GRID]),
+             "rf": (JRF, OpRandomForestClassifier,
+                    [{"num_trees": 4, "max_depth": dd, "min_instances_per_node": 10}
+                     for dd in (3, 5)]),
+             "lr": (JLR, OpLogisticRegression,
+                    [{"reg_param": 0.01, "elastic_net_param": a} for a in (0.1, 0.5)])}
+    jcls, pcls, grid = grids[family]
+    jv, pv = JCV(JE.BinaryClassification.auPR(), seed=42), \
+        OpCrossValidation(PE.BinaryClassification.auPR(), seed=42)
+    train_w, val_mask = pv.make_folds(n, None)
+    from transmogrifai_tpu.impl.tuning.validators import ValidationSummary as JVS
+    from transmogrifai_tpu_torch.impl.tuning.validators import ValidationSummary as PVS
+
+    js = JVS("cv", "auPR", "AuPR", True)
+    ps = PVS("cv", "auPR", "AuPR", True)
+    monkeypatch.setenv("TMOG_FUSED_SWEEP", "0")
+    jv._sweep([(jcls(), grid)], X, y, train_w, val_mask, js)
+    pv._family_sweep([(pcls().to("cpu"), grid)], torch.from_numpy(X), y, train_w, val_mask, ps)
+    tol = 1e-4 if family == "xgb" else 1e-6
+    assert len(ps.results) == len(js.results) == len(grid)
+    for a, b in zip(ps.results, js.results):
+        assert a.grid == b.grid and a.error is None
+        np.testing.assert_allclose(a.fold_metrics, b.fold_metrics, rtol=0, atol=tol)

@@ -39,9 +39,10 @@ def titanic_data(n: int = 891, seed: int = 0) -> Dict[str, np.ndarray]:
         "Embarked": rng.choice(["S", "C", "Q"], n).astype(object)}
 
 
-def build_workflow(model_types: Optional[Sequence[str]] = ("OpXGBoostClassifier",),
+def build_workflow(model_types: Optional[Sequence[str]] = None,
                    models_and_parameters: Optional[Sequence[Any]] = None):
-    """(OpWorkflow, prediction feature) of the Titanic flow."""
+    """(OpWorkflow, prediction feature) of the Titanic flow; by default the
+    binary selector's stock space (LR + RF + XGBoost, 28 candidates)."""
     F = FeatureBuilder
     survived = F("Survived", T.RealNN).extract(field="Survived").as_response()
     pclass = F("Pclass", T.PickList).extract(field="Pclass").as_predictor()

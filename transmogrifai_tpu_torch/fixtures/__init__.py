@@ -5,9 +5,16 @@ package trained and saved (XGBoost candidate of the stock binary grid: 200
 rounds, depth 10, 32 bins), 256 request records made from a seed
 (``requests.npz``) and the JAX package's answers for them
 (``expected.npz``: prediction, rawPrediction, probability, the binned
-feature matrix ``Xb`` and the margins ``F``).  The answers travel as data
-because the machine with the card has no JAX.  ``tests/test_torch_fixture.py``
+feature matrix ``Xb`` and the margins ``F``).  ``tests/test_torch_fixture.py``
 regenerates all of it (``python tests/test_torch_fixture.py --write``).
+
+``titanic_stock/`` holds the same for the stock binary space (LR + RF +
+XGBoost, 28 candidates; the winner is a logistic regression, whose margins
+are ``F``), and ``sweep.npz``: each of the three workflow-level CV calls'
+fused-sweep metrics [3, 1, 28, 6] (``BINARY_METRICS`` order) and the stock
+forests' draws (bootstrap [50, 891], feature masks [50, 10]).
+``tests/test_torch_stock_slice.py --write`` regenerates it.  The answers
+travel as data because the machine with the card has no JAX.
 
 Strings with nulls are stored as a unicode array plus ``<name>__null``, so
 the files load without pickles.
@@ -20,6 +27,7 @@ from typing import Any, Dict, List, Tuple
 import numpy as np
 
 TITANIC_XGB = os.path.join(os.path.dirname(os.path.abspath(__file__)), "titanic_xgb")
+TITANIC_STOCK = os.path.join(os.path.dirname(os.path.abspath(__file__)), "titanic_stock")
 NULL_SUFFIX = "__null"
 
 #: tolerances of the comparison with the JAX package's answers.  Margins are
@@ -29,6 +37,12 @@ MARGIN_ATOL = MARGIN_RTOL = 1e-5
 PROB_ATOL = 1e-6
 #: predictions may differ only where the margin is this close to 0 (p = 0.5)
 BOUNDARY = 1e-4
+#: fold AuPR of the stock sweep's logistic-regression candidates: FISTA's
+#: float32 sums in another order (the winner leads the next candidate by 4e-5)
+LR_AUPR_TOL = 1e-5
+#: fold AuPR of the random-forest candidates: the forests are bit-equal
+#: (integer weights, exact histogram sums); the AuPR's own sum differs
+RF_AUPR_TOL = 1e-6
 
 
 def check(cond, msg="check failed") -> None:
@@ -91,7 +105,8 @@ def compare(expected: Dict[str, np.ndarray], prediction: np.ndarray,
     out["prediction_mismatches_off_boundary"] = float(
         np.sum(prediction[off] != expected["prediction"][off]))
     out["probability_max_abs_err"] = float(np.max(np.abs(probability - expected["probability"])))
-    out["raw_max_abs_err"] = float(np.max(np.abs(raw - expected["rawPrediction"])))
+    raw_ref = expected["rawPrediction"]
+    out["raw_max_abs_err"] = float(np.max(np.where(raw == raw_ref, 0.0, np.abs(raw - raw_ref))))
     if Xb is not None:
         out["Xb_mismatches"] = float(np.sum(np.asarray(Xb) != expected["Xb"]))
         check(np.asarray(Xb).dtype == expected["Xb"].dtype, "Xb dtype differs")
@@ -131,3 +146,40 @@ def port_answers(model, cols: Dict[str, np.ndarray]):
     Xb = bin_with_edges(V, dparams["edges"])
     F = _BoostedClassifierBase.margins(dparams, V)
     return pred, prob, raw, Xb.cpu().numpy(), F.cpu().numpy()
+
+
+def stage_summary(manifest: Dict[str, Any]) -> Dict[str, Any]:
+    """The model selector's summary in a saved model's manifest."""
+    return manifest["stages"][-1]["state"]["summary"]["__jsonable__"]["data"]
+
+
+def load_sweep(path: str = os.path.join(TITANIC_STOCK, "sweep.npz")) -> Dict[str, np.ndarray]:
+    with np.load(path, allow_pickle=False) as z:
+        return {k: z[k] for k in z.files}
+
+
+def check_stock_train(model, xgb_tol: float) -> Dict[str, float]:
+    """Hold a stock-space Titanic train's selector summary to the stock
+    fixture's: the same candidates in the same order, the same winner, each
+    family's fold AuPR within its tolerance (``LR_AUPR_TOL``,
+    ``RF_AUPR_TOL``, ``xgb_tol``).  Returns the largest gap per family."""
+    import json
+
+    with open(os.path.join(TITANIC_STOCK, "op_model.json")) as fh:
+        ref = stage_summary(json.load(fh))
+    summ = model.stages[-1].summary
+    check(summ.best_model_name == ref["bestModelName"] and summ.best_grid == ref["bestGrid"],
+          f"winner {summ.best_model_name} {summ.best_grid} differs from the fixture's "
+          f"{ref['bestModelName']} {ref['bestGrid']}")
+    gaps: Dict[str, float] = {}
+    for mine, theirs in zip(summ.validation_results, ref["validationResults"]):
+        check((mine["modelName"], mine["grid"]) == (theirs["modelName"], theirs["grid"]),
+              "candidate order differs from the fixture's")
+        g = max(abs(a - b) for a, b in zip(mine["foldMetrics"], theirs["foldMetrics"]))
+        gaps[mine["modelName"]] = max(gaps.get(mine["modelName"], 0.0), g)
+    check(len(summ.validation_results) == len(ref["validationResults"]), "candidate count")
+    tols = {"OpLogisticRegression": LR_AUPR_TOL, "OpRandomForestClassifier": RF_AUPR_TOL,
+            "OpXGBoostClassifier": xgb_tol}
+    for fam, gap in gaps.items():
+        check(gap <= tols[fam], f"{fam} fold AuPR {gap} from the fixture's, above {tols[fam]}")
+    return gaps

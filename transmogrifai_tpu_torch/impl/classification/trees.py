@@ -6,10 +6,12 @@ OpDecisionTreeClassifier, OpXGBoostClassifier).  Prediction: bin the
 feature matrix with the fitted edges (K-A ``bin_rows``), walk the ensemble
 (K-B ``ensemble_walk``), then turn the leaf means or margins into
 predictions on the host in float64, exactly as the JAX package does.
-Fitting: the boosted models (GBT, XGBoost) with the logistic loss, through
-``ops/trees.fit_gbt`` (``fit_arrays``) and the fold x grid sweep
-``boosted_grid_folds`` (``fit_grid_folds``).  The forest fits and the
-softmax loss are not ported.
+Fitting: the binary random forest (``ops/trees.fit_forest`` on the JAX
+package's bootstrap and feature draws, and the fold x grid sweep
+``forest_grid_folds``), and the boosted models (GBT, XGBoost) with the
+logistic loss, through ``ops/trees.fit_gbt`` (``fit_arrays``) and the fold
+x grid sweep ``boosted_grid_folds`` (``fit_grid_folds``).  Multiclass
+forests, the decision tree's fit and the softmax loss are not ported.
 """
 from __future__ import annotations
 
@@ -22,18 +24,37 @@ from ...ops import trees as Tr
 from ..feature._util import stage_device
 from ..selector.predictor import PredictorEstimator, as_matrix
 from ..trees_common import (DEFAULT_MAX_FRONTIER, DEFAULT_MAX_FRONTIER_BOOSTED,
-                            boosted_grid_folds, effective_trees_per_round,
-                            gbt_boost_params, tree_from_params, tree_params,
-                            xgb_boost_params)
+                            TreeParamsMixin, boosted_grid_folds, effective_trees_per_round,
+                            forest_grid_folds, gbt_boost_params, tree_from_params,
+                            tree_params, xgb_boost_params)
 
 
-class _TreeClassifierBase(PredictorEstimator):
+class _TreeClassifierBase(TreeParamsMixin, PredictorEstimator):
     is_classifier = True
+    _auto_subset = "sqrt"  # Spark's classification-forest default
     #: boosted subclasses override, so the refit grows the beam the sweep measured
     _max_frontier_default = DEFAULT_MAX_FRONTIER
 
     def _n_classes(self, y: np.ndarray) -> int:
         return max(int(np.max(y)) + 1 if len(y) else 2, 2)
+
+    @staticmethod
+    def _class_grads(y: np.ndarray, k: int) -> np.ndarray:
+        """The forests' gradient channel: binary forests grow on g = -y (the
+        variance kernel; variance impurity is gini / 2 for 0/1 labels, so
+        the splits are gini's and a leaf's mean is p(class 1))."""
+        if k != 2:
+            raise NotImplementedError(
+                "multiclass forests (class-distribution leaves) are not ported")
+        return -np.asarray(y, np.float32)[:, None]
+
+    @staticmethod
+    def _expand_binary_leaves(forest: Tr.Tree, k: int) -> Tr.Tree:
+        """[..., 1] class-1 share leaves -> [..., 2] distributions."""
+        if k != 2:
+            return forest
+        v = forest.leaf_val
+        return forest._replace(leaf_val=torch.cat([1.0 - v, v], dim=-1))
 
     def _frontier(self, n: int, depth: int, mcw: float, h_max: float) -> int:
         return Tr.frontier_cap(
@@ -48,8 +69,52 @@ class _TreeClassifierBase(PredictorEstimator):
 
 
 class OpRandomForestClassifier(_TreeClassifierBase):
-    """Histogram forest with class-distribution leaves (prediction only: the
-    forest fit comes with the fused sweep)."""
+    """Gini-equivalent histogram forest with class-distribution leaves."""
+
+    def __init__(self, num_trees: int = 20, max_depth: int = 5, max_bins: int = 32,
+                 min_instances_per_node: int = 1, min_info_gain: float = 0.0,
+                 subsampling_rate: float = 1.0, feature_subset_strategy: str = "auto",
+                 impurity: str = "gini", seed: int = 42, uid: Optional[str] = None, **extra):
+        super().__init__(operation_name="OpRandomForestClassifier", uid=uid,
+                         num_trees=num_trees, max_depth=max_depth, max_bins=max_bins,
+                         min_instances_per_node=min_instances_per_node,
+                         min_info_gain=min_info_gain, subsampling_rate=subsampling_rate,
+                         feature_subset_strategy=feature_subset_strategy,
+                         impurity=impurity, seed=seed, **extra)
+
+    def fit_arrays(self, X, y: np.ndarray, w: Optional[np.ndarray] = None) -> Dict[str, Any]:
+        X = as_matrix(X, stage_device(self))
+        dev = X.device
+        n, d = X.shape
+        k = self._n_classes(y)
+        G = self._class_grads(y, k)
+        n_bins = int(self.get_param("max_bins", 32))
+        depth = int(self.get_param("max_depth", 5))
+        n_trees = int(self.get_param("num_trees", 20))
+        Xb, edges = Tr.quantize(X, n_bins)
+        sw = np.ones(n, np.float32) if w is None else np.asarray(w, np.float32)
+        kb, kf = Tr.rng_keys(int(self.get_param("seed", 42)))
+        wt = Tr.bootstrap_weights(kb, n, n_trees, rate=float(self.get_param("subsampling_rate",
+                                                                            1.0)), device=dev)
+        wt = wt * torch.from_numpy(sw).to(dev)[None]
+        fms = Tr.feature_masks(kf, d, n_trees, self._subset_frac(d), dev)
+        mcw = float(self.get_param("min_instances_per_node", 1))
+        forest = Tr.fit_forest(Xb, torch.from_numpy(G).to(dev), torch.ones(n, device=dev),
+                               wt, fms, max_depth=depth, n_bins=n_bins,
+                               frontier=self._frontier(n, depth, mcw, 1.0),
+                               min_child_weight=mcw,
+                               min_info_gain=float(self.get_param("min_info_gain", 0.0)))
+        forest = self._expand_binary_leaves(forest, k)
+        return tree_params(forest, edges=edges, max_depth=depth, num_classes=k,
+                           num_trees=n_trees)
+
+    def fit_grid_folds(self, X, y, train_w, grids):
+        """The fold x grid forest sweep (``trees_common.forest_grid_folds``)."""
+        k = self._n_classes(y)
+        return forest_grid_folds(
+            self, as_matrix(X, stage_device(self)), y, train_w, grids, n_classes=k,
+            convert=lambda dist, cand: self._dist_to_preds(
+                dist, int(cand.get_param("num_trees", 20))))
 
     @staticmethod
     def _dist_to_preds(dist: np.ndarray, num_trees: int
@@ -68,7 +133,13 @@ class OpRandomForestClassifier(_TreeClassifierBase):
 
 
 class OpDecisionTreeClassifier(OpRandomForestClassifier):
-    """Single gini tree (a one-tree forest)."""
+    """Single gini tree (a one-tree forest); prediction only."""
+
+    def fit_arrays(self, X, y, w=None):
+        raise NotImplementedError("OpDecisionTreeClassifier's fit is not ported")
+
+    def fit_grid_folds(self, X, y, train_w, grids):
+        raise NotImplementedError("OpDecisionTreeClassifier's fit is not ported")
 
 
 class _BoostedClassifierBase(_TreeClassifierBase):

@@ -4,10 +4,10 @@ The port's counterpart of ``transmogrifai_tpu/impl/selector/factories.py``
 (reference: BinaryClassificationModelSelector.scala:49, shared
 ModelSelectorFactory.scala:43): ``with_cross_validation`` / ``apply`` build
 a ``ModelSelector`` with the problem's default splitter and metric (the
-train-validation split is not ported).  The port fits the boosted
-families only, so a binary selector takes ``model_types`` naming them (the
-stock space's logistic regression and random forest come with the fused
-sweep) or explicit ``models_and_parameters``.
+train-validation split is not ported).  The binary selector's stock space
+is the JAX package's: logistic regression (8 candidates), random forest
+(18) and XGBoost (2); ``model_types`` keeps the named families of it.
+The multiclass and regression selectors are not ported.
 """
 from __future__ import annotations
 
@@ -15,16 +15,14 @@ from typing import Any, Dict, Optional, Sequence, Tuple
 
 from ...evaluators import Evaluators
 from ...evaluators.base import OpEvaluatorBase
-from ..classification.trees import OpXGBoostClassifier
+from ..classification.logistic import OpLogisticRegression
+from ..classification.trees import OpRandomForestClassifier, OpXGBoostClassifier
 from ..tuning.splitters import DataBalancer, Splitter
 from ..tuning.validators import DEFAULT_NUM_FOLDS, OpCrossValidation
 from . import defaults as D
 from .model_selector import ModelSelector
 
 Candidates = Sequence[Tuple[Any, Sequence[Dict[str, Any]]]]
-
-#: the stock binary space's families whose fits are not ported yet
-_UNPORTED_BINARY = ("OpLogisticRegression", "OpRandomForestClassifier")
 
 
 class _SelectorFactory:
@@ -33,7 +31,7 @@ class _SelectorFactory:
     problem_type = "Unknown"
 
     @classmethod
-    def _default_models(cls, wanted: Sequence[str]) -> Candidates:
+    def _default_models(cls) -> Candidates:
         raise NotImplementedError
 
     @classmethod
@@ -49,7 +47,13 @@ class _SelectorFactory:
                     models_and_params: Optional[Candidates]) -> Candidates:
         if models_and_params is not None:
             return models_and_params
-        return cls._default_models(model_types)
+        models = cls._default_models()
+        if model_types is not None:
+            wanted = set(model_types)
+            models = [(e, g) for e, g in models if type(e).__name__ in wanted]
+            if not models:
+                raise ValueError(f"No candidate models left for types {sorted(wanted)}")
+        return models
 
     @classmethod
     def _build(cls, validator, splitter, model_types, models_and_params,
@@ -81,25 +85,18 @@ class _SelectorFactory:
 
 
 class BinaryClassificationModelSelector(_SelectorFactory):
-    """Defaults: DataBalancer, auPR metric; of the stock LR + RF + XGBoost
-    grids (BinaryClassificationModelSelector.scala:62-63,172) the port fits
-    the XGBoost one."""
+    """Defaults: LR + RF + XGBoost grids, DataBalancer, auPR metric
+    (BinaryClassificationModelSelector.scala:62-63,172)."""
 
     problem_type = "BinaryClassification"
 
     @classmethod
-    def _default_models(cls, wanted: Optional[Sequence[str]]) -> Candidates:
-        if wanted is None:
-            raise NotImplementedError(
-                "the stock binary space needs the logistic-regression and random-forest "
-                "fits, which are not ported yet: pass model_types=['OpXGBoostClassifier'] "
-                "or models_and_parameters")
-        missing = sorted(set(wanted) & set(_UNPORTED_BINARY))
-        if missing:
-            raise NotImplementedError(f"fits of {missing} are not ported yet")
-        if "OpXGBoostClassifier" not in set(wanted):
-            raise ValueError(f"No candidate models left for types {sorted(set(wanted))}")
-        return [(OpXGBoostClassifier(), D.xgboost_grid())]
+    def _default_models(cls) -> Candidates:
+        return [
+            (OpLogisticRegression(max_iter=50), D.logistic_regression_grid()),
+            (OpRandomForestClassifier(), D.random_forest_grid()),
+            (OpXGBoostClassifier(), D.xgboost_grid()),
+        ]
 
     @classmethod
     def _default_splitter(cls) -> Splitter:

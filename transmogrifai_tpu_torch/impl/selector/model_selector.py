@@ -176,6 +176,7 @@ class ModelSelector(BinaryEstimator, AllowLabelAsInput):
         dev = stage_device(self)
         fold_summaries = []
         clock = {"cv_feature_refits": 0.0, "cv_sweep_fits": 0.0}
+        v.sweep_timings = {}
         for f in range(train_w.shape[0]):
             t0 = time.perf_counter()
             tr_idx = np.where(train_w[f] > 0)[0]
@@ -203,6 +204,8 @@ class ModelSelector(BinaryEstimator, AllowLabelAsInput):
             v._sweep(self.models, X, y, w_row[None, :], vm[None, :], s)
             fold_summaries.append(s)
             clock["cv_sweep_fits"] += time.perf_counter() - t1
+        # the fused sweeps' parts, within cv_sweep_fits
+        clock.update({f"cv_sweep_{k}": t for k, t in v.sweep_timings.items()})
         self.fit_timings = dict(clock)
 
         merged = fold_summaries[0]

@@ -5,11 +5,13 @@ The port's counterpart of ``transmogrifai_tpu/impl/trees_common.py``:
 numpy parameters and the port's ``Tree`` of tensors, with every pool index
 checked, since the walk kernel follows them without bounds checks), the
 boosting parameter dicts, ``effective_trees_per_round`` and
-``boosted_grid_folds``, the fold x grid sweep of the boosted models.  The
-forest sweep is not ported.
+``boosted_grid_folds`` and ``forest_grid_folds``, the per-family fold x
+grid sweeps of the boosted models and the forests, and
+``TreeParamsMixin``, Spark's featureSubsetStrategy.
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Dict
 
 import numpy as np
@@ -18,10 +20,41 @@ import torch
 from ..ops import trees as Tr
 from ..ops.trees import Tree
 
-#: frontier cap of the boosted growers (``ops/trees.frontier_cap``),
+#: frontier caps of the forest and boosted growers (``ops/trees.frontier_cap``),
 #: overridable per stage through the ``max_frontier`` param
 DEFAULT_MAX_FRONTIER = 256
 DEFAULT_MAX_FRONTIER_BOOSTED = 256
+
+_SUBSET_STRATEGIES = ("auto", "all", "sqrt", "log2", "onethird")
+
+
+class TreeParamsMixin:
+    """Spark featureSubsetStrategy: "auto" is ``_auto_subset`` (sqrt for
+    classification forests)."""
+
+    _auto_subset: str = "sqrt"
+
+    def _subset_frac(self, d: int) -> float:
+        strat = str(self.get_param("feature_subset_strategy", "auto")).lower()
+        if strat == "auto":
+            strat = self._auto_subset
+        if strat == "all":
+            return 1.0
+        if strat == "sqrt":
+            return math.sqrt(d) / d
+        if strat == "log2":
+            return max(math.log2(max(d, 2)), 1.0) / d
+        if strat == "onethird":
+            return 1.0 / 3.0
+        try:
+            frac = float(strat)
+        except ValueError:
+            raise ValueError(
+                f"Unknown feature_subset_strategy {strat!r}; expected one of "
+                f"{_SUBSET_STRATEGIES} or a fraction in (0, 1]") from None
+        if not 0.0 < frac <= 1.0:
+            raise ValueError(f"feature_subset_strategy fraction must be in (0, 1], got {frac}")
+        return frac
 
 
 def effective_trees_per_round(k: int, n_rounds: int) -> int:
@@ -134,6 +167,83 @@ def boosted_grid_folds(est, X, y, train_w, grids, loss: str, n_classes: int,
         F = F.cpu().numpy()
         for bi, (f, ci) in enumerate(pairs):
             out[f][ci] = convert(F[bi])
+    return out
+
+
+#: forest grid keys that batch (per-tree scalars or static group keys)
+_FOREST_GRID_KEYS = ("max_depth", "num_trees", "min_instances_per_node",
+                     "subsampling_rate", "feature_subset_strategy", "max_bins",
+                     "impurity", "min_info_gain")
+
+
+def forest_grid_folds(est, X, y, train_w, grids, n_classes: int, convert) -> list:
+    """fold x grid forest sweep: per (max_depth, num_trees, max_bins) group,
+    every (fold, candidate, tree) grows in one population
+    (``ops/trees.fit_forest_chunked``) on one shared draw per (seed, rate,
+    fraction, bagging), and each (fold, candidate)'s trees are walked and
+    averaged on every row (``predict_forest_groups``).  ``convert(dist,
+    candidate)`` maps a mean class distribution to (pred, raw, prob).
+    Returns ``preds[fold][grid]``."""
+    grids = [dict(g) for g in (grids or [{}])]
+    for g in grids:
+        for key in g:
+            if key not in _FOREST_GRID_KEYS:
+                raise NotImplementedError(f"non-batchable forest grid key {key}")
+    if n_classes > 2:
+        raise NotImplementedError("multiclass forests (class-distribution leaves) are not ported")
+    candidates = [est.copy_with_params(g) for g in grids]
+    dev = X.device
+    n_folds = train_w.shape[0]
+    n, d = X.shape
+    out = [[None] * len(grids) for _ in range(n_folds)]
+    groups: Dict[tuple, list] = {}
+    for ci, cand in enumerate(candidates):
+        static = (int(cand.get_param("max_depth", 5)), int(cand.get_param("num_trees", 20)),
+                  int(cand.get_param("max_bins", 32)))
+        groups.setdefault(static, []).append(ci)
+    g_t = torch.from_numpy(-np.asarray(y, np.float32)[:, None]).to(dev)
+    h_t = torch.ones(n, dtype=torch.float32, device=dev)
+    tw = torch.from_numpy(np.asarray(train_w, np.float32)).to(dev)
+    for (max_depth, n_trees, n_bins), cis in groups.items():
+        Xb, _ = Tr.quantize(X, n_bins)
+        mcw_min = min(float(candidates[ci].get_param("min_instances_per_node", 1)) for ci in cis)
+        pairs = [(f, ci) for f in range(n_folds) for ci in cis]
+        draws: Dict[tuple, tuple] = {}
+        w_parts, fm_parts, mcw, mig = [], [], [], []
+        for f, ci in pairs:
+            cand = candidates[ci]
+            seed = int(cand.get_param("seed", 42))
+            rate = float(cand.get_param("subsampling_rate", 1.0))
+            frac = cand._subset_frac(d)
+            bag = bool(getattr(cand, "_grid_bootstrap", True))
+            dkey = (seed, rate, frac, bag)
+            if dkey not in draws:
+                kb, kf = Tr.rng_keys(seed)
+                draws[dkey] = (Tr.bootstrap_weights(kb, n, n_trees, bag, rate, dev),
+                               Tr.feature_masks(kf, d, n_trees, frac if bag else 1.0, dev))
+            boot, fm = draws[dkey]
+            w_parts.append(boot * tw[f][None])
+            fm_parts.append(fm)
+            mcw += [float(cand.get_param("min_instances_per_node", 1))] * n_trees
+            mig += [float(cand.get_param("min_info_gain", 0.0))] * n_trees
+        w_trees = torch.cat(w_parts)
+        # frontier bound from the drawn per-tree weight sums
+        w_sum_max = float(w_trees.sum(1).max())
+        frontier = Tr.frontier_cap(
+            n, max_depth, mcw_min, h_max=1.0,
+            max_frontier=int(est.get_param("max_frontier", DEFAULT_MAX_FRONTIER)),
+            total_weight=w_sum_max)
+        exact_cap = Tr.frontier_is_exact(n, max_depth, mcw_min, 1.0, frontier,
+                                         total_weight=w_sum_max)
+        chunk = Tr.forest_batch_size(n, d, n_bins, frontier)
+        forest = Tr.fit_forest_chunked(Xb, g_t, h_t, w_trees, torch.cat(fm_parts),
+                                       np.asarray(mcw, np.float32), max_depth, n_bins, chunk,
+                                       frontier, mig_trees=np.asarray(mig, np.float32),
+                                       exact_cap=exact_cap)
+        dist = Tr.predict_forest_groups(Xb, forest, max_depth, len(pairs)).cpu().numpy()
+        dist = np.concatenate([1.0 - dist, dist], axis=-1)  # class-1 share -> [p0, p1]
+        for gi, (f, ci) in enumerate(pairs):
+            out[f][ci] = convert(dist[gi], candidates[ci])
     return out
 
 

@@ -4,13 +4,15 @@ The port's counterpart of ``transmogrifai_tpu/impl/tuning/validators.py``
 (reference: OpValidator.scala:94, OpCrossValidation.scala:42); the
 train-validation split is not ported.  Folds are weight masks over one dataset
 (``train_w`` zeroes the held-out rows), so every fold trains on the same
-rows.  The sweep is the JAX package's per-family path
-(``OpValidator._sweep`` with ``TMOG_FUSED_SWEEP=0``): an estimator's
+rows.  The sweep routes as the JAX package's does by default: the fused
+sweep (``_fused_sweep``: ``impl/sweep_fragments.build_sweep_plan`` then
+``ops/sweep.run_sweep``, metrics on the device) whenever the candidates
+build a plan, else the per-family path (``_family_sweep``: an estimator's
 ``fit_grid_folds`` trains its whole fold x grid block, or, where it has no
 batched fit, each candidate is fitted fold by fold; the metrics come from
-the evaluator's ``evaluate_arrays`` on the host in float64.  The fused
-sweep interpreter and the mesh are not ported.  A failed fit raises: only
-a candidate whose metric is not finite is recorded as failed.
+the evaluator's ``evaluate_arrays`` on the host in float64).  The mesh is
+not ported.  A failed fit raises, on either path: only a candidate whose
+metric is not finite is recorded as failed.
 """
 from __future__ import annotations
 
@@ -23,6 +25,9 @@ from ...evaluators.base import OpEvaluatorBase
 
 #: reference ValidatorParamDefaults (OpValidator.scala:373-380)
 DEFAULT_NUM_FOLDS = 3
+#: the fused sweep's bound on one launch's score bytes (F x C x n float32),
+#: the JAX package's default: larger candidate lists run as several plans
+FUSED_SCORES_BYTES = 3e8
 
 
 @dataclass
@@ -110,6 +115,9 @@ class OpValidator:
         self.evaluator = evaluator
         self.seed = seed
         self.stratify = stratify
+        #: host seconds of the fused sweeps by part (fista, forest, gbt,
+        #: metrics), added up over calls; the caller resets it
+        self.sweep_timings: Dict[str, float] = {}
 
     # ---- folds -------------------------------------------------------------
     def make_folds(self, n: int, y: Optional[np.ndarray]
@@ -144,6 +152,48 @@ class OpValidator:
         return summary
 
     def _sweep(self, candidates, X, y, train_w, val_mask, summary) -> None:
+        """The fused sweep where the candidates build a plan, else the
+        per-family sweep."""
+        if not self._fused_sweep(candidates, X, y, train_w, val_mask, summary):
+            self._family_sweep(candidates, X, y, train_w, val_mask, summary)
+
+    def _fused_sweep(self, candidates, X, y, train_w, val_mask, summary) -> bool:
+        """Every candidate's fold metrics from fused sweep plans (one per
+        chunk of candidates whose [F, C, n] scores fit ``FUSED_SCORES_BYTES``);
+        False, with the summary untouched, when a chunk builds no plan."""
+        from ..sweep_fragments import build_sweep_plan
+
+        per_cand = train_w.shape[0] * len(y) * 4.0
+        chunks = _chunk_candidates(candidates,
+                                   max(int(FUSED_SCORES_BYTES // max(per_cand, 1.0)), 1))
+        plans, xb_cache = [], {}
+        for chunk in chunks:
+            plan = build_sweep_plan(chunk, X, y, train_w, self.evaluator, xb_cache)
+            if plan is None:
+                return False
+            plans.append(plan)
+        metrics = np.concatenate([p.run(train_w, val_mask, timings=self.sweep_timings)
+                                  for p in plans], axis=1)
+        mi = plans[0].metric_names.index(self.evaluator.default_metric)
+        bad = -np.inf if self.evaluator.is_larger_better else np.inf
+        ci = 0
+        for est, grids in candidates:
+            for grid in (list(grids) or [{}]):
+                fm = [float(v) for v in metrics[:, ci, mi]]
+                value = float(np.mean(fm))
+                err = None
+                if not np.isfinite(value):  # a failed candidate, never selected
+                    value = bad
+                    err = f"non-finite {self.evaluator.default_metric} on device"
+                summary.results.append(ModelEvaluation(
+                    model_uid=est.uid, model_name=type(est).__name__,
+                    model_type=type(est).__name__, grid=dict(grid),
+                    metric_name=self.evaluator.default_metric,
+                    fold_metrics=fm, metric_value=value, error=err))
+                ci += 1
+        return True
+
+    def _family_sweep(self, candidates, X, y, train_w, val_mask, summary) -> None:
         """The per-family sweep: one ``fit_grid_folds`` per family (a family
         without one fits candidate by candidate), metrics on the validation
         rows of every fold."""
@@ -178,6 +228,27 @@ class OpValidator:
                     model_type=type(est).__name__, grid=dict(grid),
                     metric_name=self.evaluator.default_metric,
                     fold_metrics=fold_metrics, metric_value=value, error=err))
+
+
+def _chunk_candidates(candidates, max_cands: int):
+    """Partition (estimator, grids) pairs into chunks of at most
+    ``max_cands`` candidates, splitting a family's grid list where needed;
+    the chunks keep the global candidate order."""
+    chunks, cur, cur_n = [], [], 0
+    for est, grids in candidates:
+        grids = list(grids) or [{}]
+        lo = 0
+        while lo < len(grids):
+            take = min(len(grids) - lo, max(max_cands - cur_n, 1))
+            cur.append((est, grids[lo:lo + take]))
+            cur_n += take
+            lo += take
+            if cur_n >= max_cands:
+                chunks.append(cur)
+                cur, cur_n = [], 0
+    if cur:
+        chunks.append(cur)
+    return chunks
 
 
 class OpCrossValidation(OpValidator):

@@ -22,7 +22,7 @@ from typing import Dict, List, Sequence, Tuple
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 BUILD_DIR = os.path.join(CSRC, "build")
 SOURCES: Tuple[str, ...] = ("bin_rows", "ensemble_walk", "level_hist", "split_scan",
-                             "route_rows", "col_stats")
+                             "route_rows", "col_stats", "fista", "binary_metrics")
 NVCC_FLAGS: Tuple[str, ...] = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")

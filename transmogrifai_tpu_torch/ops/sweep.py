@@ -1,0 +1,231 @@
+"""The fused selector sweep: every family's fold x grid block, then the metrics.
+
+The port's counterpart of the interpreter core of
+``transmogrifai_tpu/ops/sweep.py`` (``_fista_scores``,
+``_forest_group_scores``, ``_gbt_group_scores``, ``_frag_scores``,
+``_all_scores``, ``_metrics_of``, ``run_sweep``).  A static ``spec`` built
+by ``impl/sweep_fragments.py`` names every fragment and the hyperparameter
+``blob`` holds their per-candidate values (grammar in the JAX package's
+module docstring):
+
+    spec = (problem, frags, strict)
+    frag = ("fista", cis, max_iter, fit_intercept, off_l1, off_l2)
+         | ("forest", out_c, groups) | ("gbt", loss, out_c, groups)
+
+Each fragment scores its candidates on every row; the scores [F, C, n] go
+to the binary metrics (K-L).  The work runs eagerly on the device of the
+arrays, through the hand-written kernels: K-K for the logistic fits; K-E,
+K-F and K-G growing the forests and boosted trees, K-H boosting, K-M
+reading the forests' leaves.  A forest group's trees grow in batches of
+``ops/trees.forest_batch_size`` (the spec's ``chunk`` is the JAX
+package's, kept for the spec's equality; trees are independent, so the
+batching changes no result).  Only the binary problem is ported; the
+newton, svc and mlp fragments and round-collapsed boosting raise.  The
+checkpoint, hedge, ledger, trace, AOT-cache and mesh wrappers of the JAX
+package are not ported.
+"""
+from __future__ import annotations
+
+import time
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from . import linear as L
+from . import trees as Tr
+from .metrics import BINARY_METRICS, binary_grid_metrics
+
+__all__ = ["run_sweep", "BINARY_METRICS"]
+
+
+def _sync(t: torch.Tensor) -> None:
+    if t.is_cuda:
+        torch.cuda.synchronize(t.device)
+
+
+def _blob(blob: np.ndarray, off: int, k: int) -> np.ndarray:
+    return blob[off:off + k]
+
+
+def _fista_scores(frag, X, y, train_w, blob) -> torch.Tensor:
+    """p(class 1) [F, G, n] of the fragment's elastic-net logistic fits."""
+    _, cis, max_iter, fit_intercept, off_l1, off_l2 = frag
+    G = len(cis)
+    fit = L.fit_logistic_grid_folds_fista(X, y, train_w, _blob(blob, off_l1, G),
+                                          _blob(blob, off_l2, G), max_iter=max_iter,
+                                          fit_intercept=fit_intercept)
+    z = torch.einsum("nd,fgd->fgn", X, fit.coef) + fit.intercept
+    return L._sigmoid(z)
+
+
+def _forest_draws(seed: int, n: int, d: int, n_trees: int, bootstrap: bool, rate: float,
+                  frac: float, dev, draws: Optional[Dict]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(bootstrap weights f32[T, n], feature masks f32[T, d]) of a forest
+    group, drawn once per distinct arguments within ``draws`` (the stock
+    space's three forest groups share one draw, which XLA's common
+    subexpression elimination also computes once in the reference's single
+    program)."""
+    key = (seed, n, d, n_trees, bootstrap, rate, frac)
+    if draws is None or key not in draws:
+        kb, kf = Tr.rng_keys(seed)
+        out = (Tr.bootstrap_weights(kb, n, n_trees, bootstrap, rate, dev),
+               Tr.feature_masks(kf, d, n_trees, frac, dev))
+        if draws is None:
+            return out
+        draws[key] = out
+    return draws[key]
+
+
+def grow_forest_group(group, xbs, y, train_w, blob, draws: Optional[Dict] = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Grow one forest group: (leaf values f32[F Gc, T, P], each row's leaf
+    i32[F Gc, T, n]).
+
+    One bootstrap and feature-mask draw serves every (fold, candidate) of
+    the group (``build_sweep_plan`` groups on all the draw depends on); tree
+    (f, c, t) trains on ``boot[t] * train_w[f]`` with candidate c's
+    min_child_weight and min_info_gain."""
+    (cis, depth, n_trees, xb_idx, n_bins, frac, rate, bootstrap, seed,
+     frontier, exact_cap, _chunk, off_mcw, off_mig) = group
+    Xb = xbs[xb_idx]
+    dev = Xb.device
+    n, d = Xb.shape
+    F = train_w.shape[0]
+    Gc = len(cis)
+    boot, fm = _forest_draws(seed, n, d, n_trees, bootstrap, rate, frac, dev, draws)
+    mcw = _blob(blob, off_mcw, Gc)
+    mig = _blob(blob, off_mig, Gc)
+    TT = F * Gc * n_trees
+    fold_t = np.repeat(np.arange(F), Gc * n_trees)                        # tree -> fold
+    cand_t = np.tile(np.repeat(np.arange(Gc), n_trees), F)                # tree -> candidate
+    tree_t = np.tile(np.arange(n_trees), F * Gc)                          # tree -> draw
+    g = -y[:, None]
+    h = torch.ones_like(y)
+    batch = Tr.forest_batch_size(n, d, n_bins, frontier)
+    leaves, nodes = [], []
+    for lo in range(0, TT, batch):
+        sl = slice(lo, min(lo + batch, TT))
+        ti = torch.as_tensor(tree_t[sl], device=dev)
+        fi = torch.as_tensor(fold_t[sl], device=dev)
+        w = boot[ti] * train_w[fi]
+        k = w.shape[0]
+        tree, row_node = Tr.grow_forest(
+            Xb, g, h, w, fm[ti], depth, n_bins, frontier,
+            np.full(k, 1e-6, np.float32), np.zeros(k, np.float32), mcw[cand_t[sl]],
+            mig[cand_t[sl]], exact_cap=exact_cap, return_row_node=True)
+        leaves.append(tree.leaf_val[..., 0])
+        nodes.append(row_node)
+    return (torch.cat(leaves).reshape(F * Gc, n_trees, -1),
+            torch.cat(nodes).reshape(F * Gc, n_trees, n))
+
+
+def _forest_group_scores(group, xbs, y, train_w, blob, out_c: int,
+                         draws: Optional[Dict] = None) -> torch.Tensor:
+    """One forest group -> the mean leaf value (p(class 1)) [F, Gc, n], the
+    leaves read by K-M."""
+    if out_c != 1:
+        raise NotImplementedError("forest fragments with class-distribution leaves "
+                                  "(multiclass) are not ported")
+    leaf, row_node = grow_forest_group(group, xbs, y, train_w, blob, draws)
+    return Tr.forest_leaf_mean(leaf, row_node).reshape(train_w.shape[0], len(group[0]), -1)
+
+
+def _gbt_group_scores(group, xbs, y, train_w, blob, loss: str, out_c: int) -> torch.Tensor:
+    """One boosting group -> the final margins [F, Gc, n] (fold x candidate
+    batch, one tree per round each)."""
+    (cis, rounds, depth, xb_idx, n_bins, subsample, colsample, seed,
+     frontier, exact_cap, fold_base, trees_per_round, off_eta, off_lam,
+     off_gam, off_mcw, off_mig) = group
+    if loss != "logistic" or fold_base or out_c != 1:
+        raise NotImplementedError(f"{loss} boosting fragments are not ported")
+    if trees_per_round != 1:
+        raise NotImplementedError("round-collapsed boosting (trees_per_round > 1) is not ported")
+    Xb = xbs[xb_idx]
+    dev = Xb.device
+    n, d = Xb.shape
+    F = train_w.shape[0]
+    Gc = len(cis)
+    ks, kf = Tr.rng_keys(seed)
+    rw = Tr.subsample_weights(ks, n, rounds, subsample, dev)
+    fms = Tr.feature_masks(kf, d, rounds, colsample, dev)
+    hp = {k: np.tile(_blob(blob, off, Gc), F) for k, off in (
+        ("eta", off_eta), ("lam", off_lam), ("gam", off_gam), ("mcw", off_mcw),
+        ("mig", off_mig))}
+    w_b = train_w.repeat_interleave(Gc, dim=0)                            # [F * Gc, n]
+    Fm = Tr.fit_gbt_batch(Xb, y, w_b, rw, fms, loss=loss, n_rounds=rounds, max_depth=depth,
+                          n_bins=n_bins, frontier=frontier, eta_b=hp["eta"],
+                          reg_lambda_b=np.maximum(hp["lam"], np.float32(1e-6)),
+                          gamma_b=hp["gam"], min_child_weight_b=hp["mcw"],
+                          min_info_gain_b=hp["mig"], exact_cap=exact_cap)
+    return Fm[..., 0].reshape(F, Gc, n)
+
+
+def _frag_scores(frag, X, xbs, y, train_w, blob, problem):
+    """(candidate positions, class-1 scores [F, Gf, n]) of one fragment."""
+    kind = frag[0]
+    if problem != "binary":
+        raise NotImplementedError(f"{problem!r} sweeps are not ported (binary only)")
+    if kind == "fista":
+        return frag[1], _fista_scores(frag, X, y, train_w, blob)
+    if kind == "forest":
+        _, out_c, groups = frag
+        cis, outs, draws = [], [], {}
+        for grp in groups:
+            outs.append(_forest_group_scores(grp, xbs, y, train_w, blob, out_c, draws))
+            cis.extend(grp[0])
+        return cis, torch.cat(outs, dim=1)
+    if kind == "gbt":
+        _, loss, out_c, groups = frag
+        cis, outs = [], []
+        for grp in groups:
+            outs.append(L._sigmoid(_gbt_group_scores(grp, xbs, y, train_w, blob, loss, out_c)))
+            cis.extend(grp[0])
+        return cis, torch.cat(outs, dim=1)
+    raise NotImplementedError(f"sweep fragment {kind!r} is not ported")
+
+
+def _all_scores(spec, X, xbs, y, train_w, blob,
+                timings: Optional[Dict[str, float]] = None) -> torch.Tensor:
+    problem, frags, strict = spec
+    n = y.shape[0]
+    F = train_w.shape[0]
+    scores = torch.zeros((F, len(strict), n), dtype=torch.float32, device=X.device)
+    for frag in frags:
+        t0 = time.perf_counter()
+        cis, sc = _frag_scores(frag, X, xbs, y, train_w, blob, problem)
+        scores[:, torch.as_tensor(cis, device=X.device)] = sc
+        if timings is not None:
+            _sync(scores)
+            timings[frag[0]] = timings.get(frag[0], 0.0) + time.perf_counter() - t0
+    return scores
+
+
+def _metrics_of(spec, y, scores, val_w) -> torch.Tensor:
+    problem, _, strict = spec
+    if problem != "binary":
+        raise NotImplementedError(f"{problem!r} sweep metrics are not ported (binary only)")
+    return binary_grid_metrics(y, scores, val_w, strict)
+
+
+def run_sweep(spec, X: torch.Tensor, xbs: Tuple[torch.Tensor, ...], y: torch.Tensor,
+              train_w, val_w, blob, timings: Optional[Dict[str, float]] = None
+              ) -> torch.Tensor:
+    """Run a fused sweep on X's device; returns the metrics f32[F, C, M]
+    (``BINARY_METRICS`` order).  ``train_w`` / ``val_w`` [F, n] are the
+    folds' training weights and 0/1 validation masks, ``blob`` the host
+    float32 hyperparameter vector.  With ``timings``,
+    adds each fragment kind's and the metrics' host seconds (each
+    synchronized with the device) to it."""
+    dev = X.device
+    as_t = (lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
+            if not isinstance(a, torch.Tensor) else a.to(dev, torch.float32))
+    train_w, val_w = as_t(train_w).contiguous(), as_t(val_w)
+    blob = np.asarray(blob.cpu() if isinstance(blob, torch.Tensor) else blob, np.float32)
+    scores = _all_scores(spec, X, xbs, y, train_w, blob, timings)
+    t0 = time.perf_counter()
+    out = _metrics_of(spec, y, scores, val_w)
+    if timings is not None:
+        _sync(out)
+        timings["metrics"] = timings.get("metrics", 0.0) + time.perf_counter() - t0
+    return out

@@ -1,16 +1,20 @@
-"""Tree ensembles on the device: binning (K-A), the walk (K-B) and the
-histogram boosting fit (K-E … K-H).
+"""Tree ensembles on the device: binning (K-A), the walk (K-B), the
+histogram boosting and forest fits (K-E … K-H) and the forests' leaf read
+(K-M).
 
 The port's counterpart of ``transmogrifai_tpu/ops/trees.py``.  Scoring:
 ``Tree``, ``_bin_dtype``, ``bin_with_edges``, ``predict_tree``,
-``predict_forest``, ``predict_gbt``.  Fitting: ``sketch_edges``,
-``quantize``, ``frontier_cap``, ``_pool_size``, ``frontier_is_exact``, the
-subsample draws at fraction 1, the level-wise tree grower and boosting
-(``fit_gbt``, ``fit_gbt_batch``) with the logistic loss.  The forest growers
-and the softmax and squared losses are not ported.
+``predict_forest``, ``predict_gbt``, ``predict_forest_groups``.  Fitting:
+``sketch_edges``, ``quantize``, ``frontier_cap``, ``_pool_size``,
+``frontier_is_exact``, the threefry draws (``rng_keys``,
+``bootstrap_weights``, ``feature_masks``, ``subsample_weights``, bit-equal
+to the JAX package's), the level-wise tree grower, boosting (``fit_gbt``,
+``fit_gbt_batch``) with the logistic loss, and the binary forests
+(``grow_forest``, ``fit_forest``, ``fit_forest_chunked``).  Multiclass
+forests and the softmax and squared losses are not ported.
 
 Hand-written kernels carry the path (CUDA sources in ``csrc/``, the Triton
-one in ``ops/triton_boost.py``):
+ones in ``ops/triton_boost.py`` and ``ops/triton_forest.py``):
 
 - ``bin_rows`` (K-A) replaces ``_bin_chunk``: per-feature left searchsorted
   of a float32 matrix into the fitted quantile edges.
@@ -30,6 +34,9 @@ one in ``ops/triton_boost.py``):
 - ``boost_step`` (K-H) replaces the margin update and ``_grad_hess``
   (logistic): ``F += eta * leaf[row_node]`` and the weighted gradient and
   hessian of the new margins.
+- ``forest_leaf_mean`` (K-M, Triton, ``ops/triton_forest.py``) replaces the
+  fused sweep's forest leaf read and tree mean: each row's mean leaf value
+  over each (fold, candidate)'s trees.
 
 Each kernel has a plain PyTorch version of the same signature beside it.  A
 wrapper takes the plain version only for tensors on the CPU; for CUDA
@@ -48,6 +55,7 @@ import torch
 
 from ..utils.device import on_cuda as _on_cuda
 from . import cuda_build
+from . import threefry as R
 
 
 class Tree(NamedTuple):
@@ -331,34 +339,63 @@ def frontier_is_exact(n: int, max_depth: int, min_child_weight: float,
 
 
 # ---------------------------------------------------------------------------
-# Subsample draws: fraction 1 only (the threefry draws below 1 are K8, not
-# ported yet)
+# Subsample draws (K8): threefry, bit for bit as the JAX package draws them
 # ---------------------------------------------------------------------------
-def rng_keys(seed: int) -> Tuple[int, int]:
-    """(row key, feature key).  The draws at fraction 1 use neither."""
-    return int(seed), int(seed)
+def rng_keys(seed: int) -> Tuple[R.Key, R.Key]:
+    """(bootstrap / row key, feature key): ``jax.random.split`` of the
+    seed's key, the split every fit and the sweep share."""
+    kb, kf = R.split(R.key(seed))
+    return kb, kf
 
 
-def _no_draws(what: str, frac: float) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} at fraction {frac} < 1 needs the threefry draws of K8 "
-        "(transmogrifai_tpu/ops/trees.py:1400-1420), which are not ported yet")
+def bootstrap_weights(key: R.Key, n: int, n_trees: int, bootstrap: bool = True,
+                      rate: float = 1.0, device=None) -> torch.Tensor:
+    """Poisson(rate) bootstrap weights f32[T, n] on ``device``: Knuth's loop
+    as ``jax.random.poisson`` runs it (one key split and one full-shape
+    uniform a step, while any lane's log-product is above -rate), with each
+    log taken in float64 and rounded to float32.  That rounding is what
+    matches XLA's float32 log on every lane drawn at the sweep's shapes
+    ([50, 891] and [50, 2^18], checked against ``jax.random.poisson``); a
+    float32 log, which differs from XLA's on about 14% of the uniform's
+    values, is not used."""
+    if not bootstrap:
+        return torch.ones((n_trees, n), dtype=torch.float32, device=device)
+    lam = torch.tensor(float(np.float32(rate)), dtype=torch.float32, device=device)
+    k = torch.zeros((n_trees, n), dtype=torch.int32, device=device)
+    if float(lam) == 0.0:
+        return k.to(torch.float32)
+    log_prod = torch.zeros((n_trees, n), dtype=torch.float32, device=device)
+    rng = key
+    while True:
+        live = log_prod > -lam
+        if not bool(live.any()):
+            break
+        rng, sub = R.split(rng)
+        k += live.to(torch.int32)
+        u = R.uniform(sub, (n_trees, n), device)
+        log_prod = log_prod + torch.log(u.to(torch.float64)).to(torch.float32)
+    return (k - 1).to(torch.float32)
 
 
-def subsample_weights(key, n: int, n_rounds: int, frac: float,
-                      device=None) -> torch.Tensor:
-    """Per-round row-subsample masks f32[R, n]: all ones at fraction >= 1."""
-    if frac < 1.0:
-        raise _no_draws("subsample", frac)
-    return torch.ones((n_rounds, n), dtype=torch.float32, device=device)
-
-
-def feature_masks(key, d: int, n_trees: int, frac: float,
+def feature_masks(key: R.Key, d: int, n_trees: int, frac: float,
                   device=None) -> torch.Tensor:
-    """Per-tree feature masks f32[T, d]: all ones at fraction >= 1."""
-    if frac < 1.0:
-        raise _no_draws("colsample", frac)
-    return torch.ones((n_trees, d), dtype=torch.float32, device=device)
+    """Per-tree feature masks f32[T, d] with exactly ``k = max(1,
+    round(frac d))`` features each: the uniforms at or below each tree's
+    k-th smallest."""
+    if frac >= 1.0:
+        return torch.ones((n_trees, d), dtype=torch.float32, device=device)
+    k = max(1, int(round(frac * d)))
+    r = R.uniform(key, (n_trees, d), device)
+    thresh = torch.sort(r, dim=1).values[:, k - 1:k]
+    return (r <= thresh).to(torch.float32)
+
+
+def subsample_weights(key: R.Key, n: int, n_rounds: int, frac: float,
+                      device=None) -> torch.Tensor:
+    """Per-round row-subsample masks f32[R, n]: uniform < frac."""
+    if frac >= 1.0:
+        return torch.ones((n_rounds, n), dtype=torch.float32, device=device)
+    return (R.uniform(key, (n_rounds, n), device) < np.float32(frac)).to(torch.float32)
 
 
 # ---------------------------------------------------------------------------
@@ -857,6 +894,9 @@ def as_tree(nodes: torch.Tensor, leaf: torch.Tensor) -> Tree:
 
 
 def _f32(v, T: int, dev) -> torch.Tensor:
+    """A per-tree float32 vector [T] on ``dev`` from a scalar, array or tensor."""
+    if isinstance(v, torch.Tensor):
+        return v.to(dev, torch.float32).reshape(T)
     return torch.as_tensor(np.broadcast_to(np.asarray(v, np.float32), (T,)).copy(),
                            device=dev)
 
@@ -945,3 +985,175 @@ def fit_gbt_batch(Xb: torch.Tensor, y: torch.Tensor, w_batch: torch.Tensor,
                   _f32(zeros if base_score_b is None else base_score_b, B, dev),
                   exact_cap, keep_trees=False)
     return F[:, :, None]
+
+
+# ---------------------------------------------------------------------------
+# Forests (the reference's grow_forest, fit_forest, fit_forest_chunked,
+# forest_chunk_size, balanced_chunk, predict_forest_groups): K-E, K-F and
+# K-G grow the trees, K-M reads the sweep's leaves
+# ---------------------------------------------------------------------------
+def grow_forest(Xb: torch.Tensor, g: torch.Tensor, h: torch.Tensor, w_t: torch.Tensor,
+                feat_mask_t: torch.Tensor, max_depth: int, n_bins: int, frontier: int,
+                reg_lambda_t, gamma_t, mcw_t, mig_t, exact_cap: bool = False,
+                return_row_node: bool = False):
+    """Grow T trees together on shared gradients ``g`` f32[n, 1] and ``h``
+    f32[n] (the forests' g = -y, h = 1), each tree with its row weights
+    ``w_t`` f32[T, n], feature mask and (lambda, gamma, min_child_weight,
+    min_info_gain) f32[T].  Returns the ``Tree`` [T, P] (and each row's
+    node i32[T, n] when ``return_row_node``: growth routes every row, so
+    it is the leaf the row reaches)."""
+    if g.ndim != 2 or g.shape[1] != 1:
+        raise NotImplementedError(
+            "forests with class-distribution leaves (multiclass, c > 1) are not "
+            "ported: K-E and K-F carry one gradient channel")
+    dev = Xb.device
+    T = w_t.shape[0]
+    ghw = torch.stack([w_t * g[:, 0][None], w_t * h[None]], dim=-1).contiguous()
+    params = torch.stack([_f32(v, T, dev) for v in (reg_lambda_t, gamma_t, mcw_t, mig_t)],
+                         dim=1)
+    nodes, leaf, row_node = grow_trees(Xb, ghw, feat_mask_t.to(dev, torch.float32).contiguous(),
+                                       params, max_depth, n_bins, frontier, exact_cap)
+    tree = as_tree(nodes, leaf)
+    return (tree, row_node) if return_row_node else tree
+
+
+def fit_forest(Xb, g, h, w_trees, feat_masks, max_depth: int, n_bins: int, frontier: int,
+               reg_lambda: float = 1e-6, min_child_weight: float = 1.0,
+               min_info_gain: float = 0.0, exact_cap: bool = False) -> Tree:
+    """All trees of one forest in one batch: ``w_trees`` f32[T, n] bootstrap
+    weights, ``feat_masks`` f32[T, d]."""
+    T = w_trees.shape[0]
+    return grow_forest(Xb, g, h, w_trees, feat_masks, max_depth, n_bins, frontier,
+                       np.full(T, reg_lambda, np.float32), np.zeros(T, np.float32),
+                       np.full(T, min_child_weight, np.float32),
+                       np.full(T, min_info_gain, np.float32), exact_cap=exact_cap)
+
+
+def fit_forest_chunked(Xb, g, h, w_trees, feat_masks, mcw_trees, max_depth: int,
+                       n_bins: int, chunk: int, frontier: int, reg_lambda: float = 1e-6,
+                       mig_trees=None, exact_cap: bool = False) -> Tree:
+    """A tree population grown ``chunk`` trees at a time (trees are
+    independent, so the chunking changes no result), with per-tree
+    min_child_weight and min_info_gain."""
+    TT = w_trees.shape[0]
+    dev = Xb.device
+    mcw = _f32(mcw_trees, TT, dev)
+    mig = torch.zeros(TT, device=dev) if mig_trees is None else _f32(mig_trees, TT, dev)
+    parts = []
+    for lo in range(0, TT, chunk):
+        hi = min(lo + chunk, TT)
+        k = hi - lo
+        parts.append(grow_forest(Xb, g, h, w_trees[lo:hi], feat_masks[lo:hi], max_depth,
+                                 n_bins, frontier, torch.full((k,), reg_lambda, device=dev),
+                                 torch.zeros(k, device=dev), mcw[lo:hi], mig[lo:hi],
+                                 exact_cap=exact_cap))
+    return Tree(*(torch.cat(a) for a in zip(*parts)))
+
+
+def forest_chunk_size(max_depth: int, n_bins: int, d: int, c: int, frontier: int,
+                      budget_bytes: float = 3e9, n_rows: int = 0) -> int:
+    """The JAX package's trees per chunk (its spec records it): a level's
+    histograms and temporaries (x3.5 with histogram subtraction) and its
+    slot one-hot [M, n] (``2 * n_rows``) per tree within the budget."""
+    per_tree = frontier * (n_bins * d * (c + 1) * 3.5 + 2 * n_rows) * 4
+    return max(1, int(budget_bytes / max(per_tree, 1)))
+
+
+def balanced_chunk(total: int, chunk_max: int) -> int:
+    """Even chunk size: the fewest chunks within ``chunk_max``, sized alike."""
+    total = max(int(total), 1)
+    n_chunks = -(-total // max(int(chunk_max), 1))
+    return -(-total // n_chunks)
+
+
+#: the port's own bound on the buffers of one batch of forest trees
+FOREST_BATCH_BYTES = 8e9
+
+
+def forest_batch_size(n: int, d: int, n_bins: int, frontier: int) -> int:
+    """Trees the port grows in one batch: per tree, the weights and ghw
+    (12 bytes a row), the grower's row arrays and their next-level copies
+    (24 bytes a row), and a level's histograms, parent histograms and int64
+    sums (16 bytes a cell of [M, 2, d, B]), within ``FOREST_BATCH_BYTES``.
+    The reference's ``forest_chunk_size`` budgets a slot one-hot [M, n]
+    that K-E never builds."""
+    per_tree = 36 * n + 16 * frontier * 2 * d * n_bins
+    return max(1, int(FOREST_BATCH_BYTES // per_tree))
+
+
+def predict_forest_groups(Xb: torch.Tensor, forest: Tree, max_depth: int,
+                          n_groups: int) -> torch.Tensor:
+    """Mean leaf vector per group of consecutive trees: f32[n_groups, n, c]
+    (K-B in mean mode, one launch a group)."""
+    TT = forest.split_feat.shape[0]
+    per = TT // n_groups
+    return torch.stack([predict_forest(Xb, Tree(*(a[i * per:(i + 1) * per] for a in forest)),
+                                       max_depth) for i in range(n_groups)])
+
+
+# ---------------------------------------------------------------------------
+# K-M forest_leaf_mean
+# ---------------------------------------------------------------------------
+#: the tree mean's summation order is XLA's CPU reduction of the reference's
+#: ``mean(axis=trees)``: above 32 trees it sums windows of 32 (the tree
+#: axis zero-padded evenly at both ends to whole windows), each in tree
+#: order, then the windows' sums in order, and multiplies by float32(1 / T);
+#: up to 16 trees it is one window.  (Checked bit for bit at 5, 16, 50, 64
+#: and 300 trees; from 17 to 32 trees XLA sums in another order, and a
+#: mean may differ from its in the last bit.)
+MEAN_WINDOW = 32
+
+
+def _mean_windows(T: int) -> Tuple[int, int]:
+    """(windows, leading zero pad) of the tree sum; at most 32 windows."""
+    if T <= MEAN_WINDOW:
+        return 1, 0
+    W = -(-T // MEAN_WINDOW)
+    _require(W <= MEAN_WINDOW, f"at most {MEAN_WINDOW ** 2} trees a group, got {T}")
+    return W, (W * MEAN_WINDOW - T) // 2
+
+
+def forest_leaf_mean_plain(leaf: torch.Tensor, row_node: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of K-M: the gather, the windowed tree sum,
+    the multiplication by float32(1 / T)."""
+    G, T, _ = leaf.shape
+    vals = leaf.gather(2, row_node.long())                      # [G, T, n]
+    W, lo = _mean_windows(T)
+    total = torch.zeros_like(vals[:, 0])
+    for w in range(W):
+        part = torch.zeros_like(total)
+        for t in range(max(w * MEAN_WINDOW - lo, 0), min((w + 1) * MEAN_WINDOW - lo, T)):
+            part = part + vals[:, t]
+        total = total + part
+    return total * float(np.float32(1.0 / T))
+
+
+def forest_leaf_mean(leaf: torch.Tensor, row_node: torch.Tensor) -> torch.Tensor:
+    """The mean leaf value of each row over each group's T trees, f32[G, n]:
+    ``leaf`` f32[G, T, P] the trees' leaf values, ``row_node`` i32[G, T, n]
+    the leaf each row reaches; summed in the order of ``MEAN_WINDOW``."""
+    _require(leaf.dtype == torch.float32 and leaf.ndim == 3, "leaf must be float32[G, T, P]")
+    G, T, P = leaf.shape
+    _require(row_node.dtype == torch.int32 and row_node.ndim == 3
+             and tuple(row_node.shape[:2]) == (G, T), f"row_node must be int32[{G}, {T}, n]")
+    _require(T >= 1, "need at least one tree")
+    W, lo = _mean_windows(T)
+    if not _on_cuda(leaf, row_node):
+        return forest_leaf_mean_plain(leaf, row_node)
+    from . import triton_forest as tf
+
+    leaf, row_node = leaf.contiguous(), row_node.contiguous()
+    n = row_node.shape[2]
+    out = torch.empty((G, n), dtype=torch.float32, device=leaf.device)
+    if n == 0 or G == 0:
+        return out
+    block = 512
+    with torch.cuda.device(leaf.device):
+        tf.forest_leaf_mean_kernel[(-(-n // block), G)](
+            leaf, row_node, out, n, T, P, W, lo, float(np.float32(1.0 / T)),
+            WINDOW=MEAN_WINDOW, BLOCK=block, num_warps=4)
+    forest_leaf_mean.launches += 1
+    return out
+
+
+forest_leaf_mean.launches = 0
