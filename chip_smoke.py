@@ -1,4 +1,4 @@
-"""Chip smoke test of the PyTorch/CUDA port: serve and train Titanic on the GPU.
+"""Chip smoke test of the PyTorch/CUDA port: serve and train Titanic, train Boston, on the GPU.
 
 Run from the repository root on a host with one CUDA card:
 
@@ -71,7 +71,29 @@ Phases, each printing its findings on a line of its own:
                matrix, folds and candidates): K-K's gradients at the fitted
                coefficients within ``FISTA_GRAD_RTOL``, K-L on the sweep's
                28 score rows and K-M on its deepest forest group bit-equal;
-               timed as in phase 2 (K-L's sort timed apart).
+               timed as in phase 2 (K-L's sort timed apart);
+12. boston reference -- the Boston workflow's stock regression train (LinReg
+               + RF + GBT, 44 candidates, one fused sweep) on the 506-row
+               frame, held to the committed fixture ``boston_stock``: the
+               same winner (GBT depth 12, min_info_gain 0.1,
+               min_instances_per_node 10), the forests' draws equal, each
+               family's fold RMSE within ``FX.BOSTON_RMSE_RTOL``, the
+               holdout metrics within ``BOSTON_HOLDOUT_RTOL``, and the
+               fixture model's predictions for its 256 requests within
+               ``FX.PRED_RTOL``; a second run is profiled for the device's
+               busy time and idle share;
+13. boston train -- the main path of the regression train: the Boston flow
+               on a frame of ``--train-rows`` rows drawn from ``--seed`` by
+               ``boston_data``'s formula; every kernel's launch count is
+               reset just before and read just after (K-A, K-B, K-E ... K-H,
+               K-M, K-N, K-O must be above 0), with the wall time and the
+               host-clock breakdown; a second run is profiled for the
+               device's busy time and idle share;
+14. boston kernels -- K-N, K-O and K-H squared against their plain versions
+               on the sweep call of the ``--train-rows`` Boston train (its
+               feature matrix, folds and candidates), and K-E at a
+               fixed-point scale below 2^32 (the deepest GBT group's root
+               level with the gradients in dollars); timed as in phase 2.
 
 The line before the last holds the kernels' JSON record, then the card's
 name and power limit; the last line is ``{"ok": true, "device": ...}``.  Any
@@ -100,10 +122,18 @@ TRAIN_AUPR_TOL = 2e-4
 #: largest gap of K-I's correlation matrix to its plain version (cuBLAS):
 #: float32 sums of 100k products in another order
 STATS_GRAM_ATOL = 2e-6
-#: largest gap of K-K's gradients to its plain version (cuBLAS products),
-#: relative to the largest gradient entry: float32 sums of 2^18 rows in
-#: another order
+#: largest gap of K-K's and K-N's gradients to their plain versions (cuBLAS
+#: products), relative to the largest gradient entry: float32 sums of 2^18
+#: rows in another order
 FISTA_GRAD_RTOL = 1e-5
+#: K-O against its plain version: both sum in float64 (in other orders) and
+#: round to float32 once, so at most an ulp apart
+REG_METRIC_RTOL = 2e-7
+#: the Boston refit's holdout metrics against the fixture's, relative
+BOSTON_HOLDOUT_RTOL = 1e-5
+#: the dollars of a Boston target in thousands: the rescaled K-E case's
+#: gradients, whose sums leave 2^32's fixed-point range
+DOLLARS = 1e4
 
 
 def check(cond, msg="check failed"):
@@ -178,6 +208,29 @@ def bound_ms(n_bytes, n_ops):
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
     t_ops = n_ops / PEAK_SCALAR_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def profiled(torch, fn):
+    """Run ``fn`` under the profiler: (wall seconds, the device's busy
+    seconds or None when it recorded no device activity, the idle share,
+    the top 12 (kernel, device seconds, count)).  Only the card's own
+    events count: a host op (``aten::add``) carries its kernels' device
+    time as well, which would count each of them twice."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    on_card = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False) and e.self_device_time_total > 0]
+    busy_us = sum(e.self_device_time_total for e in on_card)
+    busy_s = busy_us / 1e6 if busy_us > 0 else None
+    by_kernel = sorted(((e.key, e.self_device_time_total / 1e6, e.count) for e in on_card),
+                       key=lambda r: -r[1])[:12]
+    return wall, busy_s, None if busy_s is None else 1 - busy_s / wall, by_kernel
 
 
 def walk_steps(tree, leaves, max_depth):
@@ -351,8 +404,6 @@ def breakdown_phase(torch, model, cols):
     the host clock (synchronized), and the device's busy time over one
     whole ``score`` by the profiler (``None`` when it records no device
     activity)."""
-    from torch.profiler import ProfilerActivity, profile
-
     from transmogrifai_tpu_torch.readers.base import CustomReader
     from transmogrifai_tpu_torch.workflow import dag
 
@@ -366,15 +417,9 @@ def breakdown_phase(torch, model, cols):
         torch.cuda.synchronize()
         steps[f"layer{i}:" + "+".join(sorted({type(s).__name__ for s in layer}))] = \
             time.perf_counter() - t
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        model.score(cols)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t
-    busy_us = sum(getattr(e, "self_device_time_total", 0) for e in prof.key_averages())
-    busy_s = busy_us / 1e6 if busy_us > 0 else None
+    wall, busy_s, idle, _ = profiled(torch, lambda: model.score(cols))
     log("breakdown", rows=len(ds), host_clock_s=steps, profiled_score_s=wall,
-        device_busy_s=busy_s, device_idle_share=None if busy_s is None else 1 - busy_s / wall)
+        device_busy_s=busy_s, device_idle_share=idle)
 
 
 def train_reference_phase(torch, titanic, FX, dev="cuda"):
@@ -498,8 +543,6 @@ def train_phase(torch, titanic, rows, seed, kernels, dev="cuda"):
     """The main path of training at ``rows`` rows: launch counts reset just
     before and read just after; then a profiled second run.  Returns (each
     kernel's launches, the trained model, the first sweep call)."""
-    from torch.profiler import ProfilerActivity, profile
-
     cols = titanic.titanic_data(rows, seed)
     for fn in kernels:
         fn.launches = 0
@@ -515,17 +558,8 @@ def train_phase(torch, titanic, rows, seed, kernels, dev="cuda"):
     check(all(np.isfinite(folds)) and min(folds) > 0.5, f"bad fold metrics {folds}")
     check(summ.holdout_evaluation["AuPR"] > 0.5, "bad holdout AuPR")
     timings = dict(wf.train_timings)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        titanic.train_titanic(cols, device=dev)
-        torch.cuda.synchronize()
-        prof_wall = time.perf_counter() - t
-    busy_us = sum(getattr(e, "self_device_time_total", 0) for e in prof.key_averages())
-    busy_s = busy_us / 1e6 if busy_us > 0 else None
-    by_kernel = sorted(((e.key, getattr(e, "self_device_time_total", 0) / 1e6, e.count)
-                        for e in prof.key_averages()
-                        if getattr(e, "self_device_time_total", 0) > 0),
-                       key=lambda r: -r[1])[:12]
+    prof_wall, busy_s, idle, by_kernel = profiled(
+        torch, lambda: titanic.train_titanic(cols, device=dev))
     plan = rec.calls[0][0]
     log("train", rows=rows, wall_s=wall, launches=launches, host_clock_s=timings,
         best=summ.best_model_name, best_grid=summ.best_grid,
@@ -534,8 +568,7 @@ def train_phase(torch, titanic, rows, seed, kernels, dev="cuda"):
                              for f in ("OpLogisticRegression", "OpXGBoostClassifier")},
         holdout_aupr=summ.holdout_evaluation["AuPR"], sweep_spec=repr(plan.spec),
         sweep_rows=int(plan.X.shape[0]), sweep_features=int(plan.X.shape[1]),
-        profiled_train_s=prof_wall, device_busy_s=busy_s,
-        device_idle_share=None if busy_s is None else 1 - busy_s / prof_wall,
+        profiled_train_s=prof_wall, device_busy_s=busy_s, device_idle_share=idle,
         device_s_by_kernel=by_kernel)
     return launches, model, rec.calls[0][:3]
 
@@ -671,9 +704,11 @@ def train_kernel_phase(torch, model, timer, dev="cuda"):
     check(torch.equal(F1, F2), "boost_step margins differ from plain")
     torch.testing.assert_close(g1, g2, rtol=1e-6, atol=2.5e-7)
     err_h = float((g1 - g2).abs().max())
-    # per (tree, row): F read and written, w and the row's node read, one
-    # leaf gathered, g and h written; y once; about 12 operations
-    b, by = bound_ms(T * n * (4 + 4 + 4 + 4 + 4 + 8) + n * 4, T * n * 12)
+    # per (tree, row): F read and written, w and the row's node read, g and
+    # h written; y, eta and the leaf table once (its gathers hit the cache);
+    # about 12 operations
+    b, by = bound_ms(T * n * (4 + 4 + 4 + 4 + 8) + n * 4 + T * 4 + leaf.numel() * 4,
+                     T * n * 12)
     records.append(dict(
         name="boost_step", route="triton", source="transmogrifai_tpu_torch/ops/triton_boost.py",
         replaces="transmogrifai_tpu/ops/trees.py:1117", max_abs_err=err_h,
@@ -752,6 +787,29 @@ def stats_kernel_phase(torch, model, timer, dev="cuda"):
     return records
 
 
+def fista_inputs(torch, plan, tw, fit_fn):
+    """The sweep's FISTA fragment fitted by ``fit_fn`` and the gradient
+    kernels' arguments at its coefficients: (X1, y, w, fold, z, l2v,
+    wsum), the fits' fold weight rows [C, n], and C."""
+    X, y, blob = plan.X, plan.y, np.asarray(plan.blob, np.float32)
+    dev = X.device
+    n, d = X.shape
+    F = tw.shape[0]
+    _, cis, max_iter, fit_icpt, off_l1, off_l2 = next(f for f in plan.spec[1]
+                                                      if f[0] == "fista")
+    G = len(cis)
+    l1, l2 = blob[off_l1:off_l1 + G], blob[off_l2:off_l2 + G]
+    fit = fit_fn(X, y, tw, l1, l2, max_iter=max_iter, fit_intercept=fit_icpt)
+    C, p = F * G, d + 1
+    z = torch.cat([fit.coef, fit.intercept], -1).reshape(C, p).contiguous()
+    X1 = torch.cat([X, torch.ones((n, 1), device=dev)], 1).contiguous()
+    fold = torch.arange(F, dtype=torch.int32, device=dev).repeat_interleave(G)
+    l2v = torch.as_tensor(np.tile(l2, F), device=dev)[:, None].repeat(1, p).contiguous()
+    l2v[:, -1] = 0.0
+    wsum = torch.clamp_min(tw.sum(1), 1e-12)[fold.long()].contiguous()
+    return (X1, y, tw, fold, z, l2v, wsum), tw[fold.long()], C
+
+
 def sweep_kernel_phase(torch, call, timer):
     """K-K, K-L and K-M against their plain versions on the first sweep call
     of the ``--train-rows`` train: its feature matrix, folds and spec."""
@@ -771,27 +829,15 @@ def sweep_kernel_phase(torch, call, timer):
     records = []
 
     # K-K fista_grad: the gradients at the sweep's fitted coefficients
-    _, cis, max_iter, fit_icpt, off_l1, off_l2 = frags["fista"]
-    G = len(cis)
-    l1, l2 = blob[off_l1:off_l1 + G], blob[off_l2:off_l2 + G]
-    fit = L.fit_logistic_grid_folds_fista(X, y, tw, l1, l2, max_iter=max_iter,
-                                          fit_intercept=fit_icpt)
-    C = F * G
-    z = torch.cat([fit.coef, fit.intercept], -1).reshape(C, d + 1).contiguous()
-    X1 = torch.cat([X, torch.ones((n, 1), device=dev)], 1).contiguous()
+    args, wc, C = fista_inputs(torch, plan, tw, L.fit_logistic_grid_folds_fista)
+    X1, z, l2v, wsum = args[0], args[4], args[5], args[6]
     p = d + 1
-    fold = torch.arange(F, dtype=torch.int32, device=dev).repeat_interleave(G)
-    l2v = torch.as_tensor(np.tile(l2, F), device=dev)[:, None].repeat(1, p).contiguous()
-    l2v[:, -1] = 0.0
-    wsum = torch.clamp_min(tw.sum(1), 1e-12)[fold.long()].contiguous()
-    args = (X1, y, tw, fold, z, l2v, wsum)
     got, want = L.fista_grad(*args), L.fista_grad_plain(*args)
     check(torch.equal(got, L.fista_grad(*args)), "fista_grad does not repeat bit for bit")
     scale = float(want.abs().max())
     err_k = float((got - want).abs().max())
     check(err_k <= FISTA_GRAD_RTOL * scale,
           f"fista_grad {err_k} from plain, above {FISTA_GRAD_RTOL} x {scale}")
-    wc = tw[fold.long()]
     # X1, each fold's weights and y read once, z / l2v / wsum read and the
     # gradients written; per (fit, row) the margin and the accumulation
     # (4 p operations) and the sigmoid and residual (about 20)
@@ -845,6 +891,229 @@ def sweep_kernel_phase(torch, call, timer):
     return records
 
 
+def boston_reference_phase(torch, boston, FX, dev="cuda"):
+    """The stock regression train on the 506-row Boston frame, held to the
+    committed fixture; raises on a failed check."""
+    import tempfile
+
+    import transmogrifai_tpu_torch as P
+    from transmogrifai_tpu_torch.ops import trees as Tr
+
+    with SweepCalls() as rec:
+        t = time.perf_counter()
+        model, wf = boston.train_boston(device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    summ = model.stages[-1].summary
+    gaps = FX.check_boston_train(model)
+    ref = FX.load_sweep(FX.BOSTON_STOCK + "/sweep.npz")
+    kb, kf = Tr.rng_keys(42)
+    boot = Tr.bootstrap_weights(kb, 455, 50, device=dev).cpu().numpy()
+    masks = Tr.feature_masks(kf, 16, 50, 1.0 / 3.0, dev).cpu().numpy()
+    check(np.array_equal(boot, ref["bootstrap"]), "bootstrap draws differ from the fixture's")
+    check(np.array_equal(masks, ref["feature_masks"]), "feature masks differ from the fixture's")
+    mine = np.stack([out for *_, out in rec.calls])
+    check(mine.shape == ref["metrics"].shape, f"sweep metrics {mine.shape}")
+    fams = {"linreg": slice(0, 8), "rf": slice(8, 26), "gbt": slice(26, 44)}
+    names = ("RootMeanSquaredError", "MeanSquaredError", "R2", "MeanAbsoluteError")
+    metric_gaps = {f: dict(zip(names, (np.abs(mine[:, :, sl] - ref["metrics"][:, :, sl])
+                                       / np.abs(ref["metrics"][:, :, sl])).max(axis=(0, 1, 2))
+                               .tolist())) for f, sl in fams.items()}
+    with open(FX.BOSTON_STOCK + "/op_model.json") as fh:
+        fsum = FX.stage_summary(json.load(fh))
+    holdout = {k: abs(summ.holdout_evaluation[k] / fsum["holdoutEvaluation"][k] - 1.0)
+               for k in names}
+    check(max(holdout.values()) <= BOSTON_HOLDOUT_RTOL,
+          f"holdout metrics {holdout} from the fixture's, above {BOSTON_HOLDOUT_RTOL}")
+    req = FX.load_columns(FX.BOSTON_STOCK + "/requests.npz")
+    expected = FX.load_expected(FX.BOSTON_STOCK + "/expected.npz")["prediction"]
+    fixture_model = P.load_model(FX.BOSTON_STOCK, device=dev)
+    name = fixture_model.result_features[0].name
+    pred = FX.regression_predictions(P.BatchScoreFunction(fixture_model)(FX.records(req)), name)
+    pred_err = float(np.max(np.abs(pred - expected) / np.maximum(np.abs(expected), 1.0)))
+    check(np.allclose(pred, expected, rtol=FX.PRED_RTOL, atol=FX.PRED_ATOL),
+          f"the fixture model's predictions {pred_err} from the JAX package's")
+    with tempfile.TemporaryDirectory() as tmp:
+        model.save(tmp)
+        loaded = P.load_model(tmp, device=dev)
+        mine_pred = FX.regression_predictions(P.BatchScoreFunction(loaded)(FX.records(req)),
+                                              loaded.result_features[0].name)
+    prof_wall, busy_s, idle, by_kernel = profiled(torch, lambda: boston.train_boston(device=dev))
+    log("boston_reference", rows=506, wall_s=wall, best=summ.best_model_name,
+        best_grid=summ.best_grid, fold_rmse_max_rel_gap_by_family=gaps,
+        tolerances=FX.BOSTON_RMSE_RTOL, sweep_calls=len(rec.calls),
+        metric_max_rel_gap_by_family=metric_gaps, draws_equal=True,
+        holdout=summ.holdout_evaluation, holdout_rel_gap=holdout,
+        fixture_model_prediction_max_rel_err=pred_err,
+        port_model_prediction_rmse_to_fixture=float(np.sqrt(np.mean((mine_pred - expected) ** 2))),
+        timings_s=wf.train_timings, profiled_train_s=prof_wall, device_busy_s=busy_s,
+        device_idle_share=idle, device_s_by_kernel=by_kernel)
+
+
+def boston_train_phase(torch, boston, rows, seed, kernels, dev="cuda"):
+    """The main path of the regression train at ``rows`` rows: launch counts
+    reset just before and read just after; then a profiled second run.
+    Returns (each kernel's launches, the sweep call)."""
+    cols = boston.boston_data(rows, seed)
+    for fn in kernels:
+        fn.launches = 0
+    with SweepCalls() as rec:
+        t = time.perf_counter()
+        model, wf = boston.train_boston(cols, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    launches = {fn.__name__: fn.launches for fn in kernels}
+    summ = model.stages[-1].summary
+    folds = [m for r in summ.validation_results for m in r["foldMetrics"]]
+    check(len(summ.validation_results) == 44, "the stock regression space has 44 candidates")
+    check(all(np.isfinite(folds)) and min(folds) > 0, f"bad fold RMSE {folds}")
+    check(summ.holdout_evaluation["R2"] > 0.5, "bad holdout R2")
+    timings = dict(wf.train_timings)
+    prof_wall, busy_s, idle, by_kernel = profiled(
+        torch, lambda: boston.train_boston(cols, device=dev))
+    plan = rec.calls[0][0]
+    log("boston_train", rows=rows, wall_s=wall, launches=launches, host_clock_s=timings,
+        best=summ.best_model_name, best_grid=summ.best_grid,
+        best_fold_rmse=next(r["foldMetrics"] for r in summ.validation_results
+                            if (r["modelName"], r["grid"]) == (summ.best_model_name,
+                                                               summ.best_grid)),
+        holdout=summ.holdout_evaluation, sweep_spec=repr(plan.spec),
+        sweep_rows=int(plan.X.shape[0]), sweep_features=int(plan.X.shape[1]),
+        profiled_train_s=prof_wall, device_busy_s=busy_s, device_idle_share=idle,
+        device_s_by_kernel=by_kernel)
+    return launches, rec.calls[0]
+
+
+def boston_kernel_phase(torch, call, timer):
+    """K-N, K-O and K-H squared against their plain versions on the sweep
+    call of the ``--train-rows`` Boston train, and K-E at a scale below
+    2^32."""
+    from transmogrifai_tpu_torch.ops import linear as L
+    from transmogrifai_tpu_torch.ops import metrics as M
+    from transmogrifai_tpu_torch.ops import sweep as SW
+    from transmogrifai_tpu_torch.ops import trees as Tr
+
+    plan, train_w, val_mask, out = call
+    X, y, xbs, blob = plan.X, plan.y, plan.xbs, np.asarray(plan.blob, np.float32)
+    dev = X.device
+    tw = torch.as_tensor(np.asarray(train_w, np.float32), device=dev).contiguous()
+    vm = torch.as_tensor(np.asarray(val_mask, np.float32), device=dev).contiguous()
+    n, d = X.shape
+    F = tw.shape[0]
+    frags = {f[0]: f for f in plan.spec[1]}
+    records = []
+
+    # K-N linear_fista_grad: the gradients at the sweep's fitted coefficients
+    args, wc, C = fista_inputs(torch, plan, tw, L.fit_linear_grid_folds_fista)
+    X1, z, l2v, wsum = args[0], args[4], args[5], args[6]
+    p = d + 1
+    got, want = L.linear_fista_grad(*args), L.linear_fista_grad_plain(*args)
+    check(torch.equal(got, L.linear_fista_grad(*args)),
+          "linear_fista_grad does not repeat bit for bit")
+    scale_n = float(want.abs().max())
+    err_n = float((got - want).abs().max())
+    check(err_n <= FISTA_GRAD_RTOL * scale_n,
+          f"linear_fista_grad {err_n} from plain, above {FISTA_GRAD_RTOL} x {scale_n}")
+    # X1, each fold's weights and y read once, z / l2v / wsum read and the
+    # gradients written; per (fit, row) the margin and the accumulation
+    # (4 p operations) and the residual (3)
+    b, by = bound_ms((n * p + F * n + n) * 4 + C * (3 * p + 1) * 4, C * n * (4 * p + 3))
+    records.append(dict(
+        name="linear_fista_grad", route="cuda", source="transmogrifai_tpu_torch/csrc/fista.cu",
+        replaces="transmogrifai_tpu/ops/linear.py:211", max_abs_err=err_n,
+        ms=timer(lambda: L.linear_fista_grad(*args)),
+        plain_ms=timer(lambda: L.linear_fista_grad_plain(*args)),
+        bound_ms=b, bound_by=by,
+        library_ms=timer(lambda: torch.matmul(wc * (torch.matmul(X1, z.T).T - y), X1)
+                         / wsum[:, None] + l2v * z)))
+
+    # K-O regression_metrics: the sweep's 44 candidates' predictions
+    scores = SW._all_scores(plan.spec, X, xbs, y, tw, blob)
+    Cs = scores.shape[1]
+    R = F * Cs
+    preds = scores.reshape(R, n).contiguous()
+    got, want = M.regression_metrics(preds, y, vm, Cs), M.regression_metrics_plain(preds, y, vm, Cs)
+    check(torch.equal(got, M.regression_metrics(preds, y, vm, Cs)),
+          "regression_metrics does not repeat bit for bit")
+    # the sweep ran the same fits: its metrics are these (the fits' cuBLAS
+    # products aside, bit for bit)
+    check(np.allclose(got.reshape(F, Cs, 4).cpu().numpy(), out, rtol=1e-6, atol=0),
+          "regression_metrics differs from the sweep's own metrics")
+    err_o = float(((got - want).abs() / want.abs().clamp_min(1e-30)).max())
+    check(err_o <= REG_METRIC_RTOL, f"regression_metrics {err_o} from plain, above "
+          f"{REG_METRIC_RTOL} (relative)")
+    # the predictions read once, y and the masks read once, four floats a
+    # row written; about 10 operations an element
+    b, by = bound_ms(R * n * 4 + n * 4 + F * n * 4 + R * 16, R * n * 10)
+    records.append(dict(
+        name="regression_metrics", route="cuda",
+        source="transmogrifai_tpu_torch/csrc/regression_metrics.cu",
+        replaces="transmogrifai_tpu/ops/metrics.py:136", max_abs_err=float((got - want).abs().max()),
+        ms=timer(lambda: M.regression_metrics(preds, y, vm, Cs)),
+        plain_ms=timer(lambda: M.regression_metrics_plain(preds, y, vm, Cs)),
+        bound_ms=b, bound_by=by, library_ms=None))
+    del scores, preds
+
+    # K-H squared: the deepest GBT group's second round (T = F x 6 trees)
+    group = max(frags["gbt"][3], key=lambda g: g[2])
+    (gcis, _, depth, xb_idx, n_bins, _, _, _, frontier, exact_cap, _, _, off_eta, off_lam,
+     off_gam, off_mcw, off_mig) = group
+    Xb, Gc = xbs[xb_idx], len(gcis)
+    T = F * Gc
+    w_b = tw.repeat_interleave(Gc, dim=0).contiguous()
+    hp = [torch.as_tensor(np.tile(blob[o:o + Gc], F), device=dev)
+          for o in (off_eta, off_lam, off_gam, off_mcw, off_mig)]
+    eta, params = hp[0], torch.stack([hp[1].clamp_min(1e-6)] + hp[2:], dim=1)
+    base = ((y[None] * tw).sum(1) / torch.clamp_min(tw.sum(1), 1e-12)).repeat_interleave(Gc)
+    Fm = base[:, None].expand(T, n).contiguous()
+    ghw = torch.empty((T, n, 2), device=dev)
+    Tr.boost_step(Fm, y, w_b, eta, ghw=ghw, loss="squared")
+    _, leaf, row_node = Tr.grow_trees(Xb, ghw, torch.ones((T, d), device=dev), params, depth,
+                                      n_bins, frontier, exact_cap)
+    F1, F2 = Fm.clone(), Fm.clone()
+    g1, g2 = torch.empty_like(ghw), torch.empty_like(ghw)
+    Tr.boost_step(F1, y, w_b, eta, leaf, row_node, g1, "squared")
+    Tr.boost_step_plain(F2, y, w_b, eta, leaf, row_node, g2, "squared")
+    check(torch.equal(F1, F2) and torch.equal(g1, g2), "boost_step (squared) differs from plain")
+    # per (tree, row): F read and written, w and the row's node read, g and
+    # h written; y, eta and the leaf table once; about 4 operations
+    b, by = bound_ms(T * n * (4 + 4 + 4 + 4 + 8) + n * 4 + T * 4 + leaf.numel() * 4,
+                     T * n * 4)
+    records.append(dict(
+        name="boost_step_squared", route="triton",
+        source="transmogrifai_tpu_torch/ops/triton_boost.py",
+        replaces="transmogrifai_tpu/ops/trees.py:1118", max_abs_err=0.0,
+        ms=timer(lambda: Tr.boost_step(F1, y, w_b, eta, leaf, row_node, g1, "squared")),
+        plain_ms=timer(lambda: Tr.boost_step_plain(F2, y, w_b, eta, leaf, row_node, g2,
+                                                   "squared")),
+        bound_ms=b, bound_by=by, library_ms=None))
+
+    # K-E below 2^32: the same group's root level with the gradients in
+    # dollars (more, at fewer rows), whose sums leave 2^32's fixed-point range
+    factor = max(DOLLARS, 2.0 ** 34 / (n * float(g1.abs().amax())))
+    big = (g1 * factor).contiguous()
+    bits = Tr.hist_scale_bits(n, float(big.abs().amax()))
+    check(bits < Tr.HIST_SCALE_BITS, f"the rescaled K-E case kept {bits} bits")
+    ids = torch.zeros((T, n), dtype=torch.int32, device=dev)
+    got = Tr.level_hist(Xb, big, ids, 1, n_bins)
+    check(torch.equal(got, Tr.level_hist_plain(Xb, big, ids, 1, n_bins, scale_bits=bits)),
+          "level_hist differs from plain below the 2^32 scale")
+    exact = torch.zeros((T, d, n_bins, 2), dtype=torch.float64, device=dev)
+    for t in range(T):
+        for j in range(d):
+            exact[t, j].index_add_(0, Xb[:, j].long(), big[t].double())
+    want64 = exact.permute(0, 3, 1, 2)[:, None]
+    rel_e = float(((got.double() - want64).abs() / want64.abs().clamp_min(1.0)).max())
+    check(rel_e <= 2.0 ** -23, f"rescaled level_hist {rel_e} from the float64 sums")
+    log("boston_kernels", rows=n, shapes={"X1": [n, p], "fits": C, "score_rows": R,
+                                          "gbt_trees": T, "depth": depth},
+        linear_fista_grad_scale=scale_n, level_hist_rescaled={
+            "factor": factor, "scale_bits": bits, "max_rel_err_to_float64": rel_e,
+            "ms": timer(lambda: Tr.level_hist_launch(Xb, big, ids, 1, n_bins, scale_bits=bits))},
+        records=records)
+    return records
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -868,12 +1137,15 @@ def main(argv=None):
     from transmogrifai_tpu_torch.ops import trees as Tr
     from transmogrifai_tpu_torch.ops import vectorize as V
 
-    from transmogrifai_tpu_torch.apps import titanic
+    from transmogrifai_tpu_torch.apps import boston, titanic
 
     kernels = (Tr.bin_rows, Tr.ensemble_walk, V.fill_indicator, V.one_hot_codes)
     train_kernels = (Tr.bin_rows, Tr.level_hist, Tr.split_scan, Tr.route_rows,
                      Tr.boost_step, K.corr_gram, K.contingency_counts, L.fista_grad,
                      M.binary_metrics, Tr.forest_leaf_mean)
+    boston_kernels = (Tr.bin_rows, Tr.ensemble_walk, Tr.level_hist, Tr.split_scan,
+                      Tr.route_rows, Tr.boost_step, Tr.forest_leaf_mean, L.linear_fista_grad,
+                      M.regression_metrics)
     smi = nvidia_smi()
     kind = torch.cuda.get_device_name(0)
 
@@ -884,7 +1156,9 @@ def main(argv=None):
     one = torch.ones((2, 8), device=dev)
     V.fill_indicator(one, one > 0, torch.ones(2, device=dev), True)
     V.one_hot_codes(torch.zeros((1, 8), dtype=torch.int32, device=dev), [3])
-    Tr.boost_step(one, one[0], one, one[:, 0], ghw=torch.empty((2, 8, 2), device=dev))
+    for loss in Tr.BOOST_LOSSES:
+        Tr.boost_step(one, one[0], one, one[:, 0], ghw=torch.empty((2, 8, 2), device=dev),
+                      loss=loss)
     Tr.forest_leaf_mean(one[None], torch.zeros((1, 2, 8), dtype=torch.int32, device=dev))
     torch.cuda.synchronize()
     log("device", nvidia_smi=smi, name=kind, torch=torch.__version__,
@@ -922,12 +1196,23 @@ def main(argv=None):
     train_records = train_kernel_phase(torch, trained, timer)
     train_records += stats_kernel_phase(torch, trained, timer)
     train_records += sweep_kernel_phase(torch, call, timer)
+    del trained, call
+
+    # 12-14. the regression train: the fixture's, the main path at scale, kernels
+    boston_reference_phase(torch, boston, FX)
+    boston_launches, boston_call = boston_train_phase(torch, boston, args.train_rows, args.seed,
+                                                      boston_kernels)
+    missing = [k for k, v in boston_launches.items() if v <= 0]
+    check(not missing, f"kernels not launched on the regression train path: {missing}")
+    boston_records = boston_kernel_phase(torch, boston_call, timer)
 
     for r in records:
         r["launches"] = launches[r["name"]]
     for r in train_records:
         r["launches"] = train_launches[r["name"]]
-    records += train_records
+    for r in boston_records:
+        r["launches"] = boston_launches[r["name"].replace("_squared", "")]
+    records += train_records + boston_records
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in records]}), flush=True)

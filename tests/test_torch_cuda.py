@@ -175,6 +175,22 @@ def test_boost_step_matches_plain(dev):
     torch.testing.assert_close(g1, g2, rtol=1e-6, atol=2e-7)
 
 
+def test_boost_step_squared_matches_plain(dev):
+    rng = np.random.default_rng(15)
+    T, n, P = 18, 20011, 63
+    F = torch.from_numpy(20.0 + rng.normal(size=(T, n)).astype(np.float32) * 3).to(dev)
+    y = torch.from_numpy((20.0 + 9.0 * rng.normal(size=n)).astype(np.float32)).to(dev)
+    w = torch.from_numpy(rng.integers(0, 3, size=(T, n)).astype(np.float32)).to(dev)
+    eta = torch.full((T,), 0.1, device=dev)
+    leaf = torch.from_numpy(rng.normal(size=(T, P)).astype(np.float32)).to(dev)
+    node = torch.from_numpy(rng.integers(0, P, size=(T, n)).astype(np.int32)).to(dev)
+    F1, F2 = F.clone(), F.clone()
+    g1, g2 = torch.empty((T, n, 2), device=dev), torch.empty((T, n, 2), device=dev)
+    _counted(Tr.boost_step, lambda: Tr.boost_step(F1, y, w, eta, leaf, node, g1, "squared"))
+    Tr.boost_step_plain(F2, y, w, eta, leaf, node, g2, "squared")
+    assert torch.equal(F1, F2) and torch.equal(g1, g2)  # correctly rounded, no exp
+
+
 def test_grow_trees_matches_plain_on_exact_sums(dev):
     rng = np.random.default_rng(6)
     n, d, B, T, depth = 5000, 10, 32, 2, 6
@@ -193,14 +209,18 @@ def test_grow_trees_matches_plain_on_exact_sums(dev):
 
 
 def test_level_hist_raises_beyond_its_fixed_point_range(dev):
+    """At the 2^32 scale's edge and past it (a smaller scale) the kernel
+    equals its plain version; a non-finite value raises."""
     Xb = torch.zeros((2, 1), dtype=torch.int8, device=dev)
     ids = torch.zeros((1, 2), dtype=torch.int32, device=dev)
-    edge = torch.full((1, 2, 2), 2.0 ** 30 - 64, device=dev)
-    got = Tr.level_hist(Xb, edge, ids, 1, 2)
-    assert torch.equal(got, Tr.level_hist_plain(Xb, edge, ids, 1, 2))
-    assert got[0, 0, 0, 0, 0].item() == 2.0 ** 31 - 128
+    for big, bits in ((2.0 ** 30 - 64, 32), (2.0 ** 30, 31), (1e9 * 3, 29)):
+        edge = torch.full((1, 2, 2), big, device=dev)
+        assert Tr.hist_scale_bits(2, big) == bits
+        got = Tr.level_hist(Xb, edge, ids, 1, 2)
+        assert torch.equal(got, Tr.level_hist_plain(Xb, edge, ids, 1, 2, scale_bits=bits))
+        assert got[0, 0, 0, 0, 0].item() == float(np.float32(2 * np.float32(big)))
     with pytest.raises(ValueError, match="fixed-point range"):
-        Tr.level_hist(Xb, torch.full((1, 2, 2), 2.0 ** 30, device=dev), ids, 1, 2)
+        Tr.level_hist(Xb, torch.full((1, 2, 2), float("inf"), device=dev), ids, 1, 2)
 
 
 @pytest.mark.parametrize("n,d", [(1, 3), (257, 16), (100000, 41)])
@@ -225,7 +245,8 @@ def test_contingency_counts_matches_plain(dev, c):
 
 
 # ---------------------------------------------------------------------------
-# the sweep's kernels: K-K fista_grad, K-L binary_metrics, K-M forest_leaf_mean
+# the sweep's kernels: K-K fista_grad, K-N linear_fista_grad, K-O
+# regression_metrics, K-L binary_metrics, K-M forest_leaf_mean
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("n,p,C,F", [(1, 3, 1, 1), (5000, 11, 8, 1), (70000, 11, 9, 3),
                                      (3000, 40, 5, 2)])
@@ -246,6 +267,49 @@ def test_fista_grad_matches_plain(dev, n, p, C, F):
     assert torch.equal(got, L.fista_grad(*ts))  # no atomics: repeats bit for bit
     scale = float(want.abs().max()) + 1e-30
     assert float((got - want).abs().max()) <= 1e-5 * scale
+
+
+@pytest.mark.parametrize("n,p,C,F", [(1, 3, 1, 1), (5000, 17, 24, 3), (70000, 24, 9, 3),
+                                     (3000, 11, 8, 1), (3000, 40, 5, 2)])
+def test_linear_fista_grad_matches_plain(dev, n, p, C, F):
+    from transmogrifai_tpu_torch.ops import linear as L
+
+    rng = np.random.default_rng(n + p + 1)
+    X1 = rng.normal(size=(n, p)).astype(np.float32)
+    X1[:, 1] *= 300.0  # unstandardized, as Boston's tax
+    X1[:, -1] = 1.0
+    args = [X1, (20.0 + 9.0 * rng.normal(size=n)).astype(np.float32),
+            rng.integers(0, 3, (F, n)).astype(np.float32),
+            rng.integers(0, F, C).astype(np.int32), 0.1 * rng.normal(size=(C, p)).astype(np.float32),
+            np.full((C, p), 0.01, np.float32)]
+    args.append(np.maximum(args[2].sum(1), 1.0)[args[3]].astype(np.float32))
+    ts = [torch.from_numpy(a).to(dev) for a in args]
+    got = _counted(L.linear_fista_grad, lambda: L.linear_fista_grad(*ts))
+    want = L.linear_fista_grad_plain(*ts)
+    assert torch.equal(got, L.linear_fista_grad(*ts))  # no atomics: repeats bit for bit
+    scale = float(want.abs().max()) + 1e-30
+    assert float((got - want).abs().max()) <= 1e-5 * scale
+
+
+@pytest.mark.parametrize("n,F,C", [(1, 1, 1), (455, 3, 44), (262144, 3, 44), (5000, 1, 3)])
+def test_regression_metrics_matches_plain(dev, n, F, C):
+    from transmogrifai_tpu_torch.ops import metrics as M
+
+    rng = np.random.default_rng(n + C)
+    y = (22.0 + 9.0 * rng.normal(size=n)).astype(np.float32)
+    preds = (y + rng.normal(size=(F * C, n)) * 3.0).astype(np.float32)
+    vm = (rng.random((F, n)) < 0.34).astype(np.float32)
+    if F > 1:
+        y[vm[1] > 0] = 21.5  # a constant-label fold: R2 is 0
+    preds[-1] = preds[0]  # equal rows tie exactly
+    ts = [torch.from_numpy(a).to(dev) for a in (preds, y, vm)]
+    got = _counted(M.regression_metrics, lambda: M.regression_metrics(*ts, C))
+    want = M.regression_metrics_plain(*ts, C)
+    assert torch.equal(got, M.regression_metrics(*ts, C))  # a fixed order: repeats
+    if F == 1 and C > 1:
+        assert torch.equal(got[-1], got[0])
+    # float64 sums in another order, each rounded to float32 once
+    torch.testing.assert_close(got, want, rtol=2e-7, atol=1e-30)
 
 
 @pytest.mark.parametrize("n,F,C,ties", [(1, 1, 1, False), (257, 3, 5, True),

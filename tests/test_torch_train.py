@@ -92,23 +92,25 @@ def test_level_hist_light_only_assembles_parent_minus_light():
             np.testing.assert_array_equal(got[t, 2 * j + 1], right)
 
 
-@pytest.mark.parametrize("big,ok", [(2.0 ** 30 - 64, True), (2.0 ** 30, False),
-                                     (float("nan"), False)])
-def test_level_hist_fixed_point_range_edge(big, ok):
-    """Two rows of |w*g| = big in one cell: the sum stays exact up to the
-    fixed point's range (row count x largest value below 2^31) and raises
-    beyond it, where the int64 sums would saturate or wrap."""
+@pytest.mark.parametrize("big,bits", [(2.0 ** 30 - 64, 32), (2.0 ** 30, 31),
+                                      (float("nan"), None)])
+def test_level_hist_fixed_point_range_edge(big, bits):
+    """Two rows of |w*g| = big in one cell: the 2^32 scale holds up to its
+    range (row count x largest value below 2^31); at the edge and beyond,
+    the scale drops to fewer bits so that the int64 sums cannot saturate or
+    wrap, and the sum stays exact; a NaN raises."""
     Xb = torch.zeros((2, 1), dtype=torch.int8)
     ghw = torch.tensor([[[big, 1.0], [-big, 1.0]]], dtype=torch.float32)
     ids = torch.zeros((1, 2), dtype=torch.int32)
     assert PT.HIST_RANGE == 2.0 ** 31
-    if not ok:
+    if bits is None:
         with pytest.raises(ValueError, match="fixed-point range"):
             PT.level_hist(Xb, ghw, ids, 1, 2)
         return
-    ghw[0, 1, 0] = big  # both rows add up: 2^31 - 128, exact in float32
+    assert PT.hist_scale_bits(2, big) == bits
+    ghw[0, 1, 0] = big  # both rows add up: 2^31 - 128 or 2^31, exact in float32
     got = PT.level_hist(Xb, ghw, ids, 1, 2)
-    assert got[0, 0, 0, 0, 0].item() == 2 * big == 2.0 ** 31 - 128
+    assert got[0, 0, 0, 0, 0].item() == 2 * big
     assert got[0, 0, 1, 0, 0].item() == 2.0
 
 

@@ -1,26 +1,32 @@
-// K-K fista_grad: the gradient step of the batched elastic-net logistic fits.
+// K-K fista_grad and K-N linear_fista_grad: the gradient step of the
+// batched elastic-net logistic and linear-regression fits.
 //
 // Replaces: the body of transmogrifai_tpu/ops/linear.py::fit_logistic_fista
-// (:105) as fit_logistic_grid_folds_fista (:409) vmaps it over folds x grid:
-// for every fit c of C = F x G at once,
-//   grad_c = X1^T (w_f(c) * (sigmoid(X1 z_c) - y)) / wsum_c + l2_c * z_c,
-// with X1 = [X, 1] f32[n, p] shared by all fits, each fit reading its fold's
-// weight row w[f(c)] (the G fits of a fold share it; no [C, n] copy).
+// (:105) as fit_logistic_grid_folds_fista (:409) vmaps it (K-K), and the
+// body of ::fit_linear_fista (:211) as fit_linear_grid_folds_fista (:449)
+// vmaps it (K-N): for every fit c of C = F x G at once,
+//   grad_c = X1^T (w_f(c) * (link(X1 z_c) - y)) / wsum_c + l2_c * z_c,
+// with link the sigmoid (K-K) or the identity (K-N), X1 = [X, 1] f32[n, p]
+// shared by all fits, each fit reading its fold's weight row w[f(c)] (the
+// G fits of a fold share it; no [C, n] copy).  One skeleton serves both:
+// the link is a template parameter.
 //
 // Entry point 1 (fista_partial): a block takes a chunk of rows and a tile of
 // up to CT fits; each thread reads a row of X1 once, forms the CT margins,
-// sigmoids (1 / (1 + exp(-m)), the expansion XLA uses; libdevice's expf) and
-// weighted residuals, and accumulates residual x row in registers; the
-// block reduces them (warp shuffles, then the warps in order) into the
-// chunk's partial [C, p].  Entry point 2 (fista_finish) sums the chunks'
-// partials in chunk order, divides by the fit's weight sum and adds the L2
-// term.  No atomics, so runs repeat bit for bit.  Sums are float32 in
-// another order than XLA's, so gradients differ from the reference's in
-// the last bits.
+// applies the link (the sigmoid as 1 / (1 + exp(-m)), the expansion XLA
+// uses; libdevice's expf) and the weighted residuals, and accumulates
+// residual x row in registers; the block reduces them (warp shuffles, then
+// the warps in order) into the chunk's partial [C, p].  Entry point 2
+// (fista_finish) sums the chunks' partials in chunk order, divides by the
+// fit's weight sum and adds the L2 term.  No atomics, so runs repeat bit
+// for bit.  Sums are float32 in another order than XLA's, so gradients
+// differ from the reference's in the last bits.
 //
-// Bound on the card: bytes.  X1 is read once per tile of fits (once for
-// C <= 8 at p <= 16), each fold's weight row and y once, the partials are
-// small.
+// Bound on the card: bytes.  X1 is read once per tile of fits (tiles of 8
+// fits at p <= 16, 4 at p <= 24: the Boston fits' p = 17 takes six tiles of
+// four, whose later reads of X1 mostly hit L2), each fold's weight row and
+// y once, the partials are small.  The tile sizes keep the accumulators
+// (CT x PM floats a thread) in registers.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -29,7 +35,7 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 
-template <int PM, int CT>
+template <int PM, int CT, bool LOGISTIC>
 __global__ void __launch_bounds__(kThreads)
 fista_partial(const float* __restrict__ X1, const float* __restrict__ y,
               const float* __restrict__ w, const int32_t* __restrict__ fold,
@@ -65,7 +71,7 @@ fista_partial(const float* __restrict__ X1, const float* __restrict__ y,
         float m = 0.0f;
 #pragma unroll
         for (int j = 0; j < PM; ++j) m = __fmaf_rn(x[j], zs[c][j], m);
-        const float s = __fdiv_rn(1.0f, __fadd_rn(1.0f, expf(-m)));
+        const float s = LOGISTIC ? __fdiv_rn(1.0f, __fadd_rn(1.0f, expf(-m))) : m;
         const float e = __fmul_rn(w[(long long)fs[c] * n + r], __fsub_rn(s, yr));
 #pragma unroll
         for (int j = 0; j < PM; ++j) acc[c][j] = __fmaf_rn(e, x[j], acc[c][j]);
@@ -102,13 +108,13 @@ __global__ void fista_finish(const float* __restrict__ partial, const float* __r
   grad[i] = __fadd_rn(__fdiv_rn(s, wsum[i / p]), __fmul_rn(l2v[i], z[i]));
 }
 
-template <int PM, int CT>
+template <int PM, int CT, bool LOGISTIC>
 int launch(const void* X1, const void* y, const void* w, const void* fold, const void* z,
            const void* wsum, const void* l2v, void* partial, void* grad, int n, int p, int C,
            int chunks, int chunk_rows, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   dim3 grid((unsigned)chunks, (unsigned)((C + CT - 1) / CT));
-  fista_partial<PM, CT><<<grid, kThreads, 0, st>>>(
+  fista_partial<PM, CT, LOGISTIC><<<grid, kThreads, 0, st>>>(
       (const float*)X1, (const float*)y, (const float*)w, (const int32_t*)fold, (const float*)z,
       (float*)partial, n, p, C, chunk_rows);
   cudaError_t err = cudaGetLastError();
@@ -120,19 +126,38 @@ int launch(const void* X1, const void* y, const void* w, const void* fold, const
   return (int)cudaGetLastError();
 }
 
+// p <= 16: tiles of 8 fits; p <= 24: tiles of 4; p <= 64: tiles of 2.
+template <bool LOGISTIC>
+int dispatch(const void* X1, const void* y, const void* w, const void* fold, const void* z,
+             const void* wsum, const void* l2v, void* partial, void* grad, int n, int p, int C,
+             int chunks, int chunk_rows, void* stream) {
+  if (n <= 0 || p <= 0 || C <= 0 || chunks <= 0) return (int)cudaErrorInvalidValue;
+  if (p <= 16)
+    return launch<16, 8, LOGISTIC>(X1, y, w, fold, z, wsum, l2v, partial, grad, n, p, C,
+                                   chunks, chunk_rows, stream);
+  if (p <= 24)
+    return launch<24, 4, LOGISTIC>(X1, y, w, fold, z, wsum, l2v, partial, grad, n, p, C,
+                                   chunks, chunk_rows, stream);
+  if (p <= 64)
+    return launch<64, 2, LOGISTIC>(X1, y, w, fold, z, wsum, l2v, partial, grad, n, p, C,
+                                   chunks, chunk_rows, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
-// p <= 16: tiles of 8 fits; p <= 64: tiles of 2 fits.
 extern "C" int fista_grad(const void* X1, const void* y, const void* w, const void* fold,
                           const void* z, const void* wsum, const void* l2v, void* partial,
                           void* grad, int n, int p, int C, int chunks, int chunk_rows,
                           void* stream) {
-  if (n <= 0 || p <= 0 || C <= 0 || chunks <= 0) return (int)cudaErrorInvalidValue;
-  if (p <= 16)
-    return launch<16, 8>(X1, y, w, fold, z, wsum, l2v, partial, grad, n, p, C, chunks,
+  return dispatch<true>(X1, y, w, fold, z, wsum, l2v, partial, grad, n, p, C, chunks,
+                        chunk_rows, stream);
+}
+
+extern "C" int linear_fista_grad(const void* X1, const void* y, const void* w,
+                                 const void* fold, const void* z, const void* wsum,
+                                 const void* l2v, void* partial, void* grad, int n, int p,
+                                 int C, int chunks, int chunk_rows, void* stream) {
+  return dispatch<false>(X1, y, w, fold, z, wsum, l2v, partial, grad, n, p, C, chunks,
                          chunk_rows, stream);
-  if (p <= 64)
-    return launch<64, 2>(X1, y, w, fold, z, wsum, l2v, partial, grad, n, p, C, chunks,
-                         chunk_rows, stream);
-  return (int)cudaErrorInvalidValue;
 }

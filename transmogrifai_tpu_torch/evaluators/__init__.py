@@ -1,13 +1,16 @@
 """Evaluators (reference core/src/main/scala/com/salesforce/op/evaluators/).
 
 The port's copy of ``transmogrifai_tpu/evaluators``: the binary
-classification evaluator and the ``Evaluators`` factory's AuPR metric
-(``Evaluators.BinaryClassification.auPR()``, Evaluators.scala:40), the
-binary selector's default.  The factory's other metrics, custom metrics and
-the multiclass and regression evaluators are not ported.
+classification and regression evaluators and the ``Evaluators`` factory's
+AuPR metric (``Evaluators.BinaryClassification.auPR()``,
+Evaluators.scala:40), the binary selector's default, and its RMSE metric
+(``Evaluators.Regression.rmse()``), the regression selector's default.  The
+factory's other metrics, custom metrics and the multiclass and forecast
+evaluators are not ported.
 """
-from .base import OpBinaryClassificationEvaluatorBase, OpEvaluatorBase
+from .base import OpBinaryClassificationEvaluatorBase, OpEvaluatorBase, OpRegressionEvaluatorBase
 from .classification import OpBinaryClassificationEvaluator, binary_counts, pr_auc, roc_auc
+from .regression import OpRegressionEvaluator
 
 
 class _SingleMetric(OpEvaluatorBase):
@@ -32,3 +35,8 @@ class Evaluators:
         @staticmethod
         def auPR() -> OpEvaluatorBase:
             return _SingleMetric(OpBinaryClassificationEvaluator(), "AuPR", True)
+
+    class Regression:
+        @staticmethod
+        def rmse() -> OpEvaluatorBase:
+            return _SingleMetric(OpRegressionEvaluator(), "RootMeanSquaredError", False)

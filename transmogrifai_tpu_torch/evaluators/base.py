@@ -57,3 +57,7 @@ class OpEvaluatorBase:
 
 class OpBinaryClassificationEvaluatorBase(OpEvaluatorBase):
     pass
+
+
+class OpRegressionEvaluatorBase(OpEvaluatorBase):
+    pass

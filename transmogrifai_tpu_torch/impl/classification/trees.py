@@ -25,7 +25,7 @@ from ..feature._util import stage_device
 from ..selector.predictor import PredictorEstimator, as_matrix
 from ..trees_common import (DEFAULT_MAX_FRONTIER, DEFAULT_MAX_FRONTIER_BOOSTED,
                             TreeParamsMixin, boosted_grid_folds, effective_trees_per_round,
-                            forest_grid_folds, gbt_boost_params, tree_from_params,
+                            forest_grid_folds, gbt_boost_params, tree_device_params,
                             tree_params, xgb_boost_params)
 
 
@@ -63,9 +63,7 @@ class _TreeClassifierBase(TreeParamsMixin, PredictorEstimator):
 
     @classmethod
     def device_params(cls, params: Dict[str, Any], device: torch.device) -> Dict[str, Any]:
-        return {**params, "tree": tree_from_params(params, device),
-                "edges": torch.tensor(np.ascontiguousarray(params["edges"], np.float32),
-                                      device=device)}
+        return tree_device_params(params, device)
 
 
 class OpRandomForestClassifier(_TreeClassifierBase):

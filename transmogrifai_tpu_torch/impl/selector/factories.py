@@ -1,13 +1,15 @@
 """ModelSelector factories.
 
 The port's counterpart of ``transmogrifai_tpu/impl/selector/factories.py``
-(reference: BinaryClassificationModelSelector.scala:49, shared
-ModelSelectorFactory.scala:43): ``with_cross_validation`` / ``apply`` build
-a ``ModelSelector`` with the problem's default splitter and metric (the
-train-validation split is not ported).  The binary selector's stock space
-is the JAX package's: logistic regression (8 candidates), random forest
-(18) and XGBoost (2); ``model_types`` keeps the named families of it.
-The multiclass and regression selectors are not ported.
+(reference: BinaryClassificationModelSelector.scala:49,
+RegressionModelSelector.scala:49, shared ModelSelectorFactory.scala:43):
+``with_cross_validation`` / ``apply`` build a ``ModelSelector`` with the
+problem's default splitter and metric (the train-validation split is not
+ported).  The stock spaces are the JAX package's: for the binary selector
+logistic regression (8 candidates), random forest (18) and XGBoost (2);
+for the regression selector linear regression (8), random forest (18) and
+GBT (18); ``model_types`` keeps the named families of them.  The
+multiclass selector is not ported.
 """
 from __future__ import annotations
 
@@ -17,7 +19,9 @@ from ...evaluators import Evaluators
 from ...evaluators.base import OpEvaluatorBase
 from ..classification.logistic import OpLogisticRegression
 from ..classification.trees import OpRandomForestClassifier, OpXGBoostClassifier
-from ..tuning.splitters import DataBalancer, Splitter
+from ..regression.linear import OpLinearRegression
+from ..regression.trees import OpGBTRegressor, OpRandomForestRegressor
+from ..tuning.splitters import DataBalancer, DataSplitter, Splitter
 from ..tuning.validators import DEFAULT_NUM_FOLDS, OpCrossValidation
 from . import defaults as D
 from .model_selector import ModelSelector
@@ -105,3 +109,26 @@ class BinaryClassificationModelSelector(_SelectorFactory):
     @classmethod
     def _default_evaluator(cls) -> OpEvaluatorBase:
         return Evaluators.BinaryClassification.auPR()
+
+
+class RegressionModelSelector(_SelectorFactory):
+    """Defaults: LinReg + RF + GBT grids, DataSplitter, RMSE metric
+    (RegressionModelSelector.scala:62,157)."""
+
+    problem_type = "Regression"
+
+    @classmethod
+    def _default_models(cls) -> Candidates:
+        return [
+            (OpLinearRegression(max_iter=50), D.linear_regression_grid()),
+            (OpRandomForestRegressor(), D.random_forest_grid()),
+            (OpGBTRegressor(), D.gbt_grid()),
+        ]
+
+    @classmethod
+    def _default_splitter(cls) -> Splitter:
+        return DataSplitter(reserve_test_fraction=0.1)
+
+    @classmethod
+    def _default_evaluator(cls) -> OpEvaluatorBase:
+        return Evaluators.Regression.rmse()

@@ -272,8 +272,12 @@ class ModelSelector(BinaryEstimator, AllowLabelAsInput):
         if self.best_estimator is not None:
             best_est, best_grid, vsummary = self.best_estimator
         else:
+            self.validator.sweep_timings = {}
             best_est, best_grid, vsummary = self.find_best_estimator(Xtr, ytr, prep_w)
-            self.fit_timings["sweep"] = time.perf_counter() - t0
+            # the sweep and, for a fused one, its parts
+            self.fit_timings = {"sweep": time.perf_counter() - t0,
+                                **{f"cv_sweep_{k}": t
+                                   for k, t in self.validator.sweep_timings.items()}}
         self.validation_summary = vsummary
 
         # 4. final refit on the full prepared train (ModelSelector.scala:181)

@@ -6,13 +6,16 @@ static spec fragment and its hyperparameters in the float32 ``blob``, for
 ``ops/sweep.run_sweep``; the spec tuple is the JAX package's for the same
 inputs.  Ported for the binary problem: OpLogisticRegression (its
 elastic-net candidates: the "fista" fragment), OpRandomForestClassifier
-("forest"), OpGBTClassifier and OpXGBoostClassifier ("gbt").  Any other
-family, a pure-L2 logistic grid point (the JAX package's "newton"
-fragment), another evaluator or a non-binary label returns None, as the
-JAX package returns None for what it cannot fuse, and the validator keeps
-its per-family path.  The partitioning for several devices
-(``spec_units``, ``build_subspec``, ``run_sharded``, ``run_rowsharded``) is
-not ported.
+("forest"), OpGBTClassifier and OpXGBoostClassifier ("gbt", logistic); for
+the regression problem: OpLinearRegression (every candidate: "fista"),
+OpRandomForestRegressor ("forest", mean leaves), OpGBTRegressor and
+OpXGBoostRegressor ("gbt", squared, from each fold's label mean).  Any
+other family, a pure-L2 logistic grid point (the JAX package's "newton"
+fragment), another evaluator or a binary evaluator over a non-binary label
+returns None, as the JAX package returns None for what it cannot fuse, and
+the validator keeps its per-family path.  The partitioning for several
+devices (``spec_units``, ``build_subspec``, ``run_sharded``,
+``run_rowsharded``) is not ported.
 
 Frontier sizing: the bootstrap is drawn on the device inside the sweep, so
 ``build_sweep_plan`` bounds its weight sums (mean + 5 sigma of the Poisson total on
@@ -28,7 +31,7 @@ import numpy as np
 import torch
 
 from ..ops import trees as Tr
-from ..ops.metrics import BINARY_METRICS
+from ..ops.metrics import BINARY_METRICS, REGRESSION_METRICS
 from .trees_common import (DEFAULT_MAX_FRONTIER, DEFAULT_MAX_FRONTIER_BOOSTED,
                            _DYNAMIC_BOOST_KEYS, _FOREST_GRID_KEYS, effective_trees_per_round)
 
@@ -66,7 +69,7 @@ class SweepPlan:
         self.blob = blob
         self.problem = problem
         self.xb_bins = _spec_xb_bins(spec, len(xbs))
-        self.metric_names = BINARY_METRICS
+        self.metric_names = BINARY_METRICS if problem == "binary" else REGRESSION_METRICS
 
     def run(self, train_w: np.ndarray, val_mask: np.ndarray,
             timings: Optional[Dict[str, float]] = None) -> np.ndarray:
@@ -113,13 +116,9 @@ def _spec_xb_bins(spec, n_xbs: int) -> Tuple[int, ...]:
     return tuple(bins)
 
 
-def _lr_fragments(est, grids, pos: int, blob: _Blob, y) -> Optional[List]:
-    base_mi = int(est.get_param("max_iter", 100))
-    base_fi = bool(est.get_param("fit_intercept", True))
-    family = est.get_param("family", "auto")
-    num_classes = int(np.max(np.asarray(y))) + 1 if len(y) else 2
-    if family == "multinomial" or (family == "auto" and num_classes > 2):
-        return None
+def _penalties(est, grids) -> Optional[Tuple[np.ndarray, np.ndarray]]:
+    """The candidates' elastic-net (l1, l2) = (reg * alpha, reg * (1 -
+    alpha)), float32, or None when a grid sets another key."""
     for g in grids:
         for k in g:
             if k not in ("reg_param", "elastic_net_param"):
@@ -128,14 +127,33 @@ def _lr_fragments(est, grids, pos: int, blob: _Blob, y) -> Optional[List]:
                     for g in grids], np.float32)
     alpha = np.array([float(g.get("elastic_net_param", est.get_param("elastic_net_param", 0.0)))
                       for g in grids], np.float32)
-    l1 = reg * alpha
-    l2 = reg * (1.0 - alpha)
-    if np.any(l1 == 0.0):
-        return None  # pure-L2 points need the Newton fragment (K9), not ported
-    fista = tuple(int(pos + i) for i in range(len(grids)))
+    return reg * alpha, reg * (1.0 - alpha)
+
+
+def _fista_fragment(est, pos: int, blob: _Blob, l1, l2, min_iter: int) -> List:
+    cis = tuple(int(pos + i) for i in range(len(l1)))
     off_l1 = blob.add(l1)
     off_l2 = blob.add(l2)
-    return [("fista", fista, max(base_mi, 200), base_fi, off_l1, off_l2)]
+    return [("fista", cis, max(int(est.get_param("max_iter", 100)), min_iter),
+             bool(est.get_param("fit_intercept", True)), off_l1, off_l2)]
+
+
+def _lr_fragments(est, grids, pos: int, blob: _Blob, y) -> Optional[List]:
+    family = est.get_param("family", "auto")
+    num_classes = int(np.max(np.asarray(y))) + 1 if len(y) else 2
+    if family == "multinomial" or (family == "auto" and num_classes > 2):
+        return None
+    pen = _penalties(est, grids)
+    if pen is None or np.any(pen[0] == 0.0):
+        return None  # pure-L2 points need the Newton fragment (K9), not ported
+    return _fista_fragment(est, pos, blob, *pen, min_iter=200)
+
+
+def _linreg_fragments(est, grids, pos: int, blob: _Blob) -> Optional[List]:
+    """Every linear-regression candidate is one FISTA fit (l1 = 0 included:
+    the fused sweep takes no ridge fragment)."""
+    pen = _penalties(est, grids)
+    return None if pen is None else _fista_fragment(est, pos, blob, *pen, min_iter=300)
 
 
 def _forest_fragment(est, grids, pos: int, blob: _Blob, xbs, X, train_w,
@@ -160,7 +178,7 @@ def _forest_fragment(est, grids, pos: int, blob: _Blob, xbs, X, train_w,
     fold_sum = float(tw.sum(axis=1).max())
     max_w = float(tw.max()) if tw.size else 1.0
     out_groups = []
-    c = 1  # binary forests grow one class-1 channel
+    c = 1  # binary forests grow one class-1 channel, regression forests the label
     for (depth, ntrees, n_bins, frac, rate, bag, seed), idxs in groups.items():
         mcw = [float(cands[i].get_param("min_instances_per_node", 1)) for i in idxs]
         mig = [float(cands[i].get_param("min_info_gain", 0.0)) for i in idxs]
@@ -202,7 +220,8 @@ def _gbt_fragment(est, grids, pos: int, blob: _Blob, xbs, X, train_w, xb_cache,
                int(cands[i].get_param("seed", 42)), k_eff)
         groups.setdefault(key, []).append(i)
     fold_sum = float(np.asarray(train_w, np.float32).sum(axis=1).max())
-    h_max = 0.25
+    h_max = 0.25 if loss == "logistic" else 1.0
+    fold_base = loss == "squared"  # regression boosting starts from the fold's label mean
     out_groups = []
     for (rounds, depth, n_bins, subsample, colsample, seed, k_eff), idxs in groups.items():
         mcw_min = min(bps[i]["min_child_weight"] for i in idxs)
@@ -214,7 +233,7 @@ def _gbt_fragment(est, grids, pos: int, blob: _Blob, xbs, X, train_w, xb_cache,
         out_groups.append((
             tuple(int(pos + i) for i in idxs), rounds, depth,
             _xb_index(xbs, X, n_bins, xb_cache), n_bins, subsample, colsample, seed,
-            frontier, exact, False, k_eff,
+            frontier, exact, fold_base, k_eff,
             blob.add([bps[i]["eta"] for i in idxs]),
             blob.add([bps[i]["reg_lambda"] for i in idxs]),
             blob.add([bps[i]["gamma"] for i in idxs]),
@@ -228,26 +247,38 @@ def build_sweep_plan(candidates: Sequence[Tuple[Any, Sequence[Dict[str, Any]]]],
                      evaluator, xb_cache: Optional[Dict[int, torch.Tensor]] = None
                      ) -> Optional[SweepPlan]:
     """Translate the candidate list into a fused program on X's device, or
-    None: every family must be one the port fuses, the evaluator the binary
-    one (or the factory's single-metric wrapper of it) with a default metric
-    of ``BINARY_METRICS``, and the label 0/1 with both classes.  Plans of
-    one X may share ``xb_cache``, its binned matrices by bin count."""
+    None: every family must be one the port fuses for the problem, the
+    evaluator the binary one with a 0/1 label of both classes (default
+    metric in ``BINARY_METRICS``) or the regression one (default metric in
+    ``REGRESSION_METRICS``), bare or in the factory's single-metric
+    wrapper.  Plans of one X may share ``xb_cache``, its binned matrices by
+    bin count."""
     from ..evaluators import _SingleMetric
     from ..evaluators.classification import OpBinaryClassificationEvaluator
+    from ..evaluators.regression import OpRegressionEvaluator
     from .classification.logistic import OpLogisticRegression
     from .classification.trees import (OpGBTClassifier, OpRandomForestClassifier,
                                        OpXGBoostClassifier)
+    from .regression.linear import OpLinearRegression
+    from .regression.trees import OpGBTRegressor, OpRandomForestRegressor, OpXGBoostRegressor
 
     # exact types only: a subclass may override the fit or the prediction
-    fusable = (OpLogisticRegression, OpRandomForestClassifier, OpGBTClassifier,
-               OpXGBoostClassifier)
-    if any(type(est) not in fusable for est, _ in candidates):
-        return None
+    families = {
+        "binary": (OpLogisticRegression, OpRandomForestClassifier, OpGBTClassifier,
+                   OpXGBoostClassifier),
+        "regression": (OpLinearRegression, OpRandomForestRegressor, OpGBTRegressor,
+                       OpXGBoostRegressor)}
     yv = np.asarray(y)
     binary = bool(np.isin(yv, (0.0, 1.0)).all()) and len(np.unique(yv)) == 2
     inner = evaluator.inner if type(evaluator) is _SingleMetric else evaluator
-    if not (type(inner) is OpBinaryClassificationEvaluator and binary
-            and evaluator.default_metric in BINARY_METRICS):
+    if type(inner) is OpBinaryClassificationEvaluator and binary:
+        problem, metrics = "binary", BINARY_METRICS
+    elif type(inner) is OpRegressionEvaluator:
+        problem, metrics = "regression", REGRESSION_METRICS
+    else:
+        return None
+    if evaluator.default_metric not in metrics \
+            or any(type(est) not in families[problem] for est, _ in candidates):
         return None
 
     X = X.to(torch.float32).contiguous()
@@ -259,21 +290,23 @@ def build_sweep_plan(candidates: Sequence[Tuple[Any, Sequence[Dict[str, Any]]]],
     pos = 0
     for est, grids in candidates:
         grids = [dict(g) for g in (list(grids) or [{}])]
+        s = 0  # p >= 0.5 (regression: unused)
         if isinstance(est, OpLogisticRegression):
             fr = _lr_fragments(est, grids, pos, blob, yv)
-            s = 0  # p >= 0.5
-        elif isinstance(est, OpRandomForestClassifier):
+        elif isinstance(est, OpLinearRegression):
+            fr = _linreg_fragments(est, grids, pos, blob)
+        elif isinstance(est, (OpRandomForestClassifier, OpRandomForestRegressor)):
             fr = _forest_fragment(est, grids, pos, blob, xbs, X, train_w, xb_cache)
-            s = 1  # argmax([1 - p, p]) ties to class 0 => p > 0.5
+            if problem == "binary":
+                s = 1  # argmax([1 - p, p]) ties to class 0 => p > 0.5
         else:
             fr = _gbt_fragment(est, grids, pos, blob, xbs, X, train_w, xb_cache,
-                               loss="logistic")
-            s = 0  # p >= 0.5
+                               loss="logistic" if problem == "binary" else "squared")
         if fr is None:
             return None
         frags.extend(fr)
         strict.extend([s] * len(grids))
         pos += len(grids)
-    spec = ("binary", tuple(frags), tuple(strict))
+    spec = (problem, tuple(frags), tuple(strict))
     yd = torch.from_numpy(np.ascontiguousarray(yv, np.float32)).to(X.device)
-    return SweepPlan(spec, X, tuple(xbs), yd, blob.pack(), "binary")
+    return SweepPlan(spec, X, tuple(xbs), yd, blob.pack(), problem)

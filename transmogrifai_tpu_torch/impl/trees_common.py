@@ -6,8 +6,9 @@ numpy parameters and the port's ``Tree`` of tensors, with every pool index
 checked, since the walk kernel follows them without bounds checks), the
 boosting parameter dicts, ``effective_trees_per_round`` and
 ``boosted_grid_folds`` and ``forest_grid_folds``, the per-family fold x
-grid sweeps of the boosted models and the forests, and
-``TreeParamsMixin``, Spark's featureSubsetStrategy.
+grid sweeps of the boosted models and the forests (classifiers and
+regressors), ``tree_device_params`` and ``TreeParamsMixin``, Spark's
+featureSubsetStrategy.
 """
 from __future__ import annotations
 
@@ -108,8 +109,9 @@ def boosted_grid_folds(est, X, y, train_w, grids, loss: str, n_classes: int,
     """fold x grid sweep of a boosted model: grids grouped by their static
     shape params (rounds, depth, bins, subsample, colsample), each group's
     folds x candidates grown as one tree batch (``ops/trees.fit_gbt_batch``)
-    on ``X``'s device; margins on every row become predictions by
-    ``convert``.  Returns ``preds[fold][grid]``."""
+    on ``X``'s device, from the margin 0 or, for the squared loss, from
+    each fold's weighted label mean; margins on every
+    row become predictions by ``convert``.  Returns ``preds[fold][grid]``."""
     grids = [dict(g) for g in (grids or [{}])]
     candidates = [est.copy_with_params(g) for g in grids]
     bps = [c._boost_params() for c in candidates]
@@ -129,6 +131,7 @@ def boosted_grid_folds(est, X, y, train_w, grids, loss: str, n_classes: int,
         groups.setdefault(static, []).append(ci)
 
     h_max = 0.25 if loss in ("logistic", "softmax") else 1.0
+    fold_base = loss == "squared"  # regression starts from the fold's label mean
     for (n_rounds, max_depth, n_bins, subsample, colsample, k_eff), cis in groups.items():
         Xb, _ = Tr.quantize(X, n_bins)
         ks, kfm = Tr.rng_keys(int(est.get_param("seed", 42)))
@@ -138,7 +141,7 @@ def boosted_grid_folds(est, X, y, train_w, grids, loss: str, n_classes: int,
         pairs = [(f, ci) for f in range(n_folds) for ci in cis]
         B = len(pairs)
         w_batch = np.empty((B, n), np.float32)
-        hp = {k: np.zeros(B, np.float32) for k in ("eta", "lam", "gam", "mcw", "mig")}
+        hp = {k: np.zeros(B, np.float32) for k in ("eta", "lam", "gam", "mcw", "mig", "base")}
         yf = np.asarray(y, np.float32)
         for bi, (f, ci) in enumerate(pairs):
             bp = bps[ci]
@@ -148,6 +151,9 @@ def boosted_grid_folds(est, X, y, train_w, grids, loss: str, n_classes: int,
             hp["gam"][bi] = bp["gamma"]
             hp["mcw"][bi] = bp["min_child_weight"]
             hp["mig"][bi] = bp.get("min_info_gain", 0.0)
+            if fold_base:
+                wsum = max(float(train_w[f].sum()), 1e-12)
+                hp["base"][bi] = float((yf * train_w[f]).sum() / wsum)
         # frontier bound from the actual weight sums (balanced folds can sum
         # past 1.25 n); the subsample masks are <= 1
         w_sum_max = float(w_batch.sum(axis=1).max())
@@ -161,7 +167,7 @@ def boosted_grid_folds(est, X, y, train_w, grids, loss: str, n_classes: int,
             Xb, torch.from_numpy(yf).to(dev), torch.from_numpy(w_batch).to(dev), rw, fms,
             loss=loss, n_rounds=n_rounds, max_depth=max_depth, n_bins=n_bins,
             frontier=frontier, eta_b=hp["eta"], reg_lambda_b=hp["lam"],
-            gamma_b=hp["gam"], min_child_weight_b=hp["mcw"],
+            gamma_b=hp["gam"], min_child_weight_b=hp["mcw"], base_score_b=hp["base"],
             n_classes=n_classes, min_info_gain_b=hp["mig"], exact_cap=exact_cap,
             trees_per_round=k_eff)
         F = F.cpu().numpy()
@@ -182,7 +188,8 @@ def forest_grid_folds(est, X, y, train_w, grids, n_classes: int, convert) -> lis
     (``ops/trees.fit_forest_chunked``) on one shared draw per (seed, rate,
     fraction, bagging), and each (fold, candidate)'s trees are walked and
     averaged on every row (``predict_forest_groups``).  ``convert(dist,
-    candidate)`` maps a mean class distribution to (pred, raw, prob).
+    candidate)`` maps a mean leaf vector (``n_classes`` 2: the class
+    distribution [p0, p1]; 1, regression: the mean) to (pred, raw, prob).
     Returns ``preds[fold][grid]``."""
     grids = [dict(g) for g in (grids or [{}])]
     for g in grids:
@@ -241,7 +248,8 @@ def forest_grid_folds(est, X, y, train_w, grids, n_classes: int, convert) -> lis
                                        frontier, mig_trees=np.asarray(mig, np.float32),
                                        exact_cap=exact_cap)
         dist = Tr.predict_forest_groups(Xb, forest, max_depth, len(pairs)).cpu().numpy()
-        dist = np.concatenate([1.0 - dist, dist], axis=-1)  # class-1 share -> [p0, p1]
+        if n_classes == 2:  # class-1 share -> [p0, p1]
+            dist = np.concatenate([1.0 - dist, dist], axis=-1)
         for gi, (f, ci) in enumerate(pairs):
             out[f][ci] = convert(dist[gi], candidates[ci])
     return out
@@ -254,6 +262,13 @@ def tree_params(tree: Tree, **extra) -> Dict[str, Any]:
             "split_bin": tree.split_bin.cpu().numpy(),
             "left": tree.left.cpu().numpy(), "right": tree.right.cpu().numpy(),
             "leaf_val": tree.leaf_val.cpu().numpy(), **extra}
+
+
+def tree_device_params(params: Dict[str, Any], device) -> Dict[str, Any]:
+    """A tree model's params with its ``Tree`` and bin edges on ``device``."""
+    return {**params, "tree": tree_from_params(params, device),
+            "edges": torch.tensor(np.ascontiguousarray(params["edges"], np.float32),
+                                  device=device)}
 
 
 def tree_from_params(params: Dict[str, Any], device) -> Tree:

@@ -1,22 +1,26 @@
-"""Linear models on the device: the elastic-net logistic solver and prediction.
+"""Linear models on the device: the elastic-net solvers and prediction.
 
 The port's counterpart of ``transmogrifai_tpu/ops/linear.py``:
-``fit_logistic_fista`` and its fold x grid batch
-``fit_logistic_grid_folds_fista`` (FISTA proximal gradient, a fixed
-iteration count), ``predict_binary_logistic`` and ``predict_softmax``.  One
-hand-written kernel carries the solver:
+``fit_logistic_fista`` and ``fit_linear_fista`` and their fold x grid
+batches ``fit_logistic_grid_folds_fista`` and ``fit_linear_grid_folds_fista``
+(FISTA proximal gradient, a fixed iteration count),
+``predict_binary_logistic``, ``predict_softmax`` and ``predict_linear``.
+Two hand-written kernels, one CUDA skeleton (``csrc/fista.cu``, the link a
+template parameter), carry the solvers:
 
-- ``fista_grad`` (K-K, CUDA, ``csrc/fista.cu``) replaces the gradient of
-  ``fit_logistic_fista``'s body for all fits of the batch at once:
-  ``X1^T (w * (sigmoid(X1 z) - y)) / sum(w) + l2 * z``.
+- ``fista_grad`` (K-K) replaces the gradient of ``fit_logistic_fista``'s
+  body for all fits of the batch at once:
+  ``X1^T (w * (sigmoid(X1 z) - y)) / sum(w) + l2 * z``;
+- ``linear_fista_grad`` (K-N) replaces the gradient of
+  ``fit_linear_fista``'s body: ``X1^T (w * (X1 z - y)) / sum(w) + l2 * z``.
 
 The proximal step, the soft threshold and the momentum are elementwise
 torch on [C, p]; the shared momentum scalars are float32 on the host.  The
-wrapper takes the plain version only for tensors on the CPU; for CUDA
-tensors it launches the kernel or raises; ``fista_grad.launches`` counts
-its launches.  Predictions are plain products: ``torch.matmul`` in full
+wrappers take the plain version only for tensors on the CPU; for CUDA
+tensors they launch the kernel or raise; ``<wrapper>.launches`` counts
+their launches.  Predictions are plain products: ``torch.matmul`` in full
 float32 (see ``utils/device.apply_f32_policy``).  The Newton solver (K9),
-softmax, ridge, the linear-regression and SVC fits are not ported.
+softmax, ridge and the SVC fits are not ported.
 """
 from __future__ import annotations
 
@@ -71,11 +75,45 @@ def fista_grad_plain(X1: torch.Tensor, y: torch.Tensor, w: torch.Tensor, fold: t
     return (r @ X1) / wsum[:, None] + l2v * z
 
 
+def linear_fista_grad_plain(X1: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
+                            fold: torch.Tensor, z: torch.Tensor, l2v: torch.Tensor,
+                            wsum: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of K-N: two products and the elementwise terms."""
+    r = w[fold.long()] * (z @ X1.T - y)                                 # [C, n]
+    return (r @ X1) / wsum[:, None] + l2v * z
+
+
 _FISTA_ARGS = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 #: rows of one block's chunk: at least 2048 (8 rows a thread), else enough
 #: chunks to give every SM two blocks
 _FISTA_MIN_CHUNK = 2048
 _FISTA_TARGET_CHUNKS = 2 * 132
+
+
+def _fista_launch(entry: str, X1, y, w, fold, z, l2v, wsum) -> torch.Tensor:
+    """Launch ``csrc/fista.cu``'s ``entry`` (``fista_grad`` or
+    ``linear_fista_grad``) on CUDA tensors; returns the gradients."""
+    n, p = X1.shape
+    C = z.shape[0]
+    if p > 64:
+        raise ValueError(f"{entry} takes at most 64 coefficients, got {p}")
+    X1, y, w, fold = X1.contiguous(), y.contiguous(), w.contiguous(), fold.contiguous()
+    z, l2v, wsum = z.contiguous(), l2v.contiguous(), wsum.contiguous()
+    chunk_rows = max(_FISTA_MIN_CHUNK, -(-n // _FISTA_TARGET_CHUNKS))
+    chunks = -(-n // chunk_rows)
+    partial = torch.empty((chunks, C, p), dtype=torch.float32, device=X1.device)
+    grad = torch.empty((C, p), dtype=torch.float32, device=X1.device)
+    lib = cuda_build.load("fista", {"fista_grad": (_FISTA_ARGS, ctypes.c_int),
+                                    "linear_fista_grad": (_FISTA_ARGS, ctypes.c_int)})
+    with torch.cuda.device(X1.device):
+        rc = getattr(lib, entry)(X1.data_ptr(), y.data_ptr(), w.data_ptr(), fold.data_ptr(),
+                                 z.data_ptr(), wsum.data_ptr(), l2v.data_ptr(),
+                                 partial.data_ptr(), grad.data_ptr(), n, p, C, chunks,
+                                 chunk_rows,
+                                 ctypes.c_void_p(torch.cuda.current_stream(X1.device).cuda_stream))
+    if rc != 0:
+        raise RuntimeError(f"{entry} kernel launch failed: CUDA error {rc}")
+    return grad
 
 
 def fista_grad(X1: torch.Tensor, y: torch.Tensor, w: torch.Tensor, fold: torch.Tensor,
@@ -90,29 +128,28 @@ def fista_grad(X1: torch.Tensor, y: torch.Tensor, w: torch.Tensor, fold: torch.T
     _check_fista(X1, y, w, fold, z, l2v, wsum)
     if not _on_cuda(X1, y, w, fold, z, l2v, wsum):
         return fista_grad_plain(X1, y, w, fold, z, l2v, wsum)
-    n, p = X1.shape
-    C = z.shape[0]
-    if p > 64:
-        raise ValueError(f"fista_grad takes at most 64 coefficients, got {p}")
-    X1, y, w, fold = X1.contiguous(), y.contiguous(), w.contiguous(), fold.contiguous()
-    z, l2v, wsum = z.contiguous(), l2v.contiguous(), wsum.contiguous()
-    chunk_rows = max(_FISTA_MIN_CHUNK, -(-n // _FISTA_TARGET_CHUNKS))
-    chunks = -(-n // chunk_rows)
-    partial = torch.empty((chunks, C, p), dtype=torch.float32, device=X1.device)
-    grad = torch.empty((C, p), dtype=torch.float32, device=X1.device)
-    lib = cuda_build.load("fista", {"fista_grad": (_FISTA_ARGS, ctypes.c_int)})
-    with torch.cuda.device(X1.device):
-        rc = lib.fista_grad(X1.data_ptr(), y.data_ptr(), w.data_ptr(), fold.data_ptr(),
-                            z.data_ptr(), wsum.data_ptr(), l2v.data_ptr(), partial.data_ptr(),
-                            grad.data_ptr(), n, p, C, chunks, chunk_rows,
-                            ctypes.c_void_p(torch.cuda.current_stream(X1.device).cuda_stream))
-    if rc != 0:
-        raise RuntimeError(f"fista_grad kernel launch failed: CUDA error {rc}")
+    grad = _fista_launch("fista_grad", X1, y, w, fold, z, l2v, wsum)
     fista_grad.launches += 1
     return grad
 
 
 fista_grad.launches = 0
+
+
+def linear_fista_grad(X1: torch.Tensor, y: torch.Tensor, w: torch.Tensor, fold: torch.Tensor,
+                      z: torch.Tensor, l2v: torch.Tensor, wsum: torch.Tensor) -> torch.Tensor:
+    """The gradients f32[C, p] of C squared-loss linear fits at their points
+    ``z``: ``X1^T (w[fold[c]] * (X1 z_c - y)) / wsum[c] + l2v[c] * z_c``;
+    the arguments as ``fista_grad``'s."""
+    _check_fista(X1, y, w, fold, z, l2v, wsum)
+    if not _on_cuda(X1, y, w, fold, z, l2v, wsum):
+        return linear_fista_grad_plain(X1, y, w, fold, z, l2v, wsum)
+    grad = _fista_launch("linear_fista_grad", X1, y, w, fold, z, l2v, wsum)
+    linear_fista_grad.launches += 1
+    return grad
+
+
+linear_fista_grad.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -129,16 +166,11 @@ def _momentum(max_iter: int):
     return out
 
 
-def fit_logistic_grid_folds_fista(X: torch.Tensor, y: torch.Tensor, train_w: torch.Tensor,
-                                  l1s, l2s, max_iter: int = 200,
-                                  fit_intercept: bool = True) -> LinearFit:
-    """Elastic-net logistic fits for every (fold, grid) pair, on X's device.
-
-    X f32[n, d]; y f32[n]; train_w f32[F, n]; l1s / l2s the G candidates'
-    penalties.  Returns LinearFit with coef [F, G, d], intercept [F, G, 1].
-    Each fit is the reference's ``fit_logistic_fista``: the step 1 / L with
-    ``L = 0.25 sum(w x^2) / sum(w) + l2 + 1e-6``, the intercept unpenalized,
-    ``max_iter`` FISTA steps with one shared momentum sequence."""
+def _fista_grid_folds(X: torch.Tensor, y: torch.Tensor, train_w: torch.Tensor, l1s, l2s,
+                      max_iter: int, fit_intercept: bool, logistic: bool) -> LinearFit:
+    """FISTA for every (fold, grid) fit at once: the logistic fits through
+    K-K, the linear ones through K-N (the reference's two solvers differ
+    only in the link and the Lipschitz bound's 0.25)."""
     dev = X.device
     n, d = X.shape
     F = train_w.shape[0]
@@ -158,7 +190,8 @@ def fit_logistic_grid_folds_fista(X: torch.Tensor, y: torch.Tensor, train_w: tor
         pen[-1] = 0.0
     l1v, l2v = l1_c[:, None] * pen, (l2_c[:, None] * pen).contiguous()
     w_sum = torch.clamp_min(w.sum(1), 1e-12)                                      # [F]
-    lip = 0.25 * ((X1 * X1).T * w[:, None, :]).sum((1, 2)) / w_sum              # [F]
+    sq = ((X1 * X1).T * w[:, None, :]).sum((1, 2))
+    lip = (0.25 * sq if logistic else sq) / w_sum                                 # [F]
     L = (lip[fold.long()] + l2_c) + 1e-6
     step = (1.0 / L)[:, None]                                                     # [C, 1]
     thr = step * l1v
@@ -166,8 +199,9 @@ def fit_logistic_grid_folds_fista(X: torch.Tensor, y: torch.Tensor, train_w: tor
     beta = torch.zeros((C, p), dtype=torch.float32, device=dev)
     z = beta
     yd = y.to(dev, torch.float32).contiguous()
+    grad_fn = fista_grad if logistic else linear_fista_grad
     for coef in _momentum(max_iter):
-        grad = fista_grad(X1, yd, w, fold, z.contiguous(), l2v, wsum_c)
+        grad = grad_fn(X1, yd, w, fold, z.contiguous(), l2v, wsum_c)
         beta_next = _soft_threshold(z - step * grad, thr)
         z = beta_next + coef * (beta_next - beta)
         beta = beta_next
@@ -175,6 +209,29 @@ def fit_logistic_grid_folds_fista(X: torch.Tensor, y: torch.Tensor, train_w: tor
     if fit_intercept:
         return LinearFit(beta[..., :-1].contiguous(), beta[..., -1:].contiguous())
     return LinearFit(beta, torch.zeros((F, G, 1), dtype=torch.float32, device=dev))
+
+
+def fit_logistic_grid_folds_fista(X: torch.Tensor, y: torch.Tensor, train_w: torch.Tensor,
+                                  l1s, l2s, max_iter: int = 200,
+                                  fit_intercept: bool = True) -> LinearFit:
+    """Elastic-net logistic fits for every (fold, grid) pair, on X's device.
+
+    X f32[n, d]; y f32[n]; train_w f32[F, n]; l1s / l2s the G candidates'
+    penalties.  Returns LinearFit with coef [F, G, d], intercept [F, G, 1].
+    Each fit is the reference's ``fit_logistic_fista``: the step 1 / L with
+    ``L = 0.25 sum(w x^2) / sum(w) + l2 + 1e-6``, the intercept unpenalized,
+    ``max_iter`` FISTA steps with one shared momentum sequence."""
+    return _fista_grid_folds(X, y, train_w, l1s, l2s, max_iter, fit_intercept, logistic=True)
+
+
+def fit_linear_grid_folds_fista(X: torch.Tensor, y: torch.Tensor, train_w: torch.Tensor,
+                                l1s, l2s, max_iter: int = 300,
+                                fit_intercept: bool = True) -> LinearFit:
+    """Elastic-net linear-regression fits for every (fold, grid) pair, on X's
+    device: the reference's ``fit_linear_fista`` (the step 1 / L with
+    ``L = sum(w x^2) / sum(w) + l2 + 1e-6``, the intercept unpenalized,
+    ``max_iter`` FISTA steps); shapes as ``fit_logistic_grid_folds_fista``'s."""
+    return _fista_grid_folds(X, y, train_w, l1s, l2s, max_iter, fit_intercept, logistic=False)
 
 
 def fit_logistic_fista(X: torch.Tensor, y: torch.Tensor, sample_weight: torch.Tensor,
@@ -185,6 +242,21 @@ def fit_logistic_fista(X: torch.Tensor, y: torch.Tensor, sample_weight: torch.Te
     fit = fit_logistic_grid_folds_fista(X, y, sample_weight[None], [l1], [l2],
                                         max_iter=max_iter, fit_intercept=fit_intercept)
     return LinearFit(fit.coef[0, 0], fit.intercept[0, 0])
+
+
+def fit_linear_fista(X: torch.Tensor, y: torch.Tensor, sample_weight: torch.Tensor,
+                     l1: float, l2: float, max_iter: int = 300,
+                     fit_intercept: bool = True) -> LinearFit:
+    """One elastic-net linear-regression fit: coef [d], intercept [1]."""
+    fit = fit_linear_grid_folds_fista(X, y, sample_weight[None], [l1], [l2],
+                                      max_iter=max_iter, fit_intercept=fit_intercept)
+    return LinearFit(fit.coef[0, 0], fit.intercept[0, 0])
+
+
+def predict_linear(X: torch.Tensor, coef: torch.Tensor, intercept: torch.Tensor
+                   ) -> torch.Tensor:
+    """The linear prediction f32[n]: ``X @ coef + intercept[0]``."""
+    return X @ coef + intercept[0]
 
 
 def predict_binary_logistic_grid(X: torch.Tensor, coef: torch.Tensor, intercept: torch.Tensor

@@ -1,25 +1,34 @@
-"""The sweep's validation metrics on the device (binary classification).
+"""The sweep's validation metrics on the device (binary classification and
+regression).
 
 The port's counterpart of ``transmogrifai_tpu/ops/metrics.py``:
 ``BINARY_METRICS`` and ``binary_grid_metrics`` (``_binary_grid_metrics``),
 every (fold, candidate)'s AuROC (midrank ties), AuPR (one step per
 distinct threshold), Error, Precision, Recall and F1 from the [F, C, n]
 validation scores, as ``evaluators/classification.py`` computes them on the
-host.  One hand-written kernel carries it:
+host; ``REGRESSION_METRICS`` and ``regression_grid_metrics``
+(``_regression_grid_metrics``), every (fold, candidate)'s RMSE, MSE, R2 and
+MAE from the [F, C, n] predictions.  Two hand-written kernels carry them:
 
 - ``binary_metrics`` (K-L, CUDA, ``csrc/binary_metrics.cu``) replaces
   ``_binary_one``'s tie-aware pass after the sort: one block per (fold,
   candidate) scans the row's sorted scores once for the tie groups, the
   midrank sum, the AuPR steps and the thresholded counts.
+- ``regression_metrics`` (K-O, CUDA, ``csrc/regression_metrics.cu``)
+  replaces ``_regression_one``: one block per (fold, candidate) sums the
+  row's squared and absolute errors, the mask, the masked labels and the
+  labels' squares about their mean.
 
-The rows outside a fold's validation mask get the score -inf and every
-row is ordered by one batched stable ``torch.sort`` (a library call, as the
-reference leaves its sort to XLA's).  The labels and validation weights
-are 0/1, so the counts are exact integers; the midrank sum and the AuPR
-steps are summed exactly and rounded to float32 once (the reference sums
-them in float32).  The wrapper takes the plain version only for tensors on
-the CPU; for CUDA tensors it launches the kernel or raises;
-``binary_metrics.launches`` counts its launches.  The regression and
+For the binary metrics, the rows outside a fold's validation mask get the
+score -inf and every row is ordered by one batched stable ``torch.sort`` (a
+library call, as the reference leaves its sort to XLA's).  The labels and
+validation weights are 0/1, so the counts are exact integers; the midrank
+sum and the AuPR steps are summed exactly and rounded to float32 once (the
+reference sums them in float32).  The regression metrics' elementwise terms
+are the reference's float32 operations; their sums are float64, each
+rounded to float32 once (the reference sums in float32).  The wrappers take
+the plain version only for tensors on the CPU; for CUDA tensors they launch
+the kernel or raise; ``<wrapper>.launches`` counts their launches.  The
 multiclass metrics are not ported.
 """
 from __future__ import annotations
@@ -33,6 +42,8 @@ from . import cuda_build
 
 #: metric order of the stacked output row
 BINARY_METRICS = ("AuROC", "AuPR", "Error", "Precision", "Recall", "F1")
+#: metric order of regression_grid_metrics' output row
+REGRESSION_METRICS = ("RootMeanSquaredError", "MeanSquaredError", "R2", "MeanAbsoluteError")
 #: the fixed-point scale of the AuPR steps' sum (each step below 1, their
 #: total at most 1)
 AUPR_SCALE = 2.0 ** 62
@@ -159,3 +170,80 @@ def binary_grid_metrics(y: torch.Tensor, scores: torch.Tensor, val_w: torch.Tens
     strict = torch.as_tensor(strict_c, device=dev).to(torch.int32).reshape(C)
     ss, order = sort_scores(scores.to(torch.float32), val_w)
     return binary_metrics(ss, order, y, val_w, strict, C).reshape(F, C, 6)
+
+
+# ---------------------------------------------------------------------------
+# K-O regression_metrics
+# ---------------------------------------------------------------------------
+def _check_regression(preds, y, vm, C):
+    if preds.dtype != torch.float32 or preds.ndim != 2:
+        raise ValueError("preds must be float32[R, n]")
+    R, n = preds.shape
+    if y.dtype != torch.float32 or tuple(y.shape) != (n,):
+        raise ValueError(f"y must be float32[{n}]")
+    if C < 1 or vm.dtype != torch.float32 or vm.ndim != 2 or vm.shape[1] != n \
+            or vm.shape[0] * C != R:
+        raise ValueError(f"vm must be float32[{R // max(C, 1)}, {n}]")
+
+
+def regression_metrics_plain(preds: torch.Tensor, y: torch.Tensor, vm: torch.Tensor,
+                             C: int) -> torch.Tensor:
+    """Plain PyTorch version of K-O: the same float32 terms, float64 sums
+    (the folds' label sums once per fold)."""
+    R, n = preds.shape
+    fold = torch.arange(R, device=preds.device) // C
+    v = vm[fold]                                                       # [R, n]
+    err = (preds - y) * v
+    se = (err * err).double().sum(1).float()
+    sa = err.abs().double().sum(1).float()
+    nv = torch.clamp_min(vm.double().sum(1).float(), 1.0)               # [F]
+    ybar = (y * vm).double().sum(1).float() / nv
+    dy = y - ybar[:, None]
+    ss = (dy * dy * vm).double().sum(1).float()
+    nv, ss = nv[fold], ss[fold]
+    mse = se / nv
+    r2 = torch.where(ss > 0, 1.0 - se / torch.clamp_min(ss, 1e-30), torch.zeros_like(ss))
+    return torch.stack([torch.sqrt(mse), mse, r2, sa / nv], dim=-1)
+
+
+_REG_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+
+
+def regression_metrics(preds: torch.Tensor, y: torch.Tensor, vm: torch.Tensor,
+                       C: int) -> torch.Tensor:
+    """The four metrics f32[R, 4] (``REGRESSION_METRICS`` order) of R = F x C
+    prediction rows: ``preds`` f32[R, n] (row r is fold r // C, candidate
+    r % C), ``y`` f32[n] the labels, ``vm`` f32[F, n] the folds' validation
+    weights."""
+    _check_regression(preds, y, vm, C)
+    if not _on_cuda(preds, y, vm):
+        return regression_metrics_plain(preds, y, vm, C)
+    preds, y, vm = preds.contiguous(), y.contiguous(), vm.contiguous()
+    R, n = preds.shape
+    out = torch.empty((R, 4), dtype=torch.float32, device=preds.device)
+    if R == 0:
+        return out
+    lib = cuda_build.load("regression_metrics",
+                          {"regression_metrics": (_REG_ARGS, ctypes.c_int)})
+    with torch.cuda.device(preds.device):
+        rc = lib.regression_metrics(
+            preds.data_ptr(), y.data_ptr(), vm.data_ptr(), out.data_ptr(), R, n, C,
+            ctypes.c_void_p(torch.cuda.current_stream(preds.device).cuda_stream))
+    if rc != 0:
+        raise RuntimeError(f"regression_metrics kernel launch failed: CUDA error {rc}")
+    regression_metrics.launches += 1
+    return out
+
+
+regression_metrics.launches = 0
+
+
+def regression_grid_metrics(y: torch.Tensor, preds: torch.Tensor,
+                            val_w: torch.Tensor) -> torch.Tensor:
+    """y f32[n]; preds f32[F, C, n]; val_w f32[F, n].  Returns f32[F, C, 4]
+    in ``REGRESSION_METRICS`` order."""
+    F, C, n = preds.shape
+    dev = preds.device
+    out = regression_metrics(preds.to(torch.float32).reshape(F * C, n).contiguous(),
+                             y.to(dev, torch.float32), val_w.to(dev, torch.float32), C)
+    return out.reshape(F, C, 4)

@@ -13,14 +13,17 @@ module docstring):
          | ("forest", out_c, groups) | ("gbt", loss, out_c, groups)
 
 Each fragment scores its candidates on every row; the scores [F, C, n] go
-to the binary metrics (K-L).  The work runs eagerly on the device of the
-arrays, through the hand-written kernels: K-K for the logistic fits; K-E,
-K-F and K-G growing the forests and boosted trees, K-H boosting, K-M
-reading the forests' leaves.  A forest group's trees grow in batches of
+to the binary metrics (K-L) or the regression metrics (K-O).  The work
+runs eagerly on the device of the arrays, through the hand-written
+kernels: K-K for the logistic fits, K-N for the linear-regression fits;
+K-E, K-F and K-G growing the forests and boosted trees, K-H boosting
+(logistic, or squared from each fold's label mean), K-M reading the
+forests' leaves.  A forest group's trees grow in batches of
 ``ops/trees.forest_batch_size`` (the spec's ``chunk`` is the JAX
 package's, kept for the spec's equality; trees are independent, so the
-batching changes no result).  Only the binary problem is ported; the
-newton, svc and mlp fragments and round-collapsed boosting raise.  The
+batching changes no result).  The binary and regression problems are
+ported; multiclass, the newton, svc and mlp fragments and round-collapsed
+boosting raise.  The
 checkpoint, hedge, ledger, trace, AOT-cache and mesh wrappers of the JAX
 package are not ported.
 """
@@ -34,9 +37,12 @@ import torch
 
 from . import linear as L
 from . import trees as Tr
-from .metrics import BINARY_METRICS, binary_grid_metrics
+from .metrics import BINARY_METRICS, binary_grid_metrics, regression_grid_metrics
 
 __all__ = ["run_sweep", "BINARY_METRICS"]
+
+#: the problems the port's sweep runs
+PROBLEMS = ("binary", "regression")
 
 
 def _sync(t: torch.Tensor) -> None:
@@ -48,15 +54,16 @@ def _blob(blob: np.ndarray, off: int, k: int) -> np.ndarray:
     return blob[off:off + k]
 
 
-def _fista_scores(frag, X, y, train_w, blob) -> torch.Tensor:
-    """p(class 1) [F, G, n] of the fragment's elastic-net logistic fits."""
+def _fista_scores(frag, X, y, train_w, blob, classification: bool) -> torch.Tensor:
+    """[F, G, n]: p(class 1) of the fragment's elastic-net logistic fits, or
+    the predictions of its linear-regression fits."""
     _, cis, max_iter, fit_intercept, off_l1, off_l2 = frag
     G = len(cis)
-    fit = L.fit_logistic_grid_folds_fista(X, y, train_w, _blob(blob, off_l1, G),
-                                          _blob(blob, off_l2, G), max_iter=max_iter,
-                                          fit_intercept=fit_intercept)
+    fit_fn = L.fit_logistic_grid_folds_fista if classification else L.fit_linear_grid_folds_fista
+    fit = fit_fn(X, y, train_w, _blob(blob, off_l1, G), _blob(blob, off_l2, G),
+                 max_iter=max_iter, fit_intercept=fit_intercept)
     z = torch.einsum("nd,fgd->fgn", X, fit.coef) + fit.intercept
-    return L._sigmoid(z)
+    return L._sigmoid(z) if classification else z
 
 
 def _forest_draws(seed: int, n: int, d: int, n_trees: int, bootstrap: bool, rate: float,
@@ -122,8 +129,8 @@ def grow_forest_group(group, xbs, y, train_w, blob, draws: Optional[Dict] = None
 
 def _forest_group_scores(group, xbs, y, train_w, blob, out_c: int,
                          draws: Optional[Dict] = None) -> torch.Tensor:
-    """One forest group -> the mean leaf value (p(class 1)) [F, Gc, n], the
-    leaves read by K-M."""
+    """One forest group -> the mean leaf value (p(class 1), or the
+    regression prediction) [F, Gc, n], the leaves read by K-M."""
     if out_c != 1:
         raise NotImplementedError("forest fragments with class-distribution leaves "
                                   "(multiclass) are not ported")
@@ -133,11 +140,13 @@ def _forest_group_scores(group, xbs, y, train_w, blob, out_c: int,
 
 def _gbt_group_scores(group, xbs, y, train_w, blob, loss: str, out_c: int) -> torch.Tensor:
     """One boosting group -> the final margins [F, Gc, n] (fold x candidate
-    batch, one tree per round each)."""
+    batch, one tree per round each), from 0 or, with ``fold_base``, from
+    each fold's weighted label mean (float32 on the device, as the
+    reference's)."""
     (cis, rounds, depth, xb_idx, n_bins, subsample, colsample, seed,
      frontier, exact_cap, fold_base, trees_per_round, off_eta, off_lam,
      off_gam, off_mcw, off_mig) = group
-    if loss != "logistic" or fold_base or out_c != 1:
+    if loss not in Tr.BOOST_LOSSES or out_c != 1:
         raise NotImplementedError(f"{loss} boosting fragments are not ported")
     if trees_per_round != 1:
         raise NotImplementedError("round-collapsed boosting (trees_per_round > 1) is not ported")
@@ -153,21 +162,27 @@ def _gbt_group_scores(group, xbs, y, train_w, blob, loss: str, out_c: int) -> to
         ("eta", off_eta), ("lam", off_lam), ("gam", off_gam), ("mcw", off_mcw),
         ("mig", off_mig))}
     w_b = train_w.repeat_interleave(Gc, dim=0)                            # [F * Gc, n]
+    if fold_base:
+        base_f = (y[None] * train_w).sum(1) / torch.clamp_min(train_w.sum(1), 1e-12)
+    else:
+        base_f = torch.zeros(F, dtype=torch.float32, device=dev)
     Fm = Tr.fit_gbt_batch(Xb, y, w_b, rw, fms, loss=loss, n_rounds=rounds, max_depth=depth,
                           n_bins=n_bins, frontier=frontier, eta_b=hp["eta"],
                           reg_lambda_b=np.maximum(hp["lam"], np.float32(1e-6)),
                           gamma_b=hp["gam"], min_child_weight_b=hp["mcw"],
+                          base_score_b=base_f.repeat_interleave(Gc),
                           min_info_gain_b=hp["mig"], exact_cap=exact_cap)
     return Fm[..., 0].reshape(F, Gc, n)
 
 
 def _frag_scores(frag, X, xbs, y, train_w, blob, problem):
-    """(candidate positions, class-1 scores [F, Gf, n]) of one fragment."""
+    """(candidate positions, scores [F, Gf, n]) of one fragment: class-1
+    scores of a binary problem, predictions of a regression."""
     kind = frag[0]
-    if problem != "binary":
-        raise NotImplementedError(f"{problem!r} sweeps are not ported (binary only)")
+    if problem not in PROBLEMS:
+        raise NotImplementedError(f"{problem!r} sweeps are not ported (binary, regression)")
     if kind == "fista":
-        return frag[1], _fista_scores(frag, X, y, train_w, blob)
+        return frag[1], _fista_scores(frag, X, y, train_w, blob, problem == "binary")
     if kind == "forest":
         _, out_c, groups = frag
         cis, outs, draws = [], [], {}
@@ -179,7 +194,9 @@ def _frag_scores(frag, X, xbs, y, train_w, blob, problem):
         _, loss, out_c, groups = frag
         cis, outs = [], []
         for grp in groups:
-            outs.append(L._sigmoid(_gbt_group_scores(grp, xbs, y, train_w, blob, loss, out_c)))
+            Fm = _gbt_group_scores(grp, xbs, y, train_w, blob, loss, out_c)
+            # squared: the margin is the prediction
+            outs.append(L._sigmoid(Fm) if loss == "logistic" else Fm)
             cis.extend(grp[0])
         return cis, torch.cat(outs, dim=1)
     raise NotImplementedError(f"sweep fragment {kind!r} is not ported")
@@ -203,16 +220,18 @@ def _all_scores(spec, X, xbs, y, train_w, blob,
 
 def _metrics_of(spec, y, scores, val_w) -> torch.Tensor:
     problem, _, strict = spec
-    if problem != "binary":
-        raise NotImplementedError(f"{problem!r} sweep metrics are not ported (binary only)")
-    return binary_grid_metrics(y, scores, val_w, strict)
+    if problem == "binary":
+        return binary_grid_metrics(y, scores, val_w, strict)
+    if problem == "regression":
+        return regression_grid_metrics(y, scores, val_w)
+    raise NotImplementedError(f"{problem!r} sweep metrics are not ported (binary, regression)")
 
 
 def run_sweep(spec, X: torch.Tensor, xbs: Tuple[torch.Tensor, ...], y: torch.Tensor,
               train_w, val_w, blob, timings: Optional[Dict[str, float]] = None
               ) -> torch.Tensor:
     """Run a fused sweep on X's device; returns the metrics f32[F, C, M]
-    (``BINARY_METRICS`` order).  ``train_w`` / ``val_w`` [F, n] are the
+    (``BINARY_METRICS`` or ``REGRESSION_METRICS`` order).  ``train_w`` / ``val_w`` [F, n] are the
     folds' training weights and 0/1 validation masks, ``blob`` the host
     float32 hyperparameter vector.  With ``timings``,
     adds each fragment kind's and the metrics' host seconds (each

@@ -9,9 +9,10 @@ The port's counterpart of ``transmogrifai_tpu/ops/trees.py``.  Scoring:
 ``frontier_is_exact``, the threefry draws (``rng_keys``,
 ``bootstrap_weights``, ``feature_masks``, ``subsample_weights``, bit-equal
 to the JAX package's), the level-wise tree grower, boosting (``fit_gbt``,
-``fit_gbt_batch``) with the logistic loss, and the binary forests
+``fit_gbt_batch``) with the logistic and squared losses, and the
+one-channel forests of binary classification and regression
 (``grow_forest``, ``fit_forest``, ``fit_forest_chunked``).  Multiclass
-forests and the softmax and squared losses are not ported.
+forests and the softmax loss are not ported.
 
 Hand-written kernels carry the path (CUDA sources in ``csrc/``, the Triton
 ones in ``ops/triton_boost.py`` and ``ops/triton_forest.py``):
@@ -32,8 +33,8 @@ ones in ``ops/triton_boost.py`` and ``ops/triton_forest.py``):
 - ``route_rows`` (K-G) replaces the row routing of ``_grow_level``: each
   row's child slot, its pool node, and its pair id for the next level.
 - ``boost_step`` (K-H) replaces the margin update and ``_grad_hess``
-  (logistic): ``F += eta * leaf[row_node]`` and the weighted gradient and
-  hessian of the new margins.
+  (logistic and squared): ``F += eta * leaf[row_node]`` and the weighted
+  gradient and hessian of the new margins.
 - ``forest_leaf_mean`` (K-M, Triton, ``ops/triton_forest.py``) replaces the
   fused sweep's forest leaf read and tree mean: each row's mean leaf value
   over each (fold, candidate)'s trees.
@@ -419,25 +420,36 @@ def _check_level_hist(Xb, ghw, ids, m, n_bins, parent, pair_parent, pair_light):
         for name, a in (("pair_parent", pair_parent), ("pair_light", pair_light)):
             _require(a is not None and a.dtype == torch.int32
                      and tuple(a.shape) == (T, m // 2), f"{name} must be int32[{T}, {m // 2}]")
-    big = float(ghw.abs().amax()) if ghw.numel() else 0.0
-    _require(big * n < HIST_RANGE,
-             f"level_hist sums out of its fixed-point range: {n} rows x largest |w*g|, "
-             f"|w*h| {big} must stay below {HIST_RANGE}")
 
 
-#: the fixed point of K-E's sums: each w*g and w*h times 2^32, rounded to
+#: the fixed point of K-E's sums: each w*g and w*h times 2^bits, rounded to
 #: the nearest int64; integer sums give the same total in any order.  The
-#: kernel takes the scale from the wrapper
+#: kernel takes the scale from the wrapper.  ``bits`` is 32 wherever the
+#: level's row count x largest |w*g|, |w*h| stays below ``HIST_RANGE``
+#: (every binary gradient does), and fewer where it does not
 HIST_SCALE_BITS = 32
-#: the bound on a level's row count x largest |w*g|, |w*h|: every sum then
-#: stays below 2^63 in fixed point (no saturated value, no wrapped sum)
 HIST_RANGE = 2.0 ** (63 - HIST_SCALE_BITS)
+
+
+def hist_scale_bits(n: int, big: float) -> int:
+    """The fixed-point scale bits of a level of ``n`` rows whose largest
+    |w*g|, |w*h| is ``big``: ``HIST_SCALE_BITS`` where ``n * big`` is below
+    ``HIST_RANGE``, else the most bits that keep ``n * big * 2^bits`` at or
+    below 2^62, so that no sum leaves int64 (regression gradients: a target
+    of 1e6 at 2^12 rows takes 30 bits).  Raises on a non-finite value."""
+    _require(math.isfinite(big),
+             f"level_hist sums out of its fixed-point range: the largest |w*g|, |w*h| is {big}")
+    total = big * max(n, 1)
+    if total < HIST_RANGE:
+        return HIST_SCALE_BITS
+    return 62 - math.ceil(math.log2(total))
 
 
 def level_hist_plain(Xb: torch.Tensor, ghw: torch.Tensor, ids: torch.Tensor, m: int,
                      n_bins: int, parent: Optional[torch.Tensor] = None,
                      pair_parent: Optional[torch.Tensor] = None,
-                     pair_light: Optional[torch.Tensor] = None) -> torch.Tensor:
+                     pair_light: Optional[torch.Tensor] = None,
+                     scale_bits: int = HIST_SCALE_BITS) -> torch.Tensor:
     """Plain PyTorch version of K-E: the same fixed-point sums, as one
     int64 ``index_add_`` over rows, then the parent - light assembly."""
     T, n, _ = ghw.shape
@@ -449,11 +461,11 @@ def level_hist_plain(Xb: torch.Tensor, ghw: torch.Tensor, ids: torch.Tensor, m: 
     base = torch.where(dead, torch.full_like(idl, mp * B), idl * B)      # [T, n]
     seg = base[:, None, :] + torch.where(dead[:, None, :], 0, Xb.long().T[None])  # [T, d, n]
     offs = (torch.arange(T * d, device=Xb.device) * seg_n).view(T, d, 1)
-    fixed = torch.round(ghw * float(2 ** HIST_SCALE_BITS)).to(torch.int64)
+    fixed = torch.round(ghw * float(2.0 ** scale_bits)).to(torch.int64)
     acc = torch.zeros((T * d * seg_n, 2), dtype=torch.int64, device=Xb.device)
     acc.index_add_(0, (seg + offs).reshape(-1), fixed[:, None].expand(T, d, n, 2).reshape(-1, 2))
     light = acc.view(T, d, seg_n, 2)[:, :, :mp * B].reshape(T, d, mp, B, 2) \
-        .permute(0, 2, 4, 1, 3).to(torch.float32) * float(2.0 ** -HIST_SCALE_BITS)
+        .permute(0, 2, 4, 1, 3).to(torch.float32) * float(2.0 ** -scale_bits)
     light = light.contiguous()                                            # [T, mp, 2, d, B]
     if parent is None:
         return light
@@ -475,9 +487,11 @@ def level_hist(Xb: torch.Tensor, ghw: torch.Tensor, ids: torch.Tensor, m: int,
                pair_parent: Optional[torch.Tensor] = None,
                pair_light: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Level histograms f32[T, m, 2, d, B] (channel 0: sum of w*g, 1: w*h),
-    summed in 64-bit fixed point (``HIST_SCALE_BITS``): the same on every
-    run, exact where the inputs are multiples of 2^-32.  Raises unless the
-    row count times the largest |w*g|, |w*h| is below ``HIST_RANGE``.
+    summed in 64-bit fixed point at the scale ``hist_scale_bits`` picks
+    from the row count and the largest |w*g|, |w*h| (one reduction and one
+    host sync): the same on every run, exact where the inputs are multiples
+    of the scale's quantum (2^-32 for every binary gradient).  Raises on a
+    non-finite w*g or w*h.
 
     Direct build (``parent`` None): rows with ``ids == s`` go to slot s (-1
     rests).  Light-only build: ``ids`` are pair ids in [0, m/2) of the
@@ -486,18 +500,22 @@ def level_hist(Xb: torch.Tensor, ghw: torch.Tensor, ids: torch.Tensor, m: int,
     ``pair_light[j]`` says the light child is the left (even) slot.
     """
     _check_level_hist(Xb, ghw, ids, m, n_bins, parent, pair_parent, pair_light)
+    big = float(ghw.abs().amax()) if ghw.numel() else 0.0
+    bits = hist_scale_bits(Xb.shape[0], big)
     tensors = [Xb, ghw, ids] + ([parent, pair_parent, pair_light] if parent is not None else [])
     if not _on_cuda(*tensors):
-        return level_hist_plain(Xb, ghw, ids, m, n_bins, parent, pair_parent, pair_light)
-    return level_hist_launch(Xb, ghw, ids, m, n_bins, parent, pair_parent, pair_light)
+        return level_hist_plain(Xb, ghw, ids, m, n_bins, parent, pair_parent, pair_light, bits)
+    return level_hist_launch(Xb, ghw, ids, m, n_bins, parent, pair_parent, pair_light, bits)
 
 
 def level_hist_launch(Xb: torch.Tensor, ghw: torch.Tensor, ids: torch.Tensor, m: int,
                       n_bins: int, parent: Optional[torch.Tensor] = None,
                       pair_parent: Optional[torch.Tensor] = None,
-                      pair_light: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """K-E's launch on CUDA tensors, without ``level_hist``'s checks (whose
-    range check waits for the card); counts in ``level_hist.launches``."""
+                      pair_light: Optional[torch.Tensor] = None,
+                      scale_bits: int = HIST_SCALE_BITS) -> torch.Tensor:
+    """K-E's launch on CUDA tensors at ``scale_bits``, without
+    ``level_hist``'s checks (whose scale choice waits for the card); counts
+    in ``level_hist.launches``."""
     _require(_on_cuda(Xb, ghw, ids), "level_hist_launch takes CUDA tensors")
     Xb, ghw, ids = Xb.contiguous(), ghw.contiguous(), ids.contiguous()
     T, n, _ = ghw.shape
@@ -518,8 +536,8 @@ def level_hist_launch(Xb: torch.Tensor, ghw: torch.Tensor, ids: torch.Tensor, m:
         rc = fn(Xb.data_ptr(), ghw.data_ptr(), ids.data_ptr(),
                 par.data_ptr() if light else None, pp.data_ptr() if light else None,
                 pl.data_ptr() if light else None, acc.data_ptr(), out.data_ptr(), n, d,
-                n_bins, T, mp, m_prev, float(2.0 ** HIST_SCALE_BITS),
-                float(2.0 ** -HIST_SCALE_BITS), _stream(Xb))
+                n_bins, T, mp, m_prev, float(2.0 ** scale_bits),
+                float(2.0 ** -scale_bits), _stream(Xb))
     if rc != 0:
         raise RuntimeError(f"level_hist kernel launch failed: CUDA error {rc}")
     level_hist.launches += 1
@@ -765,30 +783,41 @@ def _sigmoid(x: torch.Tensor) -> torch.Tensor:
     return 1.0 / (1.0 + torch.exp(-x))
 
 
+#: the losses K-H computes gradients of (the kernel's LOSS constant)
+BOOST_LOSSES = {"logistic": 0, "squared": 1}
+
+
 def boost_step_plain(F: torch.Tensor, y: torch.Tensor, w: torch.Tensor, eta: torch.Tensor,
                      leaf: Optional[torch.Tensor], row_node: Optional[torch.Tensor],
-                     ghw: Optional[torch.Tensor]) -> None:
+                     ghw: Optional[torch.Tensor], loss: str = "logistic") -> None:
     """Plain PyTorch version of K-H."""
     if leaf is not None:
         F.copy_(F + eta[:, None] * leaf.gather(1, row_node.long()))
-    if ghw is not None:
-        p = _sigmoid(F)
-        ghw[..., 0] = (p - y[None]) * w
-        ghw[..., 1] = torch.maximum(p * (1 - p), torch.tensor(1e-6, dtype=torch.float32,
-                                                             device=F.device)) * w
+    if ghw is None:
+        return
+    if loss == "squared":
+        ghw[..., 0] = (F - y[None]) * w
+        ghw[..., 1] = w
+        return
+    p = _sigmoid(F)
+    ghw[..., 0] = (p - y[None]) * w
+    ghw[..., 1] = torch.maximum(p * (1 - p), torch.tensor(1e-6, dtype=torch.float32,
+                                                         device=F.device)) * w
 
 
 def boost_step(F: torch.Tensor, y: torch.Tensor, w: torch.Tensor, eta: torch.Tensor,
                leaf: Optional[torch.Tensor] = None, row_node: Optional[torch.Tensor] = None,
-               ghw: Optional[torch.Tensor] = None) -> None:
+               ghw: Optional[torch.Tensor] = None, loss: str = "logistic") -> None:
     """One boosting step over [T, n], in place.
 
     With ``leaf`` f32[T, P] and ``row_node`` i32[T, n]: the margin update
     ``F += eta[t] * leaf[t, row_node[t, r]]`` (two roundings, no FMA).  With
-    ``ghw`` f32[T, n, 2]: the logistic gradient and hessian of the (updated)
-    margins, times the row weights ``w`` f32[T, n]: ``(p - y) w`` and
-    ``max(p (1 - p), 1e-6) w`` with ``p = 1 / (1 + exp(-F))``.
+    ``ghw`` f32[T, n, 2]: the gradient and hessian of ``loss`` at the
+    (updated) margins, times the row weights ``w`` f32[T, n]: logistic
+    ``(p - y) w`` and ``max(p (1 - p), 1e-6) w`` with ``p = 1 / (1 +
+    exp(-F))``; squared ``(F - y) w`` and ``w``.
     """
+    _require(loss in BOOST_LOSSES, f"loss must be one of {sorted(BOOST_LOSSES)}, got {loss!r}")
     _require(F.dtype == torch.float32 and F.ndim == 2, "F must be float32[T, n]")
     T, n = F.shape
     _require(y.dtype == torch.float32 and tuple(y.shape) == (n,), f"y must be float32[{n}]")
@@ -804,7 +833,7 @@ def boost_step(F: torch.Tensor, y: torch.Tensor, w: torch.Tensor, eta: torch.Ten
                  f"ghw must be float32[{T}, {n}, 2]")
     others = [t for t in (leaf, row_node, ghw) if t is not None]
     if not _on_cuda(F, y, w, eta, *others):
-        return boost_step_plain(F, y, w, eta, leaf, row_node, ghw)
+        return boost_step_plain(F, y, w, eta, leaf, row_node, ghw, loss)
     for name, a in (("F", F), ("ghw", ghw)):
         _require(a is None or a.is_contiguous(), f"{name} must be contiguous (written in place)")
     if n == 0 or (leaf is None and ghw is None):
@@ -821,7 +850,8 @@ def boost_step(F: torch.Tensor, y: torch.Tensor, w: torch.Tensor, eta: torch.Ten
         tb.boost_step_kernel[grid](F, y, w, eta, leaf_t, node_t,
                                    ghw if ghw is not None else F, n,
                                    leaf_t.shape[1] if upd else 0, UPDATE=upd,
-                                   GRAD=ghw is not None, BLOCK=block, num_warps=4)
+                                   GRAD=ghw is not None, LOSS=BOOST_LOSSES[loss],
+                                   BLOCK=block, num_warps=4)
     boost_step.launches += 1
     return None
 
@@ -901,10 +931,11 @@ def _f32(v, T: int, dev) -> torch.Tensor:
                            device=dev)
 
 
-def _boost(Xb, y, w, row_w_rounds, feat_mask_rounds, n_rounds, max_depth, n_bins,
+def _boost(Xb, y, w, row_w_rounds, feat_mask_rounds, loss, n_rounds, max_depth, n_bins,
            frontier, eta, params, base, exact_cap, keep_trees):
-    """Boosting over the tree batch: per round one K-H step (margin update +
-    gradients) and one tree grown per batch element, then a last update."""
+    """Boosting over the tree batch from the margins ``base`` [T]: per round
+    one K-H step (margin update + gradients) and one tree grown per batch
+    element, then a last update."""
     T, n = w.shape
     dev = Xb.device
     P = _pool_size(max_depth, frontier)
@@ -919,7 +950,7 @@ def _boost(Xb, y, w, row_w_rounds, feat_mask_rounds, n_rounds, max_depth, n_bins
     for r in range(n_rounds):
         w_r = w * row_w_rounds[r][None]
         fm = feat_mask_rounds[r][None].expand(T, -1).contiguous()
-        boost_step(F, y, w_r, eta, prev[0], prev[1], ghw)
+        boost_step(F, y, w_r, eta, prev[0], prev[1], ghw, loss)
         nd, lf = (nodes_all[r], leaf_all[r]) if keep_trees else (nodes, leaf)
         _, _, row_node = grow_trees(Xb, ghw, fm, params, max_depth, n_bins, frontier,
                                     exact_cap, nd, lf)
@@ -931,10 +962,9 @@ def _boost(Xb, y, w, row_w_rounds, feat_mask_rounds, n_rounds, max_depth, n_bins
 
 
 def _boost_args(loss: str, n_classes: int, trees_per_round: int) -> None:
-    if loss != "logistic":
+    if loss not in BOOST_LOSSES:
         raise NotImplementedError(
-            f"loss {loss!r}: only the logistic loss is ported (softmax and squared "
-            "losses are queued)")
+            f"loss {loss!r}: the logistic and squared losses are ported (softmax is queued)")
     if int(trees_per_round) != 1:
         raise NotImplementedError("trees_per_round > 1 (round collapse) is not ported yet")
 
@@ -945,7 +975,8 @@ def fit_gbt(Xb: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
             reg_lambda: float = 1.0, gamma: float = 0.0, min_child_weight: float = 1.0,
             base_score: float = 0.0, n_classes: int = 1, min_info_gain: float = 0.0,
             exact_cap: bool = False, trees_per_round: int = 1) -> Tuple[Tree, torch.Tensor]:
-    """XGBoost-style boosting, one histogram tree per round, on Xb's device.
+    """XGBoost-style boosting (logistic or squared loss), one histogram tree
+    per round from the margin ``base_score``, on Xb's device.
 
     ``row_w_rounds`` f32[R, n] and ``feat_mask_rounds`` f32[R, d] are the
     per-round subsample and colsample masks.  Returns (the stacked ``Tree``
@@ -956,7 +987,7 @@ def fit_gbt(Xb: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
                           dtype=torch.float32, device=dev)
     F, (nodes, leaf) = _boost(
         Xb, y.to(dev, torch.float32), w.to(dev, torch.float32)[None], row_w_rounds,
-        feat_mask_rounds, n_rounds, max_depth, n_bins, frontier, _f32(eta, 1, dev), params,
+        feat_mask_rounds, loss, n_rounds, max_depth, n_bins, frontier, _f32(eta, 1, dev), params,
         _f32(base_score, 1, dev), exact_cap, keep_trees=True)
     return as_tree(nodes[:, 0], leaf[:, 0]), F[0][:, None]
 
@@ -969,8 +1000,8 @@ def fit_gbt_batch(Xb: torch.Tensor, y: torch.Tensor, w_batch: torch.Tensor,
                   trees_per_round: int = 1) -> torch.Tensor:
     """The fold x grid boosting sweep: ``w_batch`` f32[B, n] carries each
     batch element's fold-mask x sample weights, the ``*_b`` arrays its
-    hyperparameters.  All B trees of a round grow together.  Returns the
-    final margins F f32[B, n, 1] on every row."""
+    hyperparameters and starting margin.  All B trees of a round grow
+    together.  Returns the final margins F f32[B, n, 1] on every row."""
     _boost_args(loss, n_classes, trees_per_round)
     dev = Xb.device
     B = w_batch.shape[0]
@@ -980,7 +1011,7 @@ def fit_gbt_batch(Xb: torch.Tensor, y: torch.Tensor, w_batch: torch.Tensor,
                           _f32(zeros if min_info_gain_b is None else min_info_gain_b, B, dev)],
                          dim=1)
     F, _ = _boost(Xb, y.to(dev, torch.float32), w_batch.to(dev, torch.float32).contiguous(),
-                  row_w_rounds, feat_mask_rounds, n_rounds, max_depth, n_bins, frontier,
+                  row_w_rounds, feat_mask_rounds, loss, n_rounds, max_depth, n_bins, frontier,
                   _f32(eta_b, B, dev), params,
                   _f32(zeros if base_score_b is None else base_score_b, B, dev),
                   exact_cap, keep_trees=False)

@@ -3,11 +3,12 @@
 Imported only by the launching wrapper ``ops/trees.py::boost_step``, on a
 host with Triton and a CUDA card; no other module imports it.
 
-Replaces the margin update and the logistic ``_grad_hess`` of the JAX
-package (``transmogrifai_tpu/ops/trees.py:1117-1128``, ``:1206``): for each
-(tree t, row r), ``F += eta[t] * leaf[t, row_node[t, r]]`` (one gather),
-then ``p = 1 / (1 + exp(-F))``, ``g = (p - y) w`` and
-``h = max(p (1 - p), 1e-6) w``.  It is one pass over [T, n] with no reuse,
+Replaces the margin update and the logistic and squared ``_grad_hess`` of
+the JAX package (``transmogrifai_tpu/ops/trees.py:1117-1128``, ``:1206``):
+for each (tree t, row r), ``F += eta[t] * leaf[t, row_node[t, r]]`` (one
+gather), then with ``LOSS`` 0 (logistic) ``p = 1 / (1 + exp(-F))``,
+``g = (p - y) w`` and ``h = max(p (1 - p), 1e-6) w``, with ``LOSS`` 1
+(squared) ``g = (F - y) w`` and ``h = w``.  It is one pass over [T, n] with no reuse,
 which shared memory and tensor cores cannot speed up and Triton's masked
 block loads express directly; so it is written in Triton, as K-C and K-D
 are.  Every product, sum and quotient is a round-to-nearest PTX
@@ -50,7 +51,8 @@ def _div(a, b):
 
 @triton.jit
 def boost_step_kernel(F_ptr, y_ptr, w_ptr, eta_ptr, leaf_ptr, node_ptr, ghw_ptr, n, P,
-                      UPDATE: tl.constexpr, GRAD: tl.constexpr, BLOCK: tl.constexpr):
+                      UPDATE: tl.constexpr, GRAD: tl.constexpr, LOSS: tl.constexpr,
+                      BLOCK: tl.constexpr):
     t = tl.program_id(1)
     r = tl.program_id(0) * BLOCK + tl.arange(0, BLOCK)
     ok = r < n
@@ -66,9 +68,13 @@ def boost_step_kernel(F_ptr, y_ptr, w_ptr, eta_ptr, leaf_ptr, node_ptr, ghw_ptr,
     if GRAD:
         y = tl.load(y_ptr + r, mask=ok, other=0.0)
         w = tl.load(w_ptr + i, mask=ok, other=0.0)
-        p = _div(one, _add(one, libdevice.exp(-f)))
-        g = _mul(_sub(p, y), w)
-        h = _mul(tl.maximum(_mul(p, _sub(one, p)), 1e-6), w)
+        if LOSS == 1:
+            g = _mul(_sub(f, y), w)
+            h = w
+        else:
+            p = _div(one, _add(one, libdevice.exp(-f)))
+            g = _mul(_sub(p, y), w)
+            h = _mul(tl.maximum(_mul(p, _sub(one, p)), 1e-6), w)
         tl.store(ghw_ptr + 2 * i, g, mask=ok)
         tl.store(ghw_ptr + 2 * i + 1, h, mask=ok)
 
