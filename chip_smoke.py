@@ -1,4 +1,4 @@
-"""Chip smoke test of the PyTorch/CUDA port: serve and train Titanic, train Boston, on the GPU.
+"""Chip smoke test of the PyTorch/CUDA port: serve and train Titanic, train Boston and Iris, on the GPU.
 
 Run from the repository root on a host with one CUDA card:
 
@@ -93,7 +93,32 @@ Phases, each printing its findings on a line of its own:
                on the sweep call of the ``--train-rows`` Boston train (its
                feature matrix, folds and candidates), and K-E at a
                fixed-point scale below 2^32 (the deepest GBT group's root
-               level with the gradients in dollars); timed as in phase 2.
+               level with the gradients in dollars); timed as in phase 2;
+15. iris reference -- the Iris workflow's stock multiclass train (softmax LR
+               + RF with class-distribution leaves, 26 candidates, one fused
+               sweep, the Error metric) on the 150-row frame, held to the
+               committed fixture ``iris_stock``: the same winner (RF depth 3,
+               min_info_gain 0.001, min_instances_per_node 10), every fold
+               Error bit-equal (nine candidates tie at the best mean), the
+               forests' fold F1 / Precision / Recall bit-equal and the
+               softmax candidates' within ``FX.IRIS_SOFTMAX_METRIC_TOL``, the
+               ``DataCutter`` summary and the holdout metrics equal, the
+               forests' draws equal, the sweep's feature matrix against the
+               fixture's, the fixture model's and the port-saved model's
+               answers for the 256 requests; a second run is profiled;
+16. iris train -- the main path of the multiclass train: the Iris flow on a
+               frame of ``--train-rows`` rows drawn from ``--seed`` by
+               ``iris_data``'s formula; every kernel's launch count is reset
+               just before and read just after (K-A, K-B, K-C, K-E, K-F,
+               K-G, K-M, K-P, K-Q must be above 0), with the wall time and
+               the host-clock breakdown; a second run is profiled;
+17. iris kernels -- K-P (the sweep call's first FISTA step, and at the
+               fitted coefficients), K-Q (the sweep call's [3, 26, n, 3]
+               probabilities) and K-E, K-F, K-M over c = 3 class channels
+               (one depth-12 forest's deepest level; the depth-12 group's
+               leaves) against their plain versions: K-Q, K-E, K-F and K-M
+               bit-equal, K-P within ``SOFTMAX_GRAD_RTOL``; timed as in
+               phase 2.
 
 The line before the last holds the kernels' JSON record, then the card's
 name and power limit; the last line is ``{"ok": true, "device": ...}``.  Any
@@ -131,6 +156,9 @@ FISTA_GRAD_RTOL = 1e-5
 REG_METRIC_RTOL = 2e-7
 #: the Boston refit's holdout metrics against the fixture's, relative
 BOSTON_HOLDOUT_RTOL = 1e-5
+#: largest gap of K-P's gradients to its plain version (cuBLAS products),
+#: relative to the largest gradient entry: float32 sums in another order
+SOFTMAX_GRAD_RTOL = 1e-6
 #: the dollars of a Boston target in thousands: the rescaled K-E case's
 #: gradients, whose sums leave 2^32's fixed-point range
 DOLLARS = 1e4
@@ -208,6 +236,18 @@ def bound_ms(n_bytes, n_ops):
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
     t_ops = n_ops / PEAK_SCALAR_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def ptxas_summary(log_text):
+    """nvcc's ``-Xptxas=-v`` report as one line per kernel: its mangled name
+    (the template arguments in it), registers, spills, shared memory."""
+    out, name = [], None
+    for ln in log_text.splitlines():
+        if "Compiling entry function" in ln:
+            name = ln.split("'")[1] if "'" in ln else ln.strip()
+        elif "registers" in ln or "spill" in ln:
+            out.append(f"{name}: {ln.split(':', 1)[-1].strip()}")
+    return out
 
 
 def profiled(torch, fn):
@@ -573,6 +613,25 @@ def train_phase(torch, titanic, rows, seed, kernels, dev="cuda"):
     return launches, model, rec.calls[0][:3]
 
 
+def grow_levels(torch, Tr, Xb, ghw, fm, params, depth, B, frontier, exact, nodes, leaf):
+    """One batch of trees through K-E, K-F and K-G, level by level, into the
+    pools ``nodes`` and ``leaf``: the deepest level's arguments of each, its
+    histograms, the child block's width and the rows' nodes."""
+    T, n = ghw.shape[:2]
+    row_slot = torch.zeros((T, n), dtype=torch.int32, device=Xb.device)
+    row_node = torch.zeros_like(row_slot)
+    n_active = torch.ones((T,), dtype=torch.int32, device=Xb.device)
+    ids, hist, pp, pl = row_slot, None, None, None
+    for t, (m, sb, nf, nc, cap) in enumerate(Tr.level_schedule(depth, frontier, exact)):
+        e_args = (Xb, ghw, ids, m, B) + ((hist, pp, pl) if t else ())
+        hist = Tr.level_hist(*e_args)
+        f_args = (hist, fm, params, n_active, nodes, leaf, sb, nf, nc, cap, t == 0)
+        split, pp, pl, n_active = Tr.split_scan(*f_args)
+        g_args = (Xb, row_slot, row_node, split, pl, nf)
+        row_slot, row_node, ids = Tr.route_rows(*g_args)
+    return e_args, f_args, g_args, hist, nc, row_node
+
+
 def train_kernel_phase(torch, model, timer, dev="cuda"):
     """K-E ... K-H against their plain versions at the train path's shapes:
     the inputs of the deepest level of the second round of one sweep fold
@@ -604,20 +663,8 @@ def train_kernel_phase(torch, model, timer, dev="cuda"):
     leaf = torch.empty((T, P_), device=dev)
 
     def grow():
-        """One round's tree through K-E, K-F, K-G; the deepest level's
-        arguments of each, and the rows' nodes."""
-        row_slot = torch.zeros((T, n), dtype=torch.int32, device=dev)
-        row_node = torch.zeros_like(row_slot)
-        n_active = torch.ones((T,), dtype=torch.int32, device=dev)
-        ids, hist, pp, pl = row_slot, None, None, None
-        for t, (m, sb, nf, nc, cap) in enumerate(Tr.level_schedule(depth, frontier, exact)):
-            e_args = (Xb, ghw, ids, m, B) + ((hist, pp, pl) if t else ())
-            hist = Tr.level_hist(*e_args)
-            f_args = (hist, fm, params, n_active, nodes, leaf, sb, nf, nc, cap, t == 0)
-            split, pp, pl, n_active = Tr.split_scan(*f_args)
-            g_args = (Xb, row_slot, row_node, split, pl, nf)
-            row_slot, row_node, ids = Tr.route_rows(*g_args)
-        return e_args, f_args, g_args, hist, nc, row_node
+        return grow_levels(torch, Tr, Xb, ghw, fm, params, depth, B, frontier, exact, nodes,
+                           leaf)
 
     Tr.boost_step(F, y, w, eta, ghw=ghw)
     *_, row_node = grow()
@@ -873,6 +920,7 @@ def sweep_kernel_phase(torch, call, timer):
     # K-M forest_leaf_mean: the deepest forest group's leaves
     group = max(frags["forest"][2], key=lambda g: g[1])
     leaf, row_node = SW.grow_forest_group(group, xbs, y, tw, np.asarray(blob, np.float32))
+    leaf = leaf[..., 0]  # one channel: p(class 1)
     Gg, T, P_ = leaf.shape
     got, want = Tr.forest_leaf_mean(leaf, row_node), Tr.forest_leaf_mean_plain(leaf, row_node)
     check(torch.equal(got, want), "forest_leaf_mean differs from plain")
@@ -1114,6 +1162,292 @@ def boston_kernel_phase(torch, call, timer):
     return records
 
 
+def iris_reference_phase(torch, iris, FX, dev="cuda"):
+    """The stock multiclass train on the 150-row Iris frame, held to the
+    committed fixture; raises on a failed check."""
+    import tempfile
+
+    import transmogrifai_tpu_torch as P
+    from transmogrifai_tpu_torch.ops import trees as Tr
+
+    with SweepCalls() as rec:
+        t = time.perf_counter()
+        model, wf = iris.train_iris(device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    found = FX.check_iris_train(model)
+    ref = FX.load_sweep(FX.IRIS_STOCK + "/sweep.npz")
+    check(len(rec.calls) == 1, f"{len(rec.calls)} sweep calls, the fixture has one")
+    plan, train_w, val_mask, out = rec.calls[0]
+    mine = out[None]
+    check(mine.shape == ref["metrics"].shape, f"sweep metrics {mine.shape}")
+    lr, rf = slice(0, 8), slice(8, 26)
+    check(np.array_equal(mine[..., rf, :], ref["metrics"][..., rf, :]),
+          "the forests' fold metrics differ from the fixture's")
+    check(np.array_equal(mine[..., 3], ref["metrics"][..., 3]),
+          "fold Errors differ from the fixture's")
+    lr_gap = float(np.abs(mine[..., lr, :3] - ref["metrics"][..., lr, :3]).max())
+    check(lr_gap <= FX.IRIS_SOFTMAX_METRIC_TOL,
+          f"softmax candidates' F1/P/R {lr_gap} from the fixture's, above "
+          f"{FX.IRIS_SOFTMAX_METRIC_TOL}")
+    check(np.array_equal(np.asarray(train_w), ref["train_w"])
+          and np.array_equal(np.asarray(val_mask), ref["val_mask"]), "folds differ")
+    x_gap = float(np.abs(plan.X.cpu().numpy() - ref["X"]).max())
+    check(x_gap == 0.0, f"the sweep's feature matrix {x_gap} from the fixture's")
+    kb, kf = Tr.rng_keys(42)
+    boot = Tr.bootstrap_weights(kb, 135, 50, device=dev).cpu().numpy()
+    masks = Tr.feature_masks(kf, 8, 50, np.sqrt(8) / 8, dev).cpu().numpy()
+    check(np.array_equal(boot, ref["bootstrap"]), "bootstrap draws differ from the fixture's")
+    check(np.array_equal(masks, ref["feature_masks"]), "feature masks differ from the fixture's")
+    req = FX.load_columns(FX.IRIS_STOCK + "/requests.npz")
+    exp = FX.load_expected(FX.IRIS_STOCK + "/expected.npz")
+    answers = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        model.save(tmp)
+        for who, path in (("fixture_model", FX.IRIS_STOCK), ("port_saved_model", tmp)):
+            m = P.load_model(path, device=dev)
+            pred, prob, _ = FX.multiclass_predictions(
+                P.BatchScoreFunction(m)(FX.records(req)), m.result_features[0].name, 3)
+            err = float(np.abs(prob - exp["probability"]).max())
+            check(np.array_equal(pred, exp["prediction"]) and err <= FX.IRIS_PROB_ATOL,
+                  f"the {who}'s answers differ from the JAX package's (probability {err})")
+            answers[who] = {"prediction_mismatches": 0, "probability_max_abs_err": err}
+    prof_wall, busy_s, idle, by_kernel = profiled(torch, lambda: iris.train_iris(device=dev))
+    summ = model.stages[-1].summary
+    log("iris_reference", rows=150, wall_s=wall, best=summ.best_model_name,
+        best_grid=summ.best_grid, **{k: v for k, v in found.items() if k != "holdout"},
+        softmax_metric_max_gap=lr_gap, tolerance=FX.IRIS_SOFTMAX_METRIC_TOL,
+        forest_metrics_bit_equal=True, fold_errors_bit_equal=True, draws_equal=True,
+        data_prep=summ.data_prep_results, holdout=summ.holdout_evaluation,
+        requests_vs_expected=answers, timings_s=wf.train_timings,
+        profiled_train_s=prof_wall, device_busy_s=busy_s, device_idle_share=idle,
+        device_s_by_kernel=by_kernel)
+
+
+def iris_train_phase(torch, iris, rows, seed, kernels, dev="cuda"):
+    """The main path of the multiclass train at ``rows`` rows: launch counts
+    reset just before and read just after; then a profiled second run.
+    Returns (each kernel's launches, the sweep call)."""
+    frame = iris.iris_data(rows, seed)
+    for fn in kernels:
+        fn.launches = 0
+    with SweepCalls() as rec:
+        t = time.perf_counter()
+        model, wf = iris.train_iris(frame, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    launches = {fn.__name__: fn.launches for fn in kernels}
+    summ = model.stages[-1].summary
+    folds = [m for r in summ.validation_results for m in r["foldMetrics"]]
+    check(len(summ.validation_results) == 26, "the stock multiclass space has 26 candidates")
+    check(all(np.isfinite(folds)) and 0.0 <= min(folds) and max(folds) < 0.5,
+          f"bad fold Errors {folds}")
+    check(summ.holdout_evaluation["Error"] < 0.1, "bad holdout Error")
+    timings = dict(wf.train_timings)
+    prof_wall, busy_s, idle, by_kernel = profiled(
+        torch, lambda: iris.train_iris(frame, device=dev))
+    plan = rec.calls[0][0]
+    log("iris_train", rows=rows, wall_s=wall, launches=launches, host_clock_s=timings,
+        best=summ.best_model_name, best_grid=summ.best_grid,
+        best_fold_error=next(r["foldMetrics"] for r in summ.validation_results
+                             if (r["modelName"], r["grid"]) == (summ.best_model_name,
+                                                                summ.best_grid)),
+        holdout={k: v for k, v in summ.holdout_evaluation.items() if k != "ThresholdMetrics"},
+        data_prep=summ.data_prep_results, sweep_spec=repr(plan.spec),
+        sweep_rows=int(plan.X.shape[0]), sweep_features=int(plan.X.shape[1]),
+        profiled_train_s=prof_wall, device_busy_s=busy_s, device_idle_share=idle,
+        device_s_by_kernel=by_kernel)
+    return launches, rec.calls[0]
+
+
+def iris_kernel_phase(torch, call, timer):
+    """K-P, K-Q and c = 3 K-E / K-F / K-M against their plain versions on
+    the sweep call of the ``--train-rows`` Iris train."""
+    from transmogrifai_tpu_torch.ops import linear as L
+    from transmogrifai_tpu_torch.ops import metrics as M
+    from transmogrifai_tpu_torch.ops import sweep as SW
+    from transmogrifai_tpu_torch.ops import trees as Tr
+
+    plan, train_w, val_mask, out = call
+    X, y, xbs, blob = plan.X, plan.y, plan.xbs, np.asarray(plan.blob, np.float32)
+    dev = X.device
+    tw = torch.as_tensor(np.asarray(train_w, np.float32), device=dev).contiguous()
+    vm = torch.as_tensor(np.asarray(val_mask, np.float32), device=dev).contiguous()
+    n, d = X.shape
+    F = tw.shape[0]
+    k = plan.spec[0][1]
+    frags = {f[0]: f for f in plan.spec[1]}
+    records = []
+
+    # K-P softmax_fista_grad: the sweep's first FISTA step (all coefficients
+    # 0), and the gradients at the fitted coefficients
+    _, cis, max_iter, fit_icpt, off_l1, off_l2 = frags["fista"]
+    G = len(cis)
+    l1, l2 = blob[off_l1:off_l1 + G], blob[off_l2:off_l2 + G]
+    C, p = F * G, d + 1
+    X1 = torch.cat([X, torch.ones((n, 1), device=dev)], 1).contiguous()
+    fold = torch.arange(F, dtype=torch.int32, device=dev).repeat_interleave(G)
+    l2m = torch.as_tensor(np.tile(l2, F), device=dev)[:, None, None].repeat(1, p, k)
+    l2m[:, -1] = 0.0
+    l2m = l2m.contiguous()
+    wsum = torch.clamp_min(tw.sum(1), 1e-12)[fold.long()].contiguous()
+    fit = L.fit_softmax_grid_folds(X, y, tw, l1, l2, num_classes=k, max_iter=max_iter,
+                                   fit_intercept=fit_icpt)
+    z_fit = torch.cat([fit.coef, fit.intercept[:, :, None]], 2).reshape(C, p, k).contiguous()
+    z0 = torch.zeros((C, p, k), device=dev)
+    errs, scales, to_f64 = [], [], []
+    for z in (z0, z_fit):
+        args = (X1, y, tw, fold, z, l2m, wsum)
+        got, want = L.softmax_fista_grad(*args), L.softmax_fista_grad_plain(*args)
+        check(torch.equal(got, L.softmax_fista_grad(*args)),
+              "softmax_fista_grad does not repeat bit for bit")
+        exact = L.softmax_fista_grad_plain(*(a.double() if a.is_floating_point() else a
+                                             for a in args))
+        to_f64.append({"kernel": float((got - exact).abs().max()),
+                       "plain": float((want - exact).abs().max())})
+        scales.append(float(want.abs().max()))
+        errs.append(float((got - want).abs().max()))
+        check(errs[-1] <= SOFTMAX_GRAD_RTOL * scales[-1],
+              f"softmax_fista_grad {errs[-1]} from plain, above {SOFTMAX_GRAD_RTOL} x "
+              f"{scales[-1]}")
+    args = (X1, y, tw, fold, z0, l2m, wsum)
+    # the library yardstick: two [n, p] x [p, C k] products for all fits
+    zf = z0.permute(1, 0, 2).reshape(p, C * k)
+    Yk = torch.nn.functional.one_hot(y.long(), k).float().repeat(1, C)
+    wk = tw[fold.long()].T.repeat_interleave(k, dim=1)
+
+    def library_grad():
+        mu = torch.softmax(torch.matmul(X1, zf).view(n, C, k), -1).view(n, C * k)
+        g = torch.matmul(X1.T, wk * (mu - Yk)).view(p, C, k).permute(1, 0, 2)
+        return g / wsum[:, None, None] + l2m * z0
+
+    # X1, each fold's weights and y read once, the coefficients and penalties
+    # read and the gradients written; per (fit, row) the margins and the
+    # accumulation (4 p k operations) and the softmax and residual (~6 k)
+    b, by = bound_ms((n * p + F * n + n) * 4 + C * p * k * 4 * 3 + C * 4,
+                     C * n * (4 * p * k + 6 * k))
+    records.append(dict(
+        name="softmax_fista_grad", route="cuda", source="transmogrifai_tpu_torch/csrc/fista.cu",
+        replaces="transmogrifai_tpu/ops/linear.py:148", max_abs_err=max(errs),
+        ms=timer(lambda: L.softmax_fista_grad(*args)),
+        plain_ms=timer(lambda: L.softmax_fista_grad_plain(*args)),
+        bound_ms=b, bound_by=by, library_ms=timer(library_grad)))
+    check(float((library_grad() - L.softmax_fista_grad(*args)).abs().max())
+          <= 1e-5 * scales[0], "the library yardstick computes another function")
+    del fit, wk, Yk
+
+    # K-Q multiclass_metrics: the sweep's [F, 26, n, k] probabilities
+    scores = SW._all_scores(plan.spec, X, xbs, y, tw, blob)
+    Cs = scores.shape[1]
+    R = F * Cs
+    probs = scores.reshape(R, n, k)
+    got, want = M.multiclass_metrics(probs, y, vm, Cs), M.multiclass_metrics_plain(probs, y, vm, Cs)
+    check(torch.equal(got, want), "multiclass_metrics differs from plain")
+    check(np.array_equal(got.reshape(F, Cs, 4).cpu().numpy(), out),
+          "multiclass_metrics differs from the sweep's own metrics")
+    # the probabilities read once, y and the masks read once, four floats a
+    # row written; about k + 6 operations an element
+    b, by = bound_ms(R * n * k * 4 + n * 4 + F * n * 4 + R * 16, R * n * (k + 6))
+    records.append(dict(
+        name="multiclass_metrics", route="cuda",
+        source="transmogrifai_tpu_torch/csrc/multiclass_metrics.cu",
+        replaces="transmogrifai_tpu/ops/metrics.py:162", max_abs_err=0.0,
+        ms=timer(lambda: M.multiclass_metrics(probs, y, vm, Cs)),
+        plain_ms=timer(lambda: M.multiclass_metrics_plain(probs, y, vm, Cs)),
+        bound_ms=b, bound_by=by, library_ms=None))
+    del scores, probs
+
+    # K-E / K-F over c = 3 class channels: the deepest level of the depth-12
+    # group's first (fold, candidate) forest, 50 trees
+    group = max(frags["forest"][2], key=lambda g: g[1])
+    (gcis, depth, n_trees, xb_idx, B, frac, rate, bag, seed, frontier, exact, _,
+     off_mcw, off_mig) = group
+    Xb = xbs[xb_idx]
+    kb, kf = Tr.rng_keys(seed)
+    T = n_trees
+    w_t = Tr.bootstrap_weights(kb, n, T, bag, rate, dev) * tw[0][None]
+    fm = Tr.feature_masks(kf, d, T, frac, dev)
+    g = -torch.nn.functional.one_hot(y.long(), k).float()
+    ghw = torch.cat([w_t[..., None] * g[None], w_t[..., None]], -1).contiguous()
+    params = torch.tensor([[1e-6, 0.0, float(blob[off_mcw]), float(blob[off_mig])]] * T,
+                          device=dev)
+    P_ = Tr._pool_size(depth, frontier)
+    nodes = torch.empty((T, P_, 4), dtype=torch.int32, device=dev)
+    e_args, f_args, _, _, nc, _ = grow_levels(torch, Tr, Xb, ghw, fm, params, depth, B,
+                                              frontier, exact, nodes,
+                                              torch.empty((T, P_, k), device=dev))
+    torch.cuda.synchronize()
+    got, want = Tr.level_hist(*e_args), Tr.level_hist_plain(*e_args)
+    check(torch.equal(got, want) and torch.equal(got, Tr.level_hist(*e_args)),
+          "level_hist over class channels differs from plain")
+    m_deep, pairs, C1 = e_args[3], e_args[3] // 2, k + 1
+    hist_bytes = T * m_deep * C1 * d * B * 4
+    idx = (e_args[2].long() * B)[:, None, :] + Xb.long().T[None]
+    dead = (e_args[2] < 0)[:, None, :].expand(T, d, n)
+    seg_n = pairs * B + 1
+    offs = (torch.arange(T * d, device=dev) * seg_n).view(T, d, 1)
+    idx = (torch.where(dead, pairs * B, idx) + offs).reshape(-1)
+    src = ghw[:, None].expand(T, d, n, C1).reshape(-1, C1).contiguous()
+    zeros = torch.zeros((T * d * seg_n, C1), device=dev)
+    # Xb once, the channels and the pair id per (tree, row), the parent
+    # histograms, the pairs' parent and flag, the level's histograms written
+    b, by = bound_ms(n * d + T * n * (4 * C1 + 4) + e_args[5].numel() * 4 + T * pairs * 8
+                     + hist_bytes, T * n * d * C1)
+    records.append(dict(
+        name="level_hist_c3", route="cuda", source="transmogrifai_tpu_torch/csrc/level_hist.cu",
+        replaces="transmogrifai_tpu/ops/trees.py:327", max_abs_err=0.0,
+        ms=timer(lambda: Tr.level_hist_launch(*e_args)),
+        plain_ms=timer(lambda: Tr.level_hist_plain(*e_args)),
+        bound_ms=b, bound_by=by,
+        library_ms=timer(lambda: torch.index_add(zeros, 0, idx, src))))
+    del idx, src, zeros
+    outs = []
+    for fn in (Tr.split_scan, Tr.split_scan_plain):
+        nd, lf = f_args[4].clone(), f_args[5].clone()
+        outs.append((nd, lf) + tuple(fn(*f_args[:4], nd, lf, *f_args[6:])))
+    check(all(torch.equal(a, b) for a, b in zip(*outs)),
+          "split_scan over class channels differs from plain")
+    # the histograms read once, the slot records and split records written,
+    # the child block's records, leaves (c floats) and pairs written; about
+    # 10 + 4 c operations per candidate split
+    b, by = bound_ms(hist_bytes + T * m_deep * 32 + T * nc * (16 + 4 * k + 8),
+                     T * m_deep * d * B * (10 + 4 * k))
+    records.append(dict(
+        name="split_scan_c3", route="cuda", source="transmogrifai_tpu_torch/csrc/split_scan.cu",
+        replaces="transmogrifai_tpu/ops/trees.py:449", max_abs_err=0.0,
+        ms=timer(lambda: Tr.split_scan(*f_args)),
+        plain_ms=timer(lambda: Tr.split_scan_plain(*f_args[:4], f_args[4].clone(),
+                                                   f_args[5].clone(), *f_args[6:])),
+        bound_ms=b, bound_by=by, library_ms=None))
+    del e_args, f_args, outs, ghw, w_t
+
+    # K-M over c = 3: the depth-12 group's leaves (F x 6 forests of 50 trees)
+    leaf, row_node = SW.grow_forest_group(group, xbs, y, tw, blob, out_c=k)
+    Gg, Tg, P_, c = leaf.shape
+    got, want = Tr.forest_leaf_mean(leaf, row_node), Tr.forest_leaf_mean_plain(leaf, row_node)
+    check(torch.equal(got, want), "forest_leaf_mean over class channels differs from plain")
+    rn_long = row_node.long()[..., None].expand(-1, -1, -1, c)
+    # the rows' leaves read once, the pools read once, the means written
+    b, by = bound_ms(Gg * Tg * n * 4 + Gg * Tg * P_ * c * 4 + Gg * n * c * 4, Gg * Tg * n * c)
+    records.append(dict(
+        name="forest_leaf_mean_c3", route="triton",
+        source="transmogrifai_tpu_torch/ops/triton_forest.py",
+        replaces="transmogrifai_tpu/ops/sweep.py:253", max_abs_err=0.0,
+        ms=timer(lambda: Tr.forest_leaf_mean(leaf, row_node)),
+        plain_ms=timer(lambda: Tr.forest_leaf_mean_plain(leaf, row_node)),
+        bound_ms=b, bound_by=by, library_ms=timer(lambda: leaf.gather(2, rn_long).mean(1))))
+    log("iris_kernels", rows=n, shapes={"X1": [n, p], "fits": C, "classes": k,
+                                        "score_rows": R, "probs": [F, Cs, n, k],
+                                        "level_trees": T, "depth": depth,
+                                        "hist": [T, m_deep, C1, d, B],
+                                        "forest_group": [Gg, Tg, P_, c]},
+        softmax_fista_grad_scale={"first_step": scales[0], "fitted": scales[1]},
+        softmax_fista_grad_err={"first_step": errs[0], "fitted": errs[1]},
+        softmax_fista_grad_err_to_float64={"first_step": to_f64[0], "fitted": to_f64[1]},
+        records=records)
+    return records
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1137,7 +1471,7 @@ def main(argv=None):
     from transmogrifai_tpu_torch.ops import trees as Tr
     from transmogrifai_tpu_torch.ops import vectorize as V
 
-    from transmogrifai_tpu_torch.apps import boston, titanic
+    from transmogrifai_tpu_torch.apps import boston, iris, titanic
 
     kernels = (Tr.bin_rows, Tr.ensemble_walk, V.fill_indicator, V.one_hot_codes)
     train_kernels = (Tr.bin_rows, Tr.level_hist, Tr.split_scan, Tr.route_rows,
@@ -1146,6 +1480,9 @@ def main(argv=None):
     boston_kernels = (Tr.bin_rows, Tr.ensemble_walk, Tr.level_hist, Tr.split_scan,
                       Tr.route_rows, Tr.boost_step, Tr.forest_leaf_mean, L.linear_fista_grad,
                       M.regression_metrics)
+    iris_kernels = (Tr.bin_rows, Tr.ensemble_walk, V.fill_indicator, Tr.level_hist,
+                    Tr.split_scan, Tr.route_rows, Tr.forest_leaf_mean, L.softmax_fista_grad,
+                    M.multiclass_metrics)
     smi = nvidia_smi()
     kind = torch.cuda.get_device_name(0)
 
@@ -1160,11 +1497,12 @@ def main(argv=None):
         Tr.boost_step(one, one[0], one, one[:, 0], ghw=torch.empty((2, 8, 2), device=dev),
                       loss=loss)
     Tr.forest_leaf_mean(one[None], torch.zeros((1, 2, 8), dtype=torch.int32, device=dev))
+    Tr.forest_leaf_mean(one[None, ..., None].repeat(1, 1, 1, 3),
+                        torch.zeros((1, 2, 8), dtype=torch.int32, device=dev))
     torch.cuda.synchronize()
     log("device", nvidia_smi=smi, name=kind, torch=torch.__version__,
         cuda=torch.version.cuda, build_s=time.perf_counter() - t0, nvcc_s=nvcc_s,
-        ptxas={k: [ln for ln in v.splitlines() if "registers" in ln or "spill" in ln]
-               for k, v in cuda_build.BUILD_LOG.items()})
+        ptxas={k: ptxas_summary(v) for k, v in cuda_build.BUILD_LOG.items()})
 
     model = P.load_model(FX.TITANIC_XGB)
     cols = titanic_columns(args.rows, args.seed)
@@ -1205,6 +1543,15 @@ def main(argv=None):
     missing = [k for k, v in boston_launches.items() if v <= 0]
     check(not missing, f"kernels not launched on the regression train path: {missing}")
     boston_records = boston_kernel_phase(torch, boston_call, timer)
+    del boston_call
+
+    # 15-17. the multiclass train: the fixture's, the main path at scale, kernels
+    iris_reference_phase(torch, iris, FX)
+    iris_launches, iris_call = iris_train_phase(torch, iris, args.train_rows, args.seed,
+                                                iris_kernels)
+    missing = [k for k, v in iris_launches.items() if v <= 0]
+    check(not missing, f"kernels not launched on the multiclass train path: {missing}")
+    iris_records = iris_kernel_phase(torch, iris_call, timer)
 
     for r in records:
         r["launches"] = launches[r["name"]]
@@ -1212,7 +1559,9 @@ def main(argv=None):
         r["launches"] = train_launches[r["name"]]
     for r in boston_records:
         r["launches"] = boston_launches[r["name"].replace("_squared", "")]
-    records += train_records + boston_records
+    for r in iris_records:
+        r["launches"] = iris_launches[r["name"].replace("_c3", "")]
+    records += train_records + boston_records + iris_records
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in records]}), flush=True)

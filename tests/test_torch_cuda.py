@@ -338,3 +338,138 @@ def test_forest_leaf_mean_matches_plain(dev, G, T, n):
     node = torch.from_numpy(rng.integers(0, P, (G, T, n)).astype(np.int32)).to(dev)
     got = _counted(Tr.forest_leaf_mean, lambda: Tr.forest_leaf_mean(leaf, node))
     assert torch.equal(got, Tr.forest_leaf_mean_plain(leaf, node))
+
+
+# ---------------------------------------------------------------------------
+# the multiclass sweep's kernels: K-P softmax_fista_grad, K-Q
+# multiclass_metrics, and K-E / K-F / K-M over c = 3 class channels
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("n,p,k,C,F", [(1, 3, 3, 1, 1), (135, 9, 3, 24, 3),
+                                       (70000, 9, 3, 24, 3), (5000, 20, 5, 6, 2),
+                                       (3000, 64, 8, 4, 1)])
+def test_softmax_fista_grad_matches_plain(dev, n, p, k, C, F):
+    from transmogrifai_tpu_torch.ops import linear as L
+
+    rng = np.random.default_rng(n + p + k)
+    X1 = rng.normal(size=(n, p)).astype(np.float32)
+    X1[:, -1] = 1.0
+    args = [X1, rng.integers(0, k, n).astype(np.float32),
+            rng.integers(0, 3, (F, n)).astype(np.float32),
+            rng.integers(0, F, C).astype(np.int32),
+            rng.normal(size=(C, p, k)).astype(np.float32), np.full((C, p, k), 0.01, np.float32)]
+    args[5][:, -1] = 0.0
+    args.append(np.maximum(args[2].sum(1), 1.0)[args[3]].astype(np.float32))
+    ts = [torch.from_numpy(a).to(dev) for a in args]
+    got = _counted(L.softmax_fista_grad, lambda: L.softmax_fista_grad(*ts))
+    want = L.softmax_fista_grad_plain(*ts)
+    assert torch.equal(got, L.softmax_fista_grad(*ts))  # no atomics: repeats bit for bit
+    scale = float(want.abs().max()) + 1e-30
+    assert float((got - want).abs().max()) <= 1e-6 * scale
+
+
+def test_softmax_fista_grad_raises_above_its_limits(dev):
+    from transmogrifai_tpu_torch.ops import linear as L
+
+    for p, k in ((3, 9), (65, 3)):
+        X1 = torch.ones((4, p), device=dev)
+        args = (X1, torch.zeros(4, device=dev), torch.ones((1, 4), device=dev),
+                torch.zeros(1, dtype=torch.int32, device=dev), torch.zeros((1, p, k), device=dev),
+                torch.zeros((1, p, k), device=dev), torch.ones(1, device=dev))
+        with pytest.raises(ValueError, match="at most 8 classes and 64 coefficients"):
+            L.softmax_fista_grad(*args)
+
+
+@pytest.mark.parametrize("n,F,C,k", [(1, 1, 1, 3), (135, 3, 26, 3), (262144, 3, 26, 3),
+                                     (5000, 2, 7, 8)])
+def test_multiclass_metrics_matches_plain(dev, n, F, C, k):
+    from transmogrifai_tpu_torch.ops import metrics as M
+
+    rng = np.random.default_rng(n + k)
+    y = torch.from_numpy(rng.integers(0, k, n).astype(np.float32)).to(dev)
+    probs = rng.random((F * C, n, k)).astype(np.float32)
+    probs[::2] = np.round(probs[::2] * 4) / 4  # ties: the first class wins
+    vm = torch.from_numpy((rng.random((F, n)) < 0.34).astype(np.float32)).to(dev)
+    pt = torch.from_numpy(probs).to(dev)
+    got = _counted(M.multiclass_metrics, lambda: M.multiclass_metrics(pt, y, vm, C))
+    assert torch.equal(got, M.multiclass_metrics_plain(pt, y, vm, C))
+    assert torch.equal(got, M.multiclass_metrics(pt, y, vm, C))  # integer counts: repeats
+
+
+@pytest.mark.parametrize("light", [False, True])
+def test_level_hist_matches_plain_over_class_channels(dev, light):
+    rng = np.random.default_rng(7)
+    n, d, B, T, m, c = 20011, 8, 32, 6, 16, 3
+    Xb = rng.integers(0, B, size=(n, d)).astype(np.int8)
+    w = rng.poisson(1.0, size=(T, n)).astype(np.float32)
+    g = -np.eye(c, dtype=np.float32)[rng.integers(0, c, n)]
+    ghw = np.concatenate([w[..., None] * g[None], w[..., None]], axis=2)
+    mh = m // 2 if light else m
+    ids = rng.integers(-1, mh, size=(T, n)).astype(np.int32)
+    args = [torch.from_numpy(a).to(dev) for a in (Xb, ghw, ids)]
+    extra = []
+    if light:
+        extra = [torch.from_numpy(rng.integers(-50, 50, size=(T, 12, c + 1, d, B))
+                                  .astype(np.float32)).to(dev),
+                 torch.from_numpy(rng.integers(-1, 12, size=(T, mh)).astype(np.int32)).to(dev),
+                 torch.from_numpy(rng.integers(0, 2, size=(T, mh)).astype(np.int32)).to(dev)]
+    got = _counted(Tr.level_hist, lambda: Tr.level_hist(*args, m, B, *extra))
+    assert got.shape == (T, m, c + 1, d, B)
+    assert torch.equal(got, Tr.level_hist_plain(*args, m, B, *extra))
+
+
+@pytest.mark.parametrize("cap_mode", [Tr.CAP_NONE, Tr.CAP_BEAM])
+@pytest.mark.parametrize("c", [3, 8])
+def test_split_scan_matches_plain_over_class_channels(dev, cap_mode, c):
+    rng = np.random.default_rng(8 + c)
+    n, d, B, T, m = 3001, 8, 32, 4, 16
+    Xb = torch.from_numpy(rng.integers(0, B, size=(n, d)).astype(np.int8)).to(dev)
+    w = rng.integers(0, 4000, size=(T, n)).astype(np.float32)  # sums of squares round
+    g = -np.eye(c, dtype=np.float32)[rng.integers(0, c, n)]
+    ghw = torch.from_numpy(np.concatenate([w[..., None] * g[None], w[..., None]], 2)).to(dev)
+    ids = torch.from_numpy(rng.integers(-1, m, size=(T, n)).astype(np.int32)).to(dev)
+    hist = Tr.level_hist_plain(Xb, ghw, ids, m, B)
+    fm = torch.ones((T, d), device=dev)
+    fm[1, 3] = 0.0
+    params = torch.tensor([[1e-6, 0.0, 10.0, 0.001], [1e-6, 0.0, 100.0, 0.01],
+                           [1e-6, 0.0, 1.0, 0.1], [1.0, 0.5, 10.0, 0.0]], device=dev)
+    next_cap = 2 * m if cap_mode == Tr.CAP_NONE else m
+    P = 4 * m
+    outs = []
+    n_act = torch.tensor([m, m - 5, 7, 0], dtype=torch.int32, device=dev)
+    for fn in (Tr.split_scan, Tr.split_scan_plain):
+        nodes = torch.full((T, P, 4), 9, dtype=torch.int32, device=dev)
+        leaf = torch.full((T, P, c), 9.0, device=dev)
+        res = fn(hist, fm, params, n_act, nodes, leaf, m - 1, 2 * m - 1, next_cap,
+                 cap_mode, True)
+        outs.append((nodes, leaf) + tuple(res))
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+
+
+def test_grow_forest_matches_plain_over_class_channels(dev):
+    rng = np.random.default_rng(9)
+    n, d, B, T, depth, c = 5000, 8, 32, 6, 12, 3
+    Xb = torch.from_numpy(rng.integers(0, B, size=(n, d)).astype(np.int8))
+    g = torch.from_numpy(-np.eye(c, dtype=np.float32)[rng.integers(0, c, n)])
+    w = torch.from_numpy(rng.poisson(1.0, size=(T, n)).astype(np.float32))
+    fm = torch.from_numpy((rng.random((T, d)) < 0.4).astype(np.float32))
+    hp = (np.full(T, 1e-6, np.float32), np.zeros(T, np.float32),
+          np.full(T, 10.0, np.float32), np.full(T, 0.001, np.float32))
+    want = Tr.grow_forest(Xb, g, torch.ones(n), w, fm, depth, B, 16, *hp,
+                          return_row_node=True)
+    got = Tr.grow_forest(Xb.to(dev), g.to(dev), torch.ones(n, device=dev), w.to(dev),
+                         fm.to(dev), depth, B, 16, *hp, return_row_node=True)
+    for a, b in zip(got[0], want[0]):
+        assert torch.equal(a.cpu(), b)
+    assert torch.equal(got[1].cpu(), want[1])
+
+
+@pytest.mark.parametrize("G,T,n,c", [(1, 1, 7, 3), (54, 50, 20000, 3), (2, 300, 5000, 8)])
+def test_forest_leaf_mean_matches_plain_over_class_channels(dev, G, T, n, c):
+    rng = np.random.default_rng(T + c)
+    P = 63
+    leaf = torch.from_numpy(rng.random((G, T, P, c)).astype(np.float32)).to(dev)
+    node = torch.from_numpy(rng.integers(0, P, (G, T, n)).astype(np.int32)).to(dev)
+    got = _counted(Tr.forest_leaf_mean, lambda: Tr.forest_leaf_mean(leaf, node))
+    assert got.shape == (G, n, c)
+    assert torch.equal(got, Tr.forest_leaf_mean_plain(leaf, node))

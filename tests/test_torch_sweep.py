@@ -119,12 +119,15 @@ def test_fista_grad_plain_is_the_gradient():
 
 
 def test_pure_l2_and_multinomial_fits_raise():
+    """The binary pure-L2 fit (Newton, K9) still raises; the multinomial fit
+    is ported (K-P) and fits a [d, k] coefficient matrix."""
     X, y = _data(50, 3)
     with pytest.raises(NotImplementedError, match="K9"):
         PLR(reg_param=0.1, elastic_net_param=0.0).to("cpu").fit_arrays(torch.from_numpy(X), y)
-    with pytest.raises(NotImplementedError, match="multinomial"):
-        PLR(reg_param=0.1, elastic_net_param=0.5).to("cpu").fit_arrays(
-            torch.from_numpy(X), np.arange(50) % 3)
+    params = PLR(reg_param=0.1, elastic_net_param=0.5).to("cpu").fit_arrays(
+        torch.from_numpy(X), np.arange(50) % 3)
+    assert params["multinomial"] and params["num_classes"] == 3
+    assert params["coef"].shape == (3, 3) and params["intercept"].shape == (3,)
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,6 @@
-// K-K fista_grad and K-N linear_fista_grad: the gradient step of the
-// batched elastic-net logistic and linear-regression fits.
+// K-K fista_grad, K-N linear_fista_grad and K-P softmax_fista_grad: the
+// gradient step of the batched elastic-net logistic, linear-regression and
+// multinomial (softmax) fits.
 //
 // Replaces: the body of transmogrifai_tpu/ops/linear.py::fit_logistic_fista
 // (:105) as fit_logistic_grid_folds_fista (:409) vmaps it (K-K), and the
@@ -27,6 +28,25 @@
 // four, whose later reads of X1 mostly hit L2), each fold's weight row and
 // y once, the partials are small.  The tile sizes keep the accumulators
 // (CT x PM floats a thread) in registers.
+//
+// K-P (softmax_partial) replaces the gradient of the body of
+// transmogrifai_tpu/ops/linear.py::fit_softmax (:148) as
+// fit_softmax_grid_folds (:432) vmaps it: for every fit c, with B_c the
+// coefficient matrix f32[p, k] and Y the one-hot labels,
+//   grad_c = X1^T (w_f(c) * (softmax(X1 B_c) - Y)) / wsum_c + l2_c * B_c.
+// A fit carries p x k accumulators (27 for the Iris fits' p = 9, k = 3),
+// so a block takes ONE fit and a slab of at most 16 coefficient rows
+// (grid: row chunks x fits x slabs); a thread keeps 16 x KM accumulators
+// (KM = 4 or 8 classes) in registers.  Per row it forms the k margins from
+// the whole row (B_c in shared memory), the softmax as the reference writes
+// it (subtract the max, exp, divide by the sum; libdevice's expf), the
+// weighted residuals, and accumulates residual x row for its slab (a
+// thread's few rows in float32).  The block reduction and the chunks' sum
+// (softmax_finish) are float64 in a fixed order, rounded to float32 once:
+// runs repeat bit for bit, and the gradient is within float32 rounding of
+// the exact sum over 2^18 rows.
+// Bound: operations (about 4 p k + 6 k per fit and row) over the card's
+// float32 rate; X1 is read once per fit and slab, mostly from L2.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -126,6 +146,121 @@ int launch(const void* X1, const void* y, const void* w, const void* fold, const
   return (int)cudaGetLastError();
 }
 
+constexpr int kSlab = 16;   // coefficient rows a K-P block accumulates
+constexpr int kMaxCoefs = 64;
+
+template <int KM>
+__global__ void __launch_bounds__(kThreads)
+softmax_partial(const float* __restrict__ X1, const float* __restrict__ y,
+                const float* __restrict__ w, const int32_t* __restrict__ fold,
+                const float* __restrict__ z, double* __restrict__ partial, int n, int p, int k,
+                int C, int chunk_rows) {
+  __shared__ float zs[kMaxCoefs][KM];
+  __shared__ double red[kWarps][kSlab * KM];
+  const int tid = threadIdx.x;
+  const int c = blockIdx.y;
+  const int i0 = blockIdx.z * kSlab;
+  const int ns = min(kSlab, p - i0);
+  for (int i = tid; i < kMaxCoefs * KM; i += kThreads) {
+    const int a = i / KM, j = i % KM;
+    zs[a][j] = (a < p && j < k) ? z[((long long)c * p + a) * k + j] : 0.0f;
+  }
+  __syncthreads();
+  const float* wf = w + (long long)fold[c] * n;
+  float acc[kSlab][KM];
+#pragma unroll
+  for (int a = 0; a < kSlab; ++a)
+#pragma unroll
+    for (int j = 0; j < KM; ++j) acc[a][j] = 0.0f;
+  const long long r0 = (long long)blockIdx.x * chunk_rows;
+  const long long r1 = min((long long)n, r0 + chunk_rows);
+  for (long long r = r0 + tid; r < r1; r += kThreads) {
+    const float* xr = X1 + r * p;
+    float m[KM];
+#pragma unroll
+    for (int j = 0; j < KM; ++j) m[j] = 0.0f;
+    for (int a = 0; a < p; ++a) {
+      const float xa = xr[a];
+#pragma unroll
+      for (int j = 0; j < KM; ++j) m[j] = __fmaf_rn(xa, zs[a][j], m[j]);
+    }
+    float mx = m[0];
+#pragma unroll
+    for (int j = 1; j < KM; ++j)
+      if (j < k) mx = fmaxf(mx, m[j]);
+    float e[KM];
+    float sum = 0.0f;
+#pragma unroll
+    for (int j = 0; j < KM; ++j) {
+      e[j] = j < k ? expf(__fsub_rn(m[j], mx)) : 0.0f;
+      if (j < k) sum = j == 0 ? e[0] : __fadd_rn(sum, e[j]);
+    }
+    const float wr = wf[r];
+    const int label = (int)y[r];
+    float res[KM];
+#pragma unroll
+    for (int j = 0; j < KM; ++j)
+      res[j] = __fmul_rn(wr, __fsub_rn(__fdiv_rn(e[j], sum), j == label ? 1.0f : 0.0f));
+#pragma unroll
+    for (int a = 0; a < kSlab; ++a) {
+      if (a < ns) {
+        const float xa = xr[i0 + a];
+#pragma unroll
+        for (int j = 0; j < KM; ++j) acc[a][j] = __fmaf_rn(res[j], xa, acc[a][j]);
+      }
+    }
+  }
+  const int lane = tid % 32, warp = tid / 32;
+#pragma unroll
+  for (int a = 0; a < kSlab; ++a)
+#pragma unroll
+    for (int j = 0; j < KM; ++j) {
+      double v = (double)acc[a][j];
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
+      if (lane == 0) red[warp][a * KM + j] = v;
+    }
+  __syncthreads();
+  for (int i = tid; i < kSlab * KM; i += kThreads) {
+    const int a = i / KM, j = i % KM;
+    if (a >= ns || j >= k) continue;
+    double s = 0.0;
+    for (int q = 0; q < kWarps; ++q) s += red[q][i];
+    partial[(((long long)blockIdx.x * C + c) * p + i0 + a) * k + j] = s;
+  }
+}
+
+// The chunks' float64 partials summed in chunk order and rounded once, then
+// divided by the fit's weight sum, plus the L2 term (as fista_finish).
+__global__ void softmax_finish(const double* __restrict__ partial,
+                               const float* __restrict__ wsum, const float* __restrict__ l2m,
+                               const float* __restrict__ z, float* __restrict__ grad, int chunks,
+                               int C, int pk) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= C * pk) return;
+  double s = 0.0;
+  for (int q = 0; q < chunks; ++q) s += partial[(long long)q * C * pk + i];
+  grad[i] = __fadd_rn(__fdiv_rn(__double2float_rn(s), wsum[i / pk]), __fmul_rn(l2m[i], z[i]));
+}
+
+template <int KM>
+int launch_softmax(const void* X1, const void* y, const void* w, const void* fold,
+                   const void* z, const void* wsum, const void* l2m, void* partial, void* grad,
+                   int n, int p, int k, int C, int chunks, int chunk_rows, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  dim3 grid((unsigned)chunks, (unsigned)C, (unsigned)((p + kSlab - 1) / kSlab));
+  softmax_partial<KM><<<grid, kThreads, 0, st>>>(
+      (const float*)X1, (const float*)y, (const float*)w, (const int32_t*)fold, (const float*)z,
+      (double*)partial, n, p, k, C, chunk_rows);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int threads = 128, pk = p * k;
+  softmax_finish<<<(C * pk + threads - 1) / threads, threads, 0, st>>>(
+      (const double*)partial, (const float*)wsum, (const float*)l2m, (const float*)z,
+      (float*)grad, chunks, C, pk);
+  return (int)cudaGetLastError();
+}
+
 // p <= 16: tiles of 8 fits; p <= 24: tiles of 4; p <= 64: tiles of 2.
 template <bool LOGISTIC>
 int dispatch(const void* X1, const void* y, const void* w, const void* fold, const void* z,
@@ -160,4 +295,20 @@ extern "C" int linear_fista_grad(const void* X1, const void* y, const void* w,
                                  int C, int chunks, int chunk_rows, void* stream) {
   return dispatch<false>(X1, y, w, fold, z, wsum, l2v, partial, grad, n, p, C, chunks,
                          chunk_rows, stream);
+}
+
+extern "C" int softmax_fista_grad(const void* X1, const void* y, const void* w,
+                                  const void* fold, const void* z, const void* wsum,
+                                  const void* l2m, void* partial, void* grad, int n, int p,
+                                  int k, int C, int chunks, int chunk_rows, void* stream) {
+  // C fits on the grid's y axis
+  if (n <= 0 || p <= 0 || p > kMaxCoefs || k <= 0 || C <= 0 || C > 65535 || chunks <= 0)
+    return (int)cudaErrorInvalidValue;
+  if (k <= 4)
+    return launch_softmax<4>(X1, y, w, fold, z, wsum, l2m, partial, grad, n, p, k, C, chunks,
+                             chunk_rows, stream);
+  if (k <= 8)
+    return launch_softmax<8>(X1, y, w, fold, z, wsum, l2m, partial, grad, n, p, k, C, chunks,
+                             chunk_rows, stream);
+  return (int)cudaErrorInvalidValue;
 }

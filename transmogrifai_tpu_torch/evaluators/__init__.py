@@ -1,15 +1,19 @@
 """Evaluators (reference core/src/main/scala/com/salesforce/op/evaluators/).
 
 The port's copy of ``transmogrifai_tpu/evaluators``: the binary
-classification and regression evaluators and the ``Evaluators`` factory's
-AuPR metric (``Evaluators.BinaryClassification.auPR()``,
-Evaluators.scala:40), the binary selector's default, and its RMSE metric
-(``Evaluators.Regression.rmse()``), the regression selector's default.  The
-factory's other metrics, custom metrics and the multiclass and forecast
-evaluators are not ported.
+classification, multiclass classification and regression evaluators and the
+``Evaluators`` factory's AuPR metric
+(``Evaluators.BinaryClassification.auPR()``, Evaluators.scala:40), the
+binary selector's default, its multiclass F1, Precision, Recall and Error
+metrics (``Evaluators.MultiClassification``; Error is the multiclass
+selector's default) and its RMSE metric (``Evaluators.Regression.rmse()``),
+the regression selector's default.  The factory's other metrics, custom
+metrics, log loss and the forecast evaluator are not ported.
 """
-from .base import OpBinaryClassificationEvaluatorBase, OpEvaluatorBase, OpRegressionEvaluatorBase
-from .classification import OpBinaryClassificationEvaluator, binary_counts, pr_auc, roc_auc
+from .base import (OpBinaryClassificationEvaluatorBase, OpEvaluatorBase,
+                   OpMultiClassificationEvaluatorBase, OpRegressionEvaluatorBase)
+from .classification import (OpBinaryClassificationEvaluator, OpMultiClassificationEvaluator,
+                             binary_counts, pr_auc, roc_auc)
 from .regression import OpRegressionEvaluator
 
 
@@ -35,6 +39,23 @@ class Evaluators:
         @staticmethod
         def auPR() -> OpEvaluatorBase:
             return _SingleMetric(OpBinaryClassificationEvaluator(), "AuPR", True)
+
+    class MultiClassification:
+        @staticmethod
+        def f1() -> OpEvaluatorBase:
+            return _SingleMetric(OpMultiClassificationEvaluator(), "F1", True)
+
+        @staticmethod
+        def precision() -> OpEvaluatorBase:
+            return _SingleMetric(OpMultiClassificationEvaluator(), "Precision", True)
+
+        @staticmethod
+        def recall() -> OpEvaluatorBase:
+            return _SingleMetric(OpMultiClassificationEvaluator(), "Recall", True)
+
+        @staticmethod
+        def error() -> OpEvaluatorBase:
+            return _SingleMetric(OpMultiClassificationEvaluator(), "Error", False)
 
     class Regression:
         @staticmethod

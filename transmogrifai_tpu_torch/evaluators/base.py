@@ -59,5 +59,9 @@ class OpBinaryClassificationEvaluatorBase(OpEvaluatorBase):
     pass
 
 
+class OpMultiClassificationEvaluatorBase(OpEvaluatorBase):
+    pass
+
+
 class OpRegressionEvaluatorBase(OpEvaluatorBase):
     pass

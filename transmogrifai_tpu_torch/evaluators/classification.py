@@ -1,18 +1,22 @@
-"""The binary classification evaluator (host float64 numpy).
+"""The binary and multiclass classification evaluators (host float64 numpy).
 
 The port's copy of ``OpBinaryClassificationEvaluator`` and its metric
 helpers from ``transmogrifai_tpu/evaluators/classification.py`` (reference:
 evaluators/OpBinaryClassificationEvaluator.scala:56): AuROC, AuPR,
-Precision, Recall, F1, Error, TP/TN/FP/FN and the threshold curves.  The
-multiclass, calibration and log-loss evaluators are not ported.
+Precision, Recall, F1, Error, TP/TN/FP/FN and the threshold curves; and of
+``OpMultiClassificationEvaluator`` (OpMultiClassificationEvaluator.scala:59):
+Spark MulticlassMetrics' class-frequency-weighted Precision, Recall and F1
+(the default), the Error, and the ``ThresholdMetrics`` of the top-N classes
+(correct, incorrect and no-prediction counts at each confidence
+threshold).  The calibration and log-loss evaluators are not ported.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 
-from .base import OpBinaryClassificationEvaluatorBase
+from .base import OpBinaryClassificationEvaluatorBase, OpMultiClassificationEvaluatorBase
 
 
 def roc_auc(y: np.ndarray, score: np.ndarray) -> float:
@@ -123,6 +127,80 @@ class OpBinaryClassificationEvaluator(OpBinaryClassificationEvaluatorBase):
         out["recallByThreshold"] = r_list
         out["falsePositiveRateByThreshold"] = fpr_list
         return out
+
+    def evaluate_all(self, ds, label_col=None, prediction_col=None) -> Dict[str, Any]:
+        y, pred = self._extract(ds, label_col, prediction_col)
+        return self.evaluate_arrays(y, pred.prediction, pred.probability)
+
+
+class OpMultiClassificationEvaluator(OpMultiClassificationEvaluatorBase):
+    """Multiclass metrics incl. top-K thresholded metrics
+    (OpMultiClassificationEvaluator.scala:59)."""
+
+    name = "multiEval"
+    default_metric = "F1"
+    is_larger_better = True
+
+    def __init__(self, label_col: Optional[str] = None, prediction_col: Optional[str] = None,
+                 top_ns: List[int] = (1, 3), thresholds: Optional[np.ndarray] = None):
+        super().__init__(label_col, prediction_col)
+        self.top_ns = list(top_ns)
+        self.thresholds = np.linspace(0.0, 1.0, 11) if thresholds is None else thresholds
+
+    def evaluate_arrays(self, y, prediction, probability=None) -> Dict[str, Any]:
+        y = np.asarray(y, dtype=np.int64)
+        pred = np.asarray(prediction, dtype=np.int64)
+        n = max(len(y), 1)
+        classes = np.unique(np.concatenate([y, pred]))
+        # weighted precision/recall/f1 (Spark MulticlassMetrics semantics)
+        precisions, recalls, f1s, weights = [], [], [], []
+        for c in classes:
+            tp = float(((y == c) & (pred == c)).sum())
+            fp = float(((y != c) & (pred == c)).sum())
+            fn = float(((y == c) & (pred != c)).sum())
+            p = tp / (tp + fp) if tp + fp > 0 else 0.0
+            r = tp / (tp + fn) if tp + fn > 0 else 0.0
+            f = 2 * p * r / (p + r) if p + r > 0 else 0.0
+            precisions.append(p)
+            recalls.append(r)
+            f1s.append(f)
+            weights.append(float((y == c).sum()) / n)
+        out: Dict[str, Any] = {
+            "Precision": float(np.dot(precisions, weights)),
+            "Recall": float(np.dot(recalls, weights)),
+            "F1": float(np.dot(f1s, weights)),
+            "Error": float((y != pred).sum()) / n,
+        }
+        if probability is not None and probability.ndim == 2:
+            out["ThresholdMetrics"] = self._threshold_metrics(y, np.asarray(probability))
+        return out
+
+    def _threshold_metrics(self, y: np.ndarray, probability: np.ndarray) -> Dict[str, Any]:
+        """Per top-N and threshold: rows whose top probability reaches the
+        threshold and whose label is among the N most probable classes
+        (correct), the other rows reaching it (incorrect), and per threshold
+        the rows below it (no prediction)."""
+        conf = probability.max(axis=1)
+        order = np.argsort(-probability, axis=1)
+        found = order == y[:, None]
+        # labels outside the model's class range never rank (rank = n_classes)
+        correct_rank = np.where(found.any(axis=1), np.argmax(found, axis=1),
+                                probability.shape[1])
+        no_pred_counts = [int((conf < t).sum()) for t in self.thresholds]
+        correct_counts: Dict[str, Any] = {}
+        incorrect_counts: Dict[str, Any] = {}
+        for k in self.top_ns:
+            cc, ic = [], []
+            for t in self.thresholds:
+                m = conf >= t
+                correct = int(((correct_rank < k) & m).sum())
+                cc.append(correct)
+                ic.append(int(m.sum()) - correct)
+            correct_counts[str(k)] = cc
+            incorrect_counts[str(k)] = ic
+        return {"topNs": self.top_ns, "thresholds": self.thresholds.tolist(),
+                "correctCounts": correct_counts, "incorrectCounts": incorrect_counts,
+                "noPredictionCounts": no_pred_counts}
 
     def evaluate_all(self, ds, label_col=None, prediction_col=None) -> Dict[str, Any]:
         y, pred = self._extract(ds, label_col, prediction_col)

@@ -21,7 +21,17 @@ GBT regressor), 256 request records and the JAX package's predictions for
 them (``expected.npz``), and ``sweep.npz``: the one fused-sweep call's
 metrics [1, 3, 44, 4] (``REGRESSION_METRICS`` order) and the forests'
 draws (bootstrap [50, 455], feature masks [50, 16]).
-``tests/test_torch_boston_slice.py --write`` regenerates it.  The answers
+``tests/test_torch_boston_slice.py --write`` regenerates it.
+
+``iris_stock/`` holds the Iris workflow's model over the multiclass
+selector's stock space (multinomial LR + RF, 26 candidates; the winner is
+a random forest of depth 3), 256 request records and the JAX package's
+answers for them (``expected.npz``: prediction, probability,
+rawPrediction), and ``sweep.npz``: the one fused-sweep call's inputs (the
+feature matrix ``X``, labels ``y``, fold weights ``train_w`` and masks
+``val_mask``), its metrics [1, 3, 26, 4] (``MULTICLASS_METRICS`` order)
+and the forests' draws (bootstrap [50, 135], feature masks [50, 8]).
+``tests/test_torch_iris_slice.py --write`` regenerates it.  The answers
 travel as data because the machine with the card has no JAX.
 
 Strings with nulls are stored as a unicode array plus ``<name>__null``, so
@@ -37,6 +47,7 @@ import numpy as np
 TITANIC_XGB = os.path.join(os.path.dirname(os.path.abspath(__file__)), "titanic_xgb")
 TITANIC_STOCK = os.path.join(os.path.dirname(os.path.abspath(__file__)), "titanic_stock")
 BOSTON_STOCK = os.path.join(os.path.dirname(os.path.abspath(__file__)), "boston_stock")
+IRIS_STOCK = os.path.join(os.path.dirname(os.path.abspath(__file__)), "iris_stock")
 NULL_SUFFIX = "__null"
 
 #: tolerances of the comparison with the JAX package's answers.  Margins are
@@ -63,6 +74,13 @@ BOSTON_RMSE_RTOL = {"OpLinearRegression": 1e-5, "OpRandomForestRegressor": 2e-4,
 #: predictions of a saved regression model on the fixture's requests:
 #: float32 sums over the trees in another order than XLA's
 PRED_RTOL = PRED_ATOL = 1e-5
+#: fold F1, Precision and Recall of the Iris sweep's softmax candidates:
+#: FISTA's float32 sums in another order move a probability in its last
+#: bits; the forests' are bit-equal (their leaves and tree means are)
+IRIS_SOFTMAX_METRIC_TOL = 1e-6
+#: class probabilities of a saved Iris model on the fixture's requests:
+#: float32 sums over the trees in another order than XLA's
+IRIS_PROB_ATOL = 1e-6
 
 
 def check(cond, msg="check failed") -> None:
@@ -242,3 +260,46 @@ def check_boston_train(model) -> Dict[str, float]:
             and r["grid"]["min_info_gain"] in (0.001, 0.01)]
     check(len(tied) == 2 and tied[0] == tied[1], f"the depth-6 GBT tie is lost: {tied}")
     return gaps
+
+
+def multiclass_predictions(outputs: List[Dict[str, Any]], name: str, k: int
+                           ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """(prediction, probability [n, k], rawPrediction [n, k]) from the
+    score-function dicts of a k-class model."""
+    rows = [o[name] for o in outputs]
+    pred = np.array([r["prediction"] for r in rows], np.float64)
+    prob = np.array([[r[f"probability_{j}"] for j in range(k)] for r in rows], np.float64)
+    raw = np.array([[r[f"rawPrediction_{j}"] for j in range(k)] for r in rows], np.float64)
+    return pred, prob, raw
+
+
+def check_iris_train(model) -> Dict[str, Any]:
+    """Hold an Iris train's selector summary to the fixture's: the same
+    candidates in the same order, the same winner, every fold Error equal
+    bit for bit (ties decide the winner: nine candidates share the best
+    mean), the same ``DataCutter`` summary and the same holdout metrics
+    (``ThresholdMetrics`` included).  Returns what it compared."""
+    import json
+
+    with open(os.path.join(IRIS_STOCK, "op_model.json")) as fh:
+        ref = stage_summary(json.load(fh))
+    summ = model.stages[-1].summary
+    check(summ.best_model_name == ref["bestModelName"] and summ.best_grid == ref["bestGrid"],
+          f"winner {summ.best_model_name} {summ.best_grid} differs from the fixture's "
+          f"{ref['bestModelName']} {ref['bestGrid']}")
+    check(len(summ.validation_results) == len(ref["validationResults"]), "candidate count")
+    differ = []
+    for i, (mine, theirs) in enumerate(zip(summ.validation_results, ref["validationResults"])):
+        check((mine["modelName"], mine["grid"]) == (theirs["modelName"], theirs["grid"]),
+              "candidate order differs from the fixture's")
+        if mine["foldMetrics"] != theirs["foldMetrics"]:
+            differ.append(i)
+    check(not differ, f"fold Errors of candidates {differ} differ from the fixture's")
+    check(summ.data_prep_results == ref["dataPrepResults"],
+          f"DataCutter summary {summ.data_prep_results} differs from {ref['dataPrepResults']}")
+    check(summ.holdout_evaluation == ref["holdoutEvaluation"],
+          "holdout metrics differ from the fixture's")
+    best = [r["metricValue"] for r in summ.validation_results]
+    return {"candidates": len(best), "fold_errors_equal": True,
+            "tied_at_best": int(sum(v == min(best) for v in best)),
+            "best_mean_error": min(best), "holdout": summ.holdout_evaluation}

@@ -5,9 +5,11 @@ The port's counterpart of ``transmogrifai_tpu/impl/classification/logistic.py``
 regParam, elasticNetParam, maxIter, fitIntercept, family).  Binary fits
 with an L1 share (``elastic_net_param > 0`` and ``reg_param > 0``) run the
 FISTA solver of ``ops/linear.py`` (K-K) for at least 200 iterations, as the
-JAX package does; prediction is a float32 product on the device.  The
-Newton solver of the pure-L2 fits (K9) and the multinomial (softmax) fits
-are not ported and raise.
+JAX package does; multinomial fits (``family="multinomial"``, or "auto"
+over more than two classes) run the softmax FISTA solver (K-P) for
+``max_iter`` iterations, every grid point; prediction is a float32 product
+on the device.  The Newton solver of the binary pure-L2 fits (K9) is not
+ported and raises.
 """
 from __future__ import annotations
 
@@ -24,8 +26,8 @@ from ..selector.predictor import PredictorEstimator, as_matrix
 def _not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported: the Newton solver (K9, transmogrifai_tpu/ops/linear.py:53) "
-        "and the softmax fits (K14) are queued; the port fits elastic-net grids "
-        "(reg_param > 0, elastic_net_param > 0)")
+        "is queued; the port fits binary elastic-net grids (reg_param > 0, "
+        "elastic_net_param > 0) and multinomial grids")
 
 
 class OpLogisticRegression(PredictorEstimator):
@@ -40,18 +42,29 @@ class OpLogisticRegression(PredictorEstimator):
                          max_iter=max_iter, tol=tol, fit_intercept=fit_intercept,
                          standardization=standardization, family=family, **extra)
 
-    def _check_binary(self, y: np.ndarray) -> None:
+    def _num_classes(self, y: np.ndarray) -> Optional[int]:
+        """The class count of a multinomial fit, or None for a binary one."""
         family = self.get_param("family", "auto")
         num_classes = int(np.max(np.asarray(y))) + 1 if len(y) else 2
         if family == "multinomial" or (family == "auto" and num_classes > 2):
-            raise _not_ported("multinomial logistic regression")
+            return max(num_classes, 2)
+        return None
 
     def fit_arrays(self, X, y: np.ndarray, w: Optional[np.ndarray] = None) -> Dict[str, Any]:
-        self._check_binary(y)
         X = as_matrix(X, stage_device(self))
         dev = X.device
         reg = float(self.get_param("reg_param", 0.0))
         alpha = float(self.get_param("elastic_net_param", 0.0))
+        k = self._num_classes(y)
+        if k is not None:
+            sw = np.ones(X.shape[0], np.float32) if w is None else np.asarray(w, np.float32)
+            fit = L.fit_softmax(
+                X, torch.from_numpy(np.asarray(y, np.float32)).to(dev),
+                torch.from_numpy(sw).to(dev), reg * (1.0 - alpha), num_classes=k,
+                max_iter=int(self.get_param("max_iter", 100)),
+                fit_intercept=bool(self.get_param("fit_intercept", True)), l1=reg * alpha)
+            return {"coef": fit.coef.cpu().numpy(), "intercept": fit.intercept.cpu().numpy(),
+                    "num_classes": k, "multinomial": True}
         if not (alpha > 0.0 and reg > 0.0):
             raise _not_ported("a pure-L2 logistic fit")
         sw = np.ones(X.shape[0], np.float32) if w is None else np.asarray(w, np.float32)
@@ -65,9 +78,9 @@ class OpLogisticRegression(PredictorEstimator):
 
     def fit_grid_folds(self, X, y, train_w, grids):
         """The fold x grid block of elastic-net fits as one FISTA batch
-        (``ops/linear.fit_logistic_grid_folds_fista``); predictions on every
-        row, ``[fold][grid]``."""
-        self._check_binary(y)
+        (``ops/linear.fit_logistic_grid_folds_fista``, or
+        ``fit_softmax_grid_folds`` for a multinomial fit); predictions on
+        every row, ``[fold][grid]``."""
         for g in grids:
             for k in g:
                 if k not in ("reg_param", "elastic_net_param"):
@@ -80,12 +93,21 @@ class OpLogisticRegression(PredictorEstimator):
                                       self.get_param("elastic_net_param", 0.0)))
                           for g in grids], np.float32)
         l1, l2 = reg * alpha, reg * (1.0 - alpha)
+        yd = torch.from_numpy(np.asarray(y, np.float32)).to(dev)
+        twd = torch.from_numpy(np.asarray(train_w, np.float32)).to(dev)
+        k = self._num_classes(y)
+        if k is not None:
+            fit = L.fit_softmax_grid_folds(
+                X, yd, twd, l1, l2, num_classes=k, max_iter=int(self.get_param("max_iter", 100)),
+                fit_intercept=bool(self.get_param("fit_intercept", True)))
+            raw, prob, pred = (a.cpu().numpy() for a in
+                               L.predict_softmax_grid(X, fit.coef, fit.intercept))
+            F, G = fit.coef.shape[:2]
+            return [[(pred[f, c], raw[f, c], prob[f, c]) for c in range(G)] for f in range(F)]
         if np.any(l1 == 0.0):
             raise _not_ported("a pure-L2 logistic fit")
         fit = L.fit_logistic_grid_folds_fista(
-            X, torch.from_numpy(np.asarray(y, np.float32)).to(dev),
-            torch.from_numpy(np.asarray(train_w, np.float32)).to(dev), l1, l2,
-            max_iter=max(int(self.get_param("max_iter", 100)), 200),
+            X, yd, twd, l1, l2, max_iter=max(int(self.get_param("max_iter", 100)), 200),
             fit_intercept=bool(self.get_param("fit_intercept", True)))
         raw, prob, pred = (a.cpu().numpy() for a in
                            L.predict_binary_logistic_grid(X, fit.coef, fit.intercept))

@@ -6,12 +6,14 @@ OpDecisionTreeClassifier, OpXGBoostClassifier).  Prediction: bin the
 feature matrix with the fitted edges (K-A ``bin_rows``), walk the ensemble
 (K-B ``ensemble_walk``), then turn the leaf means or margins into
 predictions on the host in float64, exactly as the JAX package does.
-Fitting: the binary random forest (``ops/trees.fit_forest`` on the JAX
-package's bootstrap and feature draws, and the fold x grid sweep
-``forest_grid_folds``), and the boosted models (GBT, XGBoost) with the
-logistic loss, through ``ops/trees.fit_gbt`` (``fit_arrays``) and the fold
-x grid sweep ``boosted_grid_folds`` (``fit_grid_folds``).  Multiclass
-forests, the decision tree's fit and the softmax loss are not ported.
+Fitting: the random forest (``ops/trees.fit_forest`` on the JAX package's
+bootstrap and feature draws, and the fold x grid sweep
+``forest_grid_folds``): binary forests on one gradient channel, multiclass
+forests on k -onehot channels with class-distribution leaves; and the
+boosted models (GBT, XGBoost) with the logistic loss, through
+``ops/trees.fit_gbt`` (``fit_arrays``) and the fold x grid sweep
+``boosted_grid_folds`` (``fit_grid_folds``).  The decision tree's fit and
+the softmax loss are not ported.
 """
 from __future__ import annotations
 
@@ -40,13 +42,14 @@ class _TreeClassifierBase(TreeParamsMixin, PredictorEstimator):
 
     @staticmethod
     def _class_grads(y: np.ndarray, k: int) -> np.ndarray:
-        """The forests' gradient channel: binary forests grow on g = -y (the
-        variance kernel; variance impurity is gini / 2 for 0/1 labels, so
-        the splits are gini's and a leaf's mean is p(class 1))."""
-        if k != 2:
-            raise NotImplementedError(
-                "multiclass forests (class-distribution leaves) are not ported")
-        return -np.asarray(y, np.float32)[:, None]
+        """The forests' gradient channels: binary forests grow on g = -y (the
+        one-channel variance kernel; variance impurity is gini / 2 for 0/1
+        labels, so the splits are gini's and a leaf's mean is p(class 1));
+        multiclass forests on g = -onehot(y) (gini-equivalent gain,
+        class-distribution leaves)."""
+        if k == 2:
+            return -np.asarray(y, np.float32)[:, None]
+        return -np.eye(k, dtype=np.float32)[np.asarray(y, np.int64)]
 
     @staticmethod
     def _expand_binary_leaves(forest: Tr.Tree, k: int) -> Tr.Tree:

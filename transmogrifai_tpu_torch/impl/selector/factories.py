@@ -2,14 +2,16 @@
 
 The port's counterpart of ``transmogrifai_tpu/impl/selector/factories.py``
 (reference: BinaryClassificationModelSelector.scala:49,
-RegressionModelSelector.scala:49, shared ModelSelectorFactory.scala:43):
+MultiClassificationModelSelector.scala:49, RegressionModelSelector.scala:49,
+shared ModelSelectorFactory.scala:43):
 ``with_cross_validation`` / ``apply`` build a ``ModelSelector`` with the
 problem's default splitter and metric (the train-validation split is not
 ported).  The stock spaces are the JAX package's: for the binary selector
 logistic regression (8 candidates), random forest (18) and XGBoost (2);
-for the regression selector linear regression (8), random forest (18) and
-GBT (18); ``model_types`` keeps the named families of them.  The
-multiclass selector is not ported.
+for the multiclass selector logistic regression (8, multinomial) and
+random forest (18); for the regression selector linear regression (8),
+random forest (18) and GBT (18); ``model_types`` keeps the named families
+of them.
 """
 from __future__ import annotations
 
@@ -21,7 +23,7 @@ from ..classification.logistic import OpLogisticRegression
 from ..classification.trees import OpRandomForestClassifier, OpXGBoostClassifier
 from ..regression.linear import OpLinearRegression
 from ..regression.trees import OpGBTRegressor, OpRandomForestRegressor
-from ..tuning.splitters import DataBalancer, DataSplitter, Splitter
+from ..tuning.splitters import DataBalancer, DataCutter, DataSplitter, Splitter
 from ..tuning.validators import DEFAULT_NUM_FOLDS, OpCrossValidation
 from . import defaults as D
 from .model_selector import ModelSelector
@@ -109,6 +111,29 @@ class BinaryClassificationModelSelector(_SelectorFactory):
     @classmethod
     def _default_evaluator(cls) -> OpEvaluatorBase:
         return Evaluators.BinaryClassification.auPR()
+
+
+class MultiClassificationModelSelector(_SelectorFactory):
+    """Defaults: LR + RF grids, DataCutter, Error metric
+    (MultiClassificationModelSelector.scala:62,145)."""
+
+    problem_type = "MultiClassification"
+
+    @classmethod
+    def _default_models(cls) -> Candidates:
+        return [
+            (OpLogisticRegression(max_iter=50), D.logistic_regression_grid()),
+            (OpRandomForestClassifier(), D.random_forest_grid()),
+        ]
+
+    @classmethod
+    def _default_splitter(cls) -> Splitter:
+        return DataCutter(max_label_categories=100, min_label_fraction=0.0,
+                          reserve_test_fraction=0.1)
+
+    @classmethod
+    def _default_evaluator(cls) -> OpEvaluatorBase:
+        return Evaluators.MultiClassification.error()
 
 
 class RegressionModelSelector(_SelectorFactory):

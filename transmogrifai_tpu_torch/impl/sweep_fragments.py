@@ -9,11 +9,17 @@ elastic-net candidates: the "fista" fragment), OpRandomForestClassifier
 ("forest"), OpGBTClassifier and OpXGBoostClassifier ("gbt", logistic); for
 the regression problem: OpLinearRegression (every candidate: "fista"),
 OpRandomForestRegressor ("forest", mean leaves), OpGBTRegressor and
-OpXGBoostRegressor ("gbt", squared, from each fold's label mean).  Any
-other family, a pure-L2 logistic grid point (the JAX package's "newton"
-fragment), another evaluator or a binary evaluator over a non-binary label
-returns None, as the JAX package returns None for what it cannot fuse, and
-the validator keeps its per-family path.  The partitioning for several
+OpXGBoostRegressor ("gbt", squared, from each fold's label mean); for the
+multiclass problem (``("multiclass", k)``, 3 <= k <= 8, the multiclass
+evaluator): OpLogisticRegression (every candidate a softmax fit: "fista")
+and OpRandomForestClassifier ("forest" with k class-distribution
+channels).  Any other family, a pure-L2 logistic grid point of a binary
+problem (the JAX package's "newton" fragment), another evaluator, a binary
+evaluator over a non-binary label or a multiclass score block above the
+JAX package's 2e9-byte guard returns None, as the JAX package returns None
+for what it cannot fuse, and the validator keeps its per-family path.  The
+multiclass evaluator over two classes and multiclass boosting (softmax) and
+MLP candidates raise.  The partitioning for several
 devices (``spec_units``, ``build_subspec``, ``run_sharded``,
 ``run_rowsharded``) is not ported.
 
@@ -31,7 +37,8 @@ import numpy as np
 import torch
 
 from ..ops import trees as Tr
-from ..ops.metrics import BINARY_METRICS, REGRESSION_METRICS
+from ..ops.metrics import (BINARY_METRICS, MULTICLASS_MAX_CLASSES, MULTICLASS_METRICS,
+                           REGRESSION_METRICS)
 from .trees_common import (DEFAULT_MAX_FRONTIER, DEFAULT_MAX_FRONTIER_BOOSTED,
                            _DYNAMIC_BOOST_KEYS, _FOREST_GRID_KEYS, effective_trees_per_round)
 
@@ -69,7 +76,8 @@ class SweepPlan:
         self.blob = blob
         self.problem = problem
         self.xb_bins = _spec_xb_bins(spec, len(xbs))
-        self.metric_names = BINARY_METRICS if problem == "binary" else REGRESSION_METRICS
+        self.metric_names = {"binary": BINARY_METRICS, "regression": REGRESSION_METRICS}.get(
+            problem, MULTICLASS_METRICS)
 
     def run(self, train_w: np.ndarray, val_mask: np.ndarray,
             timings: Optional[Dict[str, float]] = None) -> np.ndarray:
@@ -149,6 +157,13 @@ def _lr_fragments(est, grids, pos: int, blob: _Blob, y) -> Optional[List]:
     return _fista_fragment(est, pos, blob, *pen, min_iter=200)
 
 
+def _softmax_fragments(est, grids, pos: int, blob: _Blob) -> Optional[List]:
+    """Multinomial logistic regression: every grid point is one softmax FISTA
+    fit of ``max_iter`` steps (the JAX package's multinomial branch)."""
+    pen = _penalties(est, grids)
+    return None if pen is None else _fista_fragment(est, pos, blob, *pen, min_iter=0)
+
+
 def _linreg_fragments(est, grids, pos: int, blob: _Blob) -> Optional[List]:
     """Every linear-regression candidate is one FISTA fit (l1 = 0 included:
     the fused sweep takes no ridge fragment)."""
@@ -157,7 +172,7 @@ def _linreg_fragments(est, grids, pos: int, blob: _Blob) -> Optional[List]:
 
 
 def _forest_fragment(est, grids, pos: int, blob: _Blob, xbs, X, train_w,
-                     xb_cache) -> Optional[List]:
+                     xb_cache, n_classes: int = 1) -> Optional[List]:
     for g in grids:
         for k in g:
             if k not in _FOREST_GRID_KEYS:
@@ -178,7 +193,9 @@ def _forest_fragment(est, grids, pos: int, blob: _Blob, xbs, X, train_w,
     fold_sum = float(tw.sum(axis=1).max())
     max_w = float(tw.max()) if tw.size else 1.0
     out_groups = []
-    c = 1  # binary forests grow one class-1 channel, regression forests the label
+    # binary forests grow one class-1 channel, regression forests the label,
+    # multiclass forests one -onehot channel per class
+    c = n_classes if n_classes > 2 else 1
     for (depth, ntrees, n_bins, frac, rate, bag, seed), idxs in groups.items():
         mcw = [float(cands[i].get_param("min_instances_per_node", 1)) for i in idxs]
         mig = [float(cands[i].get_param("min_info_gain", 0.0)) for i in idxs]
@@ -249,12 +266,14 @@ def build_sweep_plan(candidates: Sequence[Tuple[Any, Sequence[Dict[str, Any]]]],
     """Translate the candidate list into a fused program on X's device, or
     None: every family must be one the port fuses for the problem, the
     evaluator the binary one with a 0/1 label of both classes (default
-    metric in ``BINARY_METRICS``) or the regression one (default metric in
-    ``REGRESSION_METRICS``), bare or in the factory's single-metric
-    wrapper.  Plans of one X may share ``xb_cache``, its binned matrices by
-    bin count."""
+    metric in ``BINARY_METRICS``), the regression one (default metric in
+    ``REGRESSION_METRICS``) or the multiclass one over class labels 0 ..
+    k - 1 (default metric in ``MULTICLASS_METRICS``), bare or in the
+    factory's single-metric wrapper.  Plans of one X may share
+    ``xb_cache``, its binned matrices by bin count."""
     from ..evaluators import _SingleMetric
-    from ..evaluators.classification import OpBinaryClassificationEvaluator
+    from ..evaluators.classification import (OpBinaryClassificationEvaluator,
+                                             OpMultiClassificationEvaluator)
     from ..evaluators.regression import OpRegressionEvaluator
     from .classification.logistic import OpLogisticRegression
     from .classification.trees import (OpGBTClassifier, OpRandomForestClassifier,
@@ -267,19 +286,42 @@ def build_sweep_plan(candidates: Sequence[Tuple[Any, Sequence[Dict[str, Any]]]],
         "binary": (OpLogisticRegression, OpRandomForestClassifier, OpGBTClassifier,
                    OpXGBoostClassifier),
         "regression": (OpLinearRegression, OpRandomForestRegressor, OpGBTRegressor,
-                       OpXGBoostRegressor)}
+                       OpXGBoostRegressor),
+        "multiclass": (OpLogisticRegression, OpRandomForestClassifier)}
     yv = np.asarray(y)
     binary = bool(np.isin(yv, (0.0, 1.0)).all()) and len(np.unique(yv)) == 2
     inner = evaluator.inner if type(evaluator) is _SingleMetric else evaluator
+    n_classes = 0
     if type(inner) is OpBinaryClassificationEvaluator and binary:
-        problem, metrics = "binary", BINARY_METRICS
+        problem, kind, metrics = "binary", "binary", BINARY_METRICS
     elif type(inner) is OpRegressionEvaluator:
-        problem, metrics = "regression", REGRESSION_METRICS
+        problem, kind, metrics = "regression", "regression", REGRESSION_METRICS
+    elif type(inner) is OpMultiClassificationEvaluator \
+            and len(yv) and np.isin(yv, np.arange(64)).all():
+        n_classes = max(int(yv.max()) + 1, 2)
+        problem, kind, metrics = ("multiclass", n_classes), "multiclass", MULTICLASS_METRICS
     else:
         return None
-    if evaluator.default_metric not in metrics \
-            or any(type(est) not in families[problem] for est, _ in candidates):
+    if evaluator.default_metric not in metrics:
         return None
+    if kind == "multiclass":
+        n_cand = sum(max(len(list(g) or [{}]), 1) for _, g in candidates)
+        if 8 * n_cand * len(yv) * n_classes * 4 > 2e9:  # the JAX package's score guard
+            return None
+        if n_classes == 2:
+            raise NotImplementedError(
+                "the fused sweep of a two-class label under the multiclass evaluator is not "
+                "ported (the JAX package trains the binary kernels and expands p to [1 - p, p])")
+        if n_classes > MULTICLASS_MAX_CLASSES:
+            raise NotImplementedError(
+                f"the port's multiclass sweep takes at most {MULTICLASS_MAX_CLASSES} classes "
+                f"(its kernels' limit), got {n_classes}")
+    for est, _ in candidates:
+        if kind == "multiclass" and type(est) in (OpGBTClassifier, OpXGBoostClassifier):
+            raise NotImplementedError(
+                f"{type(est).__name__} in a multiclass sweep (softmax boosting) is not ported")
+        if type(est) not in families[kind]:
+            return None
 
     X = X.to(torch.float32).contiguous()
     xb_cache = {} if xb_cache is None else xb_cache
@@ -290,13 +332,14 @@ def build_sweep_plan(candidates: Sequence[Tuple[Any, Sequence[Dict[str, Any]]]],
     pos = 0
     for est, grids in candidates:
         grids = [dict(g) for g in (list(grids) or [{}])]
-        s = 0  # p >= 0.5 (regression: unused)
+        s = 0  # p >= 0.5 (regression, multiclass: unused)
         if isinstance(est, OpLogisticRegression):
-            fr = _lr_fragments(est, grids, pos, blob, yv)
+            fr = (_softmax_fragments(est, grids, pos, blob) if kind == "multiclass"
+                  else _lr_fragments(est, grids, pos, blob, yv))
         elif isinstance(est, OpLinearRegression):
             fr = _linreg_fragments(est, grids, pos, blob)
         elif isinstance(est, (OpRandomForestClassifier, OpRandomForestRegressor)):
-            fr = _forest_fragment(est, grids, pos, blob, xbs, X, train_w, xb_cache)
+            fr = _forest_fragment(est, grids, pos, blob, xbs, X, train_w, xb_cache, n_classes)
             if problem == "binary":
                 s = 1  # argmax([1 - p, p]) ties to class 0 => p > 0.5
         else:

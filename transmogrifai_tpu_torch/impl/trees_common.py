@@ -189,15 +189,14 @@ def forest_grid_folds(est, X, y, train_w, grids, n_classes: int, convert) -> lis
     fraction, bagging), and each (fold, candidate)'s trees are walked and
     averaged on every row (``predict_forest_groups``).  ``convert(dist,
     candidate)`` maps a mean leaf vector (``n_classes`` 2: the class
-    distribution [p0, p1]; 1, regression: the mean) to (pred, raw, prob).
-    Returns ``preds[fold][grid]``."""
+    distribution [p0, p1] from one class-1 channel; above 2: the class
+    distribution of the -onehot channels; 1, regression: the mean) to
+    (pred, raw, prob).  Returns ``preds[fold][grid]``."""
     grids = [dict(g) for g in (grids or [{}])]
     for g in grids:
         for key in g:
             if key not in _FOREST_GRID_KEYS:
                 raise NotImplementedError(f"non-batchable forest grid key {key}")
-    if n_classes > 2:
-        raise NotImplementedError("multiclass forests (class-distribution leaves) are not ported")
     candidates = [est.copy_with_params(g) for g in grids]
     dev = X.device
     n_folds = train_w.shape[0]
@@ -208,7 +207,11 @@ def forest_grid_folds(est, X, y, train_w, grids, n_classes: int, convert) -> lis
         static = (int(cand.get_param("max_depth", 5)), int(cand.get_param("num_trees", 20)),
                   int(cand.get_param("max_bins", 32)))
         groups.setdefault(static, []).append(ci)
-    g_t = torch.from_numpy(-np.asarray(y, np.float32)[:, None]).to(dev)
+    c = n_classes if n_classes > 2 else 1
+    if c > 1:
+        g_t = torch.from_numpy(-np.eye(c, dtype=np.float32)[np.asarray(y, np.int64)]).to(dev)
+    else:
+        g_t = torch.from_numpy(-np.asarray(y, np.float32)[:, None]).to(dev)
     h_t = torch.ones(n, dtype=torch.float32, device=dev)
     tw = torch.from_numpy(np.asarray(train_w, np.float32)).to(dev)
     for (max_depth, n_trees, n_bins), cis in groups.items():
@@ -242,7 +245,7 @@ def forest_grid_folds(est, X, y, train_w, grids, n_classes: int, convert) -> lis
             total_weight=w_sum_max)
         exact_cap = Tr.frontier_is_exact(n, max_depth, mcw_min, 1.0, frontier,
                                          total_weight=w_sum_max)
-        chunk = Tr.forest_batch_size(n, d, n_bins, frontier)
+        chunk = Tr.forest_batch_size(n, d, n_bins, frontier, c)
         forest = Tr.fit_forest_chunked(Xb, g_t, h_t, w_trees, torch.cat(fm_parts),
                                        np.asarray(mcw, np.float32), max_depth, n_bins, chunk,
                                        frontier, mig_trees=np.asarray(mig, np.float32),

@@ -9,12 +9,14 @@ Reference parity: core/.../impl/tuning/{Splitter,DataSplitter,DataBalancer}.scal
 - ``DataBalancer`` (:73): binary — up/down-samples so the positive class
   reaches ``sampleFraction`` of the data (``getProportions``,
   DataBalancer.scala:84),
+- ``DataCutter`` (DataCutter.scala:78): multiclass — keeps at most
+  ``maxLabelCategories`` labels, each with at least ``minLabelFraction``
+  support; rows of dropped labels get weight 0 / are removed,
 - each emits a ``SplitterSummary`` into stage metadata.
 
 The port's copy of ``transmogrifai_tpu/impl/tuning/splitters.py`` (host
 numpy, the same draws from the same seeds, so holdouts and weights are
-bit-equal); the multiclass ``DataCutter`` is not ported.  Every prepare has
-two forms:
+bit-equal).  Every prepare has two forms:
 
 - ``prepare_weights(y) -> w[n]`` — a per-row weight vector equivalent in
   expectation to the reference's resampling (balancing = class reweighting,
@@ -25,7 +27,7 @@ two forms:
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -238,3 +240,49 @@ class DataBalancer(Splitter):
     def _params(self):
         return {**super()._params(), "sampleFraction": self.sample_fraction,
                 "maxTrainingSample": self.max_training_sample}
+
+
+class DataCutter(Splitter):
+    """Multiclass label cutter (DataCutter.scala:78): keep at most
+    ``max_label_categories`` labels each with at least ``min_label_fraction``
+    support; rows with dropped labels get zero weight / are removed."""
+
+    def __init__(self, max_label_categories: int = 100, min_label_fraction: float = 0.0,
+                 reserve_test_fraction: float = 0.1, seed: int = 42):
+        super().__init__(reserve_test_fraction, seed)
+        if min_label_fraction >= 0.5:
+            raise ValueError("min_label_fraction must be < 0.5")
+        self.max_label_categories = max_label_categories
+        self.min_label_fraction = min_label_fraction
+        self.labels_kept: Optional[List[float]] = None
+
+    def pre_validation_prepare(self, y: np.ndarray) -> SplitterSummary:
+        y = np.asarray(y)
+        n = max(len(y), 1)
+        vals, counts = np.unique(y, return_counts=True)
+        order = np.argsort(-counts)
+        kept = []
+        for i in order[: self.max_label_categories]:
+            if counts[i] / n >= self.min_label_fraction:
+                kept.append(float(vals[i]))
+        dropped = [float(v) for v in vals if float(v) not in set(kept)]
+        self.labels_kept = sorted(kept)
+        self.summary = SplitterSummary(
+            type(self).__name__, self._params(),
+            prepared={"labelsKept": self.labels_kept, "labelsDropped": dropped})
+        return self.summary
+
+    def prepare_weights(self, y: np.ndarray) -> np.ndarray:
+        if self.labels_kept is None:
+            self.pre_validation_prepare(y)
+        keep = np.isin(np.asarray(y), np.asarray(self.labels_kept))
+        return keep.astype(np.float32)
+
+    def prepare_indices(self, y, rng=None) -> np.ndarray:
+        if self.labels_kept is None:
+            self.pre_validation_prepare(y)
+        return np.where(np.isin(np.asarray(y), np.asarray(self.labels_kept)))[0]
+
+    def _params(self):
+        return {**super()._params(), "maxLabelCategories": self.max_label_categories,
+                "minLabelFraction": self.min_label_fraction}

@@ -21,7 +21,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from ...evaluators.base import OpEvaluatorBase
+from ...evaluators.base import OpEvaluatorBase, OpMultiClassificationEvaluatorBase
 
 #: reference ValidatorParamDefaults (OpValidator.scala:373-380)
 DEFAULT_NUM_FOLDS = 3
@@ -159,11 +159,15 @@ class OpValidator:
 
     def _fused_sweep(self, candidates, X, y, train_w, val_mask, summary) -> bool:
         """Every candidate's fold metrics from fused sweep plans (one per
-        chunk of candidates whose [F, C, n] scores fit ``FUSED_SCORES_BYTES``);
+        chunk of candidates whose [F, C, n] scores, [F, C, n, k] for a
+        multiclass evaluator, fit ``FUSED_SCORES_BYTES``);
         False, with the summary untouched, when a chunk builds no plan."""
         from ..sweep_fragments import build_sweep_plan
 
         per_cand = train_w.shape[0] * len(y) * 4.0
+        if isinstance(getattr(self.evaluator, "inner", self.evaluator),
+                      OpMultiClassificationEvaluatorBase):  # [F, C, n, k] probabilities
+            per_cand *= max(int(np.max(np.asarray(y))) + 1, 2)
         chunks = _chunk_candidates(candidates,
                                    max(int(FUSED_SCORES_BYTES // max(per_cand, 1.0)), 1))
         plans, xb_cache = [], {}

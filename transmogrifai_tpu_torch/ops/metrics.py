@@ -1,5 +1,5 @@
-"""The sweep's validation metrics on the device (binary classification and
-regression).
+"""The sweep's validation metrics on the device (binary classification,
+regression and multiclass classification).
 
 The port's counterpart of ``transmogrifai_tpu/ops/metrics.py``:
 ``BINARY_METRICS`` and ``binary_grid_metrics`` (``_binary_grid_metrics``),
@@ -8,7 +8,10 @@ distinct threshold), Error, Precision, Recall and F1 from the [F, C, n]
 validation scores, as ``evaluators/classification.py`` computes them on the
 host; ``REGRESSION_METRICS`` and ``regression_grid_metrics``
 (``_regression_grid_metrics``), every (fold, candidate)'s RMSE, MSE, R2 and
-MAE from the [F, C, n] predictions.  Two hand-written kernels carry them:
+MAE from the [F, C, n] predictions; ``MULTICLASS_METRICS`` and
+``multiclass_grid_metrics`` (``_multiclass_grid_metrics``), every (fold,
+candidate)'s F1, Precision, Recall and Error from the [F, C, n, k] class
+probabilities.  Three hand-written kernels carry them:
 
 - ``binary_metrics`` (K-L, CUDA, ``csrc/binary_metrics.cu``) replaces
   ``_binary_one``'s tie-aware pass after the sort: one block per (fold,
@@ -18,6 +21,11 @@ MAE from the [F, C, n] predictions.  Two hand-written kernels carry them:
   replaces ``_regression_one``: one block per (fold, candidate) sums the
   row's squared and absolute errors, the mask, the masked labels and the
   labels' squares about their mean.
+- ``multiclass_metrics`` (K-Q, CUDA, ``csrc/multiclass_metrics.cu``)
+  replaces ``_multiclass_one``: per (fold, candidate) row, the first
+  argmax of each row's class probabilities and each class's true
+  positives, false positives, false negatives and count, then Spark's
+  class-frequency-weighted F1, Precision and Recall and the Error.
 
 For the binary metrics, the rows outside a fold's validation mask get the
 score -inf and every row is ordered by one batched stable ``torch.sort`` (a
@@ -29,7 +37,10 @@ are the reference's float32 operations; their sums are float64, each
 rounded to float32 once (the reference sums in float32).  The wrappers take
 the plain version only for tensors on the CPU; for CUDA tensors they launch
 the kernel or raise; ``<wrapper>.launches`` counts their launches.  The
-multiclass metrics are not ported.
+multiclass metrics count in integers (0/1 masks, integer labels) and
+convert each count to float32 once, so they are bit-equal to the
+reference's float32 sums of 0/1 terms; the float32 formulas that finish a
+row are the reference's, in its order.
 """
 from __future__ import annotations
 
@@ -44,6 +55,8 @@ from . import cuda_build
 BINARY_METRICS = ("AuROC", "AuPR", "Error", "Precision", "Recall", "F1")
 #: metric order of regression_grid_metrics' output row
 REGRESSION_METRICS = ("RootMeanSquaredError", "MeanSquaredError", "R2", "MeanAbsoluteError")
+#: metric order of multiclass_grid_metrics' output row
+MULTICLASS_METRICS = ("F1", "Precision", "Recall", "Error")
 #: the fixed-point scale of the AuPR steps' sum (each step below 1, their
 #: total at most 1)
 AUPR_SCALE = 2.0 ** 62
@@ -246,4 +259,121 @@ def regression_grid_metrics(y: torch.Tensor, preds: torch.Tensor,
     dev = preds.device
     out = regression_metrics(preds.to(torch.float32).reshape(F * C, n).contiguous(),
                              y.to(dev, torch.float32), val_w.to(dev, torch.float32), C)
+    return out.reshape(F, C, 4)
+
+
+# ---------------------------------------------------------------------------
+# K-Q multiclass_metrics
+# ---------------------------------------------------------------------------
+#: the most classes K-Q takes
+MULTICLASS_MAX_CLASSES = 8
+
+
+def _check_multiclass(probs, y, vm, C):
+    if probs.dtype != torch.float32 or probs.ndim != 3:
+        raise ValueError("probs must be float32[R, n, k]")
+    R, n, k = probs.shape
+    if not 2 <= k <= MULTICLASS_MAX_CLASSES:
+        raise ValueError(f"multiclass_metrics takes 2 to {MULTICLASS_MAX_CLASSES} classes, "
+                         f"got {k}")
+    if y.dtype != torch.float32 or tuple(y.shape) != (n,):
+        raise ValueError(f"y must be float32[{n}]")
+    if C < 1 or vm.dtype != torch.float32 or vm.ndim != 2 or vm.shape[1] != n \
+            or vm.shape[0] * C != R:
+        raise ValueError(f"vm must be float32[{R // max(C, 1)}, {n}]")
+
+
+def fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """float32 ``a * b + c`` rounded once: the product is exact in float64
+    and so, for these operands (at most 1 in magnitude), is the sum but in
+    cases too rare to meet (a double rounding needs the float64 sum to fall
+    on a float32 midpoint).  XLA's CPU code fuses the reference's weighted
+    class sums into such operations."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def _multiclass_finish(TP, FP, FN, CN, NV) -> torch.Tensor:
+    """The reference's float32 formulas from the exact counts: TP, FP, FN,
+    CN i64[R, k], NV i64[R]."""
+    tp, fp, fn = TP.float(), FP.float(), FN.float()
+    nv = torch.clamp_min(NV.float(), 1.0)[:, None]
+    wgt = CN.float() / nv
+    zero = torch.zeros_like(tp)
+    pd, rd = tp + fp, tp + fn
+    p = torch.where(pd > 0, tp / torch.clamp_min(pd, 1.0), zero)
+    r = torch.where(rd > 0, tp / torch.clamp_min(rd, 1.0), zero)
+    s = p + r
+    f = torch.where(s > 0, 2.0 * p * r / torch.clamp_min(s, 1e-30), zero)
+    f1, prec, rec = f[:, 0] * wgt[:, 0], p[:, 0] * wgt[:, 0], r[:, 0] * wgt[:, 0]
+    for j in range(1, tp.shape[1]):  # in class order, fused, as XLA sums them
+        f1, prec, rec = (fma(v[:, j], wgt[:, j], acc)
+                         for v, acc in ((f, f1), (p, prec), (r, rec)))
+    err = 1.0 - TP.sum(1).float() / nv[:, 0]
+    return torch.stack([f1, prec, rec, err], dim=-1)
+
+
+def multiclass_metrics_plain(probs: torch.Tensor, y: torch.Tensor, vm: torch.Tensor,
+                             C: int) -> torch.Tensor:
+    """Plain PyTorch version of K-Q: the same integer counts, then the same
+    float32 formulas."""
+    R, n, k = probs.shape
+    v = vm[torch.arange(R, device=probs.device) // C] != 0                  # [R, n]
+    pred = torch.nn.functional.one_hot(torch.argmax(probs, dim=-1), k).bool()   # first max
+    lab = torch.nn.functional.one_hot(y.long(), k).bool()[None]              # [1, n, k]
+    vk = v[..., None]
+    TP = (vk & pred & lab).sum(1)
+    FP = (vk & pred & ~lab).sum(1)
+    FN = (vk & ~pred & lab).sum(1)
+    CN = (vk & lab).sum(1)
+    return _multiclass_finish(TP, FP, FN, CN, v.sum(1))
+
+
+_MC_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+
+
+def multiclass_metrics(probs: torch.Tensor, y: torch.Tensor, vm: torch.Tensor,
+                       C: int) -> torch.Tensor:
+    """The four metrics f32[R, 4] (``MULTICLASS_METRICS`` order) of R = F x
+    C rows of class probabilities: ``probs`` f32[R, n, k] (row r is fold
+    r // C, candidate r % C; the first argmax decides), ``y`` f32[n] the
+    class labels 0 .. k - 1, ``vm`` f32[F, n] the folds' 0/1 validation
+    masks.  At most ``MULTICLASS_MAX_CLASSES`` classes."""
+    _check_multiclass(probs, y, vm, C)
+    if not _on_cuda(probs, y, vm):
+        return multiclass_metrics_plain(probs, y, vm, C)
+    probs, y, vm = probs.contiguous(), y.contiguous(), vm.contiguous()
+    R, n, k = probs.shape
+    if R == 0 or n == 0:
+        raise ValueError("multiclass_metrics needs at least one row and one example")
+    out = torch.empty((R, 4), dtype=torch.float32, device=probs.device)
+    counts = torch.empty((R, 4 * k + 1), dtype=torch.int64, device=probs.device)
+    lib = cuda_build.load("multiclass_metrics",
+                          {"multiclass_metrics": (_MC_ARGS, ctypes.c_int)})
+    with torch.cuda.device(probs.device):
+        rc = lib.multiclass_metrics(
+            probs.data_ptr(), y.data_ptr(), vm.data_ptr(), counts.data_ptr(), out.data_ptr(),
+            R, n, k, C, ctypes.c_void_p(torch.cuda.current_stream(probs.device).cuda_stream))
+    if rc != 0:
+        raise RuntimeError(f"multiclass_metrics kernel launch failed: CUDA error {rc}")
+    multiclass_metrics.launches += 1
+    return out
+
+
+multiclass_metrics.launches = 0
+
+
+def multiclass_grid_metrics(y: torch.Tensor, probs: torch.Tensor,
+                            val_w: torch.Tensor) -> torch.Tensor:
+    """y f32[n] (class labels 0 .. k - 1); probs f32[F, C, n, k]; val_w
+    f32[F, n] (0/1).  Returns f32[F, C, 4] in ``MULTICLASS_METRICS``
+    order."""
+    F, C, n, k = probs.shape
+    dev = probs.device
+    y = y.to(dev, torch.float32)
+    val_w = val_w.to(dev, torch.float32)
+    if bool(((y < 0) | (y >= k) | (y != torch.round(y))).any()
+            | ((val_w != 0) & (val_w != 1)).any()):
+        raise ValueError(f"multiclass_grid_metrics takes class labels in [0, {k}) and 0/1 "
+                         "validation masks")
+    out = multiclass_metrics(probs.to(torch.float32).reshape(F * C, n, k), y, val_w, C)
     return out.reshape(F, C, 4)

@@ -1,7 +1,7 @@
 """The fused selector sweep: every family's fold x grid block, then the metrics.
 
 The port's counterpart of the interpreter core of
-``transmogrifai_tpu/ops/sweep.py`` (``_fista_scores``,
+``transmogrifai_tpu/ops/sweep.py`` (``_fista_scores``, ``_softmax_scores``,
 ``_forest_group_scores``, ``_gbt_group_scores``, ``_frag_scores``,
 ``_all_scores``, ``_metrics_of``, ``run_sweep``).  A static ``spec`` built
 by ``impl/sweep_fragments.py`` names every fragment and the hyperparameter
@@ -13,19 +13,21 @@ module docstring):
          | ("forest", out_c, groups) | ("gbt", loss, out_c, groups)
 
 Each fragment scores its candidates on every row; the scores [F, C, n] go
-to the binary metrics (K-L) or the regression metrics (K-O).  The work
-runs eagerly on the device of the arrays, through the hand-written
-kernels: K-K for the logistic fits, K-N for the linear-regression fits;
-K-E, K-F and K-G growing the forests and boosted trees, K-H boosting
+to the binary metrics (K-L) or the regression metrics (K-O), the class
+probabilities [F, C, n, k] of a ``("multiclass", k)`` problem to the
+multiclass metrics (K-Q).  The work runs eagerly on the device of the
+arrays, through the hand-written kernels: K-K for the logistic fits, K-N
+for the linear-regression fits, K-P for the multinomial (softmax) fits;
+K-E, K-F and K-G growing the forests (one gradient channel, or k class
+channels with class-distribution leaves) and boosted trees, K-H boosting
 (logistic, or squared from each fold's label mean), K-M reading the
 forests' leaves.  A forest group's trees grow in batches of
 ``ops/trees.forest_batch_size`` (the spec's ``chunk`` is the JAX
 package's, kept for the spec's equality; trees are independent, so the
-batching changes no result).  The binary and regression problems are
-ported; multiclass, the newton, svc and mlp fragments and round-collapsed
-boosting raise.  The
-checkpoint, hedge, ledger, trace, AOT-cache and mesh wrappers of the JAX
-package are not ported.
+batching changes no result).  The binary, regression and multiclass
+problems are ported; softmax boosting, the newton, svc and mlp fragments
+and round-collapsed boosting raise.  The checkpoint, hedge, ledger, trace,
+AOT-cache and mesh wrappers of the JAX package are not ported.
 """
 from __future__ import annotations
 
@@ -37,12 +39,15 @@ import torch
 
 from . import linear as L
 from . import trees as Tr
-from .metrics import BINARY_METRICS, binary_grid_metrics, regression_grid_metrics
+from .metrics import (BINARY_METRICS, binary_grid_metrics, multiclass_grid_metrics,
+                      regression_grid_metrics)
 
 __all__ = ["run_sweep", "BINARY_METRICS"]
 
-#: the problems the port's sweep runs
-PROBLEMS = ("binary", "regression")
+
+def _multiclass(problem) -> bool:
+    """Whether ``problem`` is a ``("multiclass", k)`` spec problem."""
+    return isinstance(problem, tuple) and problem[0] == "multiclass"
 
 
 def _sync(t: torch.Tensor) -> None:
@@ -66,6 +71,17 @@ def _fista_scores(frag, X, y, train_w, blob, classification: bool) -> torch.Tens
     return L._sigmoid(z) if classification else z
 
 
+def _softmax_scores(frag, X, y, train_w, blob, k: int) -> torch.Tensor:
+    """[F, G, n, k]: the class probabilities of the fragment's multinomial
+    (softmax) fits."""
+    _, cis, max_iter, fit_intercept, off_l1, off_l2 = frag
+    G = len(cis)
+    fit = L.fit_softmax_grid_folds(X, y, train_w, _blob(blob, off_l1, G),
+                                   _blob(blob, off_l2, G), num_classes=k,
+                                   max_iter=max_iter, fit_intercept=fit_intercept)
+    return L.predict_softmax_grid(X, fit.coef, fit.intercept)[1]
+
+
 def _forest_draws(seed: int, n: int, d: int, n_trees: int, bootstrap: bool, rate: float,
                   frac: float, dev, draws: Optional[Dict]) -> Tuple[torch.Tensor, torch.Tensor]:
     """(bootstrap weights f32[T, n], feature masks f32[T, d]) of a forest
@@ -84,15 +100,16 @@ def _forest_draws(seed: int, n: int, d: int, n_trees: int, bootstrap: bool, rate
     return draws[key]
 
 
-def grow_forest_group(group, xbs, y, train_w, blob, draws: Optional[Dict] = None
-                      ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Grow one forest group: (leaf values f32[F Gc, T, P], each row's leaf
-    i32[F Gc, T, n]).
+def grow_forest_group(group, xbs, y, train_w, blob, draws: Optional[Dict] = None,
+                      out_c: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Grow one forest group: (leaf values f32[F Gc, T, P, out_c], each
+    row's leaf i32[F Gc, T, n]).
 
     One bootstrap and feature-mask draw serves every (fold, candidate) of
     the group (``build_sweep_plan`` groups on all the draw depends on); tree
     (f, c, t) trains on ``boot[t] * train_w[f]`` with candidate c's
-    min_child_weight and min_info_gain."""
+    min_child_weight and min_info_gain, on g = -y (``out_c`` 1) or g =
+    -onehot(y) over ``out_c`` classes (class-distribution leaves)."""
     (cis, depth, n_trees, xb_idx, n_bins, frac, rate, bootstrap, seed,
      frontier, exact_cap, _chunk, off_mcw, off_mig) = group
     Xb = xbs[xb_idx]
@@ -107,9 +124,12 @@ def grow_forest_group(group, xbs, y, train_w, blob, draws: Optional[Dict] = None
     fold_t = np.repeat(np.arange(F), Gc * n_trees)                        # tree -> fold
     cand_t = np.tile(np.repeat(np.arange(Gc), n_trees), F)                # tree -> candidate
     tree_t = np.tile(np.arange(n_trees), F * Gc)                          # tree -> draw
-    g = -y[:, None]
+    if out_c == 1:
+        g = -y[:, None]
+    else:
+        g = -torch.nn.functional.one_hot(y.long(), out_c).to(torch.float32)
     h = torch.ones_like(y)
-    batch = Tr.forest_batch_size(n, d, n_bins, frontier)
+    batch = Tr.forest_batch_size(n, d, n_bins, frontier, out_c)
     leaves, nodes = [], []
     for lo in range(0, TT, batch):
         sl = slice(lo, min(lo + batch, TT))
@@ -121,21 +141,20 @@ def grow_forest_group(group, xbs, y, train_w, blob, draws: Optional[Dict] = None
             Xb, g, h, w, fm[ti], depth, n_bins, frontier,
             np.full(k, 1e-6, np.float32), np.zeros(k, np.float32), mcw[cand_t[sl]],
             mig[cand_t[sl]], exact_cap=exact_cap, return_row_node=True)
-        leaves.append(tree.leaf_val[..., 0])
+        leaves.append(tree.leaf_val)
         nodes.append(row_node)
-    return (torch.cat(leaves).reshape(F * Gc, n_trees, -1),
+    return (torch.cat(leaves).reshape(F * Gc, n_trees, -1, out_c),
             torch.cat(nodes).reshape(F * Gc, n_trees, n))
 
 
 def _forest_group_scores(group, xbs, y, train_w, blob, out_c: int,
                          draws: Optional[Dict] = None) -> torch.Tensor:
-    """One forest group -> the mean leaf value (p(class 1), or the
-    regression prediction) [F, Gc, n], the leaves read by K-M."""
-    if out_c != 1:
-        raise NotImplementedError("forest fragments with class-distribution leaves "
-                                  "(multiclass) are not ported")
-    leaf, row_node = grow_forest_group(group, xbs, y, train_w, blob, draws)
-    return Tr.forest_leaf_mean(leaf, row_node).reshape(train_w.shape[0], len(group[0]), -1)
+    """One forest group -> the mean leaf value [F, Gc, n] (p(class 1), or the
+    regression prediction) at ``out_c`` 1, else the class distributions
+    [F, Gc, n, out_c]; the leaves read by K-M."""
+    leaf, row_node = grow_forest_group(group, xbs, y, train_w, blob, draws, out_c)
+    mean = Tr.forest_leaf_mean(leaf[..., 0] if out_c == 1 else leaf, row_node)
+    return mean.reshape((train_w.shape[0], len(group[0])) + tuple(mean.shape[1:]))
 
 
 def _gbt_group_scores(group, xbs, y, train_w, blob, loss: str, out_c: int) -> torch.Tensor:
@@ -177,16 +196,22 @@ def _gbt_group_scores(group, xbs, y, train_w, blob, loss: str, out_c: int) -> to
 
 def _frag_scores(frag, X, xbs, y, train_w, blob, problem):
     """(candidate positions, scores [F, Gf, n]) of one fragment: class-1
-    scores of a binary problem, predictions of a regression."""
+    scores of a binary problem, predictions of a regression; class
+    probabilities [F, Gf, n, k] of a multiclass one."""
     kind = frag[0]
-    if problem not in PROBLEMS:
-        raise NotImplementedError(f"{problem!r} sweeps are not ported (binary, regression)")
+    multiclass = _multiclass(problem)
+    if not multiclass and problem not in ("binary", "regression"):
+        raise NotImplementedError(f"{problem!r} sweeps are not ported")
     if kind == "fista":
+        if multiclass:
+            return frag[1], _softmax_scores(frag, X, y, train_w, blob, problem[1])
         return frag[1], _fista_scores(frag, X, y, train_w, blob, problem == "binary")
     if kind == "forest":
         _, out_c, groups = frag
         cis, outs, draws = [], [], {}
         for grp in groups:
+            # multiclass keeps the class-distribution leaves (argmax-equivalent
+            # to the normalized probabilities); one channel is the score
             outs.append(_forest_group_scores(grp, xbs, y, train_w, blob, out_c, draws))
             cis.extend(grp[0])
         return cis, torch.cat(outs, dim=1)
@@ -207,7 +232,8 @@ def _all_scores(spec, X, xbs, y, train_w, blob,
     problem, frags, strict = spec
     n = y.shape[0]
     F = train_w.shape[0]
-    scores = torch.zeros((F, len(strict), n), dtype=torch.float32, device=X.device)
+    shape = (F, len(strict), n) + ((problem[1],) if _multiclass(problem) else ())
+    scores = torch.zeros(shape, dtype=torch.float32, device=X.device)
     for frag in frags:
         t0 = time.perf_counter()
         cis, sc = _frag_scores(frag, X, xbs, y, train_w, blob, problem)
@@ -224,14 +250,17 @@ def _metrics_of(spec, y, scores, val_w) -> torch.Tensor:
         return binary_grid_metrics(y, scores, val_w, strict)
     if problem == "regression":
         return regression_grid_metrics(y, scores, val_w)
-    raise NotImplementedError(f"{problem!r} sweep metrics are not ported (binary, regression)")
+    if _multiclass(problem):
+        return multiclass_grid_metrics(y, scores, val_w)
+    raise NotImplementedError(f"{problem!r} sweep metrics are not ported")
 
 
 def run_sweep(spec, X: torch.Tensor, xbs: Tuple[torch.Tensor, ...], y: torch.Tensor,
               train_w, val_w, blob, timings: Optional[Dict[str, float]] = None
               ) -> torch.Tensor:
     """Run a fused sweep on X's device; returns the metrics f32[F, C, M]
-    (``BINARY_METRICS`` or ``REGRESSION_METRICS`` order).  ``train_w`` / ``val_w`` [F, n] are the
+    (``BINARY_METRICS``, ``REGRESSION_METRICS`` or ``MULTICLASS_METRICS``
+    order).  ``train_w`` / ``val_w`` [F, n] are the
     folds' training weights and 0/1 validation masks, ``blob`` the host
     float32 hyperparameter vector.  With ``timings``,
     adds each fragment kind's and the metrics' host seconds (each

@@ -8,11 +8,14 @@ The port's counterpart of ``transmogrifai_tpu/ops/trees.py``.  Scoring:
 ``sketch_edges``, ``quantize``, ``frontier_cap``, ``_pool_size``,
 ``frontier_is_exact``, the threefry draws (``rng_keys``,
 ``bootstrap_weights``, ``feature_masks``, ``subsample_weights``, bit-equal
-to the JAX package's), the level-wise tree grower, boosting (``fit_gbt``,
-``fit_gbt_batch``) with the logistic and squared losses, and the
-one-channel forests of binary classification and regression
-(``grow_forest``, ``fit_forest``, ``fit_forest_chunked``).  Multiclass
-forests and the softmax loss are not ported.
+to the JAX package's), the level-wise tree grower over c gradient channels
+(c = 1 for binary and regression trees, c = k classes for the multiclass
+forests' -onehot gradients, up to ``MAX_CHANNELS``), boosting
+(``fit_gbt``, ``fit_gbt_batch``) with the logistic and squared losses, and
+the forests (``grow_forest``, ``fit_forest``, ``fit_forest_chunked``):
+one-channel leaves for binary classification and regression,
+class-distribution leaves for multiclass.  The softmax loss is not
+ported.
 
 Hand-written kernels carry the path (CUDA sources in ``csrc/``, the Triton
 ones in ``ops/triton_boost.py`` and ``ops/triton_forest.py``):
@@ -23,12 +26,13 @@ ones in ``ops/triton_boost.py`` and ``ops/triton_forest.py``):
   ``predict_forest``: a ``max_depth``-step pointer walk per (row, tree) and
   the sum (``base + eta * sum``) or mean over trees.
 - ``level_hist`` (K-E) replaces ``_level_histograms`` and the light-child
-  pass of ``_grow_level``: per (tree, slot, feature, bin) sums of the
-  weighted gradient and hessian, or only the lighter child of each sibling
-  pair with the heavy one taken as parent minus light.
+  pass of ``_grow_level``: per (tree, slot, channel, feature, bin) sums of
+  the weighted gradients and hessian, or only the lighter child of each
+  sibling pair with the heavy one taken as parent minus light.
 - ``split_scan`` (K-F) replaces the split scan, compaction and records of
-  ``_grow_level``: prefix sums over bins, the XGBoost gain, the first argmax,
-  the beam cap, the node and leaf records, the sibling pairs of the next
+  ``_grow_level``: prefix sums over bins, the XGBoost gain summed over the
+  gradient channels, the first argmax, the beam cap, the node and leaf
+  records (a leaf value per channel), the sibling pairs of the next
   level.
 - ``route_rows`` (K-G) replaces the row routing of ``_grow_level``: each
   row's child slot, its pool node, and its pair id for the next level.
@@ -37,7 +41,7 @@ ones in ``ops/triton_boost.py`` and ``ops/triton_forest.py``):
   gradient and hessian of the new margins.
 - ``forest_leaf_mean`` (K-M, Triton, ``ops/triton_forest.py``) replaces the
   fused sweep's forest leaf read and tree mean: each row's mean leaf value
-  over each (fold, candidate)'s trees.
+  (per channel) over each (fold, candidate)'s trees.
 
 Each kernel has a plain PyTorch version of the same signature beside it.  A
 wrapper takes the plain version only for tensors on the CPU; for CUDA
@@ -402,12 +406,20 @@ def subsample_weights(key: R.Key, n: int, n_rounds: int, frac: float,
 # ---------------------------------------------------------------------------
 # K-E level_hist
 # ---------------------------------------------------------------------------
+#: the most gradient channels (classes) K-E and K-F take: c + 1 <= 9
+MAX_CHANNELS = 8
+
+
 def _check_level_hist(Xb, ghw, ids, m, n_bins, parent, pair_parent, pair_light):
     _require(Xb.ndim == 2 and Xb.dtype in (torch.int8, torch.int32),
              "Xb must be int8 or int32 [n, d]")
     n, d = Xb.shape
-    _require(ghw.dtype == torch.float32 and ghw.ndim == 3 and ghw.shape[1:] == (n, 2),
-             f"ghw must be float32[T, {n}, 2]")
+    _require(ghw.dtype == torch.float32 and ghw.ndim == 3 and ghw.shape[1] == n
+             and ghw.shape[2] >= 2, f"ghw must be float32[T, {n}, c + 1]")
+    C1 = ghw.shape[2]
+    _require(C1 <= MAX_CHANNELS + 1,
+             f"level_hist takes at most {MAX_CHANNELS} gradient channels (classes) and the "
+             f"hessian, got {C1 - 1}")
     T = ghw.shape[0]
     _require(ids.dtype == torch.int32 and tuple(ids.shape) == (T, n),
              f"ids must be int32[{T}, {n}]")
@@ -415,18 +427,19 @@ def _check_level_hist(Xb, ghw, ids, m, n_bins, parent, pair_parent, pair_light):
     if parent is not None:
         _require(m % 2 == 0, "a light-only build needs an even slot count")
         _require(parent.dtype == torch.float32 and parent.ndim == 5
-                 and parent.shape[0] == T and parent.shape[2:] == (2, d, n_bins),
-                 f"parent must be float32[{T}, m_prev, 2, {d}, {n_bins}]")
+                 and parent.shape[0] == T and parent.shape[2:] == (C1, d, n_bins),
+                 f"parent must be float32[{T}, m_prev, {C1}, {d}, {n_bins}]")
         for name, a in (("pair_parent", pair_parent), ("pair_light", pair_light)):
             _require(a is not None and a.dtype == torch.int32
                      and tuple(a.shape) == (T, m // 2), f"{name} must be int32[{T}, {m // 2}]")
 
 
-#: the fixed point of K-E's sums: each w*g and w*h times 2^bits, rounded to
-#: the nearest int64; integer sums give the same total in any order.  The
-#: kernel takes the scale from the wrapper.  ``bits`` is 32 wherever the
-#: level's row count x largest |w*g|, |w*h| stays below ``HIST_RANGE``
-#: (every binary gradient does), and fewer where it does not
+#: the fixed point of K-E's sums: each channel's value (w*g per gradient
+#: channel, w*h) times 2^bits, rounded to the nearest int64; integer sums
+#: give the same total in any order.  The kernel takes the scale from the
+#: wrapper.  ``bits`` is 32 wherever the level's row count x largest channel
+#: value stays below ``HIST_RANGE`` (every binary gradient and every
+#: multiclass -onehot one does), and fewer where it does not
 HIST_SCALE_BITS = 32
 HIST_RANGE = 2.0 ** (63 - HIST_SCALE_BITS)
 
@@ -452,7 +465,7 @@ def level_hist_plain(Xb: torch.Tensor, ghw: torch.Tensor, ids: torch.Tensor, m: 
                      scale_bits: int = HIST_SCALE_BITS) -> torch.Tensor:
     """Plain PyTorch version of K-E: the same fixed-point sums, as one
     int64 ``index_add_`` over rows, then the parent - light assembly."""
-    T, n, _ = ghw.shape
+    T, n, C1 = ghw.shape
     d, B = Xb.shape[1], n_bins
     mp = m // 2 if parent is not None else m
     seg_n = mp * B + 1
@@ -462,11 +475,12 @@ def level_hist_plain(Xb: torch.Tensor, ghw: torch.Tensor, ids: torch.Tensor, m: 
     seg = base[:, None, :] + torch.where(dead[:, None, :], 0, Xb.long().T[None])  # [T, d, n]
     offs = (torch.arange(T * d, device=Xb.device) * seg_n).view(T, d, 1)
     fixed = torch.round(ghw * float(2.0 ** scale_bits)).to(torch.int64)
-    acc = torch.zeros((T * d * seg_n, 2), dtype=torch.int64, device=Xb.device)
-    acc.index_add_(0, (seg + offs).reshape(-1), fixed[:, None].expand(T, d, n, 2).reshape(-1, 2))
-    light = acc.view(T, d, seg_n, 2)[:, :, :mp * B].reshape(T, d, mp, B, 2) \
+    acc = torch.zeros((T * d * seg_n, C1), dtype=torch.int64, device=Xb.device)
+    acc.index_add_(0, (seg + offs).reshape(-1),
+                   fixed[:, None].expand(T, d, n, C1).reshape(-1, C1))
+    light = acc.view(T, d, seg_n, C1)[:, :, :mp * B].reshape(T, d, mp, B, C1) \
         .permute(0, 2, 4, 1, 3).to(torch.float32) * float(2.0 ** -scale_bits)
-    light = light.contiguous()                                            # [T, mp, 2, d, B]
+    light = light.contiguous()                                            # [T, mp, C1, d, B]
     if parent is None:
         return light
     pp = pair_parent.long()
@@ -475,10 +489,10 @@ def level_hist_plain(Xb: torch.Tensor, ghw: torch.Tensor, ids: torch.Tensor, m: 
     heavy = par - light
     lp = (pair_light != 0)[:, :, None, None, None]
     return torch.stack([torch.where(lp, light, heavy), torch.where(lp, heavy, light)],
-                       dim=2).reshape(T, m, 2, d, B)
+                       dim=2).reshape(T, m, C1, d, B)
 
 
-_HIST_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_float] * 2 \
+_HIST_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_float] * 2 \
     + [ctypes.c_void_p]
 
 
@@ -486,12 +500,14 @@ def level_hist(Xb: torch.Tensor, ghw: torch.Tensor, ids: torch.Tensor, m: int,
                n_bins: int, parent: Optional[torch.Tensor] = None,
                pair_parent: Optional[torch.Tensor] = None,
                pair_light: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Level histograms f32[T, m, 2, d, B] (channel 0: sum of w*g, 1: w*h),
-    summed in 64-bit fixed point at the scale ``hist_scale_bits`` picks
-    from the row count and the largest |w*g|, |w*h| (one reduction and one
-    host sync): the same on every run, exact where the inputs are multiples
-    of the scale's quantum (2^-32 for every binary gradient).  Raises on a
-    non-finite w*g or w*h.
+    """Level histograms f32[T, m, c + 1, d, B] of ``ghw`` f32[T, n, c + 1]
+    (channels 0 .. c - 1: sums of the weighted gradients, c: of w*h; at
+    most ``MAX_CHANNELS`` gradient channels), summed in 64-bit fixed point
+    at the scale ``hist_scale_bits`` picks from the row count and the
+    largest channel value (one reduction and one host sync): the same on
+    every run, exact where the inputs are multiples of the scale's quantum
+    (2^-32 for every binary and every -onehot gradient).  Raises on a
+    non-finite value.
 
     Direct build (``parent`` None): rows with ``ids == s`` go to slot s (-1
     rests).  Light-only build: ``ids`` are pair ids in [0, m/2) of the
@@ -518,11 +534,11 @@ def level_hist_launch(Xb: torch.Tensor, ghw: torch.Tensor, ids: torch.Tensor, m:
     in ``level_hist.launches``."""
     _require(_on_cuda(Xb, ghw, ids), "level_hist_launch takes CUDA tensors")
     Xb, ghw, ids = Xb.contiguous(), ghw.contiguous(), ids.contiguous()
-    T, n, _ = ghw.shape
+    T, n, C1 = ghw.shape
     d = Xb.shape[1]
     mp = m // 2 if parent is not None else m
-    acc = torch.empty((T, mp, 2, d, n_bins), dtype=torch.int64, device=Xb.device)
-    out = torch.empty((T, m, 2, d, n_bins), dtype=torch.float32, device=Xb.device)
+    acc = torch.empty((T, mp, C1, d, n_bins), dtype=torch.int64, device=Xb.device)
+    out = torch.empty((T, m, C1, d, n_bins), dtype=torch.float32, device=Xb.device)
     lib = cuda_build.load("level_hist", {"level_hist_i8": (_HIST_ARGS, ctypes.c_int),
                                          "level_hist_i32": (_HIST_ARGS, ctypes.c_int)})
     fn = lib.level_hist_i8 if Xb.dtype == torch.int8 else lib.level_hist_i32
@@ -536,7 +552,7 @@ def level_hist_launch(Xb: torch.Tensor, ghw: torch.Tensor, ids: torch.Tensor, m:
         rc = fn(Xb.data_ptr(), ghw.data_ptr(), ids.data_ptr(),
                 par.data_ptr() if light else None, pp.data_ptr() if light else None,
                 pl.data_ptr() if light else None, acc.data_ptr(), out.data_ptr(), n, d,
-                n_bins, T, mp, m_prev, float(2.0 ** scale_bits),
+                n_bins, C1, T, mp, m_prev, float(2.0 ** scale_bits),
                 float(2.0 ** -scale_bits), _stream(Xb))
     if rc != 0:
         raise RuntimeError(f"level_hist kernel launch failed: CUDA error {rc}")
@@ -557,9 +573,12 @@ CAP_NONE, CAP_CLAMP, CAP_BEAM = 0, 1, 2
 
 def _check_split_scan(hist, feat_mask, params, n_active, nodes, leaf, slot_base,
                       next_free, next_cap):
-    _require(hist.dtype == torch.float32 and hist.ndim == 5 and hist.shape[2] == 2,
-             "hist must be float32[T, m, 2, d, B]")
-    T, m, _, d, B = hist.shape
+    _require(hist.dtype == torch.float32 and hist.ndim == 5 and hist.shape[2] >= 2,
+             "hist must be float32[T, m, c + 1, d, B]")
+    T, m, C1, d, B = hist.shape
+    c = C1 - 1
+    _require(c <= MAX_CHANNELS,
+             f"split_scan takes at most {MAX_CHANNELS} gradient channels (classes), got {c}")
     _require(m <= 1024, f"at most 1024 frontier slots, got {m}")
     _require(feat_mask.dtype == torch.float32 and tuple(feat_mask.shape) == (T, d),
              f"feat_mask must be float32[{T}, {d}]")
@@ -570,10 +589,23 @@ def _check_split_scan(hist, feat_mask, params, n_active, nodes, leaf, slot_base,
     _require(nodes.dtype == torch.int32 and nodes.ndim == 3 and nodes.shape[0] == T
              and nodes.shape[2] == 4, f"nodes must be int32[{T}, P, 4]")
     P = nodes.shape[1]
-    _require(leaf.dtype == torch.float32 and tuple(leaf.shape) == (T, P),
-             f"leaf must be float32[{T}, {P}]")
+    _require(leaf.dtype == torch.float32 and (tuple(leaf.shape) == (T, P, c)
+                                              or (c == 1 and tuple(leaf.shape) == (T, P))),
+             f"leaf must be float32[{T}, {P}, {c}]" + (f" or [{T}, {P}]" if c == 1 else ""))
     _require(slot_base + m <= P and next_free + next_cap <= P and next_cap % 2 == 0,
              "level blocks must fit the node pool")
+
+
+def _sum_sq(v: torch.Tensor) -> torch.Tensor:
+    """The sum over axis 2 of v * v as XLA's CPU code takes the reference's
+    ``(Gp * Gp).sum(axis)``: v0 * v0, then one fused multiply-add per
+    channel in order (each rounded once: the float64 product and sum are
+    exact for the forests' integer-valued gradient sums)."""
+    out = v[:, :, 0] * v[:, :, 0]
+    for ch in range(1, v.shape[2]):
+        x = v[:, :, ch].double()
+        out = (x * x + out.double()).float()
+    return out
 
 
 def split_scan_plain(hist: torch.Tensor, feat_mask: torch.Tensor, params: torch.Tensor,
@@ -582,23 +614,25 @@ def split_scan_plain(hist: torch.Tensor, feat_mask: torch.Tensor, params: torch.
                      root: bool
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of K-F (the reference's association: prefix
-    sums bin by bin, ``(sL + sR) - sP``, node totals from feature 0)."""
-    T, m, _, d, B = hist.shape
+    sums bin by bin, ``(sL + sR) - sP``, node totals from feature 0, the
+    squares summed over the channels in order)."""
+    T, m, C1, d, B = hist.shape
+    c = C1 - 1
     dev = hist.device
     lam, gam, mcw, mig = (params[:, i] for i in range(4))
-    G, H = hist[:, :, 0], hist[:, :, 1]                     # [T, m, d, B]
+    G, H = hist[:, :, :c], hist[:, :, c]                    # [T, m, c, d, B], [T, m, d, B]
     GL, HL = torch.empty_like(G), torch.empty_like(H)
     ag, ah = G[..., 0].clone(), H[..., 0].clone()
     GL[..., 0], HL[..., 0] = ag, ah
     for b in range(1, B):
         ag, ah = ag + G[..., b], ah + H[..., b]
         GL[..., b], HL[..., b] = ag, ah
-    GT, HT = GL[:, :, 0, B - 1], HL[:, :, 0, B - 1]          # [T, m]
+    GT, HT = GL[:, :, :, 0, B - 1], HL[:, :, 0, B - 1]      # [T, m, c], [T, m]
     GR = GT[..., None, None] - GL
     HR = HT[..., None, None] - HL
     l4 = lam[:, None, None, None]
-    parent = (GT * GT / (HT + lam[:, None]))[..., None, None]
-    gain = (GL * GL / (HL + l4) + GR * GR / (HR + l4)) - parent
+    parent = (_sum_sq(GT) / (HT + lam[:, None]))[..., None, None]
+    gain = (_sum_sq(GL) / (HL + l4) + _sum_sq(GR) / (HR + l4)) - parent
     m4 = mcw[:, None, None, None]
     valid = (HL >= m4) & (HR >= m4) & (feat_mask[:, None, :, None] > 0) \
         & (torch.arange(B, device=dev) < B - 1)
@@ -627,19 +661,20 @@ def split_scan_plain(hist: torch.Tensor, feat_mask: torch.Tensor, params: torch.
     nodes[:, slot_base:slot_base + m] = rec.to(torch.int32)
     nodes[:, next_free:next_free + next_cap] = torch.tensor([-1, 0, 0, 0], dtype=torch.int32,
                                                             device=dev)
-    GLb = GL.reshape(T, m, d * B).gather(2, best[..., None])[..., 0]
+    GLb = GL.reshape(T, m, c, d * B).gather(3, best[:, :, None, None].expand(T, m, c, 1))[..., 0]
     HLb = HL.reshape(T, m, d * B).gather(2, best[..., None])[..., 0]
-    GRb, HRb = GT - GLb, HT - HLb
+    GRb, HRb = GT - GLb, HT - HLb                            # [T, m, c], [T, m]
     zero = torch.zeros_like(GLb)
-    lval = torch.where(do, -GLb / (HLb + lam[:, None]), zero)
-    rval = torch.where(do, -GRb / (HRb + lam[:, None]), zero)
-    vals = torch.zeros((T, next_cap), dtype=torch.float32, device=dev)
+    lval = torch.where(do[..., None], -GLb / (HLb + lam[:, None])[..., None], zero)
+    rval = torch.where(do[..., None], -GRb / (HRb + lam[:, None])[..., None], zero)
+    vals = torch.zeros((T, next_cap, c), dtype=torch.float32, device=dev)
     tt, ss = torch.nonzero(do, as_tuple=True)
     vals[tt, child[tt, ss]] = lval[tt, ss]
     vals[tt, child[tt, ss] + 1] = rval[tt, ss]
-    leaf[:, next_free:next_free + next_cap] = vals
+    lv = leaf.view(T, -1, c)
+    lv[:, next_free:next_free + next_cap] = vals
     if root:
-        leaf[:, 0] = -GT[:, 0] / (HT[:, 0] + lam)
+        lv[:, 0] = -GT[:, 0] / (HT[:, 0] + lam)[:, None]
     split = torch.stack([torch.where(do, bf, -1), bb, child, torch.zeros_like(bb)],
                         dim=-1).to(torch.int32)
     pair_parent = torch.full((T, half), -1, dtype=torch.int32, device=dev)
@@ -649,7 +684,7 @@ def split_scan_plain(hist: torch.Tensor, feat_mask: torch.Tensor, params: torch.
     return split, pair_parent, pair_light, (2 * n_split).to(torch.int32)
 
 
-_SCAN_ARGS = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+_SCAN_ARGS = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
 
 
 def split_scan(hist: torch.Tensor, feat_mask: torch.Tensor, params: torch.Tensor,
@@ -658,15 +693,17 @@ def split_scan(hist: torch.Tensor, feat_mask: torch.Tensor, params: torch.Tensor
                root: bool) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """One level's split choice, compaction and records, per tree.
 
-    Reads the level histogram ``hist`` f32[T, m, 2, d, B], the feature masks,
-    ``params`` f32[T, 4] (lambda, gamma, min_child_weight, min_info_gain) and
-    the live width ``n_active`` i32[T].  Writes the slot records into
-    ``nodes`` i32[T, P, 4] at ``slot_base``, a leaf record for every slot of
-    the child block at ``next_free``, the child leaf values into ``leaf``
-    f32[T, P] (and the root's at level 0).  Returns ``split`` i32[T, m, 4]
-    (feature or -1, bin, left child's slot, 0); for the next level's
-    ``next_cap / 2`` sibling pairs, the parent slot (-1 none) and the
-    light-left flag; and the next level's live width (2 x splits).
+    Reads the level histogram ``hist`` f32[T, m, c + 1, d, B] (c gradient
+    channels, at most ``MAX_CHANNELS``, then the hessian), the feature
+    masks, ``params`` f32[T, 4] (lambda, gamma, min_child_weight,
+    min_info_gain) and the live width ``n_active`` i32[T].  Writes the slot
+    records into ``nodes`` i32[T, P, 4] at ``slot_base``, a leaf record for
+    every slot of the child block at ``next_free``, the child leaf values
+    into ``leaf`` f32[T, P, c] (f32[T, P] at c = 1; the root's at level 0).
+    Returns ``split`` i32[T, m, 4] (feature or -1, bin, left child's slot,
+    0); for the next level's ``next_cap / 2`` sibling pairs, the parent
+    slot (-1 none) and the light-left flag; and the next level's live width
+    (2 x splits).
     """
     _check_split_scan(hist, feat_mask, params, n_active, nodes, leaf, slot_base,
                       next_free, next_cap)
@@ -678,21 +715,21 @@ def split_scan(hist: torch.Tensor, feat_mask: torch.Tensor, params: torch.Tensor
         _require(a.is_contiguous(), f"{name} must be contiguous (written in place)")
     hist, feat_mask, params = hist.contiguous(), feat_mask.contiguous(), params.contiguous()
     n_active = n_active.contiguous()
-    T, m, _, d, B = hist.shape
+    T, m, C1, d, B = hist.shape
     half = next_cap // 2
     dev = hist.device
     split = torch.empty((T, m, 4), dtype=torch.int32, device=dev)
     pair_parent = torch.empty((T, half), dtype=torch.int32, device=dev)
     pair_light = torch.empty((T, half), dtype=torch.int32, device=dev)
     n_next = torch.empty((T,), dtype=torch.int32, device=dev)
-    scratch = torch.empty((6, T, m), dtype=torch.float32, device=dev)
+    scratch = torch.empty((4 + 2 * (C1 - 1), T, m), dtype=torch.float32, device=dev)
     lib = cuda_build.load("split_scan", {"split_scan": (_SCAN_ARGS, ctypes.c_int)})
     with torch.cuda.device(dev):
         rc = lib.split_scan(hist.data_ptr(), feat_mask.data_ptr(), params.data_ptr(),
                             n_active.data_ptr(), n_next.data_ptr(), nodes.data_ptr(),
                             leaf.data_ptr(),
                             split.data_ptr(), pair_parent.data_ptr(), pair_light.data_ptr(),
-                            scratch.data_ptr(), T, m, d, B, nodes.shape[1], slot_base,
+                            scratch.data_ptr(), T, m, C1 - 1, d, B, nodes.shape[1], slot_base,
                             next_free, next_cap,
                             cap_mode | (4 if root else 0), _stream(hist))
     if rc != 0:
@@ -884,23 +921,27 @@ def grow_trees(Xb: torch.Tensor, ghw: torch.Tensor, feat_mask: torch.Tensor,
                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Grow T second-order histogram trees together, level by level.
 
-    ``ghw`` f32[T, n, 2] holds the weighted gradients and hessians,
-    ``params`` f32[T, 4] each tree's (lambda, gamma, min_child_weight,
-    min_info_gain).  Returns (nodes i32[T, P, 4], leaf f32[T, P], row_node
-    i32[T, n]): the node pool (feature, bin, left, right; feature -1 is a
-    leaf), the leaf values, and the node each row rests at.  Every level
-    runs K-E, K-F and K-G; from level 1 on, only the lighter child of each
-    sibling pair is summed (histogram subtraction).
+    ``ghw`` f32[T, n, c + 1] holds the c weighted gradient channels and the
+    weighted hessian, ``params`` f32[T, 4] each tree's (lambda, gamma,
+    min_child_weight, min_info_gain).  Returns (nodes i32[T, P, 4], leaf
+    f32[T, P] at c = 1 or f32[T, P, c], row_node i32[T, n]): the node pool
+    (feature, bin, left, right; feature -1 is a leaf), the leaf values, and
+    the node each row rests at.  Every level runs K-E, K-F and K-G; from
+    level 1 on, only the lighter child of each sibling pair is summed
+    (histogram subtraction).
     """
-    T, n, _ = ghw.shape
+    T, n, C1 = ghw.shape
+    c = C1 - 1
     dev = ghw.device
     P = _pool_size(max_depth, frontier)
     nodes = torch.empty((T, P, 4), dtype=torch.int32, device=dev) if nodes is None else nodes
-    leaf = torch.empty((T, P), dtype=torch.float32, device=dev) if leaf is None else leaf
+    if leaf is None:
+        leaf = torch.empty((T, P) if c == 1 else (T, P, c), dtype=torch.float32, device=dev)
     row_node = torch.zeros((T, n), dtype=torch.int32, device=dev)
     if max_depth <= 0:  # a single leaf
         nodes[:] = torch.tensor([-1, 0, 0, 0], dtype=torch.int32, device=dev)
-        leaf[:, 0] = -ghw[..., 0].sum(1) / (ghw[..., 1].sum(1) + params[:, 0])
+        leaf.view(T, P, c)[:, 0] = -ghw[..., :c].sum(1) / (ghw[..., c].sum(1)
+                                                          + params[:, 0])[:, None]
         return nodes, leaf, row_node
     row_slot = torch.zeros((T, n), dtype=torch.int32, device=dev)
     n_active = torch.ones((T,), dtype=torch.int32, device=dev)
@@ -917,10 +958,11 @@ def grow_trees(Xb: torch.Tensor, ghw: torch.Tensor, feat_mask: torch.Tensor,
 
 
 def as_tree(nodes: torch.Tensor, leaf: torch.Tensor) -> Tree:
-    """The ``Tree`` of node pools i32[..., P, 4] and leaf values f32[..., P]."""
+    """The ``Tree`` of node pools i32[..., P, 4] and leaf values f32[..., P]
+    (one channel) or f32[..., P, c]."""
+    lv = leaf if leaf.ndim == nodes.ndim else leaf.unsqueeze(-1)
     return Tree(nodes[..., 0].contiguous(), nodes[..., 1].contiguous(),
-                nodes[..., 2].contiguous(), nodes[..., 3].contiguous(),
-                leaf.unsqueeze(-1).contiguous())
+                nodes[..., 2].contiguous(), nodes[..., 3].contiguous(), lv.contiguous())
 
 
 def _f32(v, T: int, dev) -> torch.Tensor:
@@ -1027,19 +1069,18 @@ def grow_forest(Xb: torch.Tensor, g: torch.Tensor, h: torch.Tensor, w_t: torch.T
                 feat_mask_t: torch.Tensor, max_depth: int, n_bins: int, frontier: int,
                 reg_lambda_t, gamma_t, mcw_t, mig_t, exact_cap: bool = False,
                 return_row_node: bool = False):
-    """Grow T trees together on shared gradients ``g`` f32[n, 1] and ``h``
-    f32[n] (the forests' g = -y, h = 1), each tree with its row weights
-    ``w_t`` f32[T, n], feature mask and (lambda, gamma, min_child_weight,
-    min_info_gain) f32[T].  Returns the ``Tree`` [T, P] (and each row's
-    node i32[T, n] when ``return_row_node``: growth routes every row, so
-    it is the leaf the row reaches)."""
-    if g.ndim != 2 or g.shape[1] != 1:
-        raise NotImplementedError(
-            "forests with class-distribution leaves (multiclass, c > 1) are not "
-            "ported: K-E and K-F carry one gradient channel")
+    """Grow T trees together on shared gradients ``g`` f32[n, c] and ``h``
+    f32[n] (the forests' g = -y or, multiclass, g = -onehot(y); h = 1),
+    each tree with its row weights ``w_t`` f32[T, n], feature mask and
+    (lambda, gamma, min_child_weight, min_info_gain) f32[T].  Returns the
+    ``Tree`` [T, P] with leaf values [T, P, c] (and each row's node i32[T,
+    n] when ``return_row_node``: growth routes every row, so it is the leaf
+    the row reaches)."""
+    _require(g.ndim == 2 and 1 <= g.shape[1] <= MAX_CHANNELS,
+             f"g must be float32[n, c] with 1 <= c <= {MAX_CHANNELS}, got {tuple(g.shape)}")
     dev = Xb.device
     T = w_t.shape[0]
-    ghw = torch.stack([w_t * g[:, 0][None], w_t * h[None]], dim=-1).contiguous()
+    ghw = torch.cat([w_t[..., None] * g[None], (w_t * h[None])[..., None]], dim=-1).contiguous()
     params = torch.stack([_f32(v, T, dev) for v in (reg_lambda_t, gamma_t, mcw_t, mig_t)],
                          dim=1)
     nodes, leaf, row_node = grow_trees(Xb, ghw, feat_mask_t.to(dev, torch.float32).contiguous(),
@@ -1101,14 +1142,14 @@ def balanced_chunk(total: int, chunk_max: int) -> int:
 FOREST_BATCH_BYTES = 8e9
 
 
-def forest_batch_size(n: int, d: int, n_bins: int, frontier: int) -> int:
+def forest_batch_size(n: int, d: int, n_bins: int, frontier: int, c: int = 1) -> int:
     """Trees the port grows in one batch: per tree, the weights and ghw
-    (12 bytes a row), the grower's row arrays and their next-level copies
-    (24 bytes a row), and a level's histograms, parent histograms and int64
-    sums (16 bytes a cell of [M, 2, d, B]), within ``FOREST_BATCH_BYTES``.
-    The reference's ``forest_chunk_size`` budgets a slot one-hot [M, n]
-    that K-E never builds."""
-    per_tree = 36 * n + 16 * frontier * 2 * d * n_bins
+    (4 + 4 (c + 1) bytes a row), the grower's row arrays and their
+    next-level copies (24 bytes a row), and a level's histograms, parent
+    histograms and int64 sums (16 bytes a cell of [M, c + 1, d, B]), within
+    ``FOREST_BATCH_BYTES``.  The reference's ``forest_chunk_size`` budgets a
+    slot one-hot [M, n] that K-E never builds."""
+    per_tree = (28 + 4 * (c + 1)) * n + 16 * frontier * (c + 1) * d * n_bins
     return max(1, int(FOREST_BATCH_BYTES // per_tree))
 
 
@@ -1145,10 +1186,12 @@ def _mean_windows(T: int) -> Tuple[int, int]:
 
 
 def forest_leaf_mean_plain(leaf: torch.Tensor, row_node: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version of K-M: the gather, the windowed tree sum,
-    the multiplication by float32(1 / T)."""
-    G, T, _ = leaf.shape
-    vals = leaf.gather(2, row_node.long())                      # [G, T, n]
+    """Plain PyTorch version of K-M: the gather, the windowed tree sum per
+    channel, the multiplication by float32(1 / T)."""
+    G, T, P = leaf.shape[:3]
+    lv = leaf.reshape(G, T, P, -1)
+    node = row_node.long()[..., None].expand(-1, -1, -1, lv.shape[3])
+    vals = lv.gather(2, node)                                   # [G, T, n, c]
     W, lo = _mean_windows(T)
     total = torch.zeros_like(vals[:, 0])
     for w in range(W):
@@ -1156,15 +1199,19 @@ def forest_leaf_mean_plain(leaf: torch.Tensor, row_node: torch.Tensor) -> torch.
         for t in range(max(w * MEAN_WINDOW - lo, 0), min((w + 1) * MEAN_WINDOW - lo, T)):
             part = part + vals[:, t]
         total = total + part
-    return total * float(np.float32(1.0 / T))
+    out = total * float(np.float32(1.0 / T))
+    return out if leaf.ndim == 4 else out[..., 0]
 
 
 def forest_leaf_mean(leaf: torch.Tensor, row_node: torch.Tensor) -> torch.Tensor:
-    """The mean leaf value of each row over each group's T trees, f32[G, n]:
-    ``leaf`` f32[G, T, P] the trees' leaf values, ``row_node`` i32[G, T, n]
-    the leaf each row reaches; summed in the order of ``MEAN_WINDOW``."""
-    _require(leaf.dtype == torch.float32 and leaf.ndim == 3, "leaf must be float32[G, T, P]")
-    G, T, P = leaf.shape
+    """The mean leaf value of each row over each group's T trees: ``leaf``
+    f32[G, T, P, c] the trees' leaf values (or f32[G, T, P], one channel),
+    ``row_node`` i32[G, T, n] the leaf each row reaches; f32[G, n, c] (or
+    f32[G, n]), each channel summed in the order of ``MEAN_WINDOW``."""
+    _require(leaf.dtype == torch.float32 and leaf.ndim in (3, 4),
+             "leaf must be float32[G, T, P] or [G, T, P, c]")
+    G, T, P = leaf.shape[:3]
+    c = leaf.shape[3] if leaf.ndim == 4 else 1
     _require(row_node.dtype == torch.int32 and row_node.ndim == 3
              and tuple(row_node.shape[:2]) == (G, T), f"row_node must be int32[{G}, {T}, n]")
     _require(T >= 1, "need at least one tree")
@@ -1175,13 +1222,14 @@ def forest_leaf_mean(leaf: torch.Tensor, row_node: torch.Tensor) -> torch.Tensor
 
     leaf, row_node = leaf.contiguous(), row_node.contiguous()
     n = row_node.shape[2]
-    out = torch.empty((G, n), dtype=torch.float32, device=leaf.device)
+    out = torch.empty((G, n, c) if leaf.ndim == 4 else (G, n), dtype=torch.float32,
+                      device=leaf.device)
     if n == 0 or G == 0:
         return out
     block = 512
     with torch.cuda.device(leaf.device):
-        tf.forest_leaf_mean_kernel[(-(-n // block), G)](
-            leaf, row_node, out, n, T, P, W, lo, float(np.float32(1.0 / T)),
+        tf.forest_leaf_mean_kernel[(-(-(n * c) // block), G)](
+            leaf, row_node, out, n, c, T, P, W, lo, float(np.float32(1.0 / T)),
             WINDOW=MEAN_WINDOW, BLOCK=block, num_warps=4)
     forest_leaf_mean.launches += 1
     return out
