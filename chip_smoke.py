@@ -118,7 +118,42 @@ Phases, each printing its findings on a line of its own:
                (one depth-12 forest's deepest level; the depth-12 group's
                leaves) against their plain versions: K-Q, K-E, K-F and K-M
                bit-equal, K-P within ``SOFTMAX_GRAD_RTOL``; timed as in
-               phase 2.
+               phase 2;
+18. iris boost reference -- the Iris flow over the 46-candidate space (the
+               stock 26 with ``gbt_grid()`` and ``xgboost_grid()``: one fused
+               sweep with a softmax "gbt" fragment over three class margins)
+               and over the XGB-only space on the 150-row frame, held to the
+               committed fixture ``iris_boost``: every fold Error bit-equal,
+               the winners, the XGB-only holdout, and the fixture model's
+               and the port-saved softmax model's answers for the 256
+               requests (``FX.IRIS_PROB_ATOL``, ``FX.IRIS_BOOST_PROB_ATOL``);
+19. titanic newton reference -- the Titanic flow over the five pure-L2
+               logistic points (Newton fits, the refit Newton's) and over
+               the ten-point Newton + FISTA grid on the 891-row frame, held
+               to ``titanic_newton`` by ``FX.check_titanic_newton_train``
+               (the reg-0 folds' stated gap included), with the Newton
+               refit's probabilities within ``FX.NEWTON_PROB_ATOL``;
+20. boston ridge reference -- the Boston flow over the five ridge points on
+               the 506-row frame, held to ``boston_ridge`` by
+               ``FX.check_boston_ridge_train``, the refit's predictions by
+               ``FX.compare_ridge_predictions``;
+21-23. iris boost / titanic newton / boston ridge train -- the main paths of
+               this slice at ``--train-rows`` rows (the 46-candidate Iris
+               space, the Newton + FISTA Titanic grid, the ridge grid): the
+               launch counts reset just before and read just after (K-R,
+               K-E ... K-G, K-Q and the rest of the Iris path; K-S with K-K
+               and K-L; K-S with K-N and K-O must be above 0), the K8
+               draws' calls counted in the Iris train, the host-clock
+               breakdown (the sweep's ``cv_sweep_gbt`` / ``_newton``), a
+               profiled second run;
+24. slice6 kernels -- K-R (the second round of the Iris train's XGB group),
+               K-S in Newton mode (the Titanic train's Newton fits after
+               half their steps) and in ridge mode (the Boston train's
+               folds), K-M at 19, 20, 24, 32, 33 and 300 trees over one and
+               three channels, against their plain versions (K-R's margins
+               and K-M bit-equal, K-R's gradients within
+               ``BOOST_GRAD_ATOL``, K-S within ``GRAM_RTOL``), timed as in
+               phase 2; and the K8 draws' times at the Iris train's shapes.
 
 The line before the last holds the kernels' JSON record, then the card's
 name and power limit; the last line is ``{"ok": true, "device": ...}``.  Any
@@ -1448,6 +1483,446 @@ def iris_kernel_phase(torch, call, timer):
     return records
 
 
+def spaces():
+    """The candidate spaces of this slice's trains, by name: the Iris mixed
+    space (the stock 26 with ``gbt_grid()`` and ``xgboost_grid()``: 46) and
+    the XGB-only one, the Titanic Newton + FISTA grid and its Newton points,
+    the Boston ridge grid."""
+    from transmogrifai_tpu_torch.impl.classification.logistic import OpLogisticRegression
+    from transmogrifai_tpu_torch.impl.classification.trees import (
+        OpGBTClassifier, OpRandomForestClassifier, OpXGBoostClassifier)
+    from transmogrifai_tpu_torch.impl.regression.linear import OpLinearRegression
+    from transmogrifai_tpu_torch.impl.selector import defaults as D
+
+    regs = [0.0, 0.001, 0.01, 0.1, 0.2]
+    return {
+        "iris_mixed": [(OpLogisticRegression(max_iter=50), D.logistic_regression_grid()),
+                       (OpRandomForestClassifier(), D.random_forest_grid()),
+                       (OpGBTClassifier(), D.gbt_grid()),
+                       (OpXGBoostClassifier(), D.xgboost_grid())],
+        "iris_xgb": [(OpXGBoostClassifier(), D.xgboost_grid())],
+        "titanic_mixed": [(OpLogisticRegression(max_iter=50),
+                           D.grid(reg_param=regs, elastic_net_param=[0.0, 0.1]))],
+        "titanic_newton": [(OpLogisticRegression(max_iter=50),
+                            D.grid(reg_param=regs, elastic_net_param=[0.0]))],
+        "boston_ridge": [(OpLinearRegression(), D.grid(reg_param=regs, elastic_net_param=[0.0]))],
+    }
+
+
+def timed_train(torch, train):
+    """(train()'s result, wall seconds, the fused-sweep calls it made)."""
+    with SweepCalls() as rec:
+        t = time.perf_counter()
+        out = train()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    return out, wall, rec.calls
+
+
+def iris_boost_reference_phase(torch, iris, FX, dev="cuda"):
+    """The 46-candidate and the XGB-only Iris trains on the 150-row frame,
+    held to the committed ``iris_boost`` fixture; raises on a failed check."""
+    import tempfile
+
+    import transmogrifai_tpu_torch as P
+
+    sp = spaces()
+    (model, wf), wall, calls = timed_train(
+        torch, lambda: iris.train_iris(device=dev, models_and_parameters=sp["iris_mixed"]))
+    mixed = FX.check_iris_boost_train(model, mixed=True)
+    ref = FX.load_sweep(FX.IRIS_BOOST + "/sweep.npz")
+    check(len(calls) == 1, f"{len(calls)} sweep calls, the fixture has one")
+    mine = calls[0][3][None]
+    check(np.array_equal(mine[..., 3], ref["mixed_metrics"][..., 3]),
+          "fold Errors differ from the fixture's")
+    f1pr_gap = float(np.abs(mine[..., :3] - ref["mixed_metrics"][..., :3]).max())
+    spec = calls[0][0].spec
+    gbt = [f for f in spec[1] if f[0] == "gbt"]
+    check(gbt and all(f[1] == "softmax" and f[2] == 3 for f in gbt),
+          f"no softmax gbt fragment over three classes: {spec}")
+    (xgb, xwf), xwall, _ = timed_train(
+        torch, lambda: iris.train_iris(device=dev, models_and_parameters=sp["iris_xgb"]))
+    found = FX.check_iris_boost_train(xgb, mixed=False)
+    params = xgb.stages[-1].model_params
+    check(params["loss"] == "softmax" and np.asarray(params["leaf_val"]).shape[-1] == 3,
+          "the XGB winner's refit is not a softmax model over three classes")
+    req = FX.load_columns(FX.IRIS_BOOST + "/requests.npz")
+    exp = FX.load_expected(FX.IRIS_BOOST + "/expected.npz")
+    answers = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        xgb.save(tmp)
+        for who, path, tol in (("fixture_model", FX.IRIS_BOOST, FX.IRIS_PROB_ATOL),
+                               ("port_saved_model", tmp, FX.IRIS_BOOST_PROB_ATOL)):
+            m = P.load_model(path, device=dev)
+            pred, prob, _ = FX.multiclass_predictions(
+                P.BatchScoreFunction(m)(FX.records(req)), m.result_features[0].name, 3)
+            err = float(np.abs(prob - exp["probability"]).max())
+            check(np.array_equal(pred, exp["prediction"]) and err <= tol,
+                  f"the {who}'s answers differ from the JAX package's (probability {err})")
+            answers[who] = {"prediction_mismatches": 0, "probability_max_abs_err": err,
+                            "tolerance": tol}
+    summ = model.stages[-1].summary
+    log("iris_boost_reference", rows=150, mixed_wall_s=wall, best=summ.best_model_name,
+        best_grid=summ.best_grid, **mixed, fold_errors_bit_equal=True,
+        f1_precision_recall_max_gap=f1pr_gap, gbt_fragments=[(f[1], f[2], len(f[3]))
+                                                             for f in gbt],
+        xgb_wall_s=xwall, xgb_best_grid=xgb.stages[-1].summary.best_grid,
+        xgb_fold_errors=found["fold_errors"], xgb_holdout=found["holdout"],
+        requests_vs_expected=answers, mixed_timings_s=wf.train_timings,
+        xgb_timings_s=xwf.train_timings)
+
+
+def titanic_newton_reference_phase(torch, titanic, FX, dev="cuda"):
+    """The Titanic Newton-only and Newton + FISTA trains on the 891-row frame,
+    held to the committed ``titanic_newton`` fixture; raises on a failed
+    check."""
+    import tempfile
+
+    import transmogrifai_tpu_torch as P
+
+    sp = spaces()
+    (model, wf), wall, calls = timed_train(
+        torch, lambda: titanic.train_titanic(device=dev, models_and_parameters=sp["titanic_newton"]))
+    found = FX.check_titanic_newton_train(model, mixed=False)
+    check(all(c[0].spec[1][0][0] == "newton" for c in calls), "no newton fragment")
+    params = model.stages[-1].model_params
+    req = FX.load_columns(FX.TITANIC_NEWTON + "/requests.npz")
+    exp = FX.load_expected(FX.TITANIC_NEWTON + "/expected.npz")
+    fixture_model = P.load_model(FX.TITANIC_NEWTON, device=dev)
+    name = fixture_model.result_features[0].name
+    pred, prob, raw = FX.prediction_arrays(
+        P.BatchScoreFunction(fixture_model)(FX.records(req)), name)
+    fixture_gaps = FX.compare(exp, pred, prob, raw)
+    with tempfile.TemporaryDirectory() as tmp:
+        model.save(tmp)
+        loaded = P.load_model(tmp, device=dev)
+        pred, prob, _ = FX.prediction_arrays(P.BatchScoreFunction(loaded)(FX.records(req)),
+                                             loaded.result_features[0].name)
+    refit_err = float(np.abs(prob - exp["probability"]).max())
+    check(refit_err <= FX.NEWTON_PROB_ATOL,
+          f"the Newton refit's probabilities {refit_err} from the fixture's")
+    (mixed, mwf), mwall, mcalls = timed_train(
+        torch, lambda: titanic.train_titanic(device=dev, models_and_parameters=sp["titanic_mixed"]))
+    mfound = FX.check_titanic_newton_train(mixed, mixed=True)
+    check([f[0] for f in mcalls[0][0].spec[1]] == ["newton", "fista"],
+          f"mixed grid fragments {mcalls[0][0].spec[1]}")
+    log("titanic_newton_reference", rows=891, wall_s=wall, best_grid=found["best_grid"],
+        newton_fold_aupr_max_gap=found["max_gap"], tolerance=FX.NEWTON_AUPR_TOL,
+        reg0_folds=found["reg0_folds"], refit_coef=np.asarray(params["coef"]).tolist(),
+        refit_probability_max_abs_err=refit_err, fixture_model_vs_expected=fixture_gaps,
+        mixed_wall_s=mwall, mixed_best_grid=mfound["best_grid"],
+        mixed_fold_aupr_max_gap=mfound["max_gap"], mixed_reg0_folds=mfound["reg0_folds"],
+        timings_s=wf.train_timings, mixed_timings_s=mwf.train_timings)
+
+
+def boston_ridge_reference_phase(torch, boston, FX, dev="cuda"):
+    """The Boston ridge-grid train on the 506-row frame, held to the
+    committed ``boston_ridge`` fixture; raises on a failed check."""
+    import tempfile
+
+    import transmogrifai_tpu_torch as P
+
+    (model, wf), wall, calls = timed_train(
+        torch, lambda: boston.train_boston(device=dev, models_and_parameters=spaces()["boston_ridge"]))
+    found = FX.check_boston_ridge_train(model)
+    req = FX.load_columns(FX.BOSTON_RIDGE + "/requests.npz")
+    exp = FX.load_expected(FX.BOSTON_RIDGE + "/expected.npz")["prediction"]
+    fixture_model = P.load_model(FX.BOSTON_RIDGE, device=dev)
+    name = fixture_model.result_features[0].name
+    pred = FX.regression_predictions(P.BatchScoreFunction(fixture_model)(FX.records(req)), name)
+    fixture_err = float(np.max(np.abs(pred - exp) / np.maximum(np.abs(exp), 1.0)))
+    check(np.allclose(pred, exp, rtol=FX.PRED_RTOL, atol=FX.PRED_ATOL),
+          f"the fixture model's predictions {fixture_err} from the JAX package's")
+    with tempfile.TemporaryDirectory() as tmp:
+        model.save(tmp)
+        loaded = P.load_model(tmp, device=dev)
+        mine = FX.regression_predictions(P.BatchScoreFunction(loaded)(FX.records(req)),
+                                         loaded.result_features[0].name)
+    refit = FX.compare_ridge_predictions(mine, req, exp)
+    log("boston_ridge_reference", rows=506, wall_s=wall,
+        best_grid=model.stages[-1].summary.best_grid, **found,
+        tolerances={"fold_rmse": FX.RIDGE_RMSE_RTOL, "prediction": FX.RIDGE_PRED_RTOL},
+        sweep_fragments=[f[0] for f in calls[0][0].spec[1]],
+        refit_coef=np.asarray(model.stages[-1].model_params["coef"]).tolist(),
+        refit_intercept=np.asarray(model.stages[-1].model_params["intercept"]).tolist(),
+        fixture_model_prediction_max_rel_err=fixture_err, refit_vs_expected=refit,
+        timings_s=wf.train_timings)
+
+
+class CountCalls:
+    """Counts the calls of the named functions of ``module`` while on (each
+    wrapped, restored on exit)."""
+
+    def __init__(self, module, names):
+        self.module, self.names, self.counts, self.saved = module, names, {}, {}
+
+    def __enter__(self):
+        for name in self.names:
+            fn = self.saved[name] = getattr(self.module, name)
+            self.counts[name] = 0
+
+            def wrapped(*a, _fn=fn, _name=name, **k):
+                self.counts[_name] += 1
+                return _fn(*a, **k)
+
+            setattr(self.module, name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.module, name, fn)
+
+
+def scale_train_phase(torch, phase, train, kernels, required, check_fn, count_draws=False):
+    """A main path of this slice at scale: every kernel's launch count reset
+    just before and read just after the train (the ``required`` ones must
+    be above 0), ``check_fn(model)`` on its result, the host-clock
+    breakdown, then a profiled second run.  Returns (the launches, the
+    sweep calls, the K8 draws' call counts or None)."""
+    from transmogrifai_tpu_torch.ops import trees as Tr
+
+    for fn in kernels:
+        fn.launches = 0
+    draws = CountCalls(Tr, ("rng_keys", "bootstrap_weights", "feature_masks",
+                            "subsample_weights")) if count_draws else None
+    if draws:
+        draws.__enter__()
+    try:
+        (model, wf), wall, calls = timed_train(torch, train)
+    finally:
+        if draws:
+            draws.__exit__()
+    launches = {fn.__name__: fn.launches for fn in kernels}
+    missing = [k for k in required if launches[k] <= 0]
+    check(not missing, f"kernels not launched on the {phase} path: {missing}")
+    found = check_fn(model)
+    timings = dict(wf.train_timings)
+    prof_wall, busy_s, idle, by_kernel = profiled(torch, train)
+    plan = calls[0][0]
+    summ = model.stages[-1].summary
+    # the boosting fragments' grower levels: each group grows its trees
+    # together, max_depth levels a round
+    gbt_levels = {f"{f[1]}:{g[1]}x{g[2]}": g[1] * g[2] for c in calls for f in c[0].spec[1]
+                  if f[0] == "gbt" for g in f[3]}
+    log(phase, wall_s=wall, launches=launches, host_clock_s=timings,
+        best=summ.best_model_name, best_grid=summ.best_grid, **found,
+        sweep_calls=len(calls), gbt_levels_by_group=gbt_levels,
+        sweep_spec=repr(plan.spec), sweep_rows=int(plan.X.shape[0]),
+        sweep_features=int(plan.X.shape[1]), draw_calls=draws.counts if draws else None,
+        profiled_train_s=prof_wall, device_busy_s=busy_s, device_idle_share=idle,
+        device_s_by_kernel=by_kernel)
+    return launches, calls, draws.counts if draws else None
+
+
+def iris_boost_check(model):
+    summ = model.stages[-1].summary
+    folds = [m for r in summ.validation_results for m in r["foldMetrics"]]
+    check(len(summ.validation_results) == 46, "the mixed Iris space has 46 candidates")
+    check(all(np.isfinite(folds)) and 0.0 <= min(folds) and max(folds) <= 1.0,
+          f"bad fold Errors {folds}")
+    check(summ.holdout_evaluation["Error"] < 0.1, "bad holdout Error")
+    gbt = [np.mean(r["foldMetrics"]) for r in summ.validation_results
+           if r["modelName"] in ("OpGBTClassifier", "OpXGBoostClassifier")]
+    return {"boosted_mean_errors": gbt,
+            "holdout": {k: v for k, v in summ.holdout_evaluation.items()
+                        if k != "ThresholdMetrics"}}
+
+
+def titanic_newton_check(model):
+    summ = model.stages[-1].summary
+    folds = [m for r in summ.validation_results for m in r["foldMetrics"]]
+    check(len(summ.validation_results) == 10, "the Newton + FISTA grid has 10 candidates")
+    check(all(np.isfinite(folds)), f"non-finite fold AuPR {folds}")
+    check(summ.holdout_evaluation["AuPR"] > 0.5, "bad holdout AuPR")
+    return {"fold_aupr": {str(r["grid"]): r["foldMetrics"] for r in summ.validation_results},
+            "holdout_aupr": summ.holdout_evaluation["AuPR"]}
+
+
+def boston_ridge_check(model):
+    summ = model.stages[-1].summary
+    folds = [m for r in summ.validation_results for m in r["foldMetrics"]]
+    check(len(summ.validation_results) == 5, "the ridge grid has 5 candidates")
+    check(all(np.isfinite(folds)) and min(folds) > 0, f"bad fold RMSE {folds}")
+    check(summ.holdout_evaluation["R2"] > 0.5, "bad holdout R2")
+    return {"fold_rmse": {str(r["grid"]["reg_param"]): r["foldMetrics"]
+                          for r in summ.validation_results},
+            "holdout": {k: v for k, v in summ.holdout_evaluation.items()
+                        if k != "SignedPercentageErrorHistogram"}}
+
+
+#: K-R's gradients and hessian against its plain version on the card: the
+#: same libdevice expf in both, float32 operations in one order; 2 ulp of 1
+BOOST_GRAD_ATOL = 2.4e-7
+#: K-S's Gram and moments against its plain version (cuBLAS margins there,
+#: an FMA dot in the kernel, both sums in float64), relative to the largest
+#: entry
+GRAM_RTOL = 1e-5
+#: K-M's tree counts held against the reference order on the card
+MEAN_TREES = (19, 20, 24, 32, 33, 300)
+
+
+def slice6_kernel_phase(torch, iris_calls, newton_call, ridge_call, timer, dev="cuda"):
+    """K-R on the second round of the Iris scale train's XGB group (in
+    whichever of its sweep calls holds it: the 46 candidates' scores run as
+    several calls at 2^18 rows), K-S in
+    Newton mode at a mid-run point of the Titanic scale train's Newton
+    fits and in ridge mode on the Boston scale train's folds, K-M at the
+    tree counts of ``MEAN_TREES``, each against its plain version on the
+    card; and the K8 draws' times at the Iris scale train's shapes."""
+    from transmogrifai_tpu_torch.ops import linear as L
+    from transmogrifai_tpu_torch.ops import trees as Tr
+
+    records, extra = [], {}
+
+    # K-R softmax_boost_step: the XGB group (200 rounds, depth 10), round 2
+    plan, train_w, frag = next((c[0], c[1], f) for c in iris_calls for f in c[0].spec[1]
+                               if f[0] == "gbt" and f[3][0][1] == 200)
+    y, blob = plan.y, np.asarray(plan.blob, np.float32)
+    tw = torch.as_tensor(np.asarray(train_w, np.float32), device=dev)
+    (cis, rounds, depth, xb_idx, n_bins, subsample, colsample, seed, frontier, exact, _, _,
+     off_eta, off_lam, off_gam, off_mcw, off_mig) = frag[3][0]
+    k = frag[2]
+    Xb = plan.xbs[xb_idx]
+    n, d = Xb.shape
+    n_iris = n
+    F, Gc = tw.shape[0], len(cis)
+    B = F * Gc
+    w_b = tw.repeat_interleave(Gc, dim=0).contiguous()
+    hp = lambda off: torch.as_tensor(np.tile(blob[off:off + Gc], F), device=dev)  # noqa: E731
+    eta = hp(off_eta)
+    params = torch.stack([torch.clamp_min(hp(off_lam), 1e-6), hp(off_gam), hp(off_mcw),
+                          hp(off_mig)], 1)
+    ks, kf = Tr.rng_keys(seed)
+    rw = Tr.subsample_weights(ks, n, rounds, subsample, dev)
+    fms = Tr.feature_masks(kf, d, rounds, colsample, dev)
+    Fm = torch.zeros((B, n, k), device=dev)
+    ghw = torch.empty((B, n, k + 1), device=dev)
+    Tr.softmax_boost_step(Fm, y, w_b * rw[0][None], eta, ghw=ghw)
+    _, leaf, row_node = Tr.grow_trees(Xb, ghw, fms[0][None].expand(B, -1).contiguous(), params,
+                                      depth, n_bins, frontier, exact)
+    w1 = (w_b * rw[1][None]).contiguous()
+    F1, F2 = Fm.clone(), Fm.clone()
+    g1, g2 = torch.empty_like(ghw), torch.empty_like(ghw)
+    Tr.softmax_boost_step(F1, y, w1, eta, leaf, row_node, g1)
+    Tr.softmax_boost_step_plain(F2, y, w1, eta, leaf, row_node, g2)
+    torch.cuda.synchronize()
+    check(torch.equal(F1, F2), "softmax_boost_step margins differ from plain")
+    err = float((g1 - g2).abs().max())
+    check(err <= BOOST_GRAD_ATOL, f"softmax_boost_step gradients {err} from plain, above "
+                                  f"{BOOST_GRAD_ATOL}")
+    P_ = leaf.shape[1]
+    # per (element, row): F read and written (k floats each way), w and the
+    # node read, k + 1 gradients written; y once, the leaf pools once; about
+    # 30 k operations (exp, the softmax, the gradients, the hessian)
+    b, by = bound_ms(B * n * (8 * k + 8 + 4 * (k + 1)) + n * 4 + B * P_ * k * 4,
+                     B * n * 30 * k)
+    records.append(dict(
+        name="softmax_boost_step", route="triton",
+        source="transmogrifai_tpu_torch/ops/triton_boost.py",
+        replaces="transmogrifai_tpu/ops/trees.py:1123", max_abs_err=err,
+        ms=timer(lambda: Tr.softmax_boost_step(F1, y, w1, eta, leaf, row_node, g1)),
+        plain_ms=timer(lambda: Tr.softmax_boost_step_plain(F2, y, w1, eta, leaf, row_node,
+                                                           g2)),
+        bound_ms=b, bound_by=by, library_ms=None))
+    extra["softmax_boost_step"] = {"shape": [B, n, k], "pool": P_, "tolerance": BOOST_GRAD_ATOL}
+    del Fm, F1, F2, g1, g2, ghw, leaf, row_node, w1
+
+    # K-S weighted_gram, Newton mode: the Titanic sweep's Newton fits after
+    # half their steps
+    for mode, call in (("newton", newton_call), ("ridge", ridge_call)):
+        plan, train_w, _, _ = call
+        X, y, blob = plan.X, plan.y, np.asarray(plan.blob, np.float32)
+        tw = torch.as_tensor(np.asarray(train_w, np.float32), device=dev).contiguous()
+        F = tw.shape[0]
+        n, dd = X.shape
+        X1 = torch.cat([X, torch.ones((n, 1), device=dev)], 1).contiguous()
+        p = dd + 1
+        if mode == "newton":
+            _, ncis, max_iter, fit_icpt, off_l2 = plan.spec[1][0]
+            G = len(ncis)
+            fit = L.fit_logistic_grid_folds_newton(X, y, tw, blob[off_l2:off_l2 + G],
+                                                   max_iter=max_iter // 2,
+                                                   fit_intercept=fit_icpt)
+            beta = torch.cat([fit.coef, fit.intercept], 2).reshape(F * G, p).contiguous()
+            fold = torch.arange(F, dtype=torch.int32, device=dev).repeat_interleave(G)
+        else:
+            beta, fold = None, torch.arange(F, dtype=torch.int32, device=dev)
+        args = (X1, y, tw, fold, beta)
+        (H1, g1), (H2, g2) = L.weighted_gram(*args), L.weighted_gram_plain(*args)
+        torch.cuda.synchronize()
+        check(torch.equal(H1, L.weighted_gram(*args)[0]), "weighted_gram does not repeat")
+        errs = {"H": float((H1 - H2).abs().max() / H2.abs().max()),
+                "g": float((g1 - g2).abs().max() / g2.abs().max())}
+        check(max(errs.values()) <= GRAM_RTOL,
+              f"weighted_gram ({mode}) {errs} from plain, above {GRAM_RTOL}")
+        C = fold.shape[0]
+        v, _ = L._gram_weights(X1, y, tw, fold, beta)
+        E = p * (p + 1) // 2 + p
+        # X1, each fold's weights and y read once, the coefficients read,
+        # the Gram and moments written; per (fit, row) two operations an
+        # upper-triangle or moment entry and, in Newton mode, the margin
+        b, by = bound_ms((n * p + F * n + n) * 4 + (0 if beta is None else C * p * 4)
+                         + C * (p * p + p) * 4,
+                         C * n * (2 * E + (2 * p + 20 if beta is not None else 2)))
+        records.append(dict(
+            name=f"weighted_gram_{mode}", route="cuda",
+            source="transmogrifai_tpu_torch/csrc/weighted_gram.cu",
+            replaces="transmogrifai_tpu/ops/linear.py:" + ("53" if mode == "newton" else "193"),
+            max_abs_err=max(float((H1 - H2).abs().max()), float((g1 - g2).abs().max())),
+            ms=timer(lambda: L.weighted_gram(*args)),
+            plain_ms=timer(lambda: L.weighted_gram_plain(*args)),
+            bound_ms=b, bound_by=by,
+            library_ms=timer(lambda: torch.einsum("cn,np,nq->cpq", v, X1, X1))))
+        extra[f"weighted_gram_{mode}"] = {"X1": [n, p], "fits": C, "rel_err": errs,
+                                          "tolerance": GRAM_RTOL}
+        del v
+
+    # K-M forest_leaf_mean at the tree counts where the reference's order
+    # changes (32, 1,024) and around them, c = 1 and 3
+    G, n, P_ = 6, 1 << 16, 63
+    rng = torch.Generator(device=dev).manual_seed(6)
+    equal = {}
+    for T in MEAN_TREES:
+        for c in (1, 3):
+            leaf = torch.rand((G, T, P_, c), device=dev, generator=rng)
+            node = torch.randint(0, P_, (G, T, n), device=dev, generator=rng, dtype=torch.int32)
+            got = Tr.forest_leaf_mean(leaf, node)
+            equal[f"{T}x{c}"] = bool(torch.equal(got, Tr.forest_leaf_mean_plain(leaf, node)))
+    check(all(equal.values()), f"forest_leaf_mean differs from plain: {equal}")
+    leaf = torch.rand((G, 300, P_), device=dev, generator=rng)
+    node = torch.randint(0, P_, (G, 300, n), device=dev, generator=rng, dtype=torch.int32)
+    rn_long = node.long()
+    b, by = bound_ms(G * 300 * n * 4 + G * 300 * P_ * 4 + G * n * 4, G * 300 * n)
+    records.append(dict(
+        name="forest_leaf_mean_t300", route="triton",
+        source="transmogrifai_tpu_torch/ops/triton_forest.py",
+        replaces="transmogrifai_tpu/ops/sweep.py:253", max_abs_err=0.0,
+        ms=timer(lambda: Tr.forest_leaf_mean(leaf, node)),
+        plain_ms=timer(lambda: Tr.forest_leaf_mean_plain(leaf, node)),
+        bound_ms=b, bound_by=by, library_ms=timer(lambda: leaf.gather(2, rn_long).mean(1))))
+    extra["forest_leaf_mean_orders_bit_equal"] = equal
+    del leaf, node, rn_long
+
+    # K8, the threefry draws (torch integer ops, no hand kernel yet): each
+    # call's time at the Iris scale train's arguments (the forests' one
+    # Poisson bootstrap of 50 trees, a forest's or a boosting group's feature
+    # masks, the boosting groups' subsample masks at rate 1, which are
+    # ones), bound by the bytes it writes
+    kb, kf = Tr.rng_keys(42)
+    k8 = {}
+    for name, fn, out_bytes in (
+            ("bootstrap_weights", lambda: Tr.bootstrap_weights(kb, n_iris, 50, True, 1.0, dev),
+             50 * n_iris * 4),
+            ("feature_masks", lambda: Tr.feature_masks(kf, 8, 50, np.sqrt(8) / 8, dev), 50 * 8 * 4),
+            ("subsample_weights", lambda: Tr.subsample_weights(kb, n_iris, 200, 1.0, dev),
+             200 * n_iris * 4)):
+        b, by = bound_ms(out_bytes, 0)
+        k8[name] = {"ms": timer(fn), "bound_ms": b, "bound_by": by}
+    extra["k8_draws"] = k8
+    log("slice6_kernels", details=extra, records=records)
+    return records
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1493,9 +1968,11 @@ def main(argv=None):
     one = torch.ones((2, 8), device=dev)
     V.fill_indicator(one, one > 0, torch.ones(2, device=dev), True)
     V.one_hot_codes(torch.zeros((1, 8), dtype=torch.int32, device=dev), [3])
-    for loss in Tr.BOOST_LOSSES:
+    for loss in ("logistic", "squared"):
         Tr.boost_step(one, one[0], one, one[:, 0], ghw=torch.empty((2, 8, 2), device=dev),
                       loss=loss)
+    Tr.softmax_boost_step(torch.zeros((2, 8, 3), device=dev), one[0] * 0, one, one[:, 0],
+                          ghw=torch.empty((2, 8, 4), device=dev))
     Tr.forest_leaf_mean(one[None], torch.zeros((1, 2, 8), dtype=torch.int32, device=dev))
     Tr.forest_leaf_mean(one[None, ..., None].repeat(1, 1, 1, 3),
                         torch.zeros((1, 2, 8), dtype=torch.int32, device=dev))
@@ -1552,6 +2029,39 @@ def main(argv=None):
     missing = [k for k, v in iris_launches.items() if v <= 0]
     check(not missing, f"kernels not launched on the multiclass train path: {missing}")
     iris_records = iris_kernel_phase(torch, iris_call, timer)
+    del iris_call
+
+    # 18-24. softmax boosting, the Newton and ridge fits: the fixtures'
+    # trains, the main paths at scale, the kernels
+    iris_boost_reference_phase(torch, iris, FX)
+    titanic_newton_reference_phase(torch, titanic, FX)
+    boston_ridge_reference_phase(torch, boston, FX)
+    sp = spaces()
+    boost_kernels = iris_kernels + (Tr.softmax_boost_step,)
+    boost_launches, boost_calls, _ = scale_train_phase(
+        torch, "iris_boost_train",
+        lambda: iris.train_iris(iris.iris_data(args.train_rows, args.seed), device="cuda",
+                                models_and_parameters=sp["iris_mixed"]),
+        boost_kernels, [fn.__name__ for fn in boost_kernels], iris_boost_check,
+        count_draws=True)
+    newton_launches, newton_calls, _ = scale_train_phase(
+        torch, "titanic_newton_train",
+        lambda: titanic.train_titanic(titanic.titanic_data(args.train_rows, args.seed),
+                                      device="cuda", models_and_parameters=sp["titanic_mixed"]),
+        (L.weighted_gram, L.fista_grad, M.binary_metrics, K.corr_gram, K.contingency_counts),
+        ("weighted_gram", "fista_grad", "binary_metrics"), titanic_newton_check)
+    ridge_launches, ridge_calls, _ = scale_train_phase(
+        torch, "boston_ridge_train",
+        lambda: boston.train_boston(boston.boston_data(args.train_rows, args.seed),
+                                    device="cuda", models_and_parameters=sp["boston_ridge"]),
+        (L.weighted_gram, L.linear_fista_grad, M.regression_metrics, Tr.ensemble_walk),
+        ("weighted_gram", "linear_fista_grad", "regression_metrics"), boston_ridge_check)
+    slice6_records = slice6_kernel_phase(torch, boost_calls, newton_calls[0], ridge_calls[0],
+                                         timer)
+    slice6_launches = {"softmax_boost_step": boost_launches["softmax_boost_step"],
+                       "weighted_gram_newton": newton_launches["weighted_gram"],
+                       "weighted_gram_ridge": ridge_launches["weighted_gram"],
+                       "forest_leaf_mean_t300": boost_launches["forest_leaf_mean"]}
 
     for r in records:
         r["launches"] = launches[r["name"]]
@@ -1561,7 +2071,9 @@ def main(argv=None):
         r["launches"] = boston_launches[r["name"].replace("_squared", "")]
     for r in iris_records:
         r["launches"] = iris_launches[r["name"].replace("_c3", "")]
-    records += train_records + boston_records + iris_records
+    for r in slice6_records:
+        r["launches"] = slice6_launches[r["name"]]
+    records += train_records + boston_records + iris_records + slice6_records
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in records]}), flush=True)

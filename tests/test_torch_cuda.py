@@ -330,7 +330,8 @@ def test_binary_metrics_matches_plain(dev, n, F, C, ties):
     assert torch.equal(got, M.binary_metrics_plain(ss, order, y, vm, strict, C))
 
 
-@pytest.mark.parametrize("G,T,n", [(1, 1, 7), (6, 50, 20000), (2, 300, 5000), (3, 17, 1000)])
+@pytest.mark.parametrize("G,T,n", [(1, 1, 7), (6, 50, 20000), (2, 300, 5000), (3, 17, 1000),
+                                   (2, 24, 3000), (1, 1100, 3000)])
 def test_forest_leaf_mean_matches_plain(dev, G, T, n):
     rng = np.random.default_rng(T)
     P = 63
@@ -473,3 +474,69 @@ def test_forest_leaf_mean_matches_plain_over_class_channels(dev, G, T, n, c):
     got = _counted(Tr.forest_leaf_mean, lambda: Tr.forest_leaf_mean(leaf, node))
     assert got.shape == (G, n, c)
     assert torch.equal(got, Tr.forest_leaf_mean_plain(leaf, node))
+
+
+
+# ---------------------------------------------------------------------------
+# softmax boosting and the Newton / ridge fits: K-R softmax_boost_step, K-S
+# weighted_gram; K-L on NaN scores
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("k,update", [(3, True), (3, False), (5, True), (8, True)])
+def test_softmax_boost_step_matches_plain(dev, k, update):
+    rng = np.random.default_rng(k)
+    T, n, P = 6, 20011, 63
+    F = torch.from_numpy((rng.normal(size=(T, n, k)) * 2).astype(np.float32)).to(dev)
+    y = torch.from_numpy(rng.integers(0, k, n).astype(np.float32)).to(dev)
+    w = torch.from_numpy(rng.integers(0, 3, size=(T, n)).astype(np.float32)).to(dev)
+    eta = torch.from_numpy(rng.random(T).astype(np.float32)).to(dev)
+    leaf = torch.from_numpy(rng.normal(size=(T, P, k)).astype(np.float32)).to(dev)
+    node = torch.from_numpy(rng.integers(0, P, size=(T, n)).astype(np.int32)).to(dev)
+    upd = (leaf, node) if update else (None, None)
+    F1, F2 = F.clone(), F.clone()
+    g1, g2 = (torch.empty((T, n, k + 1), device=dev) for _ in range(2))
+    _counted(Tr.softmax_boost_step, lambda: Tr.softmax_boost_step(F1, y, w, eta, *upd, g1))
+    Tr.softmax_boost_step_plain(F2, y, w, eta, *upd, g2)
+    assert torch.equal(F1, F2)  # one fused multiply-add a channel in both
+    # the same expf; float32 operations in one order
+    torch.testing.assert_close(g1, g2, rtol=0, atol=2.4e-7 * 2)
+
+
+@pytest.mark.parametrize("n,p,C,F,newton", [(1, 3, 1, 1, True), (70000, 11, 18, 3, True),
+                                            (235930, 17, 3, 3, False), (5000, 64, 3, 1, True),
+                                            (40000, 9, 40, 4, True), (3000, 33, 2, 2, False)])
+def test_weighted_gram_matches_plain(dev, n, p, C, F, newton):
+    from transmogrifai_tpu_torch.ops import linear as L
+
+    rng = np.random.default_rng(n + p)
+    X1 = np.concatenate([rng.normal(size=(n, p - 1)), np.ones((n, 1))], 1).astype(np.float32)
+    y = (rng.random(n) < 0.4).astype(np.float32)
+    w = rng.integers(0, 3, size=(F, n)).astype(np.float32)
+    fold = (np.arange(C) % F).astype(np.int32)
+    beta = (rng.normal(size=(C, p)) * 0.3).astype(np.float32) if newton else None
+    ts = [torch.from_numpy(a).to(dev) for a in (X1, y, w, fold)]
+    bt = None if beta is None else torch.from_numpy(beta).to(dev)
+    H1, g1 = _counted(L.weighted_gram, lambda: L.weighted_gram(*ts, bt))
+    H2, g2 = L.weighted_gram_plain(*ts, bt)
+    assert torch.equal(H1, L.weighted_gram(*ts, bt)[0])  # a fixed order: repeats
+    assert torch.equal(H1, H1.transpose(1, 2))
+    # float64 sums in both; the margins' float32 dot products in other orders
+    torch.testing.assert_close(H1, H2, rtol=1e-5, atol=1e-5 * float(H2.abs().max()))
+    torch.testing.assert_close(g1, g2, rtol=1e-5, atol=1e-5 * float(g2.abs().max()))
+
+
+def test_binary_metrics_matches_plain_on_nan_scores(dev):
+    from transmogrifai_tpu_torch.ops import metrics as M
+
+    rng = np.random.default_rng(4)
+    n, F, C = 5000, 2, 3
+    y = torch.from_numpy(rng.integers(0, 2, n).astype(np.float32)).to(dev)
+    s = rng.random((F, C, n)).astype(np.float32)
+    s[:, 0] = np.nan
+    s[:, 1, ::3] = np.nan
+    s[:, 2, ::7] = np.inf
+    vm = torch.from_numpy((rng.random((F, n)) < 0.4).astype(np.float32)).to(dev)
+    strict = torch.zeros(C, dtype=torch.int32, device=dev)
+    ss, order = M.sort_scores(torch.from_numpy(s).to(dev), vm)
+    got = _counted(M.binary_metrics, lambda: M.binary_metrics(ss, order, y, vm, strict, C))
+    assert torch.equal(got, M.binary_metrics_plain(ss, order, y, vm, strict, C))
+    assert torch.equal(got[0, :2].cpu(), torch.tensor([0.5, 0.0]))

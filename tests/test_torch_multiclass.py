@@ -352,8 +352,9 @@ def test_multiclass_plan_refusals():
     tw = np.ones((3, 60), np.float32)
     ev = PE.MultiClassification.error()
     from transmogrifai_tpu_torch.impl.classification.trees import OpXGBoostClassifier
-    with pytest.raises(NotImplementedError, match="softmax boosting"):
-        PSF.build_sweep_plan([(OpXGBoostClassifier(), [{}])], _t(X), y, tw, ev)
+    # softmax boosting fuses now: a "gbt" fragment over three class margins
+    plan = PSF.build_sweep_plan([(OpXGBoostClassifier(), [{}])], _t(X), y, tw, ev)
+    assert plan.spec[1][0][:3] == ("gbt", "softmax", 3)
     with pytest.raises(NotImplementedError, match="two-class label"):
         PSF.build_sweep_plan([(PRF(), [{}])], _t(X), (y > 0).astype(np.float32), tw, ev)
     with pytest.raises(NotImplementedError, match="at most 8 classes"):

@@ -153,13 +153,19 @@ def test_linear_fista_grad_plain_is_the_gradient():
 
 
 def test_ridge_fits_raise():
+    """The L1-free fits (reg 0.1 / alpha 0, and reg 0 / alpha 0.5) no longer
+    raise: they fit in closed form (``fit_ridge``, K-S), as the JAX
+    package's do, in the refit and in the fold x grid batch."""
     X, y = _data(50, 3)
+    tw = np.ones((1, 50), np.float32)
     for reg, alpha in ((0.1, 0.0), (0.0, 0.5)):
         est = PLinR(reg_param=reg, elastic_net_param=alpha).to("cpu")
-        with pytest.raises(NotImplementedError, match="K14 fit_ridge"):
-            est.fit_arrays(torch.from_numpy(X), y)
-        with pytest.raises(NotImplementedError, match="K14 fit_ridge"):
-            est.fit_grid_folds(torch.from_numpy(X), y, np.ones((1, 50), np.float32), [{}])
+        got = est.fit_arrays(torch.from_numpy(X), y)
+        want = JLinR(reg_param=reg, elastic_net_param=alpha).fit_arrays(X, y)
+        np.testing.assert_allclose(got["coef"], np.asarray(want["coef"]), rtol=1e-5, atol=1e-5)
+        pg = est.fit_grid_folds(torch.from_numpy(X), y, tw, [{}])
+        jg = JLinR(reg_param=reg, elastic_net_param=alpha).fit_grid_folds(X, y, tw, [{}])
+        np.testing.assert_allclose(pg[0][0][0], jg[0][0][0], rtol=1e-5, atol=1e-4)
 
 
 # ---------------------------------------------------------------------------

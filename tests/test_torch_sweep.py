@@ -119,11 +119,14 @@ def test_fista_grad_plain_is_the_gradient():
 
 
 def test_pure_l2_and_multinomial_fits_raise():
-    """The binary pure-L2 fit (Newton, K9) still raises; the multinomial fit
-    is ported (K-P) and fits a [d, k] coefficient matrix."""
+    """Neither raises now: the binary pure-L2 fit is Newton's (K-S), as the
+    JAX package's; the multinomial fit is ported (K-P) and fits a [d, k]
+    coefficient matrix."""
     X, y = _data(50, 3)
-    with pytest.raises(NotImplementedError, match="K9"):
-        PLR(reg_param=0.1, elastic_net_param=0.0).to("cpu").fit_arrays(torch.from_numpy(X), y)
+    got = PLR(reg_param=0.1, elastic_net_param=0.0).to("cpu").fit_arrays(torch.from_numpy(X), y)
+    want = JLR(reg_param=0.1, elastic_net_param=0.0).fit_arrays(X, y)
+    np.testing.assert_allclose(got["coef"], np.asarray(want["coef"]), rtol=1e-5, atol=1e-6)
+    assert not got["multinomial"]
     params = PLR(reg_param=0.1, elastic_net_param=0.5).to("cpu").fit_arrays(
         torch.from_numpy(X), np.arange(50) % 3)
     assert params["multinomial"] and params["num_classes"] == 3
@@ -299,7 +302,9 @@ def test_unfusable_candidates_build_no_plan():
     tw = np.ones((1, 100), np.float32)
     ev = PE.BinaryClassification.auPR()
     Xt = torch.from_numpy(X)
-    assert PSF.build_sweep_plan([(PLR(), [{"reg_param": 0.1}])], Xt, y, tw, ev) is None
+    # a pure-L2 point fuses now, as the JAX package's "newton" fragment
+    newton = PSF.build_sweep_plan([(PLR(), [{"reg_param": 0.1}])], Xt, y, tw, ev)
+    assert [f[0] for f in newton.spec[1]] == ["newton"]
     assert PSF.build_sweep_plan([(PLR(), [{"tol": 1e-3}])], Xt, y, tw, ev) is None
     assert PSF.build_sweep_plan([(PRF(), [{"seed": 3}])], Xt, y, tw, ev) is None
     assert PSF.build_sweep_plan([(PRF(), [{}])], Xt, np.arange(100) % 3, tw, ev) is None

@@ -311,8 +311,12 @@ def test_boosting_raises_on_unported_losses_and_collapse():
     Xb, y, w = _gbt_data(n=50)
     args = (torch.from_numpy(Xb), torch.from_numpy(y), torch.from_numpy(w),
             torch.ones((2, 50)), torch.ones((2, 6)))
-    with pytest.raises(NotImplementedError, match="softmax"):
-        PT.fit_gbt(*args, "softmax", 2, 2, 16, 4)
+    # the softmax loss is ported (tests/test_torch_softmax_boost.py); an
+    # unknown loss and a class count outside 2 .. 8 raise
+    with pytest.raises(ValueError, match="unknown loss"):
+        PT.fit_gbt(*args, "hinge", 2, 2, 16, 4)
+    with pytest.raises(ValueError, match="2 to 8 classes"):
+        PT.fit_gbt(*args, "softmax", 2, 2, 16, 4, n_classes=9)
     with pytest.raises(NotImplementedError, match="trees_per_round"):
         PT.fit_gbt(*args, "logistic", 2, 2, 16, 4, trees_per_round=2)
 

@@ -23,7 +23,11 @@
 // the total is the same in any order and rounded once.  The reference sums
 // both in float32 in XLA's order.  The thresholded class decision (score >
 // 0.5 when the candidate's strict flag is set, >= 0.5 otherwise) is
-// counted in the same pass.  The scan of each 1024-row tile is a block
+// counted in the same pass.  NaN scores (sorted last, as XLA's sort puts
+// them) form one tie group, as the reference's searchsorted orders them; it
+// adds no AuPR step, and the top non-NaN group's step starts from recall 0
+// (the reference's previous distinct threshold skips the NaN group, so its
+// positives count in that step).  The scan of each 1024-row tile is a block
 // scan (warp shuffles, then the warps); no atomics, so runs repeat bit for
 // bit.
 //
@@ -113,10 +117,10 @@ __device__ __forceinline__ float ratio(long long a, long long b) {
 __device__ __forceinline__ void close_group(int lo, int hi, float score, long long P_lo,
                                             long long N_lo, long long P_hi, long long P_tot,
                                             long long N_tot, float rec_den, long long n_exc,
-                                            long long* r2, long long* pr) {
+                                            int nan_lo, long long* r2, long long* pr) {
   *r2 += (P_hi - P_lo) * ((long long)lo + hi + 1 - 2 * n_exc);
-  if (score > -INFINITY) {
-    const long long A = P_tot - P_lo, B = N_tot - N_lo, Ah = P_tot - P_hi;
+  if (score > -INFINITY) {  // false for NaN
+    const long long A = P_tot - P_lo, B = N_tot - N_lo, Ah = hi == nan_lo ? 0 : P_tot - P_hi;
     const float prec = ratio(A, B);
     const float rec_lo = __fdiv_rn((float)A, rec_den);
     const float rec_hi = __fdiv_rn((float)Ah, rec_den);
@@ -142,8 +146,9 @@ binary_metrics_kernel(const float* __restrict__ ss, const int64_t* __restrict__ 
   const int tid = threadIdx.x;
 
   // pass 1: class totals and the thresholded counts
-  long long pos = 0, neg = 0, tp = 0, fp = 0, fn = 0;
+  long long pos = 0, neg = 0, tp = 0, fp = 0, fn = 0, nans = 0;
   for (int a = tid; a < n; a += kThreads) {
+    nans += isnan(srow[a]);
     const long long i = orow[a];
     if (vrow[i] == 0.0f) continue;
     const bool yp = y[i] != 0.0f;
@@ -160,6 +165,7 @@ binary_metrics_kernel(const float* __restrict__ ss, const int64_t* __restrict__ 
   const long long TPc = block_sum(tp, shl);
   const long long FPc = block_sum(fp, shl);
   const long long FNc = block_sum(fn, shl);
+  const int nan_lo = n - (int)block_sum(nans, shl);  // the NaN group's start
   const long long n_exc = (long long)n - P_tot - N_tot;
   const float npos = (float)P_tot, nneg = (float)N_tot;
   const float rec_den = fmaxf(npos, 1.0f);
@@ -183,7 +189,7 @@ binary_metrics_kernel(const float* __restrict__ ss, const int64_t* __restrict__ 
       }
       if (a > 0) s_prev = srow[a - 1];
     }
-    const bool start = in && (a == 0 || s != s_prev);
+    const bool start = in && (a == 0 || (s != s_prev && !(isnan(s) && isnan(s_prev))));
     int tot_p, tot_n;
     const int ep = block_excl_scan(yp, shi, &tot_p);
     const int en = block_excl_scan(yn, shi, &tot_n);
@@ -207,7 +213,8 @@ binary_metrics_kernel(const float* __restrict__ ss, const int64_t* __restrict__ 
         P_lo = carry_P;
         N_lo = carry_N;
       }
-      close_group(lo, a, s_prev, P_lo, N_lo, P_a, P_tot, N_tot, rec_den, n_exc, &r2, &pr);
+      close_group(lo, a, s_prev, P_lo, N_lo, P_a, P_tot, N_tot, rec_den, n_exc, nan_lo, &r2,
+                  &pr);
     }
     // carry the open group to the next tile
     const int tile_last = min(kThreads, n - t0) - 1;
@@ -223,7 +230,7 @@ binary_metrics_kernel(const float* __restrict__ ss, const int64_t* __restrict__ 
   }
   if (tid == 0 && n > 0)
     close_group(carry_lo, n, srow[n - 1], carry_P, carry_N, P_tot, P_tot, N_tot, rec_den,
-                n_exc, &r2, &pr);
+                n_exc, nan_lo, &r2, &pr);
   const long long R2 = block_sum(r2, shl);
   const long long PR = block_sum(pr, shl);
   if (tid != 0) return;

@@ -34,6 +34,33 @@ and the forests' draws (bootstrap [50, 135], feature masks [50, 8]).
 ``tests/test_torch_iris_slice.py --write`` regenerates it.  The answers
 travel as data because the machine with the card has no JAX.
 
+``iris_boost/`` holds the Iris workflow's model over the one-family space
+``[(OpXGBoostClassifier(), xgboost_grid())]`` (the winner: min_child_weight
+1, a softmax-boosted model of 200 rounds over 3 class margins), 256
+request records and the JAX package's answers for them (``expected.npz``),
+and ``sweep.npz``: that call's fused-sweep metrics [1, 3, 2, 4]
+(``metrics``), and the metrics [1, 3, 46, 4] (``mixed_metrics``) and
+winner's index (``mixed_best``) of the 46-candidate call (the stock LR +
+RF space with ``gbt_grid()`` and ``xgboost_grid()`` added).
+``tests/test_torch_iris_boost_slice.py --write`` regenerates it.
+
+``titanic_newton/`` holds the Titanic workflow's model over the five
+pure-L2 logistic points (``reg_param`` {0, 0.001, 0.01, 0.1, 0.2},
+``elastic_net_param`` 0, ``max_iter`` 50: Newton fits of 12 steps; the
+winner reg 0.2), 256 requests and the JAX package's answers, and
+``sweep.npz``: that train's three workflow-level sweep calls' metrics [3,
+1, 5, 6] (``metrics``), and the metrics [3, 1, 10, 6] (``mixed_metrics``)
+and winner's index (``mixed_best``) of the grid with ``elastic_net_param``
+{0, 0.1} (six Newton points, four FISTA).
+``tests/test_torch_titanic_newton_slice.py --write`` regenerates it.
+
+``boston_ridge/`` holds the Boston workflow's model over the five ridge
+points of ``OpLinearRegression()`` (``reg_param`` {0, 0.001, 0.01, 0.1,
+0.2}; the sweep fits them by FISTA, the winner reg 0 refits in closed
+form), 256 requests and the JAX package's predictions, and ``sweep.npz``:
+the sweep call's metrics [1, 3, 5, 4].
+``tests/test_torch_boston_ridge_slice.py --write`` regenerates it.
+
 Strings with nulls are stored as a unicode array plus ``<name>__null``, so
 the files load without pickles.
 """
@@ -48,6 +75,9 @@ TITANIC_XGB = os.path.join(os.path.dirname(os.path.abspath(__file__)), "titanic_
 TITANIC_STOCK = os.path.join(os.path.dirname(os.path.abspath(__file__)), "titanic_stock")
 BOSTON_STOCK = os.path.join(os.path.dirname(os.path.abspath(__file__)), "boston_stock")
 IRIS_STOCK = os.path.join(os.path.dirname(os.path.abspath(__file__)), "iris_stock")
+IRIS_BOOST = os.path.join(os.path.dirname(os.path.abspath(__file__)), "iris_boost")
+TITANIC_NEWTON = os.path.join(os.path.dirname(os.path.abspath(__file__)), "titanic_newton")
+BOSTON_RIDGE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "boston_ridge")
 NULL_SUFFIX = "__null"
 
 #: tolerances of the comparison with the JAX package's answers.  Margins are
@@ -303,3 +333,187 @@ def check_iris_train(model) -> Dict[str, Any]:
     return {"candidates": len(best), "fold_errors_equal": True,
             "tied_at_best": int(sum(v == min(best) for v in best)),
             "best_mean_error": min(best), "holdout": summ.holdout_evaluation}
+
+
+#: class probabilities of the softmax-boosted Iris models (the fixture's
+#: 200-round XGB winner on its requests; the cut grid's refits): float32
+#: margins summed in another order, and K-E's fixed-point histogram sums
+#: move a leaf value in its last bits where XLA sums float32 (the port's
+#: refit on the CPU: 198 of 200 trees equal, probabilities within 8.7e-8)
+IRIS_BOOST_PROB_ATOL = 1e-5
+#: fold AuPR of the Titanic Newton (pure-L2) candidates with reg_param > 0:
+#: the Hessian's float32 sums in another order move a score in its last
+#: bits.  Well under the 1.3e-6 between the Newton-only grid's winner (reg
+#: 0.2) and its runner-up (reg 0.1)
+NEWTON_AUPR_TOL = 5e-7
+#: probabilities of the Newton refit (reg 0.2) on the fixture's requests
+NEWTON_PROB_ATOL = 1e-6
+#: fold RMSE of the Boston ridge grid's sweep (FISTA through K-N, as the
+#: JAX package's sweep fits every linear-regression point), relative: under
+#: the 2e-6 between the winner (reg 0) and reg 0.001
+RIDGE_RMSE_RTOL = 1.5e-6
+#: predictions of the closed-form ridge refit (reg 0) on the fixture's
+#: requests whose ``chas`` is a category the model saw, and its holdout
+#: metrics, relative.  The chas pivot's two columns sum to the intercept's,
+#: so the Gram is singular but for the 1e-9 ridge: the solve puts rounding
+#: noise, amplified, into that null direction (the fixture model's chas
+#: coefficients are 234 and 238 against an intercept of -256; the port's,
+#: on the CPU, -9.8, -6.1 and -11.75) and the identifiable coefficients
+#: move with it (4.9e-5 relative on the CPU).  A request with an unseen
+#: chas value (the pivot's "other" column, never set in training) reads the
+#: null direction's intercept alone, so its prediction is that noise in
+#: either package (the fixture's -206 where the port's is 37.6): those rows
+#: are compared for being finite only (``compare_ridge_predictions``)
+RIDGE_PRED_RTOL = 5e-4
+#: and absolute (thousands of dollars), for predictions near 0
+RIDGE_PRED_ATOL = 5e-3
+#: the chas categories the Boston model saw in training
+BOSTON_CHAS_SEEN = (0, 1)
+
+
+def _check_order(summ, ref_results) -> None:
+    check(len(summ.validation_results) == len(ref_results), "candidate count")
+    for mine, theirs in zip(summ.validation_results, ref_results):
+        check((mine["modelName"], mine["grid"]) == (theirs["modelName"], theirs["grid"]),
+              "candidate order differs from the fixture's")
+
+
+def _best_index(summ) -> int:
+    return [(r["modelName"], r["grid"]) for r in summ.validation_results].index(
+        (summ.best_model_name, summ.best_grid))
+
+
+def check_iris_boost_train(model, mixed: bool) -> Dict[str, Any]:
+    """Hold an Iris boosting train to the ``iris_boost`` fixture: with
+    ``mixed`` the 46-candidate call (``mixed_metrics``: every fold Error bit
+    for bit, the winner's index), else the XGB-only call (the saved
+    summary: the same candidates and winner, every fold Error bit for bit,
+    the holdout's Error, F1, Precision and Recall equal).  Returns what it
+    compared."""
+    import json
+
+    sweep = load_sweep(os.path.join(IRIS_BOOST, "sweep.npz"))
+    summ = model.stages[-1].summary
+    folds = np.array([r["foldMetrics"] for r in summ.validation_results], np.float32)
+    if mixed:
+        ref = sweep["mixed_metrics"][0, :, :, 3].T
+        check(folds.shape == ref.shape, f"{folds.shape[0]} candidates, the fixture has "
+                                        f"{ref.shape[0]}")
+        differ = np.where((folds != ref).any(1))[0].tolist()
+        check(not differ, f"fold Errors of candidates {differ} differ from the fixture's")
+        check(_best_index(summ) == int(sweep["mixed_best"]),
+              f"winner {summ.best_model_name} {summ.best_grid} is not the fixture's "
+              f"candidate {int(sweep['mixed_best'])}")
+        best = [r["metricValue"] for r in summ.validation_results]
+        return {"candidates": len(best), "fold_errors_equal": True,
+                "tied_at_best": int(sum(v == min(best) for v in best)),
+                "best_mean_error": min(best)}
+    with open(os.path.join(IRIS_BOOST, "op_model.json")) as fh:
+        ref = stage_summary(json.load(fh))
+    _check_order(summ, ref["validationResults"])
+    check(summ.best_model_name == ref["bestModelName"] and summ.best_grid == ref["bestGrid"],
+          f"winner {summ.best_model_name} {summ.best_grid} differs from the fixture's")
+    check(np.array_equal(folds, sweep["metrics"][0, :, :, 3].T),
+          "fold Errors differ from the fixture's")
+    mine = {k: summ.holdout_evaluation[k] for k in ("Error", "F1", "Precision", "Recall")}
+    theirs = {k: ref["holdoutEvaluation"][k] for k in mine}
+    check(mine == theirs, f"holdout {mine} differs from the fixture's {theirs}")
+    return {"candidates": len(folds), "fold_errors": folds.tolist(), "holdout": mine}
+
+
+#: AuPR's column in the binary sweep metrics (``ops/metrics.BINARY_METRICS``)
+BINARY_AUPR = 1
+
+
+def _titanic_folds(metrics: np.ndarray) -> np.ndarray:
+    """Each candidate's fold AuPR [C, 3] from the three workflow-level sweep
+    calls' metrics [3, 1, C, 6]."""
+    return metrics[:, 0, :, BINARY_AUPR].T
+
+
+def check_titanic_newton_train(model, mixed: bool) -> Dict[str, Any]:
+    """Hold a Titanic Newton train to the ``titanic_newton`` fixture (the
+    five-point Newton grid, or with ``mixed`` the ten-point grid of six
+    Newton and four FISTA points): the same winner; each fold AuPR within
+    ``NEWTON_AUPR_TOL`` (Newton, reg > 0) or ``LR_AUPR_TOL`` (FISTA) of the
+    fixture's.  At reg 0 the Newton fit has no ridge but 1e-8: Titanic's
+    one-hot pivots and the intercept make the Hessian singular, and the
+    reference's fit breaks down on some folds (all scores NaN, AuPR 0.0)
+    where rounding noise tips it, in a pattern that changes with the
+    compiled program; there each fold must be the reference's 0.0 or a
+    finite AuPR, and the candidate's mean must stay below the winner's.
+    Returns the largest gap per kind and the reg-0 folds."""
+    sweep = load_sweep(os.path.join(TITANIC_NEWTON, "sweep.npz"))
+    summ = model.stages[-1].summary
+    ref = _titanic_folds(sweep["mixed_metrics" if mixed else "metrics"])
+    best = int(sweep["mixed_best"]) if mixed else int(np.argmax(ref.astype(np.float64).mean(1)))
+    check(_best_index(summ) == best,
+          f"winner {summ.best_model_name} {summ.best_grid} is not the fixture's candidate {best}")
+    gaps = {"newton": 0.0, "fista": 0.0}
+    reg0 = []
+    win = summ.validation_results[best]["metricValue"]
+    for i, r in enumerate(summ.validation_results):
+        reg, alpha = r["grid"]["reg_param"], r["grid"]["elastic_net_param"]
+        mine = np.asarray(r["foldMetrics"], np.float64)
+        theirs = ref[i].astype(np.float64)
+        if reg * alpha != 0.0:
+            gaps["fista"] = max(gaps["fista"], float(np.abs(mine - theirs).max()))
+        elif reg > 0.0:
+            gaps["newton"] = max(gaps["newton"], float(np.abs(mine - theirs).max()))
+        else:
+            check(all(np.isfinite(m) and (abs(m - t) <= NEWTON_AUPR_TOL or t == 0.0)
+                      for m, t in zip(mine, theirs)),
+                  f"reg-0 Newton folds {mine.tolist()} against the fixture's {theirs.tolist()}")
+            check(r["metricValue"] < win, "a reg-0 Newton point reaches the winner's mean")
+            reg0.append({"port": mine.tolist(), "fixture": theirs.tolist()})
+    check(gaps["newton"] <= NEWTON_AUPR_TOL,
+          f"Newton fold AuPR {gaps['newton']} from the fixture's, above {NEWTON_AUPR_TOL}")
+    check(gaps["fista"] <= LR_AUPR_TOL,
+          f"FISTA fold AuPR {gaps['fista']} from the fixture's, above {LR_AUPR_TOL}")
+    return {"max_gap": gaps, "reg0_folds": reg0, "best_grid": summ.best_grid}
+
+
+def check_boston_ridge_train(model) -> Dict[str, Any]:
+    """Hold a Boston ridge train to the ``boston_ridge`` fixture: the same
+    candidates and winner, every fold RMSE within ``RIDGE_RMSE_RTOL``
+    (relative), the refit's holdout metrics within ``RIDGE_PRED_RTOL``.
+    Returns the largest relative gaps."""
+    import json
+
+    with open(os.path.join(BOSTON_RIDGE, "op_model.json")) as fh:
+        ref = stage_summary(json.load(fh))
+    summ = model.stages[-1].summary
+    _check_order(summ, ref["validationResults"])
+    check(summ.best_model_name == ref["bestModelName"] and summ.best_grid == ref["bestGrid"],
+          f"winner {summ.best_model_name} {summ.best_grid} differs from the fixture's")
+    gap = max(abs(a - b) / abs(b) for mine, theirs in zip(summ.validation_results,
+                                                          ref["validationResults"])
+              for a, b in zip(mine["foldMetrics"], theirs["foldMetrics"]))
+    check(gap <= RIDGE_RMSE_RTOL, f"fold RMSE {gap} (relative) from the fixture's, above "
+                                  f"{RIDGE_RMSE_RTOL}")
+    hold = max(abs(summ.holdout_evaluation[k] - ref["holdoutEvaluation"][k])
+               / abs(ref["holdoutEvaluation"][k])
+               for k in ("RootMeanSquaredError", "MeanSquaredError", "R2", "MeanAbsoluteError"))
+    check(hold <= RIDGE_PRED_RTOL, f"holdout metrics {hold} (relative) from the fixture's")
+    return {"fold_rmse_max_rel_gap": gap, "holdout_max_rel_gap": hold,
+            "holdout": {k: v for k, v in summ.holdout_evaluation.items()
+                        if k != "SignedPercentageErrorHistogram"}}
+
+
+def compare_ridge_predictions(pred: np.ndarray, cols: Dict[str, np.ndarray],
+                              expected: np.ndarray) -> Dict[str, float]:
+    """Gaps of a reg-0 ridge model's predictions to the fixture's: within
+    ``RIDGE_PRED_ATOL`` + ``RIDGE_PRED_RTOL`` (relative) on the requests with
+    a seen ``chas`` category, finite on the others (see
+    ``RIDGE_PRED_RTOL``).  Raises
+    AssertionError on a failed check."""
+    seen = np.isin(np.asarray(cols["chas"]), BOSTON_CHAS_SEEN)
+    err = np.abs(pred - expected)
+    out = {"seen_rows": int(seen.sum()), "seen_max_abs_err": float(err[seen].max()),
+           "seen_max_rel_err": float((err / np.abs(expected))[seen].max()),
+           "unseen_rows": int((~seen).sum()),
+           "unseen_max_abs_diff": float(err[~seen].max(initial=0.0))}
+    check(bool((err[seen] <= RIDGE_PRED_ATOL + RIDGE_PRED_RTOL * np.abs(expected[seen])).all()),
+          out)
+    check(bool(np.isfinite(pred).all()), "a ridge prediction is not finite")
+    return out

@@ -1,15 +1,16 @@
-"""OpLogisticRegression: the binary elastic-net fit and prediction.
+"""OpLogisticRegression: the binary and multinomial fits and prediction.
 
 The port's counterpart of ``transmogrifai_tpu/impl/classification/logistic.py``
 (reference: OpLogisticRegression.scala wrapping Spark's LogisticRegression:
 regParam, elasticNetParam, maxIter, fitIntercept, family).  Binary fits
 with an L1 share (``elastic_net_param > 0`` and ``reg_param > 0``) run the
-FISTA solver of ``ops/linear.py`` (K-K) for at least 200 iterations, as the
-JAX package does; multinomial fits (``family="multinomial"``, or "auto"
-over more than two classes) run the softmax FISTA solver (K-P) for
-``max_iter`` iterations, every grid point; prediction is a float32 product
-on the device.  The Newton solver of the binary pure-L2 fits (K9) is not
-ported and raises.
+FISTA solver of ``ops/linear.py`` (K-K) for at least 200 iterations; the
+others (pure L2, the default constructor's reg 0 among them) run the
+Newton solver (K-S) with ``l2 = reg_param`` for ``min(max(max_iter // 4,
+10), 50)`` steps, as the JAX package does; multinomial fits
+(``family="multinomial"``, or "auto" over more than two classes) run the
+softmax FISTA solver (K-P) for ``max_iter`` iterations, every grid point;
+prediction is a float32 product on the device.
 """
 from __future__ import annotations
 
@@ -23,11 +24,9 @@ from ..feature._util import stage_device
 from ..selector.predictor import PredictorEstimator, as_matrix
 
 
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported: the Newton solver (K9, transmogrifai_tpu/ops/linear.py:53) "
-        "is queued; the port fits binary elastic-net grids (reg_param > 0, "
-        "elastic_net_param > 0) and multinomial grids")
+def _newton_steps(max_iter: int) -> int:
+    """The Newton solver's step count for ``max_iter`` (the JAX package's)."""
+    return min(max(max_iter // 4, 10), 50)
 
 
 class OpLogisticRegression(PredictorEstimator):
@@ -65,22 +64,28 @@ class OpLogisticRegression(PredictorEstimator):
                 fit_intercept=bool(self.get_param("fit_intercept", True)), l1=reg * alpha)
             return {"coef": fit.coef.cpu().numpy(), "intercept": fit.intercept.cpu().numpy(),
                     "num_classes": k, "multinomial": True}
-        if not (alpha > 0.0 and reg > 0.0):
-            raise _not_ported("a pure-L2 logistic fit")
         sw = np.ones(X.shape[0], np.float32) if w is None else np.asarray(w, np.float32)
-        fit = L.fit_logistic_fista(
-            X, torch.from_numpy(np.asarray(y, np.float32)).to(dev), torch.from_numpy(sw).to(dev),
-            l1=reg * alpha, l2=reg * (1.0 - alpha),
-            max_iter=max(int(self.get_param("max_iter", 100)), 200),
-            fit_intercept=bool(self.get_param("fit_intercept", True)))
+        yd = torch.from_numpy(np.asarray(y, np.float32)).to(dev)
+        max_iter = int(self.get_param("max_iter", 100))
+        fit_intercept = bool(self.get_param("fit_intercept", True))
+        if alpha > 0.0 and reg > 0.0:
+            fit = L.fit_logistic_fista(X, yd, torch.from_numpy(sw).to(dev), l1=reg * alpha,
+                                       l2=reg * (1.0 - alpha), max_iter=max(max_iter, 200),
+                                       fit_intercept=fit_intercept)
+        else:
+            fit = L.fit_logistic_newton(X, yd, torch.from_numpy(sw).to(dev), l2=reg,
+                                        max_iter=_newton_steps(max_iter),
+                                        fit_intercept=fit_intercept)
         return {"coef": fit.coef.cpu().numpy(), "intercept": fit.intercept.cpu().numpy(),
                 "num_classes": 2, "multinomial": False}
 
     def fit_grid_folds(self, X, y, train_w, grids):
-        """The fold x grid block of elastic-net fits as one FISTA batch
-        (``ops/linear.fit_logistic_grid_folds_fista``, or
-        ``fit_softmax_grid_folds`` for a multinomial fit); predictions on
-        every row, ``[fold][grid]``."""
+        """The fold x grid block as one batch per solver, the solver picked
+        per point as ``fit_arrays`` picks it: the pure-L2 points (l1 = 0) by
+        ``ops/linear.fit_logistic_grid_folds_newton``, the elastic-net ones
+        by ``fit_logistic_grid_folds_fista`` (a multinomial fit: every point
+        by ``fit_softmax_grid_folds``); predictions on every row,
+        ``[fold][grid]``."""
         for g in grids:
             for k in g:
                 if k not in ("reg_param", "elastic_net_param"):
@@ -104,14 +109,24 @@ class OpLogisticRegression(PredictorEstimator):
                                L.predict_softmax_grid(X, fit.coef, fit.intercept))
             F, G = fit.coef.shape[:2]
             return [[(pred[f, c], raw[f, c], prob[f, c]) for c in range(G)] for f in range(F)]
-        if np.any(l1 == 0.0):
-            raise _not_ported("a pure-L2 logistic fit")
-        fit = L.fit_logistic_grid_folds_fista(
-            X, yd, twd, l1, l2, max_iter=max(int(self.get_param("max_iter", 100)), 200),
-            fit_intercept=bool(self.get_param("fit_intercept", True)))
+        max_iter = int(self.get_param("max_iter", 100))
+        fit_intercept = bool(self.get_param("fit_intercept", True))
+        F, G, d = twd.shape[0], len(grids), X.shape[1]
+        coef = torch.zeros((F, G, d), dtype=torch.float32, device=dev)
+        intercept = torch.zeros((F, G, 1), dtype=torch.float32, device=dev)
+        newton, fista = np.where(l1 == 0.0)[0], np.where(l1 != 0.0)[0]
+        if len(newton):
+            fit = L.fit_logistic_grid_folds_newton(X, yd, twd, l2[newton],
+                                                   max_iter=_newton_steps(max_iter),
+                                                   fit_intercept=fit_intercept)
+            coef[:, newton], intercept[:, newton] = fit.coef, fit.intercept
+        if len(fista):
+            fit = L.fit_logistic_grid_folds_fista(X, yd, twd, l1[fista], l2[fista],
+                                                  max_iter=max(max_iter, 200),
+                                                  fit_intercept=fit_intercept)
+            coef[:, fista], intercept[:, fista] = fit.coef, fit.intercept
         raw, prob, pred = (a.cpu().numpy() for a in
-                           L.predict_binary_logistic_grid(X, fit.coef, fit.intercept))
-        F, G = fit.coef.shape[:2]
+                           L.predict_binary_logistic_grid(X, coef, intercept))
         return [[(pred[f, c], raw[f, c], prob[f, c]) for c in range(G)] for f in range(F)]
 
     @classmethod

@@ -10,10 +10,11 @@ Fitting: the random forest (``ops/trees.fit_forest`` on the JAX package's
 bootstrap and feature draws, and the fold x grid sweep
 ``forest_grid_folds``): binary forests on one gradient channel, multiclass
 forests on k -onehot channels with class-distribution leaves; and the
-boosted models (GBT, XGBoost) with the logistic loss, through
-``ops/trees.fit_gbt`` (``fit_arrays``) and the fold x grid sweep
-``boosted_grid_folds`` (``fit_grid_folds``).  The decision tree's fit and
-the softmax loss are not ported.
+boosted models (GBT, XGBoost) with the logistic loss, or the softmax loss
+over k class margins (multi-output trees, a leaf vector per class),
+through ``ops/trees.fit_gbt`` (``fit_arrays``) and the fold x grid sweep
+``boosted_grid_folds`` (``fit_grid_folds``).  The decision tree's fit is
+not ported.
 """
 from __future__ import annotations
 
@@ -144,8 +145,7 @@ class OpDecisionTreeClassifier(OpRandomForestClassifier):
 
 
 class _BoostedClassifierBase(_TreeClassifierBase):
-    """Boosted trees: binary logistic (fit and predict) or multiclass
-    softmax (predict) margins."""
+    """Boosted trees: binary logistic or multiclass softmax margins."""
 
     _max_frontier_default = DEFAULT_MAX_FRONTIER_BOOSTED
 

@@ -1,13 +1,14 @@
-"""OpLinearRegression: the elastic-net linear-regression fit and prediction.
+"""OpLinearRegression: the elastic-net and ridge linear-regression fits and prediction.
 
 The port's counterpart of ``transmogrifai_tpu/impl/regression/linear.py``
 (reference: OpLinearRegression.scala wrapping Spark's LinearRegression:
 regParam, elasticNetParam, maxIter, fitIntercept).  Fits with an L1 share
 (``elastic_net_param > 0`` and ``reg_param > 0``) run the FISTA solver of
-``ops/linear.py`` (K-N) for at least 300 iterations, as the JAX package
-does; prediction is a float32 product on the device.  The closed-form
-ridge fits (``reg_param`` or ``elastic_net_param`` 0, K14 ``fit_ridge``)
-are not ported and raise.
+``ops/linear.py`` (K-N) for at least 300 iterations; the others (pure L2,
+the default constructor's reg 0 among them) the closed-form ridge fit
+(``ops/linear.fit_ridge``, its normal equations from K-S) with ``l2 =
+reg_param``, as the JAX package does; prediction is a float32 product on
+the device.
 """
 from __future__ import annotations
 
@@ -19,13 +20,6 @@ import torch
 from ...ops import linear as L
 from ..feature._util import stage_device
 from ..selector.predictor import PredictorEstimator, as_matrix
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported: the ridge solver (K14 fit_ridge, "
-        "transmogrifai_tpu/ops/linear.py:193) is queued; the port fits elastic-net grids "
-        "(reg_param > 0, elastic_net_param > 0)")
 
 
 class OpLinearRegression(PredictorEstimator):
@@ -48,19 +42,23 @@ class OpLinearRegression(PredictorEstimator):
         dev = X.device
         reg = float(self.get_param("reg_param", 0.0))
         alpha = float(self.get_param("elastic_net_param", 0.0))
-        if not (alpha > 0.0 and reg > 0.0):
-            raise _not_ported("a ridge (L1-free) linear-regression fit")
-        sw = np.ones(X.shape[0], np.float32) if w is None else np.asarray(w, np.float32)
-        fit = L.fit_linear_fista(
-            X, torch.from_numpy(np.asarray(y, np.float32)).to(dev), torch.from_numpy(sw).to(dev),
-            l1=reg * alpha, l2=reg * (1.0 - alpha), max_iter=self._max_iter(),
-            fit_intercept=bool(self.get_param("fit_intercept", True)))
+        sw = torch.from_numpy(np.ones(X.shape[0], np.float32) if w is None
+                              else np.asarray(w, np.float32)).to(dev)
+        yd = torch.from_numpy(np.asarray(y, np.float32)).to(dev)
+        fit_intercept = bool(self.get_param("fit_intercept", True))
+        if alpha > 0.0 and reg > 0.0:
+            fit = L.fit_linear_fista(X, yd, sw, l1=reg * alpha, l2=reg * (1.0 - alpha),
+                                     max_iter=self._max_iter(), fit_intercept=fit_intercept)
+        else:
+            fit = L.fit_ridge(X, yd, sw, l2=reg, fit_intercept=fit_intercept)
         return {"coef": fit.coef.cpu().numpy(), "intercept": fit.intercept.cpu().numpy()}
 
     def fit_grid_folds(self, X, y, train_w, grids):
-        """The fold x grid block of elastic-net fits as one FISTA batch
-        (``ops/linear.fit_linear_grid_folds_fista``); predictions on every
-        row, ``[fold][grid]``."""
+        """The fold x grid block as one batch per solver, picked per point as
+        ``fit_arrays`` picks it: the pure-L2 points (l1 = 0) in closed form
+        (``ops/linear.fit_ridge_grid_folds``), the elastic-net ones by
+        ``fit_linear_grid_folds_fista``; predictions on every row,
+        ``[fold][grid]``."""
         for g in grids:
             for k in g:
                 if k not in ("reg_param", "elastic_net_param"):
@@ -73,14 +71,22 @@ class OpLinearRegression(PredictorEstimator):
                                       self.get_param("elastic_net_param", 0.0)))
                           for g in grids], np.float32)
         l1, l2 = reg * alpha, reg * (1.0 - alpha)
-        if np.any(l1 == 0.0):
-            raise _not_ported("a ridge (L1-free) linear-regression fit")
-        fit = L.fit_linear_grid_folds_fista(
-            X, torch.from_numpy(np.asarray(y, np.float32)).to(dev),
-            torch.from_numpy(np.asarray(train_w, np.float32)).to(dev), l1, l2,
-            max_iter=self._max_iter(), fit_intercept=bool(self.get_param("fit_intercept", True)))
-        z = (torch.einsum("nd,fgd->fgn", X, fit.coef) + fit.intercept).cpu().numpy()
-        F, G = fit.coef.shape[:2]
+        yd = torch.from_numpy(np.asarray(y, np.float32)).to(dev)
+        twd = torch.from_numpy(np.asarray(train_w, np.float32)).to(dev)
+        fit_intercept = bool(self.get_param("fit_intercept", True))
+        F, G, d = twd.shape[0], len(grids), X.shape[1]
+        coef = torch.zeros((F, G, d), dtype=torch.float32, device=dev)
+        intercept = torch.zeros((F, G, 1), dtype=torch.float32, device=dev)
+        ridge, fista = np.where(l1 == 0.0)[0], np.where(l1 != 0.0)[0]
+        if len(ridge):
+            fit = L.fit_ridge_grid_folds(X, yd, twd, l2[ridge], fit_intercept=fit_intercept)
+            coef[:, ridge], intercept[:, ridge] = fit.coef, fit.intercept
+        if len(fista):
+            fit = L.fit_linear_grid_folds_fista(X, yd, twd, l1[fista], l2[fista],
+                                                max_iter=self._max_iter(),
+                                                fit_intercept=fit_intercept)
+            coef[:, fista], intercept[:, fista] = fit.coef, fit.intercept
+        z = (torch.einsum("nd,fgd->fgn", X, coef) + intercept).cpu().numpy()
         return [[(z[f, c], None, None) for c in range(G)] for f in range(F)]
 
     @classmethod

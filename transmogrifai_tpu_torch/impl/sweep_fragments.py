@@ -5,21 +5,21 @@ The port's counterpart of ``transmogrifai_tpu/impl/sweep_fragments.py``:
 static spec fragment and its hyperparameters in the float32 ``blob``, for
 ``ops/sweep.run_sweep``; the spec tuple is the JAX package's for the same
 inputs.  Ported for the binary problem: OpLogisticRegression (its
-elastic-net candidates: the "fista" fragment), OpRandomForestClassifier
-("forest"), OpGBTClassifier and OpXGBoostClassifier ("gbt", logistic); for
-the regression problem: OpLinearRegression (every candidate: "fista"),
-OpRandomForestRegressor ("forest", mean leaves), OpGBTRegressor and
-OpXGBoostRegressor ("gbt", squared, from each fold's label mean); for the
-multiclass problem (``("multiclass", k)``, 3 <= k <= 8, the multiclass
-evaluator): OpLogisticRegression (every candidate a softmax fit: "fista")
-and OpRandomForestClassifier ("forest" with k class-distribution
-channels).  Any other family, a pure-L2 logistic grid point of a binary
-problem (the JAX package's "newton" fragment), another evaluator, a binary
-evaluator over a non-binary label or a multiclass score block above the
-JAX package's 2e9-byte guard returns None, as the JAX package returns None
-for what it cannot fuse, and the validator keeps its per-family path.  The
-multiclass evaluator over two classes and multiclass boosting (softmax) and
-MLP candidates raise.  The partitioning for several
+pure-L2 candidates: the "newton" fragment; its elastic-net candidates: the
+"fista" fragment), OpRandomForestClassifier ("forest"), OpGBTClassifier
+and OpXGBoostClassifier ("gbt", logistic); for the regression problem:
+OpLinearRegression (every candidate: "fista"), OpRandomForestRegressor
+("forest", mean leaves), OpGBTRegressor and OpXGBoostRegressor ("gbt",
+squared, from each fold's label mean); for the multiclass problem
+(``("multiclass", k)``, 3 <= k <= 8, the multiclass evaluator):
+OpLogisticRegression (every candidate a softmax fit: "fista"),
+OpRandomForestClassifier ("forest" with k class-distribution channels),
+OpGBTClassifier and OpXGBoostClassifier ("gbt", softmax over k class
+margins).  Any other family, another evaluator, a binary evaluator over a
+non-binary label or a multiclass score block above the JAX package's
+2e9-byte guard returns None, as the JAX package returns None for what it
+cannot fuse, and the validator keeps its per-family path.  The multiclass
+evaluator over two classes raises.  The partitioning for several
 devices (``spec_units``, ``build_subspec``, ``run_sharded``,
 ``run_rowsharded``) is not ported.
 
@@ -138,8 +138,9 @@ def _penalties(est, grids) -> Optional[Tuple[np.ndarray, np.ndarray]]:
     return reg * alpha, reg * (1.0 - alpha)
 
 
-def _fista_fragment(est, pos: int, blob: _Blob, l1, l2, min_iter: int) -> List:
-    cis = tuple(int(pos + i) for i in range(len(l1)))
+def _fista_fragment(est, pos: int, blob: _Blob, l1, l2, min_iter: int,
+                    cis: Optional[Tuple[int, ...]] = None) -> List:
+    cis = tuple(int(pos + i) for i in range(len(l1))) if cis is None else cis
     off_l1 = blob.add(l1)
     off_l2 = blob.add(l2)
     return [("fista", cis, max(int(est.get_param("max_iter", 100)), min_iter),
@@ -147,14 +148,30 @@ def _fista_fragment(est, pos: int, blob: _Blob, l1, l2, min_iter: int) -> List:
 
 
 def _lr_fragments(est, grids, pos: int, blob: _Blob, y) -> Optional[List]:
+    """Binary logistic regression: the pure-L2 points (l1 = 0) in one
+    "newton" fragment of ``min(max(max_iter // 4, 10), 50)`` steps, the
+    elastic-net points in one "fista" fragment of at least 200, as the
+    reference's ``fit_arrays`` picks the solver per point."""
     family = est.get_param("family", "auto")
     num_classes = int(np.max(np.asarray(y))) + 1 if len(y) else 2
     if family == "multinomial" or (family == "auto" and num_classes > 2):
         return None
     pen = _penalties(est, grids)
-    if pen is None or np.any(pen[0] == 0.0):
-        return None  # pure-L2 points need the Newton fragment (K9), not ported
-    return _fista_fragment(est, pos, blob, *pen, min_iter=200)
+    if pen is None:
+        return None
+    l1, l2 = pen
+    base_mi = int(est.get_param("max_iter", 100))
+    frags: List = []
+    newton = np.where(l1 == 0.0)[0]
+    fista = np.where(l1 != 0.0)[0]
+    if len(newton):
+        frags.append(("newton", tuple(int(pos + i) for i in newton),
+                      min(max(base_mi // 4, 10), 50), bool(est.get_param("fit_intercept", True)),
+                      blob.add(l2[newton])))
+    if len(fista):
+        frags.extend(_fista_fragment(est, pos, blob, l1[fista], l2[fista], min_iter=200,
+                                     cis=tuple(int(pos + i) for i in fista)))
+    return frags
 
 
 def _softmax_fragments(est, grids, pos: int, blob: _Blob) -> Optional[List]:
@@ -218,7 +235,7 @@ def _forest_fragment(est, grids, pos: int, blob: _Blob, xbs, X, train_w,
 
 
 def _gbt_fragment(est, grids, pos: int, blob: _Blob, xbs, X, train_w, xb_cache,
-                  loss: str) -> Optional[List]:
+                  loss: str, n_classes: int = 2) -> Optional[List]:
     static_keys = ("num_round", "max_iter", "max_depth", "max_bins",
                    "subsample", "subsampling_rate", "colsample_bytree",
                    "trees_per_round")
@@ -237,7 +254,7 @@ def _gbt_fragment(est, grids, pos: int, blob: _Blob, xbs, X, train_w, xb_cache,
                int(cands[i].get_param("seed", 42)), k_eff)
         groups.setdefault(key, []).append(i)
     fold_sum = float(np.asarray(train_w, np.float32).sum(axis=1).max())
-    h_max = 0.25 if loss == "logistic" else 1.0
+    h_max = 0.25 if loss in ("logistic", "softmax") else 1.0
     fold_base = loss == "squared"  # regression boosting starts from the fold's label mean
     out_groups = []
     for (rounds, depth, n_bins, subsample, colsample, seed, k_eff), idxs in groups.items():
@@ -256,7 +273,7 @@ def _gbt_fragment(est, grids, pos: int, blob: _Blob, xbs, X, train_w, xb_cache,
             blob.add([bps[i]["gamma"] for i in idxs]),
             blob.add([bps[i]["min_child_weight"] for i in idxs]),
             blob.add([bps[i].get("min_info_gain", 0.0) for i in idxs])))
-    return [("gbt", loss, 1, tuple(out_groups))]
+    return [("gbt", loss, n_classes if loss == "softmax" else 1, tuple(out_groups))]
 
 
 def build_sweep_plan(candidates: Sequence[Tuple[Any, Sequence[Dict[str, Any]]]],
@@ -287,7 +304,8 @@ def build_sweep_plan(candidates: Sequence[Tuple[Any, Sequence[Dict[str, Any]]]],
                    OpXGBoostClassifier),
         "regression": (OpLinearRegression, OpRandomForestRegressor, OpGBTRegressor,
                        OpXGBoostRegressor),
-        "multiclass": (OpLogisticRegression, OpRandomForestClassifier)}
+        "multiclass": (OpLogisticRegression, OpRandomForestClassifier, OpGBTClassifier,
+                       OpXGBoostClassifier)}
     yv = np.asarray(y)
     binary = bool(np.isin(yv, (0.0, 1.0)).all()) and len(np.unique(yv)) == 2
     inner = evaluator.inner if type(evaluator) is _SingleMetric else evaluator
@@ -317,9 +335,6 @@ def build_sweep_plan(candidates: Sequence[Tuple[Any, Sequence[Dict[str, Any]]]],
                 f"the port's multiclass sweep takes at most {MULTICLASS_MAX_CLASSES} classes "
                 f"(its kernels' limit), got {n_classes}")
     for est, _ in candidates:
-        if kind == "multiclass" and type(est) in (OpGBTClassifier, OpXGBoostClassifier):
-            raise NotImplementedError(
-                f"{type(est).__name__} in a multiclass sweep (softmax boosting) is not ported")
         if type(est) not in families[kind]:
             return None
 
@@ -343,8 +358,9 @@ def build_sweep_plan(candidates: Sequence[Tuple[Any, Sequence[Dict[str, Any]]]],
             if problem == "binary":
                 s = 1  # argmax([1 - p, p]) ties to class 0 => p > 0.5
         else:
-            fr = _gbt_fragment(est, grids, pos, blob, xbs, X, train_w, xb_cache,
-                               loss="logistic" if problem == "binary" else "squared")
+            loss = {"binary": "logistic", "regression": "squared"}.get(kind, "softmax")
+            fr = _gbt_fragment(est, grids, pos, blob, xbs, X, train_w, xb_cache, loss=loss,
+                               n_classes=n_classes)
         if fr is None:
             return None
         frags.extend(fr)

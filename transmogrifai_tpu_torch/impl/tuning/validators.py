@@ -11,17 +11,37 @@ build a plan, else the per-family path (``_family_sweep``: an estimator's
 ``fit_grid_folds`` trains its whole fold x grid block, or, where it has no
 batched fit, each candidate is fitted fold by fold; the metrics come from
 the evaluator's ``evaluate_arrays`` on the host in float64).  The mesh is
-not ported.  A failed fit raises, on either path: only a candidate whose
-metric is not finite is recorded as failed.
+not ported.  On the per-family path a candidate whose fit, prediction or
+evaluation raises is recorded with its error and the worst metric, and the
+sweep goes on (OpValidator.scala:323-353), except for a kernel fault
+(``ops/cuda_build.KernelError``, a CUDA error) and an unported branch
+(``NotImplementedError``), which end the sweep: no fallback hides a kernel
+or a branch the port lacks.  The JAX package's fallback from a failed
+batched fit to the candidate loop is not ported: a batched fit that raises
+``NotImplementedError`` declines to the loop, any other error of it ends the
+sweep.  On
+the fused path a candidate whose metric is not finite is recorded as
+failed, and any error ends the sweep.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
+import logging
+
 import numpy as np
+import torch
 
 from ...evaluators.base import OpEvaluatorBase, OpMultiClassificationEvaluatorBase
+from ...ops.cuda_build import KernelError
+
+log = logging.getLogger(__name__)
+
+#: exceptions a candidate's fit may not absorb: a kernel fault and an
+#: unported branch surface instead of becoming a lost candidate
+_SURFACING = (NotImplementedError,
+              *((torch.AcceleratorError,) if hasattr(torch, "AcceleratorError") else ()))
 
 #: reference ValidatorParamDefaults (OpValidator.scala:373-380)
 DEFAULT_NUM_FOLDS = 3
@@ -200,7 +220,7 @@ class OpValidator:
     def _family_sweep(self, candidates, X, y, train_w, val_mask, summary) -> None:
         """The per-family sweep: one ``fit_grid_folds`` per family (a family
         without one fits candidate by candidate), metrics on the validation
-        rows of every fold."""
+        rows of every fold; a failed candidate is recorded and skipped."""
         bad = -np.inf if self.evaluator.is_larger_better else np.inf
         for est, grids in candidates:
             grids = list(grids) or [{}]
@@ -210,21 +230,28 @@ class OpValidator:
                 preds = None
             for ci, grid in enumerate(grids):
                 fold_metrics: List[float] = []
-                for f in range(train_w.shape[0]):
-                    if preds is not None:
-                        pred, raw, prob = preds[f][ci]
-                    else:
-                        cand = est.copy_with_params(grid)
-                        params = cand.fit_arrays(X, y, w=train_w[f])
-                        pred, raw, prob = cand.predict_arrays(params, X)
-                    vm = val_mask[f]
-                    m = self.evaluator.evaluate_arrays(
-                        y[vm], np.asarray(pred)[vm],
-                        None if prob is None else np.asarray(prob)[vm])
-                    fold_metrics.append(float(m[self.evaluator.default_metric]))
-                value = float(np.mean(fold_metrics))
-                err = None
-                if not np.isfinite(value):  # a failed candidate, never selected
+                err: Optional[str] = None
+                try:
+                    for f in range(train_w.shape[0]):
+                        if preds is not None:
+                            pred, raw, prob = preds[f][ci]
+                        else:
+                            cand = est.copy_with_params(grid)
+                            params = cand.fit_arrays(X, y, w=train_w[f])
+                            pred, raw, prob = cand.predict_arrays(params, X)
+                        vm = val_mask[f]
+                        m = self.evaluator.evaluate_arrays(
+                            y[vm], np.asarray(pred)[vm],
+                            None if prob is None else np.asarray(prob)[vm])
+                        fold_metrics.append(float(m[self.evaluator.default_metric]))
+                    value = float(np.mean(fold_metrics))
+                except (KernelError, *_SURFACING):
+                    raise
+                except Exception as e:  # the candidate failed; the sweep goes on
+                    log.warning("Candidate %s%s failed: %s", type(est).__name__, grid, e)
+                    err = f"{type(e).__name__}: {e}"
+                    value = bad
+                if err is None and not np.isfinite(value):  # never selected
                     value = bad
                     err = f"non-finite {self.evaluator.default_metric}"
                 summary.results.append(ModelEvaluation(

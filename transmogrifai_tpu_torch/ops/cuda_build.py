@@ -6,9 +6,16 @@ Each source in ``transmogrifai_tpu_torch/csrc/`` is compiled by ``nvcc`` for
 import every module without a CUDA toolkit.  All sources compile at once,
 one ``nvcc`` process each.  A library's file name carries a hash of its
 source, so an edited kernel rebuilds and an unchanged one is reused.
+
+``KernelError`` is the one exception of a kernel fault: a failed build, a
+refused launch (every launch wrapper raises it with the CUDA error code), or
+a Triton kernel that fails to compile or launch (``kernel_errors``).  The
+validator lets it through where it records other failures of a candidate,
+since no fallback hides a kernel.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -23,10 +30,34 @@ CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
 BUILD_DIR = os.path.join(CSRC, "build")
 SOURCES: Tuple[str, ...] = ("bin_rows", "ensemble_walk", "level_hist", "split_scan",
                              "route_rows", "col_stats", "fista", "binary_metrics",
-                             "regression_metrics", "multiclass_metrics")
+                             "regression_metrics", "multiclass_metrics", "weighted_gram")
 NVCC_FLAGS: Tuple[str, ...] = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+
+
+
+class KernelError(RuntimeError):
+    """A kernel of the port failed to build, compile or launch."""
+
+
+@contextlib.contextmanager
+def kernel_errors(name: str):
+    """Raise any failure inside the block (a Triton kernel's compile or
+    launch) as ``KernelError`` naming the kernel."""
+    try:
+        yield
+    except KernelError:
+        raise
+    except Exception as e:
+        raise KernelError(f"{name} kernel failed: {type(e).__name__}: {e}") from e
+
+
+def check_launch(name: str, rc: int) -> None:
+    """Raise ``KernelError`` unless a C entry point returned cudaSuccess."""
+    if rc != 0:
+        raise KernelError(f"{name} kernel launch failed: CUDA error {rc}")
+
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -41,7 +72,7 @@ def _nvcc() -> str:
     home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
     path = os.path.join(home, "bin", "nvcc")
     if not os.path.exists(path):
-        raise RuntimeError("nvcc not found: the CUDA kernels are built on a host "
+        raise KernelError("nvcc not found: the CUDA kernels are built on a host "
                            "with the CUDA toolkit (set CUDA_HOME)")
     return path
 
@@ -54,7 +85,7 @@ def _lib_path(name: str) -> str:
 
 def build(names: Sequence[str] = SOURCES) -> float:
     """Compile every named source that has no current library; returns the
-    seconds spent.  Raises with nvcc's output if one fails."""
+    seconds spent.  Raises ``KernelError`` with nvcc's output if one fails."""
     t0 = time.perf_counter()
     os.makedirs(BUILD_DIR, exist_ok=True)
     jobs: List[Tuple[str, str, str, subprocess.Popen]] = []
@@ -78,7 +109,7 @@ def build(names: Sequence[str] = SOURCES) -> float:
             os.unlink(tmp)
             failed.append(f"{name}.cu (nvcc exit {proc.returncode}):\n{out}")
     if failed:
-        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
+        raise KernelError("CUDA kernel build failed:\n" + "\n".join(failed))
     return time.perf_counter() - t0
 
 

@@ -1,13 +1,16 @@
-"""Linear models on the device: the elastic-net solvers and prediction.
+"""Linear models on the device: the elastic-net, Newton and ridge solvers and prediction.
 
 The port's counterpart of ``transmogrifai_tpu/ops/linear.py``:
 ``fit_logistic_fista``, ``fit_linear_fista`` and ``fit_softmax`` and
 their fold x grid batches ``fit_logistic_grid_folds_fista``,
 ``fit_linear_grid_folds_fista`` and ``fit_softmax_grid_folds`` (FISTA
-proximal gradient, a fixed iteration count), ``predict_binary_logistic``,
-``predict_softmax``, ``predict_softmax_grid`` and ``predict_linear``.
-Three hand-written kernels in one CUDA source (``csrc/fista.cu``) carry
-the solvers:
+proximal gradient, a fixed iteration count); ``fit_logistic_newton`` and
+``fit_logistic_grid_folds_newton`` (full-batch Newton for the pure-L2
+logistic fits, a fixed step count); ``fit_ridge`` and
+``fit_ridge_grid_folds`` (the closed-form ridge fits);
+``predict_binary_logistic``, ``predict_softmax``, ``predict_softmax_grid``
+and ``predict_linear``.  Four hand-written kernels carry the solvers; three
+are in one CUDA source (``csrc/fista.cu``):
 
 - ``fista_grad`` (K-K) replaces the gradient of ``fit_logistic_fista``'s
   body for all fits of the batch at once:
@@ -17,21 +20,28 @@ the solvers:
 - ``softmax_fista_grad`` (K-P) replaces the gradient of ``fit_softmax``'s
   body, a matrix of coefficients [p, k] per fit:
   ``X1^T (w * (softmax(X1 B) - Y)) / sum(w) + l2 * B`` with Y the one-hot
-  labels.
+  labels;
 
-The proximal step, the soft threshold and the momentum are elementwise
-torch on [C, p] (or [C, p, k]); the shared momentum scalars are float32 on
-the host.  The wrappers take the plain version only for tensors on the
-CPU; for CUDA tensors they launch the kernel or raise;
-``<wrapper>.launches`` counts their launches.  Predictions are plain
-products: ``torch.matmul`` in full float32 (see
-``utils/device.apply_f32_policy``).  The Newton solver (K9), ridge and the
-SVC fits are not ported.
+and ``weighted_gram`` (K-S, ``csrc/weighted_gram.cu``) forms the weighted
+Gram matrix and moment vector of every Newton step (``X1^T diag(w mu (1 -
+mu)) X1`` and ``X1^T (w (mu - y))`` at each fit's coefficients) and of the
+ridge normal equations (``X1^T diag(w) X1`` and ``X1^T (w y)``, once a
+fold).  The proximal step, the soft threshold and the momentum are
+elementwise torch on [C, p] (or [C, p, k]); the shared momentum scalars
+are float32 on the host.  The Newton and ridge solves of the small [p, p]
+systems are batched ``torch.linalg.solve_ex`` in float64 (LU with partial
+pivoting, as the reference's float32 ``jnp.linalg.solve``; see ``_ridge``
+for why float64; no singularity check), each result rounded to float32.  The wrappers take
+the plain version only for tensors on the CPU; for CUDA tensors they
+launch the kernel or raise ``KernelError``; ``<wrapper>.launches`` counts
+their launches.  Predictions are plain products: ``torch.matmul`` in full
+float32 (see ``utils/device.apply_f32_policy``).  The SVC fits are not
+ported.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -121,8 +131,7 @@ def _fista_launch(entry: str, X1, y, w, fold, z, l2v, wsum) -> torch.Tensor:
                                  partial.data_ptr(), grad.data_ptr(), n, p, C, chunks,
                                  chunk_rows,
                                  ctypes.c_void_p(torch.cuda.current_stream(X1.device).cuda_stream))
-    if rc != 0:
-        raise RuntimeError(f"{entry} kernel launch failed: CUDA error {rc}")
+    cuda_build.check_launch(entry, rc)
     return grad
 
 
@@ -235,8 +244,7 @@ def softmax_fista_grad(X1: torch.Tensor, y: torch.Tensor, w: torch.Tensor, fold:
             X1.data_ptr(), y.data_ptr(), w.data_ptr(), fold.data_ptr(), z.data_ptr(),
             wsum.data_ptr(), l2m.data_ptr(), partial.data_ptr(), grad.data_ptr(), n, p, k, C,
             chunks, chunk_rows, ctypes.c_void_p(torch.cuda.current_stream(X1.device).cuda_stream))
-    if rc != 0:
-        raise RuntimeError(f"softmax_fista_grad kernel launch failed: CUDA error {rc}")
+    cuda_build.check_launch("softmax_fista_grad", rc)
     softmax_fista_grad.launches += 1
     return grad
 
@@ -379,6 +387,201 @@ def fit_softmax(X: torch.Tensor, y: torch.Tensor, sample_weight: torch.Tensor, l
     """One elastic-net multinomial fit: coef [d, k], intercept [k]."""
     fit = fit_softmax_grid_folds(X, y, sample_weight[None], [l1], [l2], num_classes,
                                  max_iter=max_iter, fit_intercept=fit_intercept)
+    return LinearFit(fit.coef[0, 0], fit.intercept[0, 0])
+
+
+# ---------------------------------------------------------------------------
+# K-S weighted_gram, and the Newton and ridge solvers on it
+# ---------------------------------------------------------------------------
+#: the most coefficients (features + intercept) K-S takes
+GRAM_MAX_COEFS = 64
+_GRAM_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+#: K-S's tiles: 32 rows staged a step, at most 32 fits a block and 16 output
+#: entries a thread (256 threads)
+_GRAM_MAX_FITS = 32
+_GRAM_MAX_ENTRIES = 16 * 256
+
+
+def _check_gram(X1, y, w, fold, beta):
+    if not (X1.dtype == torch.float32 and X1.ndim == 2):
+        raise ValueError("X1 must be float32[n, p]")
+    n, p = X1.shape
+    if y.dtype != torch.float32 or tuple(y.shape) != (n,):
+        raise ValueError(f"y must be float32[{n}]")
+    if w.dtype != torch.float32 or w.ndim != 2 or w.shape[1] != n:
+        raise ValueError(f"w must be float32[F, {n}]")
+    if fold.dtype != torch.int32 or fold.ndim != 1:
+        raise ValueError("fold must be int32[C]")
+    C = fold.shape[0]
+    if beta is not None and (beta.dtype != torch.float32 or tuple(beta.shape) != (C, p)):
+        raise ValueError(f"beta must be float32[{C}, {p}]")
+    if p > GRAM_MAX_COEFS:
+        raise ValueError(f"weighted_gram takes at most {GRAM_MAX_COEFS} coefficients, got {p}")
+
+
+def _gram_weights(X1, y, w, fold, beta):
+    """Each fit's row weights (v, u) f32[C, n]: Newton's ``max(mu (1 - mu),
+    1e-6) w`` and ``w (mu - y)`` at ``beta``, or ridge's ``w`` and ``w y``."""
+    wf = w[fold.long()]
+    if beta is None:
+        return wf, wf * y
+    mu = _sigmoid(beta @ X1.T)
+    return torch.clamp_min(mu * (1.0 - mu), 1e-6) * wf, wf * (mu - y)
+
+
+def weighted_gram_plain(X1: torch.Tensor, y: torch.Tensor, w: torch.Tensor, fold: torch.Tensor,
+                        beta: Optional[torch.Tensor] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of K-S: the row weights in float32, both
+    products summed in float64 and rounded once, as the kernel's sums are."""
+    v, u = _gram_weights(X1, y, w, fold, beta)
+    Xd = X1.double()
+    H = torch.einsum("cn,np,nq->cpq", v.double(), Xd, Xd)
+    return H.to(torch.float32), (u.double() @ Xd).to(torch.float32)
+
+
+def weighted_gram(X1: torch.Tensor, y: torch.Tensor, w: torch.Tensor, fold: torch.Tensor,
+                  beta: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(H f32[C, p, p], g f32[C, p]) of C fits: ``H_c = X1^T diag(v_c) X1``
+    and ``g_c = X1^T u_c`` with, given ``beta`` f32[C, p] (a Newton step),
+    ``mu = sigmoid(X1 beta_c)``, ``v_c = max(mu (1 - mu), 1e-6) w_f`` and
+    ``u_c = w_f (mu - y)``; without ``beta`` (ridge), ``v_c = w_f`` and
+    ``u_c = w_f y``.  ``X1`` f32[n, p] (the features with the intercept
+    column), ``y`` f32[n], ``w`` f32[F, n] the folds' row weights, ``fold``
+    i32[C] each fit's fold.  At most ``GRAM_MAX_COEFS`` coefficients."""
+    _check_gram(X1, y, w, fold, beta)
+    others = () if beta is None else (beta,)
+    if not _on_cuda(X1, y, w, fold, *others):
+        return weighted_gram_plain(X1, y, w, fold, beta)
+    n, p = X1.shape
+    C = fold.shape[0]
+    dev = X1.device
+    X1, y, w, fold = X1.contiguous(), y.contiguous(), w.contiguous(), fold.contiguous()
+    beta_t = X1 if beta is None else beta.contiguous()
+    E = p * (p + 1) // 2 + p
+    ct = max(1, min(C, _GRAM_MAX_FITS, _GRAM_MAX_ENTRIES // E))
+    tiles = -(-C // ct)
+    chunk_rows = max(8 * 32, -(-n // max(_FISTA_TARGET_CHUNKS // tiles, 1)))
+    chunk_rows = -(-chunk_rows // 32) * 32
+    chunks = -(-n // chunk_rows)
+    partial = torch.empty((chunks, C, E), dtype=torch.float64, device=dev)
+    H = torch.empty((C, p, p), dtype=torch.float32, device=dev)
+    g = torch.empty((C, p), dtype=torch.float32, device=dev)
+    if n == 0:
+        return H.zero_(), g.zero_()
+    lib = cuda_build.load("weighted_gram", {"weighted_gram": (_GRAM_ARGS, ctypes.c_int)})
+    with torch.cuda.device(dev):
+        rc = lib.weighted_gram(X1.data_ptr(), y.data_ptr(), w.data_ptr(), fold.data_ptr(),
+                               beta_t.data_ptr(), partial.data_ptr(), H.data_ptr(), g.data_ptr(),
+                               n, p, C, ct, chunks, chunk_rows, int(beta is not None),
+                               ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    cuda_build.check_launch("weighted_gram", rc)
+    weighted_gram.launches += 1
+    return H, g
+
+
+weighted_gram.launches = 0
+
+
+def _with_intercept(X: torch.Tensor, fit_intercept: bool) -> torch.Tensor:
+    n = X.shape[0]
+    X1 = torch.cat([X, torch.ones((n, 1), dtype=torch.float32, device=X.device)], 1) \
+        if fit_intercept else X
+    return X1.contiguous()
+
+
+def _penalty(l2s, F: int, p: int, fit_intercept: bool, dev) -> torch.Tensor:
+    """Each (fold, grid) fit's L2 penalty per coefficient f32[F G, p], the
+    intercept's 0 (Spark's semantics)."""
+    l2 = torch.as_tensor(np.asarray(l2s, np.float32).reshape(-1), device=dev)
+    reg = l2.repeat(F)[:, None].expand(-1, p).clone()
+    if fit_intercept:
+        reg[:, -1] = 0.0
+    return reg
+
+
+def _split_beta(beta: torch.Tensor, F: int, G: int, fit_intercept: bool) -> LinearFit:
+    beta = beta.reshape(F, G, -1)
+    if fit_intercept:
+        return LinearFit(beta[..., :-1].contiguous(), beta[..., -1:].contiguous())
+    return LinearFit(beta, torch.zeros((F, G, 1), dtype=torch.float32, device=beta.device))
+
+
+def fit_logistic_grid_folds_newton(X: torch.Tensor, y: torch.Tensor, train_w: torch.Tensor,
+                                   l2s, max_iter: int = 25,
+                                   fit_intercept: bool = True) -> LinearFit:
+    """Pure-L2 logistic fits for every (fold, grid) pair by full-batch
+    Newton, on X's device: the reference's ``fit_logistic_newton`` for each
+    fit, ``max_iter`` steps from 0, each solving ``(X1^T diag(w mu (1 - mu))
+    X1 / sum(w) + diag(l2) + 1e-8 I) delta = X1^T (w (mu - y)) / sum(w) +
+    l2 beta`` (the intercept unpenalized), the products by K-S for all fits
+    at once.  Returns coef [F, G, d], intercept [F, G, 1]."""
+    dev = X.device
+    F = train_w.shape[0]
+    G = int(np.asarray(l2s).size)
+    X1 = _with_intercept(X.to(torch.float32), fit_intercept)
+    p = X1.shape[1]
+    w = train_w.to(dev, torch.float32).contiguous()
+    fold = torch.arange(F, dtype=torch.int32, device=dev).repeat_interleave(G)
+    reg = _penalty(l2s, F, p, fit_intercept, dev)                             # [C, p]
+    w_sum = torch.clamp_min(w.sum(1), 1e-12)[fold.long()]                     # [C]
+    ridge = _ridge(reg, 1e-8)
+    yd = y.to(dev, torch.float32).contiguous()
+    beta = torch.zeros((F * G, p), dtype=torch.float32, device=dev)
+    for _ in range(max_iter):
+        H, g = weighted_gram(X1, yd, w, fold, beta)
+        grad = g / w_sum[:, None] + reg * beta
+        H = H.double() / w_sum.double()[:, None, None] + ridge
+        beta = beta - torch.linalg.solve_ex(H, grad.double())[0].to(torch.float32)
+    return _split_beta(beta, F, G, fit_intercept)
+
+
+def _ridge(reg: torch.Tensor, eps: float) -> torch.Tensor:
+    """``diag(reg) + eps I`` f64[..., p, p]: the solves' system is assembled
+    and solved in float64.  K-S's Gram is rounded once from exact sums, so a
+    one-hot pivot beside the intercept keeps it exactly singular in
+    float32, and the reference's ``eps`` (1e-8, 1e-9) is below half an ulp
+    of its diagonal there: only float64 keeps the system regular, as the
+    reference's own float32 summation noise happens to keep its own."""
+    p = reg.shape[-1]
+    return torch.diag_embed(reg.double()) + eps * torch.eye(p, dtype=torch.float64,
+                                                             device=reg.device)
+
+
+def fit_ridge_grid_folds(X: torch.Tensor, y: torch.Tensor, train_w: torch.Tensor, l2s,
+                         fit_intercept: bool = True) -> LinearFit:
+    """Closed-form ridge fits for every (fold, grid) pair, on X's device: the
+    reference's ``fit_ridge`` for each fit, ``(X1^T diag(w) X1 / sum(w) +
+    diag(l2) + 1e-9 I) beta = X1^T (w y) / sum(w)`` (the intercept
+    unpenalized); K-S forms each fold's products once (only the diagonal
+    differs across the grid).  Returns coef [F, G, d], intercept [F, G, 1]."""
+    dev = X.device
+    F = train_w.shape[0]
+    G = int(np.asarray(l2s).size)
+    X1 = _with_intercept(X.to(torch.float32), fit_intercept)
+    p = X1.shape[1]
+    w = train_w.to(dev, torch.float32).contiguous()
+    A, b = weighted_gram(X1, y.to(dev, torch.float32).contiguous(), w,
+                         torch.arange(F, dtype=torch.int32, device=dev))
+    w_sum = torch.clamp_min(w.sum(1), 1e-12).double()                         # [F]
+    reg = _penalty(l2s, 1, p, fit_intercept, dev)                             # [G, p]
+    A = (A.double() / w_sum[:, None, None])[:, None] + _ridge(reg, 1e-9)[None]
+    b = (b.double() / w_sum[:, None])[:, None].expand(F, G, p)
+    return _split_beta(torch.linalg.solve_ex(A, b)[0].to(torch.float32), F, G, fit_intercept)
+
+
+def fit_logistic_newton(X: torch.Tensor, y: torch.Tensor, sample_weight: torch.Tensor,
+                        l2: float, max_iter: int = 25, fit_intercept: bool = True) -> LinearFit:
+    """One L2 logistic fit by Newton: coef [d], intercept [1]."""
+    fit = fit_logistic_grid_folds_newton(X, y, sample_weight[None], [l2], max_iter=max_iter,
+                                         fit_intercept=fit_intercept)
+    return LinearFit(fit.coef[0, 0], fit.intercept[0, 0])
+
+
+def fit_ridge(X: torch.Tensor, y: torch.Tensor, sample_weight: torch.Tensor, l2: float,
+              fit_intercept: bool = True) -> LinearFit:
+    """One closed-form ridge fit: coef [d], intercept [1]."""
+    fit = fit_ridge_grid_folds(X, y, sample_weight[None], [l2], fit_intercept=fit_intercept)
     return LinearFit(fit.coef[0, 0], fit.intercept[0, 0])
 
 

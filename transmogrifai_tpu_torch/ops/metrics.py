@@ -101,7 +101,10 @@ def binary_metrics_plain(ss: torch.Tensor, order: torch.Tensor, y: torch.Tensor,
     Pc = torch.cat([zc, torch.cumsum(yp, 1)], 1)                       # [R, n + 1]
     Nc = torch.cat([zc, torch.cumsum(yn, 1)], 1)
     start = torch.ones((R, n), dtype=torch.bool, device=dev)
-    start[:, 1:] = ss[:, 1:] != ss[:, :-1]
+    # NaN scores (sorted last) are one tie group, as the reference's
+    # searchsorted orders them
+    nan = torch.isnan(ss)
+    start[:, 1:] = (ss[:, 1:] != ss[:, :-1]) & ~(nan[:, 1:] & nan[:, :-1])
     idx = torch.arange(n, device=dev).expand(R, n)
     # each group's end: the next start after it, or n
     nxt = torch.where(start, idx, torch.full_like(idx, n))
@@ -110,12 +113,16 @@ def binary_metrics_plain(ss: torch.Tensor, order: torch.Tensor, y: torch.Tensor,
     P_lo, P_hi, N_lo = Pc[:, :n], Pc.gather(1, hi), Nc[:, :n]
     r2 = torch.where(start, (P_hi - P_lo) * (idx + hi + 1 - 2 * n_exc[:, None]), 0).sum(1)
     A, B, Ah = P_tot[:, None] - P_lo, N_tot[:, None] - N_lo, P_tot[:, None] - P_hi
+    # the top non-NaN group steps from recall 0: the reference's previous
+    # distinct threshold skips the NaN group, whose positives count in
+    # this step
+    Ah = torch.where(hi == n - nan.sum(1, keepdim=True), 0, Ah)
     Af = A.float()
     rec_den = torch.clamp_min(P_tot.float(), 1.0)[:, None]
     prec = Af / torch.clamp_min(Af + B.float(), 1.0)
     step = prec * (Af / rec_den - Ah.float() / rec_den)
     fixed = torch.round(step.double() * AUPR_SCALE).long()
-    PR = torch.where(start & (ss > float("-inf")), fixed, 0).sum(1)
+    PR = torch.where(start & (ss > float("-inf")) & ~nan, fixed, 0).sum(1)
     return _finish(P_tot, N_tot, TP, FP, FN, r2, PR)
 
 
@@ -151,8 +158,7 @@ def binary_metrics(ss: torch.Tensor, order: torch.Tensor, y: torch.Tensor, vm: t
         rc = lib.binary_metrics(ss.data_ptr(), order.data_ptr(), y.data_ptr(), vm.data_ptr(),
                                 strict.data_ptr(), out.data_ptr(), R, n, C,
                                 ctypes.c_void_p(torch.cuda.current_stream(ss.device).cuda_stream))
-    if rc != 0:
-        raise RuntimeError(f"binary_metrics kernel launch failed: CUDA error {rc}")
+    cuda_build.check_launch("binary_metrics", rc)
     binary_metrics.launches += 1
     return out
 
@@ -242,8 +248,7 @@ def regression_metrics(preds: torch.Tensor, y: torch.Tensor, vm: torch.Tensor,
         rc = lib.regression_metrics(
             preds.data_ptr(), y.data_ptr(), vm.data_ptr(), out.data_ptr(), R, n, C,
             ctypes.c_void_p(torch.cuda.current_stream(preds.device).cuda_stream))
-    if rc != 0:
-        raise RuntimeError(f"regression_metrics kernel launch failed: CUDA error {rc}")
+    cuda_build.check_launch("regression_metrics", rc)
     regression_metrics.launches += 1
     return out
 
@@ -285,10 +290,11 @@ def _check_multiclass(probs, y, vm, C):
 
 def fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     """float32 ``a * b + c`` rounded once: the product is exact in float64
-    and so, for these operands (at most 1 in magnitude), is the sum but in
-    cases too rare to meet (a double rounding needs the float64 sum to fall
-    on a float32 midpoint).  XLA's CPU code fuses the reference's weighted
-    class sums into such operations."""
+    and so is the sum unless the exponents of ``c`` and the product lie
+    far apart, when a double rounding still needs the float64 sum to fall
+    on a float32 midpoint (about one case in 2^28).  XLA's CPU code fuses
+    the reference's weighted class sums, the softmax hessian's channel sum
+    and the boosting margin update into such operations."""
     return (a.double() * b.double() + c.double()).float()
 
 
@@ -353,8 +359,7 @@ def multiclass_metrics(probs: torch.Tensor, y: torch.Tensor, vm: torch.Tensor,
         rc = lib.multiclass_metrics(
             probs.data_ptr(), y.data_ptr(), vm.data_ptr(), counts.data_ptr(), out.data_ptr(),
             R, n, k, C, ctypes.c_void_p(torch.cuda.current_stream(probs.device).cuda_stream))
-    if rc != 0:
-        raise RuntimeError(f"multiclass_metrics kernel launch failed: CUDA error {rc}")
+    cuda_build.check_launch("multiclass_metrics", rc)
     multiclass_metrics.launches += 1
     return out
 

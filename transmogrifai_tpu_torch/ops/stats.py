@@ -65,8 +65,7 @@ def corr_gram(Z: torch.Tensor) -> torch.Tensor:
     with torch.cuda.device(Z.device):
         rc = lib.corr_gram_f32(Z.data_ptr(), partial.data_ptr(), out.data_ptr(), n, d,
                                _denominator(n), _stream(Z))
-    if rc != 0:
-        raise RuntimeError(f"corr_gram kernel launch failed: CUDA error {rc}")
+    cuda_build.check_launch("corr_gram", rc)
     corr_gram.launches += 1
     return out
 
@@ -103,8 +102,7 @@ def contingency_counts(X: torch.Tensor, cls: torch.Tensor, n_classes: int) -> to
     with torch.cuda.device(X.device):
         rc = lib.contingency_counts_f32(X.data_ptr(), cls.data_ptr(), partial.data_ptr(),
                                         out.data_ptr(), n, d, n_classes, _stream(X))
-    if rc != 0:
-        raise RuntimeError(f"contingency_counts kernel launch failed: CUDA error {rc}")
+    cuda_build.check_launch("contingency_counts", rc)
     contingency_counts.launches += 1
     return out
 

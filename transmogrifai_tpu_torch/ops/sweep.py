@@ -10,23 +10,25 @@ module docstring):
 
     spec = (problem, frags, strict)
     frag = ("fista", cis, max_iter, fit_intercept, off_l1, off_l2)
+         | ("newton", cis, max_iter, fit_intercept, off_l2)
          | ("forest", out_c, groups) | ("gbt", loss, out_c, groups)
 
 Each fragment scores its candidates on every row; the scores [F, C, n] go
 to the binary metrics (K-L) or the regression metrics (K-O), the class
 probabilities [F, C, n, k] of a ``("multiclass", k)`` problem to the
 multiclass metrics (K-Q).  The work runs eagerly on the device of the
-arrays, through the hand-written kernels: K-K for the logistic fits, K-N
-for the linear-regression fits, K-P for the multinomial (softmax) fits;
-K-E, K-F and K-G growing the forests (one gradient channel, or k class
-channels with class-distribution leaves) and boosted trees, K-H boosting
-(logistic, or squared from each fold's label mean), K-M reading the
-forests' leaves.  A forest group's trees grow in batches of
+arrays, through the hand-written kernels: K-K for the logistic FISTA fits,
+K-S for the pure-L2 logistic (Newton) fits, K-N for the linear-regression
+fits, K-P for the multinomial (softmax) fits; K-E, K-F and K-G growing the
+forests (one gradient channel, or k class channels with class-distribution
+leaves) and boosted trees (one channel, or the softmax's k class margins),
+K-H boosting (logistic, or squared from each fold's label mean), K-R the
+softmax boosting, K-M reading the forests' leaves.  A forest group's trees grow in batches of
 ``ops/trees.forest_batch_size`` (the spec's ``chunk`` is the JAX
 package's, kept for the spec's equality; trees are independent, so the
 batching changes no result).  The binary, regression and multiclass
-problems are ported; softmax boosting, the newton, svc and mlp fragments
-and round-collapsed boosting raise.  The checkpoint, hedge, ledger, trace,
+problems are ported; the svc and mlp fragments, a two-class label under
+the multiclass evaluator and round-collapsed boosting raise.  The checkpoint, hedge, ledger, trace,
 AOT-cache and mesh wrappers of the JAX package are not ported.
 """
 from __future__ import annotations
@@ -69,6 +71,15 @@ def _fista_scores(frag, X, y, train_w, blob, classification: bool) -> torch.Tens
                  max_iter=max_iter, fit_intercept=fit_intercept)
     z = torch.einsum("nd,fgd->fgn", X, fit.coef) + fit.intercept
     return L._sigmoid(z) if classification else z
+
+
+def _newton_scores(frag, X, y, train_w, blob) -> torch.Tensor:
+    """[F, G, n]: p(class 1) of the fragment's pure-L2 logistic fits
+    (Newton, K-S)."""
+    _, cis, max_iter, fit_intercept, off_l2 = frag
+    fit = L.fit_logistic_grid_folds_newton(X, y, train_w, _blob(blob, off_l2, len(cis)),
+                                           max_iter=max_iter, fit_intercept=fit_intercept)
+    return L._sigmoid(torch.einsum("nd,fgd->fgn", X, fit.coef) + fit.intercept)
 
 
 def _softmax_scores(frag, X, y, train_w, blob, k: int) -> torch.Tensor:
@@ -159,14 +170,12 @@ def _forest_group_scores(group, xbs, y, train_w, blob, out_c: int,
 
 def _gbt_group_scores(group, xbs, y, train_w, blob, loss: str, out_c: int) -> torch.Tensor:
     """One boosting group -> the final margins [F, Gc, n] (fold x candidate
-    batch, one tree per round each), from 0 or, with ``fold_base``, from
-    each fold's weighted label mean (float32 on the device, as the
-    reference's)."""
+    batch, one tree per round each), or [F, Gc, n, out_c] class margins for
+    the softmax loss, from 0 or, with ``fold_base``, from each fold's
+    weighted label mean (float32 on the device, as the reference's)."""
     (cis, rounds, depth, xb_idx, n_bins, subsample, colsample, seed,
      frontier, exact_cap, fold_base, trees_per_round, off_eta, off_lam,
      off_gam, off_mcw, off_mig) = group
-    if loss not in Tr.BOOST_LOSSES or out_c != 1:
-        raise NotImplementedError(f"{loss} boosting fragments are not ported")
     if trees_per_round != 1:
         raise NotImplementedError("round-collapsed boosting (trees_per_round > 1) is not ported")
     Xb = xbs[xb_idx]
@@ -189,9 +198,9 @@ def _gbt_group_scores(group, xbs, y, train_w, blob, loss: str, out_c: int) -> to
                           n_bins=n_bins, frontier=frontier, eta_b=hp["eta"],
                           reg_lambda_b=np.maximum(hp["lam"], np.float32(1e-6)),
                           gamma_b=hp["gam"], min_child_weight_b=hp["mcw"],
-                          base_score_b=base_f.repeat_interleave(Gc),
+                          base_score_b=base_f.repeat_interleave(Gc), n_classes=out_c,
                           min_info_gain_b=hp["mig"], exact_cap=exact_cap)
-    return Fm[..., 0].reshape(F, Gc, n)
+    return Fm.reshape(F, Gc, n, -1) if loss == "softmax" else Fm[..., 0].reshape(F, Gc, n)
 
 
 def _frag_scores(frag, X, xbs, y, train_w, blob, problem):
@@ -206,6 +215,8 @@ def _frag_scores(frag, X, xbs, y, train_w, blob, problem):
         if multiclass:
             return frag[1], _softmax_scores(frag, X, y, train_w, blob, problem[1])
         return frag[1], _fista_scores(frag, X, y, train_w, blob, problem == "binary")
+    if kind == "newton":
+        return frag[1], _newton_scores(frag, X, y, train_w, blob)
     if kind == "forest":
         _, out_c, groups = frag
         cis, outs, draws = [], [], {}
@@ -220,8 +231,10 @@ def _frag_scores(frag, X, xbs, y, train_w, blob, problem):
         cis, outs = [], []
         for grp in groups:
             Fm = _gbt_group_scores(grp, xbs, y, train_w, blob, loss, out_c)
-            # squared: the margin is the prediction
-            outs.append(L._sigmoid(Fm) if loss == "logistic" else Fm)
+            if loss == "softmax":  # the class probabilities, as jax.nn.softmax writes them
+                outs.append(L._softmax(Fm))
+            else:  # squared: the margin is the prediction
+                outs.append(L._sigmoid(Fm) if loss == "logistic" else Fm)
             cis.extend(grp[0])
         return cis, torch.cat(outs, dim=1)
     raise NotImplementedError(f"sweep fragment {kind!r} is not ported")

@@ -10,12 +10,12 @@ The port's counterpart of ``transmogrifai_tpu/ops/trees.py``.  Scoring:
 ``bootstrap_weights``, ``feature_masks``, ``subsample_weights``, bit-equal
 to the JAX package's), the level-wise tree grower over c gradient channels
 (c = 1 for binary and regression trees, c = k classes for the multiclass
-forests' -onehot gradients, up to ``MAX_CHANNELS``), boosting
-(``fit_gbt``, ``fit_gbt_batch``) with the logistic and squared losses, and
-the forests (``grow_forest``, ``fit_forest``, ``fit_forest_chunked``):
-one-channel leaves for binary classification and regression,
-class-distribution leaves for multiclass.  The softmax loss is not
-ported.
+forests' -onehot gradients and the softmax boosting, up to
+``MAX_CHANNELS``), boosting (``fit_gbt``, ``fit_gbt_batch``) with the
+logistic, squared and softmax losses, and the forests (``grow_forest``,
+``fit_forest``, ``fit_forest_chunked``): one-channel leaves for binary
+classification and regression, class-distribution leaves for multiclass.
+Round-collapsed boosting (``trees_per_round`` > 1) is not ported.
 
 Hand-written kernels carry the path (CUDA sources in ``csrc/``, the Triton
 ones in ``ops/triton_boost.py`` and ``ops/triton_forest.py``):
@@ -39,6 +39,10 @@ ones in ``ops/triton_boost.py`` and ``ops/triton_forest.py``):
 - ``boost_step`` (K-H) replaces the margin update and ``_grad_hess``
   (logistic and squared): ``F += eta * leaf[row_node]`` and the weighted
   gradient and hessian of the new margins.
+- ``softmax_boost_step`` (K-R, Triton, the ``LOSS`` 2 branch of
+  ``ops/triton_boost.py``) replaces the same for the softmax loss over k
+  class margins: the update per channel, the row's softmax, the k weighted
+  gradients and the one scalar hessian of the row.
 - ``forest_leaf_mean`` (K-M, Triton, ``ops/triton_forest.py``) replaces the
   fused sweep's forest leaf read and tree mean: each row's mean leaf value
   (per channel) over each (fold, candidate)'s trees.
@@ -152,8 +156,7 @@ def bin_rows(X: torch.Tensor, edges: torch.Tensor) -> torch.Tensor:
     with torch.cuda.device(X.device):
         rc = fn(X.data_ptr(), edges.data_ptr(), out.data_ptr(), n, d, n_edges,
                 _search_levels(n_edges), _stream(X))
-    if rc != 0:
-        raise RuntimeError(f"bin_rows kernel launch failed: CUDA error {rc}")
+    cuda_build.check_launch("bin_rows", rc)
     bin_rows.launches += 1
     return out
 
@@ -244,8 +247,7 @@ def ensemble_walk(Xb: torch.Tensor, tree: Tree, max_depth: int, mode: str = "sum
                     out.data_ptr(), leaves.data_ptr() if leaves is not None else None,
                     n, d, T, P, c, ch0, min(_WALK_CHANNELS, c - ch0), max_depth,
                     _MODES[mode], eta, base, _stream(Xb))
-            if rc != 0:
-                raise RuntimeError(f"ensemble_walk kernel launch failed: CUDA error {rc}")
+            cuda_build.check_launch("ensemble_walk", rc)
             ensemble_walk.launches += 1
     return out, leaves
 
@@ -554,8 +556,7 @@ def level_hist_launch(Xb: torch.Tensor, ghw: torch.Tensor, ids: torch.Tensor, m:
                 pl.data_ptr() if light else None, acc.data_ptr(), out.data_ptr(), n, d,
                 n_bins, C1, T, mp, m_prev, float(2.0 ** scale_bits),
                 float(2.0 ** -scale_bits), _stream(Xb))
-    if rc != 0:
-        raise RuntimeError(f"level_hist kernel launch failed: CUDA error {rc}")
+    cuda_build.check_launch("level_hist", rc)
     level_hist.launches += 1
     return out
 
@@ -732,8 +733,7 @@ def split_scan(hist: torch.Tensor, feat_mask: torch.Tensor, params: torch.Tensor
                             scratch.data_ptr(), T, m, C1 - 1, d, B, nodes.shape[1], slot_base,
                             next_free, next_cap,
                             cap_mode | (4 if root else 0), _stream(hist))
-    if rc != 0:
-        raise RuntimeError(f"split_scan kernel launch failed: CUDA error {rc}")
+    cuda_build.check_launch("split_scan", rc)
     split_scan.launches += 1
     return split, pair_parent, pair_light, n_next
 
@@ -802,8 +802,7 @@ def route_rows(Xb: torch.Tensor, row_slot: torch.Tensor, row_node: torch.Tensor,
                 pair_light.data_ptr(), new_slot.data_ptr(), new_node.data_ptr(),
                 ids.data_ptr(), n, Xb.shape[1], T, split.shape[1],
                 pair_light.shape[1], next_free, _stream(Xb))
-    if rc != 0:
-        raise RuntimeError(f"route_rows kernel launch failed: CUDA error {rc}")
+    cuda_build.check_launch("route_rows", rc)
     route_rows.launches += 1
     return new_slot, new_node, ids
 
@@ -820,8 +819,9 @@ def _sigmoid(x: torch.Tensor) -> torch.Tensor:
     return 1.0 / (1.0 + torch.exp(-x))
 
 
-#: the losses K-H computes gradients of (the kernel's LOSS constant)
-BOOST_LOSSES = {"logistic": 0, "squared": 1}
+#: the losses of the boosting kernels (their LOSS constant): K-H takes the
+#: logistic and squared losses, K-R the softmax
+BOOST_LOSSES = {"logistic": 0, "squared": 1, "softmax": 2}
 
 
 def boost_step_plain(F: torch.Tensor, y: torch.Tensor, w: torch.Tensor, eta: torch.Tensor,
@@ -842,6 +842,28 @@ def boost_step_plain(F: torch.Tensor, y: torch.Tensor, w: torch.Tensor, eta: tor
                                                          device=F.device)) * w
 
 
+def _check_boost(F, y, w, eta, leaf, row_node, ghw, c: int) -> None:
+    """Shapes of a boosting step over [T, n] (``c`` 0) or [T, n, c]."""
+    T, n = F.shape[:2]
+    lead = (T, n) if c == 0 else (T, n, c)
+    _require(F.dtype == torch.float32 and tuple(F.shape) == lead,
+             "F must be float32[T, n]" if c == 0 else "F must be float32[T, n, k]")
+    _require(y.dtype == torch.float32 and tuple(y.shape) == (n,), f"y must be float32[{n}]")
+    _require(w.dtype == torch.float32 and tuple(w.shape) == (T, n), f"w must be float32[{T}, {n}]")
+    _require(eta.dtype == torch.float32 and tuple(eta.shape) == (T,), f"eta must be float32[{T}]")
+    _require((leaf is None) == (row_node is None), "leaf and row_node go together")
+    if leaf is not None:
+        _require(leaf.dtype == torch.float32 and leaf.ndim == (2 if c == 0 else 3)
+                 and leaf.shape[0] == T and tuple(leaf.shape[2:]) == (() if c == 0 else (c,))
+                 and row_node.dtype == torch.int32 and tuple(row_node.shape) == (T, n),
+                 f"leaf must be float32[{T}, P{'' if c == 0 else f', {c}'}] and row_node "
+                 f"int32[{T}, {n}]")
+    if ghw is not None:
+        C1 = 2 if c == 0 else c + 1
+        _require(ghw.dtype == torch.float32 and tuple(ghw.shape) == (T, n, C1),
+                 f"ghw must be float32[{T}, {n}, {C1}]")
+
+
 def boost_step(F: torch.Tensor, y: torch.Tensor, w: torch.Tensor, eta: torch.Tensor,
                leaf: Optional[torch.Tensor] = None, row_node: Optional[torch.Tensor] = None,
                ghw: Optional[torch.Tensor] = None, loss: str = "logistic") -> None:
@@ -854,20 +876,11 @@ def boost_step(F: torch.Tensor, y: torch.Tensor, w: torch.Tensor, eta: torch.Ten
     ``(p - y) w`` and ``max(p (1 - p), 1e-6) w`` with ``p = 1 / (1 +
     exp(-F))``; squared ``(F - y) w`` and ``w``.
     """
-    _require(loss in BOOST_LOSSES, f"loss must be one of {sorted(BOOST_LOSSES)}, got {loss!r}")
-    _require(F.dtype == torch.float32 and F.ndim == 2, "F must be float32[T, n]")
+    _require(loss in ("logistic", "squared"),
+             f"loss must be logistic or squared (softmax_boost_step takes the softmax), "
+             f"got {loss!r}")
+    _check_boost(F, y, w, eta, leaf, row_node, ghw, 0)
     T, n = F.shape
-    _require(y.dtype == torch.float32 and tuple(y.shape) == (n,), f"y must be float32[{n}]")
-    _require(w.dtype == torch.float32 and tuple(w.shape) == (T, n), f"w must be float32[{T}, {n}]")
-    _require(eta.dtype == torch.float32 and tuple(eta.shape) == (T,), f"eta must be float32[{T}]")
-    _require((leaf is None) == (row_node is None), "leaf and row_node go together")
-    if leaf is not None:
-        _require(leaf.dtype == torch.float32 and leaf.ndim == 2 and leaf.shape[0] == T
-                 and row_node.dtype == torch.int32 and tuple(row_node.shape) == (T, n),
-                 f"leaf must be float32[{T}, P] and row_node int32[{T}, {n}]")
-    if ghw is not None:
-        _require(ghw.dtype == torch.float32 and tuple(ghw.shape) == (T, n, 2),
-                 f"ghw must be float32[{T}, {n}, 2]")
     others = [t for t in (leaf, row_node, ghw) if t is not None]
     if not _on_cuda(F, y, w, eta, *others):
         return boost_step_plain(F, y, w, eta, leaf, row_node, ghw, loss)
@@ -875,7 +888,8 @@ def boost_step(F: torch.Tensor, y: torch.Tensor, w: torch.Tensor, eta: torch.Ten
         _require(a is None or a.is_contiguous(), f"{name} must be contiguous (written in place)")
     if n == 0 or (leaf is None and ghw is None):
         return None
-    from . import triton_boost as tb
+    with cuda_build.kernel_errors("boost_step"):
+        from . import triton_boost as tb
 
     y, w, eta = y.contiguous(), w.contiguous(), eta.contiguous()
     upd = leaf is not None
@@ -883,17 +897,113 @@ def boost_step(F: torch.Tensor, y: torch.Tensor, w: torch.Tensor, eta: torch.Ten
     node_t = row_node.contiguous() if upd else F
     block = 1024
     grid = (-(-n // block), T)
-    with torch.cuda.device(F.device):
+    with torch.cuda.device(F.device), cuda_build.kernel_errors("boost_step"):
         tb.boost_step_kernel[grid](F, y, w, eta, leaf_t, node_t,
                                    ghw if ghw is not None else F, n,
-                                   leaf_t.shape[1] if upd else 0, UPDATE=upd,
-                                   GRAD=ghw is not None, LOSS=BOOST_LOSSES[loss],
+                                   leaf_t.shape[1] if upd else 0, 1.0, UPDATE=upd,
+                                   GRAD=ghw is not None, LOSS=BOOST_LOSSES[loss], K=1, KP=1,
                                    BLOCK=block, num_warps=4)
     boost_step.launches += 1
     return None
 
 
 boost_step.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K-R softmax_boost_step
+# ---------------------------------------------------------------------------
+def softmax_boost_step_plain(F: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
+                             eta: torch.Tensor, leaf: Optional[torch.Tensor],
+                             row_node: Optional[torch.Tensor],
+                             ghw: Optional[torch.Tensor]) -> None:
+    """Plain PyTorch version of K-R: the reference's float32 operations in
+    its order, with the multiply-adds XLA's CPU code fuses: the margin
+    update one fused multiply-add a channel, the softmax's sum in channel
+    order, the hessian's channel sum as ``softmax_hessian``."""
+    from .metrics import fma
+
+    k = F.shape[2]
+    if leaf is not None:
+        lv = leaf.gather(1, row_node.long()[..., None].expand(-1, -1, k))
+        F.copy_(fma(eta[:, None, None].expand_as(lv), lv, F))
+    if ghw is None:
+        return
+    e = torch.exp(F - F.max(dim=-1, keepdim=True).values)
+    s = e[..., 0]
+    for j in range(1, k):
+        s = s + e[..., j]
+    p = e / s[..., None]
+    Y = torch.nn.functional.one_hot(y.long(), k).to(torch.float32)
+    ghw[..., :k] = (p - Y[None]) * w[..., None]
+    ghw[..., k] = softmax_hessian(p) * w
+
+
+def softmax_hessian(p: torch.Tensor) -> torch.Tensor:
+    """The softmax loss's scalar hessian of each row of probabilities ``p``
+    [..., k]: ``max(mean_j p_j (1 - p_j), 1e-6)`` as XLA's CPU code computes
+    the reference's ``(p * (1 - p)).mean(-1)``: the first product rounded,
+    the others added by fused multiply-adds in channel order, the mean a
+    product by float32(1 / k)."""
+    from .metrics import fma
+
+    k = p.shape[-1]
+    q = 1.0 - p
+    h = p[..., 0] * q[..., 0]
+    for j in range(1, k):
+        h = fma(p[..., j], q[..., j], h)
+    return torch.clamp_min(h * float(np.float32(1.0 / k)), 1e-6)
+
+
+def softmax_boost_step(F: torch.Tensor, y: torch.Tensor, w: torch.Tensor, eta: torch.Tensor,
+                       leaf: Optional[torch.Tensor] = None,
+                       row_node: Optional[torch.Tensor] = None,
+                       ghw: Optional[torch.Tensor] = None) -> None:
+    """One softmax boosting step over k class margins ``F`` f32[T, n, k], in
+    place.
+
+    With ``leaf`` f32[T, P, k] and ``row_node`` i32[T, n]: the margin update
+    ``F[t, r, j] += eta[t] * leaf[t, row_node[t, r], j]``, one fused
+    multiply-add (XLA's CPU code contracts the reference's update so, but
+    for one channel of three at k = 3, which it rounds twice: a last-bit
+    gap there).
+    With ``ghw`` f32[T, n, k + 1]: at the (updated) margins, ``p =
+    softmax(F[t, r])`` (exp(F - max) over its sum), the k weighted gradients
+    ``(p_j - [y_r == j]) w`` and the one scalar hessian ``max(mean_j p_j (1 -
+    p_j), 1e-6) w``, with ``y`` f32[n] the class labels 0 .. k - 1 and ``w``
+    f32[T, n] the row weights.  2 <= k <= ``MAX_CHANNELS``."""
+    _require(F.ndim == 3 and 2 <= F.shape[2] <= MAX_CHANNELS,
+             f"F must be float32[T, n, k] with 2 <= k <= {MAX_CHANNELS}")
+    T, n, k = F.shape
+    _check_boost(F, y, w, eta, leaf, row_node, ghw, k)
+    others = [t for t in (leaf, row_node, ghw) if t is not None]
+    if not _on_cuda(F, y, w, eta, *others):
+        return softmax_boost_step_plain(F, y, w, eta, leaf, row_node, ghw)
+    for name, a in (("F", F), ("ghw", ghw)):
+        _require(a is None or a.is_contiguous(), f"{name} must be contiguous (written in place)")
+    if n == 0 or (leaf is None and ghw is None):
+        return None
+    with cuda_build.kernel_errors("softmax_boost_step"):
+        from . import triton_boost as tb
+
+    y, w, eta = y.contiguous(), w.contiguous(), eta.contiguous()
+    upd = leaf is not None
+    leaf_t = leaf.contiguous() if upd else F
+    node_t = row_node.contiguous() if upd else F
+    block = 256
+    grid = (-(-n // block), T)
+    with torch.cuda.device(F.device), cuda_build.kernel_errors("softmax_boost_step"):
+        tb.boost_step_kernel[grid](F, y, w, eta, leaf_t, node_t,
+                                   ghw if ghw is not None else F, n,
+                                   leaf_t.shape[1] if upd else 0, float(np.float32(1.0 / k)),
+                                   UPDATE=upd, GRAD=ghw is not None,
+                                   LOSS=BOOST_LOSSES["softmax"], K=k,
+                                   KP=1 << (k - 1).bit_length(), BLOCK=block, num_warps=4)
+    softmax_boost_step.launches += 1
+    return None
+
+
+softmax_boost_step.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -974,39 +1084,50 @@ def _f32(v, T: int, dev) -> torch.Tensor:
 
 
 def _boost(Xb, y, w, row_w_rounds, feat_mask_rounds, loss, n_rounds, max_depth, n_bins,
-           frontier, eta, params, base, exact_cap, keep_trees):
+           frontier, eta, params, base, exact_cap, keep_trees, n_classes=1):
     """Boosting over the tree batch from the margins ``base`` [T]: per round
-    one K-H step (margin update + gradients) and one tree grown per batch
-    element, then a last update."""
+    one boosting step (K-H, or K-R over the ``n_classes`` margins of the
+    softmax loss: margin update + gradients) and one tree grown per batch
+    element, then a last update.  Returns (F f32[T, n, c], the rounds'
+    (nodes, leaves) when ``keep_trees``)."""
     T, n = w.shape
     dev = Xb.device
     P = _pool_size(max_depth, frontier)
-    F = base[:, None].expand(T, n).contiguous()
-    ghw = torch.empty((T, n, 2), dtype=torch.float32, device=dev)
+    c = n_classes if loss == "softmax" else 1
+    F = base[:, None, None].expand(T, n, c).contiguous()
+    Fs = F if loss == "softmax" else F.view(T, n)
+    lshape = (T, P, c) if loss == "softmax" else (T, P)
+    ghw = torch.empty((T, n, c + 1), dtype=torch.float32, device=dev)
     if keep_trees:
         nodes_all = torch.empty((n_rounds, T, P, 4), dtype=torch.int32, device=dev)
-        leaf_all = torch.empty((n_rounds, T, P), dtype=torch.float32, device=dev)
+        leaf_all = torch.empty((n_rounds,) + lshape, dtype=torch.float32, device=dev)
     nodes = torch.empty((T, P, 4), dtype=torch.int32, device=dev)
-    leaf = torch.empty((T, P), dtype=torch.float32, device=dev)
+    leaf = torch.empty(lshape, dtype=torch.float32, device=dev)
+    if loss == "softmax":
+        step = softmax_boost_step
+    else:
+        def step(F_, y_, w_, eta_, lf_=None, rn_=None, ghw_=None):
+            boost_step(F_, y_, w_, eta_, lf_, rn_, ghw_, loss)
     prev = (None, None)
     for r in range(n_rounds):
         w_r = w * row_w_rounds[r][None]
         fm = feat_mask_rounds[r][None].expand(T, -1).contiguous()
-        boost_step(F, y, w_r, eta, prev[0], prev[1], ghw, loss)
+        step(Fs, y, w_r, eta, prev[0], prev[1], ghw)
         nd, lf = (nodes_all[r], leaf_all[r]) if keep_trees else (nodes, leaf)
         _, _, row_node = grow_trees(Xb, ghw, fm, params, max_depth, n_bins, frontier,
                                     exact_cap, nd, lf)
         prev = (lf, row_node)
     if n_rounds:
-        boost_step(F, y, w, eta, prev[0], prev[1])
+        step(Fs, y, w, eta, prev[0], prev[1])
     trees = (nodes_all, leaf_all) if keep_trees else None
     return F, trees
 
 
 def _boost_args(loss: str, n_classes: int, trees_per_round: int) -> None:
     if loss not in BOOST_LOSSES:
-        raise NotImplementedError(
-            f"loss {loss!r}: the logistic and squared losses are ported (softmax is queued)")
+        raise ValueError(f"unknown loss {loss!r}")
+    if loss == "softmax" and not 2 <= int(n_classes) <= MAX_CHANNELS:
+        raise ValueError(f"softmax boosting takes 2 to {MAX_CHANNELS} classes, got {n_classes}")
     if int(trees_per_round) != 1:
         raise NotImplementedError("trees_per_round > 1 (round collapse) is not ported yet")
 
@@ -1017,12 +1138,15 @@ def fit_gbt(Xb: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
             reg_lambda: float = 1.0, gamma: float = 0.0, min_child_weight: float = 1.0,
             base_score: float = 0.0, n_classes: int = 1, min_info_gain: float = 0.0,
             exact_cap: bool = False, trees_per_round: int = 1) -> Tuple[Tree, torch.Tensor]:
-    """XGBoost-style boosting (logistic or squared loss), one histogram tree
-    per round from the margin ``base_score``, on Xb's device.
+    """XGBoost-style boosting (logistic, squared, or softmax over
+    ``n_classes`` with multi-output trees: a leaf vector per class), one
+    histogram tree per round from the margin ``base_score``, on Xb's
+    device.
 
     ``row_w_rounds`` f32[R, n] and ``feat_mask_rounds`` f32[R, d] are the
     per-round subsample and colsample masks.  Returns (the stacked ``Tree``
-    [R, P], final margins F f32[n, 1])."""
+    [R, P] with leaves [R, P, c], final margins F f32[n, c]; c = 1 but for
+    the softmax's ``n_classes``)."""
     _boost_args(loss, n_classes, trees_per_round)
     dev = Xb.device
     params = torch.tensor([[reg_lambda, gamma, min_child_weight, min_info_gain]],
@@ -1030,8 +1154,8 @@ def fit_gbt(Xb: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
     F, (nodes, leaf) = _boost(
         Xb, y.to(dev, torch.float32), w.to(dev, torch.float32)[None], row_w_rounds,
         feat_mask_rounds, loss, n_rounds, max_depth, n_bins, frontier, _f32(eta, 1, dev), params,
-        _f32(base_score, 1, dev), exact_cap, keep_trees=True)
-    return as_tree(nodes[:, 0], leaf[:, 0]), F[0][:, None]
+        _f32(base_score, 1, dev), exact_cap, keep_trees=True, n_classes=n_classes)
+    return as_tree(nodes[:, 0], leaf[:, 0]), F[0]
 
 
 def fit_gbt_batch(Xb: torch.Tensor, y: torch.Tensor, w_batch: torch.Tensor,
@@ -1043,7 +1167,7 @@ def fit_gbt_batch(Xb: torch.Tensor, y: torch.Tensor, w_batch: torch.Tensor,
     """The fold x grid boosting sweep: ``w_batch`` f32[B, n] carries each
     batch element's fold-mask x sample weights, the ``*_b`` arrays its
     hyperparameters and starting margin.  All B trees of a round grow
-    together.  Returns the final margins F f32[B, n, 1] on every row."""
+    together.  Returns the final margins F f32[B, n, c] on every row."""
     _boost_args(loss, n_classes, trees_per_round)
     dev = Xb.device
     B = w_batch.shape[0]
@@ -1056,8 +1180,8 @@ def fit_gbt_batch(Xb: torch.Tensor, y: torch.Tensor, w_batch: torch.Tensor,
                   row_w_rounds, feat_mask_rounds, loss, n_rounds, max_depth, n_bins, frontier,
                   _f32(eta_b, B, dev), params,
                   _f32(zeros if base_score_b is None else base_score_b, B, dev),
-                  exact_cap, keep_trees=False)
-    return F[:, :, None]
+                  exact_cap, keep_trees=False, n_classes=n_classes)
+    return F
 
 
 # ---------------------------------------------------------------------------
@@ -1167,22 +1291,31 @@ def predict_forest_groups(Xb: torch.Tensor, forest: Tree, max_depth: int,
 # K-M forest_leaf_mean
 # ---------------------------------------------------------------------------
 #: the tree mean's summation order is XLA's CPU reduction of the reference's
-#: ``mean(axis=trees)``: above 32 trees it sums windows of 32 (the tree
-#: axis zero-padded evenly at both ends to whole windows), each in tree
-#: order, then the windows' sums in order, and multiplies by float32(1 / T);
-#: up to 16 trees it is one window.  (Checked bit for bit at 5, 16, 50, 64
-#: and 300 trees; from 17 to 32 trees XLA sums in another order, and a
-#: mean may differ from its in the last bit.)
+#: ``mean(axis=trees)`` over the materialized leaf values (the sweep reads
+#: the leaves inside its ``lax.map`` body and takes the mean after it):
+#: above 32 trees it sums windows of 32 (the tree axis zero-padded evenly at
+#: both ends to whole windows), each in tree order, and again windows of 32
+#: of those sums above 1,024 trees, then the last level's sums in order,
+#: and multiplies by float32(1 / T); up to 32 trees it is one window.
+#: (Checked bit for bit against ``jax.jit`` of that expression at every T
+#: from 1 to 64 and at 300, 700, 1,000 and 1,100, for 1 and 3 channels and
+#: several row counts: ``tests/test_torch_forest_mean.py``.)
 MEAN_WINDOW = 32
 
 
-def _mean_windows(T: int) -> Tuple[int, int]:
-    """(windows, leading zero pad) of the tree sum; at most 32 windows."""
-    if T <= MEAN_WINDOW:
-        return 1, 0
-    W = -(-T // MEAN_WINDOW)
-    _require(W <= MEAN_WINDOW, f"at most {MEAN_WINDOW ** 2} trees a group, got {T}")
-    return W, (W * MEAN_WINDOW - T) // 2
+def _mean_windows(T: int) -> Tuple[int, int, int, int]:
+    """(windows, leading zero pad) of the tree sum's two window levels: the
+    trees' windows (W1, lo1) and the windows of their sums (W2, lo2); one
+    window where a level holds at most ``MEAN_WINDOW``.  At most
+    ``MEAN_WINDOW ** 3`` trees."""
+    levels = []
+    L = T
+    for _ in range(2):
+        W = -(-L // MEAN_WINDOW) if L > MEAN_WINDOW else 1
+        levels += [W, (W * MEAN_WINDOW - L) // 2 if W > 1 else 0]
+        L = W
+    _require(L <= MEAN_WINDOW, f"at most {MEAN_WINDOW ** 3} trees a group, got {T}")
+    return tuple(levels)
 
 
 def forest_leaf_mean_plain(leaf: torch.Tensor, row_node: torch.Tensor) -> torch.Tensor:
@@ -1192,12 +1325,21 @@ def forest_leaf_mean_plain(leaf: torch.Tensor, row_node: torch.Tensor) -> torch.
     lv = leaf.reshape(G, T, P, -1)
     node = row_node.long()[..., None].expand(-1, -1, -1, lv.shape[3])
     vals = lv.gather(2, node)                                   # [G, T, n, c]
-    W, lo = _mean_windows(T)
+    W1, lo1, W2, lo2 = _mean_windows(T)
+
+    def windows(parts, W, lo):
+        out = []
+        for w in range(W):
+            part = torch.zeros_like(vals[:, 0])
+            for t in range(max(w * MEAN_WINDOW - lo, 0), min((w + 1) * MEAN_WINDOW - lo,
+                                                             len(parts))):
+                part = part + parts[t]
+            out.append(part)
+        return out
+
+    sums = windows(windows([vals[:, t] for t in range(T)], W1, lo1), W2, lo2)
     total = torch.zeros_like(vals[:, 0])
-    for w in range(W):
-        part = torch.zeros_like(total)
-        for t in range(max(w * MEAN_WINDOW - lo, 0), min((w + 1) * MEAN_WINDOW - lo, T)):
-            part = part + vals[:, t]
+    for part in sums:
         total = total + part
     out = total * float(np.float32(1.0 / T))
     return out if leaf.ndim == 4 else out[..., 0]
@@ -1207,7 +1349,8 @@ def forest_leaf_mean(leaf: torch.Tensor, row_node: torch.Tensor) -> torch.Tensor
     """The mean leaf value of each row over each group's T trees: ``leaf``
     f32[G, T, P, c] the trees' leaf values (or f32[G, T, P], one channel),
     ``row_node`` i32[G, T, n] the leaf each row reaches; f32[G, n, c] (or
-    f32[G, n]), each channel summed in the order of ``MEAN_WINDOW``."""
+    f32[G, n]), each channel summed in the order of ``MEAN_WINDOW``; at
+    most ``MEAN_WINDOW ** 3`` trees a group."""
     _require(leaf.dtype == torch.float32 and leaf.ndim in (3, 4),
              "leaf must be float32[G, T, P] or [G, T, P, c]")
     G, T, P = leaf.shape[:3]
@@ -1215,10 +1358,11 @@ def forest_leaf_mean(leaf: torch.Tensor, row_node: torch.Tensor) -> torch.Tensor
     _require(row_node.dtype == torch.int32 and row_node.ndim == 3
              and tuple(row_node.shape[:2]) == (G, T), f"row_node must be int32[{G}, {T}, n]")
     _require(T >= 1, "need at least one tree")
-    W, lo = _mean_windows(T)
+    W1, lo1, W2, lo2 = _mean_windows(T)
     if not _on_cuda(leaf, row_node):
         return forest_leaf_mean_plain(leaf, row_node)
-    from . import triton_forest as tf
+    with cuda_build.kernel_errors("forest_leaf_mean"):
+        from . import triton_forest as tf
 
     leaf, row_node = leaf.contiguous(), row_node.contiguous()
     n = row_node.shape[2]
@@ -1227,9 +1371,9 @@ def forest_leaf_mean(leaf: torch.Tensor, row_node: torch.Tensor) -> torch.Tensor
     if n == 0 or G == 0:
         return out
     block = 512
-    with torch.cuda.device(leaf.device):
+    with torch.cuda.device(leaf.device), cuda_build.kernel_errors("forest_leaf_mean"):
         tf.forest_leaf_mean_kernel[(-(-(n * c) // block), G)](
-            leaf, row_node, out, n, c, T, P, W, lo, float(np.float32(1.0 / T)),
+            leaf, row_node, out, n, c, T, P, W1, lo1, W2, lo2, float(np.float32(1.0 / T)),
             WINDOW=MEAN_WINDOW, BLOCK=block, num_warps=4)
     forest_leaf_mean.launches += 1
     return out

@@ -9,8 +9,9 @@ row_node)`` then the mean over each (fold, candidate)'s trees): for each
 group g, row i and leaf channel ch (one for binary and regression forests,
 one per class for the multiclass forests' class distributions), the mean
 over t of ``leaf[g, t, row_node[g, t, i], ch]``, summed in the order XLA's
-CPU reduction takes (windows of 32 trees, each in tree order, then the
-windows in order; ``ops/trees.py::MEAN_WINDOW``; the same per channel) and
+CPU reduction takes (windows of 32 trees, each in tree order, windows of
+32 of those sums above 1,024 trees, then the last level's sums in order;
+``ops/trees.py::MEAN_WINDOW``; the same per channel) and
 multiplied by float32(1 / T), so the scores repeat the reference's bit for
 bit and tied forest scores stay tied.  A program takes a block of the
 flattened (row, channel) outputs.
@@ -33,7 +34,7 @@ def _mul(a, b):
 
 
 @triton.jit
-def forest_leaf_mean_kernel(leaf_ptr, node_ptr, out_ptr, n, c, T, P, W, lo, inv_t,
+def forest_leaf_mean_kernel(leaf_ptr, node_ptr, out_ptr, n, c, T, P, W1, lo1, W2, lo2, inv_t,
                             WINDOW: tl.constexpr, BLOCK: tl.constexpr):
     g = tl.program_id(1).to(tl.int64)
     e = tl.program_id(0) * BLOCK + tl.arange(0, BLOCK)  # row * c + channel
@@ -41,14 +42,16 @@ def forest_leaf_mean_kernel(leaf_ptr, node_ptr, out_ptr, n, c, T, P, W, lo, inv_
     r = e // c
     ch = e % c
     total = tl.zeros([BLOCK], tl.float32)
-    for w in range(0, W):
-        t0 = tl.maximum(w * WINDOW - lo, 0)
-        t1 = tl.minimum((w + 1) * WINDOW - lo, T)
-        part = tl.zeros([BLOCK], tl.float32)
-        for t in range(t0, t1):
-            gt = g * T + t
-            node = tl.load(node_ptr + gt * n + r, mask=ok, other=0)
-            part += tl.load(leaf_ptr + (gt * P + node) * c + ch, mask=ok, other=0.0)
-        total += part
+    for w2 in range(0, W2):
+        part2 = tl.zeros([BLOCK], tl.float32)
+        for w1 in range(tl.maximum(w2 * WINDOW - lo2, 0), tl.minimum((w2 + 1) * WINDOW - lo2, W1)):
+            part1 = tl.zeros([BLOCK], tl.float32)
+            for t in range(tl.maximum(w1 * WINDOW - lo1, 0),
+                           tl.minimum((w1 + 1) * WINDOW - lo1, T)):
+                gt = g * T + t
+                node = tl.load(node_ptr + gt * n + r, mask=ok, other=0)
+                part1 += tl.load(leaf_ptr + (gt * P + node) * c + ch, mask=ok, other=0.0)
+            part2 += part1
+        total += part2
     tl.store(out_ptr + g * n * c + e, _mul(total, tl.zeros([BLOCK], tl.float32) + inv_t),
              mask=ok)

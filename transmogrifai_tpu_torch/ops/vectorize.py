@@ -26,6 +26,7 @@ from typing import Sequence, Tuple
 import torch
 
 from ..utils.device import on_cuda as _on_cuda
+from . import cuda_build
 
 
 def _pow2(x: int, lo: int, hi: int) -> int:
@@ -62,7 +63,8 @@ def fill_indicator(values: torch.Tensor, mask: torch.Tensor, fills: torch.Tensor
         raise ValueError(f"fills must be float32[{k}]")
     if not _on_cuda(values, mask, fills):
         return fill_indicator_plain(values, mask, fills, track_nulls)
-    from . import triton_vectorize as tv
+    with cuda_build.kernel_errors("fill_indicator"):
+        from . import triton_vectorize as tv
 
     values, mask, fills = values.contiguous(), mask.contiguous(), fills.contiguous()
     n = values.shape[1]
@@ -73,7 +75,7 @@ def fill_indicator(values: torch.Tensor, mask: torch.Tensor, fills: torch.Tensor
     block_c = _pow2(width, 2, 64)
     block_r = max(4096 // block_c, 16)
     grid = (-(-n // block_r), -(-width // block_c))
-    with torch.cuda.device(values.device):
+    with torch.cuda.device(values.device), cuda_build.kernel_errors("fill_indicator"):
         tv.fill_indicator_kernel[grid](
             values, mask.view(torch.uint8), fills, out, n, width,
             TRACK=bool(track_nulls), BLOCK_R=block_r, BLOCK_C=block_c, num_warps=4)
@@ -117,7 +119,8 @@ def one_hot_codes(codes: torch.Tensor, widths: Sequence[int]) -> torch.Tensor:
         raise ValueError(f"codes must be int32[{len(widths)}, n]")
     if not _on_cuda(codes):
         return one_hot_codes_plain(codes, widths)
-    from . import triton_vectorize as tv
+    with cuda_build.kernel_errors("one_hot_codes"):
+        from . import triton_vectorize as tv
 
     codes = codes.contiguous()
     n = codes.shape[1]
@@ -129,7 +132,7 @@ def one_hot_codes(codes: torch.Tensor, widths: Sequence[int]) -> torch.Tensor:
     block_c = _pow2(width, 2, 64)
     block_r = max(4096 // block_c, 16)
     grid = (-(-n // block_r), -(-width // block_c))
-    with torch.cuda.device(codes.device):
+    with torch.cuda.device(codes.device), cuda_build.kernel_errors("one_hot_codes"):
         tv.one_hot_kernel[grid](codes, col_map, out, n, width,
                                 BLOCK_R=block_r, BLOCK_C=block_c, num_warps=4)
     one_hot_codes.launches += 1
