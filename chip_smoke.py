@@ -153,7 +153,31 @@ Phases, each printing its findings on a line of its own:
                three channels, against their plain versions (K-R's margins
                and K-M bit-equal, K-R's gradients within
                ``BOOST_GRAD_ATOL``, K-S within ``GRAM_RTOL``), timed as in
-               phase 2; and the K8 draws' times at the Iris train's shapes.
+               phase 2; and the K8 draws' times at the Iris train's shapes;
+25. families reference -- the binary selector's other families on the
+               891-row Titanic frame (``titanic.families_space``): space A
+               (LinearSVC, NaiveBayes, DecisionTree, MLP: the per-family
+               sweep) and space B (without NaiveBayes: the fused sweep's
+               "svc", "forest" and "mlp" fragments), each held to the
+               committed ``titanic_families`` fixture by
+               ``FX.check_titanic_families_train``, the JAX-saved and the
+               port-saved winners (naive Bayes, the MLP) scoring the
+               fixture's requests (``FX.compare_family_answers``); the
+               one-MLP Iris space's fold Errors against the fixture's;
+26-27. families A / B train -- both routes at ``--train-rows`` rows: the
+               launch counts reset just before and read just after (K-T,
+               K-U both modes, K-V both modes (A), K-E ... K-G, K-M and K-L
+               (B) must be above 0), the host-clock breakdown (each
+               family's seconds on the per-family path, ``cv_sweep_svc`` /
+               ``_mlp`` / ``_forest`` on the fused one), a profiled second
+               run;
+28. families kernels -- K-T (the SVC fits after half their steps), K-U in
+               gradient mode (the MLP fits after ten Adam steps) and in
+               forward mode, K-V in mass and score mode, on the space-B
+               train's sweep inputs, against their plain versions (K-T
+               within ``SVC_GRAD_RTOL``, K-U within ``MLP_GRAD_RTOL`` and
+               ``MLP_PROB_ATOL``, K-V within ``NB_RTOL``), timed as in
+               phase 2 beside their bounds and one PyTorch call each.
 
 The line before the last holds the kernels' JSON record, then the card's
 name and power limit; the last line is ``{"ok": true, "device": ...}``.  Any
@@ -1484,18 +1508,24 @@ def iris_kernel_phase(torch, call, timer):
 
 
 def spaces():
-    """The candidate spaces of this slice's trains, by name: the Iris mixed
-    space (the stock 26 with ``gbt_grid()`` and ``xgboost_grid()``: 46) and
-    the XGB-only one, the Titanic Newton + FISTA grid and its Newton points,
-    the Boston ridge grid."""
+    """The candidate spaces of the later slices' trains, by name: the Iris
+    mixed space (the stock 26 with ``gbt_grid()`` and ``xgboost_grid()``:
+    46) and the XGB-only one, the Titanic Newton + FISTA grid and its Newton
+    points, the Boston ridge grid; the binary selector's other families with
+    and without naive Bayes (spaces A and B) and the one-MLP Iris space."""
     from transmogrifai_tpu_torch.impl.classification.logistic import OpLogisticRegression
     from transmogrifai_tpu_torch.impl.classification.trees import (
         OpGBTClassifier, OpRandomForestClassifier, OpXGBoostClassifier)
     from transmogrifai_tpu_torch.impl.regression.linear import OpLinearRegression
     from transmogrifai_tpu_torch.impl.selector import defaults as D
 
+    from transmogrifai_tpu_torch.apps import iris, titanic
+
     regs = [0.0, 0.001, 0.01, 0.1, 0.2]
     return {
+        "titanic_families_a": titanic.families_space(naive_bayes=True),
+        "titanic_families_b": titanic.families_space(naive_bayes=False),
+        "iris_mlp": iris.mlp_space(),
         "iris_mixed": [(OpLogisticRegression(max_iter=50), D.logistic_regression_grid()),
                        (OpRandomForestClassifier(), D.random_forest_grid()),
                        (OpGBTClassifier(), D.gbt_grid()),
@@ -1673,12 +1703,14 @@ class CountCalls:
             setattr(self.module, name, fn)
 
 
-def scale_train_phase(torch, phase, train, kernels, required, check_fn, count_draws=False):
-    """A main path of this slice at scale: every kernel's launch count reset
+def scale_train_phase(torch, phase, train, kernels, required, check_fn, count_draws=False,
+                      sweep=True):
+    """A main path of a later slice at scale: every kernel's launch count reset
     just before and read just after the train (the ``required`` ones must
     be above 0), ``check_fn(model)`` on its result, the host-clock
-    breakdown, then a profiled second run.  Returns (the launches, the
-    sweep calls, the K8 draws' call counts or None)."""
+    breakdown, then a profiled second run.  With ``sweep`` False the train
+    must take the per-family sweep (no fused call).  Returns (the launches,
+    the sweep calls, the K8 draws' call counts or None)."""
     from transmogrifai_tpu_torch.ops import trees as Tr
 
     for fn in kernels:
@@ -1698,7 +1730,8 @@ def scale_train_phase(torch, phase, train, kernels, required, check_fn, count_dr
     found = check_fn(model)
     timings = dict(wf.train_timings)
     prof_wall, busy_s, idle, by_kernel = profiled(torch, train)
-    plan = calls[0][0]
+    check(bool(calls) == sweep, f"{len(calls)} fused sweep calls on the {phase} path")
+    plan = calls[0][0] if calls else None
     summ = model.stages[-1].summary
     # the boosting fragments' grower levels: each group grows its trees
     # together, max_depth levels a round
@@ -1707,8 +1740,10 @@ def scale_train_phase(torch, phase, train, kernels, required, check_fn, count_dr
     log(phase, wall_s=wall, launches=launches, host_clock_s=timings,
         best=summ.best_model_name, best_grid=summ.best_grid, **found,
         sweep_calls=len(calls), gbt_levels_by_group=gbt_levels,
-        sweep_spec=repr(plan.spec), sweep_rows=int(plan.X.shape[0]),
-        sweep_features=int(plan.X.shape[1]), draw_calls=draws.counts if draws else None,
+        sweep_spec=repr(plan.spec) if plan else None,
+        sweep_rows=int(plan.X.shape[0]) if plan else None,
+        sweep_features=int(plan.X.shape[1]) if plan else None,
+        draw_calls=draws.counts if draws else None,
         profiled_train_s=prof_wall, device_busy_s=busy_s, device_idle_share=idle,
         device_s_by_kernel=by_kernel)
     return launches, calls, draws.counts if draws else None
@@ -1923,6 +1958,241 @@ def slice6_kernel_phase(torch, iris_calls, newton_call, ridge_call, timer, dev="
     return records
 
 
+def families_reference_phase(torch, titanic, iris, FX, dev="cuda"):
+    """The binary selector's other families on the 891-row Titanic frame
+    (space A: LinearSVC, NaiveBayes, DecisionTree, MLP through the per-family
+    sweep; space B: the same without NaiveBayes through the fused sweep) and
+    the one-MLP Iris space on the 150-row frame, held to the committed
+    ``titanic_families`` fixture; the JAX-saved and the port-saved winners
+    (naive Bayes, the MLP) scored through ``BatchScoreFunction``; raises on
+    a failed check."""
+    import tempfile
+
+    import transmogrifai_tpu_torch as P
+
+    sp = spaces()
+    req = FX.load_columns(FX.TITANIC_FAMILIES + "/requests.npz")
+    exp = FX.load_expected(FX.TITANIC_FAMILIES + "/expected.npz")
+    out = {}
+    for space in ("a", "b"):
+        (model, wf), wall, calls = timed_train(
+            torch, lambda: titanic.train_titanic(
+                device=dev, models_and_parameters=sp["titanic_families_" + space]))
+        found = FX.check_titanic_families_train(model, space)
+        if space == "a":
+            check(not calls, "space A (naive Bayes) took the fused sweep")
+        else:
+            check(all([f[0] for f in c[0].spec[1]] == ["svc", "forest", "mlp"] for c in calls),
+                  f"space B's fragments {[f[0] for f in calls[0][0].spec[1]]}")
+        answers = {}
+        with tempfile.TemporaryDirectory() as tmp:
+            model.save(tmp)
+            for who, path, tol in (
+                    ("jax_saved_winner", FX.TITANIC_FAMILIES + "/space_" + space,
+                     FX.JAX_SAVED_PROB_ATOL),
+                    ("port_saved_winner", tmp, FX.FAMILIES_PROB_ATOL[space])):
+                m = P.load_model(path, device=dev)
+                pred, prob, _ = FX.prediction_arrays(
+                    P.BatchScoreFunction(m)(FX.records(req)), m.result_features[0].name)
+                answers[who] = FX.compare_family_answers(exp, space, pred, prob, tol=tol)
+                answers[who]["tolerance"] = tol
+        out[space] = dict(wall_s=wall, **found, requests_vs_expected=answers,
+                          timings_s=wf.train_timings)
+    (model, wf), wall, calls = timed_train(
+        torch, lambda: iris.train_iris(device=dev, models_and_parameters=sp["iris_mlp"]))
+    ref = FX.load_sweep(FX.TITANIC_FAMILIES + "/sweep.npz")["iris_mlp_metrics"]
+    mine = np.stack([c[3] for c in calls])
+    check(mine.shape == ref.shape and calls[0][0].spec[1][0][0] == "mlp",
+          f"the Iris MLP sweep {mine.shape}, {calls[0][0].spec}")
+    check(np.array_equal(mine[..., 3], ref[..., 3]), "the Iris MLP's fold Errors differ")
+    out["iris_mlp"] = dict(wall_s=wall, fold_errors=mine[..., 3].tolist(),
+                           f1_precision_recall_max_gap=float(np.abs(mine[..., :3]
+                                                                    - ref[..., :3]).max()),
+                           best=model.stages[-1].summary.best_model_name)
+    log("families_reference", rows=891, **out)
+
+
+def families_check(model, space):
+    summ = model.stages[-1].summary
+    folds = [m for r in summ.validation_results for m in r["foldMetrics"]]
+    check(len(summ.validation_results) == (24 if space == "a" else 23),
+          f"space {space.upper()} candidates {len(summ.validation_results)}")
+    check(all(np.isfinite(folds)) and all(r.get("error") is None
+                                          for r in summ.validation_results),
+          f"failed candidates or non-finite fold AuPR in space {space.upper()}")
+    check(summ.holdout_evaluation["AuPR"] > 0.5, "bad holdout AuPR")
+    by_family = {}
+    for r in summ.validation_results:
+        by_family.setdefault(r["modelName"], []).append(float(np.mean(r["foldMetrics"])))
+    return {"best_mean_aupr_by_family": {k: max(v) for k, v in by_family.items()},
+            "holdout_aupr": summ.holdout_evaluation["AuPR"]}
+
+
+#: K-T's gradients against its plain version (cuBLAS-free: both sum in
+#: float64, the hinge's float32 margins in other orders), relative to the
+#: largest entry
+SVC_GRAD_RTOL = 1e-5
+#: K-U's gradients against its plain version (float64 weight sums in both;
+#: the forward pass's float32 dot products in other orders), relative to
+#: the largest entry; its forward mode's probabilities, absolute
+MLP_GRAD_RTOL = 1e-4
+MLP_PROB_ATOL = 1e-6
+#: K-V against its plain version: float64 sums of exact products in two
+#: orders, each rounded to float32 once (an ulp at most)
+NB_RTOL = 2.4e-7
+
+
+def families_kernel_phase(torch, b_calls, timer, dev="cuda"):
+    """K-T, K-U (both modes) and K-V (both modes) against their plain
+    versions on the ``--train-rows`` families train's own arguments: the
+    space-B sweep call's feature matrix, labels and fold, its SVC fits
+    after half their steps and its MLP fits' initial parameters after ten
+    Adam steps; the naive-Bayes fit of space A sees the same feature matrix,
+    labels and fold (the workflow's features are deterministic).  Each is
+    timed by CUDA events beside its bound, its plain version and one
+    PyTorch call computing the same function."""
+    from transmogrifai_tpu_torch.impl.classification import naive_bayes as NB
+    from transmogrifai_tpu_torch.ops import linear as L
+    from transmogrifai_tpu_torch.ops import mlp as M
+
+    plan, train_w, _, _ = b_calls[0]
+    X, y, blob = plan.X, plan.y, np.asarray(plan.blob, np.float32)
+    tw = torch.as_tensor(np.asarray(train_w, np.float32), device=dev).contiguous()
+    F = tw.shape[0]
+    n, d = X.shape
+    records, extra = [], {}
+
+    # K-T svc_grad: the SVC fits after half their steps
+    _, cis, max_iter, fit_icpt, off_l2 = next(f for f in plan.spec[1] if f[0] == "svc")
+    G = len(cis)
+    l2 = blob[off_l2:off_l2 + G]
+    fit = L.fit_svc_grid_folds(X, y, tw, l2, max_iter=max_iter // 2, fit_intercept=fit_icpt)
+    C, p = F * G, d + 1
+    z = torch.cat([fit.coef, fit.intercept], -1).reshape(C, p).contiguous()
+    X1 = torch.cat([X, torch.ones((n, 1), device=dev)], 1).contiguous()
+    fold = torch.arange(F, dtype=torch.int32, device=dev).repeat_interleave(G)
+    l2v = torch.as_tensor(np.tile(l2, F), device=dev)[:, None].repeat(1, p).contiguous()
+    l2v[:, -1] = 0.0
+    wsum = torch.clamp_min(tw.sum(1), 1e-12)[fold.long()].contiguous()
+    args = (X1, y, tw, fold, z, l2v, wsum)
+    g1, g2 = L.svc_grad(*args), L.svc_grad_plain(*args)
+    torch.cuda.synchronize()
+    check(torch.equal(g1, L.svc_grad(*args)), "svc_grad does not repeat")
+    err = float((g1 - g2).abs().max() / g2.abs().max())
+    check(err <= SVC_GRAD_RTOL, f"svc_grad {err} from plain, above {SVC_GRAD_RTOL}")
+    wf = tw[fold.long()]
+    ypm = 2.0 * y - 1.0
+
+    def svc_library():
+        r = wf * ((-2.0 * ypm) * torch.clamp_min(1.0 - ypm * (z @ X1.T), 0.0))
+        return (r @ X1) / wsum[:, None] + l2v * z
+
+    # X1, y and each fold's weights read once, the points and penalties read,
+    # the gradients written; per (fit, row) a p-term margin and a p-term
+    # update (2 operations each) and about 6 for the hinge
+    b, by = bound_ms((n * p + n + F * n) * 4 + 3 * C * p * 4, C * n * (4 * p + 6))
+    records.append(dict(
+        name="svc_grad", route="cuda", source="transmogrifai_tpu_torch/csrc/svc.cu",
+        replaces="transmogrifai_tpu/ops/linear.py:254", max_abs_err=float((g1 - g2).abs().max()),
+        ms=timer(lambda: L.svc_grad(*args)), plain_ms=timer(lambda: L.svc_grad_plain(*args)),
+        bound_ms=b, bound_by=by, library_ms=timer(svc_library)))
+    extra["svc_grad"] = {"X1": [n, p], "fits": C, "rel_err": err, "tolerance": SVC_GRAD_RTOL}
+
+    # K-U mlp_grad and mlp_forward: the MLP fits after ten Adam steps
+    _, mcis, layers, _, off_lr, off_seed = next(f for f in plan.spec[1] if f[0] == "mlp")
+    Gm = len(mcis)
+    seeds = blob[off_seed:off_seed + Gm].astype(np.int32)
+    params = M.fit_mlp_grid_folds(X, y, tw, blob[off_lr:off_lr + Gm], seeds, layers=layers,
+                                  max_iter=10)
+    Cm = F * Gm
+    flat = M.flatten(params).reshape(Cm, -1).contiguous()
+    E = flat.shape[1]
+    mfold = torch.arange(F, dtype=torch.int32, device=dev).repeat_interleave(Gm)
+    mwsum = torch.clamp_min(tw.sum(1), 1e-12)[mfold.long()].contiguous()
+    margs = (X, y, tw, mfold, mwsum, flat, layers)
+    m1, m2 = M.mlp_grad(*margs), M.mlp_grad_plain(*margs)
+    torch.cuda.synchronize()
+    check(torch.equal(m1, M.mlp_grad(*margs)), "mlp_grad does not repeat")
+    merr = float((m1 - m2).abs().max() / m2.abs().max())
+    check(merr <= MLP_GRAD_RTOL, f"mlp_grad {merr} from plain, above {MLP_GRAD_RTOL}")
+    Y = torch.nn.functional.one_hot(y.long(), layers[-1]).to(torch.float32)
+    mw = tw[mfold.long()]
+
+    def mlp_autograd():
+        leaf = flat.detach().requires_grad_(True)
+        logits = M.forward(M.unflatten(leaf, layers), X)
+        ll = torch.log_softmax(logits, dim=-1)
+        loss = (-(mw[..., None] * Y * ll).sum((1, 2)) / mwsum).sum()
+        return torch.autograd.grad(loss, leaf)[0]
+
+    macs = sum(a * b_ for a, b_ in zip(layers[:-1], layers[1:]))
+    # X, y and the fold weights read once, the parameters read and the
+    # gradients written; per (fit, row) about 6 operations a weight (the
+    # forward and backward products and the gradient's sum)
+    b, by = bound_ms((n * d + n + F * n) * 4 + 2 * Cm * E * 4, Cm * n * 6 * macs)
+    records.append(dict(
+        name="mlp_grad", route="cuda", source="transmogrifai_tpu_torch/csrc/mlp.cu",
+        replaces="transmogrifai_tpu/ops/mlp.py:56", max_abs_err=float((m1 - m2).abs().max()),
+        ms=timer(lambda: M.mlp_grad(*margs)), plain_ms=timer(lambda: M.mlp_grad_plain(*margs)),
+        bound_ms=b, bound_by=by, library_ms=timer(mlp_autograd)))
+    (z1, p1), (z2, p2) = M.mlp_forward(X, flat, layers), M.mlp_forward_plain(X, flat, layers)
+    torch.cuda.synchronize()
+    perr = float((p1 - p2).abs().max())
+    check(perr <= MLP_PROB_ATOL, f"mlp_forward probabilities {perr} from plain, above "
+                                 f"{MLP_PROB_ATOL}")
+    k = layers[-1]
+    b, by = bound_ms(n * d * 4 + Cm * E * 4 + 2 * Cm * n * k * 4, Cm * n * (2 * macs + 4 * k))
+    records.append(dict(
+        name="mlp_forward", route="cuda", source="transmogrifai_tpu_torch/csrc/mlp.cu",
+        replaces="transmogrifai_tpu/ops/mlp.py:108", max_abs_err=perr,
+        ms=timer(lambda: M.mlp_forward(X, flat, layers)),
+        plain_ms=timer(lambda: M.mlp_forward_plain(X, flat, layers)),
+        bound_ms=b, bound_by=by, library_ms=None))
+    extra["mlp"] = {"layers": list(layers), "fits": Cm, "params": E, "grad_rel_err": merr,
+                    "grad_tolerance": MLP_GRAD_RTOL, "logit_max_abs_err":
+                    float((z1 - z2).abs().max()), "prob_tolerance": MLP_PROB_ATOL}
+
+    # K-V nb_tables: the masses of the fold, then the scores of its tables
+    kc = 2
+    c1, f1 = NB.nb_tables_mass(X, y, tw, kc)
+    c2, f2 = NB.nb_tables_mass_plain(X, y, tw, kc)
+    torch.cuda.synchronize()
+    check(torch.equal(c1, c2), "nb_tables_mass class masses differ from plain")
+    nerr = float(((f1 - f2).abs() / f2.abs().clamp_min(1e-30)).max())
+    check(nerr <= NB_RTOL, f"nb_tables_mass {nerr} from plain, above {NB_RTOL}")
+    Ywf = torch.nn.functional.one_hot(y.long(), kc).to(torch.float32)
+    b, by = bound_ms((n * d + n + F * n) * 4 + F * kc * (d + 1) * 4, F * n * 2 * (d + 1))
+    records.append(dict(
+        name="nb_tables_mass", route="cuda", source="transmogrifai_tpu_torch/csrc/naive_bayes.cu",
+        replaces="transmogrifai_tpu/impl/classification/naive_bayes.py:23",
+        max_abs_err=float((f1 - f2).abs().max()),
+        ms=timer(lambda: NB.nb_tables_mass(X, y, tw, kc)),
+        plain_ms=timer(lambda: NB.nb_tables_mass_plain(X, y, tw, kc)),
+        bound_ms=b, bound_by=by,
+        library_ms=timer(lambda: torch.einsum("fn,nk,nd->fkd", tw, Ywf, X))))
+    s = torch.ones((1, 1, 1), device=dev)
+    pi, theta, _ = NB._log_tables(c1[:, None], f1[:, None], s, False)
+    pi, theta = pi.reshape(F, kc).contiguous(), theta.reshape(F, kc, d).contiguous()
+    s1, s2 = NB.nb_tables_score(X, pi, theta), NB.nb_tables_score_plain(X, pi, theta, None)
+    torch.cuda.synchronize()
+    serr = float(((s1 - s2).abs() / s2.abs().clamp_min(1.0)).max())
+    check(serr <= NB_RTOL, f"nb_tables_score {serr} from plain, above {NB_RTOL}")
+    b, by = bound_ms(n * d * 4 + F * kc * (d + 1) * 4 + F * n * kc * 4, F * n * kc * 2 * d)
+    records.append(dict(
+        name="nb_tables_score", route="cuda",
+        source="transmogrifai_tpu_torch/csrc/naive_bayes.cu",
+        replaces="transmogrifai_tpu/impl/classification/naive_bayes.py:39",
+        max_abs_err=float((s1 - s2).abs().max()),
+        ms=timer(lambda: NB.nb_tables_score(X, pi, theta)),
+        plain_ms=timer(lambda: NB.nb_tables_score_plain(X, pi, theta, None)),
+        bound_ms=b, bound_by=by,
+        library_ms=timer(lambda: torch.einsum("nd,qkd->qnk", X, theta))))
+    extra["nb_tables"] = {"X": [n, d], "folds": F, "classes": kc, "mass_rel_err": nerr,
+                          "score_rel_err": serr, "tolerance": NB_RTOL}
+    log("families_kernels", details=extra, records=records)
+    return records
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1945,6 +2215,8 @@ def main(argv=None):
     from transmogrifai_tpu_torch.ops import stats as K
     from transmogrifai_tpu_torch.ops import trees as Tr
     from transmogrifai_tpu_torch.ops import vectorize as V
+    from transmogrifai_tpu_torch.ops import mlp as MLP
+    from transmogrifai_tpu_torch.impl.classification import naive_bayes as NB
 
     from transmogrifai_tpu_torch.apps import boston, iris, titanic
 
@@ -2062,6 +2334,37 @@ def main(argv=None):
                        "weighted_gram_newton": newton_launches["weighted_gram"],
                        "weighted_gram_ridge": ridge_launches["weighted_gram"],
                        "forest_leaf_mean_t300": boost_launches["forest_leaf_mean"]}
+    del boost_calls, newton_calls, ridge_calls
+
+    # 25-28. the binary selector's other families: the fixture's trains, both
+    # routes at scale, the kernels
+    families_reference_phase(torch, titanic, iris, FX)
+    tree_kernels = (Tr.bin_rows, Tr.ensemble_walk, Tr.level_hist, Tr.split_scan, Tr.route_rows)
+    family_kernels = (L.svc_grad, MLP.mlp_grad, MLP.mlp_forward)
+
+    def families_train(space):
+        return lambda: titanic.train_titanic(
+            titanic.titanic_data(args.train_rows, args.seed), device="cuda",
+            models_and_parameters=sp["titanic_families_" + space])
+
+    a_launches, _, _ = scale_train_phase(
+        torch, "families_a_train", families_train("a"),
+        family_kernels + tree_kernels + (NB.nb_tables_mass, NB.nb_tables_score),
+        ("svc_grad", "mlp_grad", "mlp_forward", "nb_tables_mass", "nb_tables_score",
+         "level_hist", "split_scan", "route_rows"),
+        lambda m: families_check(m, "a"), sweep=False)
+    b_launches, b_calls, _ = scale_train_phase(
+        torch, "families_b_train", families_train("b"),
+        family_kernels + tree_kernels + (Tr.forest_leaf_mean, M.binary_metrics),
+        ("svc_grad", "mlp_grad", "mlp_forward", "level_hist", "split_scan", "route_rows",
+         "forest_leaf_mean", "binary_metrics"),
+        lambda m: families_check(m, "b"))
+    families_records = families_kernel_phase(torch, b_calls, timer)
+    families_launches = {"svc_grad": b_launches["svc_grad"], "mlp_grad": b_launches["mlp_grad"],
+                         "mlp_forward": b_launches["mlp_forward"],
+                         "nb_tables_mass": a_launches["nb_tables_mass"],
+                         "nb_tables_score": a_launches["nb_tables_score"]}
+    del b_calls
 
     for r in records:
         r["launches"] = launches[r["name"]]
@@ -2073,7 +2376,9 @@ def main(argv=None):
         r["launches"] = iris_launches[r["name"].replace("_c3", "")]
     for r in slice6_records:
         r["launches"] = slice6_launches[r["name"]]
-    records += train_records + boston_records + iris_records + slice6_records
+    for r in families_records:
+        r["launches"] = families_launches[r["name"]]
+    records += train_records + boston_records + iris_records + slice6_records + families_records
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in records]}), flush=True)

@@ -170,7 +170,7 @@ def test_boost_step_matches_plain(dev):
     g1, g2 = torch.empty((T, n, 2), device=dev), torch.empty((T, n, 2), device=dev)
     _counted(Tr.boost_step, lambda: Tr.boost_step(F1, y, w, eta, leaf, node, g1))
     Tr.boost_step_plain(F2, y, w, eta, leaf, node, g2)
-    assert torch.equal(F1, F2)  # the update is two correctly rounded operations
+    assert torch.equal(F1, F2)  # the update is one fused multiply-add in both
     # expf of libdevice and of the host may differ by an ulp
     torch.testing.assert_close(g1, g2, rtol=1e-6, atol=2e-7)
 
@@ -540,3 +540,89 @@ def test_binary_metrics_matches_plain_on_nan_scores(dev):
     got = _counted(M.binary_metrics, lambda: M.binary_metrics(ss, order, y, vm, strict, C))
     assert torch.equal(got, M.binary_metrics_plain(ss, order, y, vm, strict, C))
     assert torch.equal(got[0, :2].cpu(), torch.tensor([0.5, 0.0]))
+
+
+# ---------------------------------------------------------------------------
+# the binary selector's other families: K-T svc_grad, K-U mlp_grad /
+# mlp_forward, K-V nb_tables_mass / nb_tables_score
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("n,p,C,F", [(1, 3, 1, 1), (235930, 11, 4, 1), (30000, 17, 12, 3),
+                                     (5000, 40, 3, 1), (7000, 64, 5, 2)])
+def test_svc_grad_matches_plain(dev, n, p, C, F):
+    from transmogrifai_tpu_torch.ops import linear as L
+
+    rng = np.random.default_rng(n + p)
+    X1 = np.concatenate([rng.normal(size=(n, p - 1)) * 3, np.ones((n, 1))],
+                        1).astype(np.float32)
+    y = (rng.random(n) < 0.4).astype(np.float32)
+    w = rng.integers(0, 3, size=(F, n)).astype(np.float32)
+    fold = (np.arange(C) % F).astype(np.int32)
+    z = (rng.normal(size=(C, p)) * 0.2).astype(np.float32)
+    l2v = np.full((C, p), 0.01, np.float32)
+    wsum = np.maximum(w.sum(1), 1e-12)[fold].astype(np.float32)
+    ts = [torch.from_numpy(a).to(dev) for a in (X1, y, w, fold, z, l2v, wsum)]
+    got = _counted(L.svc_grad, lambda: L.svc_grad(*ts))
+    want = L.svc_grad_plain(*ts)
+    assert torch.equal(got, L.svc_grad(*ts))  # a fixed order: repeats
+    # float64 sums in both (the hinge's float32 margins in other orders)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6 * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("layers,n,C,F", [((10, 10, 2), 235930, 1, 1), ((4, 10, 3), 150, 3, 3),
+                                          ((128, 64, 64, 8), 3001, 2, 2), ((5, 2), 77, 1, 1)])
+def test_mlp_kernels_match_plain(dev, layers, n, C, F):
+    from transmogrifai_tpu_torch.ops import mlp as M
+
+    rng = np.random.default_rng(n)
+    k = layers[-1]
+    X = torch.from_numpy((rng.normal(size=(n, layers[0])) * 2).astype(np.float32)).to(dev)
+    y = torch.from_numpy(rng.integers(0, k, n).astype(np.float32)).to(dev)
+    w = torch.from_numpy(rng.integers(0, 3, size=(F, n)).astype(np.float32)).to(dev)
+    fold = torch.arange(C, dtype=torch.int32, device=dev) % F
+    wsum = torch.clamp_min(w.sum(1), 1e-12)[fold.long()].contiguous()
+    params = torch.stack([M.flatten(M.init_params(s, layers, dev)) for s in range(C)])
+    params = params + torch.from_numpy(
+        (rng.normal(size=tuple(params.shape)) * 0.1).astype(np.float32)).to(dev)
+    g1 = _counted(M.mlp_grad, lambda: M.mlp_grad(X, y, w, fold, wsum, params, layers))
+    g2 = M.mlp_grad_plain(X, y, w, fold, wsum, params, layers)
+    assert torch.equal(g1, M.mlp_grad(X, y, w, fold, wsum, params, layers))
+    torch.testing.assert_close(g1, g2, rtol=1e-4, atol=1e-6 * float(g2.abs().max()))
+    (z1, p1) = _counted(M.mlp_forward, lambda: M.mlp_forward(X, params, layers))
+    z2, p2 = M.mlp_forward_plain(X, params, layers)
+    torch.testing.assert_close(z1, z2, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(p1, p2, rtol=0, atol=1e-6)
+
+
+def test_mlp_refuses_what_it_cannot_take(dev):
+    from transmogrifai_tpu_torch.ops import mlp as M
+
+    layers = (4, 65, 2)
+    X = torch.zeros((10, 4), device=dev)
+    params = torch.zeros((1, M.param_count(layers)), device=dev)
+    with pytest.raises(NotImplementedError, match="width"):
+        M.mlp_forward(X, params, layers)
+
+
+@pytest.mark.parametrize("n,d,k,F,Q", [(1, 1, 2, 1, 1), (235930, 10, 2, 1, 1),
+                                       (20000, 256, 8, 3, 6), (5000, 7, 3, 3, 9)])
+def test_nb_tables_match_plain(dev, n, d, k, F, Q):
+    from transmogrifai_tpu_torch.impl.classification import naive_bayes as NB
+
+    rng = np.random.default_rng(n + d)
+    X = np.concatenate([rng.integers(0, 2, (n, d // 2)),
+                        rng.uniform(0, 80, (n, d - d // 2))], 1).astype(np.float32)
+    Xd = torch.from_numpy(X).to(dev)
+    y = torch.from_numpy(rng.integers(0, k, n).astype(np.float32)).to(dev)
+    w = torch.from_numpy(rng.integers(0, 3, size=(F, n)).astype(np.float32)).to(dev)
+    c1, f1 = _counted(NB.nb_tables_mass, lambda: NB.nb_tables_mass(Xd, y, w, k))
+    c2, f2 = NB.nb_tables_mass_plain(Xd, y, w, k)
+    assert torch.equal(c1, c2)
+    # float64 sums of exact products in two orders, each rounded once
+    torch.testing.assert_close(f1, f2, rtol=2.4e-7, atol=0)
+    pi = torch.from_numpy(rng.normal(size=(Q, k)).astype(np.float32)).to(dev)
+    th = torch.from_numpy(-rng.random((Q, k, d)).astype(np.float32)).to(dev)
+    tn = torch.from_numpy(-rng.random((Q, k, d)).astype(np.float32)).to(dev)
+    for neg in (None, tn):
+        z1 = _counted(NB.nb_tables_score, lambda: NB.nb_tables_score(Xd, pi, th, neg))
+        z2 = NB.nb_tables_score_plain(Xd, pi, th, neg)
+        torch.testing.assert_close(z1, z2, rtol=2.4e-7, atol=1e-6)

@@ -24,6 +24,7 @@ and through the plain PyTorch versions of the port's kernels
   bit-equal; moments and label correlations within 1e-12 (float64, in
   another summation order); the float32 correlation matrix within 2e-6.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -237,9 +238,12 @@ def test_boost_step_matches_jax_grad_hess():
     Ft, ghw = torch.from_numpy(F.copy()), torch.empty((T, n, 2))
     PT.boost_step(Ft, torch.from_numpy(y), torch.from_numpy(w), torch.from_numpy(eta),
                   torch.from_numpy(leaf), torch.from_numpy(node), ghw)
+    # the reference's update as XLA compiles it inside its boosting program:
+    # one fused multiply-add
+    update = jax.jit(lambda F, leaf, node, eta: F + eta * leaf[node][:, None])
     for t in range(T):
-        lv = jnp.asarray(leaf[t])[jnp.asarray(node[t])][:, None]
-        Fj = jnp.asarray(F[t][:, None]) + eta[t] * lv
+        Fj = update(jnp.asarray(F[t][:, None]), jnp.asarray(leaf[t]), jnp.asarray(node[t]),
+                    eta[t])
         np.testing.assert_array_equal(Ft[t].numpy(), np.asarray(Fj)[:, 0])
         g, h = JT._grad_hess("logistic", Fj, jnp.asarray(y), None)
         np.testing.assert_allclose(ghw[t, :, 0].numpy(), np.asarray(g)[:, 0] * w[t],

@@ -7,11 +7,12 @@ real measurements vectorized (each with its null indicator) and a
 multiclass selector's stock space (multinomial logistic regression and
 random forest: 26 candidates) for the indexed species label.  The data is
 the JAX package's synthetic frame, as numpy columns; ``iris_data(n, seed)``
-draws larger frames of the same schema by the same formula.
+draws larger frames of the same schema by the same formula; ``mlp_space``
+is the one-MLP space.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -59,6 +60,14 @@ def build_workflow(model_types: Optional[Sequence[str]] = None,
         model_types=model_types, models_and_parameters=models_and_parameters, **kw,
     ).set_input(label, features).get_output()
     return OpWorkflow().set_result_features(pred), pred
+
+
+def mlp_space() -> List[Tuple[Any, List[Dict[str, Any]]]]:
+    """The default MLP as a ``models_and_parameters`` space: one multiclass
+    "mlp" fragment over the three species."""
+    from ..impl.classification.mlp import OpMultilayerPerceptronClassifier
+
+    return [(OpMultilayerPerceptronClassifier(), [{}])]
 
 
 def train_iris(frame: Optional[Dict[str, np.ndarray]] = None, device=None, **selector_kw):

@@ -7,11 +7,13 @@ pivot / smart-vectorize / combine, the sanity check, and a
 ``BinaryClassificationModelSelector`` cross-validated sweep.  The data is
 the JAX package's synthetic Titanic frame, as numpy columns (the port has
 no pandas outside the reader's DataFrame branch); ``titanic_data(n, seed)``
-draws larger frames of the same schema with the same label rule.
+draws larger frames of the same schema with the same label rule;
+``families_space`` is the space of the binary selector's other families
+(LinearSVC, NaiveBayes, DecisionTree, MLP).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -64,6 +66,25 @@ def build_workflow(model_types: Optional[Sequence[str]] = None,
         models_and_parameters=models_and_parameters,
     ).set_input(survived, checked).get_output()
     return OpWorkflow().set_result_features(pred), pred
+
+
+def families_space(naive_bayes: bool = True) -> List[Tuple[Any, List[Dict[str, Any]]]]:
+    """The binary selector's other families as a ``models_and_parameters``
+    space: LinearSVC x ``linear_svc_grid()`` (4), NaiveBayes x
+    ``naive_bayes_grid()`` (1), DecisionTree x ``decision_tree_grid()`` (18)
+    and the default MLP (1): 24 candidates.  Naive Bayes is not a fused
+    family, so this space trains on the per-family sweep; without it (23
+    candidates) on the fused one."""
+    from ..impl.classification.mlp import OpMultilayerPerceptronClassifier
+    from ..impl.classification.naive_bayes import OpNaiveBayes
+    from ..impl.classification.svc import OpLinearSVC
+    from ..impl.classification.trees import OpDecisionTreeClassifier
+    from ..impl.selector import defaults as D
+
+    return ([(OpLinearSVC(), D.linear_svc_grid())]
+            + ([(OpNaiveBayes(), D.naive_bayes_grid())] if naive_bayes else [])
+            + [(OpDecisionTreeClassifier(), D.decision_tree_grid()),
+               (OpMultilayerPerceptronClassifier(), [{}])])
 
 
 def train_titanic(cols: Optional[Dict[str, np.ndarray]] = None, device=None, **kw):

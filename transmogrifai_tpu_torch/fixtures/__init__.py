@@ -61,13 +61,27 @@ form), 256 requests and the JAX package's predictions, and ``sweep.npz``:
 the sweep call's metrics [1, 3, 5, 4].
 ``tests/test_torch_boston_ridge_slice.py --write`` regenerates it.
 
+``titanic_families/`` holds the Titanic workflow's models over the binary
+selector's other families (``apps/titanic.families_space``): ``space_a/``,
+the JAX-saved winner of the 24-candidate space (LinearSVC x 4, NaiveBayes
+x 1, DecisionTree x 18, MLP x 1; the per-family sweep, since naive Bayes
+is not fused; the winner is naive Bayes), and ``space_b/``, the winner of
+the same space without naive Bayes (23 candidates, one fused sweep per
+workflow-level fold; the winner is the MLP); 256 request records and the
+JAX package's answers for both winners (``expected.npz``: ``a_*`` and
+``b_*`` prediction, probability, rawPrediction); and ``sweep.npz``: space
+B's three fused-sweep calls' metrics [3, 1, 23, 6] (``b_metrics``) and the
+Iris flow's one-MLP space's sweep metrics [1, 3, 1, 4]
+(``iris_mlp_metrics``).  Space A's fold metrics are in its saved summary.
+``tests/test_torch_families_slice.py --write`` regenerates it.
+
 Strings with nulls are stored as a unicode array plus ``<name>__null``, so
 the files load without pickles.
 """
 from __future__ import annotations
 
 import os
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -78,6 +92,8 @@ IRIS_STOCK = os.path.join(os.path.dirname(os.path.abspath(__file__)), "iris_stoc
 IRIS_BOOST = os.path.join(os.path.dirname(os.path.abspath(__file__)), "iris_boost")
 TITANIC_NEWTON = os.path.join(os.path.dirname(os.path.abspath(__file__)), "titanic_newton")
 BOSTON_RIDGE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "boston_ridge")
+TITANIC_FAMILIES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                "titanic_families")
 NULL_SUFFIX = "__null"
 
 #: tolerances of the comparison with the JAX package's answers.  Margins are
@@ -516,4 +532,89 @@ def compare_ridge_predictions(pred: np.ndarray, cols: Dict[str, np.ndarray],
     check(bool((err[seen] <= RIDGE_PRED_ATOL + RIDGE_PRED_RTOL * np.abs(expected[seen])).all()),
           out)
     check(bool(np.isfinite(pred).all()), "a ridge prediction is not finite")
+    return out
+
+
+#: fold AuPR of the linear SVC candidates: the evaluator scores the hard
+#: 0/1 prediction, and the coefficients after 200 steps differ from the
+#: reference's in the last bits (float32 sums in another order), which can
+#: flip a row whose margin is within rounding of 0 and move the AuPR by a
+#: step (equal on the CPU)
+SVC_AUPR_TOL = 1e-6
+#: fold AuPR of naive Bayes: the masses of the real columns are correctly
+#: rounded where XLA sums float32 (0/1 columns exact in both; equal on the
+#: CPU)
+NB_AUPR_TOL = 1e-6
+#: fold AuPR of the MLP: 200 full-batch Adam steps amplify the float32
+#: order differences of the gradients (and XLA's own exp): the normalized
+#: step turns a last-bit difference of a small gradient into a difference
+#: of the step, so the parameters drift apart from about step 60 (1.5e-4 on
+#: the CPU)
+MLP_AUPR_TOL = 3e-4
+#: the decision trees are bit-equal (integer weights); on the per-family
+#: path their metrics are too, on the fused path the AuPR's own float32 sum
+#: differs (``RF_AUPR_TOL``)
+FAMILIES_AUPR_TOL = {"OpLinearSVC": SVC_AUPR_TOL, "OpNaiveBayes": NB_AUPR_TOL,
+                     "OpMultilayerPerceptronClassifier": MLP_AUPR_TOL}
+#: probabilities of a families winner on the fixture's requests, against
+#: the JAX package's answers for its own winner: "a" naive Bayes, "b" the
+#: MLP.  The JAX-saved winners score within 4e-6 (naive Bayes) and 2e-7
+#: (MLP) on the CPU, which ``JAX_SAVED_PROB_ATOL`` holds.  A winner the port
+#: refits itself differs by its parameters: naive Bayes by its real
+#: columns' masses (6.0e-5 on the CPU); the MLP by the Adam drift above,
+#: which on the refit's 802 rows grows by about ten times every eight steps
+#: from step 64 (3.7e-6) to step 100 (0.16 in a weight), so its
+#: probabilities move by up to 0.020 on the CPU, its predictions not at all
+FAMILIES_PROB_ATOL = {"a": 2e-4, "b": 0.05}
+JAX_SAVED_PROB_ATOL = 1e-5
+
+
+def check_titanic_families_train(model, space: str) -> Dict[str, Any]:
+    """Hold a Titanic train over the binary selector's other families to the
+    ``titanic_families`` fixture: ``space`` "a" (with naive Bayes: the
+    per-family sweep) or "b" (without: the fused sweep).  The same
+    candidates in the same order and the same winner; each family's fold
+    AuPR within its tolerance (``FAMILIES_AUPR_TOL``), the decision trees'
+    bit for bit on the per-family path and within ``RF_AUPR_TOL`` on the
+    fused one.  Returns the largest gap per family and the winner."""
+    import json
+
+    with open(os.path.join(TITANIC_FAMILIES, "space_" + space, "op_model.json")) as fh:
+        ref = stage_summary(json.load(fh))
+    summ = model.stages[-1].summary
+    _check_order(summ, ref["validationResults"])
+    check(summ.best_model_name == ref["bestModelName"] and summ.best_grid == ref["bestGrid"],
+          f"winner {summ.best_model_name} {summ.best_grid} differs from the fixture's "
+          f"{ref['bestModelName']} {ref['bestGrid']}")
+    tols = dict(FAMILIES_AUPR_TOL,
+                OpDecisionTreeClassifier=0.0 if space == "a" else RF_AUPR_TOL)
+    gaps: Dict[str, float] = {}
+    for mine, theirs in zip(summ.validation_results, ref["validationResults"]):
+        check(mine.get("error") is None, f"{mine['modelName']} failed: {mine.get('error')}")
+        g = max(abs(a - b) for a, b in zip(mine["foldMetrics"], theirs["foldMetrics"]))
+        gaps[mine["modelName"]] = max(gaps.get(mine["modelName"], 0.0), g)
+    for fam, gap in gaps.items():
+        check(gap <= tols[fam], f"{fam} fold AuPR {gap} from the fixture's, above {tols[fam]}")
+    return {"max_gap": gaps, "best": summ.best_model_name, "best_grid": summ.best_grid,
+            "tolerances": tols}
+
+
+def compare_family_answers(expected: Dict[str, np.ndarray], space: str, prediction: np.ndarray,
+                           probability: np.ndarray, tol: Optional[float] = None
+                           ) -> Dict[str, float]:
+    """Gaps of a families winner's answers to the fixture's (``space`` "a"
+    or "b"): the probabilities within ``tol`` (default
+    ``FAMILIES_PROB_ATOL[space]``), the predictions equal off the class
+    boundary (|p1 - p0| above twice that), non-finite answers at the same
+    rows.  Raises AssertionError on a failed check."""
+    ep, eq = expected[space + "_prediction"], expected[space + "_probability"]
+    tol = FAMILIES_PROB_ATOL[space] if tol is None else tol
+    fin = np.isfinite(eq).all(1)
+    check(np.array_equal(fin, np.isfinite(probability).all(1)), "non-finite rows differ")
+    off = fin & (np.abs(eq[:, 1] - eq[:, 0]) > 2 * tol)
+    out = {"probability_max_abs_err": float(np.abs(probability[fin] - eq[fin]).max()),
+           "prediction_mismatches_off_boundary": float(np.sum(prediction[off] != ep[off])),
+           "boundary_rows": int((fin & ~off).sum()), "non_finite_rows": int((~fin).sum())}
+    check(out["probability_max_abs_err"] <= tol, out)
+    check(out["prediction_mismatches_off_boundary"] == 0, out)
     return out

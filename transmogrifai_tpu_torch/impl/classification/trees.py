@@ -13,8 +13,8 @@ forests on k -onehot channels with class-distribution leaves; and the
 boosted models (GBT, XGBoost) with the logistic loss, or the softmax loss
 over k class margins (multi-output trees, a leaf vector per class),
 through ``ops/trees.fit_gbt`` (``fit_arrays``) and the fold x grid sweep
-``boosted_grid_folds`` (``fit_grid_folds``).  The decision tree's fit is
-not ported.
+``boosted_grid_folds`` (``fit_grid_folds``); the decision tree as a
+one-tree forest, unbagged and on every feature.
 """
 from __future__ import annotations
 
@@ -135,13 +135,42 @@ class OpRandomForestClassifier(_TreeClassifierBase):
 
 
 class OpDecisionTreeClassifier(OpRandomForestClassifier):
-    """Single gini tree (a one-tree forest); prediction only."""
+    """Single gini tree: a one-tree forest, unbagged, on every feature."""
 
-    def fit_arrays(self, X, y, w=None):
-        raise NotImplementedError("OpDecisionTreeClassifier's fit is not ported")
+    #: the fold x grid sweep grows the same unbagged tree ``fit_arrays`` does
+    _grid_bootstrap = False
 
-    def fit_grid_folds(self, X, y, train_w, grids):
-        raise NotImplementedError("OpDecisionTreeClassifier's fit is not ported")
+    def __init__(self, max_depth: int = 5, max_bins: int = 32,
+                 min_instances_per_node: int = 1, min_info_gain: float = 0.0,
+                 impurity: str = "gini", seed: int = 42, uid: Optional[str] = None, **extra):
+        # fixed by construction: dropped where copy_with_params passes them back
+        for k in ("num_trees", "feature_subset_strategy", "subsampling_rate", "impurity"):
+            extra.pop(k, None)
+        super().__init__(num_trees=1, max_depth=max_depth, max_bins=max_bins,
+                         min_instances_per_node=min_instances_per_node,
+                         min_info_gain=min_info_gain, subsampling_rate=1.0,
+                         feature_subset_strategy="all", impurity=impurity, seed=seed, uid=uid,
+                         **extra)
+        self.operation_name = "OpDecisionTreeClassifier"
+
+    def fit_arrays(self, X, y: np.ndarray, w: Optional[np.ndarray] = None) -> Dict[str, Any]:
+        X = as_matrix(X, stage_device(self))
+        dev = X.device
+        n, d = X.shape
+        k = self._n_classes(y)
+        n_bins = int(self.get_param("max_bins", 32))
+        depth = int(self.get_param("max_depth", 5))
+        Xb, edges = Tr.quantize(X, n_bins)
+        sw = np.ones(n, np.float32) if w is None else np.asarray(w, np.float32)
+        mcw = float(self.get_param("min_instances_per_node", 1))
+        forest = Tr.fit_forest(Xb, torch.from_numpy(self._class_grads(y, k)).to(dev),
+                               torch.ones(n, device=dev), torch.from_numpy(sw).to(dev)[None],
+                               torch.ones((1, d), device=dev), max_depth=depth, n_bins=n_bins,
+                               frontier=self._frontier(n, depth, mcw, 1.0),
+                               min_child_weight=mcw,
+                               min_info_gain=float(self.get_param("min_info_gain", 0.0)))
+        forest = self._expand_binary_leaves(forest, k)
+        return tree_params(forest, edges=edges, max_depth=depth, num_classes=k, num_trees=1)
 
 
 class _BoostedClassifierBase(_TreeClassifierBase):

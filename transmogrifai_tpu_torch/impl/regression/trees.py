@@ -1,7 +1,8 @@
-"""Tree-ensemble regressors: RandomForest / GBT / XGBoost.
+"""Tree-ensemble regressors: RandomForest / DecisionTree / GBT / XGBoost.
 
 The port's counterpart of ``transmogrifai_tpu/impl/regression/trees.py``
-(reference: OpRandomForestRegressor, OpGBTRegressor, OpXGBoostRegressor).
+(reference: OpRandomForestRegressor, OpDecisionTreeRegressor, OpGBTRegressor,
+OpXGBoostRegressor).
 The classifiers' kernels serve: variance-impurity splits are the
 second-order gain with g = -y, h = 1 (the forests) or the squared loss's
 g = F - y, h = 1 (boosting, from the weighted label mean).  Prediction bins
@@ -11,7 +12,8 @@ sum`` of the boosted trees, in float64 on the host.  Fitting: the forest
 (``ops/trees.fit_forest`` on the JAX package's bootstrap and feature draws,
 and the fold x grid sweep ``forest_grid_folds``) and the boosted models
 (``ops/trees.fit_gbt`` with the squared loss, and ``boosted_grid_folds``
-from each fold's label mean).  The decision-tree regressor is not ported.
+from each fold's label mean); the decision tree as a one-tree forest,
+unbagged and on every feature.
 """
 from __future__ import annotations
 
@@ -96,6 +98,42 @@ class OpRandomForestRegressor(_TreeRegressorBase):
         Xb = Tr.bin_with_edges(X, dparams["edges"])
         pred = Tr.predict_forest(Xb, dparams["tree"], int(dparams["max_depth"]))[:, 0]
         return pred.cpu().numpy().astype(np.float64), None, None
+
+
+class OpDecisionTreeRegressor(OpRandomForestRegressor):
+    """Single variance tree: a one-tree forest, unbagged, on every feature."""
+
+    #: the fold x grid sweep grows the same unbagged tree ``fit_arrays`` does
+    _grid_bootstrap = False
+
+    def __init__(self, max_depth: int = 5, max_bins: int = 32,
+                 min_instances_per_node: int = 1, min_info_gain: float = 0.0,
+                 seed: int = 42, uid: Optional[str] = None, **extra):
+        # fixed by construction: dropped where copy_with_params passes them back
+        for k in ("num_trees", "feature_subset_strategy", "subsampling_rate", "impurity"):
+            extra.pop(k, None)
+        super().__init__(num_trees=1, max_depth=max_depth, max_bins=max_bins,
+                         min_instances_per_node=min_instances_per_node,
+                         min_info_gain=min_info_gain, feature_subset_strategy="all",
+                         seed=seed, uid=uid, **extra)
+        self.operation_name = "OpDecisionTreeRegressor"
+
+    def fit_arrays(self, X, y: np.ndarray, w: Optional[np.ndarray] = None) -> Dict[str, Any]:
+        X = as_matrix(X, stage_device(self))
+        dev = X.device
+        n, d = X.shape
+        n_bins = int(self.get_param("max_bins", 32))
+        depth = int(self.get_param("max_depth", 5))
+        Xb, edges = Tr.quantize(X, n_bins)
+        sw = np.ones(n, np.float32) if w is None else np.asarray(w, np.float32)
+        g = torch.from_numpy(-np.asarray(y, np.float32)[:, None]).to(dev)
+        mcw = float(self.get_param("min_instances_per_node", 1))
+        forest = Tr.fit_forest(Xb, g, torch.ones(n, device=dev),
+                               torch.from_numpy(sw).to(dev)[None], torch.ones((1, d), device=dev),
+                               max_depth=depth, n_bins=n_bins,
+                               frontier=self._frontier(n, depth, mcw), min_child_weight=mcw,
+                               min_info_gain=float(self.get_param("min_info_gain", 0.0)))
+        return tree_params(forest, edges=edges, max_depth=depth)
 
 
 class _BoostedRegressorBase(_TreeRegressorBase):

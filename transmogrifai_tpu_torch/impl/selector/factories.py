@@ -11,7 +11,8 @@ logistic regression (8 candidates), random forest (18) and XGBoost (2);
 for the multiclass selector logistic regression (8, multinomial) and
 random forest (18); for the regression selector linear regression (8),
 random forest (18) and GBT (18); ``model_types`` keeps the named families
-of them.
+of them.  Every family the port fits is importable from here, as from the
+JAX package's module, for ``models_and_parameters``.
 """
 from __future__ import annotations
 
@@ -20,13 +21,25 @@ from typing import Any, Dict, Optional, Sequence, Tuple
 from ...evaluators import Evaluators
 from ...evaluators.base import OpEvaluatorBase
 from ..classification.logistic import OpLogisticRegression
-from ..classification.trees import OpRandomForestClassifier, OpXGBoostClassifier
+from ..classification.mlp import OpMultilayerPerceptronClassifier
+from ..classification.naive_bayes import OpNaiveBayes
+from ..classification.svc import OpLinearSVC
+from ..classification.trees import (OpDecisionTreeClassifier, OpGBTClassifier,
+                                    OpRandomForestClassifier, OpXGBoostClassifier)
 from ..regression.linear import OpLinearRegression
-from ..regression.trees import OpGBTRegressor, OpRandomForestRegressor
+from ..regression.trees import (OpDecisionTreeRegressor, OpGBTRegressor,
+                                OpRandomForestRegressor, OpXGBoostRegressor)
 from ..tuning.splitters import DataBalancer, DataCutter, DataSplitter, Splitter
 from ..tuning.validators import DEFAULT_NUM_FOLDS, OpCrossValidation
 from . import defaults as D
 from .model_selector import ModelSelector
+
+__all__ = ["BinaryClassificationModelSelector", "MultiClassificationModelSelector",
+           "RegressionModelSelector", "OpLogisticRegression", "OpLinearSVC", "OpNaiveBayes",
+           "OpMultilayerPerceptronClassifier", "OpDecisionTreeClassifier",
+           "OpRandomForestClassifier", "OpGBTClassifier", "OpXGBoostClassifier",
+           "OpLinearRegression", "OpDecisionTreeRegressor", "OpRandomForestRegressor",
+           "OpGBTRegressor", "OpXGBoostRegressor"]
 
 Candidates = Sequence[Tuple[Any, Sequence[Dict[str, Any]]]]
 

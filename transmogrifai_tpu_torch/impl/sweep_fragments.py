@@ -6,19 +6,24 @@ static spec fragment and its hyperparameters in the float32 ``blob``, for
 ``ops/sweep.run_sweep``; the spec tuple is the JAX package's for the same
 inputs.  Ported for the binary problem: OpLogisticRegression (its
 pure-L2 candidates: the "newton" fragment; its elastic-net candidates: the
-"fista" fragment), OpRandomForestClassifier ("forest"), OpGBTClassifier
-and OpXGBoostClassifier ("gbt", logistic); for the regression problem:
-OpLinearRegression (every candidate: "fista"), OpRandomForestRegressor
-("forest", mean leaves), OpGBTRegressor and OpXGBoostRegressor ("gbt",
-squared, from each fold's label mean); for the multiclass problem
-(``("multiclass", k)``, 3 <= k <= 8, the multiclass evaluator):
-OpLogisticRegression (every candidate a softmax fit: "fista"),
-OpRandomForestClassifier ("forest" with k class-distribution channels),
-OpGBTClassifier and OpXGBoostClassifier ("gbt", softmax over k class
-margins).  Any other family, another evaluator, a binary evaluator over a
-non-binary label or a multiclass score block above the JAX package's
-2e9-byte guard returns None, as the JAX package returns None for what it
-cannot fuse, and the validator keeps its per-family path.  The multiclass
+"fista" fragment), OpLinearSVC ("svc"), OpMultilayerPerceptronClassifier
+("mlp", p(class 1)), OpRandomForestClassifier and OpDecisionTreeClassifier
+("forest"; a decision tree is a one-tree forest, unbagged and on every
+feature), OpGBTClassifier and OpXGBoostClassifier ("gbt", logistic); for the
+regression problem: OpLinearRegression (every candidate: "fista"),
+OpRandomForestRegressor and OpDecisionTreeRegressor ("forest", mean
+leaves), OpGBTRegressor and OpXGBoostRegressor ("gbt", squared, from each
+fold's label mean); for the multiclass problem (``("multiclass", k)``, 3 <=
+k <= 8, the multiclass evaluator): OpLogisticRegression (every candidate a
+softmax fit: "fista"), OpMultilayerPerceptronClassifier ("mlp", the k class
+probabilities), OpRandomForestClassifier and OpDecisionTreeClassifier
+("forest" with k class-distribution channels), OpGBTClassifier and
+OpXGBoostClassifier ("gbt", softmax over k class margins).  Naive Bayes is
+not a fused family in either package.  Any other family, another
+evaluator, a binary evaluator over a non-binary label or a multiclass score
+block above the JAX package's 2e9-byte guard returns None, as the JAX
+package returns None for what it cannot fuse, and the validator keeps its
+per-family path.  The multiclass
 evaluator over two classes raises.  The partitioning for several
 devices (``spec_units``, ``build_subspec``, ``run_sharded``,
 ``run_rowsharded``) is not ported.
@@ -188,6 +193,41 @@ def _linreg_fragments(est, grids, pos: int, blob: _Blob) -> Optional[List]:
     return None if pen is None else _fista_fragment(est, pos, blob, *pen, min_iter=300)
 
 
+def _svc_fragments(est, grids, pos: int, blob: _Blob) -> Optional[List]:
+    """Every linear SVC candidate is one squared-hinge fit of at least 200
+    steps (``reg_param`` is the only grid key)."""
+    for g in grids:
+        for k in g:
+            if k != "reg_param":
+                return None
+    l2 = [float(g.get("reg_param", est.get_param("reg_param", 0.0))) for g in grids]
+    cis = tuple(range(pos, pos + len(grids)))
+    return [("svc", cis, max(int(est.get_param("max_iter", 100)), 200),
+             bool(est.get_param("fit_intercept", True)), blob.add(l2))]
+
+
+def _mlp_fragments(est, grids, pos: int, blob: _Blob, d: int,
+                   n_classes: int = 2) -> Optional[List]:
+    """One "mlp" fragment per (hidden_layers, max_iter) group; the step sizes
+    and the init seeds (as float32) in the blob."""
+    for g in grids:
+        for k in g:
+            if k not in ("hidden_layers", "max_iter", "step_size", "seed"):
+                return None
+    cands = [est.copy_with_params(dict(g)) for g in grids]
+    groups: Dict[tuple, List[int]] = {}
+    for i, c in enumerate(cands):
+        hl = tuple(int(h) for h in c.get_param("hidden_layers", (10,)))
+        groups.setdefault((hl, int(c.get_param("max_iter", 200))), []).append(i)
+    frags = []
+    for (hl, mi), idxs in groups.items():
+        lrs = [float(cands[i].get_param("step_size", 0.03)) for i in idxs]
+        seeds = [float(int(cands[i].get_param("seed", 42))) for i in idxs]
+        frags.append(("mlp", tuple(int(pos + i) for i in idxs), (d,) + hl + (n_classes,), mi,
+                      blob.add(lrs), blob.add(seeds)))
+    return frags
+
+
 def _forest_fragment(est, grids, pos: int, blob: _Blob, xbs, X, train_w,
                      xb_cache, n_classes: int = 1) -> Optional[List]:
     for g in grids:
@@ -293,18 +333,24 @@ def build_sweep_plan(candidates: Sequence[Tuple[Any, Sequence[Dict[str, Any]]]],
                                              OpMultiClassificationEvaluator)
     from ..evaluators.regression import OpRegressionEvaluator
     from .classification.logistic import OpLogisticRegression
-    from .classification.trees import (OpGBTClassifier, OpRandomForestClassifier,
-                                       OpXGBoostClassifier)
+    from .classification.mlp import OpMultilayerPerceptronClassifier
+    from .classification.svc import OpLinearSVC
+    from .classification.trees import (OpDecisionTreeClassifier, OpGBTClassifier,
+                                       OpRandomForestClassifier, OpXGBoostClassifier)
     from .regression.linear import OpLinearRegression
-    from .regression.trees import OpGBTRegressor, OpRandomForestRegressor, OpXGBoostRegressor
+    from .regression.trees import (OpDecisionTreeRegressor, OpGBTRegressor,
+                                   OpRandomForestRegressor, OpXGBoostRegressor)
 
-    # exact types only: a subclass may override the fit or the prediction
+    # exact types only: a subclass may override the fit or the prediction (the
+    # decision trees are named although they subclass the forests)
     families = {
-        "binary": (OpLogisticRegression, OpRandomForestClassifier, OpGBTClassifier,
+        "binary": (OpLogisticRegression, OpLinearSVC, OpMultilayerPerceptronClassifier,
+                   OpRandomForestClassifier, OpDecisionTreeClassifier, OpGBTClassifier,
                    OpXGBoostClassifier),
-        "regression": (OpLinearRegression, OpRandomForestRegressor, OpGBTRegressor,
-                       OpXGBoostRegressor),
-        "multiclass": (OpLogisticRegression, OpRandomForestClassifier, OpGBTClassifier,
+        "regression": (OpLinearRegression, OpRandomForestRegressor, OpDecisionTreeRegressor,
+                       OpGBTRegressor, OpXGBoostRegressor),
+        "multiclass": (OpLogisticRegression, OpMultilayerPerceptronClassifier,
+                       OpRandomForestClassifier, OpDecisionTreeClassifier, OpGBTClassifier,
                        OpXGBoostClassifier)}
     yv = np.asarray(y)
     binary = bool(np.isin(yv, (0.0, 1.0)).all()) and len(np.unique(yv)) == 2
@@ -353,6 +399,12 @@ def build_sweep_plan(candidates: Sequence[Tuple[Any, Sequence[Dict[str, Any]]]],
                   else _lr_fragments(est, grids, pos, blob, yv))
         elif isinstance(est, OpLinearRegression):
             fr = _linreg_fragments(est, grids, pos, blob)
+        elif isinstance(est, OpLinearSVC):
+            fr = _svc_fragments(est, grids, pos, blob)  # a 0/1 score: >= 0.5 is z >= 0
+        elif isinstance(est, OpMultilayerPerceptronClassifier):
+            fr = _mlp_fragments(est, grids, pos, blob, X.shape[1], max(n_classes, 2))
+            if problem == "binary":
+                s = 1  # argmax(prob) ties to class 0 => p > 0.5
         elif isinstance(est, (OpRandomForestClassifier, OpRandomForestRegressor)):
             fr = _forest_fragment(est, grids, pos, blob, xbs, X, train_w, xb_cache, n_classes)
             if problem == "binary":

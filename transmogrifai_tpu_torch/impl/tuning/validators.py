@@ -29,6 +29,7 @@ from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import logging
+import time
 
 import numpy as np
 import torch
@@ -220,10 +221,13 @@ class OpValidator:
     def _family_sweep(self, candidates, X, y, train_w, val_mask, summary) -> None:
         """The per-family sweep: one ``fit_grid_folds`` per family (a family
         without one fits candidate by candidate), metrics on the validation
-        rows of every fold; a failed candidate is recorded and skipped."""
+        rows of every fold; a failed candidate is recorded and skipped.  Each
+        family's host seconds (synchronized with the device) go to
+        ``sweep_timings`` under its class name."""
         bad = -np.inf if self.evaluator.is_larger_better else np.inf
         for est, grids in candidates:
             grids = list(grids) or [{}]
+            t0 = time.perf_counter()
             try:
                 preds = est.fit_grid_folds(X, y, train_w, grids)
             except NotImplementedError:  # no batched fit for these grids
@@ -259,6 +263,11 @@ class OpValidator:
                     model_type=type(est).__name__, grid=dict(grid),
                     metric_name=self.evaluator.default_metric,
                     fold_metrics=fold_metrics, metric_value=value, error=err))
+            if isinstance(X, torch.Tensor) and X.is_cuda:
+                torch.cuda.synchronize(X.device)
+            name = type(est).__name__
+            self.sweep_timings[name] = (self.sweep_timings.get(name, 0.0)
+                                        + time.perf_counter() - t0)
 
 
 def _chunk_candidates(candidates, max_cands: int):

@@ -30,7 +30,8 @@ CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
 BUILD_DIR = os.path.join(CSRC, "build")
 SOURCES: Tuple[str, ...] = ("bin_rows", "ensemble_walk", "level_hist", "split_scan",
                              "route_rows", "col_stats", "fista", "binary_metrics",
-                             "regression_metrics", "multiclass_metrics", "weighted_gram")
+                             "regression_metrics", "multiclass_metrics", "weighted_gram",
+                             "svc", "mlp", "naive_bayes")
 NVCC_FLAGS: Tuple[str, ...] = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")

@@ -9,7 +9,7 @@ proximal gradient, a fixed iteration count); ``fit_logistic_newton`` and
 logistic fits, a fixed step count); ``fit_ridge`` and
 ``fit_ridge_grid_folds`` (the closed-form ridge fits);
 ``predict_binary_logistic``, ``predict_softmax``, ``predict_softmax_grid``
-and ``predict_linear``.  Four hand-written kernels carry the solvers; three
+and ``predict_linear``.  Five hand-written kernels carry the solvers; three
 are in one CUDA source (``csrc/fista.cu``):
 
 - ``fista_grad`` (K-K) replaces the gradient of ``fit_logistic_fista``'s
@@ -21,6 +21,12 @@ are in one CUDA source (``csrc/fista.cu``):
   body, a matrix of coefficients [p, k] per fit:
   ``X1^T (w * (softmax(X1 B) - Y)) / sum(w) + l2 * B`` with Y the one-hot
   labels;
+
+``svc_grad`` (K-T, ``csrc/svc.cu``) replaces the gradient of
+``fit_linear_svc``'s body (the squared hinge):
+``X1^T (w * (-2 ypm max(1 - ypm X1 z, 0))) / sum(w) + l2 * z`` with ``ypm
+= 2 y - 1``, the fits' accelerated gradient steps sharing FISTA's loop (no
+L1 term: the threshold is 0);
 
 and ``weighted_gram`` (K-S, ``csrc/weighted_gram.cu``) forms the weighted
 Gram matrix and moment vector of every Newton step (``X1^T diag(w mu (1 -
@@ -35,7 +41,7 @@ for why float64; no singularity check), each result rounded to float32.  The wra
 the plain version only for tensors on the CPU; for CUDA tensors they
 launch the kernel or raise ``KernelError``; ``<wrapper>.launches`` counts
 their launches.  Predictions are plain products: ``torch.matmul`` in full
-float32 (see ``utils/device.apply_f32_policy``).  The SVC fits are not
+float32 (see ``utils/device.apply_f32_policy``).  The GLM fits are not
 ported.
 """
 from __future__ import annotations
@@ -253,6 +259,56 @@ softmax_fista_grad.launches = 0
 
 
 # ---------------------------------------------------------------------------
+# K-T svc_grad
+# ---------------------------------------------------------------------------
+def svc_grad_plain(X1: torch.Tensor, y: torch.Tensor, w: torch.Tensor, fold: torch.Tensor,
+                   z: torch.Tensor, l2v: torch.Tensor, wsum: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of K-T: the hinge residuals in float32, the
+    product with X1 summed in float64 and rounded once, as the kernel's."""
+    ypm = 2.0 * y - 1.0
+    active = torch.clamp_min(1.0 - ypm * (z @ X1.T), 0.0)                     # [C, n]
+    r = w[fold.long()] * ((-2.0 * ypm) * active)
+    g = (r.double() @ X1.double()).to(torch.float32)
+    return g / wsum[:, None] + l2v * z
+
+
+_SVC_ARGS = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+
+
+def svc_grad(X1: torch.Tensor, y: torch.Tensor, w: torch.Tensor, fold: torch.Tensor,
+             z: torch.Tensor, l2v: torch.Tensor, wsum: torch.Tensor) -> torch.Tensor:
+    """The gradients f32[C, p] of C squared-hinge SVC fits at their points
+    ``z``: ``X1^T (w[fold[c]] * (-2 ypm max(1 - ypm X1 z_c, 0))) / wsum[c] +
+    l2v[c] * z_c`` with ``ypm = 2 y - 1`` for the 0/1 labels ``y``; the
+    arguments as ``fista_grad``'s.  At most 64 coefficients."""
+    _check_fista(X1, y, w, fold, z, l2v, wsum)
+    if not _on_cuda(X1, y, w, fold, z, l2v, wsum):
+        return svc_grad_plain(X1, y, w, fold, z, l2v, wsum)
+    n, p = X1.shape
+    C = z.shape[0]
+    if p > 64:
+        raise ValueError(f"svc_grad takes at most 64 coefficients, got {p}")
+    X1, y, w, fold = X1.contiguous(), y.contiguous(), w.contiguous(), fold.contiguous()
+    z, l2v, wsum = z.contiguous(), l2v.contiguous(), wsum.contiguous()
+    chunk_rows = max(_FISTA_MIN_CHUNK, -(-n // _FISTA_TARGET_CHUNKS))
+    chunks = -(-n // chunk_rows)
+    partial = torch.empty((chunks, C, p), dtype=torch.float64, device=X1.device)
+    grad = torch.empty((C, p), dtype=torch.float32, device=X1.device)
+    lib = cuda_build.load("svc", {"svc_grad": (_SVC_ARGS, ctypes.c_int)})
+    with torch.cuda.device(X1.device):
+        rc = lib.svc_grad(X1.data_ptr(), y.data_ptr(), w.data_ptr(), fold.data_ptr(),
+                          z.data_ptr(), wsum.data_ptr(), l2v.data_ptr(), partial.data_ptr(),
+                          grad.data_ptr(), n, p, C, chunks, chunk_rows,
+                          ctypes.c_void_p(torch.cuda.current_stream(X1.device).cuda_stream))
+    cuda_build.check_launch("svc_grad", rc)
+    svc_grad.launches += 1
+    return grad
+
+
+svc_grad.launches = 0
+
+
+# ---------------------------------------------------------------------------
 # The solver: FISTA for every (fold, grid) fit at once
 # ---------------------------------------------------------------------------
 def _momentum(max_iter: int):
@@ -268,15 +324,18 @@ def _momentum(max_iter: int):
 
 #: the Lipschitz factor of each loss's curvature bound (the reference's
 #: ``L = factor * sum(w x^2) / sum(w) + l2 + 1e-6``)
-_LIPSCHITZ = {"logistic": 0.25, "linear": 1.0, "softmax": 0.5}
+_LIPSCHITZ = {"logistic": 0.25, "linear": 1.0, "softmax": 0.5, "svc": 2.0}
 
 
 def _fista_grid_folds(X: torch.Tensor, y: torch.Tensor, train_w: torch.Tensor, l1s, l2s,
                       max_iter: int, fit_intercept: bool, loss: str, k: int = 1) -> LinearFit:
     """FISTA for every (fold, grid) fit at once: the logistic fits through
     K-K, the linear ones through K-N, the softmax ones (``k`` classes, a
-    coefficient matrix [p, k] per fit) through K-P (the reference's three
-    solvers differ only in the link and the Lipschitz bound's factor)."""
+    coefficient matrix [p, k] per fit) through K-P, the squared-hinge SVC
+    ones (``l1s`` 0) through K-T (the reference's four solvers differ only
+    in the loss's gradient and the Lipschitz bound's factor; the SVC's
+    Nesterov steps are FISTA's with a threshold of 0, which leaves every
+    coefficient as it is)."""
     dev = X.device
     n, d = X.shape
     F = train_w.shape[0]
@@ -311,7 +370,7 @@ def _fista_grid_folds(X: torch.Tensor, y: torch.Tensor, train_w: torch.Tensor, l
     z = beta
     yd = y.to(dev, torch.float32).contiguous()
     grad_fn = {"logistic": fista_grad, "linear": linear_fista_grad,
-               "softmax": softmax_fista_grad}[loss]
+               "softmax": softmax_fista_grad, "svc": svc_grad}[loss]
     for coef in _momentum(max_iter):
         grad = grad_fn(X1, yd, w, fold, z.contiguous(), l2v, wsum_c)
         beta_next = _soft_threshold(z - step * grad, thr)
@@ -360,6 +419,35 @@ def fit_softmax_grid_folds(X: torch.Tensor, y: torch.Tensor, train_w: torch.Tens
     ``num_classes`` - 1.  Returns coef [F, G, d, k], intercept [F, G, k]."""
     return _fista_grid_folds(X, y, train_w, l1s, l2s, max_iter, fit_intercept, "softmax",
                              k=int(num_classes))
+
+
+def fit_svc_grid_folds(X: torch.Tensor, y: torch.Tensor, train_w: torch.Tensor, l2s,
+                       max_iter: int = 200, fit_intercept: bool = True) -> LinearFit:
+    """Squared-hinge L2 linear SVC fits for every (fold, grid) pair, on X's
+    device: the reference's ``fit_linear_svc`` for each fit (the step 1 / L
+    with ``L = 2 sum(w x^2) / sum(w) + l2 + 1e-6``, the intercept
+    unpenalized, ``max_iter`` Nesterov steps) with ``y`` the 0/1 labels.
+    Returns coef [F, G, d], intercept [F, G, 1]."""
+    l2 = np.asarray(l2s, np.float32).reshape(-1)
+    return _fista_grid_folds(X, y, train_w, np.zeros_like(l2), l2, max_iter, fit_intercept,
+                             "svc")
+
+
+def fit_linear_svc(X: torch.Tensor, y: torch.Tensor, sample_weight: torch.Tensor, l2: float,
+                   max_iter: int = 200, fit_intercept: bool = True) -> LinearFit:
+    """One squared-hinge L2 linear SVC fit: coef [d], intercept [1]."""
+    fit = fit_svc_grid_folds(X, y, sample_weight[None], [l2], max_iter=max_iter,
+                             fit_intercept=fit_intercept)
+    return LinearFit(fit.coef[0, 0], fit.intercept[0, 0])
+
+
+def predict_svc(X: torch.Tensor, coef: torch.Tensor, intercept: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(raw [n, 2], pred [n]) of an SVC fit: the margin ``z = X @ coef +
+    intercept[0]`` as [-z, z] and the hard prediction ``z >= 0`` (no
+    probability, as Spark's LinearSVC)."""
+    z = X @ coef + intercept[0]
+    return torch.stack([-z, z], dim=-1), (z >= 0.0).to(torch.float32)
 
 
 def fit_logistic_fista(X: torch.Tensor, y: torch.Tensor, sample_weight: torch.Tensor,

@@ -2,6 +2,7 @@
 
 The port's counterpart of the interpreter core of
 ``transmogrifai_tpu/ops/sweep.py`` (``_fista_scores``, ``_softmax_scores``,
+``_newton_scores``, ``_svc_scores``, ``_mlp_scores``,
 ``_forest_group_scores``, ``_gbt_group_scores``, ``_frag_scores``,
 ``_all_scores``, ``_metrics_of``, ``run_sweep``).  A static ``spec`` built
 by ``impl/sweep_fragments.py`` names every fragment and the hyperparameter
@@ -11,6 +12,8 @@ module docstring):
     spec = (problem, frags, strict)
     frag = ("fista", cis, max_iter, fit_intercept, off_l1, off_l2)
          | ("newton", cis, max_iter, fit_intercept, off_l2)
+         | ("svc", cis, max_iter, fit_intercept, off_l2)
+         | ("mlp", cis, layers, max_iter, off_lr, off_seed)
          | ("forest", out_c, groups) | ("gbt", loss, out_c, groups)
 
 Each fragment scores its candidates on every row; the scores [F, C, n] go
@@ -19,7 +22,9 @@ probabilities [F, C, n, k] of a ``("multiclass", k)`` problem to the
 multiclass metrics (K-Q).  The work runs eagerly on the device of the
 arrays, through the hand-written kernels: K-K for the logistic FISTA fits,
 K-S for the pure-L2 logistic (Newton) fits, K-N for the linear-regression
-fits, K-P for the multinomial (softmax) fits; K-E, K-F and K-G growing the
+fits, K-P for the multinomial (softmax) fits, K-T for the linear SVC fits
+(their hard 0/1 predictions are the scores), K-U for the MLP fits (p(class
+1), or the k class probabilities); K-E, K-F and K-G growing the
 forests (one gradient channel, or k class channels with class-distribution
 leaves) and boosted trees (one channel, or the softmax's k class margins),
 K-H boosting (logistic, or squared from each fold's label mean), K-R the
@@ -27,8 +32,8 @@ softmax boosting, K-M reading the forests' leaves.  A forest group's trees grow 
 ``ops/trees.forest_batch_size`` (the spec's ``chunk`` is the JAX
 package's, kept for the spec's equality; trees are independent, so the
 batching changes no result).  The binary, regression and multiclass
-problems are ported; the svc and mlp fragments, a two-class label under
-the multiclass evaluator and round-collapsed boosting raise.  The checkpoint, hedge, ledger, trace,
+problems are ported; a two-class label under the multiclass evaluator and
+round-collapsed boosting raise.  The checkpoint, hedge, ledger, trace,
 AOT-cache and mesh wrappers of the JAX package are not ported.
 """
 from __future__ import annotations
@@ -80,6 +85,32 @@ def _newton_scores(frag, X, y, train_w, blob) -> torch.Tensor:
     fit = L.fit_logistic_grid_folds_newton(X, y, train_w, _blob(blob, off_l2, len(cis)),
                                            max_iter=max_iter, fit_intercept=fit_intercept)
     return L._sigmoid(torch.einsum("nd,fgd->fgn", X, fit.coef) + fit.intercept)
+
+
+def _svc_scores(frag, X, y, train_w, blob) -> torch.Tensor:
+    """[F, G, n]: the hard 0/1 predictions of the fragment's squared-hinge
+    SVC fits (K-T).  The per-family path emits no probability for an SVC
+    (Spark's LinearSVC has none), so its evaluator scores the prediction:
+    the fused score is that 0/1 value."""
+    _, cis, max_iter, fit_intercept, off_l2 = frag
+    fit = L.fit_svc_grid_folds(X, y, train_w, _blob(blob, off_l2, len(cis)),
+                               max_iter=max_iter, fit_intercept=fit_intercept)
+    z = torch.einsum("nd,fgd->fgn", X, fit.coef) + fit.intercept
+    return (z >= 0.0).to(torch.float32)
+
+
+def _mlp_scores(frag, X, y, train_w, blob, full_prob: bool = False) -> torch.Tensor:
+    """[F, G, n]: p(class 1) of the fragment's MLP fits (K-U), or with
+    ``full_prob`` the class probabilities [F, G, n, k]."""
+    from . import mlp as M
+
+    _, cis, layers, max_iter, off_lr, off_seed = frag
+    G = len(cis)
+    seeds = _blob(blob, off_seed, G).astype(np.int32)
+    params = M.fit_mlp_grid_folds(X, y, train_w, _blob(blob, off_lr, G), seeds, layers=layers,
+                                  max_iter=max_iter)
+    prob = M.predict_mlp_grid(params, X)[1]
+    return prob if full_prob else prob[..., 1]
 
 
 def _softmax_scores(frag, X, y, train_w, blob, k: int) -> torch.Tensor:
@@ -217,6 +248,10 @@ def _frag_scores(frag, X, xbs, y, train_w, blob, problem):
         return frag[1], _fista_scores(frag, X, y, train_w, blob, problem == "binary")
     if kind == "newton":
         return frag[1], _newton_scores(frag, X, y, train_w, blob)
+    if kind == "svc":
+        return frag[1], _svc_scores(frag, X, y, train_w, blob)
+    if kind == "mlp":
+        return frag[1], _mlp_scores(frag, X, y, train_w, blob, full_prob=multiclass)
     if kind == "forest":
         _, out_c, groups = frag
         cis, outs, draws = [], [], {}

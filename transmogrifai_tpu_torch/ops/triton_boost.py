@@ -16,15 +16,18 @@ in channel order, ``p = e / sum``, the k gradients ``(p_j - [y == j]) w``
 and one scalar hessian ``max(mean_j p_j (1 - p_j), 1e-6) w``, its channel
 sum in channel order with fused multiply-adds and the mean a product by
 float32(1 / k), as XLA's CPU code computes the reference's
-``(p * (1 - p)).mean(-1)``; K-R's margin update is one fused multiply-add a
-channel, as XLA contracts the reference's (K-H's rounds twice).  Each is one
+``(p * (1 - p)).mean(-1)``; the margin update is one fused multiply-add
+(a channel), as XLA contracts the reference's, but for the squared loss,
+which rounds the product and the sum apart (see ``ops/trees.py::boost_step``).
+Each is one
 pass over [T, n] (K-R: a [rows,
 k] tile and a reduction over its k channels) with no reuse, which shared
 memory and tensor cores cannot speed up and Triton's masked block loads
 and reductions express directly; so both are written in Triton, as K-C and
 K-D are.  Every product, sum and quotient is a round-to-nearest PTX
-instruction (no FMA contraction except K-R's update and hessian sum,
-where the reference contracts), as the plain versions round them; ``exp`` is
+instruction (no FMA contraction except the logistic and softmax margin
+updates and K-R's hessian sum, where the reference contracts), as the plain
+versions round them; ``exp`` is
 libdevice's ``expf``, which may differ from the reference's in the last
 bit.  Bound on the card: bytes (F read and written, y, w and the row's node
 read, one leaf row gathered, the gradients and hessian written).
@@ -141,7 +144,10 @@ def _binary_step(F_ptr, y_ptr, w_ptr, eta_ptr, leaf_ptr, node_ptr, ghw_ptr, n, P
         eta = tl.zeros([BLOCK], tl.float32) + tl.load(eta_ptr + t)
         node = tl.load(node_ptr + i, mask=ok, other=0)
         lv = tl.load(leaf_ptr + t.to(tl.int64) * P + node, mask=ok, other=0.0)
-        f = _add(f, _mul(eta, lv))
+        if LOSS == 1:
+            f = _add(f, _mul(eta, lv))
+        else:
+            f = _fma(eta, lv, f)
         tl.store(F_ptr + i, f, mask=ok)
     if GRAD:
         y = tl.load(y_ptr + r, mask=ok, other=0.0)
