@@ -153,7 +153,19 @@ Phases, each printing its findings on a line of its own:
                three channels, against their plain versions (K-R's margins
                and K-M bit-equal, K-R's gradients within
                ``BOOST_GRAD_ATOL``, K-S within ``GRAM_RTOL``), timed as in
-               phase 2; and the K8 draws' times at the Iris train's shapes;
+               phase 2;
+24b. kw kernels -- K-W (``threefry_draws``) in its three modes against its
+               plain versions, bit for bit, at the Iris 46-candidate train's
+               shapes (the Poisson bootstrap of 50 trees at rate 1, a
+               forest's feature masks, the subsample masks of 200 rounds at
+               0.8 and at 1) and at a rate-0.632 bootstrap, a ties-heavy mask
+               draw (2,048 features) and Glorot-sized uniforms; timed as in
+               phase 2, bound by the larger of the bytes written and the
+               hash's integer operations over the SMs' dispatch rate.  Every
+               forest's and boosting fit's draws run through K-W: the
+               reference phases hold its bootstraps and masks to the
+               fixtures' (891, 455 and 135 rows) and count its launches, and
+               the stock and Iris 46 trains require it;
 25. families reference -- the binary selector's other families on the
                891-row Titanic frame (``titanic.families_space``): space A
                (LinearSVC, NaiveBayes, DecisionTree, MLP: the per-family
@@ -177,7 +189,28 @@ Phases, each printing its findings on a line of its own:
                train's sweep inputs, against their plain versions (K-T
                within ``SVC_GRAD_RTOL``, K-U within ``MLP_GRAD_RTOL`` and
                ``MLP_PROB_ATOL``, K-V within ``NB_RTOL``), timed as in
-               phase 2 beside their bounds and one PyTorch call each.
+               phase 2 beside their bounds and one PyTorch call each;
+29. boston glm reference -- the Boston flow over the GLM space
+               (``boston.glm_space()``: gaussian / identity, poisson / log,
+               gamma / log, tweedie / log, each x reg 0.001 / 0.01 / 0.1;
+               the per-family sweep) on the 506-row frame, held to
+               ``boston_glm`` by ``FX.check_boston_glm_train`` (the winner
+               gaussian / identity at 0.001, every fold RMSE within
+               ``FX.GLM_RMSE_RTOL``); the JAX-saved winner's answers through
+               ``BatchScoreFunction``, the port's refit's by
+               ``FX.compare_glm_predictions``, its save loaded back and
+               rescored equal;
+30. boston glm train -- the same space at ``--train-rows`` rows: K-S's
+               launch count reset just before and read just after (above
+               0), the fold RMSE against the JAX package's on the fixture's
+               2^18-row seed-0 frame (else finite, with a gaussian /
+               identity winner), the host-clock breakdown, a profiled second
+               run;
+31. glm kernels -- K-S in GLM mode against its plain version for each
+               (family, link) pair, one IRLS step from the start of each of
+               the scale train's fits (within ``GLM_GRAM_RTOL``), timed as in
+               phase 2 beside its bound and one ``einsum`` over the given
+               weights.
 
 The line before the last holds the kernels' JSON record, then the card's
 name and power limit; the last line is ``{"ok": true, "device": ...}``.  Any
@@ -197,6 +230,12 @@ import numpy as np
 #: HBM3 bytes/s, and float32 / int32 operations/s outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_SCALAR_OPS_PER_S = 67e12
+#: 32-bit integer operations/s: the SMs' dispatch rate, one warp instruction a
+#: scheduler a clock (4 x 32 lanes a SM, 132 SMs, the 1.98 GHz clock of the
+#: float32 peak above), which no instruction mix exceeds.  The 64 INT32 lanes
+#: a SM are no bound: K-W's uniform mode ran 19e12 hash operations/s on the
+#: card (PERF.md, PR 8), the compiler issuing integer adds to the FMA pipe too
+PEAK_INT32_OPS_PER_S = 4 * 32 * 132 * 1.98e9
 BATCH_SIZES = (1, 64, 1024)
 #: largest gap of a fold's AuPR to the committed fixture's (trained by the
 #: JAX package's fused sweep, its metrics in float32): the card sums the
@@ -291,9 +330,17 @@ class Timer:
         return statistics.median(times)
 
 
-def bound_ms(n_bytes, n_ops):
+def zero_launches(kernels):
+    """Set every kernel's launch count to 0 (K-W's counts of each mode too)."""
+    for fn in kernels:
+        fn.launches = 0
+        if hasattr(fn, "launches_by_mode"):
+            fn.launches_by_mode = dict.fromkeys(fn.launches_by_mode, 0)
+
+
+def bound_ms(n_bytes, n_ops, ops_per_s=PEAK_SCALAR_OPS_PER_S):
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = n_ops / PEAK_SCALAR_OPS_PER_S * 1e3
+    t_ops = n_ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -468,8 +515,7 @@ def serve_phase(torch, model, cols, reps, seed, kernels):
     row_fn = P.ScoreFunction(model)
     recs = FX.records(titanic_columns(max(BATCH_SIZES), seed + 1))
     rows = len(next(iter(cols.values())))
-    for fn in kernels:
-        fn.launches = 0
+    zero_launches(kernels)
     p50 = {}
     for size in BATCH_SIZES:
         times = []
@@ -613,8 +659,10 @@ def sweep_reference_phase(torch, titanic, FX, dev="cuda"):
     gaps = FX.check_stock_train(model, xgb_tol=TRAIN_AUPR_TOL)
     ref = FX.load_sweep()
     kb, kf = Tr.rng_keys(42)
+    before = Tr.R.threefry_draws.launches
     boot = Tr.bootstrap_weights(kb, 891, 50, device=dev).cpu().numpy()
     masks = Tr.feature_masks(kf, 10, 50, np.sqrt(10) / 10, dev).cpu().numpy()
+    check(Tr.R.threefry_draws.launches == before + 2, "the draws did not launch K-W")
     check(np.array_equal(boot, ref["bootstrap"]), "bootstrap draws differ from the fixture's")
     check(np.array_equal(masks, ref["feature_masks"]), "feature masks differ from the fixture's")
     mine = np.stack([out for *_, out in rec.calls])
@@ -643,8 +691,7 @@ def train_phase(torch, titanic, rows, seed, kernels, dev="cuda"):
     before and read just after; then a profiled second run.  Returns (each
     kernel's launches, the trained model, the first sweep call)."""
     cols = titanic.titanic_data(rows, seed)
-    for fn in kernels:
-        fn.launches = 0
+    zero_launches(kernels)
     with SweepCalls() as rec:
         t = time.perf_counter()
         model, wf = titanic.train_titanic(cols, device=dev)
@@ -1015,8 +1062,10 @@ def boston_reference_phase(torch, boston, FX, dev="cuda"):
     gaps = FX.check_boston_train(model)
     ref = FX.load_sweep(FX.BOSTON_STOCK + "/sweep.npz")
     kb, kf = Tr.rng_keys(42)
+    before = Tr.R.threefry_draws.launches
     boot = Tr.bootstrap_weights(kb, 455, 50, device=dev).cpu().numpy()
     masks = Tr.feature_masks(kf, 16, 50, 1.0 / 3.0, dev).cpu().numpy()
+    check(Tr.R.threefry_draws.launches == before + 2, "the draws did not launch K-W")
     check(np.array_equal(boot, ref["bootstrap"]), "bootstrap draws differ from the fixture's")
     check(np.array_equal(masks, ref["feature_masks"]), "feature masks differ from the fixture's")
     mine = np.stack([out for *_, out in rec.calls])
@@ -1062,8 +1111,7 @@ def boston_train_phase(torch, boston, rows, seed, kernels, dev="cuda"):
     reset just before and read just after; then a profiled second run.
     Returns (each kernel's launches, the sweep call)."""
     cols = boston.boston_data(rows, seed)
-    for fn in kernels:
-        fn.launches = 0
+    zero_launches(kernels)
     with SweepCalls() as rec:
         t = time.perf_counter()
         model, wf = boston.train_boston(cols, device=dev)
@@ -1254,8 +1302,10 @@ def iris_reference_phase(torch, iris, FX, dev="cuda"):
     x_gap = float(np.abs(plan.X.cpu().numpy() - ref["X"]).max())
     check(x_gap == 0.0, f"the sweep's feature matrix {x_gap} from the fixture's")
     kb, kf = Tr.rng_keys(42)
+    before = Tr.R.threefry_draws.launches
     boot = Tr.bootstrap_weights(kb, 135, 50, device=dev).cpu().numpy()
     masks = Tr.feature_masks(kf, 8, 50, np.sqrt(8) / 8, dev).cpu().numpy()
+    check(Tr.R.threefry_draws.launches == before + 2, "the draws did not launch K-W")
     check(np.array_equal(boot, ref["bootstrap"]), "bootstrap draws differ from the fixture's")
     check(np.array_equal(masks, ref["feature_masks"]), "feature masks differ from the fixture's")
     req = FX.load_columns(FX.IRIS_STOCK + "/requests.npz")
@@ -1288,8 +1338,7 @@ def iris_train_phase(torch, iris, rows, seed, kernels, dev="cuda"):
     reset just before and read just after; then a profiled second run.
     Returns (each kernel's launches, the sweep call)."""
     frame = iris.iris_data(rows, seed)
-    for fn in kernels:
-        fn.launches = 0
+    zero_launches(kernels)
     with SweepCalls() as rec:
         t = time.perf_counter()
         model, wf = iris.train_iris(frame, device=dev)
@@ -1713,8 +1762,7 @@ def scale_train_phase(torch, phase, train, kernels, required, check_fn, count_dr
     the sweep calls, the K8 draws' call counts or None)."""
     from transmogrifai_tpu_torch.ops import trees as Tr
 
-    for fn in kernels:
-        fn.launches = 0
+    zero_launches(kernels)
     draws = CountCalls(Tr, ("rng_keys", "bootstrap_weights", "feature_masks",
                             "subsample_weights")) if count_draws else None
     if draws:
@@ -1725,6 +1773,9 @@ def scale_train_phase(torch, phase, train, kernels, required, check_fn, count_dr
         if draws:
             draws.__exit__()
     launches = {fn.__name__: fn.launches for fn in kernels}
+    for fn in kernels:  # K-W's launches by mode
+        launches.update({f"{fn.__name__}_{m}": v
+                         for m, v in getattr(fn, "launches_by_mode", {}).items()})
     missing = [k for k in required if launches[k] <= 0]
     check(not missing, f"kernels not launched on the {phase} path: {missing}")
     found = check_fn(model)
@@ -1803,7 +1854,7 @@ def slice6_kernel_phase(torch, iris_calls, newton_call, ridge_call, timer, dev="
     Newton mode at a mid-run point of the Titanic scale train's Newton
     fits and in ridge mode on the Boston scale train's folds, K-M at the
     tree counts of ``MEAN_TREES``, each against its plain version on the
-    card; and the K8 draws' times at the Iris scale train's shapes."""
+    card."""
     from transmogrifai_tpu_torch.ops import linear as L
     from transmogrifai_tpu_torch.ops import trees as Tr
 
@@ -1819,7 +1870,6 @@ def slice6_kernel_phase(torch, iris_calls, newton_call, ridge_call, timer, dev="
     k = frag[2]
     Xb = plan.xbs[xb_idx]
     n, d = Xb.shape
-    n_iris = n
     F, Gc = tw.shape[0], len(cis)
     B = F * Gc
     w_b = tw.repeat_interleave(Gc, dim=0).contiguous()
@@ -1938,22 +1988,6 @@ def slice6_kernel_phase(torch, iris_calls, newton_call, ridge_call, timer, dev="
     extra["forest_leaf_mean_orders_bit_equal"] = equal
     del leaf, node, rn_long
 
-    # K8, the threefry draws (torch integer ops, no hand kernel yet): each
-    # call's time at the Iris scale train's arguments (the forests' one
-    # Poisson bootstrap of 50 trees, a forest's or a boosting group's feature
-    # masks, the boosting groups' subsample masks at rate 1, which are
-    # ones), bound by the bytes it writes
-    kb, kf = Tr.rng_keys(42)
-    k8 = {}
-    for name, fn, out_bytes in (
-            ("bootstrap_weights", lambda: Tr.bootstrap_weights(kb, n_iris, 50, True, 1.0, dev),
-             50 * n_iris * 4),
-            ("feature_masks", lambda: Tr.feature_masks(kf, 8, 50, np.sqrt(8) / 8, dev), 50 * 8 * 4),
-            ("subsample_weights", lambda: Tr.subsample_weights(kb, n_iris, 200, 1.0, dev),
-             200 * n_iris * 4)):
-        b, by = bound_ms(out_bytes, 0)
-        k8[name] = {"ms": timer(fn), "bound_ms": b, "bound_by": by}
-    extra["k8_draws"] = k8
     log("slice6_kernels", details=extra, records=records)
     return records
 
@@ -2193,6 +2227,282 @@ def families_kernel_phase(torch, b_calls, timer, dev="cuda"):
     return records
 
 
+class FirstCall:
+    """Keeps the arguments of the first call of ``module.name`` while on
+    (wrapped, restored on exit)."""
+
+    def __init__(self, module, name):
+        self.module, self.name, self.args, self.kwargs = module, name, None, None
+
+    def __enter__(self):
+        fn = self.saved = getattr(self.module, self.name)
+
+        def wrapped(*a, **k):
+            if self.args is None:
+                self.args, self.kwargs = a, k
+            return fn(*a, **k)
+
+        setattr(self.module, self.name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.saved)
+
+
+#: the threefry hash's 32-bit integer operations a draw: 20 rounds of an add,
+#: a rotate and a xor (60), five key injections of two adds (10), the two
+#: initial adds, the high count word's shift, the xor of the two words and the
+#: uniform's shift and or
+HASH_INT_OPS = 76
+
+
+def kw_kernel_phase(torch, boost_calls, timer, dev="cuda"):
+    """K-W (``threefry_draws``) in each mode against its plain version on the
+    card, bit for bit, at the Iris 46-candidate scale train's shapes (the
+    forests' Poisson bootstrap of 50 trees over the sweep's rows, a forest's
+    feature masks, the boosting groups' subsample masks of 200 rounds below
+    a rate and at rate 1) and at a rate-0.632 bootstrap, a ties-heavy mask
+    draw and a Glorot-sized uniform; timed as in phase 2, with its bound by
+    bytes and by operations (the hash's integer operations over the SMs'
+    dispatch rate, the larger one taken)."""
+    from transmogrifai_tpu_torch.ops import threefry as R
+    from transmogrifai_tpu_torch.ops import trees as Tr
+
+    n = int(boost_calls[0][0].X.shape[0])
+    kb, kf = Tr.rng_keys(42)
+    records, extra = [], {}
+
+    def held(name, fn, plain):
+        before = R.threefry_draws.launches
+        got = fn()
+        torch.cuda.synchronize()
+        check(R.threefry_draws.launches == before + 1, f"{name} did not launch K-W")
+        want = plain()
+        check(torch.equal(got, want), f"{name} differs from its plain version")
+        return got
+
+    def both_bounds(n_bytes, n_ops):
+        t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+        t_ops = n_ops / PEAK_INT32_OPS_PER_S * 1e3
+        return {"bytes_ms": t_bytes, "operations_ms": t_ops,
+                "bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+    # Poisson bootstraps: 50 trees at rate 1 (the forests' draw) and 0.632;
+    # the hashes this data needs are one a live step of a lane, count + 1
+    for rate in (1.0, 0.632):
+        name = f"bootstrap rate {rate}"
+        boot = held(name, lambda: Tr.bootstrap_weights(kb, n, 50, True, rate, dev),
+                    lambda: Tr.bootstrap_weights_plain(kb, n, 50, True, rate, dev))
+        steps = float(boot.double().sum()) + boot.numel()
+        b = both_bounds(boot.numel() * 4, steps * (HASH_INT_OPS + 2))
+        ms = timer(lambda: Tr.bootstrap_weights(kb, n, 50, True, rate, dev))
+        plain_ms = timer(lambda: Tr.bootstrap_weights_plain(kb, n, 50, True, rate, dev))
+        extra[name] = {"shape": [50, n], "hashes": steps, "max_count": float(boot.max()),
+                       "ms": ms, "plain_ms": plain_ms, **b}
+        if rate == 1.0:
+            records.append(dict(
+                name="threefry_draws_poisson", route="cuda",
+                source="transmogrifai_tpu_torch/csrc/threefry.cu",
+                replaces="transmogrifai_tpu/ops/trees.py:1390", max_abs_err=0.0, ms=ms,
+                plain_ms=plain_ms, bound_ms=b["bound_ms"], bound_by=b["bound_by"],
+                library_ms=None))
+    # feature masks: a forest's (8 features, k = 3 of them) and a ties-heavy
+    # draw (2,048 features: ~0.25 tied pairs a tree), d uniforms a tree each
+    # hashed and compared with the tree's others
+    for name, T, d, frac in (("masks", 50, 8, np.sqrt(8) / 8),
+                             ("masks ties-heavy", 4096, 2048, 0.5)):
+        masks = held(name, lambda: Tr.feature_masks(kf, d, T, frac, dev),
+                     lambda: Tr.feature_masks_plain(kf, d, T, frac, dev))
+        k = max(1, int(round(frac * d)))
+        r = Tr.R.uniform_plain(kf, (T, d), dev)
+        tied = int((torch.sort(r, 1).values.diff(dim=1) == 0).any(1).sum())
+        b = both_bounds(T * d * 4, T * d * (HASH_INT_OPS + 2 * d))
+        ms = timer(lambda: Tr.feature_masks(kf, d, T, frac, dev))
+        plain_ms = timer(lambda: Tr.feature_masks_plain(kf, d, T, frac, dev))
+        extra[name] = {"shape": [T, d], "k": k, "trees_with_ties": tied,
+                       "trees_above_k": int((masks.sum(1) > k).sum()), "ms": ms,
+                       "plain_ms": plain_ms, **b}
+        if name == "masks":
+            records.append(dict(
+                name="threefry_draws_masks", route="cuda",
+                source="transmogrifai_tpu_torch/csrc/threefry.cu",
+                replaces="transmogrifai_tpu/ops/trees.py:1400", max_abs_err=0.0, ms=ms,
+                plain_ms=plain_ms, bound_ms=b["bound_ms"], bound_by=b["bound_by"],
+                library_ms=None))
+        del r
+    # uniform mode: the subsample masks of 200 rounds below 0.8 (rate 1 is
+    # ones, no launch) and the Glorot init's uniforms
+    held("subsample 0.8", lambda: Tr.subsample_weights(kb, n, 200, 0.8, dev),
+         lambda: Tr.subsample_weights_plain(kb, n, 200, 0.8, dev))
+    b = both_bounds(200 * n * 4, 200 * n * (HASH_INT_OPS + 1))
+    ms = timer(lambda: Tr.subsample_weights(kb, n, 200, 0.8, dev))
+    plain_ms = timer(lambda: Tr.subsample_weights_plain(kb, n, 200, 0.8, dev))
+    extra["subsample 0.8"] = {"shape": [200, n], "ms": ms, "plain_ms": plain_ms, **b}
+    records.append(dict(
+        name="threefry_draws_uniform", route="cuda",
+        source="transmogrifai_tpu_torch/csrc/threefry.cu",
+        replaces="transmogrifai_tpu/ops/trees.py:1411", max_abs_err=0.0, ms=ms,
+        plain_ms=plain_ms, bound_ms=b["bound_ms"], bound_by=b["bound_by"], library_ms=None))
+    before = R.threefry_draws.launches
+    ones = Tr.subsample_weights(kb, n, 200, 1.0, dev)
+    check(R.threefry_draws.launches == before and bool((ones == 1).all()),
+          "subsample masks at rate 1 are not ones without a launch")
+    extra["subsample 1.0"] = {"ms": timer(lambda: Tr.subsample_weights(kb, n, 200, 1.0, dev))}
+    for shape in ((10, 10), (128, 64)):
+        held(f"uniform {shape}", lambda: R.uniform(kf, shape, dev),
+             lambda: R.uniform_plain(kf, shape, dev))
+        held(f"bits {shape}", lambda: R.random_bits(kf, shape, dev),
+             lambda: R.random_bits_plain(kf, shape, dev))
+        extra[f"uniform {shape}"] = {"ms": timer(lambda: R.uniform(kf, shape, dev)),
+                                     "plain_ms": timer(lambda: R.uniform_plain(kf, shape, dev))}
+    log("kw_kernels", details=extra, records=records,
+        int32_ops_per_s=PEAK_INT32_OPS_PER_S, hash_int_ops=HASH_INT_OPS)
+    return records
+
+
+#: K-S in GLM mode against its plain version (cuBLAS margins there, an FMA
+#: dot in the kernel, the same libdevice exp and pow, both sums in float64),
+#: relative to the largest entry
+GLM_GRAM_RTOL = 1e-5
+GLM_PAIRS = (("gaussian", "identity"), ("gaussian", "log"), ("binomial", "logit"),
+             ("poisson", "log"), ("poisson", "sqrt"), ("gamma", "inverse"), ("gamma", "log"),
+             ("tweedie", "log"))
+
+
+def glm_kernel_phase(torch, glm_call, timer, dev="cuda"):
+    """K-S in GLM mode against its plain version on the card for each
+    (family, link) pair of the ops-level tests, at the Boston GLM scale
+    train's sweep inputs (X1 [n, 17], three folds x three regs): each pair's
+    fits one IRLS step from their start (for binomial, the label above its
+    median); timed as in phase 2 beside its bound and one ``einsum`` over
+    the given weights.  The record is the tweedie / log pair's (the power
+    on top of the exp)."""
+    from transmogrifai_tpu_torch.ops import linear as L
+
+    X, y, train_w = (glm_call.args[i] for i in range(3))
+    tw = train_w.to(dev, torch.float32).contiguous()
+    F, G = tw.shape[0], 3
+    n = X.shape[0]
+    X1 = torch.cat([X, torch.ones((n, 1), device=dev)], 1).contiguous()
+    p = X1.shape[1]
+    C = F * G
+    fold = torch.arange(F, dtype=torch.int32, device=dev).repeat_interleave(G)
+    regs = [0.001, 0.01, 0.1]
+    extra, records = {}, []
+    for family, link in GLM_PAIRS:
+        yd = (y > y.median()).float() if family == "binomial" else y
+        yd = yd.contiguous()
+        vps = [1.5] * G if family == "tweedie" else [0.0] * G
+        fit = L.fit_glm_grid_folds(X, yd, tw, regs, vps, family, link, max_iter=1)
+        beta = torch.cat([fit.coef, fit.intercept], 2).reshape(C, p).contiguous()
+        check(bool(torch.isfinite(beta).all()), f"{family}/{link}: non-finite IRLS step")
+        glm = (family, link, torch.tensor(vps * F, dtype=torch.float32, device=dev))
+        args = (X1, yd, tw, fold, beta, glm)
+        (H1, g1), (H2, g2) = L.weighted_gram(*args), L.weighted_gram_plain(*args)
+        torch.cuda.synchronize()
+        check(torch.equal(H1, L.weighted_gram(*args)[0]), "weighted_gram does not repeat")
+        errs = {"H": float((H1 - H2).abs().max() / H2.abs().max()),
+                "g": float((g1 - g2).abs().max() / g2.abs().max())}
+        check(max(errs.values()) <= GLM_GRAM_RTOL,
+              f"weighted_gram (GLM {family}/{link}) {errs} from plain, above {GLM_GRAM_RTOL}")
+        E = p * (p + 1) // 2 + p
+        # X1, each fold's weights and y read once, the coefficients and the
+        # variance powers read, the Gram and moments written; per (fit, row)
+        # the margin (2 p), the link, the variance and the weights (~30) and
+        # two operations an upper-triangle or moment entry
+        b, by = bound_ms((n * p + F * n + n) * 4 + C * (p + 1) * 4 + C * (p * p + p) * 4,
+                         C * n * (2 * E + 2 * p + 30))
+        v, _ = L._gram_weights(X1, yd, tw, fold, beta, glm)
+        row = {"ms": timer(lambda: L.weighted_gram(*args)),
+               "plain_ms": timer(lambda: L.weighted_gram_plain(*args)),
+               "library_ms": timer(lambda: torch.einsum("cn,np,nq->cpq", v, X1, X1)),
+               "bound_ms": b, "bound_by": by, "rel_err": errs,
+               "max_abs_err": max(float((H1 - H2).abs().max()), float((g1 - g2).abs().max()))}
+        extra[f"{family}/{link}"] = row
+        del v
+    row = extra["tweedie/log"]
+    records.append(dict(
+        name="weighted_gram_glm", route="cuda",
+        source="transmogrifai_tpu_torch/csrc/weighted_gram.cu",
+        replaces="transmogrifai_tpu/ops/linear.py:326", max_abs_err=row["max_abs_err"],
+        ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+        bound_by=row["bound_by"], library_ms=row["library_ms"]))
+    log("glm_kernels", X1=[n, p], fits=C, tolerance=GLM_GRAM_RTOL, details=extra,
+        records=records)
+    return records
+
+
+def boston_glm_reference_phase(torch, boston, FX, dev="cuda"):
+    """The Boston GLM train (``boston.glm_space()``, 12 candidates, the
+    per-family sweep) on the 506-row frame, held to the committed
+    ``boston_glm`` fixture by ``FX.check_boston_glm_train``; the JAX-saved
+    winner served through ``BatchScoreFunction`` against the fixture's
+    answers, the port's save loaded back and rescored equal; raises on a
+    failed check."""
+    import tempfile
+
+    import transmogrifai_tpu_torch as P
+
+    (model, wf), wall, calls = timed_train(
+        torch, lambda: boston.train_boston(device=dev, models_and_parameters=boston.glm_space()))
+    check(not calls, "the GLM train made a fused sweep call")
+    found = FX.check_boston_glm_train(model)
+    req = FX.load_columns(FX.BOSTON_GLM + "/requests.npz")
+    exp = FX.load_expected(FX.BOSTON_GLM + "/expected.npz")["prediction"]
+    fixture_model = P.load_model(FX.BOSTON_GLM, device=dev)
+    name = fixture_model.result_features[0].name
+    pred = FX.regression_predictions(P.BatchScoreFunction(fixture_model)(FX.records(req)), name)
+    fixture_err = float(np.max(np.abs(pred - exp) / np.maximum(np.abs(exp), 1.0)))
+    check(np.allclose(pred, exp, rtol=FX.PRED_RTOL, atol=FX.PRED_ATOL),
+          f"the fixture model's predictions {fixture_err} from the JAX package's")
+    name = model.result_features[0].name
+    mine = FX.regression_predictions(P.BatchScoreFunction(model)(FX.records(req)), name)
+    with tempfile.TemporaryDirectory() as tmp:
+        model.save(tmp)
+        loaded = P.load_model(tmp, device=dev)
+        again = FX.regression_predictions(P.BatchScoreFunction(loaded)(FX.records(req)),
+                                          loaded.result_features[0].name)
+    check(np.array_equal(again, mine), "the port-saved GLM model rescores differently")
+    refit = FX.compare_glm_predictions(mine, req, exp)
+    params = model.stages[-1].model_params
+    log("boston_glm_reference", rows=506, wall_s=wall,
+        best_grid=model.stages[-1].summary.best_grid, **found,
+        tolerances={"fold_rmse": FX.GLM_RMSE_RTOL, "prediction": FX.GLM_PRED_RTOL,
+                    "unseen_chas": FX.GLM_UNSEEN_ATOL},
+        fold_rmse={str(tuple(r["grid"].values())): r["foldMetrics"]
+                   for r in model.stages[-1].summary.validation_results},
+        refit_coef=np.asarray(params["coef"]).tolist(),
+        refit_intercept=np.asarray(params["intercept"]).tolist(),
+        fixture_model_prediction_max_rel_err=fixture_err, refit_vs_expected=refit,
+        saved_model_rescores_equal=True, timings_s=wf.train_timings)
+
+
+def boston_glm_check(FX, rows, seed):
+    """The check of the Boston GLM scale train: the JAX package's fold RMSE
+    of ``boston_data(rows, seed)`` where the fixture has them (2^18 rows,
+    seed 0), else every fold RMSE finite and the winner a gaussian /
+    identity candidate (medv is linear in the features with Gaussian noise;
+    the log-link families trail it by more than 1.4 RMSE on the fixture's
+    frame)."""
+    sweep = FX.load_sweep(FX.BOSTON_GLM + "/sweep.npz")
+
+    def check_fn(model):
+        summ = model.stages[-1].summary
+        check(len(summ.validation_results) == 12, "the GLM space has 12 candidates")
+        check(summ.holdout_evaluation["R2"] > 0.5, "bad holdout R2")
+        if (rows, seed) == (int(sweep["scale_rows"]), int(sweep["scale_seed"])):
+            return {"against": "the JAX package's fold RMSE", **FX.check_boston_glm_train(
+                model, scale=True)}
+        folds = [m for r in summ.validation_results for m in r["foldMetrics"]]
+        check(bool(np.isfinite(folds).all()), f"non-finite fold RMSE {folds}")
+        check(summ.best_grid["family"] == "gaussian" and summ.best_grid["link"] == "identity",
+              f"winner {summ.best_grid} is not a gaussian / identity candidate")
+        return {"against": "finite folds and a gaussian / identity winner"}
+
+    return check_fn
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2213,6 +2523,7 @@ def main(argv=None):
     from transmogrifai_tpu_torch.ops import linear as L
     from transmogrifai_tpu_torch.ops import metrics as M
     from transmogrifai_tpu_torch.ops import stats as K
+    from transmogrifai_tpu_torch.ops import threefry as R
     from transmogrifai_tpu_torch.ops import trees as Tr
     from transmogrifai_tpu_torch.ops import vectorize as V
     from transmogrifai_tpu_torch.ops import mlp as MLP
@@ -2223,13 +2534,13 @@ def main(argv=None):
     kernels = (Tr.bin_rows, Tr.ensemble_walk, V.fill_indicator, V.one_hot_codes)
     train_kernels = (Tr.bin_rows, Tr.level_hist, Tr.split_scan, Tr.route_rows,
                      Tr.boost_step, K.corr_gram, K.contingency_counts, L.fista_grad,
-                     M.binary_metrics, Tr.forest_leaf_mean)
+                     M.binary_metrics, Tr.forest_leaf_mean, R.threefry_draws)
     boston_kernels = (Tr.bin_rows, Tr.ensemble_walk, Tr.level_hist, Tr.split_scan,
                       Tr.route_rows, Tr.boost_step, Tr.forest_leaf_mean, L.linear_fista_grad,
-                      M.regression_metrics)
+                      M.regression_metrics, R.threefry_draws)
     iris_kernels = (Tr.bin_rows, Tr.ensemble_walk, V.fill_indicator, Tr.level_hist,
                     Tr.split_scan, Tr.route_rows, Tr.forest_leaf_mean, L.softmax_fista_grad,
-                    M.multiclass_metrics)
+                    M.multiclass_metrics, R.threefry_draws)
     smi = nvidia_smi()
     kind = torch.cuda.get_device_name(0)
 
@@ -2330,6 +2641,7 @@ def main(argv=None):
         ("weighted_gram", "linear_fista_grad", "regression_metrics"), boston_ridge_check)
     slice6_records = slice6_kernel_phase(torch, boost_calls, newton_calls[0], ridge_calls[0],
                                          timer)
+    kw_records = kw_kernel_phase(torch, boost_calls, timer)
     slice6_launches = {"softmax_boost_step": boost_launches["softmax_boost_step"],
                        "weighted_gram_newton": newton_launches["weighted_gram"],
                        "weighted_gram_ridge": ridge_launches["weighted_gram"],
@@ -2340,7 +2652,7 @@ def main(argv=None):
     # routes at scale, the kernels
     families_reference_phase(torch, titanic, iris, FX)
     tree_kernels = (Tr.bin_rows, Tr.ensemble_walk, Tr.level_hist, Tr.split_scan, Tr.route_rows)
-    family_kernels = (L.svc_grad, MLP.mlp_grad, MLP.mlp_forward)
+    family_kernels = (L.svc_grad, MLP.mlp_grad, MLP.mlp_forward, R.threefry_draws)
 
     def families_train(space):
         return lambda: titanic.train_titanic(
@@ -2351,13 +2663,13 @@ def main(argv=None):
         torch, "families_a_train", families_train("a"),
         family_kernels + tree_kernels + (NB.nb_tables_mass, NB.nb_tables_score),
         ("svc_grad", "mlp_grad", "mlp_forward", "nb_tables_mass", "nb_tables_score",
-         "level_hist", "split_scan", "route_rows"),
+         "level_hist", "split_scan", "route_rows", "threefry_draws"),
         lambda m: families_check(m, "a"), sweep=False)
     b_launches, b_calls, _ = scale_train_phase(
         torch, "families_b_train", families_train("b"),
         family_kernels + tree_kernels + (Tr.forest_leaf_mean, M.binary_metrics),
         ("svc_grad", "mlp_grad", "mlp_forward", "level_hist", "split_scan", "route_rows",
-         "forest_leaf_mean", "binary_metrics"),
+         "forest_leaf_mean", "binary_metrics", "threefry_draws"),
         lambda m: families_check(m, "b"))
     families_records = families_kernel_phase(torch, b_calls, timer)
     families_launches = {"svc_grad": b_launches["svc_grad"], "mlp_grad": b_launches["mlp_grad"],
@@ -2365,6 +2677,24 @@ def main(argv=None):
                          "nb_tables_mass": a_launches["nb_tables_mass"],
                          "nb_tables_score": a_launches["nb_tables_score"]}
     del b_calls
+
+    # 29-32. the GLM family on K-S's GLM mode: the fixture's train, the main
+    # path at scale (its first fit_glm_grid_folds call's inputs kept), the
+    # kernel
+    boston_glm_reference_phase(torch, boston, FX)
+    with FirstCall(L, "fit_glm_grid_folds") as glm_call:
+        glm_launches, _, _ = scale_train_phase(
+            torch, "boston_glm_train",
+            lambda: boston.train_boston(boston.boston_data(args.train_rows, args.seed),
+                                        device="cuda", models_and_parameters=boston.glm_space()),
+            (L.weighted_gram, R.threefry_draws), ("weighted_gram",),
+            boston_glm_check(FX, args.train_rows, args.seed), sweep=False)
+    glm_records = glm_kernel_phase(torch, glm_call, timer)
+    kw_launches = {"threefry_draws_poisson": boost_launches["threefry_draws_poisson"],
+                   "threefry_draws_masks": boost_launches["threefry_draws_masks"],
+                   "threefry_draws_uniform": b_launches["threefry_draws_uniform"],
+                   "weighted_gram_glm": glm_launches["weighted_gram"]}
+    del glm_call
 
     for r in records:
         r["launches"] = launches[r["name"]]
@@ -2378,7 +2708,10 @@ def main(argv=None):
         r["launches"] = slice6_launches[r["name"]]
     for r in families_records:
         r["launches"] = families_launches[r["name"]]
-    records += train_records + boston_records + iris_records + slice6_records + families_records
+    for r in kw_records + glm_records:
+        r["launches"] = kw_launches[r["name"]]
+    records += (train_records + boston_records + iris_records + slice6_records
+                + families_records + kw_records + glm_records)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in records]}), flush=True)

@@ -626,3 +626,88 @@ def test_nb_tables_match_plain(dev, n, d, k, F, Q):
         z1 = _counted(NB.nb_tables_score, lambda: NB.nb_tables_score(Xd, pi, th, neg))
         z2 = NB.nb_tables_score_plain(Xd, pi, th, neg)
         torch.testing.assert_close(z1, z2, rtol=2.4e-7, atol=1e-6)
+
+
+@pytest.mark.parametrize("n,T,rate", [(891, 50, 1.0), (235930, 50, 1.0), (20000, 9, 0.632),
+                                      (5000, 3, 2.5), (700, 4, 0.0)])
+def test_threefry_bootstrap_matches_plain(dev, n, T, rate):
+    from transmogrifai_tpu_torch.ops import threefry as R
+
+    kb, _ = Tr.rng_keys(42)
+    before = R.threefry_draws.launches
+    got = Tr.bootstrap_weights(kb, n, T, True, rate, dev)
+    torch.cuda.synchronize()
+    want = Tr.bootstrap_weights_plain(kb, n, T, True, rate, dev)
+    assert got.dtype == torch.float32 and torch.equal(got, want)
+    assert R.threefry_draws.launches == before + (rate > 0)
+    assert torch.equal(Tr.bootstrap_weights(kb, n, T, False, rate, dev),
+                       torch.ones((T, n), device=dev))
+
+
+@pytest.mark.parametrize("d,T,frac", [(10, 50, np.sqrt(10) / 10), (16, 50, 1.0 / 3.0),
+                                      (8, 200, 0.5), (300, 40, 0.1), (1, 3, 0.5)])
+def test_threefry_feature_masks_match_plain(dev, d, T, frac):
+    _, kf = Tr.rng_keys(7)
+    got = _counted(Tr.R.threefry_draws, lambda: Tr.feature_masks(kf, d, T, frac, dev))
+    assert torch.equal(got, Tr.feature_masks_plain(kf, d, T, frac, dev))
+
+
+def test_threefry_feature_masks_keep_ties_as_the_sort_does(dev):
+    """Forced ties: at d = 256 about 3e-5 of the trees have a tie at their
+    k-th smallest uniform; draw keys until one such tree shows (a row with
+    more than k features), then hold K-W to the plain sort there."""
+    d, T, frac = 256, 1 << 16, 0.5
+    k = int(round(frac * d))
+    for seed in range(40):
+        _, kf = Tr.rng_keys(seed)
+        got = Tr.feature_masks(kf, d, T, frac, dev)
+        if bool((got.sum(1) > k).any()):
+            break
+    else:
+        pytest.fail("no tie at a tree's k-th smallest uniform in 40 draws")
+    assert torch.equal(got, Tr.feature_masks_plain(kf, d, T, frac, dev))
+
+
+@pytest.mark.parametrize("n,R_,frac", [(891, 200, 0.8), (235930, 20, 0.8), (1000, 7, 0.5)])
+def test_threefry_subsample_and_uniform_match_plain(dev, n, R_, frac):
+    from transmogrifai_tpu_torch.ops import threefry as R
+
+    ks, kf = Tr.rng_keys(3)
+    got = _counted(R.threefry_draws, lambda: Tr.subsample_weights(ks, n, R_, frac, dev))
+    assert torch.equal(got, Tr.subsample_weights_plain(ks, n, R_, frac, dev))
+    for shape in ((10, 10), (7,), (3, 5, 11), (2, 40000)):
+        assert torch.equal(R.uniform(kf, shape, dev), R.uniform_plain(kf, shape, dev))
+        assert torch.equal(R.random_bits(kf, shape, dev), R.random_bits_plain(kf, shape, dev))
+
+
+GLM_CASES = [("gaussian", "identity"), ("gaussian", "log"), ("binomial", "logit"),
+             ("poisson", "log"), ("poisson", "sqrt"), ("gamma", "inverse"), ("gamma", "log"),
+             ("tweedie", "log")]
+
+
+@pytest.mark.parametrize("family,link", GLM_CASES)
+@pytest.mark.parametrize("n,p,G,F", [(4000, 6, 3, 3), (235930, 17, 3, 3)])
+def test_weighted_gram_glm_mode_matches_plain(dev, family, link, n, p, G, F):
+    from transmogrifai_tpu_torch.ops import linear as L
+
+    rng = np.random.default_rng(n + p)
+    X1 = np.concatenate([rng.normal(size=(n, p - 1)) * 0.3, np.ones((n, 1))], 1)
+    y = rng.poisson(2.0, n).astype(np.float64)
+    if family == "binomial":
+        y = (y > 1).astype(np.float64)
+    w = rng.integers(0, 2, size=(F, n))
+    beta = rng.normal(size=(F * G, p)) * 0.1
+    beta[:, -1] = {"identity": 2.0, "log": 0.7, "logit": 0.2, "inverse": 0.5, "sqrt": 1.4}[link]
+    vp = np.tile([1.2, 1.5, 1.8], F)[:F * G] if family == "tweedie" else np.zeros(F * G)
+    ts = [torch.tensor(a, dtype=torch.float32, device=dev) for a in (X1, y, w)]
+    fold = torch.arange(F, dtype=torch.int32, device=dev).repeat_interleave(G)
+    bt = torch.tensor(beta, dtype=torch.float32, device=dev)
+    glm = (family, link, torch.tensor(vp, dtype=torch.float32, device=dev))
+    H1, g1 = _counted(L.weighted_gram, lambda: L.weighted_gram(*ts, fold, bt, glm))
+    H2, g2 = L.weighted_gram_plain(*ts, fold, bt, glm)
+    assert torch.equal(H1, L.weighted_gram(*ts, fold, bt, glm)[0])  # a fixed order: repeats
+    assert torch.equal(H1, H1.transpose(1, 2))
+    # float64 sums in both; the margins' float32 dot products in other orders,
+    # which the link's exp and the variance's power carry into the weights
+    torch.testing.assert_close(H1, H2, rtol=1e-5, atol=1e-5 * float(H2.abs().max()))
+    torch.testing.assert_close(g1, g2, rtol=1e-5, atol=1e-5 * float(g2.abs().max()))

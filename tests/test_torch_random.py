@@ -8,6 +8,9 @@ taken in float64 and rounded to float32), the exactly-k feature masks and
 the row-subsample masks.  Each is held to the JAX package's function on
 the same seed: every bit equal, at the sweep's [50, 891] and [50, 10]
 shapes, at other rates and fractions, and at a shape past 2^16 elements.
+These are the plain versions (a CPU device); K-W, the CUDA kernel of the
+same draws, is held to them on the card (``tests/test_torch_cuda.py``,
+``chip_smoke.py``).
 """
 import jax
 import jax.numpy as jnp
@@ -67,6 +70,8 @@ def test_rng_keys_match_jax():
     (3000, 9, 1.0, 3),
     (600, 20, 0.3, 11),
     (257, 4, 2.5, 42),      # rate above 1: more Knuth steps
+    (891, 50, 0.632, 42),   # the bootstrap fraction 1 - 1/e
+    (455, 8, 0.0, 42),      # rate 0: zeros
 ])
 def test_bootstrap_weights_match_jax(n, trees, rate, seed):
     jb, _ = JT.rng_keys(seed)
@@ -99,3 +104,41 @@ def test_subsample_weights_match_jax(n, rounds, frac):
     ps, _ = PT.rng_keys(42)
     np.testing.assert_array_equal(PT.subsample_weights(ps, n, rounds, frac).numpy(),
                                   np.asarray(JT.subsample_weights(js, n, rounds, frac)))
+
+
+def test_cpu_draws_take_the_plain_versions_and_launch_nothing():
+    """On the CPU (and torch's default device, ``None``) every draw is its
+    plain version, bit for bit, and K-W is never launched."""
+    R.reset_launches()
+    kb, kf = PT.rng_keys(9)
+    for dev in (None, "cpu", torch.device("cpu")):
+        assert not R.is_cuda(dev)
+        assert torch.equal(PT.bootstrap_weights(kb, 300, 5, True, 0.632, dev),
+                           PT.bootstrap_weights_plain(kb, 300, 5, True, 0.632))
+        assert torch.equal(PT.feature_masks(kf, 12, 7, 0.5, dev),
+                           PT.feature_masks_plain(kf, 12, 7, 0.5))
+        assert torch.equal(PT.subsample_weights(kb, 300, 4, 0.8, dev),
+                           PT.subsample_weights_plain(kb, 300, 4, 0.8))
+        assert torch.equal(R.uniform(kf, (3, 5), dev), R.uniform_plain(kf, (3, 5)))
+        assert torch.equal(R.random_bits(kf, (3, 5), dev), R.random_bits_plain(kf, (3, 5)))
+    assert R.threefry_draws.launches == 0
+    assert set(R.threefry_draws.launches_by_mode.values()) == {0}
+    with pytest.raises(ValueError, match="unsupported device type"):
+        R.is_cuda("meta")
+
+
+def test_a_cuda_draw_never_falls_back_to_the_plain_version():
+    """A draw on a CUDA device launches K-W or raises: on a host without a
+    card (or without the CUDA toolkit) it raises."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: tests/test_torch_cuda.py runs K-W")
+    kb, kf = PT.rng_keys(9)
+    for draw in (lambda: PT.bootstrap_weights(kb, 30, 2, device="cuda"),
+                 lambda: PT.feature_masks(kf, 12, 2, 0.5, "cuda"),
+                 lambda: PT.subsample_weights(kb, 30, 2, 0.5, "cuda"),
+                 lambda: R.uniform(kf, (4,), "cuda")):
+        with pytest.raises((RuntimeError, AssertionError)):
+            draw()
+    # the draws that need no random numbers make no launch on any device
+    assert torch.equal(PT.bootstrap_weights(kb, 30, 2, bootstrap=False, device="cpu"),
+                       torch.ones((2, 30)))

@@ -7,7 +7,8 @@ predictors vectorized, the ``chas`` pick list pivoted, both combined, and a
 selector's stock space (linear regression, random forest, GBT: 44
 candidates) for the ``medv`` response.  The data is the JAX package's
 synthetic frame, as numpy columns; ``boston_data(n, seed)`` draws larger
-frames of the same schema by the same formula.
+frames of the same schema by the same formula.  ``glm_space()`` is the GLM
+family's space for ``models_and_parameters``.
 """
 from __future__ import annotations
 
@@ -40,6 +41,26 @@ def boston_data(n: int = 506, seed: int = 13) -> Dict[str, np.ndarray]:
             + 2.7 * chas + rng.normal(0, 2.5, n) - 22.0)
     return {"id": np.arange(n), "crim": crim, "rm": rm, "age": age, "dis": dis, "tax": tax,
             "lstat": lstat, "chas": chas, "medv": medv}
+
+
+#: the GLM grid: (family, link, variance_power) x reg_param.  Reg 0 is left
+#: out (the float32 reference's solve breaks down on the ``chas`` pivot and
+#: gives NaN folds), and so is the inverse link (NaN folds on Boston)
+GLM_FAMILIES = (("gaussian", "identity", 0.0), ("poisson", "log", 0.0), ("gamma", "log", 0.0),
+                ("tweedie", "log", 1.5))
+GLM_REGS = (0.001, 0.01, 0.1)
+
+
+def glm_space():
+    """``[(OpGeneralizedLinearRegression(), grid)]``: the 12 GLM candidates
+    of ``GLM_FAMILIES`` x ``GLM_REGS``, each naming its family, link,
+    variance power and reg_param (the link is bound at construction, and the
+    variance power defaults to 0, so both are given)."""
+    from ..impl.regression.glm import OpGeneralizedLinearRegression
+
+    grid = [{"family": fam, "link": link, "variance_power": vp, "reg_param": reg}
+            for fam, link, vp in GLM_FAMILIES for reg in GLM_REGS]
+    return [(OpGeneralizedLinearRegression(), grid)]
 
 
 def build_workflow(model_types: Optional[Sequence[str]] = None,

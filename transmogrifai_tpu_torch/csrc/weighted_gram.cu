@@ -1,15 +1,25 @@
 // K-S weighted_gram: the weighted Gram matrix and weighted moment vector of
-// the Newton logistic fits and the closed-form ridge fits.
+// the Newton logistic fits, the closed-form ridge fits and the GLM's IRLS
+// steps.
 //
 // Replaces: the products inside transmogrifai_tpu/ops/linear.py::
 // fit_logistic_newton (:53), as fit_logistic_grid_folds_newton (:379) vmaps
-// it over (fold, grid) fits (NEWTON mode), and inside ::fit_ridge (:193), as
-// fit_ridge_grid_folds (:396) vmaps it (ridge mode).  For every fit c of C
-// at once, with X1 = [X, 1] f32[n, p] shared by all fits and w_f(c) the
-// fit's fold weights:
+// it over (fold, grid) fits (NEWTON mode), inside ::fit_ridge (:193), as
+// fit_ridge_grid_folds (:396) vmaps it (ridge mode), and inside the step of
+// ::fit_glm_irls (:326), as fit_glm_grid_folds (:539) vmaps it (GLM mode).
+// For every fit c of C at once, with X1 = [X, 1] f32[n, p] shared by all
+// fits and w_f(c) the fit's fold weights:
 //   NEWTON: mu = sigmoid(X1 beta_c), v = max(mu (1 - mu), 1e-6) w_f,
 //           u = w_f (mu - y);
 //   ridge:  v = w_f, u = w_f y;
+//   GLM:    eta = X1 beta_c, mu = the link's inverse of eta (clipped to
+//           [1e-10, 1 - 1e-10] for binomial), g = dmu/deta,
+//           z = eta + (y - mu) / (|g| < 1e-10 ? 1e-10 : g),
+//           v = w_f g g / var(mu, vp_c), u = v z, with the clips of
+//           _GLM_LINKS and _GLM_VARIANCE (:296-322): exp of eta clipped to
+//           [-30, 30] for the log link, the 1e-10 floors, tweedie's
+//           max(mu, 1e-10) ** vp_c; the family and the link are launch
+//           arguments, the variance power one a fit;
 //   H_c = X1^T diag(v) X1 f32[p, p] (written mirrored), g_c = X1^T u f32[p].
 // The caller divides by the weight sum, adds the penalty and solves.
 //
@@ -28,9 +38,10 @@
 // within float32 rounding of the exact weighted sum.
 //
 // Bound on the card: X1 read once per tile of fits (once for the Titanic
-// sweep's 6 Newton fits at p = 11 and for Boston's 3 folds at p = 17), each
-// fold's weights and y once; about 2 (p (p + 1) / 2 + p) + 2 p operations
-// per (fit, row).  The kernel is far from that bound (PERF.md): at 167
+// sweep's 6 Newton fits at p = 11, for Boston's 3 folds at p = 17 and for a
+// Boston GLM group's 9 fits), each fold's weights and y once; about 2 (p (p +
+// 1) / 2 + p) + 2 p operations per (fit, row), and the link's and the
+// variance's few more in GLM mode.  The kernel is far from that bound (PERF.md): at 167
 // registers a thread one 256-thread block fits an SM, and each 32-row tile
 // is a chain of dependent shared-memory FMAs between three barriers.  A
 // design with more rows in flight a thread (or wgmma) is later work.
@@ -45,6 +56,60 @@ constexpr int kMaxFits = 32;   // fits of a block's tile
 constexpr int kMaxCoefs = 64;
 constexpr int kMaxEnt = 16;    // output entries a thread accumulates
 
+enum Mode { RIDGE = 0, NEWTON = 1, GLM = 2 };
+enum Family { GAUSSIAN = 0, BINOMIAL = 1, POISSON = 2, GAMMA = 3, TWEEDIE = 4 };
+enum Link { IDENTITY = 0, LOG = 1, LOGIT = 2, INVERSE = 3, SQRT = 4 };
+
+// One IRLS row weight pair (v, u) of the GLM at the margin eta, in float32
+// operations in the reference's order (no contraction).
+__device__ __forceinline__ void glm_weights(float eta, float y, float w, float vp, int family,
+                                            int link, float* v, float* u) {
+  float mu, g;
+  switch (link) {
+    case LOG:
+      mu = g = expf(fminf(fmaxf(eta, -30.0f), 30.0f));
+      break;
+    case LOGIT:
+      mu = __fdiv_rn(1.0f, __fadd_rn(1.0f, expf(-eta)));
+      g = __fmul_rn(mu, __fsub_rn(1.0f, mu));
+      break;
+    case INVERSE:
+      mu = __fdiv_rn(1.0f, fmaxf(eta, 1e-10f));
+      g = __fdiv_rn(-1.0f, fmaxf(__fmul_rn(eta, eta), 1e-10f));
+      break;
+    case SQRT:
+      mu = __fmul_rn(eta, eta);
+      g = __fmul_rn(2.0f, eta);
+      break;
+    default:  // IDENTITY
+      mu = eta;
+      g = 1.0f;
+  }
+  // the upper clip 1 - 1e-10 is 1 in float32
+  if (family == BINOMIAL) mu = fminf(fmaxf(mu, 1e-10f), 1.0f);
+  float var;
+  switch (family) {
+    case BINOMIAL:
+      var = fmaxf(__fmul_rn(mu, __fsub_rn(1.0f, mu)), 1e-10f);
+      break;
+    case POISSON:
+      var = fmaxf(mu, 1e-10f);
+      break;
+    case GAMMA:
+      var = fmaxf(__fmul_rn(mu, mu), 1e-10f);
+      break;
+    case TWEEDIE:
+      var = powf(fmaxf(mu, 1e-10f), vp);
+      break;
+    default:  // GAUSSIAN
+      var = 1.0f;
+  }
+  const float gd = fabsf(g) < 1e-10f ? 1e-10f : g;
+  const float z = __fadd_rn(eta, __fdiv_rn(__fsub_rn(y, mu), gd));
+  *v = __fdiv_rn(__fmul_rn(__fmul_rn(w, g), g), var);
+  *u = __fmul_rn(*v, z);
+}
+
 __device__ __forceinline__ void tri_decode(int q, int p, int* i, int* j) {
   int a = 0;
   while (q >= p - a) {
@@ -55,26 +120,31 @@ __device__ __forceinline__ void tri_decode(int q, int p, int* i, int* j) {
   *j = a + q;
 }
 
-template <bool NEWTON>
+template <int MODE>
 __global__ void __launch_bounds__(kThreads)
 gram_partial(const float* __restrict__ X1, const float* __restrict__ y,
              const float* __restrict__ w, const int32_t* __restrict__ fold,
-             const float* __restrict__ beta, double* __restrict__ partial, int n, int p, int C,
-             int ct, int chunk_rows) {
+             const float* __restrict__ beta, const float* __restrict__ vp,
+             double* __restrict__ partial, int n, int p, int C, int ct, int chunk_rows,
+             int family, int link) {
   __shared__ float xs[kRows][kMaxCoefs + 1];
   __shared__ float bs[kMaxFits][kMaxCoefs];
   __shared__ float vs[kMaxFits][kRows];
   __shared__ float us[kMaxFits][kRows];
   __shared__ int fs[kMaxFits];
+  __shared__ float vps[kMaxFits];
   const int tid = threadIdx.x;
   const int c0 = blockIdx.y * ct;
   const int nc = min(ct, C - c0);
   const int tri = p * (p + 1) / 2;
   const int E = tri + p;
-  if (NEWTON)
+  if (MODE != RIDGE)
     for (int i = tid; i < nc * p; i += kThreads)
       bs[i / p][i % p] = beta[(long long)(c0 + i / p) * p + i % p];
-  if (tid < nc) fs[tid] = fold[c0 + tid];
+  if (tid < nc) {
+    fs[tid] = fold[c0 + tid];
+    vps[tid] = MODE == GLM ? vp[c0 + tid] : 0.0f;
+  }
   // this thread's entries: (fit, i, j + 1) packed, j + 1 = 0 for a gradient
   int ent[kMaxEnt];
   double acc[kMaxEnt];
@@ -111,12 +181,16 @@ gram_partial(const float* __restrict__ X1, const float* __restrict__ y,
       if (r < nr) {
         const long long row = rt + r;
         const float wr = w[(long long)fs[c] * n + row];
-        if (NEWTON) {
+        if (MODE == NEWTON) {
           float z = 0.0f;
           for (int a = 0; a < p; ++a) z = __fmaf_rn(xs[r][a], bs[c][a], z);
           const float mu = __fdiv_rn(1.0f, __fadd_rn(1.0f, expf(-z)));
           v = __fmul_rn(fmaxf(__fmul_rn(mu, __fsub_rn(1.0f, mu)), 1e-6f), wr);
           u = __fmul_rn(wr, __fsub_rn(mu, y[row]));
+        } else if (MODE == GLM) {
+          float eta = 0.0f;
+          for (int a = 0; a < p; ++a) eta = __fmaf_rn(xs[r][a], bs[c][a], eta);
+          glm_weights(eta, y[row], wr, vps[c], family, link, &v, &u);
         } else {
           v = wr;
           u = __fmul_rn(wr, y[row]);
@@ -177,26 +251,31 @@ __global__ void gram_finish(const double* __restrict__ partial, float* __restric
 
 }  // namespace
 
-// newton != 0: NEWTON mode (beta f32[C, p] read); else ridge (beta unused).
+// mode: RIDGE (beta, vp unused), NEWTON (beta f32[C, p] read) or GLM (beta
+// and the variance powers vp f32[C] read; family and link as the enums).
 // ct fits a block, with ct * (p (p + 1) / 2 + p) <= 16 * 256 and ct <= 32.
 extern "C" int weighted_gram(const void* X1, const void* y, const void* w, const void* fold,
-                             const void* beta, void* partial, void* H, void* g, int n, int p,
-                             int C, int ct, int chunks, int chunk_rows, int newton,
-                             void* stream) {
+                             const void* beta, const void* vp, void* partial, void* H, void* g,
+                             int n, int p, int C, int ct, int chunks, int chunk_rows, int mode,
+                             int family, int link, void* stream) {
   const int E = p * (p + 1) / 2 + p;
   if (n <= 0 || p <= 0 || p > kMaxCoefs || C <= 0 || ct <= 0 || ct > kMaxFits ||
-      ct * E > kMaxEnt * kThreads || chunks <= 0 || chunk_rows <= 0)
+      ct * E > kMaxEnt * kThreads || chunks <= 0 || chunk_rows <= 0 || mode < RIDGE ||
+      mode > GLM || family < GAUSSIAN || family > TWEEDIE || link < IDENTITY || link > SQRT)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   dim3 grid((unsigned)chunks, (unsigned)((C + ct - 1) / ct));
-  if (newton)
-    gram_partial<true><<<grid, kThreads, 0, st>>>(
-        (const float*)X1, (const float*)y, (const float*)w, (const int32_t*)fold,
-        (const float*)beta, (double*)partial, n, p, C, ct, chunk_rows);
+#define GRAM_ARGS                                                                        \
+  (const float*)X1, (const float*)y, (const float*)w, (const int32_t*)fold,              \
+      (const float*)beta, (const float*)vp, (double*)partial, n, p, C, ct, chunk_rows, \
+      family, link
+  if (mode == NEWTON)
+    gram_partial<NEWTON><<<grid, kThreads, 0, st>>>(GRAM_ARGS);
+  else if (mode == GLM)
+    gram_partial<GLM><<<grid, kThreads, 0, st>>>(GRAM_ARGS);
   else
-    gram_partial<false><<<grid, kThreads, 0, st>>>(
-        (const float*)X1, (const float*)y, (const float*)w, (const int32_t*)fold,
-        (const float*)beta, (double*)partial, n, p, C, ct, chunk_rows);
+    gram_partial<RIDGE><<<grid, kThreads, 0, st>>>(GRAM_ARGS);
+#undef GRAM_ARGS
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int threads = 128;  // four entries a block, a warp each

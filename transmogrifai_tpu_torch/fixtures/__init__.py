@@ -75,6 +75,17 @@ Iris flow's one-MLP space's sweep metrics [1, 3, 1, 4]
 (``iris_mlp_metrics``).  Space A's fold metrics are in its saved summary.
 ``tests/test_torch_families_slice.py --write`` regenerates it.
 
+``boston_glm/`` holds the Boston workflow's model over the GLM space
+(``apps/boston.glm_space``: gaussian / identity, poisson / log, gamma / log
+and tweedie / log at variance power 1.5, each x ``reg_param`` {0.001, 0.01,
+0.1}: 12 candidates through the per-family sweep, since the GLM has no
+fused fragment; the winner gaussian / identity at 0.001), 256 requests and
+the JAX package's predictions, and ``sweep.npz``: the 506-row train's fold
+RMSE [12, 3] (``fold_rmse``) and winner's index (``best``), and the same of
+the JAX package's train on ``boston_data(scale_rows, scale_seed)``
+(``scale_fold_rmse``, ``scale_best``; 2^18 rows, seed 0).
+``tests/test_torch_boston_glm_slice.py --write`` regenerates it.
+
 Strings with nulls are stored as a unicode array plus ``<name>__null``, so
 the files load without pickles.
 """
@@ -94,6 +105,7 @@ TITANIC_NEWTON = os.path.join(os.path.dirname(os.path.abspath(__file__)), "titan
 BOSTON_RIDGE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "boston_ridge")
 TITANIC_FAMILIES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "titanic_families")
+BOSTON_GLM = os.path.join(os.path.dirname(os.path.abspath(__file__)), "boston_glm")
 NULL_SUFFIX = "__null"
 
 #: tolerances of the comparison with the JAX package's answers.  Margins are
@@ -532,6 +544,83 @@ def compare_ridge_predictions(pred: np.ndarray, cols: Dict[str, np.ndarray],
     check(bool((err[seen] <= RIDGE_PRED_ATOL + RIDGE_PRED_RTOL * np.abs(expected[seen])).all()),
           out)
     check(bool(np.isfinite(pred).all()), "a ridge prediction is not finite")
+    return out
+
+
+#: fold RMSE of the Boston GLM candidates, relative.  The reference solves
+#: each IRLS step's system in float32, the port in float64: on the 506-row
+#: frame the port's fold RMSE are within 4.7e-5 of the fixture's and within
+#: 6.8e-6 of the reference's fits run in float64 (on the CPU), at 2^18 rows
+#: within 7e-5.  Well under the 2.6e-3 (1.5e-3 at 2^18 rows) between the winner
+#: (gaussian / identity, reg 0.001) and the runner-up (reg 0.01)
+GLM_RMSE_RTOL = 2e-4
+#: the GLM refit's predictions on the fixture's requests whose ``chas`` is a
+#: category the model saw, and its holdout metrics, against the JAX
+#: package's, relative
+GLM_PRED_RTOL = 1e-4
+#: and absolute (thousands of dollars) on the requests with an unseen
+#: ``chas``.  The chas pivot's two columns sum to the intercept's, so the
+#: direction (+1 on both, -1 on the intercept) is conditioned only by reg
+#: 0.001 on a Gram whose entries reach ~2.6e5 (``tax``): the reference's
+#: float32 solve leaves ~0.007 there (chas coefficients -1.8439 / 1.8576,
+#: intercept -19.6043, where the port's float64 solve gives -1.8512 /
+#: 1.8505 / -19.5978 and the exact optimum has the two chas coefficients
+#: summing to 0).  A request with an unseen chas value reads the intercept
+#: alone and moves by that much (0.0075 on the CPU); the seen ones read the
+#: sum, which the data fixes (``compare_glm_predictions``)
+GLM_UNSEEN_ATOL = 0.05
+
+
+def compare_glm_predictions(pred: np.ndarray, cols: Dict[str, np.ndarray],
+                            expected: np.ndarray) -> Dict[str, float]:
+    """Gaps of a GLM winner's predictions to the fixture's: within
+    ``PRED_ATOL`` + ``GLM_PRED_RTOL`` (relative) on the requests with a seen
+    ``chas`` category, within ``GLM_UNSEEN_ATOL`` on the others (see
+    there).  Raises AssertionError on a failed check."""
+    seen = np.isin(np.asarray(cols["chas"]), BOSTON_CHAS_SEEN)
+    err = np.abs(pred - expected)
+    out = {"seen_rows": int(seen.sum()), "seen_max_abs_err": float(err[seen].max()),
+           "seen_max_rel_err": float((err / np.abs(expected))[seen].max()),
+           "unseen_rows": int((~seen).sum()),
+           "unseen_max_abs_err": float(err[~seen].max(initial=0.0))}
+    check(bool((err[seen] <= PRED_ATOL + GLM_PRED_RTOL * np.abs(expected[seen])).all()), out)
+    check(bool(np.isfinite(pred).all()) and out["unseen_max_abs_err"] <= GLM_UNSEEN_ATOL, out)
+    return out
+
+
+def check_boston_glm_train(model, scale: bool = False) -> Dict[str, Any]:
+    """Hold a Boston GLM train to the ``boston_glm`` fixture: the 506-row
+    train (the saved summary: the same candidates, winner and holdout
+    metrics within ``GLM_PRED_RTOL``) or, with ``scale``, the train on
+    ``boston_data(scale_rows, scale_seed)``; every fold RMSE within
+    ``GLM_RMSE_RTOL`` (relative) of the JAX package's.  Returns the largest
+    gaps."""
+    import json
+
+    sweep = load_sweep(os.path.join(BOSTON_GLM, "sweep.npz"))
+    with open(os.path.join(BOSTON_GLM, "op_model.json")) as fh:
+        ref = stage_summary(json.load(fh))
+    summ = model.stages[-1].summary
+    _check_order(summ, ref["validationResults"])
+    best = int(sweep["scale_best" if scale else "best"])
+    check(_best_index(summ) == best,
+          f"winner {summ.best_model_name} {summ.best_grid} is not the fixture's candidate {best}")
+    folds = np.array([r["foldMetrics"] for r in summ.validation_results], np.float64)
+    theirs = sweep["scale_fold_rmse" if scale else "fold_rmse"]
+    check(folds.shape == theirs.shape, f"fold RMSE {folds.shape}, the fixture's {theirs.shape}")
+    gap = float((np.abs(folds - theirs) / np.abs(theirs)).max())
+    check(bool(np.isfinite(folds).all()) and gap <= GLM_RMSE_RTOL,
+          f"fold RMSE {gap} (relative) from the fixture's, above {GLM_RMSE_RTOL}")
+    out = {"fold_rmse_max_rel_gap": gap,
+           "holdout": {k: v for k, v in summ.holdout_evaluation.items()
+                       if k != "SignedPercentageErrorHistogram"}}
+    if not scale:
+        hold = max(abs(summ.holdout_evaluation[k] - ref["holdoutEvaluation"][k])
+                   / abs(ref["holdoutEvaluation"][k])
+                   for k in ("RootMeanSquaredError", "MeanSquaredError", "R2",
+                             "MeanAbsoluteError"))
+        check(hold <= GLM_PRED_RTOL, f"holdout metrics {hold} (relative) from the fixture's")
+        out["holdout_max_rel_gap"] = hold
     return out
 
 

@@ -26,6 +26,7 @@ from ..classification.naive_bayes import OpNaiveBayes
 from ..classification.svc import OpLinearSVC
 from ..classification.trees import (OpDecisionTreeClassifier, OpGBTClassifier,
                                     OpRandomForestClassifier, OpXGBoostClassifier)
+from ..regression.glm import OpGeneralizedLinearRegression
 from ..regression.linear import OpLinearRegression
 from ..regression.trees import (OpDecisionTreeRegressor, OpGBTRegressor,
                                 OpRandomForestRegressor, OpXGBoostRegressor)
@@ -38,8 +39,8 @@ __all__ = ["BinaryClassificationModelSelector", "MultiClassificationModelSelecto
            "RegressionModelSelector", "OpLogisticRegression", "OpLinearSVC", "OpNaiveBayes",
            "OpMultilayerPerceptronClassifier", "OpDecisionTreeClassifier",
            "OpRandomForestClassifier", "OpGBTClassifier", "OpXGBoostClassifier",
-           "OpLinearRegression", "OpDecisionTreeRegressor", "OpRandomForestRegressor",
-           "OpGBTRegressor", "OpXGBoostRegressor"]
+           "OpLinearRegression", "OpGeneralizedLinearRegression", "OpDecisionTreeRegressor",
+           "OpRandomForestRegressor", "OpGBTRegressor", "OpXGBoostRegressor"]
 
 Candidates = Sequence[Tuple[Any, Sequence[Dict[str, Any]]]]
 

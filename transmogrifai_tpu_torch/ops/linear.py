@@ -30,19 +30,24 @@ L1 term: the threshold is 0);
 
 and ``weighted_gram`` (K-S, ``csrc/weighted_gram.cu``) forms the weighted
 Gram matrix and moment vector of every Newton step (``X1^T diag(w mu (1 -
-mu)) X1`` and ``X1^T (w (mu - y))`` at each fit's coefficients) and of the
+mu)) X1`` and ``X1^T (w (mu - y))`` at each fit's coefficients), of the
 ridge normal equations (``X1^T diag(w) X1`` and ``X1^T (w y)``, once a
-fold).  The proximal step, the soft threshold and the momentum are
-elementwise torch on [C, p] (or [C, p, k]); the shared momentum scalars
-are float32 on the host.  The Newton and ridge solves of the small [p, p]
+fold) and of every GLM IRLS step.  The proximal step, the soft threshold
+and the momentum are elementwise torch on [C, p] (or [C, p, k]); the
+shared momentum scalars are float32 on the host.  The Newton and ridge solves of the small [p, p]
 systems are batched ``torch.linalg.solve_ex`` in float64 (LU with partial
 pivoting, as the reference's float32 ``jnp.linalg.solve``; see ``_ridge``
 for why float64; no singularity check), each result rounded to float32.  The wrappers take
 the plain version only for tensors on the CPU; for CUDA tensors they
 launch the kernel or raise ``KernelError``; ``<wrapper>.launches`` counts
 their launches.  Predictions are plain products: ``torch.matmul`` in full
-float32 (see ``utils/device.apply_f32_policy``).  The GLM fits are not
-ported.
+float32 (see ``utils/device.apply_f32_policy``).
+
+The GLM (``fit_glm_irls``, ``fit_glm_grid_folds``, ``predict_glm``,
+``predict_glm_grid``, with the reference's ``_GLM_LINKS``,
+``_GLM_VARIANCE`` and ``GLM_DEFAULT_LINK``) runs IRLS on K-S in its GLM
+mode: each step forms every fit's IRLS weights and working responses in
+the kernel's prologue, its Gram and moments, and one float64 solve a fit.
 """
 from __future__ import annotations
 
@@ -483,14 +488,14 @@ def fit_softmax(X: torch.Tensor, y: torch.Tensor, sample_weight: torch.Tensor, l
 # ---------------------------------------------------------------------------
 #: the most coefficients (features + intercept) K-S takes
 GRAM_MAX_COEFS = 64
-_GRAM_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+_GRAM_ARGS = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
 #: K-S's tiles: 32 rows staged a step, at most 32 fits a block and 16 output
 #: entries a thread (256 threads)
 _GRAM_MAX_FITS = 32
 _GRAM_MAX_ENTRIES = 16 * 256
 
 
-def _check_gram(X1, y, w, fold, beta):
+def _check_gram(X1, y, w, fold, beta, glm):
     if not (X1.dtype == torch.float32 and X1.ndim == 2):
         raise ValueError("X1 must be float32[n, p]")
     n, p = X1.shape
@@ -505,47 +510,66 @@ def _check_gram(X1, y, w, fold, beta):
         raise ValueError(f"beta must be float32[{C}, {p}]")
     if p > GRAM_MAX_COEFS:
         raise ValueError(f"weighted_gram takes at most {GRAM_MAX_COEFS} coefficients, got {p}")
+    if glm is not None:
+        family, link, vp = glm
+        if beta is None:
+            raise ValueError("the GLM mode needs beta")
+        if family not in _GLM_VARIANCE or link not in _GLM_LINKS:
+            raise ValueError(f"unknown GLM family {family!r} or link {link!r}")
+        if vp.dtype != torch.float32 or tuple(vp.shape) != (C,):
+            raise ValueError(f"vp must be float32[{C}]")
 
 
-def _gram_weights(X1, y, w, fold, beta):
+def _gram_weights(X1, y, w, fold, beta, glm=None):
     """Each fit's row weights (v, u) f32[C, n]: Newton's ``max(mu (1 - mu),
-    1e-6) w`` and ``w (mu - y)`` at ``beta``, or ridge's ``w`` and ``w y``."""
+    1e-6) w`` and ``w (mu - y)`` at ``beta``, ridge's ``w`` and ``w y``, or
+    the GLM's IRLS weights and working responses (``_glm_weights``)."""
     wf = w[fold.long()]
     if beta is None:
         return wf, wf * y
+    if glm is not None:
+        return _glm_weights(beta @ X1.T, y, wf, *glm)
     mu = _sigmoid(beta @ X1.T)
     return torch.clamp_min(mu * (1.0 - mu), 1e-6) * wf, wf * (mu - y)
 
 
 def weighted_gram_plain(X1: torch.Tensor, y: torch.Tensor, w: torch.Tensor, fold: torch.Tensor,
-                        beta: Optional[torch.Tensor] = None
+                        beta: Optional[torch.Tensor] = None, glm=None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of K-S: the row weights in float32, both
     products summed in float64 and rounded once, as the kernel's sums are."""
-    v, u = _gram_weights(X1, y, w, fold, beta)
+    v, u = _gram_weights(X1, y, w, fold, beta, glm)
     Xd = X1.double()
     H = torch.einsum("cn,np,nq->cpq", v.double(), Xd, Xd)
     return H.to(torch.float32), (u.double() @ Xd).to(torch.float32)
 
 
 def weighted_gram(X1: torch.Tensor, y: torch.Tensor, w: torch.Tensor, fold: torch.Tensor,
-                  beta: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+                  beta: Optional[torch.Tensor] = None, glm=None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(H f32[C, p, p], g f32[C, p]) of C fits: ``H_c = X1^T diag(v_c) X1``
     and ``g_c = X1^T u_c`` with, given ``beta`` f32[C, p] (a Newton step),
     ``mu = sigmoid(X1 beta_c)``, ``v_c = max(mu (1 - mu), 1e-6) w_f`` and
     ``u_c = w_f (mu - y)``; without ``beta`` (ridge), ``v_c = w_f`` and
-    ``u_c = w_f y``.  ``X1`` f32[n, p] (the features with the intercept
+    ``u_c = w_f y``; given ``beta`` and ``glm = (family, link, vp f32[C])``
+    (an IRLS step), the IRLS weights ``v_c`` and ``u_c = v_c z_c`` of
+    ``_glm_weights``.  ``X1`` f32[n, p] (the features with the intercept
     column), ``y`` f32[n], ``w`` f32[F, n] the folds' row weights, ``fold``
     i32[C] each fit's fold.  At most ``GRAM_MAX_COEFS`` coefficients."""
-    _check_gram(X1, y, w, fold, beta)
+    _check_gram(X1, y, w, fold, beta, glm)
     others = () if beta is None else (beta,)
+    if glm is not None:
+        others += (glm[2],)
     if not _on_cuda(X1, y, w, fold, *others):
-        return weighted_gram_plain(X1, y, w, fold, beta)
+        return weighted_gram_plain(X1, y, w, fold, beta, glm)
     n, p = X1.shape
     C = fold.shape[0]
     dev = X1.device
     X1, y, w, fold = X1.contiguous(), y.contiguous(), w.contiguous(), fold.contiguous()
     beta_t = X1 if beta is None else beta.contiguous()
+    vp_t = X1 if glm is None else glm[2].contiguous()
+    mode = 0 if beta is None else (1 if glm is None else 2)
+    family, link = (0, 0) if glm is None else (_GLM_FAMILY_CODE[glm[0]], _GLM_LINK_CODE[glm[1]])
     E = p * (p + 1) // 2 + p
     ct = max(1, min(C, _GRAM_MAX_FITS, _GRAM_MAX_ENTRIES // E))
     tiles = -(-C // ct)
@@ -560,8 +584,9 @@ def weighted_gram(X1: torch.Tensor, y: torch.Tensor, w: torch.Tensor, fold: torc
     lib = cuda_build.load("weighted_gram", {"weighted_gram": (_GRAM_ARGS, ctypes.c_int)})
     with torch.cuda.device(dev):
         rc = lib.weighted_gram(X1.data_ptr(), y.data_ptr(), w.data_ptr(), fold.data_ptr(),
-                               beta_t.data_ptr(), partial.data_ptr(), H.data_ptr(), g.data_ptr(),
-                               n, p, C, ct, chunks, chunk_rows, int(beta is not None),
+                               beta_t.data_ptr(), vp_t.data_ptr(), partial.data_ptr(),
+                               H.data_ptr(), g.data_ptr(), n, p, C, ct, chunks, chunk_rows,
+                               mode, family, link,
                                ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     cuda_build.check_launch("weighted_gram", rc)
     weighted_gram.launches += 1
@@ -671,6 +696,119 @@ def fit_ridge(X: torch.Tensor, y: torch.Tensor, sample_weight: torch.Tensor, l2:
     """One closed-form ridge fit: coef [d], intercept [1]."""
     fit = fit_ridge_grid_folds(X, y, sample_weight[None], [l2], fit_intercept=fit_intercept)
     return LinearFit(fit.coef[0, 0], fit.intercept[0, 0])
+
+
+# ---------------------------------------------------------------------------
+# The GLM: IRLS on K-S (GLM mode)
+# ---------------------------------------------------------------------------
+_GLM_LINKS = {
+    # link: (eta_of_mu, mu_of_eta, dmu_deta), the reference's float32 formulas
+    "identity": (lambda mu: mu, lambda e: e, lambda e: torch.ones_like(e)),
+    "log": (lambda mu: torch.log(torch.clamp_min(mu, 1e-10)),
+            lambda e: torch.exp(torch.clamp(e, -30.0, 30.0)),
+            lambda e: torch.exp(torch.clamp(e, -30.0, 30.0))),
+    "logit": (lambda mu: torch.log(mu / (1.0 - mu)), _sigmoid,
+              lambda e: _sigmoid(e) * (1.0 - _sigmoid(e))),
+    "inverse": (lambda mu: 1.0 / torch.clamp_min(mu, 1e-10),
+                lambda e: 1.0 / torch.clamp_min(e, 1e-10),
+                lambda e: -1.0 / torch.clamp_min(e * e, 1e-10)),
+    "sqrt": (lambda mu: torch.sqrt(torch.clamp_min(mu, 0.0)),
+             lambda e: e * e, lambda e: 2.0 * e),
+}
+
+_GLM_VARIANCE = {
+    "gaussian": lambda mu, p: torch.ones_like(mu),
+    "binomial": lambda mu, p: torch.clamp_min(mu * (1.0 - mu), 1e-10),
+    "poisson": lambda mu, p: torch.clamp_min(mu, 1e-10),
+    "gamma": lambda mu, p: torch.clamp_min(mu * mu, 1e-10),
+    "tweedie": lambda mu, p: torch.pow(torch.clamp_min(mu, 1e-10), p),
+}
+
+GLM_DEFAULT_LINK = {"gaussian": "identity", "binomial": "logit",
+                    "poisson": "log", "gamma": "inverse", "tweedie": "log"}
+
+#: the family and link codes of K-S's GLM mode (``csrc/weighted_gram.cu``)
+_GLM_FAMILY_CODE = {"gaussian": 0, "binomial": 1, "poisson": 2, "gamma": 3, "tweedie": 4}
+_GLM_LINK_CODE = {"identity": 0, "log": 1, "logit": 2, "inverse": 3, "sqrt": 4}
+
+
+def _glm_weights(eta: torch.Tensor, y: torch.Tensor, wf: torch.Tensor, family: str, link: str,
+                 vp: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One IRLS step's row weights (v, u) f32[C, n] at the margins ``eta``
+    [C, n]: ``v = w g^2 / var(mu)`` and ``u = v z`` with ``z = eta + (y -
+    mu) / g`` (``g`` floored at 1e-10 in magnitude), the reference's float32
+    operations in its order; ``vp`` f32[C] each fit's variance power."""
+    _, mu_of, dmu = _GLM_LINKS[link]
+    mu = mu_of(eta)
+    if family == "binomial":
+        mu = torch.clamp(mu, 1e-10, 1.0 - 1e-10)
+    g = dmu(eta)
+    z = eta + (y - mu) / torch.where(torch.abs(g) < 1e-10, torch.full_like(g, 1e-10), g)
+    v = wf * g * g / _GLM_VARIANCE[family](mu, vp[:, None])
+    return v, v * z
+
+
+def fit_glm_grid_folds(X: torch.Tensor, y: torch.Tensor, train_w: torch.Tensor, l2s, vps,
+                       family: str, link: str, max_iter: int = 25,
+                       fit_intercept: bool = True) -> LinearFit:
+    """IRLS GLM fits for every (fold, grid) pair of one (family, link), on
+    X's device: the reference's ``fit_glm_irls`` for each fit, ``max_iter``
+    steps (no tolerance test) from the fold's weighted mean response
+    (clipped at 1e-6, and to [1e-6, 1 - 1e-6] for binomial) through the
+    link, each solving ``(X1^T diag(v) X1 / sum(w) + diag(l2) + 1e-8 I) beta
+    = X1^T (v z) / sum(w)`` (the intercept unpenalized), the products by
+    K-S in GLM mode for all fits at once and the system in float64.
+    ``l2s``, ``vps``: each grid point's L2 penalty and tweedie variance
+    power.  Returns coef [F, G, d], intercept [F, G, 1]."""
+    dev = X.device
+    F = train_w.shape[0]
+    G = int(np.asarray(l2s).size)
+    X1 = _with_intercept(X.to(torch.float32), fit_intercept)
+    p = X1.shape[1]
+    w = train_w.to(dev, torch.float32).contiguous()
+    yd = y.to(dev, torch.float32).contiguous()
+    fold = torch.arange(F, dtype=torch.int32, device=dev).repeat_interleave(G)
+    reg = _penalty(l2s, F, p, fit_intercept, dev)                             # [C, p]
+    vp = torch.as_tensor(np.asarray(vps, np.float32).reshape(-1), device=dev).repeat(F)
+    w_fold = torch.clamp_min(w.sum(1), 1e-12)                                 # [F]
+    beta = torch.zeros((F * G, p), dtype=torch.float32, device=dev)
+    if fit_intercept:
+        mu0 = torch.clamp_min((yd * w).sum(1) / w_fold, 1e-6)
+        if family == "binomial":
+            mu0 = torch.clamp(mu0, 1e-6, 1.0 - 1e-6)
+        beta[:, -1] = _GLM_LINKS[link][0](mu0)[fold.long()]
+    w_sum = w_fold.double()[fold.long()]                                      # [C]
+    ridge = _ridge(reg, 1e-8)
+    for _ in range(max_iter):
+        H, g = weighted_gram(X1, yd, w, fold, beta, (family, link, vp))
+        A = H.double() / w_sum[:, None, None] + ridge
+        beta = torch.linalg.solve_ex(A, g.double() / w_sum[:, None])[0].to(torch.float32)
+    return _split_beta(beta, F, G, fit_intercept)
+
+
+def fit_glm_irls(X: torch.Tensor, y: torch.Tensor, sample_weight: torch.Tensor, l2: float,
+                 family: str, link: str, max_iter: int = 25, fit_intercept: bool = True,
+                 variance_power: float = 1.5) -> LinearFit:
+    """One IRLS GLM fit (Spark's GeneralizedLinearRegression): coef [d],
+    intercept [1]."""
+    fit = fit_glm_grid_folds(X, y, sample_weight[None], [l2], [variance_power], family, link,
+                             max_iter=max_iter, fit_intercept=fit_intercept)
+    return LinearFit(fit.coef[0, 0], fit.intercept[0, 0])
+
+
+def predict_glm(X: torch.Tensor, coef: torch.Tensor, intercept: torch.Tensor, link: str
+                ) -> torch.Tensor:
+    """The GLM's mean response f32[n]: the link's inverse of ``X @ coef +
+    intercept[0]``."""
+    return _GLM_LINKS[link][1](X @ coef + intercept[0])
+
+
+def predict_glm_grid(X: torch.Tensor, coef: torch.Tensor, intercept: torch.Tensor, link: str
+                     ) -> torch.Tensor:
+    """Every (fold, grid) fit's mean response [F, G, n] from coef [F, G, d],
+    intercept [F, G, 1]."""
+    eta = torch.einsum("nd,fgd->fgn", X, coef) + intercept[..., :1]
+    return _GLM_LINKS[link][1](eta)
 
 
 def predict_linear(X: torch.Tensor, coef: torch.Tensor, intercept: torch.Tensor

@@ -8,7 +8,8 @@ The port's counterpart of ``transmogrifai_tpu/ops/trees.py``.  Scoring:
 ``sketch_edges``, ``quantize``, ``frontier_cap``, ``_pool_size``,
 ``frontier_is_exact``, the threefry draws (``rng_keys``,
 ``bootstrap_weights``, ``feature_masks``, ``subsample_weights``, bit-equal
-to the JAX package's), the level-wise tree grower over c gradient channels
+to the JAX package's; on the card each one launch of K-W, ``threefry_draws``
+in ``ops/threefry.py``), the level-wise tree grower over c gradient channels
 (c = 1 for binary and regression trees, c = k classes for the multiclass
 forests' -onehot gradients and the softmax boosting, up to
 ``MAX_CHANNELS``), boosting (``fit_gbt``, ``fit_gbt_batch``) with the
@@ -356,16 +357,11 @@ def rng_keys(seed: int) -> Tuple[R.Key, R.Key]:
     return kb, kf
 
 
-def bootstrap_weights(key: R.Key, n: int, n_trees: int, bootstrap: bool = True,
-                      rate: float = 1.0, device=None) -> torch.Tensor:
-    """Poisson(rate) bootstrap weights f32[T, n] on ``device``: Knuth's loop
-    as ``jax.random.poisson`` runs it (one key split and one full-shape
-    uniform a step, while any lane's log-product is above -rate), with each
-    log taken in float64 and rounded to float32.  That rounding is what
-    matches XLA's float32 log on every lane drawn at the sweep's shapes
-    ([50, 891] and [50, 2^18], checked against ``jax.random.poisson``); a
-    float32 log, which differs from XLA's on about 14% of the uniform's
-    values, is not used."""
+def bootstrap_weights_plain(key: R.Key, n: int, n_trees: int, bootstrap: bool = True,
+                            rate: float = 1.0, device=None) -> torch.Tensor:
+    """Plain version of ``bootstrap_weights``: Knuth's loop as whole-array
+    torch integer ops, one key split, one full-shape uniform and one host
+    sync a step."""
     if not bootstrap:
         return torch.ones((n_trees, n), dtype=torch.float32, device=device)
     lam = torch.tensor(float(np.float32(rate)), dtype=torch.float32, device=device)
@@ -380,30 +376,65 @@ def bootstrap_weights(key: R.Key, n: int, n_trees: int, bootstrap: bool = True,
             break
         rng, sub = R.split(rng)
         k += live.to(torch.int32)
-        u = R.uniform(sub, (n_trees, n), device)
+        u = R.uniform_plain(sub, (n_trees, n), device)
         log_prod = log_prod + torch.log(u.to(torch.float64)).to(torch.float32)
     return (k - 1).to(torch.float32)
+
+
+def bootstrap_weights(key: R.Key, n: int, n_trees: int, bootstrap: bool = True,
+                      rate: float = 1.0, device=None) -> torch.Tensor:
+    """Poisson(rate) bootstrap weights f32[T, n] on ``device``: Knuth's loop
+    as ``jax.random.poisson`` runs it (one key split and one full-shape
+    uniform a step, while any lane's log-product is above -rate), with each
+    log taken in float64 and rounded to float32.  That rounding is what
+    matches XLA's float32 log on every lane drawn at the sweep's shapes
+    ([50, 891] and [50, 2^18], checked against ``jax.random.poisson``); a
+    float32 log, which differs from XLA's on about 14% of the uniform's
+    values, is not used.  On a CUDA device one launch of K-W (each lane
+    runs its own loop); ``bootstrap=False`` gives ones and rate 0 zeros,
+    without a launch."""
+    if not bootstrap or float(np.float32(rate)) == 0.0 or not R.is_cuda(device):
+        return bootstrap_weights_plain(key, n, n_trees, bootstrap, rate, device)
+    return R.threefry_draws("poisson", key, (n_trees, n), device, float(np.float32(rate)))
+
+
+def feature_masks_plain(key: R.Key, d: int, n_trees: int, frac: float,
+                        device=None) -> torch.Tensor:
+    """Plain version of ``feature_masks``: the uniforms sorted per tree."""
+    if frac >= 1.0:
+        return torch.ones((n_trees, d), dtype=torch.float32, device=device)
+    k = max(1, int(round(frac * d)))
+    r = R.uniform_plain(key, (n_trees, d), device)
+    thresh = torch.sort(r, dim=1).values[:, k - 1:k]
+    return (r <= thresh).to(torch.float32)
 
 
 def feature_masks(key: R.Key, d: int, n_trees: int, frac: float,
                   device=None) -> torch.Tensor:
     """Per-tree feature masks f32[T, d] with exactly ``k = max(1,
     round(frac d))`` features each: the uniforms at or below each tree's
-    k-th smallest."""
+    k-th smallest.  On a CUDA device one launch of K-W (a warp a tree)."""
+    if frac >= 1.0 or not R.is_cuda(device):
+        return feature_masks_plain(key, d, n_trees, frac, device)
+    return R.threefry_draws("masks", key, (n_trees, d), device,
+                            keep=max(1, int(round(frac * d))))
+
+
+def subsample_weights_plain(key: R.Key, n: int, n_rounds: int, frac: float,
+                            device=None) -> torch.Tensor:
+    """Plain version of ``subsample_weights``."""
     if frac >= 1.0:
-        return torch.ones((n_trees, d), dtype=torch.float32, device=device)
-    k = max(1, int(round(frac * d)))
-    r = R.uniform(key, (n_trees, d), device)
-    thresh = torch.sort(r, dim=1).values[:, k - 1:k]
-    return (r <= thresh).to(torch.float32)
+        return torch.ones((n_rounds, n), dtype=torch.float32, device=device)
+    return (R.uniform_plain(key, (n_rounds, n), device) < np.float32(frac)).to(torch.float32)
 
 
 def subsample_weights(key: R.Key, n: int, n_rounds: int, frac: float,
                       device=None) -> torch.Tensor:
-    """Per-round row-subsample masks f32[R, n]: uniform < frac."""
-    if frac >= 1.0:
-        return torch.ones((n_rounds, n), dtype=torch.float32, device=device)
-    return (R.uniform(key, (n_rounds, n), device) < np.float32(frac)).to(torch.float32)
+    """Per-round row-subsample masks f32[R, n]: uniform < frac.  On a CUDA
+    device one launch of K-W."""
+    if frac >= 1.0 or not R.is_cuda(device):
+        return subsample_weights_plain(key, n, n_rounds, frac, device)
+    return R.threefry_draws("below", key, (n_rounds, n), device, float(np.float32(frac)))
 
 
 # ---------------------------------------------------------------------------
