@@ -3,6 +3,7 @@
 Run from the repository root on a host with one CUDA card:
 
     python3 chip_smoke.py [--seed 0] [--rows 1048576] [--reps 20] [--train-rows 262144]
+                          [--stats-rows 1048576]
 
 Phases, each printing its findings on a line of its own:
 
@@ -210,7 +211,40 @@ Phases, each printing its findings on a line of its own:
                (family, link) pair, one IRLS step from the start of each of
                the scale train's fits (within ``GLM_GRAM_RTOL``), timed as in
                phase 2 beside its bound and one ``einsum`` over the given
-               weights.
+               weights;
+32. sanity reference -- the port's sanity checker on the 891-row Titanic
+               vector (the port's vectorizers) in four settings, {pearson,
+               spearman} x {in memory, ``sharded_stats=True``}, each held to
+               the committed ``titanic_sanity`` fixture (the JAX package's
+               dropped features and reasons, label correlations, correlation
+               matrix and column moments) by ``FX.check_titanic_sanity``;
+33-34. sanity scale trains -- the Titanic flow over the five Newton points on
+               a ``titanic_columns(--stats-rows, --seed)`` frame with
+               ``sample_upper_limit`` 2^20: every sanity-checker fit (one a
+               workflow-level fold, the final one) streams its sample in
+               chunks of 2^18 rows; under Pearson in one pass (K-X Chan mode,
+               K-I centered), under Spearman in two (K-X raw mode, K-Y's
+               ranks, K-I centered); the launch counts reset just before and
+               read just after (those kernels and K-S above 0), the final
+               fit's summary held to the fixture's (2^20 rows, seed 0), the
+               host-clock breakdown, a profiled second run;
+35. stream kernels -- K-X in both modes and K-I centered on the final fit's
+               first 2^18-row chunk, K-Y over its whole sample, each again at
+               2^18 x 512 and K-Y on tie-heavy columns, against their plain
+               versions (K-Y and K-X's min / max bit-equal, the float64 sums
+               within ``STREAM_RTOL``), timed as in phase 2 beside their
+               bounds, one ``torch.mm`` of the centered chunk (K-I) and one
+               sort + scatter (K-Y);
+36. layer kernels -- K-Z on the Pearson train's final fit's columns: its
+               numeric_op on the family size's add and ``+ 1`` (every
+               ``--stats-rows`` row: past 200,000 rows a lone stage runs on
+               the device, as the JAX package streams it), its column_gather
+               on the VectorsCombiner's concatenation and the sanity
+               checker's kept columns, against their plain versions (the
+               gathers, the add and the ``+ 1`` bit-equal; other operations
+               within ``LAYER_RTOL``), timed beside their bounds and one
+               ``torch.cat`` / ``index_select``; the scale trains' K-Z
+               launch counts must be above 0.
 
 The line before the last holds the kernels' JSON record, then the card's
 name and power limit; the last line is ``{"ok": true, "device": ...}``.  Any
@@ -2503,12 +2537,366 @@ def boston_glm_check(FX, rows, seed):
     return check_fn
 
 
+#: the H100 SXM's float64 rate with its tensor cores (67 TFLOP/s; 34 outside
+#: them), NVIDIA's data sheet at 700 W: the least time of K-X's and K-I
+#: centered's float64 work
+PEAK_F64_OPS_PER_S = 67e12
+#: K-X's and K-I centered's float64 sums against their plain versions (other
+#: orders, float64 throughout), relative to each output row's largest entry
+STREAM_RTOL = 1e-12
+#: the sanity checker's four settings held on the card to the fixture's 891-row
+#: Titanic vector: {pearson, spearman} x {in memory, streamed}
+SANITY_REFERENCE = ("pearson", "pearson_streamed", "spearman", "spearman_streamed")
+
+
+def stream_kernels(K):
+    """The sanity checker's kernels: K-X, K-I (both modes), K-Y, K-J."""
+    return (K.chunk_moments, K.centered_gram, K.midranks, K.corr_gram, K.contingency_counts)
+
+
+def sanity_reference_phase(torch, titanic, FX, dev="cuda"):
+    """The port's sanity checker on the card on the 891-row Titanic vector
+    (the port's vectorizers, from a Newton-space train's final fit) in the
+    four settings of ``SANITY_REFERENCE``, each fitted alone and held to the
+    committed ``titanic_sanity`` fixture (the JAX package's summaries and
+    correlation matrices) by ``FX.check_titanic_sanity``; raises on a failed
+    check."""
+    import transmogrifai_tpu_torch as P
+    from transmogrifai_tpu_torch.impl.preparators import sanity_checker as SC
+    from transmogrifai_tpu_torch.ops import stats as K
+
+    model, _ = titanic.train_titanic(device=dev, models_and_parameters=spaces()["titanic_newton"])
+    sc = next(s for s in model.stages if type(s).__name__ == "SanityCheckerModel")
+    label, vector = sc.inputs
+    ds = P.Dataset({f.name: model.train_data[f.name] for f in sc.inputs})
+    width = int(ds[vector.name].values.shape[1])
+    check(width == FX.load_sanity()["pearson"]["width"], f"Titanic vector width {width}")
+    out = {}
+    for setting in SANITY_REFERENCE:
+        params = FX.SANITY_SETTINGS[setting][1]
+        zero_launches(stream_kernels(K))
+        stage = SC.SanityChecker(**params).set_input(label, vector).to(dev)
+        with FX.CorrMatrices(SC) as rec:
+            fitted = stage.fit(ds)
+        torch.cuda.synchronize()
+        launches = {f"{fn.__name__}_{m}": v for fn in stream_kernels(K)
+                    for m, v in getattr(fn, "launches_by_mode", {}).items()}
+        launches.update({fn.__name__: fn.launches for fn in stream_kernels(K)})
+        streamed, spearman = params.get("sharded_stats") is True, "spearman" in setting
+        want = (["chunk_moments", "centered_gram"] if streamed else ["corr_gram"]) \
+            + (["midranks"] if spearman else [])
+        check(all(launches[k] > 0 for k in want), f"{setting}: launches {launches}")
+        out[setting] = {**FX.check_titanic_sanity(fitted.metadata["sanity_checker_summary"],
+                                                  setting, rec.matrices[-1]),
+                        "launches": launches}
+    log("sanity_reference", rows=891, width=width, settings=out,
+        tolerances={"corr": FX.SANITY_CORR_ATOL, "moments": FX.SANITY_MOMENT_RTOL})
+
+
+def sanity_scale_check(torch, FX, setting, rows, seed, keep):
+    """The check of a sanity-checker scale train: its final fit's summary
+    (and correlation matrix, from ``keep["matrices"]``) held to the
+    fixture's on its 2^20-row seed-0 frame, else every label correlation
+    finite or null and the vector as wide as the fixture's; keeps the final fit's
+    vector and label in ``keep`` for the kernel phase."""
+
+    def check_fn(model):
+        sc = next(s for s in model.stages if type(s).__name__ == "SanityCheckerModel")
+        summary = sc.metadata["sanity_checker_summary"]
+        vec = model.train_data[sc.inputs[1].name].values
+        y = np.asarray(model.train_data[sc.inputs[0].name].values, np.float32)
+        keep["X"], keep["y"] = vec, torch.from_numpy(y).to(vec.device)
+        if setting == "scale_pearson":
+            layer_keep(model, keep)
+        found = {"width": int(vec.shape[1]), "sample": summary["sampleSize"],
+                 "dropped": sorted(summary["dropped"])}
+        check(summary["sampleSize"] == rows, f"sample {summary['sampleSize']}, not {rows}")
+        check(summary["correlationType"] == FX.SANITY_SETTINGS[setting][1].get(
+            "correlation_type", "pearson"), "correlation type")
+        if (rows, seed) == (FX.SANITY_SCALE_ROWS, FX.SANITY_SCALE_SEED):
+            return {**found, "against": "the JAX package's final fit",
+                    **FX.check_titanic_sanity(summary, setting, keep["matrices"][-1])}
+        corr = [c for c in summary["correlationsWLabel"]["values"] if c is not None]
+        check(bool(np.isfinite(corr).all()), "non-finite label correlations")
+        check(found["width"] == FX.load_sanity()[setting]["width"], "the vector's width")
+        return {**found, "against": "finite correlations and the fixture's width"}
+
+    return check_fn
+
+
+def stream_kernel_phase(torch, X, y, timer, dev="cuda"):
+    """K-X (both modes), K-I centered and K-Y against their plain versions on
+    the card at the scale train's shapes (its final fit's first 2^18-row
+    chunk of X f32[n, d] and y; K-Y over all n rows), again at a wide shape
+    (2^18 x 512) and on tie-heavy columns (integers in [0, 16)): K-Y and
+    K-X's min and max bit-equal, the float64 sums within ``STREAM_RTOL``;
+    timed as in phase 2."""
+    from transmogrifai_tpu_torch.ops import stats as K
+
+    def row_gap(got, want):
+        scale = want.abs().amax(dim=-1, keepdim=True).clamp_min(1e-300)
+        return float(((got - want).abs() / scale).max())
+
+    def held(name, fn, plain):
+        got = fn()
+        torch.cuda.synchronize()
+        check(torch.equal(got, fn()), f"{name} does not repeat bit for bit")
+        want = plain()
+        if name.startswith("midranks"):
+            check(torch.equal(got, want), f"{name} differs from its plain version")
+            return 0.0
+        if name.startswith("chunk_moments"):
+            check(torch.equal(got[2:], want[2:]), f"{name}: min / max differ")
+            got, want = got[:2], want[:2]
+        err = row_gap(got, want)
+        check(err <= STREAM_RTOL, f"{name} {err} from its plain version, above {STREAM_RTOL}")
+        return float((got - want).abs().max())
+
+    def centered(Xc, yc, c):
+        return (torch.cat([Xc, yc[:, None]], 1).double() - c).contiguous()
+
+    def ranks_library(Xb):
+        ss, order = torch.sort(Xb.T.contiguous(), dim=1)
+        ordinal = torch.arange(1, Xb.shape[0] + 1, device=Xb.device, dtype=torch.float32)
+        return torch.empty_like(ss).scatter_(1, order, ordinal.expand_as(ss))
+
+    n, d = X.shape
+    rows = min(n, 1 << 18)
+    Xc, yc = X[:rows].contiguous(), y[:rows].contiguous()
+    rng = np.random.default_rng(0)
+    Xw = torch.from_numpy(rng.normal(size=(1 << 18, 512)).astype(np.float32) * 3 + 1).to(dev)
+    yw = torch.from_numpy(rng.normal(size=1 << 18).astype(np.float32)).to(dev)
+    Xt = torch.from_numpy(rng.integers(0, 16, size=(n, 4)).astype(np.float32)).to(dev)
+    records, extra = [], {}
+    for label, (A, b) in (("train", (Xc, yc)), ("wide", (Xw, yw))):
+        r, dd = A.shape
+        for mode, lab in (("raw", None), ("chan", b)):
+            name = f"chunk_moments_{mode}"
+            err = held(name, lambda: K.chunk_moments(A, lab, mode),
+                       lambda: K.chunk_moments_plain(A, lab, mode))
+            dc = dd + (lab is not None)
+            # the chunk read once, 4 dc float64 written; per element the sums
+            # (raw: add, fma, min, max) or Welford's update (~8 operations)
+            bd, by = bound_ms(r * dc * 4 + 4 * dc * 8, r * dc * (4 if mode == "raw" else 8),
+                              PEAK_F64_OPS_PER_S)
+            row = {"max_abs_err": err, "ms": timer(lambda: K.chunk_moments(A, lab, mode)),
+                   "plain_ms": timer(lambda: K.chunk_moments_plain(A, lab, mode)),
+                   "bound_ms": bd, "bound_by": by, "library_ms": None, "shape": [r, dc]}
+            extra[f"{name} {label}"] = row
+            if label == "train":
+                records.append(dict(
+                    name=name, route="cuda",
+                    source="transmogrifai_tpu_torch/csrc/stream_stats.cu",
+                    replaces="transmogrifai_tpu/parallel/stats.py:"
+                             + ("48" if mode == "raw" else "190"), **{
+                                 k: row[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                                     "bound_ms", "bound_by", "library_ms")}))
+        c = K.chunk_moments(A, b, "chan")[0]
+        err = held("centered_gram", lambda: K.centered_gram(A, b, c),
+                   lambda: K.centered_gram_plain(A, b, c))
+        Z = centered(A, b, c)
+        # the chunk read once, the (d + 1)^2 Gram written; 2 r (d + 1)^2 float64
+        # operations
+        bd, by = bound_ms(r * (dd + 1) * 4 + (dd + 1) ** 2 * 8, 2 * r * (dd + 1) ** 2,
+                          PEAK_F64_OPS_PER_S)
+        row = {"max_abs_err": err, "ms": timer(lambda: K.centered_gram(A, b, c)),
+               "plain_ms": timer(lambda: K.centered_gram_plain(A, b, c)),
+               "bound_ms": bd, "bound_by": by,
+               "library_ms": timer(lambda: torch.mm(Z.T, Z)), "shape": [r, dd + 1]}
+        extra[f"centered_gram {label}"] = row
+        del Z
+        if label == "train":
+            records.append(dict(
+                name="centered_gram", route="cuda",
+                source="transmogrifai_tpu_torch/csrc/col_stats.cu",
+                replaces="transmogrifai_tpu/parallel/stats.py:62", **{
+                    k: row[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                        "bound_by", "library_ms")}))
+    for label, A in (("train", X), ("wide", Xw), ("tie-heavy", Xt)):
+        held("midranks", lambda: K.midranks(A), lambda: K.midranks_plain(A))
+        r, dd = A.shape
+        ss, order = torch.sort(A.T.contiguous(), dim=1)
+        out = torch.empty((r, dd), dtype=torch.float32, device=dev)
+        # the columns read and the ranks written once; the sort's r log2 r
+        # comparisons a column
+        bd, by = bound_ms(2 * r * dd * 4, r * dd * float(np.log2(max(r, 2))))
+        row = {"max_abs_err": 0.0, "ms": timer(lambda: K.midranks(A)),
+               "plain_ms": timer(lambda: K.midranks_plain(A)),
+               "kernel_ms": timer(lambda: K._midrank_launch(ss, order, out)),
+               "sort_ms": timer(lambda: torch.sort(A.T.contiguous(), dim=1)),
+               "bound_ms": bd, "bound_by": by, "library_ms": timer(lambda: ranks_library(A)),
+               "shape": [r, dd]}
+        extra[f"midranks {label}"] = row
+        del ss, order, out
+        if label == "train":
+            records.append(dict(
+                name="midranks", route="cuda",
+                source="transmogrifai_tpu_torch/csrc/stream_stats.cu",
+                replaces="transmogrifai_tpu/parallel/stats.py:487", **{
+                    k: row[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                        "bound_by", "library_ms")}))
+    log("stream_kernels", rows=n, width=d, tolerance=STREAM_RTOL, details=extra,
+        f64_ops_per_s=PEAK_F64_OPS_PER_S, records=records)
+    return records
+
+
+#: K-Z's operations that round more than once in the plain version's torch
+#: ops on the card (a scalar divisor as its reciprocal's product, ``s / v``
+#: as ``reciprocal(v) * s``) or call another library's log / exp / pow:
+#: within 2 float32 ulps of it; the rest bit-equal
+LAYER_RTOL = 2.0 ** -22
+LAYER_APPROX = ("divide", "rdivide", "log", "exp", "power", "round")
+
+
+def layer_keep(model, keep):
+    """Keep the Titanic train's K-Z inputs in ``keep["layer"]``: the family
+    size add's columns (values f32, masks), the VectorsCombiner's input
+    vectors and the sanity checker's kept columns."""
+    by_type = {}
+    for s in model.stages:
+        by_type.setdefault(type(s).__name__, s)
+    data = model.train_data
+    sc = by_type["SanityCheckerModel"]
+    add = by_type["AddTransformer"]
+    comb = next(s for s in model.stages  # the combiner of the checker's vector
+                if s.get_outputs()[0].name == sc.inputs[-1].name)
+    cols = [data[f.name] for f in add.inputs]
+    keep["layer"] = {
+        "add": [np.asarray(c.values, np.float32) for c in cols] + [c.mask for c in cols],
+        "scalar": float(by_type["ScalarMathTransformer"].get_param("scalar")),
+        "combine": [data[f.name].values for f in comb.inputs],
+        "select": np.asarray(sc.indices_to_keep, int),
+        "vector": data[sc.inputs[-1].name].values}
+
+
+def layer_kernel_phase(torch, inputs, timer, dev="cuda"):
+    """K-Z (numeric_op, column_gather) against its plain versions on the
+    Titanic scale train's columns, timed as in phase 2."""
+    from transmogrifai_tpu_torch.ops import layer as LY
+
+    av, bv, am, bm = (torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                      for a in inputs["add"])
+    n = av.shape[0]
+    records, extra = [], {}
+
+    def held(name, got, want, approx):
+        torch.cuda.synchronize()
+        if isinstance(got, tuple):
+            check(torch.equal(got[1], want[1]), f"{name}: masks differ from the plain version")
+            got, want = got[0], want[0]
+        if approx:
+            gap = float(((got - want).abs() / want.abs().clamp_min(1e-30)).max())
+            check(gap <= LAYER_RTOL, f"{name} {gap} from its plain version, above {LAYER_RTOL}")
+        else:
+            check(torch.equal(got, want), f"{name} differs from its plain version")
+        return float((got - want).abs().max())
+
+    # numeric_op: the add (main record), its + 1, and every scalar operation
+    s = inputs["scalar"]
+    fam, fam_m = LY.numeric_op("plus", av, am, bv, bm)
+    for op in LY.NUMERIC_OPS:
+        for binary in (False, True) if op in LY.BINARY_OPS else (False,):
+            args = (av, am, bv, bm) if binary else (fam, fam_m)
+            kw = {} if binary else {"scalar": s if op == "plus" else 2.5}
+            err = held(f"numeric_op {op}", LY.numeric_op(op, *args, **kw),
+                       LY.numeric_op_plain(op, *args, **kw), op in LAYER_APPROX)
+            # each input value and mask read once, the output's written
+            bd, by = bound_ms(len(args) // 2 * n * 5 + n * 5, n * len(args) // 2)
+            row = {"max_abs_err": err, "ms": timer(lambda: LY.numeric_op(op, *args, **kw)),
+                   "plain_ms": timer(lambda: LY.numeric_op_plain(op, *args, **kw)),
+                   "bound_ms": bd, "bound_by": by, "library_ms": None}
+            extra[f"numeric_op {op}{' binary' if binary else ''}"] = row
+            if op == "plus" and binary:
+                records.append(dict(
+                    name="numeric_op", route="cuda",
+                    source="transmogrifai_tpu_torch/csrc/fused_layer.cu",
+                    replaces="transmogrifai_tpu/impl/feature/transformers.py:76", **row))
+    # column_gather: the combiner's concatenation (main record), the
+    # checker's kept columns
+    parts = [torch.as_tensor(t).to(dev, torch.float32).contiguous() for t in inputs["combine"]]
+    W = sum(t.shape[1] for t in parts)
+    err = held("column_gather concat", LY.concat_columns(parts), torch.cat(parts, 1), False)
+    bd, by = bound_ms(2 * n * W * 4, 0)
+    row = {"max_abs_err": err, "ms": timer(lambda: LY.concat_columns(parts)),
+           "plain_ms": timer(lambda: LY.column_gather_plain(
+               parts, [i for i, t in enumerate(parts) for _ in range(t.shape[1])],
+               [c for t in parts for c in range(t.shape[1])])),
+           "bound_ms": bd, "bound_by": by,
+           "library_ms": timer(lambda: torch.cat(parts, 1)), "shape": [n, W]}
+    extra["column_gather concat"] = row
+    records.append(dict(
+        name="column_gather", route="cuda", source="transmogrifai_tpu_torch/csrc/fused_layer.cu",
+        replaces="transmogrifai_tpu/impl/feature/vectorizers.py:457",
+        **{k: row[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                               "library_ms")}))
+    vec = torch.as_tensor(inputs["vector"]).to(dev, torch.float32).contiguous()
+    sel = inputs["select"]
+    idx = torch.as_tensor(sel, device=dev)
+    zeros = [0] * len(sel)
+    err = held("column_gather select", LY.column_gather([vec], zeros, sel),
+               vec.index_select(1, idx), False)
+    bd, by = bound_ms(2 * n * len(sel) * 4, 0)
+    extra["column_gather select"] = {
+        "max_abs_err": err, "ms": timer(lambda: LY.column_gather([vec], zeros, sel)),
+        "plain_ms": timer(lambda: LY.column_gather_plain([vec], zeros, sel)),
+        "bound_ms": bd, "bound_by": by,
+        "library_ms": timer(lambda: vec.index_select(1, idx)), "shape": [n, len(sel)],
+        "replaces": "transmogrifai_tpu/impl/preparators/sanity_checker.py:507"}
+    log("layer_kernels", rows=n, tolerance=LAYER_RTOL, approx=LAYER_APPROX, details=extra,
+        records=records)
+    return records
+
+
+def sanity_phases(torch, titanic, FX, args, timer, dev="cuda"):
+    """Phases 32-36: the reference settings, the Pearson and Spearman scale
+    trains at ``--stats-rows`` rows (each sanity-checker fit streams its
+    sample; the layers of more than 200,000 rows run K-Z), the kernels on
+    the final fit's sample and columns.  Returns (the kernels' records,
+    their launches on the scale trains)."""
+    from transmogrifai_tpu_torch.impl.preparators import sanity_checker as SC
+    from transmogrifai_tpu_torch.ops import layer as LY
+    from transmogrifai_tpu_torch.ops import linear as L
+    from transmogrifai_tpu_torch.ops import metrics as M
+    from transmogrifai_tpu_torch.ops import stats as K
+
+    sanity_reference_phase(torch, titanic, FX, dev)
+    launches, keep = {}, {}
+    layer = ("numeric_op", "column_gather")
+    for setting, required in (("scale_pearson", ("chunk_moments_chan", "centered_gram") + layer),
+                              ("scale_spearman", ("chunk_moments_raw", "centered_gram",
+                                                  "midranks") + layer)):
+        params = FX.SANITY_SETTINGS[setting][1]
+        cols = titanic_columns(args.stats_rows, args.seed)
+        with FX.CorrMatrices(SC) as rec:
+            keep["matrices"] = rec.matrices
+            launches[setting], _, _ = scale_train_phase(
+                torch, f"sanity_{setting}_train",
+                lambda: titanic.train_titanic(cols, device=dev,
+                                              models_and_parameters=spaces()["titanic_newton"],
+                                              sanity_check_params=params),
+                stream_kernels(K) + (L.weighted_gram, M.binary_metrics, LY.numeric_op,
+                                     LY.column_gather),
+                required + ("weighted_gram",),
+                sanity_scale_check(torch, FX, setting, args.stats_rows, args.seed, keep))
+        del cols
+    records = stream_kernel_phase(torch, keep["X"], keep["y"], timer, dev)
+    records += layer_kernel_phase(torch, keep.pop("layer"), timer, dev)
+    return records, {
+        "chunk_moments_raw": launches["scale_spearman"]["chunk_moments_raw"],
+        "chunk_moments_chan": launches["scale_pearson"]["chunk_moments_chan"],
+        "centered_gram": launches["scale_pearson"]["centered_gram"],
+        "midranks": launches["scale_spearman"]["midranks"],
+        "numeric_op": launches["scale_pearson"]["numeric_op"],
+        "column_gather": launches["scale_pearson"]["column_gather"]}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--rows", type=int, default=1 << 20)
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--train-rows", type=int, default=1 << 18)
+    ap.add_argument("--stats-rows", type=int, default=1 << 20)
     args = ap.parse_args(argv)
 
     import torch
@@ -2696,6 +3084,10 @@ def main(argv=None):
                    "weighted_gram_glm": glm_launches["weighted_gram"]}
     del glm_call
 
+    # 32-36. the sanity checker at scale: the fixture's 891-row vector in four
+    # settings, the streamed Pearson and Spearman trains, the kernels
+    stream_records, stream_launches = sanity_phases(torch, titanic, FX, args, timer)
+
     for r in records:
         r["launches"] = launches[r["name"]]
     for r in train_records:
@@ -2710,8 +3102,10 @@ def main(argv=None):
         r["launches"] = families_launches[r["name"]]
     for r in kw_records + glm_records:
         r["launches"] = kw_launches[r["name"]]
+    for r in stream_records:
+        r["launches"] = stream_launches[r["name"]]
     records += (train_records + boston_records + iris_records + slice6_records
-                + families_records + kw_records + glm_records)
+                + families_records + kw_records + glm_records + stream_records)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in records]}), flush=True)

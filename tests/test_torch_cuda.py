@@ -244,6 +244,79 @@ def test_contingency_counts_matches_plain(dev, c):
     assert torch.equal(got, K.contingency_counts_plain(X, cls, c))  # integer counts
 
 
+#: K-X's and K-I centered's float64 sums against their plain versions (other
+#: orders, float64 throughout), relative to each output row's largest entry
+STREAM_RTOL = 1e-12
+
+
+def _stream_chunk(rng, n, d):
+    """A chunk with offset and scaled columns, an integer column and a
+    constant one, and a label."""
+    X = rng.normal(size=(n, d)) * rng.uniform(0.1, 30, d) + rng.uniform(-100, 100, d)
+    X[:, 0] = rng.integers(0, 16, n)
+    X[:, -1] = 2.5
+    return X.astype(np.float32), (X[:, 0] + rng.normal(size=n)).astype(np.float32)
+
+
+def _row_gap(got, want):
+    scale = want.abs().amax(dim=-1, keepdim=True).clamp_min(1e-300)
+    return float(((got - want).abs() / scale).max())
+
+
+@pytest.mark.parametrize("n,d", [(1, 1), (1000, 7), (70000, 24), (5000, 300)])
+@pytest.mark.parametrize("label", [False, True])
+@pytest.mark.parametrize("mode", ["raw", "chan"])
+def test_chunk_moments_matches_plain(dev, n, d, label, mode):
+    rng = np.random.default_rng(n + d)
+    X, y = _stream_chunk(rng, n, d)
+    Xt = torch.from_numpy(X).to(dev)
+    yt = torch.from_numpy(y).to(dev) if label else None
+    before = K.chunk_moments.launches_by_mode[mode]
+    got = _counted(K.chunk_moments, lambda: K.chunk_moments(Xt, yt, mode))
+    assert K.chunk_moments.launches_by_mode[mode] == before + 1
+    want = K.chunk_moments_plain(Xt, yt, mode)
+    assert got.shape == want.shape == (4, d + label) and got.dtype == torch.float64
+    assert torch.equal(got[2:], want[2:])  # min and max
+    assert _row_gap(got[:2], want[:2]) <= STREAM_RTOL
+    if mode == "chan":
+        assert bool((got[1, d - 1] == 0).all())  # the constant column's M2
+    assert torch.equal(got, K.chunk_moments(Xt, yt, mode))  # runs repeat bit for bit
+
+
+@pytest.mark.parametrize("n,d", [(1, 1), (1000, 7), (70000, 24), (3000, 31), (3000, 32),
+                                 (5000, 100), (2000, 200)])
+def test_centered_gram_matches_plain(dev, n, d):
+    rng = np.random.default_rng(n * d)
+    X, y = _stream_chunk(rng, n, d)
+    Xt, yt = torch.from_numpy(X).to(dev), torch.from_numpy(y).to(dev)
+    centers = K.chunk_moments_plain(Xt, yt, "chan")[0]
+    got = _counted(K.centered_gram, lambda: K.centered_gram(Xt, yt, centers))
+    want = K.centered_gram_plain(Xt, yt, centers)
+    assert got.shape == (d + 1, d + 1) and got.dtype == torch.float64
+    assert _row_gap(got, want) <= STREAM_RTOL
+    assert torch.equal(got, got.T)  # fma(a, b, c) == fma(b, a, c), sums in one order
+    assert bool((got[d - 1] == 0).all())  # the constant column centers to 0
+    assert torch.equal(got, K.centered_gram(Xt, yt, centers))
+
+
+@pytest.mark.parametrize("n,k,kind", [(1, 1, "normal"), (2048, 2, "ties"), (2049, 3, "ties"),
+                                      (10000, 5, "normal"), (100000, 3, "ties"),
+                                      (100000, 2, "constant"), (5000, 130, "binary")])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_midranks_matches_plain(dev, n, k, kind, dtype):
+    rng = np.random.default_rng(n + k)
+    X = {"normal": lambda: rng.normal(size=(n, k)),
+         "ties": lambda: rng.integers(0, 16, size=(n, k)),  # runs cross 2,048-row segments
+         "constant": lambda: np.full((n, k), 3.0),
+         "binary": lambda: rng.integers(0, 2, size=(n, k))}[kind]()
+    Xt = torch.from_numpy(np.asarray(X, np.float64)).to(dev, dtype)
+    got = _counted(K.midranks, lambda: K.midranks(Xt))
+    want = K.midranks_plain(Xt)
+    assert got.dtype == torch.float32 and torch.equal(got, want)
+    assert torch.equal(got.double().sum(0), torch.full((k,), n * (n + 1) / 2, device=dev,
+                                                       dtype=torch.float64))
+
+
 # ---------------------------------------------------------------------------
 # the sweep's kernels: K-K fista_grad, K-N linear_fista_grad, K-O
 # regression_metrics, K-L binary_metrics, K-M forest_leaf_mean
@@ -711,3 +784,59 @@ def test_weighted_gram_glm_mode_matches_plain(dev, family, link, n, p, G, F):
     # which the link's exp and the variance's power carry into the weights
     torch.testing.assert_close(H1, H2, rtol=1e-5, atol=1e-5 * float(H2.abs().max()))
     torch.testing.assert_close(g1, g2, rtol=1e-5, atol=1e-5 * float(g2.abs().max()))
+
+
+# ---------------------------------------------------------------------------
+# K-Z numeric_op, column_gather: the fused layer's arithmetic and gathers
+# ---------------------------------------------------------------------------
+#: operations whose plain version rounds more than once on the card (a
+#: scalar divisor by its reciprocal, ``s / v`` as ``reciprocal(v) * s``) or
+#: takes another library's log / exp / pow: within 2 float32 ulps
+LAYER_APPROX = ("divide", "rdivide", "log", "exp", "power", "round")
+
+
+@pytest.mark.parametrize("op,binary", [(op, False) for op in (
+    "plus", "minus", "multiply", "divide", "power", "abs", "log", "exp", "sqrt", "rminus",
+    "rdivide", "ceil", "floor", "round")] + [(op, True) for op in (
+        "plus", "minus", "multiply", "divide")])
+@pytest.mark.parametrize("n", [1, 1000, 300001])
+def test_numeric_op_matches_plain(dev, op, binary, n):
+    from transmogrifai_tpu_torch.ops import layer as LY
+
+    rng = np.random.default_rng(n + len(op))
+    cols = []
+    for _ in range(2 if binary else 1):
+        v = (rng.normal(size=n) * 4).astype(np.float32)
+        v[::7] = 0.0
+        v[1::11] = 100.0
+        cols += [torch.from_numpy(v).to(dev), torch.from_numpy(rng.random(n) > 0.2).to(dev)]
+    scalars = (0.0,) if binary else (2.0, 0.5, -1.0, 1.7, 3.0)
+    for s in scalars:
+        kw = {} if binary else {"scalar": s}
+        got = _counted(LY.numeric_op, lambda: LY.numeric_op(op, *cols, **kw))
+        want = LY.numeric_op_plain(op, *cols, **kw)
+        assert got[0].dtype == torch.float32 and got[1].dtype == torch.bool
+        assert torch.equal(got[1], want[1])
+        if op in LAYER_APPROX:
+            gap = ((got[0] - want[0]).abs() / want[0].abs().clamp_min(1e-30)).max()
+            assert float(gap) <= 2.0 ** -22
+        else:
+            assert torch.equal(got[0], want[0])
+
+
+@pytest.mark.parametrize("n,widths", [(1, (3,)), (1000, (6, 3, 10)), (300001, (17, 1, 6)),
+                                      (5000, tuple(range(1, 70)))])
+def test_column_gather_matches_plain(dev, n, widths):
+    from transmogrifai_tpu_torch.ops import layer as LY
+
+    rng = np.random.default_rng(n + len(widths))
+    parts = [torch.from_numpy(rng.normal(size=(n, w)).astype(np.float32)).to(dev)
+             for w in widths]
+    got = LY.concat_columns(parts)
+    assert torch.equal(got, torch.cat(parts, 1))
+    sources = parts[:LY.MAX_SOURCES]
+    W = 300
+    src = rng.integers(0, len(sources), W)
+    col = [int(rng.integers(0, sources[s].shape[1])) for s in src]
+    got = _counted(LY.column_gather, lambda: LY.column_gather(sources, src, col))
+    assert torch.equal(got, LY.column_gather_plain(sources, src, col))

@@ -3,8 +3,9 @@ package, and no silent CPU fallback.
 
 - A full CPU scoring run of the committed fixture, and CPU training runs of
   the Titanic flow (XGBoost with a save and a reload; logistic regression
-  and random forest through the fused sweep) in a fresh interpreter leave
-  no ``jax*``, ``pandas*`` or ``transmogrifai_tpu[.*]`` module loaded.
+  and random forest through the fused sweep; a streamed Spearman sanity
+  check) and the streamed statistics in a fresh interpreter leave no
+  ``jax*``, ``pandas*`` or ``transmogrifai_tpu[.*]`` module loaded.
 - A scan of the port's sources finds no such import; pandas appears only
   inside the reader's DataFrame branch, and Triton only
   in the kernel modules that the launching wrappers import lazily.
@@ -61,6 +62,14 @@ stock, _ = titanic.train_titanic(
         (OpLogisticRegression(), [{"reg_param": 0.01, "elastic_net_param": 0.5}]),
         (OpRandomForestClassifier(), [{"num_trees": 3, "max_depth": 3}])])
 assert len(stock.stages[-1].summary.validation_results) == 2
+streamed, _ = titanic.train_titanic(
+    titanic.titanic_data(120, 1), device="cpu", models_and_parameters=[
+        (OpLogisticRegression(), [{"reg_param": 0.01, "elastic_net_param": 0.0}])],
+    sanity_check_params={"correlation_type": "spearman", "sharded_stats": True})
+from transmogrifai_tpu_torch.parallel import stats as PS
+X = np.random.default_rng(0).normal(size=(300, 4)).astype(np.float32)
+assert PS.sharded_correlations(X, X[:, 0], chunk_rows=128, method="spearman",
+                               device="cpu")[0].count == 300
 bad = sorted(k for k in sys.modules
              if k.split(".")[0] in ("jax", "jaxlib", "pandas", "transmogrifai_tpu"))
 print("BAD=" + ",".join(bad))

@@ -42,9 +42,12 @@ def titanic_data(n: int = 891, seed: int = 0) -> Dict[str, np.ndarray]:
 
 
 def build_workflow(model_types: Optional[Sequence[str]] = None,
-                   models_and_parameters: Optional[Sequence[Any]] = None):
+                   models_and_parameters: Optional[Sequence[Any]] = None,
+                   sanity_check_params: Optional[Dict[str, Any]] = None):
     """(OpWorkflow, prediction feature) of the Titanic flow; by default the
-    binary selector's stock space (LR + RF + XGBoost, 28 candidates)."""
+    binary selector's stock space (LR + RF + XGBoost, 28 candidates).
+    ``sanity_check_params`` are the sanity checker's keyword arguments
+    (``sample_upper_limit``, ``correlation_type``, ``sharded_stats``, ...)."""
     F = FeatureBuilder
     survived = F("Survived", T.RealNN).extract(field="Survived").as_response()
     pclass = F("Pclass", T.PickList).extract(field="Pclass").as_predictor()
@@ -60,7 +63,7 @@ def build_workflow(model_types: Optional[Sequence[str]] = None,
     features = family_size.vectorize(age, fare, label=survived).combine(
         sex.pivot(pclass, embarked, top_k=10, min_support=1),
         name.smart_vectorize(max_cardinality=10, num_hashes=64, min_support=1))
-    checked = features.sanity_check(survived)
+    checked = features.sanity_check(survived, **(sanity_check_params or {}))
     pred = BinaryClassificationModelSelector.with_cross_validation(
         num_folds=3, seed=42, model_types=model_types,
         models_and_parameters=models_and_parameters,
@@ -89,7 +92,8 @@ def families_space(naive_bayes: bool = True) -> List[Tuple[Any, List[Dict[str, A
 
 def train_titanic(cols: Optional[Dict[str, np.ndarray]] = None, device=None, **kw):
     """Train the Titanic flow on ``cols`` (default: the 891-row frame) on
-    ``device``; returns (the OpWorkflowModel, the workflow)."""
+    ``device``, ``kw`` passed to ``build_workflow``; returns (the
+    OpWorkflowModel, the workflow)."""
     wf, _ = build_workflow(**kw)
     model = wf.set_input_dataset(titanic_data() if cols is None else cols,
                                  key="PassengerId").train(device=device)

@@ -86,12 +86,28 @@ the JAX package's train on ``boston_data(scale_rows, scale_seed)``
 (``scale_fold_rmse``, ``scale_best``; 2^18 rows, seed 0).
 ``tests/test_torch_boston_glm_slice.py --write`` regenerates it.
 
+``titanic_sanity/summaries.json`` holds the JAX package's sanity-checker
+summaries (dropped features, reasons, label correlations, column moments,
+categorical statistics) and feature x feature correlation matrices, one
+entry a setting of ``SANITY_SETTINGS``: {pearson, spearman} x {in memory,
+``sharded_stats=True``} and Pearson with ``correlation_exclusion=
+"hashed_text"`` on the 891-row Titanic vector (the last on the frame with
+distinct names, whose hashed columns it excludes), and the 2^20-row frame's
+final fit (``chip_smoke.titanic_columns(1 << 20, 0)`` through the workflow's
+vectorizers) under Pearson and Spearman with ``sample_upper_limit`` 2^20;
+with the port's gaps to them on the CPU when it was written.
+``tests/test_torch_sanity_scale_slice.py --write`` regenerates it (the JAX
+package on the CPU's 8-device mesh, about a minute).  No feature matrix
+travels: the card computes the vectors through the port's vectorizers.
+
 Strings with nulls are stored as a unicode array plus ``<name>__null``, so
 the files load without pickles.
 """
 from __future__ import annotations
 
+import json
 import os
+import re
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -106,6 +122,7 @@ BOSTON_RIDGE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "boston_
 TITANIC_FAMILIES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "titanic_families")
 BOSTON_GLM = os.path.join(os.path.dirname(os.path.abspath(__file__)), "boston_glm")
+TITANIC_SANITY = os.path.join(os.path.dirname(os.path.abspath(__file__)), "titanic_sanity")
 NULL_SUFFIX = "__null"
 
 #: tolerances of the comparison with the JAX package's answers.  Margins are
@@ -706,4 +723,131 @@ def compare_family_answers(expected: Dict[str, np.ndarray], space: str, predicti
            "boundary_rows": int((fin & ~off).sum()), "non_finite_rows": int((~fin).sum())}
     check(out["probability_max_abs_err"] <= tol, out)
     check(out["prediction_mismatches_off_boundary"] == 0, out)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The sanity checker's summaries (titanic_sanity/)
+# ---------------------------------------------------------------------------
+#: setting -> (the frame, the sanity checker's keyword arguments)
+SANITY_SETTINGS: Dict[str, Tuple[str, Dict[str, Any]]] = {
+    "pearson": ("titanic", {}),
+    "pearson_streamed": ("titanic", {"sharded_stats": True}),
+    "spearman": ("titanic", {"correlation_type": "spearman"}),
+    "spearman_streamed": ("titanic", {"correlation_type": "spearman", "sharded_stats": True}),
+    "pearson_hashed_text": ("titanic_distinct_names",
+                            {"correlation_exclusion": "hashed_text", "sharded_stats": True}),
+    "scale_pearson": ("scale", {"sample_upper_limit": 1 << 20}),
+    "scale_spearman": ("scale", {"sample_upper_limit": 1 << 20, "correlation_type": "spearman"}),
+}
+#: the rows of the scale frame and its seed (``chip_smoke.titanic_columns``)
+SANITY_SCALE_ROWS, SANITY_SCALE_SEED = 1 << 20, 0
+#: label and feature x feature correlations against the JAX package's:
+#: the reference's float32 sums (its in-memory matrix product, its streamed
+#: carries) against the port's float64 ones; 1.2e-6 measured on the CPU
+#: (``port_cpu_gaps`` in the fixture)
+SANITY_CORR_ATOL = 3e-6
+#: column means and variances, relative: the reference's streamed float32
+#: carries (its in-memory moments are float64); 2.0e-6 measured (variances
+#: of the 2^20-row frame)
+SANITY_MOMENT_RTOL = 5e-6
+_NUMBER = re.compile(r"[-+]?(?:\d+\.?\d*|\.\d+)(?:[eE][-+]?\d+)?")
+
+
+def load_sanity() -> Dict[str, Any]:
+    with open(os.path.join(TITANIC_SANITY, "summaries.json")) as fh:
+        return json.load(fh)
+
+
+def strip_numbers(reasons: Dict[str, List[str]]) -> Dict[str, List[str]]:
+    """Drop reasons without their numbers: the statistics they quote differ
+    in the last bits between the packages."""
+    return {k: [_NUMBER.sub("#", r) for r in v] for k, v in reasons.items()}
+
+
+class CorrMatrices:
+    """Records the feature x feature correlation matrix of every fit of
+    ``module.SanityChecker`` while on (its records' ``feature_corrs``, NaN
+    rows when the checker computes none), in fit order."""
+
+    def __init__(self, module):
+        self.module, self.matrices = module, []
+
+    def __enter__(self):
+        cls = self.module.SanityChecker
+        self.saved = cls._features_to_drop
+
+        def recording(checker, records, _orig=self.saved):
+            d = len(records)
+            self.matrices.append(np.array(
+                [np.asarray(r.feature_corrs, np.float64) if len(r.feature_corrs)
+                 else np.full(d, np.nan) for r in records]).reshape(d, d))
+            return _orig(checker, records)
+
+        cls._features_to_drop = recording
+        return self
+
+    def __exit__(self, *exc):
+        self.module.SanityChecker._features_to_drop = self.saved
+
+
+def _values(v) -> np.ndarray:
+    return np.array([np.nan if x is None else x for x in v], np.float64)
+
+
+def _nan_gap(a: np.ndarray, b: np.ndarray, what: str) -> float:
+    check(np.array_equal(np.isnan(a), np.isnan(b)), f"{what}: NaN at other entries")
+    live = ~np.isnan(b)
+    return float(np.max(np.abs(a[live] - b[live]))) if live.any() else 0.0
+
+
+def check_titanic_sanity(summary: Dict[str, Any], setting: str,
+                         corr_matrix: Optional[np.ndarray] = None) -> Dict[str, Any]:
+    """Hold a sanity checker's summary (and correlation matrix) to the JAX
+    package's for ``setting``: the same columns, sample size, correlation
+    type, dropped features and reasons (without their numbers), the label
+    correlations and the matrix within ``SANITY_CORR_ATOL``, each column's
+    (and the label's, whatever its name) count, min and max equal and mean
+    and variance within
+    ``SANITY_MOMENT_RTOL``, the categorical groups' Cramer's V within
+    ``SANITY_CORR_ATOL``.  Returns the gaps; raises AssertionError on a
+    failed check."""
+    ref = load_sanity()[setting]
+    rs = ref["summary"]
+    check(summary["names"] == rs["names"], f"{setting}: columns {summary['names']}")
+    check(summary["sampleSize"] == rs["sampleSize"], f"{setting}: sample size")
+    check(summary["correlationType"] == rs["correlationType"], f"{setting}: correlation type")
+    check(sorted(summary["dropped"]) == sorted(rs["dropped"]),
+          f"{setting}: dropped {sorted(summary['dropped'])}, the JAX package {rs['dropped']}")
+    check(strip_numbers(summary["reasons"]) == strip_numbers(rs["reasons"]),
+          f"{setting}: reasons differ")
+    out: Dict[str, Any] = {"dropped": sorted(summary["dropped"])}
+    out["corr_label_max_gap"] = _nan_gap(_values(summary["correlationsWLabel"]["values"]),
+                                         _values(rs["correlationsWLabel"]["values"]),
+                                         f"{setting}: label correlations")
+    if corr_matrix is not None:
+        out["corr_matrix_max_gap"] = _nan_gap(np.asarray(corr_matrix, np.float64),
+                                              _values(np.ravel(ref["corr_matrix"]))
+                                              .reshape(np.shape(corr_matrix)),
+                                              f"{setting}: correlation matrix")
+    mine, theirs = summary["featuresStatistics"], rs["featuresStatistics"]
+    check([f["name"] for f in mine if not f["isLabel"]]
+          == [f["name"] for f in theirs if not f["isLabel"]], f"{setting}: statistics")
+    for key in ("count", "min", "max"):
+        check([f[key] for f in mine] == [f[key] for f in theirs], f"{setting}: {key} differs")
+    for key in ("mean", "variance"):
+        a = np.array([f[key] for f in mine], np.float64)
+        b = np.array([f[key] for f in theirs], np.float64)
+        out[f"{key}_max_rel_gap"] = float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-300)))
+    cm = [(g["group"], g["cramersV"]) for g in summary["categoricalStats"]]
+    cr = [(g["group"], g["cramersV"]) for g in rs["categoricalStats"]]
+    check([g for g, _ in cm] == [g for g, _ in cr], f"{setting}: categorical groups")
+    out["cramers_v_max_gap"] = _nan_gap(_values([v for _, v in cm]), _values([v for _, v in cr]),
+                                        f"{setting}: Cramer's V")
+    for key, tol in (("corr_label_max_gap", SANITY_CORR_ATOL),
+                     ("corr_matrix_max_gap", SANITY_CORR_ATOL),
+                     ("mean_max_rel_gap", SANITY_MOMENT_RTOL),
+                     ("variance_max_rel_gap", SANITY_MOMENT_RTOL),
+                     ("cramers_v_max_gap", SANITY_CORR_ATOL)):
+        check(out.get(key, 0.0) <= tol, f"{setting}: {key} {out.get(key)} above {tol}")
     return out

@@ -6,18 +6,20 @@ The port's copy of the slice's stages of
 ``SubtractTransformer``, ``MultiplyTransformer``, ``DivideTransformer``,
 ``ScalarMathTransformer`` and ``AliasTransformer``.  As in the JAX package,
 a stage alone in its layer computes on the host in float64
-(``transform_columns``), and one fused with other stages of its layer
-computes on the device in float32 (``torch_transform``: plain torch ops).
+(``transform_columns``), and one fused with other stages of its layer, or
+any one in a layer of more than 200,000 rows (the JAX package's streamed
+chunk program), on the device in float32 (``torch_transform``: K-Z's
+``numeric_op``, ``ops/layer.py``).  Both run ``ops/layer.numeric_math``.
 """
 from __future__ import annotations
 
 from typing import List, Optional, Sequence, Type
 
 import numpy as np
-import torch
 
 from ... import types as T
 from ...columns import Column, NumericColumn
+from ...ops import layer as L
 from ...stages.base import BinaryTransformer, UnaryTransformer
 
 
@@ -32,60 +34,31 @@ class _NumericBinaryOp(BinaryTransformer):
     def __init__(self, uid: Optional[str] = None):
         super().__init__(operation_name=self.op, output_type=T.Real, uid=uid)
 
-    def _apply(self, a: np.ndarray, b: np.ndarray) -> np.ndarray:
-        raise NotImplementedError
-
-    def _compute(self, xp, av, am, bv, bm):
-        """Backend-generic body shared by the numpy (host) and torch (device)
-        paths."""
-        vals = self._apply(av, bv)
-        if self.op in ("plus", "minus"):
-            only_a = am & ~bm
-            only_b = bm & ~am
-            vals = xp.where(only_a, av, vals)
-            vals = xp.where(only_b, bv if self.op == "plus" else -bv, vals)
-            mask = am | bm
-        else:
-            mask = am & bm & xp.isfinite(vals)
-        return xp.where(mask, vals, 0.0), mask
-
     def transform_columns(self, cols: Sequence[Column]) -> NumericColumn:
         a, b = cols
         assert isinstance(a, NumericColumn) and isinstance(b, NumericColumn)
         with np.errstate(divide="ignore", invalid="ignore"):
-            vals, mask = self._compute(np, a.values, a.mask, b.values, b.mask)
+            vals, mask = L.numeric_math(np, self.op, a.values, a.mask, b.values, b.mask)
         return NumericColumn(T.Real, vals, mask)
 
     def torch_transform(self, av, am, bv, bm):
-        return self._compute(torch, av, am, bv, bm)
+        return L.numeric_op(self.op, av, am, bv, bm)
 
 
 class AddTransformer(_NumericBinaryOp):
     op = "plus"
 
-    def _apply(self, a, b):
-        return a + b
-
 
 class SubtractTransformer(_NumericBinaryOp):
     op = "minus"
-
-    def _apply(self, a, b):
-        return a - b
 
 
 class MultiplyTransformer(_NumericBinaryOp):
     op = "multiply"
 
-    def _apply(self, a, b):
-        return a * b
-
 
 class DivideTransformer(_NumericBinaryOp):
     op = "divide"
-
-    def _apply(self, a, b):
-        return a / b
 
 
 class ScalarMathTransformer(UnaryTransformer):
@@ -101,41 +74,23 @@ class ScalarMathTransformer(UnaryTransformer):
         return op in ("ceil", "floor") or (op == "round" and scalar == 0.0)
 
     def __init__(self, op: str, scalar: float, uid: Optional[str] = None):
-        assert op in ("plus", "minus", "multiply", "divide", "power", "abs",
-                      "log", "exp", "sqrt", "rminus", "rdivide",
-                      "ceil", "floor", "round")
+        assert op in L.NUMERIC_OPS
         super().__init__(operation_name=f"{op}Scalar", input_type=T.Real,
                          output_type=(T.Integral
                                       if self._is_integral(op, float(scalar))
                                       else T.Real),
                          uid=uid, op=op, scalar=float(scalar))
 
-    def _compute(self, xp, v, m):
-        op, s = self.get_param("op"), float(self.get_param("scalar"))
-        vals = {
-            "plus": lambda: v + s, "minus": lambda: v - s,
-            "multiply": lambda: v * s, "divide": lambda: v / s,
-            "power": lambda: v ** s, "abs": lambda: xp.abs(v),
-            "log": lambda: xp.log(v), "exp": lambda: xp.exp(v),
-            "sqrt": lambda: xp.sqrt(v),
-            "rminus": lambda: s - v, "rdivide": lambda: s / v,
-            "ceil": lambda: xp.ceil(v), "floor": lambda: xp.floor(v),
-            # round(digits) scales by 10^digits; HALF-UP like the reference
-            # (scala.math.round = floor(x + 0.5)), not banker's rounding
-            "round": lambda: xp.floor(v * (10.0 ** s) + 0.5) / (10.0 ** s),
-        }[op]()
-        mask = m & xp.isfinite(vals)
-        return xp.where(mask, vals, 0.0), mask
-
     def transform_columns(self, cols: Sequence[Column]) -> NumericColumn:
         col = cols[0]
         assert isinstance(col, NumericColumn)
         with np.errstate(divide="ignore", invalid="ignore"):
-            vals, mask = self._compute(np, col.values, col.mask)
+            vals, mask = L.numeric_math(np, self.get_param("op"), col.values, col.mask,
+                                        scalar=float(self.get_param("scalar")))
         return NumericColumn(self.output_type, vals, mask)
 
     def torch_transform(self, v, m):
-        return self._compute(torch, v, m)
+        return L.numeric_op(self.get_param("op"), v, m, scalar=float(self.get_param("scalar")))
 
 
 class AliasTransformer(UnaryTransformer):

@@ -14,7 +14,8 @@ their device through the fused-layer protocol (``impl/feature/_util.py``):
   without pandas, the device program is K-D ``one_hot_codes``.  Columns
   holding collections pivot through the per-row host path, as in the JAX
   package.
-- ``VectorsCombiner``: ``torch.cat`` of device matrices.
+- ``VectorsCombiner``: the concatenation of device matrices, K-Z's
+  ``column_gather`` (``ops/layer.py``).
 """
 from __future__ import annotations
 
@@ -29,6 +30,7 @@ from ... import types as T
 from ...columns import Column, Dataset, NumericColumn, ObjectColumn, VectorColumn
 from ...features.metadata import (NULL_INDICATOR, OTHER_INDICATOR, VectorColumnMetadata,
                                   VectorMetadata)
+from ...ops import layer as L
 from ...ops.vectorize import fill_indicator, one_hot_codes
 from ...readers.base import null_mask
 from ...stages.base import Model, SequenceEstimator, SequenceTransformer
@@ -329,7 +331,7 @@ class VectorsCombiner(SequenceTransformer):
 
     # ---- fused-layer protocol ---------------------------------------------
     def torch_transform(self, *args):
-        return torch.cat([a.to(torch.float32) for a in args], dim=1)
+        return L.concat_columns([a.to(torch.float32) for a in args])
 
     def torch_out_metadata(self, cols):
         metas = []

@@ -3,14 +3,16 @@
 The port's copy of ``transmogrifai_tpu/impl/preparators/sanity_checker.py``
 (reference: SanityChecker.scala:232, DerivedFeatureFilterUtils.scala).  The
 fit samples the rows (checkSample, 100k cap), computes column moments,
-label correlations, the feature-feature correlation matrix and the
-categorical groups' contingency statistics (``utils/stats.py``: float64
-moments and the K-I / K-J kernels on the device that holds the vector
-column; only d-sized results come to the host), and drops columns by the
-reference's rules.  Only the in-memory Pearson branch is ported: a sample
-above 2^18 rows (the JAX package's streaming statistics) or a Spearman
-correlation raises.  The fitted model gathers the kept columns on the
-device.
+label correlations (Pearson, or Spearman over the columns' ranks), the
+feature-feature correlation matrix and the categorical groups'
+contingency statistics on the device that holds the vector column (only
+d-sized results come to the host), and drops columns by the reference's
+rules.  A sample of at most 2^18 rows takes one float64 pass in memory
+(``utils/stats.py``: the K-I / K-J kernels, K-Y's ranks for Spearman); a
+larger one, or ``sharded_stats=True``, streams in chunks of 2^18 rows
+(``parallel/stats.py``: K-X's chunk moments, K-I's centered Gram, K-Y's
+ranks), as the reference's branch does on one device.  The fitted model
+gathers the kept columns on the device (K-Z's ``column_gather``).
 """
 from __future__ import annotations
 
@@ -23,6 +25,7 @@ import torch
 from ... import types as T
 from ...columns import Column, Dataset, NumericColumn, VectorColumn
 from ...features.metadata import VectorColumnMetadata, VectorMetadata
+from ...ops import layer as L
 from ...stages.base import AllowLabelAsInput, BinaryEstimator, Model
 from ...utils import stats as S
 from ..feature._util import run_on_device
@@ -224,25 +227,25 @@ class SanityChecker(BinaryEstimator, AllowLabelAsInput):
             y = y[idx]
             n = target
 
-        # 2. moments + correlations in float64 on the device (the in-memory
-        # branch; the JAX package streams samples above 2^18 rows, and
-        # ranks them for Spearman, neither of which is ported)
+        # 2. moments + correlations on the device.  Large samples stream in
+        # row chunks (the reference's treeAggregates under
+        # Statistics.colStats/corr, SanityChecker.scala:406-470); smaller ones
+        # take one float64 pass in memory
         method = str(self.get_param("correlation_type", "pearson"))
-        if method != "pearson":
-            raise NotImplementedError(
-                f"correlation_type {method!r}: only Pearson correlations are ported")
         with_corr = not bool(self.get_param("feature_label_corr_only", False))
         corr_cols = self._correlation_columns(meta)
         sharded = self.get_param("sharded_stats", "auto")
-        if (sharded is True) or (sharded == "auto" and n > (1 << 18)):
-            raise NotImplementedError(
-                f"the sanity checker's streaming statistics (sample of {n} rows > 2^18, or "
-                "sharded_stats=True) are not ported yet; lower sample_upper_limit")
-        X64 = X.to(torch.float64)
-        _, corr_label_sub, corr_matrix_sub = S.correlations_with_label(
-            X64[:, corr_cols], torch.from_numpy(y).to(X.device), with_corr_matrix=with_corr)
-        full_stats = S.col_stats(X64)
-        del X64
+        stream = (sharded is True) or (sharded == "auto" and n > (1 << 18))
+        if stream and method in ("pearson", "spearman"):
+            full_stats, corr_label_sub, corr_matrix_sub = self._streamed_stats(
+                X, y, corr_cols, method, with_corr)
+        else:
+            X64 = X.to(torch.float64)
+            _, corr_label_sub, corr_matrix_sub = S.correlations_with_label(
+                X64[:, corr_cols], torch.from_numpy(y).to(X.device), method=method,
+                with_corr_matrix=with_corr)
+            full_stats = S.col_stats(X64)
+            del X64
         d = X.shape[1]
         corr_label = np.full(d, np.nan)
         corr_label[corr_cols] = corr_label_sub
@@ -308,6 +311,26 @@ class SanityChecker(BinaryEstimator, AllowLabelAsInput):
         return model
 
     # -- helpers --------------------------------------------------------------
+    @staticmethod
+    def _streamed_stats(X: torch.Tensor, y: np.ndarray, corr_cols: List[int], method: str,
+                        with_corr: bool):
+        """(column stats, label correlations, correlation matrix | None) of
+        the sample X f32[n, d] streamed in chunks of 2^18 rows on its device
+        (``parallel/stats.py``).  One pass (K-X Chan mode, K-I centered mode)
+        when every column is correlated under Pearson; otherwise the moments
+        pass (K-X raw mode), then the Gram pass (K-I centered mode) over the
+        correlated columns, or over their ranks (K-Y) for Spearman."""
+        from ...parallel.stats import (chunked, fused_moments_and_correlations,
+                                       sharded_correlations)
+
+        ch = 1 << 18
+        if method == "pearson" and len(corr_cols) == X.shape[1]:
+            yt = torch.from_numpy(y).to(X.device, torch.float32)
+            return fused_moments_and_correlations(chunked(X, yt, chunk_rows=ch), X.shape[1],
+                                                  with_corr_matrix=with_corr)
+        return sharded_correlations(X, y, with_corr_matrix=with_corr, chunk_rows=ch,
+                                    method=method, device=X.device, cols=corr_cols)
+
     @staticmethod
     def _parent_of(cm: VectorColumnMetadata) -> str:
         return cm.parent_feature_name[0] if cm.parent_feature_name else ""
@@ -447,12 +470,13 @@ class SanityCheckerModel(Model):
         return run_on_device(self, cols)
 
     # ---- fused-layer protocol (workflow/dag._apply_layer_transforms): a
-    # column gather on the device; only the vector input is uploaded ---------
+    # column gather on the device (K-Z); only the vector input is uploaded --
     def torch_host_prep(self, cols):
-        return [cols[-1].values, self.indices_to_keep]
+        return [cols[-1].values]
 
-    def torch_transform(self, vec, keep):
-        return vec.index_select(1, keep)
+    def torch_transform(self, vec):
+        keep = self.indices_to_keep
+        return L.column_gather([vec], [0] * len(keep), keep)
 
     def torch_out_metadata(self, cols) -> Optional[VectorMetadata]:
         return self.out_metadata

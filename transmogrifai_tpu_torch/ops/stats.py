@@ -1,5 +1,6 @@
-"""The sanity checker's column products on the device: the correlation
-matrix (K-I) and the contingency counts (K-J).
+"""The sanity checker's column statistics on the device: the correlation
+matrix (K-I), the contingency counts (K-J), and the streamed statistics'
+chunk moments (K-X), centered Gram (K-I centered mode) and midranks (K-Y).
 
 Replace the two jit'd products of ``transmogrifai_tpu/utils/stats.py``:
 
@@ -10,11 +11,24 @@ Replace the two jit'd products of ``transmogrifai_tpu/utils/stats.py``:
   classes y i32[n], without building the one-hot (a class outside
   [0, n_classes) adds to no column).
 
-Both are CUDA (``csrc/col_stats.cu``): row chunks summed in row order by
-one thread per output cell, the chunks added in chunk order, so runs repeat
+and the device programs of ``transmogrifai_tpu/parallel/stats.py``:
+
+- ``chunk_moments`` (K-X, ``csrc/stream_stats.cu``) — ``_moments_step`` (:48)
+  in raw mode (sum, sum of squares, min, max of each column of a chunk),
+  and the moments of ``_fused_stats_step`` (:190) and ``_chan_moments_step``
+  (:230) in Chan mode (the chunk's mean, centered sum of squares, min, max);
+  float64 out.
+- ``centered_gram`` (K-I centered mode) — ``_gram_step`` (:62) and the Gram
+  of ``_fused_stats_step``: ``Z^T Z`` of ``Z = [X | y] - centers``, float64.
+- ``midranks`` (K-Y, ``csrc/stream_stats.cu``) — ``_midrank_cols`` (:487):
+  each column's average-tie midranks (1-based), float32; ``torch.sort``
+  sorts the columns, the kernel finds the tie runs and scatters.
+
+All are CUDA, with fixed-order partial sums and no atomics, so runs repeat
 bit for bit.  The plain PyTorch version of each sits beside it; a wrapper
 takes it only for CPU tensors, and for CUDA tensors launches its kernel or
-raises.  ``<wrapper>.launches`` counts the wrapper's launches.
+raises.  ``<wrapper>.launches`` counts the wrapper's launches, and
+``chunk_moments.launches_by_mode`` those of its ``raw`` and ``chan`` modes.
 """
 from __future__ import annotations
 
@@ -28,12 +42,27 @@ from .trees import _require, _stream
 
 _SIGNATURES = {
     "col_products_chunks": ([ctypes.c_int] * 3, ctypes.c_int),
+    "centered_gram_chunks": ([ctypes.c_int] * 2, ctypes.c_int),
+    "centered_gram_f64": ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [ctypes.c_void_p],
+                          ctypes.c_int),
     "corr_gram_f32": ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_float,
                                                                      ctypes.c_void_p],
                       ctypes.c_int),
     "contingency_counts_f32": ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
                                ctypes.c_int),
 }
+_STREAM_SIGNATURES = {
+    "chunk_moments_chunks": ([ctypes.c_int] * 2, ctypes.c_int),
+    "chunk_moments_f64": ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+                          ctypes.c_int),
+    "midrank_segments_count": ([ctypes.c_int], ctypes.c_int),
+    "midranks_f32": ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [ctypes.c_void_p],
+                     ctypes.c_int),
+    "midranks_f64": ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [ctypes.c_void_p],
+                     ctypes.c_int),
+}
+#: K-X's modes: the raw sums of ``_moments_step``, Chan's centered moments
+MOMENT_MODES = ("raw", "chan")
 
 
 def _denominator(n: int) -> float:
@@ -108,3 +137,152 @@ def contingency_counts(X: torch.Tensor, cls: torch.Tensor, n_classes: int) -> to
 
 
 contingency_counts.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K-X chunk_moments
+# ---------------------------------------------------------------------------
+def _with_label(X: torch.Tensor, y) -> torch.Tensor:
+    return X if y is None else torch.cat([X, y[:, None]], 1)
+
+
+def chunk_moments_plain(X: torch.Tensor, y=None, mode: str = "chan") -> torch.Tensor:
+    """Plain PyTorch version of K-X."""
+    Z = _with_label(X, y).to(torch.float64)
+    if mode == "raw":
+        first, second = Z.sum(0), (Z * Z).sum(0)
+    else:
+        first = Z.mean(0)
+        second = ((Z - first) ** 2).sum(0)
+    return torch.stack([first, second, Z.amin(0), Z.amax(0)])
+
+
+def _check_chunk(X: torch.Tensor, y) -> None:
+    _require(X.dtype == torch.float32 and X.ndim == 2 and X.shape[0] > 0,
+             "X must be float32[rows, d] with rows > 0")
+    _require(y is None or (y.dtype == torch.float32 and tuple(y.shape) == (X.shape[0],)),
+             f"y must be float32[{X.shape[0]}]")
+
+
+def chunk_moments(X: torch.Tensor, y=None, mode: str = "chan") -> torch.Tensor:
+    """The column moments f64[4, d'] of one row chunk [X | y] (X f32[rows,
+    d], the label y f32[rows] or None; d' = d + 1 with a label): in ``raw``
+    mode each column's sum, sum of squares, min and max, in ``chan`` mode
+    its mean, centered sum of squares, min and max.  The count is the
+    chunk's rows."""
+    _require(mode in MOMENT_MODES, f"mode must be one of {MOMENT_MODES}, got {mode!r}")
+    _check_chunk(X, y)
+    if not _on_cuda(*(t for t in (X, y) if t is not None)):
+        return chunk_moments_plain(X, y, mode)
+    n, d = X.shape
+    dc = d + (y is not None)
+    lib = cuda_build.load("stream_stats", _STREAM_SIGNATURES)
+    X = X.contiguous()
+    y = None if y is None else y.contiguous()
+    partial = torch.empty((4, lib.chunk_moments_chunks(n, dc), dc), dtype=torch.float64,
+                          device=X.device)
+    out = torch.empty((4, dc), dtype=torch.float64, device=X.device)
+    with torch.cuda.device(X.device):
+        rc = lib.chunk_moments_f64(X.data_ptr(), None if y is None else y.data_ptr(),
+                                   partial.data_ptr(), out.data_ptr(), n, d, dc,
+                                   int(mode == "chan"), _stream(X))
+    cuda_build.check_launch("chunk_moments", rc)
+    chunk_moments.launches += 1
+    chunk_moments.launches_by_mode[mode] += 1
+    return out
+
+
+chunk_moments.launches = 0
+chunk_moments.launches_by_mode = dict.fromkeys(MOMENT_MODES, 0)
+
+
+# ---------------------------------------------------------------------------
+# K-I centered_gram
+# ---------------------------------------------------------------------------
+def centered_gram_plain(X: torch.Tensor, y: torch.Tensor, centers: torch.Tensor
+                        ) -> torch.Tensor:
+    """Plain PyTorch version of K-I's centered mode."""
+    Z = _with_label(X, y).to(torch.float64) - centers
+    return Z.T @ Z
+
+
+def centered_gram(X: torch.Tensor, y: torch.Tensor, centers: torch.Tensor) -> torch.Tensor:
+    """The unscaled Gram f64[d + 1, d + 1] of the centered chunk ``Z = [X | y]
+    - centers`` (X f32[rows, d], y f32[rows], centers f64[d + 1]): the
+    feature Gram, the label cross terms (last column) and the label's sum
+    of squares (last entry)."""
+    _check_chunk(X, y)
+    _require(y is not None, "centered_gram takes the label y")
+    d = X.shape[1]
+    _require(centers.dtype == torch.float64 and tuple(centers.shape) == (d + 1,),
+             f"centers must be float64[{d + 1}]")
+    if not _on_cuda(X, y, centers):
+        return centered_gram_plain(X, y, centers)
+    n = X.shape[0]
+    lib = cuda_build.load("col_stats", _SIGNATURES)
+    X, y, centers = X.contiguous(), y.contiguous(), centers.contiguous()
+    partial = torch.empty((lib.centered_gram_chunks(n, d), d + 1, d + 1),
+                          dtype=torch.float64, device=X.device)
+    out = torch.empty((d + 1, d + 1), dtype=torch.float64, device=X.device)
+    with torch.cuda.device(X.device):
+        rc = lib.centered_gram_f64(X.data_ptr(), y.data_ptr(), centers.data_ptr(),
+                                   partial.data_ptr(), out.data_ptr(), n, d, _stream(X))
+    cuda_build.check_launch("centered_gram", rc)
+    centered_gram.launches += 1
+    return out
+
+
+centered_gram.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K-Y midranks
+# ---------------------------------------------------------------------------
+def _sorted_columns(X: torch.Tensor):
+    """(values [k, n], their rows [k, n]) of each column of X [n, k] sorted."""
+    return torch.sort(X.T.contiguous(), dim=1)
+
+
+def midranks_plain(X: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of K-Y: the reference's sort, two searchsorteds
+    and scatter."""
+    ss, order = _sorted_columns(X)
+    lo = torch.searchsorted(ss, ss, right=False)
+    hi = torch.searchsorted(ss, ss, right=True)
+    mid = (lo + hi + 1).to(torch.float32) * 0.5
+    return torch.empty_like(mid).scatter_(1, order, mid).T.contiguous()
+
+
+def midranks(X: torch.Tensor) -> torch.Tensor:
+    """The average-tie midranks (1-based) f32[n, k] of each column of X
+    f32 or f64[n, k], as ``_midrank_cols``: exact below 2^23 rows."""
+    _require(X.dtype in (torch.float32, torch.float64) and X.ndim == 2,
+             "X must be float32 or float64[n, k]")
+    n, k = X.shape
+    _require(n < (1 << 30), "midranks takes fewer than 2^30 rows")
+    if not _on_cuda(X):
+        return midranks_plain(X)
+    out = torch.empty((n, k), dtype=torch.float32, device=X.device)
+    if n == 0 or k == 0:
+        return out
+    ss, order = _sorted_columns(X)
+    _midrank_launch(ss, order, out)
+    return out
+
+
+def _midrank_launch(ss: torch.Tensor, order: torch.Tensor, out: torch.Tensor) -> None:
+    """K-Y on sorted columns ss [k, n] and their rows order i64[k, n], into
+    out f32[n, k] (every entry written)."""
+    k, n = ss.shape
+    lib = cuda_build.load("stream_stats", _STREAM_SIGNATURES)
+    nseg = lib.midrank_segments_count(n)
+    seg = torch.empty((2, k, nseg), dtype=torch.int32, device=ss.device)
+    fn = lib.midranks_f32 if ss.dtype == torch.float32 else lib.midranks_f64
+    with torch.cuda.device(ss.device):
+        rc = fn(ss.data_ptr(), order.data_ptr(), seg[0].data_ptr(), seg[1].data_ptr(),
+                out.data_ptr(), n, k, _stream(ss))
+    cuda_build.check_launch("midranks", rc)
+    midranks.launches += 1
+
+
+midranks.launches = 0

@@ -10,8 +10,9 @@ the correlation matrix ``Z^T Z`` of the standardized columns (K-I) and the
 contingency counts ``X^T onehot(y)`` (K-J).  Only their d-sized results
 come to the host.  The statistics of the small contingency matrices are
 host numpy; the chi-squared p-value uses scipy's regularized upper
-incomplete gamma function.  Pearson correlations only: the Spearman rank
-transform is not ported.
+incomplete gamma function.  Spearman correlations rank the columns and the
+label on the device (``rank_data``: K-Y's midranks, the reference's
+host ``_rank_data``), then run the same float64 Pearson over the ranks.
 """
 from __future__ import annotations
 
@@ -60,32 +61,48 @@ def col_stats(X: torch.Tensor) -> ColStats:
     return ColStats(n, *(_host(a) for a in _col_moments(X)))
 
 
-def correlations_with_label(X: torch.Tensor, y: torch.Tensor, with_corr_matrix: bool = False
+def rank_data(x: torch.Tensor) -> torch.Tensor:
+    """Average-tie ranks (1-based) f64 of x [n], or of each column of x [n,
+    d], on x's device (Spearman prep; the reference's ``_rank_data``, whose
+    ranks K-Y's midranks are)."""
+    if x.ndim == 1:
+        return rank_data(x[:, None])[:, 0]
+    return K.midranks(x).to(torch.float64)
+
+
+def correlations_with_label(X: torch.Tensor, y: torch.Tensor, method: str = "pearson",
+                            with_corr_matrix: bool = False
                             ) -> Tuple[ColStats, np.ndarray, Optional[np.ndarray]]:
-    """Pearson label correlations of every column of X f64[n, d] with y
-    f64[n] (one device), and optionally the full feature x feature
-    correlation matrix.
+    """Label correlations of every column of X f64[n, d] with y f64[n] (one
+    device), and optionally the full feature x feature correlation matrix.
 
     Reference: OpStatistics.computeCorrelationsWithLabel:71 (the n-1
-    covariance formula, OpStatistics.scala:85-94).  Returns
+    covariance formula, OpStatistics.scala:85-94); Spearman goes through the
+    rank transform first (Spark Statistics.corr(..., "spearman")), and
+    reports raw-space column stats with rank-space correlations.  Returns
     (col_stats_of_X, corr_with_label, corr_matrix_or_None) on the host.
     """
     n, d = X.shape
     if n < 2:
         z = np.zeros(d)
         return ColStats(n, z, z.copy(), z.copy(), z.copy()), np.full(d, np.nan), None
-    mean, var, xmin, xmax = _col_moments(X)
-    yc = y - y.mean()
-    cov_label = (X - mean).T @ yc / (n - 1)
+    Xr, yr = X, y
+    if method == "spearman":
+        Xr, yr = rank_data(X), rank_data(y)
+    mean, var, xmin, xmax = _col_moments(Xr)
+    yc = yr - yr.mean()
+    cov_label = (Xr - mean).T @ yc / (n - 1)
     y_var = (yc @ yc) / (n - 1)
     corr = _host(cov_label / torch.sqrt(torch.clamp(var * y_var, min=1e-300)))
-    stats = ColStats(n, _host(mean), _host(var), _host(xmin), _host(xmax))
-    zero_var = stats.variance <= 0
+    var_h = _host(var)
+    stats = (col_stats(X) if method == "spearman"
+             else ColStats(n, _host(mean), var_h, _host(xmin), _host(xmax)))
+    zero_var = var_h <= 0
     corr = np.where(zero_var, np.nan, corr)
     corr_matrix = None
     if with_corr_matrix:
         # standardized in float64, the product summed in float32 (K-I)
-        Z = ((X - mean) / torch.sqrt(torch.clamp(var, min=1e-300))).to(torch.float32)
+        Z = ((Xr - mean) / torch.sqrt(torch.clamp(var, min=1e-300))).to(torch.float32)
         corr_matrix = _host(K.corr_gram(Z)).astype(np.float64)
         np.fill_diagonal(corr_matrix, 1.0)
         corr_matrix[zero_var, :] = np.nan

@@ -11,11 +11,15 @@ that implement the fused-layer protocol (``torch_transform``, see
 ``impl/feature/_util.py``) run back to back on the device, sharing one upload
 of each distinct input column; the rest apply per stage.  As in the JAX
 package, a layer with a single such stage takes its ``transform_columns``
-path, which keeps numeric arithmetic on the host in float64.
+path, which keeps numeric arithmetic on the host in float64, unless the
+layer has more than ``STREAM_ROWS`` rows: there the JAX package streams
+every such stage through its device chunk program (``workflow/stream.py``),
+and the port runs each one's kernel on the device too.
 
-The port runs eagerly, with no compiled-program cache, and scores a layer
-whole at any row count; the streaming executor of the JAX package
-(``workflow/stream.py``) is not ported.
+The port runs eagerly, one launch a stage, with no compiled-program cache,
+and transforms a layer whole at any row count: the chunking, prefetch and
+multi-device dispatch of the JAX package's streaming executor are not
+ported.
 """
 from __future__ import annotations
 
@@ -29,6 +33,11 @@ from ..impl.feature._util import run_on_device
 from ..stages.base import Estimator, PipelineStage, Transformer
 
 Layer = List[PipelineStage]
+
+#: rows above which the JAX package streams a layer's fusable stages through
+#: its device chunk program, a lone one included (``_fuse_max_rows``,
+#: ``transmogrifai_tpu/workflow/dag.py:187-205``)
+STREAM_ROWS = 200_000
 
 
 def compute_dag(result_features: Sequence[Feature]) -> List[Layer]:
@@ -103,8 +112,8 @@ def _fusable(t, ds: Dataset) -> bool:
 def _apply_layer_transforms(ds: Dataset, transformers: Sequence[Transformer]) -> Dataset:
     """One layer (applyOpTransformations analog, FitStagesUtil.scala:96)."""
     fusables = [t for t in transformers if _fusable(t, ds)]
-    if len(fusables) == 1:  # a lone stage takes its own transform_columns path
-        fusables = []
+    if len(fusables) == 1 and len(ds) <= STREAM_ROWS:
+        fusables = []  # a lone stage takes its own transform_columns path
     fused_ids = {id(t) for t in fusables}
     new_cols = {}
     uploads: Dict[Any, Any] = {}
