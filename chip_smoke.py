@@ -3,7 +3,7 @@
 Run from the repository root on a host with one CUDA card:
 
     python3 chip_smoke.py [--seed 0] [--rows 1048576] [--reps 20] [--train-rows 262144]
-                          [--stats-rows 1048576]
+                          [--stats-rows 1048576] [--text-rows 131072]
 
 Phases, each printing its findings on a line of its own:
 
@@ -244,7 +244,37 @@ Phases, each printing its findings on a line of its own:
                gathers, the add and the ``+ 1`` bit-equal; other operations
                within ``LAYER_RTOL``), timed beside their bounds and one
                ``torch.cat`` / ``index_select``; the scale trains' K-Z
-               launch counts must be above 0.
+               launch counts must be above 0;
+37. text reference -- the JAX-saved Titanic text model (``fixtures/titanic_text``:
+               Word2Vec and LDA over a free-text ``Notes`` column, the stock
+               space) scores the fixture's 256 requests within
+               ``FX.TEXT_JAX_SAVED_PROB_ATOL``; the tokenizer and the fixture's
+               count model give the JAX package's tokens and counts; the port's
+               891-row full-width text train (``titanic.text_columns()``,
+               ``build_workflow(text_embeddings=True)``) is held to the fixture
+               by ``FX.check_titanic_text_train`` (winner, fold AuPR by family,
+               vocabularies, the final Word2Vec fit's pairs, negatives and W0
+               by digest, the word vectors, the LDA topic-word matrix);
+38. text train -- the same flow on ``text_columns(--text-rows, --seed)``
+               (2^17 rows: ~26M skip-gram pairs, subsampled to 200,000): the
+               launch counts reset just before and read just after (K-AA,
+               K-AB's three modes and K-K, here past 64 coefficients, above 0),
+               the host-clock breakdown (the tokenizer, the count vectorizer,
+               pair building, the Word2Vec epochs and transforms, the LDA fits
+               and transforms beside the workflow's phases), a profiled second
+               run;
+39. text kernels -- K-AA (``sgns_epoch``) on the final Word2Vec fit's pairs
+               and negatives after ten epochs, K-AB's beta, estep and sstats
+               modes on the final LDA fit's count matrix and topic-word matrix,
+               K-K at the text vector's width on the first sweep call, against
+               their plain versions (K-AA within ``SGNS_CARD_ATOL``, K-AB within
+               ``LDA_BETA_RTOL`` / ``LDA_THETA_ATOL`` / ``LDA_SSTATS_RTOL``, K-K
+               within ``FISTA_GRAD_RTOL``), and the small K18 cases against the
+               JAX package's outputs in ``k18.npz``; timed beside their bounds,
+               ``torch.autograd.grad`` of the plain SGNS loss, the dense matmul
+               pairs of the E- and M-steps, ``torch.special.digamma``;
+40. text serve -- p50 of a ``BatchScoreFunction`` request for the text model
+               (an LDA E-step on the request path) at 1, 64 and 1,024 records.
 
 The line before the last holds the kernels' JSON record, then the card's
 name and power limit; the last line is ``{"ok": true, "device": ...}``.  Any
@@ -2890,6 +2920,392 @@ def sanity_phases(torch, titanic, FX, args, timer, dev="cuda"):
         "column_gather": launches["scale_pearson"]["column_gather"]}
 
 
+#: K-AA against its plain version on the card: float32 sums of a row's
+#: gradient in another order (a fixed segment order against index_add_)
+SGNS_CARD_ATOL = 1e-6
+#: K-AB's beta mode: the same digamma sequence, libdevice's exp / log1p /
+#: cos / sin in both, the topic sums in another order
+LDA_BETA_RTOL = 2e-5
+#: K-AB's estep, as the largest gap of a document's topic mixture (gamma
+#: over its sum): the E-step's map is unstable at small topic weights (slope
+#: about 2.5 near gamma = 0.25), so a few documents' small gammas carry the
+#: products' last-bit order gaps through 30 iterations (up to 2.0e-2 of such a
+#: gamma at 2^17 documents against the plain version on the card); the
+#: mixture moves by that gap over the document's total
+LDA_THETA_ATOL = 1e-3
+#: K-AB's sstats: float32 sums over each term's documents in another order
+LDA_SSTATS_RTOL = 1e-4
+#: scalar operations of one float32 digamma (the Lanczos form: eight steps of
+#: an add, a multiply, two divisions and two adds; log1p, the last terms) and
+#: of one exp
+DIGAMMA_OPS = 60
+EXP_OPS = 8
+
+
+class TimeCalls:
+    """Host seconds spent in the named callables of ``owner`` while on (each
+    call synchronized with the card before its clock stops)."""
+
+    def __init__(self, torch, targets):
+        self.torch, self.targets, self.saved = torch, targets, []
+        self.seconds, self.last = {}, {}
+
+    def __enter__(self):
+        for label, owner, name in self.targets:
+            fn = getattr(owner, name)
+            self.saved.append((owner, name, fn))
+            self.seconds.setdefault(label, 0.0)
+
+            def timed(*a, _fn=fn, _label=label, **k):
+                t = time.perf_counter()
+                out = _fn(*a, **k)
+                self.torch.cuda.synchronize()
+                self.seconds[_label] += time.perf_counter() - t
+                self.last[_label] = out
+                return out
+
+            setattr(owner, name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, fn in reversed(self.saved):
+            setattr(owner, name, fn)
+
+
+def text_timers(torch):
+    from transmogrifai_tpu_torch.impl.feature import embeddings as Emb
+    from transmogrifai_tpu_torch.impl.feature import text as Tx
+
+    return TimeCalls(torch, [
+        ("tokenizer", Tx.TextTokenizer, "transform_columns"),
+        ("count_vectorizer_fit", Tx.OpCountVectorizer, "fit_columns"),
+        ("count_vectorizer_transform", Tx.OpCountVectorizerModel, "transform_columns"),
+        ("w2v_fit", Emb.OpWord2Vec, "fit_columns"),
+        ("w2v_token_ids", Emb, "_token_ids"),
+        ("w2v_pair_building", Emb, "skipgram_pairs"),
+        ("w2v_epochs", Emb.OpWord2Vec, "train"),
+        ("w2v_transform", Emb.OpWord2VecModel, "transform_columns"),
+        ("lda_fit", Emb.OpLDA, "fit_columns"),
+        ("lda_transform", Emb.OpLDAModel, "transform_columns")])
+
+
+class LastLdaFit:
+    """Keeps the count column and the fitted topic-word matrix of the last
+    ``OpLDA`` fit while on."""
+
+    def __init__(self):
+        from transmogrifai_tpu_torch.impl.feature import embeddings as Emb
+
+        self.cls, self.col, self.topic_word, self.fits = Emb.OpLDA, None, None, 0
+
+    def __enter__(self):
+        fit = self.fit = self.cls.fit_columns
+
+        def recording(stage, cols, dataset):
+            model = fit(stage, cols, dataset)
+            self.col, self.topic_word = cols[0], model.topic_word
+            self.fits += 1
+            return model
+
+        self.cls.fit_columns = recording
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.fit_columns = self.fit
+
+
+def text_reference_phase(torch, titanic, FX, dev="cuda"):
+    """Phase 37: the JAX-saved text model scores the fixture's 256 requests
+    on the card; the tokenizer and the fixture's count model give the JAX
+    package's tokens and counts; the port's 891-row full-width text train
+    (stock space) is held to the fixture by ``FX.check_titanic_text_train``
+    (winner, fold AuPR by family, vocabularies, skip-gram pairs / negatives /
+    W0 by digest, word vectors, LDA topic-word)."""
+    import transmogrifai_tpu_torch as P
+    from transmogrifai_tpu_torch.impl.feature import embeddings as Emb
+
+    model = P.load_model(FX.TITANIC_TEXT, device=dev)
+    req = FX.load_columns(FX.TITANIC_TEXT + "/requests.npz")
+    name = model.result_features[0].name
+    pred, prob, _ = FX.prediction_arrays(P.BatchScoreFunction(model)(FX.records(req)), name)
+    answers = FX.compare_text_answers(FX.load_expected(FX.TITANIC_TEXT + "/expected.npz"),
+                                      pred, prob, FX.TEXT_JAX_SAVED_PROB_ATOL)
+    cols = titanic.text_columns()
+    tokens = FX.check_text_tokens(model, cols["Notes"])
+    with FX.PortW2VArgs(Emb) as rec:
+        (trained, wf), wall, calls = timed_train(
+            torch, lambda: titanic.train_titanic(cols, device=dev, text_embeddings=True))
+    found = FX.check_titanic_text_train(trained, rec.calls[-1])
+    log("text_reference", rows=891, jax_saved_requests=answers, tokens=tokens, wall_s=wall,
+        word2vec_fits=len(rec.calls), sweep_calls=len(calls),
+        sweep_features=int(calls[0][0].X.shape[1]), **found,
+        tolerances={"w2v_atol": FX.TEXT_W2V_ATOL, "lda_rtol": FX.TEXT_LDA_RTOL,
+                    "lda_atol": FX.TEXT_LDA_ATOL, "lr_aupr": FX.LR_AUPR_TOL,
+                    "rf_aupr": FX.RF_AUPR_TOL, "xgb_aupr": TRAIN_AUPR_TOL},
+        host_clock_s=wf.train_timings)
+    return model
+
+
+def text_check(rows):
+    """The check of the text scale train: 28 candidates with finite fold
+    AuPR above 0.5, the holdout AuPR above 0.5, a finite LDA topic-word
+    matrix and finite word vectors."""
+
+    def check_fn(model):
+        summ = model.stages[-1].summary
+        folds = [m for r in summ.validation_results for m in r["foldMetrics"]]
+        check(len(summ.validation_results) == 28, "the stock space has 28 candidates")
+        check(all(np.isfinite(folds)) and min(folds) > 0.5, f"bad fold metrics {folds}")
+        check(summ.holdout_evaluation["AuPR"] > 0.5, "bad holdout AuPR")
+        lda = next(s for s in model.stages if type(s).__name__ == "OpLDAModel")
+        w2v = next(s for s in model.stages if type(s).__name__ == "OpWord2VecModel")
+        check(bool(np.isfinite(lda.topic_word).all()), "non-finite LDA topic-word")
+        check(bool(np.isfinite(w2v.vectors).all()), "non-finite word vectors")
+        return {"rows": rows, "holdout_aupr": summ.holdout_evaluation["AuPR"],
+                "w2v_vocabulary": len(w2v.vocabulary), "final_loss": w2v.metadata.get(
+                    "final_loss"), "fold_aupr_min": min(folds), "fold_aupr_max": max(folds)}
+
+    return check_fn
+
+
+def mixture_gap(gamma, ref):
+    """The largest gap of the documents' topic mixtures gamma / sum(gamma)."""
+    return float((gamma / gamma.sum(1, keepdim=True) - ref / ref.sum(1, keepdim=True))
+                 .abs().max())
+
+
+def text_kernel_phase(torch, keep, call, timer, FX, dev="cuda"):
+    """Phase 39: K-AA on the final Word2Vec fit's inputs, K-AB's three modes
+    on the final LDA fit's count matrix and topic-word matrix, K-K at the
+    text vector's width, each against its plain version (and the small K18
+    cases against the JAX package's outputs in ``k18.npz``), timed beside
+    its bound and a PyTorch yardstick."""
+    import torch.nn.functional as TF
+
+    from transmogrifai_tpu_torch.ops import embeddings as E
+    from transmogrifai_tpu_torch.ops import linear as L
+
+    records, shapes = [], {}
+    # K-AA: ten kernel epochs from the final fit's W0, then one epoch held to plain
+    W0, pairs_np, negs_np = keep["w2v"]
+    W = torch.from_numpy(W0).to(dev)
+    C = torch.zeros_like(W)
+    pairs = torch.from_numpy(pairs_np).to(dev)
+    negs = torch.from_numpy(negs_np).to(dev)
+    V, d = W.shape
+    P_, K = negs.shape
+    lists = E.sgns_lists(pairs, negs, V)
+    for _ in range(10):
+        W, C, _ = E.sgns_epoch(W, C, pairs, negs, 0.2, lists=lists, want_loss=False)
+    got = E.sgns_epoch(W, C, pairs, negs, 0.2, lists=lists)
+    want = E.sgns_epoch_plain(W, C, pairs, negs, 0.2)
+    again = E.sgns_epoch(W, C, pairs, negs, 0.2, lists=lists)
+    check(all(torch.equal(a, b) for a, b in zip(got, again)), "sgns_epoch does not repeat")
+    err = max(float((got[i] - want[i]).abs().max()) for i in (0, 1))
+    check(err <= SGNS_CARD_ATOL, f"sgns_epoch {err} from plain, above {SGNS_CARD_ATOL}")
+    loss_gap = abs(float(got[2]) - float(want[2]))
+    c_, o_, ng_ = pairs[:, 0].long(), pairs[:, 1].long(), negs.long()
+
+    def sgns_library():
+        Wr, Cr = W.detach().requires_grad_(), C.detach().requires_grad_()
+        wc = Wr[c_]
+        pos = (wc * Cr[o_]).sum(1)
+        neg = torch.einsum("pd,pkd->pk", wc, Cr[ng_])
+        loss = (TF.softplus(-pos) + TF.softplus(neg).sum(1)).mean()
+        gW, gC = torch.autograd.grad(loss, (Wr, Cr))
+        return W - 0.2 * gW, C - 0.2 * gC
+
+    # W, C read and written once, the pairs and negatives read once; per pair
+    # the K + 1 scores and both gradient rows (6 d operations a slot) and
+    # about 20 for the sigmoid / softplus of a slot; the update
+    b, by = bound_ms(4 * V * d * 4 + P_ * (2 + K) * 4, P_ * (K + 1) * (6 * d + 20) + 4 * V * d)
+    records.append(dict(
+        name="sgns_epoch", route="cuda", source="transmogrifai_tpu_torch/csrc/sgns.cu",
+        replaces="transmogrifai_tpu/impl/feature/embeddings.py:37", max_abs_err=err,
+        ms=timer(lambda: E.sgns_epoch(W, C, pairs, negs, 0.2, lists=lists, want_loss=False)),
+        plain_ms=timer(lambda: E.sgns_epoch_plain(W, C, pairs, negs, 0.2)),
+        bound_ms=b, bound_by=by, library_ms=timer(sgns_library)))
+    shapes["sgns"] = {"V": V, "d": d, "P": P_, "K": K, "segments": int(lists.seg_row.numel())}
+    lists_ms = timer(lambda: E.sgns_lists(pairs, negs, V))
+
+    # K-AB: beta, estep and sstats on the final LDA fit's counts and lambda
+    X = torch.clamp_min(keep["lda_col"].tensor(dev), 0.0)
+    lam = torch.from_numpy(keep["lda_topic_word"]).to(dev)
+    n, v = X.shape
+    k = lam.shape[0]
+    docs = E.lda_docs(X)
+    nnz = int(docs.terms.numel())
+    eb = E.lda_beta(lam)
+    eb0 = E.lda_beta_plain(lam)
+    beta_err = float(((eb - eb0).abs() / eb0.abs().clamp_min(1e-30)).max())
+    check(beta_err <= LDA_BETA_RTOL, f"lda_beta {beta_err} from plain")
+    g = E.lda_estep(eb0, X, 0.1, 30, docs=docs)
+    g0 = E.lda_estep_plain(eb0, X, 0.1, 30)
+    check(torch.equal(g, E.lda_estep(eb0, X, 0.1, 30, docs=docs)), "lda_estep does not repeat")
+    gamma_err = float(((g - g0).abs() / g0).max())
+    theta_err = mixture_gap(g, g0)
+    check(theta_err <= LDA_THETA_ATOL, f"lda_estep mixtures {theta_err} from plain")
+    lam1 = E.lda_sstats(eb0, X, g0, 0.01, docs=docs)
+    lam0 = E.lda_sstats_plain(eb0, X, g0, 0.01)
+    sstats_err = float(((lam1 - lam0).abs() / lam0).max())
+    check(sstats_err <= LDA_SSTATS_RTOL, f"lda_sstats {sstats_err} from plain")
+    et = torch.exp(E.digamma(g0) - E.digamma(g0.sum(1, keepdim=True)))
+
+    def dense_iterations():
+        for _ in range(30):
+            phi = et @ eb0
+            (X / phi) @ eb0.T
+
+    b, by = bound_ms(2 * k * v * 4, k * v * (DIGAMMA_OPS + EXP_OPS + 1) + k * DIGAMMA_OPS)
+    records.append(dict(
+        name="lda_beta", route="cuda", source="transmogrifai_tpu_torch/csrc/lda.cu",
+        replaces="transmogrifai_tpu/impl/feature/embeddings.py:163", max_abs_err=float(
+            (eb - eb0).abs().max()), ms=timer(lambda: E.lda_beta(lam)),
+        plain_ms=timer(lambda: E.lda_beta_plain(lam)), bound_ms=b, bound_by=by,
+        library_ms=timer(lambda: torch.exp(torch.special.digamma(lam) - torch.special.digamma(
+            lam.sum(1, keepdim=True))))))
+    per_doc = k * (DIGAMMA_OPS + EXP_OPS + 4) + DIGAMMA_OPS + k
+    b, by = bound_ms(k * v * 4 + (n + 1) * 4 + nnz * 8 + n * k * 4,
+                     30 * (nnz * (4 * k + 1) + n * per_doc))
+    records.append(dict(
+        name="lda_estep", route="cuda", source="transmogrifai_tpu_torch/csrc/lda.cu",
+        replaces="transmogrifai_tpu/impl/feature/embeddings.py:160",
+        max_abs_err=float((g - g0).abs().max()),
+        ms=timer(lambda: E.lda_estep(eb0, X, 0.1, 30, docs=docs)),
+        plain_ms=timer(lambda: E.lda_estep_plain(eb0, X, 0.1, 30)), bound_ms=b, bound_by=by,
+        library_ms=timer(dense_iterations)))
+    b, by = bound_ms(2 * k * v * 4 + n * k * 4 + (n + 1) * 4 + nnz * 8,
+                     n * per_doc + nnz * (4 * k + 1) + 2 * k * v)
+    records.append(dict(
+        name="lda_sstats", route="cuda", source="transmogrifai_tpu_torch/csrc/lda.cu",
+        replaces="transmogrifai_tpu/impl/feature/embeddings.py:211",
+        max_abs_err=float((lam1 - lam0).abs().max()),
+        ms=timer(lambda: E.lda_sstats(eb0, X, g0, 0.01, docs=docs)),
+        plain_ms=timer(lambda: E.lda_sstats_plain(eb0, X, g0, 0.01)), bound_ms=b, bound_by=by,
+        library_ms=timer(lambda: et.T @ (X / (et @ eb0)))))
+    shapes["lda"] = {"n": n, "v": v, "k": k, "nnz": nnz}
+    docs_ms = timer(lambda: E.lda_docs(X))
+
+    # the small cases against the JAX package's outputs
+    k18 = FX.load_k18()
+    t = {key: torch.from_numpy(np.asarray(k18[key])).to(dev) for key in k18
+         if key.startswith(("sgns_", "lda_")) and np.asarray(k18[key]).ndim > 0}
+    sW, sC, sl = E.sgns_epoch(t["sgns_W"], t["sgns_C"], t["sgns_pairs"], t["sgns_negs"], 0.2)
+    jax_gaps = {"sgns_W": float((sW - t["sgns_W_out"]).abs().max()),
+                "sgns_C": float((sC - t["sgns_C_out"]).abs().max()),
+                "sgns_loss": abs(float(sl) - float(k18["sgns_loss"]))}
+    jeb = E.lda_beta(t["lda_lam"])
+    jg = E.lda_estep(jeb, t["lda_X"], 0.1, 30)
+    jl = E.lda_sstats(jeb, t["lda_X"], t["lda_gamma"], 0.01)
+    rel = lambda a, b_: float(((a - b_).abs() / b_.abs().clamp_min(1e-30)).max())  # noqa: E731
+    jax_gaps.update(lda_exp_beta=rel(jeb, t["lda_exp_beta"]), lda_gamma=rel(jg, t["lda_gamma"]),
+                    lda_lam=rel(jl, t["lda_lam_out"]))
+    check(max(jax_gaps["sgns_W"], jax_gaps["sgns_C"]) <= SGNS_CARD_ATOL, f"K-AA vs JAX {jax_gaps}")
+    jax_gaps["lda_theta"] = mixture_gap(jg, t["lda_gamma"])
+    check(jax_gaps["lda_exp_beta"] <= LDA_BETA_RTOL and jax_gaps["lda_theta"] <= LDA_THETA_ATOL
+          and jax_gaps["lda_lam"] <= LDA_SSTATS_RTOL, f"K-AB vs JAX {jax_gaps}")
+
+    # K-K at the text vector's width: the first sweep call's FISTA fits
+    plan, train_w, _ = call
+    tw = torch.as_tensor(np.asarray(train_w, np.float32), device=dev).contiguous()
+    args, wc, Cf = fista_inputs(torch, plan, tw, L.fit_logistic_grid_folds_fista)
+    X1, z, l2v, wsum = args[0], args[4], args[5], args[6]
+    nf, p = X1.shape
+    check(p > 64, f"the text vector is {p} coefficients wide, not past K-K's narrow limit")
+    gotk, wantk = L.fista_grad(*args), L.fista_grad_plain(*args)
+    check(torch.equal(gotk, L.fista_grad(*args)), "wide fista_grad does not repeat bit for bit")
+    scale = float(wantk.abs().max())
+    err_k = float((gotk - wantk).abs().max())
+    check(err_k <= FISTA_GRAD_RTOL * scale, f"wide fista_grad {err_k} from plain")
+    F = tw.shape[0]
+    b, by = bound_ms((nf * p + F * nf + nf) * 4 + Cf * (3 * p + 1) * 4, Cf * nf * (4 * p + 20))
+    records.append(dict(
+        name="fista_grad_wide", route="cuda", source="transmogrifai_tpu_torch/csrc/fista.cu",
+        replaces="transmogrifai_tpu/ops/linear.py:105", max_abs_err=err_k,
+        ms=timer(lambda: L.fista_grad(*args)), plain_ms=timer(lambda: L.fista_grad_plain(*args)),
+        bound_ms=b, bound_by=by, library_ms=timer(lambda: torch.matmul(
+            wc * (torch.sigmoid(torch.matmul(X1, z.T)).T - args[1]), X1) / wsum[:, None]
+            + l2v * z)))
+    shapes["fista_wide"] = {"X1": [nf, p], "fits": Cf}
+    log("text_kernels", shapes=shapes, sgns_loss_gap=loss_gap, lda_beta_rel_err=beta_err,
+        lda_gamma_rel_err=gamma_err, lda_theta_err=theta_err, lda_sstats_rel_err=sstats_err,
+        vs_jax=jax_gaps,
+        sgns_lists_ms=lists_ms, lda_docs_ms=docs_ms, fista_grad_scale=scale, records=records)
+    return records
+
+
+def text_serve_phase(torch, model, FX, reps):
+    """Phase 40: p50 of a ``BatchScoreFunction`` request for the text model
+    (the LDA E-step lies on the request path) at 1, 64 and 1,024 records."""
+    import transmogrifai_tpu_torch as P
+    from transmogrifai_tpu_torch.ops import embeddings as E
+
+    req = FX.records(FX.load_columns(FX.TITANIC_TEXT + "/requests.npz"))
+    recs = (req * (-(-max(BATCH_SIZES) // len(req))))[:max(BATCH_SIZES)]
+    name = model.result_features[0].name
+    fn = P.BatchScoreFunction(model)
+    before = E.lda_estep.launches
+    p50 = {}
+    for size in BATCH_SIZES:
+        times = []
+        for _ in range(reps):
+            t = time.perf_counter()
+            out = fn(recs[:size])
+            times.append((time.perf_counter() - t) * 1e3)
+            _, prob, _ = FX.prediction_arrays(out, name)
+            check(len(out) == size and np.isfinite(prob).all(), "bad text-model answers")
+        p50[size] = statistics.median(times)
+    check(E.lda_estep.launches > before, "the text model's requests did not launch K-AB")
+    log("text_serve", p50_ms_by_batch=p50, estep_launches=E.lda_estep.launches - before)
+
+
+def text_phases(torch, titanic, FX, args, timer, dev="cuda"):
+    """Phases 37-40: the text reference, the ``--text-rows`` text train
+    (K-AA, K-AB's three modes and K-K's wide form required), the kernels,
+    the text model's request latency.  Returns (the kernels' records, their
+    launches on the text train)."""
+    from transmogrifai_tpu_torch.impl.feature import embeddings as Emb
+    from transmogrifai_tpu_torch.ops import embeddings as E
+    from transmogrifai_tpu_torch.ops import linear as L
+    from transmogrifai_tpu_torch.ops import metrics as M
+    from transmogrifai_tpu_torch.ops import stats as K
+    from transmogrifai_tpu_torch.ops import threefry as R
+    from transmogrifai_tpu_torch.ops import trees as Tr
+
+    fixture_model = text_reference_phase(torch, titanic, FX, dev)
+    cols = titanic.text_columns(args.text_rows, args.seed)
+    text_kernels = (E.sgns_epoch, E.lda_beta, E.lda_estep, E.lda_sstats, L.fista_grad,
+                    M.binary_metrics, Tr.bin_rows, Tr.level_hist, Tr.split_scan, Tr.route_rows,
+                    Tr.boost_step, Tr.forest_leaf_mean, K.corr_gram, K.contingency_counts,
+                    R.threefry_draws)
+    keep = {}
+
+    def train():
+        if "clock" in keep:                      # the profiled second run
+            return titanic.train_titanic(cols, device=dev, text_embeddings=True)
+        with text_timers(torch) as keep["clock"]:
+            return titanic.train_titanic(cols, device=dev, text_embeddings=True)
+
+    with FX.PortW2VArgs(Emb) as w2v, LastLdaFit() as lda:
+        launches, calls, _ = scale_train_phase(
+            torch, "text_train", train, text_kernels,
+            ("sgns_epoch", "lda_beta", "lda_estep", "lda_sstats", "fista_grad"),
+            text_check(args.text_rows))
+    clock = keep["clock"]
+    log("text_train_breakdown", rows=args.text_rows, host_clock_s=clock.seconds,
+        word2vec_fits_two_runs=len(w2v.calls), lda_fits_two_runs=lda.fits,
+        final_pairs=int(w2v.calls[-1][1].shape[0]),
+        final_pairs_before_cap=int(clock.last["w2v_pair_building"].shape[0]),
+        final_vocabulary=int(w2v.calls[-1][0].shape[0]))
+    keep["w2v"] = w2v.calls[-1]
+    keep["lda_col"], keep["lda_topic_word"] = lda.col, lda.topic_word
+    records = text_kernel_phase(torch, keep, calls[0][:3], timer, FX, dev)
+    text_serve_phase(torch, fixture_model, FX, args.reps)
+    return records, {"sgns_epoch": launches["sgns_epoch"], "lda_beta": launches["lda_beta"],
+                     "lda_estep": launches["lda_estep"], "lda_sstats": launches["lda_sstats"],
+                     "fista_grad_wide": launches["fista_grad"]}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2897,6 +3313,7 @@ def main(argv=None):
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--train-rows", type=int, default=1 << 18)
     ap.add_argument("--stats-rows", type=int, default=1 << 20)
+    ap.add_argument("--text-rows", type=int, default=1 << 17)
     args = ap.parse_args(argv)
 
     import torch
@@ -3088,6 +3505,10 @@ def main(argv=None):
     # settings, the streamed Pearson and Spearman trains, the kernels
     stream_records, stream_launches = sanity_phases(torch, titanic, FX, args, timer)
 
+    # 37-40. the text embeddings (K18): the fixture's model and 891-row train,
+    # the main path at --text-rows, the kernels, the text model's requests
+    text_records, text_launches = text_phases(torch, titanic, FX, args, timer)
+
     for r in records:
         r["launches"] = launches[r["name"]]
     for r in train_records:
@@ -3104,8 +3525,10 @@ def main(argv=None):
         r["launches"] = kw_launches[r["name"]]
     for r in stream_records:
         r["launches"] = stream_launches[r["name"]]
+    for r in text_records:
+        r["launches"] = text_launches[r["name"]]
     records += (train_records + boston_records + iris_records + slice6_records
-                + families_records + kw_records + glm_records + stream_records)
+                + families_records + kw_records + glm_records + stream_records + text_records)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in records]}), flush=True)

@@ -322,7 +322,8 @@ def test_midranks_matches_plain(dev, n, k, kind, dtype):
 # regression_metrics, K-L binary_metrics, K-M forest_leaf_mean
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("n,p,C,F", [(1, 3, 1, 1), (5000, 11, 8, 1), (70000, 11, 9, 3),
-                                     (3000, 40, 5, 2)])
+                                     (3000, 40, 5, 2), (70000, 86, 24, 3), (3000, 100, 5, 2),
+                                     (2000, 1024, 3, 1)])
 def test_fista_grad_matches_plain(dev, n, p, C, F):
     from transmogrifai_tpu_torch.ops import linear as L
 
@@ -343,7 +344,8 @@ def test_fista_grad_matches_plain(dev, n, p, C, F):
 
 
 @pytest.mark.parametrize("n,p,C,F", [(1, 3, 1, 1), (5000, 17, 24, 3), (70000, 24, 9, 3),
-                                     (3000, 11, 8, 1), (3000, 40, 5, 2)])
+                                     (3000, 11, 8, 1), (3000, 40, 5, 2), (5000, 86, 7, 3),
+                                     (3000, 130, 4, 1)])
 def test_linear_fista_grad_matches_plain(dev, n, p, C, F):
     from transmogrifai_tpu_torch.ops import linear as L
 
@@ -840,3 +842,92 @@ def test_column_gather_matches_plain(dev, n, widths):
     col = [int(rng.integers(0, sources[s].shape[1])) for s in src]
     got = _counted(LY.column_gather, lambda: LY.column_gather(sources, src, col))
     assert torch.equal(got, LY.column_gather_plain(sources, src, col))
+
+
+def test_fista_refuses_past_its_limit(dev):
+    from transmogrifai_tpu_torch.ops import linear as L
+
+    p = L.FISTA_MAX_COEFS + 1
+    ts = [torch.ones((4, p), device=dev), torch.ones(4, device=dev), torch.ones((1, 4), device=dev),
+          torch.zeros(1, dtype=torch.int32, device=dev), torch.zeros((1, p), device=dev),
+          torch.zeros((1, p), device=dev), torch.ones(1, device=dev)]
+    with pytest.raises(ValueError, match=str(L.FISTA_MAX_COEFS)):
+        L.fista_grad(*ts)
+
+
+# ---------------------------------------------------------------------------
+# K18: K-AA sgns_epoch, K-AB lda (beta, estep, sstats)
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("V,d,P,K", [(40, 8, 500, 5), (2000, 64, 200000, 5), (300, 100, 7000, 3),
+                                     (5, 256, 50, 0)])
+def test_sgns_epoch_matches_plain(dev, V, d, P, K):
+    from transmogrifai_tpu_torch.ops import embeddings as E
+
+    rng = np.random.default_rng(V + d)
+    p = 1.0 / np.arange(1, V + 1) ** 1.1
+    p /= p.sum()
+    W = torch.from_numpy((rng.standard_normal((V, d)) / np.sqrt(d)).astype(np.float32)).to(dev)
+    C = torch.from_numpy((0.1 * rng.standard_normal((V, d))).astype(np.float32)).to(dev)
+    pairs = torch.from_numpy(rng.choice(V, (P, 2), p=p).astype(np.int32)).to(dev)
+    negs = torch.from_numpy(rng.choice(V, (P, K), p=p).astype(np.int32)).to(dev)
+    W2, C2, loss = _counted(E.sgns_epoch, lambda: E.sgns_epoch(W, C, pairs, negs, 0.2))
+    W0, C0, loss0 = E.sgns_epoch_plain(W, C, pairs, negs, 0.2)
+    assert float((W2 - W0).abs().max()) <= 1e-6 and float((C2 - C0).abs().max()) <= 1e-6
+    assert abs(float(loss) - float(loss0)) <= 1e-5 * abs(float(loss0))
+    W3, C3, loss3 = E.sgns_epoch(W, C, pairs, negs, 0.2)   # no atomics: repeats bit for bit
+    assert torch.equal(W2, W3) and torch.equal(C2, C3) and torch.equal(loss, loss3)
+
+
+def _lda_case(dev, n, k, v, seed):
+    rng = np.random.default_rng(seed)
+    X = rng.poisson(0.04, (n, v)).astype(np.float32)
+    X[0] = 0.0
+    lam = rng.gamma(2.0, 1.0, (k, v)).astype(np.float32)
+    return torch.from_numpy(X).to(dev), torch.from_numpy(lam).to(dev)
+
+
+@pytest.mark.parametrize("n,k,v", [(1, 1, 3), (891, 10, 512), (20000, 10, 512), (3000, 32, 1600),
+                                   (500, 5, 70)])
+def test_lda_kernels_match_plain(dev, n, k, v):
+    from transmogrifai_tpu_torch.ops import embeddings as E
+
+    X, lam = _lda_case(dev, n, k, v, n + k)
+    eb = _counted(E.lda_beta, lambda: E.lda_beta(lam))
+    eb0 = E.lda_beta_plain(lam)
+    # exp_beta may underflow to 0; the topic sums in another order move
+    # digamma(sum) by an ulp, and the difference's ulp near -60 is 3.8e-6
+    torch.testing.assert_close(eb, eb0, rtol=2e-5, atol=0)
+    g = _counted(E.lda_estep, lambda: E.lda_estep(eb0, X, 0.1, 30))
+    g0 = E.lda_estep_plain(eb0, X, 0.1, 30)
+    torch.testing.assert_close(g, g0, rtol=2e-3, atol=0)
+    assert torch.equal(g, E.lda_estep(eb0, X, 0.1, 30))
+    lam1 = _counted(E.lda_sstats, lambda: E.lda_sstats(eb0, X, g0, 0.01))
+    lam0 = E.lda_sstats_plain(eb0, X, g0, 0.01)
+    torch.testing.assert_close(lam1, lam0, rtol=1e-5, atol=0)
+    assert torch.equal(lam1, E.lda_sstats(eb0, X, g0, 0.01))
+
+
+def test_lda_kernels_give_nan_where_plain_does(dev):
+    from transmogrifai_tpu_torch.ops import embeddings as E
+
+    X, lam = _lda_case(dev, 700, 4, 60, 3)
+    lam = lam * 100
+    lam[:, 7] = 0.01            # a dead term: exp_beta 0, phi_norm 0 in every document
+    eb = E.lda_beta(lam)
+    assert float(eb[:, 7].max()) == 0.0
+    assert torch.isnan(E.lda_estep(eb, X, 0.1, 30)).all()
+    assert torch.isnan(E.lda_estep_plain(eb, X, 0.1, 30)).all()
+    g = torch.ones((700, 4), device=dev)
+    got, want = E.lda_sstats(eb, X, g, 0.01), E.lda_sstats_plain(eb, X, g, 0.01)
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    g[5, 2] = float("nan")
+    assert torch.isnan(E.lda_sstats(eb, X, g, 0.01)).all()
+    assert torch.isnan(E.lda_sstats_plain(eb, X, g, 0.01)).all()
+
+
+def test_digamma_on_the_card_matches_plain(dev):
+    from transmogrifai_tpu_torch.ops import embeddings as E
+
+    lam = torch.from_numpy(np.geomspace(0.005, 5000, 4096).astype(np.float32)).to(dev)[None]
+    got = E.lda_beta(lam)                      # exp(digamma(lam) - digamma(sum))
+    torch.testing.assert_close(got, E.lda_beta_plain(lam), rtol=2e-6, atol=0)

@@ -4,7 +4,8 @@ package, and no silent CPU fallback.
 - A full CPU scoring run of the committed fixture, and CPU training runs of
   the Titanic flow (XGBoost with a save and a reload; logistic regression
   and random forest through the fused sweep; a streamed Spearman sanity
-  check) and the streamed statistics in a fresh interpreter leave no
+  check; the text flow's Word2Vec and LDA, and the JAX-saved text model's
+  scores) and the streamed statistics in a fresh interpreter leave no
   ``jax*``, ``pandas*`` or ``transmogrifai_tpu[.*]`` module loaded.
 - A scan of the port's sources finds no such import; pandas appears only
   inside the reader's DataFrame branch, and Triton only
@@ -70,6 +71,13 @@ from transmogrifai_tpu_torch.parallel import stats as PS
 X = np.random.default_rng(0).normal(size=(300, 4)).astype(np.float32)
 assert PS.sharded_correlations(X, X[:, 0], chunk_rows=128, method="spearman",
                                device="cpu")[0].count == 300
+text, _ = titanic.train_titanic(
+    titanic.text_columns(120, 1), device="cpu", text_embeddings=True, models_and_parameters=[
+        (OpLogisticRegression(), [{"reg_param": 0.01, "elastic_net_param": 0.5}])])
+assert {"OpWord2VecModel", "OpLDAModel"} <= {type(s).__name__ for s in text.stages}
+tm = P.load_model(FX.TITANIC_TEXT, device="cpu")
+assert len(P.BatchScoreFunction(tm)(FX.records(FX.load_columns(
+    FX.TITANIC_TEXT + "/requests.npz"))[:4])) == 4
 bad = sorted(k for k in sys.modules
              if k.split(".")[0] in ("jax", "jaxlib", "pandas", "transmogrifai_tpu"))
 print("BAD=" + ",".join(bad))

@@ -9,7 +9,9 @@ the JAX package's synthetic Titanic frame, as numpy columns (the port has
 no pandas outside the reader's DataFrame branch); ``titanic_data(n, seed)``
 draws larger frames of the same schema with the same label rule;
 ``families_space`` is the space of the binary selector's other families
-(LinearSVC, NaiveBayes, DecisionTree, MLP).
+(LinearSVC, NaiveBayes, DecisionTree, MLP).  ``text_columns(n, seed)`` adds
+a free-text column ``Notes``, which ``build_workflow(text_embeddings=True)``
+embeds by Word2Vec and LDA beside the flow's other features.
 """
 from __future__ import annotations
 
@@ -41,13 +43,67 @@ def titanic_data(n: int = 891, seed: int = 0) -> Dict[str, np.ndarray]:
         "Embarked": rng.choice(["S", "C", "Q"], n).astype(object)}
 
 
+#: the Notes column's generator: vocabulary size, topics, Zipf exponent,
+#: Dirichlet concentration, token counts [low, high], null share
+NOTES_VOCAB = 2000
+NOTES_TOPICS = 4
+NOTES_ZIPF = 1.1
+NOTES_DIRICHLET = 0.3
+NOTES_TOKENS = (8, 32)
+NOTES_NULL = 0.01
+
+
+def text_columns(n: int = 891, seed: int = 0) -> Dict[str, np.ndarray]:
+    """``titanic_data(n, seed)``'s columns plus ``Notes``, a case-description
+    field: each row draws a Dirichlet(0.3) mixture of 4 topics (topic 0's
+    weight doubled for survivors, then renormalised, so the text carries
+    signal) and 8-32 tokens (uniform), each token a topic from the mixture
+    and a word from that topic's Zipf(1.1) distribution over its own
+    permutation of the 2,000 types ``w0000``...``w1999``; 1% of rows are
+    null.  All draws come from one generator seeded by ``seed``."""
+    cols = titanic_data(n, seed)
+    rng = np.random.default_rng([seed, 10])
+    vocab = np.array([f"w{i:04d}" for i in range(NOTES_VOCAB)], dtype=object)
+    zipf = 1.0 / np.arange(1, NOTES_VOCAB + 1) ** NOTES_ZIPF
+    cdfs = []
+    for _ in range(NOTES_TOPICS):
+        p = np.empty(NOTES_VOCAB)
+        p[rng.permutation(NOTES_VOCAB)] = zipf / zipf.sum()
+        cdfs.append(np.cumsum(p))
+    mix = rng.dirichlet(np.full(NOTES_TOPICS, NOTES_DIRICHLET), n)
+    mix[:, 0] *= np.where(cols["Survived"] == 1, 2.0, 1.0)
+    mix /= mix.sum(axis=1, keepdims=True)
+    lengths = rng.integers(NOTES_TOKENS[0], NOTES_TOKENS[1] + 1, n)
+    row = np.repeat(np.arange(n), lengths)
+    mix_cdf = np.cumsum(mix, axis=1)
+    topic = np.minimum((rng.random(row.size)[:, None] > mix_cdf[row]).sum(axis=1),
+                       NOTES_TOPICS - 1)
+    u = rng.random(row.size)
+    words = np.empty(row.size, dtype=np.int64)
+    for t in range(NOTES_TOPICS):
+        at = topic == t
+        words[at] = np.minimum(np.searchsorted(cdfs[t], u[at], side="right"), NOTES_VOCAB - 1)
+    tokens = vocab[words]
+    ends = np.cumsum(lengths)
+    notes = np.array([" ".join(tokens[e - m:e]) for e, m in zip(ends, lengths)], dtype=object)
+    notes[rng.random(n) < NOTES_NULL] = None
+    cols["Notes"] = notes
+    return cols
+
+
 def build_workflow(model_types: Optional[Sequence[str]] = None,
                    models_and_parameters: Optional[Sequence[Any]] = None,
-                   sanity_check_params: Optional[Dict[str, Any]] = None):
+                   sanity_check_params: Optional[Dict[str, Any]] = None,
+                   text_embeddings: bool = False):
     """(OpWorkflow, prediction feature) of the Titanic flow; by default the
     binary selector's stock space (LR + RF + XGBoost, 28 candidates).
     ``sanity_check_params`` are the sanity checker's keyword arguments
-    (``sample_upper_limit``, ``correlation_type``, ``sharded_stats``, ...)."""
+    (``sample_upper_limit``, ``correlation_type``, ``sharded_stats``, ...).
+    With ``text_embeddings`` the free-text ``Notes`` column (``text_columns``)
+    joins the combined vector twice: its tokens' mean Word2Vec vector
+    (``OpWord2Vec()``: 64 dimensions) and the LDA topic mixture of its
+    token counts (``count_vectorize()``: 512 terms, ``OpLDA()``: 10
+    topics)."""
     F = FeatureBuilder
     survived = F("Survived", T.RealNN).extract(field="Survived").as_response()
     pclass = F("Pclass", T.PickList).extract(field="Pclass").as_predictor()
@@ -60,9 +116,16 @@ def build_workflow(model_types: Optional[Sequence[str]] = None,
     embarked = F("Embarked", T.PickList).extract(field="Embarked").as_predictor()
     # the reference's derived feature (OpTitanicSimple.scala:93)
     family_size = (sib_sp + par_ch + 1).alias("family_size")
-    features = family_size.vectorize(age, fare, label=survived).combine(
-        sex.pivot(pclass, embarked, top_k=10, min_support=1),
-        name.smart_vectorize(max_cardinality=10, num_hashes=64, min_support=1))
+    vectors = [sex.pivot(pclass, embarked, top_k=10, min_support=1),
+               name.smart_vectorize(max_cardinality=10, num_hashes=64, min_support=1)]
+    if text_embeddings:
+        from ..impl.feature.embeddings import OpLDA, OpWord2Vec
+
+        notes = F("Notes", T.Text).extract(field="Notes").as_predictor()
+        tokens = notes.tokenize()
+        vectors += [OpWord2Vec().set_input(tokens).get_output(),
+                    OpLDA().set_input(tokens.count_vectorize()).get_output()]
+    features = family_size.vectorize(age, fare, label=survived).combine(*vectors)
     checked = features.sanity_check(survived, **(sanity_check_params or {}))
     pred = BinaryClassificationModelSelector.with_cross_validation(
         num_folds=3, seed=42, model_types=model_types,

@@ -29,6 +29,19 @@
 // y once, the partials are small.  The tile sizes keep the accumulators
 // (CT x PM floats a thread) in registers.
 //
+// Above 64 coefficients (up to 1,024: a Titanic vector with Word2Vec and
+// LDA features is 85 wide, the real CSV's hashed names wider) a thread's
+// accumulators no longer fit a row, so the wide entry (fista_partial_rows)
+// takes a warp a row: lane l loads the row's coefficients l, l + 32, ...
+// (coalesced), forms its part of each fit's margin (the fits' z in shared
+// memory), a butterfly sums it on every lane, lane c takes fit c's sigmoid
+// and residual and shares it, and each lane accumulates residual x its
+// coefficients; a block takes a chunk of rows and a tile of
+// fits (VPL x CT = 32 accumulators a lane) and sums its warps' partials in
+// order into the chunk's partial; a warp an entry sums the chunks
+// (fista_finish_wide).  X1 is read once per tile of fits (one tile of 8 at
+// the text flow's sweep calls).
+//
 // K-P (softmax_partial) replaces the gradient of the body of
 // transmogrifai_tpu/ops/linear.py::fit_softmax (:148) as
 // fit_softmax_grid_folds (:432) vmaps it: for every fit c, with B_c the
@@ -118,6 +131,87 @@ fista_partial(const float* __restrict__ X1, const float* __restrict__ y,
   }
 }
 
+constexpr int kMaxWide = 1024;   // the most coefficients the wide entry takes
+
+__device__ __forceinline__ float warp_sum(float v) {
+  // xor butterfly: every lane ends with the same (commutative) sums
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v = __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, off));
+  return v;
+}
+
+// The wide entry: a warp a row, lane l holding the row's coefficients
+// l, l + 32, ... (VPL of them: coalesced loads), CT fits a block.
+template <int VPL, int CT, bool LOGISTIC>
+__global__ void __launch_bounds__(kThreads)
+fista_partial_rows(const float* __restrict__ X1, const float* __restrict__ y,
+                   const float* __restrict__ w, const int32_t* __restrict__ fold,
+                   const float* __restrict__ z, float* __restrict__ partial, int n, int p, int C,
+                   int chunk_rows) {
+  constexpr int PW = 32 * VPL;
+  __shared__ float zs[CT][PW];
+  __shared__ int fs[CT];
+  __shared__ float red[kWarps][CT][PW];
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int c0 = blockIdx.y * CT;
+  const int nc = min(CT, C - c0);
+  for (int i = tid; i < CT * PW; i += kThreads) {
+    const int c = i / PW, j = i % PW;
+    zs[c][j] = (c < nc && j < p) ? z[(long long)(c0 + c) * p + j] : 0.0f;
+  }
+  if (tid < CT) fs[tid] = tid < nc ? fold[c0 + tid] : 0;
+  __syncthreads();
+  float acc[CT][VPL];
+#pragma unroll
+  for (int c = 0; c < CT; ++c)
+#pragma unroll
+    for (int i = 0; i < VPL; ++i) acc[c][i] = 0.0f;
+  const long long r0 = (long long)blockIdx.x * chunk_rows;
+  const long long r1 = min((long long)n, r0 + chunk_rows);
+  for (long long r = r0 + warp; r < r1; r += kWarps) {
+    float x[VPL];
+#pragma unroll
+    for (int i = 0; i < VPL; ++i) {
+      const int j = lane + 32 * i;
+      x[i] = j < p ? X1[r * p + j] : 0.0f;
+    }
+    // every lane gets each fit's margin; lane c < nc then takes fit c's link
+    // and residual (one lane a fit, not 32), and the warp shares them
+    float mine = 0.0f;
+#pragma unroll
+    for (int c = 0; c < CT; ++c) {
+      float m = __fmul_rn(x[0], zs[c][lane]);
+#pragma unroll
+      for (int i = 1; i < VPL; ++i) m = __fmaf_rn(x[i], zs[c][lane + 32 * i], m);
+      m = warp_sum(m);
+      if (lane == c) mine = m;
+    }
+    float e_lane = 0.0f;
+    if (lane < nc) {
+      const float s = LOGISTIC ? __fdiv_rn(1.0f, __fadd_rn(1.0f, expf(-mine))) : mine;
+      e_lane = __fmul_rn(w[(long long)fs[lane] * n + r], __fsub_rn(s, y[r]));
+    }
+#pragma unroll
+    for (int c = 0; c < CT; ++c) {
+      const float e = __shfl_sync(0xffffffffu, e_lane, c);
+#pragma unroll
+      for (int i = 0; i < VPL; ++i) acc[c][i] = __fmaf_rn(e, x[i], acc[c][i]);
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < CT; ++c)
+#pragma unroll
+    for (int i = 0; i < VPL; ++i) red[warp][c][lane + 32 * i] = acc[c][i];
+  __syncthreads();
+  for (int i = tid; i < CT * PW; i += kThreads) {
+    const int c = i / PW, j = i % PW;
+    if (c >= nc || j >= p) continue;
+    float s = red[0][c][j];
+    for (int k = 1; k < kWarps; ++k) s = __fadd_rn(s, red[k][c][j]);
+    partial[((long long)blockIdx.x * C + c0 + c) * p + j] = s;
+  }
+}
+
 __global__ void fista_finish(const float* __restrict__ partial, const float* __restrict__ wsum,
                              const float* __restrict__ l2v, const float* __restrict__ z,
                              float* __restrict__ grad, int chunks, int C, int p) {
@@ -141,6 +235,40 @@ int launch(const void* X1, const void* y, const void* w, const void* fold, const
   if (err != cudaSuccess) return (int)err;
   const int threads = 128;
   fista_finish<<<(C * p + threads - 1) / threads, threads, 0, st>>>(
+      (const float*)partial, (const float*)wsum, (const float*)l2v, (const float*)z,
+      (float*)grad, chunks, C, p);
+  return (int)cudaGetLastError();
+}
+
+// The wide entry's finish: a warp an entry, its lanes summing the chunks
+// lane, lane + 32, ... and a butterfly (many chunks: a thread an entry would
+// walk them in one dependent chain)
+__global__ void fista_finish_wide(const float* __restrict__ partial,
+                                  const float* __restrict__ wsum, const float* __restrict__ l2v,
+                                  const float* __restrict__ z, float* __restrict__ grad,
+                                  int chunks, int C, int p) {
+  const int i = blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (i >= C * p) return;
+  float s = 0.0f;
+  for (int k = lane; k < chunks; k += 32) s = __fadd_rn(s, partial[(long long)k * C * p + i]);
+  s = warp_sum(s);
+  if (lane == 0) grad[i] = __fadd_rn(__fdiv_rn(s, wsum[i / p]), __fmul_rn(l2v[i], z[i]));
+}
+
+template <int VPL, int CT, bool LOGISTIC>
+int launch_wide(const void* X1, const void* y, const void* w, const void* fold, const void* z,
+                const void* wsum, const void* l2v, void* partial, void* grad, int n, int p,
+                int C, int chunks, int chunk_rows, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  dim3 grid((unsigned)chunks, (unsigned)((C + CT - 1) / CT));
+  fista_partial_rows<VPL, CT, LOGISTIC><<<grid, kThreads, 0, st>>>(
+      (const float*)X1, (const float*)y, (const float*)w, (const int32_t*)fold, (const float*)z,
+      (float*)partial, n, p, C, chunk_rows);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int per_block = kThreads / 32;
+  fista_finish_wide<<<(C * p + per_block - 1) / per_block, kThreads, 0, st>>>(
       (const float*)partial, (const float*)wsum, (const float*)l2v, (const float*)z,
       (float*)grad, chunks, C, p);
   return (int)cudaGetLastError();
@@ -261,7 +389,9 @@ int launch_softmax(const void* X1, const void* y, const void* w, const void* fol
   return (int)cudaGetLastError();
 }
 
-// p <= 16: tiles of 8 fits; p <= 24: tiles of 4; p <= 64: tiles of 2.
+// p <= 16: tiles of 8 fits; p <= 24: tiles of 4; p <= 64: tiles of 2;
+// p <= 1024: the wide entry, VPL x CT = 32 accumulators a lane (tiles of
+// 8 fits at p <= 128 down to 1 fit at p <= 1024).
 template <bool LOGISTIC>
 int dispatch(const void* X1, const void* y, const void* w, const void* fold, const void* z,
              const void* wsum, const void* l2v, void* partial, void* grad, int n, int p, int C,
@@ -276,6 +406,18 @@ int dispatch(const void* X1, const void* y, const void* w, const void* fold, con
   if (p <= 64)
     return launch<64, 2, LOGISTIC>(X1, y, w, fold, z, wsum, l2v, partial, grad, n, p, C,
                                    chunks, chunk_rows, stream);
+  if (p <= 128)
+    return launch_wide<4, 8, LOGISTIC>(X1, y, w, fold, z, wsum, l2v, partial, grad, n, p, C,
+                                       chunks, chunk_rows, stream);
+  if (p <= 256)
+    return launch_wide<8, 4, LOGISTIC>(X1, y, w, fold, z, wsum, l2v, partial, grad, n, p, C,
+                                       chunks, chunk_rows, stream);
+  if (p <= 512)
+    return launch_wide<16, 2, LOGISTIC>(X1, y, w, fold, z, wsum, l2v, partial, grad, n, p, C,
+                                        chunks, chunk_rows, stream);
+  if (p <= kMaxWide)
+    return launch_wide<32, 1, LOGISTIC>(X1, y, w, fold, z, wsum, l2v, partial, grad, n, p, C,
+                                        chunks, chunk_rows, stream);
   return (int)cudaErrorInvalidValue;
 }
 

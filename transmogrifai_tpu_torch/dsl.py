@@ -8,7 +8,8 @@ are installed on ``Feature`` when this module imports (the package
 arithmetic with features and scalars, ``alias``, ``vectorize``,
 ``pivot``, ``smart_vectorize``, ``combine`` and ``sanity_check``, enough
 for ``(sib_sp + par_ch + 1).alias("family_size")`` and the rest of the
-Titanic flow (OpTitanicSimple.scala:77-130).
+Titanic flow (OpTitanicSimple.scala:77-130), and ``tokenize`` and
+``count_vectorize`` of text (RichTextFeature).
 """
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ from typing import Optional
 
 from .features.feature import Feature
 from .impl.feature.smart_text import SmartTextVectorizer
+from .impl.feature.text import OpCountVectorizer, TextTokenizer
 from .impl.feature.transformers import (AddTransformer, AliasTransformer, DivideTransformer,
                                         MultiplyTransformer, ScalarMathTransformer,
                                         SubtractTransformer)
@@ -67,6 +69,14 @@ def pivot(self: Feature, *others: Feature, top_k: int = 20, min_support: int = 1
         .set_input(self, *others).get_output()
 
 
+def tokenize(self: Feature, **kw) -> Feature:
+    return _unary(TextTokenizer(**kw), self)
+
+
+def count_vectorize(self: Feature, **kw) -> Feature:
+    return _unary(OpCountVectorizer(**kw), self)
+
+
 def sanity_check(self: Feature, label: Feature, **kw) -> Feature:
     """RichVectorFeature.sanityCheck — label-aware feature QA."""
     from .impl.preparators.sanity_checker import SanityChecker
@@ -81,6 +91,7 @@ def combine(self: Feature, *others: Feature) -> Feature:
 _METHODS = {
     "alias": alias, "vectorize": vectorize, "smart_vectorize": smart_vectorize,
     "pivot": pivot, "sanity_check": sanity_check, "combine": combine,
+    "tokenize": tokenize, "count_vectorize": count_vectorize,
     "__add__": _binary_math(AddTransformer, "plus"),
     "__sub__": _binary_math(SubtractTransformer, "minus"),
     "__mul__": _binary_math(MultiplyTransformer, "multiply"),

@@ -100,11 +100,25 @@ with the port's gaps to them on the CPU when it was written.
 package on the CPU's 8-device mesh, about a minute).  No feature matrix
 travels: the card computes the vectors through the port's vectorizers.
 
+``titanic_text/`` holds the JAX package's Titanic workflow with the free-text
+``Notes`` column (``apps/titanic.text_columns(891, 0)``,
+``build_workflow(text_embeddings=True)``: Word2Vec and LDA beside the other
+features) over the binary selector's stock space (28 candidates; the winner
+is a logistic regression {0.001, 0.1}), 256 request records with notes and
+the JAX package's answers (``expected.npz``), ``sweep.npz``: the three
+workflow-level sweep calls' metrics [3, 1, 28, 6] (``metrics``), and
+``k18.npz``: the 891 rows' tokens (space-joined) and count matrix under the
+saved count model, the final Word2Vec fit's pair count and the SHA-256 of
+its skip-gram pairs, negatives and ``W0``, and small K18 cases with the JAX
+package's outputs (one SGNS epoch: ``sgns_*``; one E-step and one M-step:
+``lda_*``).  ``tests/test_torch_text_slice.py --write`` regenerates it.
+
 Strings with nulls are stored as a unicode array plus ``<name>__null``, so
 the files load without pickles.
 """
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 import re
@@ -123,6 +137,7 @@ TITANIC_FAMILIES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "titanic_families")
 BOSTON_GLM = os.path.join(os.path.dirname(os.path.abspath(__file__)), "boston_glm")
 TITANIC_SANITY = os.path.join(os.path.dirname(os.path.abspath(__file__)), "titanic_sanity")
+TITANIC_TEXT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "titanic_text")
 NULL_SUFFIX = "__null"
 
 #: tolerances of the comparison with the JAX package's answers.  Margins are
@@ -851,3 +866,162 @@ def check_titanic_sanity(summary: Dict[str, Any], setting: str,
                      ("cramers_v_max_gap", SANITY_CORR_ATOL)):
         check(out.get(key, 0.0) <= tol, f"{setting}: {key} {out.get(key)} above {tol}")
     return out
+
+
+# ---------------------------------------------------------------------------
+# the text flow (titanic_text)
+# ---------------------------------------------------------------------------
+#: fold AuPR of the text flow's families against the fixture's.  The
+#: features now include the Word2Vec and LDA outputs of each fold's own fits,
+#: which differ from the reference's in their last bits (vectors) and by up
+#: to a few 1e-3 relative (the LDA mixtures: see ``TEXT_LDA_RTOL``): the
+#: logistic regression's AuPR moves by its FISTA order alone
+#: (``LR_AUPR_TOL``); the trees' quantile bins and near-tied splits on those
+#: columns move, so the forests and boosted trees are no longer bit-equal
+#: (the 891-row stock train on the CPU: LR 6e-8, RF 3.1e-3 in 5 of 18
+#: candidates, XGB 7.5e-4; on the card RF 3.4e-3)
+TEXT_AUPR_TOL = {"OpLogisticRegression": LR_AUPR_TOL, "OpRandomForestClassifier": 1e-2,
+                 "OpXGBoostClassifier": 1e-2}
+#: the final Word2Vec fit's vectors against the fixture's: float32 sums of
+#: each row's gradient in another order than XLA's scatter, over 30 epochs
+TEXT_W2V_ATOL = 2e-5
+#: the final LDA fit's topic-word lambda against the fixture's, |gap| <=
+#: rtol |lambda| + atol: the E-step's unstable fixed point for small topic
+#: weights amplifies last-bit gaps over its 30 iterations, and the M-steps
+#: feed them back (gammas within 8.5e-4 relative on the same inputs)
+TEXT_LDA_RTOL = 2e-2
+TEXT_LDA_ATOL = 2e-3
+#: probabilities of the fixture's requests: the JAX-saved model scored by
+#: the port (the E-step's gaps reach the LDA features), and a model the port
+#: trained itself (its Word2Vec and LDA fits' gaps reach the refit)
+TEXT_JAX_SAVED_PROB_ATOL = 1e-5
+TEXT_PROB_ATOL = 1e-3
+
+
+def digest(a: np.ndarray) -> str:
+    """SHA-256 of an array's dtype, shape and bytes."""
+    a = np.ascontiguousarray(a)
+    return hashlib.sha256(f"{a.dtype}{a.shape}".encode() + a.tobytes()).hexdigest()
+
+
+def load_k18() -> Dict[str, np.ndarray]:
+    with np.load(os.path.join(TITANIC_TEXT, "k18.npz"), allow_pickle=False) as z:
+        return {k: z[k] for k in z.files}
+
+
+class PortW2VArgs:
+    """Records (W0, pairs, negs) of every Word2Vec fit of the port while on
+    (``embeddings_module``: ``transmogrifai_tpu_torch.impl.feature.embeddings``)."""
+
+    def __init__(self, embeddings_module):
+        self.module, self.calls = embeddings_module, []
+
+    def __enter__(self):
+        cls = self.module.OpWord2Vec
+        self._train = train = cls.train
+
+        def recording(stage, W0, pairs, negs, device):
+            self.calls.append((W0, pairs, negs))
+            return train(stage, W0, pairs, negs, device)
+
+        cls.train = recording
+        return self
+
+    def __exit__(self, *exc):
+        self.module.OpWord2Vec.train = self._train
+
+
+def _stage(model, name: str):
+    return next(s for s in model.stages if type(s).__name__ == name)
+
+
+def _fixture_model():
+    from ..workflow.model import OpWorkflowModel
+
+    return OpWorkflowModel.load(TITANIC_TEXT, device="cpu")
+
+
+def check_text_tokens(model, notes: np.ndarray) -> Dict[str, Any]:
+    """The port's tokens of ``notes`` (the 891-row frame's) and their count
+    matrix under ``model``'s count vectorizer equal the JAX package's in
+    ``k18.npz``."""
+    from ..columns import ObjectColumn
+    from .. import types as T
+
+    k18 = load_k18()
+    tokenizer = _stage(model, "TextTokenizer")
+    tokens = [tokenizer.tokenize(t) for t in notes]
+    check([" ".join(t) for t in tokens] == k18["tokens"].tolist(), "tokens differ")
+    col = ObjectColumn(T.TextList, np.empty(len(tokens), dtype=object))
+    col.values[:] = tokens
+    counts = _stage(model, "OpCountVectorizerModel").transform_columns([col]).numpy()
+    check(np.array_equal(counts, k18["counts"].astype(np.float32)), "count vectors differ")
+    return {"rows": len(tokens), "tokens": int(sum(len(t) for t in tokens)),
+            "nonzeros": int(np.count_nonzero(counts))}
+
+
+def check_titanic_text_train(model, final_w2v_args) -> Dict[str, Any]:
+    """Hold a text-flow train (the stock space or a part of it) to the
+    ``titanic_text`` fixture: the fixture's winner; each family's fold AuPR
+    within ``TEXT_AUPR_TOL``; the final fit's vocabularies equal; its
+    skip-gram pairs, negatives and ``W0`` (``final_w2v_args``, as
+    ``PortW2VArgs`` records them) bit-equal by digest; its word vectors
+    within ``TEXT_W2V_ATOL`` and its LDA topic-word matrix within
+    ``TEXT_LDA_RTOL`` / ``TEXT_LDA_ATOL``.  Every check runs before the
+    first failure is raised (all of them named).  Returns the gaps."""
+    with open(os.path.join(TITANIC_TEXT, "op_model.json")) as fh:
+        ref = stage_summary(json.load(fh))
+    summ = model.stages[-1].summary
+    theirs = {(r["modelName"], json.dumps(r["grid"], sort_keys=True)): r
+              for r in ref["validationResults"]}
+    failed: List[str] = []
+    gaps: Dict[str, float] = {}
+    for r in summ.validation_results:
+        t = theirs[(r["modelName"], json.dumps(r["grid"], sort_keys=True))]
+        g = max(abs(a - b) for a, b in zip(r["foldMetrics"], t["foldMetrics"]))
+        gaps[r["modelName"]] = max(gaps.get(r["modelName"], 0.0), g)
+    if (summ.best_model_name, summ.best_grid) != (ref["bestModelName"], ref["bestGrid"]):
+        failed.append(f"winner {summ.best_model_name} {summ.best_grid} differs from the "
+                      f"fixture's {ref['bestModelName']} {ref['bestGrid']}")
+    failed += [f"{fam} fold AuPR {gap} from the fixture's, above {TEXT_AUPR_TOL[fam]}"
+               for fam, gap in gaps.items() if gap > TEXT_AUPR_TOL[fam]]
+    fx = _fixture_model()
+    failed += [f"{name} vocabulary differs" for name in ("OpCountVectorizerModel",
+                                                           "OpWord2VecModel")
+               if _stage(model, name).vocabulary != _stage(fx, name).vocabulary]
+    k18 = load_k18()
+    W0, pairs, negs = final_w2v_args
+    if pairs.shape[0] != int(k18["final_pairs"]):
+        failed.append("skip-gram pair count differs")
+    failed += [f"final Word2Vec {what} differ" for what, a in
+               (("pairs", pairs), ("negs", negs), ("W0", W0))
+               if digest(a) != str(k18[f"final_{what}_sha"])]
+    out: Dict[str, Any] = {"max_gap": gaps, "best": summ.best_model_name,
+                           "best_grid": summ.best_grid, "final_pairs": int(pairs.shape[0])}
+    vec, vec_ref = (_stage(m, "OpWord2VecModel").vectors for m in (model, fx))
+    out["w2v_max_abs_gap"] = float(np.abs(vec - vec_ref).max()) if vec.shape == vec_ref.shape \
+        else float("inf")
+    if not out["w2v_max_abs_gap"] <= TEXT_W2V_ATOL:
+        failed.append(f"word vectors {out['w2v_max_abs_gap']} from the fixture's")
+    lam, lam_ref = (_stage(m, "OpLDAModel").topic_word.astype(np.float64) for m in (model, fx))
+    gap = np.abs(lam - lam_ref)
+    out["lda_max_abs_gap"] = float(gap.max())
+    out["lda_max_rel_gap"] = float((gap / np.abs(lam_ref)).max())
+    if not np.all(gap <= TEXT_LDA_RTOL * np.abs(lam_ref) + TEXT_LDA_ATOL):
+        failed.append(f"LDA topic-word {out['lda_max_abs_gap']} ({out['lda_max_rel_gap']} "
+                      "relative) from the fixture's")
+    check(not failed, "; ".join(failed) + f" (gaps: {out})")
+    return out
+
+
+def compare_text_answers(expected: Dict[str, np.ndarray], prediction: np.ndarray,
+                         probability: np.ndarray, tol: float) -> Dict[str, float]:
+    """Gaps of a text-flow model's answers to the fixture's: probabilities
+    within ``tol``, predictions equal off the class boundary (|p1 - p0|
+    above twice ``tol``)."""
+    eq = expected["probability"]
+    gap = float(np.abs(probability - eq).max())
+    check(gap <= tol, f"probabilities {gap} from the fixture's, above {tol}")
+    off = np.abs(eq[:, 1] - eq[:, 0]) > 2 * tol
+    check(np.array_equal(prediction[off], expected["prediction"][off]), "predictions differ")
+    return {"probability_max_abs_err": gap, "rows": int(len(prediction))}

@@ -120,6 +120,13 @@ _FISTA_SIGNATURES = {"fista_grad": (_FISTA_ARGS, ctypes.c_int),
 #: chunks to give every SM two blocks
 _FISTA_MIN_CHUNK = 2048
 _FISTA_TARGET_CHUNKS = 2 * 132
+#: the most coefficients (features + intercept) K-K and K-N take: up to 64 a
+#: thread a row, above a warp a row (``csrc/fista.cu``'s wide entry), whose
+#: chunks are smaller (at least 256 rows, else 512 chunks: a block's 8 warps
+#: take 32 rows each, and a tile of 8 fits still fills the SMs)
+FISTA_MAX_COEFS = 1024
+_FISTA_WIDE_MIN_CHUNK = 256
+_FISTA_WIDE_TARGET_CHUNKS = 512
 
 
 def _fista_launch(entry: str, X1, y, w, fold, z, l2v, wsum) -> torch.Tensor:
@@ -127,11 +134,12 @@ def _fista_launch(entry: str, X1, y, w, fold, z, l2v, wsum) -> torch.Tensor:
     ``linear_fista_grad``) on CUDA tensors; returns the gradients."""
     n, p = X1.shape
     C = z.shape[0]
-    if p > 64:
-        raise ValueError(f"{entry} takes at most 64 coefficients, got {p}")
+    if p > FISTA_MAX_COEFS:
+        raise ValueError(f"{entry} takes at most {FISTA_MAX_COEFS} coefficients, got {p}")
     X1, y, w, fold = X1.contiguous(), y.contiguous(), w.contiguous(), fold.contiguous()
     z, l2v, wsum = z.contiguous(), l2v.contiguous(), wsum.contiguous()
-    chunk_rows = max(_FISTA_MIN_CHUNK, -(-n // _FISTA_TARGET_CHUNKS))
+    chunk_rows = (max(_FISTA_MIN_CHUNK, -(-n // _FISTA_TARGET_CHUNKS)) if p <= 64 else
+                  max(_FISTA_WIDE_MIN_CHUNK, -(-n // _FISTA_WIDE_TARGET_CHUNKS)))
     chunks = -(-n // chunk_rows)
     partial = torch.empty((chunks, C, p), dtype=torch.float32, device=X1.device)
     grad = torch.empty((C, p), dtype=torch.float32, device=X1.device)
@@ -154,7 +162,7 @@ def fista_grad(X1: torch.Tensor, y: torch.Tensor, w: torch.Tensor, fold: torch.T
     ``X1`` f32[n, p] (the features with the intercept column), ``y`` f32[n],
     ``w`` f32[F, n] the folds' row weights, ``fold`` i32[C] each fit's fold,
     ``l2v`` f32[C, p] each fit's L2 penalty per coefficient, ``wsum`` f32[C]
-    each fit's weight total.  At most 64 coefficients."""
+    each fit's weight total.  At most ``FISTA_MAX_COEFS`` coefficients."""
     _check_fista(X1, y, w, fold, z, l2v, wsum)
     if not _on_cuda(X1, y, w, fold, z, l2v, wsum):
         return fista_grad_plain(X1, y, w, fold, z, l2v, wsum)
