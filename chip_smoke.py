@@ -1,9 +1,9 @@
-"""Chip smoke test of the PyTorch/CUDA port: serve and train Titanic, train Boston and Iris, on the GPU.
+"""Chip smoke test of the PyTorch/CUDA port: serve and train Titanic, train Boston and Iris, stream, on the GPU.
 
 Run from the repository root on a host with one CUDA card:
 
     python3 chip_smoke.py [--seed 0] [--rows 1048576] [--reps 20] [--train-rows 262144]
-                          [--stats-rows 1048576] [--text-rows 131072]
+                          [--stats-rows 1048576] [--text-rows 131072] [--stream-rows 4194304]
 
 Phases, each printing its findings on a line of its own:
 
@@ -275,6 +275,39 @@ Phases, each printing its findings on a line of its own:
                pairs of the E- and M-steps, ``torch.special.digamma``;
 40. text serve -- p50 of a ``BatchScoreFunction`` request for the text model
                (an LDA E-step on the request path) at 1, 64 and 1,024 records.
+41. wide reference -- the 891-row text flow (85 coefficients) over the
+               default ``OpLogisticRegression()`` Newton points and
+               ``linear_svc_grid()`` on the card: K-S's and K-T's wide entries
+               (launch counts above 0), the JAX package's winner and fold
+               AuPR (``fixtures/titanic_text/wide.npz``,
+               ``FX.check_titanic_text_wide_train``); K-P's wide entry through
+               ``fit_softmax_grid_folds`` on a 2^17 x 84 three-class frame;
+42. wide kernels -- K-S (Newton, ridge, GLM), K-P and K-T at p = 85 (2^17
+               rows, the text flow's width) and p = 513 (2^15 rows) against
+               their plain versions, timed beside their bounds (float64
+               operations over the card's 34 TFLOP/s float64 rate);
+43. scale kernels -- K-AC in every mode on a 2^20-row Age column and K-AD at
+               2^20 x 24 against their plain versions (bit-equal; log and exp
+               within 2 ulps), beside ``torch.where`` / ``torch.bucketize``;
+44. stream  -- the JAX package's transform bench pipeline (``bench.py:212-251``:
+               a fill, two real vectorizers, a combiner and a vector standard
+               scaler fitted on a 50,000-row head) at ``--stream-rows`` (2^22)
+               rows through the
+               streaming executor and through the layer path: equal outputs,
+               both walls, chunks, bytes up and back, the transfer wait, and
+               each run's peak device memory beside the layer path's bytes
+               (the streamed peak must stay within its chunk window);
+45. simple reference -- TransmogrifAI's OpTitanicSimple feature set
+               (``build_workflow(reference_features=True)``) over the stock
+               space on the 891-row frame, held to ``fixtures/titanic_simple``
+               (``FX.check_titanic_simple_train``), and the JAX-saved model's
+               256 answers;
+46. simple train -- the same flow on ``titanic_data(--train-rows, --seed)``:
+               every flush streams; K-AC, K-Z, K-C and K-D launch counts above
+               0, the breakdown, the executor's counters and a profiled run;
+47. simple score -- the trained model's ``score`` of ``--rows`` rows (one
+               streamed run of the scoring DAG; rows/s) and p50 of
+               ``BatchScoreFunction`` at 1, 64 and 1,024 records.
 
 The line before the last holds the kernels' JSON record, then the card's
 name and power limit; the last line is ``{"ok": true, "device": ...}``.  Any
@@ -282,6 +315,7 @@ failed build, launch or comparison raises, so the script exits non-zero
 without that line.  There is no CPU path.
 """
 import argparse
+import contextlib
 import json
 import statistics
 import subprocess
@@ -475,7 +509,10 @@ def kernel_phase(torch, model, cols, timer):
     def upload(arrays):
         return [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in arrays]
 
-    values, mask, fills = upload(rv.torch_host_prep([full[f.name] for f in rv.inputs]))
+    rv_cols = [full[f.name] for f in rv.inputs]
+    values, mask, fills = upload([np.stack([np.asarray(c.values, np.float32) for c in rv_cols]),
+                                  np.stack([c.mask for c in rv_cols]),
+                                  np.asarray(rv.fills, np.float32)])
     (codes,) = upload(oh.torch_host_prep([full[f.name] for f in oh.inputs]))
     widths = oh._widths()
     X = full[sel.inputs[-1].name].tensor(dev)
@@ -609,26 +646,40 @@ def serve_phase(torch, model, cols, reps, seed, kernels):
 
 
 def breakdown_phase(torch, model, cols):
-    """Where the big batch's time goes: the reader and each DAG layer on
-    the host clock (synchronized), and the device's busy time over one
+    """Where the big batch's time goes, on the route ``score`` takes: the
+    reader, the one streamed run of the scoring DAG (its wall and counters
+    from ``stream_stats``) and the host stages after it, each timed again
+    on the run's output (synchronized), and the device's busy time over one
     whole ``score`` by the profiler (``None`` when it records no device
     activity)."""
     from transmogrifai_tpu_torch.readers.base import CustomReader
-    from transmogrifai_tpu_torch.workflow import dag
+    from transmogrifai_tpu_torch.workflow import dag, stream
 
     steps = {}
     t = time.perf_counter()
     ds = CustomReader(cols).generate_dataset(model.raw_features)
     steps["reader"] = time.perf_counter() - t
-    for i, layer in enumerate(model.dag):
-        t = time.perf_counter()
-        ds = dag._apply_layer_transforms(ds, layer)
-        torch.cuda.synchronize()
-        steps[f"layer{i}:" + "+".join(sorted({type(s).__name__ for s in layer}))] = \
-            time.perf_counter() - t
+    check(len(ds) > dag.STREAM_ROWS, "the breakdown's batch does not stream")
+    plan = stream.build_plan(ds, model.dag)
+    stream.reset_stream_stats()
+    t = time.perf_counter()
+    out = dag.apply_transformations_dag(ds, model.dag,
+                                        keep=[f.name for f in model.result_features])
+    torch.cuda.synchronize()
+    steps["dag"] = time.perf_counter() - t
+    st = stream.stream_stats()
+    check(st["streams"] == 1, "the scoring DAG did not stream as one run")
+    steps["streamed_run"] = st["wall_s"]
+    for i, layer in enumerate(plan.host_layers):
+        for s in layer:
+            t = time.perf_counter()
+            s.transform_dataset(out)
+            torch.cuda.synchronize()
+            steps[f"host{i}:{type(s).__name__}"] = time.perf_counter() - t
     wall, busy_s, idle, _ = profiled(torch, lambda: model.score(cols))
-    log("breakdown", rows=len(ds), host_clock_s=steps, profiled_score_s=wall,
-        device_busy_s=busy_s, device_idle_share=idle)
+    log("breakdown", rows=len(ds), host_clock_s=steps, stream=st,
+        stages_streamed=[type(e.stage).__name__ for e in plan.stages],
+        profiled_score_s=wall, device_busy_s=busy_s, device_idle_share=idle)
 
 
 def train_reference_phase(torch, titanic, FX, dev="cuda"):
@@ -3306,6 +3357,534 @@ def text_phases(torch, titanic, FX, args, timer, dev="cuda"):
                      "fista_grad_wide": launches["fista_grad"]}
 
 
+# ---------------------------------------------------------------------------
+# slice 11: K-S, K-P and K-T past 64 coefficients; the streaming executor and
+# the OpTitanicSimple flow (K-AC, K-AD)
+# ---------------------------------------------------------------------------
+#: the wide entries against their plain versions, relative to the largest
+#: entry: float64 sums in both, float32 margins in another order
+WIDE_RTOL = 1e-5
+#: K-AC's log and exp against torch's (libdevice), 2 float32 ulps
+SCALE_APPROX_RTOL = 2.0 ** -22
+
+
+def wide_reference_phase(torch, titanic, FX, dev="cuda"):
+    """Phase 41: the text flow's Newton + SVC train on the card against the
+    JAX package's (its launches of K-S and K-T all wide: p = 85), and K-P's
+    wide entry through ``fit_softmax_grid_folds``.  Returns the launches."""
+    from transmogrifai_tpu_torch.impl.classification.logistic import OpLogisticRegression
+    from transmogrifai_tpu_torch.impl.classification.svc import OpLinearSVC
+    from transmogrifai_tpu_torch.impl.selector import defaults as D
+    from transmogrifai_tpu_torch.ops import linear as L
+
+    space = [(OpLogisticRegression(), D.grid(reg_param=[0.001, 0.01, 0.1, 0.2],
+                                              elastic_net_param=[0.0])),
+             (OpLinearSVC(), D.linear_svc_grid())]
+    zero_launches((L.weighted_gram, L.svc_grad, L.softmax_fista_grad))
+    t = time.perf_counter()
+    model, _ = titanic.train_titanic(titanic.text_columns(891, 0), device=dev,
+                                     text_embeddings=True, models_and_parameters=space)
+    wall = time.perf_counter() - t
+    found = FX.check_titanic_text_wide_train(model)
+    check(found["width"] > 64, "the text flow's vector is not wide")
+    launches = {"weighted_gram_wide": L.weighted_gram.launches,
+                "svc_grad_wide": L.svc_grad.launches}
+    rng = np.random.default_rng(41)
+    n = 1 << 17
+    X = torch.from_numpy((rng.random((n, 84)) < 0.15).astype(np.float32)).to(dev)
+    y = torch.from_numpy(rng.integers(0, 3, n).astype(np.float32)).to(dev)
+    tw = torch.from_numpy((rng.random((3, n)) < 0.67).astype(np.float32)).to(dev)
+    t2 = time.perf_counter()
+    fit = L.fit_softmax_grid_folds(X, y, tw, [0.0, 0.001], [0.01, 0.05], 3, max_iter=20)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(fit.coef).all()), "non-finite wide softmax fit")
+    launches["softmax_fista_grad_wide"] = L.softmax_fista_grad.launches
+    missing = [k for k, v in launches.items() if v <= 0]
+    check(not missing, f"wide entries not launched: {missing}")
+    log("wide_reference", wall_s=wall, softmax_wall_s=time.perf_counter() - t2,
+        launches=launches, **found)
+    return launches
+
+
+def wide_kernel_phase(torch, timer, dev="cuda", shapes=((85, 1 << 17), (513, 1 << 15))):
+    """Phase 42: the wide entries against their plain versions at p = 85 and
+    513.  Returns the three main records (p = 85)."""
+    from transmogrifai_tpu_torch.ops import linear as L
+
+    records, extra = [], {}
+
+    def held(name, got, want):
+        torch.cuda.synchronize()
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        err = 0.0
+        for a, b in zip(got, want):
+            scale = float(b.abs().max()) + 1e-30
+            gap = float((a - b).abs().max())
+            check(gap <= WIDE_RTOL * scale, f"{name}: {gap} from its plain version "
+                                            f"(scale {scale}), above {WIDE_RTOL}")
+            err = max(err, gap)
+        return err
+
+    for p, n in shapes:
+        rng = np.random.default_rng(p)
+        X1 = np.concatenate([(rng.random((n, p - 1)) < 0.15) * 1.0, np.ones((n, 1))], 1)
+        X1[:, :6] = rng.normal(size=(n, 6))
+        F, G = 3, 4
+        C = F * G
+        t = lambda a, dt=torch.float32: torch.as_tensor(np.asarray(a), dtype=dt, device=dev)
+        X1t = t(X1)
+        y = t(rng.random(n) < 0.4)
+        w = t(rng.random((F, n)) < 0.67)
+        fold = t(np.arange(C) % F, torch.int32)
+        beta = t(rng.normal(size=(C, p)) * 0.05)
+        wsum = w.sum(1)[fold.long()]
+        l2v = t(np.full((C, p), 0.01))
+        # K-S: Newton, ridge, GLM (poisson / log)
+        E = p * (p + 1) // 2 + p
+        for mode, args in (("newton", (beta,)), ("ridge", ()),
+                           ("glm", (beta, ("poisson", "log", t(np.zeros(C)))))):
+            yy = t(rng.poisson(1.5, n)) if mode == "glm" else y
+            fn = lambda: L.weighted_gram(X1t, yy, w, fold, *args)
+            err = held(f"weighted_gram {mode} p{p}", fn(),
+                       L.weighted_gram_plain(X1t, yy, w, fold, *args))
+            f64 = 2.0 * C * n * E
+            f32 = 0.0 if mode == "ridge" else 2.0 * C * n * p
+            t_ops = (f64 / PEAK_F64_OPS_PER_S + f32 / PEAK_SCALAR_OPS_PER_S) * 1e3
+            t_bytes = (n * p * 4 + F * n * 4 + n * 4 + C * E * 4) / PEAK_BYTES_PER_S * 1e3
+            # the library call: one einsum with the weights given (as K9's)
+            v = L._gram_weights(X1t, yy, w, fold, *(args or (None,)))[0]
+            row = {"max_abs_err": err, "ms": timer(fn),
+                   "plain_ms": timer(lambda: L.weighted_gram_plain(X1t, yy, w, fold, *args)),
+                   "bound_ms": max(t_ops, t_bytes),
+                   "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                   "library_ms": timer(lambda: torch.einsum("cn,np,nq->cpq", v, X1t, X1t)),
+                   "shape": [n, p, C]}
+            extra[f"weighted_gram {mode} p{p}"] = row
+            del v
+            if p == 85 and mode == "newton":
+                records.append(dict(name="weighted_gram_wide", route="cuda",
+                                    source="transmogrifai_tpu_torch/csrc/weighted_gram.cu",
+                                    replaces="transmogrifai_tpu/ops/linear.py:53", **row))
+        # K-T
+        fn = lambda: L.svc_grad(X1t, y, w, fold, beta, l2v, wsum)
+        err = held(f"svc_grad p{p}", fn(), L.svc_grad_plain(X1t, y, w, fold, beta, l2v, wsum))
+        bd, by = bound_ms(n * p * 4 + F * n * 4 + n * 4 + 3 * C * p * 4, 4.0 * C * n * p)
+        row = {"max_abs_err": err, "ms": timer(fn),
+               "plain_ms": timer(lambda: L.svc_grad_plain(X1t, y, w, fold, beta, l2v, wsum)),
+               "bound_ms": bd, "bound_by": by, "library_ms": None, "shape": [n, p, C]}
+        extra[f"svc_grad p{p}"] = row
+        if p == 85:
+            records.append(dict(name="svc_grad_wide", route="cuda",
+                                source="transmogrifai_tpu_torch/csrc/svc.cu",
+                                replaces="transmogrifai_tpu/ops/linear.py:254", **row))
+        # K-P, three classes and eight
+        for k, Cs in ((3, 6), (8, 2)):
+            yc = t(rng.integers(0, k, n))
+            z = t(rng.normal(size=(Cs, p, k)) * 0.05)
+            l2m = t(np.full((Cs, p, k), 0.01))
+            fs = fold[:Cs].contiguous()
+            ws = w.sum(1)[fs.long()]
+            fn = lambda: L.softmax_fista_grad(X1t, yc, w, fs, z, l2m, ws)
+            err = held(f"softmax_fista_grad p{p} k{k}", fn(),
+                       L.softmax_fista_grad_plain(X1t, yc, w, fs, z, l2m, ws))
+            bd, by = bound_ms(n * p * 4 + F * n * 4 + n * 4 + 3 * Cs * p * k * 4,
+                              Cs * n * (4.0 * p * k + 6 * k))
+            row = {"max_abs_err": err, "ms": timer(fn),
+                   "plain_ms": timer(lambda: L.softmax_fista_grad_plain(X1t, yc, w, fs, z, l2m,
+                                                                         ws)),
+                   "bound_ms": bd, "bound_by": by, "library_ms": None, "shape": [n, p, k, Cs]}
+            extra[f"softmax_fista_grad p{p} k{k}"] = row
+            if p == 85 and k == 3:
+                records.append(dict(name="softmax_fista_grad_wide", route="cuda",
+                                    source="transmogrifai_tpu_torch/csrc/fista.cu",
+                                    replaces="transmogrifai_tpu/ops/linear.py:148", **row))
+        del X1t
+    log("wide_kernels", tolerance=WIDE_RTOL, f64_ops_per_s=PEAK_F64_OPS_PER_S, details=extra,
+        records=records)
+    return records
+
+
+def scale_kernel_phase(torch, titanic, timer, dev="cuda", rows=1 << 20):
+    """Phase 43: K-AC in every mode and K-AD against their plain versions.
+    Returns the two main records (K-AC's fill mode, K-AD)."""
+    from transmogrifai_tpu_torch.ops import layer as LY
+
+    cols = titanic.titanic_data(rows, 43)
+    n = len(cols["Age"])
+    age = np.asarray(cols["Age"], np.float32)
+    m = np.random.default_rng(43).random(n) > 0.2
+    v = torch.from_numpy(np.where(m, age, 0.0).astype(np.float32)).to(dev)
+    mt = torch.from_numpy(m).to(dev)
+    mean, std = float(age[m].mean()), float(age[m].std())
+    splits = torch.from_numpy(np.quantile(age[m], np.linspace(0, 1, 101))[1:-1]
+                              .astype(np.float32)).to(dev)
+    modes = {"fill": (mean, 1.0, {}), "standardize": (mean, std, {}),
+             "scale_linear": (1.37, -0.291, {}), "scale_log": (1.0, 0.0, {}),
+             "descale_linear": (1.37, -0.291, {}), "descale_exp": (1.0, 0.0, {}),
+             "bucket": (0.0, 0.0, {"splits": splits})}
+    library = {"fill": lambda: torch.where(mt, v, mean),
+               "bucket": lambda: torch.bucketize(v, splits, right=True)}
+    records, extra = [], {}
+    for mode, (a, b, kw) in modes.items():
+        x = v / 20.0 if mode == "descale_exp" else v
+        fn = lambda: LY.numeric_scale(mode, x, mt, a, b, **kw)
+        got, want = fn(), LY.numeric_scale_plain(mode, x, mt, a, b, **kw)
+        torch.cuda.synchronize()
+        check(torch.equal(got[1], want[1]), f"numeric_scale {mode}: masks differ")
+        if mode in ("scale_log", "descale_exp"):
+            gap = float(((got[0] - want[0]).abs() / want[0].abs().clamp_min(1e-30)).max())
+            check(gap <= SCALE_APPROX_RTOL, f"numeric_scale {mode}: {gap} relative")
+        else:
+            check(torch.equal(got[0], want[0]), f"numeric_scale {mode} differs from plain")
+        ops = n * (11 if mode == "bucket" else 2)      # a binary search: ~log2(99) + 4
+        bd, by = bound_ms(n * 5 + n * 5 + (splits.numel() * 4 if mode == "bucket" else 0), ops)
+        row = {"max_abs_err": float((got[0] - want[0]).abs().max()), "ms": timer(fn),
+               "plain_ms": timer(lambda: LY.numeric_scale_plain(mode, x, mt, a, b, **kw)),
+               "bound_ms": bd, "bound_by": by,
+               "library_ms": timer(library[mode]) if mode in library else None}
+        extra[f"numeric_scale {mode}"] = row
+        if mode == "fill":
+            records.append(dict(name="numeric_scale", route="cuda",
+                                source="transmogrifai_tpu_torch/csrc/fused_layer.cu",
+                                replaces="transmogrifai_tpu/impl/feature/transformers.py:310",
+                                **row))
+    rng = np.random.default_rng(44)
+    X = torch.from_numpy((rng.normal(size=(n, 24)) * 10).astype(np.float32)).to(dev)
+    shift = torch.from_numpy(rng.normal(size=24).astype(np.float32)).to(dev)
+    std24 = rng.uniform(0.5, 5, 24).astype(np.float32)
+    rcp = torch.from_numpy((np.float32(1.0) / std24).astype(np.float32)).to(dev)
+    std_t = torch.from_numpy(std24).to(dev)
+    got = LY.column_affine(X, shift, rcp)
+    want = LY.column_affine_plain(X, shift, rcp)
+    torch.cuda.synchronize()
+    check(torch.equal(got, want), "column_affine differs from its plain version")
+    bd, by = bound_ms(2 * n * 24 * 4 + 2 * 24 * 4, 2 * n * 24)
+    row = {"max_abs_err": 0.0, "ms": timer(lambda: LY.column_affine(X, shift, rcp)),
+           "plain_ms": timer(lambda: LY.column_affine_plain(X, shift, rcp)),
+           "bound_ms": bd, "bound_by": by, "library_ms": None,
+           "library_two_calls_ms": timer(lambda: (X - shift) / std_t)}
+    extra["column_affine"] = row
+    records.append(dict(name="column_affine", route="cuda",
+                        source="transmogrifai_tpu_torch/csrc/fused_layer.cu",
+                        replaces="transmogrifai_tpu/impl/feature/vectorizers.py:541",
+                        **{k: row[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                               "bound_by", "library_ms")}))
+    log("scale_kernels", rows=n, approx_rtol=SCALE_APPROX_RTOL, details=extra, records=records)
+    return records
+
+
+def overlapped_execute(plan, ds):
+    """The overlapped design ``stream.execute`` replaced, kept to time
+    against it: a prefetch thread slices and pins each chunk, the uploads
+    go on a copy stream and the stages on a compute stream, two chunks in
+    flight.  Returns the terminal columns as ``stream.execute`` does."""
+    import queue
+    import threading
+
+    import torch
+    from transmogrifai_tpu_torch.impl.feature._util import stage_device
+    from transmogrifai_tpu_torch.workflow import stream
+
+    device = stage_device(plan.stages[0].stage)
+    n, C = len(ds), stream.CHUNK_ROWS
+    los = list(range(0, n, C))
+    program, outputs = stream._program_for(plan), stream._Outputs(plan, n, device)
+    caller = torch.cuda.current_stream(device)
+    copy_s, compute = torch.cuda.Stream(device), torch.cuda.Stream(device)
+    copy_s.wait_stream(caller)
+    compute.wait_stream(caller)
+    ready = queue.Queue(maxsize=2)
+
+    def pin(t):
+        return t.pin_memory() if t.device.type == "cpu" else t
+
+    def prefetch():
+        try:
+            for lo in los:
+                args, _ = stream._host_chunk_args(plan, ds, lo, min(lo + C, n))
+                ready.put((lo, {k: [pin(t) for t in v] if isinstance(v, list) else pin(v)
+                                for k, v in args.items()}))
+        except BaseException as e:  # noqa: BLE001 - raised again below
+            ready.put((None, e))
+
+    def up(t):
+        d = t if t.device == device else t.to(device, non_blocking=True)
+        d.record_stream(compute)
+        return d
+
+    worker = threading.Thread(target=prefetch, daemon=True)
+    worker.start()
+    inflight = []
+    for _ in los:
+        lo, host = ready.get()
+        if lo is None:
+            raise host
+        with torch.cuda.stream(copy_s):
+            dev_args = {k: [up(t) for t in v] if isinstance(v, list) else up(v)
+                        for k, v in host.items()}
+        uploaded = torch.cuda.Event()
+        uploaded.record(copy_s)
+        with torch.cuda.stream(compute):
+            compute.wait_event(uploaded)
+            outs = program(dev_args)
+            for e in plan.stages:
+                if e.terminal:
+                    outputs.put(e.out_name, e.out_kind, outs[e.out_name], lo, min(lo + C, n))
+            done = torch.cuda.Event()
+            done.record(compute)
+        inflight.append((done, host))   # the pinned chunk lives until its copies end
+        del dev_args, outs
+        if len(inflight) > 2:
+            inflight.pop(0)[0].synchronize()
+    for done, _ in inflight:
+        done.synchronize()
+    worker.join()
+    caller.wait_stream(compute)
+    for nm in outputs.on_device:
+        outputs.vals[nm].record_stream(caller)
+    return outputs.columns()
+
+
+@contextlib.contextmanager
+def executor(route):
+    """``stream.execute`` as it is (``executor``) or the overlapped design
+    above (``overlap``) for the calls inside."""
+    from transmogrifai_tpu_torch.workflow import stream
+
+    real = stream.execute
+    if route == "overlap":
+        stream.execute = overlapped_execute
+    try:
+        yield
+    finally:
+        stream.execute = real
+
+
+def executor_turns(torch, fn, order=("executor", "overlap", "overlap", "executor")):
+    """``fn``'s wall under each executor route, in turns: {route: [s, ...]}."""
+    walls = {}
+    for route in order:
+        with executor(route):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls.setdefault(route, []).append(time.perf_counter() - t)
+    return walls
+
+
+def bench_pipeline(rows, seed=0, head=50_000, dev="cuda"):
+    """The JAX package's transform bench pipeline (``bench.py:212-251``) built
+    from the port's stages on the card: (dataset, layers, the final
+    column's name, the bytes one row of every stage's inputs and outputs
+    takes on the device)."""
+    import transmogrifai_tpu_torch.types as T
+    from transmogrifai_tpu_torch import FeatureBuilder
+    from transmogrifai_tpu_torch.columns import Dataset, NumericColumn
+    from transmogrifai_tpu_torch.impl.feature.transformers import FillMissingWithMean
+    from transmogrifai_tpu_torch.impl.feature.vectorizers import (
+        RealVectorizer, StandardScalerVectorizer, VectorsCombiner)
+
+    n_feat = 8
+    rng = np.random.default_rng(seed)
+    cols = {}
+    for j in range(n_feat):
+        v = rng.normal(size=rows).astype(np.float32)
+        m = rng.random(rows) > 0.1
+        cols[f"x{j}"] = NumericColumn(T.Real, np.where(m, v, np.float32(0.0)), m)
+    ds = Dataset(cols)
+    fit = Dataset({k: NumericColumn(c.ftype, c.values[:head], c.mask[:head])
+                   for k, c in cols.items()})
+    xs = [FeatureBuilder(f"x{j}", T.Real).extract(field=f"x{j}").as_predictor()
+          for j in range(n_feat)]
+    fm = FillMissingWithMean().set_input(xs[0]).fit(fit).to(dev)
+    m1 = RealVectorizer().set_input(*xs[:4]).fit(fit).to(dev)
+    m2 = RealVectorizer(fill_with_mean=False, fill_value=-1.0).set_input(*xs[4:]).fit(fit) \
+        .to(dev)
+    comb = VectorsCombiner().set_input(m1.get_output(), m2.get_output()).to(dev)
+    for t in (fm, m1, m2, comb):
+        fit = fit.with_column(t.get_output().name, t.transform_dataset(fit))
+    sm = StandardScalerVectorizer().set_input(comb.get_output()).fit(fit).to(dev)
+    # inputs 8 x (value + mask), the fill, the two vectorizers' stacked
+    # inputs and outputs (4 x 2 columns each), the combiner, the scaler
+    row_bytes = 8 * 5 + 5 + 2 * (4 * 5 + 8 * 4) + 16 * 4 + 16 * 4
+    return ds, [[fm, m1, m2], [comb], [sm]], sm.get_output().name, row_bytes
+
+
+def stream_phase(torch, args, dev="cuda"):
+    """Phase 44: the bench pipeline at 2^22 rows, streamed, through the
+    overlapped design (``overlapped_execute``) and on the layer path: a
+    first turn of each for the outputs and peak memory, then five timed
+    turns.  Returns K-AD's launches in the first streamed run."""
+    from transmogrifai_tpu_torch.ops import layer as LY
+    from transmogrifai_tpu_torch.workflow import dag, stream
+
+    rows = args.stream_rows
+    ds, layers, final, row_bytes = bench_pipeline(rows, args.seed, head=min(50_000, rows),
+                                                  dev=dev)
+    def run(route):
+        if route == "layer":
+            res = ds
+            for layer in layers:
+                res = dag._apply_layer_transforms(res, layer)
+        else:
+            with executor(route):
+                res = stream.apply_streamed(ds, layers)
+            check(res is not None, "the bench pipeline did not stream")
+        return res[final].values
+
+    # a first turn of each route: its output, peak device memory, counters
+    out = {}
+    for route in ("stream", "overlap", "layer"):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        stream.reset_stream_stats()
+        zero_launches((LY.column_affine,))
+        X = run(route)
+        torch.cuda.synchronize()
+        out[route] = {"peak_bytes": torch.cuda.max_memory_allocated() - base,
+                      "stats": stream.stream_stats(), "launches": LY.column_affine.launches,
+                      "X": X.cpu() if X.device.type != "cpu" else X}
+        del X
+    a, b = out["stream"].pop("X"), out["layer"].pop("X")
+    check(torch.equal(a, b), "the streamed and layer-path outputs differ")
+    check(torch.equal(out["overlap"].pop("X"), b), "the overlapped design's output differs")
+    width = int(a.shape[1])
+    del a, b
+    # then timed turns, each output dropped so that the next run reuses its
+    # pinned host memory
+    walls = {}
+    for _ in range(5):
+        for route in ("stream", "overlap", "layer"):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            X = run(route)
+            torch.cuda.synchronize()
+            walls.setdefault(route, []).append(time.perf_counter() - t)
+            del X
+    # the chunk being run and the next one's inputs
+    window = 2 * stream.CHUNK_ROWS * row_bytes
+    layer_bytes = rows * row_bytes
+    peak = out["stream"]["peak_bytes"]
+    check(peak <= 2 * window, f"streamed peak {peak} B above twice the chunk window {window} B")
+    st = out["stream"]["stats"]
+    log("stream", rows=rows, width=width, chunk_rows=stream.CHUNK_ROWS,
+        walls_s=walls, median_s={r: statistics.median(w) for r, w in walls.items()},
+        chunks=st["chunks"], bytes_in=st["bytes_in"],
+        bytes_out=st["bytes_out"], transfer_wait_s=st["transfer_wait_s"],
+        prep_s=st["prep_s"], stream_peak_bytes=peak,
+        overlap_peak_bytes=out["overlap"]["peak_bytes"],
+        layer_peak_bytes=out["layer"]["peak_bytes"],
+        layer_bytes=layer_bytes, chunk_window_bytes=window, row_bytes=row_bytes,
+        column_affine_launches=out["stream"]["launches"])
+    check(out["stream"]["launches"] > 0, "the streamed run did not launch K-AD")
+    return out["stream"]["launches"]
+
+
+def simple_phases(torch, titanic, FX, args, timer, dev="cuda"):
+    """Phases 45-47: OpTitanicSimple on the card.  Returns K-AC's launches
+    on the streamed train."""
+    import tempfile
+
+    import transmogrifai_tpu_torch as P
+    from transmogrifai_tpu_torch.ops import layer as LY
+    from transmogrifai_tpu_torch.ops import trees as Tr
+    from transmogrifai_tpu_torch.ops import vectorize as V
+    from transmogrifai_tpu_torch.workflow import stream
+
+    # 45. the fixture's train and the JAX-saved model's answers
+    t = time.perf_counter()
+    model, _ = titanic.train_titanic(device=dev, reference_features=True)
+    wall = time.perf_counter() - t
+    found = FX.check_titanic_simple_train(model)
+    fixture = P.load_model(FX.TITANIC_SIMPLE, device=dev)
+    req = FX.load_columns(FX.TITANIC_SIMPLE + "/requests.npz")
+    pred, prob, _ = FX.prediction_arrays(P.BatchScoreFunction(fixture)(FX.records(req)),
+                                         fixture.result_features[0].name)
+    answers = FX.compare_text_answers(FX.load_expected(FX.TITANIC_SIMPLE + "/expected.npz"),
+                                      pred, prob, max(FX.SIMPLE_PROB_ATOL, FX.PROB_ATOL))
+    with tempfile.TemporaryDirectory() as tmp:
+        model.save(tmp)
+        again = P.load_model(tmp, device=dev).score(titanic.titanic_data(300, 5))
+    check(len(again) == 300, "the saved OpTitanicSimple model does not score")
+    log("simple_reference", wall_s=wall, **found, fixture_answers=answers)
+
+    # 46. the streamed train at --train-rows
+    kernels = (LY.numeric_scale, LY.numeric_op, LY.column_gather, V.fill_indicator,
+               V.one_hot_codes, Tr.bin_rows)
+    stream.reset_stream_stats()
+    launches, _, _ = scale_train_phase(
+        torch, "simple_train",
+        lambda: titanic.train_titanic(titanic.titanic_data(args.train_rows, args.seed),
+                                      device=dev, reference_features=True),
+        kernels, ("numeric_scale", "numeric_op", "column_gather", "fill_indicator",
+                  "one_hot_codes"),
+        lambda m: {"candidates": len(m.stages[-1].summary.validation_results)})
+    st = stream.stream_stats()
+    check(st["streams"] > 0 and st["chunks"] >= st["streams"], "the train did not stream")
+    turns = executor_turns(torch, lambda: titanic.train_titanic(
+        titanic.titanic_data(args.train_rows, args.seed), device=dev, reference_features=True),
+        order=("overlap", "executor"))
+    log("simple_train_stream", **{k: v for k, v in st.items()},
+        numeric_scale_by_mode=dict(LY.numeric_scale.launches_by_mode),
+        train_s_by_executor=turns)
+
+    # 47. the big score and the request p50
+    from transmogrifai_tpu_torch.impl.classification.logistic import OpLogisticRegression
+    from transmogrifai_tpu_torch.impl.selector import defaults as D
+
+    trained, _ = titanic.train_titanic(
+        titanic.titanic_data(args.train_rows, args.seed), device=dev, reference_features=True,
+        models_and_parameters=[(OpLogisticRegression(),
+                                D.grid(reg_param=[0.01], elastic_net_param=[0.1]))])
+    cols = titanic.titanic_data(args.rows, args.seed + 1)
+    stream.reset_stream_stats()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    scored = trained.score(cols)
+    torch.cuda.synchronize()
+    score_s = time.perf_counter() - t
+    pc = scored[trained.result_features[0].name]
+    check(pc.probability.shape == (args.rows, 2) and np.isfinite(pc.probability).all(),
+          "bad OpTitanicSimple scores")
+    st = stream.stream_stats()
+    peak = torch.cuda.max_memory_allocated()
+    check(st["streams"] == 1, "the scoring DAG did not stream")
+    turns = executor_turns(torch, lambda: trained.score(cols))
+    recs = FX.records(titanic.titanic_data(max(BATCH_SIZES), args.seed + 2))
+    fn = P.BatchScoreFunction(trained)
+    p50 = {}
+    for size in BATCH_SIZES:
+        times = []
+        for _ in range(args.reps):
+            t = time.perf_counter()
+            out = fn(recs[:size])
+            times.append((time.perf_counter() - t) * 1e3)
+            check(len(out) == size, "missing answers")
+        p50[size] = statistics.median(times)
+    log("simple_score", rows=args.rows, score_s=score_s, rows_per_s=args.rows / score_s,
+        chunks=st["chunks"], bytes_in=st["bytes_in"], bytes_out=st["bytes_out"],
+        transfer_wait_s=st["transfer_wait_s"], peak_bytes=peak, p50_ms_by_batch=p50,
+        score_s_by_executor=turns)
+    return launches["numeric_scale"]
+
+
+def slice11_phases(torch, titanic, FX, args, timer, dev="cuda"):
+    """Phases 41-47.  Returns (the records, their launches on their main
+    paths)."""
+    wide_launches = wide_reference_phase(torch, titanic, FX, dev)
+    records = wide_kernel_phase(torch, timer, dev)
+    records += scale_kernel_phase(torch, titanic, timer, dev)
+    affine_launches = stream_phase(torch, args, dev)
+    scale_launches = simple_phases(torch, titanic, FX, args, timer, dev)
+    return records, dict(wide_launches, numeric_scale=scale_launches,
+                         column_affine=affine_launches)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3314,6 +3893,7 @@ def main(argv=None):
     ap.add_argument("--train-rows", type=int, default=1 << 18)
     ap.add_argument("--stats-rows", type=int, default=1 << 20)
     ap.add_argument("--text-rows", type=int, default=1 << 17)
+    ap.add_argument("--stream-rows", type=int, default=1 << 22)
     args = ap.parse_args(argv)
 
     import torch
@@ -3509,6 +4089,10 @@ def main(argv=None):
     # the main path at --text-rows, the kernels, the text model's requests
     text_records, text_launches = text_phases(torch, titanic, FX, args, timer)
 
+    # 41-47. K-S, K-P, K-T past 64 coefficients; the streaming executor; the
+    # OpTitanicSimple flow (K-AC, K-AD)
+    slice11_records, slice11_launches = slice11_phases(torch, titanic, FX, args, timer)
+
     for r in records:
         r["launches"] = launches[r["name"]]
     for r in train_records:
@@ -3527,8 +4111,11 @@ def main(argv=None):
         r["launches"] = stream_launches[r["name"]]
     for r in text_records:
         r["launches"] = text_launches[r["name"]]
+    for r in slice11_records:
+        r["launches"] = slice11_launches[r["name"]]
     records += (train_records + boston_records + iris_records + slice6_records
-                + families_records + kw_records + glm_records + stream_records + text_records)
+                + families_records + kw_records + glm_records + stream_records + text_records
+                + slice11_records)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in records]}), flush=True)

@@ -422,7 +422,8 @@ def test_forest_leaf_mean_matches_plain(dev, G, T, n):
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("n,p,k,C,F", [(1, 3, 3, 1, 1), (135, 9, 3, 24, 3),
                                        (70000, 9, 3, 24, 3), (5000, 20, 5, 6, 2),
-                                       (3000, 64, 8, 4, 1)])
+                                       (3000, 64, 8, 4, 1), (20000, 85, 3, 6, 2),
+                                       (3000, 513, 8, 3, 1), (700, 1024, 4, 2, 1)])
 def test_softmax_fista_grad_matches_plain(dev, n, p, k, C, F):
     from transmogrifai_tpu_torch.ops import linear as L
 
@@ -446,12 +447,12 @@ def test_softmax_fista_grad_matches_plain(dev, n, p, k, C, F):
 def test_softmax_fista_grad_raises_above_its_limits(dev):
     from transmogrifai_tpu_torch.ops import linear as L
 
-    for p, k in ((3, 9), (65, 3)):
+    for p, k in ((3, 9), (1025, 3)):
         X1 = torch.ones((4, p), device=dev)
         args = (X1, torch.zeros(4, device=dev), torch.ones((1, 4), device=dev),
                 torch.zeros(1, dtype=torch.int32, device=dev), torch.zeros((1, p, k), device=dev),
                 torch.zeros((1, p, k), device=dev), torch.ones(1, device=dev))
-        with pytest.raises(ValueError, match="at most 8 classes and 64 coefficients"):
+        with pytest.raises(ValueError, match="at most 8 classes and 1024 coefficients"):
             L.softmax_fista_grad(*args)
 
 
@@ -578,7 +579,9 @@ def test_softmax_boost_step_matches_plain(dev, k, update):
 
 @pytest.mark.parametrize("n,p,C,F,newton", [(1, 3, 1, 1, True), (70000, 11, 18, 3, True),
                                             (235930, 17, 3, 3, False), (5000, 64, 3, 1, True),
-                                            (40000, 9, 40, 4, True), (3000, 33, 2, 2, False)])
+                                            (40000, 9, 40, 4, True), (3000, 33, 2, 2, False),
+                                            (20000, 85, 9, 3, True), (3000, 300, 2, 2, False),
+                                            (1, 65, 1, 1, True), (2000, 1024, 2, 1, True)])
 def test_weighted_gram_matches_plain(dev, n, p, C, F, newton):
     from transmogrifai_tpu_torch.ops import linear as L
 
@@ -622,7 +625,8 @@ def test_binary_metrics_matches_plain_on_nan_scores(dev):
 # mlp_forward, K-V nb_tables_mass / nb_tables_score
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("n,p,C,F", [(1, 3, 1, 1), (235930, 11, 4, 1), (30000, 17, 12, 3),
-                                     (5000, 40, 3, 1), (7000, 64, 5, 2)])
+                                     (5000, 40, 3, 1), (7000, 64, 5, 2), (20000, 85, 8, 2),
+                                     (5000, 513, 3, 1), (1000, 1024, 2, 1)])
 def test_svc_grad_matches_plain(dev, n, p, C, F):
     from transmogrifai_tpu_torch.ops import linear as L
 
@@ -761,12 +765,17 @@ GLM_CASES = [("gaussian", "identity"), ("gaussian", "log"), ("binomial", "logit"
 
 
 @pytest.mark.parametrize("family,link", GLM_CASES)
-@pytest.mark.parametrize("n,p,G,F", [(4000, 6, 3, 3), (235930, 17, 3, 3)])
+@pytest.mark.parametrize("n,p,G,F", [(4000, 6, 3, 3), (235930, 17, 3, 3), (20000, 85, 3, 3)])
 def test_weighted_gram_glm_mode_matches_plain(dev, family, link, n, p, G, F):
     from transmogrifai_tpu_torch.ops import linear as L
 
     rng = np.random.default_rng(n + p)
-    X1 = np.concatenate([rng.normal(size=(n, p - 1)) * 0.3, np.ones((n, 1))], 1)
+    # past 64 coefficients (the wide entry) the features shrink to keep the
+    # margins' spread of the 6-coefficient case: wider, the inverse link's
+    # near-zero margins would turn the float32 margins' summation order into
+    # weights of any size
+    shrink = np.sqrt(5 / (p - 1)) if p > 64 else 1.0
+    X1 = np.concatenate([rng.normal(size=(n, p - 1)) * 0.3 * shrink, np.ones((n, 1))], 1)
     y = rng.poisson(2.0, n).astype(np.float64)
     if family == "binomial":
         y = (y > 1).astype(np.float64)
@@ -931,3 +940,100 @@ def test_digamma_on_the_card_matches_plain(dev):
     lam = torch.from_numpy(np.geomspace(0.005, 5000, 4096).astype(np.float32)).to(dev)[None]
     got = E.lda_beta(lam)                      # exp(digamma(lam) - digamma(sum))
     torch.testing.assert_close(got, E.lda_beta_plain(lam), rtol=2e-6, atol=0)
+
+
+# ---------------------------------------------------------------------------
+# K-AC numeric_scale, K-AD column_affine: the scalers' device programs
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("mode", ["fill", "standardize", "scale_linear", "scale_log",
+                                  "descale_linear", "descale_exp", "bucket"])
+@pytest.mark.parametrize("n", [1, 300_001])
+def test_numeric_scale_matches_plain(dev, mode, n):
+    from transmogrifai_tpu_torch.ops import layer as LY
+
+    rng = np.random.default_rng(n)
+    v = (rng.normal(size=n) * 30).astype(np.float32)
+    if n > 10:
+        v[::17] = 0.0
+        v[1::19] = np.nan
+        v[2::23] = np.inf
+        v[3::29] = -np.inf
+        v[4::31] = 1e30
+    m = rng.random(n) > 0.2
+    splits = np.sort(rng.normal(size=1023) * 30).astype(np.float32)
+    if n > 10:
+        v[5:200] = splits[rng.integers(0, 1023, 195)]      # values on the splits
+    vt, mt = torch.from_numpy(v).to(dev), torch.from_numpy(m).to(dev)
+    st = torch.from_numpy(splits).to(dev)
+    a, b = {"fill": (3.3, 0.0), "standardize": (3.3, 1.7), "scale_linear": (1.37, -0.291),
+            "descale_linear": (1.37, -0.291)}.get(mode, (1.0, 0.0))
+    kw = {"splits": st} if mode == "bucket" else {}
+    got_v, got_m = _counted(LY.numeric_scale, lambda: LY.numeric_scale(mode, vt, mt, a, b, **kw))
+    want_v, want_m = LY.numeric_scale_plain(mode, vt, mt, a, b, **kw)
+    assert torch.equal(got_m, want_m)
+    if mode in ("scale_log", "descale_exp"):   # libdevice's logf / expf against torch's
+        torch.testing.assert_close(got_v, want_v, rtol=2.0 ** -22, atol=0, equal_nan=True)
+    else:
+        assert torch.equal(torch.nan_to_num(got_v, nan=7.0), torch.nan_to_num(want_v, nan=7.0))
+
+
+@pytest.mark.parametrize("n,d", [(1, 1), (100_000, 24), (3, 5000)])
+def test_column_affine_matches_plain(dev, n, d):
+    from transmogrifai_tpu_torch.ops import layer as LY
+
+    rng = np.random.default_rng(n + d)
+    x = torch.from_numpy((rng.normal(size=(n, d)) * 10).astype(np.float32)).to(dev)
+    shift = torch.from_numpy(rng.normal(size=d).astype(np.float32)).to(dev)
+    scale = torch.from_numpy((1.0 / rng.uniform(0.1, 5, d)).astype(np.float32)).to(dev)
+    got = _counted(LY.column_affine, lambda: LY.column_affine(x, shift, scale))
+    assert torch.equal(got, LY.column_affine_plain(x, shift, scale))
+
+
+def test_streamed_run_waits_for_device_inputs_written_on_the_callers_stream(dev, monkeypatch):
+    """A base vector already on the card, still being written on the
+    caller's stream when the run starts (behind a long sleep), is read by
+    the executor only once written: the streamed output equals the CPU's.
+    A first run warms the caching allocators, so that no allocation (which
+    synchronizes the device) orders the work by chance."""
+    import transmogrifai_tpu_torch as P
+    import transmogrifai_tpu_torch.types as PT
+    from transmogrifai_tpu_torch.columns import Dataset, NumericColumn, VectorColumn
+    from transmogrifai_tpu_torch.impl.feature.vectorizers import (
+        RealVectorizer, StandardScalerVectorizer, VectorsCombiner)
+    from transmogrifai_tpu_torch.workflow import stream as S
+
+    n = 50_000
+    rng = np.random.default_rng(7)
+    xs = [P.FeatureBuilder(f"x{j}", PT.Real).extract(field=f"x{j}").as_predictor()
+          for j in range(4)]
+    ds = Dataset({f"x{j}": NumericColumn(PT.Real, rng.normal(size=n), rng.random(n) > 0.1)
+                  for j in range(4)})
+    m1 = RealVectorizer().set_input(*xs[:2]).fit(ds).to("cpu")
+    m2 = RealVectorizer().set_input(*xs[2:]).fit(ds).to("cpu")
+    comb = VectorsCombiner().set_input(m1.get_output(), m2.get_output()).to("cpu")
+    vecs = {m.get_output().name: m.transform_dataset(ds) for m in (m1, m2)}
+    host = Dataset(dict(vecs))
+    host = host.with_column(comb.get_output().name, comb.transform_dataset(host))
+    sm = StandardScalerVectorizer().set_input(comb.get_output()).fit(host).to("cpu")
+    layers = [[comb], [sm]]
+    name = sm.get_output().name
+    want = S.apply_streamed(Dataset(dict(vecs)), layers)[name].values
+
+    monkeypatch.setattr(S, "CHUNK_ROWS", 16_384)          # four chunks, a tail among them
+    comb.to(dev)
+    sm.to(dev)
+    staged = {k: c.values.to(dev) for k, c in vecs.items()}
+
+    def on_card(vals):
+        return Dataset({k: VectorColumn(PT.OPVector, v, vecs[k].metadata)
+                        for k, v in vals.items()})
+
+    late = {k: torch.full_like(t, float("nan")) for k, t in staged.items()}
+    S.apply_streamed(on_card(staged), layers)              # warm the allocators
+    torch.cuda.synchronize()
+    torch.cuda._sleep(500_000_000)                         # the caller's stream is busy
+    for k, t in staged.items():
+        torch.mul(t, 1.0, out=late[k])
+    got = S.apply_streamed(on_card(late), layers)[name].values
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)

@@ -114,8 +114,7 @@ def test_sanity_checker_gather_matches_jax(keep):
     X = rng.normal(size=(700, 24)).astype(np.float32)
     want = np.asarray(JSC.SanityCheckerModel(np.array(keep, int), None).jax_transform(X))
     model = PSC.SanityCheckerModel(np.array(keep, int), None)
-    (vec,) = model.torch_host_prep([type("V", (), {"values": torch.from_numpy(X)})()])
-    got = model.torch_transform(vec)
+    got = model.torch_transform(torch.from_numpy(X))
     assert got.shape == want.shape and np.array_equal(got.numpy(), want)
 
 

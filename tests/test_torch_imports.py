@@ -4,9 +4,12 @@ package, and no silent CPU fallback.
 - A full CPU scoring run of the committed fixture, and CPU training runs of
   the Titanic flow (XGBoost with a save and a reload; logistic regression
   and random forest through the fused sweep; a streamed Spearman sanity
-  check; the text flow's Word2Vec and LDA, and the JAX-saved text model's
-  scores) and the streamed statistics in a fresh interpreter leave no
-  ``jax*``, ``pandas*`` or ``transmogrifai_tpu[.*]`` module loaded.
+  check and the streamed statistics; the text flow's Word2Vec and LDA, and
+  the JAX-saved text model's scores; the OpTitanicSimple flow through the
+  streaming executor at a lowered threshold, and the JAX-saved
+  OpTitanicSimple model's scores), each case in a fresh interpreter at one
+  thread with its own time limit, leave no ``jax*``, ``pandas*`` or
+  ``transmogrifai_tpu[.*]`` module loaded.
 - A scan of the port's sources finds no such import; pandas appears only
   inside the reader's DataFrame branch, and Triton only
   in the kernel modules that the launching wrappers import lazily.
@@ -34,19 +37,35 @@ TRITON_MODULES = {"ops/triton_vectorize.py": "triton_vectorize",
                   "ops/triton_boost.py": "triton_boost",
                   "ops/triton_forest.py": "triton_forest"}
 
-SCRIPT = r"""
+#: the start of every case: one thread, the port and its fixtures
+PRELUDE = r"""
 import sys
 import numpy as np
+import torch
+torch.set_num_threads(1)
 import transmogrifai_tpu_torch as P
 from transmogrifai_tpu_torch import fixtures as FX
+from transmogrifai_tpu_torch.apps import titanic
+from transmogrifai_tpu_torch.impl.classification.logistic import OpLogisticRegression
+"""
+#: the end of every case: the modules that must not be loaded
+EPILOGUE = r"""
+bad = sorted(k for k in sys.modules
+             if k.split(".")[0] in ("jax", "jaxlib", "pandas", "transmogrifai_tpu"))
+print("BAD=" + ",".join(bad))
+"""
+#: one fresh interpreter a case, each with its own time limit (seconds)
+CASES = {
+    "serve": (r"""
 m = P.load_model(FX.TITANIC_XGB, device="cpu")
 cols = FX.load_columns(FX.TITANIC_XGB + "/requests.npz")
 s = m.score(cols)
 out = P.BatchScoreFunction(m)(FX.records(cols)[:8])
 one = P.ScoreFunction(m)(FX.records(cols)[0])
 assert len(s) == len(cols["Age"]) and len(out) == 8 and one
+""", 120),
+    "xgb_train_save_reload": (r"""
 import tempfile
-from transmogrifai_tpu_torch.apps import titanic
 from transmogrifai_tpu_torch.impl.classification.trees import OpXGBoostClassifier
 grid = [{"num_round": 2, "max_depth": 2, "min_child_weight": 1.0}]
 trained, _ = titanic.train_titanic(
@@ -56,13 +75,16 @@ with tempfile.TemporaryDirectory() as tmp:
     trained.save(tmp)
     again = P.load_model(tmp, device="cpu").score(titanic.titanic_data(50, 2))
 assert len(again) == 50
-from transmogrifai_tpu_torch.impl.classification.logistic import OpLogisticRegression
+""", 180),
+    "fused_sweep": (r"""
 from transmogrifai_tpu_torch.impl.classification.trees import OpRandomForestClassifier
 stock, _ = titanic.train_titanic(
     titanic.titanic_data(120, 1), device="cpu", models_and_parameters=[
         (OpLogisticRegression(), [{"reg_param": 0.01, "elastic_net_param": 0.5}]),
         (OpRandomForestClassifier(), [{"num_trees": 3, "max_depth": 3}])])
 assert len(stock.stages[-1].summary.validation_results) == 2
+""", 180),
+    "streamed_spearman": (r"""
 streamed, _ = titanic.train_titanic(
     titanic.titanic_data(120, 1), device="cpu", models_and_parameters=[
         (OpLogisticRegression(), [{"reg_param": 0.01, "elastic_net_param": 0.0}])],
@@ -71,6 +93,8 @@ from transmogrifai_tpu_torch.parallel import stats as PS
 X = np.random.default_rng(0).normal(size=(300, 4)).astype(np.float32)
 assert PS.sharded_correlations(X, X[:, 0], chunk_rows=128, method="spearman",
                                device="cpu")[0].count == 300
+""", 180),
+    "text_flow": (r"""
 text, _ = titanic.train_titanic(
     titanic.text_columns(120, 1), device="cpu", text_embeddings=True, models_and_parameters=[
         (OpLogisticRegression(), [{"reg_param": 0.01, "elastic_net_param": 0.5}])])
@@ -78,16 +102,29 @@ assert {"OpWord2VecModel", "OpLDAModel"} <= {type(s).__name__ for s in text.stag
 tm = P.load_model(FX.TITANIC_TEXT, device="cpu")
 assert len(P.BatchScoreFunction(tm)(FX.records(FX.load_columns(
     FX.TITANIC_TEXT + "/requests.npz"))[:4])) == 4
-bad = sorted(k for k in sys.modules
-             if k.split(".")[0] in ("jax", "jaxlib", "pandas", "transmogrifai_tpu"))
-print("BAD=" + ",".join(bad))
-"""
+""", 240),
+    "titanic_simple_streamed": (r"""
+from transmogrifai_tpu_torch.workflow import dag, stream
+dag.STREAM_ROWS, stream.CHUNK_ROWS = 100, 64
+simple, _ = titanic.train_titanic(
+    titanic.titanic_data(300, 1), device="cpu", reference_features=True,
+    models_and_parameters=[
+        (OpLogisticRegression(), [{"reg_param": 0.01, "elastic_net_param": 0.5}])])
+assert stream.stream_stats()["chunks"] > 0
+assert len(simple.score(titanic.titanic_data(200, 2))) == 200
+sm = P.load_model(FX.TITANIC_SIMPLE, device="cpu")
+assert len(P.BatchScoreFunction(sm)(FX.records(FX.load_columns(
+    FX.TITANIC_SIMPLE + "/requests.npz"))[:4])) == 4
+""", 180),
+}
 
 
-def test_cpu_scoring_run_loads_no_jax_pandas_or_jax_package():
-    env = dict(os.environ, PYTHONPATH=ROOT)
-    out = subprocess.run([sys.executable, "-c", SCRIPT], capture_output=True, text=True,
-                         env=env, cwd=ROOT, timeout=300)
+@pytest.mark.parametrize("case", list(CASES))
+def test_cpu_scoring_run_loads_no_jax_pandas_or_jax_package(case):
+    body, timeout = CASES[case]
+    env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
+    out = subprocess.run([sys.executable, "-c", PRELUDE + body + EPILOGUE],
+                         capture_output=True, text=True, env=env, cwd=ROOT, timeout=timeout)
     assert out.returncode == 0, out.stderr[-3000:]
     line = [ln for ln in out.stdout.splitlines() if ln.startswith("BAD=")][-1]
     assert line == "BAD=", line

@@ -93,8 +93,8 @@ def test_weighted_gram_plain_matches_a_float64_gram(newton):
         np.testing.assert_allclose(H[c].numpy(), (X64.T * v) @ X64, rtol=2e-6, atol=1e-3)
         np.testing.assert_allclose(g[c].numpy(), X64.T @ u, rtol=2e-6, atol=1e-3)
         assert torch.equal(H[c], H[c].T)
-    with pytest.raises(ValueError, match="at most 64 coefficients"):
-        PL.weighted_gram(torch.zeros((4, 65)), torch.zeros(4), torch.zeros((1, 4)),
+    with pytest.raises(ValueError, match="at most 1024 coefficients"):
+        PL.weighted_gram(torch.zeros((4, 1025)), torch.zeros(4), torch.zeros((1, 4)),
                          torch.zeros(1, dtype=torch.int32))
 
 

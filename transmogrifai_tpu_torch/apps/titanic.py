@@ -12,6 +12,11 @@ draws larger frames of the same schema with the same label rule;
 (LinearSVC, NaiveBayes, DecisionTree, MLP).  ``text_columns(n, seed)`` adds
 a free-text column ``Notes``, which ``build_workflow(text_embeddings=True)``
 embeds by Word2Vec and LDA beside the flow's other features.
+``build_workflow(reference_features=True)`` builds the reference's own
+OpTitanicSimple feature set instead (OpTitanicSimple.scala:77-120):
+``family_size``, ``estimated_cost = family_size * Fare``, ``Sex.pivot()``,
+``Age.fill_missing_with_mean().z_normalize()`` and an ``age_group``
+(``Age.map``) beside the raw predictors, all through ``transmogrify``.
 """
 from __future__ import annotations
 
@@ -91,10 +96,44 @@ def text_columns(n: int = 891, seed: int = 0) -> Dict[str, np.ndarray]:
     return cols
 
 
+def age_group(v):
+    """OpTitanicSimple's ``ageGroup``: "adult" above 18, else "child"; empty
+    stays empty."""
+    return None if v.value is None else ("adult" if v.value > 18 else "child")
+
+
+def reference_features(survived, F=FeatureBuilder, types=T):
+    """OpTitanicSimple's predictors (OpTitanicSimple.scala:77-120) through
+    ``transmogrify``: the raw Pclass, Name, Age, SibSp, Parch, Ticket, Cabin
+    and Embarked (Ticket and Cabin as PickList), ``family_size = SibSp +
+    Parch + 1``, ``estimated_cost = family_size * Fare``, ``Sex.pivot()``,
+    ``Age.fill_missing_with_mean().z_normalize()`` (a RealNN) and
+    ``age_group``.  ``F`` and ``types`` are the feature builder and types of
+    the package that builds it (the tests build the JAX package's the same
+    way); returns the combined vector feature."""
+    pclass = F("Pclass", types.PickList).extract(field="Pclass").as_predictor()
+    name = F("Name", types.Text).extract(field="Name").as_predictor()
+    sex = F("Sex", types.PickList).extract(field="Sex").as_predictor()
+    age = F("Age", types.Real).extract(field="Age").as_predictor()
+    sib_sp = F("SibSp", types.Integral).extract(field="SibSp").as_predictor()
+    par_ch = F("Parch", types.Integral).extract(field="Parch").as_predictor()
+    ticket = F("Ticket", types.PickList).extract(field="Ticket").as_predictor()
+    fare = F("Fare", types.Real).extract(field="Fare").as_predictor()
+    cabin = F("Cabin", types.PickList).extract(field="Cabin").as_predictor()
+    embarked = F("Embarked", types.PickList).extract(field="Embarked").as_predictor()
+    family_size = (sib_sp + par_ch + 1).alias("family_size")
+    estimated_cost = (family_size * fare).alias("estimated_cost")
+    pivoted_sex = sex.pivot()
+    normed_age = age.fill_missing_with_mean().z_normalize()
+    group = age.map(age_group, types.PickList)
+    return pclass.vectorize(name, age, sib_sp, par_ch, ticket, cabin, embarked, family_size,
+                            estimated_cost, pivoted_sex, group, normed_age)
+
+
 def build_workflow(model_types: Optional[Sequence[str]] = None,
                    models_and_parameters: Optional[Sequence[Any]] = None,
                    sanity_check_params: Optional[Dict[str, Any]] = None,
-                   text_embeddings: bool = False):
+                   text_embeddings: bool = False, reference_features: bool = False):
     """(OpWorkflow, prediction feature) of the Titanic flow; by default the
     binary selector's stock space (LR + RF + XGBoost, 28 candidates).
     ``sanity_check_params`` are the sanity checker's keyword arguments
@@ -103,9 +142,13 @@ def build_workflow(model_types: Optional[Sequence[str]] = None,
     joins the combined vector twice: its tokens' mean Word2Vec vector
     (``OpWord2Vec()``: 64 dimensions) and the LDA topic mixture of its
     token counts (``count_vectorize()``: 512 terms, ``OpLDA()``: 10
-    topics)."""
+    topics).  With ``reference_features`` the predictors are OpTitanicSimple's
+    (``reference_features``)."""
     F = FeatureBuilder
     survived = F("Survived", T.RealNN).extract(field="Survived").as_response()
+    if reference_features:
+        return _selector_flow(survived, globals()["reference_features"](survived),
+                              model_types, models_and_parameters, sanity_check_params)
     pclass = F("Pclass", T.PickList).extract(field="Pclass").as_predictor()
     name = F("Name", T.Text).extract(field="Name").as_predictor()
     sex = F("Sex", T.PickList).extract(field="Sex").as_predictor()
@@ -126,6 +169,14 @@ def build_workflow(model_types: Optional[Sequence[str]] = None,
         vectors += [OpWord2Vec().set_input(tokens).get_output(),
                     OpLDA().set_input(tokens.count_vectorize()).get_output()]
     features = family_size.vectorize(age, fare, label=survived).combine(*vectors)
+    return _selector_flow(survived, features, model_types, models_and_parameters,
+                          sanity_check_params)
+
+
+def _selector_flow(survived, features, model_types, models_and_parameters,
+                   sanity_check_params):
+    """The sanity check and the binary selector (3-fold CV) over
+    ``features``: (OpWorkflow, prediction feature)."""
     checked = features.sanity_check(survived, **(sanity_check_params or {}))
     pred = BinaryClassificationModelSelector.with_cross_validation(
         num_folds=3, seed=42, model_types=model_types,

@@ -27,6 +27,24 @@
 // (workflow/dag.py:100-160) and streamed chunk program
 // (workflow/stream.py:405-440) compute on the Titanic flow: the port runs
 // them one launch a stage over the whole layer, not fused in chunks.
+//
+// numeric_scale (K-AC) replaces the scalers' device programs, one value a
+// thread: FillMissingWithMeanModel.jax_transform (transformers.py:310),
+// OpScalarStandardScalerModel's (scalers.py:64), ScalerTransformer's (:109,
+// linear and log), DescalerTransformer's (:146, linear and exp) and
+// PercentileCalibratorModel's (:187, a right-sided binary search of the
+// float32 splits, staged in shared memory; NaN above every split, as XLA's
+// sort order puts it).  The arithmetic rounds as XLA's CPU code compiles the
+// JAX programs: slope * v + intercept is one fused multiply-add, and a
+// division by a fitted constant is a product with its float32 reciprocal,
+// passed in by the wrapper.
+//
+// column_affine (K-AD) replaces StandardScalerModel.jax_transform
+// (vectorizers.py:541): (x - mean_j) * rcp_j over f32[n, d], the two
+// vectors staged in shared memory (read from global memory past 4,096
+// columns), a value a thread over a grid-stride loop.
+//
+// Both are bound by bytes: each input read once, each output written once.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -144,9 +162,133 @@ __global__ void column_gather_kernel(Sources sources, int n_sources,
   for (long long r = r0 + threadIdx.y; r < r1; r += kLanes) out[r * W + j] = p[r * stride + c];
 }
 
+// the order of ops/layer.py::SCALE_MODES
+enum ScaleMode { kFill = 0, kStandardize, kScaleLinear, kScaleLog, kDescaleLinear, kDescaleExp,
+                 kBucket, kNumModes };
+constexpr int kMaxSplits = 1023;
+constexpr int kAffineShared = 4096;
+
+__global__ void numeric_scale_kernel(const float* __restrict__ v, const uint8_t* __restrict__ m,
+                                     const float* __restrict__ splits, float* __restrict__ vals,
+                                     uint8_t* __restrict__ mask, long long n, int mode, float a,
+                                     float b, int ns) {
+  __shared__ float sp[kMaxSplits];
+  if (mode == kBucket) {
+    for (int i = threadIdx.x; i < ns; i += blockDim.x) sp[i] = splits[i];
+    __syncthreads();
+  }
+  const long long step = (long long)gridDim.x * blockDim.x;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += step) {
+    const float x = v[i];
+    const bool p = m[i] != 0;
+    float out;
+    bool present = true;
+    switch (mode) {
+      case kFill:
+        out = p ? x : a;
+        break;
+      case kStandardize:
+        out = __fmul_rn(__fsub_rn(p ? x : a, a), b);
+        break;
+      case kScaleLinear:
+        present = p;
+        out = __fmaf_rn(a, x, b);
+        break;
+      case kScaleLog:
+        out = logf(x);
+        present = p && isfinite(out);
+        break;
+      case kDescaleLinear:
+        present = p;
+        out = __fmul_rn(__fsub_rn(x, b), a);
+        break;
+      case kDescaleExp:
+        present = p;
+        out = expf(x);
+        break;
+      default: {  // kBucket: the count of splits <= x
+        int lo = 0, hi = ns;
+        if (isnan(x)) {
+          lo = ns;
+        } else {
+          while (lo < hi) {
+            const int mid = (lo + hi) >> 1;
+            if (sp[mid] <= x)
+              lo = mid + 1;
+            else
+              hi = mid;
+          }
+        }
+        out = (float)lo;
+      }
+    }
+    if (mode != kFill && mode != kStandardize && mode != kBucket && !present) out = 0.0f;
+    vals[i] = out;
+    mask[i] = present;
+  }
+}
+
+template <bool SHARED>
+__global__ void column_affine_kernel(const float* __restrict__ x, const float* __restrict__ shift,
+                                     const float* __restrict__ scale, float* __restrict__ out,
+                                     long long n, int d) {
+  extern __shared__ float ab[];  // [2][d] when SHARED
+  if (SHARED) {
+    for (int j = threadIdx.x; j < d; j += blockDim.x) {
+      ab[j] = shift[j];
+      ab[d + j] = scale[j];
+    }
+    __syncthreads();
+  }
+  const long long total = n * d;
+  const long long step = (long long)gridDim.x * blockDim.x;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < total; i += step) {
+    const int j = (int)(i % d);
+    const float s = SHARED ? ab[j] : __ldg(shift + j);
+    const float r = SHARED ? ab[d + j] : __ldg(scale + j);
+    out[i] = __fmul_rn(__fsub_rn(x[i], s), r);
+  }
+}
+
 }  // namespace
 
 extern "C" int numeric_op_count() { return kNumOps; }
+
+// K-AC numeric_scale: vals f32[n], mask u8[n] from v f32[n], m u8[n]; a, b
+// the mode's float32 constants, splits f32[ns] (bucket mode only)
+extern "C" int numeric_scale_f32(const void* v, const void* m, const void* splits, void* vals,
+                                 void* mask, long long n, int mode, float a, float b, int ns,
+                                 void* stream) {
+  if (n < 0 || mode < 0 || mode >= kNumModes || ns < 0 || ns > kMaxSplits ||
+      (mode == kBucket && ns > 0 && splits == nullptr))
+    return (int)cudaErrorInvalidValue;
+  if (n == 0) return 0;
+  const int threads = 256;
+  const long long want = (n + threads - 1) / threads;
+  const int blocks = (int)(want < 132 * 16 ? want : 132 * 16);
+  numeric_scale_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+      (const float*)v, (const uint8_t*)m, (const float*)splits, (float*)vals, (uint8_t*)mask, n,
+      mode, a, b, ns);
+  return (int)cudaGetLastError();
+}
+
+// K-AD column_affine: out f32[n, d] = (x - shift_j) * scale_j
+extern "C" int column_affine_f32(const void* x, const void* shift, const void* scale, void* out,
+                                 long long n, int d, void* stream) {
+  if (n < 0 || d < 0) return (int)cudaErrorInvalidValue;
+  if (n == 0 || d == 0) return 0;
+  const int threads = 256;
+  const long long want = (n * d + threads - 1) / threads;
+  const int blocks = (int)(want < 132 * 16 ? want : 132 * 16);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (d <= kAffineShared)
+    column_affine_kernel<true><<<blocks, threads, 2 * d * sizeof(float), st>>>(
+        (const float*)x, (const float*)shift, (const float*)scale, (float*)out, n, d);
+  else
+    column_affine_kernel<false><<<blocks, threads, 0, st>>>(
+        (const float*)x, (const float*)shift, (const float*)scale, (float*)out, n, d);
+  return (int)cudaGetLastError();
+}
 
 // K-Z numeric_op: vals f32[n], mask u8[n] from av f32[n], am u8[n] and
 // either bv f32[n], bm u8[n] (a binary op) or the scalar (bv null)

@@ -45,6 +45,30 @@
 // registers a thread one 256-thread block fits an SM, and each 32-row tile
 // is a chain of dependent shared-memory FMAs between three barriers.  A
 // design with more rows in flight a thread (or wgmma) is later work.
+//
+// Above 64 coefficients (up to 1,024: the text flow's vector is 85 wide, a
+// real CSV's hashed names wider) one fit's Gram has up to 524,800 entries,
+// so a block can no longer hold a fit tile's entries in its threads.  The
+// wide entry (weighted_gram_wide) takes K-I centered's tiling instead:
+//   1. gram_weights_rows, the mode's prologue: a warp a row (coalesced
+//      loads, lane l the coefficients l, l + 32, ...), each fit's margin of
+//      a tile of 8 fits by a butterfly, lane c taking fit c's (v, u) (the
+//      same float32 formulas as above) into v, u f32[C, n], once for every
+//      (fit, row);
+//   2. gram_tiles: a block a (row chunk, fit, 32 x 32 upper-triangle output
+//      tile) over the augmented columns [X1 | moments]: per 32-row slab it
+//      stages the tile's A columns (x_ri) and B columns (v_r x_rj in float64,
+//      exact, or u_r for column p, the moments vector riding along) in
+//      shared memory, and each thread accumulates a 1 x 4 float64 register
+//      micro-tile, acc += x_ri * b_rj (one float64 rounding a term);
+//      (64 x 64 tiles of 4 x 4 micro-tiles measured slower at the text
+//      flow's p = 85, faster at p = 513: PERF.md, section 6);
+//   3. gram_finish_wide: a warp an entry sums the chunks' float64 partials in
+//      a fixed order and rounds once.
+// No atomics: runs repeat bit for bit.  The partial buffer (chunks x C x E
+// float64) is bounded by the wrapper (a GiB: at p = 1,024 and C = 9 fits one
+// chunk is 38 MB).  Bound: float64 operations, p (p + 1) / 2 + p fused
+// multiply-adds per (fit, row), over the card's float64 rate.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -249,6 +273,175 @@ __global__ void gram_finish(const double* __restrict__ partial, float* __restric
   }
 }
 
+// ---- the wide entry (p > 64) ------------------------------------------------
+
+constexpr int kWarps = kThreads / 32;
+constexpr int kWideFits = 8;     // fits of a prologue block's tile
+constexpr int kTile = 32;        // side of an output tile (ops/linear.py's _GRAM_WIDE_TILE)
+constexpr int kSlab = 32;        // rows of a shared slab
+constexpr int kMaxWide = 1024;
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v = __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, off));
+  return v;
+}
+
+// The prologue: every (fit, row)'s (v, u) into v_out, u_out f32[C, n].
+template <int MODE>
+__global__ void __launch_bounds__(kThreads)
+gram_weights_rows(const float* __restrict__ X1, const float* __restrict__ y,
+                  const float* __restrict__ w, const int32_t* __restrict__ fold,
+                  const float* __restrict__ beta, const float* __restrict__ vp,
+                  float* __restrict__ v_out, float* __restrict__ u_out, int n, int p, int C,
+                  int family, int link) {
+  extern __shared__ float zs[];  // [kWideFits][p]
+  __shared__ int fs[kWideFits];
+  __shared__ float vps[kWideFits];
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int c0 = blockIdx.y * kWideFits;
+  const int nc = min(kWideFits, C - c0);
+  if (MODE != RIDGE)
+    for (int i = tid; i < nc * p; i += kThreads) zs[i] = beta[(long long)c0 * p + i];
+  if (tid < nc) {
+    fs[tid] = fold[c0 + tid];
+    vps[tid] = MODE == GLM ? vp[c0 + tid] : 0.0f;
+  }
+  __syncthreads();
+  for (long long r = (long long)blockIdx.x * kWarps + warp; r < n;
+       r += (long long)gridDim.x * kWarps) {
+    float mine = 0.0f;
+    if (MODE != RIDGE) {
+      float m[kWideFits];
+#pragma unroll
+      for (int c = 0; c < kWideFits; ++c) m[c] = 0.0f;
+      for (int j = lane; j < p; j += 32) {
+        const float xj = X1[r * p + j];
+#pragma unroll
+        for (int c = 0; c < kWideFits; ++c)
+          if (c < nc) m[c] = __fmaf_rn(xj, zs[c * p + j], m[c]);
+      }
+#pragma unroll
+      for (int c = 0; c < kWideFits; ++c) {
+        const float s = warp_sum(m[c]);
+        if (lane == c) mine = s;
+      }
+    }
+    if (lane < nc) {
+      const float wr = w[(long long)fs[lane] * n + r];
+      float v, u;
+      if (MODE == NEWTON) {
+        const float mu = __fdiv_rn(1.0f, __fadd_rn(1.0f, expf(-mine)));
+        v = __fmul_rn(fmaxf(__fmul_rn(mu, __fsub_rn(1.0f, mu)), 1e-6f), wr);
+        u = __fmul_rn(wr, __fsub_rn(mu, y[r]));
+      } else if (MODE == GLM) {
+        glm_weights(mine, y[r], wr, vps[lane], family, link, &v, &u);
+      } else {
+        v = wr;
+        u = __fmul_rn(wr, y[r]);
+      }
+      v_out[(long long)(c0 + lane) * n + r] = v;
+      u_out[(long long)(c0 + lane) * n + r] = u;
+    }
+  }
+}
+
+// The first entry of row i of the packed upper triangle of a p x p matrix.
+__device__ __forceinline__ long long tri_offset(long long i, int p) {
+  return i * p - i * (i - 1) / 2;
+}
+
+// One block: row chunk blockIdx.x, fit blockIdx.y, output tile pair
+// blockIdx.z (ti <= tj over the nt tiles of the p + 1 augmented columns).
+__global__ void __launch_bounds__(kThreads)
+gram_tiles(const float* __restrict__ X1, const float* __restrict__ v,
+           const float* __restrict__ u, double* __restrict__ partial, int n, int p, int C, int nt,
+           int chunk_rows) {
+  __shared__ float as[kSlab][kTile + 1];
+  __shared__ double bs[kSlab][kTile + 1];
+  int q = blockIdx.z, ti = 0;
+  while (q >= nt - ti) {
+    q -= nt - ti;
+    ++ti;
+  }
+  const int tj = ti + q;
+  const int c = blockIdx.y;
+  const int i0 = ti * kTile, j0 = tj * kTile;
+  const int tid = threadIdx.x, ty = tid / 8, tx = tid % 8;
+  const float* vc = v + (long long)c * n;
+  const float* uc = u + (long long)c * n;
+  double acc[4] = {0.0, 0.0, 0.0, 0.0};
+  const long long r0 = (long long)blockIdx.x * chunk_rows;
+  const long long r1 = min((long long)n, r0 + chunk_rows);
+  for (long long rt = r0; rt < r1; rt += kSlab) {
+    const int nr = (int)min((long long)kSlab, r1 - rt);
+    __syncthreads();  // the previous slab is consumed
+    for (int idx = tid; idx < kSlab * kTile; idx += kThreads) {
+      const int rr = idx / kTile, cc = idx % kTile;
+      float a = 0.0f;
+      double b = 0.0;
+      if (rr < nr) {
+        const long long row = rt + rr;
+        const int ia = i0 + cc, jb = j0 + cc;
+        if (ia < p) a = X1[row * p + ia];
+        if (jb < p)
+          b = (double)vc[row] * (double)X1[row * p + jb];  // exact in float64
+        else if (jb == p)
+          b = (double)uc[row];
+      }
+      as[rr][cc] = a;
+      bs[rr][cc] = b;
+    }
+    __syncthreads();
+#pragma unroll 8
+    for (int rr = 0; rr < kSlab; ++rr) {
+      const double a = (double)as[rr][ty];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) acc[k] = fma(a, bs[rr][tx + 8 * k], acc[k]);
+    }
+  }
+  const int i = i0 + ty;
+  const long long tri = (long long)p * (p + 1) / 2;
+  const long long E = tri + p;
+  double* out = partial + ((long long)blockIdx.x * C + c) * E;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const int j = j0 + tx + 8 * k;
+    if (i >= p || j > p || j < i) continue;
+    out[j < p ? tri_offset(i, p) + (j - i) : tri + i] = acc[k];
+  }
+}
+
+// A warp an entry: lane l sums chunks l, l + 32, ... in order, a fixed
+// shuffle tree, one rounding; the triangle's row found in closed form.
+__global__ void gram_finish_wide(const double* __restrict__ partial, float* __restrict__ H,
+                                 float* __restrict__ g, int chunks, int C, int p) {
+  const long long tri = (long long)p * (p + 1) / 2;
+  const long long E = tri + p;
+  const long long idx = ((long long)blockIdx.x * blockDim.x + threadIdx.x) / 32;
+  const int lane = threadIdx.x % 32;
+  if (idx >= (long long)C * E) return;  // the whole warp
+  double s = 0.0;
+  for (int k = lane; k < chunks; k += 32) s += partial[(long long)k * C * E + idx];
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) s += __shfl_down_sync(0xffffffffu, s, off);
+  if (lane != 0) return;
+  const long long c = idx / E, q = idx % E;
+  const float f = __double2float_rn(s);
+  if (q < tri) {
+    const double b = 2.0 * p + 1.0;
+    long long i = (long long)floor((b - sqrt(b * b - 8.0 * (double)q)) / 2.0);
+    if (i < 0) i = 0;
+    while (i > 0 && tri_offset(i, p) > q) --i;
+    while (i + 1 < p && tri_offset(i + 1, p) <= q) ++i;
+    const long long j = i + (q - tri_offset(i, p));
+    H[(c * p + i) * p + j] = f;
+    H[(c * p + j) * p + i] = f;
+  } else {
+    g[c * p + (q - tri)] = f;
+  }
+}
+
 }  // namespace
 
 // mode: RIDGE (beta, vp unused), NEWTON (beta f32[C, p] read) or GLM (beta
@@ -281,6 +474,47 @@ extern "C" int weighted_gram(const void* X1, const void* y, const void* w, const
   const int threads = 128;  // four entries a block, a warp each
   const long long total = (long long)C * E * 32;
   gram_finish<<<(unsigned)((total + threads - 1) / threads), threads, 0, st>>>(
+      (const double*)partial, (float*)H, (float*)g, chunks, C, p);
+  return (int)cudaGetLastError();
+}
+
+
+// The wide entry, 64 < p <= 1024: v, u f32[C, n] scratch for the prologue,
+// partial f64[chunks, C, p (p + 1) / 2 + p]; the other arguments as above.
+extern "C" int weighted_gram_wide(const void* X1, const void* y, const void* w, const void* fold,
+                                  const void* beta, const void* vp, void* v, void* u,
+                                  void* partial, void* H, void* g, int n, int p, int C,
+                                  int chunks, int chunk_rows, int mode, int family, int link,
+                                  void* stream) {
+  if (n <= 0 || p <= 0 || p > kMaxWide || C <= 0 || C > 65535 || chunks <= 0 ||
+      chunk_rows <= 0 || mode < RIDGE || mode > GLM || family < GAUSSIAN || family > TWEEDIE ||
+      link < IDENTITY || link > SQRT)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  const long long row_blocks = min(((long long)n + kWarps - 1) / kWarps, 4096LL);
+  dim3 pgrid((unsigned)row_blocks, (unsigned)((C + kWideFits - 1) / kWideFits));
+  const size_t zbytes = mode == RIDGE ? 0 : (size_t)kWideFits * p * sizeof(float);
+#define WEIGHT_ARGS                                                                        \
+  (const float*)X1, (const float*)y, (const float*)w, (const int32_t*)fold,              \
+      (const float*)beta, (const float*)vp, (float*)v, (float*)u, n, p, C, family, link
+  if (mode == NEWTON)
+    gram_weights_rows<NEWTON><<<pgrid, kThreads, zbytes, st>>>(WEIGHT_ARGS);
+  else if (mode == GLM)
+    gram_weights_rows<GLM><<<pgrid, kThreads, zbytes, st>>>(WEIGHT_ARGS);
+  else
+    gram_weights_rows<RIDGE><<<pgrid, kThreads, zbytes, st>>>(WEIGHT_ARGS);
+#undef WEIGHT_ARGS
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int nt = (p + 1 + kTile - 1) / kTile;
+  dim3 tgrid((unsigned)chunks, (unsigned)C, (unsigned)(nt * (nt + 1) / 2));
+  gram_tiles<<<tgrid, kThreads, 0, st>>>((const float*)X1, (const float*)v, (const float*)u,
+                                         (double*)partial, n, p, C, nt, chunk_rows);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int threads = 256;  // eight entries a block, a warp each
+  const long long total = (long long)C * ((long long)p * (p + 1) / 2 + p) * 32;
+  gram_finish_wide<<<(unsigned)((total + threads - 1) / threads), threads, 0, st>>>(
       (const double*)partial, (float*)H, (float*)g, chunks, C, p);
   return (int)cudaGetLastError();
 }

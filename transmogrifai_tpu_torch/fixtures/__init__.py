@@ -138,6 +138,7 @@ TITANIC_FAMILIES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
 BOSTON_GLM = os.path.join(os.path.dirname(os.path.abspath(__file__)), "boston_glm")
 TITANIC_SANITY = os.path.join(os.path.dirname(os.path.abspath(__file__)), "titanic_sanity")
 TITANIC_TEXT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "titanic_text")
+TITANIC_SIMPLE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "titanic_simple")
 NULL_SUFFIX = "__null"
 
 #: tolerances of the comparison with the JAX package's answers.  Margins are
@@ -1014,6 +1015,32 @@ def check_titanic_text_train(model, final_w2v_args) -> Dict[str, Any]:
     return out
 
 
+def check_titanic_text_wide_train(model) -> Dict[str, Any]:
+    """Hold a text-flow train over the Newton and SVC space of
+    ``tests/test_torch_wide_linear.py`` (85 coefficients: K-S's and K-T's
+    wide entries on the card) to ``titanic_text/wide.npz``: the same
+    candidates and winner, the Newton points' fold AuPR within
+    ``NEWTON_AUPR_TOL`` and the SVC's within ``SVC_AUPR_TOL``.  Returns the
+    largest gap per family and the vector's width."""
+    ref = load_sweep(os.path.join(TITANIC_TEXT, "wide.npz"))
+    summ = model.stages[-1].summary
+    res = summ.validation_results
+    check([(r["modelName"], json.dumps(r["grid"], sort_keys=True)) for r in res] ==
+          list(zip(ref["names"].tolist(), ref["grids"].tolist())), "candidates differ")
+    check(_best_index(summ) == int(ref["best"]),
+          f"winner {summ.best_model_name} {summ.best_grid} is not the fixture's")
+    tols = {"OpLogisticRegression": NEWTON_AUPR_TOL, "OpLinearSVC": SVC_AUPR_TOL}
+    gaps: Dict[str, float] = {}
+    for r, theirs in zip(res, ref["folds"]):
+        g = float(np.abs(np.asarray(r["foldMetrics"], np.float64) - theirs).max())
+        gaps[r["modelName"]] = max(gaps.get(r["modelName"], 0.0), g)
+    for fam, gap in gaps.items():
+        check(gap <= tols[fam], f"{fam} fold AuPR {gap} from the fixture's, above {tols[fam]}")
+    width = int(_stage(model, "SanityCheckerModel").indices_to_keep.size) + 1
+    return {"max_gap": gaps, "best": summ.best_model_name, "best_grid": summ.best_grid,
+            "width": width}
+
+
 def compare_text_answers(expected: Dict[str, np.ndarray], prediction: np.ndarray,
                          probability: np.ndarray, tol: float) -> Dict[str, float]:
     """Gaps of a text-flow model's answers to the fixture's: probabilities
@@ -1025,3 +1052,57 @@ def compare_text_answers(expected: Dict[str, np.ndarray], prediction: np.ndarray
     off = np.abs(eq[:, 1] - eq[:, 0]) > 2 * tol
     check(np.array_equal(prediction[off], expected["prediction"][off]), "predictions differ")
     return {"probability_max_abs_err": gap, "rows": int(len(prediction))}
+
+
+# ---------------------------------------------------------------------------
+# titanic_simple: the OpTitanicSimple feature set (build_workflow(
+# reference_features=True)) over the stock space
+# ---------------------------------------------------------------------------
+#: probabilities of the JAX-saved OpTitanicSimple model's answers scored by
+#: the port: the streamed-free host path computes the same float64 scalers
+#: and float32 linear scores in another order
+SIMPLE_PROB_ATOL = 1e-6
+#: fold AuPR per family of an OpTitanicSimple train against the fixture's.
+#: The features are bit-equal to the JAX package's (the scoring path's every
+#: intermediate column compared on the 891 rows); the LR candidates' 200
+#: FISTA steps sum in float32 in another order, and this flow's unscaled
+#: ``estimated_cost`` column (family size x fare, up to about 1,000) shrinks
+#: the step and carries those last bits further than the stock flow's
+#: (measured 1.2e-5 on the CPU, above the stock flow's ``LR_AUPR_TOL``).
+#: The boosted trees' histograms sum in fixed point where XLA sums float32,
+#: and on this flow's wide-ranged columns near-tied splits flip (measured
+#: 2.19e-4 on the CPU, above the stock flow's 1e-4 and 2e-4)
+SIMPLE_AUPR_TOL = {"OpLogisticRegression": 2.5e-5, "OpRandomForestClassifier": RF_AUPR_TOL,
+                   "OpXGBoostClassifier": 5e-4}
+
+
+def check_titanic_simple_train(model, xgb_tol: Optional[float] = None) -> Dict[str, Any]:
+    """Hold an OpTitanicSimple train (the stock space or a part of it) to
+    ``titanic_simple``: the fixture's best candidate among those trained;
+    each candidate's fold AuPR within ``SIMPLE_AUPR_TOL`` of its family
+    (``xgb_tol`` for the boosted trees where given: K-E's fixed-point sums
+    on the card).  Returns the largest gap per family and the winner."""
+    tols = dict(SIMPLE_AUPR_TOL)
+    if xgb_tol is not None:
+        tols["OpXGBoostClassifier"] = xgb_tol
+    with open(os.path.join(TITANIC_SIMPLE, "op_model.json")) as fh:
+        ref = stage_summary(json.load(fh))
+    summ = model.stages[-1].summary
+    theirs = {(r["modelName"], json.dumps(r["grid"], sort_keys=True)): r
+              for r in ref["validationResults"]}
+    gaps: Dict[str, float] = {}
+    best, best_mean = None, -np.inf
+    for r in summ.validation_results:
+        key = (r["modelName"], json.dumps(r["grid"], sort_keys=True))
+        check(key in theirs, f"candidate {key} is not in the fixture")
+        t = theirs[key]
+        g = max(abs(a - b) for a, b in zip(r["foldMetrics"], t["foldMetrics"]))
+        gaps[r["modelName"]] = max(gaps.get(r["modelName"], 0.0), g)
+        if t["metricValue"] > best_mean:
+            best, best_mean = key, t["metricValue"]
+    for fam, gap in gaps.items():
+        check(gap <= tols[fam], f"{fam} fold AuPR {gap} from the fixture's, above {tols[fam]}")
+    mine = (summ.best_model_name, json.dumps(summ.best_grid, sort_keys=True))
+    check(mine == best, f"winner {mine} is not the fixture's {best}")
+    return {"max_gap": gaps, "best": summ.best_model_name, "best_grid": summ.best_grid,
+            "candidates": len(summ.validation_results)}

@@ -182,3 +182,19 @@ class OpCountVectorizerModel(Model):
         meta = [VectorColumnMetadata((f.name,), (f.ftype.__name__,), indicator_value=t)
                 for t in self.vocabulary]
         return finalize_vector(self, [out], meta, n)
+
+
+class OpIndexToString(UnaryTransformer):
+    """RealNN index -> Text label (OpIndexToString.scala; the inverse of an
+    indexer), the stage of the DSL's ``deindexed``."""
+
+    def __init__(self, labels: Sequence[str], uid: Optional[str] = None):
+        super().__init__(operation_name="idxToStr", input_type=T.RealNN,
+                         output_type=T.Text, uid=uid, labels=list(labels))
+
+    def transform_fn(self, value: T.FeatureType) -> T.FeatureType:
+        labels = self.get_param("labels")
+        if value.is_empty:
+            return T.Text(None)
+        i = int(value.value)
+        return T.Text(labels[i] if 0 <= i < len(labels) else None)

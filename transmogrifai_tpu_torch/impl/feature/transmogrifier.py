@@ -5,8 +5,8 @@ The port's counterpart of ``transmogrifai_tpu/impl/feature/transmogrifier.py``
 groups features by type, applies each type's default vectorizer and
 combines the outputs into one OPVector.  The port dispatches the types
 whose vectorizers it has: vectors, predictions, categorical text (pivot),
-free text (smart text), integral and real numerics (with the label-aware
-decision-tree buckets beside the reals).  Dates, geolocations, lists and
+free text (smart text), binary, integral, non-nullable real and real
+numerics (with the label-aware decision-tree buckets beside the reals).  Dates, geolocations, lists and
 maps raise, naming the type.
 """
 from __future__ import annotations
@@ -17,7 +17,8 @@ from ... import types as T
 from ...features.feature import Feature
 from .bucketizers import DecisionTreeNumericBucketizer
 from .smart_text import SmartTextVectorizer
-from .vectorizers import IntegralVectorizer, OneHotVectorizer, RealVectorizer, VectorsCombiner
+from .vectorizers import (BinaryVectorizer, IntegralVectorizer, OneHotVectorizer,
+                          RealNNVectorizer, RealVectorizer, VectorsCombiner)
 
 
 class TransmogrifierDefaults:
@@ -42,8 +43,7 @@ _CATEGORICAL_TEXT = (T.PickList, T.ComboBox, T.Country, T.State, T.City,
 _FREE_TEXT = (T.TextArea, T.Email, T.URL, T.Phone, T.Base64, T.Text)
 #: types the JAX package vectorizes with stages the port does not have yet;
 #: dispatched ahead of their bases (Date < Integral, Geolocation < OPList)
-_UNPORTED = (T.Geolocation, T.DateList, T.TextList, T.MultiPickList, T.OPMap, T.Date,
-             T.Binary, T.RealNN)
+_UNPORTED = (T.Geolocation, T.DateList, T.TextList, T.MultiPickList, T.OPMap, T.Date)
 
 
 def transmogrify(features: Sequence[Feature], label: Optional[Feature] = None,
@@ -66,8 +66,11 @@ def transmogrify(features: Sequence[Feature], label: Optional[Feature] = None,
                                               num_hashes=d.DefaultNumOfFeatures,
                                               track_nulls=d.TrackNulls)
                           .set_input(*fs).get_output()]) for t in _FREE_TEXT],
+        (T.Binary, lambda fs: [BinaryVectorizer(track_nulls=d.TrackNulls)
+                               .set_input(*fs).get_output()]),
         (T.Integral, lambda fs: [IntegralVectorizer(track_nulls=d.TrackNulls)
                                  .set_input(*fs).get_output()]),
+        (T.RealNN, lambda fs: [RealNNVectorizer().set_input(*fs).get_output()]),
         (T.Real, lambda fs: _real_outputs(fs, label, d)),
     ]
     groups: Dict[type, List[Feature]] = {}

@@ -8,8 +8,14 @@ vectorizers, OpOneHotVectorizer.scala:61,140, VectorsCombiner.scala:51).
 The fits are host numpy, as in the JAX package.  The transforms run on
 their device through the fused-layer protocol (``impl/feature/_util.py``):
 
-- ``RealVectorizerModel``: host prep stacks the value and mask columns,
-  the device program is K-C ``fill_indicator`` (``ops/vectorize.py``).
+- ``RealVectorizerModel`` and ``BinaryVectorizer``: the value and mask
+  columns stacked on the device, the device program K-C ``fill_indicator``
+  (``ops/vectorize.py``).
+- ``RealNNVectorizer``: the values side by side, K-Z's ``column_gather``
+  over width-1 sources.
+- ``StandardScalerModel``: K-AD ``column_affine`` (``ops/layer.py``); its
+  fit takes the single-device branch of the JAX package's
+  ``_scaler_moments`` (the sharded one waits for a mesh in the port).
 - ``OneHotVectorizerModel``: host prep maps labels to fitted category codes
   without pandas, the device program is K-D ``one_hot_codes``.  Columns
   holding collections pivot through the per-row host path, as in the JAX
@@ -33,7 +39,7 @@ from ...features.metadata import (NULL_INDICATOR, OTHER_INDICATOR, VectorColumnM
 from ...ops import layer as L
 from ...ops.vectorize import fill_indicator, one_hot_codes
 from ...readers.base import null_mask
-from ...stages.base import Model, SequenceEstimator, SequenceTransformer
+from ...stages.base import Model, SequenceEstimator, SequenceTransformer, UnaryEstimator
 from ._util import finalize_vector, run_on_device
 
 
@@ -105,19 +111,15 @@ class RealVectorizerModel(Model):
         self.track_nulls = track_nulls
 
     def transform_columns(self, cols: Sequence[Column]) -> VectorColumn:
-        return run_on_device(self, cols)
-
-    # ---- fused-layer protocol ---------------------------------------------
-    def torch_host_prep(self, cols) -> List[np.ndarray]:
-        """values f32[k, n], mask bool[k, n] and fills f32[k]: one upload each."""
         for f, col in zip(self.inputs, cols):
             assert isinstance(col, NumericColumn), f"RealVectorizer input {f.name} not numeric"
-        return [np.stack([np.asarray(c.values, np.float32) for c in cols]),
-                np.stack([c.mask for c in cols]),
-                np.asarray(self.fills, np.float32)]
+        return run_on_device(self, cols)
 
-    def torch_transform(self, values, mask, fills):
-        return fill_indicator(values, mask, fills, bool(self.track_nulls))
+    # ---- fused-layer protocol: (values, mask) of each input, so the stage
+    # streams on intermediates as the JAX package's does ---------------------
+    def torch_transform(self, *args):
+        return _fill_indicator_pairs(args, np.asarray(self.fills, np.float32),
+                                     bool(self.track_nulls))
 
     def torch_out_metadata(self, cols):
         meta = []
@@ -126,6 +128,64 @@ class RealVectorizerModel(Model):
             if self.track_nulls:
                 meta.append(VectorColumnMetadata((f.name,), (f.ftype.__name__,),
                                                  indicator_value=NULL_INDICATOR))
+        vm = _vector_meta(self, meta)
+        self.metadata["vector_metadata"] = vm
+        return vm
+
+
+def _fill_indicator_pairs(args, fills: np.ndarray, track_nulls: bool) -> torch.Tensor:
+    """K-C over (values f32[n], mask bool[n]) pairs, stacked to [k, n]."""
+    values = torch.stack([a.to(torch.float32) for a in args[0::2]])
+    mask = torch.stack(list(args[1::2]))
+    return fill_indicator(values, mask, torch.from_numpy(fills).to(values.device), track_nulls)
+
+
+class BinaryVectorizer(SequenceTransformer):
+    """Binary features -> OPVector: value (false fill) + null indicator."""
+
+    def __init__(self, fill_value: bool = False, track_nulls: bool = True,
+                 uid: Optional[str] = None):
+        super().__init__(operation_name="vecBinary", output_type=T.OPVector, uid=uid,
+                         fill_value=fill_value, track_nulls=track_nulls)
+
+    def transform_columns(self, cols: Sequence[Column]) -> VectorColumn:
+        for f, col in zip(self.inputs, cols):
+            assert isinstance(col, NumericColumn), f"BinaryVectorizer input {f.name} not numeric"
+        return run_on_device(self, cols)
+
+    # ---- fused-layer protocol ---------------------------------------------
+    def torch_transform(self, *args):
+        fill = float(self.get_param("fill_value", False))
+        return _fill_indicator_pairs(args, np.full(len(args) // 2, fill, np.float32),
+                                     bool(self.get_param("track_nulls", True)))
+
+    def torch_out_metadata(self, cols):
+        meta = []
+        for f in self.inputs:
+            meta.append(VectorColumnMetadata((f.name,), (f.ftype.__name__,)))
+            if self.get_param("track_nulls", True):
+                meta.append(VectorColumnMetadata((f.name,), (f.ftype.__name__,),
+                                                 indicator_value=NULL_INDICATOR))
+        vm = _vector_meta(self, meta)
+        self.metadata["vector_metadata"] = vm
+        return vm
+
+
+class RealNNVectorizer(SequenceTransformer):
+    """Non-nullable reals -> OPVector (no fill, no null tracking)."""
+
+    def __init__(self, uid: Optional[str] = None):
+        super().__init__(operation_name="vecRealNN", output_type=T.OPVector, uid=uid)
+
+    def transform_columns(self, cols: Sequence[Column]) -> VectorColumn:
+        return run_on_device(self, cols)
+
+    # ---- fused-layer protocol ---------------------------------------------
+    def torch_transform(self, *args):
+        return L.concat_columns([a.to(torch.float32).reshape(-1, 1) for a in args[0::2]])
+
+    def torch_out_metadata(self, cols):
+        meta = [VectorColumnMetadata((f.name,), (f.ftype.__name__,)) for f in self.inputs]
         vm = _vector_meta(self, meta)
         self.metadata["vector_metadata"] = vm
         return vm
@@ -344,4 +404,67 @@ class VectorsCombiner(SequenceTransformer):
                     for i in range(col.width))))
         vm = VectorMetadata.flatten(self.get_outputs()[0].name, metas)
         self.metadata["vector_metadata"] = vm
+        return vm
+
+
+# ---------------------------------------------------------------------------
+# Vector standardization
+# ---------------------------------------------------------------------------
+def _scaler_moments(V) -> tuple:
+    """Column mean and population std of the matrix (the single-device
+    branch of the JAX package's ``_scaler_moments``: numpy on the host)."""
+    V = V.detach().cpu().numpy() if isinstance(V, torch.Tensor) else np.asarray(V)
+    return V.mean(axis=0), V.std(axis=0)
+
+
+class StandardScalerVectorizer(UnaryEstimator):
+    """Standardize an OPVector column (z-score); the OpScalarStandardScaler /
+    Spark StandardScaler analog."""
+
+    def __init__(self, with_mean: bool = True, with_std: bool = True,
+                 uid: Optional[str] = None):
+        super().__init__(operation_name="stdScaler", input_type=T.OPVector,
+                         output_type=T.OPVector, uid=uid,
+                         with_mean=with_mean, with_std=with_std)
+
+    def fit_columns(self, cols: Sequence[Column], dataset: Dataset) -> "StandardScalerModel":
+        col = cols[0]
+        assert isinstance(col, VectorColumn)
+        mean, std = _scaler_moments(col.values)
+        std = np.where(std < 1e-12, 1.0, std)
+        return StandardScalerModel(
+            mean=mean if self.get_param("with_mean") else np.zeros_like(mean),
+            std=std if self.get_param("with_std") else np.ones_like(std),
+            operation_name=self.operation_name, output_type=self.output_type)
+
+
+class StandardScalerModel(Model):
+    def __init__(self, mean: np.ndarray, std: np.ndarray, operation_name: str = "stdScaler",
+                 output_type=T.OPVector, uid: Optional[str] = None, **kw):
+        super().__init__(operation_name, output_type, uid=uid, **kw)
+        self.mean = np.asarray(mean, dtype=np.float32)
+        self.std = np.asarray(std, dtype=np.float32)
+
+    def transform_columns(self, cols: Sequence[Column]) -> VectorColumn:
+        """The JAX package's host path: a float32 division where the matrix
+        lies (its device program multiplies by the reciprocal instead)."""
+        col = cols[0]
+        assert isinstance(col, VectorColumn)
+        x = col.values
+        out = (x - torch.from_numpy(self.mean).to(x.device)) / torch.from_numpy(self.std).to(x.device)
+        return VectorColumn(T.OPVector, out, self.torch_out_metadata(cols))
+
+    # ---- fused-layer protocol ---------------------------------------------
+    def torch_transform(self, x):
+        """``(x - mean) / std`` as XLA compiles the JAX package's program: a
+        product with the float32 reciprocal of std (K-AD)."""
+        rcp = (np.float32(1.0) / self.std).astype(np.float32)
+        return L.column_affine(x.to(torch.float32), torch.from_numpy(self.mean).to(x.device),
+                               torch.from_numpy(rcp).to(x.device))
+
+    def torch_out_metadata(self, cols):
+        vm = cols[0].metadata
+        if vm is not None:
+            vm = VectorMetadata(self.get_outputs()[0].name, vm.columns)
+            self.metadata["vector_metadata"] = vm
         return vm

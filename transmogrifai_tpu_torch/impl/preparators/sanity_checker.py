@@ -469,14 +469,12 @@ class SanityCheckerModel(Model):
         assert isinstance(cols[-1], VectorColumn)
         return run_on_device(self, cols)
 
-    # ---- fused-layer protocol (workflow/dag._apply_layer_transforms): a
-    # column gather on the device (K-Z); only the vector input is uploaded --
-    def torch_host_prep(self, cols):
-        return [cols[-1].values]
-
-    def torch_transform(self, vec):
+    # ---- fused-layer protocol (workflow/dag._apply_layer_transforms and the
+    # streaming executor): a column gather of the last input, the vector, on
+    # the device (K-Z); row-wise, so it streams on the combiner's chunks ----
+    def torch_transform(self, *args):
         keep = self.indices_to_keep
-        return L.column_gather([vec], [0] * len(keep), keep)
+        return L.column_gather([args[-1]], [0] * len(keep), keep)
 
     def torch_out_metadata(self, cols) -> Optional[VectorMetadata]:
         return self.out_metadata

@@ -117,7 +117,7 @@ class BatchScoreFunction:
         if not records:
             return []
         raw = self.records_to_dataset(records)
-        full = dag_util.apply_transformations_dag(raw, self._dag)
+        full = dag_util.apply_transformations_dag(raw, self._dag, keep=self._result_names)
         out_cols = [(n, full[n]) for n in self._result_names if n in full.columns]
         return [{n: _emit(col.to_scalar(i)) for n, col in out_cols}
                 for i in range(len(records))]

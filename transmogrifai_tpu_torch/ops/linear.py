@@ -193,9 +193,25 @@ linear_fista_grad.launches = 0
 # ---------------------------------------------------------------------------
 # K-P softmax_fista_grad
 # ---------------------------------------------------------------------------
-#: the most classes and coefficients (features + intercept) K-P takes
+#: the most classes and coefficients (features + intercept) K-P takes: up to
+#: 64 coefficients a thread a row, above a warp a row (``csrc/fista.cu``'s
+#: wide entry)
 SOFTMAX_MAX_CLASSES = 8
-SOFTMAX_MAX_COEFS = 64
+SOFTMAX_MAX_COEFS = 1024
+#: the wide entries' (K-P's, K-T's) float64 partials stay under this
+_WIDE_PARTIAL_BYTES = 1 << 28
+
+
+def _wide_chunking(n: int, p: int, per_chunk_bytes: int) -> Tuple[int, int]:
+    """(chunk_rows, chunks) of a K-P or K-T launch: the narrow entries' at p
+    <= 64; above, K-K's wide ones (``_FISTA_WIDE_*``), with no more chunks
+    than the partial buffer's budget allows."""
+    if p <= 64:
+        chunk_rows = max(_FISTA_MIN_CHUNK, -(-n // _FISTA_TARGET_CHUNKS))
+    else:
+        target = max(1, min(_FISTA_WIDE_TARGET_CHUNKS, _WIDE_PARTIAL_BYTES // per_chunk_bytes))
+        chunk_rows = max(_FISTA_WIDE_MIN_CHUNK, -(-n // target))
+    return chunk_rows, -(-n // chunk_rows)
 
 
 def _check_softmax(X1, y, w, fold, z, l2m, wsum):
@@ -253,8 +269,7 @@ def softmax_fista_grad(X1: torch.Tensor, y: torch.Tensor, w: torch.Tensor, fold:
     C, _, k = z.shape
     X1, y, w, fold = X1.contiguous(), y.contiguous(), w.contiguous(), fold.contiguous()
     z, l2m, wsum = z.contiguous(), l2m.contiguous(), wsum.contiguous()
-    chunk_rows = max(_FISTA_MIN_CHUNK, -(-n // _FISTA_TARGET_CHUNKS))
-    chunks = -(-n // chunk_rows)
+    chunk_rows, chunks = _wide_chunking(n, p, C * p * k * 8)
     partial = torch.empty((chunks, C, p, k), dtype=torch.float64, device=X1.device)
     grad = torch.empty((C, p, k), dtype=torch.float32, device=X1.device)
     lib = cuda_build.load("fista", _FISTA_SIGNATURES)
@@ -293,18 +308,17 @@ def svc_grad(X1: torch.Tensor, y: torch.Tensor, w: torch.Tensor, fold: torch.Ten
     """The gradients f32[C, p] of C squared-hinge SVC fits at their points
     ``z``: ``X1^T (w[fold[c]] * (-2 ypm max(1 - ypm X1 z_c, 0))) / wsum[c] +
     l2v[c] * z_c`` with ``ypm = 2 y - 1`` for the 0/1 labels ``y``; the
-    arguments as ``fista_grad``'s.  At most 64 coefficients."""
+    arguments as ``fista_grad``'s.  At most ``FISTA_MAX_COEFS`` coefficients."""
     _check_fista(X1, y, w, fold, z, l2v, wsum)
     if not _on_cuda(X1, y, w, fold, z, l2v, wsum):
         return svc_grad_plain(X1, y, w, fold, z, l2v, wsum)
     n, p = X1.shape
     C = z.shape[0]
-    if p > 64:
-        raise ValueError(f"svc_grad takes at most 64 coefficients, got {p}")
+    if p > FISTA_MAX_COEFS:
+        raise ValueError(f"svc_grad takes at most {FISTA_MAX_COEFS} coefficients, got {p}")
     X1, y, w, fold = X1.contiguous(), y.contiguous(), w.contiguous(), fold.contiguous()
     z, l2v, wsum = z.contiguous(), l2v.contiguous(), wsum.contiguous()
-    chunk_rows = max(_FISTA_MIN_CHUNK, -(-n // _FISTA_TARGET_CHUNKS))
-    chunks = -(-n // chunk_rows)
+    chunk_rows, chunks = _wide_chunking(n, p, C * p * 8)
     partial = torch.empty((chunks, C, p), dtype=torch.float64, device=X1.device)
     grad = torch.empty((C, p), dtype=torch.float32, device=X1.device)
     lib = cuda_build.load("svc", {"svc_grad": (_SVC_ARGS, ctypes.c_int)})
@@ -494,13 +508,25 @@ def fit_softmax(X: torch.Tensor, y: torch.Tensor, sample_weight: torch.Tensor, l
 # ---------------------------------------------------------------------------
 # K-S weighted_gram, and the Newton and ridge solvers on it
 # ---------------------------------------------------------------------------
-#: the most coefficients (features + intercept) K-S takes
-GRAM_MAX_COEFS = 64
+#: the most coefficients (features + intercept) K-S takes: up to 64 in fit
+#: tiles whose threads hold every entry, above in 32 x 32 output tiles
+#: (``csrc/weighted_gram.cu``'s wide entry)
+GRAM_MAX_COEFS = 1024
+_GRAM_NARROW_COEFS = 64
 _GRAM_ARGS = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+_GRAM_WIDE_ARGS = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+_GRAM_SIGNATURES = {"weighted_gram": (_GRAM_ARGS, ctypes.c_int),
+                    "weighted_gram_wide": (_GRAM_WIDE_ARGS, ctypes.c_int)}
 #: K-S's tiles: 32 rows staged a step, at most 32 fits a block and 16 output
 #: entries a thread (256 threads)
 _GRAM_MAX_FITS = 32
 _GRAM_MAX_ENTRIES = 16 * 256
+#: the wide entry's float64 partials (chunks x C x E) stay under this
+_GRAM_WIDE_PARTIAL_BYTES = 1 << 30
+#: the wide entry's blocks a launch: eight 256-thread blocks an SM
+_GRAM_WIDE_TARGET_BLOCKS = 8 * 132
+#: the side of the wide entry's output tiles (``csrc/weighted_gram.cu``'s kTile)
+_GRAM_WIDE_TILE = 32
 
 
 def _check_gram(X1, y, w, fold, beta, glm):
@@ -579,6 +605,8 @@ def weighted_gram(X1: torch.Tensor, y: torch.Tensor, w: torch.Tensor, fold: torc
     mode = 0 if beta is None else (1 if glm is None else 2)
     family, link = (0, 0) if glm is None else (_GLM_FAMILY_CODE[glm[0]], _GLM_LINK_CODE[glm[1]])
     E = p * (p + 1) // 2 + p
+    if p > _GRAM_NARROW_COEFS:
+        return _weighted_gram_wide(X1, y, w, fold, beta_t, vp_t, mode, family, link)
     ct = max(1, min(C, _GRAM_MAX_FITS, _GRAM_MAX_ENTRIES // E))
     tiles = -(-C // ct)
     chunk_rows = max(8 * 32, -(-n // max(_FISTA_TARGET_CHUNKS // tiles, 1)))
@@ -589,7 +617,7 @@ def weighted_gram(X1: torch.Tensor, y: torch.Tensor, w: torch.Tensor, fold: torc
     g = torch.empty((C, p), dtype=torch.float32, device=dev)
     if n == 0:
         return H.zero_(), g.zero_()
-    lib = cuda_build.load("weighted_gram", {"weighted_gram": (_GRAM_ARGS, ctypes.c_int)})
+    lib = cuda_build.load("weighted_gram", _GRAM_SIGNATURES)
     with torch.cuda.device(dev):
         rc = lib.weighted_gram(X1.data_ptr(), y.data_ptr(), w.data_ptr(), fold.data_ptr(),
                                beta_t.data_ptr(), vp_t.data_ptr(), partial.data_ptr(),
@@ -602,6 +630,41 @@ def weighted_gram(X1: torch.Tensor, y: torch.Tensor, w: torch.Tensor, fold: torc
 
 
 weighted_gram.launches = 0
+
+
+def _weighted_gram_wide(X1, y, w, fold, beta_t, vp_t, mode, family, link):
+    """K-S's wide entry (64 < p <= ``GRAM_MAX_COEFS``) on contiguous CUDA
+    tensors: the prologue's (v, u) f32[C, n], then 32 x 32 output tiles over
+    row chunks; enough chunks to give every SM eight blocks, no more than
+    the partial buffer's budget allows."""
+    n, p = X1.shape
+    C = fold.shape[0]
+    dev = X1.device
+    if n == 0:
+        return (torch.zeros((C, p, p), dtype=torch.float32, device=dev),
+                torch.zeros((C, p), dtype=torch.float32, device=dev))
+    E = p * (p + 1) // 2 + p
+    nt = -(-(p + 1) // _GRAM_WIDE_TILE)
+    want = -(-_GRAM_WIDE_TARGET_BLOCKS // (C * nt * (nt + 1) // 2))
+    chunks = max(1, min(want, _GRAM_WIDE_PARTIAL_BYTES // (C * E * 8), -(-n // 32)))
+    chunk_rows = -(-(-(-n // chunks)) // 32) * 32
+    chunks = -(-n // chunk_rows)
+    v = torch.empty((C, n), dtype=torch.float32, device=dev)
+    u = torch.empty((C, n), dtype=torch.float32, device=dev)
+    partial = torch.empty((chunks, C, E), dtype=torch.float64, device=dev)
+    H = torch.empty((C, p, p), dtype=torch.float32, device=dev)
+    g = torch.empty((C, p), dtype=torch.float32, device=dev)
+    lib = cuda_build.load("weighted_gram", _GRAM_SIGNATURES)
+    with torch.cuda.device(dev):
+        rc = lib.weighted_gram_wide(X1.data_ptr(), y.data_ptr(), w.data_ptr(), fold.data_ptr(),
+                                    beta_t.data_ptr(), vp_t.data_ptr(), v.data_ptr(),
+                                    u.data_ptr(), partial.data_ptr(), H.data_ptr(),
+                                    g.data_ptr(), n, p, C, chunks, chunk_rows, mode, family,
+                                    link,
+                                    ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    cuda_build.check_launch("weighted_gram_wide", rc)
+    weighted_gram.launches += 1
+    return H, g
 
 
 def _with_intercept(X: torch.Tensor, fit_intercept: bool) -> torch.Tensor:

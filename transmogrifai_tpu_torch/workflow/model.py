@@ -50,7 +50,7 @@ class OpWorkflowModel:
         names = [f.name for f in self.result_features]
 
         def fn(raw: Dataset) -> Dataset:
-            full = dag_util.apply_transformations_dag(raw, dag)
+            full = dag_util.apply_transformations_dag(raw, dag, keep=names)
             return full.select([n for n in names if n in full.columns])
 
         return fn
@@ -64,7 +64,11 @@ class OpWorkflowModel:
         (``dict[str, np.ndarray]``), a pandas DataFrame or record dicts."""
         raw = self._raw_for_scoring(data, params)
         names = [f.name for f in self.result_features]
-        full = dag_util.apply_transformations_dag(raw, self.dag)
+        # the streamed scoring path's liveness hint: intermediates can stay
+        # on the device unless the caller asked to keep them
+        hint = None if keep_intermediate_features else \
+            names + ([f.name for f in self.raw_features] if keep_raw_features else [])
+        full = dag_util.apply_transformations_dag(raw, self.dag, keep=hint)
         if keep_intermediate_features:
             keep = full.column_names()
         elif keep_raw_features:

@@ -17,6 +17,7 @@ import json
 import os
 import tempfile
 import textwrap
+import weakref
 from typing import Any, Dict
 
 import numpy as np
@@ -40,8 +41,9 @@ _PORT_PACKAGE = "transmogrifai_tpu_torch"
 
 _SKIP_ATTRS = {"operation_name", "output_type", "uid", "_params", "inputs", "_outputs",
                "metadata", "parent_uid", "input_type", "n_outputs",
-               # the port's placement on a device, rebuilt at load
-               "device", "_dparams"}
+               # the port's placement on a device, rebuilt at load; a
+               # stage's keep-set of the running plan
+               "device", "_dparams", "_kept"}
 
 
 def port_module(mod_name: str) -> str:
@@ -139,6 +141,11 @@ def _encode_stage(stage: PipelineStage, arrays: Dict[str, np.ndarray]) -> Dict[s
     }
 
 
+#: the source of each callable recovered at load, so saving the model again
+#: keeps it (such a callable has no source file ``inspect`` could read)
+_LOADED_SOURCES: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
 def _encode_extractor(ex: Extractor) -> Dict[str, Any]:
     if isinstance(ex, FieldExtractor):
         return ex.spec
@@ -146,7 +153,8 @@ def _encode_extractor(ex: Extractor) -> Dict[str, Any]:
         try:
             src = textwrap.dedent(inspect.getsource(ex.fn)).strip()
         except (OSError, TypeError):
-            src = None
+            # a callable recovered from a saved model keeps its source
+            src = _LOADED_SOURCES.get(ex.fn)
         return {"kind": "fn_source", "type": ex.ftype.__name__, "source": src}
     raise TypeError(f"Unknown extractor {ex!r}")
 
@@ -234,6 +242,7 @@ def _decode_extractor(spec: Dict[str, Any]) -> Extractor:
                 "This model was saved with a non-serializable extract function; "
                 "re-create the feature with extract(field=...) for full save/load support")
         fn = _compile_extract_source(src)
+        _LOADED_SOURCES[fn] = src
         return FnExtractor(fn, ftype)
 
 

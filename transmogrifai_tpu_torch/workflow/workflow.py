@@ -105,7 +105,8 @@ class OpWorkflow:
         if len(selectors) == 1:
             fitted = self._fit_stages_cv(data, layer_timer)
         else:
-            fitted = dag_util.fit_and_transform_dag(self.dag, data, listener=layer_timer(""))
+            fitted = dag_util.fit_and_transform_dag(self.dag, data, listener=layer_timer(""),
+                                                    responses=self._response_names())
         for s in selectors:
             timings.update(getattr(s, "fit_timings", {}))
 
@@ -121,13 +122,21 @@ class OpWorkflow:
         model.train_data = fitted.train
         return model
 
+    def _response_names(self) -> set:
+        """Names that must survive the freeing of intermediate columns: the
+        responses (labels feed the selector and evaluators) and the result
+        features."""
+        return ({f.name for f in self.raw_features if f.is_response}
+                | {f.name for f in self.result_features})
+
     def _fit_stages_cv(self, data: Dataset, layer_timer) -> dag_util.FittedDAG:
         """The workflow-level CV path: fit the before-DAG once, let the
         selector refit the during-DAG per fold in its sweep, then fit the
         during + after DAG with the winner pinned."""
         cut = dag_util.cut_dag(self.dag)
         before = dag_util.fit_and_transform_dag(cut.before, data,
-                                                listener=layer_timer("before:"))
+                                                listener=layer_timer("before:"),
+                                                responses=self._response_names())
         selector = cut.model_selector
         feature_layers = [layer for layer in cut.during
                           if not (len(layer) == 1 and layer[0] is selector)]
@@ -136,6 +145,7 @@ class OpWorkflow:
             selector.find_best_estimator_cv(feature_layers, before.train)
             self.train_timings["workflow_cv"] = time.perf_counter() - t0
         rest = dag_util.fit_and_transform_dag(cut.during + cut.after, before.train,
-                                              listener=layer_timer("final:"))
+                                              listener=layer_timer("final:"),
+                                              responses=self._response_names())
         return dag_util.FittedDAG(train=rest.train,
                                   fitted_stages=before.fitted_stages + rest.fitted_stages)
