@@ -307,7 +307,33 @@ Phases, each printing its findings on a line of its own:
                0, the breakdown, the executor's counters and a profiled run;
 47. simple score -- the trained model's ``score`` of ``--rows`` rows (one
                streamed run of the scoring DAG; rows/s) and p50 of
-               ``BatchScoreFunction`` at 1, 64 and 1,024 records.
+               ``BatchScoreFunction`` at 1, 64 and 1,024 records;
+48. collapse reference -- round-collapsed boosting on the reference frames
+               against the JAX package's fixtures: the Titanic stock space
+               under ``TMOG_GBT_ROUND_COLLAPSE=4`` (50 steps of 10 levels for
+               the XGB fragment) and the collapsed XGB-only space
+               (``trees_per_round=4``, draws at 0.8) against
+               ``fixtures/titanic_collapse`` (the JAX package's winner, XGB
+               fold AuPR within ``FX.COLLAPSE_XGB_AUPR_TOL``), the JAX-saved
+               collapsed model's 256 answers and the port-saved winner's, Iris
+               XGB at K = 4 (every fold Error bit-equal) and Boston's stock
+               space under K = 4 (fold RMSE within ``FX.BOSTON_RMSE_RTOL``);
+49. collapse train -- the Titanic stock space on ``--train-rows`` rows at
+               K = 4 and K = 1 in turn (walls, grower levels, idle shares,
+               peak device memory), then Iris XGB and Boston's stock space at
+               K = 4: each collapse mode's launch count above 0 on its path;
+50. collapse kernels -- K-H's collapse mode (logistic, squared) and K-R's on
+               a collapsed step of those trains' real inputs against their
+               plain versions (margins bit-equal), timed beside their bounds;
+51. branches reference -- the Titanic stock space under the multiclass
+               selector (a two-class label) and under the binary selector's
+               train/validation split, against ``fixtures/titanic_branches``
+               (``FX.check_titanic_branches_train``), and the calibration,
+               log-loss and forecast evaluators on their scores;
+52. logistic sweep -- ``parallel/sweep.sharded_logistic_sweep`` on the
+               ``--train-rows`` Titanic vector (3 folds, 8 l2 values) with
+               K-AE's launches counted, and K-AE against its plain version,
+               timed beside its bound and ``torch.matmul`` of the margins.
 
 The line before the last holds the kernels' JSON record, then the card's
 name and power limit; the last line is ``{"ok": true, "device": ...}``.  Any
@@ -2888,6 +2914,9 @@ def layer_kernel_phase(torch, inputs, timer, dev="cuda"):
                    "bound_ms": bd, "bound_by": by, "library_ms": None}
             extra[f"numeric_op {op}{' binary' if binary else ''}"] = row
             if op == "plus" and binary:
+                # the library yardstick: one torch.add of the values (the
+                # kernel also ANDs the masks)
+                row["library_ms"] = timer(lambda: torch.add(av, bv))
                 records.append(dict(
                     name="numeric_op", route="cuda",
                     source="transmogrifai_tpu_torch/csrc/fused_layer.cu",
@@ -3884,6 +3913,390 @@ def slice11_phases(torch, titanic, FX, args, timer, dev="cuda"):
     return records, dict(wide_launches, numeric_scale=scale_launches,
                          column_affine=affine_launches)
 
+# ---------------------------------------------------------------------------
+# slice 12: round-collapsed boosting (the collapse modes of K-H and K-R), the
+# selectors' branches, the logistic grid sweep (K-AE)
+# ---------------------------------------------------------------------------
+#: the collapse modes' gradients against their plain versions on the card:
+#: the same float32 operations, libdevice's expf in both (logistic: the
+#: host's expf in the plain version may differ by an ulp); 2 ulp of 1
+COLLAPSE_GRAD_ATOL = 2 * BOOST_GRAD_ATOL
+#: the l2 grid of the logistic sweep phase
+SWEEP_L2 = (0.0, 0.001, 0.01, 0.05, 0.1, 0.2, 0.5, 1.0)
+
+
+@contextlib.contextmanager
+def round_collapse(k):
+    """``TMOG_GBT_ROUND_COLLAPSE`` (the boosted models' default collapse
+    factor) set to ``k`` inside the block, unset for None; restored after."""
+    import os
+
+    old = os.environ.pop("TMOG_GBT_ROUND_COLLAPSE", None)
+    if k is not None:
+        os.environ["TMOG_GBT_ROUND_COLLAPSE"] = str(k)
+    try:
+        yield
+    finally:
+        os.environ.pop("TMOG_GBT_ROUND_COLLAPSE", None)
+        if old is not None:
+            os.environ["TMOG_GBT_ROUND_COLLAPSE"] = old
+
+
+def collapse_spaces():
+    """The slice's spaces (fresh estimators each call): the collapsed
+    XGB-only Titanic space of ``fixtures/titanic_collapse``, the Iris XGB
+    space at K = 4, and the binary selector's stock space."""
+    from transmogrifai_tpu_torch.impl.classification.logistic import OpLogisticRegression
+    from transmogrifai_tpu_torch.impl.classification.trees import (OpRandomForestClassifier,
+                                                                   OpXGBoostClassifier)
+    from transmogrifai_tpu_torch.impl.selector import defaults as D
+
+    return {
+        "titanic_xgb": [(OpXGBoostClassifier(trees_per_round=4, subsample=0.8,
+                                             colsample_bytree=0.8), D.xgboost_grid())],
+        "iris_xgb": [(OpXGBoostClassifier(trees_per_round=4), D.xgboost_grid())],
+        "stock": [(OpLogisticRegression(max_iter=50), D.logistic_regression_grid()),
+                  (OpRandomForestClassifier(), D.random_forest_grid()),
+                  (OpXGBoostClassifier(), D.xgboost_grid())],
+    }
+
+
+def collapse_reference_phase(torch, titanic, iris, boston, FX, dev="cuda"):
+    """Phase 48: the collapsed trains on the reference frames against the
+    fixtures (the Titanic stock space under K = 4, the collapsed XGB-only
+    space with draws at 0.8, Iris XGB at K = 4, Boston's stock space under
+    K = 4), the JAX-saved collapsed model's 256 answers, and the port-saved
+    winner served."""
+    import tempfile
+
+    import transmogrifai_tpu_torch as P
+    from transmogrifai_tpu_torch.ops import sweep as S
+
+    out = {}
+    with round_collapse(4):
+        (stock, wf), wall, calls = timed_train(torch, lambda: titanic.train_titanic(device=dev))
+    chain = S.gbt_chain(calls[0][0].spec)
+    check(chain == {"steps": 50, "levels": 500}, f"the stock XGB chain at K = 4 is {chain}")
+    summ = stock.stages[-1].summary
+    out["titanic_stock"] = {"wall_s": wall, "gbt_chain": chain, "best": summ.best_model_name,
+                            "best_grid": summ.best_grid,
+                            "fold_aupr_max_gap": FX.check_titanic_collapse_train(stock, "stock"),
+                            "timings_s": wf.train_timings}
+    with round_collapse(None):
+        (xgb, xwf), xwall, _ = timed_train(torch, lambda: titanic.train_titanic(
+            device=dev, models_and_parameters=collapse_spaces()["titanic_xgb"]))
+    gaps = FX.check_titanic_collapse_train(xgb, "xgb")
+    params = xgb.stages[-1].model_params
+    eta = float(xgb.stages[-1].summary.best_grid.get("eta", 0.3))
+    check(abs(float(params["eta"]) - eta / 4) <= 1e-7 * eta,
+          f"the collapsed refit stores eta {params['eta']}, not {eta} / 4")
+    req = FX.load_columns(FX.TITANIC_COLLAPSE + "/requests.npz")
+    exp = FX.load_expected(FX.TITANIC_COLLAPSE + "/expected.npz")
+    pred, prob, raw, Xb, F = FX.port_answers(P.load_model(FX.TITANIC_COLLAPSE, device=dev), req)
+    fixture_gaps = FX.compare(exp, pred, prob, raw, Xb=Xb, F=F)
+    off = np.abs(np.asarray(exp["F"], np.float64)[:, 0]) >= FX.BOUNDARY
+    with tempfile.TemporaryDirectory() as tmp:
+        xgb.save(tmp)
+        pred, prob, raw, Xb, F = FX.port_answers(P.load_model(tmp, device=dev), req)
+    out["titanic_xgb"] = {
+        "wall_s": xwall, "best_grid": xgb.stages[-1].summary.best_grid, "fold_aupr_max_gap": gaps,
+        "stored_eta": float(params["eta"]), "fixture_model_vs_expected": fixture_gaps,
+        "port_saved_model_vs_expected": {
+            "prediction_mismatches_off_boundary": int(np.sum(pred[off] != exp["prediction"][off])),
+            "probability_max_abs_err": float(np.max(np.abs(prob - exp["probability"]))),
+            "margin_max_abs_err": float(np.max(np.abs(F - exp["F"])))},
+        "timings_s": xwf.train_timings}
+    with round_collapse(None):
+        (im, iwf), iwall, _ = timed_train(torch, lambda: iris.train_iris(
+            device=dev, models_and_parameters=collapse_spaces()["iris_xgb"]))
+    out["iris_xgb"] = {"wall_s": iwall, **FX.check_iris_collapse_train(im),
+                       "fold_errors_bit_equal": True,
+                       "best_grid": im.stages[-1].summary.best_grid}
+    with round_collapse(4):
+        (bm, bwf), bwall, _ = timed_train(torch, lambda: boston.train_boston(device=dev))
+    out["boston_stock"] = {"wall_s": bwall, "fold_rmse_max_rel_gap": FX.check_boston_collapse_train(bm),
+                           "best": bm.stages[-1].summary.best_model_name,
+                           "best_grid": bm.stages[-1].summary.best_grid}
+    log("collapse_reference", **out)
+
+
+def collapse_train_phase(torch, titanic, iris, boston, args, dev="cuda"):
+    """Phase 49: the Titanic stock train on ``--train-rows`` rows at K = 4
+    and K = 1 in turn (walls, grower level counts, the device's idle share
+    by a profiled second run, peak device memory), then Iris XGB and
+    Boston's stock space at K = 4 on ``--train-rows`` rows.  Each collapse
+    mode's launch count is reset just before its train and read just after.
+    Returns (the collapse modes' launches, each train's first sweep call)."""
+    from transmogrifai_tpu_torch.ops import sweep as S
+    from transmogrifai_tpu_torch.ops import trees as Tr
+
+    kernels = (Tr.boost_step, Tr.softmax_boost_step, Tr.level_hist, Tr.split_scan,
+               Tr.route_rows)
+
+    def reset():
+        zero_launches(kernels)
+        Tr.boost_step.collapse_launches = Tr.softmax_boost_step.collapse_launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+
+    cols = titanic.titanic_data(args.train_rows, args.seed)
+    runs, calls = {}, {}
+    for k in (4, 1):
+        reset()
+        with round_collapse(k):
+            (model, wf), wall, rec = timed_train(torch, lambda: titanic.train_titanic(
+                cols, device=dev))
+            peak = torch.cuda.max_memory_allocated()
+            launches = {fn.__name__: fn.launches for fn in kernels}
+            launches["boost_step_collapse"] = Tr.boost_step.collapse_launches
+            prof_wall, busy_s, idle, by_kernel = profiled(
+                torch, lambda: titanic.train_titanic(cols, device=dev))
+        summ = model.stages[-1].summary
+        folds = [m for r in summ.validation_results for m in r["foldMetrics"]]
+        check(len(folds) == 84 and all(np.isfinite(folds)) and min(folds) > 0.5,
+              f"bad fold AuPR at K = {k}: {folds}")
+        runs[f"K{k}"] = {
+            "wall_s": wall, "gbt_chain": S.gbt_chain(rec[0][0].spec), "launches": launches,
+            "peak_device_bytes": int(peak), "profiled_train_s": prof_wall,
+            "device_busy_s": busy_s, "device_idle_share": idle, "device_s_by_kernel": by_kernel,
+            "best": summ.best_model_name, "best_grid": summ.best_grid,
+            "xgb_fold_aupr": [r["foldMetrics"] for r in summ.validation_results
+                              if r["modelName"] == "OpXGBoostClassifier"],
+            "host_clock_s": dict(wf.train_timings)}
+        if k == 4:
+            calls["logistic"] = rec[0]
+    check(runs["K4"]["launches"]["boost_step_collapse"] > 0
+          and runs["K1"]["launches"]["boost_step_collapse"] == 0,
+          "the collapse mode of K-H ran where it should not, or not where it should")
+    check(runs["K4"]["gbt_chain"]["levels"] * 4 == runs["K1"]["gbt_chain"]["levels"],
+          f"grower levels {runs['K4']['gbt_chain']} against {runs['K1']['gbt_chain']}")
+    launches = {"boost_step_collapse": runs["K4"]["launches"]["boost_step_collapse"]}
+    reset()
+    with round_collapse(None):
+        (im, _), iwall, rec = timed_train(torch, lambda: iris.train_iris(
+            iris.iris_data(args.train_rows, args.seed), device=dev,
+            models_and_parameters=collapse_spaces()["iris_xgb"]))
+    launches["softmax_boost_step_collapse"] = Tr.softmax_boost_step.collapse_launches
+    calls["softmax"] = rec[0]
+    ifolds = [m for r in im.stages[-1].summary.validation_results for m in r["foldMetrics"]]
+    check(all(np.isfinite(ifolds)) and max(ifolds) < 0.5, f"bad Iris fold Errors {ifolds}")
+    reset()
+    with round_collapse(4):
+        (bm, _), bwall, rec = timed_train(torch, lambda: boston.train_boston(
+            boston.boston_data(args.train_rows, args.seed), device=dev))
+    launches["boost_step_collapse_squared"] = Tr.boost_step.collapse_launches
+    calls["squared"] = rec[0]
+    bfolds = [m for r in bm.stages[-1].summary.validation_results for m in r["foldMetrics"]]
+    check(all(np.isfinite(bfolds)) and min(bfolds) > 0, f"bad Boston fold RMSE {bfolds}")
+    missing = [k for k, v in launches.items() if v <= 0]
+    check(not missing, f"collapse modes not launched on their paths: {missing}")
+    log("collapse_train", rows=args.train_rows, titanic_stock=runs, iris_xgb_k4_wall_s=iwall,
+        iris_fold_errors=ifolds, boston_stock_k4_wall_s=bwall,
+        boston_best=bm.stages[-1].summary.best_model_name, launches=launches)
+    return launches, calls
+
+
+def collapse_step_inputs(torch, call, dev="cuda"):
+    """The real inputs of a collapsed step of a sweep call's first collapsed
+    gbt group: step 0's gradients (the collapse mode without an update) and
+    its B K trees grown, then step 1's subsample rows.  Returns (loss, c,
+    F, y, w, eta, leaf, row_node, rw, B, K)."""
+    from transmogrifai_tpu_torch.ops import trees as Tr
+
+    plan, train_w = call[0], call[1]
+    frag, group = next((f, g) for f in plan.spec[1] if f[0] == "gbt" for g in f[3] if g[11] > 1)
+    loss, c = frag[1], frag[2]
+    (cis, rounds, depth, xb_idx, n_bins, subsample, colsample, seed, frontier, exact,
+     fold_base, K, off_eta, off_lam, off_gam, off_mcw, off_mig) = group
+    y, blob = plan.y, np.asarray(plan.blob, np.float32)
+    tw = torch.as_tensor(np.asarray(train_w, np.float32), device=dev)
+    Xb = plan.xbs[xb_idx]
+    n, d = Xb.shape
+    F, Gc = tw.shape[0], len(cis)
+    B = F * Gc
+    w_b = tw.repeat_interleave(Gc, dim=0).contiguous()
+    hp = lambda off: torch.as_tensor(np.tile(blob[off:off + Gc], F), device=dev)  # noqa: E731
+    eta = hp(off_eta)
+    params = torch.stack([torch.clamp_min(hp(off_lam), 1e-6), hp(off_gam), hp(off_mcw),
+                          hp(off_mig)], 1).repeat_interleave(K, dim=0)
+    ks, kf = Tr.rng_keys(seed)
+    rw = Tr.subsample_weights(ks, n, rounds, subsample, dev)
+    fms = Tr.feature_masks(kf, d, rounds, colsample, dev)
+    base = ((y[None] * tw).sum(1) / torch.clamp_min(tw.sum(1), 1e-12) if fold_base
+            else torch.zeros(F, device=dev)).repeat_interleave(Gc)
+    Fm = base[:, None].expand(B, n) if loss != "softmax" else base[:, None, None].expand(B, n, c)
+    Fm = Fm.contiguous()
+    ghw = torch.empty((B * K, n, c + 1), device=dev)
+    step = Tr.softmax_boost_step if loss == "softmax" else (
+        lambda *a: Tr.boost_step(*a[:7], loss, a[7]))
+    step(Fm, y, w_b, eta, None, None, ghw, rw[:K].contiguous())
+    fm0 = fms[:K][None].expand(B, -1, -1).reshape(B * K, d).contiguous()
+    _, leaf, row_node = Tr.grow_trees(Xb, ghw, fm0, params, depth, n_bins, frontier, exact)
+    return loss, c, Fm, y, w_b, eta, leaf, row_node, rw[K:2 * K].contiguous(), B, K
+
+
+def collapse_kernel_phase(torch, calls, timer, dev="cuda"):
+    """Phase 50: the collapse modes of K-H (logistic: the Titanic stock
+    train's XGB group at K = 4; squared: the Boston train's GBT group) and
+    K-R (the Iris XGB group) against their plain versions on a collapsed
+    step of their trains' real inputs, with time, bound and plain time."""
+    from transmogrifai_tpu_torch.ops import trees as Tr
+
+    records, extra = [], {}
+    for name, key in (("boost_step_collapse", "logistic"),
+                      ("boost_step_collapse_squared", "squared"),
+                      ("softmax_boost_step_collapse", "softmax")):
+        loss, c, Fm, y, w, eta, leaf, row_node, rw, B, K = collapse_step_inputs(
+            torch, calls[key], dev)
+        n = y.shape[0]
+        F1, F2 = Fm.clone(), Fm.clone()
+        g1 = torch.empty((B * K, n, c + 1), device=dev)
+        g2 = torch.empty_like(g1)
+        if loss == "softmax":
+            run = lambda: Tr.softmax_boost_step(F1, y, w, eta, leaf, row_node, g1, rw)  # noqa
+            plain = lambda: Tr.softmax_boost_step_plain(F2, y, w, eta, leaf, row_node, g2, rw)  # noqa
+        else:
+            run = lambda: Tr.boost_step(F1, y, w, eta, leaf, row_node, g1, loss, rw)  # noqa
+            plain = lambda: Tr.boost_step_plain(F2, y, w, eta, leaf, row_node, g2, loss, rw)  # noqa
+        run()
+        plain()
+        torch.cuda.synchronize()
+        check(torch.equal(F1, F2), f"{name}: margins differ from plain")
+        err = float((g1 - g2).abs().max())
+        check(err <= (0.0 if loss == "squared" else COLLAPSE_GRAD_ATOL),
+              f"{name}: gradients {err} from plain")
+        P_ = leaf.shape[1]
+        # per (element, row): F read and written (c floats each way), w read;
+        # per (tree, row): its node read, c + 1 gradients written; y and the
+        # K subsample rows once; the leaf pools once (the gathered leaf rows
+        # come from them, as in K-R's bound).  Operations: the K-term sums
+        # and the update (2 K c), ~30 a channel for the gradients, 2 (c + 1)
+        # a tree for the weighting
+        b, by = bound_ms(B * n * (8 * c + 4) + B * K * n * (4 + 4 * (c + 1))
+                         + n * 4 * (1 + K) + B * K * P_ * c * 4,
+                         B * n * (2 * K * c + 30 * c + 2 * K * (c + 1)))
+        ms = timer(run)
+        plain_ms = timer(plain)
+        records.append(dict(
+            name=name, route="triton", source="transmogrifai_tpu_torch/ops/triton_boost.py",
+            replaces=("transmogrifai_tpu/ops/trees.py:1181" if key != "softmax"
+                      else "transmogrifai_tpu/ops/trees.py:1327"),
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by,
+            library_ms=None))
+        extra[name] = {"B": B, "K": K, "n": n, "c": c, "pool": P_}
+        del F1, F2, g1, g2, leaf, row_node
+    log("collapse_kernels", shapes=extra,
+        **{r["name"]: {k: r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                         "max_abs_err")} for r in records})
+    return records
+
+
+def branches_reference_phase(torch, titanic, FX, dev="cuda"):
+    """Phase 51: the Titanic flow over the stock space under the multiclass
+    selector (a two-class label) and under the binary selector's
+    train/validation split, on the 891-row frame, held to
+    ``fixtures/titanic_branches``; the calibration, log-loss and forecast
+    evaluators on each train's scores of the frame."""
+    from transmogrifai_tpu_torch import evaluators as E
+    from transmogrifai_tpu_torch.ops import metrics as M
+
+    out = {}
+    cols = titanic.titanic_data()
+    y = np.asarray(cols["Survived"], np.float64)
+    for sel in ("multiclass", "split"):
+        zero_launches((M.multiclass_metrics, M.binary_metrics))
+        with round_collapse(None), SweepCalls() as rec:
+            t = time.perf_counter()
+            model, wf = titanic.train_titanic(device=dev, selector=sel,
+                                              models_and_parameters=collapse_spaces()["stock"])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+        metrics = np.stack([np.asarray(c[3]) for c in rec.calls])
+        gaps = FX.check_titanic_branches_train(
+            model, sel, metrics, (np.asarray(rec.calls[0][1]), np.asarray(rec.calls[0][2])))
+        launches = {"multiclass_metrics": M.multiclass_metrics.launches,
+                    "binary_metrics": M.binary_metrics.launches}
+        check(launches["multiclass_metrics" if sel == "multiclass" else "binary_metrics"] > 0,
+              f"the {sel} train's metrics kernel did not launch")
+        scored = model.score(cols)[model.result_features[0].name]
+        prob = np.asarray(scored.probability, np.float64)
+        evals = {"BrierScore": E.OpBinScoreEvaluator().evaluate_arrays(
+                     y, scored.prediction, prob)["BrierScore"],
+                 "LogLoss": E.OpLogLoss().evaluate_arrays(y, scored.prediction, prob)["LogLoss"],
+                 "SMAPE": E.OpForecastEvaluator().evaluate_arrays(y, prob[:, 1])["SMAPE"]}
+        check(all(np.isfinite(v) for v in evals.values()), f"evaluators {evals}")
+        summ = model.stages[-1].summary
+        out[sel] = {"wall_s": wall, "best": summ.best_model_name, "best_grid": summ.best_grid,
+                    "metric": summ.evaluation_metric, "fold_metric_max_gap": gaps,
+                    "sweep_calls": len(rec.calls), "launches": launches, "evaluators": evals,
+                    "timings_s": wf.train_timings}
+    log("branches_reference", **out)
+
+
+def logistic_sweep_phase(torch, call, timer, dev="cuda"):
+    """Phase 52: ``sharded_logistic_sweep`` end to end (3 folds, the 8
+    ``SWEEP_L2`` values) on the collapsed Titanic train's checked vector at
+    ``--train-rows`` rows, K-AE's launches counted, then K-AE against its
+    plain version on the sweep's own fits (rows whose float64 margin lies
+    within float32 rounding of 0 may fall either way: counted and allowed),
+    with ``torch.matmul`` of the margins alone as the library yardstick."""
+    from transmogrifai_tpu_torch.parallel import sweep as PS
+
+    plan = call[0]
+    X, y = plan.X.contiguous(), plan.y.contiguous()
+    n, d = X.shape
+    l2 = np.asarray(SWEEP_L2, np.float32)
+    Xn, yn = X.cpu().numpy(), y.cpu().numpy()
+    PS.eval_logistic_grid_folds.launches = 0
+    t = time.perf_counter()
+    mean_err, coef, b = PS.sharded_logistic_sweep(Xn, yn, l2, n_folds=3, device=dev)
+    wall = time.perf_counter() - t
+    launches = PS.eval_logistic_grid_folds.launches
+    check(launches > 0, "K-AE did not launch in sharded_logistic_sweep")
+    check(np.all(np.isfinite(mean_err)) and mean_err.min() >= 0 and mean_err.max() < 0.5,
+          f"bad mean errors {mean_err}")
+    _, val_w = PS.make_fold_weights(n, 3, 42, yn)
+    vw = torch.as_tensor(val_w, device=dev)
+    cd, bd = torch.as_tensor(coef, device=dev), torch.as_tensor(b, device=dev)
+    got = PS.eval_logistic_grid_folds(X, y, vw, cd, bd)
+    want = PS.eval_logistic_grid_folds_plain(X, y, vw, cd, bd)
+    z = torch.einsum("nd,fgd->fgn", X.double(), cd.double()) + bd.double()
+    scale = torch.einsum("nd,fgd->fgn", X.double().abs(), cd.double().abs()) + bd.double().abs()
+    near = ((z.abs() <= (d + 2) * 2.0 ** -23 * scale) * vw[:, None].double()).sum(-1)
+    allowed = near / torch.clamp_min(vw.double().sum(-1), 1.0)[:, None]
+    gap = (got.double() - want.double()).abs()
+    check(bool((gap <= allowed + 1e-7).all()), f"K-AE {float(gap.max())} from plain beyond "
+                                               f"the near-zero rows' {float(allowed.max())}")
+    F_, G = cd.shape[:2]
+    c2 = cd.reshape(F_ * G, d)
+    b_, by = bound_ms(n * d * 4 + n * 4 + F_ * n * 4 + F_ * G * (d + 2) * 4,
+                      2 * n * d * F_ * G)
+    rec = dict(name="logistic_grid_error", route="cuda",
+               source="transmogrifai_tpu_torch/csrc/logistic_eval.cu",
+               replaces="transmogrifai_tpu/parallel/sweep.py:77", launches=launches,
+               max_abs_err=float(gap.max()),
+               ms=timer(lambda: PS.eval_logistic_grid_folds(X, y, vw, cd, bd)),
+               plain_ms=timer(lambda: PS.eval_logistic_grid_folds_plain(X, y, vw, cd, bd)),
+               bound_ms=b_, bound_by=by, library_ms=timer(lambda: torch.matmul(X, c2.T)))
+    log("logistic_sweep", rows=n, features=d, folds=3, l2=list(SWEEP_L2), wall_s=wall,
+        mean_val_error=mean_err.tolist(), launches=launches,
+        near_zero_rows=int((z.abs() <= (d + 2) * 2.0 ** -23 * scale).sum()),
+        **{k: rec[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                               "max_abs_err")})
+    return rec
+
+
+def slice12_phases(torch, titanic, iris, boston, FX, args, timer, dev="cuda"):
+    """Phases 48-52.  Returns (the records, their launches on their main
+    paths)."""
+    collapse_reference_phase(torch, titanic, iris, boston, FX, dev)
+    launches, calls = collapse_train_phase(torch, titanic, iris, boston, args, dev)
+    records = collapse_kernel_phase(torch, calls, timer, dev)
+    branches_reference_phase(torch, titanic, FX, dev)
+    sweep_record = logistic_sweep_phase(torch, calls["logistic"], timer, dev)
+    launches["logistic_grid_error"] = sweep_record.pop("launches")
+    return records + [sweep_record], launches
+
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -4093,6 +4506,11 @@ def main(argv=None):
     # OpTitanicSimple flow (K-AC, K-AD)
     slice11_records, slice11_launches = slice11_phases(torch, titanic, FX, args, timer)
 
+    # 48-52. round-collapsed boosting (the collapse modes of K-H and K-R), the
+    # selectors' branches, the logistic grid sweep (K-AE)
+    slice12_records, slice12_launches = slice12_phases(torch, titanic, iris, boston, FX, args,
+                                                       timer)
+
     for r in records:
         r["launches"] = launches[r["name"]]
     for r in train_records:
@@ -4113,9 +4531,11 @@ def main(argv=None):
         r["launches"] = text_launches[r["name"]]
     for r in slice11_records:
         r["launches"] = slice11_launches[r["name"]]
+    for r in slice12_records:
+        r["launches"] = slice12_launches[r["name"]]
     records += (train_records + boston_records + iris_records + slice6_records
                 + families_records + kw_records + glm_records + stream_records + text_records
-                + slice11_records)
+                + slice11_records + slice12_records)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in records]}), flush=True)

@@ -1037,3 +1037,109 @@ def test_streamed_run_waits_for_device_inputs_written_on_the_callers_stream(dev,
     got = S.apply_streamed(on_card(late), layers)[name].values
     torch.cuda.synchronize()
     assert torch.equal(got.cpu(), want)
+
+
+# ---------------------------------------------------------------------------
+# round-collapsed boosting: the collapse modes of K-H and K-R; K-AE
+# ---------------------------------------------------------------------------
+def _collapse_inputs(dev, B, K, n, P, c, loss, seed):
+    rng = np.random.default_rng(seed)
+    shape = (B, n) if c == 0 else (B, n, c)
+    lshape = (B * K, P) if c == 0 else (B * K, P, c)
+    F = rng.normal(size=shape).astype(np.float32) * 2
+    if loss == "squared":
+        F += 20.0
+        y = (20.0 + 9.0 * rng.normal(size=n)).astype(np.float32)
+    elif loss == "softmax":
+        y = rng.integers(0, c, n).astype(np.float32)
+    else:
+        y = (rng.random(n) < 0.4).astype(np.float32)
+    t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    return (t(F), t(y), t(rng.integers(0, 3, size=(B, n)).astype(np.float32)),
+            t(rng.random(B).astype(np.float32)),
+            t(rng.normal(size=lshape).astype(np.float32)),
+            t(rng.integers(0, P, size=(B * K, n)).astype(np.int32)),
+            t((rng.random((K, n)) < 0.8).astype(np.float32)))
+
+
+@pytest.mark.parametrize("loss", ["logistic", "squared"])
+@pytest.mark.parametrize("K,update", [(2, True), (3, True), (4, True), (4, False), (8, True),
+                                      (16, True), (6, True), (32, True), (64, True)])
+def test_boost_step_collapse_mode_matches_plain(dev, loss, K, update):
+    B, n, P = 6, 10007, 63
+    F, y, w, eta, leaf, node, rw = _collapse_inputs(dev, B, K, n, P, 0, loss, K)
+    upd = (leaf, node) if update else (None, None)
+    F1, F2 = F.clone(), F.clone()
+    g1, g2 = (torch.empty((B * K, n, 2), device=dev) for _ in range(2))
+    before = Tr.boost_step.collapse_launches
+    _counted(Tr.boost_step, lambda: Tr.boost_step(F1, y, w, eta, *upd, g1, loss, rw))
+    assert Tr.boost_step.collapse_launches == before + 1
+    Tr.boost_step_plain(F2, y, w, eta, *upd, g2, loss, rw)
+    assert torch.equal(F1, F2)  # XLA's sum order, one fused multiply-add in both
+    if loss == "squared":
+        assert torch.equal(g1, g2)
+    else:  # expf of libdevice and of the host may differ by an ulp
+        torch.testing.assert_close(g1, g2, rtol=1e-6, atol=2e-7)
+    # the last update of a fit: no gradients
+    Tr.boost_step(F1, y, w, eta, leaf, node, None, loss, rw)
+    Tr.boost_step_plain(F2, y, w, eta, leaf, node, None, loss, rw)
+    assert torch.equal(F1, F2)
+
+
+@pytest.mark.parametrize("k,K", [(3, 4), (3, 2), (5, 3), (8, 4), (3, 16), (8, 32)])
+def test_softmax_boost_step_collapse_mode_matches_plain(dev, k, K):
+    B, n, P = 4, 20011, 63
+    F, y, w, eta, leaf, node, rw = _collapse_inputs(dev, B, K, n, P, k, "softmax", k + K)
+    F1, F2 = F.clone(), F.clone()
+    g1, g2 = (torch.empty((B * K, n, k + 1), device=dev) for _ in range(2))
+    _counted(Tr.softmax_boost_step,
+             lambda: Tr.softmax_boost_step(F1, y, w, eta, leaf, node, g1, rw))
+    Tr.softmax_boost_step_plain(F2, y, w, eta, leaf, node, g2, rw)
+    assert torch.equal(F1, F2)
+    torch.testing.assert_close(g1, g2, rtol=0, atol=2.4e-7 * 2)
+
+
+def test_collapse_fit_on_the_card_matches_plain(dev):
+    """``fit_gbt`` at K = 4 through the collapse kernel and the growers on
+    the card against the same fit on the CPU (integer weights: the
+    histogram sums are exact on both)."""
+    rng = np.random.default_rng(3)
+    n, d, R = 3000, 6, 8
+    Xb = rng.integers(0, 16, (n, d)).astype(np.int8)
+    y = ((Xb[:, 0] - 0.6 * Xb[:, 1] + rng.standard_normal(n) * 2) > 0).astype(np.float32)
+    rw = (rng.random((R, n)) < 0.8).astype(np.float32)
+    fm = (rng.random((R, d)) < 0.8).astype(np.float32)
+    w = rng.integers(1, 3, n).astype(np.float32)
+    out = []
+    for where in (dev, torch.device("cpu")):
+        t = lambda a: torch.from_numpy(a).to(where)  # noqa: E731
+        tree, F = Tr.fit_gbt(t(Xb), t(y), t(w), t(rw), t(fm), "logistic", R, 3, 16, 8,
+                             eta=0.3, trees_per_round=4)
+        out.append((tree.split_feat.cpu(), F.cpu()))
+    assert torch.equal(out[0][0], out[1][0])
+    torch.testing.assert_close(out[0][1], out[1][1], rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("n,d,F,G", [(1, 3, 1, 1), (10007, 11, 3, 8), (262144, 11, 3, 8),
+                                     (5000, 85, 3, 8), (3000, 600, 2, 40)])
+def test_logistic_grid_error_matches_plain(dev, n, d, F, G):
+    from transmogrifai_tpu_torch.parallel import sweep as S
+
+    rng = np.random.default_rng(n + d)
+    t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    X = t(rng.normal(size=(n, d)).astype(np.float32))
+    y = t((rng.random(n) < 0.4).astype(np.float32))
+    val_w = t((rng.random((F, n)) < 0.33).astype(np.float32))
+    coef = t(rng.normal(size=(F, G, d)).astype(np.float32))
+    b = t(rng.normal(size=(F, G, 1)).astype(np.float32))
+    got = _counted(S.eval_logistic_grid_folds,
+                   lambda: S.eval_logistic_grid_folds(X, y, val_w, coef, b))
+    want = S.eval_logistic_grid_folds_plain(X, y, val_w, coef, b)
+    # rows whose margin lies within float32 rounding of 0 may fall on either
+    # side (the plain product sums in cuBLAS's order, the kernel in feature
+    # order): allow exactly those, counted from a float64 margin
+    z = (torch.einsum("nd,fgd->fgn", X.double(), coef.double()) + b.double())
+    scale = torch.einsum("nd,fgd->fgn", X.double().abs(), coef.double().abs()) + b.double().abs()
+    near = ((z.abs() <= 4 * d * 2.0 ** -24 * scale) * val_w[:, None].double()).sum(-1)
+    den = torch.clamp_min(val_w.double().sum(-1), 1.0)[:, None]
+    assert ((got.double() - want.double()).abs() <= near / den + 1e-7).all()

@@ -7,7 +7,9 @@ package, and no silent CPU fallback.
   check and the streamed statistics; the text flow's Word2Vec and LDA, and
   the JAX-saved text model's scores; the OpTitanicSimple flow through the
   streaming executor at a lowered threshold, and the JAX-saved
-  OpTitanicSimple model's scores), each case in a fresh interpreter at one
+  OpTitanicSimple model's scores; round-collapsed XGBoost under the
+  multiclass selector, the train/validation split and
+  ``parallel/sweep.sharded_logistic_sweep``), each case in a fresh interpreter at one
   thread with its own time limit, leave no ``jax*``, ``pandas*`` or
   ``transmogrifai_tpu[.*]`` module loaded.
 - A scan of the port's sources finds no such import; pandas appears only
@@ -115,6 +117,23 @@ assert len(simple.score(titanic.titanic_data(200, 2))) == 200
 sm = P.load_model(FX.TITANIC_SIMPLE, device="cpu")
 assert len(P.BatchScoreFunction(sm)(FX.records(FX.load_columns(
     FX.TITANIC_SIMPLE + "/requests.npz"))[:4])) == 4
+""", 180),
+    "collapse_branches_sweep": (r"""
+import os
+from transmogrifai_tpu_torch.impl.classification.trees import OpXGBoostClassifier
+from transmogrifai_tpu_torch.parallel import sweep as PS
+os.environ["TMOG_GBT_ROUND_COLLAPSE"] = "2"
+grid = [{"num_round": 4, "max_depth": 2, "subsample": 0.8}]
+m, _ = titanic.train_titanic(titanic.titanic_data(120, 1), device="cpu", selector="multiclass",
+                             models_and_parameters=[(OpXGBoostClassifier(), grid)])
+assert abs(float(m.stages[-1].model_params["eta"]) - 0.15) < 1e-9
+s, _ = titanic.train_titanic(titanic.titanic_data(120, 1), device="cpu", selector="split",
+                             models_and_parameters=[(OpLogisticRegression(), [{"reg_param": 0.01}])])
+assert s.stages[-1].summary.validation_type.endswith("OpTrainValidationSplit")
+X = np.random.default_rng(0).normal(size=(200, 4)).astype(np.float32)
+err, _, _ = PS.sharded_logistic_sweep(X, (X[:, 0] > 0).astype(np.float32),
+                                      np.array([0.1], np.float32), device="cpu")
+assert err.shape == (1,)
 """, 180),
 }
 

@@ -355,8 +355,9 @@ def test_multiclass_plan_refusals():
     # softmax boosting fuses now: a "gbt" fragment over three class margins
     plan = PSF.build_sweep_plan([(OpXGBoostClassifier(), [{}])], _t(X), y, tw, ev)
     assert plan.spec[1][0][:3] == ("gbt", "softmax", 3)
-    with pytest.raises(NotImplementedError, match="two-class label"):
-        PSF.build_sweep_plan([(PRF(), [{}])], _t(X), (y > 0).astype(np.float32), tw, ev)
+    # a two-class label trains the binary kernels (tests/test_torch_selector_branches.py)
+    two = PSF.build_sweep_plan([(PRF(), [{}])], _t(X), (y > 0).astype(np.float32), tw, ev)
+    assert two.spec[0] == ("multiclass", 2) and two.spec[1][0][:2] == ("forest", 1)
     with pytest.raises(NotImplementedError, match="at most 8 classes"):
         PSF.build_sweep_plan([(PRF(), [{}])], _t(X), np.arange(60.0) % 9, tw, ev)
     # the F1 metric is on the device too; a label outside 0..63 is not

@@ -311,7 +311,7 @@ def test_fit_gbt_batch_matches_jax():
     np.testing.assert_allclose(Fp.numpy(), np.asarray(Fj), rtol=1e-5, atol=1e-5)
 
 
-def test_boosting_raises_on_unported_losses_and_collapse():
+def test_boosting_raises_on_unported_losses_and_undivided_collapse():
     Xb, y, w = _gbt_data(n=50)
     args = (torch.from_numpy(Xb), torch.from_numpy(y), torch.from_numpy(w),
             torch.ones((2, 50)), torch.ones((2, 6)))
@@ -321,8 +321,10 @@ def test_boosting_raises_on_unported_losses_and_collapse():
         PT.fit_gbt(*args, "hinge", 2, 2, 16, 4)
     with pytest.raises(ValueError, match="2 to 8 classes"):
         PT.fit_gbt(*args, "softmax", 2, 2, 16, 4, n_classes=9)
-    with pytest.raises(NotImplementedError, match="trees_per_round"):
-        PT.fit_gbt(*args, "logistic", 2, 2, 16, 4, trees_per_round=2)
+    # round collapse is ported (tests/test_torch_round_collapse.py); as in the
+    # reference, the collapse factor must divide the rounds
+    with pytest.raises(ValueError, match="must divide"):
+        PT.fit_gbt(*args, "logistic", 2, 2, 16, 4, trees_per_round=3)
 
 
 # ---------------------------------------------------------------------------

@@ -17,6 +17,11 @@ OpTitanicSimple feature set instead (OpTitanicSimple.scala:77-120):
 ``family_size``, ``estimated_cost = family_size * Fare``, ``Sex.pivot()``,
 ``Age.fill_missing_with_mean().z_normalize()`` and an ``age_group``
 (``Age.map``) beside the raw predictors, all through ``transmogrify``.
+``build_workflow(selector=...)`` picks the selector over the checked
+vector: ``"cv"`` (the default: the binary selector, 3-fold CV),
+``"split"`` (the binary selector's ``with_train_validation_split``) or
+``"multiclass"`` (``MultiClassificationModelSelector``, 3-fold CV: the
+two-class label under the multiclass evaluator).
 """
 from __future__ import annotations
 
@@ -26,7 +31,8 @@ import numpy as np
 
 from .. import types as T
 from ..features.builder import FeatureBuilder
-from ..impl.selector.factories import BinaryClassificationModelSelector
+from ..impl.selector.factories import (BinaryClassificationModelSelector,
+                                      MultiClassificationModelSelector)
 from ..workflow.workflow import OpWorkflow
 
 
@@ -133,7 +139,8 @@ def reference_features(survived, F=FeatureBuilder, types=T):
 def build_workflow(model_types: Optional[Sequence[str]] = None,
                    models_and_parameters: Optional[Sequence[Any]] = None,
                    sanity_check_params: Optional[Dict[str, Any]] = None,
-                   text_embeddings: bool = False, reference_features: bool = False):
+                   text_embeddings: bool = False, reference_features: bool = False,
+                   selector: str = "cv"):
     """(OpWorkflow, prediction feature) of the Titanic flow; by default the
     binary selector's stock space (LR + RF + XGBoost, 28 candidates).
     ``sanity_check_params`` are the sanity checker's keyword arguments
@@ -143,12 +150,14 @@ def build_workflow(model_types: Optional[Sequence[str]] = None,
     (``OpWord2Vec()``: 64 dimensions) and the LDA topic mixture of its
     token counts (``count_vectorize()``: 512 terms, ``OpLDA()``: 10
     topics).  With ``reference_features`` the predictors are OpTitanicSimple's
-    (``reference_features``)."""
+    (``reference_features``).  ``selector`` is ``"cv"``, ``"split"`` or
+    ``"multiclass"`` (``SELECTORS``)."""
     F = FeatureBuilder
     survived = F("Survived", T.RealNN).extract(field="Survived").as_response()
     if reference_features:
         return _selector_flow(survived, globals()["reference_features"](survived),
-                              model_types, models_and_parameters, sanity_check_params)
+                              model_types, models_and_parameters, sanity_check_params,
+                              selector)
     pclass = F("Pclass", T.PickList).extract(field="Pclass").as_predictor()
     name = F("Name", T.Text).extract(field="Name").as_predictor()
     sex = F("Sex", T.PickList).extract(field="Sex").as_predictor()
@@ -170,17 +179,27 @@ def build_workflow(model_types: Optional[Sequence[str]] = None,
                     OpLDA().set_input(tokens.count_vectorize()).get_output()]
     features = family_size.vectorize(age, fare, label=survived).combine(*vectors)
     return _selector_flow(survived, features, model_types, models_and_parameters,
-                          sanity_check_params)
+                          sanity_check_params, selector)
+
+
+#: the selectors ``build_workflow`` takes: (factory, method, its arguments)
+SELECTORS = {
+    "cv": (BinaryClassificationModelSelector, "with_cross_validation",
+           {"num_folds": 3, "seed": 42}),
+    "split": (BinaryClassificationModelSelector, "with_train_validation_split", {"seed": 42}),
+    "multiclass": (MultiClassificationModelSelector, "with_cross_validation",
+                   {"num_folds": 3, "seed": 42}),
+}
 
 
 def _selector_flow(survived, features, model_types, models_and_parameters,
-                   sanity_check_params):
-    """The sanity check and the binary selector (3-fold CV) over
+                   sanity_check_params, selector="cv"):
+    """The sanity check and the ``selector`` (``SELECTORS``) over
     ``features``: (OpWorkflow, prediction feature)."""
     checked = features.sanity_check(survived, **(sanity_check_params or {}))
-    pred = BinaryClassificationModelSelector.with_cross_validation(
-        num_folds=3, seed=42, model_types=model_types,
-        models_and_parameters=models_and_parameters,
+    factory, method, args = SELECTORS[selector]
+    pred = getattr(factory, method)(
+        model_types=model_types, models_and_parameters=models_and_parameters, **args,
     ).set_input(survived, checked).get_output()
     return OpWorkflow().set_result_features(pred), pred
 

@@ -7,14 +7,18 @@ classification, multiclass classification and regression evaluators and the
 binary selector's default, its multiclass F1, Precision, Recall and Error
 metrics (``Evaluators.MultiClassification``; Error is the multiclass
 selector's default) and its RMSE metric (``Evaluators.Regression.rmse()``),
-the regression selector's default.  The factory's other metrics, custom
-metrics, log loss and the forecast evaluator are not ported.
+the regression selector's default; the calibration evaluator
+(``OpBinScoreEvaluator``, ``Evaluators.BinaryClassification.brierScore()``),
+the log loss (``OpLogLoss``, ``Evaluators.MultiClassification.logLoss()``)
+and the forecast evaluator (``OpForecastEvaluator``,
+``Evaluators.Regression.smape()``).  The factory's other metrics and custom
+metrics are not ported.
 """
 from .base import (OpBinaryClassificationEvaluatorBase, OpEvaluatorBase,
                    OpMultiClassificationEvaluatorBase, OpRegressionEvaluatorBase)
-from .classification import (OpBinaryClassificationEvaluator, OpMultiClassificationEvaluator,
-                             binary_counts, pr_auc, roc_auc)
-from .regression import OpRegressionEvaluator
+from .classification import (OpBinaryClassificationEvaluator, OpBinScoreEvaluator, OpLogLoss,
+                             OpMultiClassificationEvaluator, binary_counts, pr_auc, roc_auc)
+from .regression import OpForecastEvaluator, OpRegressionEvaluator
 
 
 class _SingleMetric(OpEvaluatorBase):
@@ -40,6 +44,10 @@ class Evaluators:
         def auPR() -> OpEvaluatorBase:
             return _SingleMetric(OpBinaryClassificationEvaluator(), "AuPR", True)
 
+        @staticmethod
+        def brierScore() -> OpEvaluatorBase:
+            return OpBinScoreEvaluator()
+
     class MultiClassification:
         @staticmethod
         def f1() -> OpEvaluatorBase:
@@ -57,7 +65,15 @@ class Evaluators:
         def error() -> OpEvaluatorBase:
             return _SingleMetric(OpMultiClassificationEvaluator(), "Error", False)
 
+        @staticmethod
+        def logLoss() -> OpEvaluatorBase:
+            return OpLogLoss()
+
     class Regression:
         @staticmethod
         def rmse() -> OpEvaluatorBase:
             return _SingleMetric(OpRegressionEvaluator(), "RootMeanSquaredError", False)
+
+        @staticmethod
+        def smape() -> OpEvaluatorBase:
+            return OpForecastEvaluator()

@@ -8,7 +8,10 @@ Precision, Recall, F1, Error, TP/TN/FP/FN and the threshold curves; and of
 Spark MulticlassMetrics' class-frequency-weighted Precision, Recall and F1
 (the default), the Error, and the ``ThresholdMetrics`` of the top-N classes
 (correct, incorrect and no-prediction counts at each confidence
-threshold).  The calibration and log-loss evaluators are not ported.
+threshold); and the calibration evaluator ``OpBinScoreEvaluator``
+(OpBinScoreEvaluator.scala:53: the Brier score and the per-bin average
+score and conversion rate) and ``OpLogLoss`` (OPLogLoss.scala: the mean
+negative log probability of the true class, clipped at 1e-15).
 """
 from __future__ import annotations
 
@@ -16,7 +19,8 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 
-from .base import OpBinaryClassificationEvaluatorBase, OpMultiClassificationEvaluatorBase
+from .base import (OpBinaryClassificationEvaluatorBase, OpEvaluatorBase,
+                   OpMultiClassificationEvaluatorBase)
 
 
 def roc_auc(y: np.ndarray, score: np.ndarray) -> float:
@@ -201,6 +205,67 @@ class OpMultiClassificationEvaluator(OpMultiClassificationEvaluatorBase):
         return {"topNs": self.top_ns, "thresholds": self.thresholds.tolist(),
                 "correctCounts": correct_counts, "incorrectCounts": incorrect_counts,
                 "noPredictionCounts": no_pred_counts}
+
+    def evaluate_all(self, ds, label_col=None, prediction_col=None) -> Dict[str, Any]:
+        y, pred = self._extract(ds, label_col, prediction_col)
+        return self.evaluate_arrays(y, pred.prediction, pred.probability)
+
+
+class OpBinScoreEvaluator(OpEvaluatorBase):
+    """Calibration-bin metrics (OpBinScoreEvaluator.scala:53): the Brier
+    score (the default) and, over ``num_bins`` equal bins of [0, 1], each
+    bin's center, row count, average score and conversion rate; the score
+    is p(class 1) (the prediction without probabilities), in float64."""
+
+    name = "binScoreEval"
+    default_metric = "BrierScore"
+    is_larger_better = False
+
+    def __init__(self, label_col: Optional[str] = None, prediction_col: Optional[str] = None,
+                 num_bins: int = 100):
+        super().__init__(label_col, prediction_col)
+        self.num_bins = num_bins
+
+    def evaluate_arrays(self, y, prediction, probability=None) -> Dict[str, Any]:
+        y = np.asarray(y, dtype=np.float64)
+        score = np.asarray(probability[:, 1] if probability is not None and probability.ndim == 2
+                           else prediction, dtype=np.float64)
+        brier = float(np.mean((score - y) ** 2)) if len(y) else 0.0
+        edges = np.linspace(0.0, 1.0, self.num_bins + 1)
+        idx = np.clip(np.digitize(score, edges) - 1, 0, self.num_bins - 1)
+        counts = np.bincount(idx, minlength=self.num_bins).astype(float)
+        avg_score = np.zeros(self.num_bins)
+        avg_conv = np.zeros(self.num_bins)
+        for b in range(self.num_bins):
+            m = idx == b
+            if m.any():
+                avg_score[b] = score[m].mean()
+                avg_conv[b] = y[m].mean()
+        return {"BrierScore": brier,
+                "binCenters": ((edges[:-1] + edges[1:]) / 2).tolist(),
+                "numberOfDataPoints": counts.tolist(),
+                "averageScore": avg_score.tolist(),
+                "averageConversionRate": avg_conv.tolist()}
+
+    def evaluate_all(self, ds, label_col=None, prediction_col=None) -> Dict[str, Any]:
+        y, pred = self._extract(ds, label_col, prediction_col)
+        return self.evaluate_arrays(y, pred.prediction, pred.probability)
+
+
+class OpLogLoss(OpEvaluatorBase):
+    """Multiclass log loss (OPLogLoss.scala): ``-mean(log(p[r, y_r]))`` with
+    each probability clipped to [1e-15, 1]; probabilities are required."""
+
+    name = "logLoss"
+    default_metric = "LogLoss"
+    is_larger_better = False
+
+    def evaluate_arrays(self, y, prediction, probability=None) -> Dict[str, Any]:
+        y = np.asarray(y, dtype=np.int64)
+        if probability is None:
+            raise ValueError("LogLoss requires probabilities")
+        p = np.clip(probability[np.arange(len(y)), y], 1e-15, 1.0)
+        return {"LogLoss": float(-np.mean(np.log(p)))}
 
     def evaluate_all(self, ds, label_col=None, prediction_col=None) -> Dict[str, Any]:
         y, pred = self._extract(ds, label_col, prediction_col)

@@ -113,6 +113,31 @@ its skip-gram pairs, negatives and ``W0``, and small K18 cases with the JAX
 package's outputs (one SGNS epoch: ``sgns_*``; one E-step and one M-step:
 ``lda_*``).  ``tests/test_torch_text_slice.py --write`` regenerates it.
 
+``titanic_collapse/`` holds round-collapsed boosting (slice 12), trained
+by the JAX package: the Titanic workflow's model over the one-family space
+``[(OpXGBoostClassifier(trees_per_round=4, subsample=0.8,
+colsample_bytree=0.8), xgboost_grid())]`` (K = 4: 50 steps of 4 trees, each
+with its round's draws), 256 request records and the JAX package's answers
+(``expected.npz``), and ``sweep.npz``: that train's three workflow-level
+sweep calls' metrics [3, 1, 2, 6] (``xgb_metrics``), and the metrics [3, 1,
+28, 6] (``stock_metrics``) and winner's index (``stock_best``) of the stock
+binary space under ``TMOG_GBT_ROUND_COLLAPSE=4``.  ``iris_collapse/sweep.npz``
+holds the Iris flow's ``[(OpXGBoostClassifier(trees_per_round=4),
+xgboost_grid())]`` sweep metrics [1, 3, 2, 4] and winner's index, and
+``boston_collapse/sweep.npz`` the Boston stock space's under
+``TMOG_GBT_ROUND_COLLAPSE=4`` (GBT squared from each fold's label mean):
+metrics [1, 3, 44, 4] and winner's index.
+``tests/test_torch_collapse_slice.py --write`` regenerates all three.
+
+``titanic_branches/sweep.npz`` holds the Titanic flow over the binary
+selector's stock space (28 candidates) under
+``MultiClassificationModelSelector`` (a two-class label under the multiclass
+evaluator: ``multiclass_*``) and under the binary selector's
+``with_train_validation_split`` (``split_*``): each train's fused-sweep
+metrics, fold metrics [28, F], winner's index and the first call's fold
+weights and validation masks.
+``tests/test_torch_selector_branches.py --write`` regenerates it.
+
 Strings with nulls are stored as a unicode array plus ``<name>__null``, so
 the files load without pickles.
 """
@@ -139,6 +164,10 @@ BOSTON_GLM = os.path.join(os.path.dirname(os.path.abspath(__file__)), "boston_gl
 TITANIC_SANITY = os.path.join(os.path.dirname(os.path.abspath(__file__)), "titanic_sanity")
 TITANIC_TEXT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "titanic_text")
 TITANIC_SIMPLE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "titanic_simple")
+TITANIC_COLLAPSE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "titanic_collapse")
+IRIS_COLLAPSE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "iris_collapse")
+BOSTON_COLLAPSE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "boston_collapse")
+TITANIC_BRANCHES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "titanic_branches")
 NULL_SUFFIX = "__null"
 
 #: tolerances of the comparison with the JAX package's answers.  Margins are
@@ -1106,3 +1135,121 @@ def check_titanic_simple_train(model, xgb_tol: Optional[float] = None) -> Dict[s
     check(mine == best, f"winner {mine} is not the fixture's {best}")
     return {"max_gap": gaps, "best": summ.best_model_name, "best_grid": summ.best_grid,
             "candidates": len(summ.validation_results)}
+
+
+# ---------------------------------------------------------------------------
+# slice 12: the selectors' branches (two-class multiclass, the split)
+# ---------------------------------------------------------------------------
+#: fold metrics of the branch trains against the JAX package's, absolute, by
+#: selector and family.  The multiclass Error counts wrong rows (a step of
+#: 1 / 297 on the 891-row frame's folds): LR (softmax FISTA over the two
+#: classes) and RF equal the JAX package's; XGBoost's 200-round trees are
+#: grown on K-E's fixed-point sums where XLA sums in float32, so near-tied
+#: splits flip (its AuPR gap in the binary selector, 2e-4) and a
+#: probability near 0.5 lands on the other side: 3 rows of a fold on the
+#: CPU and on the H100, held at 5 rows.  The split's AuPR as the stock
+#: space's
+BRANCHES_TOL = {
+    "multiclass": {"OpLogisticRegression": 0.0, "OpRandomForestClassifier": 0.0,
+                   "OpXGBoostClassifier": 5 / 297},
+    "split": {"OpLogisticRegression": LR_AUPR_TOL, "OpRandomForestClassifier": RF_AUPR_TOL,
+              "OpXGBoostClassifier": 2e-4},
+}
+#: the evaluators on two packages' trained models' scores, relative
+BRANCHES_SCORE_RTOL = 1e-4
+
+
+def check_titanic_branches_train(model, selector: str, metrics: np.ndarray,
+                                 masks: Tuple[np.ndarray, np.ndarray]) -> Dict[str, Any]:
+    """Hold a stock-space Titanic train under ``selector`` ("multiclass" or
+    "split") to ``titanic_branches/``: the first sweep call's fold weights
+    and masks bit for bit, the same metrics' shape, the same winner, each
+    family's fold metrics within ``BRANCHES_TOL``.  Returns the largest gap
+    per family."""
+    ref = load_sweep(os.path.join(TITANIC_BRANCHES, "sweep.npz"))
+    for mine, theirs, what in zip(masks, (ref[f"{selector}_train_w"],
+                                          ref[f"{selector}_val_mask"]), ("train_w", "val")):
+        check(np.array_equal(np.asarray(mine), theirs), f"{selector} fold {what} differ")
+    check(metrics.shape == ref[f"{selector}_metrics"].shape,
+          f"{selector} metrics {metrics.shape} against {ref[f'{selector}_metrics'].shape}")
+    summ = model.stages[-1].summary
+    folds = np.array([r["foldMetrics"] for r in summ.validation_results], np.float64)
+    check(folds.shape == ref[f"{selector}_folds"].shape, "fold metric shape")
+    gaps: Dict[str, float] = {}
+    for r, mine, theirs in zip(summ.validation_results, folds, ref[f"{selector}_folds"]):
+        g = float(np.max(np.abs(mine - theirs)))
+        gaps[r["modelName"]] = max(gaps.get(r["modelName"], 0.0), g)
+    for fam, gap in gaps.items():
+        check(gap <= BRANCHES_TOL[selector][fam],
+              f"{selector} {fam} fold metric {gap} from the fixture's, above "
+              f"{BRANCHES_TOL[selector][fam]}")
+    check(_best_index(summ) == int(ref[f"{selector}_best"]),
+          f"{selector} winner {summ.best_model_name} {summ.best_grid} differs from the fixture's")
+    return gaps
+
+
+# ---------------------------------------------------------------------------
+# slice 12: round-collapsed boosting
+# ---------------------------------------------------------------------------
+#: the collapsed XGB candidates' fold AuPR against the JAX package's (K-E's
+#: fixed-point histogram sums against XLA's float32 ones, as the K = 1 stock
+#: fixture's XGBoost tolerance)
+COLLAPSE_XGB_AUPR_TOL = 2e-4
+
+
+def check_titanic_collapse_train(model, space: str) -> Dict[str, float]:
+    """Hold a collapsed Titanic train to ``titanic_collapse/sweep.npz``:
+    ``space`` "stock" (the stock space under ``TMOG_GBT_ROUND_COLLAPSE=4``)
+    or "xgb" (the collapsed XGB-only space): the same candidates' fold AuPR
+    within each family's tolerance (LR ``LR_AUPR_TOL``, RF ``RF_AUPR_TOL``,
+    XGB ``COLLAPSE_XGB_AUPR_TOL``) and the same winner.  Returns the
+    largest gap per family."""
+    ref = load_sweep(os.path.join(TITANIC_COLLAPSE, "sweep.npz"))
+    summ = model.stages[-1].summary
+    folds = np.array([r["foldMetrics"] for r in summ.validation_results], np.float64)
+    check(folds.shape == ref[f"{space}_folds"].shape, f"{space} fold metric shape")
+    tols = {"OpLogisticRegression": LR_AUPR_TOL, "OpRandomForestClassifier": RF_AUPR_TOL,
+            "OpXGBoostClassifier": COLLAPSE_XGB_AUPR_TOL}
+    gaps: Dict[str, float] = {}
+    for r, mine, theirs in zip(summ.validation_results, folds, ref[f"{space}_folds"]):
+        gaps[r["modelName"]] = max(gaps.get(r["modelName"], 0.0),
+                                   float(np.max(np.abs(mine - theirs))))
+    for fam, gap in gaps.items():
+        check(gap <= tols[fam], f"{space} {fam} fold AuPR {gap} from the fixture's, above "
+              f"{tols[fam]}")
+    check(_best_index(summ) == int(ref[f"{space}_best"]),
+          f"{space} winner {summ.best_model_name} {summ.best_grid} differs from the fixture's")
+    return gaps
+
+
+def check_iris_collapse_train(model) -> Dict[str, Any]:
+    """Hold the Iris XGB train at K = 4 to ``iris_collapse/sweep.npz``:
+    every fold Error bit for bit (the multiclass metrics count in integers),
+    the same winner."""
+    ref = load_sweep(os.path.join(IRIS_COLLAPSE, "sweep.npz"))
+    summ = model.stages[-1].summary
+    folds = np.array([r["foldMetrics"] for r in summ.validation_results], np.float64)
+    check(np.array_equal(folds, ref["folds"]),
+          f"Iris collapsed fold Errors {folds.tolist()} differ from {ref['folds'].tolist()}")
+    check(_best_index(summ) == int(ref["best"]), "the Iris collapsed winner differs")
+    return {"candidates": len(folds), "best": _best_index(summ)}
+
+
+def check_boston_collapse_train(model) -> Dict[str, float]:
+    """Hold the Boston stock train under ``TMOG_GBT_ROUND_COLLAPSE=4`` to
+    ``boston_collapse/sweep.npz``: each family's fold RMSE within its
+    relative tolerance (``BOSTON_RMSE_RTOL``), the same winner.  Returns the
+    largest relative gap per family."""
+    ref = load_sweep(os.path.join(BOSTON_COLLAPSE, "sweep.npz"))
+    summ = model.stages[-1].summary
+    folds = np.array([r["foldMetrics"] for r in summ.validation_results], np.float64)
+    check(folds.shape == ref["folds"].shape, "Boston collapsed fold metric shape")
+    gaps: Dict[str, float] = {}
+    for r, mine, theirs in zip(summ.validation_results, folds, ref["folds"]):
+        gaps[r["modelName"]] = max(gaps.get(r["modelName"], 0.0),
+                                   float(np.max(np.abs(mine - theirs) / np.abs(theirs))))
+    for fam, gap in gaps.items():
+        check(gap <= BOSTON_RMSE_RTOL[fam],
+              f"Boston collapsed {fam} fold RMSE {gap} (relative), above {BOSTON_RMSE_RTOL[fam]}")
+    check(_best_index(summ) == int(ref["best"]), "the Boston collapsed winner differs")
+    return gaps

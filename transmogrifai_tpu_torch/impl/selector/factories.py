@@ -4,9 +4,9 @@ The port's counterpart of ``transmogrifai_tpu/impl/selector/factories.py``
 (reference: BinaryClassificationModelSelector.scala:49,
 MultiClassificationModelSelector.scala:49, RegressionModelSelector.scala:49,
 shared ModelSelectorFactory.scala:43):
-``with_cross_validation`` / ``apply`` build a ``ModelSelector`` with the
-problem's default splitter and metric (the train-validation split is not
-ported).  The stock spaces are the JAX package's: for the binary selector
+``with_cross_validation`` / ``apply`` and ``with_train_validation_split``
+build a ``ModelSelector`` with the problem's default splitter and metric
+over k-fold CV or one train/validation split.  The stock spaces are the JAX package's: for the binary selector
 logistic regression (8 candidates), random forest (18) and XGBoost (2);
 for the multiclass selector logistic regression (8, multinomial) and
 random forest (18); for the regression selector linear regression (8),
@@ -31,7 +31,8 @@ from ..regression.linear import OpLinearRegression
 from ..regression.trees import (OpDecisionTreeRegressor, OpGBTRegressor,
                                 OpRandomForestRegressor, OpXGBoostRegressor)
 from ..tuning.splitters import DataBalancer, DataCutter, DataSplitter, Splitter
-from ..tuning.validators import DEFAULT_NUM_FOLDS, OpCrossValidation
+from ..tuning.validators import (DEFAULT_NUM_FOLDS, DEFAULT_TRAIN_RATIO, OpCrossValidation,
+                                 OpTrainValidationSplit)
 from . import defaults as D
 from .model_selector import ModelSelector
 
@@ -96,6 +97,21 @@ class _SelectorFactory:
         ev = validation_metric or cls._default_evaluator()
         return cls._build(
             OpCrossValidation(ev, num_folds=num_folds, seed=seed, stratify=stratify),
+            splitter if splitter is not None else cls._default_splitter(),
+            model_types, models_and_parameters, list(trained_model_evaluators))
+
+    @classmethod
+    def with_train_validation_split(cls, splitter: Optional[Splitter] = None,
+                                    train_ratio: float = DEFAULT_TRAIN_RATIO,
+                                    validation_metric: Optional[OpEvaluatorBase] = None,
+                                    trained_model_evaluators: Sequence[OpEvaluatorBase] = (),
+                                    seed: int = 42, stratify: bool = False,
+                                    model_types: Optional[Sequence[str]] = None,
+                                    models_and_parameters: Optional[Candidates] = None
+                                    ) -> ModelSelector:
+        ev = validation_metric or cls._default_evaluator()
+        return cls._build(
+            OpTrainValidationSplit(ev, train_ratio=train_ratio, seed=seed, stratify=stratify),
             splitter if splitter is not None else cls._default_splitter(),
             model_types, models_and_parameters, list(trained_model_evaluators))
 

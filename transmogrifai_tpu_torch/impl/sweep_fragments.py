@@ -18,13 +18,18 @@ k <= 8, the multiclass evaluator): OpLogisticRegression (every candidate a
 softmax fit: "fista"), OpMultilayerPerceptronClassifier ("mlp", the k class
 probabilities), OpRandomForestClassifier and OpDecisionTreeClassifier
 ("forest" with k class-distribution channels), OpGBTClassifier and
-OpXGBoostClassifier ("gbt", softmax over k class margins).  Naive Bayes is
+OpXGBoostClassifier ("gbt", softmax over k class margins); and for a
+two-class label under the multiclass evaluator (``("multiclass", 2)``) the
+binary problem's fragments and strict flags, as the reference's (the
+interpreter expands p(class 1) to [1 - p, p]; its LR "fista" fragment is
+fitted by softmax over the two classes, as the reference's interpreter
+does).  A "gbt" group carries its round-collapse factor (``trees_per_round``
+clamped by ``effective_trees_per_round``).  Naive Bayes is
 not a fused family in either package.  Any other family, another
 evaluator, a binary evaluator over a non-binary label or a multiclass score
 block above the JAX package's 2e9-byte guard returns None, as the JAX
 package returns None for what it cannot fuse, and the validator keeps its
-per-family path.  The multiclass
-evaluator over two classes raises.  The partitioning for several
+per-family path.  The partitioning for several
 devices (``spec_units``, ``build_subspec``, ``run_sharded``,
 ``run_rowsharded``) is not ported.
 
@@ -372,16 +377,17 @@ def build_sweep_plan(candidates: Sequence[Tuple[Any, Sequence[Dict[str, Any]]]],
         n_cand = sum(max(len(list(g) or [{}]), 1) for _, g in candidates)
         if 8 * n_cand * len(yv) * n_classes * 4 > 2e9:  # the JAX package's score guard
             return None
-        if n_classes == 2:
-            raise NotImplementedError(
-                "the fused sweep of a two-class label under the multiclass evaluator is not "
-                "ported (the JAX package trains the binary kernels and expands p to [1 - p, p])")
         if n_classes > MULTICLASS_MAX_CLASSES:
             raise NotImplementedError(
                 f"the port's multiclass sweep takes at most {MULTICLASS_MAX_CLASSES} classes "
                 f"(its kernels' limit), got {n_classes}")
+    # a two-class label under the multiclass evaluator trains the binary
+    # families' models, as the reference's (its interpreter expands p to
+    # [1 - p, p]); the LR elastic-net points are its "fista" fragments, which
+    # a multiclass problem fits by softmax over the two classes
+    binary_models = kind == "binary" or n_classes == 2
     for est, _ in candidates:
-        if type(est) not in families[kind]:
+        if type(est) not in families["binary" if binary_models else kind]:
             return None
 
     X = X.to(torch.float32).contiguous()
@@ -393,24 +399,26 @@ def build_sweep_plan(candidates: Sequence[Tuple[Any, Sequence[Dict[str, Any]]]],
     pos = 0
     for est, grids in candidates:
         grids = [dict(g) for g in (list(grids) or [{}])]
-        s = 0  # p >= 0.5 (regression, multiclass: unused)
+        s = 0  # p >= 0.5 (regression, multiclass over more than two classes: unused)
         if isinstance(est, OpLogisticRegression):
-            fr = (_softmax_fragments(est, grids, pos, blob) if kind == "multiclass"
-                  else _lr_fragments(est, grids, pos, blob, yv))
+            fr = (_lr_fragments(est, grids, pos, blob, yv) if binary_models
+                  else _softmax_fragments(est, grids, pos, blob))
         elif isinstance(est, OpLinearRegression):
             fr = _linreg_fragments(est, grids, pos, blob)
         elif isinstance(est, OpLinearSVC):
             fr = _svc_fragments(est, grids, pos, blob)  # a 0/1 score: >= 0.5 is z >= 0
         elif isinstance(est, OpMultilayerPerceptronClassifier):
             fr = _mlp_fragments(est, grids, pos, blob, X.shape[1], max(n_classes, 2))
-            if problem == "binary":
+            if binary_models:
                 s = 1  # argmax(prob) ties to class 0 => p > 0.5
         elif isinstance(est, (OpRandomForestClassifier, OpRandomForestRegressor)):
-            fr = _forest_fragment(est, grids, pos, blob, xbs, X, train_w, xb_cache, n_classes)
-            if problem == "binary":
+            fr = _forest_fragment(est, grids, pos, blob, xbs, X, train_w, xb_cache,
+                                  1 if binary_models else n_classes)
+            if binary_models:
                 s = 1  # argmax([1 - p, p]) ties to class 0 => p > 0.5
         else:
-            loss = {"binary": "logistic", "regression": "squared"}.get(kind, "softmax")
+            loss = ("logistic" if binary_models else
+                    {"regression": "squared"}.get(kind, "softmax"))
             fr = _gbt_fragment(est, grids, pos, blob, xbs, X, train_w, xb_cache, loss=loss,
                                n_classes=n_classes)
         if fr is None:

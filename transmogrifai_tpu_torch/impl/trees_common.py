@@ -4,7 +4,8 @@ The port's counterpart of ``transmogrifai_tpu/impl/trees_common.py``:
 ``tree_params`` / ``tree_from_params`` (the carry-across between the saved
 numpy parameters and the port's ``Tree`` of tensors, with every pool index
 checked, since the walk kernel follows them without bounds checks), the
-boosting parameter dicts, ``effective_trees_per_round`` and
+boosting parameter dicts (the collapse factor defaulting to
+``round_collapse_default``), ``effective_trees_per_round`` and
 ``boosted_grid_folds`` and ``forest_grid_folds``, the per-family fold x
 grid sweeps of the boosted models and the forests (classifiers and
 regressors), ``tree_device_params`` and ``TreeParamsMixin``, Spark's
@@ -58,6 +59,17 @@ class TreeParamsMixin:
         return frac
 
 
+def round_collapse_default() -> int:
+    """The default round-collapse factor K of the boosted models: the
+    ``TMOG_GBT_ROUND_COLLAPSE`` environment variable (the JAX package's
+    model setting, read as it reads it; unset, empty or not a number: 1, the
+    per-round scan).  K > 1 grows K trees a boosting step on shared
+    gradients at learning rate eta / K (``ops/trees.fit_gbt``)."""
+    from ..utils.env import env_int
+
+    return max(env_int("TMOG_GBT_ROUND_COLLAPSE", 1), 1)
+
+
 def effective_trees_per_round(k: int, n_rounds: int) -> int:
     """Clamp a round-collapse factor to one the grower honors: K > 1, at
     most ``n_rounds`` and dividing it; 1 (no collapse) otherwise."""
@@ -77,7 +89,8 @@ def gbt_boost_params(stage) -> Dict[str, Any]:
             "colsample": 1.0, "reg_lambda": 1e-6, "gamma": 0.0,
             "min_child_weight": float(stage.get_param("min_instances_per_node", 1)),
             "min_info_gain": float(stage.get_param("min_info_gain", 0.0)),
-            "trees_per_round": int(stage.get_param("trees_per_round", 1))}
+            "trees_per_round": int(stage.get_param("trees_per_round",
+                                                   round_collapse_default()))}
 
 
 def xgb_boost_params(stage) -> Dict[str, Any]:
@@ -92,7 +105,8 @@ def xgb_boost_params(stage) -> Dict[str, Any]:
             "reg_lambda": float(stage.get_param("reg_lambda", 1.0)),
             "gamma": float(stage.get_param("gamma", 0.0)),
             "min_child_weight": float(stage.get_param("min_child_weight", 1.0)),
-            "trees_per_round": int(stage.get_param("trees_per_round", 1))}
+            "trees_per_round": int(stage.get_param("trees_per_round",
+                                                   round_collapse_default()))}
 
 
 #: boosting hyperparameters that are per-tree scalars of the grower: grids

@@ -1,8 +1,8 @@
 """Validators — cross-validation / train-validation-split over a model grid.
 
 The port's counterpart of ``transmogrifai_tpu/impl/tuning/validators.py``
-(reference: OpValidator.scala:94, OpCrossValidation.scala:42); the
-train-validation split is not ported.  Folds are weight masks over one dataset
+(reference: OpValidator.scala:94, OpCrossValidation.scala:42,
+OpTrainValidationSplit.scala:35).  Folds are weight masks over one dataset
 (``train_w`` zeroes the held-out rows), so every fold trains on the same
 rows.  The sweep routes as the JAX package's does by default: the fused
 sweep (``_fused_sweep``: ``impl/sweep_fragments.build_sweep_plan`` then
@@ -36,6 +36,7 @@ import torch
 
 from ...evaluators.base import OpEvaluatorBase, OpMultiClassificationEvaluatorBase
 from ...ops.cuda_build import KernelError
+from ...parallel.sweep import make_fold_weights
 
 log = logging.getLogger(__name__)
 
@@ -46,6 +47,7 @@ _SURFACING = (NotImplementedError,
 
 #: reference ValidatorParamDefaults (OpValidator.scala:373-380)
 DEFAULT_NUM_FOLDS = 3
+DEFAULT_TRAIN_RATIO = 0.75
 #: the fused sweep's bound on one launch's score bytes (F x C x n float32),
 #: the JAX package's default: larger candidate lists run as several plans
 FUSED_SCORES_BYTES = 3e8
@@ -104,26 +106,6 @@ def _j(v):
     if isinstance(v, (np.floating, np.integer, np.bool_)):
         return v.item()
     return v
-
-
-def make_fold_weights(n: int, n_folds: int, seed: int = 42,
-                      stratify_labels: Optional[np.ndarray] = None
-                      ) -> Tuple[np.ndarray, np.ndarray]:
-    """(train_w [n_folds, n], val_w [n_folds, n]) 0/1 mask pairs; stratified,
-    each label class's rows are dealt round-robin across folds
-    (``transmogrifai_tpu/parallel/sweep.py::make_fold_weights``)."""
-    rng = np.random.default_rng(seed)
-    assign = np.empty(n, dtype=np.int64)
-    if stratify_labels is not None:
-        labels = np.asarray(stratify_labels)
-        for cls in np.unique(labels):
-            idx = np.where(labels == cls)[0]
-            rng.shuffle(idx)
-            assign[idx] = np.arange(idx.size) % n_folds
-    else:
-        assign = rng.permutation(n) % n_folds
-    val = np.stack([(assign == k).astype(np.float32) for k in range(n_folds)])
-    return 1.0 - val, val
 
 
 class OpValidator:
@@ -308,3 +290,35 @@ class OpCrossValidation(OpValidator):
         train_w, val_w = make_fold_weights(n, self.num_folds, seed=self.seed,
                                            stratify_labels=y)
         return train_w, val_w.astype(bool)
+
+
+class OpTrainValidationSplit(OpValidator):
+    """One train/validation split (OpTrainValidationSplit.scala:35): a
+    ``1 - train_ratio`` share of the rows (of each label class's rows when
+    stratified, each class shuffled in label order) validates, the rest
+    trains; one fold."""
+
+    validation_type = "OpTrainValidationSplit"
+
+    def __init__(self, evaluator: OpEvaluatorBase, train_ratio: float = DEFAULT_TRAIN_RATIO,
+                 seed: int = 42, stratify: bool = False):
+        super().__init__(evaluator, seed=seed, stratify=stratify)
+        if not 0.0 < train_ratio < 1.0:
+            raise ValueError("train_ratio must be in (0, 1)")
+        self.train_ratio = train_ratio
+
+    def make_folds(self, n, y):
+        rng = np.random.default_rng(self.seed)
+        val = np.zeros(n, dtype=bool)
+        if y is not None:
+            yv = np.asarray(y)
+            for cls in np.unique(yv):
+                idx = np.where(yv == cls)[0]
+                rng.shuffle(idx)
+                k = int(round(len(idx) * (1.0 - self.train_ratio)))
+                val[idx[:k]] = True
+        else:
+            idx = rng.permutation(n)
+            val[idx[: int(round(n * (1.0 - self.train_ratio)))]] = True
+        train_w = (~val).astype(np.float32)[None, :]
+        return train_w, val[None, :]

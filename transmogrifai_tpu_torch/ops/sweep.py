@@ -32,9 +32,13 @@ softmax boosting, K-M reading the forests' leaves.  A forest group's trees grow 
 ``ops/trees.forest_batch_size`` (the spec's ``chunk`` is the JAX
 package's, kept for the spec's equality; trees are independent, so the
 batching changes no result).  The binary, regression and multiclass
-problems are ported; a two-class label under the multiclass evaluator and
-round-collapsed boosting raise.  The checkpoint, hedge, ledger, trace,
-AOT-cache and mesh wrappers of the JAX package are not ported.
+problems are ported, round-collapsed boosting (a gbt group's
+``trees_per_round`` > 1: the collapse modes of K-H and K-R) and a
+two-class label under the multiclass evaluator among them: there the
+binary families' fragments score p(class 1), expanded to the planes
+[1 - p, p] as the reference's ``_all_scores`` does.  The checkpoint,
+hedge, ledger, trace, AOT-cache and mesh wrappers of the JAX package are
+not ported.
 """
 from __future__ import annotations
 
@@ -49,7 +53,7 @@ from . import trees as Tr
 from .metrics import (BINARY_METRICS, binary_grid_metrics, multiclass_grid_metrics,
                       regression_grid_metrics)
 
-__all__ = ["run_sweep", "BINARY_METRICS"]
+__all__ = ["run_sweep", "gbt_chain", "BINARY_METRICS"]
 
 
 def _multiclass(problem) -> bool:
@@ -201,14 +205,13 @@ def _forest_group_scores(group, xbs, y, train_w, blob, out_c: int,
 
 def _gbt_group_scores(group, xbs, y, train_w, blob, loss: str, out_c: int) -> torch.Tensor:
     """One boosting group -> the final margins [F, Gc, n] (fold x candidate
-    batch, one tree per round each), or [F, Gc, n, out_c] class margins for
-    the softmax loss, from 0 or, with ``fold_base``, from each fold's
-    weighted label mean (float32 on the device, as the reference's)."""
+    batch, one tree per round each, or ``trees_per_round`` trees a
+    round-collapsed step), or [F, Gc, n, out_c] class margins for the
+    softmax loss, from 0 or, with ``fold_base``, from each fold's weighted
+    label mean (float32 on the device, as the reference's)."""
     (cis, rounds, depth, xb_idx, n_bins, subsample, colsample, seed,
      frontier, exact_cap, fold_base, trees_per_round, off_eta, off_lam,
      off_gam, off_mcw, off_mig) = group
-    if trees_per_round != 1:
-        raise NotImplementedError("round-collapsed boosting (trees_per_round > 1) is not ported")
     Xb = xbs[xb_idx]
     dev = Xb.device
     n, d = Xb.shape
@@ -230,8 +233,25 @@ def _gbt_group_scores(group, xbs, y, train_w, blob, loss: str, out_c: int) -> to
                           reg_lambda_b=np.maximum(hp["lam"], np.float32(1e-6)),
                           gamma_b=hp["gam"], min_child_weight_b=hp["mcw"],
                           base_score_b=base_f.repeat_interleave(Gc), n_classes=out_c,
-                          min_info_gain_b=hp["mig"], exact_cap=exact_cap)
+                          min_info_gain_b=hp["mig"], exact_cap=exact_cap,
+                          trees_per_round=trees_per_round)
     return Fm.reshape(F, Gc, n, -1) if loss == "softmax" else Fm[..., 0].reshape(F, Gc, n)
+
+
+def gbt_chain(spec) -> Optional[Dict[str, int]]:
+    """The longest sequential boosting chain of ``spec``: {"steps",
+    "levels"}, the boosting steps and dependent tree levels after the round
+    collapse (a gbt group's ``trees_per_round``), as the reference's
+    ``_spec_gbt_chain``; None without a gbt fragment."""
+    steps = levels = 0
+    for frag in spec[1]:
+        if frag[0] != "gbt":
+            continue
+        for g in frag[3]:
+            s = -(-int(g[1]) // max(int(g[11]), 1))
+            steps = max(steps, s)
+            levels = max(levels, s * int(g[2]))
+    return {"steps": steps, "levels": levels} if steps else None
 
 
 def _frag_scores(frag, X, xbs, y, train_w, blob, problem):
@@ -285,6 +305,10 @@ def _all_scores(spec, X, xbs, y, train_w, blob,
     for frag in frags:
         t0 = time.perf_counter()
         cis, sc = _frag_scores(frag, X, xbs, y, train_w, blob, problem)
+        if _multiclass(problem) and sc.ndim == 3:
+            # a binary family under a two-class multiclass evaluator: the
+            # class-1 score becomes the planes [1 - p, p]
+            sc = torch.stack([1.0 - sc, sc], dim=-1)
         scores[:, torch.as_tensor(cis, device=X.device)] = sc
         if timings is not None:
             _sync(scores)

@@ -16,7 +16,9 @@ forests' -onehot gradients and the softmax boosting, up to
 logistic, squared and softmax losses, and the forests (``grow_forest``,
 ``fit_forest``, ``fit_forest_chunked``): one-channel leaves for binary
 classification and regression, class-distribution leaves for multiclass.
-Round-collapsed boosting (``trees_per_round`` > 1) is not ported.
+Round-collapsed boosting (``trees_per_round`` = K > 1) grows K trees a
+boosting step on shared gradients at learning rate eta / K, in
+``n_rounds / K`` steps.
 
 Hand-written kernels carry the path (CUDA sources in ``csrc/``, the Triton
 ones in ``ops/triton_boost.py`` and ``ops/triton_forest.py``):
@@ -40,11 +42,14 @@ ones in ``ops/triton_boost.py`` and ``ops/triton_forest.py``):
 - ``boost_step`` (K-H) replaces the margin update and ``_grad_hess``
   (logistic and squared): ``F += eta * leaf[row_node]`` (a fused
   multiply-add for the logistic loss) and the weighted gradient and
-  hessian of the new margins.
+  hessian of the new margins.  Its collapse mode (``rw`` given: K trees
+  a batch element) sums each row's K leaves in XLA's order, adds them at
+  ``eta / K`` and writes K weighted gradient planes, one a tree.
 - ``softmax_boost_step`` (K-R, Triton, the ``LOSS`` 2 branch of
   ``ops/triton_boost.py``) replaces the same for the softmax loss over k
   class margins: the update per channel, the row's softmax, the k weighted
-  gradients and the one scalar hessian of the row.
+  gradients and the one scalar hessian of the row; and its collapse mode,
+  as K-H's.
 - ``forest_leaf_mean`` (K-M, Triton, ``ops/triton_forest.py``) replaces the
   fused sweep's forest leaf read and tree mean: each row's mean leaf value
   (per channel) over each (fold, candidate)'s trees.
@@ -856,14 +861,82 @@ def _sigmoid(x: torch.Tensor) -> torch.Tensor:
 BOOST_LOSSES = {"logistic": 0, "squared": 1, "softmax": 2}
 
 
-def boost_step_plain(F: torch.Tensor, y: torch.Tensor, w: torch.Tensor, eta: torch.Tensor,
-                     leaf: Optional[torch.Tensor], row_node: Optional[torch.Tensor],
-                     ghw: Optional[torch.Tensor], loss: str = "logistic") -> None:
-    """Plain PyTorch version of K-H: the logistic margin update one fused
-    multiply-add, as XLA's CPU code contracts the reference's; the squared
-    one rounded twice (see ``boost_step``)."""
+def collapse_leaf_sum(lv: torch.Tensor) -> torch.Tensor:
+    """The sum over axis 1 of the K trees' leaf values ``lv`` [B, K, ...] in
+    the order XLA's CPU code reduces the reference's ``leaves.sum`` over K:
+    pairwise halving (tree k with tree k + K / 2, again on the halves) when
+    K is a power of two, in tree order otherwise.  (Checked bit for bit
+    against the JAX package's collapsed fits at K = 2, 3, 4, 8 and 12:
+    ``tests/test_torch_round_collapse.py``.)"""
+    K = lv.shape[1]
+    if K & (K - 1) == 0:
+        while lv.shape[1] > 1:
+            h = lv.shape[1] // 2
+            lv = lv[:, :h] + lv[:, h:]
+        return lv[:, 0]
+    acc = lv[:, 0]
+    for k in range(1, K):
+        acc = acc + lv[:, k]
+    return acc
+
+
+def collapse_scale(eta: torch.Tensor, K: int) -> torch.Tensor:
+    """``eta / K`` as XLA's CPU code computes it: a product with the float32
+    reciprocal of K."""
+    return eta * float(np.float32(1.0 / K))
+
+
+def _collapse_update(F: torch.Tensor, eta: torch.Tensor, leaf: torch.Tensor,
+                     row_node: torch.Tensor, K: int) -> None:
+    """``F[b] += (eta_b / K) * sum_k leaf[bK + k, row_node[bK + k]]`` over
+    F [B, n] or [B, n, c], in place, the product and the sum one fused
+    multiply-add (for every loss: XLA's CPU code contracts the reference's
+    collapsed update so)."""
     from .metrics import fma
 
+    B, n = F.shape[:2]
+    c = F.shape[2] if F.ndim == 3 else 1
+    lv = leaf.reshape(B * K, -1, c).gather(1, row_node.long()[..., None].expand(-1, -1, c))
+    s = collapse_leaf_sum(lv.reshape(B, K, n, c)).reshape(F.shape)
+    a = collapse_scale(eta, K).reshape((B,) + (1,) * (F.ndim - 1)).expand_as(s)
+    F.copy_(fma(a, s, F))
+
+
+def _collapse_planes(ghw: torch.Tensor, g: torch.Tensor, h: Optional[torch.Tensor],
+                     w: torch.Tensor, rw: torch.Tensor) -> None:
+    """Write tree bK + k's weighted gradients ``g * (w[b] * rw[k])`` (``g``
+    [B, n, C]) and hessian ``h * (w[b] * rw[k])`` (``h`` [B, n], or the
+    weights themselves when ``h`` is None) into ``ghw`` [B K, n, C + 1]."""
+    B, n = w.shape
+    K = rw.shape[0]
+    wk = (w[:, None, :] * rw[None]).reshape(B * K, n)
+    C = g.shape[2]
+    ghw[..., :C] = g.repeat_interleave(K, dim=0) * wk[..., None]
+    ghw[..., C] = wk if h is None else h.repeat_interleave(K, dim=0) * wk
+
+
+def boost_step_plain(F: torch.Tensor, y: torch.Tensor, w: torch.Tensor, eta: torch.Tensor,
+                     leaf: Optional[torch.Tensor], row_node: Optional[torch.Tensor],
+                     ghw: Optional[torch.Tensor], loss: str = "logistic",
+                     rw: Optional[torch.Tensor] = None) -> None:
+    """Plain PyTorch version of K-H: the logistic margin update one fused
+    multiply-add, as XLA's CPU code contracts the reference's; the squared
+    one rounded twice (see ``boost_step``).  With ``rw``, the collapse
+    mode."""
+    from .metrics import fma
+
+    if rw is not None:
+        if leaf is not None:
+            _collapse_update(F, eta, leaf, row_node, rw.shape[0])
+        if ghw is None:
+            return
+        if loss == "squared":
+            _collapse_planes(ghw, (F - y[None])[..., None], None, w, rw)
+            return
+        p = _sigmoid(F)
+        _collapse_planes(ghw, (p - y[None])[..., None],
+                         torch.clamp_min(p * (1 - p), 1e-6), w, rw)
+        return
     if leaf is not None:
         lv = leaf.gather(1, row_node.long())
         eta_t = eta[:, None].expand_as(lv)
@@ -880,9 +953,14 @@ def boost_step_plain(F: torch.Tensor, y: torch.Tensor, w: torch.Tensor, eta: tor
                                                          device=F.device)) * w
 
 
-def _check_boost(F, y, w, eta, leaf, row_node, ghw, c: int) -> None:
-    """Shapes of a boosting step over [T, n] (``c`` 0) or [T, n, c]."""
+def _check_boost(F, y, w, eta, leaf, row_node, ghw, c: int, rw=None) -> None:
+    """Shapes of a boosting step over [T, n] (``c`` 0) or [T, n, c]; with
+    ``rw`` [K, n], K trees a batch element."""
     T, n = F.shape[:2]
+    if rw is not None:
+        _require(rw.dtype == torch.float32 and rw.ndim == 2 and rw.shape[0] >= 1
+                 and rw.shape[1] == n, f"rw must be float32[K, {n}]")
+    K = 1 if rw is None else rw.shape[0]
     lead = (T, n) if c == 0 else (T, n, c)
     _require(F.dtype == torch.float32 and tuple(F.shape) == lead,
              "F must be float32[T, n]" if c == 0 else "F must be float32[T, n, k]")
@@ -892,19 +970,21 @@ def _check_boost(F, y, w, eta, leaf, row_node, ghw, c: int) -> None:
     _require((leaf is None) == (row_node is None), "leaf and row_node go together")
     if leaf is not None:
         _require(leaf.dtype == torch.float32 and leaf.ndim == (2 if c == 0 else 3)
-                 and leaf.shape[0] == T and tuple(leaf.shape[2:]) == (() if c == 0 else (c,))
-                 and row_node.dtype == torch.int32 and tuple(row_node.shape) == (T, n),
-                 f"leaf must be float32[{T}, P{'' if c == 0 else f', {c}'}] and row_node "
-                 f"int32[{T}, {n}]")
+                 and leaf.shape[0] == T * K
+                 and tuple(leaf.shape[2:]) == (() if c == 0 else (c,))
+                 and row_node.dtype == torch.int32 and tuple(row_node.shape) == (T * K, n),
+                 f"leaf must be float32[{T * K}, P{'' if c == 0 else f', {c}'}] and row_node "
+                 f"int32[{T * K}, {n}]")
     if ghw is not None:
         C1 = 2 if c == 0 else c + 1
-        _require(ghw.dtype == torch.float32 and tuple(ghw.shape) == (T, n, C1),
-                 f"ghw must be float32[{T}, {n}, {C1}]")
+        _require(ghw.dtype == torch.float32 and tuple(ghw.shape) == (T * K, n, C1),
+                 f"ghw must be float32[{T * K}, {n}, {C1}]")
 
 
 def boost_step(F: torch.Tensor, y: torch.Tensor, w: torch.Tensor, eta: torch.Tensor,
                leaf: Optional[torch.Tensor] = None, row_node: Optional[torch.Tensor] = None,
-               ghw: Optional[torch.Tensor] = None, loss: str = "logistic") -> None:
+               ghw: Optional[torch.Tensor] = None, loss: str = "logistic",
+               rw: Optional[torch.Tensor] = None) -> None:
     """One boosting step over [T, n], in place.
 
     With ``leaf`` f32[T, P] and ``row_node`` i32[T, n]: the margin update
@@ -921,15 +1001,31 @@ def boost_step(F: torch.Tensor, y: torch.Tensor, w: torch.Tensor, eta: torch.Ten
     (updated) margins, times the row weights ``w`` f32[T, n]: logistic
     ``(p - y) w`` and ``max(p (1 - p), 1e-6) w`` with ``p = 1 / (1 +
     exp(-F))``; squared ``(F - y) w`` and ``w``.
+
+    The collapse mode, with ``rw`` f32[K, n] (the K rounds' subsample rows
+    of a round-collapsed step): ``leaf`` f32[T K, P] and ``row_node`` i32[T
+    K, n] hold K trees a batch element (tree tK + k), and the update is
+    ``F[t] += (eta[t] / K) * sum_k leaf[tK + k, row_node[tK + k, r]]``, the
+    K leaves summed in XLA's order (``collapse_leaf_sum``), ``eta / K`` as
+    ``collapse_scale``, the product and the sum one fused multiply-add for
+    both losses, as XLA's CPU code contracts the reference's collapsed
+    update (the squared loss too, unlike its K = 1 mode: with the
+    reference's rounding the Boston flow's collapsed GBT folds stay within
+    3.5e-5 of the JAX package's, relative, as with two roundings); ``ghw``
+    f32[T K, n, 2] gets the gradient and hessian at the new margins times
+    ``w[t] * rw[k]`` for tree tK + k.
     """
     _require(loss in ("logistic", "squared"),
              f"loss must be logistic or squared (softmax_boost_step takes the softmax), "
              f"got {loss!r}")
-    _check_boost(F, y, w, eta, leaf, row_node, ghw, 0)
+    _check_boost(F, y, w, eta, leaf, row_node, ghw, 0, rw)
     T, n = F.shape
-    others = [t for t in (leaf, row_node, ghw) if t is not None]
+    others = [t for t in (leaf, row_node, ghw, rw) if t is not None]
     if not _on_cuda(F, y, w, eta, *others):
-        return boost_step_plain(F, y, w, eta, leaf, row_node, ghw, loss)
+        return boost_step_plain(F, y, w, eta, leaf, row_node, ghw, loss, rw)
+    if rw is not None:
+        return _collapse_launch(boost_step, F, y, w, eta, leaf, row_node, ghw, rw,
+                                BOOST_LOSSES[loss], 1)
     for name, a in (("F", F), ("ghw", ghw)):
         _require(a is None or a.is_contiguous(), f"{name} must be contiguous (written in place)")
     if n == 0 or (leaf is None and ghw is None):
@@ -954,6 +1050,7 @@ def boost_step(F: torch.Tensor, y: torch.Tensor, w: torch.Tensor, eta: torch.Ten
 
 
 boost_step.launches = 0
+boost_step.collapse_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -962,17 +1059,22 @@ boost_step.launches = 0
 def softmax_boost_step_plain(F: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
                              eta: torch.Tensor, leaf: Optional[torch.Tensor],
                              row_node: Optional[torch.Tensor],
-                             ghw: Optional[torch.Tensor]) -> None:
+                             ghw: Optional[torch.Tensor],
+                             rw: Optional[torch.Tensor] = None) -> None:
     """Plain PyTorch version of K-R: the reference's float32 operations in
     its order, with the multiply-adds XLA's CPU code fuses: the margin
     update one fused multiply-add a channel, the softmax's sum in channel
-    order, the hessian's channel sum as ``softmax_hessian``."""
+    order, the hessian's channel sum as ``softmax_hessian``.  With ``rw``,
+    the collapse mode."""
     from .metrics import fma
 
     k = F.shape[2]
     if leaf is not None:
-        lv = leaf.gather(1, row_node.long()[..., None].expand(-1, -1, k))
-        F.copy_(fma(eta[:, None, None].expand_as(lv), lv, F))
+        if rw is not None:
+            _collapse_update(F, eta, leaf, row_node, rw.shape[0])
+        else:
+            lv = leaf.gather(1, row_node.long()[..., None].expand(-1, -1, k))
+            F.copy_(fma(eta[:, None, None].expand_as(lv), lv, F))
     if ghw is None:
         return
     e = torch.exp(F - F.max(dim=-1, keepdim=True).values)
@@ -981,6 +1083,9 @@ def softmax_boost_step_plain(F: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
         s = s + e[..., j]
     p = e / s[..., None]
     Y = torch.nn.functional.one_hot(y.long(), k).to(torch.float32)
+    if rw is not None:
+        _collapse_planes(ghw, p - Y[None], softmax_hessian(p), w, rw)
+        return
     ghw[..., :k] = (p - Y[None]) * w[..., None]
     ghw[..., k] = softmax_hessian(p) * w
 
@@ -1004,7 +1109,8 @@ def softmax_hessian(p: torch.Tensor) -> torch.Tensor:
 def softmax_boost_step(F: torch.Tensor, y: torch.Tensor, w: torch.Tensor, eta: torch.Tensor,
                        leaf: Optional[torch.Tensor] = None,
                        row_node: Optional[torch.Tensor] = None,
-                       ghw: Optional[torch.Tensor] = None) -> None:
+                       ghw: Optional[torch.Tensor] = None,
+                       rw: Optional[torch.Tensor] = None) -> None:
     """One softmax boosting step over k class margins ``F`` f32[T, n, k], in
     place.
 
@@ -1017,14 +1123,21 @@ def softmax_boost_step(F: torch.Tensor, y: torch.Tensor, w: torch.Tensor, eta: t
     softmax(F[t, r])`` (exp(F - max) over its sum), the k weighted gradients
     ``(p_j - [y_r == j]) w`` and the one scalar hessian ``max(mean_j p_j (1 -
     p_j), 1e-6) w``, with ``y`` f32[n] the class labels 0 .. k - 1 and ``w``
-    f32[T, n] the row weights.  2 <= k <= ``MAX_CHANNELS``."""
+    f32[T, n] the row weights.  2 <= k <= ``MAX_CHANNELS``.
+
+    The collapse mode, with ``rw`` f32[K, n]: as ``boost_step``'s, over the
+    k channels (``leaf`` f32[T K, P, k], ``ghw`` f32[T K, n, k + 1]), each
+    channel's update one fused multiply-add."""
     _require(F.ndim == 3 and 2 <= F.shape[2] <= MAX_CHANNELS,
              f"F must be float32[T, n, k] with 2 <= k <= {MAX_CHANNELS}")
     T, n, k = F.shape
-    _check_boost(F, y, w, eta, leaf, row_node, ghw, k)
-    others = [t for t in (leaf, row_node, ghw) if t is not None]
+    _check_boost(F, y, w, eta, leaf, row_node, ghw, k, rw)
+    others = [t for t in (leaf, row_node, ghw, rw) if t is not None]
     if not _on_cuda(F, y, w, eta, *others):
-        return softmax_boost_step_plain(F, y, w, eta, leaf, row_node, ghw)
+        return softmax_boost_step_plain(F, y, w, eta, leaf, row_node, ghw, rw)
+    if rw is not None:
+        return _collapse_launch(softmax_boost_step, F, y, w, eta, leaf, row_node, ghw, rw,
+                                BOOST_LOSSES["softmax"], k)
     for name, a in (("F", F), ("ghw", ghw)):
         _require(a is None or a.is_contiguous(), f"{name} must be contiguous (written in place)")
     if n == 0 or (leaf is None and ghw is None):
@@ -1050,6 +1163,42 @@ def softmax_boost_step(F: torch.Tensor, y: torch.Tensor, w: torch.Tensor, eta: t
 
 
 softmax_boost_step.launches = 0
+softmax_boost_step.collapse_launches = 0
+
+
+def _collapse_launch(wrapper, F, y, w, eta, leaf, row_node, ghw, rw, loss: int, c: int) -> None:
+    """Launch the collapse mode of K-H (``c`` 1) or K-R (``c`` classes)
+    (``ops/triton_boost.py::collapse_step_kernel``) and count it on
+    ``wrapper``."""
+    for name, a in (("F", F), ("ghw", ghw)):
+        _require(a is None or a.is_contiguous(), f"{name} must be contiguous (written in place)")
+    T, n = F.shape[:2]
+    K = rw.shape[0]
+    if n == 0 or (leaf is None and ghw is None):
+        return None
+    name = wrapper.__name__
+    with cuda_build.kernel_errors(name):
+        from . import triton_boost as tb
+
+    y, w, eta, rw = y.contiguous(), w.contiguous(), eta.contiguous(), rw.contiguous()
+    upd = leaf is not None
+    leaf_t = leaf.contiguous() if upd else F
+    node_t = row_node.contiguous() if upd else F
+    cp = max(2, 1 << (c - 1).bit_length())
+    pow2 = K & (K - 1) == 0
+    # a power of two K loads a [block, K cp] leaf tile: at most 8,192 values
+    block = 1024 if c == 1 else 256
+    if pow2:
+        block = max(16, min(block, 8192 // (K * cp)))
+    with torch.cuda.device(F.device), cuda_build.kernel_errors(name):
+        tb.collapse_step_kernel[(-(-n // block), T)](
+            F, y, w, rw, eta, leaf_t, node_t, ghw if ghw is not None else F, n,
+            leaf_t.shape[1] if upd else 0, float(np.float32(1.0 / K)),
+            float(np.float32(1.0 / c)), UPDATE=upd, GRAD=ghw is not None, LOSS=loss, KT=K,
+            HALVINGS=K.bit_length() - 1 if pow2 else 0, C=c, CP=cp, BLOCK=block, num_warps=4)
+    wrapper.launches += 1
+    wrapper.collapse_launches += 1
+    return None
 
 
 # ---------------------------------------------------------------------------
@@ -1130,52 +1279,73 @@ def _f32(v, T: int, dev) -> torch.Tensor:
 
 
 def _boost(Xb, y, w, row_w_rounds, feat_mask_rounds, loss, n_rounds, max_depth, n_bins,
-           frontier, eta, params, base, exact_cap, keep_trees, n_classes=1):
+           frontier, eta, params, base, exact_cap, keep_trees, n_classes=1, trees_per_round=1):
     """Boosting over the tree batch from the margins ``base`` [T]: per round
     one boosting step (K-H, or K-R over the ``n_classes`` margins of the
     softmax loss: margin update + gradients) and one tree grown per batch
-    element, then a last update.  Returns (F f32[T, n, c], the rounds'
-    (nodes, leaves) when ``keep_trees``)."""
+    element, then a last update.  With ``trees_per_round`` = K > 1 (K
+    divides ``n_rounds``), ``n_rounds / K`` steps, each one launch of the
+    step kernel's collapse mode and T K trees grown together on the step's
+    gradients, tree tK + k with round sK + k's subsample and feature mask.
+    Returns (F f32[T, n, c], the rounds' (nodes, leaves) when
+    ``keep_trees``, on the flat [n_rounds, T, ...] tree axis)."""
     T, n = w.shape
     dev = Xb.device
+    K = trees_per_round
     P = _pool_size(max_depth, frontier)
     c = n_classes if loss == "softmax" else 1
     F = base[:, None, None].expand(T, n, c).contiguous()
     Fs = F if loss == "softmax" else F.view(T, n)
-    lshape = (T, P, c) if loss == "softmax" else (T, P)
-    ghw = torch.empty((T, n, c + 1), dtype=torch.float32, device=dev)
+    lshape = (T * K, P, c) if loss == "softmax" else (T * K, P)
+    ghw = torch.empty((T * K, n, c + 1), dtype=torch.float32, device=dev)
     if keep_trees:
-        nodes_all = torch.empty((n_rounds, T, P, 4), dtype=torch.int32, device=dev)
-        leaf_all = torch.empty((n_rounds,) + lshape, dtype=torch.float32, device=dev)
-    nodes = torch.empty((T, P, 4), dtype=torch.int32, device=dev)
+        _require(K == 1 or T == 1, "keep_trees with trees_per_round > 1 takes one batch element")
+        nodes_all = torch.empty((n_rounds // K, T * K, P, 4), dtype=torch.int32, device=dev)
+        leaf_all = torch.empty((n_rounds // K,) + lshape, dtype=torch.float32, device=dev)
+    nodes = torch.empty((T * K, P, 4), dtype=torch.int32, device=dev)
     leaf = torch.empty(lshape, dtype=torch.float32, device=dev)
     if loss == "softmax":
         step = softmax_boost_step
     else:
-        def step(F_, y_, w_, eta_, lf_=None, rn_=None, ghw_=None):
-            boost_step(F_, y_, w_, eta_, lf_, rn_, ghw_, loss)
+        def step(F_, y_, w_, eta_, lf_=None, rn_=None, ghw_=None, rw_=None):
+            boost_step(F_, y_, w_, eta_, lf_, rn_, ghw_, loss, rw_)
+    if K > 1:
+        params = params.repeat_interleave(K, dim=0)
     prev = (None, None)
-    for r in range(n_rounds):
-        w_r = w * row_w_rounds[r][None]
-        fm = feat_mask_rounds[r][None].expand(T, -1).contiguous()
-        step(Fs, y, w_r, eta, prev[0], prev[1], ghw)
+    rw = None
+    for r in range(n_rounds // K):
+        if K == 1:
+            w_r = w * row_w_rounds[r][None]
+            fm = feat_mask_rounds[r][None].expand(T, -1).contiguous()
+            step(Fs, y, w_r, eta, prev[0], prev[1], ghw)
+        else:
+            rw = row_w_rounds[r * K:(r + 1) * K].to(dev, torch.float32).contiguous()
+            fm = feat_mask_rounds[r * K:(r + 1) * K][None].expand(T, -1, -1).reshape(T * K, -1)
+            step(Fs, y, w, eta, prev[0], prev[1], ghw, rw)
         nd, lf = (nodes_all[r], leaf_all[r]) if keep_trees else (nodes, leaf)
-        _, _, row_node = grow_trees(Xb, ghw, fm, params, max_depth, n_bins, frontier,
-                                    exact_cap, nd, lf)
+        _, _, row_node = grow_trees(Xb, ghw, fm.contiguous(), params, max_depth, n_bins,
+                                    frontier, exact_cap, nd, lf)
         prev = (lf, row_node)
     if n_rounds:
-        step(Fs, y, w, eta, prev[0], prev[1])
-    trees = (nodes_all, leaf_all) if keep_trees else None
+        step(Fs, y, w, eta, prev[0], prev[1], None, rw)
+    trees = None
+    if keep_trees:  # step r's tree tK + k is round rK + k's
+        trees = (nodes_all.reshape((n_rounds, T) + nodes_all.shape[2:]),
+                 leaf_all.reshape((n_rounds, T) + leaf_all.shape[2:]))
     return F, trees
 
 
-def _boost_args(loss: str, n_classes: int, trees_per_round: int) -> None:
+def _boost_args(loss: str, n_classes: int, n_rounds: int, trees_per_round: int) -> int:
+    """Check a boosting call's loss and classes; the collapse factor K (1
+    for ``trees_per_round`` <= 1), which must divide ``n_rounds``."""
     if loss not in BOOST_LOSSES:
         raise ValueError(f"unknown loss {loss!r}")
     if loss == "softmax" and not 2 <= int(n_classes) <= MAX_CHANNELS:
         raise ValueError(f"softmax boosting takes 2 to {MAX_CHANNELS} classes, got {n_classes}")
-    if int(trees_per_round) != 1:
-        raise NotImplementedError("trees_per_round > 1 (round collapse) is not ported yet")
+    K = max(int(trees_per_round), 1)
+    if n_rounds % K:
+        raise ValueError(f"trees_per_round={K} must divide n_rounds={n_rounds}")
+    return K
 
 
 def fit_gbt(Xb: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
@@ -1190,17 +1360,22 @@ def fit_gbt(Xb: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
     device.
 
     ``row_w_rounds`` f32[R, n] and ``feat_mask_rounds`` f32[R, d] are the
-    per-round subsample and colsample masks.  Returns (the stacked ``Tree``
-    [R, P] with leaves [R, P, c], final margins F f32[n, c]; c = 1 but for
-    the softmax's ``n_classes``)."""
-    _boost_args(loss, n_classes, trees_per_round)
+    per-round subsample and colsample masks.  ``trees_per_round`` = K > 1
+    collapses the chain: ``n_rounds / K`` steps of K trees on shared
+    gradients at ``eta / K`` (K must divide ``n_rounds``), each tree with
+    its round's masks; ``predict_gbt`` at ``eta / K`` scores the stacked
+    trees.  Returns (the stacked ``Tree`` [R, P] with leaves [R, P, c],
+    final margins F f32[n, c]; c = 1 but for the softmax's
+    ``n_classes``)."""
+    K = _boost_args(loss, n_classes, n_rounds, trees_per_round)
     dev = Xb.device
     params = torch.tensor([[reg_lambda, gamma, min_child_weight, min_info_gain]],
                           dtype=torch.float32, device=dev)
     F, (nodes, leaf) = _boost(
         Xb, y.to(dev, torch.float32), w.to(dev, torch.float32)[None], row_w_rounds,
         feat_mask_rounds, loss, n_rounds, max_depth, n_bins, frontier, _f32(eta, 1, dev), params,
-        _f32(base_score, 1, dev), exact_cap, keep_trees=True, n_classes=n_classes)
+        _f32(base_score, 1, dev), exact_cap, keep_trees=True, n_classes=n_classes,
+        trees_per_round=K)
     return as_tree(nodes[:, 0], leaf[:, 0]), F[0]
 
 
@@ -1213,8 +1388,9 @@ def fit_gbt_batch(Xb: torch.Tensor, y: torch.Tensor, w_batch: torch.Tensor,
     """The fold x grid boosting sweep: ``w_batch`` f32[B, n] carries each
     batch element's fold-mask x sample weights, the ``*_b`` arrays its
     hyperparameters and starting margin.  All B trees of a round grow
-    together.  Returns the final margins F f32[B, n, c] on every row."""
-    _boost_args(loss, n_classes, trees_per_round)
+    together (B K trees a step with ``trees_per_round`` = K > 1, as
+    ``fit_gbt``).  Returns the final margins F f32[B, n, c] on every row."""
+    K = _boost_args(loss, n_classes, n_rounds, trees_per_round)
     dev = Xb.device
     B = w_batch.shape[0]
     zeros = np.zeros(B, np.float32)
@@ -1226,7 +1402,7 @@ def fit_gbt_batch(Xb: torch.Tensor, y: torch.Tensor, w_batch: torch.Tensor,
                   row_w_rounds, feat_mask_rounds, loss, n_rounds, max_depth, n_bins, frontier,
                   _f32(eta_b, B, dev), params,
                   _f32(zeros if base_score_b is None else base_score_b, B, dev),
-                  exact_cap, keep_trees=False, n_classes=n_classes)
+                  exact_cap, keep_trees=False, n_classes=n_classes, trees_per_round=K)
     return F
 
 

@@ -1,5 +1,6 @@
 """Triton kernels K-H (boost_step) and K-R (softmax_boost_step): the
-boosting round's elementwise pass.
+boosting round's elementwise pass, and their collapse modes
+(``collapse_step_kernel``) for round-collapsed boosting.
 
 Imported only by the launching wrappers ``ops/trees.py::boost_step`` and
 ``::softmax_boost_step``, on a host with Triton and a CUDA card; no other
@@ -31,6 +32,24 @@ versions round them; ``exp`` is
 libdevice's ``expf``, which may differ from the reference's in the last
 bit.  Bound on the card: bytes (F read and written, y, w and the row's node
 read, one leaf row gathered, the gradients and hessian written).
+
+The collapse modes (``collapse_step_kernel``, ``trees_per_round`` = K > 1)
+replace the reference's round-collapsed update and gradients
+(``transmogrifai_tpu/ops/trees.py:1168-1185``, ``:1301-1330``): for batch
+element b and row r, the K leaves of trees bK .. bK + K - 1 are summed in
+the order XLA's CPU code reduces the reference's ``leaves.sum`` over K
+(pairwise halving, leaf k with leaf k + K / 2, when K is a power of two;
+in tree order otherwise), scaled by ``eta_b * float32(1 / K)`` (XLA's
+product with the reciprocal for the reference's ``eta / K``) and added to
+each margin channel in one fused multiply-add (for every loss: XLA's CPU
+code contracts the reference's collapsed update so); then the
+gradients at the new margins are formed once and written as K weighted
+planes, tree bK + k with weights ``w[b] * rw[k]`` (the product formed
+first, as the reference's ``w_batch[:, None, :] * rwk[None]``), so one
+launch a step feeds the grower's B * K trees.  For a power of two K the
+K leaf rows are loaded as one tile and halved in registers.  Bound:
+bytes (F read and written, the K nodes read, the leaf pools once, y, w
+and the K subsample rows read, K gradient planes written).
 """
 import triton
 import triton.language as tl
@@ -161,3 +180,99 @@ def _binary_step(F_ptr, y_ptr, w_ptr, eta_ptr, leaf_ptr, node_ptr, ghw_ptr, n, P
             h = _mul(tl.maximum(_mul(p, _sub(one, p)), 1e-6), w)
         tl.store(ghw_ptr + 2 * i, g, mask=ok)
         tl.store(ghw_ptr + 2 * i + 1, h, mask=ok)
+
+
+# ---------------------------------------------------------------------------
+# The collapse modes: K trees a batch element (round-collapsed boosting)
+# ---------------------------------------------------------------------------
+@triton.jit
+def _leaf_sum(leaf_ptr, node_ptr, t0, r, ok, n, P, C, cols, okc, KT: tl.constexpr,
+              HALVINGS: tl.constexpr, CP: tl.constexpr, BLOCK: tl.constexpr):
+    """Sum of the [BLOCK, CP] leaf rows of trees t0 .. t0 + KT - 1 at rows r
+    in XLA's order.  KT a power of two (2^HALVINGS): the KT leaf rows as one
+    [BLOCK, KT CP] tile (tree k's channel c in column k CP + c), halved
+    HALVINGS times, each column of the first half plus the same column of
+    the second (one rounded add); in tree order otherwise."""
+    if (KT & (KT - 1)) == 0:
+        m = tl.arange(0, KT * CP)[None, :]
+        t = t0 + m // CP
+        c = m % CP
+        okm = ok[:, None] & (c < C)
+        node = tl.load(node_ptr + t * n + r[:, None], mask=okm, other=0)
+        acc = tl.load(leaf_ptr + (t * P + node) * C + c, mask=okm, other=0.0)
+        for h in tl.static_range(HALVINGS):
+            lo, hi = tl.split(tl.permute(tl.reshape(acc, [BLOCK, 2, (KT * CP) >> (h + 1)]),
+                                         [0, 2, 1]))
+            acc = _add(lo, hi)
+    else:
+        node = tl.load(node_ptr + t0 * n + r, mask=ok, other=0)
+        acc = tl.load(leaf_ptr + (t0 * P + node)[:, None] * C + cols, mask=okc, other=0.0)
+        for k in tl.static_range(1, KT):
+            node = tl.load(node_ptr + (t0 + k) * n + r, mask=ok, other=0)
+            acc = _add(acc, tl.load(leaf_ptr + ((t0 + k) * P + node)[:, None] * C + cols,
+                                    mask=okc, other=0.0))
+    return acc
+
+
+@triton.jit
+def collapse_step_kernel(F_ptr, y_ptr, w_ptr, rw_ptr, eta_ptr, leaf_ptr, node_ptr, ghw_ptr, n, P,
+                         inv_trees, inv_c, UPDATE: tl.constexpr, GRAD: tl.constexpr,
+                         LOSS: tl.constexpr, KT: tl.constexpr, HALVINGS: tl.constexpr,
+                         C: tl.constexpr, CP: tl.constexpr, BLOCK: tl.constexpr):
+    """One round-collapsed boosting step of batch element b = program_id(1)
+    over C margin channels (1 for the logistic and squared losses, the k
+    classes of the softmax): the K-leaf update, then K gradient planes."""
+    b = tl.program_id(1)
+    r = tl.program_id(0) * BLOCK + tl.arange(0, BLOCK)
+    ok = r < n
+    i = b.to(tl.int64) * n + r
+    cols = tl.arange(0, CP)[None, :]
+    okc = ok[:, None] & (cols < C)
+    zero = tl.zeros([BLOCK, CP], tl.float32)
+    f = tl.load(F_ptr + i[:, None] * C + cols, mask=okc, other=0.0)
+    if UPDATE:
+        a = _mul(zero + tl.load(eta_ptr + b), zero + inv_trees)
+        s = _leaf_sum(leaf_ptr, node_ptr, b.to(tl.int64) * KT, r, ok, n, P, C, cols, okc, KT,
+                      HALVINGS, CP, BLOCK)
+        f = _fma(a, s, f)
+        tl.store(F_ptr + i[:, None] * C + cols, f, mask=okc)
+    if GRAD:
+        one = tl.full([BLOCK], 1.0, tl.float32)
+        y = tl.load(y_ptr + r, mask=ok, other=0.0)
+        w = tl.load(w_ptr + i, mask=ok, other=0.0)
+        if LOSS == 2:
+            fm = tl.where(okc, f, float("-inf"))
+            mx = tl.max(fm, axis=1)
+            e = tl.where(okc, libdevice.exp(_sub(f, mx[:, None] + zero)), 0.0)
+            se = _column(e, cols, 0)
+            for j in tl.static_range(1, C):
+                se = _add(se, _column(e, cols, j))
+            p = _div(e, se[:, None] + zero)
+            onehot = tl.where(cols == y.to(tl.int32)[:, None], 1.0, 0.0)
+            g = _sub(p, onehot)
+            q = _sub(zero + 1.0, p)
+            h = _mul(_column(p, cols, 0), _column(q, cols, 0))
+            for j in tl.static_range(1, C):
+                h = _fma(_column(p, cols, j), _column(q, cols, j), h)
+            h = tl.maximum(_mul(h, tl.zeros([BLOCK], tl.float32) + inv_c), 1e-6)
+        else:
+            f0 = _column(f, cols, 0)
+            if LOSS == 1:
+                g = _sub(f0, y)
+            else:
+                p = _div(one, _add(one, libdevice.exp(-f0)))
+                g = _sub(p, y)
+                h = tl.maximum(_mul(p, _sub(one, p)), 1e-6)
+        for k in tl.static_range(KT):
+            wk = _mul(w, tl.load(rw_ptr + k * n + r, mask=ok, other=0.0))
+            j = (b.to(tl.int64) * KT + k) * n + r
+            if LOSS == 2:
+                tl.store(ghw_ptr + j[:, None] * (C + 1) + cols, _mul(g, wk[:, None] + zero),
+                         mask=okc)
+                tl.store(ghw_ptr + j * (C + 1) + C, _mul(h, wk), mask=ok)
+            else:
+                tl.store(ghw_ptr + 2 * j, _mul(g, wk), mask=ok)
+                if LOSS == 1:
+                    tl.store(ghw_ptr + 2 * j + 1, wk, mask=ok)
+                else:
+                    tl.store(ghw_ptr + 2 * j + 1, _mul(h, wk), mask=ok)
