@@ -333,7 +333,24 @@ Phases, each printing its findings on a line of its own:
 52. logistic sweep -- ``parallel/sweep.sharded_logistic_sweep`` on the
                ``--train-rows`` Titanic vector (3 folds, 8 l2 values) with
                K-AE's launches counted, and K-AE against its plain version,
-               timed beside its bound and ``torch.matmul`` of the margins.
+               timed beside its bound and ``torch.matmul`` of the margins;
+53. many reference -- the multiclass selector past 8 classes on a
+               Letter-Recognition-shaped flow (``fixtures.letters_data``):
+               the 26-class stock train against ``letters_stock``, the
+               JAX-saved and port-saved 26-class models' answers, the
+               ``many_class`` trains (26 and 64 classes fused, 70
+               per-family, 10-class softmax boosting at trees_per_round 1
+               and 4 and the full XGBoost grid), a 100-class per-family
+               train against the same train on the CPU;
+54. many train -- the stock space at 26 classes on 2^16 rows, 64 on 2^15
+               and 26 on 2^17 (four fused candidate chunks), each a main
+               path: launches, wall, busy time, idle share, peak memory;
+55. many kernels -- K-P, K-Q, K-E, K-F and K-M at 26 and 64 classes on those
+               trains' sweep calls against their plain versions (the plain
+               versions timed over 5 runs);
+56. many extra kernels -- off the path: K-R's step and collapse modes at 26
+               and 64 classes, K-P's wide entry at 26 classes and p = 85,
+               K-B over a 26-class forest.
 
 The line before the last holds the kernels' JSON record, then the card's
 name and power limit; the last line is ``{"ok": true, "device": ...}``.  Any
@@ -1509,9 +1526,16 @@ def iris_train_phase(torch, iris, rows, seed, kernels, dev="cuda"):
     return launches, rec.calls[0]
 
 
-def iris_kernel_phase(torch, call, timer):
+def iris_kernel_phase(torch, call, timer, names=None, phase="iris_kernels", plain_timer=None,
+                      tree_call=None):
     """K-P, K-Q and c = 3 K-E / K-F / K-M against their plain versions on
-    the sweep call of the ``--train-rows`` Iris train."""
+    the sweep call of the ``--train-rows`` Iris train (any multiclass sweep
+    call: ``names`` renames the records, ``plain_timer`` times the plain
+    versions, ``tree_call`` gives K-E / K-F / K-M their forests)."""
+    names = {**{b: b for b in ("softmax_fista_grad", "multiclass_metrics")},
+             **{b: b + "_c3" for b in ("level_hist", "split_scan", "forest_leaf_mean")},
+             **(names or {})}
+    plain_timer = plain_timer or timer
     from transmogrifai_tpu_torch.ops import linear as L
     from transmogrifai_tpu_torch.ops import metrics as M
     from transmogrifai_tpu_torch.ops import sweep as SW
@@ -1576,10 +1600,11 @@ def iris_kernel_phase(torch, call, timer):
     b, by = bound_ms((n * p + F * n + n) * 4 + C * p * k * 4 * 3 + C * 4,
                      C * n * (4 * p * k + 6 * k))
     records.append(dict(
-        name="softmax_fista_grad", route="cuda", source="transmogrifai_tpu_torch/csrc/fista.cu",
+        name=names["softmax_fista_grad"], route="cuda",
+        source="transmogrifai_tpu_torch/csrc/fista.cu",
         replaces="transmogrifai_tpu/ops/linear.py:148", max_abs_err=max(errs),
         ms=timer(lambda: L.softmax_fista_grad(*args)),
-        plain_ms=timer(lambda: L.softmax_fista_grad_plain(*args)),
+        plain_ms=plain_timer(lambda: L.softmax_fista_grad_plain(*args)),
         bound_ms=b, bound_by=by, library_ms=timer(library_grad)))
     check(float((library_grad() - L.softmax_fista_grad(*args)).abs().max())
           <= 1e-5 * scales[0], "the library yardstick computes another function")
@@ -1598,16 +1623,20 @@ def iris_kernel_phase(torch, call, timer):
     # row written; about k + 6 operations an element
     b, by = bound_ms(R * n * k * 4 + n * 4 + F * n * 4 + R * 16, R * n * (k + 6))
     records.append(dict(
-        name="multiclass_metrics", route="cuda",
+        name=names["multiclass_metrics"], route="cuda",
         source="transmogrifai_tpu_torch/csrc/multiclass_metrics.cu",
         replaces="transmogrifai_tpu/ops/metrics.py:162", max_abs_err=0.0,
         ms=timer(lambda: M.multiclass_metrics(probs, y, vm, Cs)),
-        plain_ms=timer(lambda: M.multiclass_metrics_plain(probs, y, vm, Cs)),
+        plain_ms=plain_timer(lambda: M.multiclass_metrics_plain(probs, y, vm, Cs)),
         bound_ms=b, bound_by=by, library_ms=None))
     del scores, probs
 
     # K-E / K-F over c = 3 class channels: the deepest level of the depth-12
     # group's first (fold, candidate) forest, 50 trees
+    if tree_call is not None:
+        plan = tree_call[0]
+        X, y, xbs, blob = plan.X, plan.y, plan.xbs, np.asarray(plan.blob, np.float32)
+        frags = {f[0]: f for f in plan.spec[1]}
     group = max(frags["forest"][2], key=lambda g: g[1])
     (gcis, depth, n_trees, xb_idx, B, frac, rate, bag, seed, frontier, exact, _,
      off_mcw, off_mig) = group
@@ -1643,10 +1672,11 @@ def iris_kernel_phase(torch, call, timer):
     b, by = bound_ms(n * d + T * n * (4 * C1 + 4) + e_args[5].numel() * 4 + T * pairs * 8
                      + hist_bytes, T * n * d * C1)
     records.append(dict(
-        name="level_hist_c3", route="cuda", source="transmogrifai_tpu_torch/csrc/level_hist.cu",
+        name=names["level_hist"], route="cuda",
+        source="transmogrifai_tpu_torch/csrc/level_hist.cu",
         replaces="transmogrifai_tpu/ops/trees.py:327", max_abs_err=0.0,
         ms=timer(lambda: Tr.level_hist_launch(*e_args)),
-        plain_ms=timer(lambda: Tr.level_hist_plain(*e_args)),
+        plain_ms=plain_timer(lambda: Tr.level_hist_plain(*e_args)),
         bound_ms=b, bound_by=by,
         library_ms=timer(lambda: torch.index_add(zeros, 0, idx, src))))
     del idx, src, zeros
@@ -1662,11 +1692,12 @@ def iris_kernel_phase(torch, call, timer):
     b, by = bound_ms(hist_bytes + T * m_deep * 32 + T * nc * (16 + 4 * k + 8),
                      T * m_deep * d * B * (10 + 4 * k))
     records.append(dict(
-        name="split_scan_c3", route="cuda", source="transmogrifai_tpu_torch/csrc/split_scan.cu",
+        name=names["split_scan"], route="cuda",
+        source="transmogrifai_tpu_torch/csrc/split_scan.cu",
         replaces="transmogrifai_tpu/ops/trees.py:449", max_abs_err=0.0,
         ms=timer(lambda: Tr.split_scan(*f_args)),
-        plain_ms=timer(lambda: Tr.split_scan_plain(*f_args[:4], f_args[4].clone(),
-                                                   f_args[5].clone(), *f_args[6:])),
+        plain_ms=plain_timer(lambda: Tr.split_scan_plain(*f_args[:4], f_args[4].clone(),
+                                                         f_args[5].clone(), *f_args[6:])),
         bound_ms=b, bound_by=by, library_ms=None))
     del e_args, f_args, outs, ghw, w_t
 
@@ -1679,13 +1710,13 @@ def iris_kernel_phase(torch, call, timer):
     # the rows' leaves read once, the pools read once, the means written
     b, by = bound_ms(Gg * Tg * n * 4 + Gg * Tg * P_ * c * 4 + Gg * n * c * 4, Gg * Tg * n * c)
     records.append(dict(
-        name="forest_leaf_mean_c3", route="triton",
+        name=names["forest_leaf_mean"], route="triton",
         source="transmogrifai_tpu_torch/ops/triton_forest.py",
         replaces="transmogrifai_tpu/ops/sweep.py:253", max_abs_err=0.0,
         ms=timer(lambda: Tr.forest_leaf_mean(leaf, row_node)),
-        plain_ms=timer(lambda: Tr.forest_leaf_mean_plain(leaf, row_node)),
+        plain_ms=plain_timer(lambda: Tr.forest_leaf_mean_plain(leaf, row_node)),
         bound_ms=b, bound_by=by, library_ms=timer(lambda: leaf.gather(2, rn_long).mean(1))))
-    log("iris_kernels", rows=n, shapes={"X1": [n, p], "fits": C, "classes": k,
+    log(phase, rows=n, shapes={"X1": [n, p], "fits": C, "classes": k,
                                         "score_rows": R, "probs": [F, Cs, n, k],
                                         "level_trees": T, "depth": depth,
                                         "hist": [T, m_deep, C1, d, B],
@@ -4298,6 +4329,258 @@ def slice12_phases(torch, titanic, iris, boston, FX, args, timer, dev="cuda"):
     return records + [sweep_record], launches
 
 
+# ---------------------------------------------------------------------------
+# slice 13: the multiclass selector past 8 classes
+# ---------------------------------------------------------------------------
+#: the card-size trains of the Letter flow: (phase, classes, rows).  Each
+#: takes the fused sweep: past the 2e9-byte score guard of all 26
+#: candidates (26 classes at 2^17 rows), the validator cuts the candidates
+#: into chunks whose scores fit ``FUSED_SCORES_BYTES``, each a fused call,
+#: as the JAX package's does
+MANY_TRAINS = (("letters26_fused_train", 26, 1 << 16),
+               ("letters64_fused_train", 64, 1 << 15),
+               ("letters26_chunked_train", 26, 1 << 17))
+#: rows of the 100-class per-family train, held against the port's own CPU run
+LETTERS100_ROWS = 400
+
+
+def many_reference_phase(torch, FX, dev="cuda"):
+    """Phase 53: the Letter flow against the JAX package's fixtures on the
+    card: the 26-class stock train at ``FX.LETTERS_ROWS`` rows (winner, fold
+    Errors, the fused call's metrics: ``FX.check_letters_train``), the
+    JAX-saved 26-class model's 256 answers and the port-saved one's, each of
+    ``FX.MANY_RUNS`` (the fused 26 / 64, the per-family 70, the 10-class
+    boosting at ``trees_per_round`` 1 and 4 and the full XGBoost grid:
+    ``FX.check_many_class_train``), and a 100-class per-family train against
+    the same train on the CPU (the same winner and fold Errors)."""
+    import tempfile
+
+    import transmogrifai_tpu_torch as P
+
+    out = {}
+    wf, _ = FX.letters_workflow()
+    (model, wall, calls) = timed_train(
+        torch, lambda: wf.set_input_dataset(FX.letters_data(), key="id").train(device=dev))
+    metrics = np.stack([np.asarray(c[3]) for c in calls])
+    out["letters_stock"] = {"wall_s": wall, **FX.check_letters_train(model, metrics),
+                            "best": model.stages[-1].summary.best_model_name,
+                            "best_grid": model.stages[-1].summary.best_grid,
+                            "timings_s": dict(wf.train_timings)}
+    out["letters_fixture_model"] = FX.check_letters_answers(P.load_model(FX.LETTERS_STOCK,
+                                                                         device=dev))
+    with tempfile.TemporaryDirectory() as tmp:
+        model.save(tmp)
+        cols = FX.load_columns(FX.LETTERS_STOCK + "/requests.npz")
+        exp = FX.load_expected(FX.LETTERS_STOCK + "/expected.npz")
+        pm = P.load_model(tmp, device=dev)
+        name = pm.result_features[0].name
+        pred, prob, _ = FX.multiclass_predictions(P.BatchScoreFunction(pm)(FX.records(cols)),
+                                                  name, exp["probability"].shape[1])
+    out["letters_port_saved_model"] = {
+        "prediction_mismatches": int(np.sum(pred != exp["prediction"])),
+        "probability_max_abs_err": float(np.max(np.abs(prob - exp["probability"])))}
+    for run, (k, rows, space) in FX.MANY_RUNS.items():
+        wf, _ = FX.letters_workflow(FX.port_many_run_space(space))
+        (m, wall, calls) = timed_train(
+            torch, lambda: wf.set_input_dataset(FX.letters_data(rows, k, 1), key="id")
+            .train(device=dev))
+        out[run] = {"wall_s": wall, **FX.check_many_class_train(m, run, [c[3] for c in calls])}
+    runs = {}
+    for where in (dev, "cpu"):
+        wf, _ = FX.letters_workflow(FX.port_many_run_space("many"))
+        t = time.perf_counter()
+        m = wf.set_input_dataset(FX.letters_data(LETTERS100_ROWS, 100, 1), key="id") \
+            .train(device=where)
+        runs[str(where)] = (m.stages[-1].summary, time.perf_counter() - t)
+    card, cpu = runs[str(dev)][0], runs["cpu"][0]
+    fc = np.array([r["foldMetrics"] for r in card.validation_results])
+    fp = np.array([r["foldMetrics"] for r in cpu.validation_results])
+    check((card.best_model_name, card.best_grid) == (cpu.best_model_name, cpu.best_grid),
+          "the 100-class winner differs between the card and the CPU")
+    # the forests bit for bit; the softmax fits (K-P against its plain
+    # version within float32 rounding) within FX.MANY_FLIP_ROWS rows of a
+    # fold of at least LETTERS100_ROWS / 4 validation rows
+    lr = np.array([r["modelName"] == "OpLogisticRegression" for r in card.validation_results])
+    check(np.array_equal(fc[~lr], fp[~lr]) and np.all(
+        np.abs(fc[lr] - fp[lr]) <= FX.MANY_FLIP_ROWS["OpLogisticRegression"]
+        / (LETTERS100_ROWS // 4) + 1e-7),
+          f"100-class fold Errors {fc.tolist()} against {fp.tolist()}")
+    out["family100"] = {"card_s": runs[str(dev)][1], "cpu_s": runs["cpu"][1],
+                        "classes": len(card.data_prep_results["labelsKept"]),
+                        "best": card.best_model_name, "best_grid": card.best_grid}
+    log("many_reference", **out)
+
+
+def many_train_phase(torch, FX, kernels, dev="cuda"):
+    """Phase 54: runs 1-3 of the Letter flow at the card's sizes (the stock
+    space: 26 classes at 2^16 rows, 64 at 2^15, 26 at 2^17 in more candidate
+    chunks of the fused sweep): each
+    kernel's launches reset just before and read just after the train,
+    wall, the profiled second run's busy time and idle share, peak device
+    memory.  Returns ({phase: launches}, {phase: the first and the last sweep
+    call})."""
+    launches, calls = {}, {}
+    for phase, k, rows in MANY_TRAINS:
+        cols = FX.letters_data(rows, k, 0)
+
+        def train():
+            wf, _ = FX.letters_workflow()
+            return wf.set_input_dataset(cols, key="id").train(device=dev), wf
+
+        def check_fn(model, k=k):
+            summ = model.stages[-1].summary
+            folds = np.array([r["foldMetrics"] for r in summ.validation_results])
+            check(len(folds) == 26 and np.isfinite(folds).all() and folds.min() >= 0.0
+                  and folds.min() < 1.0 - 1.0 / k, f"bad fold Errors {folds.tolist()}")
+            check(len(summ.data_prep_results["labelsKept"]) == k, "labels dropped")
+            return {"best_mean_error": float(min(r["metricValue"]
+                                                 for r in summ.validation_results)),
+                    "holdout_error": summ.holdout_evaluation["Error"]}
+
+        required = ["level_hist", "split_scan", "route_rows", "softmax_fista_grad",
+                    "threefry_draws", "multiclass_metrics", "forest_leaf_mean"]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        launches[phase], c, _ = scale_train_phase(torch, phase, train, kernels, required,
+                                                  check_fn)
+        log(phase + "_memory", rows=rows, classes=k, sweep_calls=len(c),
+            peak_device_bytes=int(torch.cuda.max_memory_allocated()))
+        calls[phase] = (c[0], c[-1])  # the LR chunk; the deepest forests' chunk
+    return launches, calls
+
+
+#: K-R's gradients against plain past 8 classes: libdevice's expf against
+#: the host's, as at k <= 8
+MANY_BOOST_ROWS = 1 << 16
+
+
+def many_extra_kernel_phase(torch, timer, plain_timer, dev="cuda"):
+    """Phase 56: the changed kernels off the Letter flow's path, against
+    their plain versions at the slice's shapes: K-R's step and collapse
+    modes at 26 and 64 classes (6 fits, 2^16 rows, 63 leaves, K = 4), K-P's
+    wide entry at 26 classes and p = 85 (12 fits, 2^17 rows), K-B's walk
+    over a 26-class forest (50 trees of depth 12, 2^16 rows).  Logged, not
+    in the ``kernels`` line (no launch on a main path)."""
+    from transmogrifai_tpu_torch.ops import linear as L
+    from transmogrifai_tpu_torch.ops import trees as Tr
+
+    rng = np.random.default_rng(13)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    out = {}
+    n, B, P_, K = MANY_BOOST_ROWS, 6, 63, 4
+    for k in (26, 64):
+        F = t((rng.normal(size=(B, n, k)) * 2).astype(np.float32))
+        y = t(rng.integers(0, k, n).astype(np.float32))
+        w = t(rng.integers(0, 3, (B, n)).astype(np.float32))
+        eta = t(rng.random(B).astype(np.float32))
+        for mode, KK in (("step", 1), ("collapse", K)):
+            leaf = t(rng.normal(size=(B * KK, P_, k)).astype(np.float32))
+            node = t(rng.integers(0, P_, (B * KK, n)).astype(np.int32))
+            rw = t((rng.random((KK, n)) < 0.8).astype(np.float32)) if KK > 1 else None
+            F1, F2 = F.clone(), F.clone()
+            g1 = torch.empty((B * KK, n, k + 1), device=dev)
+            g2 = torch.empty_like(g1)
+            run = lambda: Tr.softmax_boost_step(F1, y, w, eta, leaf, node, g1, rw)  # noqa
+            plain = lambda: Tr.softmax_boost_step_plain(F2, y, w, eta, leaf, node, g2, rw)  # noqa
+            run()
+            plain()
+            torch.cuda.synchronize()
+            check(torch.equal(F1, F2), f"K-R {mode} at k = {k}: margins differ from plain")
+            err = float((g1 - g2).abs().max())
+            check(err <= COLLAPSE_GRAD_ATOL, f"K-R {mode} at k = {k}: gradients {err}")
+            # F read and written, w and y read, the nodes read, the leaf pools
+            # once, the gradient planes written; ~30 operations a channel and
+            # 2 K a channel for the update
+            b, by = bound_ms(B * n * (8 * k + 4) + B * KK * n * (4 + 4 * (k + 1))
+                             + n * 4 * (1 + KK) + B * KK * P_ * k * 4,
+                             B * n * (2 * KK * k + 30 * k + 2 * KK * (k + 1)))
+            out[f"softmax_boost_step_{mode}_k{k}"] = {
+                "ms": timer(run), "plain_ms": plain_timer(plain), "bound_ms": b, "bound_by": by,
+                "max_abs_err": err, "shape": [B, KK, n, k]}
+            del F1, F2, g1, g2, leaf, node
+    # K-P's wide entry at p = 85, 26 classes
+    n, p, k, C, Fo = 1 << 17, 85, 26, 12, 3
+    X1 = rng.normal(size=(n, p)).astype(np.float32)
+    X1[:, -1] = 1.0
+    l2m = np.full((C, p, k), 0.01, np.float32)
+    l2m[:, -1] = 0.0
+    w = rng.integers(0, 3, (Fo, n)).astype(np.float32)
+    fold = (np.arange(C) % Fo).astype(np.int32)
+    args = [t(a) for a in (X1, rng.integers(0, k, n).astype(np.float32), w, fold,
+                            (0.1 * rng.normal(size=(C, p, k))).astype(np.float32), l2m,
+                            np.maximum(w.sum(1), 1.0)[fold].astype(np.float32))]
+    got, want = L.softmax_fista_grad(*args), L.softmax_fista_grad_plain(*args)
+    err = float((got - want).abs().max())
+    check(err <= SOFTMAX_GRAD_RTOL * float(want.abs().max()), f"K-P wide at k = 26: {err}")
+    b, by = bound_ms((n * p + Fo * n + n) * 4 + C * p * k * 12 + C * 4,
+                     C * n * (4 * p * k + 6 * k))
+    X1t, yt, wt, foldt, zt, l2t, wsumt = args
+    zf = zt.permute(1, 0, 2).reshape(p, C * k)
+    Yk = torch.nn.functional.one_hot(yt.long(), k).float().repeat(1, C)
+    wk = wt[foldt.long()].T.repeat_interleave(k, dim=1)
+
+    def library():  # two [n, p] x [p, C k] products for all fits, as iris_kernel_phase's
+        mu = torch.softmax(torch.matmul(X1t, zf).view(n, C, k), -1).view(n, C * k)
+        g = torch.matmul(X1t.T, wk * (mu - Yk)).view(p, C, k).permute(1, 0, 2)
+        return g / wsumt[:, None, None] + l2t * zt
+
+    check(float((library() - got).abs().max()) <= 1e-5 * float(want.abs().max()),
+          "the wide K-P's library yardstick computes another function")
+    out["softmax_fista_grad_wide_k26"] = {
+        "ms": timer(lambda: L.softmax_fista_grad(*args)),
+        "plain_ms": plain_timer(lambda: L.softmax_fista_grad_plain(*args)),
+        "library_ms": timer(library),
+        "bound_ms": b, "bound_by": by, "max_abs_err": err, "shape": [n, p, k, C]}
+    del args, got, want, zf, Yk, wk
+    # K-B over a 26-class forest
+    n, d, Bn, T, depth, k = 1 << 16, 32, 32, 50, 12, 26
+    Xb = t(rng.integers(0, Bn, (n, d)).astype(np.int8))
+    g = t(-np.eye(k, dtype=np.float32)[rng.integers(0, k, n)])
+    wt = t(rng.poisson(1.0, (T, n)).astype(np.float32))
+    fm = t((rng.random((T, d)) < 0.2).astype(np.float32))
+    hp = [np.full(T, v, np.float32) for v in (1e-6, 0.0, 10.0, 0.001)]
+    tree = Tr.grow_forest(Xb, g, torch.ones(n, device=dev), wt, fm, depth, Bn, 64, *hp)
+    got = Tr.ensemble_walk(Xb, tree, depth, "mean")[0]
+    want = Tr.ensemble_walk_plain(Xb, tree, depth, "mean")[0]
+    err = float((got - want).abs().max())
+    check(err <= 1e-5, f"K-B over 26 classes: {err}")
+    b, by = bound_ms(n * d + n * k * 4 + tree.leaf_val.numel() * 4, n * T * depth * 4)
+    out["ensemble_walk_c26"] = {
+        "ms": timer(lambda: Tr.ensemble_walk(Xb, tree, depth, "mean")),
+        "plain_ms": plain_timer(lambda: Tr.ensemble_walk_plain(Xb, tree, depth, "mean")),
+        "bound_ms": b, "bound_by": by, "max_abs_err": err, "shape": [n, T, depth, k]}
+    log("many_extra_kernels", **out)
+    return out
+
+
+def slice13_phases(torch, FX, timer, dev="cuda"):
+    """Phases 53-56.  Returns (the records, their launches on their main
+    paths)."""
+    from transmogrifai_tpu_torch.ops import linear as L
+    from transmogrifai_tpu_torch.ops import metrics as M
+    from transmogrifai_tpu_torch.ops import threefry as R
+    from transmogrifai_tpu_torch.ops import trees as Tr
+
+    many_reference_phase(torch, FX, dev)
+    kernels = (Tr.bin_rows, Tr.level_hist, Tr.split_scan, Tr.route_rows, Tr.forest_leaf_mean,
+               L.softmax_fista_grad, M.multiclass_metrics, R.threefry_draws)
+    launches, calls = many_train_phase(torch, FX, kernels, dev)
+    plain_timer = Timer(torch, 5)
+    records, by_name = [], {}
+    for phase, k in (("letters26_fused_train", 26), ("letters64_fused_train", 64)):
+        names = {"softmax_fista_grad": f"softmax_fista_grad_k{k}",
+                 "multiclass_metrics": f"multiclass_metrics_k{k}",
+                 "level_hist": f"level_hist_c{k}", "split_scan": f"split_scan_c{k}",
+                 "forest_leaf_mean": f"forest_leaf_mean_c{k}"}
+        recs = iris_kernel_phase(torch, calls[phase][0], timer, names, f"many_kernels_k{k}",
+                                 plain_timer, tree_call=calls[phase][1])
+        for base, name in names.items():
+            by_name[name] = launches[phase][base]
+        records += recs
+    many_extra_kernel_phase(torch, timer, plain_timer, dev)
+    return records, by_name
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4511,6 +4794,11 @@ def main(argv=None):
     slice12_records, slice12_launches = slice12_phases(torch, titanic, iris, boston, FX, args,
                                                        timer)
 
+    # 53-56. the multiclass selector past 8 classes: the Letter flow against
+    # the fixtures, runs 1-3 at the card's sizes, K-E / K-F / K-P / K-Q / K-M
+    # at 26 and 64 classes, K-R / the wide K-P / K-B off the path
+    slice13_records, slice13_launches = slice13_phases(torch, FX, timer)
+
     for r in records:
         r["launches"] = launches[r["name"]]
     for r in train_records:
@@ -4533,9 +4821,11 @@ def main(argv=None):
         r["launches"] = slice11_launches[r["name"]]
     for r in slice12_records:
         r["launches"] = slice12_launches[r["name"]]
+    for r in slice13_records:
+        r["launches"] = slice13_launches[r["name"]]
     records += (train_records + boston_records + iris_records + slice6_records
                 + families_records + kw_records + glm_records + stream_records + text_records
-                + slice11_records + slice12_records)
+                + slice11_records + slice12_records + slice13_records)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in records]}), flush=True)

@@ -193,8 +193,8 @@ def test_multiclass_metrics_refuse_what_they_cannot_count():
         PM.multiclass_grid_metrics(torch.tensor([0.0, 1.0, 3.0, 2.0]), probs, torch.ones(1, 4))
     with pytest.raises(ValueError, match="0/1"):
         PM.multiclass_grid_metrics(torch.zeros(4), probs, torch.full((1, 4), 0.5))
-    with pytest.raises(ValueError, match="2 to 8 classes"):
-        PM.multiclass_metrics(torch.zeros((1, 4, 9)), torch.zeros(4), torch.ones(1, 4), 1)
+    with pytest.raises(ValueError, match="2 to 128 classes"):
+        PM.multiclass_metrics(torch.zeros((1, 4, 129)), torch.zeros(4), torch.ones(1, 4), 1)
 
 
 # ---------------------------------------------------------------------------
@@ -229,15 +229,17 @@ def test_grow_forest_over_class_channels_bit_equal_to_jax(depth, wmax, exact):
 
 
 def test_class_channel_limits_raise():
+    """The ceiling is 128 class channels (tests/test_torch_many_classes.py
+    holds 9 to 100 against the JAX package)."""
     Xb = torch.zeros((4, 2), dtype=torch.int8)
-    with pytest.raises(ValueError, match="at most 8 gradient channels"):
-        PT.level_hist(Xb, torch.zeros((1, 4, 10)), torch.zeros((1, 4), dtype=torch.int32), 1, 4)
-    with pytest.raises(ValueError, match="at most 8 gradient channels"):
-        PT.split_scan(torch.zeros((1, 1, 10, 2, 4)), torch.ones((1, 2)), torch.ones((1, 4)),
+    with pytest.raises(ValueError, match="at most 128 gradient channels"):
+        PT.level_hist(Xb, torch.zeros((1, 4, 130)), torch.zeros((1, 4), dtype=torch.int32), 1, 4)
+    with pytest.raises(ValueError, match="at most 128 gradient channels"):
+        PT.split_scan(torch.zeros((1, 1, 130, 2, 4)), torch.ones((1, 2)), torch.ones((1, 4)),
                       torch.ones(1, dtype=torch.int32), torch.zeros((1, 7, 4), dtype=torch.int32),
-                      torch.zeros((1, 7, 9)), 0, 1, 2, PT.CAP_NONE, True)
-    with pytest.raises(ValueError, match="1 <= c <= 8"):
-        PT.grow_forest(Xb, torch.zeros((4, 9)), torch.ones(4), torch.ones((1, 4)),
+                      torch.zeros((1, 7, 129)), 0, 1, 2, PT.CAP_NONE, True)
+    with pytest.raises(ValueError, match="1 <= c <= 128"):
+        PT.grow_forest(Xb, torch.zeros((4, 129)), torch.ones(4), torch.ones((1, 4)),
                        torch.ones((1, 2)), 2, 4, 4, [1e-6], [0.0], [1.0], [0.0])
 
 
@@ -358,8 +360,11 @@ def test_multiclass_plan_refusals():
     # a two-class label trains the binary kernels (tests/test_torch_selector_branches.py)
     two = PSF.build_sweep_plan([(PRF(), [{}])], _t(X), (y > 0).astype(np.float32), tw, ev)
     assert two.spec[0] == ("multiclass", 2) and two.spec[1][0][:2] == ("forest", 1)
-    with pytest.raises(NotImplementedError, match="at most 8 classes"):
-        PSF.build_sweep_plan([(PRF(), [{}])], _t(X), np.arange(60.0) % 9, tw, ev)
+    # nine classes fuse as in the reference (it refuses labels past 63 only)
+    nine = PSF.build_sweep_plan([(PRF(), [{}])], _t(X), np.arange(60.0) % 9, tw, ev)
+    jnine = JSF.build_sweep_plan([(JRF(), [{}])], X, np.arange(60.0) % 9, tw,
+                                 JE.MultiClassification.error())
+    assert nine.spec == jnine.spec and nine.spec[0] == ("multiclass", 9)
     # the F1 metric is on the device too; a label outside 0..63 is not
     assert PSF.build_sweep_plan([(PRF(), [{}])], _t(X), y, tw,
                                 PE.MultiClassification.f1()) is not None

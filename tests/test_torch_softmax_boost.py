@@ -103,8 +103,8 @@ def test_softmax_hessian_is_bit_equal_given_the_references_probabilities(k):
 def test_softmax_boost_step_refuses_what_it_cannot_take():
     F0, y, w, eta, leaf, node = _step_case(3, n=50)
     args = (torch.from_numpy(y), torch.from_numpy(w), torch.from_numpy(eta))
-    with pytest.raises(ValueError, match="2 <= k <= 8"):
-        PT.softmax_boost_step(torch.zeros((3, 50, 9)), *args)
+    with pytest.raises(ValueError, match="2 <= k <= 128"):
+        PT.softmax_boost_step(torch.zeros((3, 50, 129)), *args)
     with pytest.raises(ValueError, match="ghw must be"):
         PT.softmax_boost_step(torch.from_numpy(F0), *args, ghw=torch.empty((3, 50, 3)))
     with pytest.raises(ValueError, match="leaf must be"):

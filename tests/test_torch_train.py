@@ -316,11 +316,11 @@ def test_boosting_raises_on_unported_losses_and_undivided_collapse():
     args = (torch.from_numpy(Xb), torch.from_numpy(y), torch.from_numpy(w),
             torch.ones((2, 50)), torch.ones((2, 6)))
     # the softmax loss is ported (tests/test_torch_softmax_boost.py); an
-    # unknown loss and a class count outside 2 .. 8 raise
+    # unknown loss and a class count outside 2 .. 128 raise
     with pytest.raises(ValueError, match="unknown loss"):
         PT.fit_gbt(*args, "hinge", 2, 2, 16, 4)
-    with pytest.raises(ValueError, match="2 to 8 classes"):
-        PT.fit_gbt(*args, "softmax", 2, 2, 16, 4, n_classes=9)
+    with pytest.raises(ValueError, match="2 to 128 classes"):
+        PT.fit_gbt(*args, "softmax", 2, 2, 16, 4, n_classes=129)
     # round collapse is ported (tests/test_torch_round_collapse.py); as in the
     # reference, the collapse factor must divide the rounds
     with pytest.raises(ValueError, match="must divide"):

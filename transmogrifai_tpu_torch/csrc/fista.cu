@@ -71,7 +71,25 @@
 // 8: 32 float32 accumulators), the grid's z axis walking the slabs; the
 // block's warps are summed in float64 in warp order into the chunk's
 // partial, and a warp an entry sums the chunks (softmax_finish_wide).
+//
+// Above 8 classes (up to 128, at any p up to 1,024) a thread can hold
+// neither a row's k margins nor 16 x k accumulators, so K-P takes its tiled
+// entry (softmax_partial_tiled): a block takes one fit, a chunk of rows and
+// a slab of up to 4,096 of the fit's p x k outputs (the grid's z axis), and
+// walks its rows in tiles of R (up to 128) rows staged in shared memory.
+// Per tile: the threads form the R x k margins (a thread a margin, the fit's
+// B read through L1, the row from shared memory; blocks of 32 coefficients
+// summed apart, then added) into a shared [R, k] tile;
+// a warp a row takes its max, exp(m - max) (libdevice's expf), their sum in
+// class order and the weighted residuals in place; then each thread adds
+// residual x row over the tile's rows for its 16 outputs (a float32 sum a
+// tile, added into float64 accumulators).  The chunks' float64 partials are
+// summed as the other entries' (softmax_finish, softmax_finish_wide).  The
+// work is the 2 p k operations a row and fit that the function needs (the
+// margins again for each further output slab past 4,096 outputs); the
+// margins and residuals never leave shared memory.
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 namespace {
@@ -554,6 +572,127 @@ int launch_softmax_wide(const void* X1, const void* y, const void* w, const void
   return (int)cudaGetLastError();
 }
 
+// ---- K-P's tiled entry (k > 8) -------------------------------------------------
+constexpr int kSoftNarrowK = 8;        // up to here the register entries
+constexpr int kSoftMaxK = 128;         // ops/linear.py::SOFTMAX_MAX_CLASSES
+constexpr int kTileRows = 128;         // rows a tile, at most
+constexpr int kOutPer = 16;            // outputs a thread
+constexpr int kOutSlab = kOutPer * kThreads;
+constexpr int kTiledBudget = 96 * 1024;
+
+__global__ void __launch_bounds__(kThreads)
+softmax_partial_tiled(const float* __restrict__ X1, const float* __restrict__ y,
+                      const float* __restrict__ w, const int32_t* __restrict__ fold,
+                      const float* __restrict__ z, double* __restrict__ partial, int n, int p,
+                      int k, int C, int chunk_rows, int R) {
+  extern __shared__ float tsm[];
+  float* xs = tsm;           // [R][p] the tile's rows
+  float* ms = xs + R * p;    // [R][k] margins, then residuals
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int c = blockIdx.y;
+  const int pk = p * k;
+  const int o0 = blockIdx.z * kOutSlab;
+  const float* zc = z + (long long)c * pk;
+  const float* wf = w + (long long)fold[c] * n;
+  double accd[kOutPer];
+#pragma unroll
+  for (int q = 0; q < kOutPer; ++q) accd[q] = 0.0;
+  const long long r0 = (long long)blockIdx.x * chunk_rows;
+  const long long r1 = min((long long)n, r0 + chunk_rows);
+  for (long long t0 = r0; t0 < r1; t0 += R) {
+    const int nr = (int)min((long long)R, r1 - t0);
+    __syncthreads();  // the previous tile is read
+    for (int i = tid; i < nr * p; i += kThreads) xs[i] = X1[t0 * p + i];
+    __syncthreads();
+    for (int i = tid; i < nr * k; i += kThreads) {
+      const int r = i / k, j = i % k;
+      const float* xr = xs + r * p;
+      // blocks of 32 coefficients summed apart, then the blocks' sums: the
+      // rounding of a 1,024-term margin grows as 32 + p / 32 terms, not p
+      float m = 0.0f;
+      for (int a0 = 0; a0 < p; a0 += 32) {
+        float part = 0.0f;
+        const int a1 = min(p, a0 + 32);
+        for (int a = a0; a < a1; ++a)
+          part = __fmaf_rn(xr[a], __ldg(zc + (long long)a * k + j), part);
+        m = __fadd_rn(m, part);
+      }
+      ms[i] = m;
+    }
+    __syncthreads();
+    for (int r = warp; r < nr; r += kWarps) {
+      float* mr = ms + r * k;
+      float mx = -INFINITY;
+      for (int j = lane; j < k; j += 32) mx = fmaxf(mx, mr[j]);
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      for (int j = lane; j < k; j += 32) mr[j] = expf(__fsub_rn(mr[j], mx));
+      __syncwarp();
+      float sum = 0.0f;
+      if (lane == 0) {  // in class order
+        sum = mr[0];
+        for (int j = 1; j < k; ++j) sum = __fadd_rn(sum, mr[j]);
+      }
+      sum = __shfl_sync(0xffffffffu, sum, 0);
+      const float wr = wf[t0 + r];
+      const int label = (int)y[t0 + r];
+      for (int j = lane; j < k; j += 32)
+        mr[j] = __fmul_rn(wr, __fsub_rn(__fdiv_rn(mr[j], sum), j == label ? 1.0f : 0.0f));
+    }
+    __syncthreads();
+#pragma unroll
+    for (int q = 0; q < kOutPer; ++q) {
+      const int o = o0 + q * kThreads + tid;
+      if (o < pk) {
+        const int a = o / k, j = o % k;
+        float sacc = 0.0f;
+        for (int r = 0; r < nr; ++r) sacc = __fmaf_rn(ms[r * k + j], xs[r * p + a], sacc);
+        accd[q] += (double)sacc;
+      }
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < kOutPer; ++q) {
+    const int o = o0 + q * kThreads + tid;
+    if (o < pk) partial[((long long)blockIdx.x * C + c) * pk + o] = accd[q];
+  }
+}
+
+int launch_softmax_tiled(const void* X1, const void* y, const void* w, const void* fold,
+                         const void* z, const void* wsum, const void* l2m, void* partial,
+                         void* grad, int n, int p, int k, int C, int chunks, int chunk_rows,
+                         void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  static bool attr_set = false;  // the attribute takes the budget's maximum once
+  if (!attr_set) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        softmax_partial_tiled, cudaFuncAttributeMaxDynamicSharedMemorySize, kTiledBudget);
+    if (e != cudaSuccess) return (int)e;
+    attr_set = true;
+  }
+  int R = kTiledBudget / ((p + k) * (int)sizeof(float));
+  if (R > kTileRows) R = kTileRows;
+  const int pk = p * k;
+  dim3 grid((unsigned)chunks, (unsigned)C, (unsigned)((pk + kOutSlab - 1) / kOutSlab));
+  softmax_partial_tiled<<<grid, kThreads, (size_t)R * (p + k) * sizeof(float), st>>>(
+      (const float*)X1, (const float*)y, (const float*)w, (const int32_t*)fold, (const float*)z,
+      (double*)partial, n, p, k, C, chunk_rows, R);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  if (p > kMaxCoefs) {
+    const long long total = (long long)C * pk * 32;
+    softmax_finish_wide<<<(unsigned)((total + kThreads - 1) / kThreads), kThreads, 0, st>>>(
+        (const double*)partial, (const float*)wsum, (const float*)l2m, (const float*)z,
+        (float*)grad, chunks, C, pk);
+  } else {
+    const int threads = 128;
+    softmax_finish<<<(C * pk + threads - 1) / threads, threads, 0, st>>>(
+        (const double*)partial, (const float*)wsum, (const float*)l2m, (const float*)z,
+        (float*)grad, chunks, C, pk);
+  }
+  return (int)cudaGetLastError();
+}
+
 // p <= 16: tiles of 8 fits; p <= 24: tiles of 4; p <= 64: tiles of 2;
 // p <= 1024: the wide entry, VPL x CT = 32 accumulators a lane (tiles of
 // 8 fits at p <= 128 down to 1 fit at p <= 1024).
@@ -609,8 +748,12 @@ extern "C" int softmax_fista_grad(const void* X1, const void* y, const void* w,
                                   const void* l2m, void* partial, void* grad, int n, int p,
                                   int k, int C, int chunks, int chunk_rows, void* stream) {
   // C fits on the grid's y axis
-  if (n <= 0 || p <= 0 || p > kMaxWide || k <= 0 || C <= 0 || C > 65535 || chunks <= 0)
+  if (n <= 0 || p <= 0 || p > kMaxWide || k <= 0 || k > kSoftMaxK || C <= 0 || C > 65535 ||
+      chunks <= 0)
     return (int)cudaErrorInvalidValue;
+  if (k > kSoftNarrowK)
+    return launch_softmax_tiled(X1, y, w, fold, z, wsum, l2m, partial, grad, n, p, k, C, chunks,
+                                chunk_rows, stream);
   if (p > kMaxCoefs) {
     if (k <= 4)
       return launch_softmax_wide<4, 2>(X1, y, w, fold, z, wsum, l2m, partial, grad, n, p, k, C,

@@ -29,6 +29,18 @@
 // contraction), so the kernel and its plain version agree bit for bit on
 // one histogram.
 //
+// Above 8 channels (split_best_wide, up to kMaxC) a lane cannot keep c
+// running sums in registers, so the warp works on the staged tile itself:
+// its rows (one a channel and feature) are turned into prefix sums in place,
+// a lane a row, bin by bin (the same additions, in the same order); then
+// each lane takes (feature, bin) candidates and sums the squares over the
+// channels in channel order from the tile, one fused multiply-add a
+// channel, and the node totals GT are feature 0's last prefix.  The winner's
+// left sums GL are summed again from the histogram in bin order (a lane a
+// channel), so no lane carries c values.  The tile of ft features takes
+// dynamic shared memory (ft x (c + 1) x (B + 1) floats a warp).  Every sum
+// is the narrow path's, so the two agree bit for bit.
+//
 // Bound on the card: bytes (the histograms read once, T x m x (c+1) x d x B
 // floats); the ~10 + 4c operations per candidate split are below it.
 #include <cuda_runtime.h>
@@ -39,8 +51,14 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxC = 8;                  // gradient channels (classes)
+constexpr int kMaxC = 128;                // gradient channels (ops/trees.py::MAX_CHANNELS)
+constexpr int kMaxNarrow = 8;             // up to here the running sums live in registers
 constexpr int kSmemBudget = 48 * 1024;    // split_best's staging, all warps
+// split_best_wide's tile a warp (at least a feature) and all warps' staging:
+// small, so that several blocks share an SM (on an H100 at 64 channels 2.2x
+// faster than 24 KB a warp in a 200 KB block, the same bits)
+constexpr int kWideWarpBytes = 6 * 1024;
+constexpr int kWideBudget = 64 * 1024;
 
 // Should (vb, ib) replace (va, ia) in a first-argmax where NaN is largest?
 __device__ __forceinline__ bool takes(float vb, int ib, float va, int ia) {
@@ -176,6 +194,109 @@ __global__ void split_best(const float* __restrict__ hist, const float* __restri
   }
 }
 
+// Any c up to kMaxC: one warp per (tree, slot), the running sums in the
+// staged tile (prefix sums in place), candidates a lane a (feature, bin).
+__global__ void split_best_wide(const float* __restrict__ hist,
+                                const float* __restrict__ feat_mask,
+                                const float* __restrict__ params, float* __restrict__ scratch,
+                                int T, int m, int c, int d, int B, int warps, int ft) {
+  extern __shared__ float sm[];  // per warp: [c + 1][ft][B + 1], then GT[c]
+  const int t = blockIdx.x;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int s = blockIdx.y * warps + warp;
+  if (s >= m) return;  // whole warps leave; no block barrier follows
+  const int pitch = B + 1;
+  const int C1 = c + 1;
+  const size_t tile = (size_t)C1 * ft * pitch;
+  float* sh = sm + (size_t)warp * (tile + c);
+  float* GT = sh + tile;
+  const float lam = params[4 * t], mcw = params[4 * t + 2];
+  const long long dB = (long long)d * B;
+  const float* G = hist + ((long long)t * m + s) * C1 * dB;  // [C1][d][B]
+  float HT = 0.0f, parent = 0.0f;
+  float best = -INFINITY, bhl = 0.0f;
+  int bi = 0x7fffffff;
+  for (int f0 = 0; f0 < d; f0 += ft) {
+    const int nf = min(ft, d - f0);
+    __syncwarp();
+    for (int ch = 0; ch < C1; ++ch)  // coalesced tile load
+      for (int i = lane; i < nf * B; i += 32)
+        sh[(ch * ft + i / B) * pitch + i % B] = G[ch * dB + (long long)f0 * B + i];
+    __syncwarp();
+    for (int row = lane; row < C1 * nf; row += 32) {  // prefix sums, bin order
+      float* rr = sh + ((row / nf) * ft + row % nf) * pitch;
+      float a = rr[0];
+      for (int b = 1; b < B; ++b) {
+        a = __fadd_rn(a, rr[b]);
+        rr[b] = a;
+      }
+    }
+    __syncwarp();
+    if (f0 == 0) {  // node totals: feature 0's last prefix, as row_sum
+      for (int ch = lane; ch < c; ch += 32) GT[ch] = sh[(ch * ft) * pitch + B - 1];
+      HT = sh[(c * ft) * pitch + B - 1];
+      __syncwarp();
+      float sq = __fmul_rn(GT[0], GT[0]);
+      for (int ch = 1; ch < c; ++ch) sq = __fmaf_rn(GT[ch], GT[ch], sq);
+      parent = __fdiv_rn(sq, __fadd_rn(HT, lam));
+    }
+    for (int q = lane; q < nf * B; q += 32) {
+      const int r = q / B, b = q % B;
+      const int j = f0 + r;
+      const float* col = sh + r * pitch + b;  // channel ch at col[ch * ft * pitch]
+      const int cs = ft * pitch;
+      const float hl = col[c * cs];
+      const float hr = __fsub_rn(HT, hl);
+      float gl = col[0], gr = __fsub_rn(GT[0], gl);
+      float ql = __fmul_rn(gl, gl), qr = __fmul_rn(gr, gr);
+      for (int ch = 1; ch < c; ++ch) {
+        gl = col[ch * cs];
+        gr = __fsub_rn(GT[ch], gl);
+        ql = __fmaf_rn(gl, gl, ql);
+        qr = __fmaf_rn(gr, gr, qr);
+      }
+      const float sl = __fdiv_rn(ql, __fadd_rn(hl, lam));
+      const float sr = __fdiv_rn(qr, __fadd_rn(hr, lam));
+      const float gain = __fsub_rn(__fadd_rn(sl, sr), parent);
+      const bool valid = hl >= mcw && hr >= mcw && feat_mask[(long long)t * d + j] > 0.0f &&
+                         b < B - 1;
+      const float v = valid ? gain : -INFINITY;
+      const int idx = j * B + b;
+      if (bi == 0x7fffffff || takes(v, idx, best, bi)) {
+        best = v;
+        bi = idx;
+        bhl = hl;
+      }
+    }
+  }
+  for (int off = 16; off > 0; off >>= 1) {
+    const float ov = __shfl_xor_sync(0xffffffffu, best, off);
+    const int oi = __shfl_xor_sync(0xffffffffu, bi, off);
+    const float oh = __shfl_xor_sync(0xffffffffu, bhl, off);
+    if (oi != 0x7fffffff && (bi == 0x7fffffff || takes(ov, oi, best, bi))) {
+      best = ov;
+      bi = oi;
+      bhl = oh;
+    }
+  }
+  const long long o = (long long)t * m + s, plane = (long long)T * m;
+  const int bj = bi / B, bb = bi % B;
+  for (int ch = lane; ch < c; ch += 32) {  // GL at the winner, summed again in bin order
+    const float* row = G + ch * dB + (long long)bj * B;
+    float a = row[0];
+    for (int b = 1; b <= bb; ++b) a = __fadd_rn(a, row[b]);
+    scratch[(kGLb + ch) * plane + o] = a;
+    scratch[(kGLb + c + ch) * plane + o] = GT[ch];
+  }
+  if (lane == 0) {
+    scratch[kHLb * plane + o] = bhl;
+    scratch[kBest * plane + o] = best;
+    scratch[kHT * plane + o] = HT;
+    ((int*)scratch)[kIdx * plane + o] = bi;
+  }
+}
+
 template <int C>
 __global__ void split_commit(const float* __restrict__ scratch,
                              const float* __restrict__ params,
@@ -183,8 +304,8 @@ __global__ void split_commit(const float* __restrict__ scratch,
                              int32_t* __restrict__ nodes, float* __restrict__ leaf,
                              int32_t* __restrict__ split, int32_t* __restrict__ pair_parent,
                              int32_t* __restrict__ pair_light, int T, int m, int B, int P,
-                             int slot_base, int next_free, int next_cap, int flags) {
-  constexpr int c = C;
+                             int slot_base, int next_free, int next_cap, int flags, int c_rt) {
+  const int c = C > 0 ? C : c_rt;  // C = 0: the wide path's runtime channel count
   extern __shared__ float sm[];
   float* bg = sm;                          // best gain per slot
   float* hlb = bg + m;                     // HL at the best split
@@ -246,7 +367,7 @@ __global__ void split_commit(const float* __restrict__ scratch,
   for (int q = threadIdx.x; q < next_cap; q += kThreads) {
     nd[pool + next_free + q] = make_int4(-1, 0, 0, 0);
 #pragma unroll
-    for (int ch = 0; ch < C; ++ch) leaf[(pool + next_free + q) * c + ch] = 0.0f;
+    for (int ch = 0; ch < c; ++ch) leaf[(pool + next_free + q) * c + ch] = 0.0f;
   }
   for (int q = threadIdx.x; q < half; q += kThreads) {
     pair_parent[(long long)t * half + q] = -1;
@@ -265,7 +386,7 @@ __global__ void split_commit(const float* __restrict__ scratch,
       const long long o = (long long)t * m + s;
       const float hrb = __fsub_rn(ht[s], hlb[s]);
 #pragma unroll
-      for (int ch = 0; ch < C; ++ch) {
+      for (int ch = 0; ch < c; ++ch) {
         const float glb = scratch[(kGLb + ch) * plane + o];
         const float grb = __fsub_rn(scratch[(kGLb + c + ch) * plane + o], glb);
         leaf[(pool + lp) * c + ch] = __fdiv_rn(-glb, __fadd_rn(hlb[s], lam));
@@ -279,7 +400,7 @@ __global__ void split_commit(const float* __restrict__ scratch,
     if (root) {
       const long long o = (long long)t * m;
 #pragma unroll
-      for (int ch = 0; ch < C; ++ch)
+      for (int ch = 0; ch < c; ++ch)
         leaf[pool * c + ch] = __fdiv_rn(-scratch[(kGLb + c + ch) * plane + o],
                                         __fadd_rn(ht[0], lam));
     }
@@ -287,21 +408,35 @@ __global__ void split_commit(const float* __restrict__ scratch,
   }
 }
 
-// Both entry points at C gradient channels.
+// Both entry points at C gradient channels (C = 0: the wide path at c).
 template <int C>
 int run(cudaStream_t st, size_t smem, int warps, int ft, const void* hist, const void* feat_mask,
         const void* params, const void* n_active, void* n_next, void* nodes, void* leaf,
-        void* split, void* pair_parent, void* pair_light, void* scratch, int T, int m, int d,
-        int B, int P, int slot_base, int next_free, int next_cap, int flags) {
-  split_best<C><<<dim3(T, (m + warps - 1) / warps), warps * 32, smem, st>>>(
-      (const float*)hist, (const float*)feat_mask, (const float*)params, (float*)scratch, T, m,
-      d, B, warps, ft);
+        void* split, void* pair_parent, void* pair_light, void* scratch, int T, int m, int c,
+        int d, int B, int P, int slot_base, int next_free, int next_cap, int flags) {
+  const dim3 grid(T, (m + warps - 1) / warps);
+  if constexpr (C > 0) {
+    split_best<C><<<grid, warps * 32, smem, st>>>(
+        (const float*)hist, (const float*)feat_mask, (const float*)params, (float*)scratch, T,
+        m, d, B, warps, ft);
+  } else {
+    static bool attr_set = false;  // the attribute takes the budget's maximum once
+    if (!attr_set) {
+      const cudaError_t e = cudaFuncSetAttribute(
+          split_best_wide, cudaFuncAttributeMaxDynamicSharedMemorySize, kWideBudget);
+      if (e != cudaSuccess) return (int)e;
+      attr_set = true;
+    }
+    split_best_wide<<<grid, warps * 32, smem, st>>>(
+        (const float*)hist, (const float*)feat_mask, (const float*)params, (float*)scratch, T,
+        m, c, d, B, warps, ft);
+  }
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   split_commit<C><<<T, kThreads, (size_t)m * 6 * sizeof(float), st>>>(
       (const float*)scratch, (const float*)params, (const int32_t*)n_active, (int32_t*)n_next,
       (int32_t*)nodes, (float*)leaf, (int32_t*)split, (int32_t*)pair_parent,
-      (int32_t*)pair_light, T, m, B, P, slot_base, next_free, next_cap, flags);
+      (int32_t*)pair_light, T, m, B, P, slot_base, next_free, next_cap, flags, c);
   return (int)cudaGetLastError();
 }
 
@@ -315,6 +450,20 @@ extern "C" int split_scan(const void* hist, const void* feat_mask, const void* p
   if (T <= 0 || m <= 0 || m > 1024 || next_cap <= 0 || B <= 0 || c < 1 || c > kMaxC)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
+  if (c > kMaxNarrow) {
+    // a warp stages ft features (the most that fit kWideWarpBytes, at least
+    // one) and GT; as many warps (up to kWarps) as fit kWideBudget
+    const size_t per_feat = (size_t)(c + 1) * (B + 1) * sizeof(float);
+    int ft = (int)(kWideWarpBytes / per_feat);
+    ft = ft < 1 ? 1 : (ft > 32 ? 32 : ft);
+    const size_t per_warp = ft * per_feat + (size_t)c * sizeof(float);
+    int warps = (int)(kWideBudget / per_warp);
+    if (warps > kWarps) warps = kWarps;
+    if (warps < 1) return (int)cudaErrorInvalidValue;
+    return run<0>(st, warps * per_warp, warps, ft, hist, feat_mask, params, n_active, n_next,
+                  nodes, leaf, split, pair_parent, pair_light, scratch, T, m, c, d, B, P,
+                  slot_base, next_free, next_cap, flags);
+  }
   // a warp stages ft features of all c + 1 channels: 32 features with as
   // many warps as fit the budget, else one warp and fewer features
   const size_t per_feat = (size_t)(c + 1) * (B + 1) * sizeof(float);
@@ -330,8 +479,8 @@ extern "C" int split_scan(const void* hist, const void* feat_mask, const void* p
 #define SPLIT_SCAN_RUN(C)                                                                  \
   case C:                                                                                  \
     return run<C>(st, smem, warps, ft, hist, feat_mask, params, n_active, n_next, nodes, leaf, \
-                  split, pair_parent, pair_light, scratch, T, m, d, B, P, slot_base, next_free, \
-                  next_cap, flags);
+                  split, pair_parent, pair_light, scratch, T, m, c, d, B, P, slot_base,        \
+                  next_free, next_cap, flags);
   switch (c) {
     SPLIT_SCAN_RUN(1) SPLIT_SCAN_RUN(2) SPLIT_SCAN_RUN(3) SPLIT_SCAN_RUN(4)
     SPLIT_SCAN_RUN(5) SPLIT_SCAN_RUN(6) SPLIT_SCAN_RUN(7) SPLIT_SCAN_RUN(8)

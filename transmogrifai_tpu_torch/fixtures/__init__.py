@@ -138,6 +138,18 @@ metrics, fold metrics [28, F], winner's index and the first call's fold
 weights and validation masks.
 ``tests/test_torch_selector_branches.py --write`` regenerates it.
 
+``letters_stock/`` holds the 26-class Letter-Recognition-shaped workflow
+(``letters_data``: 16 integer attributes 0-15, 26 classes) over the
+multiclass selector's stock space (multinomial LR + RF, 26 candidates) at
+``LETTERS_ROWS`` rows, as the JAX package trained and saved it, 256
+requests and the JAX package's answers (``expected.npz``), and
+``sweep.npz``: the fused call's metrics [1, 3, 26, 4] and the forests'
+draws.  ``many_class/sweep.npz`` holds the JAX package's 64-class fused
+call's metrics, the 70-class per-family train's fold metrics and winner,
+and the 10-class boosting trains' fold metrics and winners (XGBoost's grid
+at ``trees_per_round`` 1 and 4, ``OpGBTClassifier``).
+``tests/test_torch_many_classes.py --write`` regenerates both.
+
 Strings with nulls are stored as a unicode array plus ``<name>__null``, so
 the files load without pickles.
 """
@@ -168,6 +180,8 @@ TITANIC_COLLAPSE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tit
 IRIS_COLLAPSE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "iris_collapse")
 BOSTON_COLLAPSE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "boston_collapse")
 TITANIC_BRANCHES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "titanic_branches")
+LETTERS_STOCK = os.path.join(os.path.dirname(os.path.abspath(__file__)), "letters_stock")
+MANY_CLASS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "many_class")
 NULL_SUFFIX = "__null"
 
 #: tolerances of the comparison with the JAX package's answers.  Margins are
@@ -1253,3 +1267,233 @@ def check_boston_collapse_train(model) -> Dict[str, float]:
               f"Boston collapsed {fam} fold RMSE {gap} (relative), above {BOSTON_RMSE_RTOL[fam]}")
     check(_best_index(summ) == int(ref["best"]), "the Boston collapsed winner differs")
     return gaps
+
+
+# ---------------------------------------------------------------------------
+# Many classes: a Letter-Recognition-shaped frame (UCI Letter Recognition,
+# Frey & Slate 1991: 16 integer attributes 0-15, 26 letters)
+# ---------------------------------------------------------------------------
+LETTER_FEATURES = ("x_box", "y_box", "width", "high", "onpix", "x_bar", "y_bar", "x2bar",
+                   "y2bar", "xybar", "x2ybr", "xy2br", "x_ege", "xegvy", "y_ege", "yegvx")
+#: rows of the letters_stock fixture's frame and of the many-class trains
+LETTERS_ROWS = 600
+MANY_ROWS = 400
+#: the cut space of the 64- and 70-class trains: two LR points, two forests
+#: of ``MANY_TREES`` trees
+MANY_TREES = 10
+
+
+def letters_data(n: int = LETTERS_ROWS, k: int = 26, seed: int = 0) -> Dict[str, np.ndarray]:
+    """A frame with the schema of UCI Letter Recognition: the 16 integer
+    attributes (0 .. 15, as float64 columns), a class label 0 .. k - 1 and
+    an id, made with numpy from ``seed``.  Each class draws its attributes
+    around its own centre (uniform in [2, 13]) with a spread of 2.5, rounded
+    and clipped to 0 .. 15; labels are uniform over the k classes, and every
+    class has at least one row where n >= k."""
+    rng = np.random.default_rng(seed)
+    centres = rng.uniform(2.0, 13.0, (k, len(LETTER_FEATURES)))
+    label = rng.integers(0, k, n)
+    label[:min(n, k)] = np.arange(min(n, k))
+    pts = np.clip(np.rint(centres[label] + rng.normal(0.0, 2.5, (n, len(LETTER_FEATURES)))),
+                  0, 15)
+    cols = {f: pts[:, j].astype(np.float64) for j, f in enumerate(LETTER_FEATURES)}
+    cols["label"] = label.astype(np.float64)
+    cols["id"] = np.arange(n)
+    return cols
+
+
+def letters_workflow(models_and_parameters=None, **selector_kw):
+    """(OpWorkflow, prediction feature) of the port's Letter flow: the 16
+    ``Integral`` attributes vectorized, ``MultiClassificationModelSelector``
+    with 3-fold CV, seed 42 (by default the stock space: multinomial LR + RF,
+    26 candidates).  The tests build the JAX package's flow alike."""
+    from .. import types as T
+    from ..features.builder import FeatureBuilder
+    from ..impl.selector.factories import MultiClassificationModelSelector
+    from ..workflow.workflow import OpWorkflow
+
+    label = FeatureBuilder("label", T.RealNN).extract(field="label").as_response()
+    feats = [FeatureBuilder(f, T.Integral).extract(field=f).as_predictor()
+             for f in LETTER_FEATURES]
+    kw = {"num_folds": 3, "seed": 42, **selector_kw}
+    pred = MultiClassificationModelSelector.with_cross_validation(
+        models_and_parameters=models_and_parameters, **kw,
+    ).set_input(label, feats[0].vectorize(*feats[1:])).get_output()
+    return OpWorkflow().set_result_features(pred), pred
+
+
+def many_space(est_cls_lr, est_cls_rf):
+    """The cut space of the 64- and 70-class trains, from either package's
+    classes: two elastic-net LR points and two forests of ``MANY_TREES``
+    trees."""
+    return [(est_cls_lr(), [{"reg_param": 0.01, "elastic_net_param": 0.0},
+                            {"reg_param": 0.1, "elastic_net_param": 0.0}]),
+            (est_cls_rf(), [{"num_trees": MANY_TREES, "max_depth": 6},
+                            {"num_trees": MANY_TREES, "max_depth": 6, "min_info_gain": 0.01}])]
+
+
+#: the many_class fixture's trains: name -> (classes, rows, space); each on
+#: ``letters_data(rows, classes, 1)``
+MANY_RUNS = {
+    "fused26": (26, MANY_ROWS, "many"),
+    "fused64": (64, MANY_ROWS, "many"),
+    "family70": (70, MANY_ROWS, "many"),
+    "boost10_k1": (10, 300, "boost1"),
+    "boost10_k4": (10, 300, "boost4"),
+    "boost10_full": (10, 300, "boostfull"),
+}
+
+
+def many_run_space(space: str, lr, rf, xgb, gbt, xgboost_grid):
+    """A ``MANY_RUNS`` space from either package's estimator classes and
+    ``xgboost_grid``: ``many_space``; or softmax boosting at
+    ``trees_per_round`` K ("boost1", "boost4": XGBoost at 20 rounds of depth
+    4, min_child_weight 1 and 10, and a GBT of 8 rounds of depth 3;
+    "boostfull": the stock ``xgboost_grid()`` and the default GBT, K = 1)."""
+    if space == "many":
+        return many_space(lr, rf)
+    if space == "boostfull":
+        return [(xgb(), [dict(g, trees_per_round=1) for g in xgboost_grid()]),
+                (gbt(), [{"trees_per_round": 1}])]
+    K = int(space[-1])
+    return [(xgb(), [{"num_round": 20, "max_depth": 4, "min_child_weight": m,
+                      "trees_per_round": K} for m in (1.0, 10.0)]),
+            (gbt(), [{"max_iter": 8, "max_depth": 3, "trees_per_round": K}])]
+
+
+def port_many_run_space(space: str):
+    """``many_run_space`` with the port's classes."""
+    from ..impl.classification.logistic import OpLogisticRegression
+    from ..impl.classification.trees import (OpGBTClassifier, OpRandomForestClassifier,
+                                             OpXGBoostClassifier)
+    from ..impl.selector.defaults import xgboost_grid
+
+    return many_run_space(space, OpLogisticRegression, OpRandomForestClassifier,
+                          OpXGBoostClassifier, OpGBTClassifier, xgboost_grid)
+
+
+#: F1, Precision and Recall of K-Q and its plain version against the JAX
+#: package's from 11 classes on: XLA's CPU code vectorizes the reference's
+#: class sums there, in an order that depends on the host's vector width and
+#: on the grid's shape, where the port sums in class order (at most 4 ulps
+#: measured over 2 .. 128 classes on an AVX-512 host: PERF.md); Error is a
+#: count over the validation rows and stays bit-equal at every k
+MANY_CLASS_METRIC_ULPS = 4
+#: validation rows a candidate's fold Error may differ by from the JAX
+#: package's, by family, counted per candidate and fold: the softmax LR fits
+#: agree within 2e-5, so a row whose two top classes lie closer can flip;
+#: softmax boosting past 8 classes grows on real-valued gradients, whose
+#: exact fixed-point sums (K-E) and XLA's float32 sums differ in the last
+#: bits, so a near-tied split flips from the second round on and the later
+#: trees differ (measured on the CPU: 2 and 4 rows of 91 on the cut 10-class
+#: grid at trees_per_round 1 and 4, 1 of 90 on the full grid)
+MANY_FLIP_ROWS = {"OpLogisticRegression": 1, "OpXGBoostClassifier": 6, "OpGBTClassifier": 6}
+#: the families compared bit for bit in their fold metrics: integer
+#: -onehot gradients that K-E sums exactly
+_EXACT_FAMILIES = ("OpRandomForestClassifier", "OpDecisionTreeClassifier")
+
+
+def ulps(a, b) -> int:
+    """The largest distance in float32 ulps between two arrays of one sign."""
+    a = np.ascontiguousarray(a, np.float32).view(np.int32).astype(np.int64)
+    b = np.ascontiguousarray(b, np.float32).view(np.int32).astype(np.int64)
+    return int(np.abs(a - b).max()) if a.size else 0
+
+
+def _check_many_folds(summ, ref_folds, ref_best: int, nv: Optional[np.ndarray], what: str
+                      ) -> Dict[str, Any]:
+    """Fold metrics (Error) of a selector summary against the JAX package's:
+    the exact families (forests, decision trees) bit for bit, the others
+    within ``MANY_FLIP_ROWS`` rows of each fold's ``nv`` validation rows
+    (bit for bit too when ``nv`` is None); the same winner."""
+    folds = np.array([r["foldMetrics"] for r in summ.validation_results], np.float64)
+    check(folds.shape == ref_folds.shape, f"{what}: fold metric shape {folds.shape}")
+    flips = 0
+    for r, mine, theirs in zip(summ.validation_results, folds, ref_folds):
+        if r["modelName"] in MANY_FLIP_ROWS and nv is not None:
+            rows = np.rint(np.abs(mine - theirs) * nv).astype(int)
+            check(rows.max() <= MANY_FLIP_ROWS[r["modelName"]],
+                  f"{what}: {r['modelName']} {r['grid']} fold Errors {mine} against {theirs}")
+            flips += int(rows.sum())
+        else:
+            check(np.array_equal(mine, theirs),
+                  f"{what}: {r['modelName']} {r['grid']} fold metrics {mine} against {theirs}")
+    check(_best_index(summ) == int(ref_best),
+          f"{what}: winner {summ.best_model_name} {summ.best_grid} differs from the JAX "
+          "package's")
+    return {"candidates": len(folds), "best": _best_index(summ), "rows_flipped": flips}
+
+
+def _check_many_metrics(metrics: np.ndarray, ref: np.ndarray, summ, what: str) -> int:
+    """The fused calls' [calls, F, C, 4] metrics of the exact families:
+    Error bit for bit, F1 / Precision / Recall within
+    ``MANY_CLASS_METRIC_ULPS``; returns the largest ulp gap."""
+    check(metrics.shape == ref.shape, f"{what}: sweep metrics shape {metrics.shape}")
+    exact = [i for i, r in enumerate(summ.validation_results)
+             if r["modelName"] not in MANY_FLIP_ROWS]
+    check(np.array_equal(metrics[..., exact, 3], ref[..., exact, 3]), f"{what}: Errors differ")
+    gap = ulps(metrics[..., exact, :3], ref[..., exact, :3])
+    check(gap <= MANY_CLASS_METRIC_ULPS, f"{what}: F1/P/R {gap} ulps from the JAX package's")
+    return gap
+
+
+def check_many_class_train(model, name: str, calls: List) -> Dict[str, Any]:
+    """Hold one of the many-class trains (``tests/test_torch_many_classes.py``
+    RUNS: the fused 26- and 64-class, the per-family 70-class, the 10-class
+    boosting) to ``many_class/sweep.npz``: the same winner, the fold metrics
+    by ``_check_many_folds``, the same number of fused calls and their
+    metrics by ``_check_many_metrics``."""
+    ref = load_sweep(os.path.join(MANY_CLASS, "sweep.npz"))
+    summ = model.stages[-1].summary
+    check(len(calls) == int(ref[f"{name}_calls"]),
+          f"{name}: {len(calls)} fused sweep calls, the JAX package made "
+          f"{int(ref[name + '_calls'])}")
+    nv = ref[f"{name}_nv"][0] if f"{name}_nv" in ref else None
+    metrics = None
+    if calls:
+        metrics = np.stack([np.asarray(c.cpu() if hasattr(c, "cpu") else c) for c in calls])
+    found = _check_many_folds(summ, ref[f"{name}_folds"], ref[f"{name}_best"], nv, name)
+    if metrics is not None:
+        found["ulps"] = _check_many_metrics(metrics, ref[f"{name}_metrics"], summ, name)
+    found["calls"] = len(calls)
+    found["classes"] = len(summ.data_prep_results["labelsKept"])
+    return found
+
+
+def check_letters_answers(model, rows: Optional[int] = None) -> Dict[str, Any]:
+    """Score ``letters_stock``'s requests with ``model`` (the JAX-saved
+    26-class model loaded by the port) through ``BatchScoreFunction``: the
+    same predictions, probabilities within ``IRIS_PROB_ATOL``."""
+    from ..local.scoring import BatchScoreFunction
+
+    cols = load_columns(os.path.join(LETTERS_STOCK, "requests.npz"))
+    expected = load_expected(os.path.join(LETTERS_STOCK, "expected.npz"))
+    name = model.result_features[0].name
+    pred, prob, raw = multiclass_predictions(BatchScoreFunction(model)(records(cols)), name,
+                                             expected["probability"].shape[1])
+    check(np.array_equal(pred, expected["prediction"]), "letters predictions differ")
+    gap = float(np.max(np.abs(prob - expected["probability"])))
+    check(gap <= IRIS_PROB_ATOL, f"letters probabilities {gap} from the fixture's")
+    return {"rows": len(pred), "prob_gap": gap,
+            "raw_gap": float(np.max(np.abs(raw - expected["rawPrediction"])))}
+
+
+def check_letters_train(model, metrics: np.ndarray) -> Dict[str, Any]:
+    """Hold the full-width 26-class stock train at ``LETTERS_ROWS`` to
+    ``letters_stock``: the same candidates and winner, the fold Errors and
+    the fused call's metrics as ``check_many_class_train`` holds them, the
+    same ``DataCutter`` summary."""
+    with open(os.path.join(LETTERS_STOCK, "op_model.json")) as fh:
+        ref = stage_summary(json.load(fh))
+    summ = model.stages[-1].summary
+    sweep = load_sweep(os.path.join(LETTERS_STOCK, "sweep.npz"))
+    check([(r["modelName"], r["grid"]) for r in summ.validation_results]
+          == [(r["modelName"], r["grid"]) for r in ref["validationResults"]],
+          "letters candidates differ from the fixture's")
+    ref_folds = np.array([r["foldMetrics"] for r in ref["validationResults"]], np.float64)
+    best = [(r["modelName"], r["grid"]) for r in ref["validationResults"]].index(
+        (ref["bestModelName"], ref["bestGrid"]))
+    found = _check_many_folds(summ, ref_folds, best, None, "letters_stock")
+    found["ulps"] = _check_many_metrics(metrics, sweep["metrics"], summ, "letters_stock")
+    check(summ.data_prep_results == ref["dataPrepResults"], "letters DataCutter summary")
+    return found

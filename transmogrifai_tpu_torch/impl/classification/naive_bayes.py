@@ -48,7 +48,8 @@ def _check_limits(d: int, k: int) -> None:
     if d > NB_MAX_FEATURES or k > NB_MAX_CLASSES:
         raise NotImplementedError(
             f"nb_tables takes at most {NB_MAX_FEATURES} features and {NB_MAX_CLASSES} "
-            f"classes, got {d} and {k}")
+            f"classes, got {d} and {k} (the tiled kernel that lifts these limits is ROADMAP "
+            "Queue 3 item 2)")
 
 
 def nb_tables_mass_plain(Xd: torch.Tensor, y: torch.Tensor, w: torch.Tensor, k: int

@@ -14,7 +14,8 @@ regression problem: OpLinearRegression (every candidate: "fista"),
 OpRandomForestRegressor and OpDecisionTreeRegressor ("forest", mean
 leaves), OpGBTRegressor and OpXGBoostRegressor ("gbt", squared, from each
 fold's label mean); for the multiclass problem (``("multiclass", k)``, 3 <=
-k <= 8, the multiclass evaluator): OpLogisticRegression (every candidate a
+k <= 64, the multiclass evaluator; labels past 63 take the per-family sweep,
+as the reference's): OpLogisticRegression (every candidate a
 softmax fit: "fista"), OpMultilayerPerceptronClassifier ("mlp", the k class
 probabilities), OpRandomForestClassifier and OpDecisionTreeClassifier
 ("forest" with k class-distribution channels), OpGBTClassifier and
@@ -47,8 +48,7 @@ import numpy as np
 import torch
 
 from ..ops import trees as Tr
-from ..ops.metrics import (BINARY_METRICS, MULTICLASS_MAX_CLASSES, MULTICLASS_METRICS,
-                           REGRESSION_METRICS)
+from ..ops.metrics import BINARY_METRICS, MULTICLASS_METRICS, REGRESSION_METRICS
 from .trees_common import (DEFAULT_MAX_FRONTIER, DEFAULT_MAX_FRONTIER_BOOSTED,
                            _DYNAMIC_BOOST_KEYS, _FOREST_GRID_KEYS, effective_trees_per_round)
 
@@ -377,10 +377,6 @@ def build_sweep_plan(candidates: Sequence[Tuple[Any, Sequence[Dict[str, Any]]]],
         n_cand = sum(max(len(list(g) or [{}]), 1) for _, g in candidates)
         if 8 * n_cand * len(yv) * n_classes * 4 > 2e9:  # the JAX package's score guard
             return None
-        if n_classes > MULTICLASS_MAX_CLASSES:
-            raise NotImplementedError(
-                f"the port's multiclass sweep takes at most {MULTICLASS_MAX_CLASSES} classes "
-                f"(its kernels' limit), got {n_classes}")
     # a two-class label under the multiclass evaluator trains the binary
     # families' models, as the reference's (its interpreter expands p to
     # [1 - p, p]); the LR elastic-net points are its "fista" fragments, which

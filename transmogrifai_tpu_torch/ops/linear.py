@@ -193,10 +193,10 @@ linear_fista_grad.launches = 0
 # ---------------------------------------------------------------------------
 # K-P softmax_fista_grad
 # ---------------------------------------------------------------------------
-#: the most classes and coefficients (features + intercept) K-P takes: up to
-#: 64 coefficients a thread a row, above a warp a row (``csrc/fista.cu``'s
-#: wide entry)
-SOFTMAX_MAX_CLASSES = 8
+#: the most classes and coefficients (features + intercept) K-P and its plain
+#: version take: up to 64 coefficients a thread a row, above a warp a row
+#: (``csrc/fista.cu``'s wide entry); above 8 classes the tiled entry
+SOFTMAX_MAX_CLASSES = 128
 SOFTMAX_MAX_COEFS = 1024
 #: the wide entries' (K-P's, K-T's) float64 partials stay under this
 _WIDE_PARTIAL_BYTES = 1 << 28

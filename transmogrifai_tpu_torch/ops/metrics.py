@@ -270,8 +270,15 @@ def regression_grid_metrics(y: torch.Tensor, preds: torch.Tensor,
 # ---------------------------------------------------------------------------
 # K-Q multiclass_metrics
 # ---------------------------------------------------------------------------
-#: the most classes K-Q takes
-MULTICLASS_MAX_CLASSES = 8
+#: the most classes K-Q and its plain version take: 4k + 1 counters a row in
+#: the kernel's shared memory
+MULTICLASS_MAX_CLASSES = 128
+#: up to this many classes the F1 / Precision / Recall class sums are fused
+#: multiply-adds in class order, bit-equal to XLA's CPU code; above, XLA
+#: vectorizes them in an order that depends on the host's vector width and
+#: the grid's shape, and K-Q takes the float64 sum in class order, rounded
+#: once (within ``fixtures.MANY_CLASS_METRIC_ULPS`` of XLA's; PERF.md)
+MULTICLASS_FMA_CLASSES = 10
 
 
 def _check_multiclass(probs, y, vm, C):
@@ -310,12 +317,28 @@ def _multiclass_finish(TP, FP, FN, CN, NV) -> torch.Tensor:
     r = torch.where(rd > 0, tp / torch.clamp_min(rd, 1.0), zero)
     s = p + r
     f = torch.where(s > 0, 2.0 * p * r / torch.clamp_min(s, 1e-30), zero)
-    f1, prec, rec = f[:, 0] * wgt[:, 0], p[:, 0] * wgt[:, 0], r[:, 0] * wgt[:, 0]
-    for j in range(1, tp.shape[1]):  # in class order, fused, as XLA sums them
-        f1, prec, rec = (fma(v[:, j], wgt[:, j], acc)
-                         for v, acc in ((f, f1), (p, prec), (r, rec)))
+    if tp.shape[1] <= MULTICLASS_FMA_CLASSES:
+        # in class order, fused, as XLA's CPU code sums them at these k
+        f1, prec, rec = f[:, 0] * wgt[:, 0], p[:, 0] * wgt[:, 0], r[:, 0] * wgt[:, 0]
+        for j in range(1, tp.shape[1]):
+            f1, prec, rec = (fma(v[:, j], wgt[:, j], acc)
+                             for v, acc in ((f, f1), (p, prec), (r, rec)))
+    else:
+        # XLA's order depends on the host and the grid's shape here: the
+        # float64 sum in class order (exact products), rounded once
+        f1, prec, rec = (_sum64(v, wgt) for v in (f, p, r))
     err = 1.0 - TP.sum(1).float() / nv[:, 0]
     return torch.stack([f1, prec, rec, err], dim=-1)
+
+
+def _sum64(v: torch.Tensor, wgt: torch.Tensor) -> torch.Tensor:
+    """sum_j v_j wgt_j over axis 1 in float64, in class order, rounded to
+    float32 once (each float32 product is exact in float64)."""
+    vd, wd = v.double(), wgt.double()
+    s = vd[:, 0] * wd[:, 0]
+    for j in range(1, v.shape[1]):
+        s = s + vd[:, j] * wd[:, j]
+    return s.float()
 
 
 def multiclass_metrics_plain(probs: torch.Tensor, y: torch.Tensor, vm: torch.Tensor,

@@ -115,7 +115,8 @@ def _check_net(layers: Sequence[int]) -> None:
         raise NotImplementedError(
             f"mlp kernels take at most {MLP_MAX_LAYERS - 1} hidden layers of width <= "
             f"{MLP_MAX_HIDDEN}, {MLP_MAX_FEATURES} features and 2 .. {MLP_MAX_CLASSES} "
-            f"classes, got layers {tuple(layers)}")
+            f"classes, got layers {tuple(layers)} (the tiled kernel that lifts these limits "
+            "is ROADMAP Queue 3 item 2)")
 
 
 def _check(X, params, layers) -> None:

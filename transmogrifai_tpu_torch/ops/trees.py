@@ -445,8 +445,10 @@ def subsample_weights(key: R.Key, n: int, n_rounds: int, frac: float,
 # ---------------------------------------------------------------------------
 # K-E level_hist
 # ---------------------------------------------------------------------------
-#: the most gradient channels (classes) K-E and K-F take: c + 1 <= 9
-MAX_CHANNELS = 8
+#: the most gradient channels (classes) K-E, K-F and K-R and their plain
+#: versions take (K-E cuts the c + 1 channels into slabs past 9, K-F keeps
+#: its running sums in shared memory past 8)
+MAX_CHANNELS = 128
 
 
 def _check_level_hist(Xb, ghw, ids, m, n_bins, parent, pair_parent, pair_light):
@@ -502,8 +504,8 @@ def level_hist_plain(Xb: torch.Tensor, ghw: torch.Tensor, ids: torch.Tensor, m: 
                      pair_parent: Optional[torch.Tensor] = None,
                      pair_light: Optional[torch.Tensor] = None,
                      scale_bits: int = HIST_SCALE_BITS) -> torch.Tensor:
-    """Plain PyTorch version of K-E: the same fixed-point sums, as one
-    int64 ``index_add_`` over rows, then the parent - light assembly."""
+    """Plain PyTorch version of K-E: the same fixed-point sums, as an int64
+    ``index_add_`` over rows a feature, then the parent - light assembly."""
     T, n, C1 = ghw.shape
     d, B = Xb.shape[1], n_bins
     mp = m // 2 if parent is not None else m
@@ -511,12 +513,13 @@ def level_hist_plain(Xb: torch.Tensor, ghw: torch.Tensor, ids: torch.Tensor, m: 
     idl = ids.long()
     dead = idl < 0
     base = torch.where(dead, torch.full_like(idl, mp * B), idl * B)      # [T, n]
-    seg = base[:, None, :] + torch.where(dead[:, None, :], 0, Xb.long().T[None])  # [T, d, n]
-    offs = (torch.arange(T * d, device=Xb.device) * seg_n).view(T, d, 1)
-    fixed = torch.round(ghw * float(2.0 ** scale_bits)).to(torch.int64)
+    offs = (torch.arange(T, device=Xb.device) * (d * seg_n)).view(T, 1)
+    fixed = torch.round(ghw * float(2.0 ** scale_bits)).to(torch.int64).reshape(T * n, C1)
     acc = torch.zeros((T * d * seg_n, C1), dtype=torch.int64, device=Xb.device)
-    acc.index_add_(0, (seg + offs).reshape(-1),
-                   fixed[:, None].expand(T, d, n, C1).reshape(-1, C1))
+    Xl = Xb.long()
+    for j in range(d):  # integer sums: the order changes no bit
+        seg = base + torch.where(dead, 0, Xl[:, j][None]) + offs + j * seg_n
+        acc.index_add_(0, seg.reshape(-1), fixed)
     light = acc.view(T, d, seg_n, C1)[:, :, :mp * B].reshape(T, d, mp, B, C1) \
         .permute(0, 2, 4, 1, 3).to(torch.float32) * float(2.0 ** -scale_bits)
     light = light.contiguous()                                            # [T, mp, C1, d, B]
@@ -1090,19 +1093,46 @@ def softmax_boost_step_plain(F: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
     ghw[..., k] = softmax_hessian(p) * w
 
 
+#: XLA's CPU compiler splits a reduction of more than this many elements
+#: into windows of this size (its tree-reduction rewrite)
+XLA_REDUCE_WINDOW = 32
+
+
+def hessian_windows(k: int) -> List[Tuple[int, int]]:
+    """The [start, stop) class ranges whose sums XLA's CPU code adds for the
+    reference's class mean past ``XLA_REDUCE_WINDOW`` classes: the k classes
+    padded to a multiple of the window, half the padding (rounded down) in
+    front, cut into windows."""
+    w = XLA_REDUCE_WINDOW
+    lo = (-(-k // w) * w - k) // 2
+    return [(max(0, s - lo), min(k, s - lo + w)) for s in range(0, k + lo, w)]
+
+
 def softmax_hessian(p: torch.Tensor) -> torch.Tensor:
     """The softmax loss's scalar hessian of each row of probabilities ``p``
     [..., k]: ``max(mean_j p_j (1 - p_j), 1e-6)`` as XLA's CPU code computes
-    the reference's ``(p * (1 - p)).mean(-1)``: the first product rounded,
-    the others added by fused multiply-adds in channel order, the mean a
-    product by float32(1 / k)."""
+    the reference's ``(p * (1 - p)).mean(-1)``, the mean a product by
+    float32(1 / k).  Up to ``XLA_REDUCE_WINDOW`` classes the first product
+    is rounded and the others added by fused multiply-adds in channel order;
+    past it XLA splits the sum into ``hessian_windows`` (the products
+    rounded apart, each window summed in channel order, the windows' sums
+    added in order)."""
     from .metrics import fma
 
     k = p.shape[-1]
     q = 1.0 - p
-    h = p[..., 0] * q[..., 0]
-    for j in range(1, k):
-        h = fma(p[..., j], q[..., j], h)
+    if k <= XLA_REDUCE_WINDOW:
+        h = p[..., 0] * q[..., 0]
+        for j in range(1, k):
+            h = fma(p[..., j], q[..., j], h)
+    else:
+        r = p * q
+        h = None
+        for a, b in hessian_windows(k):
+            s = r[..., a]
+            for j in range(a + 1, b):
+                s = s + r[..., j]
+            h = s if h is None else h + s
     return torch.clamp_min(h * float(np.float32(1.0 / k)), 1e-6)
 
 
@@ -1149,15 +1179,16 @@ def softmax_boost_step(F: torch.Tensor, y: torch.Tensor, w: torch.Tensor, eta: t
     upd = leaf is not None
     leaf_t = leaf.contiguous() if upd else F
     node_t = row_node.contiguous() if upd else F
-    block = 256
+    kp = 1 << (k - 1).bit_length()
+    block = 256 if k <= 8 else max(16, 2048 // kp)  # a [block, kp] tile of 2,048 values
     grid = (-(-n // block), T)
     with torch.cuda.device(F.device), cuda_build.kernel_errors("softmax_boost_step"):
         tb.boost_step_kernel[grid](F, y, w, eta, leaf_t, node_t,
                                    ghw if ghw is not None else F, n,
                                    leaf_t.shape[1] if upd else 0, float(np.float32(1.0 / k)),
                                    UPDATE=upd, GRAD=ghw is not None,
-                                   LOSS=BOOST_LOSSES["softmax"], K=k,
-                                   KP=1 << (k - 1).bit_length(), BLOCK=block, num_warps=4)
+                                   LOSS=BOOST_LOSSES["softmax"], K=k, KP=kp, BLOCK=block,
+                                   num_warps=4)
     softmax_boost_step.launches += 1
     return None
 
@@ -1186,16 +1217,24 @@ def _collapse_launch(wrapper, F, y, w, eta, leaf, row_node, ghw, rw, loss: int, 
     node_t = row_node.contiguous() if upd else F
     cp = max(2, 1 << (c - 1).bit_length())
     pow2 = K & (K - 1) == 0
-    # a power of two K loads a [block, K cp] leaf tile: at most 8,192 values
-    block = 1024 if c == 1 else 256
+    # a power of two K loads a [block, K cs] leaf tile of at most 8,192
+    # values: past 8 classes the rows a block keep a [block, cp] tile of
+    # 2,048, and the update walks class slabs of cs channels where K cp is
+    # too wide for that
+    block = 1024 if c == 1 else 256 if c <= 8 else max(16, 2048 // cp)
+    cs = cp
     if pow2:
-        block = max(16, min(block, 8192 // (K * cp)))
+        if c <= 8:
+            block = max(16, min(block, 8192 // (K * cp)))
+        else:
+            cs = max(1, min(cp, 8192 // (K * block)))
     with torch.cuda.device(F.device), cuda_build.kernel_errors(name):
         tb.collapse_step_kernel[(-(-n // block), T)](
             F, y, w, rw, eta, leaf_t, node_t, ghw if ghw is not None else F, n,
             leaf_t.shape[1] if upd else 0, float(np.float32(1.0 / K)),
             float(np.float32(1.0 / c)), UPDATE=upd, GRAD=ghw is not None, LOSS=loss, KT=K,
-            HALVINGS=K.bit_length() - 1 if pow2 else 0, C=c, CP=cp, BLOCK=block, num_warps=4)
+            HALVINGS=K.bit_length() - 1 if pow2 else 0, C=c, CP=cp, CS=cs, BLOCK=block,
+            num_warps=4)
     wrapper.launches += 1
     wrapper.collapse_launches += 1
     return None

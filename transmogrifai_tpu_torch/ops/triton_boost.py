@@ -11,18 +11,20 @@ Replaces the margin update and ``_grad_hess`` of the JAX package
 (tree t, row r), ``F += eta[t] * leaf[t, row_node[t, r]]`` (one gather),
 then with ``LOSS`` 0 (logistic) ``p = 1 / (1 + exp(-F))``, ``g = (p - y) w``
 and ``h = max(p (1 - p), 1e-6) w``, with ``LOSS`` 1 (squared) ``g = (F - y)
-w`` and ``h = w``.  K-R (``LOSS`` 2, k <= 8 class margins a row): the
+w`` and ``h = w``.  K-R (``LOSS`` 2, k <= 128 class margins a row): the
 update on each channel, then the row's max, ``e = exp(F - max)``, their sum
 in channel order, ``p = e / sum``, the k gradients ``(p_j - [y == j]) w``
 and one scalar hessian ``max(mean_j p_j (1 - p_j), 1e-6) w``, its channel
-sum in channel order with fused multiply-adds and the mean a product by
-float32(1 / k), as XLA's CPU code computes the reference's
-``(p * (1 - p)).mean(-1)``; the margin update is one fused multiply-add
+sum in channel order with fused multiply-adds (past 32 channels in XLA's
+windows of 32: ``_hess_sum``) and the mean a product by float32(1 / k), as
+XLA's CPU code computes the reference's ``(p * (1 - p)).mean(-1)``; the margin update is one fused multiply-add
 (a channel), as XLA contracts the reference's, but for the squared loss,
 which rounds the product and the sum apart (see ``ops/trees.py::boost_step``).
 Each is one
 pass over [T, n] (K-R: a [rows,
-k] tile and a reduction over its k channels) with no reuse, which shared
+k] tile and a reduction over its k channels; above 8 classes the rows a
+block shrink so that the tile stays 2,048 values, and the channel-order
+sums run as a loop instead of unrolled) with no reuse, which shared
 memory and tensor cores cannot speed up and Triton's masked block loads
 and reductions express directly; so both are written in Triton, as K-C and
 K-D are.  Every product, sum and quotient is a round-to-nearest PTX
@@ -47,7 +49,11 @@ gradients at the new margins are formed once and written as K weighted
 planes, tree bK + k with weights ``w[b] * rw[k]`` (the product formed
 first, as the reference's ``w_batch[:, None, :] * rwk[None]``), so one
 launch a step feeds the grower's B * K trees.  For a power of two K the
-K leaf rows are loaded as one tile and halved in registers.  Bound:
+K leaf rows are loaded as one tile and halved in registers; where K times
+the padded class count would make that tile too large, the update walks
+class slabs of ``CS`` channels (each slab's K leaves halved alike: the
+halving is per channel) and the gradients reload the updated margins after
+a block barrier.  Bound:
 bytes (F read and written, the K nodes read, the leaf pools once, y, w
 and the K subsample rows read, K gradient planes written).
 """
@@ -97,6 +103,37 @@ def _column(x, cols, j):
 
 
 @triton.jit
+def _hess_sum(p, q, cols, K: tl.constexpr, BLOCK: tl.constexpr):
+    """sum_j p_j q_j over the K channels of [BLOCK, KP] tiles, as XLA's CPU
+    code sums the reference's class mean (``ops/trees.py::softmax_hessian``):
+    up to 32 channels the first product rounded and fused multiply-adds in
+    channel order (unrolled up to 8); past 32 the rounded products summed in
+    XLA's windows of 32 (the padding to a multiple of 32 split, the lower
+    half in front), each in channel order, and the windows' sums in order
+    (the sums of non-negative terms start from +0, which adds exactly)."""
+    if K <= 8:
+        h = _mul(_column(p, cols, 0), _column(q, cols, 0))
+        for j in tl.static_range(1, K):
+            h = _fma(_column(p, cols, j), _column(q, cols, j), h)
+    elif K <= 32:
+        h = _mul(_column(p, cols, 0), _column(q, cols, 0))
+        for j in range(1, K):
+            h = _fma(_column(p, cols, j), _column(q, cols, j), h)
+    else:
+        r = _mul(p, q)
+        lo = ((K + 31) // 32 * 32 - K) // 2
+        zero = tl.zeros([BLOCK], tl.float32)
+        h = zero
+        s = zero
+        for j in range(0, K):
+            edge = ((j + lo) % 32 == 0) & (j > 0)
+            h = tl.where(edge, _add(h, s), h)
+            s = _add(tl.where(edge, zero, s), _column(r, cols, j))
+        h = _add(h, s)
+    return h
+
+
+@triton.jit
 def _softmax_step(F_ptr, y_ptr, w_ptr, eta_ptr, leaf_ptr, node_ptr, ghw_ptr, n, P, inv_k,
                   UPDATE: tl.constexpr, GRAD: tl.constexpr, K: tl.constexpr, KP: tl.constexpr,
                   BLOCK: tl.constexpr):
@@ -121,18 +158,19 @@ def _softmax_step(F_ptr, y_ptr, w_ptr, eta_ptr, leaf_ptr, node_ptr, ghw_ptr, n, 
         e = tl.where(okc, libdevice.exp(_sub(f, mx[:, None] + tl.zeros([BLOCK, KP], tl.float32))),
                      0.0)
         s = _column(e, cols, 0)
-        for j in tl.static_range(1, K):
-            s = _add(s, _column(e, cols, j))
+        if K <= 8:
+            for j in tl.static_range(1, K):
+                s = _add(s, _column(e, cols, j))
+        else:
+            for j in range(1, K):
+                s = _add(s, _column(e, cols, j))
         p = _div(e, s[:, None] + tl.zeros([BLOCK, KP], tl.float32))
         y = tl.load(y_ptr + r, mask=ok, other=0.0).to(tl.int32)
         w = tl.load(w_ptr + i, mask=ok, other=0.0)
         onehot = tl.where(cols == y[:, None], 1.0, 0.0)
         g = _mul(_sub(p, onehot), w[:, None] + tl.zeros([BLOCK, KP], tl.float32))
         tl.store(ghw_ptr + i[:, None] * (K + 1) + cols, g, mask=okc)
-        q = _sub(one, p)
-        h = _mul(_column(p, cols, 0), _column(q, cols, 0))
-        for j in tl.static_range(1, K):
-            h = _fma(_column(p, cols, j), _column(q, cols, j), h)
+        h = _hess_sum(p, _sub(one, p), cols, K, BLOCK)
         h = _mul(tl.maximum(_mul(h, tl.zeros([BLOCK], tl.float32) + inv_k), 1e-6), w)
         tl.store(ghw_ptr + i * (K + 1) + K, h, mask=ok)
 
@@ -186,17 +224,18 @@ def _binary_step(F_ptr, y_ptr, w_ptr, eta_ptr, leaf_ptr, node_ptr, ghw_ptr, n, P
 # The collapse modes: K trees a batch element (round-collapsed boosting)
 # ---------------------------------------------------------------------------
 @triton.jit
-def _leaf_sum(leaf_ptr, node_ptr, t0, r, ok, n, P, C, cols, okc, KT: tl.constexpr,
+def _leaf_sum(leaf_ptr, node_ptr, t0, r, ok, n, P, C, c0, cols, okc, KT: tl.constexpr,
               HALVINGS: tl.constexpr, CP: tl.constexpr, BLOCK: tl.constexpr):
-    """Sum of the [BLOCK, CP] leaf rows of trees t0 .. t0 + KT - 1 at rows r
+    """Sum of the [BLOCK, CP] leaf rows (channels c0 .. c0 + CP - 1; ``cols``
+    and ``okc`` already offset by c0) of trees t0 .. t0 + KT - 1 at rows r
     in XLA's order.  KT a power of two (2^HALVINGS): the KT leaf rows as one
-    [BLOCK, KT CP] tile (tree k's channel c in column k CP + c), halved
+    [BLOCK, KT CP] tile (tree k's channel c0 + c in column k CP + c), halved
     HALVINGS times, each column of the first half plus the same column of
     the second (one rounded add); in tree order otherwise."""
     if (KT & (KT - 1)) == 0:
         m = tl.arange(0, KT * CP)[None, :]
         t = t0 + m // CP
-        c = m % CP
+        c = c0 + m % CP
         okm = ok[:, None] & (c < C)
         node = tl.load(node_ptr + t * n + r[:, None], mask=okm, other=0)
         acc = tl.load(leaf_ptr + (t * P + node) * C + c, mask=okm, other=0.0)
@@ -218,10 +257,12 @@ def _leaf_sum(leaf_ptr, node_ptr, t0, r, ok, n, P, C, cols, okc, KT: tl.constexp
 def collapse_step_kernel(F_ptr, y_ptr, w_ptr, rw_ptr, eta_ptr, leaf_ptr, node_ptr, ghw_ptr, n, P,
                          inv_trees, inv_c, UPDATE: tl.constexpr, GRAD: tl.constexpr,
                          LOSS: tl.constexpr, KT: tl.constexpr, HALVINGS: tl.constexpr,
-                         C: tl.constexpr, CP: tl.constexpr, BLOCK: tl.constexpr):
+                         C: tl.constexpr, CP: tl.constexpr, CS: tl.constexpr,
+                         BLOCK: tl.constexpr):
     """One round-collapsed boosting step of batch element b = program_id(1)
     over C margin channels (1 for the logistic and squared losses, the k
-    classes of the softmax): the K-leaf update, then K gradient planes."""
+    classes of the softmax): the K-leaf update (in class slabs of CS
+    channels where CS < CP), then K gradient planes."""
     b = tl.program_id(1)
     r = tl.program_id(0) * BLOCK + tl.arange(0, BLOCK)
     ok = r < n
@@ -231,11 +272,24 @@ def collapse_step_kernel(F_ptr, y_ptr, w_ptr, rw_ptr, eta_ptr, leaf_ptr, node_pt
     zero = tl.zeros([BLOCK, CP], tl.float32)
     f = tl.load(F_ptr + i[:, None] * C + cols, mask=okc, other=0.0)
     if UPDATE:
-        a = _mul(zero + tl.load(eta_ptr + b), zero + inv_trees)
-        s = _leaf_sum(leaf_ptr, node_ptr, b.to(tl.int64) * KT, r, ok, n, P, C, cols, okc, KT,
-                      HALVINGS, CP, BLOCK)
-        f = _fma(a, s, f)
-        tl.store(F_ptr + i[:, None] * C + cols, f, mask=okc)
+        if CS == CP:
+            a = _mul(zero + tl.load(eta_ptr + b), zero + inv_trees)
+            s = _leaf_sum(leaf_ptr, node_ptr, b.to(tl.int64) * KT, r, ok, n, P, C, 0, cols, okc,
+                          KT, HALVINGS, CP, BLOCK)
+            f = _fma(a, s, f)
+            tl.store(F_ptr + i[:, None] * C + cols, f, mask=okc)
+        else:
+            zs = tl.zeros([BLOCK, CS], tl.float32)
+            a = _mul(zs + tl.load(eta_ptr + b), zs + inv_trees)
+            for c0 in range(0, C, CS):
+                cs = c0 + tl.arange(0, CS)[None, :]
+                oks = ok[:, None] & (cs < C)
+                fs = tl.load(F_ptr + i[:, None] * C + cs, mask=oks, other=0.0)
+                s = _leaf_sum(leaf_ptr, node_ptr, b.to(tl.int64) * KT, r, ok, n, P, C, c0, cs,
+                              oks, KT, HALVINGS, CS, BLOCK)
+                tl.store(F_ptr + i[:, None] * C + cs, _fma(a, s, fs), mask=oks)
+            tl.debug_barrier()  # the block's stores before its reloads
+            f = tl.load(F_ptr + i[:, None] * C + cols, mask=okc, other=0.0)
     if GRAD:
         one = tl.full([BLOCK], 1.0, tl.float32)
         y = tl.load(y_ptr + r, mask=ok, other=0.0)
@@ -245,15 +299,16 @@ def collapse_step_kernel(F_ptr, y_ptr, w_ptr, rw_ptr, eta_ptr, leaf_ptr, node_pt
             mx = tl.max(fm, axis=1)
             e = tl.where(okc, libdevice.exp(_sub(f, mx[:, None] + zero)), 0.0)
             se = _column(e, cols, 0)
-            for j in tl.static_range(1, C):
-                se = _add(se, _column(e, cols, j))
+            if C <= 8:
+                for j in tl.static_range(1, C):
+                    se = _add(se, _column(e, cols, j))
+            else:
+                for j in range(1, C):
+                    se = _add(se, _column(e, cols, j))
             p = _div(e, se[:, None] + zero)
             onehot = tl.where(cols == y.to(tl.int32)[:, None], 1.0, 0.0)
             g = _sub(p, onehot)
-            q = _sub(zero + 1.0, p)
-            h = _mul(_column(p, cols, 0), _column(q, cols, 0))
-            for j in tl.static_range(1, C):
-                h = _fma(_column(p, cols, j), _column(q, cols, j), h)
+            h = _hess_sum(p, _sub(zero + 1.0, p), cols, C, BLOCK)
             h = tl.maximum(_mul(h, tl.zeros([BLOCK], tl.float32) + inv_c), 1e-6)
         else:
             f0 = _column(f, cols, 0)
