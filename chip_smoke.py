@@ -4,6 +4,7 @@ Run from the repository root on a host with one CUDA card:
 
     python3 chip_smoke.py [--seed 0] [--rows 1048576] [--reps 20] [--train-rows 262144]
                           [--stats-rows 1048576] [--text-rows 131072] [--stream-rows 4194304]
+                          [--wide-text-rows 65536]
 
 Phases, each printing its findings on a line of its own:
 
@@ -350,7 +351,33 @@ Phases, each printing its findings on a line of its own:
                versions timed over 5 runs);
 56. many extra kernels -- off the path: K-R's step and collapse modes at 26
                and 64 classes, K-P's wide entry at 26 classes and p = 85,
-               K-B over a 26-class forest.
+               K-B over a 26-class forest;
+57. wide reference -- the tiled K-U, K-V, K-AA and K-AB at fixture size:
+               the Letter flow over naive Bayes and the MLP at 26 classes
+               (600 rows) against ``letters_families`` and the JAX-saved
+               winner's answers, the wide text flows ("embed": Word2Vec at
+               300 dimensions, LDA at 100 topics, the stock space and the
+               MLP (128, 64, 32); "bow": the count vector and LDA, naive
+               Bayes and the MLP) on the 891-row frame against
+               ``wide_text`` (``FX.fixture_gaps``: candidates, winners,
+               widths and answers held, and every fold gap within its
+               tolerance but ``FX.WIDE_TEXT_OPEN_GAP``'s, printed beside
+               it);
+58. letters families train -- that Letter flow at 2^16 rows: launches (K-U
+               both modes and K-V both modes above 0), wall, busy time, idle
+               share, its winner held to the fixture size's;
+59. wide text trains -- the two text flows on ``--wide-text-rows`` rows
+               (2^16: half of ``--text-rows``, so that the script stays near
+               1,000 s; K-AA,
+               K-AB's three modes, K-U both modes, and K-V both modes in
+               "bow", above 0), likewise ("embed"'s winner printed beside
+               the fixture size's, not held: ``SCALE_WINNER_UNHELD``);
+60. wide kernels -- K-U at (32, 128, 64, 26) and at the embedding flow's
+               (d, 128, 64, 32, 2) and the bag of words' (d, 10, 2), K-V at
+               the bag of words' width and at 26 classes, K-AA at 300
+               dimensions and K-AB at 100 topics, each on its train's own
+               inputs against its plain version, timed beside its bound and
+               a PyTorch call computing the same function.
 
 The line before the last holds the kernels' JSON record, then the card's
 name and power limit; the last line is ``{"ok": true, "device": ...}``.  Any
@@ -408,8 +435,12 @@ def check(cond, msg="check failed"):
         raise AssertionError(msg)
 
 
+#: the script's start, for each phase line's ``t_s``
+T0 = time.perf_counter()
+
+
 def log(phase, **fields):
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    print(json.dumps({"phase": phase, "t_s": time.perf_counter() - T0, **fields}), flush=True)
 
 
 def titanic_columns(n, seed):
@@ -498,24 +529,33 @@ def ptxas_summary(log_text):
 
 
 def profiled(torch, fn):
-    """Run ``fn`` under the profiler: (wall seconds, the device's busy
-    seconds or None when it recorded no device activity, the idle share,
-    the top 12 (kernel, device seconds, count)).  Only the card's own
-    events count: a host op (``aten::add``) carries its kernels' device
-    time as well, which would count each of them twice."""
+    """Run ``fn`` under the profiler, the card's activity alone: (wall
+    seconds, the device's busy seconds or None when it recorded no device
+    activity, the idle share, the top 12 (kernel, device seconds, count)).
+    The card's events are summed from the profiler's raw results: its
+    per-operator tables (``key_averages``) took much of the host time of
+    the longest train phases."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
-    on_card = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
-               and not getattr(e, "is_user_annotation", False) and e.self_device_time_total > 0]
-    busy_us = sum(e.self_device_time_total for e in on_card)
-    busy_s = busy_us / 1e6 if busy_us > 0 else None
-    by_kernel = sorted(((e.key, e.self_device_time_total / 1e6, e.count) for e in on_card),
+    busy_ns, by_name = 0, {}
+    for e in prof.profiler.kineto_results.events():
+        annotation = getattr(e, "is_user_annotation", None)
+        if e.device_type() != DeviceType.CUDA or (annotation is not None and annotation()):
+            continue
+        d = e.duration_ns()
+        if d > 0:
+            busy_ns += d
+            acc = by_name.setdefault(e.name(), [0, 0])
+            acc[0] += d
+            acc[1] += 1
+    busy_s = busy_ns / 1e9 if busy_ns > 0 else None
+    by_kernel = sorted(((k, v[0] / 1e9, v[1]) for k, v in by_name.items()),
                        key=lambda r: -r[1])[:12]
     return wall, busy_s, None if busy_s is None else 1 - busy_s / wall, by_kernel
 
@@ -2257,9 +2297,7 @@ def families_kernel_phase(torch, b_calls, timer, dev="cuda"):
     labels and fold (the workflow's features are deterministic).  Each is
     timed by CUDA events beside its bound, its plain version and one
     PyTorch call computing the same function."""
-    from transmogrifai_tpu_torch.impl.classification import naive_bayes as NB
     from transmogrifai_tpu_torch.ops import linear as L
-    from transmogrifai_tpu_torch.ops import mlp as M
 
     plan, train_w, _, _ = b_calls[0]
     X, y, blob = plan.X, plan.y, np.asarray(plan.blob, np.float32)
@@ -2307,111 +2345,30 @@ def families_kernel_phase(torch, b_calls, timer, dev="cuda"):
     # K-U mlp_grad and mlp_forward: the MLP fits after ten Adam steps
     _, mcis, layers, _, off_lr, off_seed = next(f for f in plan.spec[1] if f[0] == "mlp")
     Gm = len(mcis)
-    seeds = blob[off_seed:off_seed + Gm].astype(np.int32)
-    params = M.fit_mlp_grid_folds(X, y, tw, blob[off_lr:off_lr + Gm], seeds, layers=layers,
-                                  max_iter=10)
-    Cm = F * Gm
-    flat = M.flatten(params).reshape(Cm, -1).contiguous()
-    E = flat.shape[1]
-    mfold = torch.arange(F, dtype=torch.int32, device=dev).repeat_interleave(Gm)
-    mwsum = torch.clamp_min(tw.sum(1), 1e-12)[mfold.long()].contiguous()
-    margs = (X, y, tw, mfold, mwsum, flat, layers)
-    m1, m2 = M.mlp_grad(*margs), M.mlp_grad_plain(*margs)
-    torch.cuda.synchronize()
-    check(torch.equal(m1, M.mlp_grad(*margs)), "mlp_grad does not repeat")
-    merr = float((m1 - m2).abs().max() / m2.abs().max())
-    check(merr <= MLP_GRAD_RTOL, f"mlp_grad {merr} from plain, above {MLP_GRAD_RTOL}")
-    Y = torch.nn.functional.one_hot(y.long(), layers[-1]).to(torch.float32)
-    mw = tw[mfold.long()]
-
-    def mlp_autograd():
-        leaf = flat.detach().requires_grad_(True)
-        logits = M.forward(M.unflatten(leaf, layers), X)
-        ll = torch.log_softmax(logits, dim=-1)
-        loss = (-(mw[..., None] * Y * ll).sum((1, 2)) / mwsum).sum()
-        return torch.autograd.grad(loss, leaf)[0]
-
-    macs = sum(a * b_ for a, b_ in zip(layers[:-1], layers[1:]))
-    # X, y and the fold weights read once, the parameters read and the
-    # gradients written; per (fit, row) about 6 operations a weight (the
-    # forward and backward products and the gradient's sum)
-    b, by = bound_ms((n * d + n + F * n) * 4 + 2 * Cm * E * 4, Cm * n * 6 * macs)
-    records.append(dict(
-        name="mlp_grad", route="cuda", source="transmogrifai_tpu_torch/csrc/mlp.cu",
-        replaces="transmogrifai_tpu/ops/mlp.py:56", max_abs_err=float((m1 - m2).abs().max()),
-        ms=timer(lambda: M.mlp_grad(*margs)), plain_ms=timer(lambda: M.mlp_grad_plain(*margs)),
-        bound_ms=b, bound_by=by, library_ms=timer(mlp_autograd)))
-    (z1, p1), (z2, p2) = M.mlp_forward(X, flat, layers), M.mlp_forward_plain(X, flat, layers)
-    torch.cuda.synchronize()
-    perr = float((p1 - p2).abs().max())
-    check(perr <= MLP_PROB_ATOL, f"mlp_forward probabilities {perr} from plain, above "
-                                 f"{MLP_PROB_ATOL}")
-    k = layers[-1]
-    b, by = bound_ms(n * d * 4 + Cm * E * 4 + 2 * Cm * n * k * 4, Cm * n * (2 * macs + 4 * k))
-    records.append(dict(
-        name="mlp_forward", route="cuda", source="transmogrifai_tpu_torch/csrc/mlp.cu",
-        replaces="transmogrifai_tpu/ops/mlp.py:108", max_abs_err=perr,
-        ms=timer(lambda: M.mlp_forward(X, flat, layers)),
-        plain_ms=timer(lambda: M.mlp_forward_plain(X, flat, layers)),
-        bound_ms=b, bound_by=by, library_ms=None))
-    extra["mlp"] = {"layers": list(layers), "fits": Cm, "params": E, "grad_rel_err": merr,
-                    "grad_tolerance": MLP_GRAD_RTOL, "logit_max_abs_err":
-                    float((z1 - z2).abs().max()), "prob_tolerance": MLP_PROB_ATOL}
-
-    # K-V nb_tables: the masses of the fold, then the scores of its tables
-    kc = 2
-    c1, f1 = NB.nb_tables_mass(X, y, tw, kc)
-    c2, f2 = NB.nb_tables_mass_plain(X, y, tw, kc)
-    torch.cuda.synchronize()
-    check(torch.equal(c1, c2), "nb_tables_mass class masses differ from plain")
-    nerr = float(((f1 - f2).abs() / f2.abs().clamp_min(1e-30)).max())
-    check(nerr <= NB_RTOL, f"nb_tables_mass {nerr} from plain, above {NB_RTOL}")
-    Ywf = torch.nn.functional.one_hot(y.long(), kc).to(torch.float32)
-    b, by = bound_ms((n * d + n + F * n) * 4 + F * kc * (d + 1) * 4, F * n * 2 * (d + 1))
-    records.append(dict(
-        name="nb_tables_mass", route="cuda", source="transmogrifai_tpu_torch/csrc/naive_bayes.cu",
-        replaces="transmogrifai_tpu/impl/classification/naive_bayes.py:23",
-        max_abs_err=float((f1 - f2).abs().max()),
-        ms=timer(lambda: NB.nb_tables_mass(X, y, tw, kc)),
-        plain_ms=timer(lambda: NB.nb_tables_mass_plain(X, y, tw, kc)),
-        bound_ms=b, bound_by=by,
-        library_ms=timer(lambda: torch.einsum("fn,nk,nd->fkd", tw, Ywf, X))))
-    s = torch.ones((1, 1, 1), device=dev)
-    pi, theta, _ = NB._log_tables(c1[:, None], f1[:, None], s, False)
-    pi, theta = pi.reshape(F, kc).contiguous(), theta.reshape(F, kc, d).contiguous()
-    s1, s2 = NB.nb_tables_score(X, pi, theta), NB.nb_tables_score_plain(X, pi, theta, None)
-    torch.cuda.synchronize()
-    serr = float(((s1 - s2).abs() / s2.abs().clamp_min(1.0)).max())
-    check(serr <= NB_RTOL, f"nb_tables_score {serr} from plain, above {NB_RTOL}")
-    b, by = bound_ms(n * d * 4 + F * kc * (d + 1) * 4 + F * n * kc * 4, F * n * kc * 2 * d)
-    records.append(dict(
-        name="nb_tables_score", route="cuda",
-        source="transmogrifai_tpu_torch/csrc/naive_bayes.cu",
-        replaces="transmogrifai_tpu/impl/classification/naive_bayes.py:39",
-        max_abs_err=float((s1 - s2).abs().max()),
-        ms=timer(lambda: NB.nb_tables_score(X, pi, theta)),
-        plain_ms=timer(lambda: NB.nb_tables_score_plain(X, pi, theta, None)),
-        bound_ms=b, bound_by=by,
-        library_ms=timer(lambda: torch.einsum("nd,qkd->qnk", X, theta))))
-    extra["nb_tables"] = {"X": [n, d], "folds": F, "classes": kc, "mass_rel_err": nerr,
-                          "score_rel_err": serr, "tolerance": NB_RTOL}
+    call = ((X, y, tw, blob[off_lr:off_lr + Gm], blob[off_seed:off_seed + Gm].astype(np.int32)),
+            {"layers": layers})
+    recs, extra["mlp"] = mlp_record(torch, "mlp_grad", call, timer, timer, dev)
+    records += recs
+    # K-V nb_tables: the masses of the folds, then the scores of their tables
+    recs, extra["nb_tables"] = nb_records(torch, "", ((X, y, tw, [1.0], False, 2), {}), timer,
+                                          timer)
+    records += recs
     log("families_kernels", details=extra, records=records)
     return records
 
 
-class FirstCall:
-    """Keeps the arguments of the first call of ``module.name`` while on
-    (wrapped, restored on exit)."""
+class AllCalls:
+    """Keeps the arguments of every call of ``module.name`` while on
+    (wrapped, restored on exit): ``calls``, a list of (args, kwargs)."""
 
     def __init__(self, module, name):
-        self.module, self.name, self.args, self.kwargs = module, name, None, None
+        self.module, self.name, self.calls = module, name, []
 
     def __enter__(self):
         fn = self.saved = getattr(self.module, self.name)
 
         def wrapped(*a, **k):
-            if self.args is None:
-                self.args, self.kwargs = a, k
+            self.calls.append((a, k))
             return fn(*a, **k)
 
         setattr(self.module, self.name, wrapped)
@@ -2552,7 +2509,7 @@ def glm_kernel_phase(torch, glm_call, timer, dev="cuda"):
     on top of the exp)."""
     from transmogrifai_tpu_torch.ops import linear as L
 
-    X, y, train_w = (glm_call.args[i] for i in range(3))
+    X, y, train_w = glm_call.calls[0][0][:3]
     tw = train_w.to(dev, torch.float32).contiguous()
     F, G = tw.shape[0], 3
     n = X.shape[0]
@@ -4581,6 +4538,371 @@ def slice13_phases(torch, FX, timer, dev="cuda"):
     return records, by_name
 
 
+# ---------------------------------------------------------------------------
+# slice 14: the tiled K-U, K-V, K-AA and K-AB past their old widths
+# ---------------------------------------------------------------------------
+#: the Letter families train's rows on the card
+LETTERS_FAMILIES_ROWS = 1 << 16
+#: the card-scale train whose winner is printed, not held to the fixture
+#: size's: "embed" picks by mean AuPR among near-tied candidates whose
+#: reference metrics move with the reference's own rounding, and no JAX
+#: train of that size exists to hold it to (PERF.md section 7)
+SCALE_WINNER_UNHELD = ("wide_text_embed",)
+
+
+def wide_reference_phase14(torch, FX, titanic, dev="cuda"):
+    """Phase 57: the three flows at fixture size on the card against the JAX
+    package's fixtures: the candidates, the winner, the vector's width, the
+    answers of the JAX-saved Letter winner and of the text flows' models on
+    the fixture's rows, and every fold metric within its tolerance
+    (``FX.LETTERS_FAMILIES_TOL`` / ``FX.WIDE_TEXT_TOL``) but for the one open
+    gap ``FX.WIDE_TEXT_OPEN_GAP`` ("embed"'s MLP: the reference's own fold
+    metric moves past its tolerance under a one-ulp change of one input, so
+    its gap is printed beside the tolerance, not held)."""
+    import transmogrifai_tpu_torch as P
+
+    out = {}
+    wf, _ = FX.letters_workflow(FX.port_letters_families_space())
+    (model, wall, _) = timed_train(
+        torch, lambda: wf.set_input_dataset(FX.letters_data(), key="id").train(device=dev))
+    out["letters_families"] = {"wall_s": wall, **FX.check_letters_families_train(model)}
+    out["letters_families_fixture_model"] = FX.check_letters_families_answers(
+        P.load_model(FX.LETTERS_FAMILIES, device=dev))
+    held = []
+    for kind in FX.WIDE_FLOWS:
+        wf, _ = FX.port_wide_text_workflow(kind)
+        (model, wall, _) = timed_train(torch, lambda: wf.set_input_dataset(
+            titanic.text_columns(), key="PassengerId").train(device=dev))
+        found = FX.wide_text_gaps(model, kind)
+        found["open"] = [fam for fam in found["beyond"] if (kind, fam) == FX.WIDE_TEXT_OPEN_GAP]
+        out[f"wide_text_{kind}"] = {"wall_s": wall, **found}
+        held += [f"{kind} {fam} {found['max_gap'][fam]} (tolerance {found['tolerance'][fam]})"
+                 for fam in found["beyond"] if fam not in found["open"]]
+    log("wide_reference", **out)
+    check(not held, "wide_text fold metrics beyond their tolerance: " + ", ".join(held))
+    return {k: v["best"] for k, v in out.items() if "best" in v}
+
+
+def slice14_trains(torch, FX, titanic, args, kernels, fixture_best, dev="cuda"):
+    """Phases 58-59: the Letter families flow at ``LETTERS_FAMILIES_ROWS``
+    rows and the two wide text flows at ``--wide-text-rows`` rows, each a main
+    path (launches, wall, busy time, idle share), the K-U / K-V / K-AA /
+    K-AB inputs of each kept for phase 60.  Returns ({train: launches},
+    {train: kept inputs})."""
+    from transmogrifai_tpu_torch.impl.classification import naive_bayes as NB
+    from transmogrifai_tpu_torch.impl.feature import embeddings as Emb
+    from transmogrifai_tpu_torch.ops import mlp as M
+
+    launches, keep = {}, {}
+
+    def check_fn(name, k):
+        def fn(model):
+            summ = model.stages[-1].summary
+            folds = np.array([r["foldMetrics"] for r in summ.validation_results])
+            check(np.isfinite(folds).all(), f"{name}: non-finite fold metrics")
+            best = [summ.best_model_name, summ.best_grid]
+            same = FX.same_winner(best, fixture_best[name])
+            check(same or name in SCALE_WINNER_UNHELD, f"{name}: winner {best}, the fixture-size "
+                                                       f"winner is {fixture_best[name]}")
+            ranked = sorted(summ.validation_results, key=lambda r: r["metricValue"],
+                            reverse=k == 2)   # AuPR larger-better, Error smaller-better
+            return {"classes": k, "best_mean_metric": float(ranked[0]["metricValue"]),
+                    "runner_up": [ranked[1]["modelName"], ranked[1]["grid"],
+                                  float(ranked[1]["metricValue"])],
+                    "winner_as_at_fixture_size": same, "fixture_size_winner": fixture_best[name]}
+        return fn
+
+    cols = FX.letters_data(LETTERS_FAMILIES_ROWS, 26, 0)
+
+    def letters():
+        wf, _ = FX.letters_workflow(FX.port_letters_families_space())
+        return wf.set_input_dataset(cols, key="id").train(device=dev), wf
+
+    req = ("mlp_grad", "mlp_forward", "nb_tables_mass", "nb_tables_score")
+    with AllCalls(M, "fit_mlp_grid_folds") as mlp, AllCalls(NB, "_nb_grid_z") as nb:
+        launches["letters_families"], _, _ = scale_train_phase(
+            torch, "letters_families_train", letters, kernels, req,
+            check_fn("letters_families", 26), sweep=False)
+    keep["letters_families"] = {"mlp": mlp.calls, "nb": nb.calls}
+    del cols
+    text = titanic.text_columns(args.wide_text_rows, args.seed)
+    for kind in FX.WIDE_FLOWS:
+        def train(kind=kind):
+            wf, _ = FX.port_wide_text_workflow(kind)
+            return wf.set_input_dataset(text, key="PassengerId").train(device=dev), wf
+
+        req = ("lda_beta", "lda_estep", "lda_sstats", "mlp_grad", "mlp_forward") + (
+            ("sgns_epoch",) if kind == "embed" else ("nb_tables_mass", "nb_tables_score"))
+        with AllCalls(M, "fit_mlp_grid_folds") as mlp, AllCalls(NB, "_nb_grid_z") as nb, \
+                FX.PortW2VArgs(Emb) as w2v, LastLdaFit() as lda:
+            launches[f"wide_text_{kind}"], _, _ = scale_train_phase(
+                torch, f"wide_text_{kind}_train", train, kernels, req,
+                check_fn(f"wide_text_{kind}", 2), sweep=kind == "embed")
+        keep[f"wide_text_{kind}"] = {"mlp": mlp.calls[:1], "nb": nb.calls[:1],
+                                     "w2v": w2v.calls[-1] if w2v.calls else None,
+                                     "lda": (lda.col, lda.topic_word)}
+    return launches, keep
+
+
+def mlp_record(torch, name, call, timer, plain_timer, dev="cuda"):
+    """K-U (gradient mode, and forward mode as ``<name>`` with ``grad``
+    replaced) on a ``fit_mlp_grid_folds`` call's inputs after ten Adam
+    steps, against plain and ``torch.autograd.grad`` of the plain loss."""
+    from transmogrifai_tpu_torch.ops import mlp as M
+
+    (X, y, tw, lrs, seeds), kw = call[0][:5], call[1]
+    layers = tuple(kw.get("layers", call[0][5] if len(call[0]) > 5 else None))
+    F, n, d = tw.shape[0], X.shape[0], X.shape[1]
+    params = M.fit_mlp_grid_folds(X, y, tw, lrs, seeds, layers=layers, max_iter=10)
+    G = len(seeds)
+    C = F * G
+    flat = M.flatten(params).reshape(C, -1).contiguous()
+    E = flat.shape[1]
+    fold = torch.arange(F, dtype=torch.int32, device=dev).repeat_interleave(G)
+    wsum = torch.clamp_min(tw.sum(1), 1e-12)[fold.long()].contiguous()
+    args = (X, y, tw, fold, wsum, flat, layers)
+    g1, g2 = M.mlp_grad(*args), M.mlp_grad_plain(*args)
+    torch.cuda.synchronize()
+    check(torch.equal(g1, M.mlp_grad(*args)), f"{name} does not repeat")
+    err = float((g1 - g2).abs().max() / g2.abs().max())
+    check(err <= MLP_GRAD_RTOL, f"{name} {err} from plain, above {MLP_GRAD_RTOL}")
+    k = layers[-1]
+    Y = torch.nn.functional.one_hot(y.long(), k).to(torch.float32)
+    mw = tw[fold.long()]
+
+    def autograd():
+        leaf = flat.detach().requires_grad_(True)
+        ll = torch.log_softmax(M.forward(M.unflatten(leaf, layers), X), dim=-1)
+        loss = (-(mw[..., None] * Y * ll).sum((1, 2)) / wsum).sum()
+        return torch.autograd.grad(loss, leaf)[0]
+
+    macs = sum(a * b for a, b in zip(layers[:-1], layers[1:]))
+    b, by = bound_ms((n * d + n + F * n) * 4 + 2 * C * E * 4, C * n * 6 * macs)
+    grad = dict(name=name, route="cuda", source="transmogrifai_tpu_torch/csrc/mlp.cu",
+                replaces="transmogrifai_tpu/ops/mlp.py:56", max_abs_err=float(
+                    (g1 - g2).abs().max()), ms=timer(lambda: M.mlp_grad(*args)),
+                plain_ms=plain_timer(lambda: M.mlp_grad_plain(*args)), bound_ms=b, bound_by=by,
+                library_ms=timer(autograd))
+    (z1, p1), (z2, p2) = M.mlp_forward(X, flat, layers), M.mlp_forward_plain(X, flat, layers)
+    torch.cuda.synchronize()
+    perr = float((p1 - p2).abs().max())
+    check(perr <= MLP_PROB_ATOL, f"{name} forward: probabilities {perr} from plain")
+    b, by = bound_ms(n * d * 4 + C * E * 4 + 2 * C * n * k * 4, C * n * (2 * macs + 4 * k))
+    fwd = dict(name=name.replace("grad", "forward"), route="cuda",
+               source="transmogrifai_tpu_torch/csrc/mlp.cu",
+               replaces="transmogrifai_tpu/ops/mlp.py:108", max_abs_err=perr,
+               ms=timer(lambda: M.mlp_forward(X, flat, layers)),
+               plain_ms=plain_timer(lambda: M.mlp_forward_plain(X, flat, layers)),
+               bound_ms=b, bound_by=by, library_ms=None)
+    shape = {"layers": list(layers), "rows": n, "fits": C, "params": E, "grad_rel_err": err,
+             "logit_max_abs_err": float((z1 - z2).abs().max())}
+    return [grad, fwd], shape
+
+
+def nb_records(torch, suffix, call, timer, plain_timer):
+    """K-V (mass and score mode) on a ``_nb_grid_z`` call's inputs against
+    plain and ``einsum``: records ``nb_tables_{mass,score}`` with ``_suffix``
+    when one is given."""
+    from transmogrifai_tpu_torch.impl.classification import naive_bayes as NB
+
+    Xd, y, tw, smoothings, bernoulli, k = call[0]
+    suffix = f"_{suffix}" if suffix else ""
+    n, d = Xd.shape
+    F = tw.shape[0]
+    c1, f1 = NB.nb_tables_mass(Xd, y, tw, k)
+    c2, f2 = NB.nb_tables_mass_plain(Xd, y, tw, k)
+    torch.cuda.synchronize()
+    check(torch.equal(c1, c2), f"nb_tables_mass{suffix}: class masses differ from plain")
+    merr = float(((f1 - f2).abs() / f2.abs().clamp_min(1e-30)).max())
+    check(merr <= NB_RTOL, f"nb_tables_mass{suffix} {merr} from plain, above {NB_RTOL}")
+    Y = torch.nn.functional.one_hot(y.long(), k).to(torch.float32)
+    b, by = bound_ms((n * d + n + F * n) * 4 + F * k * (d + 1) * 4, F * n * 2 * (d + 1))
+    mass = dict(name=f"nb_tables_mass{suffix}", route="cuda",
+                source="transmogrifai_tpu_torch/csrc/naive_bayes.cu",
+                replaces="transmogrifai_tpu/impl/classification/naive_bayes.py:23",
+                max_abs_err=float((f1 - f2).abs().max()),
+                ms=timer(lambda: NB.nb_tables_mass(Xd, y, tw, k)),
+                plain_ms=plain_timer(lambda: NB.nb_tables_mass_plain(Xd, y, tw, k)),
+                bound_ms=b, bound_by=by,
+                library_ms=timer(lambda: torch.einsum("fn,nk,nd->fkd", tw, Y, Xd)))
+    s = torch.as_tensor(np.asarray(smoothings, np.float32), device=Xd.device)
+    G = s.shape[0]
+    pi, theta, tn = NB._log_tables(c1[:, None], f1[:, None], s[None, :, None], bernoulli)
+    pi, theta = pi.reshape(F * G, k).contiguous(), theta.reshape(F * G, k, d).contiguous()
+    tn = None if tn is None else tn.reshape(F * G, k, d).contiguous()
+    s1, s2 = NB.nb_tables_score(Xd, pi, theta, tn), NB.nb_tables_score_plain(Xd, pi, theta, tn)
+    torch.cuda.synchronize()
+    serr = float(((s1 - s2).abs() / s2.abs().clamp_min(1.0)).max())
+    check(serr <= NB_RTOL, f"nb_tables_score{suffix} {serr} from plain, above {NB_RTOL}")
+    Q = F * G
+    b, by = bound_ms(n * d * 4 + Q * k * (d + 1) * 4 + Q * n * k * 4, Q * n * k * 2 * d)
+    score = dict(name=f"nb_tables_score{suffix}", route="cuda",
+                 source="transmogrifai_tpu_torch/csrc/naive_bayes.cu",
+                 replaces="transmogrifai_tpu/impl/classification/naive_bayes.py:39",
+                 max_abs_err=float((s1 - s2).abs().max()),
+                 ms=timer(lambda: NB.nb_tables_score(Xd, pi, theta, tn)),
+                 plain_ms=plain_timer(lambda: NB.nb_tables_score_plain(Xd, pi, theta, tn)),
+                 bound_ms=b, bound_by=by,
+                 library_ms=timer(lambda: torch.einsum("nd,qkd->qnk", Xd, theta)))
+    return [mass, score], {"X": [n, d], "classes": k, "folds": F, "table_sets": Q,
+                           "mass_rel_err": merr, "score_rel_err": serr}
+
+
+def sgns_record(torch, w2v, timer, plain_timer, dev="cuda"):
+    """K-AA at 300 dimensions: ten kernel epochs from the final fit's W0,
+    then one epoch against plain and autograd of the plain loss."""
+    import torch.nn.functional as TF
+
+    from transmogrifai_tpu_torch.ops import embeddings as E
+
+    W0, pairs_np, negs_np = w2v
+    W = torch.from_numpy(W0).to(dev)
+    C = torch.zeros_like(W)
+    pairs, negs = torch.from_numpy(pairs_np).to(dev), torch.from_numpy(negs_np).to(dev)
+    V, d = W.shape
+    P_, K = negs.shape
+    lists = E.sgns_lists(pairs, negs, V)
+    for _ in range(10):
+        W, C, _ = E.sgns_epoch(W, C, pairs, negs, 0.2, lists=lists, want_loss=False)
+    got = E.sgns_epoch(W, C, pairs, negs, 0.2, lists=lists)
+    want = E.sgns_epoch_plain(W, C, pairs, negs, 0.2)
+    again = E.sgns_epoch(W, C, pairs, negs, 0.2, lists=lists)
+    check(all(torch.equal(a, b) for a, b in zip(got, again)), "sgns_epoch_d300 does not repeat")
+    err = max(float((got[i] - want[i]).abs().max()) for i in (0, 1))
+    check(err <= SGNS_CARD_ATOL, f"sgns_epoch_d300 {err} from plain, above {SGNS_CARD_ATOL}")
+    c_, o_, ng_ = pairs[:, 0].long(), pairs[:, 1].long(), negs.long()
+
+    def library():
+        Wr, Cr = W.detach().requires_grad_(), C.detach().requires_grad_()
+        wc = Wr[c_]
+        pos = (wc * Cr[o_]).sum(1)
+        neg = torch.einsum("pd,pkd->pk", wc, Cr[ng_])
+        loss = (TF.softplus(-pos) + TF.softplus(neg).sum(1)).mean()
+        gW, gC = torch.autograd.grad(loss, (Wr, Cr))
+        return W - 0.2 * gW, C - 0.2 * gC
+
+    b, by = bound_ms(4 * V * d * 4 + P_ * (2 + K) * 4, P_ * (K + 1) * (6 * d + 20) + 4 * V * d)
+    rec = dict(name="sgns_epoch_d300", route="cuda", source="transmogrifai_tpu_torch/csrc/sgns.cu",
+               replaces="transmogrifai_tpu/impl/feature/embeddings.py:37", max_abs_err=err,
+               ms=timer(lambda: E.sgns_epoch(W, C, pairs, negs, 0.2, lists=lists,
+                                             want_loss=False)),
+               plain_ms=plain_timer(lambda: E.sgns_epoch_plain(W, C, pairs, negs, 0.2)),
+               bound_ms=b, bound_by=by, library_ms=timer(library))
+    return [rec], {"V": V, "d": d, "P": P_, "K": K, "segments": int(lists.seg_row.numel()),
+                   "loss_gap": abs(float(got[2]) - float(want[2]))}
+
+
+def lda_records(torch, lda, timer, plain_timer, dev="cuda"):
+    """K-AB's three modes at 100 topics on the final LDA fit's counts and
+    topic-word matrix, against plain and the dense products."""
+    from transmogrifai_tpu_torch.ops import embeddings as E
+
+    col, topic_word = lda
+    X = torch.clamp_min(col.tensor(dev), 0.0)
+    lam = torch.from_numpy(topic_word).to(dev)
+    n, v = X.shape
+    k = lam.shape[0]
+    docs = E.lda_docs(X)
+    nnz = int(docs.terms.numel())
+    eb, eb0 = E.lda_beta(lam), E.lda_beta_plain(lam)
+    beta_err = float(((eb - eb0).abs() / eb0.abs().clamp_min(1e-30)).max())
+    check(beta_err <= LDA_BETA_RTOL, f"lda_beta_k{k} {beta_err} from plain")
+    g = E.lda_estep(eb0, X, 0.1, 30, docs=docs)
+    g0 = E.lda_estep_plain(eb0, X, 0.1, 30)
+    check(torch.equal(g, E.lda_estep(eb0, X, 0.1, 30, docs=docs)), "lda_estep does not repeat")
+    theta_err = mixture_gap(g, g0)
+    check(theta_err <= LDA_THETA_ATOL, f"lda_estep_k{k} mixtures {theta_err} from plain")
+    lam1, lam0 = E.lda_sstats(eb0, X, g0, 0.01, docs=docs), E.lda_sstats_plain(eb0, X, g0, 0.01)
+    check(torch.equal(lam1, E.lda_sstats(eb0, X, g0, 0.01, docs=docs)),
+          "lda_sstats does not repeat")
+    sstats_err = float(((lam1 - lam0).abs() / lam0).max())
+    check(sstats_err <= LDA_SSTATS_RTOL, f"lda_sstats_k{k} {sstats_err} from plain")
+    et = torch.exp(E.digamma(g0) - E.digamma(g0.sum(1, keepdim=True)))
+
+    def dense_iterations():
+        for _ in range(30):
+            phi = et @ eb0
+            (X / phi) @ eb0.T
+
+    src, rep = "transmogrifai_tpu_torch/csrc/lda.cu", "transmogrifai_tpu/impl/feature/embeddings.py"
+    recs = []
+    b, by = bound_ms(2 * k * v * 4, k * v * (DIGAMMA_OPS + EXP_OPS + 1) + k * DIGAMMA_OPS)
+    recs.append(dict(name=f"lda_beta_k{k}", route="cuda", source=src, replaces=f"{rep}:163",
+                     max_abs_err=float((eb - eb0).abs().max()), ms=timer(lambda: E.lda_beta(lam)),
+                     plain_ms=plain_timer(lambda: E.lda_beta_plain(lam)), bound_ms=b,
+                     bound_by=by, library_ms=timer(lambda: torch.exp(
+                         torch.special.digamma(lam) - torch.special.digamma(
+                             lam.sum(1, keepdim=True))))))
+    per_doc = k * (DIGAMMA_OPS + EXP_OPS + 4) + DIGAMMA_OPS + k
+    b, by = bound_ms(k * v * 4 + (n + 1) * 4 + nnz * 8 + n * k * 4,
+                     30 * (nnz * (4 * k + 1) + n * per_doc))
+    recs.append(dict(name=f"lda_estep_k{k}", route="cuda", source=src, replaces=f"{rep}:160",
+                     max_abs_err=float((g - g0).abs().max()),
+                     ms=timer(lambda: E.lda_estep(eb0, X, 0.1, 30, docs=docs)),
+                     plain_ms=plain_timer(lambda: E.lda_estep_plain(eb0, X, 0.1, 30)),
+                     bound_ms=b, bound_by=by, library_ms=timer(dense_iterations)))
+    b, by = bound_ms(2 * k * v * 4 + n * k * 4 + (n + 1) * 4 + nnz * 8,
+                     n * per_doc + nnz * (4 * k + 1) + 2 * k * v)
+    recs.append(dict(name=f"lda_sstats_k{k}", route="cuda", source=src, replaces=f"{rep}:211",
+                     max_abs_err=float((lam1 - lam0).abs().max()),
+                     ms=timer(lambda: E.lda_sstats(eb0, X, g0, 0.01, docs=docs)),
+                     plain_ms=plain_timer(lambda: E.lda_sstats_plain(eb0, X, g0, 0.01)),
+                     bound_ms=b, bound_by=by,
+                     library_ms=timer(lambda: et.T @ (X / (et @ eb0)))))
+    return recs, {"n": n, "v": v, "k": k, "nnz": nnz, "beta_rel_err": beta_err,
+                  "theta_err": theta_err, "sstats_rel_err": sstats_err}
+
+
+def slice14_phases(torch, FX, titanic, args, timer, dev="cuda"):
+    """Phases 57-60.  Returns (the records, their launches on their main
+    paths)."""
+    from transmogrifai_tpu_torch.impl.classification import naive_bayes as NB
+    from transmogrifai_tpu_torch.ops import embeddings as E
+    from transmogrifai_tpu_torch.ops import linear as L
+    from transmogrifai_tpu_torch.ops import metrics as M
+    from transmogrifai_tpu_torch.ops import mlp as MLP
+    from transmogrifai_tpu_torch.ops import stats as K
+    from transmogrifai_tpu_torch.ops import threefry as R
+    from transmogrifai_tpu_torch.ops import trees as Tr
+
+    fixture_best = wide_reference_phase14(torch, FX, titanic, dev)
+    kernels = (MLP.mlp_grad, MLP.mlp_forward, NB.nb_tables_mass, NB.nb_tables_score,
+               E.sgns_epoch, E.lda_beta, E.lda_estep, E.lda_sstats, L.fista_grad,
+               M.binary_metrics, M.multiclass_metrics, Tr.bin_rows, Tr.level_hist,
+               Tr.split_scan, Tr.route_rows, Tr.boost_step, Tr.forest_leaf_mean, K.corr_gram,
+               K.contingency_counts, R.threefry_draws)
+    launches, keep = slice14_trains(torch, FX, titanic, args, kernels, fixture_best, dev)
+    plain_timer = Timer(torch, 5)
+    records, shapes, by_name = [], {}, {}
+    letters, embed, bow = (keep["letters_families"], keep["wide_text_embed"],
+                           keep["wide_text_bow"])
+    big = next(c for c in letters["mlp"] if tuple(c[1]["layers"])[1:-1] == (128, 64))
+    for name, train, call in (("mlp_grad_k26", "letters_families", big),
+                              ("mlp_grad_wide", "wide_text_embed", embed["mlp"][0]),
+                              ("mlp_grad_bow", "wide_text_bow", bow["mlp"][0])):
+        recs, shapes[name] = mlp_record(torch, name, call, timer, plain_timer, dev)
+        for r in recs:
+            by_name[r["name"]] = launches[train][r["name"].split("_")[0] + "_"
+                                                 + r["name"].split("_")[1]]
+        records += recs
+    for suffix, train, call in (("bow", "wide_text_bow", bow["nb"][0]),
+                                ("k26", "letters_families", letters["nb"][0])):
+        recs, shapes[f"nb_tables_{suffix}"] = nb_records(torch, suffix, call, timer,
+                                                         plain_timer)
+        for r in recs:
+            by_name[r["name"]] = launches[train][r["name"].rsplit("_", 1)[0]]
+        records += recs
+    recs, shapes["sgns_epoch_d300"] = sgns_record(torch, embed["w2v"], timer, plain_timer, dev)
+    by_name["sgns_epoch_d300"] = launches["wide_text_embed"]["sgns_epoch"]
+    records += recs
+    recs, shapes["lda_k100"] = lda_records(torch, embed["lda"], timer, plain_timer, dev)
+    for r in recs:
+        by_name[r["name"]] = launches["wide_text_embed"][r["name"].rsplit("_", 1)[0]]
+    records += recs
+    log("wide_kernels", shapes=shapes, records=records)
+    return records, by_name
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4590,6 +4912,8 @@ def main(argv=None):
     ap.add_argument("--stats-rows", type=int, default=1 << 20)
     ap.add_argument("--text-rows", type=int, default=1 << 17)
     ap.add_argument("--stream-rows", type=int, default=1 << 22)
+    ap.add_argument("--wide-text-rows", type=int, default=1 << 16,
+                    help="rows of the two wide text trains (phase 59)")
     args = ap.parse_args(argv)
 
     import torch
@@ -4763,7 +5087,7 @@ def main(argv=None):
     # path at scale (its first fit_glm_grid_folds call's inputs kept), the
     # kernel
     boston_glm_reference_phase(torch, boston, FX)
-    with FirstCall(L, "fit_glm_grid_folds") as glm_call:
+    with AllCalls(L, "fit_glm_grid_folds") as glm_call:
         glm_launches, _, _ = scale_train_phase(
             torch, "boston_glm_train",
             lambda: boston.train_boston(boston.boston_data(args.train_rows, args.seed),
@@ -4799,6 +5123,11 @@ def main(argv=None):
     # at 26 and 64 classes, K-R / the wide K-P / K-B off the path
     slice13_records, slice13_launches = slice13_phases(torch, FX, timer)
 
+    # 57-60. the tiled K-U, K-V, K-AA and K-AB: the three flows at fixture
+    # size against the JAX package's fixtures, at the card's sizes, the
+    # kernels on their trains' inputs
+    slice14_records, slice14_launches = slice14_phases(torch, FX, titanic, args, timer)
+
     for r in records:
         r["launches"] = launches[r["name"]]
     for r in train_records:
@@ -4823,9 +5152,11 @@ def main(argv=None):
         r["launches"] = slice12_launches[r["name"]]
     for r in slice13_records:
         r["launches"] = slice13_launches[r["name"]]
+    for r in slice14_records:
+        r["launches"] = slice14_launches[r["name"]]
     records += (train_records + boston_records + iris_records + slice6_records
                 + families_records + kw_records + glm_records + stream_records + text_records
-                + slice11_records + slice12_records + slice13_records)
+                + slice11_records + slice12_records + slice13_records + slice14_records)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in records]}), flush=True)

@@ -670,7 +670,11 @@ def test_svc_grad_matches_plain(dev, n, p, C, F):
 
 
 @pytest.mark.parametrize("layers,n,C,F", [((10, 10, 2), 235930, 1, 1), ((4, 10, 3), 150, 3, 3),
-                                          ((128, 64, 64, 8), 3001, 2, 2), ((5, 2), 77, 1, 1)])
+                                          ((128, 64, 64, 8), 3001, 2, 2), ((5, 2), 77, 1, 1),
+                                          ((32, 128, 64, 26), 20000, 3, 3),
+                                          ((450, 128, 64, 32, 2), 20000, 3, 3),
+                                          ((2100, 10, 2), 5000, 3, 3),
+                                          ((40, 300, 200, 90, 80, 70, 60, 50, 40, 128), 700, 2, 2)])
 def test_mlp_kernels_match_plain(dev, layers, n, C, F):
     from transmogrifai_tpu_torch.ops import mlp as M
 
@@ -697,15 +701,17 @@ def test_mlp_kernels_match_plain(dev, layers, n, C, F):
 def test_mlp_refuses_what_it_cannot_take(dev):
     from transmogrifai_tpu_torch.ops import mlp as M
 
-    layers = (4, 65, 2)
+    layers = (4, M.MLP_MAX_WIDTH + 1, 2)
     X = torch.zeros((10, 4), device=dev)
     params = torch.zeros((1, M.param_count(layers)), device=dev)
-    with pytest.raises(NotImplementedError, match="width"):
+    with pytest.raises(ValueError, match=str(M.MLP_MAX_WIDTH)):
         M.mlp_forward(X, params, layers)
 
 
 @pytest.mark.parametrize("n,d,k,F,Q", [(1, 1, 2, 1, 1), (235930, 10, 2, 1, 1),
-                                       (20000, 256, 8, 3, 6), (5000, 7, 3, 3, 9)])
+                                       (20000, 256, 8, 3, 6), (5000, 7, 3, 3, 9),
+                                       (20000, 2100, 2, 3, 6), (5000, 32, 26, 3, 9),
+                                       (3000, 40, 128, 2, 2), (300, 65536, 3, 1, 1)])
 def test_nb_tables_match_plain(dev, n, d, k, F, Q):
     from transmogrifai_tpu_torch.impl.classification import naive_bayes as NB
 
@@ -890,7 +896,8 @@ def test_fista_refuses_past_its_limit(dev):
 # K18: K-AA sgns_epoch, K-AB lda (beta, estep, sstats)
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("V,d,P,K", [(40, 8, 500, 5), (2000, 64, 200000, 5), (300, 100, 7000, 3),
-                                     (5, 256, 50, 0)])
+                                     (5, 256, 50, 0), (2000, 300, 100000, 5),
+                                     (50, 513, 2000, 5), (300, 1024, 7000, 3)])
 def test_sgns_epoch_matches_plain(dev, V, d, P, K):
     from transmogrifai_tpu_torch.ops import embeddings as E
 
@@ -918,7 +925,8 @@ def _lda_case(dev, n, k, v, seed):
 
 
 @pytest.mark.parametrize("n,k,v", [(1, 1, 3), (891, 10, 512), (20000, 10, 512), (3000, 32, 1600),
-                                   (500, 5, 70)])
+                                   (500, 5, 70), (3000, 100, 1600), (2000, 256, 300),
+                                   (3000, 10, 8192), (891, 40, 700)])
 def test_lda_kernels_match_plain(dev, n, k, v):
     from transmogrifai_tpu_torch.ops import embeddings as E
 

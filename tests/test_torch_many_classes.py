@@ -584,16 +584,28 @@ def test_full_width_letters_stock_train_matches_the_fixture():
 
 
 # ---------------------------------------------------------------------------
-# the limits that remain: the MLP and naive Bayes (ROADMAP Queue 3 item 2)
+# the MLP and naive Bayes take 128 classes, as the other families do
 # ---------------------------------------------------------------------------
 def test_mlp_and_naive_bayes_keep_8_classes_and_name_the_queue():
+    """The old 8-class limit of K-U and K-V is gone: both take 128 classes
+    (and K-V 65,536 features) and raise one ValueError naming the size
+    just past that, on either device."""
     from transmogrifai_tpu_torch.impl.classification import naive_bayes as NB
     from transmogrifai_tpu_torch.ops import mlp as M
 
-    with pytest.raises(NotImplementedError, match="Queue 3 item 2"):
-        M._check_net((16, 8, 9))
-    with pytest.raises(NotImplementedError, match="Queue 3 item 2"):
-        NB._check_limits(16, 9)
+    M._check_net((16, 8, 9))
+    M._check_net((16, 8, 128))
+    NB._check_limits(16, 9)
+    NB._check_limits(65_536, 128)
+    with pytest.raises(ValueError, match="129"):
+        M._check_net((16, 8, 129))
+    with pytest.raises(ValueError, match="129 classes"):
+        NB._check_limits(16, 129)
+    with pytest.raises(ValueError, match="65537 features"):
+        NB._check_limits(65_537, 2)
+    X = torch.ones((3, 4))
+    with pytest.raises(ValueError, match="129 classes"):
+        NB.nb_tables_score(X, torch.zeros((1, 129)), torch.zeros((1, 129, 4)))
 
 
 def class_order_table(ks=range(2, 129), grids=((3, 4, 700), (3, 26, 1500), (1, 8, 400))):

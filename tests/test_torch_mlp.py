@@ -152,7 +152,16 @@ def test_estimator_groups_and_matches_the_references():
 
 
 def test_kernel_limits_are_named():
-    PM._check_net((128, 64, 64, 8))
-    for layers in ((129, 10, 2), (4, 65, 2), (4, 10, 9), (4, 8, 8, 8, 2)):
-        with pytest.raises(NotImplementedError, match="hidden layers"):
+    """K-U's bounds: 8 hidden layers, features and hidden widths up to
+    4,096, 2 .. 128 classes; one ValueError just past each, on either
+    device (the plain version's CPU branch checks the same)."""
+    for layers in ((128, 64, 64, 8), (32, 128, 64, 26), (450, 128, 64, 32, 2), (2100, 10, 2),
+                   (4096,) * 9 + (128,), (5, 2)):
+        PM._check_net(layers)
+    for layers in ((4097, 10, 2), (4, 4097, 2), (4, 10, 129), (4, 10, 1),
+                   (4,) + (8,) * 9 + (2,)):
+        with pytest.raises(ValueError, match="hidden layers"):
             PM._check_net(layers)
+    X = torch.zeros((3, 4))
+    with pytest.raises(ValueError, match=r"\(4, 10, 129\)"):
+        PM.mlp_forward(X, torch.zeros((1, PM.param_count((4, 10, 129)))), (4, 10, 129))

@@ -31,25 +31,40 @@
 // product rounds to 0 does the warp compute phi_w for every term and look
 // for a zero.  A document found so gets gamma NaN, as the dense form does.
 //
-// estep: a warp a document, 8 a block; exp_beta staged in shared memory as
-// [v][k] (k v floats: 20 KB at 10 x 512), gamma in registers (each lane a
-// copy of the k values), lane t < k computes topic t's digamma and the warp
-// shares them by shuffles.  A lane takes the document's nonzeros lane,
-// lane + 32, ...: phi (k FMAs from shared memory), x / phi, and k partial
-// sums, reduced by xor butterflies (every lane the same total).  One launch
-// for all n_iter iterations.
-// sstats: (1) a warp a document forms exp_theta and marks the terms where
-// its phi_norm is 0 (the dense X / phi_norm column is NaN there); (2) a block per 512 documents, a thread per term, sums
-// exp_theta_dt x_dw / phi_dw over the block's nonzeros of that term in
-// document order (the nonzeros grouped by (block, term) by a stable sort)
-// into a partial [k, v]; (3) a thread per (t, w) sums the blocks' partials
-// in block order and writes eta + exp_beta * sum (NaN in a marked term's
-// column, and everywhere if a document's gamma was NaN, as the dense
-// product makes them).  No atomics.
+// exp_beta's layout: every mode but beta reads it as [v][k] (a term's k
+// values side by side): a prologue (lda_prep) writes that copy to device
+// memory, where L2 serves it, and min_w max_t exp_beta beside it, so
+// exp_beta is bounded by the card's memory alone.  (Staging it whole in
+// shared memory, as the first design did up to 51,200 entries, timed the
+// same: 5.97 against 6.01 ms at 10 topics over 512 terms, 2^17 documents,
+// tools/kernel_turns.py on an NVIDIA H100 80GB HBM3 at 700 W.)
+//
+// estep to 16 topics (the narrow entry): a warp a document, 8 a block, gamma
+// in registers (each lane a copy of the k values), lane t < k computes topic
+// t's digamma and the warp shares them by shuffles.  A lane takes the
+// document's nonzeros lane, lane + 32, ...: phi (k FMAs), x / phi, and k
+// partial sums, reduced by xor butterflies (every lane the same total).
+// estep past 16 topics (to 256): a warp a document with the topics across
+// the lanes (topic lane + 32 i, TPL = 1, 2, 4 or 8 a lane): gamma, exp_theta
+// and the k sums in registers, the nonzeros in document order, each one's
+// phi a butterfly of the lanes' partials (on the H100 above, 4.3x faster
+// than the narrow entry at 32 topics, 1.3x slower at 10).  One launch for
+// all n_iter iterations in both.
+// sstats: (1) lda_ratio, a warp a document (topics across the lanes):
+// exp_theta, and x / phi_norm of each nonzero; it marks the terms where the
+// document's phi_norm is 0 (the dense X / phi_norm column is NaN there) and
+// a NaN gamma; (2) lda_segments, a warp a segment of at most 128 of a term's
+// nonzeros (the nonzeros grouped by term in document order: a stable sort
+// once a fit): the sums exp_theta_dt x_dw / phi_dw over the segment in
+// document order, topics across the lanes; (3) lda_merge, a thread per (t,
+// w): the term's segments in order, eta + exp_beta * sum (NaN in a marked
+// term's column, and everywhere after a NaN gamma, as the dense product
+// makes them).  No atomics, no sort per call.
 //
 // Bound on the card: the estep by operations (about 2 k FMAs, a division
-// and k more FMAs a nonzero an iteration, plus 2 k digammas a document an
-// iteration); sstats by the nonzeros' reads.
+// and k more FMAs a nonzero an iteration, plus k + 1 digammas a document an
+// iteration); sstats by the nonzeros' reads (a count, a term and k values
+// of exp_theta each).
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -120,32 +135,6 @@ lda_beta_kernel(const float* __restrict__ lam, float* __restrict__ out, int v) {
     out[(long long)t * v + w] = expf(__fsub_rn(digammaf_lanczos(row[w]), dsum));
 }
 
-// ---------------------------------------------------------------------------
-// shared: exp_beta staged as [v][k], and min_w max_t exp_beta
-// ---------------------------------------------------------------------------
-__device__ float stage_beta(const float* __restrict__ exp_beta, float* eb, int k, int v,
-                            float* red) {
-  float cmin = INFINITY;
-  for (int w = threadIdx.x; w < v; w += blockDim.x) {
-    float mx = 0.0f;
-    for (int t = 0; t < k; ++t) {
-      const float e = exp_beta[(long long)t * v + w];
-      eb[w * k + t] = e;
-      mx = fmaxf(mx, e);
-    }
-    cmin = fminf(cmin, mx);
-  }
-  red[threadIdx.x] = cmin;
-  __syncthreads();
-  for (int h = blockDim.x / 2; h > 0; h >>= 1) {
-    if (threadIdx.x < h) red[threadIdx.x] = fminf(red[threadIdx.x], red[threadIdx.x + h]);
-    __syncthreads();
-  }
-  const float out = red[0];
-  __syncthreads();
-  return out;
-}
-
 // exp_theta of a document from its gamma (every lane holds all k values):
 // lane t < k takes topic t's digamma, the warp shares them
 template <int KM>
@@ -187,23 +176,22 @@ __device__ bool zero_phi(const float (&et)[KM], int k, int v, const float* eb, f
   if (__fmul_rn(etmin, cmin) > 0.0f) return false;
   bool zero = false;
   for (int w = lane; w < v; w += 32) {
-    const float* ebw = eb + w * k;
+    const float* ebw = eb + (long long)w * k;
     zero |= phi_of<KM>(et, ebw, k) == 0.0f;
   }
   return __any_sync(0xffffffffu, zero);
 }
 
 // ---------------------------------------------------------------------------
-// estep: a warp a document, every iteration in one launch
+// estep to 16 topics: a warp a document, every iteration in one launch
 // ---------------------------------------------------------------------------
 template <int KM>
 __global__ void __launch_bounds__(kThreads)
-lda_estep_kernel(const float* __restrict__ exp_beta, const int32_t* __restrict__ offsets,
-                 const int32_t* __restrict__ terms, const float* __restrict__ counts,
-                 float* __restrict__ gamma_out, int n, int k, int v, int n_iter, float alpha) {
-  extern __shared__ float eb[];
-  __shared__ float red[kThreads];
-  const float cmin = stage_beta(exp_beta, eb, k, v, red);
+lda_estep_kernel(const float* __restrict__ eb, const float* __restrict__ cminp,
+                 const int32_t* __restrict__ offsets, const int32_t* __restrict__ terms,
+                 const float* __restrict__ counts, float* __restrict__ gamma_out, int n, int k,
+                 int v, int n_iter, float alpha) {
+  const float cmin = cminp[0];
   const int lane = threadIdx.x % 32;
   for (int d = blockIdx.x * kWarpsPerBlock + threadIdx.x / 32; d < n;
        d += gridDim.x * kWarpsPerBlock) {
@@ -221,7 +209,7 @@ lda_estep_kernel(const float* __restrict__ exp_beta, const int32_t* __restrict__
 #pragma unroll
       for (int t = 0; t < KM; ++t) s[t] = 0.0f;
       for (int e = lo + lane; e < hi; e += 32) {
-        const float* ebw = eb + terms[e] * k;
+        const float* ebw = eb + (long long)terms[e] * k;
         const float ratio = __fdiv_rn(counts[e], phi_of<KM>(et, ebw, k));
 #pragma unroll
         for (int t = 0; t < KM; ++t)
@@ -239,144 +227,287 @@ lda_estep_kernel(const float* __restrict__ exp_beta, const int32_t* __restrict__
 }
 
 // ---------------------------------------------------------------------------
-// sstats: exp_theta, block partials by term, the merge
+// the [v][k] copy of exp_beta in device memory, and min_w max_t exp_beta
 // ---------------------------------------------------------------------------
-template <int KM>
+__global__ void lda_prep_kernel(const float* __restrict__ exp_beta, float* __restrict__ ebT,
+                                float* __restrict__ colmax, int k, int v) {
+  const int w = blockIdx.x * blockDim.x + threadIdx.x;
+  if (w >= v) return;
+  float mx = 0.0f;
+  for (int t = 0; t < k; ++t) {
+    const float e = exp_beta[(long long)t * v + w];
+    ebT[(long long)w * k + t] = e;
+    mx = fmaxf(mx, e);
+  }
+  colmax[w] = mx;
+}
+
 __global__ void __launch_bounds__(kThreads)
-lda_theta_kernel(const float* __restrict__ exp_beta, const float* __restrict__ gamma_in,
-                 float* __restrict__ exp_theta, int32_t* __restrict__ zero_col, int n, int k,
-                 int v) {
-  extern __shared__ float eb[];
+lda_cmin_kernel(const float* __restrict__ colmax, float* __restrict__ cmin, int v) {
   __shared__ float red[kThreads];
-  const float cmin = stage_beta(exp_beta, eb, k, v, red);
+  float m = INFINITY;
+  for (int w = threadIdx.x; w < v; w += kThreads) m = fminf(m, colmax[w]);
+  red[threadIdx.x] = m;
+  __syncthreads();
+  for (int h = kThreads / 2; h > 0; h >>= 1) {
+    if (threadIdx.x < h) red[threadIdx.x] = fminf(red[threadIdx.x], red[threadIdx.x + h]);
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) cmin[0] = red[0];
+}
+
+// ---------------------------------------------------------------------------
+// topics across the lanes (TPL a lane: topic lane + 32 i), past 32 topics in
+// the estep and at every k in sstats
+// ---------------------------------------------------------------------------
+template <int TPL>
+__device__ __forceinline__ void exp_theta_lanes(const float (&g)[TPL], int k, int lane,
+                                                float (&et)[TPL]) {
+  float part = 0.0f;
+#pragma unroll
+  for (int i = 0; i < TPL; ++i)
+    if (lane + 32 * i < k) part = i == 0 ? g[0] : __fadd_rn(part, g[i]);
+  const float dsum = digammaf_lanczos(warp_sum(part));
+#pragma unroll
+  for (int i = 0; i < TPL; ++i)
+    et[i] = lane + 32 * i < k ? expf(__fsub_rn(digammaf_lanczos(g[i]), dsum)) : 0.0f;
+}
+
+// a term's k values of the [v][k] copy, and phi_w (the lanes' partials in
+// topic order, then the butterfly: every lane the same value)
+template <int TPL>
+__device__ __forceinline__ float phi_lanes(const float (&et)[TPL], const float* __restrict__ ebw,
+                                           int k, int lane, float (&eb)[TPL]) {
+  float part = 0.0f;
+#pragma unroll
+  for (int i = 0; i < TPL; ++i) {
+    const int t = lane + 32 * i;
+    eb[i] = t < k ? ebw[t] : 0.0f;
+    part = i == 0 ? __fmul_rn(et[0], eb[0]) : __fadd_rn(part, __fmul_rn(et[i], eb[i]));
+  }
+  return warp_sum(part);
+}
+
+template <int TPL>
+__device__ __forceinline__ float min_lanes(const float (&et)[TPL], int k, int lane) {
+  float m = INFINITY;
+#pragma unroll
+  for (int i = 0; i < TPL; ++i)
+    if (lane + 32 * i < k) m = fminf(m, et[i]);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) m = fminf(m, __shfl_xor_sync(0xffffffffu, m, off));
+  return m;
+}
+
+template <int TPL>
+__global__ void __launch_bounds__(kThreads)
+lda_estep_wide(const float* __restrict__ ebT, const float* __restrict__ cminp,
+               const int32_t* __restrict__ offsets, const int32_t* __restrict__ terms,
+               const float* __restrict__ counts, float* __restrict__ gamma_out, int n, int k,
+               int v, int n_iter, float alpha) {
+  const float cmin = cminp[0];
   const int lane = threadIdx.x % 32;
   for (int d = blockIdx.x * kWarpsPerBlock + threadIdx.x / 32; d < n;
        d += gridDim.x * kWarpsPerBlock) {
-    float gamma[KM], et[KM];
+    const int lo = offsets[d], hi = offsets[d + 1];
+    float g[TPL], et[TPL], s[TPL], eb[TPL];
 #pragma unroll
-    for (int t = 0; t < KM; ++t) gamma[t] = t < k ? gamma_in[(long long)d * k + t] : 0.0f;
-    exp_theta_of<KM>(gamma, k, lane, et);
-    float etmin = et[0];
-#pragma unroll
-    for (int t = 1; t < KM; ++t)
-      if (t < k) etmin = fminf(etmin, et[t]);
-    // a zero phi_norm makes the dense X / phi_norm column NaN: mark it (a
-    // plain store of the same value from any thread that finds it)
-    if (!(__fmul_rn(etmin, cmin) > 0.0f))
-      for (int w = lane; w < v; w += 32) {
-        const float* ebw = eb + w * k;
-        if (phi_of<KM>(et, ebw, k) == 0.0f) zero_col[w] = 1;
+    for (int i = 0; i < TPL; ++i) g[i] = 1.0f;
+    bool dead = false;
+    for (int it = 0; it < n_iter && !dead; ++it) {
+      exp_theta_lanes<TPL>(g, k, lane, et);
+      if (!(__fmul_rn(min_lanes<TPL>(et, k, lane), cmin) > 0.0f)) {
+        for (int w = 0; w < v && !dead; ++w)
+          dead = phi_lanes<TPL>(et, ebT + (long long)w * k, k, lane, eb) == 0.0f;
+        if (dead) break;
       }
 #pragma unroll
-    for (int t = 0; t < KM; ++t)
-      if (t == lane && t < k) exp_theta[(long long)d * k + t] = et[t];
+      for (int i = 0; i < TPL; ++i) s[i] = 0.0f;
+      for (int e = lo; e < hi; ++e) {
+        const float phi = phi_lanes<TPL>(et, ebT + (long long)terms[e] * k, k, lane, eb);
+        const float ratio = __fdiv_rn(counts[e], phi);
+#pragma unroll
+        for (int i = 0; i < TPL; ++i) s[i] = __fadd_rn(s[i], __fmul_rn(ratio, eb[i]));
+      }
+#pragma unroll
+      for (int i = 0; i < TPL; ++i) g[i] = __fadd_rn(alpha, __fmul_rn(et[i], s[i]));
+    }
+#pragma unroll
+    for (int i = 0; i < TPL; ++i)
+      if (lane + 32 * i < k)
+        gamma_out[(long long)d * k + lane + 32 * i] = dead ? __int_as_float(0x7fc00000) : g[i];
   }
 }
 
-template <int KM>
+// ---------------------------------------------------------------------------
+// sstats: (1) exp_theta and each nonzero's x / phi, (2) the term segments'
+// sums, (3) the merge
+// ---------------------------------------------------------------------------
+template <int TPL>
 __global__ void __launch_bounds__(kThreads)
-lda_partial_kernel(const float* __restrict__ exp_beta, const float* __restrict__ exp_theta,
-                   const float* __restrict__ counts, const int32_t* __restrict__ key_off,
-                   const int32_t* __restrict__ entry_doc, const int32_t* __restrict__ entry_pos,
-                   float* __restrict__ partial, int32_t* __restrict__ flags, int n, int k, int v,
-                   int docs_per_block) {
-  const int b = blockIdx.x;
-  int dead = 0;
-  const int d0 = b * docs_per_block, d1 = min(n, d0 + docs_per_block);
-  for (int d = d0 + threadIdx.x; d < d1; d += kThreads) dead |= isnan(exp_theta[(long long)d * k]);
-  dead = __syncthreads_or(dead);
-  if (threadIdx.x == 0) flags[b] = dead;
-  for (int w = threadIdx.x; w < v; w += kThreads) {
-    float ebw[KM], acc[KM], et[KM];
+lda_ratio_kernel(const float* __restrict__ ebT, const float* __restrict__ cminp,
+                 const float* __restrict__ gamma_in, const int32_t* __restrict__ offsets,
+                 const int32_t* __restrict__ terms, const float* __restrict__ counts,
+                 float* __restrict__ exp_theta, float* __restrict__ ratio,
+                 int32_t* __restrict__ dead, int32_t* __restrict__ zero_col, int n, int k,
+                 int v) {
+  const float cmin = cminp[0];
+  const int lane = threadIdx.x % 32;
+  for (int d = blockIdx.x * kWarpsPerBlock + threadIdx.x / 32; d < n;
+       d += gridDim.x * kWarpsPerBlock) {
+    float g[TPL], et[TPL], eb[TPL];
 #pragma unroll
-    for (int t = 0; t < KM; ++t) {
-      ebw[t] = t < k ? exp_beta[(long long)t * v + w] : 0.0f;
-      acc[t] = 0.0f;
+    for (int i = 0; i < TPL; ++i) {
+      const int t = lane + 32 * i;
+      g[i] = t < k ? gamma_in[(long long)d * k + t] : 0.0f;
     }
-    const int e0 = key_off[(long long)b * v + w], e1 = key_off[(long long)b * v + w + 1];
-    for (int e = e0; e < e1; ++e) {
-      const float* etd = exp_theta + (long long)entry_doc[e] * k;
+    exp_theta_lanes<TPL>(g, k, lane, et);
 #pragma unroll
-      for (int t = 0; t < KM; ++t) et[t] = t < k ? etd[t] : 0.0f;
-      const float ratio = __fdiv_rn(counts[entry_pos[e]], phi_of<KM>(et, ebw, k));
-#pragma unroll
-      for (int t = 0; t < KM; ++t)
-        if (t < k) acc[t] = __fadd_rn(acc[t], __fmul_rn(et[t], ratio));
+    for (int i = 0; i < TPL; ++i)
+      if (lane + 32 * i < k) exp_theta[(long long)d * k + lane + 32 * i] = et[i];
+    // a NaN gamma makes every exp_theta of the document NaN, and the dense
+    // product NaN everywhere; a zero phi_norm makes the term's column NaN
+    // (plain stores of one value from any warp that finds it)
+    if (lane == 0 && isnan(et[0])) dead[0] = 1;
+    if (!(__fmul_rn(min_lanes<TPL>(et, k, lane), cmin) > 0.0f))
+      for (int w = 0; w < v; ++w)
+        if (phi_lanes<TPL>(et, ebT + (long long)w * k, k, lane, eb) == 0.0f && lane == 0)
+          zero_col[w] = 1;
+    const int lo = offsets[d], hi = offsets[d + 1];
+    for (int e = lo; e < hi; ++e) {
+      const float phi = phi_lanes<TPL>(et, ebT + (long long)terms[e] * k, k, lane, eb);
+      if (lane == 0) ratio[e] = __fdiv_rn(counts[e], phi);
     }
-#pragma unroll
-    for (int t = 0; t < KM; ++t)
-      if (t < k) partial[((long long)b * k + t) * v + w] = acc[t];
   }
+}
+
+template <int TPL>
+__global__ void __launch_bounds__(kThreads)
+lda_segments(const float* __restrict__ exp_theta, const float* __restrict__ ratio,
+             const int32_t* __restrict__ col_entry, const int32_t* __restrict__ col_doc,
+             const int32_t* __restrict__ seg_lo, const int32_t* __restrict__ seg_hi,
+             float* __restrict__ partial, int S, int k) {
+  const int seg = blockIdx.x * kWarpsPerBlock + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (seg >= S) return;
+  const int lo = seg_lo[seg], hi = seg_hi[seg];
+  float acc[TPL];
+#pragma unroll
+  for (int i = 0; i < TPL; ++i) acc[i] = 0.0f;
+  constexpr int kAhead = 4;   // entries whose loads are issued together
+  for (int e0 = lo; e0 < hi; e0 += kAhead) {
+    float et[kAhead][TPL], r[kAhead];
+#pragma unroll
+    for (int u = 0; u < kAhead; ++u) {
+      const int e = e0 + u;
+      const bool in = e < hi;
+      const long long doc = in ? col_doc[e] : 0;
+      r[u] = in ? ratio[col_entry[e]] : 0.0f;
+#pragma unroll
+      for (int i = 0; i < TPL; ++i) {
+        const int t = lane + 32 * i;
+        et[u][i] = (in && t < k) ? exp_theta[doc * k + t] : 0.0f;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kAhead; ++u)
+      if (e0 + u < hi)
+#pragma unroll
+        for (int i = 0; i < TPL; ++i) acc[i] = __fadd_rn(acc[i], __fmul_rn(et[u][i], r[u]));
+  }
+#pragma unroll
+  for (int i = 0; i < TPL; ++i)
+    if (lane + 32 * i < k) partial[(long long)seg * k + lane + 32 * i] = acc[i];
 }
 
 __global__ void lda_merge_kernel(const float* __restrict__ exp_beta,
                                  const float* __restrict__ partial,
-                                 const int32_t* __restrict__ flags,
+                                 const int32_t* __restrict__ term_seg,
+                                 const int32_t* __restrict__ dead,
                                  const int32_t* __restrict__ zero_col, float* __restrict__ out,
-                                 int k, int v, int blocks, float eta) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= k * v) return;
-  int dead = zero_col[i % v];
+                                 int k, int v, float eta) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= (long long)k * v) return;
+  const int t = (int)(i / v), w = (int)(i % v);
   float s = 0.0f;
-  for (int b = 0; b < blocks; ++b) {
-    dead |= flags[b];
-    s = __fadd_rn(s, partial[(long long)b * k * v + i]);
-  }
-  out[i] = dead ? __int_as_float(0x7fc00000) : __fadd_rn(eta, __fmul_rn(exp_beta[i], s));
+  for (int g = term_seg[w]; g < term_seg[w + 1]; ++g)
+    s = __fadd_rn(s, partial[(long long)g * k + t]);
+  out[i] = (dead[0] | zero_col[w]) ? __int_as_float(0x7fc00000)
+                                    : __fadd_rn(eta, __fmul_rn(exp_beta[i], s));
 }
 
-constexpr int kDocBlocks = 2 * 132 * 4;   // estep / theta blocks (grid-stride over documents)
+constexpr int kDocBlocks = 2 * 132 * 4;   // estep / ratio blocks (grid-stride over documents)
+constexpr int kMaxTopics = 256;
+// The estep's narrow entry (topics in every lane) takes up to this many
+// topics.  Built with -DLDA_NARROW_TOPICS=0 the topics across the lanes take
+// every k (tools/kernel_turns.py times that build as the narrow entry's
+// rival).
+#ifndef LDA_NARROW_TOPICS
+#define LDA_NARROW_TOPICS 16
+#endif
+constexpr int kNarrowTopics = LDA_NARROW_TOPICS;
+static_assert(kNarrowTopics <= 16, "lda_estep_kernel<16> holds at most 16 topics a lane");
 
-template <typename Kernel>
-int smem_attr(Kernel kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return 0;
-  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   (int)bytes);
+int doc_blocks(int n) { return min(kDocBlocks, (n + kWarpsPerBlock - 1) / kWarpsPerBlock); }
+
+int prep(const void* exp_beta, void* ebT, void* colmax, void* cmin, int k, int v,
+         cudaStream_t st) {
+  lda_prep_kernel<<<(v + 127) / 128, 128, 0, st>>>((const float*)exp_beta, (float*)ebT,
+                                                   (float*)colmax, k, v);
+  int err = (int)cudaGetLastError();
+  if (err != 0) return err;
+  lda_cmin_kernel<<<1, kThreads, 0, st>>>((const float*)colmax, (float*)cmin, v);
+  return (int)cudaGetLastError();
 }
 
-template <int KM>
-int launch_estep(const void* exp_beta, const void* offsets, const void* terms,
+int launch_estep(const void* ebT, const void* cmin, const void* offsets, const void* terms,
                  const void* counts, void* gamma, int n, int k, int v, int n_iter, float alpha,
                  cudaStream_t st) {
-  const size_t bytes = (size_t)k * v * sizeof(float);
-  int err = smem_attr(lda_estep_kernel<KM>, bytes);
-  if (err != 0) return err;
-  const int blocks = min(kDocBlocks, (n + kWarpsPerBlock - 1) / kWarpsPerBlock);
-  lda_estep_kernel<KM><<<blocks, kThreads, bytes, st>>>(
-      (const float*)exp_beta, (const int32_t*)offsets, (const int32_t*)terms,
+  lda_estep_kernel<16><<<doc_blocks(n), kThreads, 0, st>>>(
+      (const float*)ebT, (const float*)cmin, (const int32_t*)offsets, (const int32_t*)terms,
       (const float*)counts, (float*)gamma, n, k, v, n_iter, alpha);
   return (int)cudaGetLastError();
 }
 
-template <int KM>
-int launch_sstats(const void* exp_beta, const void* gamma, const void* counts,
-                  const void* key_off, const void* entry_doc, const void* entry_pos,
-                  void* exp_theta, void* partial, void* flags, void* zero_col, void* out, int n,
-                  int k, int v, int blocks, int docs_per_block, float eta, cudaStream_t st) {
-  const size_t bytes = (size_t)k * v * sizeof(float);
-  int err = smem_attr(lda_theta_kernel<KM>, bytes);
-  if (err != 0) return err;
-  const int tblocks = min(kDocBlocks, (n + kWarpsPerBlock - 1) / kWarpsPerBlock);
-  lda_theta_kernel<KM><<<tblocks, kThreads, bytes, st>>>(
-      (const float*)exp_beta, (const float*)gamma, (float*)exp_theta, (int32_t*)zero_col, n, k,
-      v);
-  err = (int)cudaGetLastError();
-  if (err != 0) return err;
-  lda_partial_kernel<KM><<<blocks, kThreads, 0, st>>>(
-      (const float*)exp_beta, (const float*)exp_theta, (const float*)counts,
-      (const int32_t*)key_off, (const int32_t*)entry_doc, (const int32_t*)entry_pos,
-      (float*)partial, (int32_t*)flags, n, k, v, docs_per_block);
-  err = (int)cudaGetLastError();
-  if (err != 0) return err;
-  lda_merge_kernel<<<(k * v + 127) / 128, 128, 0, st>>>(
-      (const float*)exp_beta, (const float*)partial, (const int32_t*)flags,
-      (const int32_t*)zero_col, (float*)out, k, v, blocks, eta);
+template <int TPL>
+int launch_estep_wide(const void* ebT, const void* cmin, const void* offsets, const void* terms,
+                      const void* counts, void* gamma, int n, int k, int v, int n_iter,
+                      float alpha, cudaStream_t st) {
+  lda_estep_wide<TPL><<<doc_blocks(n), kThreads, 0, st>>>(
+      (const float*)ebT, (const float*)cmin, (const int32_t*)offsets, (const int32_t*)terms,
+      (const float*)counts, (float*)gamma, n, k, v, n_iter, alpha);
   return (int)cudaGetLastError();
 }
 
-bool bad_shape(int n, int k, int v) {
-  return n <= 0 || k <= 0 || k > 32 || v <= 0 || (long long)k * v > 51200;
+template <int TPL>
+int launch_sstats(const void* exp_beta, const void* gamma, const void* offsets,
+                  const void* terms, const void* counts, const void* col_entry,
+                  const void* col_doc, const void* seg_lo, const void* seg_hi,
+                  const void* term_seg, const void* ebT, const void* cmin, void* exp_theta,
+                  void* ratio, void* partial, void* dead, void* zero_col, void* out, int n,
+                  int k, int v, int S, float eta, cudaStream_t st) {
+  lda_ratio_kernel<TPL><<<doc_blocks(n), kThreads, 0, st>>>(
+      (const float*)ebT, (const float*)cmin, (const float*)gamma, (const int32_t*)offsets,
+      (const int32_t*)terms, (const float*)counts, (float*)exp_theta, (float*)ratio,
+      (int32_t*)dead, (int32_t*)zero_col, n, k, v);
+  int err = (int)cudaGetLastError();
+  if (err != 0) return err;
+  if (S > 0) {
+    lda_segments<TPL><<<(S + kWarpsPerBlock - 1) / kWarpsPerBlock, kThreads, 0, st>>>(
+        (const float*)exp_theta, (const float*)ratio, (const int32_t*)col_entry,
+        (const int32_t*)col_doc, (const int32_t*)seg_lo, (const int32_t*)seg_hi,
+        (float*)partial, S, k);
+    err = (int)cudaGetLastError();
+    if (err != 0) return err;
+  }
+  const long long kv = (long long)k * v;
+  lda_merge_kernel<<<(unsigned)((kv + 127) / 128), 128, 0, st>>>(
+      (const float*)exp_beta, (const float*)partial, (const int32_t*)term_seg,
+      (const int32_t*)dead, (const int32_t*)zero_col, (float*)out, k, v, eta);
+  return (int)cudaGetLastError();
 }
+
+bool bad_shape(int n, int k, int v) { return n <= 0 || k <= 0 || k > kMaxTopics || v <= 0; }
 
 }  // namespace
 
@@ -386,30 +517,54 @@ extern "C" int lda_beta(const void* lam, void* out, int k, int v, void* stream) 
   return (int)cudaGetLastError();
 }
 
-extern "C" int lda_estep(const void* exp_beta, const void* offsets, const void* terms,
-                         const void* counts, void* gamma, int n, int k, int v, int n_iter,
-                         float alpha, void* stream) {
+// ebT f32[v, k], colmax f32[v], cmin f32[1]: scratch of the [v][k] copy.
+// The narrow entry to kNarrowTopics topics, the topics across the lanes above.
+extern "C" int lda_estep(const void* exp_beta, void* ebT, void* colmax, void* cmin,
+                         const void* offsets, const void* terms, const void* counts,
+                         void* gamma, int n, int k, int v, int n_iter, float alpha,
+                         void* stream) {
   if (bad_shape(n, k, v) || n_iter < 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  if (k <= 16)
-    return launch_estep<16>(exp_beta, offsets, terms, counts, gamma, n, k, v, n_iter, alpha, st);
-  return launch_estep<32>(exp_beta, offsets, terms, counts, gamma, n, k, v, n_iter, alpha, st);
+  int err = prep(exp_beta, ebT, colmax, cmin, k, v, st);
+  if (err != 0) return err;
+  if (k <= kNarrowTopics)
+    return launch_estep(ebT, cmin, offsets, terms, counts, gamma, n, k, v, n_iter, alpha, st);
+  if (k <= 32)
+    return launch_estep_wide<1>(ebT, cmin, offsets, terms, counts, gamma, n, k, v, n_iter,
+                                alpha, st);
+  if (k <= 64)
+    return launch_estep_wide<2>(ebT, cmin, offsets, terms, counts, gamma, n, k, v, n_iter,
+                                alpha, st);
+  if (k <= 128)
+    return launch_estep_wide<4>(ebT, cmin, offsets, terms, counts, gamma, n, k, v, n_iter,
+                                alpha, st);
+  return launch_estep_wide<8>(ebT, cmin, offsets, terms, counts, gamma, n, k, v, n_iter, alpha,
+                              st);
 }
 
-extern "C" int lda_sstats(const void* exp_beta, const void* gamma, const void* counts,
-                          const void* key_off, const void* entry_doc, const void* entry_pos,
-                          void* exp_theta, void* partial, void* flags, void* zero_col, void* out,
-                          int n, int k, int v, int blocks, int docs_per_block, float eta,
+// The nonzeros by term: col_entry / col_doc i32[nnz] (each entry's CSR
+// position and document), segments seg_lo / seg_hi i32[S] of at most 128,
+// term_seg i32[v + 1]; scratch: ebT f32[v, k], colmax f32[v], cmin f32[1],
+// exp_theta f32[n, k], ratio f32[nnz], partial f32[S, k], dead i32[1] and
+// zero_col i32[v] (both zeroed by the caller).
+extern "C" int lda_sstats(const void* exp_beta, const void* gamma, const void* offsets,
+                          const void* terms, const void* counts, const void* col_entry,
+                          const void* col_doc, const void* seg_lo, const void* seg_hi,
+                          const void* term_seg, void* ebT, void* colmax, void* cmin,
+                          void* exp_theta, void* ratio, void* partial, void* dead,
+                          void* zero_col, void* out, int n, int k, int v, int S, float eta,
                           void* stream) {
-  if (bad_shape(n, k, v) || blocks <= 0 || docs_per_block <= 0 ||
-      (long long)blocks * docs_per_block < n)
-    return (int)cudaErrorInvalidValue;
+  if (bad_shape(n, k, v) || S < 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  if (k <= 16)
-    return launch_sstats<16>(exp_beta, gamma, counts, key_off, entry_doc, entry_pos, exp_theta,
-                             partial, flags, zero_col, out, n, k, v, blocks, docs_per_block, eta,
-                             st);
-  return launch_sstats<32>(exp_beta, gamma, counts, key_off, entry_doc, entry_pos, exp_theta,
-                           partial, flags, zero_col, out, n, k, v, blocks, docs_per_block, eta,
-                             st);
+  int err = prep(exp_beta, ebT, colmax, cmin, k, v, st);
+  if (err != 0) return err;
+#define LDA_SSTATS(TPL)                                                                      \
+  launch_sstats<TPL>(exp_beta, gamma, offsets, terms, counts, col_entry, col_doc, seg_lo,    \
+                     seg_hi, term_seg, ebT, cmin, exp_theta, ratio, partial, dead, zero_col, \
+                     out, n, k, v, S, eta, st)
+  if (k <= 32) return LDA_SSTATS(1);
+  if (k <= 64) return LDA_SSTATS(2);
+  if (k <= 128) return LDA_SSTATS(4);
+  return LDA_SSTATS(8);
+#undef LDA_SSTATS
 }

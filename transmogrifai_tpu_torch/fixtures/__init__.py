@@ -1497,3 +1497,243 @@ def check_letters_train(model, metrics: np.ndarray) -> Dict[str, Any]:
     found["ulps"] = _check_many_metrics(metrics, sweep["metrics"], summ, "letters_stock")
     check(summ.data_prep_results == ref["dataPrepResults"], "letters DataCutter summary")
     return found
+
+
+# ---------------------------------------------------------------------------
+# the MLP and naive Bayes past their old widths, Word2Vec at 300 dimensions
+# and LDA at 100 topics: three flows built in either package's DSL
+# ---------------------------------------------------------------------------
+LETTERS_FAMILIES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "letters_families")
+WIDE_TEXT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "wide_text")
+#: the Letter flow's MLP points: one narrow hidden layer, and two of width
+#: 128 and 64 over 26 classes
+LETTERS_MLP_GRID = ({"hidden_layers": (10,)}, {"hidden_layers": (128, 64)})
+#: the wide text flows' widths: Word2Vec's dimensions, LDA's topics, the
+#: count vectorizer's vocabulary ceiling, the embedding flow's MLP
+WIDE_W2V_DIM = 300
+WIDE_LDA_TOPICS = 100
+WIDE_VOCAB = 8192
+WIDE_MLP_HIDDEN = (128, 64, 32)
+#: the wide text flows: "embed" (Word2Vec and LDA beside the Titanic
+#: features, the binary stock space and the MLP) and "bow" (the count
+#: vector itself and LDA over it, naive Bayes and the default MLP)
+WIDE_FLOWS = ("embed", "bow")
+#: the wide text fixture's scored rows: ``text_columns(n, seed)``
+WIDE_TEXT_REQUESTS = 256
+WIDE_TEXT_REQUEST_SEED = 5
+
+
+def letters_families_space(nb, mlp, naive_bayes_grid):
+    """The Letter flow's families space from either package's classes:
+    naive Bayes over ``naive_bayes_grid()`` and the MLP at
+    ``LETTERS_MLP_GRID`` (the per-family sweep: naive Bayes is not fused)."""
+    return [(nb(), naive_bayes_grid()), (mlp(), [dict(g) for g in LETTERS_MLP_GRID])]
+
+
+def port_letters_families_space():
+    """``letters_families_space`` with the port's classes."""
+    from ..impl.classification.mlp import OpMultilayerPerceptronClassifier
+    from ..impl.classification.naive_bayes import OpNaiveBayes
+    from ..impl.selector.defaults import naive_bayes_grid
+
+    return letters_families_space(OpNaiveBayes, OpMultilayerPerceptronClassifier,
+                                  naive_bayes_grid)
+
+
+def wide_text_space(kind: str, selector, mlp, nb, naive_bayes_grid):
+    """The space of a wide text flow from either package's classes: the
+    binary selector's stock space and the MLP at ``WIDE_MLP_HIDDEN``
+    ("embed"), or naive Bayes and the default MLP ("bow")."""
+    if kind == "embed":
+        return list(selector._default_models()) + [
+            (mlp(), [{"hidden_layers": WIDE_MLP_HIDDEN}])]
+    return [(nb(), naive_bayes_grid()), (mlp(), [{}])]
+
+
+def wide_text_flow(kind: str, F, types, w2v, lda, selector, workflow, space):
+    """(OpWorkflow, prediction feature) of a wide text flow over
+    ``apps/titanic.text_columns``: the Titanic flow's features (as
+    ``build_workflow``), and ``Notes`` tokenized, counted over at most
+    ``WIDE_VOCAB`` terms and embedded by LDA at ``WIDE_LDA_TOPICS`` topics,
+    beside Word2Vec at ``WIDE_W2V_DIM`` dimensions ("embed") or the count
+    vector itself ("bow"); the sanity check and the binary selector (3-fold
+    CV, seed 42) over ``space``.  ``F``, ``types``, ``w2v``, ``lda``,
+    ``selector`` and ``workflow`` are one package's feature builder, types,
+    stages, selector factory and workflow class."""
+    survived = F("Survived", types.RealNN).extract(field="Survived").as_response()
+    pclass = F("Pclass", types.PickList).extract(field="Pclass").as_predictor()
+    name = F("Name", types.Text).extract(field="Name").as_predictor()
+    sex = F("Sex", types.PickList).extract(field="Sex").as_predictor()
+    age = F("Age", types.Real).extract(field="Age").as_predictor()
+    sib_sp = F("SibSp", types.Integral).extract(field="SibSp").as_predictor()
+    par_ch = F("Parch", types.Integral).extract(field="Parch").as_predictor()
+    fare = F("Fare", types.Real).extract(field="Fare").as_predictor()
+    embarked = F("Embarked", types.PickList).extract(field="Embarked").as_predictor()
+    family_size = (sib_sp + par_ch + 1).alias("family_size")
+    notes = F("Notes", types.Text).extract(field="Notes").as_predictor()
+    tokens = notes.tokenize()
+    counts = tokens.count_vectorize(vocab_size=WIDE_VOCAB)
+    topics = lda(k=WIDE_LDA_TOPICS).set_input(counts).get_output()
+    text = ([w2v(vector_size=WIDE_W2V_DIM).set_input(tokens).get_output(), topics]
+            if kind == "embed" else [counts, topics])
+    vectors = [sex.pivot(pclass, embarked, top_k=10, min_support=1),
+               name.smart_vectorize(max_cardinality=10, num_hashes=64, min_support=1)] + text
+    features = family_size.vectorize(age, fare, label=survived).combine(*vectors)
+    checked = features.sanity_check(survived)
+    pred = selector.with_cross_validation(num_folds=3, seed=42, models_and_parameters=space) \
+        .set_input(survived, checked).get_output()
+    return workflow().set_result_features(pred), pred
+
+
+def port_wide_text_workflow(kind: str):
+    """``wide_text_flow`` built from the port's classes."""
+    from .. import types as T
+    from ..features.builder import FeatureBuilder
+    from ..impl.classification.mlp import OpMultilayerPerceptronClassifier
+    from ..impl.classification.naive_bayes import OpNaiveBayes
+    from ..impl.feature.embeddings import OpLDA, OpWord2Vec
+    from ..impl.selector.defaults import naive_bayes_grid
+    from ..impl.selector.factories import BinaryClassificationModelSelector
+    from ..workflow.workflow import OpWorkflow
+
+    space = wide_text_space(kind, BinaryClassificationModelSelector,
+                            OpMultilayerPerceptronClassifier, OpNaiveBayes, naive_bayes_grid)
+    return wide_text_flow(kind, FeatureBuilder, T, OpWord2Vec, OpLDA,
+                          BinaryClassificationModelSelector, OpWorkflow, space)
+
+
+#: fold Errors of the Letter families train against ``letters_families``:
+#: naive Bayes bit-equal (integer attributes: every mass exact in both
+#: packages); the MLP within one validation row of a fold (181 or 180 rows):
+#: Adam's normalized step turns last-bit gradient differences into step
+#: differences (``MLP_AUPR_TOL``), which can flip a row whose two top classes
+#: lie within the drift (equal on the CPU at 1 and 4 threads)
+LETTERS_FAMILIES_TOL = {"OpNaiveBayes": 0.0, "OpMultilayerPerceptronClassifier": 1.0 / 180}
+#: fold AuPR of the wide text flows against ``wide_text``, by family: the
+#: existing tolerances, unwidened (``TEXT_AUPR_TOL`` for the text trees,
+#: ``NB_AUPR_TOL``, ``MLP_AUPR_TOL`` for the MLP's Adam drift).  The "embed"
+#: flow exceeds two of them on the CPU, a standing gap (ROADMAP Queue 3 item
+#: 4) that the JAX package shows against itself
+#: (``tests/test_torch_wide_families.py --witness``): its LDA topic
+#: mixtures (100 topics) move as far as the port's when only the order of
+#: its float32 sums over the terms changes, and the forests move with them;
+#: its (128, 64, 32) MLP moves past ``MLP_AUPR_TOL`` when one input entry
+#: moves by one ulp (200 Adam steps diverge), and on the JAX package's own
+#: inputs the port's MLP stays within that move.  "bow" holds them.
+WIDE_TEXT_TOL = {**TEXT_AUPR_TOL, "OpNaiveBayes": NB_AUPR_TOL,
+                 "OpMultilayerPerceptronClassifier": MLP_AUPR_TOL}
+#: the one (flow, family) whose fold gap ``chip_smoke.py`` prints beside its
+#: tolerance without failing: "embed"'s MLP, whose reference metrics move
+#: past ``MLP_AUPR_TOL`` under a one-ulp change of one input (the card's
+#: forests hold ``TEXT_AUPR_TOL``)
+WIDE_TEXT_OPEN_GAP = ("embed", "OpMultilayerPerceptronClassifier")
+#: probabilities of the fixture's 256 rows by the port's own text train
+#: against the JAX package's: its winner's refit on features with those gaps
+#: (the 64-dimension flow's ``TEXT_PROB_ATOL``; naive Bayes's refit moves by
+#: its real columns' masses, ``FAMILIES_PROB_ATOL["a"]``)
+WIDE_TEXT_PROB_ATOL = {"embed": TEXT_PROB_ATOL, "bow": FAMILIES_PROB_ATOL["a"]}
+
+
+def same_winner(a, b) -> bool:
+    """Whether two (model name, grid) winners are one, grids compared with
+    their tuples as lists (a saved summary's JSON form)."""
+    norm = lambda w: json.dumps([w[0], w[1]], sort_keys=True, default=list)  # noqa: E731
+    return norm(a) == norm(b)
+
+
+def fixture_gaps(model, ref_results, ref_best, tol: Dict[str, float], what: str
+                 ) -> Dict[str, Any]:
+    """A train's summary against a fixture's: the same candidates in order
+    and the same winner (raised), and each family's largest fold-metric gap
+    beside ``tol[family]``.  Returns the winner, the gaps, the tolerances
+    and the families beyond them (``beyond``; not raised)."""
+    summ = model.stages[-1].summary
+    results = summ.validation_results
+    check([r["modelName"] for r in results] == [r[0] for r in ref_results],
+          f"{what}: candidates {[r['modelName'] for r in results]}")
+    gaps: Dict[str, float] = {}
+    for r, (name, _, folds) in zip(results, ref_results):
+        g = float(np.abs(np.asarray(r["foldMetrics"], np.float64) - np.asarray(folds)).max())
+        gaps[name] = max(gaps.get(name, 0.0), g)
+    best = [summ.best_model_name, summ.best_grid]
+    check(same_winner(best, ref_best), f"{what}: winner {best} differs from the fixture's "
+                                       f"{ref_best}")
+    return {"best": best, "max_gap": gaps, "tolerance": {f: tol[f] for f in gaps},
+            "beyond": [fam for fam, g in gaps.items() if not g <= tol[fam]]}
+
+
+def check_fixture_train(model, ref_results, ref_best, tol: Dict[str, float], what: str
+                        ) -> Dict[str, Any]:
+    """``fixture_gaps``, raised when a family's fold metrics are beyond its
+    tolerance."""
+    found = fixture_gaps(model, ref_results, ref_best, tol, what)
+    check(not found["beyond"], f"{what}: " + "; ".join(
+        f"{fam} fold metrics {found['max_gap'][fam]} from the fixture's, above {tol[fam]}"
+        for fam in found["beyond"]))
+    return found
+
+
+def check_letters_families_train(model) -> Dict[str, Any]:
+    """Hold a Letter families train (600 rows) to ``letters_families``
+    (``check_fixture_train``)."""
+    with open(os.path.join(LETTERS_FAMILIES, "op_model.json")) as fh:
+        ref = stage_summary(json.load(fh))
+    results = [[r["modelName"], r["grid"], r["foldMetrics"]] for r in ref["validationResults"]]
+    return check_fixture_train(model, results, [ref["bestModelName"], ref["bestGrid"]],
+                               LETTERS_FAMILIES_TOL, "letters_families")
+
+
+def check_letters_families_answers(model) -> Dict[str, Any]:
+    """The fixture's 256 Letter requests through ``BatchScoreFunction`` of
+    ``model`` (the JAX-saved winner as the port loads it): predictions equal,
+    probabilities within ``JAX_SAVED_PROB_ATOL``."""
+    from ..local.scoring import BatchScoreFunction
+
+    cols = load_columns(os.path.join(LETTERS_FAMILIES, "requests.npz"))
+    exp = load_expected(os.path.join(LETTERS_FAMILIES, "expected.npz"))
+    pred, prob, _ = multiclass_predictions(BatchScoreFunction(model)(records(cols)),
+                                           model.result_features[0].name,
+                                           exp["probability"].shape[1])
+    gap = float(np.abs(prob - exp["probability"]).max())
+    mism = int(np.sum(pred != exp["prediction"]))
+    check(mism == 0 and gap <= JAX_SAVED_PROB_ATOL,
+          f"letters_families answers: {mism} predictions differ, probabilities {gap}")
+    return {"rows": len(pred), "prediction_mismatches": mism, "probability_max_abs_err": gap}
+
+
+def wide_text_gaps(model, kind: str) -> Dict[str, Any]:
+    """A wide text train (``kind`` "embed" or "bow", 891 rows) against
+    ``wide_text``: the candidates and the winner (``fixture_gaps`` with
+    ``WIDE_TEXT_TOL``), the vector's width, and its model's answers on the
+    fixture's rows (predictions equal, probabilities within
+    ``WIDE_TEXT_PROB_ATOL``), all raised; the fold gaps returned, with the
+    families beyond their tolerance under ``beyond``."""
+    from ..apps.titanic import text_columns
+    from ..local.scoring import BatchScoreFunction
+
+    with open(os.path.join(WIDE_TEXT, "trains.json")) as fh:
+        ref = json.load(fh)[kind]
+    found = fixture_gaps(model, ref["results"], ref["best"], WIDE_TEXT_TOL, f"wide_text {kind}")
+    checker = _stage(model, "SanityCheckerModel")
+    width = int(len(checker.indices_to_keep))
+    check(width == ref["width"], f"wide_text {kind}: vector width {width}, not {ref['width']}")
+    ans = np.load(os.path.join(WIDE_TEXT, "answers.npz"))
+    req = records(text_columns(WIDE_TEXT_REQUESTS, WIDE_TEXT_REQUEST_SEED))
+    pred, prob, _ = prediction_arrays(BatchScoreFunction(model)(req),
+                                      model.result_features[0].name)
+    mism = int(np.sum(pred != ans[f"{kind}_prediction"]))
+    gap = float(np.abs(prob - ans[f"{kind}_probability"]).max())
+    check(mism == 0 and gap <= WIDE_TEXT_PROB_ATOL[kind],
+          f"wide_text {kind} answers: {mism} predictions differ, probabilities {gap}")
+    return {**found, "width": width, "prediction_mismatches": mism,
+            "probability_max_abs_err": gap}
+
+
+def check_wide_text_train(model, kind: str) -> Dict[str, Any]:
+    """``wide_text_gaps``, raised when a family's fold metrics are beyond
+    its tolerance."""
+    found = wide_text_gaps(model, kind)
+    check(not found["beyond"], f"wide_text {kind}: " + "; ".join(
+        f"{fam} fold metrics {found['max_gap'][fam]} from the fixture's, above "
+        f"{WIDE_TEXT_TOL[fam]}" for fam in found["beyond"]))
+    return found

@@ -12,7 +12,9 @@ aggregation pass and a few log tables, no iterations.
 over the rows, and the joint log-likelihoods ``z = pi + Xd theta^T`` (plus
 ``(1 - Xd) tn^T`` for Bernoulli) of every (fold, smoothing) table set.  The
 log tables between them are torch ops on [F, k, d]; the fold sweep's
-softmax and argmax stay in numpy on the host, as the reference's do.  The
+softmax and argmax stay in numpy on the host, as the reference's do.  K-V
+takes up to ``NB_MAX_FEATURES`` (65,536) features and ``NB_MAX_CLASSES``
+(128) classes; past that both devices raise one ``ValueError``.  The
 wrappers take the plain version only for tensors on the CPU; for CUDA
 tensors they launch the kernel or raise ``KernelError``;
 ``<wrapper>.launches`` counts their launches.
@@ -32,24 +34,48 @@ from ..feature._util import stage_device
 from ..selector.predictor import PredictorEstimator, as_matrix
 
 #: the most features and classes K-V takes
-NB_MAX_FEATURES = 256
-NB_MAX_CLASSES = 8
-_MASS_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+NB_MAX_FEATURES = 65_536
+NB_MAX_CLASSES = 128
+_MASS_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
 _SCORE_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 _NB_SIGNATURES = {"nb_tables_mass": (_MASS_ARGS, ctypes.c_int),
                   "nb_tables_score": (_SCORE_ARGS, ctypes.c_int)}
-#: rows of a mass-mode block's chunk: at least 1024, else enough chunks to
-#: give every SM two blocks over the folds
-_MIN_CHUNK = 1024
-_TARGET_BLOCKS = 2 * 132
+#: mass-mode blocks to aim for (four an SM), rows of a chunk at least, and
+#: the ceiling of the float64 partials [chunks, F, k, d + 1]
+_TARGET_BLOCKS = 4 * 132
+_MIN_CHUNK = 256
+_PARTIAL_BYTES = 256 << 20
+#: the float64 sums a mass-mode block keeps in shared memory (96 KB)
+_MASS_SUMS = 12_288
 
 
 def _check_limits(d: int, k: int) -> None:
+    """One ``ValueError`` past K-V's bounds, on either device."""
     if d > NB_MAX_FEATURES or k > NB_MAX_CLASSES:
-        raise NotImplementedError(
+        raise ValueError(
             f"nb_tables takes at most {NB_MAX_FEATURES} features and {NB_MAX_CLASSES} "
-            f"classes, got {d} and {k} (the tiled kernel that lifts these limits is ROADMAP "
-            "Queue 3 item 2)")
+            f"classes, got {d} features and {k} classes")
+
+
+def _mass_geometry(n: int, d: int, k: int, F: int) -> Tuple[int, int, int, int, int]:
+    """(TJ columns a tile, RG row groups, FG folds a block, rows a chunk,
+    chunks) of K-V's mass mode: a block reads each value once for FG folds;
+    a tile spans the columns of [X | 1] up to 256 (at least 32), with as
+    many row groups as 256 threads and ``_MASS_SUMS`` sums allow."""
+    fg = max(1, min(F, _MASS_SUMS // (32 * k)))
+    active = 256
+    while active > 32 and active * fg * k > _MASS_SUMS:
+        active //= 2
+    tj = 32
+    while tj < min(active, d + 1):
+        tj *= 2
+    tj = min(tj, active)
+    rg = max(1, active // tj)
+    blocks = -(-(d + 1) // tj) * -(-F // fg)
+    chunks = max(1, min(-(-n // _MIN_CHUNK), _TARGET_BLOCKS // blocks,
+                        _PARTIAL_BYTES // (F * k * (d + 1) * 8)))
+    rows = -(-n // chunks)
+    return tj, rg, fg, rows, -(-n // rows)
 
 
 def nb_tables_mass_plain(Xd: torch.Tensor, y: torch.Tensor, w: torch.Tensor, k: int
@@ -73,9 +99,9 @@ def nb_tables_mass(Xd: torch.Tensor, y: torch.Tensor, w: torch.Tensor, k: int
     if Xd.dtype != torch.float32 or y.dtype != torch.float32 or tuple(y.shape) != (n,) \
             or w.dtype != torch.float32 or w.ndim != 2 or w.shape[1] != n:
         raise ValueError(f"nb_tables_mass takes Xd f32[n, d], y f32[{n}], w f32[F, {n}]")
+    _check_limits(d, k)
     if not _on_cuda(Xd, y, w):
         return nb_tables_mass_plain(Xd, y, w, k)
-    _check_limits(d, k)
     F = w.shape[0]
     dev = Xd.device
     cls = torch.zeros((F, k), dtype=torch.float32, device=dev)
@@ -83,13 +109,13 @@ def nb_tables_mass(Xd: torch.Tensor, y: torch.Tensor, w: torch.Tensor, k: int
     if n == 0:
         return cls, feat
     Xd, y, w = Xd.contiguous(), y.contiguous(), w.contiguous()
-    chunk_rows = max(_MIN_CHUNK, -(-n * F // _TARGET_BLOCKS))
-    chunks = -(-n // chunk_rows)
-    partial = torch.empty((chunks, F, k * (d + 1)), dtype=torch.float64, device=dev)
+    tj, rg, fg, chunk_rows, chunks = _mass_geometry(n, d, k, F)
+    partial = torch.empty((chunks, F, k, d + 1), dtype=torch.float64, device=dev)
     lib = cuda_build.load("naive_bayes", _NB_SIGNATURES)
     with torch.cuda.device(dev):
         rc = lib.nb_tables_mass(Xd.data_ptr(), y.data_ptr(), w.data_ptr(), partial.data_ptr(),
-                                cls.data_ptr(), feat.data_ptr(), n, d, k, F, chunks, chunk_rows,
+                                cls.data_ptr(), feat.data_ptr(), n, d, k, F, fg, chunks,
+                                chunk_rows, tj, rg,
                                 ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     cuda_build.check_launch("nb_tables_mass", rc)
     nb_tables_mass.launches += 1
@@ -122,10 +148,10 @@ def nb_tables_score(Xd: torch.Tensor, pi: torch.Tensor, theta: torch.Tensor,
                            ("tn", tn, (Q, k, d))):
         if a is not None and (a.dtype != torch.float32 or tuple(a.shape) != shape):
             raise ValueError(f"{name} must be float32{list(shape)}")
+    _check_limits(d, k)
     others = () if tn is None else (tn,)
     if not _on_cuda(Xd, pi, theta, *others):
         return nb_tables_score_plain(Xd, pi, theta, tn)
-    _check_limits(d, k)
     dev = Xd.device
     z = torch.empty((Q, n, k), dtype=torch.float32, device=dev)
     if n == 0:

@@ -15,21 +15,26 @@ hand-written CUDA kernels replace them:
   (for the gradient of ``W``) and the (pair, slot) entries grouped by
   output word (slot 0 the context, 1..K the negatives; for ``C``), each
   list cut into segments of at most ``SGNS_SEGMENT`` entries.  A warp a
-  segment scores its entries and sums coefficient x partner row; a warp a
-  vocabulary row sums its segments in order and writes ``row - lr * grad``
+  segment scores its entries and sums coefficient x partner row (past 256
+  dimensions, up to ``SGNS_MAX_DIM`` = 1,024, in slabs of 256 values); a warp
+  a vocabulary row sums its segments in order and writes ``row - lr * grad``
   into the other buffer of a pair.  Two launches an epoch (a third for the
   loss, when asked), no atomics: runs repeat bit for bit.
 - K-AB, three modes (``csrc/lda.cu``): ``lda_beta`` (``exp(digamma(lam) -
   digamma(sum_w lam))``), ``lda_estep`` (gamma after ``n_iter`` fixed-point
-  iterations in one launch, over each document's nonzero counts only) and
-  ``lda_sstats`` (the M-step's ``eta + exp_beta * (exp_theta^T (X /
-  phi_norm))`` over nonzeros, fixed-order block partials and a fixed-order
-  merge).  The documents' nonzero lists are built once a fit or a score
+  iterations in one launch, over each document's nonzero counts only; past
+  32 topics, up to ``LDA_MAX_TOPICS`` = 256, the topics across a warp's
+  lanes) and ``lda_sstats`` (the M-step's ``eta + exp_beta * (exp_theta^T
+  (X / phi_norm))`` over nonzeros: each nonzero's ``x / phi``, fixed-order
+  sums over segments of each term's nonzeros, a fixed-order merge).
+  ``exp_beta`` is bounded by the card's memory alone.  The documents'
+  nonzero lists, by document and by term, are built once a fit or a score
   (``lda_docs``).
 
 The plain versions (``*_plain``) follow the JAX math densely and run for CPU
-tensors; a CUDA tensor launches the kernel or raises ``KernelError``.  Each
-wrapper counts its launches in ``<wrapper>.launches``.
+tensors; a CUDA tensor launches the kernel or raises ``KernelError``.  Past
+their bounds both devices raise one ``ValueError``.  Each wrapper counts its
+launches in ``<wrapper>.launches``.
 
 ``digamma`` is ``chlo.digamma``'s Lanczos form (g = 7, nine coefficients,
 Euler's reflection below 0.5), the lowering of ``jax.scipy.special.digamma``,
@@ -109,8 +114,8 @@ def _softplus(x: torch.Tensor) -> torch.Tensor:
 #: the most entries a warp of K-AA sums (a vocabulary row's list is cut into
 #: segments of this length, so the Zipf head's long lists spread over warps)
 SGNS_SEGMENT = 128
-#: the widest embedding K-AA takes (8 values a lane)
-SGNS_MAX_DIM = 256
+#: the widest embedding K-AA takes (four slabs of 256 values)
+SGNS_MAX_DIM = 1024
 #: pairs a block of the plain version gathers at once on the host
 SGNS_PLAIN_BLOCK = 4096
 
@@ -132,17 +137,17 @@ class SgnsLists(NamedTuple):
     row_seg: torch.Tensor
 
 
-def _segments(keys: torch.Tensor, n_rows: int, row0: int):
+def _segments(keys: torch.Tensor, n_rows: int, row0: int, length: int = SGNS_SEGMENT):
     """(segment rows, lo, hi, per-row segment counts) of a list sorted by
-    ``keys`` (i64, values in [0, n_rows)), segments of ``SGNS_SEGMENT``."""
-    counts = torch.bincount(keys, minlength=n_rows)
+    ``keys`` (i64, values in [0, n_rows)), segments of ``length``."""
+    counts = torch.bincount(keys.long(), minlength=n_rows)
     starts = torch.cumsum(counts, 0) - counts
-    nseg = (counts + SGNS_SEGMENT - 1) // SGNS_SEGMENT
+    nseg = (counts + length - 1) // length
     rows = torch.repeat_interleave(torch.arange(n_rows, device=keys.device), nseg)
     first = torch.cumsum(nseg, 0) - nseg
     k = torch.arange(rows.numel(), device=keys.device) - first[rows]
-    lo = starts[rows] + k * SGNS_SEGMENT
-    hi = torch.minimum(lo + SGNS_SEGMENT, starts[rows] + counts[rows])
+    lo = starts[rows] + k * length
+    hi = torch.minimum(lo + length, starts[rows] + counts[rows])
     return rows + row0, lo, hi, nseg
 
 
@@ -222,12 +227,12 @@ def sgns_epoch(W: torch.Tensor, C: torch.Tensor, pairs: torch.Tensor, negs: torc
     is computed only with ``want_loss``.  At most ``SGNS_MAX_DIM``
     dimensions."""
     _check_sgns(W, C, pairs, negs)
-    if not _on_cuda(W, C, pairs, negs):
-        return sgns_epoch_plain(W, C, pairs, negs, lr)
     V, d = W.shape
-    P, K = negs.shape
     if d > SGNS_MAX_DIM:
         raise ValueError(f"sgns_epoch takes at most {SGNS_MAX_DIM} dimensions, got {d}")
+    if not _on_cuda(W, C, pairs, negs):
+        return sgns_epoch_plain(W, C, pairs, negs, lr)
+    P, K = negs.shape
     if lists is None:
         lists = sgns_lists(pairs, negs, V)
     W, C, pairs, negs = W.contiguous(), C.contiguous(), pairs.contiguous(), negs.contiguous()
@@ -260,31 +265,47 @@ sgns_epoch.launches = 0
 # ---------------------------------------------------------------------------
 # K-AB lda: beta, estep, sstats
 # ---------------------------------------------------------------------------
-#: the most topics K-AB takes (gamma in a warp's registers), and the most
-#: k x v floats of exp_beta it stages in shared memory (200 KB)
-LDA_MAX_TOPICS = 32
-LDA_MAX_BETA = 51_200
+#: the most topics K-AB takes (past 32, the topics across a warp's lanes)
+LDA_MAX_TOPICS = 256
+#: the most nonzeros of one term a warp of the sstats mode sums
+LDA_SEGMENT = 128
 
 
 class LdaDocs(NamedTuple):
     """The nonzero counts of a count matrix X f32[n, v] (``lda_docs``):
     ``offsets`` i32[n + 1] (row starts), ``terms`` i32[nnz], ``counts``
-    f32[nnz], in row-major order."""
+    f32[nnz], in row-major order; and the same nonzeros grouped by term
+    (a stable sort, so document order within a term): ``col_entry`` i32[nnz]
+    their row-major positions, ``col_doc`` i32[nnz] their documents, each
+    term's list cut into segments of at most ``LDA_SEGMENT`` (``seg_lo`` /
+    ``seg_hi`` i32[S]) with ``term_seg`` i32[v + 1] each term's first."""
 
     offsets: torch.Tensor
     terms: torch.Tensor
     counts: torch.Tensor
+    col_entry: torch.Tensor
+    col_doc: torch.Tensor
+    seg_lo: torch.Tensor
+    seg_hi: torch.Tensor
+    term_seg: torch.Tensor
 
 
 def lda_docs(X: torch.Tensor) -> LdaDocs:
-    """K-AB's document lists of X f32[n, v] on its device (once a fit or a
-    score)."""
+    """K-AB's document and term lists of X f32[n, v] on its device (once a
+    fit or a score)."""
+    n, v = X.shape
     rows, terms = torch.nonzero(X > 0, as_tuple=True)
     counts = X[rows, terms].contiguous()
-    per_row = torch.bincount(rows, minlength=X.shape[0])
+    per_row = torch.bincount(rows, minlength=n)
     offsets = torch.cat([torch.zeros(1, dtype=torch.long, device=X.device),
                          torch.cumsum(per_row, 0)])
-    return LdaDocs(offsets.to(torch.int32), terms.to(torch.int32).contiguous(), counts)
+    col_entry = torch.sort(terms, stable=True).indices
+    _, lo, hi, nseg = _segments(terms[col_entry], v, 0, LDA_SEGMENT)
+    term_seg = torch.cat([torch.zeros(1, dtype=torch.long, device=X.device),
+                          torch.cumsum(nseg, 0)])
+    i32 = lambda t: t.to(torch.int32).contiguous()  # noqa: E731
+    return LdaDocs(i32(offsets), i32(terms), counts, i32(col_entry), i32(rows[col_entry]),
+                   i32(lo), i32(hi), i32(term_seg))
 
 
 def _check_lda(exp_beta: torch.Tensor, X: torch.Tensor) -> None:
@@ -293,12 +314,8 @@ def _check_lda(exp_beta: torch.Tensor, X: torch.Tensor) -> None:
     k, v = exp_beta.shape
     if X.dtype != torch.float32 or X.ndim != 2 or X.shape[1] != v:
         raise ValueError(f"X must be float32[n, {v}]")
-
-
-def _check_lda_limits(name: str, k: int, v: int) -> None:
-    if k > LDA_MAX_TOPICS or k * v > LDA_MAX_BETA:
-        raise ValueError(f"{name} takes at most {LDA_MAX_TOPICS} topics and "
-                         f"{LDA_MAX_BETA} topic x term entries, got {k} x {v}")
+    if k > LDA_MAX_TOPICS:
+        raise ValueError(f"K-AB takes at most {LDA_MAX_TOPICS} topics, got {k}")
 
 
 def _exp_theta_plain(gamma: torch.Tensor) -> torch.Tensor:
@@ -334,11 +351,18 @@ def lda_sstats_plain(exp_beta: torch.Tensor, X: torch.Tensor, gamma: torch.Tenso
 
 _LDA_SIGNATURES = {
     "lda_beta": ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p], ctypes.c_int),
-    "lda_estep": ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_float]
+    "lda_estep": ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_float]
                   + [ctypes.c_void_p], ctypes.c_int),
-    "lda_sstats": ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 + [ctypes.c_float]
+    "lda_sstats": ([ctypes.c_void_p] * 19 + [ctypes.c_int] * 4 + [ctypes.c_float]
                    + [ctypes.c_void_p], ctypes.c_int),
 }
+
+
+def _beta_scratch(k: int, v: int, dev) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The [v][k] copy of exp_beta, its per-term maxima and their minimum."""
+    return (torch.empty((v, k), dtype=torch.float32, device=dev),
+            torch.empty(v, dtype=torch.float32, device=dev),
+            torch.empty(1, dtype=torch.float32, device=dev))
 
 
 def _lda_lib():
@@ -374,19 +398,21 @@ def lda_estep(exp_beta: torch.Tensor, X: torch.Tensor, alpha: float, n_iter: int
     """The documents' gamma f32[n, k] after ``n_iter`` E-step iterations
     from gamma = 1, for the count matrix X f32[n, v] and exp_beta f32[k, v]
     (``_lda_e_step``).  On the card ``docs`` (``lda_docs(X)``, built if
-    None) carries X's nonzero counts.  At most ``LDA_MAX_TOPICS`` topics and
-    ``LDA_MAX_BETA`` topic x term entries."""
+    None) carries X's nonzero counts.  At most ``LDA_MAX_TOPICS`` topics:
+    the kernel's narrow entry to 16, the topics across a warp's lanes
+    above."""
     _check_lda(exp_beta, X)
     if not _on_cuda(exp_beta, X):
         return lda_estep_plain(exp_beta, X, alpha, n_iter)
     k, v = exp_beta.shape
     n = X.shape[0]
-    _check_lda_limits("lda_estep", k, v)
     docs = lda_docs(X) if docs is None else docs
     exp_beta = exp_beta.contiguous()
     gamma = torch.empty((n, k), dtype=torch.float32, device=X.device)
+    ebT, colmax, cmin = _beta_scratch(k, v, X.device)
     with torch.cuda.device(X.device):
-        rc = _lda_lib().lda_estep(exp_beta.data_ptr(), docs.offsets.data_ptr(),
+        rc = _lda_lib().lda_estep(exp_beta.data_ptr(), ebT.data_ptr(), colmax.data_ptr(),
+                                  cmin.data_ptr(), docs.offsets.data_ptr(),
                                   docs.terms.data_ptr(), docs.counts.data_ptr(),
                                   gamma.data_ptr(), n, k, v, n_iter, ctypes.c_float(alpha),
                                   _stream(X))
@@ -396,9 +422,6 @@ def lda_estep(exp_beta: torch.Tensor, X: torch.Tensor, alpha: float, n_iter: int
 
 
 lda_estep.launches = 0
-
-#: documents a block of the sstats mode sums (its partial's rows)
-LDA_SSTATS_DOCS = 512
 
 
 def lda_sstats(exp_beta: torch.Tensor, X: torch.Tensor, gamma: torch.Tensor, eta: float,
@@ -413,33 +436,23 @@ def lda_sstats(exp_beta: torch.Tensor, X: torch.Tensor, gamma: torch.Tensor, eta
         raise ValueError(f"gamma must be float32[{n}, {k}]")
     if not _on_cuda(exp_beta, X, gamma):
         return lda_sstats_plain(exp_beta, X, gamma, eta)
-    _check_lda_limits("lda_sstats", k, v)
     docs = lda_docs(X) if docs is None else docs
     exp_beta, gamma = exp_beta.contiguous(), gamma.contiguous()
-    blocks = max(1, -(-n // LDA_SSTATS_DOCS))
-    # each block's nonzeros grouped by term (stable: document order kept)
-    row = torch.repeat_interleave(torch.arange(n, device=X.device),
-                                  (docs.offsets[1:] - docs.offsets[:-1]).long())
-    key = (row // LDA_SSTATS_DOCS) * v + docs.terms.long()
-    order = torch.sort(key, stable=True).indices
-    key_off = torch.cat([torch.zeros(1, dtype=torch.long, device=X.device),
-                         torch.cumsum(torch.bincount(key, minlength=blocks * v), 0)])
-    key_off = key_off.to(torch.int32)
-    entry_doc = row[order].to(torch.int32).contiguous()
-    entry_pos = order.to(torch.int32).contiguous()
-    exp_theta = torch.empty((n, k), dtype=torch.float32, device=X.device)
-    partial = torch.empty((blocks, k, v), dtype=torch.float32, device=X.device)
-    flags = torch.empty(blocks, dtype=torch.int32, device=X.device)
-    zero_col = torch.zeros(v, dtype=torch.int32, device=X.device)
-    out = torch.empty((k, v), dtype=torch.float32, device=X.device)
-    with torch.cuda.device(X.device):
-        rc = _lda_lib().lda_sstats(exp_beta.data_ptr(), gamma.data_ptr(),
-                                   docs.counts.data_ptr(), key_off.data_ptr(),
-                                   entry_doc.data_ptr(), entry_pos.data_ptr(),
-                                   exp_theta.data_ptr(), partial.data_ptr(),
-                                   flags.data_ptr(), zero_col.data_ptr(), out.data_ptr(),
-                                   n, k, v, blocks,
-                                   LDA_SSTATS_DOCS, ctypes.c_float(eta), _stream(X))
+    dev = X.device
+    S = int(docs.seg_lo.numel())
+    ebT, colmax, cmin = _beta_scratch(k, v, dev)
+    exp_theta = torch.empty((n, k), dtype=torch.float32, device=dev)
+    ratio = torch.empty(max(1, docs.terms.numel()), dtype=torch.float32, device=dev)
+    partial = torch.empty((max(1, S), k), dtype=torch.float32, device=dev)
+    dead = torch.zeros(1, dtype=torch.int32, device=dev)
+    zero_col = torch.zeros(v, dtype=torch.int32, device=dev)
+    out = torch.empty((k, v), dtype=torch.float32, device=dev)
+    ptrs = [t.data_ptr() for t in (
+        exp_beta, gamma, docs.offsets, docs.terms, docs.counts, docs.col_entry, docs.col_doc,
+        docs.seg_lo, docs.seg_hi, docs.term_seg, ebT, colmax, cmin, exp_theta, ratio, partial,
+        dead, zero_col, out)]
+    with torch.cuda.device(dev):
+        rc = _lda_lib().lda_sstats(*ptrs, n, k, v, S, ctypes.c_float(eta), _stream(X))
     cuda_build.check_launch("lda_sstats", rc)
     lda_sstats.launches += 1
     return out

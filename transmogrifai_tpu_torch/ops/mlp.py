@@ -19,8 +19,10 @@ in plain torch ops on the small parameter tensors; its bias corrections
 ``1 - 0.9^t`` and ``1 - 0.999^t`` are float32 powers on the host.  The
 Glorot init replays ``jax.random`` (``ops/threefry.py``: ``split``, then
 ``uniform`` with its affine map and its ``max(minval, .)``), bit for bit.
-K-U takes up to two hidden layers of width <= 64, up to 128 features and
-2 .. 8 classes; other networks raise ``NotImplementedError``.  The wrappers
+K-U takes up to ``MLP_MAX_LAYERS - 1`` (8) hidden layers, features and
+hidden widths up to ``MLP_MAX_WIDTH`` (4,096) and 2 .. ``MLP_MAX_CLASSES``
+(128) classes; past that both devices raise one ``ValueError`` naming the
+size, so a network the CPU tests pass also runs on the card.  The wrappers
 take the plain version only for tensors on the CPU; for CUDA tensors they
 launch the kernel or raise ``KernelError``; ``<wrapper>.launches`` counts
 their launches.
@@ -41,17 +43,22 @@ from .metrics import fma
 
 Params = List[Tuple[torch.Tensor, torch.Tensor]]
 
-#: K-U's limits: weight layers, features, hidden width, classes
-MLP_MAX_LAYERS = 3
-MLP_MAX_FEATURES = 128
-MLP_MAX_HIDDEN = 64
-MLP_MAX_CLASSES = 8
-_ROWS = 32  # kRows of csrc/mlp.cu: a chunk is a whole number of tiles
+#: K-U's limits: weight layers (hidden layers + 1), features and hidden
+#: widths, classes
+MLP_MAX_LAYERS = 9
+MLP_MAX_WIDTH = 4096
+MLP_MAX_CLASSES = 128
 _TARGET_BLOCKS = 2 * 132
-_GRAD_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
-_FORWARD_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+#: the ceiling of K-U's float64 partial buffer [chunks, C, E]: past it the
+#: chunks grow (fewer of them), down to one a fit
+MLP_PARTIAL_BYTES = 256 << 20
+_DIMS = ctypes.POINTER(ctypes.c_int)
+_GRAD_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [_DIMS, ctypes.c_void_p]
+_FORWARD_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [_DIMS, ctypes.c_void_p]
 _SIGNATURES = {"mlp_grad": (_GRAD_ARGS, ctypes.c_int),
-               "mlp_forward": (_FORWARD_ARGS, ctypes.c_int)}
+               "mlp_forward": (_FORWARD_ARGS, ctypes.c_int),
+               "mlp_plan": ([ctypes.c_int, ctypes.c_int, _DIMS, ctypes.POINTER(ctypes.c_int)],
+                            ctypes.c_int)}
 
 
 def param_count(layers: Sequence[int]) -> int:
@@ -108,18 +115,18 @@ def forward(params: Params, X: torch.Tensor) -> torch.Tensor:
 
 
 def _check_net(layers: Sequence[int]) -> None:
+    """One ``ValueError`` past K-U's bounds, on either device."""
     L = len(layers) - 1
-    d, k, hidden = layers[0], layers[-1], layers[1:-1]
-    if not (1 <= L <= MLP_MAX_LAYERS and d <= MLP_MAX_FEATURES and 2 <= k <= MLP_MAX_CLASSES
-            and all(h <= MLP_MAX_HIDDEN for h in hidden)):
-        raise NotImplementedError(
-            f"mlp kernels take at most {MLP_MAX_LAYERS - 1} hidden layers of width <= "
-            f"{MLP_MAX_HIDDEN}, {MLP_MAX_FEATURES} features and 2 .. {MLP_MAX_CLASSES} "
-            f"classes, got layers {tuple(layers)} (the tiled kernel that lifts these limits "
-            "is ROADMAP Queue 3 item 2)")
+    if not (1 <= L <= MLP_MAX_LAYERS and all(1 <= v <= MLP_MAX_WIDTH for v in layers[:-1])
+            and 2 <= layers[-1] <= MLP_MAX_CLASSES):
+        raise ValueError(
+            f"mlp kernels take at most {MLP_MAX_LAYERS - 1} hidden layers, features and "
+            f"hidden widths up to {MLP_MAX_WIDTH} and 2 .. {MLP_MAX_CLASSES} classes, got "
+            f"layers {tuple(layers)}")
 
 
 def _check(X, params, layers) -> None:
+    _check_net(layers)
     if X.dtype != torch.float32 or X.ndim != 2 or X.shape[1] != layers[0]:
         raise ValueError(f"X must be float32[n, {layers[0]}]")
     E = param_count(layers)
@@ -127,16 +134,34 @@ def _check(X, params, layers) -> None:
         raise ValueError(f"params must be float32[C, {E}]")
 
 
-def _chunking(n: int, C: int) -> Tuple[int, int]:
-    rows = max(8 * _ROWS, -(-n * C // _TARGET_BLOCKS))
-    rows = -(-rows // _ROWS) * _ROWS
+_PLANS = {}
+
+
+def _plan(lib, grad: bool, layers: Sequence[int]) -> Tuple[int, int]:
+    """(tile rows R, accumulators in shared memory) of csrc/mlp.cu's
+    ``mlp_plan`` for this network."""
+    key = (grad, tuple(layers))
+    if key not in _PLANS:
+        smem_acc = ctypes.c_int(0)
+        R = lib.mlp_plan(int(grad), len(layers) - 1, _dims(layers), ctypes.byref(smem_acc))
+        if R <= 0:
+            raise ValueError(f"no K-U tile fits the network {tuple(layers)}")
+        _PLANS[key] = (R, smem_acc.value)
+    return _PLANS[key]
+
+
+def _chunking(n: int, C: int, R: int, E: int = 0) -> Tuple[int, int]:
+    """(rows a chunk, chunks): about two blocks an SM over the C fits, at
+    least 8 tiles of R rows a chunk, and at most ``MLP_PARTIAL_BYTES`` of
+    float64 partials [chunks, C, E]."""
+    rows = max(8 * R, -(-n * C // _TARGET_BLOCKS), -(-n * C * E * 8 // MLP_PARTIAL_BYTES))
+    rows = -(-rows // R) * R
     return rows, -(-n // rows)
 
 
-def _dims(layers: Sequence[int]) -> Tuple[int, int, int, int, int]:
-    """(L, d, h1, h2, k) of csrc/mlp.cu's entry points."""
-    hidden = list(layers[1:-1]) + [0, 0]
-    return len(layers) - 1, layers[0], hidden[0], hidden[1], layers[-1]
+def _dims(layers: Sequence[int]):
+    """The layer sizes as csrc/mlp.cu's ``dims`` (a host int array)."""
+    return (ctypes.c_int * len(layers))(*[int(v) for v in layers])
 
 
 def mlp_forward_plain(X: torch.Tensor, params: torch.Tensor, layers: Sequence[int]
@@ -154,7 +179,6 @@ def mlp_forward(X: torch.Tensor, params: torch.Tensor, layers: Sequence[int]
     _check(X, params, layers)
     if not _on_cuda(X, params):
         return mlp_forward_plain(X, params, layers)
-    _check_net(layers)
     n = X.shape[0]
     C, k = params.shape[0], layers[-1]
     z = torch.empty((C, n, k), dtype=torch.float32, device=X.device)
@@ -162,11 +186,12 @@ def mlp_forward(X: torch.Tensor, params: torch.Tensor, layers: Sequence[int]
     if n == 0:
         return z, prob
     X, params = X.contiguous(), params.contiguous()
-    rows, chunks = _chunking(n, C)
     lib = cuda_build.load("mlp", _SIGNATURES)
+    R, _ = _plan(lib, False, layers)
+    rows, chunks = _chunking(n, C, R)
     with torch.cuda.device(X.device):
         rc = lib.mlp_forward(X.data_ptr(), params.data_ptr(), z.data_ptr(), prob.data_ptr(), n,
-                             C, chunks, rows, *_dims(layers),
+                             C, chunks, rows, R, len(layers) - 1, _dims(layers),
                              ctypes.c_void_p(torch.cuda.current_stream(X.device).cuda_stream))
     cuda_build.check_launch("mlp_forward", rc)
     mlp_forward.launches += 1
@@ -220,20 +245,21 @@ def mlp_grad(X: torch.Tensor, y: torch.Tensor, w: torch.Tensor, fold: torch.Tens
         raise ValueError(f"w must be float32[F, {n}]")
     if not _on_cuda(X, y, w, fold, wsum, params):
         return mlp_grad_plain(X, y, w, fold, wsum, params, layers)
-    _check_net(layers)
     E = params.shape[1]
     grad = torch.zeros((C, E), dtype=torch.float32, device=X.device)
     if n == 0:
         return grad
     X, y, w, fold = X.contiguous(), y.contiguous(), w.contiguous(), fold.contiguous()
     wsum, params = wsum.contiguous(), params.contiguous()
-    rows, chunks = _chunking(n, C)
-    partial = torch.empty((chunks, C, E), dtype=torch.float64, device=X.device)
     lib = cuda_build.load("mlp", _SIGNATURES)
+    R, smem_acc = _plan(lib, True, layers)
+    rows, chunks = _chunking(n, C, R, 0 if smem_acc else E)
+    partial = torch.empty((chunks, C, E), dtype=torch.float64, device=X.device)
     with torch.cuda.device(X.device):
         rc = lib.mlp_grad(X.data_ptr(), y.data_ptr(), w.data_ptr(), fold.data_ptr(),
                           wsum.data_ptr(), params.data_ptr(), partial.data_ptr(),
-                          grad.data_ptr(), n, C, chunks, rows, *_dims(layers),
+                          grad.data_ptr(), n, C, chunks, rows, R, smem_acc, len(layers) - 1,
+                          _dims(layers),
                           ctypes.c_void_p(torch.cuda.current_stream(X.device).cuda_stream))
     cuda_build.check_launch("mlp_grad", rc)
     mlp_grad.launches += 1
