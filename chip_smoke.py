@@ -60,9 +60,13 @@ Phases, each printing its findings on a line of its own:
                of the deepest level of the second boosting round of one
                sweep fold of the ``--train-rows`` data (the first round's
                gradients are dyadic; the second's are checked not to be):
-               K-E, K-F and K-G bit-equal (K-E on integer-valued and on
-               real gradients, K-F and K-G fed one histogram), K-H's
-               gradients within the stated gap; timed as in phase 2;
+               K-E, K-F and K-G bit-equal (K-E's fixed point on
+               integer-valued gradients and its ordered sums on the real
+               ones, held against the plain version's CPU run; K-E's root
+               sums; K-F and K-G fed one histogram), K-H (the collapse
+               kernel at one tree a step) with its margins bit-equal and
+               its gradients within the stated gap; timed as in phase 2,
+               the fixed point's time on the same inputs printed beside;
 10. stats kernels -- K-I and K-J (the sanity checker's correlation matrix
                and contingency counts) against their plain versions on the
                sanity checker's 100k-row sample of the ``--train-rows``
@@ -91,11 +95,13 @@ Phases, each printing its findings on a line of its own:
                K-M, K-N, K-O must be above 0), with the wall time and the
                host-clock breakdown; a second run is profiled for the
                device's busy time and idle share;
-14. boston kernels -- K-N, K-O and K-H squared against their plain versions
-               on the sweep call of the ``--train-rows`` Boston train (its
-               feature matrix, folds and candidates), and K-E at a
-               fixed-point scale below 2^32 (the deepest GBT group's root
-               level with the gradients in dollars); timed as in phase 2;
+14. boston kernels -- K-N, K-O and K-H squared (its margins one fused
+               multiply-add, bit-equal) against their plain versions on the
+               sweep call of the ``--train-rows`` Boston train (its feature
+               matrix, folds and candidates), and K-E's ordered sums at the
+               deepest GBT group's deepest level and, with the gradients in
+               dollars, past the fixed point's 2^32 range (bit-equal to the
+               plain version's CPU run on four trees); timed as in phase 2;
 15. iris reference -- the Iris workflow's stock multiclass train (softmax LR
                + RF with class-distribution leaves, 26 candidates, one fused
                sweep, the Error metric) on the 150-row frame, held to the
@@ -377,7 +383,19 @@ Phases, each printing its findings on a line of its own:
                the bag of words' width and at 26 classes, K-AA at 300
                dimensions and K-AB at 100 topics, each on its train's own
                inputs against its plain version, timed beside its bound and
-               a PyTorch call computing the same function.
+               a PyTorch call computing the same function.  K-U's entry is
+               printed with each shape: the GEMM-shaped one past
+               ``MLP_BLOCK_PARAMS`` parameters a fit (the text networks),
+               the block one below it.
+
+Since slice 15 the trees' sums follow the reference's float32 order: K-E's
+ordered path (real-valued gradients) is held bit for bit against its plain
+version in phases 9 (Titanic), 14 (Boston's GBT group) and 17 / 55 (3, 26
+and 64 class channels made real), K-F's prefix sums in XLA's blocked order
+on those histograms, K-E's root sums in phase 9; the one-tree boosting step
+runs on the collapse kernel (phases 9, 14, 19: margins bit-equal for the
+logistic, squared and softmax losses); phases 6 and 12 print the refit
+trees equal to the fixture's.
 
 The line before the last holds the kernels' JSON record, then the card's
 name and power limit; the last line is ``{"ok": true, "device": ...}``.  Any
@@ -514,6 +532,26 @@ def bound_ms(n_bytes, n_ops, ops_per_s=PEAK_SCALAR_OPS_PER_S):
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
     t_ops = n_ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def hist_bits(Tr, ghw):
+    """The scale bits of the K-E path that ``level_hist`` takes for ``ghw``
+    (``Tr.hist_exact``): the fixed point's, or None for the ordered sums."""
+    return Tr.HIST_SCALE_BITS if Tr.hist_exact(ghw) else None
+
+
+def hist_against_plain(torch, Tr, e_args, trees, what):
+    """K-E's output on ``e_args`` against its plain version run on the CPU
+    (on the card ``index_add_`` takes float atomics, so the row order of
+    the plain version's sums holds there only), over the first ``trees``
+    trees of the batch: bit-equal, or raise naming ``what``."""
+    sub = [a[:trees] if isinstance(a, torch.Tensor) and a.ndim >= 2 and i != 0 else a
+           for i, a in enumerate(e_args)]
+    got = Tr.level_hist(*sub)
+    want = Tr.level_hist_plain(*[a.cpu() if isinstance(a, torch.Tensor) else a for a in sub])
+    check(torch.equal(got.cpu(), want), f"level_hist differs from plain ({what})")
+    check(torch.equal(got, Tr.level_hist(*sub)), f"level_hist does not repeat ({what})")
+    return got
 
 
 def ptxas_summary(log_text):
@@ -786,12 +824,8 @@ def train_reference_phase(torch, titanic, FX, dev="cuda"):
     for mine, ref in zip(summ.validation_results, fsum["validationResults"]):
         check(mine["grid"] == ref["grid"], "candidate order differs from the fixture's")
         gaps.append(max(abs(a - b) for a, b in zip(mine["foldMetrics"], ref["foldMetrics"])))
-    # refit trees structurally equal to the fixture's (printed, not checked)
-    with np.load(FX.TITANIC_XGB + "/op_model_arrays.npz") as z:
-        ref_arrays = {k: z[fx["model_params"]["__dict__"][k]["__array__"]]
-                      for k in ("split_feat", "split_bin", "left", "right")}
-    params = model.stages[-1].model_params
-    same = np.all([(ref_arrays[k] == params[k]).all(axis=1) for k in ref_arrays], axis=0)
+    # refit trees node for node equal to the fixture's (printed, not checked)
+    same, total = FX.refit_trees_equal(model, FX.TITANIC_XGB)
     with tempfile.TemporaryDirectory() as tmp:
         model.save(tmp)
         loaded = P.load_model(tmp, device=dev)
@@ -805,7 +839,7 @@ def train_reference_phase(torch, titanic, FX, dev="cuda"):
         fixture_fold_aupr={str(r["grid"]["min_child_weight"]): r["foldMetrics"]
                            for r in fsum["validationResults"]},
         fold_aupr_max_gap=max(gaps), tolerance=TRAIN_AUPR_TOL,
-        refit_trees_equal_to_fixture=f"{int(same.sum())}/{len(same)}",
+        refit_trees_equal_to_fixture=f"{same}/{total}",
         requests_vs_expected={
             "prediction_mismatches_off_boundary": int(np.sum(pred[off] != exp["prediction"][off])),
             "probability_max_abs_err": float(np.max(np.abs(prob - exp["probability"]))),
@@ -981,17 +1015,25 @@ def train_kernel_phase(torch, model, timer, dev="cuda"):
     records = []
     m_deep = e_args[3]
 
-    # K-E level_hist: the fixed-point sums make it bit-equal to its plain
-    # version and to itself, on integer-valued and on the second round's
-    # real gradients
+    # K-E level_hist: the fixed-point path on integer-valued gradients and
+    # the ordered path (the reference's float32 row order) on the second
+    # round's real ones, each bit-equal to its plain version and to itself;
+    # the root mode's sums in XLA's order bit-equal to plain's
     ghw_int = torch.round(ghw * 64.0)
     int_args = (Xb, ghw_int) + e_args[2:]
-    check(torch.equal(Tr.level_hist(*int_args), Tr.level_hist_plain(*int_args)),
-          "level_hist differs from plain on integer-valued gradients")
-    got, want = Tr.level_hist(*e_args), Tr.level_hist_plain(*e_args)
-    check(torch.equal(got, Tr.level_hist(*e_args)), "level_hist does not repeat bit for bit")
-    check(torch.equal(got, want), "level_hist differs from plain")
-    err_e = float((got - want).abs().max())
+    check(hist_bits(Tr, ghw_int) == Tr.HIST_SCALE_BITS and hist_bits(Tr, ghw) is None,
+          "level_hist's paths: integer gradients fixed point, real ones ordered")
+    hist_against_plain(torch, Tr, int_args, T, "integer-valued gradients")
+    got = hist_against_plain(torch, Tr, e_args, T, "the ordered sums")
+    err_e = 0.0
+    rs = Tr.root_sums(ghw)
+    check(torch.equal(rs, Tr.root_sums_plain(ghw)), "root_sums differs from plain")
+    b, by = bound_ms(T * n * 2 * 4 + T * 2 * 4, T * n * 2)
+    records.append(dict(
+        name="root_sums", route="cuda", source="transmogrifai_tpu_torch/csrc/level_hist.cu",
+        replaces="transmogrifai_tpu/ops/trees.py:587", max_abs_err=0.0,
+        ms=timer(lambda: Tr.root_sums(ghw)), plain_ms=timer(lambda: Tr.root_sums_plain(ghw)),
+        bound_ms=b, bound_by=by, library_ms=timer(lambda: ghw.sum(1))))
     pairs = m_deep // 2
     idx = (e_args[2].long() * B)[:, None, :] + Xb.long().T[None]
     dead = (e_args[2] < 0)[:, None, :].expand(T, d, n)
@@ -1009,10 +1051,11 @@ def train_kernel_phase(torch, model, timer, dev="cuda"):
     records.append(dict(
         name="level_hist", route="cuda", source="transmogrifai_tpu_torch/csrc/level_hist.cu",
         replaces="transmogrifai_tpu/ops/trees.py:327", max_abs_err=err_e,
-        ms=timer(lambda: Tr.level_hist_launch(*e_args)),
+        ms=timer(lambda: Tr.level_hist_launch(*e_args, scale_bits=None)),
         plain_ms=timer(lambda: Tr.level_hist_plain(*e_args)),
         bound_ms=b, bound_by=by,
         library_ms=timer(lambda: torch.index_add(zeros, 0, idx, src))))
+    fixed_ms = timer(lambda: Tr.level_hist_launch(*e_args, scale_bits=Tr.HIST_SCALE_BITS))
 
     # K-F split_scan: one histogram for both, every output bit-equal
     outs = []
@@ -1066,13 +1109,13 @@ def train_kernel_phase(torch, model, timer, dev="cuda"):
         ms=timer(lambda: Tr.boost_step(F1, y, w, eta, leaf, row_node, g1)),
         plain_ms=timer(lambda: Tr.boost_step_plain(F2, y, w, eta, leaf, row_node, g2)),
         bound_ms=b, bound_by=by, library_ms=None))
-    # the wrapper's range check waits for the card: its time, apart
+    # the wrapper's path check waits for the card: its time, apart
     check_ms = timer(lambda: Tr.level_hist(*e_args))
     log("train_kernels", rows=n, shapes={"Xb": [n, d], "ghw": [T, n, 2],
                                          "hist": list(hist.shape), "pool": [T, P_],
                                          "frontier": frontier, "exact_cap": exact},
-        round=2, non_dyadic_share=non_dyadic, level_hist_with_range_check_ms=check_ms,
-        records=records)
+        round=2, non_dyadic_share=non_dyadic, level_hist_with_path_check_ms=check_ms,
+        level_hist_fixed_point_ms=fixed_ms, records=records)
     return records
 
 
@@ -1293,7 +1336,9 @@ def boston_reference_phase(torch, boston, FX, dev="cuda"):
         mine_pred = FX.regression_predictions(P.BatchScoreFunction(loaded)(FX.records(req)),
                                               loaded.result_features[0].name)
     prof_wall, busy_s, idle, by_kernel = profiled(torch, lambda: boston.train_boston(device=dev))
+    same, total = FX.refit_trees_equal(model, FX.BOSTON_STOCK)
     log("boston_reference", rows=506, wall_s=wall, best=summ.best_model_name,
+        refit_trees_equal_to_fixture=f"{same}/{total}",
         best_grid=summ.best_grid, fold_rmse_max_rel_gap_by_family=gaps,
         tolerances=FX.BOSTON_RMSE_RTOL, sweep_calls=len(rec.calls),
         metric_max_rel_gap_by_family=metric_gaps, draws_equal=True,
@@ -1441,28 +1486,49 @@ def boston_kernel_phase(torch, call, timer):
                                                    "squared")),
         bound_ms=b, bound_by=by, library_ms=None))
 
-    # K-E below 2^32: the same group's root level with the gradients in
-    # dollars (more, at fewer rows), whose sums leave 2^32's fixed-point range
+    # K-E ordered at the group's shapes: its deepest level on the first
+    # round's squared-loss gradients (real-valued), bit-equal to plain on
+    # four of its trees; and its root level with the gradients in dollars,
+    # past the fixed point's 2^32 range, which the ordered sums have not
+    check(hist_bits(Tr, ghw) is None, "the squared-loss gradients took the fixed point")
+    P_ = Tr._pool_size(depth, frontier)
+    e_args, *_ = grow_levels(torch, Tr, Xb, ghw, torch.ones((T, d), device=dev), params, depth,
+                             n_bins, frontier, exact_cap,
+                             torch.empty((T, P_, 4), dtype=torch.int32, device=dev),
+                             torch.empty((T, P_), device=dev))
+    hist_against_plain(torch, Tr, e_args, 4, "Boston's GBT group, deepest level")
+    m_deep, pairs = e_args[3], e_args[3] // 2
+    hist_bytes = T * m_deep * 2 * d * n_bins * 4
+    idx = (e_args[2].long() * n_bins)[:, None, :] + Xb.long().T[None]
+    dead = (e_args[2] < 0)[:, None, :].expand(T, d, n)
+    seg_n = pairs * n_bins + 1
+    offs = (torch.arange(T * d, device=dev) * seg_n).view(T, d, 1)
+    idx = (torch.where(dead, pairs * n_bins, idx) + offs).reshape(-1)
+    src = ghw[:, None].expand(T, d, n, 2).reshape(-1, 2).contiguous()
+    zeros = torch.zeros((T * d * seg_n, 2), device=dev)
+    b, by = bound_ms(n * d + T * n * 12 + e_args[5].numel() * 4 + T * pairs * 8 + hist_bytes,
+                     T * n * d * 2)
+    records.append(dict(
+        name="level_hist_squared", route="cuda",
+        source="transmogrifai_tpu_torch/csrc/level_hist.cu",
+        replaces="transmogrifai_tpu/ops/trees.py:327", max_abs_err=0.0,
+        ms=timer(lambda: Tr.level_hist_launch(*e_args, scale_bits=None)),
+        plain_ms=timer(lambda: Tr.level_hist_plain(*e_args)), bound_ms=b, bound_by=by,
+        library_ms=timer(lambda: torch.index_add(zeros, 0, idx, src))))
+    fixed_ms = timer(lambda: Tr.level_hist_launch(*e_args, scale_bits=Tr.HIST_SCALE_BITS))
+    del idx, src, zeros
     factor = max(DOLLARS, 2.0 ** 34 / (n * float(g1.abs().amax())))
     big = (g1 * factor).contiguous()
     bits = Tr.hist_scale_bits(n, float(big.abs().amax()))
     check(bits < Tr.HIST_SCALE_BITS, f"the rescaled K-E case kept {bits} bits")
     ids = torch.zeros((T, n), dtype=torch.int32, device=dev)
-    got = Tr.level_hist(Xb, big, ids, 1, n_bins)
-    check(torch.equal(got, Tr.level_hist_plain(Xb, big, ids, 1, n_bins, scale_bits=bits)),
-          "level_hist differs from plain below the 2^32 scale")
-    exact = torch.zeros((T, d, n_bins, 2), dtype=torch.float64, device=dev)
-    for t in range(T):
-        for j in range(d):
-            exact[t, j].index_add_(0, Xb[:, j].long(), big[t].double())
-    want64 = exact.permute(0, 3, 1, 2)[:, None]
-    rel_e = float(((got.double() - want64).abs() / want64.abs().clamp_min(1.0)).max())
-    check(rel_e <= 2.0 ** -23, f"rescaled level_hist {rel_e} from the float64 sums")
+    hist_against_plain(torch, Tr, (Xb, big, ids, 1, n_bins), 4, "dollar-scaled gradients")
     log("boston_kernels", rows=n, shapes={"X1": [n, p], "fits": C, "score_rows": R,
                                           "gbt_trees": T, "depth": depth},
-        linear_fista_grad_scale=scale_n, level_hist_rescaled={
-            "factor": factor, "scale_bits": bits, "max_rel_err_to_float64": rel_e,
-            "ms": timer(lambda: Tr.level_hist_launch(Xb, big, ids, 1, n_bins, scale_bits=bits))},
+        linear_fista_grad_scale=scale_n, level_hist_squared_fixed_point_ms=fixed_ms,
+        level_hist_rescaled={
+            "factor": factor, "fixed_point_scale_bits": bits, "bit_equal_to_plain": True,
+            "ms": timer(lambda: Tr.level_hist_launch(Xb, big, ids, 1, n_bins))},
         records=records)
     return records
 
@@ -1695,9 +1761,29 @@ def iris_kernel_phase(torch, call, timer, names=None, phase="iris_kernels", plai
                                               frontier, exact, nodes,
                                               torch.empty((T, P_, k), device=dev))
     torch.cuda.synchronize()
+    check(hist_bits(Tr, ghw) == Tr.HIST_SCALE_BITS, "the forest's gradients left the fixed point")
     got, want = Tr.level_hist(*e_args), Tr.level_hist_plain(*e_args)
     check(torch.equal(got, want) and torch.equal(got, Tr.level_hist(*e_args)),
           "level_hist over class channels differs from plain")
+    # the ordered path at the same shapes: the channels made real-valued
+    # (each row's times a draw in [1, 2)), bit-equal to plain on two trees,
+    # and K-F's prefix sums in XLA's order on the real histograms
+    gen = torch.Generator(device=dev).manual_seed(15)
+    real = (ghw * (1.0 + torch.rand(ghw.shape[:2] + (1,), generator=gen, device=dev)))
+    r_args = (Xb, real.contiguous()) + tuple(e_args[2:])
+    check(hist_bits(Tr, real) is None, "the real-valued channels took the fixed point")
+    r_hist = hist_against_plain(torch, Tr, r_args, 2, f"{names['level_hist']}, ordered")
+    r_f = (r_hist, f_args[1][:2], f_args[2][:2], f_args[3][:2], f_args[4][:2].clone(),
+           f_args[5][:2].clone()) + tuple(f_args[6:])
+    outs = []
+    for fn in (Tr.split_scan, Tr.split_scan_plain):
+        nd, lf = r_f[4].clone(), r_f[5].clone()
+        outs.append((nd, lf) + tuple(fn(*r_f[:4], nd, lf, *r_f[6:])))
+    check(all(torch.equal(a, b) for a, b in zip(*outs)),
+          f"split_scan over real class channels ({names['split_scan']}) differs from plain")
+    ordered = {"trees": T, "ms": timer(lambda: Tr.level_hist_launch(*r_args, scale_bits=None)),
+               "plain_ms": plain_timer(lambda: Tr.level_hist_plain(*r_args)),
+               "bit_equal_to_plain_on_trees": 2}
     m_deep, pairs, C1 = e_args[3], e_args[3] // 2, k + 1
     hist_bytes = T * m_deep * C1 * d * B * 4
     idx = (e_args[2].long() * B)[:, None, :] + Xb.long().T[None]
@@ -1715,7 +1801,7 @@ def iris_kernel_phase(torch, call, timer, names=None, phase="iris_kernels", plai
         name=names["level_hist"], route="cuda",
         source="transmogrifai_tpu_torch/csrc/level_hist.cu",
         replaces="transmogrifai_tpu/ops/trees.py:327", max_abs_err=0.0,
-        ms=timer(lambda: Tr.level_hist_launch(*e_args)),
+        ms=timer(lambda: Tr.level_hist_launch(*e_args, scale_bits=Tr.HIST_SCALE_BITS)),
         plain_ms=plain_timer(lambda: Tr.level_hist_plain(*e_args)),
         bound_ms=b, bound_by=by,
         library_ms=timer(lambda: torch.index_add(zeros, 0, idx, src))))
@@ -1764,7 +1850,7 @@ def iris_kernel_phase(torch, call, timer, names=None, phase="iris_kernels", plai
         softmax_fista_grad_scale={"first_step": scales[0], "fitted": scales[1]},
         softmax_fista_grad_err={"first_step": errs[0], "fitted": errs[1]},
         softmax_fista_grad_err_to_float64={"first_step": to_f64[0], "fitted": to_f64[1]},
-        records=records)
+        level_hist_ordered=ordered, records=records)
     return records
 
 
@@ -4694,7 +4780,8 @@ def mlp_record(torch, name, call, timer, plain_timer, dev="cuda"):
                ms=timer(lambda: M.mlp_forward(X, flat, layers)),
                plain_ms=plain_timer(lambda: M.mlp_forward_plain(X, flat, layers)),
                bound_ms=b, bound_by=by, library_ms=None)
-    shape = {"layers": list(layers), "rows": n, "fits": C, "params": E, "grad_rel_err": err,
+    shape = {"layers": list(layers), "rows": n, "fits": C, "params": E,
+             "entry": "gemm" if M.gemm_entry(layers) else "block", "grad_rel_err": err,
              "logit_max_abs_err": float((z1 - z2).abs().max())}
     return [grad, fwd], shape
 
@@ -4937,7 +5024,7 @@ def main(argv=None):
     from transmogrifai_tpu_torch.apps import boston, iris, titanic
 
     kernels = (Tr.bin_rows, Tr.ensemble_walk, V.fill_indicator, V.one_hot_codes)
-    train_kernels = (Tr.bin_rows, Tr.level_hist, Tr.split_scan, Tr.route_rows,
+    train_kernels = (Tr.bin_rows, Tr.level_hist, Tr.root_sums, Tr.split_scan, Tr.route_rows,
                      Tr.boost_step, K.corr_gram, K.contingency_counts, L.fista_grad,
                      M.binary_metrics, Tr.forest_leaf_mean, R.threefry_draws)
     boston_kernels = (Tr.bin_rows, Tr.ensemble_walk, Tr.level_hist, Tr.split_scan,

@@ -119,10 +119,68 @@ def test_level_hist_matches_plain(dev, integer, light):
         pl = torch.from_numpy(rng.integers(0, 2, size=(T, m // 2)).astype(np.int32)).to(dev)
         extra = [parent, pp, pl]
     got = _counted(Tr.level_hist, lambda: Tr.level_hist(*args, m, B, *extra))
-    want = Tr.level_hist_plain(*args, m, B, *extra)
-    # both sum in 64-bit fixed point, where the order of the sums is immaterial
-    assert torch.equal(got, want)
+    # the reference's float32 sums in row order: exact in the fixed point
+    # (integers) and replayed by the ordered path (real values); the plain
+    # version's CPU run gives them (on the card index_add_ takes atomics)
+    want = Tr.level_hist_plain(*(a.cpu() for a in args), m, B, *(a.cpu() for a in extra))
+    assert Tr.hist_exact(args[1]) == integer
+    assert torch.equal(got.cpu(), want)
     assert torch.equal(got, Tr.level_hist(*args, m, B, *extra))
+
+
+@pytest.mark.parametrize("C1,B,light,bins", [(2, 64, True, torch.int8), (4, 256, False, torch.int32),
+                                             (27, 32, True, torch.int8), (27, 300, True, torch.int32),
+                                             (9, 16, False, torch.int8), (129, 8, True, torch.int8)])
+def test_level_hist_ordered_matches_plain_at_every_width(dev, C1, B, light, bins):
+    """The ordered path's channel slabs, bin windows and feature groups:
+    bit-equal to the plain version's CPU run (the reference's sums)."""
+    rng = np.random.default_rng(C1 * B)
+    n, d, T, m = 9001, 6, 2, 8
+    Xb = torch.from_numpy(rng.integers(0, B, size=(n, d)).astype(np.int32)).to(bins)
+    ghw = torch.from_numpy((rng.normal(size=(T, n, C1)) * np.exp(rng.normal(size=(T, n, 1))))
+                           .astype(np.float32))
+    ghw[:, ::7] = 0.0  # rows whose channels are all zero are skipped
+    ids = torch.from_numpy(rng.integers(-1, m // 2 if light else m, size=(T, n)).astype(np.int32))
+    extra = []
+    if light:
+        extra = [torch.from_numpy(rng.normal(size=(T, 5, C1, d, B)).astype(np.float32)),
+                 torch.from_numpy(rng.integers(-1, 5, size=(T, m // 2)).astype(np.int32)),
+                 torch.from_numpy(rng.integers(0, 2, size=(T, m // 2)).astype(np.int32))]
+    want = Tr.level_hist_plain(Xb, ghw, ids, m, B, *extra)
+    got = _counted(Tr.level_hist, lambda: Tr.level_hist(
+        Xb.to(dev), ghw.to(dev), ids.to(dev), m, B, *(a.to(dev) for a in extra)))
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("T,n,C1", [(1, 20, 2), (3, 455, 2), (18, 262144, 2), (2, 70001, 27)])
+def test_root_sums_match_plain(dev, T, n, C1):
+    rng = np.random.default_rng(n)
+    ghw = torch.from_numpy((rng.normal(size=(T, n, C1)) * 5).astype(np.float32)).to(dev)
+    got = _counted(Tr.root_sums, lambda: Tr.root_sums(ghw))
+    assert torch.equal(got.cpu(), Tr.root_sums_plain(ghw.cpu()))
+
+
+@pytest.mark.parametrize("c,B", [(1, 32), (1, 64), (3, 300), (26, 32), (26, 100)])
+def test_split_scan_sums_real_histograms_in_xlas_order(dev, c, B):
+    """K-F's prefix sums in XLA's blocked order and its node totals in
+    XLA's windows, on real-valued histograms past 16 and 32 bins."""
+    rng = np.random.default_rng(c * B)
+    T, m, d = 3, 8, 5
+    hist = torch.from_numpy((rng.normal(size=(T, m, c + 1, d, B))
+                             * np.exp(rng.normal(size=(T, m, 1, d, B)))).astype(np.float32))
+    hist[:, :, c] = hist[:, :, c].abs()
+    fm = torch.ones((T, d))
+    params = torch.tensor([[1.0, 0.0, 1.0, 0.0], [1e-6, 0.0, 0.5, 0.001], [2.0, 0.1, 2.0, 0.0]])
+    n_act = torch.tensor([m, m - 3, 5], dtype=torch.int32)
+    outs = []
+    for fn, dv in ((Tr.split_scan, dev), (Tr.split_scan_plain, torch.device("cpu"))):
+        nodes = torch.full((T, 4 * m, 4), 9, dtype=torch.int32, device=dv)
+        leaf = torch.full((T, 4 * m) + ((c,) if c > 1 else ()), 9.0, device=dv)
+        res = fn(hist.to(dv), fm.to(dv), params.to(dv), n_act.to(dv), nodes, leaf, m - 1,
+                 2 * m - 1, 2 * m, Tr.CAP_NONE, False)
+        outs.append(tuple(a.cpu() for a in (nodes, leaf) + tuple(res)))
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("cap_mode", [Tr.CAP_NONE, Tr.CAP_CLAMP, Tr.CAP_BEAM])
@@ -206,6 +264,25 @@ def test_grow_trees_matches_plain_on_exact_sums(dev):
                             16, exact)
         for a, b in zip(got, want):
             assert torch.equal(a.cpu(), b)
+
+
+def test_grow_trees_matches_plain_on_real_gradients(dev):
+    """The ordered sums, XLA's prefix order and the root sums through a
+    whole grower: the CPU's trees bit for bit."""
+    rng = np.random.default_rng(16)
+    n, d, B, T, depth = 20011, 10, 32, 3, 8
+    Xb = torch.from_numpy(rng.integers(0, B, size=(n, d)).astype(np.int8))
+    g = rng.normal(size=(T, n)).astype(np.float32)
+    h = rng.uniform(0.05, 0.25, size=(T, n)).astype(np.float32)
+    w = rng.integers(0, 3, size=(T, n)).astype(np.float32)
+    ghw = torch.from_numpy(np.stack([g * w, h * w], axis=2))
+    fm = torch.ones((T, d))
+    params = torch.tensor([[1.0, 0.0, 1.0, 0.0], [1.0, 0.8, 10.0, 0.0], [1e-6, 0.0, 1.0, 0.01]])
+    want = Tr.grow_trees(Xb, ghw, fm, params, depth, B, 64, False)
+    got = Tr.grow_trees(Xb.to(dev), ghw.to(dev), fm.to(dev), params.to(dev), depth, B, 64,
+                        False)
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
 
 
 def test_level_hist_raises_beyond_its_fixed_point_range(dev):

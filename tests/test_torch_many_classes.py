@@ -333,7 +333,7 @@ def _step_case(k, seed=0, T=2, n=3000, P=15):
 @pytest.mark.parametrize("k", [9, 10, 16, 26, 33, 64, 100, 128])
 def test_softmax_hessian_past_8_classes_given_the_references_probabilities(k):
     """Bit for bit: fused multiply-adds in channel order up to 32 classes,
-    past them XLA's windows of 32 (``PT.hessian_windows``)."""
+    past them XLA's windows of 32 (``PT.xla_windows``)."""
     rng = np.random.default_rng(k)
     F = (rng.standard_normal((20000, k)) * 3).astype(np.float32)
     y = rng.integers(0, k, 20000).astype(np.float32)

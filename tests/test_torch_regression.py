@@ -260,9 +260,10 @@ def test_hist_scale_bits_fit_the_data(n, big, bits):
 
 
 def test_level_hist_takes_large_targets():
-    """Targets around 1e6 at 2^12 rows (n x max |w*g| above 2^31): K-E picks
-    fewer scale bits instead of raising, and its sums stay within a few
-    quanta (2^-30) of the float64 sums, far inside float32's rounding."""
+    """Targets around 1e6 at 2^12 rows (n x max |w*g| above 2^31, past the
+    fixed point's 2^32 scale): K-E takes the ordered float32 sums, which
+    have no range to leave, and they are the reference's bit for bit (XLA's
+    segment_sum, each bucket in row order)."""
     rng = np.random.default_rng(10)
     n, d, B, m = 1 << 12, 5, 16, 4
     Xb = torch.from_numpy(rng.integers(0, B, size=(n, d)).astype(np.int8))
@@ -271,29 +272,31 @@ def test_level_hist_takes_large_targets():
     ghw = torch.from_numpy(np.stack([-y * w, w], 1)[None].astype(np.float32))
     ids = torch.from_numpy(rng.integers(-1, m, size=(1, n)).astype(np.int32))
     assert PT.hist_scale_bits(n, float(ghw.abs().max())) < PT.HIST_SCALE_BITS
+    assert not PT.hist_exact(ghw)
     got = PT.level_hist(Xb, ghw, ids, m, B).numpy()
-    want = np.zeros((1, m, 2, d, B))
-    g64 = ghw.numpy().astype(np.float64)
-    for r in range(n):
-        s = ids[0, r].item()
-        if s >= 0:
-            for j in range(d):
-                want[0, s, :, j, Xb[r, j].item()] += g64[0, r]
-    # one float32 rounding of the exact sum (|sum| < 2^34: an ulp is 2^11)
-    np.testing.assert_allclose(got, want, rtol=2 ** -23, atol=1e-3)
+    G, H = JT._level_histograms(jnp.asarray(Xb.numpy()), jnp.asarray(ghw[0].numpy()),
+                                jnp.asarray(ids[0].numpy()), m, B)
+    want = np.concatenate([np.asarray(G), np.asarray(H)[:, None]], axis=1)
+    np.testing.assert_array_equal(got[0], want)
 
 
 def test_level_hist_keeps_2_32_on_binary_gradients():
-    """Binary gradients (|w*g| <= max weight) keep the 2^32 scale: the
-    binary paths' histograms stay bit-equal to the fixed 2^32 ones."""
+    """Binary gradients: real-valued ones take the ordered sums (the
+    reference's float32 row order); integer-valued ones keep the fixed
+    point at the 2^32 scale, whose exact sums are the ordered ones too."""
     rng = np.random.default_rng(11)
     n, d, B = 5000, 4, 8
     Xb = torch.from_numpy(rng.integers(0, B, size=(n, d)).astype(np.int8))
     ghw = torch.from_numpy(rng.uniform(-3, 3, size=(2, n, 2)).astype(np.float32))
     ids = torch.zeros((2, n), dtype=torch.int32)
     assert PT.hist_scale_bits(n, 3.0) == PT.HIST_SCALE_BITS
-    assert torch.equal(PT.level_hist(Xb, ghw, ids, 1, B),
-                       PT.level_hist_plain(Xb, ghw, ids, 1, B, scale_bits=32))
+    assert torch.equal(PT.level_hist(Xb, ghw, ids, 1, B), PT.level_hist_plain(Xb, ghw, ids, 1, B))
+    whole = torch.round(ghw)
+    assert PT.hist_exact(whole)
+    assert torch.equal(PT.level_hist(Xb, whole, ids, 1, B),
+                       PT.level_hist_plain(Xb, whole, ids, 1, B, scale_bits=32))
+    assert torch.equal(PT.level_hist(Xb, whole, ids, 1, B),
+                       PT.level_hist_plain(Xb, whole, ids, 1, B))
 
 
 # ---------------------------------------------------------------------------

@@ -361,6 +361,363 @@ bool args_ok(int n, int C, int chunks, int chunk_rows, int R) {
          chunk_rows > 0 && chunk_rows % R == 0;
 }
 
+// ---------------------------------------------------------------------------
+// The GEMM-shaped entry (networks of more than 16,384 parameters a fit,
+// ops/mlp.py::MLP_BLOCK_PARAMS: the wide text flows' inputs).  A pass of up to RP rows runs layer by layer over
+// the C fits, each product one launch; the activations [RP, dims[l]] of
+// every layer and two delta buffers [RP, max width] a fit live in device
+// memory (the caller's workspace):
+//   mlp_gemm (forward: act_l = sigmoid(act_{l-1} W_l + b_l), the logits
+//     without the sigmoid; backward: D_{l-1} = (D_l W_l^T) h (1 - h)):
+//     64 x 64 output tiles (128 x 16 for at most 16 outputs), the inputs in
+//     slabs of kGemmK staged in shared memory, 4 x 4 (4 x 2) float32
+//     outputs a thread (rows and columns strided so that a warp's shared
+//     reads are broadcasts or consecutive), each one fused multiply-add
+//     chain over its inputs in order (no TF32: the plain version and the
+//     reference are float32);
+//   mlp_softmax: a thread a (row, fit): the softmax of its logits and the
+//     output delta w (p - Y) / wsum, or the logits and probabilities;
+//   mlp_wgrad: the weight and bias gradients of a layer as BT x BJ float64
+//     tiles of [dims[l-1] + 1, dims[l]] (the bias as an input of ones),
+//     over the rows of one of S row splits, staged kWgradRows rows at a
+//     time as float64: a thread's TT x TJ sums walk the split's rows in
+//     order in registers (a float32 times a float32 is exact in float64)
+//     and are added once a pass to the split's own slice
+//     of the float64 partials [S, C, E], by the one thread that owns them:
+//     no atomics.  mlp_finish sums the splits in order and rounds once.
+// ---------------------------------------------------------------------------
+constexpr int kGemmK = 32;           // inputs a slab of mlp_gemm
+constexpr int kWgradRows = 16;       // rows a slab of mlp_wgrad
+
+// MODE 0: a hidden layer's forward (bias, sigmoid); 1: the output layer's
+// (bias); 2: a backward delta (times h (1 - h) of hb).  B(i, o) = W[i outer
+// + o] (forward) or W[o inner + i] (backward, the transpose).
+template <int BM, int BN, int TM, int TN, int MODE>
+__global__ void __launch_bounds__(kThreads)
+mlp_gemm(const float* __restrict__ in, long long in_cs, int in_ld,
+         const float* __restrict__ params, long long E, long long woff, long long boff,
+         const float* __restrict__ hb, long long h_cs, float* __restrict__ out, long long out_cs,
+         int rows, int inner, int outer) {
+  static_assert((BM / TM) * (BN / TN) == kThreads, "one output tile a block");
+  __shared__ float As[BM][kGemmK + 1];
+  __shared__ float Bs[kGemmK][BN + 1];
+  const int tid = threadIdx.x, c = blockIdx.z;
+  const int tx = tid % (BN / TN), ty = tid / (BN / TN);
+  const long long r0 = (long long)blockIdx.x * BM;
+  const int o0 = blockIdx.y * BN;
+  const float* A = in + (long long)c * in_cs;
+  const float* W = params + (long long)c * E + woff;
+  float acc[TM][TN];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int u = 0; u < TN; ++u) acc[i][u] = 0.0f;
+  for (int i0 = 0; i0 < inner; i0 += kGemmK) {
+    const int kw = min(kGemmK, inner - i0);
+    // the slab's loads all issued before any is stored (their latencies
+    // overlap), then stored to shared memory
+    constexpr int NA = BM * kGemmK / kThreads, NB = (kGemmK * BN + kThreads - 1) / kThreads;
+    float va[NA], vb[NB];
+#pragma unroll
+    for (int x = 0; x < NA; ++x) {
+      const int e = tid + x * kThreads, rr = e / kGemmK, ii = e % kGemmK;
+      va[x] = (r0 + rr < rows && ii < kw) ? A[(r0 + rr) * in_ld + i0 + ii] : 0.0f;
+    }
+#pragma unroll
+    for (int x = 0; x < NB; ++x) {
+      const int e = tid + x * kThreads;
+      int ii, oo;
+      if (MODE == 2) {  // W[o inner + i]: consecutive threads, consecutive i
+        oo = e / kGemmK;
+        ii = e % kGemmK;
+      } else {          // W[i outer + o]: consecutive threads, consecutive o
+        ii = e / BN;
+        oo = e % BN;
+      }
+      float v = 0.0f;
+      if (e < kGemmK * BN && ii < kw && o0 + oo < outer)
+        v = MODE == 2 ? W[(long long)(o0 + oo) * inner + i0 + ii]
+                      : W[(long long)(i0 + ii) * outer + o0 + oo];
+      vb[x] = v;
+    }
+    __syncthreads();  // the previous slab is consumed
+#pragma unroll
+    for (int x = 0; x < NA; ++x) {
+      const int e = tid + x * kThreads;
+      As[e / kGemmK][e % kGemmK] = va[x];
+    }
+#pragma unroll
+    for (int x = 0; x < NB; ++x) {
+      const int e = tid + x * kThreads;
+      if (e < kGemmK * BN) {
+        if (MODE == 2)
+          Bs[e % kGemmK][e / kGemmK] = vb[x];
+        else
+          Bs[e / BN][e % BN] = vb[x];
+      }
+    }
+    __syncthreads();
+    for (int ii = 0; ii < kw; ++ii) {
+      float a[TM], b[TN];
+#pragma unroll
+      for (int i = 0; i < TM; ++i) a[i] = As[ty * TM + i][ii];
+#pragma unroll
+      for (int u = 0; u < TN; ++u) b[u] = Bs[ii][tx + u * (BN / TN)];
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int u = 0; u < TN; ++u) acc[i][u] = __fmaf_rn(a[i], b[u], acc[i][u]);
+    }
+  }
+  float* O = out + (long long)c * out_cs;
+  const float* bias = params + (long long)c * E + boff;
+  const float* H = hb + (long long)c * h_cs;
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const long long r = r0 + ty * TM + i;
+    if (r >= rows) continue;
+#pragma unroll
+    for (int u = 0; u < TN; ++u) {
+      const int o = o0 + tx + u * (BN / TN);
+      if (o >= outer) continue;
+      float v;
+      if (MODE == 2) {
+        const float h = H[r * outer + o];
+        v = __fmul_rn(acc[i][u], __fmul_rn(h, __fsub_rn(1.0f, h)));
+      } else {
+        v = __fadd_rn(acc[i][u], bias[o]);
+        if (MODE == 0) v = sigmoid(v);
+      }
+      O[r * outer + o] = v;
+    }
+  }
+}
+
+// A thread a (row r of the pass, fit c): the softmax of the row's logits,
+// then the output delta (GRAD) or the logits and probabilities.
+__global__ void mlp_softmax(const float* __restrict__ logits, long long l_cs,
+                            const float* __restrict__ y, const float* __restrict__ w,
+                            const int32_t* __restrict__ fold, const float* __restrict__ wsum,
+                            float* __restrict__ dout, long long d_cs, float* __restrict__ z_out,
+                            float* __restrict__ p_out, int n, int k, int rows, long long p0,
+                            int grad) {
+  const int c = blockIdx.y;
+  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= rows) return;
+  const float* zr = logits + (long long)c * l_cs + (long long)r * k;
+  float mx = zr[0];
+  for (int j = 1; j < k; ++j) mx = fmaxf(mx, zr[j]);
+  float sum = 0.0f;
+  for (int j = 0; j < k; ++j) {
+    const float e = expf(__fsub_rn(zr[j], mx));
+    sum = j == 0 ? e : __fadd_rn(sum, e);
+  }
+  if (grad) {
+    const float wr = w[(long long)fold[c] * n + p0 + r], ws = wsum[c];
+    const int yr = (int)y[p0 + r];
+    float* dr = dout + (long long)c * d_cs + (long long)r * k;
+    for (int j = 0; j < k; ++j) {
+      const float pj = __fdiv_rn(expf(__fsub_rn(zr[j], mx)), sum);
+      dr[j] = __fdiv_rn(__fmul_rn(wr, __fsub_rn(pj, j == yr ? 1.0f : 0.0f)), ws);
+    }
+  } else {
+    const long long o = ((long long)c * n + p0 + r) * k;
+    for (int j = 0; j < k; ++j) {
+      z_out[o + j] = zr[j];
+      p_out[o + j] = __fdiv_rn(expf(__fsub_rn(zr[j], mx)), sum);
+    }
+  }
+}
+
+// The gradients of one layer [q + 1, m] (row q the bias) over split s =
+// blockIdx.z % S of the pass's rows, added to partial[s, c, woff + t m + j].
+template <int BT, int BJ, int TT, int TJ>
+__global__ void __launch_bounds__(kThreads)
+mlp_wgrad(const float* __restrict__ act, long long a_cs, int a_ld, const float* __restrict__ D,
+          long long d_cs, double* __restrict__ partial, long long E, long long woff, int rows,
+          int q, int m, int S, int C) {
+  static_assert((BT / TT) * (BJ / TJ) == kThreads, "one output tile a block");
+  // staged as float64 (each value converted once, not once a use)
+  __shared__ double As[kWgradRows][BT + 1];
+  __shared__ double Ds[kWgradRows][BJ + 1];
+  const int tid = threadIdx.x;
+  const int c = blockIdx.z / S, s = blockIdx.z % S;
+  const int tx = tid % (BJ / TJ), ty = tid / (BJ / TJ);
+  const int t0 = blockIdx.x * BT, j0 = blockIdx.y * BJ;
+  const int rps = (rows + S - 1) / S;
+  const long long r0 = (long long)s * rps;
+  const long long r1 = min((long long)rows, r0 + rps);
+  const float* A = act + (long long)c * a_cs;
+  const float* Dc = D + (long long)c * d_cs;
+  double acc[TT][TJ];
+#pragma unroll
+  for (int i = 0; i < TT; ++i)
+#pragma unroll
+    for (int u = 0; u < TJ; ++u) acc[i][u] = 0.0;
+  // software pipeline: a slab's loads are issued (all together) while the
+  // slab before it is summed, then stored to shared memory
+  constexpr int NA = kWgradRows * BT / kThreads;
+  constexpr int ND = (kWgradRows * BJ + kThreads - 1) / kThreads;
+  float va[NA], vd[ND];
+  auto fetch = [&](long long rb) {
+    const int kr = (int)min((long long)kWgradRows, r1 - rb);
+#pragma unroll
+    for (int x = 0; x < NA; ++x) {
+      const int e = tid + x * kThreads, rr = e / BT, t = t0 + e % BT;
+      float v = 0.0f;
+      if (rr < kr) v = t < q ? A[(rb + rr) * a_ld + t] : (t == q ? 1.0f : 0.0f);
+      va[x] = v;
+    }
+#pragma unroll
+    for (int x = 0; x < ND; ++x) {
+      const int e = tid + x * kThreads, rr = e / BJ, jj = e % BJ;
+      vd[x] = (e < kWgradRows * BJ && rr < kr && j0 + jj < m) ? Dc[(rb + rr) * m + j0 + jj]
+                                                               : 0.0f;
+    }
+  };
+  if (r0 < r1) fetch(r0);
+  for (long long rb = r0; rb < r1; rb += kWgradRows) {
+    const int kr = (int)min((long long)kWgradRows, r1 - rb);
+    __syncthreads();  // the previous slab is consumed
+#pragma unroll
+    for (int x = 0; x < NA; ++x) {
+      const int e = tid + x * kThreads;
+      As[e / BT][e % BT] = (double)va[x];
+    }
+#pragma unroll
+    for (int x = 0; x < ND; ++x) {
+      const int e = tid + x * kThreads;
+      if (e < kWgradRows * BJ) Ds[e / BJ][e % BJ] = (double)vd[x];
+    }
+    __syncthreads();
+    if (rb + kWgradRows < r1) fetch(rb + kWgradRows);
+    for (int rr = 0; rr < kr; ++rr) {
+      double a[TT], dd[TJ];
+#pragma unroll
+      for (int i = 0; i < TT; ++i) a[i] = As[rr][ty + i * (BT / TT)];
+#pragma unroll
+      for (int u = 0; u < TJ; ++u) dd[u] = Ds[rr][tx + u * (BJ / TJ)];
+#pragma unroll
+      for (int i = 0; i < TT; ++i)
+#pragma unroll
+        for (int u = 0; u < TJ; ++u) acc[i][u] = __fma_rn(a[i], dd[u], acc[i][u]);
+    }
+  }
+  double* P = partial + ((long long)s * C + c) * E + woff;
+#pragma unroll
+  for (int i = 0; i < TT; ++i) {
+    const int t = t0 + ty + i * (BT / TT);
+    if (t > q) continue;
+#pragma unroll
+    for (int u = 0; u < TJ; ++u) {
+      const int j = j0 + tx + u * (BJ / TJ);
+      if (j < m) P[(long long)t * m + j] += acc[i][u];
+    }
+  }
+}
+
+template <int MODE>
+cudaError_t run_gemm(const float* in, long long in_cs, int in_ld, const float* params,
+                     long long E, long long woff, long long boff, const float* hb, long long h_cs,
+                     float* out, long long out_cs, int rows, int inner, int outer, int C,
+                     cudaStream_t st) {
+  if (outer <= 16) {
+    mlp_gemm<128, 16, 4, 2, MODE><<<dim3((unsigned)((rows + 127) / 128), 1u, (unsigned)C),
+                                    kThreads, 0, st>>>(in, in_cs, in_ld, params, E, woff, boff,
+                                                       hb, h_cs, out, out_cs, rows, inner,
+                                                       outer);
+  } else {
+    mlp_gemm<64, 64, 4, 4, MODE><<<dim3((unsigned)((rows + 63) / 64),
+                                        (unsigned)((outer + 63) / 64), (unsigned)C),
+                                   kThreads, 0, st>>>(in, in_cs, in_ld, params, E, woff, boff,
+                                                      hb, h_cs, out, out_cs, rows, inner, outer);
+  }
+  return cudaGetLastError();
+}
+
+cudaError_t run_wgrad(const float* act, long long a_cs, int a_ld, const float* D, long long d_cs,
+                      double* partial, long long E, long long woff, int rows, int q, int m,
+                      int S, int C, cudaStream_t st) {
+  if (m <= 16) {
+    mlp_wgrad<256, 16, 4, 4><<<dim3((unsigned)((q + 1 + 255) / 256), 1u, (unsigned)(C * S)),
+                               kThreads, 0, st>>>(act, a_cs, a_ld, D, d_cs, partial, E, woff,
+                                                  rows, q, m, S, C);
+  } else {
+    mlp_wgrad<64, 64, 4, 4><<<dim3((unsigned)((q + 1 + 63) / 64), (unsigned)((m + 63) / 64),
+                                   (unsigned)(C * S)),
+                              kThreads, 0, st>>>(act, a_cs, a_ld, D, d_cs, partial, E, woff,
+                                                 rows, q, m, S, C);
+  }
+  return cudaGetLastError();
+}
+
+// Forward (and, GRAD, backward) of the C fits over the rows in passes of RP:
+// act f32[C, RP * sum(dims[1..L])], dbuf f32[C, 2, RP * max width].
+int run_gemm_entry(bool grad, const float* X, const float* y, const float* w,
+                   const int32_t* fold, const float* wsum, const float* params, float* act,
+                   float* dbuf, double* partial, float* grad_out, float* z, float* prob, int n,
+                   int C, int RP, int S, const Net& net, cudaStream_t st) {
+  const int L = net.L, d = net.dims[0], k = net.dims[L];
+  long long widths = 0;
+  int maxd = 0;
+  long long aoff[kMaxLayers + 1];
+  for (int l = 1; l <= L; ++l) {
+    aoff[l] = (long long)RP * widths;
+    widths += net.dims[l];
+    maxd = max(maxd, net.dims[l]);
+  }
+  const long long a_cs = (long long)RP * widths;      // a fit's activations
+  const long long d_cs = 2LL * RP * maxd;             // a fit's two delta buffers
+  cudaError_t err;
+  if (grad) {
+    err = cudaMemsetAsync(partial, 0, (size_t)S * C * net.E * sizeof(double), st);
+    if (err != cudaSuccess) return (int)err;
+  }
+  for (long long p0 = 0; p0 < n; p0 += RP) {
+    const int rows = (int)min((long long)RP, n - p0);
+    for (int l = 1; l <= L; ++l) {
+      const bool first = l == 1;
+      const float* in = first ? X + p0 * d : act + aoff[l - 1];
+      const long long in_cs = first ? 0 : a_cs;
+      err = l == L ? run_gemm<1>(in, in_cs, net.dims[l - 1], params, net.E, net.woff[l - 1],
+                                 net.boff[l - 1], nullptr, 0, act + aoff[l], a_cs, rows,
+                                 net.dims[l - 1], net.dims[l], C, st)
+                   : run_gemm<0>(in, in_cs, net.dims[l - 1], params, net.E, net.woff[l - 1],
+                                 net.boff[l - 1], nullptr, 0, act + aoff[l], a_cs, rows,
+                                 net.dims[l - 1], net.dims[l], C, st);
+      if (err != cudaSuccess) return (int)err;
+    }
+    mlp_softmax<<<dim3((unsigned)((rows + 127) / 128), (unsigned)C), 128, 0, st>>>(
+        act + aoff[L], a_cs, y, w, fold, wsum, dbuf, d_cs, z, prob, n, k, rows, p0,
+        grad ? 1 : 0);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    if (!grad) continue;
+    int side = 0;
+    for (int l = L; l >= 1; --l) {
+      const int q = net.dims[l - 1], m = net.dims[l];
+      const float* Dl = dbuf + (long long)side * RP * maxd;
+      const bool first = l == 1;
+      err = run_wgrad(first ? X + p0 * d : act + aoff[l - 1], first ? 0 : a_cs, q, Dl, d_cs,
+                      partial, net.E, net.woff[l - 1], rows, q, m, S, C, st);
+      if (err != cudaSuccess) return (int)err;
+      if (l > 1) {
+        err = run_gemm<2>(Dl, d_cs, m, params, net.E, net.woff[l - 1], net.boff[l - 1],
+                          act + aoff[l - 1], a_cs, dbuf + (long long)(side ^ 1) * RP * maxd,
+                          d_cs, rows, m, q, C, st);
+        if (err != cudaSuccess) return (int)err;
+        side ^= 1;
+      }
+    }
+  }
+  if (!grad) return 0;
+  const int threads = 128;
+  const long long total = (long long)C * net.E;
+  mlp_finish<<<(unsigned)((total + threads - 1) / threads), threads, 0, st>>>(
+      partial, grad_out, S, total);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // The tile rows R (32, 16, ..., 1) the wrapper should use for this network,
@@ -424,4 +781,32 @@ extern "C" int mlp_forward(const void* X, const void* params, void* z, void* pro
   if (tile > kSmemMax) return (int)cudaErrorInvalidValue;
   return launch_kernel<false, false>(X, X, X, nullptr, nullptr, params, nullptr, z, prob, n, C,
                                      chunks, chunk_rows, R, net, tile, (cudaStream_t)stream);
+}
+
+// The GEMM-shaped entry (the wrapper takes it past MLP_BLOCK_PARAMS
+// parameters a fit): act, dbuf as run_gemm_entry's; gradient mode writes grad f32[C,
+// E] through partial f64[S, C, E], forward mode z and prob f32[C, n, k].
+extern "C" int mlp_grad_gemm(const void* X, const void* y, const void* w, const void* fold,
+                             const void* wsum, const void* params, void* act, void* dbuf,
+                             void* partial, void* grad, int n, int C, int RP, int S, int L,
+                             const int* dims, void* stream) {
+  Net net;
+  if (n <= 0 || C <= 0 || C > 65535 || RP <= 0 || S <= 0 || (long long)C * S > 65535 ||
+      !make_net(L, dims, &net))
+    return (int)cudaErrorInvalidValue;
+  return run_gemm_entry(true, (const float*)X, (const float*)y, (const float*)w,
+                        (const int32_t*)fold, (const float*)wsum, (const float*)params,
+                        (float*)act, (float*)dbuf, (double*)partial, (float*)grad, nullptr,
+                        nullptr, n, C, RP, S, net, (cudaStream_t)stream);
+}
+
+extern "C" int mlp_forward_gemm(const void* X, const void* params, void* act, void* z,
+                                void* prob, int n, int C, int RP, int L, const int* dims,
+                                void* stream) {
+  Net net;
+  if (n <= 0 || C <= 0 || C > 65535 || RP <= 0 || !make_net(L, dims, &net))
+    return (int)cudaErrorInvalidValue;
+  return run_gemm_entry(false, (const float*)X, nullptr, nullptr, nullptr, nullptr,
+                        (const float*)params, (float*)act, (float*)act, nullptr, nullptr,
+                        (float*)z, (float*)prob, n, C, RP, 1, net, (cudaStream_t)stream);
 }

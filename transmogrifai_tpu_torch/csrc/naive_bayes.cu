@@ -25,15 +25,13 @@
 // the exact sum (the reference's float32 sums of the real columns differ from
 // it in the last bits).
 //
-// Score mode: a block takes 256 rows, a table set and a group of KC (2, 4
-// or 8) classes, and walks the features in tiles of 32: the rows' tile of X
-// and the group's tile of theta (and tn) staged in shared memory, a thread a
-// row with its KC float64 dot products in registers (one class group after
-// another over the grid, not a fixed 8).  Each dot product is summed in
-// feature order and rounded once, then added to pi in float32 in the
-// reference's order.  The grid's fastest dimension is the (table set, class
-// group) pair, so the blocks that share a row tile run together and read X
-// from L2.
+// Score mode: a tiled GEMM, [rows x d] x [d x (table sets x k)], 64 rows
+// x 64 outputs a block, a thread a 4 x 4 tile of float64 dot products over
+// features staged 32 at a time in shared memory (the table tiles as
+// float64): each dot product summed in feature order and rounded once,
+// then added to pi in float32 in the reference's order.  At up to 8
+// classes (Titanic, the bag of words) a thread streams its row instead
+// (nb_score_stream): no staging, no barriers, the same sums.
 //
 // Limits: d <= 65,536, k <= 128 (the wrapper raises ValueError beyond).
 //
@@ -126,76 +124,161 @@ __global__ void nb_mass_finish(const double* __restrict__ partial, float* __rest
     feat[(f * k + c) * d + j] = __double2float_rn(s);
 }
 
-template <int KC>
+// Score mode: a tiled GEMM, [rows x d] x [d x Q k], the outputs o = q k + c
+// of all Q table sets in one axis.  A block takes kTileRows rows and
+// kTileOut outputs and walks the features in tiles of kFeatTile: the rows'
+// tile of X and the outputs' tile of theta (and tn, both as float64,
+// converted once) staged in shared memory.  A thread keeps a 4 x 4 tile of
+// float64 dot products (rows tr + 16 i, outputs tc + 16 u: a warp reads two
+// rows' values and sixteen consecutive table entries a step, broadcasts and
+// one wavefront), so each shared value feeds four multiply-adds.  Each dot
+// product is summed in feature order and rounded once, then added to pi in
+// float32 in the reference's order.
+constexpr int kTileRows = 64, kTileOut = 64;
+
+template <bool BERN>
 __global__ void __launch_bounds__(kThreads)
 nb_score(const float* __restrict__ X, const float* __restrict__ pi,
          const float* __restrict__ theta, const float* __restrict__ tn, float* __restrict__ z,
-         int n, int d, int k, int groups, int bernoulli, long long row0) {
-  __shared__ float xs[kThreads * kXStride];
-  __shared__ float th[KC * kFeatTile];
-  __shared__ float tns[KC * kFeatTile];
-  const int tid = threadIdx.x;
-  const int q = blockIdx.x / groups, c0 = (blockIdx.x % groups) * KC;
-  const int kc = min(KC, k - c0);
-  const long long rb = row0 + (long long)blockIdx.y * kThreads;
-  const int rows = (int)min((long long)kThreads, n - rb);
-  const float* tq = theta + ((long long)q * k + c0) * d;
-  const float* nq = tn + ((long long)q * k + c0) * d;
-  double s[KC], s2[KC];
+         int n, int d, int k, int Q) {
+  __shared__ float xs[kTileRows][kFeatTile + 1];
+  __shared__ double th[kFeatTile][kTileOut + 1];  // padded: the transposing stores spread
+  __shared__ double tns[BERN ? kFeatTile : 1][BERN ? kTileOut + 1 : 1];
+  const int tid = threadIdx.x, tr = tid / 16, tc = tid % 16;
+  const long long r0 = (long long)blockIdx.x * kTileRows;
+  const int o0 = blockIdx.y * kTileOut, outs = Q * k;
+  double s[4][4], s2[4][4];
 #pragma unroll
-  for (int c = 0; c < KC; ++c) s[c] = s2[c] = 0.0;
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int u = 0; u < 4; ++u) s[i][u] = s2[i][u] = 0.0;
   for (int j0 = 0; j0 < d; j0 += kFeatTile) {
     const int fw = min(kFeatTile, d - j0);
-    __syncthreads();  // the previous tile is consumed
-    for (int i = tid; i < kThreads * fw; i += kThreads) {   // contiguous when fw == d
-      const int r = i / fw, jj = i % fw;
-      xs[r * kXStride + jj] = r < rows ? X[(rb + r) * d + j0 + jj] : 0.0f;
+    constexpr int NX = kTileRows * kFeatTile / kThreads;
+    constexpr int NT = kTileOut * kFeatTile / kThreads;
+    float vx[NX], vt[NT], vn[BERN ? NT : 1];
+#pragma unroll
+    for (int x = 0; x < NX; ++x) {  // the tiles' loads issued together
+      const int e = tid + x * kThreads, rr = e / kFeatTile, jj = e % kFeatTile;
+      vx[x] = (r0 + rr < n && jj < fw) ? X[(r0 + rr) * d + j0 + jj] : 0.0f;
     }
-    for (int i = tid; i < KC * kFeatTile; i += kThreads) {
-      const int c = i / kFeatTile, jj = i % kFeatTile;
-      const bool in = c < kc && jj < fw;
-      th[i] = in ? tq[(long long)c * d + j0 + jj] : 0.0f;
-      tns[i] = (in && bernoulli) ? nq[(long long)c * d + j0 + jj] : 0.0f;
+#pragma unroll
+    for (int x = 0; x < NT; ++x) {
+      const int e = tid + x * kThreads, oo = e / kFeatTile, jj = e % kFeatTile;
+      const bool in = o0 + oo < outs && jj < fw;
+      vt[x] = in ? theta[(long long)(o0 + oo) * d + j0 + jj] : 0.0f;
+      if (BERN) vn[x] = in ? tn[(long long)(o0 + oo) * d + j0 + jj] : 0.0f;
+    }
+    __syncthreads();  // the previous tiles are consumed
+#pragma unroll
+    for (int x = 0; x < NX; ++x) {
+      const int e = tid + x * kThreads;
+      xs[e / kFeatTile][e % kFeatTile] = vx[x];
+    }
+#pragma unroll
+    for (int x = 0; x < NT; ++x) {
+      const int e = tid + x * kThreads;
+      th[e % kFeatTile][e / kFeatTile] = (double)vt[x];
+      if (BERN) tns[e % kFeatTile][e / kFeatTile] = (double)vn[x];
     }
     __syncthreads();
-    const float* xr = xs + tid * kXStride;
     for (int jj = 0; jj < fw; ++jj) {
-      const float x = xr[jj];
-      const float xn = __fsub_rn(1.0f, x);
+      double x[4], t[4];
 #pragma unroll
-      for (int c = 0; c < KC; ++c) {
-        s[c] += (double)x * (double)th[c * kFeatTile + jj];
-        if (bernoulli) s2[c] += (double)xn * (double)tns[c * kFeatTile + jj];
+      for (int i = 0; i < 4; ++i) x[i] = (double)xs[tr + 16 * i][jj];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) t[u] = th[jj][tc + 16 * u];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int u = 0; u < 4; ++u) s[i][u] = __fma_rn(x[i], t[u], s[i][u]);
+      if (BERN) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) x[i] = (double)__fsub_rn(1.0f, xs[tr + 16 * i][jj]);
+#pragma unroll
+        for (int u = 0; u < 4; ++u) t[u] = tns[jj][tc + 16 * u];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int u = 0; u < 4; ++u) s2[i][u] = __fma_rn(x[i], t[u], s2[i][u]);
       }
     }
   }
-  if (tid >= rows) return;
-  float* out = z + ((long long)q * n + rb + tid) * k + c0;
 #pragma unroll
-  for (int c = 0; c < KC; ++c) {
-    if (c < kc) {
-      float v = __fadd_rn(pi[(long long)q * k + c0 + c], __double2float_rn(s[c]));
-      if (bernoulli) v = __fadd_rn(v, __double2float_rn(s2[c]));
-      out[c] = v;
+  for (int i = 0; i < 4; ++i) {
+    const long long r = r0 + tr + 16 * i;
+    if (r >= n) continue;
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int o = o0 + tc + 16 * u;
+      if (o >= outs) continue;
+      float v = __fadd_rn(pi[o], __double2float_rn(s[i][u]));
+      if (BERN) v = __fadd_rn(v, __double2float_rn(s2[i][u]));
+      z[((long long)(o / k) * n + r) * k + o % k] = v;
     }
   }
 }
 
-template <int KC>
-int launch_score(const void* X, const void* pi, const void* theta, const void* tn, void* z,
-                 int n, int d, int k, int Q, int bernoulli, cudaStream_t st) {
-  const int groups = (k + KC - 1) / KC;
-  const long long span = 65535LL * kThreads;   // rows a launch (gridDim.y <= 65535)
-  for (long long row0 = 0; row0 < n; row0 += span) {
-    const long long rows = min(span, (long long)n - row0);
-    nb_score<KC><<<dim3((unsigned)(Q * groups), (unsigned)((rows + kThreads - 1) / kThreads)),
-                   kThreads, 0, st>>>((const float*)X, (const float*)pi, (const float*)theta,
-                                      (const float*)tn, (float*)z, n, d, k, groups, bernoulli,
-                                      row0);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
+// The score mode at up to 8 classes: no staging and no barriers.  A thread a row of a group of table sets
+// streams its row of X from device memory (its own cache lines, which L1
+// keeps for the row's next features) and the group's table rows through the
+// read-only cache (the same address for every lane: broadcasts), four
+// features a step; the same float64 sums in feature order, rounded once.
+template <int A>
+__global__ void __launch_bounds__(128)
+nb_score_stream(const float* __restrict__ X, const float* __restrict__ pi,
+                const float* __restrict__ theta, const float* __restrict__ tn,
+                float* __restrict__ z, int n, int d, int k, int Q, int QG, int bernoulli) {
+  const int groups = (Q + QG - 1) / QG;
+  const int q0 = (blockIdx.x % groups) * QG, qg = min(QG, Q - q0);
+  const int kq = qg * k;
+  const long long r = (long long)(blockIdx.x / groups) * blockDim.x + threadIdx.x;
+  if (r >= n) return;
+  const float* xr = X + r * d;
+  const float* tq = theta + (long long)q0 * k * d;
+  const float* nq = tn + (long long)q0 * k * d;
+  double s[A], s2[A];
+#pragma unroll
+  for (int a = 0; a < A; ++a) s[a] = s2[a] = 0.0;
+  int j = 0;
+  for (; j + 4 <= d; j += 4) {
+    float x[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) x[u] = xr[j + u];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+#pragma unroll
+      for (int a = 0; a < A; ++a)
+        if (a < kq)
+          s[a] = __fma_rn((double)x[u], (double)__ldg(tq + (long long)a * d + j + u), s[a]);
+      if (bernoulli) {
+        const double xn = (double)__fsub_rn(1.0f, x[u]);
+#pragma unroll
+        for (int a = 0; a < A; ++a)
+          if (a < kq)
+            s2[a] = __fma_rn(xn, (double)__ldg(nq + (long long)a * d + j + u), s2[a]);
+      }
+    }
   }
-  return 0;
+  for (; j < d; ++j) {
+    const float x = xr[j];
+#pragma unroll
+    for (int a = 0; a < A; ++a)
+      if (a < kq) s[a] = __fma_rn((double)x, (double)__ldg(tq + (long long)a * d + j), s[a]);
+    if (bernoulli) {
+      const double xn = (double)__fsub_rn(1.0f, x);
+#pragma unroll
+      for (int a = 0; a < A; ++a)
+        if (a < kq) s2[a] = __fma_rn(xn, (double)__ldg(nq + (long long)a * d + j), s2[a]);
+    }
+  }
+#pragma unroll
+  for (int a = 0; a < A; ++a) {
+    if (a >= kq) continue;
+    float v = __fadd_rn(pi[(long long)q0 * k + a], __double2float_rn(s[a]));
+    if (bernoulli) v = __fadd_rn(v, __double2float_rn(s2[a]));
+    z[((long long)(q0 + a / k) * n + r) * k + a % k] = v;
+  }
 }
 
 }  // namespace
@@ -234,11 +317,36 @@ extern "C" int nb_tables_mass(const void* X, const void* y, const void* w, void*
 extern "C" int nb_tables_score(const void* X, const void* pi, const void* theta,
                                const void* tn, void* z, int n, int d, int k, int Q,
                                int bernoulli, void* stream) {
-  if (n <= 0 || d <= 0 || d > kMaxFeatures || k <= 0 || k > kMaxClasses || Q <= 0 ||
-      (long long)Q * ((k + 7) / 8) > 0x7fffffffLL)
+  if (n <= 0 || d <= 0 || d > kMaxFeatures || k <= 0 || k > kMaxClasses || Q <= 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  if (k <= 2) return launch_score<2>(X, pi, theta, tn, z, n, d, k, Q, bernoulli, st);
-  if (k <= 4) return launch_score<4>(X, pi, theta, tn, z, n, d, k, Q, bernoulli, st);
-  return launch_score<8>(X, pi, theta, tn, z, n, d, k, Q, bernoulli, st);
+  if (k <= 8) {  // few outputs a row: stream the rows
+    const int QG = max(1, min(Q, 8 / k));
+    const long long blocks = (long long)((Q + QG - 1) / QG) * ((n + 127) / 128);
+    if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+    const int A = QG * k <= 2 ? 2 : (QG * k <= 4 ? 4 : 8);
+#define NB_STREAM(AA)                                                                       \
+  nb_score_stream<AA><<<(unsigned)blocks, 128, 0, st>>>((const float*)X, (const float*)pi, \
+                                                        (const float*)theta,                \
+                                                        (const float*)tn, (float*)z, n, d, k, \
+                                                        Q, QG, bernoulli)
+    if (A == 2) NB_STREAM(2);
+    else if (A == 4) NB_STREAM(4);
+    else NB_STREAM(8);
+#undef NB_STREAM
+    return (int)cudaGetLastError();
+  }
+  const long long row_tiles = (n + kTileRows - 1) / kTileRows;
+  const long long out_tiles = ((long long)Q * k + kTileOut - 1) / kTileOut;
+  if (row_tiles > 0x7fffffffLL || out_tiles > 65535) return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)row_tiles, (unsigned)out_tiles);
+  if (bernoulli)
+    nb_score<true><<<grid, kThreads, 0, st>>>((const float*)X, (const float*)pi,
+                                              (const float*)theta, (const float*)tn, (float*)z,
+                                              n, d, k, Q);
+  else
+    nb_score<false><<<grid, kThreads, 0, st>>>((const float*)X, (const float*)pi,
+                                               (const float*)theta, (const float*)tn, (float*)z,
+                                               n, d, k, Q);
+  return (int)cudaGetLastError();
 }

@@ -16,14 +16,22 @@
 // level (parent slot and whether the light child, HL <= HR, is the left
 // one).
 //
+// The prefix sums and the node totals are taken in the order XLA's CPU code
+// computes the reference's jnp.cumsum and sum over bins: the cumulative sum
+// in blocks of 16 bins (each block's prefix sums in order, the blocks'
+// totals scanned the same way, each later block's prefix plus the scanned
+// total of the blocks before it: XLA's reduce-window rewrite; xla_prefix),
+// the totals in order from +0 up to 32 bins and past it in windows of 32
+// (half the padding in front) whose sums are reduced alike (XLA's
+// tree-reduction rewrite; xla_total).  Up to 4,096 bins.
+//
 // Design: two entry points.  split_best: one warp per (tree, slot), many
 // blocks; the warp stages the slot's histogram in shared memory (up to 32
-// features at a time, padded rows, all c + 1 channels), each lane runs one
-// feature's prefix sums bin by bin (the order of the reference's cumsum),
-// sums the squares over the channels in channel order (fused multiply-adds,
-// as XLA's), and keeps its first best with the prefix sums there; a shuffle
-// reduction with an index tie-break gives the slot's first argmax, written
-// to a scratch array.  split_commit: one block per tree, one thread
+// features at a time, padded rows, all c + 1 channels), each lane turns one
+// feature's rows into their prefix sums in place, sums the squares over the
+// channels in channel order (fused multiply-adds, as XLA's), and keeps its
+// first best with the prefix sums there; a shuffle reduction with an index
+// tie-break gives the slot's first argmax, written to a scratch array.  split_commit: one block per tree, one thread
 // per slot for the gates, the rank and the records, the cumsum in one
 // thread.  Every other operation is rounded as written (no FMA
 // contraction), so the kernel and its plain version agree bit for bit on
@@ -32,12 +40,13 @@
 // Above 8 channels (split_best_wide, up to kMaxC) a lane cannot keep c
 // running sums in registers, so the warp works on the staged tile itself:
 // its rows (one a channel and feature) are turned into prefix sums in place,
-// a lane a row, bin by bin (the same additions, in the same order); then
+// a lane a row (the same additions, in the same order); then
 // each lane takes (feature, bin) candidates and sums the squares over the
 // channels in channel order from the tile, one fused multiply-add a
-// channel, and the node totals GT are feature 0's last prefix.  The winner's
-// left sums GL are summed again from the histogram in bin order (a lane a
-// channel), so no lane carries c values.  The tile of ft features takes
+// channel, and the node totals GT are feature 0's (taken before the
+// prefix sums).  The winner's left sums GL are summed again from the
+// histogram in the prefix order (a lane a channel), so no lane carries c
+// values.  The tile of ft features takes
 // dynamic shared memory (ft x (c + 1) x (B + 1) floats a warp).  Every sum
 // is the narrow path's, so the two agree bit for bit.
 //
@@ -74,11 +83,86 @@ __device__ __forceinline__ bool takes(float vb, int ib, float va, int ia) {
 // rows of the node totals GT
 enum { kBest = 0, kHLb, kHT, kIdx, kGLb };
 
-// row[0] + row[1] + ... + row[len - 1], in order, each addition rounded
-__device__ __forceinline__ float row_sum(const float* row, int len) {
-  float a = row[0];
-  for (int b = 1; b < len; ++b) a = __fadd_rn(a, row[b]);
+constexpr int kScanBlock = 16;   // XLA's cumulative-sum blocks
+constexpr int kSumWindow = 32;   // XLA's reduction windows
+constexpr int kMaxBins = 4096;   // three levels of scan blocks
+
+// x[0] + ... + x[k - 1] in order from +0, each addition rounded
+__device__ __forceinline__ float seq_sum(const float* x, int k) {
+  float a = 0.0f;
+  for (int i = 0; i < k; ++i) a = __fadd_rn(a, x[i]);
   return a;
+}
+
+// The sums of x[0 .. k) in XLA's windows of kSumWindow (half the padding to
+// a multiple of it in front), each in order from +0, into out; their count.
+__device__ __forceinline__ int window_sums(const float* x, int k, float* out) {
+  const int lo = ((k + kSumWindow - 1) / kSumWindow * kSumWindow - k) / 2;
+  int nw = 0;
+  for (int st = 0; st < k + lo; st += kSumWindow) {
+    const int a = max(0, st - lo), b = min(k, st - lo + kSumWindow);
+    out[nw++] = seq_sum(x + a, b - a);
+  }
+  return nw;
+}
+
+// sum over bins as XLA's CPU code reduces the reference's .sum(axis=-1):
+// in order up to kSumWindow bins, else windows whose sums reduce alike
+__device__ float xla_total(const float* row, int B) {
+  if (B <= kSumWindow) return seq_sum(row, B);
+  float s1[kMaxBins / kSumWindow], s2[kMaxBins / kSumWindow / kSumWindow];
+  const int n1 = window_sums(row, B, s1);
+  if (n1 <= kSumWindow) return seq_sum(s1, n1);
+  return seq_sum(s2, window_sums(s1, n1, s2));
+}
+
+// The prefix sums of a row, fed bin by bin, in the order of XLA's blocked
+// cumulative sum: push(x) returns the prefix at x.  Level L keeps its
+// block's running sum w[L]; a full block's sum goes up as the next level's
+// element, whose prefix becomes the carry c[L] added to every later prefix
+// of level L (three levels: up to kMaxBins bins).
+struct XlaScan {
+  float w[3], c[3];
+  int k[3], done[3];
+  __device__ __forceinline__ XlaScan() {
+#pragma unroll
+    for (int L = 0; L < 3; ++L) {
+      w[L] = c[L] = 0.0f;
+      k[L] = done[L] = 0;
+    }
+  }
+  __device__ __forceinline__ float push(float x) {
+    float v = x, out[3];
+    bool up[3];
+    bool go = true;
+#pragma unroll
+    for (int L = 0; L < 3; ++L) {
+      up[L] = false;
+      out[L] = 0.0f;
+      if (go) {
+        w[L] = k[L] == 0 ? v : __fadd_rn(w[L], v);
+        out[L] = done[L] > 0 ? __fadd_rn(w[L], c[L]) : w[L];
+        if (++k[L] == kScanBlock) {
+          k[L] = 0;
+          ++done[L];
+          v = w[L];
+          up[L] = true;
+        } else {
+          go = false;
+        }
+      }
+    }
+#pragma unroll
+    for (int L = 0; L < 2; ++L)
+      if (up[L]) c[L] = out[L + 1];
+    return out[0];
+  }
+};
+
+// a row's prefix sums in place, in XLA's order
+__device__ __forceinline__ void xla_prefix(float* row, int B) {
+  XlaScan sc;
+  for (int b = 0; b < B; ++b) row[b] = sc.push(row[b]);
 }
 
 // sum_ch v[ch]^2 in channel order: v0 * v0, then a fused multiply-add per
@@ -124,11 +208,11 @@ __global__ void split_best(const float* __restrict__ hist, const float* __restri
         sh[(ch * ft + r) * pitch + b] = G[ch * dB + (long long)f0 * B + i];
     }
     __syncwarp();
-    if (f0 == 0) {  // node totals: feature 0's bins, in bin order
+    if (f0 == 0) {  // node totals: feature 0's bins, in XLA's order
       if (lane == 0) {
 #pragma unroll
-        for (int ch = 0; ch < C; ++ch) GT[ch] = row_sum(sh + ch * ft * pitch, B);
-        HT = row_sum(sh + c * ft * pitch, B);
+        for (int ch = 0; ch < C; ++ch) GT[ch] = xla_total(sh + ch * ft * pitch, B);
+        HT = xla_total(sh + c * ft * pitch, B);
       }
 #pragma unroll
       for (int ch = 0; ch < C; ++ch) GT[ch] = __shfl_sync(0xffffffffu, GT[ch], 0);
@@ -138,16 +222,16 @@ __global__ void split_best(const float* __restrict__ hist, const float* __restri
     if (lane < nf) {
       const int j = f0 + lane;
       const float fm = feat_mask[(long long)t * d + j];
+#pragma unroll
+      for (int ch = 0; ch <= C; ++ch) xla_prefix(sh + (ch * ft + lane) * pitch, B);
       const float* hj = sh + (c * ft + lane) * pitch;
-      float hl = 0.0f;
       for (int b = 0; b < B; ++b) {
 #pragma unroll
         for (int ch = 0; ch < C; ++ch) {
-          const float g = sh[(ch * ft + lane) * pitch + b];
-          gl[ch] = b == 0 ? g : __fadd_rn(gl[ch], g);
+          gl[ch] = sh[(ch * ft + lane) * pitch + b];
           gr[ch] = __fsub_rn(GT[ch], gl[ch]);
         }
-        hl = b == 0 ? hj[0] : __fadd_rn(hl, hj[b]);
+        const float hl = hj[b];
         const float hr = __fsub_rn(HT, hl);
         const float sl = __fdiv_rn(sum_sq<C>(gl), __fadd_rn(hl, lam));
         const float sr = __fdiv_rn(sum_sq<C>(gr), __fadd_rn(hr, lam));
@@ -224,19 +308,15 @@ __global__ void split_best_wide(const float* __restrict__ hist,
       for (int i = lane; i < nf * B; i += 32)
         sh[(ch * ft + i / B) * pitch + i % B] = G[ch * dB + (long long)f0 * B + i];
     __syncwarp();
-    for (int row = lane; row < C1 * nf; row += 32) {  // prefix sums, bin order
-      float* rr = sh + ((row / nf) * ft + row % nf) * pitch;
-      float a = rr[0];
-      for (int b = 1; b < B; ++b) {
-        a = __fadd_rn(a, rr[b]);
-        rr[b] = a;
-      }
+    if (f0 == 0) {  // node totals: feature 0's bins, in XLA's order
+      for (int ch = lane; ch < c; ch += 32) GT[ch] = xla_total(sh + (ch * ft) * pitch, B);
+      HT = xla_total(sh + (c * ft) * pitch, B);
     }
     __syncwarp();
-    if (f0 == 0) {  // node totals: feature 0's last prefix, as row_sum
-      for (int ch = lane; ch < c; ch += 32) GT[ch] = sh[(ch * ft) * pitch + B - 1];
-      HT = sh[(c * ft) * pitch + B - 1];
-      __syncwarp();
+    for (int row = lane; row < C1 * nf; row += 32)  // prefix sums in place, XLA's order
+      xla_prefix(sh + ((row / nf) * ft + row % nf) * pitch, B);
+    __syncwarp();
+    if (f0 == 0) {
       float sq = __fmul_rn(GT[0], GT[0]);
       for (int ch = 1; ch < c; ++ch) sq = __fmaf_rn(GT[ch], GT[ch], sq);
       parent = __fdiv_rn(sq, __fadd_rn(HT, lam));
@@ -282,10 +362,11 @@ __global__ void split_best_wide(const float* __restrict__ hist,
   }
   const long long o = (long long)t * m + s, plane = (long long)T * m;
   const int bj = bi / B, bb = bi % B;
-  for (int ch = lane; ch < c; ch += 32) {  // GL at the winner, summed again in bin order
+  for (int ch = lane; ch < c; ch += 32) {  // GL at the winner, summed again, XLA's order
     const float* row = G + ch * dB + (long long)bj * B;
-    float a = row[0];
-    for (int b = 1; b <= bb; ++b) a = __fadd_rn(a, row[b]);
+    XlaScan sc;
+    float a = 0.0f;
+    for (int b = 0; b <= bb; ++b) a = sc.push(row[b]);
     scratch[(kGLb + ch) * plane + o] = a;
     scratch[(kGLb + c + ch) * plane + o] = GT[ch];
   }
@@ -447,7 +528,8 @@ extern "C" int split_scan(const void* hist, const void* feat_mask, const void* p
                           void* split, void* pair_parent, void* pair_light, void* scratch,
                           int T, int m, int c, int d, int B, int P, int slot_base,
                           int next_free, int next_cap, int flags, void* stream) {
-  if (T <= 0 || m <= 0 || m > 1024 || next_cap <= 0 || B <= 0 || c < 1 || c > kMaxC)
+  if (T <= 0 || m <= 0 || m > 1024 || next_cap <= 0 || B <= 0 || B > kMaxBins || c < 1 ||
+      c > kMaxC)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (c > kMaxNarrow) {

@@ -396,6 +396,23 @@ def check_boston_train(model) -> Dict[str, float]:
     return gaps
 
 
+def refit_trees_equal(model, fixture: str) -> Tuple[int, int]:
+    """(refit trees of ``model``'s winner equal to the fixture model's node
+    for node (split feature, bin, children), trees): how far the port's
+    refit follows the JAX package's where near-tied splits may flip."""
+    import json
+
+    with open(os.path.join(fixture, "op_model.json")) as fh:
+        params = json.load(fh)["stages"][-1]["state"]["model_params"]["__dict__"]
+    keys = ("split_feat", "split_bin", "left", "right")
+    with np.load(os.path.join(fixture, "op_model_arrays.npz")) as z:
+        ref = {k: z[params[k]["__array__"]] for k in keys}
+    mine = model.stages[-1].model_params
+    same = np.all([(np.asarray(ref[k]) == np.asarray(mine[k])).all(axis=1) for k in keys],
+                  axis=0)
+    return int(same.sum()), int(same.size)
+
+
 def multiclass_predictions(outputs: List[Dict[str, Any]], name: str, k: int
                            ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """(prediction, probability [n, k], rawPrediction [n, k]) from the

@@ -12,7 +12,13 @@ reference's list of (W, b) pairs.
 ``jax.grad(loss_fn)`` of the reference's ``fit_mlp`` for a batch of fits at
 once: one pass over the rows, forward through the sigmoid layers, the
 softmax, ``dz = w (p - Y) / sum(w)``, backward through every layer, each
-weight's gradient summed in float64 and rounded once.  ``mlp_forward``
+weight's gradient summed in float64 and rounded once.  K-U has two
+entries, chosen by the network's size alone (``gemm_entry``): up to
+``MLP_BLOCK_PARAMS`` parameters a fit (Titanic's and the Letter networks) a
+block takes a fit and walks a chunk of rows through every layer; past it
+(the wide text flows' inputs) each layer's product is a tiled GEMM launch
+over a pass of rows, the activations and deltas in device memory, the
+weight gradients float64 tiles over row splits.  ``mlp_forward``
 (K-U, forward mode) replaces ``forward`` / ``predict_mlp_grid``: every
 fit's logits and softmax probabilities on every row.  The Adam update stays
 in plain torch ops on the small parameter tensors; its bias corrections
@@ -52,11 +58,21 @@ _TARGET_BLOCKS = 2 * 132
 #: the ceiling of K-U's float64 partial buffer [chunks, C, E]: past it the
 #: chunks grow (fewer of them), down to one a fit
 MLP_PARTIAL_BYTES = 256 << 20
+#: the most parameters a fit that K-U's block entry takes (a fit's weights,
+#: 64 KB, within a block's reach: Titanic's and the Letter networks); past
+#: it the GEMM-shaped entry runs, whose activations and deltas take at most
+#: ``MLP_WORK_BYTES`` of device memory a pass of rows
+MLP_BLOCK_PARAMS = 16384
+MLP_WORK_BYTES = 256 << 20
 _DIMS = ctypes.POINTER(ctypes.c_int)
 _GRAD_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [_DIMS, ctypes.c_void_p]
 _FORWARD_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [_DIMS, ctypes.c_void_p]
+_GRAD_GEMM_ARGS = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [_DIMS, ctypes.c_void_p]
+_FORWARD_GEMM_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [_DIMS, ctypes.c_void_p]
 _SIGNATURES = {"mlp_grad": (_GRAD_ARGS, ctypes.c_int),
                "mlp_forward": (_FORWARD_ARGS, ctypes.c_int),
+               "mlp_grad_gemm": (_GRAD_GEMM_ARGS, ctypes.c_int),
+               "mlp_forward_gemm": (_FORWARD_GEMM_ARGS, ctypes.c_int),
                "mlp_plan": ([ctypes.c_int, ctypes.c_int, _DIMS, ctypes.POINTER(ctypes.c_int)],
                             ctypes.c_int)}
 
@@ -159,6 +175,28 @@ def _chunking(n: int, C: int, R: int, E: int = 0) -> Tuple[int, int]:
     return rows, -(-n // rows)
 
 
+def gemm_entry(layers: Sequence[int]) -> bool:
+    """Whether K-U runs its GEMM-shaped entry for this network: past
+    ``MLP_BLOCK_PARAMS`` parameters a fit (the size alone decides)."""
+    return param_count(layers) > MLP_BLOCK_PARAMS
+
+
+def _gemm_geometry(n: int, C: int, layers: Sequence[int], grad: bool) -> Tuple[int, int]:
+    """(rows a pass RP, row splits S) of K-U's GEMM-shaped entry: the C fits'
+    activations and two delta buffers [RP, width] within ``MLP_WORK_BYTES``;
+    about two blocks an SM for the weight gradients' tiles (at most 64
+    splits of at least 64 rows), their float64 partials [S, C, E] within
+    ``MLP_PARTIAL_BYTES``."""
+    widths = sum(layers[1:]) + (2 * max(layers[1:]) if grad else 0)
+    rp = max(64, min(n, MLP_WORK_BYTES // (4 * C * widths)))
+    if not grad:
+        return rp, 1
+    E = param_count(layers)
+    s = max(1, min(64, -(-_TARGET_BLOCKS // C), rp // 64,
+                   MLP_PARTIAL_BYTES // (8 * C * E), 65535 // C))
+    return rp, s
+
+
 def _dims(layers: Sequence[int]):
     """The layer sizes as csrc/mlp.cu's ``dims`` (a host int array)."""
     return (ctypes.c_int * len(layers))(*[int(v) for v in layers])
@@ -187,12 +225,21 @@ def mlp_forward(X: torch.Tensor, params: torch.Tensor, layers: Sequence[int]
         return z, prob
     X, params = X.contiguous(), params.contiguous()
     lib = cuda_build.load("mlp", _SIGNATURES)
-    R, _ = _plan(lib, False, layers)
-    rows, chunks = _chunking(n, C, R)
-    with torch.cuda.device(X.device):
-        rc = lib.mlp_forward(X.data_ptr(), params.data_ptr(), z.data_ptr(), prob.data_ptr(), n,
-                             C, chunks, rows, R, len(layers) - 1, _dims(layers),
-                             ctypes.c_void_p(torch.cuda.current_stream(X.device).cuda_stream))
+    stream = ctypes.c_void_p(torch.cuda.current_stream(X.device).cuda_stream)
+    if gemm_entry(layers):
+        rp, _ = _gemm_geometry(n, C, layers, False)
+        act = torch.empty((C, rp * sum(layers[1:])), dtype=torch.float32, device=X.device)
+        with torch.cuda.device(X.device):
+            rc = lib.mlp_forward_gemm(X.data_ptr(), params.data_ptr(), act.data_ptr(),
+                                      z.data_ptr(), prob.data_ptr(), n, C, rp, len(layers) - 1,
+                                      _dims(layers), stream)
+    else:
+        R, _ = _plan(lib, False, layers)
+        rows, chunks = _chunking(n, C, R)
+        with torch.cuda.device(X.device):
+            rc = lib.mlp_forward(X.data_ptr(), params.data_ptr(), z.data_ptr(),
+                                 prob.data_ptr(), n, C, chunks, rows, R, len(layers) - 1,
+                                 _dims(layers), stream)
     cuda_build.check_launch("mlp_forward", rc)
     mlp_forward.launches += 1
     return z, prob
@@ -252,15 +299,26 @@ def mlp_grad(X: torch.Tensor, y: torch.Tensor, w: torch.Tensor, fold: torch.Tens
     X, y, w, fold = X.contiguous(), y.contiguous(), w.contiguous(), fold.contiguous()
     wsum, params = wsum.contiguous(), params.contiguous()
     lib = cuda_build.load("mlp", _SIGNATURES)
-    R, smem_acc = _plan(lib, True, layers)
-    rows, chunks = _chunking(n, C, R, 0 if smem_acc else E)
-    partial = torch.empty((chunks, C, E), dtype=torch.float64, device=X.device)
-    with torch.cuda.device(X.device):
-        rc = lib.mlp_grad(X.data_ptr(), y.data_ptr(), w.data_ptr(), fold.data_ptr(),
-                          wsum.data_ptr(), params.data_ptr(), partial.data_ptr(),
-                          grad.data_ptr(), n, C, chunks, rows, R, smem_acc, len(layers) - 1,
-                          _dims(layers),
-                          ctypes.c_void_p(torch.cuda.current_stream(X.device).cuda_stream))
+    stream = ctypes.c_void_p(torch.cuda.current_stream(X.device).cuda_stream)
+    if gemm_entry(layers):
+        rp, splits = _gemm_geometry(n, C, layers, True)
+        act = torch.empty((C, rp * sum(layers[1:])), dtype=torch.float32, device=X.device)
+        dbuf = torch.empty((C, 2 * rp * max(layers[1:])), dtype=torch.float32, device=X.device)
+        partial = torch.empty((splits, C, E), dtype=torch.float64, device=X.device)
+        with torch.cuda.device(X.device):
+            rc = lib.mlp_grad_gemm(X.data_ptr(), y.data_ptr(), w.data_ptr(), fold.data_ptr(),
+                                   wsum.data_ptr(), params.data_ptr(), act.data_ptr(),
+                                   dbuf.data_ptr(), partial.data_ptr(), grad.data_ptr(), n, C,
+                                   rp, splits, len(layers) - 1, _dims(layers), stream)
+    else:
+        R, smem_acc = _plan(lib, True, layers)
+        rows, chunks = _chunking(n, C, R, 0 if smem_acc else E)
+        partial = torch.empty((chunks, C, E), dtype=torch.float64, device=X.device)
+        with torch.cuda.device(X.device):
+            rc = lib.mlp_grad(X.data_ptr(), y.data_ptr(), w.data_ptr(), fold.data_ptr(),
+                              wsum.data_ptr(), params.data_ptr(), partial.data_ptr(),
+                              grad.data_ptr(), n, C, chunks, rows, R, smem_acc,
+                              len(layers) - 1, _dims(layers), stream)
     cuda_build.check_launch("mlp_grad", rc)
     mlp_grad.launches += 1
     return grad

@@ -224,8 +224,9 @@ def _gbt_group_scores(group, xbs, y, train_w, blob, loss: str, out_c: int) -> to
         ("eta", off_eta), ("lam", off_lam), ("gam", off_gam), ("mcw", off_mcw),
         ("mig", off_mig))}
     w_b = train_w.repeat_interleave(Gc, dim=0)                            # [F * Gc, n]
-    if fold_base:
-        base_f = (y[None] * train_w).sum(1) / torch.clamp_min(train_w.sum(1), 1e-12)
+    if fold_base:  # the sums in the order XLA's CPU code reduces the reference's
+        sums = Tr.root_sums(torch.stack([y[None] * train_w, train_w], dim=2))
+        base_f = sums[:, 0] / torch.clamp_min(sums[:, 1], 1e-12)
     else:
         base_f = torch.zeros(F, dtype=torch.float32, device=dev)
     Fm = Tr.fit_gbt_batch(Xb, y, w_b, rw, fms, loss=loss, n_rounds=rounds, max_depth=depth,

@@ -31,25 +31,30 @@ ones in ``ops/triton_boost.py`` and ``ops/triton_forest.py``):
 - ``level_hist`` (K-E) replaces ``_level_histograms`` and the light-child
   pass of ``_grow_level``: per (tree, slot, channel, feature, bin) sums of
   the weighted gradients and hessian, or only the lighter child of each
-  sibling pair with the heavy one taken as parent minus light.
+  sibling pair with the heavy one taken as parent minus light, each bucket
+  summed as the reference sums it (float32, row by row in row order: in
+  64-bit fixed point where that is exact, else replayed in order).  Its
+  root mode (``root_sums``) sums every channel over the rows in the order
+  XLA reduces the reference's root value and fold label means.
 - ``split_scan`` (K-F) replaces the split scan, compaction and records of
-  ``_grow_level``: prefix sums over bins, the XGBoost gain summed over the
+  ``_grow_level``: prefix sums over bins (in XLA's blocked order,
+  ``xla_cumsum``), the XGBoost gain summed over the
   gradient channels, the first argmax, the beam cap, the node and leaf
   records (a leaf value per channel), the sibling pairs of the next
   level.
 - ``route_rows`` (K-G) replaces the row routing of ``_grow_level``: each
   row's child slot, its pool node, and its pair id for the next level.
 - ``boost_step`` (K-H) replaces the margin update and ``_grad_hess``
-  (logistic and squared): ``F += eta * leaf[row_node]`` (a fused
-  multiply-add for the logistic loss) and the weighted gradient and
-  hessian of the new margins.  Its collapse mode (``rw`` given: K trees
-  a batch element) sums each row's K leaves in XLA's order, adds them at
-  ``eta / K`` and writes K weighted gradient planes, one a tree.
-- ``softmax_boost_step`` (K-R, Triton, the ``LOSS`` 2 branch of
-  ``ops/triton_boost.py``) replaces the same for the softmax loss over k
-  class margins: the update per channel, the row's softmax, the k weighted
-  gradients and the one scalar hessian of the row; and its collapse mode,
-  as K-H's.
+  (logistic and squared): ``F += eta * leaf[row_node]`` (one fused
+  multiply-add) and the weighted gradient and hessian of the new margins,
+  for K >= 1 trees a batch element (``rw``: K > 1 is round-collapsed
+  boosting, each row's K leaves summed in XLA's order, added at ``eta /
+  K``, K weighted gradient planes written, one a tree).
+- ``softmax_boost_step`` (K-R, the ``LOSS`` 2 branch of the same Triton
+  kernel, ``ops/triton_boost.py::collapse_step_kernel``) replaces the same
+  for the softmax loss over k class margins: the update per channel, the
+  row's softmax, the k weighted gradients and the one scalar hessian of the
+  row.
 - ``forest_leaf_mean`` (K-M, Triton, ``ops/triton_forest.py``) replaces the
   fused sweep's forest leaf read and tree mean: each row's mean leaf value
   (per channel) over each (fold, candidate)'s trees.
@@ -475,14 +480,15 @@ def _check_level_hist(Xb, ghw, ids, m, n_bins, parent, pair_parent, pair_light):
                      and tuple(a.shape) == (T, m // 2), f"{name} must be int32[{T}, {m // 2}]")
 
 
-#: the fixed point of K-E's sums: each channel's value (w*g per gradient
-#: channel, w*h) times 2^bits, rounded to the nearest int64; integer sums
-#: give the same total in any order.  The kernel takes the scale from the
-#: wrapper.  ``bits`` is 32 wherever the level's row count x largest channel
-#: value stays below ``HIST_RANGE`` (every binary gradient and every
-#: multiclass -onehot one does), and fewer where it does not
+#: the fixed point of K-E's exact sums: each channel's value (w*g per
+#: gradient channel, w*h) times 2^bits, rounded to the nearest int64; integer
+#: sums give the same total in any order.  The kernel takes the scale from
+#: the wrapper.  ``bits`` is 32 wherever the level's row count x largest
+#: channel value stays below ``HIST_RANGE``, and fewer where it does not
 HIST_SCALE_BITS = 32
 HIST_RANGE = 2.0 ** (63 - HIST_SCALE_BITS)
+#: a float32 sum of integers is exact while no partial sum passes 2^24
+HIST_EXACT_LIMIT = 2.0 ** 24
 
 
 def hist_scale_bits(n: int, big: float) -> int:
@@ -499,13 +505,80 @@ def hist_scale_bits(n: int, big: float) -> int:
     return 62 - math.ceil(math.log2(total))
 
 
+def hist_exact(ghw: torch.Tensor) -> bool:
+    """Whether K-E sums ``ghw`` f32[T, n, c + 1] in fixed point: every value
+    an integer and every tree's channel sum of |values| at most
+    ``HIST_EXACT_LIMIT``, so that the float32 row-order sums the reference
+    takes are exact and any order gives them (the forests' -y on integer
+    targets and -onehot gradients, Poisson weights, unit hessians).  Other
+    inputs take the ordered sums.  One reduction and one host sync; raises
+    on a non-finite value."""
+    if ghw.numel() == 0:
+        return True
+    a = ghw.abs()
+    big, fraction, total = torch.stack([a.amax(), (ghw != torch.round(ghw)).any().float(),
+                                        a.sum(dim=1).amax()]).tolist()
+    hist_scale_bits(1, big)  # the finiteness check
+    return not fraction and total <= HIST_EXACT_LIMIT
+
+
+#: XLA's CPU compiler splits a reduction of more than this many elements
+#: into windows of this size (its tree-reduction rewrite)
+XLA_REDUCE_WINDOW = 32
+
+
+def xla_windows(k: int) -> List[Tuple[int, int]]:
+    """The [start, stop) ranges whose sums XLA's CPU code adds for a
+    reduction over ``k`` > ``XLA_REDUCE_WINDOW`` elements: the k elements
+    padded to a multiple of the window, half the padding (rounded down) in
+    front, cut into windows."""
+    w = XLA_REDUCE_WINDOW
+    lo = (-(-k // w) * w - k) // 2
+    return [(max(0, s - lo), min(k, s - lo + w)) for s in range(0, k + lo, w)]
+
+
+def root_sums_plain(ghw: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of K-E's root mode: the sums f32[T, c + 1] of
+    ``ghw`` f32[T, n, c + 1] over the rows in the order XLA's CPU code sums
+    the reference's ``gw.sum(axis=0)`` and ``hw.sum()`` (``xla_sum_last``)."""
+    return xla_sum_last(ghw.transpose(1, 2))
+
+
+def root_sums(ghw: torch.Tensor) -> torch.Tensor:
+    """K-E's root mode: the row sums f32[T, c + 1] of ``ghw`` f32[T, n, c +
+    1] in XLA's order (``root_sums_plain``), from which the grower forms the
+    root's value as the reference's ``grow_tree`` does."""
+    _require(ghw.dtype == torch.float32 and ghw.ndim == 3, "ghw must be float32[T, n, c + 1]")
+    if not _on_cuda(ghw):
+        return root_sums_plain(ghw)
+    ghw = ghw.contiguous()
+    T, n, C1 = ghw.shape
+    out = torch.empty((T, C1), dtype=torch.float32, device=ghw.device)
+    windows = -(-n // XLA_REDUCE_WINDOW)
+    scratch = torch.empty((2, T, max(windows, 1), C1), dtype=torch.float32, device=ghw.device)
+    lib = cuda_build.load("level_hist", _HIST_SIGNATURES)
+    with torch.cuda.device(ghw.device):
+        rc = lib.root_sums(ghw.data_ptr(), scratch.data_ptr(), out.data_ptr(), T, n, C1,
+                           _stream(ghw))
+    cuda_build.check_launch("root_sums", rc)
+    root_sums.launches += 1
+    return out
+
+
+root_sums.launches = 0
+
+
 def level_hist_plain(Xb: torch.Tensor, ghw: torch.Tensor, ids: torch.Tensor, m: int,
                      n_bins: int, parent: Optional[torch.Tensor] = None,
                      pair_parent: Optional[torch.Tensor] = None,
                      pair_light: Optional[torch.Tensor] = None,
-                     scale_bits: int = HIST_SCALE_BITS) -> torch.Tensor:
-    """Plain PyTorch version of K-E: the same fixed-point sums, as an int64
-    ``index_add_`` over rows a feature, then the parent - light assembly."""
+                     scale_bits: Optional[int] = None) -> torch.Tensor:
+    """Plain PyTorch version of K-E.  With ``scale_bits`` None, the
+    reference's sums: each bucket in float32, row by row in increasing row
+    order (a float32 ``index_add_`` over the rows, a feature at a time, as
+    XLA's CPU code sums ``segment_sum``); with ``scale_bits``, the same
+    buckets in 64-bit fixed point at that scale (an int64 ``index_add_``).
+    Then the parent - light assembly in float32."""
     T, n, C1 = ghw.shape
     d, B = Xb.shape[1], n_bins
     mp = m // 2 if parent is not None else m
@@ -514,14 +587,20 @@ def level_hist_plain(Xb: torch.Tensor, ghw: torch.Tensor, ids: torch.Tensor, m: 
     dead = idl < 0
     base = torch.where(dead, torch.full_like(idl, mp * B), idl * B)      # [T, n]
     offs = (torch.arange(T, device=Xb.device) * (d * seg_n)).view(T, 1)
-    fixed = torch.round(ghw * float(2.0 ** scale_bits)).to(torch.int64).reshape(T * n, C1)
-    acc = torch.zeros((T * d * seg_n, C1), dtype=torch.int64, device=Xb.device)
+    if scale_bits is None:
+        vals, dt = ghw.reshape(T * n, C1), torch.float32
+    else:
+        vals = torch.round(ghw * float(2.0 ** scale_bits)).to(torch.int64).reshape(T * n, C1)
+        dt = torch.int64
+    acc = torch.zeros((T * d * seg_n, C1), dtype=dt, device=Xb.device)
     Xl = Xb.long()
-    for j in range(d):  # integer sums: the order changes no bit
+    for j in range(d):  # rows in order within each bucket
         seg = base + torch.where(dead, 0, Xl[:, j][None]) + offs + j * seg_n
-        acc.index_add_(0, seg.reshape(-1), fixed)
+        acc.index_add_(0, seg.reshape(-1), vals)
     light = acc.view(T, d, seg_n, C1)[:, :, :mp * B].reshape(T, d, mp, B, C1) \
-        .permute(0, 2, 4, 1, 3).to(torch.float32) * float(2.0 ** -scale_bits)
+        .permute(0, 2, 4, 1, 3).to(torch.float32)
+    if scale_bits is not None:
+        light = light * float(2.0 ** -scale_bits)
     light = light.contiguous()                                            # [T, mp, C1, d, B]
     if parent is None:
         return light
@@ -536,6 +615,12 @@ def level_hist_plain(Xb: torch.Tensor, ghw: torch.Tensor, ids: torch.Tensor, m: 
 
 _HIST_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_float] * 2 \
     + [ctypes.c_void_p]
+_ORDERED_ARGS = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+_HIST_SIGNATURES = {
+    "level_hist_i8": (_HIST_ARGS, ctypes.c_int), "level_hist_i32": (_HIST_ARGS, ctypes.c_int),
+    "level_hist_ordered_i8": (_ORDERED_ARGS, ctypes.c_int),
+    "level_hist_ordered_i32": (_ORDERED_ARGS, ctypes.c_int),
+    "root_sums": ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p], ctypes.c_int)}
 
 
 def level_hist(Xb: torch.Tensor, ghw: torch.Tensor, ids: torch.Tensor, m: int,
@@ -544,12 +629,13 @@ def level_hist(Xb: torch.Tensor, ghw: torch.Tensor, ids: torch.Tensor, m: int,
                pair_light: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Level histograms f32[T, m, c + 1, d, B] of ``ghw`` f32[T, n, c + 1]
     (channels 0 .. c - 1: sums of the weighted gradients, c: of w*h; at
-    most ``MAX_CHANNELS`` gradient channels), summed in 64-bit fixed point
-    at the scale ``hist_scale_bits`` picks from the row count and the
-    largest channel value (one reduction and one host sync): the same on
-    every run, exact where the inputs are multiples of the scale's quantum
-    (2^-32 for every binary and every -onehot gradient).  Raises on a
-    non-finite value.
+    most ``MAX_CHANNELS`` gradient channels), as the reference sums them:
+    each bucket in float32, row by row in increasing row order.  Where
+    ``hist_exact`` holds those sums are exact and K-E takes them in 64-bit
+    fixed point (any order, the same bits); elsewhere it replays the row
+    order.  The inputs decide, on both devices alike (one reduction and one
+    host sync; ``grow_trees`` decides once a fit).  Raises on a non-finite
+    value.
 
     Direct build (``parent`` None): rows with ``ids == s`` go to slot s (-1
     rests).  Light-only build: ``ids`` are pair ids in [0, m/2) of the
@@ -558,8 +644,14 @@ def level_hist(Xb: torch.Tensor, ghw: torch.Tensor, ids: torch.Tensor, m: int,
     ``pair_light[j]`` says the light child is the left (even) slot.
     """
     _check_level_hist(Xb, ghw, ids, m, n_bins, parent, pair_parent, pair_light)
-    big = float(ghw.abs().amax()) if ghw.numel() else 0.0
-    bits = hist_scale_bits(Xb.shape[0], big)
+    return _level_hist(Xb, ghw, ids, m, n_bins, parent, pair_parent, pair_light,
+                       hist_exact(ghw))
+
+
+def _level_hist(Xb, ghw, ids, m, n_bins, parent, pair_parent, pair_light, exact: bool):
+    """``level_hist`` past its checks, with the path decided: the fixed
+    point at the 2^32 scale where ``exact``, else the ordered sums."""
+    bits = HIST_SCALE_BITS if exact else None
     tensors = [Xb, ghw, ids] + ([parent, pair_parent, pair_light] if parent is not None else [])
     if not _on_cuda(*tensors):
         return level_hist_plain(Xb, ghw, ids, m, n_bins, parent, pair_parent, pair_light, bits)
@@ -570,35 +662,53 @@ def level_hist_launch(Xb: torch.Tensor, ghw: torch.Tensor, ids: torch.Tensor, m:
                       n_bins: int, parent: Optional[torch.Tensor] = None,
                       pair_parent: Optional[torch.Tensor] = None,
                       pair_light: Optional[torch.Tensor] = None,
-                      scale_bits: int = HIST_SCALE_BITS) -> torch.Tensor:
-    """K-E's launch on CUDA tensors at ``scale_bits``, without
-    ``level_hist``'s checks (whose scale choice waits for the card); counts
-    in ``level_hist.launches``."""
+                      scale_bits: Optional[int] = None) -> torch.Tensor:
+    """K-E's launch on CUDA tensors, without ``level_hist``'s checks: the
+    ordered float32 sums (``scale_bits`` None) or the fixed-point ones at
+    ``scale_bits``; counts in ``level_hist.launches``."""
     _require(_on_cuda(Xb, ghw, ids), "level_hist_launch takes CUDA tensors")
     Xb, ghw, ids = Xb.contiguous(), ghw.contiguous(), ids.contiguous()
     T, n, C1 = ghw.shape
     d = Xb.shape[1]
     mp = m // 2 if parent is not None else m
-    acc = torch.empty((T, mp, C1, d, n_bins), dtype=torch.int64, device=Xb.device)
-    out = torch.empty((T, m, C1, d, n_bins), dtype=torch.float32, device=Xb.device)
-    lib = cuda_build.load("level_hist", {"level_hist_i8": (_HIST_ARGS, ctypes.c_int),
-                                         "level_hist_i32": (_HIST_ARGS, ctypes.c_int)})
-    fn = lib.level_hist_i8 if Xb.dtype == torch.int8 else lib.level_hist_i32
+    dev = Xb.device
+    out = torch.empty((T, m, C1, d, n_bins), dtype=torch.float32, device=dev)
+    lib = cuda_build.load("level_hist", _HIST_SIGNATURES)
     light = parent is not None
     # bound to names while the kernels are queued (later reuse of their
     # memory is ordered after them on the stream)
     par, pp, pl = ((parent.contiguous(), pair_parent.contiguous(), pair_light.contiguous())
                    if light else (None, None, None))
     m_prev = parent.shape[1] if light else 0
-    with torch.cuda.device(Xb.device):
-        rc = fn(Xb.data_ptr(), ghw.data_ptr(), ids.data_ptr(),
-                par.data_ptr() if light else None, pp.data_ptr() if light else None,
-                pl.data_ptr() if light else None, acc.data_ptr(), out.data_ptr(), n, d,
-                n_bins, C1, T, mp, m_prev, float(2.0 ** scale_bits),
-                float(2.0 ** -scale_bits), _stream(Xb))
+    ptrs = (par.data_ptr() if light else None, pp.data_ptr() if light else None,
+            pl.data_ptr() if light else None)
+    i8 = Xb.dtype == torch.int8
+    if scale_bits is None:
+        tiles = -(-n // HIST_GROUP_TILE)
+        # the rows grouped by slot in row order, each slot's segment start,
+        # and the tiles' counts (scanned in place into offsets)
+        order = torch.empty((T, n), dtype=torch.int32, device=dev)
+        start = torch.empty((T, mp + 1), dtype=torch.int32, device=dev)
+        counts = torch.empty((T, mp, tiles), dtype=torch.int32, device=dev)
+        fn = lib.level_hist_ordered_i8 if i8 else lib.level_hist_ordered_i32
+        with torch.cuda.device(dev):
+            rc = fn(Xb.data_ptr(), ghw.data_ptr(), ids.data_ptr(), *ptrs, order.data_ptr(),
+                    start.data_ptr(), counts.data_ptr(), out.data_ptr(), n, d, n_bins, C1, T,
+                    mp, m_prev, _stream(Xb))
+    else:
+        acc = torch.empty((T, mp, C1, d, n_bins), dtype=torch.int64, device=dev)
+        fn = lib.level_hist_i8 if i8 else lib.level_hist_i32
+        with torch.cuda.device(dev):
+            rc = fn(Xb.data_ptr(), ghw.data_ptr(), ids.data_ptr(), *ptrs, acc.data_ptr(),
+                    out.data_ptr(), n, d, n_bins, C1, T, mp, m_prev, float(2.0 ** scale_bits),
+                    float(2.0 ** -scale_bits), _stream(Xb))
     cuda_build.check_launch("level_hist", rc)
     level_hist.launches += 1
     return out
+
+
+#: rows a tile of K-E's row grouping (``kGroupTile`` of csrc/level_hist.cu)
+HIST_GROUP_TILE = 4096
 
 
 level_hist.launches = 0
@@ -649,6 +759,59 @@ def _sum_sq(v: torch.Tensor) -> torch.Tensor:
     return out
 
 
+#: XLA's CPU code computes a cumulative sum in blocks of this many
+#: elements (its reduce-window rewrite): each block's prefix sums in order,
+#: the blocks' totals scanned alike, each block's prefix plus the running
+#: total of the blocks before it
+XLA_SCAN_BLOCK = 16
+
+
+def xla_cumsum(x: torch.Tensor) -> torch.Tensor:
+    """``jnp.cumsum(x, axis=-1)`` as XLA's CPU code computes it, bit for
+    bit: in order up to ``XLA_SCAN_BLOCK`` elements; past it each block of
+    16 in order, then the block totals scanned the same way, each later
+    block's prefix sums plus the scanned total of the blocks before it."""
+    k, w = x.shape[-1], XLA_SCAN_BLOCK
+    out = torch.empty_like(x)
+    if k == 0:
+        return out
+    acc = x[..., 0].clone()
+    out[..., 0] = acc
+    for b in range(1, k):
+        if b % w == 0:
+            acc = x[..., b].clone()
+        else:
+            acc = acc + x[..., b]
+        out[..., b] = acc
+    if k <= w:
+        return out
+    tot = xla_cumsum(out[..., w - 1::w].contiguous())   # the full blocks' totals, scanned
+    for i in range(1, -(-k // w)):
+        out[..., i * w:(i + 1) * w] += tot[..., i - 1:i]
+    return out
+
+
+def xla_sum_last(x: torch.Tensor) -> torch.Tensor:
+    """``x.sum(axis=-1)`` as XLA's CPU code reduces it, bit for bit: in
+    order from +0 up to ``XLA_REDUCE_WINDOW`` elements; past it each window
+    of ``xla_windows`` in order (the padding adds +0), their sums reduced
+    alike."""
+    w = XLA_REDUCE_WINDOW
+    while x.shape[-1] > w:
+        k = x.shape[-1]
+        lo = (-(-k // w) * w - k) // 2
+        x = torch.nn.functional.pad(x, (lo, -(-k // w) * w - k - lo))
+        x = x.reshape(x.shape[:-1] + (-1, w))
+        s = x[..., 0]
+        for i in range(1, w):
+            s = s + x[..., i]
+        x = s
+    acc = torch.zeros(x.shape[:-1], dtype=x.dtype, device=x.device)
+    for b in range(x.shape[-1]):
+        acc = acc + x[..., b]
+    return acc
+
+
 def split_scan_plain(hist: torch.Tensor, feat_mask: torch.Tensor, params: torch.Tensor,
                      n_active: torch.Tensor, nodes: torch.Tensor, leaf: torch.Tensor,
                      slot_base: int, next_free: int, next_cap: int, cap_mode: int,
@@ -662,13 +825,8 @@ def split_scan_plain(hist: torch.Tensor, feat_mask: torch.Tensor, params: torch.
     dev = hist.device
     lam, gam, mcw, mig = (params[:, i] for i in range(4))
     G, H = hist[:, :, :c], hist[:, :, c]                    # [T, m, c, d, B], [T, m, d, B]
-    GL, HL = torch.empty_like(G), torch.empty_like(H)
-    ag, ah = G[..., 0].clone(), H[..., 0].clone()
-    GL[..., 0], HL[..., 0] = ag, ah
-    for b in range(1, B):
-        ag, ah = ag + G[..., b], ah + H[..., b]
-        GL[..., b], HL[..., b] = ag, ah
-    GT, HT = GL[:, :, :, 0, B - 1], HL[:, :, 0, B - 1]      # [T, m, c], [T, m]
+    GL, HL = xla_cumsum(G), xla_cumsum(H)
+    GT, HT = xla_sum_last(G[:, :, :, 0]), xla_sum_last(H[:, :, 0])  # [T, m, c], [T, m]
     GR = GT[..., None, None] - GL
     HR = HT[..., None, None] - HL
     l4 = lam[:, None, None, None]
@@ -918,42 +1076,30 @@ def _collapse_planes(ghw: torch.Tensor, g: torch.Tensor, h: Optional[torch.Tenso
     ghw[..., C] = wk if h is None else h.repeat_interleave(K, dim=0) * wk
 
 
+def _one_round(F: torch.Tensor) -> torch.Tensor:
+    """The subsample rows f32[1, n] of an unsubsampled round (K = 1, the row
+    weights already in ``w``): ones, so that ``w * rw`` is ``w``."""
+    return torch.ones((1, F.shape[1]), dtype=torch.float32, device=F.device)
+
+
 def boost_step_plain(F: torch.Tensor, y: torch.Tensor, w: torch.Tensor, eta: torch.Tensor,
                      leaf: Optional[torch.Tensor], row_node: Optional[torch.Tensor],
                      ghw: Optional[torch.Tensor], loss: str = "logistic",
                      rw: Optional[torch.Tensor] = None) -> None:
-    """Plain PyTorch version of K-H: the logistic margin update one fused
-    multiply-add, as XLA's CPU code contracts the reference's; the squared
-    one rounded twice (see ``boost_step``).  With ``rw``, the collapse
-    mode."""
-    from .metrics import fma
-
-    if rw is not None:
-        if leaf is not None:
-            _collapse_update(F, eta, leaf, row_node, rw.shape[0])
-        if ghw is None:
-            return
-        if loss == "squared":
-            _collapse_planes(ghw, (F - y[None])[..., None], None, w, rw)
-            return
-        p = _sigmoid(F)
-        _collapse_planes(ghw, (p - y[None])[..., None],
-                         torch.clamp_min(p * (1 - p), 1e-6), w, rw)
-        return
+    """Plain PyTorch version of K-H (see ``boost_step``): the update one
+    fused multiply-add for both losses, as XLA's CPU code contracts the
+    reference's; ``rw`` None is one tree a batch element with the row
+    weights in ``w``."""
+    rw = _one_round(F) if rw is None else rw
     if leaf is not None:
-        lv = leaf.gather(1, row_node.long())
-        eta_t = eta[:, None].expand_as(lv)
-        F.copy_(F + eta_t * lv if loss == "squared" else fma(eta_t, lv, F))
+        _collapse_update(F, eta, leaf, row_node, rw.shape[0])
     if ghw is None:
         return
     if loss == "squared":
-        ghw[..., 0] = (F - y[None]) * w
-        ghw[..., 1] = w
+        _collapse_planes(ghw, (F - y[None])[..., None], None, w, rw)
         return
     p = _sigmoid(F)
-    ghw[..., 0] = (p - y[None]) * w
-    ghw[..., 1] = torch.maximum(p * (1 - p), torch.tensor(1e-6, dtype=torch.float32,
-                                                         device=F.device)) * w
+    _collapse_planes(ghw, (p - y[None])[..., None], torch.clamp_min(p * (1 - p), 1e-6), w, rw)
 
 
 def _check_boost(F, y, w, eta, leaf, row_node, ghw, c: int, rw=None) -> None:
@@ -988,68 +1134,31 @@ def boost_step(F: torch.Tensor, y: torch.Tensor, w: torch.Tensor, eta: torch.Ten
                leaf: Optional[torch.Tensor] = None, row_node: Optional[torch.Tensor] = None,
                ghw: Optional[torch.Tensor] = None, loss: str = "logistic",
                rw: Optional[torch.Tensor] = None) -> None:
-    """One boosting step over [T, n], in place.
+    """One boosting step over [T, n], in place, with K trees a batch element
+    (``rw`` f32[K, n], the K rounds' subsample rows; None is K = 1 with the
+    row weights in ``w``).
 
-    With ``leaf`` f32[T, P] and ``row_node`` i32[T, n]: the margin update
-    ``F += eta[t] * leaf[t, row_node[t, r]]``: for the logistic loss one
-    fused multiply-add, as XLA's CPU code contracts the reference's update;
-    for the squared loss the product and the sum rounded apart.  The
-    reference contracts that one too, but the Boston fixture's GBT folds
-    and refit are held within their tolerances only by the two roundings:
-    K-E's exact histogram sums already move a leaf value by a few ulps
-    against XLA's float32 sums, and with the fused update other near-tied
-    splits flip (fold RMSE 7.4e-4 from the fixture's, relative, against the
-    2e-4 tolerance).  With
-    ``ghw`` f32[T, n, 2]: the gradient and hessian of ``loss`` at the
-    (updated) margins, times the row weights ``w`` f32[T, n]: logistic
-    ``(p - y) w`` and ``max(p (1 - p), 1e-6) w`` with ``p = 1 / (1 +
-    exp(-F))``; squared ``(F - y) w`` and ``w``.
-
-    The collapse mode, with ``rw`` f32[K, n] (the K rounds' subsample rows
-    of a round-collapsed step): ``leaf`` f32[T K, P] and ``row_node`` i32[T
-    K, n] hold K trees a batch element (tree tK + k), and the update is
-    ``F[t] += (eta[t] / K) * sum_k leaf[tK + k, row_node[tK + k, r]]``, the
-    K leaves summed in XLA's order (``collapse_leaf_sum``), ``eta / K`` as
-    ``collapse_scale``, the product and the sum one fused multiply-add for
-    both losses, as XLA's CPU code contracts the reference's collapsed
-    update (the squared loss too, unlike its K = 1 mode: with the
-    reference's rounding the Boston flow's collapsed GBT folds stay within
-    3.5e-5 of the JAX package's, relative, as with two roundings); ``ghw``
-    f32[T K, n, 2] gets the gradient and hessian at the new margins times
-    ``w[t] * rw[k]`` for tree tK + k.
+    With ``leaf`` f32[T K, P] and ``row_node`` i32[T K, n] (tree tK + k):
+    the margin update ``F[t] += (eta[t] / K) * sum_k leaf[tK + k,
+    row_node[tK + k, r]]``, the K leaves summed in XLA's order
+    (``collapse_leaf_sum``), ``eta / K`` as ``collapse_scale`` (eta itself
+    at K = 1), the product and the sum one fused multiply-add for both
+    losses, as XLA's CPU code contracts the reference's update.  With
+    ``ghw`` f32[T K, n, 2]: the gradient and hessian of ``loss`` at the
+    (updated) margins times ``w[t] * rw[k]`` (the product formed first) for
+    tree tK + k: logistic ``(p - y)`` and ``max(p (1 - p), 1e-6)`` with ``p
+    = 1 / (1 + exp(-F))``; squared ``(F - y)`` and 1.  Every K runs one
+    launch of ``ops/triton_boost.py::collapse_step_kernel``.
     """
     _require(loss in ("logistic", "squared"),
              f"loss must be logistic or squared (softmax_boost_step takes the softmax), "
              f"got {loss!r}")
     _check_boost(F, y, w, eta, leaf, row_node, ghw, 0, rw)
-    T, n = F.shape
     others = [t for t in (leaf, row_node, ghw, rw) if t is not None]
     if not _on_cuda(F, y, w, eta, *others):
         return boost_step_plain(F, y, w, eta, leaf, row_node, ghw, loss, rw)
-    if rw is not None:
-        return _collapse_launch(boost_step, F, y, w, eta, leaf, row_node, ghw, rw,
-                                BOOST_LOSSES[loss], 1)
-    for name, a in (("F", F), ("ghw", ghw)):
-        _require(a is None or a.is_contiguous(), f"{name} must be contiguous (written in place)")
-    if n == 0 or (leaf is None and ghw is None):
-        return None
-    with cuda_build.kernel_errors("boost_step"):
-        from . import triton_boost as tb
-
-    y, w, eta = y.contiguous(), w.contiguous(), eta.contiguous()
-    upd = leaf is not None
-    leaf_t = leaf.contiguous() if upd else F
-    node_t = row_node.contiguous() if upd else F
-    block = 1024
-    grid = (-(-n // block), T)
-    with torch.cuda.device(F.device), cuda_build.kernel_errors("boost_step"):
-        tb.boost_step_kernel[grid](F, y, w, eta, leaf_t, node_t,
-                                   ghw if ghw is not None else F, n,
-                                   leaf_t.shape[1] if upd else 0, 1.0, UPDATE=upd,
-                                   GRAD=ghw is not None, LOSS=BOOST_LOSSES[loss], K=1, KP=1,
-                                   BLOCK=block, num_warps=4)
-    boost_step.launches += 1
-    return None
+    return _collapse_launch(boost_step, F, y, w, eta, leaf, row_node, ghw, rw,
+                            BOOST_LOSSES[loss], 1)
 
 
 boost_step.launches = 0
@@ -1067,17 +1176,12 @@ def softmax_boost_step_plain(F: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
     """Plain PyTorch version of K-R: the reference's float32 operations in
     its order, with the multiply-adds XLA's CPU code fuses: the margin
     update one fused multiply-add a channel, the softmax's sum in channel
-    order, the hessian's channel sum as ``softmax_hessian``.  With ``rw``,
-    the collapse mode."""
-    from .metrics import fma
-
+    order, the hessian's channel sum as ``softmax_hessian``; ``rw`` None is
+    one tree a batch element."""
     k = F.shape[2]
+    rw = _one_round(F) if rw is None else rw
     if leaf is not None:
-        if rw is not None:
-            _collapse_update(F, eta, leaf, row_node, rw.shape[0])
-        else:
-            lv = leaf.gather(1, row_node.long()[..., None].expand(-1, -1, k))
-            F.copy_(fma(eta[:, None, None].expand_as(lv), lv, F))
+        _collapse_update(F, eta, leaf, row_node, rw.shape[0])
     if ghw is None:
         return
     e = torch.exp(F - F.max(dim=-1, keepdim=True).values)
@@ -1086,26 +1190,7 @@ def softmax_boost_step_plain(F: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
         s = s + e[..., j]
     p = e / s[..., None]
     Y = torch.nn.functional.one_hot(y.long(), k).to(torch.float32)
-    if rw is not None:
-        _collapse_planes(ghw, p - Y[None], softmax_hessian(p), w, rw)
-        return
-    ghw[..., :k] = (p - Y[None]) * w[..., None]
-    ghw[..., k] = softmax_hessian(p) * w
-
-
-#: XLA's CPU compiler splits a reduction of more than this many elements
-#: into windows of this size (its tree-reduction rewrite)
-XLA_REDUCE_WINDOW = 32
-
-
-def hessian_windows(k: int) -> List[Tuple[int, int]]:
-    """The [start, stop) class ranges whose sums XLA's CPU code adds for the
-    reference's class mean past ``XLA_REDUCE_WINDOW`` classes: the k classes
-    padded to a multiple of the window, half the padding (rounded down) in
-    front, cut into windows."""
-    w = XLA_REDUCE_WINDOW
-    lo = (-(-k // w) * w - k) // 2
-    return [(max(0, s - lo), min(k, s - lo + w)) for s in range(0, k + lo, w)]
+    _collapse_planes(ghw, p - Y[None], softmax_hessian(p), w, rw)
 
 
 def softmax_hessian(p: torch.Tensor) -> torch.Tensor:
@@ -1114,7 +1199,7 @@ def softmax_hessian(p: torch.Tensor) -> torch.Tensor:
     the reference's ``(p * (1 - p)).mean(-1)``, the mean a product by
     float32(1 / k).  Up to ``XLA_REDUCE_WINDOW`` classes the first product
     is rounded and the others added by fused multiply-adds in channel order;
-    past it XLA splits the sum into ``hessian_windows`` (the products
+    past it XLA splits the sum into ``xla_windows`` (the products
     rounded apart, each window summed in channel order, the windows' sums
     added in order)."""
     from .metrics import fma
@@ -1128,7 +1213,7 @@ def softmax_hessian(p: torch.Tensor) -> torch.Tensor:
     else:
         r = p * q
         h = None
-        for a, b in hessian_windows(k):
+        for a, b in xla_windows(k):
             s = r[..., a]
             for j in range(a + 1, b):
                 s = s + r[..., j]
@@ -1142,22 +1227,19 @@ def softmax_boost_step(F: torch.Tensor, y: torch.Tensor, w: torch.Tensor, eta: t
                        ghw: Optional[torch.Tensor] = None,
                        rw: Optional[torch.Tensor] = None) -> None:
     """One softmax boosting step over k class margins ``F`` f32[T, n, k], in
-    place.
+    place, with K trees a batch element as ``boost_step`` (``rw`` f32[K,
+    n]; None is K = 1).
 
-    With ``leaf`` f32[T, P, k] and ``row_node`` i32[T, n]: the margin update
-    ``F[t, r, j] += eta[t] * leaf[t, row_node[t, r], j]``, one fused
-    multiply-add (XLA's CPU code contracts the reference's update so, but
-    for one channel of three at k = 3, which it rounds twice: a last-bit
-    gap there).
-    With ``ghw`` f32[T, n, k + 1]: at the (updated) margins, ``p =
-    softmax(F[t, r])`` (exp(F - max) over its sum), the k weighted gradients
-    ``(p_j - [y_r == j]) w`` and the one scalar hessian ``max(mean_j p_j (1 -
-    p_j), 1e-6) w``, with ``y`` f32[n] the class labels 0 .. k - 1 and ``w``
-    f32[T, n] the row weights.  2 <= k <= ``MAX_CHANNELS``.
-
-    The collapse mode, with ``rw`` f32[K, n]: as ``boost_step``'s, over the
-    k channels (``leaf`` f32[T K, P, k], ``ghw`` f32[T K, n, k + 1]), each
-    channel's update one fused multiply-add."""
+    With ``leaf`` f32[T K, P, k] and ``row_node`` i32[T K, n]: each
+    channel's margin update as ``boost_step``'s, one fused multiply-add
+    (XLA's CPU code contracts the reference's update so, but for one
+    channel of three at k = 3, which it rounds twice: a last-bit gap
+    there).  With ``ghw`` f32[T K, n, k + 1]: at the (updated) margins, ``p
+    = softmax(F[t, r])`` (exp(F - max) over its sum), the k gradients ``(p_j
+    - [y_r == j])`` and the one scalar hessian ``max(mean_j p_j (1 - p_j),
+    1e-6)``, times ``w[t] * rw[k]`` for tree tK + k, with ``y`` f32[n] the
+    class labels 0 .. k - 1 and ``w`` f32[T, n] the row weights.  2 <= k <=
+    ``MAX_CHANNELS``.  Every K runs one launch of ``collapse_step_kernel``."""
     _require(F.ndim == 3 and 2 <= F.shape[2] <= MAX_CHANNELS,
              f"F must be float32[T, n, k] with 2 <= k <= {MAX_CHANNELS}")
     T, n, k = F.shape
@@ -1165,32 +1247,8 @@ def softmax_boost_step(F: torch.Tensor, y: torch.Tensor, w: torch.Tensor, eta: t
     others = [t for t in (leaf, row_node, ghw, rw) if t is not None]
     if not _on_cuda(F, y, w, eta, *others):
         return softmax_boost_step_plain(F, y, w, eta, leaf, row_node, ghw, rw)
-    if rw is not None:
-        return _collapse_launch(softmax_boost_step, F, y, w, eta, leaf, row_node, ghw, rw,
-                                BOOST_LOSSES["softmax"], k)
-    for name, a in (("F", F), ("ghw", ghw)):
-        _require(a is None or a.is_contiguous(), f"{name} must be contiguous (written in place)")
-    if n == 0 or (leaf is None and ghw is None):
-        return None
-    with cuda_build.kernel_errors("softmax_boost_step"):
-        from . import triton_boost as tb
-
-    y, w, eta = y.contiguous(), w.contiguous(), eta.contiguous()
-    upd = leaf is not None
-    leaf_t = leaf.contiguous() if upd else F
-    node_t = row_node.contiguous() if upd else F
-    kp = 1 << (k - 1).bit_length()
-    block = 256 if k <= 8 else max(16, 2048 // kp)  # a [block, kp] tile of 2,048 values
-    grid = (-(-n // block), T)
-    with torch.cuda.device(F.device), cuda_build.kernel_errors("softmax_boost_step"):
-        tb.boost_step_kernel[grid](F, y, w, eta, leaf_t, node_t,
-                                   ghw if ghw is not None else F, n,
-                                   leaf_t.shape[1] if upd else 0, float(np.float32(1.0 / k)),
-                                   UPDATE=upd, GRAD=ghw is not None,
-                                   LOSS=BOOST_LOSSES["softmax"], K=k, KP=kp, BLOCK=block,
-                                   num_warps=4)
-    softmax_boost_step.launches += 1
-    return None
+    return _collapse_launch(softmax_boost_step, F, y, w, eta, leaf, row_node, ghw, rw,
+                            BOOST_LOSSES["softmax"], k)
 
 
 softmax_boost_step.launches = 0
@@ -1198,15 +1256,17 @@ softmax_boost_step.collapse_launches = 0
 
 
 def _collapse_launch(wrapper, F, y, w, eta, leaf, row_node, ghw, rw, loss: int, c: int) -> None:
-    """Launch the collapse mode of K-H (``c`` 1) or K-R (``c`` classes)
-    (``ops/triton_boost.py::collapse_step_kernel``) and count it on
-    ``wrapper``."""
+    """Launch ``ops/triton_boost.py::collapse_step_kernel`` for K-H (``c`` 1)
+    or K-R (``c`` classes) with K = ``rw.shape[0]`` trees a batch element
+    (``rw`` None: K = 1, ones) and count it on ``wrapper`` (and, for K > 1,
+    round-collapsed boosting, in its ``collapse_launches``)."""
     for name, a in (("F", F), ("ghw", ghw)):
         _require(a is None or a.is_contiguous(), f"{name} must be contiguous (written in place)")
     T, n = F.shape[:2]
-    K = rw.shape[0]
     if n == 0 or (leaf is None and ghw is None):
         return None
+    rw = _one_round(F) if rw is None else rw
+    K = rw.shape[0]
     name = wrapper.__name__
     with cuda_build.kernel_errors(name):
         from . import triton_boost as tb
@@ -1236,7 +1296,7 @@ def _collapse_launch(wrapper, F, y, w, eta, leaf, row_node, ghw, rw, loss: int, 
             HALVINGS=K.bit_length() - 1 if pow2 else 0, C=c, CP=cp, CS=cs, BLOCK=block,
             num_warps=4)
     wrapper.launches += 1
-    wrapper.collapse_launches += 1
+    wrapper.collapse_launches += int(K > 1)
     return None
 
 
@@ -1284,21 +1344,33 @@ def grow_trees(Xb: torch.Tensor, ghw: torch.Tensor, feat_mask: torch.Tensor,
     row_node = torch.zeros((T, n), dtype=torch.int32, device=dev)
     if max_depth <= 0:  # a single leaf
         nodes[:] = torch.tensor([-1, 0, 0, 0], dtype=torch.int32, device=dev)
-        leaf.view(T, P, c)[:, 0] = -ghw[..., :c].sum(1) / (ghw[..., c].sum(1)
-                                                          + params[:, 0])[:, None]
+        _root_leaf(leaf, root_sums(ghw), params)
         return nodes, leaf, row_node
     row_slot = torch.zeros((T, n), dtype=torch.int32, device=dev)
     n_active = torch.ones((T,), dtype=torch.int32, device=dev)
     ids, hist, pair_parent, pair_light = row_slot.clone(), None, None, None
+    exact = hist_exact(ghw)  # K-E's path, once a fit
     for t, (m, sb, nf, nc, cap) in enumerate(level_schedule(max_depth, frontier, exact_cap)):
         if t == 0:
-            hist = level_hist(Xb, ghw, ids, m, n_bins)
+            _check_level_hist(Xb, ghw, ids, m, n_bins, None, None, None)
+            hist = _level_hist(Xb, ghw, ids, m, n_bins, None, None, None, exact)
         else:
-            hist = level_hist(Xb, ghw, ids, m, n_bins, hist, pair_parent, pair_light)
+            hist = _level_hist(Xb, ghw, ids, m, n_bins, hist, pair_parent, pair_light, exact)
         split, pair_parent, pair_light, n_active = split_scan(
             hist, feat_mask, params, n_active, nodes, leaf, sb, nf, nc, cap, root=t == 0)
+        if t == 0:
+            _root_leaf(leaf, root_sums(ghw), params)
         row_slot, row_node, ids = route_rows(Xb, row_slot, row_node, split, pair_light, nf)
     return nodes, leaf, row_node
+
+
+def _root_leaf(leaf: torch.Tensor, sums: torch.Tensor, params: torch.Tensor) -> None:
+    """The root's value ``-G / (H + lambda)`` per tree from its row sums
+    ``sums`` f32[T, c + 1] (``root_sums``), as the reference's ``grow_tree``
+    forms it, into ``leaf`` f32[T, P(, c)]."""
+    c = sums.shape[1] - 1
+    lv = leaf.view(leaf.shape[0], -1, c)
+    lv[:, 0] = -sums[:, :c] / (sums[:, c] + params[:, 0])[:, None]
 
 
 def as_tree(nodes: torch.Tensor, leaf: torch.Tensor) -> Tree:
@@ -1319,13 +1391,13 @@ def _f32(v, T: int, dev) -> torch.Tensor:
 
 def _boost(Xb, y, w, row_w_rounds, feat_mask_rounds, loss, n_rounds, max_depth, n_bins,
            frontier, eta, params, base, exact_cap, keep_trees, n_classes=1, trees_per_round=1):
-    """Boosting over the tree batch from the margins ``base`` [T]: per round
-    one boosting step (K-H, or K-R over the ``n_classes`` margins of the
-    softmax loss: margin update + gradients) and one tree grown per batch
-    element, then a last update.  With ``trees_per_round`` = K > 1 (K
-    divides ``n_rounds``), ``n_rounds / K`` steps, each one launch of the
-    step kernel's collapse mode and T K trees grown together on the step's
-    gradients, tree tK + k with round sK + k's subsample and feature mask.
+    """Boosting over the tree batch from the margins ``base`` [T]: per step
+    one launch of the step kernel (K-H, or K-R over the ``n_classes``
+    margins of the softmax loss: margin update + gradients) and the step's
+    trees grown, then a last update.  With ``trees_per_round`` = K (K
+    divides ``n_rounds``), ``n_rounds / K`` steps, T K trees grown together
+    on a step's gradients, tree tK + k with round sK + k's subsample and
+    feature mask (K = 1: a tree a batch element and round).
     Returns (F f32[T, n, c], the rounds' (nodes, leaves) when
     ``keep_trees``, on the flat [n_rounds, T, ...] tree axis)."""
     T, n = w.shape
@@ -1353,14 +1425,11 @@ def _boost(Xb, y, w, row_w_rounds, feat_mask_rounds, loss, n_rounds, max_depth, 
     prev = (None, None)
     rw = None
     for r in range(n_rounds // K):
-        if K == 1:
-            w_r = w * row_w_rounds[r][None]
-            fm = feat_mask_rounds[r][None].expand(T, -1).contiguous()
-            step(Fs, y, w_r, eta, prev[0], prev[1], ghw)
-        else:
-            rw = row_w_rounds[r * K:(r + 1) * K].to(dev, torch.float32).contiguous()
-            fm = feat_mask_rounds[r * K:(r + 1) * K][None].expand(T, -1, -1).reshape(T * K, -1)
-            step(Fs, y, w, eta, prev[0], prev[1], ghw, rw)
+        # step r: K trees a batch element, tree tK + k with round rK + k's
+        # subsample row (the product w * rw formed in the step) and mask
+        rw = row_w_rounds[r * K:(r + 1) * K].to(dev, torch.float32).contiguous()
+        fm = feat_mask_rounds[r * K:(r + 1) * K][None].expand(T, -1, -1).reshape(T * K, -1)
+        step(Fs, y, w, eta, prev[0], prev[1], ghw, rw)
         nd, lf = (nodes_all[r], leaf_all[r]) if keep_trees else (nodes, leaf)
         _, _, row_node = grow_trees(Xb, ghw, fm.contiguous(), params, max_depth, n_bins,
                                     frontier, exact_cap, nd, lf)

@@ -1,61 +1,48 @@
-"""Triton kernels K-H (boost_step) and K-R (softmax_boost_step): the
-boosting round's elementwise pass, and their collapse modes
-(``collapse_step_kernel``) for round-collapsed boosting.
+"""Triton kernel ``collapse_step_kernel``: K-H (``ops/trees.py::boost_step``,
+the logistic and squared losses) and K-R (``::softmax_boost_step``, the
+softmax over k <= 128 class margins), the boosting step's elementwise pass
+for K >= 1 trees a batch element.
 
-Imported only by the launching wrappers ``ops/trees.py::boost_step`` and
-``::softmax_boost_step``, on a host with Triton and a CUDA card; no other
-module imports it.
+Imported only by the launching wrappers' ``ops/trees.py::_collapse_launch``,
+on a host with Triton and a CUDA card; no other module imports it.
 
 Replaces the margin update and ``_grad_hess`` of the JAX package
-(``transmogrifai_tpu/ops/trees.py:1117-1129``, ``:1206``).  K-H: for each
-(tree t, row r), ``F += eta[t] * leaf[t, row_node[t, r]]`` (one gather),
-then with ``LOSS`` 0 (logistic) ``p = 1 / (1 + exp(-F))``, ``g = (p - y) w``
-and ``h = max(p (1 - p), 1e-6) w``, with ``LOSS`` 1 (squared) ``g = (F - y)
-w`` and ``h = w``.  K-R (``LOSS`` 2, k <= 128 class margins a row): the
-update on each channel, then the row's max, ``e = exp(F - max)``, their sum
-in channel order, ``p = e / sum``, the k gradients ``(p_j - [y == j]) w``
-and one scalar hessian ``max(mean_j p_j (1 - p_j), 1e-6) w``, its channel
-sum in channel order with fused multiply-adds (past 32 channels in XLA's
-windows of 32: ``_hess_sum``) and the mean a product by float32(1 / k), as
-XLA's CPU code computes the reference's ``(p * (1 - p)).mean(-1)``; the margin update is one fused multiply-add
-(a channel), as XLA contracts the reference's, but for the squared loss,
-which rounds the product and the sum apart (see ``ops/trees.py::boost_step``).
-Each is one
-pass over [T, n] (K-R: a [rows,
-k] tile and a reduction over its k channels; above 8 classes the rows a
-block shrink so that the tile stays 2,048 values, and the channel-order
-sums run as a loop instead of unrolled) with no reuse, which shared
-memory and tensor cores cannot speed up and Triton's masked block loads
-and reductions express directly; so both are written in Triton, as K-C and
-K-D are.  Every product, sum and quotient is a round-to-nearest PTX
-instruction (no FMA contraction except the logistic and softmax margin
-updates and K-R's hessian sum, where the reference contracts), as the plain
-versions round them; ``exp`` is
-libdevice's ``expf``, which may differ from the reference's in the last
-bit.  Bound on the card: bytes (F read and written, y, w and the row's node
-read, one leaf row gathered, the gradients and hessian written).
+(``transmogrifai_tpu/ops/trees.py:1117-1129``, ``:1206``) and its
+round-collapsed update and gradients (``:1168-1185``, ``:1301-1330``): for
+batch element b and row r, the K leaves of trees bK .. bK + K - 1 are
+summed in the order XLA's CPU code reduces the reference's ``leaves.sum``
+over K (pairwise halving, leaf k with leaf k + K / 2, when K is a power of
+two; in tree order otherwise), scaled by ``eta_b * float32(1 / K)`` (XLA's
+product with the reciprocal for the reference's ``eta / K``; eta itself at
+K = 1) and added to each margin channel in one fused multiply-add (for
+every loss: XLA's CPU code contracts the reference's update so).  Then the
+gradients at the new margins are formed once: ``LOSS`` 0 (logistic) ``p =
+1 / (1 + exp(-F))``, ``g = p - y``, ``h = max(p (1 - p), 1e-6)``; ``LOSS`` 1
+(squared) ``g = F - y``, ``h = 1``; ``LOSS`` 2 (softmax) the row's max, ``e
+= exp(F - max)``, their sum in channel order, ``p = e / sum``, the k
+gradients ``p_j - [y == j]`` and one scalar hessian ``max(mean_j p_j (1 -
+p_j), 1e-6)``, its channel sum in channel order with fused multiply-adds
+(past 32 channels in XLA's windows of 32: ``_hess_sum``) and the mean a
+product by float32(1 / k), as XLA's CPU code computes the reference's ``(p
+* (1 - p)).mean(-1)``.  They are written as K weighted planes, tree bK + k
+with weights ``w[b] * rw[k]`` (the product formed first, as the
+reference's ``w_batch[:, None, :] * rwk[None]`` and as the K = 1 round's
+``w * row_w``), so one launch a step feeds the grower's B * K trees.
 
-The collapse modes (``collapse_step_kernel``, ``trees_per_round`` = K > 1)
-replace the reference's round-collapsed update and gradients
-(``transmogrifai_tpu/ops/trees.py:1168-1185``, ``:1301-1330``): for batch
-element b and row r, the K leaves of trees bK .. bK + K - 1 are summed in
-the order XLA's CPU code reduces the reference's ``leaves.sum`` over K
-(pairwise halving, leaf k with leaf k + K / 2, when K is a power of two;
-in tree order otherwise), scaled by ``eta_b * float32(1 / K)`` (XLA's
-product with the reciprocal for the reference's ``eta / K``) and added to
-each margin channel in one fused multiply-add (for every loss: XLA's CPU
-code contracts the reference's collapsed update so); then the
-gradients at the new margins are formed once and written as K weighted
-planes, tree bK + k with weights ``w[b] * rw[k]`` (the product formed
-first, as the reference's ``w_batch[:, None, :] * rwk[None]``), so one
-launch a step feeds the grower's B * K trees.  For a power of two K the
-K leaf rows are loaded as one tile and halved in registers; where K times
-the padded class count would make that tile too large, the update walks
-class slabs of ``CS`` channels (each slab's K leaves halved alike: the
-halving is per channel) and the gradients reload the updated margins after
-a block barrier.  Bound:
-bytes (F read and written, the K nodes read, the leaf pools once, y, w
-and the K subsample rows read, K gradient planes written).
+For a power of two K the K leaf rows are loaded as one tile and halved in
+registers; where K times the padded class count would make that tile too
+large, the update walks class slabs of ``CS`` channels (each slab's K
+leaves halved alike: the halving is per channel) and the gradients reload
+the updated margins after a block barrier.  Each launch is one pass over
+[B, n] with no reuse, which shared memory and tensor cores cannot speed up
+and Triton's masked block loads and reductions express directly; so it is
+written in Triton, as K-C and K-D are.  Every product, sum and quotient is
+a round-to-nearest PTX instruction (no FMA contraction except the margin
+update and the softmax hessian's sum, where the reference contracts), as
+the plain versions round them; ``exp`` is libdevice's ``expf``, which may
+differ from the reference's in the last bit.  Bound on the card: bytes (F
+read and written, the K nodes read, the leaf pools once, y, w and the K
+subsample rows read, K gradient planes written).
 """
 import triton
 import triton.language as tl
@@ -133,95 +120,9 @@ def _hess_sum(p, q, cols, K: tl.constexpr, BLOCK: tl.constexpr):
     return h
 
 
-@triton.jit
-def _softmax_step(F_ptr, y_ptr, w_ptr, eta_ptr, leaf_ptr, node_ptr, ghw_ptr, n, P, inv_k,
-                  UPDATE: tl.constexpr, GRAD: tl.constexpr, K: tl.constexpr, KP: tl.constexpr,
-                  BLOCK: tl.constexpr):
-    t = tl.program_id(1)
-    r = tl.program_id(0) * BLOCK + tl.arange(0, BLOCK)
-    ok = r < n
-    i = t.to(tl.int64) * n + r
-    cols = tl.arange(0, KP)[None, :]
-    okc = ok[:, None] & (cols < K)
-    f = tl.load(F_ptr + i[:, None] * K + cols, mask=okc, other=0.0)
-    if UPDATE:
-        eta = tl.zeros([BLOCK, KP], tl.float32) + tl.load(eta_ptr + t)
-        node = tl.load(node_ptr + i, mask=ok, other=0)
-        lv = tl.load(leaf_ptr + (t.to(tl.int64) * P + node)[:, None] * K + cols, mask=okc,
-                     other=0.0)
-        f = _fma(eta, lv, f)
-        tl.store(F_ptr + i[:, None] * K + cols, f, mask=okc)
-    if GRAD:
-        one = tl.full([BLOCK, KP], 1.0, tl.float32)
-        fm = tl.where(okc, f, float("-inf"))
-        mx = tl.max(fm, axis=1)
-        e = tl.where(okc, libdevice.exp(_sub(f, mx[:, None] + tl.zeros([BLOCK, KP], tl.float32))),
-                     0.0)
-        s = _column(e, cols, 0)
-        if K <= 8:
-            for j in tl.static_range(1, K):
-                s = _add(s, _column(e, cols, j))
-        else:
-            for j in range(1, K):
-                s = _add(s, _column(e, cols, j))
-        p = _div(e, s[:, None] + tl.zeros([BLOCK, KP], tl.float32))
-        y = tl.load(y_ptr + r, mask=ok, other=0.0).to(tl.int32)
-        w = tl.load(w_ptr + i, mask=ok, other=0.0)
-        onehot = tl.where(cols == y[:, None], 1.0, 0.0)
-        g = _mul(_sub(p, onehot), w[:, None] + tl.zeros([BLOCK, KP], tl.float32))
-        tl.store(ghw_ptr + i[:, None] * (K + 1) + cols, g, mask=okc)
-        h = _hess_sum(p, _sub(one, p), cols, K, BLOCK)
-        h = _mul(tl.maximum(_mul(h, tl.zeros([BLOCK], tl.float32) + inv_k), 1e-6), w)
-        tl.store(ghw_ptr + i * (K + 1) + K, h, mask=ok)
-
-
-@triton.jit
-def boost_step_kernel(F_ptr, y_ptr, w_ptr, eta_ptr, leaf_ptr, node_ptr, ghw_ptr, n, P, inv_k,
-                      UPDATE: tl.constexpr, GRAD: tl.constexpr, LOSS: tl.constexpr,
-                      K: tl.constexpr, KP: tl.constexpr, BLOCK: tl.constexpr):
-    if LOSS == 2:
-        _softmax_step(F_ptr, y_ptr, w_ptr, eta_ptr, leaf_ptr, node_ptr, ghw_ptr, n, P, inv_k,
-                      UPDATE, GRAD, K, KP, BLOCK)
-    else:
-        _binary_step(F_ptr, y_ptr, w_ptr, eta_ptr, leaf_ptr, node_ptr, ghw_ptr, n, P,
-                     UPDATE, GRAD, LOSS, BLOCK)
-
-
-@triton.jit
-def _binary_step(F_ptr, y_ptr, w_ptr, eta_ptr, leaf_ptr, node_ptr, ghw_ptr, n, P,
-                 UPDATE: tl.constexpr, GRAD: tl.constexpr, LOSS: tl.constexpr,
-                 BLOCK: tl.constexpr):
-    t = tl.program_id(1)
-    r = tl.program_id(0) * BLOCK + tl.arange(0, BLOCK)
-    ok = r < n
-    i = t.to(tl.int64) * n + r
-    f = tl.load(F_ptr + i, mask=ok, other=0.0)
-    one = tl.full([BLOCK], 1.0, tl.float32)
-    if UPDATE:
-        eta = tl.zeros([BLOCK], tl.float32) + tl.load(eta_ptr + t)
-        node = tl.load(node_ptr + i, mask=ok, other=0)
-        lv = tl.load(leaf_ptr + t.to(tl.int64) * P + node, mask=ok, other=0.0)
-        if LOSS == 1:
-            f = _add(f, _mul(eta, lv))
-        else:
-            f = _fma(eta, lv, f)
-        tl.store(F_ptr + i, f, mask=ok)
-    if GRAD:
-        y = tl.load(y_ptr + r, mask=ok, other=0.0)
-        w = tl.load(w_ptr + i, mask=ok, other=0.0)
-        if LOSS == 1:
-            g = _mul(_sub(f, y), w)
-            h = w
-        else:
-            p = _div(one, _add(one, libdevice.exp(-f)))
-            g = _mul(_sub(p, y), w)
-            h = _mul(tl.maximum(_mul(p, _sub(one, p)), 1e-6), w)
-        tl.store(ghw_ptr + 2 * i, g, mask=ok)
-        tl.store(ghw_ptr + 2 * i + 1, h, mask=ok)
-
-
 # ---------------------------------------------------------------------------
-# The collapse modes: K trees a batch element (round-collapsed boosting)
+# The boosting step: K trees a batch element (K = 1 a plain round, K > 1
+# round-collapsed boosting)
 # ---------------------------------------------------------------------------
 @triton.jit
 def _leaf_sum(leaf_ptr, node_ptr, t0, r, ok, n, P, C, c0, cols, okc, KT: tl.constexpr,

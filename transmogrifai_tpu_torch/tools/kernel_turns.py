@@ -9,12 +9,16 @@ layers of 64 and 128 features, 256 features and 8 classes, 256 dimensions,
 name them, the rivals of the narrow entries at those shapes: ``sgns.cu`` and
 ``lda.cu`` built again with ``-DSGNS_NARROW_MAX_DIM=0 -DLDA_NARROW_TOPICS=0``
 (K-AA's slab path at every width, K-AB's estep with the topics across the
-lanes at every k), timed under the names ``*_rival``.
+lanes at every k), timed under the names ``*_rival``.  ``--set trains``: the
+walls (host clock, synchronized, in s) of the stock Titanic, Boston and Iris
+trains at 2^18 rows and the Letter families and "bow" text flows at 2^16,
+each after a warm-up at 4,096 rows, ``--reps`` runs each (the median).
 
 Usage, on a host with a CUDA card (run as a file, so that the package is
 imported from ``--root`` alone)::
 
     python3 transmogrifai_tpu_torch/tools/kernel_turns.py --root DIR [--set classes] [--reps 20]
+    python3 transmogrifai_tpu_torch/tools/kernel_turns.py --root DIR --set trains --reps 1
 
 Prints one JSON line: the card's name and power limit, and for each shape the
 median of ``--reps`` CUDA-event runs (L2 flushed) in ms.  The inputs are made
@@ -26,6 +30,7 @@ import os
 import statistics
 import subprocess
 import sys
+import time
 
 
 def shapes(torch, Tr, L, M, dev):
@@ -149,6 +154,49 @@ def _names_rival(cuda_build, src: str) -> bool:
     return any(flag[2:].split("=")[0] in text for flag in RIVAL_FLAGS)
 
 
+def train_calls(rows: int, text_rows: int) -> dict:
+    """{name: a call training that flow at that size on the card}."""
+    from transmogrifai_tpu_torch import fixtures as FX
+    from transmogrifai_tpu_torch.apps import boston, iris, titanic
+
+    def letters(n):
+        wf, _ = FX.letters_workflow(FX.port_letters_families_space())
+        return wf.set_input_dataset(FX.letters_data(n, 26, 0), key="id").train(device="cuda")
+
+    def bow(n):
+        wf, _ = FX.port_wide_text_workflow("bow")
+        return wf.set_input_dataset(titanic.text_columns(n, 0), key="PassengerId") \
+            .train(device="cuda")
+
+    return {
+        "titanic_stock": lambda: titanic.train_titanic(titanic.titanic_data(rows, 0),
+                                                       device="cuda"),
+        "boston_stock": lambda: boston.train_boston(boston.boston_data(rows, 0), device="cuda"),
+        "iris_stock": lambda: iris.train_iris(iris.iris_data(rows, 0), device="cuda"),
+        "letters_families": lambda: letters(text_rows),
+        "wide_text_bow": lambda: bow(text_rows)}
+
+
+def train_walls(reps: int) -> dict:
+    """The median wall of ``reps`` runs of each ``train_calls`` flow, after
+    one run at 4,096 rows (its kernels built and compiled)."""
+    import torch
+
+    res = {}
+    warm = train_calls(4096, 4096)
+    for name, fn in train_calls(1 << 18, 1 << 16).items():
+        warm[name]()
+        walls = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        res[name] = statistics.median(walls)
+    return res
+
+
 def measure(root: str, reps: int, which: str = "classes") -> dict:
     sys.path.insert(0, os.path.abspath(root))
     import torch
@@ -178,6 +226,10 @@ def measure(root: str, reps: int, which: str = "classes") -> dict:
             times.append(a.elapsed_time(b))
         return statistics.median(times)
 
+    if which == "trains":
+        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True, text=True).stdout
+        return {"root": root, "card": smi.strip(), "wall_s": train_walls(reps)}
     calls = shapes(torch, Tr, L, M, dev) if which == "classes" else family_shapes(torch, dev)
     res = {name: median_ms(fn) for name, fn in calls.items()}
     if which == "families" and all(_names_rival(cuda_build, src) for src in ("sgns", "lda")):
@@ -195,8 +247,8 @@ def measure(root: str, reps: int, which: str = "classes") -> dict:
 if __name__ == "__main__":
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", required=True, help="the checkout whose package to time")
-    ap.add_argument("--set", default="classes", choices=("classes", "families"),
-                    help="which kernels' narrow shapes to time")
+    ap.add_argument("--set", default="classes", choices=("classes", "families", "trains"),
+                    help="which kernels' narrow shapes (or which trains) to time")
     ap.add_argument("--reps", type=int, default=20)
     args = ap.parse_args()
     print(json.dumps(measure(args.root, args.reps, args.set)), flush=True)
