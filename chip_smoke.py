@@ -31,6 +31,29 @@ Phases, each printing its findings on a line of its own:
 5. breakdown -- the ``--rows`` batch again, split into the reader and each
                DAG layer on the host clock, and profiled for the device's
                busy time and idle share;
+5b. serve plane -- the serving plane (``serve/``, slice 16) over the
+               committed fixtures ``titanic_stock`` (binary logistic head),
+               ``letters_stock`` (26-class softmax; fewer than two fusable
+               stages, so ``BatchScoreFunction`` on the card),
+               ``boston_ridge`` (linear head, captured with the plan) and
+               ``titanic_xgb`` (trees): K-AF (``predict_head``) against its
+               plain version at each linear head's input at 64 and 1,024
+               rows and at p = 1024 (1,024 rows), timed beside its bound and
+               ``torch.addmm``'s product; every bucket graph of max_batch 64
+               bit-equal to the eager program, with the capture seconds per
+               bucket and the bytes the graphs hold; the main path: each
+               fixture's requests through ``MicroBatcher`` and HTTP ``POST
+               /score`` against its ``expected.npz`` (rows with an infinite
+               value rejected as ``non_finite``, as the JAX package's
+               contract rejects them), then 16 clients posting while
+               ``titanic_newton`` is deployed over ``titanic_stock`` (no
+               failure, no old version after the swap, no degraded or
+               row-path batch, no recorded fallback but
+               ``aot_unsupported``), with K-AF's launches above 0; p50 and
+               p99 in turns (graph, eager, eager, graph) of single-record
+               HTTP posts at 1 and 16 clients and of in-process batches of 1,
+               64 and 1,024 records through the bucket graphs against
+               ``BatchScoreFunction``, beside the card's name and power limit;
 6. train reference -- the full-width Titanic XGBoost train (the stock grid:
                200 rounds, depth 10, min_child_weight 1 and 10, 3-fold CV)
                on the 891-row synthetic frame, through
@@ -3692,7 +3715,7 @@ def overlapped_execute(plan, ds):
     device = stage_device(plan.stages[0].stage)
     n, C = len(ds), stream.CHUNK_ROWS
     los = list(range(0, n, C))
-    program, outputs = stream._program_for(plan), stream._Outputs(plan, n, device)
+    program, outputs = stream.program_for(plan), stream._Outputs(plan, n, device)
     caller = torch.cuda.current_stream(device)
     copy_s, compute = torch.cuda.Stream(device), torch.cuda.Stream(device)
     copy_s.wait_stream(caller)
@@ -4990,6 +5013,390 @@ def slice14_phases(torch, FX, titanic, args, timer, dev="cuda"):
     return records, by_name
 
 
+# ---------------------------------------------------------------------------
+# The serving plane (slice 16): K-AF, the bucket graphs, the batcher, HTTP
+# ---------------------------------------------------------------------------
+#: the committed fixtures the serve-plane phase serves, by head
+SERVE_FIXTURES = ("titanic_stock", "letters_stock", "boston_ridge", "titanic_xgb")
+
+
+def serve_records_of(FX, name):
+    """A fixture's request records as a JSON client sends them (NaN as
+    null), and the rows holding an infinite value (the input contract
+    rejects them: HTTP 422, ``non_finite``)."""
+    import math
+
+    recs = FX.records(FX.load_columns(getattr(FX, name.upper()) + "/requests.npz"))
+    inf = [any(isinstance(v, float) and math.isinf(v) for v in r.values()) for r in recs]
+    return ([{k: (None if isinstance(v, float) and math.isnan(v) else v) for k, v in r.items()}
+             for r in recs], np.array(inf))
+
+
+def expected_gaps(FX, name, outs, keep):
+    """Served answers (score dicts of the rows ``keep``) against the
+    fixture's ``expected.npz`` (the JAX package's answers); raises on a gap
+    out of tolerance: probabilities ``FX.PROB_ATOL``, margins
+    ``FX.MARGIN_ATOL`` / ``MARGIN_RTOL``, regression ``FX.PRED_ATOL`` /
+    ``PRED_RTOL``, predictions equal off the decision boundary
+    (``FX.BOUNDARY``; the top-two margin gap for softmax)."""
+    exp = FX.load_expected(getattr(FX, name.upper()) + "/expected.npz")
+    res = [o[next(iter(o))] for o in outs]
+    pred = np.array([r["prediction"] for r in res])
+    want = exp["prediction"][keep]
+    if "probability" not in exp:
+        err = np.abs(pred - want)
+        check(bool((err <= FX.PRED_ATOL + FX.PRED_RTOL * np.abs(want)).all()),
+              f"{name}: served predictions off the fixture's by {err.max()}")
+        return {"rows": int(len(pred)), "pred_max_abs_err": float(err.max())}
+    k = exp["probability"].shape[1]
+    prob = np.array([[r[f"probability_{j}"] for j in range(k)] for r in res])
+    raw = np.array([[r[f"rawPrediction_{j}"] for j in range(k)] for r in res])
+    wprob, wraw = exp["probability"][keep], exp["rawPrediction"][keep]
+    perr, rerr = np.abs(prob - wprob), np.abs(raw - wraw)
+    top = np.sort(wraw, axis=1)
+    near = (top[:, -1] - top[:, -2]) <= (2 if k == 2 else 1) * FX.BOUNDARY
+    out = {"rows": int(len(pred)), "prob_max_abs_err": float(perr.max()),
+           "raw_max_abs_err": float(rerr.max()),
+           "pred_mismatches_off_boundary": int((pred != want)[~near].sum())}
+    check(out["prob_max_abs_err"] <= FX.PROB_ATOL, f"{name}: {out}")
+    check(bool((rerr <= FX.MARGIN_ATOL + FX.MARGIN_RTOL * np.abs(wraw)).all()), f"{name}: {out}")
+    check(out["pred_mismatches_off_boundary"] == 0, f"{name}: {out}")
+    return out
+
+
+def head_inputs(torch, model, cols, rows):
+    """The prediction head's input matrix on the card at ``rows`` rows (the
+    requests' vectors repeated), its fitted coefficients and K-AF mode."""
+    stage = model.stages[-1]
+    full = model.score(cols, keep_intermediate_features=True)
+    V = full[stage.inputs[-1].name].tensor(model.device)
+    V = V.repeat(-(-rows // V.shape[0]), 1)[:rows].contiguous()
+    dp = stage._device_params()
+    mode = ("linear" if "multinomial" not in dp
+            else "softmax" if dp["multinomial"] else "binary")
+    return V, dp["coef"], dp["intercept"], mode
+
+
+def head_record(torch, name, X, coef, b, mode, timer, plain_timer, tol_prob=None):
+    """K-AF on (X, coef, b) against its plain version: the gaps held to the
+    serve tolerances (or ``tol_prob`` for the probabilities), timed beside
+    its bound, the plain version's time and ``torch.addmm``'s product."""
+    from transmogrifai_tpu_torch import fixtures as FX
+    from transmogrifai_tpu_torch.ops import linear as L
+
+    pred, raw, prob = L.predict_head(X, coef, b, mode)
+    pred0, raw0, prob0 = L.predict_head_plain(X, coef, b, mode)
+    torch.cuda.synchronize()
+    n, p = X.shape
+    k = coef.shape[1] if mode == "softmax" else 1
+    width = 2 if mode == "binary" else k
+    if mode == "linear":
+        err = float((pred - pred0).abs().max())
+        check(bool(((pred - pred0).abs() <= FX.PRED_ATOL + FX.PRED_RTOL * pred0.abs()).all()),
+              f"{name}: predict_head differs from plain by {err}")
+        gaps = {"pred": err}
+    else:
+        rerr = float((raw - raw0).abs().max())
+        perr = float((prob - prob0).abs().max())
+        top = torch.topk(raw0, 2, dim=1).values
+        near = (top[:, 0] - top[:, 1]) <= (2 if mode == "binary" else 1) * FX.BOUNDARY
+        flips = int((pred != pred0)[~near].sum())
+        limit = FX.PROB_ATOL if tol_prob is None else tol_prob(rerr)
+        gaps = {"raw": rerr, "prob": perr, "prob_limit": limit, "flips_off_boundary": flips}
+        check(bool(((raw - raw0).abs() <= FX.MARGIN_ATOL + FX.MARGIN_RTOL * raw0.abs()).all())
+              and perr <= limit and flips == 0, f"{name}: predict_head differs: {gaps}")
+    out_floats = n * (1 + (2 * width if mode != "linear" else 0))
+    bnd, by = bound_ms(4 * (n * p + p * k + k + out_floats), 2 * n * p * k)
+    w = coef if mode == "softmax" else coef[:, None]
+    bias = b if mode == "softmax" else b[:1]
+    rec = dict(name=name, route="cuda", source="transmogrifai_tpu_torch/csrc/predict_head.cu",
+               replaces={"binary": "transmogrifai_tpu/ops/linear.py:505",
+                         "softmax": "transmogrifai_tpu/ops/linear.py:517",
+                         "linear": "transmogrifai_tpu/ops/linear.py:525"}[mode],
+               max_abs_err=max(gaps.get("raw", 0.0), gaps.get("prob", 0.0), gaps.get("pred", 0.0)),
+               ms=timer(lambda: L.predict_head(X, coef, b, mode)),
+               plain_ms=plain_timer(lambda: L.predict_head_plain(X, coef, b, mode)),
+               bound_ms=bnd, bound_by=by,
+               library_ms=timer(lambda: torch.addmm(bias, X, w)))
+    return rec, {"shape": [n, p, k], "mode": mode, **gaps}
+
+
+def percentiles(ms):
+    return {"p50_ms": float(np.percentile(ms, 50)), "p99_ms": float(np.percentile(ms, 99)),
+            "n": len(ms)}
+
+
+def http_latency(srv, rec, threads, posts):
+    """Single-record POST /score latencies (ms) from ``threads`` clients,
+    ``posts`` each; raises on any status but 200."""
+    import threading
+    import urllib.request
+
+    body = json.dumps(rec).encode()
+    times, errors = [], []
+    lock = threading.Lock()
+
+    def client():
+        for _ in range(posts):
+            req = urllib.request.Request(srv.url + "/score", data=body,
+                                         headers={"Content-Type": "application/json"})
+            t = time.perf_counter()
+            try:
+                with urllib.request.urlopen(req, timeout=60) as resp:
+                    resp.read()
+                    ok = resp.status == 200
+            except Exception as e:  # noqa: BLE001 — reported below
+                ok = False
+                errors.append(repr(e))
+            with lock:
+                times.append((time.perf_counter() - t) * 1e3)
+                if not ok and not errors:
+                    errors.append("status")
+
+    ts = [threading.Thread(target=client) for _ in range(threads)]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(300)
+    check(not errors, f"HTTP posts failed: {errors[:3]}")
+    return times
+
+
+def serve_plane_phase(torch, FX, timer, args, dev="cuda"):
+    """Phase 5b, the serving plane on the card: K-AF against its plain
+    version at the serve shapes, each fixture's bucket graphs against the
+    eager program, the four fixtures' answers through ``MicroBatcher`` and
+    HTTP against the JAX package's, latency in turns (graph, eager, eager,
+    graph), and a hot swap under load.  Returns (the K-AF records, their
+    launches on the serve plane's main path)."""
+    import threading
+    import urllib.error
+    import urllib.request
+
+    import transmogrifai_tpu_torch as P
+    from transmogrifai_tpu_torch.obs import registry as obs_registry
+    from transmogrifai_tpu_torch.ops import linear as L
+    from transmogrifai_tpu_torch.serve import MicroBatcher, ModelRegistry, ModelServer, aot
+
+    smi = nvidia_smi()
+    models = {nm: P.load_model(getattr(FX, nm.upper()), device=dev) for nm in SERVE_FIXTURES}
+    #: the user's call on the card: the default devices (one replica a card)
+    devices = None if dev == "cuda" else [torch.device(dev)]
+    requests = {nm: serve_records_of(FX, nm) for nm in SERVE_FIXTURES}
+    plain_timer = Timer(torch, 5)
+
+    # K-AF at the serve shapes: each linear fixture's head at buckets 64 and
+    # 1024, and p = 1024 at 1,024 rows
+    records, shapes = [], {}
+    for nm in ("titanic_stock", "letters_stock", "boston_ridge"):
+        cols = FX.load_columns(getattr(FX, nm.upper()) + "/requests.npz")
+        finite = ~requests[nm][1]
+        cols = {k: v[finite] for k, v in cols.items()}
+        for rows in (64, 1024):
+            X, coef, b, mode = head_inputs(torch, models[nm], cols, rows)
+            rec, shape = head_record(torch, f"predict_head_{nm}_{rows}", X, coef, b, mode,
+                                     timer, plain_timer)
+            shapes[rec["name"]] = shape
+            if rows == 1024:
+                records.append(rec)
+            else:
+                shapes[rec["name"]].update(ms=rec["ms"], plain_ms=rec["plain_ms"],
+                                           library_ms=rec["library_ms"],
+                                           bound_ms=rec["bound_ms"])
+    rng = np.random.default_rng(args.seed)
+    Xw = torch.from_numpy(rng.normal(size=(1024, 1024)).astype(np.float32)).to(dev)
+    cw = torch.from_numpy((rng.normal(size=1024) / 32).astype(np.float32)).to(dev)
+    bw = torch.zeros(1, device=dev)
+    rec, shapes["predict_head_p1024"] = head_record(
+        torch, "predict_head_p1024", Xw, cw, bw, "binary", timer, plain_timer,
+        tol_prob=lambda gap: FX.PROB_ATOL + 0.5 * gap)
+    records.append(rec)
+    log("serve_plane_kernels", nvidia_smi=smi, shapes=shapes, records=records)
+
+    # the bucket graphs against the eager program, bit for bit, max_batch 64
+    graphs = {}
+    for nm in SERVE_FIXTURES:
+        reg = ModelRegistry(max_batch=64, devices=devices)
+        t = time.perf_counter()
+        reg.deploy(models[nm], version=f"{nm}-graphs")
+        deploy_s = time.perf_counter() - t
+        scorer = reg.replica(0).scorer
+        if scorer is None:
+            graphs[nm] = {"route": "BatchScoreFunction (aot_unsupported)", "deploy_s": deploy_s}
+            continue
+        recs = [r for r, bad in zip(*requests[nm]) if not bad]
+        replay_ms, eager_ms = {}, {}
+        for b in reg.buckets:
+            got = scorer.device_outputs(recs[:b], b)
+            want = scorer.device_outputs(recs[:b], b, eager=True)
+            check(got.keys() == want.keys() and all(np.array_equal(got[k], want[k]) for k in got),
+                  f"{nm}: bucket {b}'s graph replay differs from the eager program")
+            # the card's time for the bucket's program: the graph's replay
+            # against the same launches made one by one (CUDA events)
+            ent = scorer._entries[b]
+            if ent.graph is not None:  # (a CPU rehearsal has none)
+                replay_ms[str(b)] = timer(ent.graph.replay)
+                eager_ms[str(b)] = timer(lambda: scorer._run(ent.static))
+        graphs[nm] = {"replay_ms": replay_ms, "eager_ms": eager_ms,
+                      "capture_s": {str(b): s for b, s in sorted(scorer.capture_s.items())},
+                      "graph_bytes": scorer.graph_bytes(), "deploy_s": deploy_s,
+                      "graph_heads": scorer.graph_heads, "buckets_bit_equal": len(reg.buckets)}
+        reg.active().release()
+    log("serve_plane_graphs", nvidia_smi=smi, fixtures=graphs)
+
+    # the main path: every fixture through MicroBatcher and HTTP, then the hot
+    # swap under load; every count set to 0 just before, read just after
+    obs_registry.scope("serve").reset()
+    aot.reset_warm_stats()
+    zero_launches((L.predict_head,))
+    answers, batch_stats = {}, {}
+    for nm in SERVE_FIXTURES:
+        recs, bad = requests[nm]
+        reg = ModelRegistry(max_batch=64, devices=devices)
+        reg.deploy(models[nm], version="v1")
+        srv = ModelServer(reg, port=0, max_batch=64, max_wait_ms=2.0).start()
+        try:
+            futures = []
+            for r in recs:
+                try:
+                    futures.append(srv.batcher.submit(r))
+                except Exception as e:  # noqa: BLE001 — the contract's rejections
+                    futures.append(e)
+            outs = [f.result(60).output for f, b in zip(futures, bad) if not b]
+            rejected = [getattr(f, "reason", repr(f)) for f, b in zip(futures, bad) if b]
+            check(all(r == "non_finite" for r in rejected), f"{nm}: {rejected}")
+            req = urllib.request.Request(srv.url + "/score",
+                                         data=json.dumps({"records": recs}).encode(),
+                                         headers={"Content-Type": "application/json"})
+            try:
+                with urllib.request.urlopen(req, timeout=120) as resp:
+                    status, body = resp.status, json.loads(resp.read())
+            except urllib.error.HTTPError as e:
+                status, body = e.code, json.loads(e.read())
+            check(status == (422 if bad.any() else 200), f"{nm}: HTTP status {status}")
+            check([e["index"] for e in body.get("errors", [])] == list(np.flatnonzero(bad)),
+                  f"{nm}: HTTP rejected rows {body.get('errors')}")
+            http = [s for s, b in zip(body["scores"], bad) if not b]
+            answers[nm] = {"batcher": expected_gaps(FX, nm, outs, ~bad),
+                           "http": expected_gaps(FX, nm, http, ~bad),
+                           "rejected_non_finite": len(rejected),
+                           "graphs": reg.replica(0).scorer is not None}
+            snap = srv.metrics.snapshot()
+            batch_stats[nm] = {k: snap[k] for k in ("batches", "fallback_batches",
+                                                    "fallback_records", "degraded_batches",
+                                                    "errors")}
+        finally:
+            srv.stop()
+            reg.active().release()
+
+    # hot swap under load: 16 clients for about 5 s, titanic_newton over
+    # titanic_stock through POST /models
+    reg = ModelRegistry(max_batch=64, devices=devices)
+    reg.deploy(models["titanic_stock"], version="v1")
+    srv = ModelServer(reg, port=0, max_batch=64, max_wait_ms=2.0, queue_size=4096).start()
+    rec = next(r for r, b in zip(*requests["titanic_stock"]) if not b)
+    body = json.dumps(rec).encode()
+    swapped, stop = threading.Event(), threading.Event()
+    seen, failures, stale = [], [], []
+    lock = threading.Lock()
+
+    def client():
+        while not stop.is_set():
+            was = swapped.is_set()
+            req = urllib.request.Request(srv.url + "/score", data=body,
+                                         headers={"Content-Type": "application/json"})
+            try:
+                with urllib.request.urlopen(req, timeout=60) as resp:
+                    version = json.loads(resp.read())["model_version"]
+            except Exception as e:  # noqa: BLE001 — counted
+                with lock:
+                    failures.append(repr(e))
+                continue
+            with lock:
+                seen.append(version)
+                if was and version != "v2":
+                    stale.append(version)
+
+    threads = [threading.Thread(target=client) for _ in range(16)]
+    for t in threads:
+        t.start()
+    try:
+        time.sleep(2.0)
+        t0 = time.perf_counter()
+        req = urllib.request.Request(
+            srv.url + "/models",
+            data=json.dumps({"path": FX.TITANIC_NEWTON, "version": "v2"}).encode(),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=300) as resp:
+            check(json.loads(resp.read())["active"] == "v2", "the swap did not take")
+        swap_s = time.perf_counter() - t0
+        swapped.set()
+        time.sleep(3.0)
+    finally:
+        stop.set()
+        for t in threads:
+            t.join(60)
+    snap = srv.metrics.snapshot()
+    srv.stop()
+    reg.active().release()
+    launches = {"predict_head": L.predict_head.launches}
+    fallbacks = [f["reason"] for f in obs_registry.scope("serve").list("fallbacks")]
+    swap = {"requests": len(seen) + len(failures), "failed": len(failures),
+            "stale_after_swap": len(stale), "v1": seen.count("v1"), "v2": seen.count("v2"),
+            "swap_s": swap_s, "degraded_batches": snap["degraded_batches"],
+            "fallback_records": snap["fallback_records"], "fallbacks": fallbacks,
+            "request_latency": snap["request_latency"]}
+    log("serve_plane", nvidia_smi=smi, answers=answers, batches=batch_stats, hot_swap=swap,
+        launches=launches, warm_stats=aot.warm_stats())
+    check(not failures and not stale, f"hot swap: {swap}")
+    check(snap["degraded_batches"] == 0 and snap["fallback_records"] == 0, f"hot swap: {swap}")
+    check(all(s["fallback_batches"] == 0 and s["degraded_batches"] == 0 and s["errors"] == 0
+              for s in batch_stats.values()), f"a batch left the bucket path: {batch_stats}")
+    check(set(fallbacks) <= {"aot_unsupported"}, f"recorded fallbacks: {fallbacks}")
+    check(launches["predict_head"] > 0, "predict_head was not launched on the serve plane")
+
+    # latency in turns: graph, eager, eager, graph
+    latency = {}
+    recs64 = [r for r, b in zip(*requests["titanic_stock"]) if not b]
+    big = [{k: (None if isinstance(v, float) and v != v else v) for k, v in r.items()}
+           for r in FX.records(titanic_columns(1024, args.seed + 2))]
+    for max_batch, sizes in ((64, (1, 64)), (1024, (1024,))):
+        reg = ModelRegistry(max_batch=max_batch, devices=devices)
+        entry = reg.deploy(models["titanic_stock"], version=f"latency-{max_batch}")
+        rep = reg.replica(0)
+        eager = P.BatchScoreFunction(models["titanic_stock"])
+        for size in sizes:
+            part = (recs64 if size <= 64 else big)[:size]
+            turns = []
+            for route in ("graph", "eager", "eager", "graph"):
+                fn = rep.score if route == "graph" else eager
+                ms = []
+                for _ in range(args.reps):
+                    t = time.perf_counter()
+                    out = fn(part)
+                    ms.append((time.perf_counter() - t) * 1e3)
+                    check(len(out) == size, "short answer")
+                turns.append({"route": route, **percentiles(ms)})
+            latency[f"batch_{size}"] = turns
+        if max_batch == 64:
+            srv = ModelServer(reg, port=0, max_batch=64, max_wait_ms=2.0).start()
+            try:
+                for threads, posts in ((1, 100), (16, 25)):
+                    turns = []
+                    for route in ("graph", "eager", "eager", "graph"):
+                        entry.batch = entry._default_batch if route == "graph" else \
+                            (lambda recs: eager(recs))
+                        turns.append({"route": route, **percentiles(
+                            http_latency(srv, recs64[0], threads, posts))})
+                    latency[f"http_{threads}_clients"] = turns
+                entry.batch = entry._default_batch
+            finally:
+                srv.stop()
+        reg.active().release()
+    log("serve_plane_latency", nvidia_smi=smi, latency=latency)
+    return records, {r["name"]: launches["predict_head"] for r in records}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5075,6 +5482,10 @@ def main(argv=None):
     check(not missing, f"kernels not launched on the main path: {missing}")
     breakdown_phase(torch, model, cols)
     del cols
+
+    # 5b. the serving plane: K-AF, the bucket graphs, the batcher and HTTP,
+    # latency in turns, the hot swap under load
+    serve_plane_records, serve_plane_launches = serve_plane_phase(torch, FX, timer, args)
 
     # 6-11. training: the fixtures' trains, the main path at scale, kernels
     train_reference_phase(torch, titanic, FX)
@@ -5217,6 +5628,8 @@ def main(argv=None):
 
     for r in records:
         r["launches"] = launches[r["name"]]
+    for r in serve_plane_records:
+        r["launches"] = serve_plane_launches[r["name"]]
     for r in train_records:
         r["launches"] = train_launches[r["name"]]
     for r in boston_records:
@@ -5241,7 +5654,7 @@ def main(argv=None):
         r["launches"] = slice13_launches[r["name"]]
     for r in slice14_records:
         r["launches"] = slice14_launches[r["name"]]
-    records += (train_records + boston_records + iris_records + slice6_records
+    records += (serve_plane_records + train_records + boston_records + iris_records + slice6_records
                 + families_records + kw_records + glm_records + stream_records + text_records
                 + slice11_records + slice12_records + slice13_records + slice14_records)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",

@@ -10,10 +10,10 @@ forests of 50 trees and 18 GBT regressors of 20 rounds, 3-fold CV on the
 ``transmogrifai_tpu_torch/fixtures/boston_stock/`` (the JAX package's sweep
 metrics, draws, saved model and its predictions for 256 requests): the
 same winner, and each family's fold RMSE within ``FX.BOSTON_RMSE_RTOL``
-(relative).  The forests and GBT are not bit-equal to the JAX package's on
-these real-valued targets: K-E sums the gradients in fixed point where XLA
-sums them in float32, so leaf values move in the last bits and near-tied
-splits can flip.  The models the two packages save load and score alike in
+(relative).  K-E sums the real-valued gradients in XLA's float32 row order,
+so the forests and GBT follow the JAX package's splits; their fold RMSE
+differ in the last bits through the metrics' and the trees' sums in another
+order (measured on the CPU: 6.6e-8 RF, 8.0e-8 GBT).  The models the two packages save load and score alike in
 the other, and the port's re-saves to byte-equal files.
 
 Regenerate the fixture with ``python tests/test_torch_boston_slice.py

@@ -1251,3 +1251,94 @@ def test_logistic_grid_error_matches_plain(dev, n, d, F, G):
     near = ((z.abs() <= 4 * d * 2.0 ** -24 * scale) * val_w[:, None].double()).sum(-1)
     den = torch.clamp_min(val_w.double().sum(-1), 1.0)[:, None]
     assert ((got.double() - want.double()).abs() <= near / den + 1e-7).all()
+
+
+@pytest.mark.parametrize("p", [10, 85, 1024])
+@pytest.mark.parametrize("mode,k", [("binary", 1), ("softmax", 3), ("softmax", 26),
+                                    ("softmax", 128), ("linear", 1)])
+def test_predict_head_matches_plain(dev, p, mode, k):
+    """K-AF against its plain version: margins within float32 sums of p
+    products in another order; probabilities within 1e-6 plus half the
+    largest margin gap (a softmax output p_i moves by at most
+    2 p_i (1 - p_i) <= 1/2 times its inputs' largest move, a sigmoid's by
+    1/4 of it); predictions equal off the decision boundary."""
+    from transmogrifai_tpu_torch.ops import linear as L
+
+    rng = np.random.default_rng(p * 131 + k)
+    n = 1000
+    X = torch.from_numpy(rng.normal(size=(n, p)).astype(np.float32)).to(dev)
+    shape = (p, k) if mode == "softmax" else (p,)
+    coef = torch.from_numpy((rng.normal(size=shape) / np.sqrt(p)).astype(np.float32)).to(dev)
+    b = torch.from_numpy(rng.normal(size=k).astype(np.float32)).to(dev)
+    pred, raw, prob = _counted(L.predict_head, lambda: L.predict_head(X, coef, b, mode))
+    pred0, raw0, prob0 = L.predict_head_plain(X, coef, b, mode)
+    if mode == "linear":
+        assert raw is None and prob is None
+        torch.testing.assert_close(pred, pred0, atol=1e-5, rtol=1e-5)
+        return
+    torch.testing.assert_close(raw, raw0, atol=1e-5, rtol=1e-5)
+    gap = float((raw - raw0).abs().max())
+    torch.testing.assert_close(prob, prob0, atol=1e-6 + 0.5 * gap, rtol=0)
+    top = torch.topk(raw0, 2, dim=1).values
+    near = (top[:, 0] - top[:, 1]) <= (2e-4 if mode == "binary" else 1e-4)
+    assert torch.equal(pred[~near], pred0[~near])
+
+
+@pytest.mark.parametrize("name", ["TITANIC_STOCK", "BOSTON_RIDGE", "TITANIC_XGB"])
+def test_bucket_graph_replays_the_eager_program_bit_for_bit(dev, name):
+    """Each bucket's CUDA graph against the same program launched op by op,
+    on the fixture's requests, at every bucket of max_batch 64."""
+    import math
+
+    import transmogrifai_tpu_torch as P
+    from transmogrifai_tpu_torch import fixtures as FX
+    from transmogrifai_tpu_torch.serve import shape_buckets
+    from transmogrifai_tpu_torch.serve.aot import BucketScorer
+
+    path = getattr(FX, name)
+    model = P.load_model(path)
+    recs = [{k: (None if isinstance(v, float) and math.isnan(v) else v) for k, v in r.items()}
+            for r in FX.records(FX.load_columns(path + "/requests.npz"))
+            if not any(isinstance(v, float) and math.isinf(v) for v in r.values())]
+    buckets = shape_buckets(64)
+    scorer = BucketScorer(model, buckets, dev)
+    scorer.warm()
+    before = scorer.replays
+    try:
+        for b in buckets:
+            part = recs[:b]
+            graph = scorer.device_outputs(part, b)
+            eager = scorer.device_outputs(part, b, eager=True)
+            assert graph.keys() == eager.keys()
+            for key in graph:
+                assert np.array_equal(graph[key], eager[key]), (b, key)
+        assert scorer.replays - before == len(buckets)
+        assert scorer.capture_s.keys() == set(buckets)
+    finally:
+        scorer.release()
+
+
+def test_min_child_weight_boundary_tree_on_the_card(dev):
+    """The softmax first round at min_child_weight 10 with 45 rows of
+    hessian 0.22222221 in one bin (9.9999994 exactly, 10.000003 in float32
+    row order): the card's ordered K-E sums as the reference does, so its
+    tree splits on them as the plain version's CPU run does
+    (``tests/test_torch_softmax_boost.py`` holds that run to the JAX
+    package's), and not at 10.00001."""
+    idx = np.arange(150)
+    left = idx[idx % 3 == 0][:45]
+    Xb = np.full((150, 1), 2, np.int32)
+    Xb[left, 0] = 0
+    y = np.where(np.isin(idx, left), 0, 1 + idx % 2).astype(np.float32)
+    host = [torch.from_numpy(a) for a in (Xb, y, np.ones(150, np.float32),
+                                          np.ones((1, 150), np.float32),
+                                          np.ones((1, 1), np.float32))]
+    for mcw, split in ((10.0, True), (10.00001, False)):
+        got_t, got_F = Tr.fit_gbt(*[a.to(dev) for a in host], "softmax", 1, 1, 4, 8, eta=0.3,
+                                  min_child_weight=mcw, n_classes=3)
+        want_t, want_F = Tr.fit_gbt(*host, "softmax", 1, 1, 4, 8, eta=0.3,
+                                    min_child_weight=mcw, n_classes=3)
+        for name in ("split_feat", "split_bin", "left", "right"):
+            assert torch.equal(getattr(got_t, name).cpu(), getattr(want_t, name))
+        assert torch.equal(got_F.cpu(), want_F)
+        assert bool(got_t.split_feat[0, 0] == 0) == split

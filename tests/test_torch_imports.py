@@ -9,14 +9,16 @@ package, and no silent CPU fallback.
   streaming executor at a lowered threshold, and the JAX-saved
   OpTitanicSimple model's scores; round-collapsed XGBoost under the
   multiclass selector, the train/validation split and
-  ``parallel/sweep.sharded_logistic_sweep``), each case in a fresh interpreter at one
+  ``parallel/sweep.sharded_logistic_sweep``; a deploy and a score through the
+  serving plane, ``serve/``), each case in a fresh interpreter at one
   thread with its own time limit, leave no ``jax*``, ``pandas*`` or
   ``transmogrifai_tpu[.*]`` module loaded.
 - A scan of the port's sources finds no such import; pandas appears only
   inside the reader's DataFrame branch, and Triton only
   in the kernel modules that the launching wrappers import lazily.
 - With no CUDA device, the entry points raise unless ``device="cpu"`` is
-  given.
+  given, and the serving plane's registry and ``serve_devices`` unless
+  ``devices=[torch.device("cpu")]`` is.
 """
 import ast
 import os
@@ -135,6 +137,17 @@ err, _, _ = PS.sharded_logistic_sweep(X, (X[:, 0] > 0).astype(np.float32),
                                       np.array([0.1], np.float32), device="cpu")
 assert err.shape == (1,)
 """, 180),
+    "serve_plane": (r"""
+from transmogrifai_tpu_torch.serve import MicroBatcher, ModelRegistry
+reg = ModelRegistry(max_batch=4, devices=[torch.device("cpu")])
+reg.deploy(P.load_model(FX.BOSTON_RIDGE, device="cpu"))
+b = MicroBatcher(reg, max_batch=4).start()
+try:
+    out = b.score({"rm": 6.0, "chas": 0, "crim": None}, timeout_s=30)
+finally:
+    b.stop()
+assert reg.replica(0).scorer is not None and "prediction" in next(iter(out.values()))
+""", 120),
 }
 
 
@@ -220,6 +233,29 @@ def test_entry_points_raise_without_a_card_unless_cpu_is_asked():
     wf.set_input_dataset(titanic.titanic_data(60, 3), key="PassengerId")
     with pytest.raises(RuntimeError, match='device="cpu"'):
         wf.train()
+
+
+def test_serving_plane_raises_without_a_card_unless_cpu_is_asked():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is available")
+    from transmogrifai_tpu_torch.parallel.mesh import serve_devices
+    from transmogrifai_tpu_torch.serve import ModelRegistry
+
+    for call in (serve_devices, ModelRegistry, lambda: ModelRegistry(replicas=2)):
+        with pytest.raises(RuntimeError, match=r'devices=\[torch.device\("cpu"\)\]'):
+            call()
+    assert ModelRegistry(devices=[torch.device("cpu")]).n_replicas == 1
+
+
+def test_serving_plane_sources_are_scanned():
+    """The import scan above covers the serving plane's packages."""
+    scanned = {rel for rel, _ in _sources()}
+    for rel in ("obs/registry.py", "obs/trace.py", "obs/slo.py", "resilience/inject.py",
+                "resilience/circuit.py", "resilience/retry.py", "resilience/quarantine.py",
+                "parallel/mesh.py", "serve/aot.py", "serve/batcher.py", "serve/registry.py",
+                "serve/server.py", "serve/contract.py", "serve/metrics.py",
+                "serve/supervisor.py"):
+        assert rel in scanned, rel
 
 
 def test_model_class_paths_map_to_the_port():

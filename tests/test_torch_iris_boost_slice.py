@@ -24,8 +24,8 @@ Both are held to the committed fixture
 for bit, the same winners, the holdout's Error / F1 / Precision / Recall
 equal, and the saved model's probabilities for the fixture's 256 requests
 within ``FX.IRIS_BOOST_PROB_ATOL`` (the boosted margins are float32 sums in
-another order, and K-E's fixed-point histogram sums can move a leaf value
-in its last bits).  The full-width trains take longer than tier 1 allows
+another order, and the softmax's ``exp``, an ulp from XLA's, can move a leaf
+value in its last bits).  The full-width trains take longer than tier 1 allows
 on one CPU thread, so they are marked ``slow``; a cut grid (3 rounds, depth
 3) trains through both packages in tier 1.
 

@@ -497,9 +497,9 @@ def test_many_class_train_matches_the_jax_packages(name, many):
 def test_many_class_boosting_matches_the_jax_packages(name, many):
     """Softmax boosting over 10 class margins through K-R's step (K = 1) and
     collapse (K = 4) modes: the same winner, the fold Errors within
-    ``FX.MANY_FLIP_ROWS`` rows (K-E's exact sums of real-valued gradients
-    against XLA's float32 sums flip near-tied splits from the second round
-    on: a standing gap, ROADMAP)."""
+    ``FX.MANY_FLIP_ROWS`` rows (K-E sums the real-valued gradients in XLA's
+    float32 row order; the softmax's ``exp``, an ulp from XLA's, can still
+    flip a near-tied split: a standing gap, ROADMAP)."""
     model, calls = _port_train(name)
     found = FX.check_many_class_train(model, name, calls)
     assert found["calls"] == 1

@@ -10,7 +10,8 @@ agree on the winner, every candidate's fold AuPR (logistic regression
 within ``FX.LR_AUPR_TOL``: FISTA's float32 sums in another order; random
 forest within ``FX.RF_AUPR_TOL``: the forests are bit-equal and only the
 AuPR's own sum differs; XGBoost within ``XGB_AUPR_TOL``: the histograms are
-summed in fixed point against XLA's float32), the refit's coefficients and
+summed in XLA's order, but the logistic gradients carry the host's ``exp``,
+an ulp from XLA's, which can move a near-tied split), the refit's coefficients and
 the holdout metrics; the model the port saves loads and scores alike in
 both packages and re-saves to byte-equal files.
 
@@ -60,9 +61,10 @@ from transmogrifai_tpu_torch.ops import trees as PT
 torch.set_num_threads(1)
 
 FIXTURE = FX.TITANIC_STOCK
-#: the cut XGBoost candidates' fold AuPR (8 rounds: the fixed-point
-#: histogram sums can move a near-tied split)
-XGB_AUPR_TOL = 1e-4
+#: the XGBoost candidates' fold AuPR: the logistic ``exp`` moves the
+#: gradients by an ulp, which can move a near-tied split (measured on the
+#: CPU: 6.0e-8 on the cut grid, 2.2e-5 on the full-width train)
+XGB_AUPR_TOL = 5e-5
 #: the holdout metrics of the refit logistic regression
 HOLDOUT_TOL = 1e-5
 #: the refit's coefficients (FISTA, 200 steps, float32 sums in another order)

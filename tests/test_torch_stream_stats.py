@@ -259,7 +259,7 @@ def test_one_device_only():
                  lambda: PS.fused_moments_and_correlations(PS.chunked(X, y), 6, mesh=mesh),
                  lambda: PS.sharded_correlations(X, y, mesh=mesh),
                  lambda: PS.sharded_column_moments(X, devices=["cpu", "cpu"])):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+        with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
             call()
 
 

@@ -10,10 +10,10 @@ must agree on the fold masks and the holdout, the kept sanity-check columns
 and the statistics behind them (float64 moments and correlations within
 1e-9, contingency counts equal), every fold's AuPR (within 1e-6), the
 winner, the refit trees, and the holdout metrics (AuPR and AuROC within
-5e-3, equal confusion counts: the refit's leaf values differ in the last
-bits, because the port sums the histograms in fixed point and XLA in
-float32, and the 8-round model's scores have many ties, which such bits can
-split or join; measured: AuPR equal, AuROC 1.6e-3 apart); the model the
+2e-3, equal confusion counts: the refit's leaf values differ in the last
+bits, because the logistic gradients carry the host's ``exp``, an ulp from
+XLA's, and the 8-round model's scores have many ties, which such bits can
+split or join; measured on the CPU: AuPR 5.3e-4, AuROC 8.2e-4 apart); the model the
 port saves loads in both packages, which score it with the fixture's
 tolerances, and re-saves to byte-equal JSON.  The per-family sweep (the
 route for candidates the fused sweep does not take) is held to the JAX
@@ -53,7 +53,7 @@ torch.set_num_threads(1)
 GRID = [{"num_round": 8, "eta": 0.02, "min_child_weight": mcw, "max_depth": 4, "gamma": 0.8}
         for mcw in (1.0, 10.0)]
 AUPR_TOL = 1e-6
-HOLDOUT_TOL = 5e-3
+HOLDOUT_TOL = 2e-3
 
 
 def _rule_words(reasons):

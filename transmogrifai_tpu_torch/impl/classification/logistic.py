@@ -21,7 +21,7 @@ import torch
 
 from ...ops import linear as L
 from ..feature._util import stage_device
-from ..selector.predictor import PredictorEstimator, as_matrix
+from ..selector.predictor import PredictorEstimator, as_matrix, linear_head_program
 
 
 def _newton_steps(max_iter: int) -> int:
@@ -139,6 +139,12 @@ class OpLogisticRegression(PredictorEstimator):
     @classmethod
     def predict_tensors(cls, dparams: Dict[str, Any], X: torch.Tensor
                         ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
-        predict = L.predict_softmax if dparams["multinomial"] else L.predict_binary_logistic
-        raw, prob, pred = predict(X, dparams["coef"], dparams["intercept"])
+        mode = "softmax" if dparams["multinomial"] else "binary"
+        pred, raw, prob = L.predict_head(X, dparams["coef"], dparams["intercept"], mode)
         return pred.cpu().numpy(), raw.cpu().numpy(), prob.cpu().numpy()
+
+    @classmethod
+    def predict_program(cls, params: Dict[str, Any]):
+        """``X -> (pred, raw, prob)`` on ``X``'s device through K-AF (binary
+        or softmax), the parameters placed once per device."""
+        return linear_head_program(params, "softmax" if params.get("multinomial") else "binary")

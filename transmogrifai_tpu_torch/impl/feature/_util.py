@@ -27,6 +27,21 @@ def stage_device(stage) -> torch.device:
     return stage.device if stage.device is not None else resolve_device(None)
 
 
+def stage_constant(stage, name: str, values: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A fitted stage's constant (fills, means, reciprocals) as a device
+    tensor, cached on the stage per (name, device, values): a copy from the
+    host on every call would stall the stream, and a bucket's CUDA graph
+    (``serve/aot.py``) cannot capture one.  Keyed by the values too, so a
+    stage whose constants change gets new tensors."""
+    values = np.ascontiguousarray(values)
+    cache = stage.__dict__.setdefault("_device_constants", {})
+    key = (name, str(device), values.dtype.str, values.shape, values.tobytes())
+    t = cache.get(key)
+    if t is None:
+        t = cache.setdefault(key, torch.from_numpy(values.copy()).to(device))
+    return t
+
+
 def _upload(a: Any, device: torch.device) -> torch.Tensor:
     if isinstance(a, torch.Tensor):
         return a.to(device)

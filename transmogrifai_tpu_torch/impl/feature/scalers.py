@@ -27,13 +27,13 @@ import enum
 from typing import List, Optional, Sequence
 
 import numpy as np
-import torch
 
 from ... import types as T
 from ...columns import Column, Dataset, NumericColumn
 from ...ops import layer as L
 from ...stages.base import (AllowLabelAsInput, BinaryEstimator, BinaryTransformer, Model,
                             UnaryEstimator, UnaryTransformer)
+from ._util import stage_constant
 
 
 class OpScalarStandardScaler(UnaryEstimator):
@@ -193,7 +193,7 @@ class PercentileCalibratorModel(Model):
         return NumericColumn(T.RealNN, idx, np.ones_like(col.mask))
 
     def torch_transform(self, v, m):
-        inner = torch.from_numpy(self.splits[1:-1].astype(np.float32)).to(v.device)
+        inner = stage_constant(self, "splits", self.splits[1:-1].astype(np.float32), v.device)
         return L.numeric_scale("bucket", v, m, splits=inner)
 
 

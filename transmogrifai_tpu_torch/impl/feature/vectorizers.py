@@ -40,7 +40,7 @@ from ...ops import layer as L
 from ...ops.vectorize import fill_indicator, one_hot_codes
 from ...readers.base import null_mask
 from ...stages.base import Model, SequenceEstimator, SequenceTransformer, UnaryEstimator
-from ._util import finalize_vector, run_on_device
+from ._util import finalize_vector, run_on_device, stage_constant
 
 
 def _vector_meta(stage, cols_meta: List[VectorColumnMetadata]) -> VectorMetadata:
@@ -118,7 +118,7 @@ class RealVectorizerModel(Model):
     # ---- fused-layer protocol: (values, mask) of each input, so the stage
     # streams on intermediates as the JAX package's does ---------------------
     def torch_transform(self, *args):
-        return _fill_indicator_pairs(args, np.asarray(self.fills, np.float32),
+        return _fill_indicator_pairs(self, args, np.asarray(self.fills, np.float32),
                                      bool(self.track_nulls))
 
     def torch_out_metadata(self, cols):
@@ -133,11 +133,12 @@ class RealVectorizerModel(Model):
         return vm
 
 
-def _fill_indicator_pairs(args, fills: np.ndarray, track_nulls: bool) -> torch.Tensor:
+def _fill_indicator_pairs(stage, args, fills: np.ndarray, track_nulls: bool) -> torch.Tensor:
     """K-C over (values f32[n], mask bool[n]) pairs, stacked to [k, n]."""
     values = torch.stack([a.to(torch.float32) for a in args[0::2]])
     mask = torch.stack(list(args[1::2]))
-    return fill_indicator(values, mask, torch.from_numpy(fills).to(values.device), track_nulls)
+    return fill_indicator(values, mask, stage_constant(stage, "fills", fills, values.device),
+                          track_nulls)
 
 
 class BinaryVectorizer(SequenceTransformer):
@@ -156,7 +157,7 @@ class BinaryVectorizer(SequenceTransformer):
     # ---- fused-layer protocol ---------------------------------------------
     def torch_transform(self, *args):
         fill = float(self.get_param("fill_value", False))
-        return _fill_indicator_pairs(args, np.full(len(args) // 2, fill, np.float32),
+        return _fill_indicator_pairs(self, args, np.full(len(args) // 2, fill, np.float32),
                                      bool(self.get_param("track_nulls", True)))
 
     def torch_out_metadata(self, cols):
@@ -352,6 +353,9 @@ class OneHotVectorizerModel(Model):
                 return False  # collection values pivot through the host path
         return True
 
+    #: the rows of ``torch_host_prep``'s codes run along their last axis
+    torch_prep_row_axis = 1
+
     def torch_host_prep(self, cols) -> List[np.ndarray]:
         """Category codes i32[inputs, n] (see ``_targets``): one upload."""
         n = len(cols[0])
@@ -459,8 +463,8 @@ class StandardScalerModel(Model):
         """``(x - mean) / std`` as XLA compiles the JAX package's program: a
         product with the float32 reciprocal of std (K-AD)."""
         rcp = (np.float32(1.0) / self.std).astype(np.float32)
-        return L.column_affine(x.to(torch.float32), torch.from_numpy(self.mean).to(x.device),
-                               torch.from_numpy(rcp).to(x.device))
+        return L.column_affine(x.to(torch.float32), stage_constant(self, "mean", self.mean, x.device),
+                               stage_constant(self, "rcp", rcp, x.device))
 
     def torch_out_metadata(self, cols):
         vm = cols[0].metadata

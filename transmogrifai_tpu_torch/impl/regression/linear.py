@@ -19,7 +19,7 @@ import torch
 
 from ...ops import linear as L
 from ..feature._util import stage_device
-from ..selector.predictor import PredictorEstimator, as_matrix
+from ..selector.predictor import PredictorEstimator, as_matrix, linear_head_program
 
 
 class OpLinearRegression(PredictorEstimator):
@@ -98,5 +98,11 @@ class OpLinearRegression(PredictorEstimator):
     @classmethod
     def predict_tensors(cls, dparams: Dict[str, Any], X: torch.Tensor
                         ) -> Tuple[np.ndarray, Optional[np.ndarray], Optional[np.ndarray]]:
-        pred = L.predict_linear(X, dparams["coef"], dparams["intercept"])
+        pred, _, _ = L.predict_head(X, dparams["coef"], dparams["intercept"], "linear")
         return pred.cpu().numpy(), None, None
+
+    @classmethod
+    def predict_program(cls, params: Dict[str, Any]):
+        """``X -> (pred, None, None)`` on ``X``'s device through K-AF's
+        linear mode, the parameters placed once per device."""
+        return linear_head_program(params, "linear")

@@ -13,7 +13,9 @@ contract on a device:
 - ``device_params(params, device)`` moves the parameters onto a device
   once, and ``predict_tensors(dparams, X) -> (prediction, raw,
   probability)`` scores there and returns host numpy arrays.  Together
-  they are ``predict_arrays(params, X)``.
+  they are ``predict_arrays(params, X)``;
+- ``predict_program(params)`` is the same head as a closure over device
+  tensors (the linear families; the serving plane's head).
 """
 from __future__ import annotations
 
@@ -28,6 +30,28 @@ from ...stages.base import AllowLabelAsInput, BinaryEstimator, Model
 from ..feature._util import stage_device
 
 Preds = Tuple[np.ndarray, Optional[np.ndarray], Optional[np.ndarray]]
+
+
+def linear_head_program(params: Dict[str, Any], mode: str):
+    """The ``predict_program`` of a linear family: ``X -> (pred, raw | None,
+    prob | None)`` through K-AF (``ops/linear.predict_head``) in ``mode``,
+    the fitted coefficients placed on each device the first time it scores
+    there (a caller that captures it in a CUDA graph runs it eagerly
+    first)."""
+    from ...ops import linear as L
+
+    coef = np.ascontiguousarray(params["coef"], dtype=np.float32)
+    intercept = np.ascontiguousarray(params["intercept"], dtype=np.float32)
+    placed: Dict[torch.device, Tuple[torch.Tensor, torch.Tensor]] = {}
+
+    def program(X: torch.Tensor):
+        dp = placed.get(X.device)
+        if dp is None:
+            dp = placed.setdefault(X.device, (torch.from_numpy(coef).to(X.device),
+                                              torch.from_numpy(intercept).to(X.device)))
+        return L.predict_head(X.to(torch.float32), dp[0], dp[1], mode)
+
+    return program
 
 
 def as_matrix(X: Any, device: torch.device) -> torch.Tensor:
@@ -75,6 +99,17 @@ class PredictorEstimator(BinaryEstimator, AllowLabelAsInput):
     def predict_arrays(cls, params: Dict[str, Any], X: torch.Tensor) -> Preds:
         """Score X f32[n, d] (a tensor, on its device) with fitted params."""
         return cls.predict_tensors(cls.device_params(params, X.device), X)
+
+    @classmethod
+    def predict_program(cls, params: Dict[str, Any]):
+        """A closure ``X -> (prediction, raw | None, probability | None)``
+        over the fitted params, on ``X``'s device, returning device tensors
+        (no host sync): the serving plane captures it in a bucket's CUDA
+        graph or launches it on a replica's stream.  Families whose
+        inference is not one device program (the trees' bin and walk) raise
+        NotImplementedError, as the JAX package's do, and serve through the
+        generic ``transform_dataset`` path."""
+        raise NotImplementedError
 
     # ---- grid support ------------------------------------------------------
     def copy_with_params(self, overrides: Dict[str, Any]) -> "PredictorEstimator":

@@ -32,7 +32,8 @@ SOURCES: Tuple[str, ...] = ("bin_rows", "ensemble_walk", "level_hist", "split_sc
                              "route_rows", "col_stats", "fista", "binary_metrics",
                              "regression_metrics", "multiclass_metrics", "weighted_gram",
                              "svc", "mlp", "naive_bayes", "threefry", "stream_stats",
-                             "fused_layer", "sgns", "lda", "logistic_eval")
+                             "fused_layer", "sgns", "lda", "logistic_eval",
+                             "predict_head")
 NVCC_FLAGS: Tuple[str, ...] = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")

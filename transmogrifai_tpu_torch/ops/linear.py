@@ -9,8 +9,12 @@ proximal gradient, a fixed iteration count); ``fit_logistic_newton`` and
 logistic fits, a fixed step count); ``fit_ridge`` and
 ``fit_ridge_grid_folds`` (the closed-form ridge fits);
 ``predict_binary_logistic``, ``predict_softmax``, ``predict_softmax_grid``
-and ``predict_linear``.  Five hand-written kernels carry the solvers; three
-are in one CUDA source (``csrc/fista.cu``):
+and ``predict_linear``, and ``predict_head`` (K-AF, ``csrc/predict_head.cu``:
+a fitted linear family's prediction head in one launch, the product, the
+link and the stacked outputs, which the predictors' ``predict_tensors`` and
+``predict_program`` call; the three plain heads are its plain version).
+Five hand-written kernels carry the solvers; three are in one CUDA source
+(``csrc/fista.cu``):
 
 - ``fista_grad`` (K-K) replaces the gradient of ``fit_logistic_fista``'s
   body for all fits of the batch at once:
@@ -40,8 +44,9 @@ pivoting, as the reference's float32 ``jnp.linalg.solve``; see ``_ridge``
 for why float64; no singularity check), each result rounded to float32.  The wrappers take
 the plain version only for tensors on the CPU; for CUDA tensors they
 launch the kernel or raise ``KernelError``; ``<wrapper>.launches`` counts
-their launches.  Predictions are plain products: ``torch.matmul`` in full
-float32 (see ``utils/device.apply_f32_policy``).
+their launches.  The sweeps' fold x grid predictions (``predict_*_grid``)
+are plain products: ``torch.matmul`` in full float32 (see
+``utils/device.apply_f32_policy``).
 
 The GLM (``fit_glm_irls``, ``fit_glm_grid_folds``, ``predict_glm``,
 ``predict_glm_grid``, with the reference's ``_GLM_LINKS``,
@@ -927,3 +932,89 @@ def predict_softmax(X: torch.Tensor, coef: torch.Tensor, intercept: torch.Tensor
     prob = torch.softmax(z, dim=-1)
     pred = torch.argmax(z, dim=-1).to(torch.float32)
     return z, prob, pred
+
+
+# ---------------------------------------------------------------------------
+# K-AF predict_head
+# ---------------------------------------------------------------------------
+#: the heads K-AF computes, in ``csrc/predict_head.cu``'s order
+HEAD_MODES = ("binary", "softmax", "linear")
+#: the most classes K-AF's softmax mode takes: the softmax fits' bound
+HEAD_MAX_CLASSES = SOFTMAX_MAX_CLASSES
+_HEAD_SIGNATURES = {"predict_head_f32": ([ctypes.c_void_p] * 6
+                                         + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                                            ctypes.c_int, ctypes.c_void_p], ctypes.c_int)}
+
+
+def predict_head_plain(X: torch.Tensor, coef: torch.Tensor, intercept: torch.Tensor,
+                       mode: str) -> Tuple[torch.Tensor, Optional[torch.Tensor],
+                                           Optional[torch.Tensor]]:
+    """Plain PyTorch version of K-AF: ``predict_binary_logistic``,
+    ``predict_softmax`` or ``predict_linear`` as (pred, raw, prob)."""
+    if mode == "linear":
+        return predict_linear(X, coef, intercept), None, None
+    predict = predict_softmax if mode == "softmax" else predict_binary_logistic
+    raw, prob, pred = predict(X, coef, intercept)
+    return pred, raw, prob
+
+
+def _check_head(X, coef, intercept, mode):
+    if mode not in HEAD_MODES:
+        raise ValueError(f"unknown head mode {mode!r}: one of {HEAD_MODES}")
+    if X.dtype != torch.float32 or X.ndim != 2:
+        raise ValueError("X must be float32[n, p]")
+    p = X.shape[1]
+    if mode == "softmax":
+        if coef.ndim != 2 or coef.shape[0] != p:
+            raise ValueError(f"coef must be float32[{p}, k]")
+        k = coef.shape[1]
+        if not 1 <= k <= HEAD_MAX_CLASSES:
+            raise ValueError(f"predict_head takes 1 to {HEAD_MAX_CLASSES} classes, got {k}")
+        shapes = (("coef", coef, (p, k)), ("intercept", intercept, (k,)))
+    else:
+        shapes = (("coef", coef, (p,)), ("intercept", intercept, (intercept.numel(),)))
+        if intercept.numel() < 1:
+            raise ValueError("intercept must hold at least one value")
+    for name, a, shape in shapes:
+        if a.dtype != torch.float32 or tuple(a.shape) != shape:
+            raise ValueError(f"{name} must be float32{list(shape)}")
+
+
+def predict_head(X: torch.Tensor, coef: torch.Tensor, intercept: torch.Tensor, mode: str
+                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor], Optional[torch.Tensor]]:
+    """A linear family's prediction head in one launch: (pred f32[n], raw
+    f32[n, k'] | None, prob f32[n, k'] | None) of ``X`` f32[n, p].
+
+    ``binary``: coef f32[p], intercept f32[1]: raw [-z, z], prob [1 - s, s]
+    (s the sigmoid of z = X coef + intercept[0]), pred s >= 0.5.
+    ``softmax``: coef f32[p, k], intercept f32[k] (k <= ``HEAD_MAX_CLASSES``):
+    raw z, prob the softmax of z, pred its first arg-max.  ``linear``: coef
+    f32[p], intercept f32[1..]: pred ``X coef + intercept[0]``, no raw or
+    prob."""
+    _check_head(X, coef, intercept, mode)
+    if not _on_cuda(X, coef, intercept):
+        return predict_head_plain(X, coef, intercept, mode)
+    X, coef, intercept = X.contiguous(), coef.contiguous(), intercept.contiguous()
+    n, p = X.shape
+    k = coef.shape[1] if mode == "softmax" else 1
+    width = 2 if mode == "binary" else k
+    pred = torch.empty(n, dtype=torch.float32, device=X.device)
+    raw = prob = None
+    if mode != "linear":
+        raw = torch.empty((n, width), dtype=torch.float32, device=X.device)
+        prob = torch.empty((n, width), dtype=torch.float32, device=X.device)
+    if n == 0:
+        return pred, raw, prob
+    lib = cuda_build.load("predict_head", _HEAD_SIGNATURES)
+    with torch.cuda.device(X.device):
+        rc = lib.predict_head_f32(X.data_ptr(), coef.data_ptr(), intercept.data_ptr(),
+                                  pred.data_ptr(), None if raw is None else raw.data_ptr(),
+                                  None if prob is None else prob.data_ptr(), n, p, k,
+                                  HEAD_MODES.index(mode),
+                                  ctypes.c_void_p(torch.cuda.current_stream(X.device).cuda_stream))
+    cuda_build.check_launch("predict_head", rc)
+    predict_head.launches += 1
+    return pred, raw, prob
+
+
+predict_head.launches = 0

@@ -26,7 +26,7 @@ carries stay there in float64 and merge by torch ops, and the finalize
 
 One device, one process: a ``mesh`` or more than one device raises
 ``NotImplementedError`` (multi-GPU through ``torch.distributed``, ROADMAP
-Queue 1 item 9).  The reference's cross-host tier (``_kv_gather``,
+Queue 1 item 7).  The reference's cross-host tier (``_kv_gather``,
 ``_cross_host_gather``, ``host_*``), the identity in one process, is not
 ported, and neither is its padding of a chunk to the mesh's shard count
 (no mask: every row of a chunk counts).  The reference's carries are
@@ -49,7 +49,7 @@ def _single_device(mesh=None, devices=None) -> None:
     if mesh is not None or (devices is not None and len(devices) > 1):
         raise NotImplementedError(
             "the port's streamed statistics run on one device: a mesh or several devices "
-            "wait for multi-GPU through torch.distributed (ROADMAP Queue 1 item 9)")
+            "wait for multi-GPU through torch.distributed (ROADMAP Queue 1 item 7)")
 
 
 def _place(arr, device) -> torch.Tensor:

@@ -42,8 +42,8 @@ _PORT_PACKAGE = "transmogrifai_tpu_torch"
 _SKIP_ATTRS = {"operation_name", "output_type", "uid", "_params", "inputs", "_outputs",
                "metadata", "parent_uid", "input_type", "n_outputs",
                # the port's placement on a device, rebuilt at load; a
-               # stage's keep-set of the running plan
-               "device", "_dparams", "_kept"}
+               # stage's keep-set of the running plan; its device constants
+               "device", "_dparams", "_kept", "_device_constants"}
 
 
 def port_module(mod_name: str) -> str:

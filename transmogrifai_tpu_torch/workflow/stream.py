@@ -32,11 +32,16 @@ intermediates and outputs plus the handoff matrices (at most
 quarantine and checkpoint hooks and its multi-device route (per-head
 program, sharded scoring) are not ported.
 
+The serving plane (``serve/aot.py``) takes the same plan's per-chunk program
+(``program_for``) over arguments zero-padded to a shape bucket
+(``chunk_args``) and captures it as one CUDA graph a bucket.
+
 Chunk-safe ``torch_transform`` contract (as the JAX package's): a stage maps
 input row i to output row i with no data-dependent shapes; its
 ``torch_host_prep`` works on row slices; its ``torch_out_metadata`` is
-computed once per plan.  A stage that cannot honour it sets
-``torch_chunkable = False``.
+computed once per plan; the constants it reads are device tensors cached on
+the stage (``impl/feature/_util.stage_constant``), never a copy from the host
+a call.  A stage that cannot honour it sets ``torch_chunkable = False``.
 """
 from __future__ import annotations
 
@@ -231,10 +236,12 @@ def build_plan(ds: Dataset, layers: Sequence[Sequence[Any]], live: Optional[Set[
 # ---------------------------------------------------------------------------
 # The per-chunk program and its arguments
 # ---------------------------------------------------------------------------
-def _program_for(plan: StreamPlan):
+def program_for(plan: StreamPlan):
     """The per-chunk program: every stage's ``torch_transform`` in plan
     order, intermediates kept in a dict of device tensors, the terminals
-    returned (name -> tensor, or (values, mask) for numeric outputs)."""
+    returned (name -> tensor, or (values, mask) for numeric outputs).  Its
+    argument is the dict :func:`chunk_args` builds; the serving plane
+    (``serve/aot.py``) captures it per shape bucket."""
     stages = list(plan.stages)
 
     def program(args: Dict[str, Any]) -> Dict[str, Any]:
@@ -254,7 +261,11 @@ def _program_for(plan: StreamPlan):
                         call.append(env[nm][1])
                     else:
                         call.append(args[f"{kind}:{nm}"])
-            res = e.stage.torch_transform(*call)
+            try:
+                res = e.stage.torch_transform(*call)
+            except Exception as err:  # name the stage (a bucket capture's error)
+                err.add_note(f"in stage {type(e.stage).__name__} ({e.stage.uid})")
+                raise
             env[e.out_name] = res
             if e.terminal:
                 outs[e.out_name] = res
@@ -313,6 +324,40 @@ def _host_chunk_args(plan: StreamPlan, ds: Dataset, lo: int, hi: int
             nbytes += t.nbytes if t.device.type == "cpu" else 0
         args[f"p{si}"] = preps
     return args, nbytes
+
+
+def _pad0(t: torch.Tensor, pad: int, axis: int = 0) -> torch.Tensor:
+    """Zero-pad ``t`` by ``pad`` rows along ``axis`` (a bool tensor pads
+    False).  Padded rows are sliced off every output, so their values only
+    need to be finite."""
+    if not pad:
+        return t
+    shape = list(t.shape)
+    shape[axis] = pad
+    return torch.cat([t, torch.zeros(shape, dtype=t.dtype, device=t.device)], dim=axis)
+
+
+def chunk_args(plan: StreamPlan, ds: Dataset, lo: int, hi: int, C: int
+               ) -> Tuple[Dict[str, Any], float]:
+    """Rows [lo, hi) of the plan's inputs zero-padded to ``C`` rows, as
+    :func:`program_for`'s argument dict (the numeric masks pad False, a
+    host prep's arrays along its ``torch_prep_row_axis``, 0 by default),
+    and the bytes they hold: the serving plane's constant bucket shapes."""
+    args, _ = _host_chunk_args(plan, ds, lo, hi)
+    pad = C - (hi - lo)
+    if pad < 0:
+        raise ValueError(f"{hi - lo} rows do not fit a chunk of {C}")
+    axis = {f"p{si}": getattr(e.stage, "torch_prep_row_axis", 0)
+            for si, e in enumerate(plan.stages) if e.prep}
+    out: Dict[str, Any] = {}
+    for k, v in args.items():
+        if isinstance(v, list):
+            out[k] = [_pad0(t, pad, axis[k]) for t in v]
+        else:
+            out[k] = _pad0(v, pad)
+    nbytes = sum(t.nbytes for v in out.values() for t in (v if isinstance(v, list) else [v])
+                 if t.device.type == "cpu")
+    return out, float(nbytes)
 
 
 # ---------------------------------------------------------------------------
@@ -376,7 +421,7 @@ def execute(plan: StreamPlan, ds: Dataset) -> Dict[str, Any]:
     device = stage_device(plan.stages[0].stage)
     n = len(ds)
     C = max(1, int(CHUNK_ROWS))
-    program = _program_for(plan)
+    program = program_for(plan)
     outputs = _Outputs(plan, n, device)
     t_wall = time.perf_counter()
     bytes_in = bytes_out = 0.0
