@@ -1713,15 +1713,7 @@ def iris_kernel_phase(torch, call, timer, names=None, phase="iris_kernels", plai
               f"softmax_fista_grad {errs[-1]} from plain, above {SOFTMAX_GRAD_RTOL} x "
               f"{scales[-1]}")
     args = (X1, y, tw, fold, z0, l2m, wsum)
-    # the library yardstick: two [n, p] x [p, C k] products for all fits
-    zf = z0.permute(1, 0, 2).reshape(p, C * k)
-    Yk = torch.nn.functional.one_hot(y.long(), k).float().repeat(1, C)
-    wk = tw[fold.long()].T.repeat_interleave(k, dim=1)
-
-    def library_grad():
-        mu = torch.softmax(torch.matmul(X1, zf).view(n, C, k), -1).view(n, C * k)
-        g = torch.matmul(X1.T, wk * (mu - Yk)).view(p, C, k).permute(1, 0, 2)
-        return g / wsum[:, None, None] + l2m * z0
+    library_grad = softmax_library(torch, *args)
 
     # X1, each fold's weights and y read once, the coefficients and penalties
     # read and the gradients written; per (fit, row) the margins and the
@@ -1737,7 +1729,7 @@ def iris_kernel_phase(torch, call, timer, names=None, phase="iris_kernels", plai
         bound_ms=b, bound_by=by, library_ms=timer(library_grad)))
     check(float((library_grad() - L.softmax_fista_grad(*args)).abs().max())
           <= 1e-5 * scales[0], "the library yardstick computes another function")
-    del fit, wk, Yk
+    del fit, library_grad
 
     # K-Q multiclass_metrics: the sweep's [F, 26, n, k] probabilities
     scores = SW._all_scores(plan.spec, X, xbs, y, tw, blob)
@@ -3532,6 +3524,32 @@ def wide_reference_phase(torch, titanic, FX, dev="cuda"):
     return launches
 
 
+def softmax_library(torch, X1, y, w, fold, z, l2m, wsum):
+    """K-P's library yardstick: two [n, p] x [p, C k] products for all fits
+    and a ``softmax`` (as ``iris_kernel_phase``'s)."""
+    n, p = X1.shape
+    C, _, k = z.shape
+    zf = z.permute(1, 0, 2).reshape(p, C * k)
+    Yk = torch.nn.functional.one_hot(y.long(), k).float().repeat(1, C)
+    wk = w[fold.long()].T.repeat_interleave(k, dim=1)
+
+    def library():
+        mu = torch.softmax(torch.matmul(X1, zf).view(n, C, k), -1).view(n, C * k)
+        g = torch.matmul(X1.T, wk * (mu - Yk)).view(p, C, k).permute(1, 0, 2)
+        return g / wsum[:, None, None] + l2m * z
+
+    return library
+
+
+def library_check(torch, name, library, kernel):
+    """A library yardstick computes the kernel's function: within 1e-5 of its
+    largest entry (float32 products in another order)."""
+    torch.cuda.synchronize()
+    gap, scale = float((library - kernel).abs().max()), float(kernel.abs().max())
+    check(gap <= 1e-5 * scale, f"{name}: the library yardstick is {gap} from the kernel "
+                               f"(scale {scale}): another function")
+
+
 def wide_kernel_phase(torch, timer, dev="cuda", shapes=((85, 1 << 17), (513, 1 << 15))):
     """Phase 42: the wide entries against their plain versions at p = 85 and
     513.  Returns the three main records (p = 85)."""
@@ -3596,9 +3614,18 @@ def wide_kernel_phase(torch, timer, dev="cuda", shapes=((85, 1 << 17), (513, 1 <
         fn = lambda: L.svc_grad(X1t, y, w, fold, beta, l2v, wsum)
         err = held(f"svc_grad p{p}", fn(), L.svc_grad_plain(X1t, y, w, fold, beta, l2v, wsum))
         bd, by = bound_ms(n * p * 4 + F * n * 4 + n * 4 + 3 * C * p * 4, 4.0 * C * n * p)
+        ypm, wf = 2.0 * y - 1.0, w[fold.long()]
+
+        def svc_library():  # two [C, n] x [n, p] products and the elementwise terms
+            active = torch.clamp_min(1.0 - ypm * (beta @ X1t.T), 0.0)
+            return (wf * ((-2.0 * ypm) * active)) @ X1t / wsum[:, None] + l2v * beta
+
+        library_check(torch, f"svc_grad p{p}", svc_library(), fn())
         row = {"max_abs_err": err, "ms": timer(fn),
                "plain_ms": timer(lambda: L.svc_grad_plain(X1t, y, w, fold, beta, l2v, wsum)),
-               "bound_ms": bd, "bound_by": by, "library_ms": None, "shape": [n, p, C]}
+               "bound_ms": bd, "bound_by": by, "library_ms": timer(svc_library),
+               "shape": [n, p, C]}
+        del wf
         extra[f"svc_grad p{p}"] = row
         if p == 85:
             records.append(dict(name="svc_grad_wide", route="cuda",
@@ -3616,10 +3643,14 @@ def wide_kernel_phase(torch, timer, dev="cuda", shapes=((85, 1 << 17), (513, 1 <
                        L.softmax_fista_grad_plain(X1t, yc, w, fs, z, l2m, ws))
             bd, by = bound_ms(n * p * 4 + F * n * 4 + n * 4 + 3 * Cs * p * k * 4,
                               Cs * n * (4.0 * p * k + 6 * k))
+            library = softmax_library(torch, X1t, yc, w, fs, z, l2m, ws)
+            library_check(torch, f"softmax_fista_grad p{p} k{k}", library(), fn())
             row = {"max_abs_err": err, "ms": timer(fn),
                    "plain_ms": timer(lambda: L.softmax_fista_grad_plain(X1t, yc, w, fs, z, l2m,
                                                                          ws)),
-                   "bound_ms": bd, "bound_by": by, "library_ms": None, "shape": [n, p, k, Cs]}
+                   "bound_ms": bd, "bound_by": by, "library_ms": timer(library),
+                   "shape": [n, p, k, Cs]}
+            del library
             extra[f"softmax_fista_grad p{p} k{k}"] = row
             if p == 85 and k == 3:
                 records.append(dict(name="softmax_fista_grad_wide", route="cuda",
@@ -4580,16 +4611,7 @@ def many_extra_kernel_phase(torch, timer, plain_timer, dev="cuda"):
     check(err <= SOFTMAX_GRAD_RTOL * float(want.abs().max()), f"K-P wide at k = 26: {err}")
     b, by = bound_ms((n * p + Fo * n + n) * 4 + C * p * k * 12 + C * 4,
                      C * n * (4 * p * k + 6 * k))
-    X1t, yt, wt, foldt, zt, l2t, wsumt = args
-    zf = zt.permute(1, 0, 2).reshape(p, C * k)
-    Yk = torch.nn.functional.one_hot(yt.long(), k).float().repeat(1, C)
-    wk = wt[foldt.long()].T.repeat_interleave(k, dim=1)
-
-    def library():  # two [n, p] x [p, C k] products for all fits, as iris_kernel_phase's
-        mu = torch.softmax(torch.matmul(X1t, zf).view(n, C, k), -1).view(n, C * k)
-        g = torch.matmul(X1t.T, wk * (mu - Yk)).view(p, C, k).permute(1, 0, 2)
-        return g / wsumt[:, None, None] + l2t * zt
-
+    library = softmax_library(torch, *args)
     check(float((library() - got).abs().max()) <= 1e-5 * float(want.abs().max()),
           "the wide K-P's library yardstick computes another function")
     out["softmax_fista_grad_wide_k26"] = {
@@ -4597,7 +4619,7 @@ def many_extra_kernel_phase(torch, timer, plain_timer, dev="cuda"):
         "plain_ms": plain_timer(lambda: L.softmax_fista_grad_plain(*args)),
         "library_ms": timer(library),
         "bound_ms": b, "bound_by": by, "max_abs_err": err, "shape": [n, p, k, C]}
-    del args, got, want, zf, Yk, wk
+    del args, got, want, library
     # K-B over a 26-class forest
     n, d, Bn, T, depth, k = 1 << 16, 32, 32, 50, 12, 26
     Xb = t(rng.integers(0, Bn, (n, d)).astype(np.int8))

@@ -505,7 +505,11 @@ def test_forest_leaf_mean_matches_plain(dev, G, T, n):
                                        (20000, 33, 10, 24, 3), (65536, 33, 26, 6, 3),
                                        (5000, 33, 64, 4, 2), (3000, 64, 128, 3, 1),
                                        (20000, 85, 26, 6, 3), (2000, 513, 26, 3, 1),
-                                       (700, 1024, 128, 2, 1)])
+                                       (700, 1024, 128, 2, 1),
+                                       # the tiled entry's edges: fit groups that do
+                                       # not divide C, rows past a whole tile
+                                       (5003, 33, 9, 25, 3), (3001, 85, 27, 7, 2),
+                                       (2049, 40, 65, 5, 2), (999, 130, 127, 3, 1)])
 def test_softmax_fista_grad_matches_plain(dev, n, p, k, C, F):
     from transmogrifai_tpu_torch.ops import linear as L
 
@@ -680,7 +684,11 @@ def test_softmax_boost_step_matches_plain(dev, k, update):
                                             (235930, 17, 3, 3, False), (5000, 64, 3, 1, True),
                                             (40000, 9, 40, 4, True), (3000, 33, 2, 2, False),
                                             (20000, 85, 9, 3, True), (3000, 300, 2, 2, False),
-                                            (1, 65, 1, 1, True), (2000, 1024, 2, 1, True)])
+                                            (1, 65, 1, 1, True), (2000, 1024, 2, 1, True),
+                                            # the wide entry's tile and fit-group edges
+                                            (3000, 96, 12, 3, False), (3000, 97, 1, 1, True),
+                                            (2000, 128, 33, 3, True), (3001, 129, 12, 4, True),
+                                            (4096, 513, 33, 3, True)])
 def test_weighted_gram_matches_plain(dev, n, p, C, F, newton):
     from transmogrifai_tpu_torch.ops import linear as L
 
@@ -870,7 +878,8 @@ GLM_CASES = [("gaussian", "identity"), ("gaussian", "log"), ("binomial", "logit"
 
 
 @pytest.mark.parametrize("family,link", GLM_CASES)
-@pytest.mark.parametrize("n,p,G,F", [(4000, 6, 3, 3), (235930, 17, 3, 3), (20000, 85, 3, 3)])
+@pytest.mark.parametrize("n,p,G,F", [(4000, 6, 3, 3), (235930, 17, 3, 3), (20000, 85, 3, 3),
+                                     (5000, 129, 3, 5)])
 def test_weighted_gram_glm_mode_matches_plain(dev, family, link, n, p, G, F):
     from transmogrifai_tpu_torch.ops import linear as L
 

@@ -74,20 +74,41 @@
 //
 // Above 8 classes (up to 128, at any p up to 1,024) a thread can hold
 // neither a row's k margins nor 16 x k accumulators, so K-P takes its tiled
-// entry (softmax_partial_tiled): a block takes one fit, a chunk of rows and
-// a slab of up to 4,096 of the fit's p x k outputs (the grid's z axis), and
-// walks its rows in tiles of R (up to 128) rows staged in shared memory.
-// Per tile: the threads form the R x k margins (a thread a margin, the fit's
-// B read through L1, the row from shared memory; blocks of 32 coefficients
-// summed apart, then added) into a shared [R, k] tile;
-// a warp a row takes its max, exp(m - max) (libdevice's expf), their sum in
-// class order and the weighted residuals in place; then each thread adds
-// residual x row over the tile's rows for its 16 outputs (a float32 sum a
-// tile, added into float64 accumulators).  The chunks' float64 partials are
-// summed as the other entries' (softmax_finish, softmax_finish_wide).  The
-// work is the 2 p k operations a row and fit that the function needs (the
-// margins again for each further output slab past 4,096 outputs); the
-// margins and residuals never leave shared memory.
+// entry (softmax_partial_tiled), planned by ops/linear.py::
+// softmax_tiled_plan: a block takes a chunk of rows, a group of G fits (their
+// N = G k columns; 8 fits at the Letter train's k = 26, p = 33) and a slab
+// of output coefficient rows (all of them up to 8,192 outputs a block).  The
+// fits' coefficients sit in shared memory for the whole block ([p][N]), or,
+// where they do not fit, are streamed 32 coefficients at a time.  Row tiles
+// of R (up to 64) rows are staged by cp.async into two buffers, the next
+// tile's copies in flight during this tile's work, once for all G fits.  Per
+// tile:
+//   1. the margins [R x N] = rows . coefficients, a thread a 4 x 4 float32
+//      micro-tile (four rows' values against a float4 of coefficients from
+//      shared memory); each margin's float32 FMA blocks of 32 coefficients
+//      summed apart, then added in order (the rounding of a 1,024-term margin
+//      grows as 32 + p / 32 terms, not p), the order of the design before;
+//   2. the softmax of each (row, fit) across S lanes, the fewest (2 to 32)
+//      that leave a lane at most 8 classes (S = 4 at k = 26, 8 at 64): lane
+//      l takes classes l, l + S, ...; the max by an xor butterfly; exp(m -
+//      max) (libdevice's expf); the class sum as each lane's classes in
+//      order, then xor butterflies at offsets S / 2, ..., 1 (every lane gets
+//      the same sum); the weighted residuals in place, with the labels and
+//      weights staged beside the row tile;
+//   3. the gradient [p x N] += rows^T . residuals, a thread two 4 x 4 output
+//      micro-tiles (a float4 of the row and one of the residuals a step, 16
+//      FMAs), a float32 sum over the tile's rows added into float64.
+// The chunks' float64 partials are summed as the other entries'
+// (softmax_finish, softmax_finish_wide).  The margins and residuals never
+// leave shared memory.
+// Bound on the card: float32 operations, 4 p k a (fit, row) over the 67
+// TFLOP/s of the FMA pipe (TF32 tensor cores keep too few digits for the
+// 1e-6 tolerance of its card checks).  X1 is read once a fit group, each
+// shared load of the products feeds four FMAs, and the softmax keeps every
+// lane of a warp busy.
+// ptxas (CUDA 12.9, sm_90a): softmax_partial_tiled 128 registers (launch
+// bounds for two blocks an SM), 144 bytes of spill stores and loads; its
+// dynamic shared memory is the plan's (103,744 bytes at k = 26, p = 33).
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -575,110 +596,271 @@ int launch_softmax_wide(const void* X1, const void* y, const void* w, const void
 // ---- K-P's tiled entry (k > 8) -------------------------------------------------
 constexpr int kSoftNarrowK = 8;        // up to here the register entries
 constexpr int kSoftMaxK = 128;         // ops/linear.py::SOFTMAX_MAX_CLASSES
-constexpr int kTileRows = 128;         // rows a tile, at most
-constexpr int kOutPer = 16;            // outputs a thread
-constexpr int kOutSlab = kOutPer * kThreads;
-constexpr int kTiledBudget = 96 * 1024;
+constexpr int kOutTiles = 2;           // 4 x 4 output micro-tiles a thread (_SOFTMAX_BLOCK_OUTPUTS)
+constexpr int kMarginBlock = 32;       // coefficients of a margin's float32 block
+constexpr int kLaneClasses = 8;        // classes a lane of a row's softmax, at most
+constexpr int kSmemMax = 232448;       // the most dynamic shared memory a block takes
 
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool valid) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
+               "r"(valid ? 4 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::); }
+
+// m[i][j] += the float32 FMA chain over len coefficients of rows xr + i ld
+// against columns zc[a NP + j] (a 4 x 4 micro-tile of margins).
+__device__ __forceinline__ void margin_block(const float* __restrict__ xr, int ld,
+                                             const float* __restrict__ zc, int NP, int len,
+                                             float (&m)[16]) {
+  float part[16];
+#pragma unroll
+  for (int q = 0; q < 16; ++q) part[q] = 0.0f;
+#pragma unroll 4
+  for (int a = 0; a < len; ++a) {
+    const float4 zv = *reinterpret_cast<const float4*>(zc + a * NP);
+    const float zr[4] = {zv.x, zv.y, zv.z, zv.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float x = xr[i * ld + a];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) part[i * 4 + j] = __fmaf_rn(x, zr[j], part[i * 4 + j]);
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < 16; ++q) m[q] = __fadd_rn(m[q], part[q]);
+}
+
+// One block: row chunk blockIdx.x, the G fits of group blockIdx.y (their
+// N = G k columns, padded to NP), the output coefficient rows [PA z, PA z +
+// PA) of blockIdx.z.  Shared: the row tiles [2][R][PP] (cp.async, double
+// buffered), the fits' coefficients zs ([p][NP] resident, or [32][NP] a
+// block of coefficients at a time), the margins / residuals ms [R][NP], and
+// with each row tile its labels and each fit's weights, [2][(G + 1) R].
+__global__ void __launch_bounds__(kThreads, 2)
 softmax_partial_tiled(const float* __restrict__ X1, const float* __restrict__ y,
                       const float* __restrict__ w, const int32_t* __restrict__ fold,
                       const float* __restrict__ z, double* __restrict__ partial, int n, int p,
-                      int k, int C, int chunk_rows, int R) {
-  extern __shared__ float tsm[];
-  float* xs = tsm;           // [R][p] the tile's rows
-  float* ms = xs + R * p;    // [R][k] margins, then residuals
+                      int k, int C, int chunk_rows, int G, int R, int PA, int zres) {
+  extern __shared__ __align__(16) float tsm[];
+  const int PP = (p + 3) & ~3;
+  const int NP = (G * k + 3) & ~3;
+  float* xbuf = tsm;                          // [2][R][PP]
+  float* zs = xbuf + 2 * R * PP;              // [zres ? p : 32][NP]
+  float* ms = zs + (zres ? p : kMarginBlock) * NP;  // [R][NP]
+  float* ybuf = ms + R * NP;                         // [2][G + 1][R]: y, then w of each fit
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int c = blockIdx.y;
-  const int pk = p * k;
-  const int o0 = blockIdx.z * kOutSlab;
-  const float* zc = z + (long long)c * pk;
-  const float* wf = w + (long long)fold[c] * n;
-  double accd[kOutPer];
+  const int c0 = blockIdx.y * G;
+  const int nc = min(G, C - c0);
+  const int N = nc * k;
+  const int oa0 = blockIdx.z * PA;
+  const int NCG = NP / 4;
+  const int MA = (R / 4) * NCG;                        // margin micro-tiles
+  const int MC = (min(PA, PP - oa0) / 4) * NCG;        // output micro-tiles
+  const long long pk = (long long)p * k;
+  if (zres)
+    for (int i = tid; i < p * NP; i += kThreads) {
+      const int a = i / NP, col = i % NP;
+      zs[i] = col < N ? z[(long long)(c0 + col / k) * pk + (long long)a * k + col % k] : 0.0f;
+    }
+  double acc[kOutTiles][16];
 #pragma unroll
-  for (int q = 0; q < kOutPer; ++q) accd[q] = 0.0;
+  for (int q = 0; q < kOutTiles; ++q)
+#pragma unroll
+    for (int e = 0; e < 16; ++e) acc[q][e] = 0.0;
   const long long r0 = (long long)blockIdx.x * chunk_rows;
   const long long r1 = min((long long)n, r0 + chunk_rows);
-  for (long long t0 = r0; t0 < r1; t0 += R) {
+  const int ntiles = (int)((r1 - r0 + R - 1) / R);
+  // rows past the chunk are zero-filled; columns p .. PP - 1 stay unset
+  // (they meet only the padded outputs, which are not written)
+  auto stage = [&](int t) {
+    float* buf = xbuf + (t & 1) * R * PP;
+    const long long t0 = r0 + (long long)t * R;
     const int nr = (int)min((long long)R, r1 - t0);
-    __syncthreads();  // the previous tile is read
-    for (int i = tid; i < nr * p; i += kThreads) xs[i] = X1[t0 * p + i];
-    __syncthreads();
-    for (int i = tid; i < nr * k; i += kThreads) {
-      const int r = i / k, j = i % k;
-      const float* xr = xs + r * p;
-      // blocks of 32 coefficients summed apart, then the blocks' sums: the
-      // rounding of a 1,024-term margin grows as 32 + p / 32 terms, not p
-      float m = 0.0f;
-      for (int a0 = 0; a0 < p; a0 += 32) {
-        float part = 0.0f;
-        const int a1 = min(p, a0 + 32);
-        for (int a = a0; a < a1; ++a)
-          part = __fmaf_rn(xr[a], __ldg(zc + (long long)a * k + j), part);
-        m = __fadd_rn(m, part);
+    for (int i = tid; i < R * p; i += kThreads) {
+      const int r = i / p, a = i % p;
+      cp_async4(buf + r * PP + a, r < nr ? X1 + (t0 + r) * p + a : X1, r < nr);
+    }
+    float* yb = ybuf + (t & 1) * (G + 1) * R;
+    for (int i = tid; i < (nc + 1) * R; i += kThreads) {
+      const int g = i / R - 1, r = i % R;
+      const float* src = g < 0 ? y + t0 + r : w + (long long)fold[c0 + g] * n + t0 + r;
+      cp_async4(yb + i, r < nr ? src : y, r < nr);
+    }
+    cp_async_commit();
+  };
+  // lanes a (row, fit)'s softmax: the fewest (a power of two, at least 2)
+  // that leave a lane at most kLaneClasses classes
+  int S = 2;
+  while (S * kLaneClasses < k) S *= 2;
+  const int li = lane % S;
+  stage(0);
+  for (int t = 0; t < ntiles; ++t) {
+    cp_async_wait_all();
+    __syncthreads();  // tile t staged (and zs); tile t - 1's reads are done
+    if (t + 1 < ntiles) stage(t + 1);
+    const float* xs = xbuf + (t & 1) * R * PP;
+    const long long t0 = r0 + (long long)t * R;
+    const int nr = (int)min((long long)R, r1 - t0);
+    // 1. margins ms = xs . zs: a thread a 4 x 4 micro-tile; each margin's
+    //    float32 blocks of 32 coefficients summed apart, then added in order
+    if (zres) {
+      for (int mt = tid; mt < MA; mt += kThreads) {
+        const int rr = (mt / NCG) * 4, cc = (mt % NCG) * 4;
+        float m[16];
+#pragma unroll
+        for (int q = 0; q < 16; ++q) m[q] = 0.0f;
+        for (int a0 = 0; a0 < p; a0 += kMarginBlock)
+          margin_block(xs + rr * PP + a0, PP, zs + a0 * NP + cc, NP,
+                       min(kMarginBlock, p - a0), m);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          *reinterpret_cast<float4*>(ms + (rr + i) * NP + cc) =
+              make_float4(m[i * 4], m[i * 4 + 1], m[i * 4 + 2], m[i * 4 + 3]);
       }
-      ms[i] = m;
+    } else {
+      for (int a0 = 0; a0 < p; a0 += kMarginBlock) {
+        const int len = min(kMarginBlock, p - a0);
+        __syncthreads();  // the previous block of coefficients is read
+        for (int i = tid; i < len * NP; i += kThreads) {
+          const int a = a0 + i / NP, col = i % NP;
+          zs[i] = col < N ? z[(long long)(c0 + col / k) * pk + (long long)a * k + col % k]
+                          : 0.0f;
+        }
+        __syncthreads();
+        for (int mt = tid; mt < MA; mt += kThreads) {
+          const int rr = (mt / NCG) * 4, cc = (mt % NCG) * 4;
+          float m[16];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const float4 v = a0 == 0 ? make_float4(0.0f, 0.0f, 0.0f, 0.0f)
+                                     : *reinterpret_cast<const float4*>(ms + (rr + i) * NP + cc);
+            m[i * 4] = v.x, m[i * 4 + 1] = v.y, m[i * 4 + 2] = v.z, m[i * 4 + 3] = v.w;
+          }
+          margin_block(xs + rr * PP + a0, PP, zs + cc, NP, len, m);
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            *reinterpret_cast<float4*>(ms + (rr + i) * NP + cc) =
+                make_float4(m[i * 4], m[i * 4 + 1], m[i * 4 + 2], m[i * 4 + 3]);
+        }
+      }
     }
     __syncthreads();
-    for (int r = warp; r < nr; r += kWarps) {
-      float* mr = ms + r * k;
+    // 2. the softmax of each (row, fit) across S lanes (2 to 32): lane l
+    //    takes classes l, l + S, ... (up to 8); the max by an xor butterfly;
+    //    the class sum as each lane's classes in order, then xor butterflies
+    //    at offsets S / 2, ..., 1 (every lane of the row gets the same sum);
+    //    the weighted residuals in place
+    const float* yb = ybuf + (t & 1) * (G + 1) * R;
+    const int nseg = nr * nc;
+    for (int base = warp * (32 / S); base < nseg; base += kWarps * (32 / S)) {
+      const int seg = base + lane / S;
+      const bool active = seg < nseg;
+      const int r = active ? seg / nc : 0, g = active ? seg % nc : 0;
+      float* mr = ms + r * NP + g * k;
+      float e[kLaneClasses];
       float mx = -INFINITY;
-      for (int j = lane; j < k; j += 32) mx = fmaxf(mx, mr[j]);
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      for (int j = lane; j < k; j += 32) mr[j] = expf(__fsub_rn(mr[j], mx));
-      __syncwarp();
-      float sum = 0.0f;
-      if (lane == 0) {  // in class order
-        sum = mr[0];
-        for (int j = 1; j < k; ++j) sum = __fadd_rn(sum, mr[j]);
+      for (int q = 0; q < kLaneClasses; ++q) {
+        const int j = li + S * q;
+        e[q] = active && j < k ? mr[j] : -INFINITY;
+        mx = fmaxf(mx, e[q]);
       }
-      sum = __shfl_sync(0xffffffffu, sum, 0);
-      const float wr = wf[t0 + r];
-      const int label = (int)y[t0 + r];
-      for (int j = lane; j < k; j += 32)
-        mr[j] = __fmul_rn(wr, __fsub_rn(__fdiv_rn(mr[j], sum), j == label ? 1.0f : 0.0f));
+      for (int off = S / 2; off > 0; off >>= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off, S));
+#pragma unroll
+      for (int q = 0; q < kLaneClasses; ++q)
+        e[q] = active && li + S * q < k ? expf(__fsub_rn(e[q], mx)) : 0.0f;
+      float sum = e[0];
+#pragma unroll
+      for (int q = 1; q < kLaneClasses; ++q) sum = __fadd_rn(sum, e[q]);
+      for (int off = S / 2; off > 0; off >>= 1)
+        sum = __fadd_rn(sum, __shfl_xor_sync(0xffffffffu, sum, off, S));
+      if (active) {
+        const float wr = yb[(g + 1) * R + r];
+        const int label = (int)yb[r];
+#pragma unroll
+        for (int q = 0; q < kLaneClasses; ++q) {
+          const int j = li + S * q;
+          if (j < k)
+            mr[j] = __fmul_rn(wr, __fsub_rn(__fdiv_rn(e[q], sum), j == label ? 1.0f : 0.0f));
+        }
+      }
     }
     __syncthreads();
+    // 3. the gradient: a thread's 4 x 4 output micro-tiles, residual x row
+    //    over the tile's rows in float32, added into float64
 #pragma unroll
-    for (int q = 0; q < kOutPer; ++q) {
-      const int o = o0 + q * kThreads + tid;
-      if (o < pk) {
-        const int a = o / k, j = o % k;
-        float sacc = 0.0f;
-        for (int r = 0; r < nr; ++r) sacc = __fmaf_rn(ms[r * k + j], xs[r * p + a], sacc);
-        accd[q] += (double)sacc;
+    for (int q = 0; q < kOutTiles; ++q) {
+      const int mc = tid + q * kThreads;
+      if (mc < MC) {
+        const int aa = oa0 + (mc / NCG) * 4, cc = (mc % NCG) * 4;
+        float part[16];
+#pragma unroll
+        for (int e = 0; e < 16; ++e) part[e] = 0.0f;
+#pragma unroll 4
+        for (int r = 0; r < nr; ++r) {
+          const float4 xv = *reinterpret_cast<const float4*>(xs + r * PP + aa);
+          const float4 rv = *reinterpret_cast<const float4*>(ms + r * NP + cc);
+          const float xa[4] = {xv.x, xv.y, xv.z, xv.w}, ra[4] = {rv.x, rv.y, rv.z, rv.w};
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) part[i * 4 + j] = __fmaf_rn(ra[j], xa[i], part[i * 4 + j]);
+        }
+#pragma unroll
+        for (int e = 0; e < 16; ++e) acc[q][e] += (double)part[e];
       }
     }
   }
 #pragma unroll
-  for (int q = 0; q < kOutPer; ++q) {
-    const int o = o0 + q * kThreads + tid;
-    if (o < pk) partial[((long long)blockIdx.x * C + c) * pk + o] = accd[q];
+  for (int q = 0; q < kOutTiles; ++q) {
+    const int mc = tid + q * kThreads;
+    if (mc >= MC) continue;
+    const int aa = oa0 + (mc / NCG) * 4, cc = (mc % NCG) * 4;
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int a = aa + i, col = cc + j;
+        if (a < p && col < N)
+          partial[((long long)blockIdx.x * C + c0 + col / k) * pk + (long long)a * k + col % k] =
+              acc[q][i * 4 + j];
+      }
   }
 }
 
+// K-P past 8 classes, by the plan of ops/linear.py::softmax_tiled_plan: G
+// fits a block, R rows a tile, PA output coefficient rows a block, the fits'
+// coefficients resident in shared memory (zres) or streamed, smem bytes.
 int launch_softmax_tiled(const void* X1, const void* y, const void* w, const void* fold,
                          const void* z, const void* wsum, const void* l2m, void* partial,
                          void* grad, int n, int p, int k, int C, int chunks, int chunk_rows,
-                         void* stream) {
+                         int G, int R, int PA, int zres, int smem, void* stream) {
+  const int PP = (p + 3) & ~3, NP = (G * k + 3) & ~3;
+  if (n <= 0 || p <= 0 || p > kMaxWide || k <= kSoftNarrowK || k > kSoftMaxK || C <= 0 ||
+      C > 65535 || chunks <= 0 || chunk_rows <= 0 || G <= 0 || G > C || R < 4 || R % 4 ||
+      PA < 4 || PA % 4 || (PA / 4) * (NP / 4) > kOutTiles * kThreads || smem <= 0 ||
+      smem > kSmemMax ||
+      (long long)smem != 4LL * (2LL * R * PP + (zres ? p : kMarginBlock) * (long long)NP +
+                                (long long)R * NP + 2LL * (G + 1) * R))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  static bool attr_set = false;  // the attribute takes the budget's maximum once
-  if (!attr_set) {
+  static int attr_bytes = 0;  // the attribute raised to the largest request so far
+  if (smem > attr_bytes) {
     const cudaError_t e = cudaFuncSetAttribute(
-        softmax_partial_tiled, cudaFuncAttributeMaxDynamicSharedMemorySize, kTiledBudget);
+        softmax_partial_tiled, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;
-    attr_set = true;
+    attr_bytes = smem;
   }
-  int R = kTiledBudget / ((p + k) * (int)sizeof(float));
-  if (R > kTileRows) R = kTileRows;
-  const int pk = p * k;
-  dim3 grid((unsigned)chunks, (unsigned)C, (unsigned)((pk + kOutSlab - 1) / kOutSlab));
-  softmax_partial_tiled<<<grid, kThreads, (size_t)R * (p + k) * sizeof(float), st>>>(
+  dim3 grid((unsigned)chunks, (unsigned)((C + G - 1) / G), (unsigned)((PP + PA - 1) / PA));
+  softmax_partial_tiled<<<grid, kThreads, (size_t)smem, st>>>(
       (const float*)X1, (const float*)y, (const float*)w, (const int32_t*)fold, (const float*)z,
-      (double*)partial, n, p, k, C, chunk_rows, R);
+      (double*)partial, n, p, k, C, chunk_rows, G, R, PA, zres);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
+  const int pk = p * k;
   if (p > kMaxCoefs) {
     const long long total = (long long)C * pk * 32;
     softmax_finish_wide<<<(unsigned)((total + kThreads - 1) / kThreads), kThreads, 0, st>>>(
@@ -751,9 +933,7 @@ extern "C" int softmax_fista_grad(const void* X1, const void* y, const void* w,
   if (n <= 0 || p <= 0 || p > kMaxWide || k <= 0 || k > kSoftMaxK || C <= 0 || C > 65535 ||
       chunks <= 0)
     return (int)cudaErrorInvalidValue;
-  if (k > kSoftNarrowK)
-    return launch_softmax_tiled(X1, y, w, fold, z, wsum, l2m, partial, grad, n, p, k, C, chunks,
-                                chunk_rows, stream);
+  if (k > kSoftNarrowK) return (int)cudaErrorInvalidValue;  // softmax_fista_grad_tiled
   if (p > kMaxCoefs) {
     if (k <= 4)
       return launch_softmax_wide<4, 2>(X1, y, w, fold, z, wsum, l2m, partial, grad, n, p, k, C,
@@ -770,4 +950,13 @@ extern "C" int softmax_fista_grad(const void* X1, const void* y, const void* w,
     return launch_softmax<8>(X1, y, w, fold, z, wsum, l2m, partial, grad, n, p, k, C, chunks,
                              chunk_rows, stream);
   return (int)cudaErrorInvalidValue;
+}
+
+extern "C" int softmax_fista_grad_tiled(const void* X1, const void* y, const void* w,
+                                        const void* fold, const void* z, const void* wsum,
+                                        const void* l2m, void* partial, void* grad, int n, int p,
+                                        int k, int C, int chunks, int chunk_rows, int G, int R,
+                                        int PA, int zres, int smem, void* stream) {
+  return launch_softmax_tiled(X1, y, w, fold, z, wsum, l2m, partial, grad, n, p, k, C, chunks,
+                              chunk_rows, G, R, PA, zres, smem, stream);
 }

@@ -117,10 +117,14 @@ def linear_fista_grad_plain(X1: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
 
 _FISTA_ARGS = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 _SOFTMAX_ARGS = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+_SOFTMAX_TILED_ARGS = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
 #: the entry points of csrc/fista.cu (the library is loaded once, with all)
 _FISTA_SIGNATURES = {"fista_grad": (_FISTA_ARGS, ctypes.c_int),
                      "linear_fista_grad": (_FISTA_ARGS, ctypes.c_int),
-                     "softmax_fista_grad": (_SOFTMAX_ARGS, ctypes.c_int)}
+                     "softmax_fista_grad": (_SOFTMAX_ARGS, ctypes.c_int),
+                     "softmax_fista_grad_tiled": (_SOFTMAX_TILED_ARGS, ctypes.c_int)}
+#: the most dynamic shared memory one block takes on the H100
+SMEM_BLOCK_BYTES = 232448
 #: rows of one block's chunk: at least 2048 (8 rows a thread), else enough
 #: chunks to give every SM two blocks
 _FISTA_MIN_CHUNK = 2048
@@ -219,6 +223,80 @@ def _wide_chunking(n: int, p: int, per_chunk_bytes: int) -> Tuple[int, int]:
     return chunk_rows, -(-n // chunk_rows)
 
 
+#: K-P's tiled entry (past 8 classes, ``csrc/fista.cu``): a block's threads
+#: hold at most two 4 x 4 output micro-tiles (kOutTiles) each, 8,192 outputs;
+#: a group's columns (fits x classes) at most 512, so that its margins and
+#: coefficients fit shared memory at any p; row tiles of at most 64 rows;
+#: blocks a launch, one wave of two an SM (no tail of a partial wave)
+_SOFTMAX_BLOCK_OUTPUTS = 2 * 16 * 256
+_SOFTMAX_GROUP_COLUMNS = 512
+_SOFTMAX_TILE_ROWS = 64
+_SOFTMAX_TARGET_BLOCKS = 2 * 132
+#: coefficients of a margin's float32 block (kMarginBlock)
+_SOFTMAX_MARGIN_BLOCK = 32
+#: past this many classes K-P takes its tiled entry (kSoftNarrowK)
+_SOFTMAX_NARROW_CLASSES = 8
+
+
+class SoftmaxTiledPlan(NamedTuple):
+    """The launch of K-P's tiled entry: ``fits`` fits a block (``groups``
+    groups), ``rows`` rows a staged tile, ``out_rows`` output coefficient
+    rows a block (``out_slabs`` slabs), the fits' coefficients resident in
+    shared memory or streamed in blocks of 32, the row chunks, the dynamic
+    shared bytes of a block and the float64 partials' bytes."""
+
+    fits: int
+    groups: int
+    rows: int
+    out_rows: int
+    out_slabs: int
+    z_resident: bool
+    chunk_rows: int
+    chunks: int
+    smem_bytes: int
+    partial_bytes: int
+
+
+def _round4(v: int) -> int:
+    return -(-v // 4) * 4
+
+
+def softmax_tiled_plan(n: int, p: int, k: int, C: int) -> SoftmaxTiledPlan:
+    """The launch of K-P's tiled entry for C fits of k classes over X1 f32[n,
+    p]: as many fits a block as keep its outputs (p padded to 4, times the
+    fits' classes padded to 4) within ``_SOFTMAX_BLOCK_OUTPUTS``, balanced over
+    the groups, at most ``_SOFTMAX_GROUP_COLUMNS`` columns; past one fit's
+    outputs, slabs of output coefficient rows; the largest row tile (64, else
+    32 rows) whose shared memory holds the fits' coefficients resident, else
+    the coefficients streamed and the largest row tile that fits; row chunks
+    for at most one wave of two blocks an SM, within the partial budget."""
+    PP = _round4(p)
+    G = max(1, min(C, _SOFTMAX_GROUP_COLUMNS // k, _SOFTMAX_BLOCK_OUTPUTS // (PP * _round4(k))))
+    while G > 1 and PP * _round4(G * k) > _SOFTMAX_BLOCK_OUTPUTS:
+        G -= 1
+    groups = -(-C // G)
+    G = -(-C // groups)
+    NP = _round4(G * k)
+    PA = min(PP, _SOFTMAX_BLOCK_OUTPUTS // NP // 4 * 4)
+    out_slabs = -(-PP // PA)
+
+    def smem(R, resident):  # row tiles, coefficients, margins, labels and weights
+        return 4 * (2 * R * PP + (p if resident else _SOFTMAX_MARGIN_BLOCK) * NP + R * NP
+                    + 2 * (G + 1) * R)
+
+    R, resident = next((R, res) for res, R in ((True, _SOFTMAX_TILE_ROWS), (True, 32),
+                                               (False, 64), (False, 32), (False, 16),
+                                               (False, 8), (False, 4))
+                       if smem(R, res) <= SMEM_BLOCK_BYTES)
+    want = max(1, _SOFTMAX_TARGET_BLOCKS // (groups * out_slabs))
+    per_chunk = C * p * k * 8
+    chunks = max(1, min(want, _WIDE_PARTIAL_BYTES // per_chunk, -(-n // R)))
+    chunk_rows = -(-(-(-n // chunks)) // R) * R
+    chunks = -(-n // chunk_rows)
+    return SoftmaxTiledPlan(G, groups, R, PA, out_slabs, resident, chunk_rows, chunks,
+                            smem(R, resident), chunks * per_chunk)
+
+
 def _check_softmax(X1, y, w, fold, z, l2m, wsum):
     if not (X1.dtype == torch.float32 and X1.ndim == 2):
         raise ValueError("X1 must be float32[n, p]")
@@ -274,15 +352,22 @@ def softmax_fista_grad(X1: torch.Tensor, y: torch.Tensor, w: torch.Tensor, fold:
     C, _, k = z.shape
     X1, y, w, fold = X1.contiguous(), y.contiguous(), w.contiguous(), fold.contiguous()
     z, l2m, wsum = z.contiguous(), l2m.contiguous(), wsum.contiguous()
-    chunk_rows, chunks = _wide_chunking(n, p, C * p * k * 8)
+    plan = softmax_tiled_plan(n, p, k, C) if k > _SOFTMAX_NARROW_CLASSES else None
+    chunk_rows, chunks = ((plan.chunk_rows, plan.chunks) if plan else
+                          _wide_chunking(n, p, C * p * k * 8))
     partial = torch.empty((chunks, C, p, k), dtype=torch.float64, device=X1.device)
     grad = torch.empty((C, p, k), dtype=torch.float32, device=X1.device)
     lib = cuda_build.load("fista", _FISTA_SIGNATURES)
-    with torch.cuda.device(X1.device):
-        rc = lib.softmax_fista_grad(
-            X1.data_ptr(), y.data_ptr(), w.data_ptr(), fold.data_ptr(), z.data_ptr(),
+    args = (X1.data_ptr(), y.data_ptr(), w.data_ptr(), fold.data_ptr(), z.data_ptr(),
             wsum.data_ptr(), l2m.data_ptr(), partial.data_ptr(), grad.data_ptr(), n, p, k, C,
-            chunks, chunk_rows, ctypes.c_void_p(torch.cuda.current_stream(X1.device).cuda_stream))
+            chunks, chunk_rows)
+    stream = ctypes.c_void_p(torch.cuda.current_stream(X1.device).cuda_stream)
+    with torch.cuda.device(X1.device):
+        if plan:
+            rc = lib.softmax_fista_grad_tiled(*args, plan.fits, plan.rows, plan.out_rows,
+                                              int(plan.z_resident), plan.smem_bytes, stream)
+        else:
+            rc = lib.softmax_fista_grad(*args, stream)
     cuda_build.check_launch("softmax_fista_grad", rc)
     softmax_fista_grad.launches += 1
     return grad
@@ -514,12 +599,12 @@ def fit_softmax(X: torch.Tensor, y: torch.Tensor, sample_weight: torch.Tensor, l
 # K-S weighted_gram, and the Newton and ridge solvers on it
 # ---------------------------------------------------------------------------
 #: the most coefficients (features + intercept) K-S takes: up to 64 in fit
-#: tiles whose threads hold every entry, above in 32 x 32 output tiles
-#: (``csrc/weighted_gram.cu``'s wide entry)
+#: tiles whose threads hold every entry, above in 64 x 64 float64
+#: tensor-core tiles (``csrc/weighted_gram.cu``'s wide entry)
 GRAM_MAX_COEFS = 1024
 _GRAM_NARROW_COEFS = 64
 _GRAM_ARGS = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
-_GRAM_WIDE_ARGS = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+_GRAM_WIDE_ARGS = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
 _GRAM_SIGNATURES = {"weighted_gram": (_GRAM_ARGS, ctypes.c_int),
                     "weighted_gram_wide": (_GRAM_WIDE_ARGS, ctypes.c_int)}
 #: K-S's tiles: 32 rows staged a step, at most 32 fits a block and 16 output
@@ -528,10 +613,54 @@ _GRAM_MAX_FITS = 32
 _GRAM_MAX_ENTRIES = 16 * 256
 #: the wide entry's float64 partials (chunks x C x E) stay under this
 _GRAM_WIDE_PARTIAL_BYTES = 1 << 30
-#: the wide entry's blocks a launch: eight 256-thread blocks an SM
+#: the wide entry's tile blocks a launch: eight waves of one block an SM
+#: (the blocks' work differs by their tiles' share of the triangle)
 _GRAM_WIDE_TARGET_BLOCKS = 8 * 132
-#: the side of the wide entry's output tiles (``csrc/weighted_gram.cu``'s kTile)
-_GRAM_WIDE_TILE = 32
+#: the wide entry's tile kernel (``csrc/weighted_gram.cu``'s kGT, kGFits,
+#: kGSlab, kGLd): 64 x 64 output tiles, up to 4 fits a block, 32-row slabs;
+#: its shared memory, two raw float stages (the slab's 128 columns of X1 and
+#: each fit's v and u) and two stages of the float64 operands (A, and B per
+#: fit, rows of 68)
+_GRAM_WIDE_TILE = 64
+_GRAM_WIDE_FITS = 4
+_GRAM_WIDE_SLAB = 32
+_GRAM_WIDE_SMEM = (2 * (_GRAM_WIDE_SLAB * 2 * _GRAM_WIDE_TILE * 4 + _GRAM_WIDE_FITS * 2
+                        * _GRAM_WIDE_SLAB * 8)
+                   + 2 * (1 + _GRAM_WIDE_FITS) * _GRAM_WIDE_SLAB * (_GRAM_WIDE_TILE + 4) * 8)
+
+
+class GramWidePlan(NamedTuple):
+    """The launch of K-S's wide tile kernel: ``fits`` fits a block
+    (``groups`` groups), ``tiles`` 64-column tiles of the p + 1 augmented
+    columns (``pairs`` upper-triangle tile pairs), the row chunks, the
+    dynamic shared bytes of a block and the float64 partials' bytes."""
+
+    fits: int
+    groups: int
+    tiles: int
+    pairs: int
+    chunk_rows: int
+    chunks: int
+    smem_bytes: int
+    partial_bytes: int
+
+
+def gram_wide_plan(n: int, p: int, C: int) -> GramWidePlan:
+    """The launch of K-S's wide entry for C fits over X1 f32[n, p]: the fits
+    in groups of at most 4 (balanced), every upper-triangle pair of the 64
+    -column tiles, row chunks of whole 32-row slabs for eight waves of one
+    block an SM, within the partial budget."""
+    groups = -(-C // _GRAM_WIDE_FITS)
+    G = -(-C // groups)
+    nt = -(-(p + 1) // _GRAM_WIDE_TILE)
+    pairs = nt * (nt + 1) // 2
+    per_chunk = C * (p * (p + 1) // 2 + p) * 8
+    want = -(-_GRAM_WIDE_TARGET_BLOCKS // (groups * pairs))
+    chunks = max(1, min(want, _GRAM_WIDE_PARTIAL_BYTES // per_chunk, -(-n // _GRAM_WIDE_SLAB)))
+    chunk_rows = -(-(-(-n // chunks)) // _GRAM_WIDE_SLAB) * _GRAM_WIDE_SLAB
+    chunks = -(-n // chunk_rows)
+    return GramWidePlan(G, groups, nt, pairs, chunk_rows, chunks, _GRAM_WIDE_SMEM,
+                        chunks * per_chunk)
 
 
 def _check_gram(X1, y, w, fold, beta, glm):
@@ -639,24 +768,19 @@ weighted_gram.launches = 0
 
 def _weighted_gram_wide(X1, y, w, fold, beta_t, vp_t, mode, family, link):
     """K-S's wide entry (64 < p <= ``GRAM_MAX_COEFS``) on contiguous CUDA
-    tensors: the prologue's (v, u) f32[C, n], then 32 x 32 output tiles over
-    row chunks; enough chunks to give every SM eight blocks, no more than
-    the partial buffer's budget allows."""
+    tensors: the prologue's float32 (v, u) widened into f64[C, n], then the
+    float64 tensor-core tiles of ``gram_wide_plan``."""
     n, p = X1.shape
     C = fold.shape[0]
     dev = X1.device
     if n == 0:
         return (torch.zeros((C, p, p), dtype=torch.float32, device=dev),
                 torch.zeros((C, p), dtype=torch.float32, device=dev))
+    plan = gram_wide_plan(n, p, C)
     E = p * (p + 1) // 2 + p
-    nt = -(-(p + 1) // _GRAM_WIDE_TILE)
-    want = -(-_GRAM_WIDE_TARGET_BLOCKS // (C * nt * (nt + 1) // 2))
-    chunks = max(1, min(want, _GRAM_WIDE_PARTIAL_BYTES // (C * E * 8), -(-n // 32)))
-    chunk_rows = -(-(-(-n // chunks)) // 32) * 32
-    chunks = -(-n // chunk_rows)
-    v = torch.empty((C, n), dtype=torch.float32, device=dev)
-    u = torch.empty((C, n), dtype=torch.float32, device=dev)
-    partial = torch.empty((chunks, C, E), dtype=torch.float64, device=dev)
+    v = torch.empty((C, n), dtype=torch.float64, device=dev)
+    u = torch.empty((C, n), dtype=torch.float64, device=dev)
+    partial = torch.empty((plan.chunks, C, E), dtype=torch.float64, device=dev)
     H = torch.empty((C, p, p), dtype=torch.float32, device=dev)
     g = torch.empty((C, p), dtype=torch.float32, device=dev)
     lib = cuda_build.load("weighted_gram", _GRAM_SIGNATURES)
@@ -664,8 +788,8 @@ def _weighted_gram_wide(X1, y, w, fold, beta_t, vp_t, mode, family, link):
         rc = lib.weighted_gram_wide(X1.data_ptr(), y.data_ptr(), w.data_ptr(), fold.data_ptr(),
                                     beta_t.data_ptr(), vp_t.data_ptr(), v.data_ptr(),
                                     u.data_ptr(), partial.data_ptr(), H.data_ptr(),
-                                    g.data_ptr(), n, p, C, chunks, chunk_rows, mode, family,
-                                    link,
+                                    g.data_ptr(), n, p, C, plan.chunks, plan.chunk_rows, mode,
+                                    family, link, plan.fits, plan.smem_bytes,
                                     ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     cuda_build.check_launch("weighted_gram_wide", rc)
     weighted_gram.launches += 1

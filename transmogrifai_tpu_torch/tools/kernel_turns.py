@@ -2,7 +2,9 @@
 checkout of this repository: the current one, or an unpacked earlier
 commit), so that two commits' kernels can be compared in turns on one card
 (parent, change, change, parent: one process each).  ``--set classes``: the
-k <= 8 shapes of K-E, K-F, K-P, K-Q and K-R; ``--set families``: the shapes
+k <= 8 shapes of K-E, K-F, K-P, K-Q and K-R; ``--set wide``: K-S's wide
+entry and K-P's tiled entry at ``chip_smoke.py``'s shapes, each beside its
+PyTorch yardstick (``*_library``); ``--set families``: the shapes
 K-U, K-V, K-AA and K-AB took before their tiled redesign (up to 2 hidden
 layers of 64 and 128 features, 256 features and 8 classes, 256 dimensions,
 32 topics over at most 51,200 topic x term entries), and where the sources
@@ -11,14 +13,17 @@ name them, the rivals of the narrow entries at those shapes: ``sgns.cu`` and
 (K-AA's slab path at every width, K-AB's estep with the topics across the
 lanes at every k), timed under the names ``*_rival``.  ``--set trains``: the
 walls (host clock, synchronized, in s) of the stock Titanic, Boston and Iris
-trains at 2^18 rows and the Letter families and "bow" text flows at 2^16,
+trains at 2^18 rows and the Letter families, "bow" text, Letter stock (26
+classes: K-P's tiled entry) and text-embedding Newton + SVC (the wide K-S)
+flows at 2^16,
 each after a warm-up at 4,096 rows, ``--reps`` runs each (the median).
 
 Usage, on a host with a CUDA card (run as a file, so that the package is
 imported from ``--root`` alone)::
 
     python3 transmogrifai_tpu_torch/tools/kernel_turns.py --root DIR [--set classes] [--reps 20]
-    python3 transmogrifai_tpu_torch/tools/kernel_turns.py --root DIR --set trains --reps 1
+    python3 transmogrifai_tpu_torch/tools/kernel_turns.py --root DIR --set trains --reps 1 \
+        [--only letters_stock,text_wide_newton_svc]
 
 Prints one JSON line: the card's name and power limit, and for each shape the
 median of ``--reps`` CUDA-event runs (L2 flushed) in ms.  The inputs are made
@@ -86,6 +91,65 @@ def shapes(torch, Tr, L, M, dev):
         ghw = torch.empty((B * K, n, k + 1), device=dev)
         out[name] = lambda leaf=leaf, node=node, rw=rw, ghw=ghw: Tr.softmax_boost_step(
             Fm, y, w, eta, leaf, node, ghw, rw)
+    return out
+
+
+def wide_shapes(torch, L, dev):
+    """{name: a call of K-S's wide entry (Newton, ridge, GLM at p = 85 and
+    513, 12 fits: ``chip_smoke.py``'s ``wide_kernels`` shapes) or of K-P's
+    tiled entry (26 classes at p = 33, 24 fits; 64 at p = 33; 26 at p = 85,
+    12 fits; 128 at p = 64), and under ``*_library`` the one PyTorch call
+    that computes the same function (an ``einsum`` with the weights given;
+    two ``matmul`` and a ``softmax``)}."""
+    import numpy as np
+
+    t = lambda a, dt=torch.float32: torch.as_tensor(np.asarray(a), dtype=dt, device=dev)  # noqa
+    out = {}
+    for p, n in ((85, 1 << 17), (513, 1 << 15)):
+        rng = np.random.default_rng(p)
+        X1 = np.concatenate([(rng.random((n, p - 1)) < 0.15) * 1.0, np.ones((n, 1))], 1)
+        X1[:, :6] = rng.normal(size=(n, 6))
+        F, C = 3, 12
+        X1t = t(X1)
+        w = t(rng.random((F, n)) < 0.67)
+        fold = t(np.arange(C) % F, torch.int32)
+        beta = t(rng.normal(size=(C, p)) * 0.05)
+        for mode, args in (("newton", (beta,)), ("ridge", ()),
+                           ("glm", (beta, ("poisson", "log", t(np.zeros(C)))))):
+            yy = t(rng.poisson(1.5, n)) if mode == "glm" else t(rng.random(n) < 0.4)
+            out[f"weighted_gram_{mode}_p{p}"] = lambda a=(X1t, yy, w, fold, *args): \
+                L.weighted_gram(*a)
+            v = L._gram_weights(X1t, yy, w, fold, *(args or (None,)))[0]
+            out[f"weighted_gram_{mode}_p{p}_library"] = lambda v=v, X=X1t: \
+                torch.einsum("cn,np,nq->cpq", v, X, X)
+    rng = np.random.default_rng(17)
+    for n, p, k, C in ((58983, 33, 26, 24), (29496, 33, 64, 24), (1 << 17, 85, 26, 12),
+                       (1 << 16, 64, 128, 24)):
+        F = 3
+        X1 = rng.normal(size=(n, p)).astype(np.float32)
+        X1[:, -1] = 1.0
+        w = rng.integers(0, 3, (F, n)).astype(np.float32)
+        fold = (np.arange(C) % F).astype(np.int32)
+        l2m = np.full((C, p, k), 0.01, np.float32)
+        l2m[:, -1] = 0.0
+        X1t, yt, wt, foldt, zt, l2t, wsumt = args = [
+            torch.from_numpy(a).to(dev) for a in (X1, rng.integers(0, k, n).astype(np.float32),
+                                                  w, fold,
+                           (0.1 * rng.normal(size=(C, p, k))).astype(np.float32), l2m,
+                           np.maximum(w.sum(1), 1.0)[fold].astype(np.float32))]
+        name = f"softmax_fista_grad_k{k}_p{p}"
+        out[name] = lambda args=args: L.softmax_fista_grad(*args)
+        zf = zt.permute(1, 0, 2).reshape(p, C * k)
+        Yk = torch.nn.functional.one_hot(yt.long(), k).float().repeat(1, C)
+        wk = wt[foldt.long()].T.repeat_interleave(k, dim=1)
+
+        def library(X1t=X1t, zf=zf, Yk=Yk, wk=wk, wsumt=wsumt, l2t=l2t, zt=zt, n=n, p=p, k=k,
+                    C=C):
+            mu = torch.softmax(torch.matmul(X1t, zf).view(n, C, k), -1).view(n, C * k)
+            g = torch.matmul(X1t.T, wk * (mu - Yk)).view(p, C, k).permute(1, 0, 2)
+            return g / wsumt[:, None, None] + l2t * zt
+
+        out[name + "_library"] = library
     return out
 
 
@@ -168,23 +232,43 @@ def train_calls(rows: int, text_rows: int) -> dict:
         return wf.set_input_dataset(titanic.text_columns(n, 0), key="PassengerId") \
             .train(device="cuda")
 
+    def letters_stock(n):
+        wf, _ = FX.letters_workflow()
+        return wf.set_input_dataset(FX.letters_data(n, 26, 0), key="id").train(device="cuda")
+
+    def text_wide(n):  # chip_smoke.py's wide_reference_phase space: wide K-S and K-T
+        from transmogrifai_tpu_torch.impl.classification.logistic import OpLogisticRegression
+        from transmogrifai_tpu_torch.impl.classification.svc import OpLinearSVC
+        from transmogrifai_tpu_torch.impl.selector import defaults as D
+
+        space = [(OpLogisticRegression(), D.grid(reg_param=[0.001, 0.01, 0.1, 0.2],
+                                                  elastic_net_param=[0.0])),
+                 (OpLinearSVC(), D.linear_svc_grid())]
+        return titanic.train_titanic(titanic.text_columns(n, 0), device="cuda",
+                                     text_embeddings=True, models_and_parameters=space)
+
     return {
         "titanic_stock": lambda: titanic.train_titanic(titanic.titanic_data(rows, 0),
                                                        device="cuda"),
         "boston_stock": lambda: boston.train_boston(boston.boston_data(rows, 0), device="cuda"),
         "iris_stock": lambda: iris.train_iris(iris.iris_data(rows, 0), device="cuda"),
         "letters_families": lambda: letters(text_rows),
-        "wide_text_bow": lambda: bow(text_rows)}
+        "wide_text_bow": lambda: bow(text_rows),
+        "letters_stock": lambda: letters_stock(text_rows),
+        "text_wide_newton_svc": lambda: text_wide(text_rows)}
 
 
-def train_walls(reps: int) -> dict:
-    """The median wall of ``reps`` runs of each ``train_calls`` flow, after
-    one run at 4,096 rows (its kernels built and compiled)."""
+def train_walls(reps: int, only=None) -> dict:
+    """The median wall of ``reps`` runs of each ``train_calls`` flow (those
+    named in ``only``, if given), after one run at 4,096 rows (its kernels
+    built and compiled)."""
     import torch
 
     res = {}
     warm = train_calls(4096, 4096)
     for name, fn in train_calls(1 << 18, 1 << 16).items():
+        if only and name not in only:
+            continue
         warm[name]()
         walls = []
         for _ in range(reps):
@@ -197,7 +281,7 @@ def train_walls(reps: int) -> dict:
     return res
 
 
-def measure(root: str, reps: int, which: str = "classes") -> dict:
+def measure(root: str, reps: int, which: str = "classes", only=None) -> dict:
     sys.path.insert(0, os.path.abspath(root))
     import torch
 
@@ -229,8 +313,9 @@ def measure(root: str, reps: int, which: str = "classes") -> dict:
     if which == "trains":
         smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                               "--format=csv,noheader"], capture_output=True, text=True).stdout
-        return {"root": root, "card": smi.strip(), "wall_s": train_walls(reps)}
-    calls = shapes(torch, Tr, L, M, dev) if which == "classes" else family_shapes(torch, dev)
+        return {"root": root, "card": smi.strip(), "wall_s": train_walls(reps, only)}
+    calls = (shapes(torch, Tr, L, M, dev) if which == "classes" else
+             wide_shapes(torch, L, dev) if which == "wide" else family_shapes(torch, dev))
     res = {name: median_ms(fn) for name, fn in calls.items()}
     if which == "families" and all(_names_rival(cuda_build, src) for src in ("sgns", "lda")):
         cuda_build.NVCC_FLAGS = cuda_build.NVCC_FLAGS + RIVAL_FLAGS
@@ -247,8 +332,12 @@ def measure(root: str, reps: int, which: str = "classes") -> dict:
 if __name__ == "__main__":
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", required=True, help="the checkout whose package to time")
-    ap.add_argument("--set", default="classes", choices=("classes", "families", "trains"),
+    ap.add_argument("--set", default="classes",
+                    choices=("classes", "families", "wide", "trains"),
                     help="which kernels' narrow shapes (or which trains) to time")
     ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--only", default="",
+                    help="--set trains: the flows to time, comma-separated (default all)")
     args = ap.parse_args()
-    print(json.dumps(measure(args.root, args.reps, args.set)), flush=True)
+    only = [name for name in args.only.split(",") if name]
+    print(json.dumps(measure(args.root, args.reps, args.set, only)), flush=True)
