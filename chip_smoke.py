@@ -3541,6 +3541,42 @@ def softmax_library(torch, X1, y, w, fold, z, l2m, wsum):
     return library
 
 
+def svc_library(torch, X1, y, w, fold, z, l2v, wsum):
+    """K-T's library yardstick: two [C, n] x [n, p] products and the
+    elementwise terms."""
+    ypm, wf = 2.0 * y - 1.0, w[fold.long()]
+
+    def library():
+        active = torch.clamp_min(1.0 - ypm * (z @ X1.T), 0.0)
+        return (wf * ((-2.0 * ypm) * active)) @ X1 / wsum[:, None] + l2v * z
+
+    return library
+
+
+#: phase 42's folds x grid (K-S, K-T: 12 fits) and K-P's (classes, fits)
+WIDE_FOLDS, WIDE_GRID = 3, 4
+WIDE_SOFTMAX = ((3, 6), (8, 2))
+
+
+def wide_inputs(p, n):
+    """Phase 42's inputs at p coefficients and n rows, numpy from the seed
+    p: X1 (15% ones, six normal columns, the intercept), the 0/1 labels, the
+    folds' 0/1 weights, each fit's fold, the fits' coefficients, the GLM's
+    Poisson labels, and for each of ``WIDE_SOFTMAX`` the class labels and
+    coefficients [fits, p, k]."""
+    rng = np.random.default_rng(p)
+    X1 = np.concatenate([(rng.random((n, p - 1)) < 0.15) * 1.0, np.ones((n, 1))], 1)
+    X1[:, :6] = rng.normal(size=(n, 6))
+    C = WIDE_FOLDS * WIDE_GRID
+    out = {"X1": X1, "y": rng.random(n) < 0.4, "w": rng.random((WIDE_FOLDS, n)) < 0.67,
+           "fold": np.arange(C) % WIDE_FOLDS, "beta": rng.normal(size=(C, p)) * 0.05,
+           "y_glm": rng.poisson(1.5, n)}
+    for k, Cs in WIDE_SOFTMAX:
+        out[f"y{k}"] = rng.integers(0, k, n)
+        out[f"z{k}"] = rng.normal(size=(Cs, p, k)) * 0.05
+    return out
+
+
 def library_check(torch, name, library, kernel):
     """A library yardstick computes the kernel's function: within 1e-5 of its
     largest entry (float32 products in another order)."""
@@ -3571,24 +3607,21 @@ def wide_kernel_phase(torch, timer, dev="cuda", shapes=((85, 1 << 17), (513, 1 <
         return err
 
     for p, n in shapes:
-        rng = np.random.default_rng(p)
-        X1 = np.concatenate([(rng.random((n, p - 1)) < 0.15) * 1.0, np.ones((n, 1))], 1)
-        X1[:, :6] = rng.normal(size=(n, 6))
-        F, G = 3, 4
-        C = F * G
+        inp = wide_inputs(p, n)
+        F, C = WIDE_FOLDS, WIDE_FOLDS * WIDE_GRID
         t = lambda a, dt=torch.float32: torch.as_tensor(np.asarray(a), dtype=dt, device=dev)
-        X1t = t(X1)
-        y = t(rng.random(n) < 0.4)
-        w = t(rng.random((F, n)) < 0.67)
-        fold = t(np.arange(C) % F, torch.int32)
-        beta = t(rng.normal(size=(C, p)) * 0.05)
+        X1t = t(inp.pop("X1"))
+        y = t(inp["y"])
+        w = t(inp["w"])
+        fold = t(inp["fold"], torch.int32)
+        beta = t(inp["beta"])
         wsum = w.sum(1)[fold.long()]
         l2v = t(np.full((C, p), 0.01))
         # K-S: Newton, ridge, GLM (poisson / log)
         E = p * (p + 1) // 2 + p
         for mode, args in (("newton", (beta,)), ("ridge", ()),
                            ("glm", (beta, ("poisson", "log", t(np.zeros(C)))))):
-            yy = t(rng.poisson(1.5, n)) if mode == "glm" else y
+            yy = t(inp["y_glm"]) if mode == "glm" else y
             fn = lambda: L.weighted_gram(X1t, yy, w, fold, *args)
             err = held(f"weighted_gram {mode} p{p}", fn(),
                        L.weighted_gram_plain(X1t, yy, w, fold, *args))
@@ -3614,27 +3647,22 @@ def wide_kernel_phase(torch, timer, dev="cuda", shapes=((85, 1 << 17), (513, 1 <
         fn = lambda: L.svc_grad(X1t, y, w, fold, beta, l2v, wsum)
         err = held(f"svc_grad p{p}", fn(), L.svc_grad_plain(X1t, y, w, fold, beta, l2v, wsum))
         bd, by = bound_ms(n * p * 4 + F * n * 4 + n * 4 + 3 * C * p * 4, 4.0 * C * n * p)
-        ypm, wf = 2.0 * y - 1.0, w[fold.long()]
-
-        def svc_library():  # two [C, n] x [n, p] products and the elementwise terms
-            active = torch.clamp_min(1.0 - ypm * (beta @ X1t.T), 0.0)
-            return (wf * ((-2.0 * ypm) * active)) @ X1t / wsum[:, None] + l2v * beta
-
-        library_check(torch, f"svc_grad p{p}", svc_library(), fn())
+        library = svc_library(torch, X1t, y, w, fold, beta, l2v, wsum)
+        library_check(torch, f"svc_grad p{p}", library(), fn())
         row = {"max_abs_err": err, "ms": timer(fn),
                "plain_ms": timer(lambda: L.svc_grad_plain(X1t, y, w, fold, beta, l2v, wsum)),
-               "bound_ms": bd, "bound_by": by, "library_ms": timer(svc_library),
+               "bound_ms": bd, "bound_by": by, "library_ms": timer(library),
                "shape": [n, p, C]}
-        del wf
+        del library
         extra[f"svc_grad p{p}"] = row
         if p == 85:
             records.append(dict(name="svc_grad_wide", route="cuda",
-                                source="transmogrifai_tpu_torch/csrc/svc.cu",
+                                source="transmogrifai_tpu_torch/csrc/wide_rows.cuh",
                                 replaces="transmogrifai_tpu/ops/linear.py:254", **row))
         # K-P, three classes and eight
-        for k, Cs in ((3, 6), (8, 2)):
-            yc = t(rng.integers(0, k, n))
-            z = t(rng.normal(size=(Cs, p, k)) * 0.05)
+        for k, Cs in WIDE_SOFTMAX:
+            yc = t(inp[f"y{k}"])
+            z = t(inp[f"z{k}"])
             l2m = t(np.full((Cs, p, k), 0.01))
             fs = fold[:Cs].contiguous()
             ws = w.sum(1)[fs.long()]
@@ -3654,7 +3682,7 @@ def wide_kernel_phase(torch, timer, dev="cuda", shapes=((85, 1 << 17), (513, 1 <
             extra[f"softmax_fista_grad p{p} k{k}"] = row
             if p == 85 and k == 3:
                 records.append(dict(name="softmax_fista_grad_wide", route="cuda",
-                                    source="transmogrifai_tpu_torch/csrc/fista.cu",
+                                    source="transmogrifai_tpu_torch/csrc/wide_rows.cuh",
                                     replaces="transmogrifai_tpu/ops/linear.py:148", **row))
         del X1t
     log("wide_kernels", tolerance=WIDE_RTOL, f64_ops_per_s=PEAK_F64_OPS_PER_S, details=extra,

@@ -501,6 +501,13 @@ def test_forest_leaf_mean_matches_plain(dev, G, T, n):
                                        (70000, 9, 3, 24, 3), (5000, 20, 5, 6, 2),
                                        (3000, 64, 8, 4, 1), (20000, 85, 3, 6, 2),
                                        (3000, 513, 8, 3, 1), (700, 1024, 4, 2, 1),
+                                       # the wide entry's edges (k <= 8, p > 64): p at
+                                       # 65, 128, 129 and 1,024, fit groups that do not
+                                       # divide C, rows one past a whole tile, one row
+                                       (65, 65, 2, 3, 1), (1, 129, 7, 3, 1),
+                                       (5000, 128, 5, 5, 2), (4097, 129, 7, 10, 3),
+                                       (3001, 1024, 8, 5, 2), (1025, 1024, 3, 7, 3),
+                                       (513, 85, 3, 6, 3), (131073, 85, 8, 2, 3),
                                        # past 8 classes: the tiled entry
                                        (20000, 33, 10, 24, 3), (65536, 33, 26, 6, 3),
                                        (5000, 33, 64, 4, 2), (3000, 64, 128, 3, 1),
@@ -733,7 +740,13 @@ def test_binary_metrics_matches_plain_on_nan_scores(dev):
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("n,p,C,F", [(1, 3, 1, 1), (235930, 11, 4, 1), (30000, 17, 12, 3),
                                      (5000, 40, 3, 1), (7000, 64, 5, 2), (20000, 85, 8, 2),
-                                     (5000, 513, 3, 1), (1000, 1024, 2, 1)])
+                                     (5000, 513, 3, 1), (1000, 1024, 2, 1),
+                                     # the wide entry's edges: p at 65, 128, 129 and
+                                     # 1,024, fit groups that do not divide C, rows one
+                                     # past a whole tile, one row
+                                     (65, 65, 5, 2), (1, 129, 3, 1), (4097, 128, 12, 3),
+                                     (2049, 129, 7, 1), (3001, 1024, 17, 3),
+                                     (513, 85, 12, 3), (32769, 513, 12, 3)])
 def test_svc_grad_matches_plain(dev, n, p, C, F):
     from transmogrifai_tpu_torch.ops import linear as L
 

@@ -61,16 +61,14 @@
 // Bound: operations (about 4 p k + 6 k per fit and row) over the card's
 // float32 rate; X1 is read once per fit and slab, mostly from L2.
 //
-// Above 64 coefficients (up to 1,024) K-P takes the wide entry
-// (softmax_partial_rows), K-K's wide design: a warp a row, lane l loading
-// the row's coefficients l, l + 32, ... (coalesced), each fit's k margins
-// formed on every lane by k butterflies (the fits' B in dynamic shared
-// memory), lane c taking fit c's softmax and residuals and sharing them by
-// shuffles.  A lane accumulates residual x row for a slab of 128
-// coefficients (4 a lane) and a tile of fits (2 fits of 4 classes or 1 of
-// 8: 32 float32 accumulators), the grid's z axis walking the slabs; the
-// block's warps are summed in float64 in warp order into the chunk's
-// partial, and a warp an entry sums the chunks (softmax_finish_wide).
+// Above 64 coefficients (up to 1,024) K-P takes its wide entry at k <= 8
+// (wide_rows_partial in csrc/wide_rows.cuh, shared with K-T), planned by
+// ops/linear.py::wide_rows_plan: a block takes a chunk of rows and a group
+// of fits whose whole gradient [p x G k] its threads hold (every fit of the
+// text flow's calls), over row tiles staged once for the group; register-
+// blocked float32 margins in 32-coefficient blocks, a thread a (row, fit)'s
+// softmax, the gradient in float32 a tile and float64 across tiles; its
+// finish (wide_rows_finish) sums the chunks.
 //
 // Above 8 classes (up to 128, at any p up to 1,024) a thread can hold
 // neither a row's k margins nor 16 x k accumulators, so K-P takes its tiled
@@ -112,6 +110,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "wide_rows.cuh"
 
 namespace {
 
@@ -440,119 +440,8 @@ int launch_softmax(const void* X1, const void* y, const void* w, const void* fol
 }
 
 
-// ---- K-P's wide entry (p > 64) -----------------------------------------------
-constexpr int kSoftSV = 4;   // coefficients a lane accumulates (a slab of 128)
-
-template <int KM, int CT>
-__global__ void __launch_bounds__(kThreads)
-softmax_partial_rows(const float* __restrict__ X1, const float* __restrict__ y,
-                     const float* __restrict__ w, const int32_t* __restrict__ fold,
-                     const float* __restrict__ z, double* __restrict__ partial, int n, int p,
-                     int k, int C, int chunk_rows) {
-  extern __shared__ float zs[];   // [CT][p][KM]
-  constexpr int SW = 32 * kSoftSV;
-  __shared__ double sacc[CT * KM * SW];
-  __shared__ int fs[CT];
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int c0 = blockIdx.y * CT;
-  const int nc = min(CT, C - c0);
-  const int s0 = blockIdx.z * SW;
-  for (int i = tid; i < CT * p * KM; i += kThreads) {
-    const int c = i / (p * KM), a = (i / KM) % p, j = i % KM;
-    zs[i] = (c < nc && j < k) ? z[((long long)(c0 + c) * p + a) * k + j] : 0.0f;
-  }
-  for (int i = tid; i < CT * KM * SW; i += kThreads) sacc[i] = 0.0;
-  if (tid < CT) fs[tid] = tid < nc ? fold[c0 + tid] : 0;
-  __syncthreads();
-  float acc[CT][KM][kSoftSV];
-#pragma unroll
-  for (int c = 0; c < CT; ++c)
-#pragma unroll
-    for (int j = 0; j < KM; ++j)
-#pragma unroll
-      for (int v = 0; v < kSoftSV; ++v) acc[c][j][v] = 0.0f;
-  const long long r0 = (long long)blockIdx.x * chunk_rows;
-  const long long r1 = min((long long)n, r0 + chunk_rows);
-  for (long long r = r0 + warp; r < r1; r += kWarps) {
-    const float* xr = X1 + r * p;
-    float m[CT][KM];
-#pragma unroll
-    for (int c = 0; c < CT; ++c)
-#pragma unroll
-      for (int j = 0; j < KM; ++j) m[c][j] = 0.0f;
-    for (int a = lane; a < p; a += 32) {
-      const float xa = xr[a];
-#pragma unroll
-      for (int c = 0; c < CT; ++c)
-#pragma unroll
-        for (int j = 0; j < KM; ++j) m[c][j] = __fmaf_rn(xa, zs[(c * p + a) * KM + j], m[c][j]);
-    }
-    // every lane ends with every margin; lane c keeps fit c's
-    float mine[KM];
-#pragma unroll
-    for (int j = 0; j < KM; ++j) mine[j] = 0.0f;
-#pragma unroll
-    for (int c = 0; c < CT; ++c)
-#pragma unroll
-      for (int j = 0; j < KM; ++j) {
-        const float t = warp_sum(m[c][j]);
-        if (lane == c) mine[j] = t;
-      }
-    float res[KM];
-#pragma unroll
-    for (int j = 0; j < KM; ++j) res[j] = 0.0f;
-    if (lane < nc) {
-      float mx = mine[0];
-#pragma unroll
-      for (int j = 1; j < KM; ++j)
-        if (j < k) mx = fmaxf(mx, mine[j]);
-      float e[KM];
-      float sum = 0.0f;
-#pragma unroll
-      for (int j = 0; j < KM; ++j) {
-        e[j] = j < k ? expf(__fsub_rn(mine[j], mx)) : 0.0f;
-        if (j < k) sum = j == 0 ? e[0] : __fadd_rn(sum, e[j]);
-      }
-      const float wr = w[(long long)fs[lane] * n + r];
-      const int label = (int)y[r];
-#pragma unroll
-      for (int j = 0; j < KM; ++j)
-        res[j] = __fmul_rn(wr, __fsub_rn(__fdiv_rn(e[j], sum), j == label ? 1.0f : 0.0f));
-    }
-    float xs[kSoftSV];
-#pragma unroll
-    for (int v = 0; v < kSoftSV; ++v) {
-      const int a = s0 + lane + 32 * v;
-      xs[v] = a < p ? xr[a] : 0.0f;
-    }
-#pragma unroll
-    for (int c = 0; c < CT; ++c)
-#pragma unroll
-      for (int j = 0; j < KM; ++j) {
-        const float e = __shfl_sync(0xffffffffu, res[j], c);
-#pragma unroll
-        for (int v = 0; v < kSoftSV; ++v) acc[c][j][v] = __fmaf_rn(e, xs[v], acc[c][j][v]);
-      }
-  }
-  // the warps' sums added in float64, in warp order
-  for (int q = 0; q < kWarps; ++q) {
-    if (warp == q) {
-#pragma unroll
-      for (int c = 0; c < CT; ++c)
-#pragma unroll
-        for (int j = 0; j < KM; ++j)
-#pragma unroll
-          for (int v = 0; v < kSoftSV; ++v)
-            sacc[(c * KM + j) * SW + lane + 32 * v] += (double)acc[c][j][v];
-    }
-    __syncthreads();
-  }
-  for (int i = tid; i < CT * KM * SW; i += kThreads) {
-    const int c = i / (KM * SW), j = (i / SW) % KM, a = s0 + i % SW;
-    if (c >= nc || j >= k || a >= p) continue;
-    partial[(((long long)blockIdx.x * C + c0 + c) * p + a) * k + j] = sacc[i];
-  }
-}
+// ---- K-P's tiled entry's finish past 64 coefficients (its wide entry, k <= 8,
+// is csrc/wide_rows.cuh with its own) --------------------------------------------
 
 // A warp an entry: lane l sums chunks l, l + 32, ... in float64, a fixed
 // shuffle tree, one rounding, then the weight sum and the L2 term.
@@ -569,28 +458,6 @@ __global__ void softmax_finish_wide(const double* __restrict__ partial,
   for (int off = 16; off > 0; off >>= 1) s += __shfl_down_sync(0xffffffffu, s, off);
   if (lane == 0)
     grad[i] = __fadd_rn(__fdiv_rn(__double2float_rn(s), wsum[i / pk]), __fmul_rn(l2m[i], z[i]));
-}
-
-template <int KM, int CT>
-int launch_softmax_wide(const void* X1, const void* y, const void* w, const void* fold,
-                        const void* z, const void* wsum, const void* l2m, void* partial,
-                        void* grad, int n, int p, int k, int C, int chunks, int chunk_rows,
-                        void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  const int SW = 32 * kSoftSV;
-  dim3 grid((unsigned)chunks, (unsigned)((C + CT - 1) / CT), (unsigned)((p + SW - 1) / SW));
-  const size_t zbytes = (size_t)CT * p * KM * sizeof(float);
-  softmax_partial_rows<KM, CT><<<grid, kThreads, zbytes, st>>>(
-      (const float*)X1, (const float*)y, (const float*)w, (const int32_t*)fold, (const float*)z,
-      (double*)partial, n, p, k, C, chunk_rows);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const int pk = p * k;
-  const long long total = (long long)C * pk * 32;
-  softmax_finish_wide<<<(unsigned)((total + kThreads - 1) / kThreads), kThreads, 0, st>>>(
-      (const double*)partial, (const float*)wsum, (const float*)l2m, (const float*)z,
-      (float*)grad, chunks, C, pk);
-  return (int)cudaGetLastError();
 }
 
 // ---- K-P's tiled entry (k > 8) -------------------------------------------------
@@ -934,15 +801,7 @@ extern "C" int softmax_fista_grad(const void* X1, const void* y, const void* w,
       chunks <= 0)
     return (int)cudaErrorInvalidValue;
   if (k > kSoftNarrowK) return (int)cudaErrorInvalidValue;  // softmax_fista_grad_tiled
-  if (p > kMaxCoefs) {
-    if (k <= 4)
-      return launch_softmax_wide<4, 2>(X1, y, w, fold, z, wsum, l2m, partial, grad, n, p, k, C,
-                                       chunks, chunk_rows, stream);
-    if (k <= 8)
-      return launch_softmax_wide<8, 1>(X1, y, w, fold, z, wsum, l2m, partial, grad, n, p, k, C,
-                                       chunks, chunk_rows, stream);
-    return (int)cudaErrorInvalidValue;
-  }
+  if (p > kMaxCoefs) return (int)cudaErrorInvalidValue;     // softmax_fista_grad_wide
   if (k <= 4)
     return launch_softmax<4>(X1, y, w, fold, z, wsum, l2m, partial, grad, n, p, k, C, chunks,
                              chunk_rows, stream);
@@ -950,6 +809,19 @@ extern "C" int softmax_fista_grad(const void* X1, const void* y, const void* w,
     return launch_softmax<8>(X1, y, w, fold, z, wsum, l2m, partial, grad, n, p, k, C, chunks,
                              chunk_rows, stream);
   return (int)cudaErrorInvalidValue;
+}
+
+// K-P at k <= 8 past 64 coefficients, by the plan of ops/linear.py::
+// wide_rows_plan: G fits a block, R rows a tile, S row splits, T threads,
+// MR rows of a micro-tile, smem bytes.
+extern "C" int softmax_fista_grad_wide(const void* X1, const void* y, const void* w,
+                                       const void* fold, const void* z, const void* wsum,
+                                       const void* l2m, void* partial, void* grad, int n, int p,
+                                       int k, int C, int chunks, int chunk_rows, int G, int R,
+                                       int S, int T, int MR, int smem, void* stream) {
+  return wide_rows::launch<wide_rows::kLossSoftmax>(
+      X1, y, w, fold, z, wsum, l2m, partial, grad, n, p, k, C, chunks, chunk_rows, G, R, S, T,
+      MR, smem, (cudaStream_t)stream);
 }
 
 extern "C" int softmax_fista_grad_tiled(const void* X1, const void* y, const void* w,

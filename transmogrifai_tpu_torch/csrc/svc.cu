@@ -25,17 +25,18 @@
 // Titanic's p = 11 and four fits a fold), each fold's weight row and y once;
 // about 2 p + 6 operations per fit and row.
 //
-// Above 64 coefficients (up to 1,024) the wide entry (svc_partial_rows)
-// takes K-K's wide design: a warp a row, lane l loading the row's
-// coefficients l, l + 32, ... (coalesced), each fit's margin of a tile of
-// fits formed on every lane by a butterfly, lane c taking fit c's hinge and
-// residual and sharing it by a shuffle, each lane accumulating residual x
-// its coefficients (VPL x CT = 32 float32 accumulators: tiles of 8 fits at
-// p <= 128 down to 1 at p <= 1,024); the block's warps are summed in
-// float64 in warp order into the chunk's partial, and a warp an entry sums
-// the chunks (svc_finish_wide).
+// Above 64 coefficients (up to 1,024) K-T takes its wide entry
+// (wide_rows_partial in csrc/wide_rows.cuh, shared with K-P's), planned by
+// ops/linear.py::wide_rows_plan: a block takes a chunk of rows and a group
+// of fits (all 12 of the text flow's SVC grid at p = 85 and 513) over row
+// tiles staged once for the group; register-blocked float32 margins in
+// 32-coefficient blocks, a thread a (row, fit)'s hinge and residual, the
+// gradient in float32 a tile and float64 across tiles, then its finish
+// (wide_rows_finish).
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "wide_rows.cuh"
 
 namespace {
 
@@ -136,117 +137,6 @@ int launch(const void* X1, const void* y, const void* w, const void* fold, const
   return (int)cudaGetLastError();
 }
 
-constexpr int kMaxWide = 1024;
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v = __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
-}
-
-template <int VPL, int CT>
-__global__ void __launch_bounds__(kThreads)
-svc_partial_rows(const float* __restrict__ X1, const float* __restrict__ y,
-                 const float* __restrict__ w, const int32_t* __restrict__ fold,
-                 const float* __restrict__ z, double* __restrict__ partial, int n, int p, int C,
-                 int chunk_rows) {
-  constexpr int PW = 32 * VPL;
-  __shared__ float zs[CT][PW];
-  __shared__ int fs[CT];
-  __shared__ float red[kWarps][CT][PW];
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int c0 = blockIdx.y * CT;
-  const int nc = min(CT, C - c0);
-  for (int i = tid; i < CT * PW; i += kThreads) {
-    const int c = i / PW, j = i % PW;
-    zs[c][j] = (c < nc && j < p) ? z[(long long)(c0 + c) * p + j] : 0.0f;
-  }
-  if (tid < CT) fs[tid] = tid < nc ? fold[c0 + tid] : 0;
-  __syncthreads();
-  float acc[CT][VPL];
-#pragma unroll
-  for (int c = 0; c < CT; ++c)
-#pragma unroll
-    for (int i = 0; i < VPL; ++i) acc[c][i] = 0.0f;
-  const long long r0 = (long long)blockIdx.x * chunk_rows;
-  const long long r1 = min((long long)n, r0 + chunk_rows);
-  for (long long r = r0 + warp; r < r1; r += kWarps) {
-    float x[VPL];
-#pragma unroll
-    for (int i = 0; i < VPL; ++i) {
-      const int j = lane + 32 * i;
-      x[i] = j < p ? X1[r * p + j] : 0.0f;
-    }
-    float mine = 0.0f;
-#pragma unroll
-    for (int c = 0; c < CT; ++c) {
-      float m = __fmul_rn(x[0], zs[c][lane]);
-#pragma unroll
-      for (int i = 1; i < VPL; ++i) m = __fmaf_rn(x[i], zs[c][lane + 32 * i], m);
-      m = warp_sum(m);
-      if (lane == c) mine = m;
-    }
-    float e_lane = 0.0f;
-    if (lane < nc) {
-      const float ypm = __fsub_rn(__fmul_rn(2.0f, y[r]), 1.0f);
-      const float active = fmaxf(__fsub_rn(1.0f, __fmul_rn(ypm, mine)), 0.0f);
-      e_lane = __fmul_rn(w[(long long)fs[lane] * n + r], __fmul_rn(__fmul_rn(-2.0f, ypm), active));
-    }
-#pragma unroll
-    for (int c = 0; c < CT; ++c) {
-      const float e = __shfl_sync(0xffffffffu, e_lane, c);
-#pragma unroll
-      for (int i = 0; i < VPL; ++i) acc[c][i] = __fmaf_rn(e, x[i], acc[c][i]);
-    }
-  }
-#pragma unroll
-  for (int c = 0; c < CT; ++c)
-#pragma unroll
-    for (int i = 0; i < VPL; ++i) red[warp][c][lane + 32 * i] = acc[c][i];
-  __syncthreads();
-  for (int i = tid; i < CT * PW; i += kThreads) {
-    const int c = i / PW, j = i % PW;
-    if (c >= nc || j >= p) continue;
-    double s = (double)red[0][c][j];
-    for (int k = 1; k < kWarps; ++k) s += (double)red[k][c][j];
-    partial[((long long)blockIdx.x * C + c0 + c) * p + j] = s;
-  }
-}
-
-// A warp an entry: lane l sums chunks l, l + 32, ... in float64, a fixed
-// shuffle tree, one rounding, then the weight sum and the L2 term.
-__global__ void svc_finish_wide(const double* __restrict__ partial, const float* __restrict__ wsum,
-                                const float* __restrict__ l2v, const float* __restrict__ z,
-                                float* __restrict__ grad, int chunks, int C, int p) {
-  const long long i = ((long long)blockIdx.x * blockDim.x + threadIdx.x) / 32;
-  const int lane = threadIdx.x % 32;
-  if (i >= (long long)C * p) return;
-  double s = 0.0;
-  for (int k = lane; k < chunks; k += 32) s += partial[(long long)k * C * p + i];
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) s += __shfl_down_sync(0xffffffffu, s, off);
-  if (lane == 0)
-    grad[i] = __fadd_rn(__fdiv_rn(__double2float_rn(s), wsum[i / p]), __fmul_rn(l2v[i], z[i]));
-}
-
-template <int VPL, int CT>
-int launch_wide(const void* X1, const void* y, const void* w, const void* fold, const void* z,
-                const void* wsum, const void* l2v, void* partial, void* grad, int n, int p,
-                int C, int chunks, int chunk_rows, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  dim3 grid((unsigned)chunks, (unsigned)((C + CT - 1) / CT));
-  svc_partial_rows<VPL, CT><<<grid, kThreads, 0, st>>>(
-      (const float*)X1, (const float*)y, (const float*)w, (const int32_t*)fold, (const float*)z,
-      (double*)partial, n, p, C, chunk_rows);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const long long total = (long long)C * p * 32;
-  svc_finish_wide<<<(unsigned)((total + kThreads - 1) / kThreads), kThreads, 0, st>>>(
-      (const double*)partial, (const float*)wsum, (const float*)l2v, (const float*)z,
-      (float*)grad, chunks, C, p);
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 
 extern "C" int svc_grad(const void* X1, const void* y, const void* w, const void* fold,
@@ -263,17 +153,17 @@ extern "C" int svc_grad(const void* X1, const void* y, const void* w, const void
   if (p <= 64)
     return launch<64, 1>(X1, y, w, fold, z, wsum, l2v, partial, grad, n, p, C, chunks,
                          chunk_rows, stream);
-  if (p <= 128)
-    return launch_wide<4, 8>(X1, y, w, fold, z, wsum, l2v, partial, grad, n, p, C, chunks,
-                             chunk_rows, stream);
-  if (p <= 256)
-    return launch_wide<8, 4>(X1, y, w, fold, z, wsum, l2v, partial, grad, n, p, C, chunks,
-                             chunk_rows, stream);
-  if (p <= 512)
-    return launch_wide<16, 2>(X1, y, w, fold, z, wsum, l2v, partial, grad, n, p, C, chunks,
-                              chunk_rows, stream);
-  if (p <= kMaxWide)
-    return launch_wide<32, 1>(X1, y, w, fold, z, wsum, l2v, partial, grad, n, p, C, chunks,
-                              chunk_rows, stream);
   return (int)cudaErrorInvalidValue;
+}
+
+// K-T past 64 coefficients, by the plan of ops/linear.py::wide_rows_plan (k =
+// 1): G fits a block, R rows a tile, S row splits, T threads, MR rows of a
+// micro-tile, smem bytes.
+extern "C" int svc_grad_wide(const void* X1, const void* y, const void* w, const void* fold,
+                             const void* z, const void* wsum, const void* l2v, void* partial,
+                             void* grad, int n, int p, int C, int chunks, int chunk_rows, int G,
+                             int R, int S, int T, int MR, int smem, void* stream) {
+  return wide_rows::launch<wide_rows::kLossHinge>(X1, y, w, fold, z, wsum, l2v, partial, grad, n,
+                                                  p, 1, C, chunks, chunk_rows, G, R, S, T, MR,
+                                                  smem, (cudaStream_t)stream);
 }

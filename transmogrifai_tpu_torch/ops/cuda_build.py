@@ -5,7 +5,8 @@ Each source in ``transmogrifai_tpu_torch/csrc/`` is compiled by ``nvcc`` for
 ``ctypes``.  The build runs at first use, never at import, so the CPU tests
 import every module without a CUDA toolkit.  All sources compile at once,
 one ``nvcc`` process each.  A library's file name carries a hash of its
-source, so an edited kernel rebuilds and an unchanged one is reused.
+source and of the headers it includes, so an edited kernel rebuilds and an
+unchanged one is reused.
 
 ``KernelError`` is the one exception of a kernel fault: a failed build, a
 refused launch (every launch wrapper raises it with the CUDA error code), or
@@ -19,6 +20,7 @@ import contextlib
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -80,9 +82,18 @@ def _nvcc() -> str:
     return path
 
 
+_INCLUDE = re.compile(rb'^\s*#include\s+"([^"]+)"', re.M)
+
+
 def _lib_path(name: str) -> str:
+    """The library's path, named by a hash of its source, the headers of
+    ``csrc/`` that it includes (``#include "..."``) and the flags."""
     with open(os.path.join(CSRC, name + ".cu"), "rb") as fh:
-        digest = hashlib.sha1(fh.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+        text = fh.read()
+    for header in _INCLUDE.findall(text):
+        with open(os.path.join(CSRC, header.decode()), "rb") as fh:
+            text += fh.read()
+    digest = hashlib.sha1(text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return os.path.join(BUILD_DIR, f"{name}-{digest}.so")
 
 

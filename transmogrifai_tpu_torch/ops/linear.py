@@ -30,7 +30,9 @@ Five hand-written kernels carry the solvers; three are in one CUDA source
 ``fit_linear_svc``'s body (the squared hinge):
 ``X1^T (w * (-2 ypm max(1 - ypm X1 z, 0))) / sum(w) + l2 * z`` with ``ypm
 = 2 y - 1``, the fits' accelerated gradient steps sharing FISTA's loop (no
-L1 term: the threshold is 0);
+L1 term: the threshold is 0).  Past 64 coefficients K-P (at up to 8 classes)
+and K-T take one kernel over staged row tiles, ``csrc/wide_rows.cuh``,
+launched by the plan of ``wide_rows_plan``;
 
 and ``weighted_gram`` (K-S, ``csrc/weighted_gram.cu``) forms the weighted
 Gram matrix and moment vector of every Newton step (``X1^T diag(w mu (1 -
@@ -118,11 +120,13 @@ def linear_fista_grad_plain(X1: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
 _FISTA_ARGS = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 _SOFTMAX_ARGS = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 _SOFTMAX_TILED_ARGS = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+_SOFTMAX_WIDE_ARGS = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
 #: the entry points of csrc/fista.cu (the library is loaded once, with all)
 _FISTA_SIGNATURES = {"fista_grad": (_FISTA_ARGS, ctypes.c_int),
                      "linear_fista_grad": (_FISTA_ARGS, ctypes.c_int),
                      "softmax_fista_grad": (_SOFTMAX_ARGS, ctypes.c_int),
-                     "softmax_fista_grad_tiled": (_SOFTMAX_TILED_ARGS, ctypes.c_int)}
+                     "softmax_fista_grad_tiled": (_SOFTMAX_TILED_ARGS, ctypes.c_int),
+                     "softmax_fista_grad_wide": (_SOFTMAX_WIDE_ARGS, ctypes.c_int)}
 #: the most dynamic shared memory one block takes on the H100
 SMEM_BLOCK_BYTES = 232448
 #: rows of one block's chunk: at least 2048 (8 rows a thread), else enough
@@ -203,23 +207,20 @@ linear_fista_grad.launches = 0
 # K-P softmax_fista_grad
 # ---------------------------------------------------------------------------
 #: the most classes and coefficients (features + intercept) K-P and its plain
-#: version take: up to 64 coefficients a thread a row, above a warp a row
-#: (``csrc/fista.cu``'s wide entry); above 8 classes the tiled entry
+#: version take: up to 64 coefficients a thread a row, above the wide entry
+#: (``csrc/wide_rows.cuh``, by ``wide_rows_plan``); above 8 classes the tiled
+#: entry
 SOFTMAX_MAX_CLASSES = 128
 SOFTMAX_MAX_COEFS = 1024
-#: the wide entries' (K-P's, K-T's) float64 partials stay under this
+#: the wide and tiled entries' (K-P's, K-T's) float64 partials stay under this
 _WIDE_PARTIAL_BYTES = 1 << 28
+#: up to here K-P and K-T take their narrow entries
+_NARROW_COEFS = 64
 
 
-def _wide_chunking(n: int, p: int, per_chunk_bytes: int) -> Tuple[int, int]:
-    """(chunk_rows, chunks) of a K-P or K-T launch: the narrow entries' at p
-    <= 64; above, K-K's wide ones (``_FISTA_WIDE_*``), with no more chunks
-    than the partial buffer's budget allows."""
-    if p <= 64:
-        chunk_rows = max(_FISTA_MIN_CHUNK, -(-n // _FISTA_TARGET_CHUNKS))
-    else:
-        target = max(1, min(_FISTA_WIDE_TARGET_CHUNKS, _WIDE_PARTIAL_BYTES // per_chunk_bytes))
-        chunk_rows = max(_FISTA_WIDE_MIN_CHUNK, -(-n // target))
+def _narrow_chunking(n: int) -> Tuple[int, int]:
+    """(chunk_rows, chunks) of a narrow K-P or K-T launch (K-K's)."""
+    chunk_rows = max(_FISTA_MIN_CHUNK, -(-n // _FISTA_TARGET_CHUNKS))
     return chunk_rows, -(-n // chunk_rows)
 
 
@@ -297,6 +298,117 @@ def softmax_tiled_plan(n: int, p: int, k: int, C: int) -> SoftmaxTiledPlan:
                             smem(R, resident), chunks * per_chunk)
 
 
+#: K-P's (k <= 8) and K-T's wide entries (``csrc/wide_rows.cuh``): a thread
+#: holds 32 float64 sums of a fit group's gradient [p x G k] (kOutputs), as two
+#: 4 x 4 output micro-tiles at 256 threads a block (two blocks an SM, 128
+#: registers a thread) or, where those do not hold the group, as one 8 x 4
+#: micro-tile at up to 352 threads (one block an SM: 8 x 4 tiles load less
+#: from shared memory a product); groups of at most 352 such 8 x 4 tiles, so
+#: one fit (k <= 8, p <= 1,024) always fits; row tiles of at most 64 rows, 16
+#: or more for two blocks an SM; about one wave of blocks
+_WIDE_OUTPUTS = 32
+_WIDE_THREADS = {4: 256, 8: 352}
+_WIDE_TILE_ROWS = (64, 48, 32, 24, 16, 12, 8, 4)
+_WIDE_TWO_BLOCK_ROWS = 16
+#: fits a group at most, whose folds a block keeps in static shared memory
+_WIDE_MAX_FITS = 256
+_WIDE_STATIC_BYTES = 4 * _WIDE_MAX_FITS
+#: the H100's SMs and the shared memory of one (228 KB, of which each block
+#: takes 1 KB for itself)
+_SMS = 132
+_SM_SMEM_BYTES = 233472
+_BLOCK_RESERVED_BYTES = 1024
+
+
+class WideRowsPlan(NamedTuple):
+    """The launch of K-P's (k <= 8) or K-T's wide entry: ``fits`` fits a
+    block (``groups`` groups), ``rows`` rows a staged tile, each thread's
+    output micro-tiles (``tile_rows`` x 4) summed over ``splits`` splits of a
+    tile's rows, ``threads`` threads a block, the row chunks, the dynamic
+    shared bytes of a block and the float64 partials' bytes."""
+
+    fits: int
+    groups: int
+    rows: int
+    splits: int
+    threads: int
+    tile_rows: int
+    chunk_rows: int
+    chunks: int
+    smem_bytes: int
+    partial_bytes: int
+
+
+def _round_up(v: int, m: int) -> int:
+    return -(-v // m) * m
+
+
+def wide_tile_floats(p: int, MR: int, R: int) -> int:
+    """A staged row tile's floats in shared memory (``tile_floats``): R rows
+    of p rounded up to the micro-tile's rows and then to 32 (a bank row),
+    and the skew of the rows' groups (4 floats more a group of MR rows)."""
+    return R * _round_up(_round_up(p, MR), 32) + 4 * (R // MR)
+
+
+def wide_rows_smem(p: int, k: int, G: int, R: int, MR: int) -> int:
+    """The dynamic shared bytes of a wide-entry block (``smem_bytes``): a row
+    tile strided and the next one packed, the fits' coefficients, the
+    margins' 32-coefficient blocks, two tiles' labels and weights; at least
+    the chunk's float64 partial of the group, which reuses them at the end."""
+    PP, NP = _round_up(p, MR), _round4(G * k)
+    nb = -(-p // _SOFTMAX_MARGIN_BLOCK)
+    b = 4 * (wide_tile_floats(p, MR, R) + _round4(R * p) + PP * NP + nb * R * NP
+             + 2 * (G + 1) * R)
+    return max(b, 8 * PP * NP)
+
+
+def _aligned16(X1: torch.Tensor) -> torch.Tensor:
+    """X1 itself where its data is 16-byte aligned (the wide entries stage a
+    tile's rows by 16-byte copies), else an aligned copy."""
+    return X1 if X1.data_ptr() % 16 == 0 else X1.clone()
+
+
+def wide_rows_plan(n: int, p: int, k: int, C: int) -> WideRowsPlan:
+    """The launch of K-P's wide entry (C fits of k <= 8 classes over X1
+    f32[n, p]) or K-T's (k = 1): as many fits a group as keep its outputs
+    within 352 8 x 4 micro-tiles (every fit in one group at the text flow's
+    shapes), balanced over the groups; 4 x 4 micro-tiles at 256 threads where
+    those hold the group (two a thread, the tile's rows split among the
+    threads where the outputs are few), else 8 x 4 ones at a thread each;
+    the largest row tile whose shared memory lets two blocks share an SM
+    (256 threads, at least 16 rows), else one; row chunks for about one wave
+    of blocks, within the partial budget."""
+    cap = _WIDE_THREADS[8]
+    G = max(1, min(C, _WIDE_MAX_FITS, 4 * (cap // (_round_up(p, 8) // 8)) // k))
+    groups = -(-C // G)
+    G = -(-C // groups)
+    NCG = _round4(G * k) // 4
+    MR = 4 if (_round4(p) // 4) * NCG <= 2 * _WIDE_THREADS[4] else 8
+    Q = _WIDE_OUTPUTS // (MR * 4)
+    MC = (_round_up(p, MR) // MR) * NCG
+    T = _WIDE_THREADS[4] if MR == 4 else _round_up(MC, 32)
+
+    def splits(R):
+        S = max(1, min(R // 4, Q * T // MC))
+        return -(-R // -(-R // S))
+
+    for per_sm in ((2, 1) if MR == 4 else (1,)):
+        limit = min(SMEM_BLOCK_BYTES, _SM_SMEM_BYTES // per_sm - _BLOCK_RESERVED_BYTES) \
+            - _WIDE_STATIC_BYTES
+        R = next((R for R in _WIDE_TILE_ROWS
+                  if R % MR == 0 and wide_rows_smem(p, k, G, R, MR) <= limit), None)
+        if R is not None and (per_sm == 1 or R >= _WIDE_TWO_BLOCK_ROWS):
+            break
+    S = splits(R)
+    per_chunk = C * p * k * 8
+    chunks = max(1, min(-(-per_sm * _SMS // groups), -(-n // R),
+                        _WIDE_PARTIAL_BYTES // per_chunk))
+    chunk_rows = _round_up(-(-n // chunks), R)
+    chunks = -(-n // chunk_rows)
+    return WideRowsPlan(G, groups, R, S, T, MR, chunk_rows, chunks,
+                        wide_rows_smem(p, k, G, R, MR), chunks * per_chunk)
+
+
 def _check_softmax(X1, y, w, fold, z, l2m, wsum):
     if not (X1.dtype == torch.float32 and X1.ndim == 2):
         raise ValueError("X1 must be float32[n, p]")
@@ -352,9 +464,12 @@ def softmax_fista_grad(X1: torch.Tensor, y: torch.Tensor, w: torch.Tensor, fold:
     C, _, k = z.shape
     X1, y, w, fold = X1.contiguous(), y.contiguous(), w.contiguous(), fold.contiguous()
     z, l2m, wsum = z.contiguous(), l2m.contiguous(), wsum.contiguous()
-    plan = softmax_tiled_plan(n, p, k, C) if k > _SOFTMAX_NARROW_CLASSES else None
-    chunk_rows, chunks = ((plan.chunk_rows, plan.chunks) if plan else
-                          _wide_chunking(n, p, C * p * k * 8))
+    tiled = softmax_tiled_plan(n, p, k, C) if k > _SOFTMAX_NARROW_CLASSES else None
+    wide = wide_rows_plan(n, p, k, C) if tiled is None and p > _NARROW_COEFS else None
+    if wide:
+        X1 = _aligned16(X1)
+    plan = tiled or wide
+    chunk_rows, chunks = (plan.chunk_rows, plan.chunks) if plan else _narrow_chunking(n)
     partial = torch.empty((chunks, C, p, k), dtype=torch.float64, device=X1.device)
     grad = torch.empty((C, p, k), dtype=torch.float32, device=X1.device)
     lib = cuda_build.load("fista", _FISTA_SIGNATURES)
@@ -363,9 +478,13 @@ def softmax_fista_grad(X1: torch.Tensor, y: torch.Tensor, w: torch.Tensor, fold:
             chunks, chunk_rows)
     stream = ctypes.c_void_p(torch.cuda.current_stream(X1.device).cuda_stream)
     with torch.cuda.device(X1.device):
-        if plan:
-            rc = lib.softmax_fista_grad_tiled(*args, plan.fits, plan.rows, plan.out_rows,
-                                              int(plan.z_resident), plan.smem_bytes, stream)
+        if tiled:
+            rc = lib.softmax_fista_grad_tiled(*args, tiled.fits, tiled.rows, tiled.out_rows,
+                                              int(tiled.z_resident), tiled.smem_bytes, stream)
+        elif wide:
+            rc = lib.softmax_fista_grad_wide(*args, wide.fits, wide.rows, wide.splits,
+                                             wide.threads, wide.tile_rows, wide.smem_bytes,
+                                             stream)
         else:
             rc = lib.softmax_fista_grad(*args, stream)
     cuda_build.check_launch("softmax_fista_grad", rc)
@@ -391,6 +510,9 @@ def svc_grad_plain(X1: torch.Tensor, y: torch.Tensor, w: torch.Tensor, fold: tor
 
 
 _SVC_ARGS = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_SVC_SIGNATURES = {"svc_grad": (_SVC_ARGS, ctypes.c_int),
+                   "svc_grad_wide": ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 11
+                                     + [ctypes.c_void_p], ctypes.c_int)}
 
 
 def svc_grad(X1: torch.Tensor, y: torch.Tensor, w: torch.Tensor, fold: torch.Tensor,
@@ -408,15 +530,23 @@ def svc_grad(X1: torch.Tensor, y: torch.Tensor, w: torch.Tensor, fold: torch.Ten
         raise ValueError(f"svc_grad takes at most {FISTA_MAX_COEFS} coefficients, got {p}")
     X1, y, w, fold = X1.contiguous(), y.contiguous(), w.contiguous(), fold.contiguous()
     z, l2v, wsum = z.contiguous(), l2v.contiguous(), wsum.contiguous()
-    chunk_rows, chunks = _wide_chunking(n, p, C * p * 8)
+    plan = wide_rows_plan(n, p, 1, C) if p > _NARROW_COEFS else None
+    if plan:
+        X1 = _aligned16(X1)
+    chunk_rows, chunks = (plan.chunk_rows, plan.chunks) if plan else _narrow_chunking(n)
     partial = torch.empty((chunks, C, p), dtype=torch.float64, device=X1.device)
     grad = torch.empty((C, p), dtype=torch.float32, device=X1.device)
-    lib = cuda_build.load("svc", {"svc_grad": (_SVC_ARGS, ctypes.c_int)})
+    lib = cuda_build.load("svc", _SVC_SIGNATURES)
+    args = (X1.data_ptr(), y.data_ptr(), w.data_ptr(), fold.data_ptr(), z.data_ptr(),
+            wsum.data_ptr(), l2v.data_ptr(), partial.data_ptr(), grad.data_ptr(), n, p, C,
+            chunks, chunk_rows)
+    stream = ctypes.c_void_p(torch.cuda.current_stream(X1.device).cuda_stream)
     with torch.cuda.device(X1.device):
-        rc = lib.svc_grad(X1.data_ptr(), y.data_ptr(), w.data_ptr(), fold.data_ptr(),
-                          z.data_ptr(), wsum.data_ptr(), l2v.data_ptr(), partial.data_ptr(),
-                          grad.data_ptr(), n, p, C, chunks, chunk_rows,
-                          ctypes.c_void_p(torch.cuda.current_stream(X1.device).cuda_stream))
+        if plan:
+            rc = lib.svc_grad_wide(*args, plan.fits, plan.rows, plan.splits, plan.threads,
+                                   plan.tile_rows, plan.smem_bytes, stream)
+        else:
+            rc = lib.svc_grad(*args, stream)
     cuda_build.check_launch("svc_grad", rc)
     svc_grad.launches += 1
     return grad

@@ -3,8 +3,9 @@ checkout of this repository: the current one, or an unpacked earlier
 commit), so that two commits' kernels can be compared in turns on one card
 (parent, change, change, parent: one process each).  ``--set classes``: the
 k <= 8 shapes of K-E, K-F, K-P, K-Q and K-R; ``--set wide``: K-S's wide
-entry and K-P's tiled entry at ``chip_smoke.py``'s shapes, each beside its
-PyTorch yardstick (``*_library``); ``--set families``: the shapes
+entry, K-P's tiled entry and the wide entries of K-P (k <= 8) and K-T at
+``chip_smoke.py``'s shapes, each beside its PyTorch yardstick
+(``*_library``); ``--set families``: the shapes
 K-U, K-V, K-AA and K-AB took before their tiled redesign (up to 2 hidden
 layers of 64 and 128 features, 256 features and 8 classes, 256 dimensions,
 32 topics over at most 51,200 topic x term entries), and where the sources
@@ -96,11 +97,13 @@ def shapes(torch, Tr, L, M, dev):
 
 def wide_shapes(torch, L, dev):
     """{name: a call of K-S's wide entry (Newton, ridge, GLM at p = 85 and
-    513, 12 fits: ``chip_smoke.py``'s ``wide_kernels`` shapes) or of K-P's
+    513, 12 fits: ``chip_smoke.py``'s ``wide_kernels`` shapes), of K-P's
     tiled entry (26 classes at p = 33, 24 fits; 64 at p = 33; 26 at p = 85,
-    12 fits; 128 at p = 64), and under ``*_library`` the one PyTorch call
-    that computes the same function (an ``einsum`` with the weights given;
-    two ``matmul`` and a ``softmax``)}."""
+    12 fits; 128 at p = 64), or of K-P's and K-T's wide entries at p = 85
+    and 513 (``softmax_fista_grad_wide_k{3,8}_p*``, ``svc_grad_wide_p*``),
+    and under ``*_library`` the one PyTorch call that computes the same
+    function (an ``einsum`` with the weights given; two ``matmul`` and a
+    ``softmax``; two ``matmul`` and the hinge)}."""
     import numpy as np
 
     t = lambda a, dt=torch.float32: torch.as_tensor(np.asarray(a), dtype=dt, device=dev)  # noqa
@@ -150,7 +153,38 @@ def wide_shapes(torch, L, dev):
             return g / wsumt[:, None, None] + l2t * zt
 
         out[name + "_library"] = library
+    # K-P's wide entry (k = 3, 6 fits; k = 8, 2 fits) and K-T's (12 fits) on
+    # chip_smoke.py's phase 42 inputs, beside its yardsticks
+    smoke = _chip_smoke()
+    for p, n in ((85, 1 << 17), (513, 1 << 15)):
+        inp = smoke.wide_inputs(p, n)
+        X1t, y, w = t(inp.pop("X1")), t(inp["y"]), t(inp["w"])
+        fold = t(inp["fold"], torch.int32)
+        beta, C = t(inp["beta"]), len(inp["fold"])
+        wsum, l2v = w.sum(1)[fold.long()], t(np.full((C, p), 0.01))
+        args = (X1t, y, w, fold, beta, l2v, wsum)
+        out[f"svc_grad_wide_p{p}"] = lambda args=args: L.svc_grad(*args)
+        out[f"svc_grad_wide_p{p}_library"] = smoke.svc_library(torch, *args)
+        for k, Cs in smoke.WIDE_SOFTMAX:
+            fs = fold[:Cs].contiguous()
+            args = (X1t, t(inp[f"y{k}"]), w, fs, t(inp[f"z{k}"]), t(np.full((Cs, p, k), 0.01)),
+                    w.sum(1)[fs.long()])
+            name = f"softmax_fista_grad_wide_k{k}_p{p}"
+            out[name] = lambda args=args: L.softmax_fista_grad(*args)
+            out[name + "_library"] = smoke.softmax_library(torch, *args)
     return out
+
+
+def _chip_smoke():
+    """``chip_smoke.py`` of this tool's own checkout (not ``--root``'s): the
+    wide phase's inputs and yardsticks."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "..", "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("kernel_turns_chip_smoke", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
 
 
 def family_shapes(torch, dev):
