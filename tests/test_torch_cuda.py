@@ -300,7 +300,9 @@ def test_level_hist_raises_beyond_its_fixed_point_range(dev):
         Tr.level_hist(Xb, torch.full((1, 2, 2), float("inf"), device=dev), ids, 1, 2)
 
 
-@pytest.mark.parametrize("n,d", [(1, 3), (257, 16), (100000, 41)])
+@pytest.mark.parametrize("n,d", [(1, 3), (257, 16), (100000, 41), (100000, 23), (3001, 63),
+                                 (3001, 64), (3001, 65), (5003, 85), (2001, 300), (1025, 512),
+                                 (1, 64), (1, 65), (70, 300)])
 def test_corr_gram_matches_plain(dev, n, d):
     rng = np.random.default_rng(n + d)
     Z = torch.from_numpy(rng.normal(size=(n, d)).astype(np.float32)).to(dev)
@@ -361,7 +363,9 @@ def test_chunk_moments_matches_plain(dev, n, d, label, mode):
 
 
 @pytest.mark.parametrize("n,d", [(1, 1), (1000, 7), (70000, 24), (3000, 31), (3000, 32),
-                                 (5000, 100), (2000, 200)])
+                                 (5000, 100), (2000, 200), (3001, 23), (3001, 63), (3001, 64),
+                                 (5003, 85), (2001, 300), (4097, 512), (1, 63), (1, 64), (1, 512),
+                                 (33, 513), (262144, 24)])
 def test_centered_gram_matches_plain(dev, n, d):
     rng = np.random.default_rng(n * d)
     X, y = _stream_chunk(rng, n, d)

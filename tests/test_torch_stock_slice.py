@@ -26,7 +26,9 @@ import argparse
 import json
 import os
 import shutil
+import subprocess
 import sys
+import textwrap
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 if __name__ == "__main__":
@@ -224,6 +226,32 @@ def stock_draws():
             np.asarray(JT.feature_masks(kf, 10, 50, np.sqrt(10) / 10)))
 
 
+#: ``stock_draws`` in a fresh interpreter, written to the .npz named by argv[1]
+_CLEAN_DRAWS = textwrap.dedent("""
+    import sys
+    sys.path.insert(0, {root!r})
+    import numpy as np
+    from transmogrifai_tpu.ops import trees as JT
+    kb, kf = JT.rng_keys(42)
+    np.savez(sys.argv[1], bootstrap=np.asarray(JT.bootstrap_weights(kb, 891, 50)),
+             feature_masks=np.asarray(JT.feature_masks(kf, 10, 50, np.sqrt(10) / 10)))
+""")
+
+
+def clean_stock_draws(tmp_dir):
+    """``stock_draws`` compiled anew in a fresh interpreter: no trace,
+    compile or configuration state that earlier tests left in this process,
+    and no executable from the JAX package's persistent compilation cache
+    (``TRANSMOG_NO_COMPILE_CACHE``), whose entries other processes write and
+    whose key leaves out the host they were compiled on."""
+    out = os.path.join(str(tmp_dir), "draws.npz")
+    env = dict(os.environ, JAX_PLATFORMS="cpu", TRANSMOG_NO_COMPILE_CACHE="1")
+    subprocess.run([sys.executable, "-c", _CLEAN_DRAWS.format(root=ROOT), out], env=env,
+                   check=True, timeout=300)
+    with np.load(out) as z:
+        return z["bootstrap"], z["feature_masks"]
+
+
 def write_fixture(path=FIXTURE, seed=0):
     import tempfile
 
@@ -272,9 +300,9 @@ def test_fixture_holds_the_stock_sweep():
     np.testing.assert_array_equal(sweep["metrics"][:, 0, :, 1].T, folds)
 
 
-def test_jax_draws_equal_the_fixture_and_the_port():
+def test_jax_draws_equal_the_fixture_and_the_port(tmp_path):
     sweep = FX.load_sweep()
-    boot, masks = stock_draws()
+    boot, masks = clean_stock_draws(tmp_path)
     np.testing.assert_array_equal(sweep["bootstrap"], boot)
     np.testing.assert_array_equal(sweep["feature_masks"], masks)
     kb, kf = PT.rng_keys(42)

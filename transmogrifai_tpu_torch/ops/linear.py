@@ -363,8 +363,9 @@ def wide_rows_smem(p: int, k: int, G: int, R: int, MR: int) -> int:
 
 
 def _aligned16(X1: torch.Tensor) -> torch.Tensor:
-    """X1 itself where its data is 16-byte aligned (the wide entries stage a
-    tile's rows by 16-byte copies), else an aligned copy."""
+    """X1 itself where its data is 16-byte aligned (the wide entries here and
+    K-I in ``ops/stats.py`` stage a tile's rows by 16-byte copies), else an
+    aligned copy."""
     return X1 if X1.data_ptr() % 16 == 0 else X1.clone()
 
 

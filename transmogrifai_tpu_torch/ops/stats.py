@@ -25,27 +25,29 @@ and the device programs of ``transmogrifai_tpu/parallel/stats.py``:
   sorts the columns, the kernel finds the tie runs and scatters.
 
 All are CUDA, with fixed-order partial sums and no atomics, so runs repeat
-bit for bit.  The plain PyTorch version of each sits beside it; a wrapper
-takes it only for CPU tensors, and for CUDA tensors launches its kernel or
-raises.  ``<wrapper>.launches`` counts the wrapper's launches, and
+bit for bit; K-I's launches (both modes) are planned by ``gram_plan``.  The
+plain PyTorch version of each sits beside it; a wrapper takes it only for
+CPU tensors, and for CUDA tensors launches its kernel or raises.
+``<wrapper>.launches`` counts the wrapper's launches, and
 ``chunk_moments.launches_by_mode`` those of its ``raw`` and ``chan`` modes.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
 from ..utils.device import on_cuda as _on_cuda
 from . import cuda_build
+from .linear import _aligned16
 from .trees import _require, _stream
 
 _SIGNATURES = {
     "col_products_chunks": ([ctypes.c_int] * 3, ctypes.c_int),
-    "centered_gram_chunks": ([ctypes.c_int] * 2, ctypes.c_int),
-    "centered_gram_f64": ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [ctypes.c_void_p],
+    "centered_gram_f64": ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 10 + [ctypes.c_void_p],
                           ctypes.c_int),
-    "corr_gram_f32": ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_float,
+    "corr_gram_f32": ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 9 + [ctypes.c_float,
                                                                      ctypes.c_void_p],
                       ctypes.c_int),
     "contingency_counts_f32": ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
@@ -70,6 +72,121 @@ def _denominator(n: int) -> float:
 
 
 # ---------------------------------------------------------------------------
+# K-I's launch plan
+# ---------------------------------------------------------------------------
+#: K-I's modes: the correlation matrix (float32 products) and the centered
+#: Gram (float64)
+GRAM_MODES = ("corr", "centered")
+#: the widest Gram (D columns) of the narrow entry: one 64-column tile
+GRAM_NARROW_MAX = 64
+# the constants of csrc/col_stats.cu: the CUDA-core pass's tile side, staged
+# rows and most threads a block; the tensor-core pass's tile side, slab rows
+# and threads
+_NARROW_TILE = 64
+_NARROW_ROWS = 64        # past 64 columns (two raw stages)
+_NARROW_SPAN_ROWS = 128  # at D <= 64 (four raw stages)
+_NARROW_THREADS = 256
+_WIDE_TILE = 128
+_WIDE_SLAB = 32
+_WIDE_THREADS = 512
+_WIDE_SMEM = 2 * (_WIDE_SLAB * 2 * _WIDE_TILE + _WIDE_SLAB) * 4 \
+    + 2 * 2 * _WIDE_SLAB * (_WIDE_TILE + 4) * 8
+_SMS = 132
+#: blocks a launch aims at: the CUDA-core pass one or two waves of its
+#: small blocks, the tensor-core pass (one block an SM) eight waves
+_NARROW_TARGET_BLOCKS = 2 * _SMS
+_WIDE_TARGET_BLOCKS = 8 * _SMS
+#: the float64 partials' budget (a chunk's is the whole packed triangle)
+_GRAM_PARTIAL_BYTES = 1 << 30
+#: the finish's threads, at least, where the chunks allow (lanes a cell)
+_FINISH_THREADS = 1 << 16
+
+
+class GramPlan(NamedTuple):
+    """The launch of K-I over [n, d] (``gram_plan``)."""
+
+    entry: str            # "narrow": D <= 64, one diagonal tile; "wide" above
+    tensor_cores: bool    # the float64 mma.sync pass (the centered mode past 64)
+    D: int                # the Gram's columns: d, or d + 1 with the label
+    tile: int             # the side of a column tile
+    tiles: int            # column tiles (of the d features on the tensor cores)
+    pairs: int            # tile pairs ti <= tj (blocks a chunk)
+    threads: int          # threads a block
+    rows: int             # rows a staged row tile (slab)
+    chunk_rows: int       # rows a chunk (a multiple of ``rows``)
+    chunks: int
+    cells: int            # D (D + 1) / 2: the packed upper triangle
+    lanes: int            # the finish's lanes a cell (a power of two, at most 32)
+    partial_bytes: int    # the chunks' float64 partials of the cells
+    smem_bytes: int       # dynamic shared bytes a block
+
+
+def _narrow_smem(d: int, D: int, rows: int, threads: int, span: bool, esize: int,
+                 centered: bool) -> int:
+    """The CUDA-core pass's dynamic shared bytes (``narrow_smem``): the
+    operands [rows][width + 4] or, after the last row tile, the splits'
+    float64 sums [16][threads], whichever is larger; then the raw stages (four
+    at D <= 64, two past it)."""
+    width = -(-D // 4) * 4 if span else 2 * _NARROW_TILE
+    union = -(-max(rows * (width + 4) * esize, threads * 16 * 8) // 16) * 16
+    raw = (-(-(rows * d) // 4) * 4 + (rows if centered else 0)) if span \
+        else rows * 2 * _NARROW_TILE
+    return union + (4 if span else 2) * raw * 4
+
+
+def narrow_micro_tiles(D: int, ti: int, tj: int) -> int:
+    """The 4 x 4 micro-tiles of the CUDA-core pass's tile pair (ti, tj):
+    those on and above the diagonal of a diagonal pair, all of an
+    off-diagonal one."""
+    ma = -(-min(_NARROW_TILE, D - ti * _NARROW_TILE) // 4)
+    mb = -(-min(_NARROW_TILE, D - tj * _NARROW_TILE) // 4)
+    return ma * (ma + 1) // 2 if ti == tj else ma * mb
+
+
+def gram_plan(n: int, d: int, mode: str) -> GramPlan:
+    """The launch of K-I's ``mode`` (``GRAM_MODES``) over n rows of d
+    columns (and the label in the centered mode): the entry, the column
+    tiles and their upper-triangle pairs, the threads, the row chunks (one
+    or two waves of the CUDA-core pass's blocks, eight of the tensor-core
+    pass's, within the partial budget) and the finish's lanes a cell (enough
+    threads to fill the card, at most one a chunk)."""
+    _require(mode in GRAM_MODES, f"mode must be one of {GRAM_MODES}, got {mode!r}")
+    _require(n >= 1 and d >= 0, "gram_plan takes n >= 1 rows")
+    D = d + (mode == "centered")
+    _require(D >= 1, "gram_plan takes d >= 1 columns")
+    wide = D > GRAM_NARROW_MAX
+    tensor_cores = wide and mode == "centered"
+    if tensor_cores:
+        tile, rows, threads, target = _WIDE_TILE, _WIDE_SLAB, _WIDE_THREADS, _WIDE_TARGET_BLOCKS
+    else:
+        tile, target = _NARROW_TILE, _NARROW_TARGET_BLOCKS
+        rows = _NARROW_ROWS if wide else _NARROW_SPAN_ROWS
+        if wide:
+            threads = _NARROW_THREADS
+        else:  # the splits of a row tile: as many as fit 256 threads, 4 rows each at least
+            mt = narrow_micro_tiles(D, 0, 0)
+            splits = max(1, min(_NARROW_THREADS // mt, rows // 4))
+            threads = -(-(mt * splits) // 32) * 32
+    # the tensor-core pass tiles the d feature columns; its diagonal blocks'
+    # idle warps take the label's column
+    tiles = -(-(d if tensor_cores else D) // tile)
+    pairs = tiles * (tiles + 1) // 2
+    cells = D * (D + 1) // 2
+    want = -(-target // pairs)
+    budget = max(1, _GRAM_PARTIAL_BYTES // (cells * 8))
+    chunks = max(1, min(want, budget, -(-n // rows), 65535))
+    chunk_rows = -(-(-(-n // chunks)) // rows) * rows
+    chunks = -(-n // chunk_rows)
+    lanes = 1
+    while lanes < 32 and 2 * lanes <= chunks and cells * lanes < _FINISH_THREADS:
+        lanes *= 2
+    smem = _WIDE_SMEM if tensor_cores else _narrow_smem(
+        d, D, rows, threads, tiles == 1, 8 if mode == "centered" else 4, mode == "centered")
+    return GramPlan("wide" if wide else "narrow", tensor_cores, D, tile, tiles, pairs, threads,
+                    rows, chunk_rows, chunks, cells, lanes, chunks * cells * 8, smem)
+
+
+# ---------------------------------------------------------------------------
 # K-I corr_gram
 # ---------------------------------------------------------------------------
 def corr_gram_plain(Z: torch.Tensor) -> torch.Tensor:
@@ -79,21 +196,25 @@ def corr_gram_plain(Z: torch.Tensor) -> torch.Tensor:
 
 def corr_gram(Z: torch.Tensor) -> torch.Tensor:
     """The correlation matrix f32[d, d] of standardized columns Z f32[n, d]:
-    ``Z^T Z / max(n - 1, 1)``, summed in float32."""
+    ``Z^T Z / max(n - 1, 1)``, summed in float32 within a row tile and in
+    float64 across tiles, rounded once and divided in float32; on the card
+    one launch of ``gram_plan(n, d, "corr")`` and its finish."""
     _require(Z.dtype == torch.float32 and Z.ndim == 2, "Z must be float32[n, d]")
     n, d = Z.shape
     if not _on_cuda(Z):
         return corr_gram_plain(Z)
     if n == 0 or d == 0:
         return torch.zeros((d, d), dtype=torch.float32, device=Z.device)
+    plan = gram_plan(n, d, "corr")
     lib = cuda_build.load("col_stats", _SIGNATURES)
-    Z = Z.contiguous()
-    partial = torch.empty((lib.col_products_chunks(n, d, d), d, d), dtype=torch.float32,
-                          device=Z.device)
+    Z = _aligned16(Z.contiguous())
+    partial = torch.empty(plan.partial_bytes // 8, dtype=torch.float64, device=Z.device)
     out = torch.empty((d, d), dtype=torch.float32, device=Z.device)
     with torch.cuda.device(Z.device):
         rc = lib.corr_gram_f32(Z.data_ptr(), partial.data_ptr(), out.data_ptr(), n, d,
-                               _denominator(n), _stream(Z))
+                               plan.tiles, plan.chunk_rows, plan.chunks, plan.lanes,
+                               plan.threads, plan.rows, plan.smem_bytes, _denominator(n),
+                               _stream(Z))
     cuda_build.check_launch("corr_gram", rc)
     corr_gram.launches += 1
     return out
@@ -210,7 +331,9 @@ def centered_gram(X: torch.Tensor, y: torch.Tensor, centers: torch.Tensor) -> to
     """The unscaled Gram f64[d + 1, d + 1] of the centered chunk ``Z = [X | y]
     - centers`` (X f32[rows, d], y f32[rows], centers f64[d + 1]): the
     feature Gram, the label cross terms (last column) and the label's sum
-    of squares (last entry)."""
+    of squares (last entry).  On the card one launch of ``gram_plan(rows,
+    d, "centered")`` (the float64 tensor cores past 64 columns) and its
+    finish."""
     _check_chunk(X, y)
     _require(y is not None, "centered_gram takes the label y")
     d = X.shape[1]
@@ -219,14 +342,17 @@ def centered_gram(X: torch.Tensor, y: torch.Tensor, centers: torch.Tensor) -> to
     if not _on_cuda(X, y, centers):
         return centered_gram_plain(X, y, centers)
     n = X.shape[0]
+    plan = gram_plan(n, d, "centered")
     lib = cuda_build.load("col_stats", _SIGNATURES)
-    X, y, centers = X.contiguous(), y.contiguous(), centers.contiguous()
-    partial = torch.empty((lib.centered_gram_chunks(n, d), d + 1, d + 1),
-                          dtype=torch.float64, device=X.device)
+    X, y, centers = _aligned16(X.contiguous()), _aligned16(y.contiguous()), centers.contiguous()
+    partial = torch.empty(plan.partial_bytes // 8, dtype=torch.float64, device=X.device)
     out = torch.empty((d + 1, d + 1), dtype=torch.float64, device=X.device)
     with torch.cuda.device(X.device):
         rc = lib.centered_gram_f64(X.data_ptr(), y.data_ptr(), centers.data_ptr(),
-                                   partial.data_ptr(), out.data_ptr(), n, d, _stream(X))
+                                   partial.data_ptr(), out.data_ptr(), n, d,
+                                   int(plan.tensor_cores), plan.tiles, plan.chunk_rows,
+                                   plan.chunks, plan.lanes, plan.threads, plan.rows,
+                                   plan.smem_bytes, _stream(X))
     cuda_build.check_launch("centered_gram", rc)
     centered_gram.launches += 1
     return out

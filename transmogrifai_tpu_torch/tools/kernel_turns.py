@@ -18,11 +18,17 @@ trains at 2^18 rows and the Letter families, "bow" text, Letter stock (26
 classes: K-P's tiled entry) and text-embedding Newton + SVC (the wide K-S)
 flows at 2^16,
 each after a warm-up at 4,096 rows, ``--reps`` runs each (the median).
+``--set stats``: K-I, both modes, at the sanity checker's shapes (``corr_gram``
+on [100000, 23] as the stock train's checker takes it, and at d = 85 and 300;
+the centered mode on the scale train's [262144, 25] chunk and at 2^18 x 513),
+each beside ``torch.mm`` on the same operands (``*_library``; the centered
+mode's on the pre-centered float64 chunk, as ``chip_smoke.py`` times it).
 
 Usage, on a host with a CUDA card (run as a file, so that the package is
 imported from ``--root`` alone)::
 
     python3 transmogrifai_tpu_torch/tools/kernel_turns.py --root DIR [--set classes] [--reps 20]
+    python3 transmogrifai_tpu_torch/tools/kernel_turns.py --root DIR --set stats
     python3 transmogrifai_tpu_torch/tools/kernel_turns.py --root DIR --set trains --reps 1 \
         [--only letters_stock,text_wide_newton_svc]
 
@@ -172,6 +178,30 @@ def wide_shapes(torch, L, dev):
             name = f"softmax_fista_grad_wide_k{k}_p{p}"
             out[name] = lambda args=args: L.softmax_fista_grad(*args)
             out[name + "_library"] = smoke.softmax_library(torch, *args)
+    return out
+
+
+def stats_shapes(torch, dev):
+    """{name: a call of K-I (``corr_gram_d*``, ``centered_gram_D*``) at the
+    ``--set stats`` shapes, and under ``*_library`` ``torch.mm`` on the same
+    operands}."""
+    import numpy as np
+
+    from transmogrifai_tpu_torch.ops import stats as K
+
+    rng = np.random.default_rng(19)
+    out = {}
+    for n, d in ((100000, 23), (100000, 85), (100000, 300)):
+        Z = torch.from_numpy(rng.standard_normal((n, d), dtype=np.float32)).to(dev)
+        out[f"corr_gram_d{d}"] = lambda Z=Z: K.corr_gram(Z)
+        out[f"corr_gram_d{d}_library"] = lambda Z=Z: torch.mm(Z.T, Z)
+    for n, d in ((1 << 18, 24), (1 << 18, 512)):
+        X = torch.from_numpy(rng.standard_normal((n, d), dtype=np.float32) * 3 + 1).to(dev)
+        y = torch.from_numpy(rng.standard_normal(n, dtype=np.float32)).to(dev)
+        c = K.chunk_moments_plain(X, y, "chan")[0]
+        Zc = (torch.cat([X, y[:, None]], 1).double() - c).contiguous()
+        out[f"centered_gram_D{d + 1}"] = lambda X=X, y=y, c=c: K.centered_gram(X, y, c)
+        out[f"centered_gram_D{d + 1}_library"] = lambda Zc=Zc: torch.mm(Zc.T, Zc)
     return out
 
 
@@ -349,7 +379,8 @@ def measure(root: str, reps: int, which: str = "classes", only=None) -> dict:
                               "--format=csv,noheader"], capture_output=True, text=True).stdout
         return {"root": root, "card": smi.strip(), "wall_s": train_walls(reps, only)}
     calls = (shapes(torch, Tr, L, M, dev) if which == "classes" else
-             wide_shapes(torch, L, dev) if which == "wide" else family_shapes(torch, dev))
+             wide_shapes(torch, L, dev) if which == "wide" else
+             stats_shapes(torch, dev) if which == "stats" else family_shapes(torch, dev))
     res = {name: median_ms(fn) for name, fn in calls.items()}
     if which == "families" and all(_names_rival(cuda_build, src) for src in ("sgns", "lda")):
         cuda_build.NVCC_FLAGS = cuda_build.NVCC_FLAGS + RIVAL_FLAGS
@@ -367,7 +398,7 @@ if __name__ == "__main__":
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", required=True, help="the checkout whose package to time")
     ap.add_argument("--set", default="classes",
-                    choices=("classes", "families", "wide", "trains"),
+                    choices=("classes", "families", "wide", "stats", "trains"),
                     help="which kernels' narrow shapes (or which trains) to time")
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--only", default="",
