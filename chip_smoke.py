@@ -38,8 +38,9 @@ Phases, each printing its findings on a line of its own:
                ``boston_ridge`` (linear head, captured with the plan) and
                ``titanic_xgb`` (trees): K-AF (``predict_head``) against its
                plain version at each linear head's input at 64 and 1,024
-               rows and at p = 1024 (1,024 rows), timed beside its bound and
-               ``torch.addmm``'s product; every bucket graph of max_batch 64
+               rows and at p = 1024 (64 and 1,024 rows), timed beside its
+               bound and ``torch.addmm``'s product, each shape with its
+               ``head_plan``; every bucket graph of max_batch 64
                bit-equal to the eager program, with the capture seconds per
                bucket and the bytes the graphs hold; the main path: each
                fixture's requests through ``MicroBatcher`` and HTTP ``POST
@@ -262,13 +263,16 @@ Phases, each printing its findings on a line of its own:
                fit's summary held to the fixture's (2^20 rows, seed 0), the
                host-clock breakdown, a profiled second run;
 35. stream kernels -- K-X in both modes and K-I centered on the final fit's
-               first 2^18-row chunk, K-Y over its whole sample, each again at
-               2^18 x 512 and K-Y on tie-heavy columns, against their plain
-               versions (K-Y and K-X's min / max bit-equal, the float64 sums
-               within ``STREAM_RTOL``), timed as in phase 2 beside their
+               first 2^18-row chunk, K-Y over its whole sample (in float32
+               and float64, and into a slice of a wider matrix), each again
+               at 2^18 x 512 and K-Y on tie-heavy columns, against their
+               plain versions (K-Y and K-X's min / max bit-equal, the float64
+               sums within ``STREAM_RTOL``), timed as in phase 2 beside their
                bounds (K-I's its triangle's work, its launch plans printed
-               first), one ``torch.mm`` of the centered chunk (K-I) and one
-               sort + scatter (K-Y);
+               first; K-Y's stage beside its own bound, 16 bytes a float32
+               position, and its route), one ``torch.mm`` of the centered
+               chunk (K-I), one sort + scatter (K-Y) and ``scatter_`` on the
+               stage's operands;
 36. layer kernels -- K-Z on the Pearson train's final fit's columns: its
                numeric_op on the family size's add and ``+ 1`` (every
                ``--stats-rows`` row: past 200,000 rows a lone stage runs on
@@ -2839,10 +2843,13 @@ def sanity_scale_check(torch, FX, setting, rows, seed, keep):
 def stream_kernel_phase(torch, X, y, timer, dev="cuda"):
     """K-X (both modes), K-I centered and K-Y against their plain versions on
     the card at the scale train's shapes (its final fit's first 2^18-row
-    chunk of X f32[n, d] and y; K-Y over all n rows), again at a wide shape
-    (2^18 x 512) and on tie-heavy columns (integers in [0, 16)): K-Y and
-    K-X's min and max bit-equal, the float64 sums within ``STREAM_RTOL``;
-    timed as in phase 2."""
+    chunk of X f32[n, d] and y; K-Y over all n rows, in float32 and float64,
+    and into a slice of a wider matrix), again at a wide shape (2^18 x 512)
+    and on tie-heavy columns (integers in [0, 16)): K-Y and K-X's min and
+    max bit-equal, the float64 sums within ``STREAM_RTOL``; timed as in
+    phase 2, K-Y's stage (and each of its routes, each also held to the
+    plain version) beside ``scatter_`` on the same operands and its own
+    bound (the values, the int64 order and the rank once a position)."""
     from transmogrifai_tpu_torch.ops import stats as K
 
     def row_gap(got, want):
@@ -2870,7 +2877,8 @@ def stream_kernel_phase(torch, X, y, timer, dev="cuda"):
     def ranks_library(Xb):
         ss, order = torch.sort(Xb.T.contiguous(), dim=1)
         ordinal = torch.arange(1, Xb.shape[0] + 1, device=Xb.device, dtype=torch.float32)
-        return torch.empty_like(ss).scatter_(1, order, ordinal.expand_as(ss))
+        return torch.empty(ss.shape, dtype=torch.float32, device=Xb.device).scatter_(
+            1, order, ordinal.expand(ss.shape))
 
     n, d = X.shape
     rows = min(n, 1 << 18)
@@ -2927,22 +2935,42 @@ def stream_kernel_phase(torch, X, y, timer, dev="cuda"):
                 replaces="transmogrifai_tpu/parallel/stats.py:62", **{
                     k: row[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                         "bound_by", "library_ms")}))
-    for label, A in (("train", X), ("wide", Xw), ("tie-heavy", Xt)):
+    for label, A in (("train", X), ("train f64", X.double()), ("wide", Xw), ("tie-heavy", Xt)):
         held("midranks", lambda: K.midranks(A), lambda: K.midranks_plain(A))
         r, dd = A.shape
+        if label == "train":  # into a slice of a wider matrix (rank_transform's blocks)
+            wider = torch.full((r, dd + 3), -1.0, device=dev)
+            K.midranks(A, out=wider[:, 1:dd + 1])
+            check(torch.equal(wider[:, 1:dd + 1], K.midranks_plain(A))
+                  and bool((wider[:, [0, dd + 1, dd + 2]] == -1.0).all()),
+                  "midranks into a slice differs from its plain version")
+            del wider
         ss, order = torch.sort(A.T.contiguous(), dim=1)
         out = torch.empty((r, dd), dtype=torch.float32, device=dev)
+        ordinal = torch.arange(1, r + 1, device=dev, dtype=torch.float32).expand(dd, r)
+        ranked = torch.empty((dd, r), dtype=torch.float32, device=dev)
         # the columns read and the ranks written once; the sort's r log2 r
-        # comparisons a column
+        # comparisons a column.  The stage's own bound: the sorted values,
+        # the int64 order and the rank, each once a position
         bd, by = bound_ms(2 * r * dd * 4, r * dd * float(np.log2(max(r, 2))))
+        stage_bd, _ = bound_ms(r * dd * (A.element_size() + 8 + 4), 0)
+        routes = {}
+        for route in K.MIDRANK_ROUTES:  # each route of the stage on the same operands
+            if r <= K.PART_MAX_BUCKETS * K.PART_BUCKET_ROWS:
+                K._midrank_launch(ss, order, out, route)
+                check(torch.equal(out, K.midranks_plain(A)),
+                      f"midranks' {route} route differs from its plain version")
+                routes[route] = timer(lambda: K._midrank_launch(ss, order, out, route))
         row = {"max_abs_err": 0.0, "ms": timer(lambda: K.midranks(A)),
                "plain_ms": timer(lambda: K.midranks_plain(A)),
                "kernel_ms": timer(lambda: K._midrank_launch(ss, order, out)),
+               "route_ms": routes, "stage_bound_ms": stage_bd,
+               "scatter_ms": timer(lambda: ranked.scatter_(1, order, ordinal)),
                "sort_ms": timer(lambda: torch.sort(A.T.contiguous(), dim=1)),
                "bound_ms": bd, "bound_by": by, "library_ms": timer(lambda: ranks_library(A)),
-               "shape": [r, dd]}
+               "plan": K.midrank_plan(r, dd, dd)._asdict(), "shape": [r, dd]}
         extra[f"midranks {label}"] = row
-        del ss, order, out
+        del ss, order, out, ranked
         if label == "train":
             records.append(dict(
                 name="midranks", route="cuda",
@@ -5280,6 +5308,16 @@ def serve_plane_phase(torch, FX, timer, args, dev="cuda"):
         torch, "predict_head_p1024", Xw, cw, bw, "binary", timer, plain_timer,
         tol_prob=lambda gap: FX.PROB_ATOL + 0.5 * gap)
     records.append(rec)
+    # the 64-row bucket at p = 1,024, where a row takes several warps
+    rec64, shape64 = head_record(
+        torch, "predict_head_p1024_64", Xw[:64], cw, bw, "binary", timer, plain_timer,
+        tol_prob=lambda gap: FX.PROB_ATOL + 0.5 * gap)
+    shapes["predict_head_p1024_64"] = dict(shape64, **{
+        key: rec64[key] for key in ("ms", "plain_ms", "library_ms", "bound_ms")})
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for shape in shapes.values():
+        n_, p_, k_ = shape["shape"]
+        shape["plan"] = L.head_plan(n_, p_, k_, sms, shape["mode"])._asdict()
     log("serve_plane_kernels", nvidia_smi=smi, shapes=shapes, records=records)
 
     # the bucket graphs against the eager program, bit for bit, max_batch 64

@@ -398,6 +398,57 @@ def test_midranks_matches_plain(dev, n, k, kind, dtype):
                                                        dtype=torch.float64))
 
 
+@pytest.mark.parametrize("n,k,kind", [(255, 2, "ties"), (257, 2, "ties"), (2047, 3, "ties"),
+                                      (2048, 3, "ties"), (2049, 3, "ties"), (6143, 2, "runs"),
+                                      (6145, 2, "runs"), (20000, 1, "constant"),
+                                      ((1 << 18) + 5, 17, "ties"), ((1 << 18) + 5, 40, "normal"),
+                                      ((1 << 21) + 5, 3, "ties")])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_midranks_at_its_design_edges(dev, n, k, kind, dtype):
+    """K-Y at its segment (2,048 and 1,024 positions) and warp boundaries,
+    with runs longer than a block ("runs": 10,000 equal values), a constant
+    column, and outputs past ``MIDRANK_DIRECT_BYTES``: the partition route
+    (three and five column groups, the last one short) and past 2^21 rows
+    the direct route again; where the partition takes the shape, both
+    routes: bit-equal to the plain version and repeated bit for bit."""
+    rng = np.random.default_rng(n * 7 + k)
+    X = {"normal": lambda: rng.normal(size=(n, k)),
+         "ties": lambda: rng.integers(0, 5, size=(n, k)),
+         "runs": lambda: np.sort(rng.integers(0, 3, size=(n, k)), 0)[rng.permutation(n)],
+         "constant": lambda: np.full((n, k), -2.5)}[kind]()
+    Xt = torch.from_numpy(np.asarray(X, np.float64)).to(dev, dtype)
+    plan = K.midrank_plan(n, k, k)
+    assert plan.route == ("direct" if n * k * 4 <= K.MIDRANK_DIRECT_BYTES or n > 1 << 21
+                          else "partition")
+    got = _counted(K.midranks, lambda: K.midranks(Xt))
+    want = K.midranks_plain(Xt)
+    assert torch.equal(got, want)
+    assert torch.equal(got, K.midranks(Xt))
+    if n <= 1 << 21:
+        ss, order = torch.sort(Xt.T.contiguous(), dim=1)
+        for route in K.MIDRANK_ROUTES:
+            out = torch.full((n, k), -1.0, device=dev)
+            K._midrank_launch(ss, order, out, route)
+            assert torch.equal(out, want), route
+
+
+@pytest.mark.parametrize("n,d,lo,hi", [(5000, 9, 2, 7), (1 << 18, 30, 0, 25), (1 << 18, 30, 25, 26),
+                                       (3000, 200, 128, 200)])
+def test_midranks_write_into_a_slice(dev, n, d, lo, hi):
+    """K-Y into columns [lo, hi) of a wider matrix (rank_transform's blocks):
+    the slice bit-equal to the plain version, the other columns untouched,
+    on both routes."""
+    rng = np.random.default_rng(n + d)
+    X = torch.from_numpy(rng.integers(0, 40, size=(n, hi - lo)).astype(np.float32)).to(dev)
+    wide = torch.full((n, d), -7.0, device=dev)
+    got = _counted(K.midranks, lambda: K.midranks(X, out=wide[:, lo:hi]))
+    assert got.data_ptr() == wide[:, lo:hi].data_ptr()
+    assert torch.equal(wide[:, lo:hi], K.midranks_plain(X))
+    rest = torch.ones(d, dtype=torch.bool, device=dev)
+    rest[lo:hi] = False
+    assert bool((wide[:, rest] == -7.0).all())
+
+
 # ---------------------------------------------------------------------------
 # the sweep's kernels: K-K fista_grad, K-N linear_fista_grad, K-O
 # regression_metrics, K-L binary_metrics, K-M forest_leaf_mean
@@ -1308,6 +1359,50 @@ def test_predict_head_matches_plain(dev, p, mode, k):
     top = torch.topk(raw0, 2, dim=1).values
     near = (top[:, 0] - top[:, 1]) <= (2e-4 if mode == "binary" else 1e-4)
     assert torch.equal(pred[~near], pred0[~near])
+
+
+@pytest.mark.parametrize("p", [1, 7, 10, 16, 1023, 1024, 5001])
+@pytest.mark.parametrize("mode", ["binary", "linear"])
+def test_predict_head_dot_modes_at_their_design_edges(dev, p, mode):
+    """K-AF's dot heads at n below and above the plan's splits (4, 2 and 1
+    warps a row at p = 1,024; a warp a row, then lane groups of 4 row sets
+    up to 32 coefficients), at p % 4 != 0, past the staged coefficients, and
+    with X a view at an offset that is not 16-byte aligned: a row's answer
+    is the same value whatever the batch, the split and the alignment, and
+    within float32 sums of the plain version."""
+    from transmogrifai_tpu_torch.ops import linear as L
+
+    rng = np.random.default_rng(p)
+    n = 20000
+    base = torch.from_numpy(rng.normal(size=n * p + 8).astype(np.float32)).to(dev)
+    X = base[:n * p].view(n, p)
+    Xoff = base[1:n * p + 1].view(n, p)  # 4 bytes past a 16-byte boundary
+    Xoff_aligned = Xoff.clone()
+    coef = torch.from_numpy((rng.normal(size=p) / np.sqrt(p)).astype(np.float32)).to(dev)
+    b = torch.from_numpy(rng.normal(size=1).astype(np.float32)).to(dev)
+    full = _counted(L.predict_head, lambda: L.predict_head(X, coef, b, mode))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    splits = set()
+    for rows in (1, 64, 300, 527, 528, 1055, 1056, 3000, n):
+        splits.add(L.head_plan(rows, p, 1, sms, mode).split)
+        part = L.predict_head(X[:rows], coef, b, mode)
+        for got, want in zip(part, full):
+            assert got is None or torch.equal(got, want[:rows])
+    if p == 1024:
+        assert splits == {1, 2, 4}
+    elif p <= L.HEAD_NARROW_MAX:
+        assert splits == {32, 1 << (p - 1).bit_length()}
+    moved = L.predict_head(Xoff, coef, b, mode)
+    for got, want in zip(moved, L.predict_head(Xoff_aligned, coef, b, mode)):
+        assert got is None or torch.equal(got, want)
+    for got, want in zip(full, L.predict_head(X, coef, b, mode)):
+        assert got is None or torch.equal(got, want)
+    pred0, raw0, _ = L.predict_head_plain(X, coef, b, mode)
+    tol = dict(atol=1e-5, rtol=1e-5)
+    if mode == "linear":
+        torch.testing.assert_close(full[0], pred0, **tol)
+    else:
+        torch.testing.assert_close(full[1], raw0, **tol)
 
 
 @pytest.mark.parametrize("name", ["TITANIC_STOCK", "BOSTON_RIDGE", "TITANIC_XGB"])

@@ -22,21 +22,33 @@
 // Bound on the card: bytes (X read once; 4 d float64 written).
 //
 // K-Y replaces ::_midrank_cols (:487) beyond its sort: for each column of
-// a block sorted by torch.sort (values ss [k, n], their rows order [k, n]),
-// the average-tie midrank (lo + hi + 1) / 2 of every position, lo the first
-// and hi one past the last position of its tie run, scattered back through
-// the permutation into out f32[n, k].  That is the reference's two
-// searchsorteds and its .at[order].set.  One block a segment of 2,048
-// positions of one column (many blocks a column, so a few columns of a
-// million rows fill the card), not one block a column: a first kernel finds
-// each segment's first and last run start, a second scans run starts inside
-// its segment (a block max-scan for lo, a reverse min-scan for hi) and looks
-// back and ahead across segments through the first kernel's results, so a
-// run that crosses a segment boundary (a tie-heavy column has runs of
-// 65,536) costs no more than any other.  Float32 out, as the reference's:
-// (float)(lo + hi + 1) * 0.5 rounds as its int-to-float32 cast does, exact
-// below 2^23 rows.  Bound on the card: bytes (the sort's reads and the
-// scatter).
+// a block sorted by torch.sort (values ss [k, n], their rows order i64[k,
+// n]), the average-tie midrank (lo + hi + 1) / 2 of every position, lo the
+// first and hi one past the last position of its tie run, written through
+// the permutation to out f32[n, ld] (column c at out[r * ld + c], ld >= k).
+// That is the reference's two searchsorteds and its .at[order].set.
+// Bound on the card: bytes (ss, the int64 order and the rank: 16 bytes a
+// float32 position).  Design: a warp takes 32 consecutive positions a step,
+// its lanes on consecutive positions (ss and order read coalesced, streamed
+// past L2 with evict-first loads, order as the int64 the sort gives).  A
+// step's run starts are one ballot; lo and hi of a position are bit scans
+// of its ballot and carries across steps (and warps); the runs through a
+// block's (or warp's) two ends come from a 32-way warp search of the sorted
+// column (at most four probes a side at 2^20 rows), so one launch finds
+// every run, however long.  The ranks go one of two routes
+// (``midrank_plan``).  "direct": a block a segment of 2,048 positions of a
+// column, a warp 256 of them, writing out[order * ld + c]: random 4-byte
+// writes, which merge in L2 while the output is small and reach DRAM as
+// partial sectors once it is not.  "partition", for the wide outputs up to
+// 2^21 rows: a block takes 1,024 positions of each column of an 8-column
+// group (a warp a column), sorts its 8-byte items (lo + hi + 1, the row in
+// its bucket, the column, the bucket) by 2,048-row bucket in shared memory
+// and appends each bucket's items as one run to the bucket's region (one
+// global atomic a bucket); a second kernel places each (group, bucket)'s
+// items in a [2,048][8] shared tile and writes the rows' 8 columns as whole
+// 32-byte sectors.  Past 2^21 rows the direct route takes every shape.
+// Float32 out, as the reference's: (float)(lo + hi + 1) * 0.5 rounds as its
+// int-to-float32 cast does, exact below 2^23 rows.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -46,9 +58,6 @@ namespace {
 constexpr int kCols = 32;   // columns a block (threadIdx.x)
 constexpr int kLanes = 8;   // row lanes a block (threadIdx.y)
 constexpr int kTargetBlocks = 4 * 132;
-constexpr int kSegThreads = 256;
-constexpr int kPerThread = 8;
-constexpr int kSeg = kSegThreads * kPerThread;  // positions a K-Y segment
 
 // min / max that keep a NaN once seen, as jnp.minimum / jnp.maximum
 __device__ __forceinline__ float nan_min(float a, float b) { return (b < a || isnan(b)) ? b : a; }
@@ -204,135 +213,360 @@ int moment_chunk_rows(int n, int dc) {
 // ---------------------------------------------------------------------------
 // K-Y
 // ---------------------------------------------------------------------------
-struct MaxOp {
-  static __device__ __forceinline__ int apply(int a, int b) { return a > b ? a : b; }
-};
-struct MinOp {
-  static __device__ __forceinline__ int apply(int a, int b) { return a < b ? a : b; }
-};
+constexpr int kRankWarps = 8;
+constexpr int kRankThreads = kRankWarps * 32;
+constexpr int kRankSteps = 8;                          // 32-position steps a warp
+constexpr int kRankSeg = kRankWarps * 32 * kRankSteps; // positions a block
+// the partition route: a block takes 1,024 positions of each column of an
+// 8-column group, a warp a column; rows fall in buckets of 2,048
+constexpr int kGroupCols = 8;
+constexpr int kPartSteps = 32;
+constexpr int kPartSpan = 32 * kPartSteps;
+constexpr int kPartItems = kGroupCols * kPartSpan;
+constexpr int kBucketShift = 11;
+constexpr int kBucketRows = 1 << kBucketShift;
+constexpr int kBucketCap = kBucketRows * kGroupCols;   // items a (group, bucket)
+constexpr int kMaxBuckets = 1024;
+constexpr int kPartSmem = kPartItems * (8 + 4) + 3 * kMaxBuckets * 4 + 16;
+constexpr int kPlaceSmem = kBucketRows * kGroupCols * 4;
+constexpr unsigned kFull = 0xffffffffu;
 
-// the exclusive scan of v over the block's threads, in thread order
-// (REVERSE: from the last thread down), with identity ``id``; ``sh`` holds
-// kSegThreads / 32 ints
-template <typename Op, bool REVERSE>
-__device__ int block_exclusive_scan(int v, int id, int* sh) {
-  const unsigned full = 0xffffffffu;
-  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-  constexpr int kWarps = kSegThreads / 32;
-  int incl = v;
-  for (int o = 1; o < 32; o <<= 1) {
-    const int u = REVERSE ? __shfl_down_sync(full, incl, o) : __shfl_up_sync(full, incl, o);
-    if (REVERSE ? lane + o < 32 : lane >= o) incl = Op::apply(incl, u);
+// the first q in [a, b) whose value fails the test (b if none), the test
+// holding on a prefix of [a, b): ``col[q] == v`` (EQUAL) or ``col[q] < v``.
+// The whole warp calls it with the same a, b, v; each round probes 32
+// evenly spaced positions and keeps the span between the last passing and
+// the first failing probe.
+template <typename T, bool EQUAL>
+__device__ int warp_partition(const T* __restrict__ col, int a, int b, T v) {
+  const int lane = threadIdx.x & 31;
+  while (b - a > 32) {
+    const int step = (b - a + 31) >> 5;
+    const int q = a + lane * step;
+    bool pass = false;
+    if (q < b) {
+      const T x = col[q];
+      pass = EQUAL ? x == v : x < v;
+    }
+    const int m = __popc(__ballot_sync(kFull, pass));
+    if (m == 0) return a;
+    const int hi = min(b, a + m * step);
+    a += (m - 1) * step + 1;
+    b = hi;
   }
-  if (lane == (REVERSE ? 0 : 31)) sh[w] = incl;  // the warp's total
-  __syncthreads();
-  int before = id;  // the totals of the warps before this one in scan order
-  for (int q = 0; q < kWarps; ++q)
-    if (REVERSE ? q > w : q < w) before = Op::apply(before, sh[q]);
-  int excl = REVERSE ? __shfl_down_sync(full, incl, 1) : __shfl_up_sync(full, incl, 1);
-  if (lane == (REVERSE ? 31 : 0)) excl = id;
-  __syncthreads();  // sh is free again
-  return Op::apply(excl, before);
+  const int q = a + lane;
+  bool pass = false;
+  if (q < b) {
+    const T x = col[q];
+    pass = EQUAL ? x == v : x < v;
+  }
+  return a + __popc(__ballot_sync(kFull, pass));
 }
 
-template <typename Op>
-__device__ int block_reduce(int v, int id, int* sh) {
-  const int excl = block_exclusive_scan<Op, false>(v, id, sh);
-  __shared__ int total;
-  if (threadIdx.x == kSegThreads - 1) total = Op::apply(excl, v);
-  __syncthreads();
-  const int out = total;
-  __syncthreads();
-  return out;
+// The run starts of a warp's 32 STEPS positions from base (p == 0 or
+// ss[p] != ss[p - 1]), one ballot a step, from its values v.
+template <typename T, int STEPS>
+__device__ __forceinline__ void warp_starts(const T* __restrict__ col, int n, int base,
+                                            const T (&v)[STEPS], unsigned (&starts)[STEPS]) {
+  const int lane = threadIdx.x & 31;
+  T before = (base > 0 && base <= n) ? col[base - 1] : T(0);
+#pragma unroll
+  for (int j = 0; j < STEPS; ++j) {
+    const int p = base + 32 * j + lane;
+    const T up = __shfl_up_sync(kFull, v[j], 1);
+    const T prev = lane == 0 ? before : up;
+    before = __shfl_sync(kFull, v[j], 31);
+    starts[j] = __ballot_sync(kFull, p < n && (p == 0 || prev != v[j]));
+  }
 }
 
-// seg_first / seg_last [k, nseg]: the first and last run start of each
-// segment (n and -1 where it holds none; position 0 always starts a run)
-template <typename T>
-__global__ void midrank_segments(const T* __restrict__ ss, int* __restrict__ seg_first,
-                                 int* __restrict__ seg_last, int n, int nseg) {
-  __shared__ int sh[kSegThreads / 32];
-  const int s = blockIdx.x, c = blockIdx.y;
-  const T* col = ss + (long long)c * n;
-  const int p0 = s * kSeg + threadIdx.x * kPerThread;
-  int first = n, last = -1;
-  for (int e = 0; e < kPerThread; ++e) {
-    const int p = p0 + e;
-    if (p < n && (p == 0 || col[p] != col[p - 1])) {
-      first = min(first, p);
-      last = max(last, p);
+// emit(p, lo + hi + 1, step) for each position p < n of the warp: lo the
+// last run start at or before p (lo_run where the warp has none), hi the
+// first after it (hi_run where none), bit scans of the steps' ballots.
+template <int STEPS, typename Emit>
+__device__ __forceinline__ void warp_emit(int n, int base, const unsigned (&starts)[STEPS],
+                                          int lo_run, int hi_run, Emit emit) {
+  const int lane = threadIdx.x & 31;
+  int lo[STEPS];
+#pragma unroll
+  for (int j = 0; j < STEPS; ++j) {
+    const unsigned upto = starts[j] & (kFull >> (31 - lane));  // starts at lanes <= this
+    lo[j] = upto ? base + 32 * j + 31 - __clz(upto) : lo_run;
+    if (starts[j]) lo_run = base + 32 * j + 31 - __clz(starts[j]);
+  }
+#pragma unroll
+  for (int j = STEPS - 1; j >= 0; --j) {
+    const int p = base + 32 * j + lane;
+    const unsigned after = starts[j] & (0xfffffffeu << lane);  // starts at lanes > this
+    const int hi = after ? base + 32 * j + __ffs(after) - 1 : hi_run;
+    if (starts[j]) hi_run = base + 32 * j + __ffs(starts[j]) - 1;
+    if (p < n) emit(p, lo[j] + hi + 1, j);
+  }
+}
+
+// The midranks of the block's 2,048 positions of a sorted column from seg0
+// (a warp 256 of them): for each position p < n, emit(p, lo + hi + 1,
+// order[p]).  The warps' run carries meet in shared memory; warps 0 and 1
+// search the runs through the segment's two ends.  The whole block calls it.
+template <typename T, typename Emit>
+__device__ void segment_midranks(const T* __restrict__ col, const int64_t* __restrict__ ord,
+                                 int n, int seg0, Emit emit) {
+  __shared__ int s_first[kRankWarps], s_last[kRankWarps];
+  __shared__ int s_back, s_ahead;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int seg1 = min(n, seg0 + kRankSeg);
+  const int base = seg0 + warp * 32 * kRankSteps;
+  T v[kRankSteps];
+  long long o[kRankSteps];
+#pragma unroll
+  for (int j = 0; j < kRankSteps; ++j) {
+    const int p = base + 32 * j + lane;
+    v[j] = T(0);
+    o[j] = 0;
+    if (p < n) {
+      v[j] = __ldcs(col + p);
+      o[j] = __ldcs(reinterpret_cast<const long long*>(ord) + p);
     }
   }
-  first = block_reduce<MinOp>(first, n, sh);
-  last = block_reduce<MaxOp>(last, -1, sh);
-  if (threadIdx.x == 0) {
-    seg_first[(long long)c * nseg + s] = first;
-    seg_last[(long long)c * nseg + s] = last;
+  // the run through the segment's first position starts at s_back; the
+  // first run start past its last position is s_ahead
+  if (warp == 0) {
+    int back = seg0;
+    if (seg0 > 0) {
+      const T first = col[seg0];
+      if (col[seg0 - 1] == first) back = warp_partition<T, false>(col, 0, seg0, first);
+    }
+    if (lane == 0) s_back = back;
+  } else if (warp == 1) {
+    int ahead = seg1;
+    if (seg1 < n) {
+      const T last = col[seg1 - 1];
+      if (col[seg1] == last) ahead = warp_partition<T, true>(col, seg1 + 1, n, last);
+    }
+    if (lane == 0) s_ahead = ahead;
+  }
+  unsigned starts[kRankSteps];
+  warp_starts<T, kRankSteps>(col, n, base, v, starts);
+  int first = n, last = -1;
+#pragma unroll
+  for (int j = 0; j < kRankSteps; ++j) {
+    if (starts[j]) {
+      first = min(first, base + 32 * j + __ffs(starts[j]) - 1);
+      last = max(last, base + 32 * j + 31 - __clz(starts[j]));
+    }
+  }
+  if (lane == 0) {
+    s_first[warp] = first;
+    s_last[warp] = last;
+  }
+  __syncthreads();
+  int lo_run = s_back, hi_run = s_ahead;
+  for (int w = 0; w < kRankWarps; ++w) {
+    if (w < warp) lo_run = max(lo_run, s_last[w]);
+    if (w > warp) hi_run = min(hi_run, s_first[w]);
+  }
+  warp_emit<kRankSteps>(n, base, starts, lo_run, hi_run,
+                        [&](int p, int lohi1, int j) { emit(p, lohi1, o[j]); });
+}
+
+// The midranks of one warp's 32 STEPS positions of a sorted column from
+// base (< n), the warp alone: emit(p, lo + hi + 1) for each p < n.  The
+// warp searches the runs through its own two ends.
+template <typename T, int STEPS, typename Emit>
+__device__ void warp_midranks(const T* __restrict__ col, int n, int base, Emit emit) {
+  const int lane = threadIdx.x & 31;
+  T v[STEPS];
+#pragma unroll
+  for (int j = 0; j < STEPS; ++j) {
+    const int p = base + 32 * j + lane;
+    v[j] = p < n ? __ldcs(col + p) : T(0);
+  }
+  const int end = min(n, base + 32 * STEPS);
+  int back = base, ahead = end;
+  if (base > 0) {
+    const T first = col[base];
+    if (col[base - 1] == first) back = warp_partition<T, false>(col, 0, base, first);
+  }
+  if (end < n) {
+    const T last = col[end - 1];
+    if (col[end] == last) ahead = warp_partition<T, true>(col, end + 1, n, last);
+  }
+  unsigned starts[STEPS];
+  warp_starts<T, STEPS>(col, n, base, v, starts);
+  warp_emit<STEPS>(n, base, starts, back, ahead,
+                   [&](int p, int lohi1, int) { emit(p, lohi1); });
+}
+
+// the midrank of lo + hi + 1, as the reference's int-to-float32 cast
+__device__ __forceinline__ float midrank_of(int lohi1) { return (float)lohi1 * 0.5f; }
+
+// the direct route: segment blockIdx.x of column blockIdx.y, written to
+// out[order * ld + c]
+template <typename T>
+__global__ void __launch_bounds__(kRankThreads)
+midrank_ranks(const T* __restrict__ ss, const int64_t* __restrict__ order,
+              float* __restrict__ out, int n, long long ld) {
+  const int c = blockIdx.y;
+  segment_midranks<T>(ss + (long long)c * n, order + (long long)c * n, n, blockIdx.x * kRankSeg,
+                      [&](int, int lohi1, long long o) { out[o * ld + c] = midrank_of(lohi1); });
+}
+
+// a partition item: lo + hi + 1 (31 bits), the row within its bucket (11),
+// the column within its group (3) and the bucket (10)
+__device__ __forceinline__ unsigned long long pack_item(int lohi1, int row, int cl, int bucket) {
+  return (unsigned long long)lohi1 | ((unsigned long long)(row & (kBucketRows - 1)) << 31) |
+         ((unsigned long long)cl << 42) | ((unsigned long long)bucket << 45);
+}
+
+// The partition route's first pass: block (s, g) ranks positions [s * 1,024,
+// ...) of the group's columns (a warp a column: no barrier among the
+// columns' latencies), sorts its items by row bucket in shared memory
+// (counts, an exclusive scan, a cursor a bucket) and appends each
+// bucket's items as one run to the bucket's region of buf (its place from
+// one atomic a bucket: the order within a region is free, the second pass
+// places every item by its row).
+template <typename T>
+__global__ void __launch_bounds__(kRankThreads, 2)
+midrank_partition(const T* __restrict__ ss, const int64_t* __restrict__ order,
+                  unsigned long long* __restrict__ buf, int* __restrict__ cursors, int n, int k,
+                  int buckets) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  unsigned long long* items = reinterpret_cast<unsigned long long*>(smem);
+  unsigned* rows = reinterpret_cast<unsigned*>(items + kPartItems);
+  int* start = reinterpret_cast<int*>(rows + kPartItems);  // buckets + 1
+  int* cursor = start + kMaxBuckets + 1;
+  int* base = cursor + kMaxBuckets;
+  const int g = blockIdx.y, c0 = g * kGroupCols, gc = min(kGroupCols, k - c0);
+  const int seg0 = blockIdx.x * kPartSpan, span = min(kPartSpan, n - seg0);
+  for (int b = threadIdx.x; b <= buckets; b += kRankThreads) start[b] = 0;
+  __syncthreads();
+  {  // the block's rows: every load issued before the first is used
+    constexpr int kPer = kPartSpan / kRankThreads;
+    const long long* ord = reinterpret_cast<const long long*>(order) + (long long)c0 * n + seg0;
+    unsigned r[kGroupCols][kPer];
+#pragma unroll
+    for (int cl = 0; cl < kGroupCols; ++cl)
+#pragma unroll
+      for (int e = 0; e < kPer; ++e) {
+        const int i = threadIdx.x + kRankThreads * e;
+        r[cl][e] = (cl < gc && i < span) ? (unsigned)__ldcs(ord + (long long)cl * n + i) : 0u;
+      }
+#pragma unroll
+    for (int cl = 0; cl < kGroupCols; ++cl)
+#pragma unroll
+      for (int e = 0; e < kPer; ++e) {
+        const int i = threadIdx.x + kRankThreads * e;
+        if (cl < gc && i < span) {
+          rows[cl * kPartSpan + i] = r[cl][e];
+          atomicAdd(&start[r[cl][e] >> kBucketShift], 1);
+        }
+      }
+  }
+  __syncthreads();
+  // exclusive scan of the counts, 4 buckets a thread (kMaxBuckets = 1,024)
+  {
+    __shared__ int warp_sums[kRankWarps];
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, b0 = 4 * threadIdx.x;
+    int cnt[4], sum = 0;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      cnt[e] = b0 + e < buckets ? start[b0 + e] : 0;
+      sum += cnt[e];
+    }
+    int incl = sum;
+    for (int o = 1; o < 32; o <<= 1) {
+      const int u = __shfl_up_sync(kFull, incl, o);
+      if (lane >= o) incl += u;
+    }
+    if (lane == 31) warp_sums[warp] = incl;
+    __syncthreads();
+    int before = incl - sum;
+    for (int w = 0; w < warp; ++w) before += warp_sums[w];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      if (b0 + e < buckets) {
+        start[b0 + e] = before;
+        cursor[b0 + e] = before;
+      }
+      before += cnt[e];
+    }
+    if (threadIdx.x == kRankThreads - 1) start[buckets] = before;
+  }
+  __syncthreads();
+  for (int b = threadIdx.x; b < buckets; b += kRankThreads) {
+    const int cnt = start[b + 1] - start[b];
+    base[b] = cnt ? atomicAdd(&cursors[g * buckets + b], cnt) : 0;
+  }
+  const int cl = threadIdx.x >> 5;  // a warp a column of the group
+  if (cl < gc) {
+    warp_midranks<T, kPartSteps>(ss + (long long)(c0 + cl) * n, n, seg0, [&](int p, int lohi1) {
+      const int row = (int)rows[cl * kPartSpan + p - seg0];
+      const int b = row >> kBucketShift;
+      items[atomicAdd(&cursor[b], 1)] = pack_item(lohi1, row, cl, b);
+    });
+  }
+  __syncthreads();
+  const int total = start[buckets];
+  for (int i = threadIdx.x; i < total; i += kRankThreads) {
+    const unsigned long long it = items[i];
+    const int b = (int)(it >> 45);
+    buf[(long long)(g * buckets + b) * kBucketCap + base[b] + (i - start[b])] = it;
   }
 }
 
-// out[order[c, p], c] = the midrank of position p of column c
-template <typename T>
-__global__ void midrank_scatter(const T* __restrict__ ss, const int64_t* __restrict__ order,
-                                const int* __restrict__ seg_first,
-                                const int* __restrict__ seg_last, float* __restrict__ out, int n,
-                                int k, int nseg) {
-  __shared__ int sh[kSegThreads / 32];
-  const int s = blockIdx.x, c = blockIdx.y;
-  const T* col = ss + (long long)c * n;
-  // look back and ahead across segments: the last run start before this
-  // segment, the first after it
-  int back = -1, ahead = n;
-  for (int t = threadIdx.x; t < nseg; t += kSegThreads) {
-    if (t < s) back = max(back, seg_last[(long long)c * nseg + t]);
-    if (t > s) ahead = min(ahead, seg_first[(long long)c * nseg + t]);
+// The partition route's second pass: block (b, g) places its bucket's items
+// in a [2,048][8] shared tile and writes the rows' 8 columns (one 32-byte
+// sector each where ld is a multiple of 8).
+__global__ void __launch_bounds__(kRankThreads)
+midrank_place(const unsigned long long* __restrict__ buf, float* __restrict__ out, int n, int k,
+              long long ld, int buckets) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* tile = reinterpret_cast<float*>(smem);
+  const int b = blockIdx.x, g = blockIdx.y, c0 = g * kGroupCols, gc = min(kGroupCols, k - c0);
+  const int r0 = b * kBucketRows, rows = min(kBucketRows, n - r0);
+  const unsigned long long* src = buf + (long long)(g * buckets + b) * kBucketCap;
+  for (int i = threadIdx.x; i < rows * gc; i += kRankThreads) {
+    const unsigned long long it = __ldcs(src + i);
+    const int row = (int)((it >> 31) & (kBucketRows - 1)), cl = (int)((it >> 42) & 7);
+    tile[row * kGroupCols + cl] = midrank_of((int)(it & 0x7fffffffULL));
   }
-  back = block_reduce<MaxOp>(back, -1, sh);
-  ahead = block_reduce<MinOp>(ahead, n, sh);
-  const int p0 = s * kSeg + threadIdx.x * kPerThread;
-  bool start[kPerThread];
-  for (int e = 0; e < kPerThread; ++e) {
-    const int p = p0 + e;
-    start[e] = p < n && (p == 0 || col[p] != col[p - 1]);
-  }
-  int lo[kPerThread], hi[kPerThread];
-  int run = -1;  // the last run start at or before p in this thread's positions
-  for (int e = 0; e < kPerThread; ++e) {
-    if (start[e]) run = p0 + e;
-    lo[e] = run;
-  }
-  const int lo_before = block_exclusive_scan<MaxOp, false>(run, -1, sh);
-  int next = n;  // the first run start after p in this thread's positions
-  for (int e = kPerThread - 1; e >= 0; --e) {
-    hi[e] = next;
-    if (start[e]) next = p0 + e;
-  }
-  const int hi_after = block_exclusive_scan<MinOp, true>(next, n, sh);
-  for (int e = 0; e < kPerThread; ++e) {
-    const int p = p0 + e;
-    if (p >= n) break;
-    const int l = max(lo[e], max(lo_before, back));
-    const int h = min(hi[e], min(hi_after, ahead));
-    const float mid = (float)(l + h + 1) * 0.5f;
-    out[order[(long long)c * n + p] * k + c] = mid;
+  __syncthreads();
+  for (int f = threadIdx.x; f < rows * kGroupCols; f += kRankThreads) {
+    const int r = f / kGroupCols, cl = f % kGroupCols;
+    if (cl < gc) out[(long long)(r0 + r) * ld + c0 + cl] = tile[f];
   }
 }
 
+// route 0 direct, 1 partition
 template <typename T>
-int launch_midranks(const void* ss, const void* order, void* seg_first, void* seg_last, void* out,
-                    int n, int k, void* stream) {
-  if (n <= 0 || k <= 0) return (int)cudaErrorInvalidValue;
+int launch_midranks(const void* ss, const void* order, void* scratch, void* cursors, void* out,
+                    int n, int k, long long ld, int route, void* stream) {
+  if (n <= 0 || k <= 0 || ld < k || k > 65535 || route < 0 || route > 1 ||
+      (route == 1 && (scratch == nullptr || cursors == nullptr)))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  const int nseg = (n + kSeg - 1) / kSeg;
-  const dim3 grid(nseg, k);
-  midrank_segments<T><<<grid, kSegThreads, 0, st>>>((const T*)ss, (int*)seg_first,
-                                                     (int*)seg_last, n, nseg);
-  cudaError_t err = cudaGetLastError();
+  if (route == 0) {
+    const dim3 grid((n + kRankSeg - 1) / kRankSeg, k);
+    midrank_ranks<T><<<grid, kRankThreads, 0, st>>>((const T*)ss, (const int64_t*)order,
+                                                    (float*)out, n, ld);
+    return (int)cudaGetLastError();
+  }
+  const int buckets = (n + kBucketRows - 1) / kBucketRows, groups = (k + kGroupCols - 1) / kGroupCols;
+  if (buckets > kMaxBuckets || groups > 65535) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(midrank_partition<T>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, kPartSmem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(midrank_place, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kPlaceSmem);
+  if (err == cudaSuccess)
+    err = cudaMemsetAsync(cursors, 0, (size_t)groups * buckets * sizeof(int), st);
   if (err != cudaSuccess) return (int)err;
-  midrank_scatter<T><<<grid, kSegThreads, 0, st>>>((const T*)ss, (const int64_t*)order,
-                                                    (const int*)seg_first,
-                                                    (const int*)seg_last, (float*)out, n, k,
-                                                    nseg);
+  midrank_partition<T><<<dim3((n + kPartSpan - 1) / kPartSpan, groups), kRankThreads, kPartSmem,
+                         st>>>((const T*)ss, (const int64_t*)order,
+                               (unsigned long long*)scratch, (int*)cursors, n, k, buckets);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  midrank_place<<<dim3(buckets, groups), kRankThreads, kPlaceSmem, st>>>(
+      (const unsigned long long*)scratch, (float*)out, n, k, ld, buckets);
   return (int)cudaGetLastError();
 }
 
@@ -375,17 +609,15 @@ extern "C" int chunk_moments_f64(const void* X, const void* y, void* partial, vo
   return (int)cudaGetLastError();
 }
 
-// the segments a K-Y column takes, so the caller can size the scratch
-extern "C" int midrank_segments_count(int n) { return n <= 0 ? 0 : (n + kSeg - 1) / kSeg; }
-
 // K-Y over float32 / float64 values: ss [k, n] sorted rows, order i64[k, n],
-// seg_first / seg_last i32[k, nseg] scratch, out f32[n, k]
-extern "C" int midranks_f32(const void* ss, const void* order, void* seg_first, void* seg_last,
-                            void* out, int n, int k, void* stream) {
-  return launch_midranks<float>(ss, order, seg_first, seg_last, out, n, k, stream);
+// out f32[n, ld]; route 0 direct, 1 partition (scratch u64[groups, buckets,
+// 16,384], cursors i32[groups, buckets])
+extern "C" int midranks_f32(const void* ss, const void* order, void* scratch, void* cursors,
+                            void* out, int n, int k, long long ld, int route, void* stream) {
+  return launch_midranks<float>(ss, order, scratch, cursors, out, n, k, ld, route, stream);
 }
 
-extern "C" int midranks_f64(const void* ss, const void* order, void* seg_first, void* seg_last,
-                            void* out, int n, int k, void* stream) {
-  return launch_midranks<double>(ss, order, seg_first, seg_last, out, n, k, stream);
+extern "C" int midranks_f64(const void* ss, const void* order, void* scratch, void* cursors,
+                            void* out, int n, int k, long long ld, int route, void* stream) {
+  return launch_midranks<double>(ss, order, scratch, cursors, out, n, k, ld, route, stream);
 }

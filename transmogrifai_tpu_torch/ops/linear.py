@@ -1197,8 +1197,81 @@ HEAD_MODES = ("binary", "softmax", "linear")
 #: the most classes K-AF's softmax mode takes: the softmax fits' bound
 HEAD_MAX_CLASSES = SOFTMAX_MAX_CLASSES
 _HEAD_SIGNATURES = {"predict_head_f32": ([ctypes.c_void_p] * 6
-                                         + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                                            ctypes.c_int, ctypes.c_void_p], ctypes.c_int)}
+                                         + [ctypes.c_longlong] + [ctypes.c_int] * 7
+                                         + [ctypes.c_void_p], ctypes.c_int)}
+#: K-AF's entries (``csrc/predict_head.cu``): the softmax head a warp a row;
+#: the dot heads a row on a lane group (up to ``HEAD_NARROW_MAX``
+#: coefficients), past that four quarters of a row over 1, 2 or 4 warps
+HEAD_ENTRIES = ("softmax", "lane_groups", "quarters")
+# the constants of csrc/predict_head.cu: warps a block, the quarters a dot
+# head's row is cut into, the lane groups' widest row and the most row sets
+# a warp keeps in flight
+HEAD_WARPS = 8
+HEAD_QUARTERS = 4
+HEAD_NARROW_MAX = 32
+HEAD_GROUP_BATCHES = 4
+#: the dot heads' blocks an SM at most (past them the rows are grid-strided)
+_HEAD_BLOCKS_PER_SM = 8
+#: the softmax head's blocks, at most
+_HEAD_SOFTMAX_BLOCKS = 4096
+
+
+class HeadPlan(NamedTuple):
+    """The launch of K-AF over n rows (``head_plan``)."""
+
+    entry: str            # one of ``HEAD_ENTRIES``
+    split: int            # lanes a row (lane groups), warps a row (quarters), 1 (softmax)
+    batches: int          # the lane groups' row sets a warp at once (else 1)
+    rows_per_block: int   # rows a block takes at a time
+    blocks: int
+
+
+def head_plan(n: int, p: int, k: int, sm_count: int, mode: str = "binary") -> HeadPlan:
+    """K-AF's launch for ``mode`` over X [n, p] (k classes in the softmax
+    mode): the softmax head a warp a row; a dot head (binary, linear) at 1
+    to ``HEAD_NARROW_MAX`` coefficients a warp a row while that fills no
+    more than the card's blocks, past that a row on the fewest lanes (a
+    power of two) that hold it, 32 / lanes rows a warp, in 4 sets at once
+    (at 32 lanes only where one set a warp would more than fill them; the
+    sums are the same on any lanes: the lanes past p add 0); past 32
+    coefficients its quarters over 2 or 4 warps a row while the rows alone
+    leave the card's ``sm_count`` SMs short of a block each and each warp
+    keeps at least two 4-coefficient chunks a lane, 8 / warps rows a block;
+    at most 8 blocks an SM, the rows grid-strided past them.  The entry and
+    a row's sums hang on p alone."""
+    if mode not in HEAD_MODES:
+        raise ValueError(f"unknown head mode {mode!r}: one of {HEAD_MODES}")
+    if n < 1 or p < 0 or k < 1 or sm_count < 1:
+        raise ValueError("head_plan takes n >= 1, p >= 0, k >= 1 and sm_count >= 1")
+    if mode == "softmax":
+        return HeadPlan("softmax", 1, 1, HEAD_WARPS, min(-(-n // HEAD_WARPS), _HEAD_SOFTMAX_BLOCKS))
+    if 1 <= p <= HEAD_NARROW_MAX:
+        cap = sm_count * _HEAD_BLOCKS_PER_SM
+        # a warp a row while that fills no more than the card's blocks
+        lanes = 32 if n <= HEAD_WARPS * cap else 1 << (p - 1).bit_length()
+        rows = HEAD_WARPS * (32 // lanes)
+        batches = HEAD_GROUP_BATCHES if lanes < 32 or n > rows * cap else 1
+        rows *= batches
+        return HeadPlan("lane_groups", lanes, batches, rows, min(-(-n // rows), cap))
+    chunks = -(-p // 4)
+    warps = 1
+    while (warps < HEAD_QUARTERS and n * warps < sm_count * HEAD_WARPS
+           and chunks >= 2 * 32 * 2 * warps):
+        warps *= 2
+    rows = HEAD_WARPS // warps
+    return HeadPlan("quarters", warps, 1, rows, min(-(-n // rows), sm_count * _HEAD_BLOCKS_PER_SM))
+
+
+_SM_COUNTS: dict = {}
+
+
+def _sm_count(device: torch.device) -> int:
+    """The card's SMs, read once a device (before any graph capture: the
+    head's first call is a bucket's eager warm-up)."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    if index not in _SM_COUNTS:
+        _SM_COUNTS[index] = torch.cuda.get_device_properties(index).multi_processor_count
+    return _SM_COUNTS[index]
 
 
 def predict_head_plain(X: torch.Tensor, coef: torch.Tensor, intercept: torch.Tensor,
@@ -1245,7 +1318,8 @@ def predict_head(X: torch.Tensor, coef: torch.Tensor, intercept: torch.Tensor, m
     ``softmax``: coef f32[p, k], intercept f32[k] (k <= ``HEAD_MAX_CLASSES``):
     raw z, prob the softmax of z, pred its first arg-max.  ``linear``: coef
     f32[p], intercept f32[1..]: pred ``X coef + intercept[0]``, no raw or
-    prob."""
+    prob.  On the card one launch of ``head_plan``; a row's answer does not
+    depend on the plan, the batch or X's alignment."""
     _check_head(X, coef, intercept, mode)
     if not _on_cuda(X, coef, intercept):
         return predict_head_plain(X, coef, intercept, mode)
@@ -1260,12 +1334,14 @@ def predict_head(X: torch.Tensor, coef: torch.Tensor, intercept: torch.Tensor, m
         prob = torch.empty((n, width), dtype=torch.float32, device=X.device)
     if n == 0:
         return pred, raw, prob
+    plan = head_plan(n, p, k, _sm_count(X.device), mode)
     lib = cuda_build.load("predict_head", _HEAD_SIGNATURES)
     with torch.cuda.device(X.device):
         rc = lib.predict_head_f32(X.data_ptr(), coef.data_ptr(), intercept.data_ptr(),
                                   pred.data_ptr(), None if raw is None else raw.data_ptr(),
                                   None if prob is None else prob.data_ptr(), n, p, k,
-                                  HEAD_MODES.index(mode),
+                                  HEAD_MODES.index(mode), HEAD_ENTRIES.index(plan.entry),
+                                  plan.split, plan.batches, plan.blocks,
                                   ctypes.c_void_p(torch.cuda.current_stream(X.device).cuda_stream))
     cuda_build.check_launch("predict_head", rc)
     predict_head.launches += 1

@@ -22,10 +22,13 @@ and the device programs of ``transmogrifai_tpu/parallel/stats.py``:
   of ``_fused_stats_step``: ``Z^T Z`` of ``Z = [X | y] - centers``, float64.
 - ``midranks`` (K-Y, ``csrc/stream_stats.cu``) — ``_midrank_cols`` (:487):
   each column's average-tie midranks (1-based), float32; ``torch.sort``
-  sorts the columns, the kernel finds the tie runs and scatters.
+  sorts the columns, the kernel finds the tie runs and writes each rank
+  through the permutation by the route of ``midrank_plan``.
 
-All are CUDA, with fixed-order partial sums and no atomics, so runs repeat
-bit for bit; K-I's launches (both modes) are planned by ``gram_plan``.  The
+All are CUDA, with fixed-order partial sums, so runs repeat bit for bit (K-Y's
+partition route places its items through atomic cursors, in a free order,
+and each rank once by its row); K-I's launches (both modes) are planned by
+``gram_plan``.  The
 plain PyTorch version of each sits beside it; a wrapper takes it only for
 CPU tensors, and for CUDA tensors launches its kernel or raises.
 ``<wrapper>.launches`` counts the wrapper's launches, and
@@ -34,7 +37,7 @@ CPU tensors, and for CUDA tensors launches its kernel or raises.
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -57,11 +60,10 @@ _STREAM_SIGNATURES = {
     "chunk_moments_chunks": ([ctypes.c_int] * 2, ctypes.c_int),
     "chunk_moments_f64": ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
                           ctypes.c_int),
-    "midrank_segments_count": ([ctypes.c_int], ctypes.c_int),
-    "midranks_f32": ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [ctypes.c_void_p],
-                     ctypes.c_int),
-    "midranks_f64": ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [ctypes.c_void_p],
-                     ctypes.c_int),
+    "midranks_f32": ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 2
+                     + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p], ctypes.c_int),
+    "midranks_f64": ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 2
+                     + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p], ctypes.c_int),
 }
 #: K-X's modes: the raw sums of ``_moments_step``, Chan's centered moments
 MOMENT_MODES = ("raw", "chan")
@@ -364,6 +366,63 @@ centered_gram.launches = 0
 # ---------------------------------------------------------------------------
 # K-Y midranks
 # ---------------------------------------------------------------------------
+#: the routes of K-Y's ranks (``csrc/stream_stats.cu``): straight to the
+#: output; through row buckets (a block's items sorted by bucket in shared
+#: memory, written as runs, then each bucket placed in shared memory and
+#: written as whole rows of 8-column groups)
+MIDRANK_ROUTES = ("direct", "partition")
+# the constants of csrc/stream_stats.cu: positions a direct block (8 warps
+# of 8 32-position steps); the partition's positions a column a block (one
+# warp's), its column group, rows a bucket and most buckets
+RANK_SEG = 2048
+RANK_WARP_SPAN = 256
+PART_SPAN = 1024
+PART_WARP_SPAN = 1024
+PART_GROUP_COLS = 8
+PART_BUCKET_ROWS = 2048
+PART_MAX_BUCKETS = 1024
+#: the widest output the direct route writes below the partition's bucket
+#: limit, between the sides timed on the H100 (``kernel_turns.py --set
+#: ranks``): the direct route ahead on the sanity checker's 100,000 x 24
+#: (9.6 MB, its random writes merging in L2), the partition on tie-heavy
+#: [2^20, 4] (16.8 MB) and on every wider output
+MIDRANK_DIRECT_BYTES = 12 << 20
+
+
+class MidrankPlan(NamedTuple):
+    """The launch of K-Y over k sorted columns of n rows into out f32[n,
+    ld] (``midrank_plan``)."""
+
+    route: str          # one of ``MIDRANK_ROUTES``
+    segments: int       # ranking blocks a column (a column group, partition)
+    groups: int         # the partition's 8-column groups (else 0)
+    buckets: int        # its row buckets (else 0)
+    scratch_bytes: int  # the buckets' 8-byte items (partition; else 0)
+    cursors: int        # int32 cursors, one a (group, bucket) (partition)
+
+
+def midrank_plan(n: int, k: int, ld: int, route: Optional[str] = None) -> MidrankPlan:
+    """K-Y's route over [n, k] into an output of leading dimension ld:
+    direct where the output's span fits ``MIDRANK_DIRECT_BYTES`` or the rows
+    pass the partition's ``PART_MAX_BUCKETS`` buckets (2^21 rows); else the
+    partition.  ``route`` asks for one route (to time both on one shape);
+    the partition takes at most 2^21 rows."""
+    _require(n >= 1 and k >= 1 and ld >= k, "midrank_plan takes n, k >= 1 and ld >= k")
+    buckets = -(-n // PART_BUCKET_ROWS)
+    if route is None:
+        direct = n * ld * 4 <= MIDRANK_DIRECT_BYTES or buckets > PART_MAX_BUCKETS
+        route = "direct" if direct else "partition"
+    _require(route in MIDRANK_ROUTES, f"route must be one of {MIDRANK_ROUTES}")
+    if route == "direct":
+        return MidrankPlan("direct", -(-n // RANK_SEG), 0, 0, 0, 0)
+    _require(buckets <= PART_MAX_BUCKETS,
+             f"the partition takes at most {PART_MAX_BUCKETS * PART_BUCKET_ROWS} rows")
+    groups = -(-k // PART_GROUP_COLS)
+    return MidrankPlan("partition", -(-n // PART_SPAN), groups, buckets,
+                       groups * buckets * PART_BUCKET_ROWS * PART_GROUP_COLS * 8,
+                       groups * buckets)
+
+
 def _sorted_columns(X: torch.Tensor):
     """(values [k, n], their rows [k, n]) of each column of X [n, k] sorted."""
     return torch.sort(X.T.contiguous(), dim=1)
@@ -379,16 +438,30 @@ def midranks_plain(X: torch.Tensor) -> torch.Tensor:
     return torch.empty_like(mid).scatter_(1, order, mid).T.contiguous()
 
 
-def midranks(X: torch.Tensor) -> torch.Tensor:
+def _check_out(out, X: torch.Tensor) -> None:
+    n, k = X.shape
+    _require(out.dtype == torch.float32 and tuple(out.shape) == (n, k)
+             and out.device == X.device and (n <= 1 or out.stride(1) == 1)
+             and out.stride(0) >= k,
+             f"out must be float32[{n}, {k}] on {X.device} with unit column stride")
+
+
+def midranks(X: torch.Tensor, out=None) -> torch.Tensor:
     """The average-tie midranks (1-based) f32[n, k] of each column of X
-    f32 or f64[n, k], as ``_midrank_cols``: exact below 2^23 rows."""
+    f32 or f64[n, k], as ``_midrank_cols``: exact below 2^23 rows.  With
+    ``out`` (f32[n, k], rows ``out.stride(0)`` apart: a slice of a wider
+    matrix) the ranks are written there and ``out`` is returned."""
     _require(X.dtype in (torch.float32, torch.float64) and X.ndim == 2,
              "X must be float32 or float64[n, k]")
     n, k = X.shape
     _require(n < (1 << 30), "midranks takes fewer than 2^30 rows")
+    if out is not None:
+        _check_out(out, X)
     if not _on_cuda(X):
-        return midranks_plain(X)
-    out = torch.empty((n, k), dtype=torch.float32, device=X.device)
+        ranks = midranks_plain(X)
+        return ranks if out is None else out.copy_(ranks)
+    if out is None:
+        out = torch.empty((n, k), dtype=torch.float32, device=X.device)
     if n == 0 or k == 0:
         return out
     ss, order = _sorted_columns(X)
@@ -396,17 +469,25 @@ def midranks(X: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def _midrank_launch(ss: torch.Tensor, order: torch.Tensor, out: torch.Tensor) -> None:
+def _midrank_launch(ss: torch.Tensor, order: torch.Tensor, out: torch.Tensor,
+                    route: Optional[str] = None) -> None:
     """K-Y on sorted columns ss [k, n] and their rows order i64[k, n], into
-    out f32[n, k] (every entry written)."""
+    out f32[n, k] (rows ``out.stride(0)`` apart; every entry written), by
+    ``midrank_plan``'s route or by ``route``."""
     k, n = ss.shape
+    ld = out.stride(0) if n > 1 else k
+    plan = midrank_plan(n, k, ld, route)
     lib = cuda_build.load("stream_stats", _STREAM_SIGNATURES)
-    nseg = lib.midrank_segments_count(n)
-    seg = torch.empty((2, k, nseg), dtype=torch.int32, device=ss.device)
+    scratch = cursors = None
+    if plan.scratch_bytes:
+        scratch = torch.empty(-(-plan.scratch_bytes // 8), dtype=torch.int64, device=ss.device)
+    if plan.cursors:
+        cursors = torch.empty(plan.cursors, dtype=torch.int32, device=ss.device)
     fn = lib.midranks_f32 if ss.dtype == torch.float32 else lib.midranks_f64
     with torch.cuda.device(ss.device):
-        rc = fn(ss.data_ptr(), order.data_ptr(), seg[0].data_ptr(), seg[1].data_ptr(),
-                out.data_ptr(), n, k, _stream(ss))
+        rc = fn(ss.data_ptr(), order.data_ptr(), None if scratch is None else scratch.data_ptr(),
+                None if cursors is None else cursors.data_ptr(), out.data_ptr(), n, k, ld,
+                MIDRANK_ROUTES.index(plan.route), _stream(ss))
     cuda_build.check_launch("midranks", rc)
     midranks.launches += 1
 

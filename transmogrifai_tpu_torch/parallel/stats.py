@@ -218,7 +218,7 @@ def rank_transform(X, block_cols: int = 128, device=None) -> torch.Tensor:
     n, d = X.shape
     out = torch.empty((n, d), dtype=torch.float32, device=X.device)
     for lo in range(0, d, block_cols):
-        out[:, lo:lo + block_cols] = K.midranks(X[:, lo:lo + block_cols])
+        K.midranks(X[:, lo:lo + block_cols], out=out[:, lo:lo + block_cols])
     return out
 
 

@@ -23,18 +23,33 @@ on [100000, 23] as the stock train's checker takes it, and at d = 85 and 300;
 the centered mode on the scale train's [262144, 25] chunk and at 2^18 x 513),
 each beside ``torch.mm`` on the same operands (``*_library``; the centered
 mode's on the pre-centered float64 chunk, as ``chip_smoke.py`` times it).
+``--set ranks``: K-Y (``midranks``: the route, ``*_sort`` its sort,
+``*_stage`` the kernel on the sorted columns, ``*_stage_direct`` and
+``*_stage_partition`` each of its routes there where the package has both,
+``*_scatter`` ``scatter_`` of the ordinal ranks on the same operands,
+``*_library`` sort + ``scatter_``) on the sanity checker's Titanic vector
+(``checker_vector``: [1048576, 24], the main path's columns, and its first
+2^19, 2^18 and 100,000 rows), on normal draws at [1048576, 24] in float32
+and float64, on tie-heavy [1048576, 4] columns and at 2^18 x 512, with each
+stage's bound (``bound_ms``: the values, the int64 order and the rank once a
+position), and K-AF (``predict_head``) at
+the serve fixtures' heads (titanic_stock, letters_stock, boston_ridge at 64
+and 1,024 rows; titanic_stock at 2^18), and binary at p = 1,024 (64 and
+1,024 rows), each beside ``torch.addmm`` on the same operands.
 
 Usage, on a host with a CUDA card (run as a file, so that the package is
 imported from ``--root`` alone)::
 
     python3 transmogrifai_tpu_torch/tools/kernel_turns.py --root DIR [--set classes] [--reps 20]
     python3 transmogrifai_tpu_torch/tools/kernel_turns.py --root DIR --set stats
+    python3 transmogrifai_tpu_torch/tools/kernel_turns.py --root DIR --set ranks
     python3 transmogrifai_tpu_torch/tools/kernel_turns.py --root DIR --set trains --reps 1 \
         [--only letters_stock,text_wide_newton_svc]
 
 Prints one JSON line: the card's name and power limit, and for each shape the
-median of ``--reps`` CUDA-event runs (L2 flushed) in ms.  The inputs are made
-from a seed with numpy, the same for every root.
+median of ``--reps`` CUDA-event runs (L2 flushed) in ms (``--set ranks``
+also the stages' bounds).  The inputs are made from a seed with numpy, the
+same for every root.
 """
 import argparse
 import json
@@ -205,9 +220,103 @@ def stats_shapes(torch, dev):
     return out
 
 
+def _ranks_library(torch, X, ordinal):
+    """Sort + ``scatter_`` of the ordinal ranks: ``chip_smoke.py``'s
+    ``ranks_library``, K-Y's yardstick."""
+    order = torch.sort(X.T.contiguous(), dim=1)[1]
+    return torch.empty(order.shape, dtype=torch.float32, device=X.device).scatter_(
+        1, order, ordinal)
+
+
+#: ``--set ranks``: K-Y's shapes (label, rows, columns, dtype, columns):
+#: "checker" the sanity checker's Titanic vector (``checker_vector``: the
+#: main path's columns, its first rows below 2^20), "normal" draws,
+#: "ties" integers in [0, 16)
+RANK_SHAPES = (("checker", 1 << 20, 24, "float32", "checker"),
+               ("checker_r19", 1 << 19, 24, "float32", "checker"),
+               ("checker_r18", 1 << 18, 24, "float32", "checker"),
+               ("checker_100k", 100000, 24, "float32", "checker"),
+               ("f32", 1 << 20, 24, "float32", "normal"), ("f64", 1 << 20, 24, "float64", "normal"),
+               ("ties", 1 << 20, 4, "float32", "ties"), ("wide", 1 << 18, 512, "float32", "normal"))
+
+
+def checker_vector(torch, dev, rows):
+    """The vector f32[rows, 24] that the Titanic flow's sanity checker
+    ranks in ``chip_smoke.py``'s Spearman scale train: the flow's features
+    (``apps/titanic.build_workflow``) fitted and made on
+    ``chip_smoke.titanic_columns(rows, 0)`` (its ``--stats-rows`` and
+    ``--seed`` defaults), the whole frame being the checker's sample."""
+    from transmogrifai_tpu_torch import OpWorkflow
+    from transmogrifai_tpu_torch.apps import titanic
+
+    _, pred = titanic.build_workflow()
+    features = pred.origin_stage.inputs[1].origin_stage.inputs[1]  # selector <- checker <- vector
+    model = OpWorkflow().set_result_features(features).set_input_dataset(
+        _chip_smoke().titanic_columns(rows, 0), key="PassengerId").train(device=dev)
+    return model.train_data[features.name].values.contiguous()
+
+
+def ranks_shapes(torch, dev):
+    """{name: a call of K-Y or K-AF at the ``--set ranks`` shapes, and the
+    calls it is read beside}, and {name: the K-Y stage's bound in ms}."""
+    import numpy as np
+
+    import transmogrifai_tpu_torch as P
+    from transmogrifai_tpu_torch import fixtures as FX
+    from transmogrifai_tpu_torch.ops import linear as L
+    from transmogrifai_tpu_torch.ops import stats as K
+
+    rng = np.random.default_rng(20)
+    out, bounds = {}, {}
+    checker = checker_vector(torch, dev, max(n for _, n, _, _, kind in RANK_SHAPES
+                                             if kind == "checker"))
+    for label, n, k, dtype, kind in RANK_SHAPES:
+        if kind == "checker":
+            X = checker[:n].contiguous().to(getattr(torch, dtype))
+        else:
+            A = rng.integers(0, 16, (n, k)) if kind == "ties" else rng.normal(size=(n, k)) * 3 + 1
+            X = torch.from_numpy(A.astype(dtype)).to(dev)
+        ss, order = torch.sort(X.T.contiguous(), dim=1)
+        res = torch.empty((n, k), dtype=torch.float32, device=dev)
+        ordinal = torch.arange(1, n + 1, dtype=torch.float32, device=dev).expand(k, n)
+        ranked = torch.empty((k, n), dtype=torch.float32, device=dev)
+        name = f"midranks_{label}"
+        out[name] = lambda X=X: K.midranks(X)
+        out[name + "_sort"] = lambda X=X: torch.sort(X.T.contiguous(), dim=1)
+        out[name + "_stage"] = lambda a=(ss, order, res): K._midrank_launch(*a)
+        for route in getattr(K, "MIDRANK_ROUTES", ()):  # each route on the same operands
+            if n <= K.PART_MAX_BUCKETS * K.PART_BUCKET_ROWS:
+                out[f"{name}_stage_{route}"] = \
+                    lambda a=(ss, order, res, route): K._midrank_launch(*a)
+        out[name + "_scatter"] = lambda a=(ranked, order, ordinal): a[0].scatter_(1, a[1], a[2])
+        out[name + "_library"] = lambda X=X, ordinal=ordinal: _ranks_library(torch, X, ordinal)
+        bounds[name + "_stage"] = n * k * (X.element_size() + 8 + 4) / 3.35e12 * 1e3
+    smoke = _chip_smoke()
+    for nm in ("titanic_stock", "letters_stock", "boston_ridge"):
+        model = P.load_model(getattr(FX, nm.upper()), device=dev)
+        cols = FX.load_columns(getattr(FX, nm.upper()) + "/requests.npz")
+        finite = ~smoke.serve_records_of(FX, nm)[1]
+        cols = {c: v[finite] for c, v in cols.items()}
+        for rows in (64, 1024) + ((1 << 18,) if nm == "titanic_stock" else ()):
+            X, coef, b, mode = smoke.head_inputs(torch, model, cols, rows)
+            w = coef if mode == "softmax" else coef[:, None]
+            bias = b if mode == "softmax" else b[:1]
+            out[f"predict_head_{nm}_{rows}"] = lambda a=(X, coef, b, mode): L.predict_head(*a)
+            out[f"predict_head_{nm}_{rows}_library"] = lambda a=(bias, X, w): torch.addmm(*a)
+    Xw = torch.from_numpy(rng.normal(size=(1024, 1024)).astype(np.float32)).to(dev)
+    cw = torch.from_numpy((rng.normal(size=1024) / 32).astype(np.float32)).to(dev)
+    bw = torch.zeros(1, device=dev)
+    for rows in (64, 1024):
+        Xr = Xw[:rows]
+        out[f"predict_head_p1024_{rows}"] = lambda Xr=Xr: L.predict_head(Xr, cw, bw, "binary")
+        out[f"predict_head_p1024_{rows}_library"] = lambda Xr=Xr: torch.addmm(bw, Xr,
+                                                                               cw[:, None])
+    return out, bounds
+
+
 def _chip_smoke():
     """``chip_smoke.py`` of this tool's own checkout (not ``--root``'s): the
-    wide phase's inputs and yardsticks."""
+    wide phase's inputs and yardsticks, the serve heads' inputs."""
     import importlib.util
 
     path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "..", "chip_smoke.py")
@@ -378,9 +487,15 @@ def measure(root: str, reps: int, which: str = "classes", only=None) -> dict:
         smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                               "--format=csv,noheader"], capture_output=True, text=True).stdout
         return {"root": root, "card": smi.strip(), "wall_s": train_walls(reps, only)}
-    calls = (shapes(torch, Tr, L, M, dev) if which == "classes" else
-             wide_shapes(torch, L, dev) if which == "wide" else
-             stats_shapes(torch, dev) if which == "stats" else family_shapes(torch, dev))
+    bounds = None
+    if which == "ranks":
+        calls, bounds = ranks_shapes(torch, dev)
+    else:
+        calls = (shapes(torch, Tr, L, M, dev) if which == "classes" else
+                 wide_shapes(torch, L, dev) if which == "wide" else
+                 stats_shapes(torch, dev) if which == "stats" else family_shapes(torch, dev))
+    if only:
+        calls = {name: fn for name, fn in calls.items() if name.startswith(tuple(only))}
     res = {name: median_ms(fn) for name, fn in calls.items()}
     if which == "families" and all(_names_rival(cuda_build, src) for src in ("sgns", "lda")):
         cuda_build.NVCC_FLAGS = cuda_build.NVCC_FLAGS + RIVAL_FLAGS
@@ -391,18 +506,20 @@ def measure(root: str, reps: int, which: str = "classes", only=None) -> dict:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip()
     return {"root": root, "card": smi, "ms": res,
-            "package": os.path.dirname(os.path.dirname(os.path.abspath(Tr.__file__)))}
+            "package": os.path.dirname(os.path.dirname(os.path.abspath(Tr.__file__))),
+            **({"bound_ms": bounds} if bounds else {})}
 
 
 if __name__ == "__main__":
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", required=True, help="the checkout whose package to time")
     ap.add_argument("--set", default="classes",
-                    choices=("classes", "families", "wide", "stats", "trains"),
+                    choices=("classes", "families", "wide", "stats", "ranks", "trains"),
                     help="which kernels' narrow shapes (or which trains) to time")
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--only", default="",
-                    help="--set trains: the flows to time, comma-separated (default all)")
+                    help="the flows (--set trains) or the names' prefixes to time, "
+                         "comma-separated (default all)")
     args = ap.parse_args()
     only = [name for name in args.only.split(",") if name]
     print(json.dumps(measure(args.root, args.reps, args.set, only)), flush=True)
